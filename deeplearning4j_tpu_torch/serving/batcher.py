@@ -1,0 +1,257 @@
+"""Continuous micro-batching dispatcher (counterpart of
+deeplearning4j_tpu/serving/batcher.py, without its tracing, goodput and
+priority hooks).
+
+HTTP handler threads only enqueue: each request becomes a ticket
+``(features, rows, future)`` in a bounded queue, and one device thread
+drains what is pending, concatenates compatible tickets into one padded
+power-of-two bucket forward, and scatters the result rows back to each
+ticket's future.
+
+- Compatibility: tickets coalesce only when their per-row shapes match.
+- Linger: with a shallow queue the device thread waits up to
+  ``batch_window_ms`` for more tickets; a full bucket launches at once.
+- Backpressure: ``submit`` raises ``QueueFullError`` once ``max_queue``
+  tickets are pending (the server answers 503 + ``Retry-After``).
+- Drain: ``stop()`` runs every pending ticket before the thread exits.
+- ``min_batch`` (2 by default) is the smallest bucket, so every forward
+  takes the same batched code path.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from concurrent.futures import Future
+
+import numpy as np
+
+
+class QueueFullError(RuntimeError):
+    """Admission control: the pending-ticket queue is at ``max_queue``."""
+
+
+class BatcherDeadError(RuntimeError):
+    """The device thread died on an error that was not a request's."""
+
+
+def bucket_ladder(min_batch: int, max_batch: int) -> list[int]:
+    """min_batch, 2*min_batch, ... capped at max_batch."""
+    ladder = []
+    b = max(1, int(min_batch))
+    while True:
+        ladder.append(min(b, int(max_batch)))
+        if b >= max_batch:
+            break
+        b *= 2
+    return ladder
+
+
+def next_bucket(n: int, max_batch: int, min_batch: int = 1) -> int:
+    """The power-of-two bucket for ``n`` rows, at least ``min_batch``,
+    capped at ``max_batch`` (larger requests are chunked by the caller)."""
+    b = max(1, int(min_batch))
+    while b < n:
+        b *= 2
+    return min(b, max_batch)
+
+
+class _Ticket:
+    __slots__ = ("feats", "rows", "key", "future")
+
+    def __init__(self, feats, rows, key):
+        self.feats = feats
+        self.rows = rows
+        self.key = key
+        self.future = Future()
+
+
+class MicroBatcher:
+    """Bounded ticket queue + one device thread.
+
+    ``forward(feats)`` receives the padded bucket-shaped input list and
+    returns the model output as a numpy array with ``bucket`` rows. It
+    runs only on the device thread (and in ``warm()``)."""
+
+    def __init__(self, forward, *, max_batch: int = 1024,
+                 batch_window_ms: float = 2.0, max_queue: int = 1024,
+                 min_batch: int = 2, stats=None):
+        self._forward = forward
+        self.max_batch = int(max_batch)
+        self.min_batch = min(int(min_batch), self.max_batch)
+        self.batch_window_ms = float(batch_window_ms)
+        self.max_queue = int(max_queue)
+        self.stats = stats
+        self.shapes_seen: set[int] = set()
+        self._pending: deque[_Ticket] = deque()
+        self._cond = threading.Condition()
+        self._thread = None
+        self._stopping = False
+        self._crashed = False
+        if stats is not None:
+            stats.queue_depth_fn = lambda: len(self._pending)
+
+    @property
+    def depth(self) -> int:
+        return len(self._pending)
+
+    @property
+    def healthy(self) -> bool:
+        if self._crashed:
+            return False
+        t = self._thread
+        return not (t is not None and not t.is_alive() and not self._stopping)
+
+    def warm(self, row_shapes) -> list[int]:
+        """Run the whole bucket ladder once on zero inputs of the given
+        per-input row shapes, so the first requests pay no build or
+        first-launch cost. Call before serving traffic."""
+        ran = []
+        for bucket in bucket_ladder(self.min_batch, self.max_batch):
+            feats = [np.zeros((bucket,) + tuple(s), np.float32)
+                     for s in row_shapes]
+            self._forward(feats)
+            self.shapes_seen.add(bucket)
+            ran.append(bucket)
+        return ran
+
+    # ------------------------------------------------------------- lifecycle
+    def start(self):
+        if self._thread is not None:
+            return self
+        with self._cond:
+            if self._thread is None:
+                self._stopping = False
+                t = threading.Thread(target=self._loop, daemon=True,
+                                     name="microbatcher-device")
+                t.start()
+                self._thread = t
+        return self
+
+    def stop(self, timeout: float = 60.0):
+        """Graceful drain: every accepted ticket runs before the device
+        thread exits; later submits are refused."""
+        with self._cond:
+            self._stopping = True
+            self._cond.notify_all()
+            t = self._thread
+        if t is not None:
+            t.join(timeout=timeout)
+            with self._cond:
+                self._thread = None
+
+    # --------------------------------------------------------------- enqueue
+    def submit(self, feats: list) -> Future:
+        """Enqueue one request (one array per model input, equal leading
+        row counts <= max_batch); the Future resolves to its rows of the
+        output."""
+        rows = int(feats[0].shape[0])
+        if rows > self.max_batch:
+            raise ValueError(f"ticket of {rows} rows > max_batch "
+                             f"{self.max_batch} — chunk before submit")
+        key = tuple(tuple(f.shape[1:]) for f in feats)
+        t = _Ticket(feats, rows, key)
+        with self._cond:
+            if not self.healthy:
+                raise BatcherDeadError("device thread is dead")
+            if self._stopping:
+                raise RuntimeError("batcher is stopped")
+            if len(self._pending) >= self.max_queue:
+                if self.stats is not None:
+                    self.stats.record_rejected()
+                raise QueueFullError(
+                    f"{len(self._pending)} tickets pending "
+                    f"(max_queue={self.max_queue})")
+            self._pending.append(t)
+            self._cond.notify_all()
+        return t.future
+
+    # ----------------------------------------------------------- device side
+    def _gather_locked(self):
+        """Pop the oldest ticket and every compatible one that fits the
+        bucket, lingering up to batch_window_ms for more. Lock held."""
+        batch = [self._pending.popleft()]
+        rows = batch[0].rows
+        key = batch[0].key
+
+        def sweep():
+            nonlocal rows
+            kept = deque()
+            while self._pending:
+                t = self._pending.popleft()
+                if t.key == key and rows + t.rows <= self.max_batch:
+                    batch.append(t)
+                    rows += t.rows
+                else:
+                    kept.append(t)
+            self._pending.extendleft(reversed(kept))
+
+        sweep()
+        if self.batch_window_ms > 0:
+            deadline = time.monotonic() + self.batch_window_ms / 1000.0
+            while rows < self.max_batch and not self._stopping:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                self._cond.wait(remaining)
+                sweep()
+        return batch, rows
+
+    def _loop(self):
+        batch = None
+        try:
+            while True:
+                with self._cond:
+                    while not self._pending and not self._stopping:
+                        self._cond.wait()
+                    if not self._pending:
+                        return  # stopping and fully drained
+                    batch, rows = self._gather_locked()
+                self._execute(batch, rows)
+                batch = None
+        except BaseException as e:  # noqa: BLE001 — the device thread dies
+            # _execute absorbs each request's Exception; what reaches here
+            # kills the thread, so fail every waiting ticket now
+            self._die(batch, e)
+            raise
+
+    def _die(self, batch, exc):
+        with self._cond:
+            self._crashed = True
+            stranded = list(self._pending)
+            self._pending.clear()
+        err = BatcherDeadError(
+            f"device thread died: {type(exc).__name__}: {exc}")
+        for t in list(batch or ()) + stranded:
+            if not t.future.done():
+                if self.stats is not None:
+                    self.stats.record_error()
+                t.future.set_exception(err)
+
+    def _execute(self, batch, rows):
+        n_inputs = len(batch[0].feats)
+        try:
+            feats = [np.concatenate([t.feats[i] for t in batch])
+                     if len(batch) > 1 else batch[0].feats[i]
+                     for i in range(n_inputs)]
+            bucket = next_bucket(rows, self.max_batch, self.min_batch)
+            if bucket != rows:
+                feats = [np.pad(f, [(0, bucket - rows)] + [(0, 0)]
+                                * (f.ndim - 1)) for f in feats]
+            self.shapes_seen.add(bucket)
+            t_fwd = time.perf_counter()
+            out = np.asarray(self._forward(feats))
+            device_s = time.perf_counter() - t_fwd
+        except Exception as e:
+            # each ticket's caller sees the error (the HTTP handler counts it)
+            for t in batch:
+                t.future.set_exception(e)
+            return
+        if self.stats is not None:
+            self.stats.record_batch(bucket, rows, len(batch),
+                                    device_s=device_s)
+        off = 0
+        for t in batch:
+            t.future.set_result(out[off:off + t.rows])
+            off += t.rows
