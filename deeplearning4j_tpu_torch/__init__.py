@@ -6,16 +6,24 @@ imports neither jax nor deeplearning4j_tpu. Entry points run on the card
 unless the caller passes another device (``device="cpu"`` runs the plain
 PyTorch versions).
 
-This slice serves the GravesLSTM char-RNN: configs with the JAX JSON round
-trip, ``MultiLayerNetwork`` inference (``output``, ``feed_forward``,
-``rnn_time_step``), the model zip in both directions, and ``ModelServer``.
+Ported so far, for the GravesLSTM char-RNN: configs with the JAX JSON
+round trip; ``MultiLayerNetwork`` inference (``output``, ``feed_forward``,
+``rnn_time_step``) and training (``fit``, ``fit_batch``, truncated BPTT,
+``score``) with the updaters, schedules, losses and loss scaling; datasets
+and in-memory iterators; the model zip, updater state included, in both
+directions; and ``ModelServer``. The LSTM runs forward and backward as
+hand-written kernels on the card (ops/csrc/lstm_fwd.cu, lstm_bwd.cu).
 """
 
+from deeplearning4j_tpu_torch.datasets import (ArrayDataSetIterator,
+                                               DataSet,
+                                               ListDataSetIterator)
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.nn.conf import (DtypePolicy, InputType,
                                               MultiLayerConfiguration,
                                               NeuralNetConfiguration)
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 
-__all__ = ["DtypePolicy", "InputType", "MultiLayerConfiguration",
+__all__ = ["ArrayDataSetIterator", "DataSet", "DtypePolicy", "InputType",
+           "ListDataSetIterator", "MultiLayerConfiguration",
            "MultiLayerNetwork", "NeuralNetConfiguration", "resolve_device"]

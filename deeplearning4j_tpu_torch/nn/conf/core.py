@@ -52,8 +52,9 @@ class DtypePolicy:
     params stay in ``param_dtype`` (the f32 master copy under BF16).
     ``overrides`` is a tuple of ``(regex, dtype)`` pairs matched against a
     layer's name with ``re.search``; the first match sets that layer's
-    compute dtype. The loss-scaling fields are carried for the JSON round
-    trip and used by the training slice."""
+    compute dtype. Loss scaling (nn/precision.py): ``loss_scale`` is
+    "auto" (dynamic iff the compute dtype is float16), "dynamic", "none"
+    or a number (a static scale)."""
 
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
@@ -108,6 +109,17 @@ class DtypePolicy:
                 if re.search(pattern, path):
                     return dtype
         return self.compute_dtype
+
+    def loss_scale_mode(self):
+        """None (no scaling), "dynamic", or a static scale as a float."""
+        ls = self.loss_scale
+        if ls == "auto":
+            return "dynamic" if self.compute_dtype == "float16" else None
+        if ls == "none":
+            return None
+        if ls == "dynamic":
+            return "dynamic"
+        return float(ls)
 
     def to_dict(self):
         return dataclasses.asdict(self)
@@ -200,6 +212,9 @@ class ListBuilder:
         self._conf = global_conf
         self._layers: List[BaseLayerConfig] = []
         self._input_type: Optional[InputType] = None
+        self._backprop_type = "standard"
+        self._tbptt_fwd = 20
+        self._tbptt_bwd = 20
 
     def layer(self, layer_conf: BaseLayerConfig, index: int | None = None):
         if index is not None and index != len(self._layers):
@@ -213,11 +228,23 @@ class ListBuilder:
         self._input_type = input_type
         return self
 
+    def backprop_type(self, kind: str, tbptt_fwd: int = 20,
+                      tbptt_bwd: int = 20):
+        """"standard", or "tbptt" with forward/backward chunk lengths
+        (which must be equal)."""
+        self._backprop_type = kind
+        self._tbptt_fwd = tbptt_fwd
+        self._tbptt_bwd = tbptt_bwd
+        return self
+
     def build(self) -> "MultiLayerConfiguration":
         return MultiLayerConfiguration(
             global_conf=self._conf,
             layers=tuple(self._layers),
             input_type=self._input_type,
+            backprop_type=self._backprop_type,
+            tbptt_fwd_length=self._tbptt_fwd,
+            tbptt_bwd_length=self._tbptt_bwd,
         )
 
 

@@ -2,8 +2,10 @@
 
 A layer is built from (config, input_type, global_conf, policy).
 ``init_params(gen, device)`` returns its parameter dict and
-``apply(params, state, x, mask=None)`` returns ``(output, new_state)``.
-Only the inference forward is ported in this slice.
+``apply(params, state, x, train=False, gen=None, mask=None)`` returns
+``(output, new_state)``. Backprop is autograd of ``apply`` (through the
+LSTM's own ``torch.autograd.Function``), so only forwards are written
+here; ``regularization`` adds the L1/L2 penalty to the training loss.
 """
 
 from __future__ import annotations
@@ -51,10 +53,57 @@ class Layer:
     def init_state(self) -> dict:
         return {}
 
-    def apply(self, params, state, x, *, mask=None):
+    def apply(self, params, state, x, *, train=False, gen=None, mask=None):
         raise NotImplementedError
 
     def feed_forward_mask(self, mask):
         """The per-timestep mask seen by the next layer; layers that
         collapse the time axis return None."""
         return mask
+
+    def _input_dropout(self, x, train, gen):
+        """Inverted dropout on the layer's input while training:
+        ``dropout`` is the DROP probability, kept inputs are scaled by
+        1/keep. ``gen`` is the net's ``torch.Generator`` on x's device; the
+        bits differ from the JAX package's jax.random ones."""
+        p = float(self.resolve("dropout", 0.0) or 0.0)
+        if not train or p <= 0.0:
+            return x
+        if gen is None:
+            raise ValueError(
+                f"Layer {self.name}: dropout requires a generator during "
+                f"training")
+        keep = 1.0 - p
+        mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+        return torch.where(mask, x / keep, 0.0).to(x.dtype)
+
+    def regularization(self, params) -> torch.Tensor:
+        """L1/L2 penalty of this layer's params (0.5*l2*||W||^2 +
+        l1*sum|W|; biases take l1_bias/l2_bias), in the param dtype."""
+        leaves = list(_named_leaves(params))
+        device = leaves[0][1].device if leaves else "cpu"
+        total = torch.zeros((), dtype=self.param_dtype, device=device)
+        l1 = float(self.resolve("l1", 0.0) or 0.0)
+        l2 = float(self.resolve("l2", 0.0) or 0.0)
+        l1b = float(self.resolve("l1_bias", 0.0) or 0.0)
+        l2b = float(self.resolve("l2_bias", 0.0) or 0.0)
+        for pname, w in leaves:
+            is_bias = pname in ("b", "bias", "beta")
+            a1, a2 = (l1b, l2b) if is_bias else (l1, l2)
+            if a1:
+                # |w| with the JAX package's subgradient at 0 (+1, where
+                # torch.abs takes 0): zero-initialised biases move alike
+                total = total + a1 * torch.sum(torch.where(w >= 0, w, -w))
+            if a2:
+                total = total + 0.5 * a2 * torch.sum(w * w)
+        return total
+
+
+def _named_leaves(tree, name=None):
+    """(leaf name, tensor) of a param dict, nested dicts (a bidirectional
+    LSTM's fwd/bwd) flattened in insertion order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, k)
+    else:
+        yield name, tree

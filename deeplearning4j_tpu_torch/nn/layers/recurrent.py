@@ -6,9 +6,13 @@ The input projection of the whole sequence is one ``torch.matmul`` in the
 compute dtype; the time loop is the ``lstm_sequence`` op (ops/lstm.py):
 the Hopper kernel for CUDA tensors, the plain loop for CPU tensors.
 
-Streaming (``rnn_time_step``): when ``layer.streaming`` is set by the
-network, the final (h, c) carry is read from and written to the layer's
-state under "h"/"c".
+Training: with grad on, ``lstm_sequence`` differentiates through
+``LstmSequenceFn`` (the backward kernel on the card, its plain loop on the
+CPU); the input projection and the head are autograd of ``torch.matmul``.
+
+Streaming (``rnn_time_step`` and truncated BPTT): when ``layer.streaming``
+is set by the network, the final (h, c) carry is read from and written to
+the layer's state under "h"/"c"; ``strip_carries`` drops them again.
 """
 
 from __future__ import annotations
@@ -17,7 +21,11 @@ import torch
 
 from deeplearning4j_tpu_torch.nn.layers.base import Layer
 from deeplearning4j_tpu_torch.ops import initializers as init_mod
+from deeplearning4j_tpu_torch.ops import losses as losses_mod
 from deeplearning4j_tpu_torch.ops import lstm as lstm_ops
+
+# the recurrent carries a streaming layer keeps in its state
+CARRY_KEYS = ("h", "c")
 
 
 def _lstm_scan(params, x, h0, c0, mask, gate_act, cell_act):
@@ -76,8 +84,8 @@ class GravesLSTMLayer(Layer):
             return None
         return mask.reshape(mask.shape[0], -1).to(x.dtype)
 
-    def apply(self, params, state, x, *, mask=None):
-        x = x.to(self.compute_dtype)
+    def apply(self, params, state, x, *, train=False, gen=None, mask=None):
+        x = self._input_dropout(x, train, gen).to(self.compute_dtype)
         m = self._mask(mask, x)
         carry = None
         if self.streaming and "h" in state:
@@ -98,12 +106,13 @@ class GravesBidirectionalLSTMLayer(GravesLSTMLayer):
         return {"fwd": self._init_direction(gen, device),
                 "bwd": self._init_direction(gen, device)}
 
-    def apply(self, params, state, x, *, mask=None):
+    def apply(self, params, state, x, *, train=False, gen=None, mask=None):
         if self.streaming:
             raise ValueError(
-                "rnn_time_step streaming is undefined for a bidirectional "
-                "LSTM (the backward direction needs the whole sequence)")
-        x = x.to(self.compute_dtype)
+                "rnn_time_step/tBPTT streaming is undefined for a "
+                "bidirectional LSTM (the backward direction needs the whole "
+                "sequence)")
+        x = self._input_dropout(x, train, gen).to(self.compute_dtype)
         m = self._mask(mask, x)
         y_f, _, _ = self._run(params["fwd"], x, m, None)
         y_b, _, _ = self._run(params["bwd"], x, m, None, reverse=True)
@@ -111,7 +120,7 @@ class GravesBidirectionalLSTMLayer(GravesLSTMLayer):
 
 
 class RnnOutputLayerImpl(Layer):
-    """Per-timestep dense head."""
+    """Per-timestep dense head and its loss."""
 
     def init_params(self, gen, device):
         n_in, n_out = self.conf.n_in, self.conf.n_out
@@ -131,11 +140,27 @@ class RnnOutputLayerImpl(Layer):
             z = z + params["b"].to(cd)
         return z
 
-    def apply(self, params, state, x, *, mask=None):
+    @property
+    def loss_fn(self) -> losses_mod.Loss:
+        return losses_mod.get(self.conf.loss)
+
+    def apply(self, params, state, x, *, train=False, gen=None, mask=None):
         # head activation in the param dtype, so served outputs are full
         # precision under any policy
+        x = self._input_dropout(x, train, gen)
         z = self.preout(params, x).to(self.param_dtype)
         return self.activation_fn(z), state
+
+    def loss(self, params, x, labels, *, train=False, gen=None, mask=None):
+        """The data loss over [b, t, n_out] labels and a [b, t] mask, in
+        the param dtype (f32 under BF16) for stability."""
+        x = self._input_dropout(x, train, gen)
+        z = self.preout(params, x).to(self.param_dtype)
+        n_out = z.shape[-1]
+        z2 = z.reshape(-1, n_out)
+        labels2 = labels.reshape(-1, n_out).to(z2.dtype)
+        m2 = None if mask is None else mask.reshape(-1)
+        return self.loss_fn.score(labels2, z2, self.activation_fn, m2)
 
 
 def last_unmasked_step(x, mask):
@@ -156,7 +181,7 @@ class LastTimeStepLayer(Layer):
     def feed_forward_mask(self, mask):
         return None
 
-    def apply(self, params, state, x, *, mask=None):
+    def apply(self, params, state, x, *, train=False, gen=None, mask=None):
         return last_unmasked_step(x, mask), state
 
 
@@ -164,3 +189,14 @@ def set_streaming(layers, flag: bool):
     for layer in layers:
         if getattr(layer, "is_recurrent_stateful", False):
             layer.streaming = flag
+
+
+def strip_carries(state):
+    """The state without its recurrent carries (the batch-boundary reset
+    after tBPTT); layers left with nothing are dropped."""
+    out = {}
+    for name, sub in state.items():
+        kept = {k: v for k, v in sub.items() if k not in CARRY_KEYS}
+        if kept:
+            out[name] = kept
+    return out

@@ -1,11 +1,18 @@
-"""MultiLayerNetwork — a sequential stack, inference side (counterpart of
-deeplearning4j_tpu/nn/multilayer.py: ``init``, ``output``,
-``feed_forward``, ``rnn_time_step``, ``rnn_clear_previous_state``).
+"""MultiLayerNetwork — a sequential stack that trains and serves
+(counterpart of deeplearning4j_tpu/nn/multilayer.py: ``init``, ``fit``,
+``fit_batch``, truncated BPTT, ``score``, ``output``, ``feed_forward``,
+``rnn_time_step``, ``rnn_clear_previous_state``).
 
 Parameters are a dict ``{layer_name: {param_name: tensor}}`` in the JAX
-package's layouts, so a model crosses between the packages through the
-zip format unchanged. PyTorch runs eagerly, so there is no compiled-step
-cache: each call walks the layers. ``fit`` arrives with the training slice.
+package's layouts, and the optimizer state a dict keyed as the JAX
+package keys it, so a model and its updater state cross between the
+packages through the zip format unchanged.
+
+PyTorch runs eagerly: a train step is forward → loss → ``autograd`` (the
+LSTM's backward is its own kernel on the card) → per-layer update in
+place, one call after another, with no compiled-step cache. Randomness
+(dropout) comes from one ``torch.Generator`` on the net's device, seeded
+from the configuration.
 """
 
 from __future__ import annotations
@@ -15,9 +22,16 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+from deeplearning4j_tpu_torch.datasets.iterator import (ArrayDataSetIterator,
+                                                        DataSetIterator,
+                                                        ListDataSetIterator)
 from deeplearning4j_tpu_torch.device import resolve_device
+from deeplearning4j_tpu_torch.nn import precision
 from deeplearning4j_tpu_torch.nn.conf.core import MultiLayerConfiguration
-from deeplearning4j_tpu_torch.nn.layers.recurrent import set_streaming
+from deeplearning4j_tpu_torch.nn.layers.recurrent import (set_streaming,
+                                                          strip_carries)
+from deeplearning4j_tpu_torch.nn.updater import _leaves, _map
 
 
 class MultiLayerNetwork:
@@ -25,18 +39,23 @@ class MultiLayerNetwork:
         self.conf = conf
         self.device = resolve_device(device)
         self.layers = None
-        self.params = None    # {layer_name: {param: tensor}}
-        self.state = None     # {layer_name: {...}}
+        self.params = None     # {layer_name: {param: tensor}}
+        self.state = None      # {layer_name: {...}}
+        self.opt_state = None  # {layer_name: updater state, "_loss_scale"?}
         self.iteration = 0
         self.epoch = 0
+        self.score_value = None
+        self._gen = None
+        self._lr_scale = 1.0
         self._rnn_state = None
 
     # ------------------------------------------------------------------ init
     def init(self, seed: Optional[int] = None):
-        """Build the runtime layers and draw parameters from a
-        ``torch.Generator`` seeded with ``seed`` (default: the config's).
-        The draws do not reproduce the JAX package's; carry a JAX model
-        across with utils/serialization.py instead."""
+        """Build the runtime layers, draw parameters from a
+        ``torch.Generator`` seeded with ``seed`` (default: the config's)
+        and start a fresh optimizer state. The draws do not reproduce the
+        JAX package's; carry a JAX model across with
+        utils/serialization.py instead."""
         gc = self.conf.global_conf
         seed = gc.seed if seed is None else seed
         gen = torch.Generator(device="cpu").manual_seed(int(seed))
@@ -62,27 +81,55 @@ class MultiLayerNetwork:
             s = layer.init_state()
             if s:
                 self.state[layer.name] = s
+        # each layer's updater state, plus the loss-scale state when the
+        # dtype policy scales the loss
+        self.opt_state = {}
+        for layer in self.layers:
+            if layer.name in self.params:
+                self.opt_state[layer.name] = layer.resolve(
+                    "updater").init_state(self.params[layer.name])
+        ls = precision.init_loss_scale_state(gc.dtype, self.device)
+        if ls is not None:
+            self.opt_state[precision.LOSS_SCALE_KEY] = ls
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(int(seed))
         self.iteration = 0
         self._rnn_state = None
+        return self
+
+    def set_lr_scale(self, scale: float):
+        """Scale every layer's scheduled learning rate by ``scale`` from
+        the next step on."""
+        scale = float(scale)
+        if scale <= 0.0:
+            raise ValueError(f"lr scale must be > 0, got {scale}")
+        self._lr_scale = scale
         return self
 
     def _require_init(self):
         if self.params is None:
             raise RuntimeError(
-                "Network not initialized — call net.init() before output()")
+                "Network not initialized — call net.init() before "
+                "fit()/output()")
 
     # -------------------------------------------------------------- forward
     def _as_tensor(self, x):
+        if x is None:
+            return None
         if isinstance(x, torch.Tensor):
             return x.to(self.device)
         return torch.as_tensor(np.asarray(x), device=self.device)
 
-    def _forward(self, params, state, x, fmask=None, collect=False):
+    def _forward(self, params, state, x, *, train=False, gen=None,
+                 fmask=None, to_layer=None, collect=False):
+        """Walk the stack; returns (final activation or list, new_state)."""
         acts = []
         new_state = dict(state)
-        for layer in self.layers:
+        n = len(self.layers) if to_layer is None else to_layer
+        for layer in self.layers[:n]:
             x, s_new = layer.apply(params.get(layer.name, {}),
-                                   state.get(layer.name, {}), x, mask=fmask)
+                                   state.get(layer.name, {}), x, train=train,
+                                   gen=gen, mask=fmask)
             fmask = layer.feed_forward_mask(fmask)
             if s_new:
                 new_state[layer.name] = s_new
@@ -90,27 +137,146 @@ class MultiLayerNetwork:
                 acts.append(x)
         return (acts if collect else x), new_state
 
-    def output(self, x, mask=None) -> torch.Tensor:
+    def _loss(self, params, state, x, labels, fmask=None, lmask=None,
+              gen=None, train=True):
+        """Data loss + regularization (the scalar a train step
+        differentiates) and the new layer state."""
+        h, new_state = self._forward(params, state, x, train=train, gen=gen,
+                                     fmask=fmask,
+                                     to_layer=len(self.layers) - 1)
+        out_layer = self.layers[-1]
+        if not hasattr(out_layer, "loss"):
+            raise ValueError(
+                f"the last layer ({out_layer.conf.layer_type}) has no loss; "
+                f"training needs an output layer")
+        data_loss = out_layer.loss(params.get(out_layer.name, {}), h, labels,
+                                   train=train, gen=gen, mask=lmask)
+        reg = torch.zeros((), dtype=data_loss.dtype, device=data_loss.device)
+        for layer in self.layers:
+            if layer.name in params:
+                reg = reg + layer.regularization(params[layer.name])
+        return data_loss + reg, new_state
+
+    def output(self, x, mask=None, *, train: bool = False) -> torch.Tensor:
         """Final layer activations. ``mask`` is the [b, t] per-timestep
-        features mask for variable-length sequences."""
+        features mask for variable-length sequences; ``train`` applies
+        dropout."""
         self._require_init()
         with torch.inference_mode():
             out, _ = self._forward(self.params, self.state,
-                                   self._as_tensor(x),
-                                   None if mask is None
-                                   else self._as_tensor(mask))
+                                   self._as_tensor(x), train=train,
+                                   gen=self._gen,
+                                   fmask=self._as_tensor(mask))
         return out
 
-    def feed_forward(self, x, mask=None) -> List[torch.Tensor]:
+    def feed_forward(self, x, mask=None, *, train: bool = False
+                     ) -> List[torch.Tensor]:
         """Every layer's activations."""
         self._require_init()
         with torch.inference_mode():
             acts, _ = self._forward(self.params, self.state,
-                                    self._as_tensor(x),
-                                    None if mask is None
-                                    else self._as_tensor(mask),
+                                    self._as_tensor(x), train=train,
+                                    gen=self._gen,
+                                    fmask=self._as_tensor(mask),
                                     collect=True)
         return acts
+
+    # --------------------------------------------------------------- train
+    def _run_step(self, x, y, fmask, lmask):
+        """One optimization step on tensors; returns the (true) score as a
+        0-d tensor. The params are handed to the step as leaves that share
+        storage with ``self.params``, so the in-place update lands there;
+        carries the step leaves in the state are detached (gradients stop
+        at a chunk boundary, as in the JAX package)."""
+        step = precision.build_step_fn(self._loss, self.layers,
+                                       self.conf.global_conf, self._lr_scale)
+        leaves = _map(lambda t: t.detach().requires_grad_(), self.params)
+        new_state, score = step(leaves, self.state, self.opt_state,
+                                self.iteration, x, y, fmask, lmask,
+                                self._gen)
+        self.state = _map(lambda t: t.detach(), new_state)
+        return score
+
+    def _batch(self, ds: DataSet):
+        return (self._as_tensor(ds.features), self._as_tensor(ds.labels),
+                self._as_tensor(ds.features_mask),
+                self._as_tensor(ds.labels_mask))
+
+    def _needs_tbptt(self, features) -> bool:
+        return (self.conf.backprop_type == "tbptt"
+                and getattr(features, "ndim", 0) == 3
+                and features.shape[1] > self.conf.tbptt_fwd_length)
+
+    def fit_batch(self, ds: DataSet):
+        """One optimization step on one minibatch (tBPTT when configured
+        and the sequence is longer than the chunk). Returns the score as a
+        0-d tensor on the net's device."""
+        self._require_init()
+        if self._needs_tbptt(ds.features):
+            return self._fit_tbptt(ds)
+        score = self._run_step(*self._batch(ds))
+        self.iteration += 1
+        self.score_value = score
+        return score
+
+    def _fit_tbptt(self, ds: DataSet):
+        """Truncated BPTT: one step per ``tbptt_fwd_length`` chunk of the
+        time axis; the recurrent carry crosses chunks through the layer
+        state and is reset after the batch. The score is the chunk scores'
+        mean weighted by chunk length."""
+        L = self.conf.tbptt_fwd_length
+        x, y, fmask, lmask = self._batch(ds)
+        if y.dim() != 3 or y.shape[1] != x.shape[1]:
+            raise ValueError(
+                "tBPTT requires per-timestep labels [batch, time, out] with "
+                f"the same time length as the features; got labels shape "
+                f"{tuple(y.shape)} vs features {tuple(x.shape)}. For "
+                "sequence-classification labels use backprop_type='standard'")
+        cut = lambda a, sl: None if a is None else a[:, sl]  # noqa: E731
+        set_streaming(self.layers, True)
+        try:
+            score_sum, weight = 0.0, 0
+            for start in range(0, x.shape[1], L):
+                sl = slice(start, min(start + L, x.shape[1]))
+                chunk = self._run_step(x[:, sl], y[:, sl], cut(fmask, sl),
+                                       cut(lmask, sl))
+                w = sl.stop - sl.start
+                score_sum = score_sum + chunk * w
+                weight += w
+            self.state = strip_carries(self.state)
+            score = score_sum / max(weight, 1)
+        finally:
+            set_streaming(self.layers, False)
+        self.iteration += 1
+        self.score_value = score
+        return score
+
+    def fit(self, data, labels=None, *, epochs: int = 1,
+            batch_size: int = 32):
+        """Train on a DataSetIterator, a DataSet, or (features, labels)
+        arrays, one ``fit_batch`` per minibatch; the iterator is reset
+        after each epoch."""
+        self._require_init()
+        if isinstance(data, DataSetIterator):
+            it = data
+        elif isinstance(data, DataSet):
+            it = ListDataSetIterator([data])
+        else:
+            it = ArrayDataSetIterator(data, labels, batch_size=batch_size)
+        for _ in range(epochs):
+            for ds in it:
+                self.fit_batch(ds)
+            self.epoch += 1
+            it.reset()
+        return self
+
+    def score(self, ds: DataSet, train: bool = False) -> float:
+        """The loss (with regularization) on one dataset."""
+        self._require_init()
+        with torch.no_grad():
+            loss, _ = self._loss(self.params, self.state, *self._batch(ds),
+                                 gen=self._gen, train=train)
+        return float(loss)
 
     # ------------------------------------------------- streaming inference
     def rnn_clear_previous_state(self):
@@ -130,8 +296,7 @@ class MultiLayerNetwork:
                         else self.state)
             with torch.inference_mode():
                 out, new_state = self._forward(
-                    self.params, state_in, x,
-                    None if mask is None else self._as_tensor(mask))
+                    self.params, state_in, x, fmask=self._as_tensor(mask))
             self._rnn_state = new_state
         finally:
             set_streaming(self.layers, False)
@@ -139,13 +304,4 @@ class MultiLayerNetwork:
 
     # ---------------------------------------------------------------- misc
     def num_params(self) -> int:
-        return sum(t.numel() for p in self.params.values()
-                   for t in _leaves(p))
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
+        return sum(t.numel() for t in _leaves(self.params))

@@ -1,16 +1,56 @@
-"""Updater and learning-rate schedule configurations, as data only
-(counterpart of deeplearning4j_tpu/nn/updater.py).
+"""Updaters (optimizer rules and state), learning-rate schedules and
+gradient normalization (counterpart of deeplearning4j_tpu/nn/updater.py).
 
-Layer and network configurations name an updater and a schedule, so
-``configuration.json`` cannot be parsed without them. Their fields, kinds
-and ``to_dict``/``from_dict`` forms match the JAX package's exactly. The
-update rules themselves arrive with the training slice.
+Configurations name an updater and a schedule; their fields, kinds and
+``to_dict``/``from_dict`` forms match the JAX package's exactly, so
+``configuration.json`` crosses between the packages.
+
+An updater is ``init_state(params) -> state`` and
+``update(grads, state, lr) -> (deltas, new_state)`` over a layer's dict of
+tensors, with ``new_params = params - deltas``: the same rules, in the same
+operation order, as the JAX package. Optimizer state is a dict mirroring
+the params (plus an int32 step count ``t`` for Adam and AdaMax), keyed as
+the JAX package keys it, so ``updaterState.npz`` crosses too.
+``apply_layer_updates`` runs the whole update in the master dtype and
+writes the parameters in place.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
+
+import torch
+
+
+def _map(fn, *trees):
+    """``fn`` over the leaves of same-shaped nested dicts."""
+    if isinstance(trees[0], dict):
+        return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _leaves(tree):
+    """Leaves in the JAX package's tree order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    else:
+        yield tree
+
+
+def _unzip(pairs, n):
+    """A tree of n-tuples -> n trees."""
+    if isinstance(pairs, dict):
+        parts = {k: _unzip(v, n) for k, v in pairs.items()}
+        return tuple({k: parts[k][i] for k in parts} for i in range(n))
+    return pairs
+
+
+def _lr_dtype(lr):
+    """The dtype lr arithmetic runs in: the schedule output's own (the
+    master dtype under apply_layer_updates), f32 for plain floats."""
+    return lr.dtype if isinstance(lr, torch.Tensor) else torch.float32
 
 _UPDATERS: dict[str, type] = {}
 _SCHEDULES: dict[str, type] = {}
@@ -29,6 +69,8 @@ def updater_from_dict(d: dict) -> "Updater":
 
 @dataclass(frozen=True)
 class Updater:
+    """Base optimizer config. Stateless; per-parameter state is a dict."""
+
     kind = "base"
     learning_rate: float = 0.1
 
@@ -37,19 +79,53 @@ class Updater:
         d["kind"] = self.kind
         return d
 
+    def init_state(self, params):
+        return {}
+
+    def update(self, grads, state, lr):
+        raise NotImplementedError
+
+    @staticmethod
+    def _zeros_like(params):
+        return _map(torch.zeros_like, params)
+
+    @staticmethod
+    def _step_count(params):
+        device = next(_leaves(params)).device
+        return torch.zeros((), dtype=torch.int32, device=device)
+
 
 @register_updater
 @dataclass(frozen=True)
 class Sgd(Updater):
     kind = "sgd"
 
+    def update(self, grads, state, lr):
+        return _map(lambda g: lr * g, grads), state
+
 
 @register_updater
 @dataclass(frozen=True)
 class Nesterovs(Updater):
+    """ND4J's NesterovsUpdater: v = mu*v - lr*g; the delta subtracted from
+    the params is mu*v_prev - (1+mu)*v."""
+
     kind = "nesterovs"
     learning_rate: float = 0.1
     momentum: float = 0.9
+
+    def init_state(self, params):
+        return {"v": self._zeros_like(params)}
+
+    def update(self, grads, state, lr):
+        mu = self.momentum
+
+        def upd(g, v):
+            v_new = mu * v - lr * g
+            return mu * v - (1.0 + mu) * v_new, v_new
+
+        deltas, v = _unzip(_map(upd, grads, state["v"]), 2)
+        return deltas, {"v": v}
 
 
 @register_updater
@@ -61,6 +137,22 @@ class Adam(Updater):
     beta2: float = 0.999
     epsilon: float = 1e-8
 
+    def init_state(self, params):
+        return {"m": self._zeros_like(params), "v": self._zeros_like(params),
+                "t": self._step_count(params)}
+
+    def update(self, grads, state, lr):
+        t = state["t"] + 1
+        b1, b2 = self.beta1, self.beta2
+        m = _map(lambda m_, g: b1 * m_ + (1 - b1) * g, state["m"], grads)
+        v = _map(lambda v_, g: b2 * v_ + (1 - b2) * g * g, state["v"], grads)
+        # the bias correction in the master dtype from the integer count
+        tf = t.to(_lr_dtype(lr))
+        alpha = lr * torch.sqrt(1 - b2 ** tf) / (1 - b1 ** tf)
+        deltas = _map(lambda m_, v_: alpha * m_ / (torch.sqrt(v_)
+                                                   + self.epsilon), m, v)
+        return deltas, {"m": m, "v": v, "t": t}
+
 
 @register_updater
 @dataclass(frozen=True)
@@ -71,6 +163,21 @@ class AdaMax(Updater):
     beta2: float = 0.999
     epsilon: float = 1e-8
 
+    def init_state(self, params):
+        return {"m": self._zeros_like(params), "u": self._zeros_like(params),
+                "t": self._step_count(params)}
+
+    def update(self, grads, state, lr):
+        t = state["t"] + 1
+        b1, b2 = self.beta1, self.beta2
+        m = _map(lambda m_, g: b1 * m_ + (1 - b1) * g, state["m"], grads)
+        u = _map(lambda u_, g: torch.maximum(b2 * u_, torch.abs(g)),
+                 state["u"], grads)
+        tf = t.to(_lr_dtype(lr))
+        alpha = lr / (1 - b1 ** tf)
+        deltas = _map(lambda m_, u_: alpha * m_ / (u_ + self.epsilon), m, u)
+        return deltas, {"m": m, "u": u, "t": t}
+
 
 @register_updater
 @dataclass(frozen=True)
@@ -79,6 +186,15 @@ class AdaGrad(Updater):
     learning_rate: float = 1e-1
     epsilon: float = 1e-6
 
+    def init_state(self, params):
+        return {"h": self._zeros_like(params)}
+
+    def update(self, grads, state, lr):
+        h = _map(lambda h_, g: h_ + g * g, state["h"], grads)
+        deltas = _map(lambda g, h_: lr * g / (torch.sqrt(h_) + self.epsilon),
+                      grads, h)
+        return deltas, {"h": h}
+
 
 @register_updater
 @dataclass(frozen=True)
@@ -86,7 +202,22 @@ class AdaDelta(Updater):
     kind = "adadelta"
     rho: float = 0.95
     epsilon: float = 1e-6
-    learning_rate: float = 1.0
+    learning_rate: float = 1.0  # unused by the rule; kept for the JSON
+
+    def init_state(self, params):
+        return {"eg": self._zeros_like(params), "ex": self._zeros_like(params)}
+
+    def update(self, grads, state, lr):
+        rho, eps = self.rho, self.epsilon
+
+        def upd(g, eg, ex):
+            eg_new = rho * eg + (1 - rho) * g * g
+            delta = torch.sqrt(ex + eps) / torch.sqrt(eg_new + eps) * g
+            ex_new = rho * ex + (1 - rho) * delta * delta
+            return delta, eg_new, ex_new
+
+        deltas, eg, ex = _unzip(_map(upd, grads, state["eg"], state["ex"]), 3)
+        return deltas, {"eg": eg, "ex": ex}
 
 
 @register_updater
@@ -97,12 +228,27 @@ class RmsProp(Updater):
     rms_decay: float = 0.95
     epsilon: float = 1e-8
 
+    def init_state(self, params):
+        return {"g2": self._zeros_like(params)}
+
+    def update(self, grads, state, lr):
+        d = self.rms_decay
+        g2 = _map(lambda a, g: d * a + (1 - d) * g * g, state["g2"], grads)
+        deltas = _map(lambda g, a: lr * g / torch.sqrt(a + self.epsilon),
+                      grads, g2)
+        return deltas, {"g2": g2}
+
 
 @register_updater
 @dataclass(frozen=True)
 class NoOp(Updater):
+    """For frozen layers: the gradient is discarded."""
+
     kind = "noop"
     learning_rate: float = 0.0
+
+    def update(self, grads, state, lr):
+        return _map(torch.zeros_like, grads), state
 
 
 # ------------------------------------------------------------- schedules
@@ -122,8 +268,20 @@ def schedule_from_dict(d):
     return _SCHEDULES[kind](**d)
 
 
+def _const(v, dtype):
+    return torch.tensor(v, dtype=dtype)
+
+
+def _step(step, dtype):
+    return torch.as_tensor(step).to(dtype)
+
+
 @dataclass(frozen=True)
 class Schedule:
+    """``schedule(base_lr, step, dtype)`` -> the rate at ``step`` as a 0-d
+    tensor of ``dtype`` (the master dtype under apply_layer_updates, f32
+    by default), computed entirely in that dtype."""
+
     kind = "base"
 
     def to_dict(self):
@@ -131,11 +289,17 @@ class Schedule:
         d["kind"] = self.kind
         return d
 
+    def __call__(self, base_lr, step, dtype=None):
+        raise NotImplementedError
+
 
 @register_schedule
 @dataclass(frozen=True)
 class NoneSchedule(Schedule):
     kind = "none"
+
+    def __call__(self, base_lr, step, dtype=None):
+        return _const(base_lr, dtype or torch.float32)
 
 
 @register_schedule
@@ -143,6 +307,11 @@ class NoneSchedule(Schedule):
 class Exponential(Schedule):
     kind = "exponential"
     decay_rate: float = 0.99
+
+    def __call__(self, base_lr, step, dtype=None):
+        dtype = dtype or torch.float32
+        return _const(base_lr, dtype) * _const(
+            self.decay_rate, dtype) ** _step(step, dtype)
 
 
 @register_schedule
@@ -152,6 +321,11 @@ class Inverse(Schedule):
     gamma: float = 1e-3
     power: float = 1.0
 
+    def __call__(self, base_lr, step, dtype=None):
+        dtype = dtype or torch.float32
+        return _const(base_lr, dtype) / (
+            1.0 + self.gamma * _step(step, dtype)) ** self.power
+
 
 @register_schedule
 @dataclass(frozen=True)
@@ -159,6 +333,11 @@ class Poly(Schedule):
     kind = "poly"
     power: float = 1.0
     max_iter: int = 10000
+
+    def __call__(self, base_lr, step, dtype=None):
+        dtype = dtype or torch.float32
+        frac = torch.clamp(_step(step, dtype) / self.max_iter, 0.0, 1.0)
+        return _const(base_lr, dtype) * (1.0 - frac) ** self.power
 
 
 @register_schedule
@@ -168,6 +347,11 @@ class Sigmoid(Schedule):
     gamma: float = 1e-2
     steps: int = 1000
 
+    def __call__(self, base_lr, step, dtype=None):
+        dtype = dtype or torch.float32
+        return _const(base_lr, dtype) / (
+            1.0 + torch.exp(self.gamma * (_step(step, dtype) - self.steps)))
+
 
 @register_schedule
 @dataclass(frozen=True)
@@ -176,11 +360,101 @@ class Step(Schedule):
     decay_rate: float = 0.1
     steps: int = 1000
 
+    def __call__(self, base_lr, step, dtype=None):
+        dtype = dtype or torch.float32
+        return _const(base_lr, dtype) * _const(
+            self.decay_rate, dtype) ** torch.floor(
+                _step(step, dtype) / self.steps)
+
 
 @register_schedule
 @dataclass(frozen=True)
 class MapSchedule(Schedule):
     """{iteration: lr}; the lr at step t is the value of the largest key
-    <= t."""
+    <= t (base_lr before the first)."""
     kind = "map"
     schedule: dict = field(default_factory=dict)
+
+    def __call__(self, base_lr, step, dtype=None):
+        dtype = dtype or torch.float32
+        lr = _const(base_lr, dtype)
+        at = torch.as_tensor(step)
+        for it in sorted(self.schedule):
+            lr = torch.where(at >= it, _const(self.schedule[it], dtype), lr)
+        return lr
+
+
+# ---------------------------------------------------------------------------
+# Gradient normalization (the reference's GradientNormalization modes)
+# ---------------------------------------------------------------------------
+
+def _l2(leaves):
+    return torch.sqrt(sum(torch.sum(g * g) for g in leaves))
+
+
+def normalize_gradients(grads, mode, threshold: float = 1.0):
+    """One layer's gradient dict under a GradientNormalization mode: None,
+    "renormalize_l2_per_layer", "renormalize_l2_per_param_type",
+    "clip_element_wise_absolute_value", "clip_l2_per_layer",
+    "clip_l2_per_param_type"."""
+    if mode in (None, "none"):
+        return grads
+    leaves = list(_leaves(grads))
+    if not leaves:
+        return grads
+    if mode == "renormalize_l2_per_layer":
+        scale = 1.0 / torch.clamp(_l2(leaves), min=1e-12)
+        return _map(lambda g: g * scale, grads)
+    if mode == "renormalize_l2_per_param_type":
+        return _map(lambda g: g / torch.clamp(
+            torch.linalg.vector_norm(g.reshape(-1)), min=1e-12), grads)
+    if mode == "clip_element_wise_absolute_value":
+        return _map(lambda g: torch.clamp(g, -threshold, threshold), grads)
+    if mode == "clip_l2_per_layer":
+        norm = _l2(leaves)
+        scale = torch.where(norm > threshold, threshold / (norm + 1e-12), 1.0)
+        return _map(lambda g: g * scale, grads)
+    if mode == "clip_l2_per_param_type":
+        def clip_one(g):
+            n = torch.linalg.vector_norm(g.reshape(-1))
+            return g * torch.where(n > threshold, threshold / (n + 1e-12),
+                                   1.0)
+        return _map(clip_one, grads)
+    raise ValueError(f"Unknown gradient normalization mode: {mode}")
+
+
+def apply_layer_updates(layers, gc, params, grads, opt_state, it,
+                        lr_scale: float = 1.0):
+    """Per-layer gradient normalization + updater for every layer with
+    params (counterpart of the JAX package's apply_layer_updates).
+
+    The update runs in the policy's master dtype: gradients (bf16 under
+    BF16, from the LSTM's backward) are cast to each parameter's dtype
+    before normalization and the rule, and the scheduled rate is computed
+    in the master dtype. ``lr_scale`` multiplies every layer's rate.
+
+    Unlike the JAX package, which returns new trees, this updates
+    ``params`` IN PLACE under ``torch.no_grad()`` (the params' storage is
+    reused) and replaces each layer's entry of ``opt_state`` with its new
+    state dict; keys that are not layers (the loss-scale state) are left
+    alone."""
+    master = getattr(torch, gc.dtype.param_dtype)
+    for layer in layers:
+        name = layer.name
+        if name not in params:
+            continue
+        g = _map(lambda gr, p: gr.to(p.dtype), grads[name], params[name])
+        mode = layer.resolve("gradient_normalization")
+        thr = float(layer.resolve("gradient_normalization_threshold", 1.0)
+                    or 1.0)
+        g = normalize_gradients(g, mode, thr)
+        upd = layer.resolve("updater")
+        base_lr = layer.conf.learning_rate
+        if base_lr is None:
+            base_lr = gc.learning_rate
+        if base_lr is None:
+            base_lr = upd.learning_rate
+        lr = gc.lr_schedule(base_lr, it, dtype=master) * lr_scale
+        deltas, opt_state[name] = upd.update(g, opt_state[name], lr)
+        with torch.no_grad():
+            _map(lambda p, d: p.sub_(d), params[name], deltas)

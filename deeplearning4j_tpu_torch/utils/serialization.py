@@ -3,10 +3,12 @@ deeplearning4j_tpu/utils/serialization.py).
 
 The zip holds ``configuration.json`` (the MultiLayerConfiguration JSON),
 ``coefficients.npz`` (params, keyed by JAX tree paths such as
-``['layer_0']['Wh']``), ``state.npz`` (layer state, when there is any)
-and ``metadata.json``. A zip written by the JAX package's ``write_model``
-restores here, and a zip written here restores in the JAX package (which
-then starts a fresh updater state, since this slice writes none).
+``['layer_0']['Wh']``), ``updaterState.npz`` (the optimizer state, keyed
+the same way: ``['layer_0']['m']['Wh']``, ``['layer_0']['t']``,
+``['_loss_scale']['scale']``), ``state.npz`` (layer state, when there is
+any) and ``metadata.json``. A zip written by either package restores in
+the other with the same params and the same optimizer state, so training
+resumes across the packages.
 """
 
 from __future__ import annotations
@@ -80,6 +82,7 @@ def write_model(net, path):
         zf.writestr("coefficients.npz", _tree_to_npz_bytes(net.params))
         if net.state:
             zf.writestr("state.npz", _tree_to_npz_bytes(net.state))
+        zf.writestr("updaterState.npz", _tree_to_npz_bytes(net.opt_state))
         zf.writestr("metadata.json", json.dumps({
             "format_version": _FORMAT_VERSION,
             "model_type": "multi_layer_network",
@@ -90,8 +93,8 @@ def write_model(net, path):
 
 def restore_multi_layer_network(path, device=None):
     """Restore a MultiLayerNetwork zip (written by either package) onto
-    ``device`` (default: the card). The updater state, if the zip holds
-    one, is not read: this slice serves and does not train."""
+    ``device`` (default: the card), with its updater state when the zip
+    holds one (else the fresh state ``init`` made)."""
     from deeplearning4j_tpu_torch.nn.conf.core import MultiLayerConfiguration
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 
@@ -103,6 +106,9 @@ def restore_multi_layer_network(path, device=None):
         net.params = _npz_into(zf.read("coefficients.npz"), net.params)
         if "state.npz" in names and net.state:
             net.state = _npz_into(zf.read("state.npz"), net.state)
+        if "updaterState.npz" in names:
+            net.opt_state = _npz_into(zf.read("updaterState.npz"),
+                                      net.opt_state)
         if "metadata.json" in names:
             meta = json.loads(zf.read("metadata.json"))
             net.iteration = meta.get("iteration", 0)
