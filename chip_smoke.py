@@ -4,14 +4,17 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ops/csrc/ (the LSTM forward K1 and
-backward K2), holds each against its plain PyTorch version on the card,
-serves the full-width GravesLSTM char-RNN (vocab 80, hidden 512, 2 layers,
-BF16) through ``ModelServer`` ``/predict``, streams through
-``rnn_time_step``, trains the same model with ``fit_batch`` (standard
-backprop, then truncated BPTT), checks that each path launched the
-kernels, and times the kernels and the train step. Every phase that fails
-ends the run with a nonzero exit code. It needs one CUDA card; without one
-(or without the package beside it) it exits nonzero and prints no result.
+backward K2, the flash-attention forward K3), holds each against its plain
+PyTorch version on the card, serves the full-width GravesLSTM char-RNN
+(vocab 80, hidden 512, 2 layers, BF16) through ``ModelServer``
+``/predict``, streams through ``rnn_time_step``, trains the same model with
+``fit_batch`` (standard backprop, then truncated BPTT), then serves and
+trains the full-width gpt_mini transformer (vocab 80, width 256, 4 blocks
+of 4 heads, T = 256, BF16, Adam) the same way, checks that each path
+launched its kernels, and times the kernels and the train steps. Every
+phase that fails ends the run with a nonzero exit code. It needs one CUDA
+card; without one (or without the package beside it) it exits nonzero
+and prints no result.
 
 Output: one line per phase; the card's name and power limit as nvidia-smi
 gives them; a JSON line ``{"kernels": [...]}``; and as the last line
@@ -65,6 +68,44 @@ GRAD_ULPS = 8
 # from parameters that the two paths updated with slightly different
 # gradients (above), so the batch score agrees to 1e-2 relative.
 TBPTT_SCORE_RTOL = 1e-2
+# K3 vs its plain version (causal_mha_dot) on the card. f32: 1e-5 abs and
+# rel, the JAX package's own flash forward tolerance (the same f32
+# products and sums in another order). bf16: 2 bf16 ulps at the largest
+# |v|, which bounds |out| (a convex combination of v's rows): K3 rounds
+# p = exp(s - m) to bf16 against each tile's running max and rescales by
+# alpha in f32, the plain version against the row's final max, so each
+# weight may differ by 2**-8 relative (one ulp at max|v| in out), plus
+# each side's final rounding (half an ulp each).
+FLASH_F32_TOL = 1e-5
+FLASH_BF16_ULPS = 2
+# FlashAttentionFn's gradients (recompute through causal_mha_dot) vs
+# autograd of causal_mha_exact, f32: the JAX package's own tolerance.
+FLASH_GRAD_TOL = 2e-4
+# gpt_mini's first train step on the card vs the plain CPU path, BF16:
+# the card rounds p to bf16 in K3 and its backward's recompute, the CPU
+# path keeps p in f32 (causal_mha_exact), and cuBLAS and the CPU round
+# every bf16 GEMM output on their own; a rounding that lands the other
+# way at any of ~10 places per block feeds every later product. Score
+# 1e-3 relative and gradients 8 bf16 ulps at each gradient's max, as for
+# the char-RNN. bk's true gradient is 0 (the softmax removes a key bias),
+# so both sides give noise there: held to 2**-8 of the largest Wk
+# gradient instead (1e-5 under F32). 16 ulps, not the char-RNN's 8: the
+# forward's bf16 streams already differ by up to 3 ulps (GPT_PROB_TOL).
+GPT_GRAD_ULPS = 16
+# gpt_mini's softmax probabilities under BF16, card vs the plain CPU path
+# (and a row served in a batch vs alone): the residual stream grows to
+# |x| ~ 7 over 4 blocks, where a bf16 ulp is 2**-5, and a few ulps of
+# difference there ([serve_gpt] prints stream_abs_max and
+# stream_card_vs_cpu) move a logit by up to ~0.1 and a probability by at
+# most p(1-p) * 0.1 <= 0.025. The two plain CPU formulations of attention
+# (exact, and p rounded as K3 rounds it) differ by as much on the same
+# rows ([serve_gpt] cpu_dot_vs_exact). The path itself is held under F32
+# instead: GPT_F32_TOL on the same weights.
+GPT_PROB_TOL = 3e-2
+GPT_F32_TOL = 1e-5
+# gpt_mini's first train step under F32, card vs the plain CPU path: the
+# same f32 arithmetic in another order; 1e-4 of each gradient's max.
+GPT_F32_GRAD_TOL = 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -96,6 +137,28 @@ def cuda_ms(fn, reps):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def cuda_ms_per_launch(fn, reps, inner=20):
+    """Median over ``reps`` samples of the milliseconds per call of
+    ``inner`` back-to-back calls of ``fn()`` between two CUDA events, after
+    a warm-up: for a kernel of tens of microseconds, so that the host's
+    time to issue one call hides behind the previous call's device time
+    and is not counted as the kernel's."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
@@ -662,6 +725,456 @@ def phase_tbptt():
     return launches
 
 
+def flash_inputs(b, T, h, dh, dtype, seed=0):
+    """Seeded q, k, v [b, T, h, dh] as CUDA tensors."""
+    import torch
+    rng = np.random.default_rng(SEED + 11 + seed + 7 * T + b)
+    return [torch.from_numpy(rng.normal(0.0, 1.0, (b, T, h, dh))
+                             .astype(np.float32)).to("cuda", dtype)
+            for _ in range(3)]
+
+
+def flash_grads_vs_exact(q, k, v):
+    """Gradients through FlashAttentionFn (K3 forward, recompute backward)
+    vs autograd of causal_mha_exact, f32, on the card. Returns the
+    largest error over FLASH_GRAD_TOL * (1 + |want|)."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import attention as att
+    leaves_k = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out_k = att.causal_mha(*leaves_k)
+    check(type(out_k.grad_fn).__name__ == "FlashAttentionFnBackward",
+          "causal_mha on the card did not route through FlashAttentionFn")
+    w = torch.cos(torch.arange(out_k.numel(), device=q.device,
+                               dtype=torch.float32)).reshape(out_k.shape)
+    got = torch.autograd.grad((out_k * w).sum(), leaves_k)
+    leaves_p = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out_p = att.causal_mha_exact(*leaves_p)
+    want = torch.autograd.grad((out_p * w).sum(), leaves_p)
+    worst = 0.0
+    for name, g, wt in zip(("dq", "dk", "dv"), got, want):
+        ratio = float(((g - wt).abs()
+                       / (FLASH_GRAD_TOL * (1.0 + wt.abs()))).max())
+        check(ratio <= 1.0, f"FlashAttentionFn {name} vs autograd of "
+              f"causal_mha_exact: {ratio:.3f} of the tolerance")
+        worst = max(worst, ratio)
+    return worst
+
+
+def phase_flash_vs_plain():
+    """K3 against causal_mha_dot at the served/trained shape, the JAX
+    test's shape, ragged T and b = 1, in f32 and bf16; determinism and
+    batch invariance bit for bit; FlashAttentionFn's gradients."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import attention as att
+    from deeplearning4j_tpu_torch.ops import registry
+    cases = [(32, 256, 4, 64), (2, 128, 2, 128), (4, 200, 4, 64),
+             (2, 200, 2, 128), (4, 1, 4, 64), (1, 256, 4, 64)]
+    main_err = None
+    n_calls = 0
+    registry.reset_launches()
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for b, T, h, dh in cases:
+            q, k, v = flash_inputs(b, T, h, dh, dtype)
+            with torch.inference_mode():
+                got = att.flash_attn_fwd_cuda(q, k, v)
+                again = att.flash_attn_fwd_cuda(q, k, v)
+                n_calls += 2
+                rows = sorted({0, b // 2, b - 1})
+                alone = [att.flash_attn_fwd_cuda(
+                    q[i:i + 1].contiguous(), k[i:i + 1].contiguous(),
+                    v[i:i + 1].contiguous()) for i in rows]
+                n_calls += len(rows)
+                torch.cuda.synchronize()
+                want = att.flash_attn_fwd_torch(q, k, v)
+            check(got.dtype == want.dtype and got.shape == want.shape,
+                  f"flash_attn_fwd {got.dtype}{tuple(got.shape)} vs plain "
+                  f"{want.dtype}{tuple(want.shape)}")
+            check(torch.isfinite(got.float()).all().item(),
+                  f"flash_attn_fwd not finite ({b},{T},{h},{dh}) {dname}")
+            check(torch.equal(got, again), f"flash_attn_fwd: two identical "
+                  f"calls gave different bits ({b},{T},{h},{dh}) {dname}")
+            check(all(torch.equal(a[0], got[i]) for a, i in zip(alone, rows)),
+                  f"flash_attn_fwd: a row computed alone differs from the "
+                  f"same row in a batch of {b} ({T},{h},{dh}) {dname}")
+            d = (got.float() - want.float()).abs()
+            err = d.max().item()
+            vmax = float(v.float().abs().max())
+            if dtype == torch.float32:
+                tol = f"{FLASH_F32_TOL}+{FLASH_F32_TOL}*|want|"
+                ok = not (d > FLASH_F32_TOL * (1 + want.float().abs())).any()
+            else:
+                lim = FLASH_BF16_ULPS * 2.0 ** (math.floor(math.log2(vmax))
+                                                - 7)
+                tol = f"{lim:.3e}"
+                ok = err <= lim
+            check(bool(ok), f"flash_attn_fwd disagrees with the plain "
+                  f"version ({b},{T},{h},{dh}) {dname}: max abs err "
+                  f"{err:.3e} > {tol}")
+            fields = {}
+            if dtype == torch.bfloat16:
+                fields["ulps_at_out_max"] = f"{ulps_off(got, want.float()):.2f}"
+            else:
+                fields["grad_err_of_tol"] = (
+                    f"{flash_grads_vs_exact(q, k, v):.2e}")
+                n_calls += 1
+            if (b, T, h, dh, dname) == (32, 256, 4, 64, "bfloat16"):
+                main_err = err
+            phase("kernel_vs_plain", kernel="flash_attn_fwd", dtype=dname,
+                  b=b, T=T, h=h, dh=dh, max_abs_err=f"{err:.3e}", tol=tol,
+                  deterministic=True, batch_invariant=True, **fields)
+    launched = registry.launches().get("flash_attn_fwd", 0)
+    check(launched == n_calls,
+          f"flash_attn_fwd launch counter read {launched} after {n_calls} "
+          f"calls")
+    return main_err
+
+
+def gpt_rows(clients, per_client, T, V, seed):
+    rng = np.random.default_rng(seed)
+    return [[np.eye(V, dtype=np.float32)[rng.integers(0, V, (k, T))]
+             for k in rng.integers(1, 5, per_client)]
+            for _ in range(clients)]
+
+
+def phase_serve_gpt():
+    """The full-width gpt_mini behind ModelServer: 16 client threads x 4
+    /predict requests of 1-4 one-hot rows of T = 256."""
+    import torch
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.ops import attention as att
+    from deeplearning4j_tpu_torch.ops import registry
+    from deeplearning4j_tpu_torch.serving import ModelServer
+
+    net = zoo.gpt_mini(seed=SEED)   # vocab 80, width 256, 4 x 4 heads, BF16
+    T, V = 256, 80
+    clients, per_client = 16, 4
+    requests = gpt_rows(clients, per_client, T, V, SEED + 8)
+    replies = [[None] * per_client for _ in range(clients)]
+    errors = []
+
+    registry.reset_launches()
+    srv = ModelServer(net, port=0, max_batch=32, input_shapes=[(T, V)])
+    check(srv._infer_row_shapes() == [(T, V)], "warm-up row shapes")
+    srv.start()
+    warm = len(srv.shapes_seen)
+    try:
+        def client(c):
+            try:
+                for j, x in enumerate(requests[c]):
+                    status, body = post_json(srv.url + "/predict",
+                                             {"features": x.tolist()})
+                    check(status == 200, f"/predict answered {status}")
+                    replies[c][j] = np.asarray(body["predictions"],
+                                               np.float32)
+            except Exception as e:  # noqa: BLE001 — reported by the main thread
+                errors.append(f"client {c}: {type(e).__name__}: {e}")
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads), "a client hung")
+        check(not errors, "; ".join(errors))
+        torch.cuda.synchronize()
+        launches = registry.launches().get("flash_attn_fwd", 0)
+        status, metrics = get_json(srv.url + "/metrics")
+        check(status == 200, f"/metrics answered {status}")
+    finally:
+        srv.stop()
+    forwards = warm + metrics["batches_total"]
+    check(launches == 4 * forwards,
+          f"the served path launched flash_attn_fwd {launches} times in "
+          f"{forwards} forwards, expected 4 per forward")
+
+    rows = sum(x.shape[0] for reqs in requests for x in reqs)
+    bit_equal, max_err = True, 0.0
+    for c in range(clients):
+        for x, y in zip(requests[c], replies[c]):
+            check(y.shape == (x.shape[0], T, V),
+                  f"reply shape {y.shape} for {x.shape}")
+            check(np.isfinite(y).all(), "non-finite reply")
+            check(np.allclose(y.sum(-1), 1.0, atol=1e-3),
+                  "reply rows are not distributions")
+            for i in range(x.shape[0]):
+                alone = net.output(x[i:i + 1]).float().cpu().numpy()[0]
+                bit_equal &= bool(np.array_equal(alone, y[i]))
+                max_err = max(max_err, float(np.abs(alone - y[i]).max()))
+    check(max_err <= GPT_PROB_TOL,
+          f"a coalesced row differs from the same row served alone by "
+          f"{max_err:.3e} > {GPT_PROB_TOL}")
+
+    # the first request of every client through the plain CPU path
+    cpu = cpu_copy(net)
+    t0 = time.perf_counter()
+    cpu_err = 0.0
+    for c in range(clients):
+        want = cpu.output(requests[c][0]).numpy()
+        cpu_err = max(cpu_err, float(np.abs(want - replies[c][0]).max()))
+    cpu_s = time.perf_counter() - t0
+    check(cpu_err <= GPT_PROB_TOL,
+          f"served rows vs plain CPU path: max abs err {cpu_err:.3e} > "
+          f"{GPT_PROB_TOL}")
+    # where the BF16 gap comes from: the residual stream at the head's
+    # input, and the CPU path with p rounded as K3 rounds it
+    x = requests[0][0]
+    stream_card = net.feed_forward(x)[-2].float().cpu()
+    stream_cpu = cpu.feed_forward(x)[-2].float()
+    stream_max = float(stream_cpu.abs().max())
+    stream_diff = float((stream_card - stream_cpu).abs().max())
+    exact = registry.get("causal_mha", "cpu")
+    registry.register("causal_mha", "cpu")(att.causal_mha_dot)
+    try:
+        cpu_dot = cpu.output(x).numpy()
+    finally:
+        registry.register("causal_mha", "cpu")(exact)
+    forms_diff = float(np.abs(cpu_dot - cpu.output(x).numpy()).max())
+    # the same weights under F32: the path, apart from bf16 rounding
+    f32 = zoo.gpt_mini(seed=SEED, dtype=zoo.F32)
+    f32.params = {ln: {k: t.clone() for k, t in lp.items()}
+                  for ln, lp in net.params.items()}
+    f32_err = float(np.abs(f32.output(x).cpu().numpy()
+                           - cpu_copy(f32).output(x).numpy()).max())
+    check(f32_err <= GPT_F32_TOL,
+          f"F32 card vs plain CPU path: {f32_err:.3e} > {GPT_F32_TOL}")
+    phase("serve_gpt", model="gpt_mini(vocab=80,width=256,blocks=4,heads=4,"
+          "T=256,BF16)", requests=clients * per_client, rows=rows,
+          rows_per_s=f"{rows / wall:.2f}",
+          p50_ms=metrics["latency_ms"]["p50"],
+          p99_ms=metrics["latency_ms"]["p99"],
+          batches=metrics["batches_total"], warm_forwards=warm,
+          batch_hist=json.dumps(metrics["batch_size_hist"]),
+          device_ms_by_bucket=json.dumps(metrics["device_ms_by_bucket"]),
+          warmup_s=f"{srv.warmup_s:.2f}", flash_attn_fwd_launches=launches,
+          launches_per_forward=f"{launches / forwards:g}",
+          rows_bit_equal_alone=bit_equal,
+          max_abs_err_vs_alone=f"{max_err:.3e}",
+          max_abs_err_vs_cpu_plain=f"{cpu_err:.3e}", tol=GPT_PROB_TOL,
+          f32_max_abs_err_vs_cpu_plain=f"{f32_err:.3e}",
+          f32_tol=GPT_F32_TOL, stream_abs_max=f"{stream_max:.4f}",
+          stream_card_vs_cpu=f"{stream_diff:.4f}",
+          stream_card_vs_cpu_ulps=f"{ulps_off(stream_card, stream_cpu):.2f}",
+          cpu_dot_vs_exact=f"{forms_diff:.3e}", cpu_check_s=f"{cpu_s:.2f}")
+    return net, launches
+
+
+def gpt_grads_vs_cpu(net, x, y, dtype):
+    """The first step's score and gradients on the card vs the plain CPU
+    path with the same weights. Returns (relative score error, gradient
+    error: bf16 ulps at each gradient's max under BF16, else the error
+    over each gradient's max, the card's loss)."""
+    card_loss, card_g = loss_and_grads(net, x, y)
+    cpu_loss, cpu_g = loss_and_grads(cpu_copy(net), x, y)
+    score_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    errs = {}
+    for (ln, k), g in cpu_g.items():
+        cg = card_g[(ln, k)].cpu()
+        if k == "bk":
+            rel = 1e-5 if dtype == "float32" else 2.0 ** -8
+            lim = rel * float(cpu_g[(ln, "Wk")].abs().max())
+            check(float(cg.abs().max()) <= lim
+                  and float(g.abs().max()) <= lim,
+                  f"{ln}.bk gradient is not noise around 0 ({dtype})")
+            continue
+        if dtype == "float32":
+            errs[f"{ln}.{k}"] = (float((cg - g).abs().max())
+                                 / float(g.abs().max()))
+        else:
+            errs[f"{ln}.{k}"] = ulps_off(cg, g)
+    print(f"  gpt first step vs plain CPU ({dtype}): score {card_loss:.6f} "
+          f"vs {cpu_loss:.6f}; gradient errors: "
+          + json.dumps({k: float(f"{v:.3g}") for k, v in errs.items()}),
+          flush=True)
+    return score_err, max(errs.values()), card_loss
+
+
+def profile_steps(net, data):
+    """torch.profiler over len(data) more fit_batch steps: the device's
+    kernel time and kernel count per step, its busy share of the steps'
+    host-clock wall time, and both by kind of kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for ds in data:
+            net.fit_batch(ds)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA"]
+    dev_us = {e.key: e.self_device_time_total for e in kernels}
+    n = len(data)
+    check(sum(dev_us.values()) > 0, "the profiler saw no device time")
+    flash_us = sum(v for k, v in dev_us.items() if "flash_fwd_kernel" in k)
+    groups = {}
+    for e in kernels:
+        name = e.key.lower()
+        g = ("flash_attn_fwd" if "flash_fwd_kernel" in name
+             else "gemm" if any(w in name for w in ("gemm", "xmma", "cutlass",
+                                                    "sm90_", "cublas"))
+             else "reduce" if "reduce" in name
+             else "copy" if "copy" in name or "memcpy" in name
+             else "elementwise" if "elementwise" in name
+             else "other")
+        ms, cnt = groups.get(g, (0.0, 0))
+        groups[g] = (ms + e.self_device_time_total / 1e3 / n,
+                     cnt + e.count // n)
+    return {
+        "prof_by_kind_ms_and_kernels_per_step": json.dumps(
+            {g: [round(ms, 4), c] for g, (ms, c) in sorted(groups.items())}),
+        "prof_steps": n,
+        "prof_wall_ms_per_step": f"{wall_ms / n:.3f}",
+        "prof_device_ms_per_step": f"{sum(dev_us.values()) / 1e3 / n:.3f}",
+        "prof_device_busy_share": f"{sum(dev_us.values()) / 1e3 / wall_ms:.3f}",
+        "prof_kernels_per_step": sum(e.count for e in kernels) // n,
+        "prof_flash_attn_fwd_ms_per_step": f"{flash_us / 1e3 / n:.4f}",
+    }
+
+
+def phase_train_gpt():
+    """30 fit_batch steps of the full-width gpt_mini (BF16, Adam 3e-4) at
+    b = 32, T = 256; the first step held against the plain CPU path."""
+    import torch
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.ops import registry
+    steps, b, T, V = 30, 32, 256, 80
+    net = zoo.gpt_mini(seed=SEED + 9)
+    pol = net.conf.global_conf.dtype
+    check(pol.compute_dtype == "bfloat16" and pol.param_dtype == "float32",
+          f"gpt_mini policy {pol}")
+    upd = net.layers[1].resolve("updater")
+    check(upd.kind == "adam" and upd.learning_rate == 3e-4,
+          f"gpt_mini does not train with Adam(3e-4): {upd}")
+    batches = markov_batches(steps, b, T, V, SEED + 6)
+    x0, y0 = batches[0]
+
+    # the first step under F32 (the path) and BF16 (the run) vs the plain
+    # CPU path on the same weights
+    f32 = zoo.gpt_mini(seed=SEED + 9, dtype=zoo.F32)
+    f32_score, f32_grad, _ = gpt_grads_vs_cpu(f32, x0, y0, "float32")
+    check(f32_score <= 1e-6, f"F32 train score card vs CPU: {f32_score:.3e}")
+    check(f32_grad <= GPT_F32_GRAD_TOL, f"F32 gradients card vs CPU: "
+          f"{f32_grad:.3e} of max > {GPT_F32_GRAD_TOL}")
+    t0 = time.perf_counter()
+    score_err, grad_ulps, card_loss = gpt_grads_vs_cpu(net, x0, y0,
+                                                       "bfloat16")
+    cpu_s = time.perf_counter() - t0
+    check(score_err <= TRAIN_SCORE_RTOL,
+          f"gpt train score card vs CPU: {score_err:.3e} > "
+          f"{TRAIN_SCORE_RTOL}")
+    check(grad_ulps <= GPT_GRAD_ULPS, f"gpt gradients card vs CPU: "
+          f"{grad_ulps:.2f} bf16 ulps at max > {GPT_GRAD_ULPS}")
+
+    data = on_card(batches)
+    torch.cuda.synchronize()
+    registry.reset_launches()
+    scores, events = [], []
+    t0 = time.perf_counter()
+    for ds in data:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        scores.append(net.fit_batch(ds))
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = registry.launches()
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    scores = [float(s) for s in scores]
+    check(all(math.isfinite(s) for s in scores), f"gpt scores {scores}")
+    check(abs(scores[0] - card_loss) <= 1e-6 * abs(card_loss),
+          f"fit_batch score {scores[0]} != its loss {card_loss}")
+    last5 = statistics.mean(scores[-5:])
+    check(last5 < scores[0], f"gpt training did not lower the score: first "
+          f"{scores[0]:.4f}, mean of last 5 {last5:.4f}")
+    check(launches.get("flash_attn_fwd", 0) == 4 * steps,
+          f"flash_attn_fwd launched {launches.get('flash_attn_fwd', 0)} "
+          f"times in {steps} train steps, expected {4 * steps}")
+    med = statistics.median(step_ms[-20:])
+    prof = profile_steps(net, data[:3])
+    phase("train_gpt", model="gpt_mini(vocab=80,width=256,blocks=4,heads=4,"
+          "BF16,Adam(3e-4))", steps=steps, b=b, T=T,
+          first_score=f"{scores[0]:.4f}", last5_mean=f"{last5:.4f}",
+          scores=json.dumps([round(s, 4) for s in scores]),
+          step_ms_median_last20=f"{med:.4f}",
+          step_ms_min=f"{min(step_ms[-20:]):.4f}",
+          step_ms_max=f"{max(step_ms[-20:]):.4f}", wall_s=f"{wall:.3f}",
+          launches=json.dumps(launches),
+          score_vs_cpu_rel=f"{score_err:.3e}",
+          grad_vs_cpu_max_ulps=f"{grad_ulps:.2f}",
+          f32_score_vs_cpu_rel=f"{f32_score:.3e}",
+          f32_grad_vs_cpu_rel=f"{f32_grad:.3e}",
+          cpu_first_step_s=f"{cpu_s:.2f}",
+          peak_mem_mb=f"{torch.cuda.max_memory_allocated() / 2**20:.0f}",
+          **prof)
+    return {"launches": launches, "step_ms": med}
+
+
+def phase_times_flash(card, gnet, errs, launches, gtrain):
+    """K3 at the served/trained shape beside its bound, its plain version
+    and scaled_dot_product_attention (the yardstick only; the port never
+    calls it)."""
+    import torch
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.ops import attention as att
+    b, T, h, dh = 32, 256, 4, 64
+    q, k, v = flash_inputs(b, T, h, dh, torch.bfloat16)
+    with torch.inference_mode():
+        ms = cuda_ms_per_launch(lambda: att.flash_attn_fwd_cuda(q, k, v),
+                                reps=10)
+        one_ms = cuda_ms(lambda: att.flash_attn_fwd_cuda(q, k, v), reps=50)
+        plain_ms = cuda_ms_per_launch(
+            lambda: att.flash_attn_fwd_torch(q, k, v), reps=10)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib_ms = cuda_ms_per_launch(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), reps=10)
+        lib_err = float((F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True).transpose(1, 2).float()
+            - att.flash_attn_fwd_cuda(q, k, v).float()).abs().max())
+    # least work: q, k, v read once and out written once (bf16); the
+    # causal products q.k and p.v over the b*h*T*(T+1)/2 visible pairs
+    # (the softmax's ~5 ops per pair are under 2% of it)
+    pairs = b * h * T * (T + 1) / 2
+    flops = 2.0 * 2.0 * dh * pairs
+    nbytes = 2 * 4 * b * T * h * dh
+    bound_ms, bound_by = bound(flops, nbytes, "bfloat16")
+    rng = np.random.default_rng(SEED + 12)
+    forward_ms = {}
+    for rows in (1, 32):
+        x = torch.from_numpy(np.eye(80, dtype=np.float32)[
+            rng.integers(0, 80, (rows, T))]).cuda()
+        forward_ms[rows] = cuda_ms(lambda: gnet.output(x), reps=20)
+    phase("times", kernel="flash_attn_fwd", b=b, T=T, h=h, dh=dh,
+          dtype="bfloat16", card=json.dumps(card), ms=f"{ms:.4f}",
+          ms_one_call_with_host=f"{one_ms:.4f}",
+          plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}",
+          library="torch.nn.functional.scaled_dot_product_attention"
+                  "(is_causal=True)",
+          library_max_abs_diff=f"{lib_err:.3e}",
+          bound_ms=f"{bound_ms:.5f}", bound_by=bound_by,
+          flops=f"{flops:.4g}", bytes=f"{nbytes:.4g}",
+          roofline_share=f"{bound_ms / ms:.4f}",
+          gpt_forward_ms_b1=f"{forward_ms[1]:.4f}",
+          gpt_forward_ms_b32=f"{forward_ms[32]:.4f}",
+          gpt_train_step_ms=f"{gtrain['step_ms']:.4f}")
+    return [{"name": "flash_attn_fwd", "route": "cuda",
+             "source": "deeplearning4j_tpu_torch/ops/csrc/flash_attn_fwd.cu",
+             "replaces": "deeplearning4j_tpu/ops/attention.py:197",
+             "launches": launches["serve_gpt"]["flash_attn_fwd"],
+             "launches_by_path": {p: v.get("flash_attn_fwd", 0)
+                                  for p, v in launches.items()},
+             "max_abs_err": errs["flash_attn_fwd"], "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": lib_ms}]
+
+
 def sweep_ms(make_args, fn, T):
     """ms of ``fn(*args)`` at T = 1, 16 and T: the cost per dependent step
     and the fixed cost."""
@@ -792,13 +1305,19 @@ def main() -> int:
 
     card = phase_device()
     errs = {"lstm_fwd": phase_kernel_vs_plain(),
-            "lstm_bwd": phase_bwd_vs_plain()}
+            "lstm_bwd": phase_bwd_vs_plain(),
+            "flash_attn_fwd": phase_flash_vs_plain()}
     net, serve_launches = phase_serve()
     phase_stream(net)
     train = phase_train()
     launches = {"serve": {"lstm_fwd": serve_launches},
                 "train": train["launches"], "tbptt": phase_tbptt()}
+    gnet, gserve_launches = phase_serve_gpt()
+    gtrain = phase_train_gpt()
+    launches["serve_gpt"] = {"flash_attn_fwd": gserve_launches}
+    launches["train_gpt"] = gtrain["launches"]
     kernels = phase_times(card, net, errs, launches, train)
+    kernels += phase_times_flash(card, gnet, errs, launches, gtrain)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

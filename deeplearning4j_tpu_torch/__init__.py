@@ -6,13 +6,16 @@ imports neither jax nor deeplearning4j_tpu. Entry points run on the card
 unless the caller passes another device (``device="cpu"`` runs the plain
 PyTorch versions).
 
-Ported so far, for the GravesLSTM char-RNN: configs with the JAX JSON
-round trip; ``MultiLayerNetwork`` inference (``output``, ``feed_forward``,
+Ported so far, for the GravesLSTM char-RNN (``zoo.char_rnn``) and the
+gpt_mini transformer (``zoo.gpt_mini``): configs with the JAX JSON round
+trip; ``MultiLayerNetwork`` inference (``output``, ``feed_forward``,
 ``rnn_time_step``) and training (``fit``, ``fit_batch``, truncated BPTT,
 ``score``) with the updaters, schedules, losses and loss scaling; datasets
 and in-memory iterators; the model zip, updater state included, in both
-directions; and ``ModelServer``. The LSTM runs forward and backward as
-hand-written kernels on the card (ops/csrc/lstm_fwd.cu, lstm_bwd.cu).
+directions; and ``ModelServer``. On the card the LSTM runs forward and
+backward as hand-written kernels (ops/csrc/lstm_fwd.cu, lstm_bwd.cu), and
+causal attention's forward as a hand-written flash kernel
+(ops/csrc/flash_attn_fwd.cu).
 """
 
 from deeplearning4j_tpu_torch.datasets import (ArrayDataSetIterator,
@@ -23,7 +26,9 @@ from deeplearning4j_tpu_torch.nn.conf import (DtypePolicy, InputType,
                                               MultiLayerConfiguration,
                                               NeuralNetConfiguration)
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.zoo import char_rnn, gpt_mini, gpt_mini_draft
 
 __all__ = ["ArrayDataSetIterator", "DataSet", "DtypePolicy", "InputType",
            "ListDataSetIterator", "MultiLayerConfiguration",
-           "MultiLayerNetwork", "NeuralNetConfiguration", "resolve_device"]
+           "MultiLayerNetwork", "NeuralNetConfiguration", "char_rnn",
+           "gpt_mini", "gpt_mini_draft", "resolve_device"]

@@ -1,6 +1,7 @@
 """Network and layer configurations (builders, JSON round trip)."""
 
 from deeplearning4j_tpu_torch.nn.conf import layers_recurrent  # noqa: F401  registers the recurrent layer types
+from deeplearning4j_tpu_torch.nn.conf import layers_attention  # noqa: F401  registers the transformer layer types
 from deeplearning4j_tpu_torch.nn.conf.core import (
     DtypePolicy,
     MultiLayerConfiguration,

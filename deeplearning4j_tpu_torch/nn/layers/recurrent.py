@@ -12,7 +12,8 @@ CPU); the input projection and the head are autograd of ``torch.matmul``.
 
 Streaming (``rnn_time_step`` and truncated BPTT): when ``layer.streaming``
 is set by the network, the final (h, c) carry is read from and written to
-the layer's state under "h"/"c"; ``strip_carries`` drops them again.
+the layer's state under "h"/"c" (the attention layers' under "k"/"v"/"pos");
+``strip_carries`` drops them again.
 """
 
 from __future__ import annotations
@@ -24,8 +25,11 @@ from deeplearning4j_tpu_torch.ops import initializers as init_mod
 from deeplearning4j_tpu_torch.ops import losses as losses_mod
 from deeplearning4j_tpu_torch.ops import lstm as lstm_ops
 
-# the recurrent carries a streaming layer keeps in its state
-CARRY_KEYS = ("h", "c")
+# the recurrent (h, c) carries a streaming layer keeps in its state, plus
+# the attention layers' KV-cache carries (k/v caches and each row's
+# absolute position, nn/layers/attention.py); the same keys as the JAX
+# package's CARRY_KEYS
+CARRY_KEYS = ("h", "c", "h_bwd", "c_bwd", "k", "v", "pos")
 
 
 def _lstm_scan(params, x, h0, c0, mask, gate_act, cell_act):

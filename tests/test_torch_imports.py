@@ -55,6 +55,18 @@ def test_no_jax_or_jax_package_import(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize("module", [
+    "deeplearning4j_tpu_torch.ops.attention",
+    "deeplearning4j_tpu_torch.nn.conf.layers_attention",
+    "deeplearning4j_tpu_torch.nn.layers.attention",
+    "deeplearning4j_tpu_torch.zoo.models",
+])
+def test_transformer_modules_are_checked(module):
+    """The transformer slice's modules are among the sources the two
+    tests around this one check."""
+    assert module in {_module_name(p) for p in SOURCES}
+
+
 def test_package_imports_with_jax_blocked():
     mods = [_module_name(p) for p in SOURCES if p.parent != ROOT]
     code = ("import sys\n"
@@ -86,6 +98,8 @@ def test_entry_points_raise_without_a_card(no_cuda, tmp_path):
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         zoo.char_rnn(hidden=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        zoo.gpt_mini(width=8, n_layers=1, n_heads=2, max_len=4)
     net = zoo.char_rnn(hidden=8, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         MultiLayerNetwork(net.conf)
