@@ -4,14 +4,17 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ops/csrc/ (the LSTM forward K1 and
-backward K2, the flash-attention forward K3), holds each against its plain
-PyTorch version on the card, serves the full-width GravesLSTM char-RNN
-(vocab 80, hidden 512, 2 layers, BF16) through ``ModelServer``
-``/predict``, streams through ``rnn_time_step``, trains the same model with
-``fit_batch`` (standard backprop, then truncated BPTT), then serves and
-trains the full-width gpt_mini transformer (vocab 80, width 256, 4 blocks
-of 4 heads, T = 256, BF16, Adam) the same way, checks that each path
-launched its kernels, and times the kernels and the train steps. Every
+backward K2, the flash-attention forward K3, the fused bottleneck tail's
+K4-K7), holds each against its plain PyTorch version on the card, serves
+the full-width GravesLSTM char-RNN (vocab 80, hidden 512, 2 layers, BF16)
+through ``ModelServer`` ``/predict``, streams through ``rnn_time_step``,
+trains the same model with ``fit_batch`` (standard backprop, then
+truncated BPTT), then serves and trains the full-width gpt_mini
+transformer (vocab 80, width 256, 4 blocks of 4 heads, T = 256, BF16,
+Adam) the same way, trains the full-width ResNet-50 (1000 classes,
+224 x 224, b = 256, BF16, Nesterovs) with the block-fusion pass on and
+off, checks that each path launched its kernels, and times the kernels
+and the train steps. Every
 phase that fails ends the run with a nonzero exit code. It needs one CUDA
 card; without one (or without the package beside it) it exits nonzero
 and prints no result.
@@ -1288,6 +1291,649 @@ def phase_times(card, net, errs, launches, train):
     return kernels
 
 
+# --------------------------------------------------------------- K4-K7
+# ResNet-50's fused tails at b = 256, 224 x 224: (stage, M = b*H*W, K, N)
+RESNET_TAILS = (("s1", 200704, 128, 512), ("s2", 50176, 256, 1024),
+                ("s3", 12544, 512, 2048))
+# K4-K7 vs their plain versions on the card (fused_vs_plain). Outputs
+# formed elementwise (y, dx, dshortcut; dx sums over N <= 2048 in f32):
+# f32 1e-5 of the output's max (the same f32 products in another order);
+# bf16 2 ulps at the output's max (z is the f32 product rounded to bf16,
+# and a sum in another order can land that rounding the other way, which
+# moves the output by about an ulp; each side rounds once more). Sums over
+# M (s1, s2, a, b, dW; M up to 200,704): f32 1e-5 of the largest sum of
+# the terms' magnitudes (the error of an f32 sum in any order scales with
+# it, not with the sum); bf16 2**-7 of it, twice the bound that one bf16
+# flip of every term's z or dz would give.
+FUSED_F32_TOL = 1e-5
+FUSED_SUM_BF16 = 2.0 ** -7
+# FusedTailFn's gradients vs autograd of the composed f32 reference (conv,
+# batch statistics, normalise, add, relu): 1e-4 of each gradient's max,
+# the f32 arithmetic in another order through the BN backward's 1/sigma.
+FUSED_GRAD_TOL = 1e-4
+# ResNet-50's first train step, same weights and batch (b = 8), fusion on.
+# Measured on an NVIDIA H100 80GB HBM3: at this full-depth net's first step
+# every f32 path, card or CPU, fused or not, lies 1-2% (L2) and up to ~12%
+# (at a gradient's max) from an f64 CPU run of the same step, so two f32
+# paths cannot agree to 1e-4 of max. The gradients of a relu/max-pool net
+# are discontinuous: a rounding that moves a pre-activation across 0, or
+# changes a pool's winner, changes the gradient by a finite amount (on the
+# CPU tests' small graph an additive 1e-6 change of the f64 input moves them
+# by 0.8% L2, as far as f32 from f64). So each path is held against the f64
+# plain CPU path (the unfused walk: the fused op takes f32 and bf16 only):
+# the card's gradients, fused, must be as accurate as the plain CPU path's
+# and as the card's own unfused step's, in each gradient's L2 error relative
+# to its norm, to within a factor RESNET_ACCURACY_RATIO plus 1e-3. Scores:
+# F32 1e-5 relative, BF16 1e-2 relative (the loss is an f32 mean over bf16
+# activations), card vs CPU and fused vs unfused. Card vs the plain CPU path
+# directly, F32: RESNET_F32_GRAD_L2 of each gradient's norm (the f32 paths'
+# measured spread, 1.2-2.1e-2, with margin).
+RESNET_F32_SCORE_RTOL = 1e-5
+RESNET_BF16_SCORE_RTOL = 1e-2
+RESNET_ACCURACY_RATIO = 2.0
+RESNET_F32_GRAD_L2 = 5e-2
+# Fused vs unfused at b = 256, BF16, on the card: the score to 1e-2
+# relative; the gradients' L2 distance is reported (the fused epilogue
+# runs in f32, the unfused BN in bf16).
+RESNET_PROB_TOL = 3e-2
+
+
+def tail_inputs(M, K, N, dtype, seed=0):
+    """Seeded inputs of one fused tail on the card, and the plain
+    forward's statistics and y, so each kernel sees the same inputs as
+    its plain version."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import fused_block as fb
+    rng = np.random.default_rng(SEED + 13 + seed + M + K + N)
+    f = lambda a, dt=dtype: torch.from_numpy(  # noqa: E731
+        np.asarray(a, np.float32)).to("cuda", dt)
+    x = f(rng.normal(0.0, 1.0, (M, K)))
+    W = f(rng.normal(0.0, 1.0 / math.sqrt(K), (K, N)))
+    gamma = f(rng.uniform(0.5, 1.5, N), torch.float32)
+    beta = f(rng.normal(0.0, 1.0, N), torch.float32)
+    sc = f(rng.normal(0.0, 1.0, (M, N)))
+    shift = f(rng.normal(0.0, 0.1, N), torch.float32)
+    dy = f(rng.normal(0.0, 1.0, (M, N)))
+    return dict(x=x, W=W, gamma=gamma, beta=beta, sc=sc, shift=shift, dy=dy)
+
+
+def tail_plain(t, relu):
+    """The plain passes' intermediates (the forward's arithmetic of
+    fused_forward, on the plain K4/K5 versions): (y, mean, var, inv,
+    scale, sh, ca, cb)."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import fused_block as fb
+    M = t["x"].shape[0]
+    with torch.no_grad():
+        s1, s2 = fb.fused_stats_torch(t["x"], t["W"], t["shift"])
+        m1 = s1 / M
+        mean = m1 + t["shift"]
+        var = torch.clamp(s2 / M - m1 * m1, min=0.0)
+        inv = torch.rsqrt(var + 1e-5)
+        scale = t["gamma"] * inv
+        sh = t["beta"] - mean * scale
+        y = fb.fused_apply_torch(t["x"], t["W"], scale, sh, t["sc"], relu)
+        a, b = fb.fused_bwd_stats_torch(t["x"], t["W"], mean, inv, t["dy"],
+                                        y, relu)
+    return dict(y=y, mean=mean, var=var, inv=inv, scale=scale, sh=sh,
+                ca=a / M, cb=b / M)
+
+
+def sum_scales(t, p, relu):
+    """For each sum over M, the largest (over columns) sum of its terms'
+    magnitudes: the scale an f32 sum's rounding error grows with."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import fused_block as fb
+    with torch.no_grad():
+        z = fb._z(t["x"], t["W"])
+        zs = (z - t["shift"]).abs()
+        g = fb._g(t["dy"], p["y"], relu).abs()
+        xhat = ((z - p["mean"]) * p["inv"]).abs()
+        dz = (p["scale"] * (g + p["ca"].abs() + xhat * p["cb"].abs()))
+        dw = torch.matmul(t["x"].float().abs().t(), dz)
+        return {"s1": float(zs.sum(0).max()), "s2": float((zs * zs).sum(0)
+                                                          .max()),
+                "a": float(g.sum(0).max()), "b": float((g * xhat).sum(0)
+                                                        .max()),
+                "dW": float(dw.max())}
+
+
+def phase_fused_vs_plain():
+    """K4-K7 against their plain versions at ResNet-50's s1 and s3 tail
+    shapes (bf16), at ragged shapes in f32 and bf16, relu on and off; two
+    calls bit-equal; FusedTailFn's gradients vs autograd of the composed
+    f32 reference. Returns each kernel's max abs error at s1 (bf16)."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import fused_block as fb
+    from deeplearning4j_tpu_torch.ops import registry
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [(200704, 128, 512, bf, True), (12544, 512, 2048, bf, True),
+             (1000, 128, 512, f32, True), (1000, 128, 512, f32, False),
+             (1000, 128, 512, bf, True), (1000, 128, 512, bf, False),
+             (777, 72, 200, f32, True), (777, 72, 200, bf, False),
+             (37, 5, 7, f32, True), (37, 5, 7, bf, True)]
+    main_err = {}
+    n_calls = 0
+    registry.reset_launches()
+    for M, K, N, dtype, relu in cases:
+        dname = str(dtype).split(".")[-1]
+        t = tail_inputs(M, K, N, dtype)
+        p = tail_plain(t, relu)
+        scales = sum_scales(t, p, relu)
+        with torch.no_grad():
+            args = {
+                fb.STATS: (t["x"], t["W"], t["shift"]),
+                fb.APPLY: (t["x"], t["W"], p["scale"], p["sh"], t["sc"],
+                           relu),
+                fb.BWD_STATS: (t["x"], t["W"], p["mean"], p["inv"], t["dy"],
+                               p["y"], relu),
+                fb.BWD_APPLY: (t["x"], t["W"], p["mean"], p["inv"],
+                               p["scale"], p["ca"], p["cb"], t["dy"], p["y"],
+                               relu)}
+            names = {fb.STATS: ("s1", "s2"), fb.APPLY: ("y",),
+                     fb.BWD_STATS: ("a", "b"),
+                     fb.BWD_APPLY: ("dx", "dW", "dshortcut")}
+            errs = {}
+            for kern, a in args.items():
+                cuda_fn = registry.get(kern, "cuda")
+                got = cuda_fn(*a)
+                again = cuda_fn(*a)
+                n_calls += 2
+                torch.cuda.synchronize()
+                want = registry.get(kern, "cpu")(*a)
+                got = got if isinstance(got, tuple) else (got,)
+                again = again if isinstance(again, tuple) else (again,)
+                want = want if isinstance(want, tuple) else (want,)
+                for nm, g, g2, w in zip(names[kern], got, again, want):
+                    check(g.dtype == w.dtype and g.shape == w.shape,
+                          f"{kern} {nm}: kernel {g.dtype}{tuple(g.shape)} vs "
+                          f"plain {w.dtype}{tuple(w.shape)}")
+                    check(torch.isfinite(g.float()).all().item(),
+                          f"{kern} {nm} not finite ({M},{K},{N}) {dname}")
+                    check(torch.equal(g, g2), f"{kern} {nm}: two identical "
+                          f"calls gave different bits ({M},{K},{N}) {dname}")
+                    err = float((g.float() - w.float()).abs().max())
+                    if nm in scales:
+                        lim = scales[nm] * (FUSED_F32_TOL if dtype == f32
+                                            else FUSED_SUM_BF16)
+                    elif dtype == f32:
+                        lim = FUSED_F32_TOL * float(w.float().abs().max())
+                    else:
+                        lim = bf16_tol(w.float())  # two ulps
+                    errs[nm] = err
+                    check(err <= lim, f"{kern} {nm} disagrees with the plain "
+                          f"version ({M},{K},{N}) {dname} relu={relu}: max "
+                          f"abs err {err:.3e} > {lim:.3e}")
+                    if (M, dtype) == (200704, bf):
+                        main_err[kern] = max(main_err.get(kern, 0.0), err)
+        fields = {}
+        if (M, K, N, dtype) == (1000, 128, 512, f32):
+            gerr = fused_grads_vs_reference(t, relu)
+            fields["grad_err_of_max"] = f"{gerr:.2e}"
+            n_calls += 4
+        phase("kernel_vs_plain", kernel="fused_block", dtype=dname, M=M, K=K,
+              N=N, relu=relu, deterministic=True,
+              max_abs_err=json.dumps({k: float(f"{v:.3e}")
+                                      for k, v in errs.items()}), **fields)
+    launched = registry.launches()
+    for kern in (fb.STATS, fb.APPLY, fb.BWD_STATS, fb.BWD_APPLY):
+        check(launched.get(kern, 0) == n_calls // 4,
+              f"{kern} launch counter read {launched.get(kern, 0)} after "
+              f"{n_calls // 4} calls")
+    return main_err
+
+
+def fused_grads_vs_reference(t, relu):
+    """Gradients through FusedTailFn (K4-K7) vs autograd of the composed
+    f32 reference, on the card. Returns the largest error over each
+    gradient's max."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import fused_block as fb
+    keys = ("x", "W", "gamma", "beta", "sc")
+    leaves_k = {k: t[k].detach().clone().requires_grad_() for k in keys}
+    y_k, _, _ = fb.conv1x1_bn_add_relu(
+        leaves_k["x"], leaves_k["W"], leaves_k["gamma"], leaves_k["beta"],
+        leaves_k["sc"], shift=t["shift"], eps=1e-5, relu=relu)
+    fns, names = [y_k.grad_fn], set()
+    for _ in range(3):
+        names.update(type(f).__name__ for f in fns if f is not None)
+        fns = [n for f in fns if f is not None for n, _ in f.next_functions]
+    check("FusedTailFnBackward" in names,
+          f"conv1x1_bn_add_relu did not route through FusedTailFn: {names}")
+    w = torch.cos(torch.arange(y_k.numel(), device=y_k.device,
+                               dtype=torch.float32)).reshape(y_k.shape)
+    got = torch.autograd.grad((y_k * w).sum(), [leaves_k[k] for k in keys])
+    leaves_p = {k: t[k].detach().clone().requires_grad_() for k in keys}
+    z = leaves_p["x"] @ leaves_p["W"]
+    zs = z - t["shift"]
+    m1 = zs.mean(0)
+    var = torch.clamp((zs * zs).mean(0) - m1 * m1, min=0.0)
+    y_p = ((z - (m1 + t["shift"])) * torch.rsqrt(var + 1e-5)
+           * leaves_p["gamma"] + leaves_p["beta"] + leaves_p["sc"])
+    if relu:
+        y_p = torch.relu(y_p)
+    want = torch.autograd.grad((y_p * w).sum(), [leaves_p[k] for k in keys])
+    worst = 0.0
+    for name, g, wt in zip(keys, got, want):
+        err = float((g - wt).abs().max()) / float(wt.abs().max())
+        check(err <= FUSED_GRAD_TOL, f"FusedTailFn d{name} vs autograd of "
+              f"the composed reference: {err:.3e} of max > {FUSED_GRAD_TOL}")
+        worst = max(worst, err)
+    return worst
+
+
+def resnet_batches(n, b, seed, size=224, classes=1000):
+    """``n`` synthetic batches made on the card from a seed: NHWC images
+    of noise plus a per-class colour (something to learn), one-hot
+    labels."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    colour = torch.randn((classes, 3), generator=gen, device="cuda")
+    out = []
+    for _ in range(n):
+        lab = torch.randint(0, classes, (b,), generator=gen, device="cuda")
+        img = torch.randn((b, size, size, 3), generator=gen, device="cuda")
+        img += colour[lab][:, None, None, :]
+        out.append((img, torch.nn.functional.one_hot(lab, classes).float()))
+    return out
+
+
+def graph_loss_and_grads(net, x, y):
+    """The training loss (fused tails when the pass matched them) and its
+    gradient for every parameter, by autograd of the graph's loss."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import MultiDataSet
+    leaves = {ln: {k: t.detach().requires_grad_() for k, t in lp.items()}
+              for ln, lp in net.params.items()}
+    loss, _ = net._loss(leaves, net.state,
+                        *net._batch(MultiDataSet([x], [y])), gen=net._gen)
+    keys = [(ln, k) for ln in leaves for k in leaves[ln]]
+    grads = torch.autograd.grad(loss, [leaves[ln][k] for ln, k in keys])
+    return float(loss.detach()), dict(zip(keys, grads))
+
+
+def graph_copy(net, device, fuse, dtype=None):
+    """The same configuration, weights and BN state on ``device``, with
+    the fusion pass on or off; ``dtype`` ("float64") also changes the
+    policy and the weights' type."""
+    import dataclasses
+    import os
+    from deeplearning4j_tpu_torch import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.conf.core import TORCH_DTYPES, DtypePolicy
+    conf, cast = net.conf, None
+    if dtype is not None:
+        gc = dataclasses.replace(conf.global_conf, dtype=DtypePolicy(
+            param_dtype=dtype, compute_dtype=dtype))
+        conf = dataclasses.replace(conf, global_conf=gc)
+        cast = TORCH_DTYPES[dtype]
+    before = os.environ.get("DL4J_TPU_FUSE_BLOCKS")
+    os.environ["DL4J_TPU_FUSE_BLOCKS"] = "1" if fuse else "0"
+    try:
+        cp = ComputationGraph(conf, device=device).init()
+    finally:
+        if before is None:
+            del os.environ["DL4J_TPU_FUSE_BLOCKS"]
+        else:
+            os.environ["DL4J_TPU_FUSE_BLOCKS"] = before
+    copy = lambda t: t.detach().to(device, cast).clone()  # noqa: E731
+    cp.params = {ln: {k: copy(t) for k, t in lp.items()}
+                 for ln, lp in net.params.items()}
+    cp.state = {ln: {k: copy(t) for k, t in lp.items()}
+                for ln, lp in net.state.items()}
+    return cp
+
+
+def grad_errors(got, want, rel_l2=False):
+    """Per gradient: max|got - want| over max|want|, or (rel_l2) the L2
+    norm of the difference over want's."""
+    out = {}
+    for key, w in want.items():
+        g = got[key].to(w.device).float()
+        w = w.float()
+        if rel_l2:
+            n = float(w.norm())
+            out[f"{key[0]}.{key[1]}"] = float((g - w).norm()) / n if n else 0.0
+        else:
+            top = float(w.abs().max())
+            out[f"{key[0]}.{key[1]}"] = (float((g - w).abs().max()) / top
+                                         if top else 0.0)
+    return out
+
+
+def worst(errs):
+    k = max(errs, key=errs.get)
+    return k, errs[k]
+
+
+def resnet_profile(net, data):
+    """torch.profiler over len(data) fit_batch steps: device time and
+    kernels per step by kind, and the busy share of the wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for ds in data:
+            net.fit_batch(ds)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA"]
+    n = len(data)
+    total = sum(e.self_device_time_total for e in kernels)
+    check(total > 0, "the profiler saw no device time")
+    # bwd_stats_kernel before stats_kernel: the first name found wins
+    fused_names = {"bwd_stats_kernel": "K6", "stats_kernel": "K4",
+                   "apply_kernel": "K5", "dz_kernel": "K7",
+                   "gemm_kernel": "K7", "sum_splits": "K7",
+                   "sum_partials2": "K4/K6 partial sums"}
+    groups, fused = {}, {}
+    for e in kernels:
+        name = e.key.lower()
+        tag = next((v for k, v in fused_names.items()
+                    if k.lower() in name and "cutlass" not in name), None)
+        if tag is not None:
+            g = "fused_K4_K7"
+            ms, cnt = fused.get(tag, (0.0, 0))
+            fused[tag] = (ms + e.self_device_time_total / 1e3 / n,
+                          cnt + e.count // n)
+        elif any(w in name for w in ("conv", "cudnn", "implicit", "fprop",
+                                     "dgrad", "wgrad", "winograd", "nhwc",
+                                     "xmma", "sm90_xmma")):
+            g = "cudnn_conv"
+        elif any(w in name for w in ("gemm", "cutlass", "cublas")):
+            g = "gemm"
+        elif "reduce" in name or "norm" in name:
+            g = "bn_reduce"
+        elif "elementwise" in name or "vectorized" in name:
+            g = "elementwise"
+        elif "copy" in name or "memcpy" in name or "memset" in name:
+            g = "copy"
+        else:
+            g = "other"
+        ms, cnt = groups.get(g, (0.0, 0))
+        groups[g] = (ms + e.self_device_time_total / 1e3 / n,
+                     cnt + e.count // n)
+    return {
+        "prof_by_kind_ms_and_kernels_per_step": json.dumps(
+            {g: [round(ms, 3), c] for g, (ms, c) in sorted(groups.items())}),
+        "prof_fused_by_kernel_ms_and_launches_per_step": json.dumps(
+            {g: [round(ms, 3), c] for g, (ms, c) in sorted(fused.items())}),
+        "prof_steps": n,
+        "prof_wall_ms_per_step": f"{wall_ms / n:.3f}",
+        "prof_device_ms_per_step": f"{total / 1e3 / n:.3f}",
+        "prof_device_busy_share": f"{total / 1e3 / wall_ms:.3f}",
+        "prof_kernels_per_step": sum(e.count for e in kernels) // n,
+    }
+
+
+def timed_steps(net, data, steps):
+    """``steps`` fit_batch steps cycling through ``data``: scores, step
+    ms by CUDA events, peak device memory, launches."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import registry
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    registry.reset_launches()
+    scores, events = [], []
+    for i in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        scores.append(net.fit_batch(data[i % len(data)]))
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return {"scores": [float(s) for s in scores],
+            "step_ms": [s.elapsed_time(e) for s, e in events],
+            "peak_mb": torch.cuda.max_memory_allocated() / 2**20,
+            "launches": registry.launches()}
+
+
+def phase_train_resnet():
+    """zoo.resnet50 at full width, BF16, Nesterovs(0.1, 0.9), with the
+    block-fusion pass on (DL4J_TPU_FUSE_BLOCKS=1): the first step on the
+    card (fused and unfused) and on the plain CPU path against the f64
+    plain CPU path (F32 and BF16, b = 8), fused vs unfused on the card at
+    b = 256, 20 timed steps each way at b = 256, 224 x 224, the launches
+    of K4-K7 (13 each per step), a profile, and one eval forward vs the
+    CPU path."""
+    import os
+    import torch
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.updater import _map, apply_layer_updates
+    from deeplearning4j_tpu_torch.ops import fused_block as fb
+    from deeplearning4j_tpu_torch.ops import registry
+    kernels = (fb.STATS, fb.APPLY, fb.BWD_STATS, fb.BWD_APPLY)
+    b, steps, tails = 256, 20, 13
+    os.environ["DL4J_TPU_FUSE_BLOCKS"] = "1"
+    net = zoo.resnet50(seed=SEED + 20)
+    check(len(net._fusion_plans) == tails,
+          f"resnet50 matched {len(net._fusion_plans)} tails, expected {tails}")
+    pol = net.conf.global_conf.dtype
+    check(pol.compute_dtype == "bfloat16" and pol.param_dtype == "float32",
+          f"resnet50 policy {pol}")
+    upd = net.layers[0].resolve("updater")
+    check(upd.kind == "nesterovs" and upd.learning_rate == 0.1
+          and upd.momentum == 0.9, f"resnet50 updater {upd}")
+    batches = resnet_batches(2, b, SEED + 21)
+    x0, y0 = batches[0]
+    out = {"model": "resnet50(classes=1000,224x224,BF16,Nesterovs(0.1,0.9),"
+                    "DL4J_TPU_FUSE_BLOCKS=1)", "b": b,
+           "params": net.num_params(), "fused_tails": len(net._fusion_plans)}
+
+    # the first step on the card, fused and unfused, and on the plain CPU
+    # path, against the f64 plain CPU path, same weights and batch
+    t0 = time.perf_counter()
+    nb = 8
+    xs, ys = x0[:nb], y0[:nb]
+    ref_net = graph_copy(net, "cpu", False, dtype="float64")
+    ref_loss, ref_g = graph_loss_and_grads(ref_net, xs.cpu().double(),
+                                           ys.cpu().double())
+    del ref_net
+    f32 = zoo.resnet50(seed=SEED + 20, dtype=zoo.F32)
+    for name, card_net in (("f32", f32), ("bf16", net)):
+        registry.reset_launches()
+        card_loss, card_g = graph_loss_and_grads(card_net, xs, ys)
+        check(registry.launches().get(fb.STATS, 0) == tails,
+              f"the card's {name} step launched "
+              f"{registry.launches().get(fb.STATS, 0)} K4, expected {tails}")
+        un_loss, un_g = graph_loss_and_grads(
+            graph_copy(card_net, "cuda", False), xs, ys)
+        cpu_loss, cpu_g = graph_loss_and_grads(
+            graph_copy(card_net, "cpu", True), xs.cpu(), ys.cpu())
+        errs = {path: worst(grad_errors(g, ref_g, rel_l2=True))
+                for path, g in (("card_fused", card_g), ("card_unfused", un_g),
+                                ("cpu_fused", cpu_g))}
+        direct = worst(grad_errors(card_g, cpu_g, rel_l2=True))
+        slim = (RESNET_F32_SCORE_RTOL if name == "f32"
+                else RESNET_BF16_SCORE_RTOL)
+        score_errs = {"card_vs_cpu": abs(card_loss - cpu_loss) / abs(cpu_loss),
+                      "fused_vs_unfused": abs(card_loss - un_loss)
+                      / abs(un_loss)}
+        print(f"  resnet50 first step ({name}, b={nb}): scores card fused "
+              f"{card_loss:.6f}, card unfused {un_loss:.6f}, CPU "
+              f"{cpu_loss:.6f}, f64 CPU {ref_loss:.6f}; worst gradient L2 "
+              f"error vs f64: " + json.dumps(
+                  {k: f"{v[0]}:{v[1]:.3e}" for k, v in errs.items()})
+              + f"; card vs CPU {direct[0]}:{direct[1]:.3e}", flush=True)
+        for k, v in score_errs.items():
+            out[f"first_step_{name}_score_{k}_rel"] = f"{v:.3e}"
+            check(v <= slim, f"first step {name} score {k}: {v:.3e} > {slim}")
+        for k, v in errs.items():
+            out[f"first_step_{name}_grad_l2_vs_f64_{k}"] = f"{v[1]:.3e}"
+        out[f"first_step_{name}_grad_l2_card_vs_cpu"] = f"{direct[1]:.3e}"
+        for other in ("cpu_fused", "card_unfused"):
+            lim = RESNET_ACCURACY_RATIO * errs[other][1] + 1e-3
+            check(errs["card_fused"][1] <= lim,
+                  f"first step {name}: the card's fused gradients are "
+                  f"{errs['card_fused'][1]:.3e} (L2) from f64, more than "
+                  f"{RESNET_ACCURACY_RATIO} x {other}'s {errs[other][1]:.3e}")
+        if name == "f32":
+            check(direct[1] <= RESNET_F32_GRAD_L2, f"F32 gradient "
+                  f"{direct[0]} card vs CPU: L2 {direct[1]:.3e} > "
+                  f"{RESNET_F32_GRAD_L2}")
+    del f32, card_g, un_g, cpu_g, ref_g
+    out["first_step_checks_s"] = f"{time.perf_counter() - t0:.1f}"
+
+    # fused vs unfused on the card at the run's batch, BF16
+    unfused = graph_copy(net, "cuda", False)
+    check(not unfused._fusion_plans, "the unfused copy matched tails")
+    f_loss, f_g = graph_loss_and_grads(net, x0, y0)
+    u_loss, u_g = graph_loss_and_grads(unfused, x0, y0)
+    score_err = abs(f_loss - u_loss) / abs(u_loss)
+    k, e = worst(grad_errors(f_g, u_g, rel_l2=True))
+    print(f"  resnet50 fused vs unfused (bf16, b={b}): score {f_loss:.6f} "
+          f"vs {u_loss:.6f}; worst gradient L2 distance {k} {e:.3e}",
+          flush=True)
+    out["fused_vs_unfused_b256_score_rel"] = f"{score_err:.3e}"
+    out["fused_vs_unfused_b256_worst_grad_l2"] = f"{k}:{e:.3e}"
+    check(score_err <= RESNET_BF16_SCORE_RTOL, f"fused vs unfused score "
+          f"(bf16, b={b}) {score_err:.3e} > {RESNET_BF16_SCORE_RTOL}")
+    del f_g, u_g
+    torch.cuda.empty_cache()
+
+    # 20 steps each way from the same weights on the same two batches
+    data = [DataSet(x, y) for x, y in batches]
+    runs = {"fused": timed_steps(net, data, steps)}
+    runs["unfused"] = timed_steps(unfused, data, steps)
+    for kern in kernels:
+        check(runs["fused"]["launches"].get(kern, 0) == tails * steps,
+              f"{kern} launched {runs['fused']['launches'].get(kern, 0)} "
+              f"times in {steps} fused steps, expected {tails * steps}")
+        check(runs["unfused"]["launches"].get(kern, 0) == 0,
+              f"{kern} launched in the unfused run")
+    for name, r in runs.items():
+        sc = r["scores"]
+        check(all(math.isfinite(v) for v in sc), f"{name} scores {sc}")
+        last5 = statistics.mean(sc[-5:])
+        check(last5 < sc[0], f"{name} training did not lower the score: "
+              f"first {sc[0]:.4f}, mean of last 5 {last5:.4f}")
+        med = statistics.median(r["step_ms"][-10:])
+        out[f"{name}_step_ms_median_last10"] = f"{med:.3f}"
+        out[f"{name}_step_ms_min_max_last10"] = (
+            f"{min(r['step_ms'][-10:]):.3f}/{max(r['step_ms'][-10:]):.3f}")
+        out[f"{name}_images_per_s"] = f"{b / med * 1e3:.1f}"
+        out[f"{name}_peak_mem_mb"] = f"{r['peak_mb']:.0f}"
+        out[f"{name}_scores"] = json.dumps([round(v, 4) for v in sc])
+    out["launches_fused_run"] = json.dumps(runs["fused"]["launches"])
+    out["launches_per_step"] = json.dumps(
+        {k: runs["fused"]["launches"].get(k, 0) // steps for k in kernels})
+
+    # the Nesterov update alone, on copies
+    gc = net.conf.global_conf
+    params = _map(lambda t: t.detach().clone(), net.params)
+    opt = _map(lambda t: t.detach().clone(), net.opt_state)
+    grads = _map(lambda t: torch.full_like(t, 1e-3), params)
+    with torch.no_grad():
+        upd_ms = cuda_ms(lambda: apply_layer_updates(
+            net.layers, gc, params, grads, opt, 0), reps=5)
+    out["nesterov_update_ms"] = f"{upd_ms:.3f}"
+    del params, opt, grads
+    out.update(resnet_profile(net, data[:1] * 3))
+
+    # one eval forward (unfused walk, running statistics) vs the CPU path
+    xe = batches[1][0][:32]
+    card_p = net.output(xe).float().cpu()
+    cpu_p = graph_copy(net, "cpu", True).output(xe.cpu()).float()
+    perr = float((card_p - cpu_p).abs().max())
+    out["eval_b32_prob_vs_cpu"] = f"{perr:.3e}"
+    check(torch.isfinite(card_p).all().item() and card_p.shape == (32, 1000),
+          f"eval output {tuple(card_p.shape)} not finite")
+    check(perr <= RESNET_PROB_TOL, f"eval probabilities card vs CPU "
+          f"{perr:.3e} > {RESNET_PROB_TOL}")
+    phase("train_resnet", **out)
+    return {"launches": runs["fused"]["launches"],
+            "step_ms": float(out["fused_step_ms_median_last10"]),
+            "unfused_step_ms": float(out["unfused_step_ms_median_last10"])}
+
+
+def fused_bound(kern, M, K, N):
+    """(flops, bytes) the function needs at bf16: each input read once,
+    each output written once."""
+    e, v = 2, 4 * N
+    mk, kn, mn = M * K * e, K * N * e, M * N * e
+    gemm = 2.0 * M * K * N
+    if kern == "fused_block_stats":
+        return gemm, mk + kn + v + 2 * v
+    if kern == "fused_block_apply":
+        return gemm, mk + kn + 2 * v + mn + mn
+    if kern == "fused_block_bwd_stats":
+        return gemm, mk + kn + 2 * v + 2 * mn + 2 * v
+    return 3 * gemm, mk + kn + 5 * v + 2 * mn + mk + K * N * 4 + mn
+
+
+def phase_times_fused(card, errs, rtrain):
+    """K4-K7 at each ResNet-50 stage shape (bf16): 20 launches back to
+    back, the plain version, the bound, and torch.matmul of the same
+    [M, K] x [K, N] product as a yardstick (no single PyTorch call
+    computes these functions)."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import fused_block as fb
+    from deeplearning4j_tpu_torch.ops import registry
+    rows = {}
+    for stage, M, K, N in RESNET_TAILS:
+        t = tail_inputs(M, K, N, torch.bfloat16, seed=1)
+        p = tail_plain(t, True)
+        args = {
+            fb.STATS: (t["x"], t["W"], t["shift"]),
+            fb.APPLY: (t["x"], t["W"], p["scale"], p["sh"], t["sc"], True),
+            fb.BWD_STATS: (t["x"], t["W"], p["mean"], p["inv"], t["dy"],
+                           p["y"], True),
+            fb.BWD_APPLY: (t["x"], t["W"], p["mean"], p["inv"], p["scale"],
+                           p["ca"], p["cb"], t["dy"], p["y"], True)}
+        with torch.no_grad():
+            gemm_ms = cuda_ms_per_launch(
+                lambda: torch.matmul(t["x"], t["W"]), reps=5)
+            for kern, a in args.items():
+                cuda_fn = registry.get(kern, "cuda")
+                plain_fn = registry.get(kern, "cpu")
+                ms = cuda_ms_per_launch(lambda: cuda_fn(*a), reps=5)
+                plain_ms = cuda_ms_per_launch(lambda: plain_fn(*a), reps=3,
+                                              inner=5)
+                flops, nbytes = fused_bound(kern, M, K, N)
+                bound_ms, bound_by = bound(flops, nbytes, "bfloat16")
+                gemms = 3 if kern == fb.BWD_APPLY else 1
+                rows[(kern, stage)] = dict(ms=ms, plain_ms=plain_ms,
+                                           bound_ms=bound_ms,
+                                           bound_by=bound_by)
+                phase("times", kernel=kern, stage=stage, M=M, K=K, N=N,
+                      dtype="bfloat16", card=json.dumps(card),
+                      ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+                      bound_ms=f"{bound_ms:.5f}", bound_by=bound_by,
+                      flops=f"{flops:.4g}", bytes=f"{nbytes:.4g}",
+                      roofline_share=f"{bound_ms / ms:.4f}",
+                      tflops=f"{flops / ms / 1e9:.2f}",
+                      library="none (no single PyTorch call computes it); "
+                              "yardstick torch.matmul of the same product",
+                      matmul_ms=f"{gemm_ms:.4f}",
+                      matmul_ms_times_products=f"{gemm_ms * gemms:.4f}")
+        del t, p, args
+        torch.cuda.empty_cache()
+    phase("times", kernel="resnet50_train_step", b=256,
+          fused_step_ms=f"{rtrain['step_ms']:.3f}",
+          unfused_step_ms=f"{rtrain['unfused_step_ms']:.3f}")
+    source = "deeplearning4j_tpu_torch/ops/csrc/fused_block.cu"
+    lines = {fb.STATS: 135, fb.APPLY: 156, fb.BWD_STATS: 165,
+             fb.BWD_APPLY: 193}
+    out = []
+    for kern, line in lines.items():
+        r = rows[(kern, "s1")]
+        out.append({"name": kern, "route": "cuda", "source": source,
+                    "replaces":
+                        f"deeplearning4j_tpu/ops/fused_block.py:{line}",
+                    "launches": rtrain["launches"].get(kern, 0),
+                    "max_abs_err": errs[kern], "ms": r["ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                    "bound_by": r["bound_by"], "library_ms": None,
+                    "shape": "s1 (M=200704, K=128, N=512, bf16)",
+                    "by_stage_ms": {st: rows[(kern, st)]["ms"]
+                                    for st, _, _, _ in RESNET_TAILS}})
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1307,6 +1953,7 @@ def main() -> int:
     errs = {"lstm_fwd": phase_kernel_vs_plain(),
             "lstm_bwd": phase_bwd_vs_plain(),
             "flash_attn_fwd": phase_flash_vs_plain()}
+    errs.update(phase_fused_vs_plain())
     net, serve_launches = phase_serve()
     phase_stream(net)
     train = phase_train()
@@ -1316,8 +1963,10 @@ def main() -> int:
     gtrain = phase_train_gpt()
     launches["serve_gpt"] = {"flash_attn_fwd": gserve_launches}
     launches["train_gpt"] = gtrain["launches"]
+    rtrain = phase_train_resnet()
     kernels = phase_times(card, net, errs, launches, train)
     kernels += phase_times_flash(card, gnet, errs, launches, gtrain)
+    kernels += phase_times_fused(card, errs, rtrain)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

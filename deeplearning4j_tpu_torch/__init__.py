@@ -6,29 +6,39 @@ imports neither jax nor deeplearning4j_tpu. Entry points run on the card
 unless the caller passes another device (``device="cpu"`` runs the plain
 PyTorch versions).
 
-Ported so far, for the GravesLSTM char-RNN (``zoo.char_rnn``) and the
-gpt_mini transformer (``zoo.gpt_mini``): configs with the JAX JSON round
-trip; ``MultiLayerNetwork`` inference (``output``, ``feed_forward``,
+Ported so far, for the GravesLSTM char-RNN (``zoo.char_rnn``), the
+gpt_mini transformer (``zoo.gpt_mini``) and ResNet-50's training path
+(``zoo.resnet50``): configs with the JAX JSON round trip;
+``MultiLayerNetwork`` inference (``output``, ``feed_forward``,
 ``rnn_time_step``) and training (``fit``, ``fit_batch``, truncated BPTT,
-``score``) with the updaters, schedules, losses and loss scaling; datasets
-and in-memory iterators; the model zip, updater state included, in both
-directions; and ``ModelServer``. On the card the LSTM runs forward and
-backward as hand-written kernels (ops/csrc/lstm_fwd.cu, lstm_bwd.cu), and
+``score``) with the updaters, schedules, losses and loss scaling;
+``ComputationGraph`` training and inference with the block-fusion pass;
+datasets and in-memory iterators; the model zips, updater state included,
+in both directions; and ``ModelServer``. On the card the LSTM runs forward
+and backward as hand-written kernels (ops/csrc/lstm_fwd.cu, lstm_bwd.cu),
 causal attention's forward as a hand-written flash kernel
-(ops/csrc/flash_attn_fwd.cu).
+(ops/csrc/flash_attn_fwd.cu), and the fused bottleneck tail (1x1 conv +
+batch norm + add + relu) forward and backward as four hand-written kernels
+(ops/csrc/fused_block.cu).
 """
 
 from deeplearning4j_tpu_torch.datasets import (ArrayDataSetIterator,
                                                DataSet,
-                                               ListDataSetIterator)
+                                               ListDataSetIterator,
+                                               MultiDataSet)
 from deeplearning4j_tpu_torch.device import resolve_device
-from deeplearning4j_tpu_torch.nn.conf import (DtypePolicy, InputType,
+from deeplearning4j_tpu_torch.nn.conf import (ComputationGraphConfiguration,
+                                              DtypePolicy, InputType,
                                               MultiLayerConfiguration,
                                               NeuralNetConfiguration)
+from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
-from deeplearning4j_tpu_torch.zoo import char_rnn, gpt_mini, gpt_mini_draft
+from deeplearning4j_tpu_torch.zoo import (char_rnn, gpt_mini, gpt_mini_draft,
+                                          resnet50)
 
-__all__ = ["ArrayDataSetIterator", "DataSet", "DtypePolicy", "InputType",
-           "ListDataSetIterator", "MultiLayerConfiguration",
-           "MultiLayerNetwork", "NeuralNetConfiguration", "char_rnn",
-           "gpt_mini", "gpt_mini_draft", "resolve_device"]
+__all__ = ["ArrayDataSetIterator", "ComputationGraph",
+           "ComputationGraphConfiguration", "DataSet", "DtypePolicy",
+           "InputType", "ListDataSetIterator", "MultiDataSet",
+           "MultiLayerConfiguration", "MultiLayerNetwork",
+           "NeuralNetConfiguration", "char_rnn", "gpt_mini",
+           "gpt_mini_draft", "resnet50", "resolve_device"]

@@ -1,5 +1,6 @@
 """DataSet: one (features, labels) minibatch with optional [batch, time]
-0/1 masks (counterpart of deeplearning4j_tpu/datasets/dataset.py). The
+0/1 masks, and MultiDataSet, its multi-input/multi-output form
+(counterpart of deeplearning4j_tpu/datasets/dataset.py). The
 arrays are numpy arrays (or anything indexable along the example axis);
 the network moves them to its device when it trains on them."""
 
@@ -51,3 +52,31 @@ class DataSet:
                        cat([d.labels for d in datasets]),
                        cat([d.features_mask for d in datasets]),
                        cat([d.labels_mask for d in datasets]))
+
+
+@dataclass
+class MultiDataSet:
+    """A multi-input/multi-output minibatch, as a ComputationGraph consumes
+    it: lists of arrays, with per-input/per-output masks or None."""
+
+    features: list
+    labels: list
+    features_masks: Optional[list] = None
+    labels_masks: Optional[list] = None
+
+    def __post_init__(self):
+        self.features = list(self.features)
+        self.labels = list(self.labels)
+        if self.features_masks is None:
+            self.features_masks = [None] * len(self.features)
+        if self.labels_masks is None:
+            self.labels_masks = [None] * len(self.labels)
+
+    @property
+    def num_examples(self) -> int:
+        return int(self.features[0].shape[0])
+
+    @staticmethod
+    def from_dataset(ds: DataSet) -> "MultiDataSet":
+        return MultiDataSet([ds.features], [ds.labels],
+                            [ds.features_mask], [ds.labels_mask])

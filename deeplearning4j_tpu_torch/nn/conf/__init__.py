@@ -2,12 +2,15 @@
 
 from deeplearning4j_tpu_torch.nn.conf import layers_recurrent  # noqa: F401  registers the recurrent layer types
 from deeplearning4j_tpu_torch.nn.conf import layers_attention  # noqa: F401  registers the transformer layer types
+from deeplearning4j_tpu_torch.nn.conf import layers_conv  # noqa: F401  registers the convolutional layer types
 from deeplearning4j_tpu_torch.nn.conf.core import (
     DtypePolicy,
     MultiLayerConfiguration,
     NeuralNetConfiguration,
 )
+from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
+    ComputationGraphConfiguration)
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 
-__all__ = ["DtypePolicy", "InputType", "MultiLayerConfiguration",
-           "NeuralNetConfiguration"]
+__all__ = ["ComputationGraphConfiguration", "DtypePolicy", "InputType",
+           "MultiLayerConfiguration", "NeuralNetConfiguration"]

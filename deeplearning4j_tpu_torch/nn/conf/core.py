@@ -204,6 +204,11 @@ class NeuralNetConfBuilder:
     def list(self) -> "ListBuilder":
         return ListBuilder(self.build())
 
+    def graph_builder(self):
+        """DAG builder for a ComputationGraphConfiguration."""
+        from deeplearning4j_tpu_torch.nn.conf.graph_conf import GraphBuilder
+        return GraphBuilder(self.build())
+
 
 class ListBuilder:
     """Builds a MultiLayerConfiguration."""

@@ -1,4 +1,5 @@
-"""Layer configuration base classes and the layer-type registry
+"""Layer configuration base classes, the layer-type registry and the
+feed-forward configs ``Dense``, ``Output`` and ``ActivationLayer``
 (counterpart of deeplearning4j_tpu/nn/conf/layers.py).
 
 Each config is a frozen dataclass registered by ``layer_type``, with the
@@ -119,3 +120,43 @@ class FeedForwardLayerConfig(BaseLayerConfig):
 
     def has_params(self) -> bool:
         return True
+
+
+@register_layer
+@dataclass(frozen=True)
+class Dense(FeedForwardLayerConfig):
+    """Fully connected layer."""
+
+    layer_type = "dense"
+    has_bias: bool = True
+
+    def make_layer(self, input_type, global_conf, policy):
+        from deeplearning4j_tpu_torch.nn.layers.feedforward import DenseLayer
+        return DenseLayer(self, input_type, global_conf, policy)
+
+
+@register_layer
+@dataclass(frozen=True)
+class Output(FeedForwardLayerConfig):
+    """Dense + loss head. ``loss`` names an ops/losses.py entry."""
+
+    layer_type = "output"
+    loss: str = "mcxent"
+    has_bias: bool = True
+
+    def make_layer(self, input_type, global_conf, policy):
+        from deeplearning4j_tpu_torch.nn.layers.feedforward import OutputLayer
+        return OutputLayer(self, input_type, global_conf, policy)
+
+
+@register_layer
+@dataclass(frozen=True)
+class ActivationLayer(BaseLayerConfig):
+    """Standalone activation."""
+
+    layer_type = "activation"
+
+    def make_layer(self, input_type, global_conf, policy):
+        from deeplearning4j_tpu_torch.nn.layers.feedforward import (
+            ActivationOnlyLayer)
+        return ActivationOnlyLayer(self, input_type, global_conf, policy)

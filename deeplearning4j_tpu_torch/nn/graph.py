@@ -1,0 +1,315 @@
+"""ComputationGraph — a DAG network that trains and serves (counterpart of
+deeplearning4j_tpu/nn/graph.py: ``init``, ``_walk`` with the block-fusion
+pass, ``_loss``, ``fit_batch``, in-memory ``fit``, ``score``, ``output``,
+``feed_forward``, ``num_params``, ``set_lr_scale``).
+
+Parameters are ``{vertex_name: {param: tensor}}`` and the layer state
+(batch-norm running statistics) ``{vertex_name: {...}}``, in the JAX
+package's layouts, so a graph crosses between the packages through the
+zip (utils/serialization.py). A train step is the same eager discipline
+as ``MultiLayerNetwork``'s: the walk, the summed output losses plus
+regularization, ``autograd``, then the per-layer update in place
+(nn/precision.py's ``build_step_fn``).
+
+The training walk routes every bottleneck tail the fusion pass matched
+(nn/fusion.py, ``DL4J_TPU_FUSE_BLOCKS=1`` at ``init``) through the fused
+op: K4-K7 on the card. The eval walk (``output``) runs vertex by vertex
+with the running statistics.
+
+Not ported (ROADMAP.md): remat spans, mesh placement, truncated BPTT and
+``rnn_time_step`` on graphs, pretraining, ``fit_batch_repeated``,
+listeners and evaluation.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
+from deeplearning4j_tpu_torch.device import resolve_device
+from deeplearning4j_tpu_torch.nn import fusion as _fusion
+from deeplearning4j_tpu_torch.nn import precision
+from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
+    ComputationGraphConfiguration)
+from deeplearning4j_tpu_torch.nn.conf.layers import BaseLayerConfig
+from deeplearning4j_tpu_torch.nn.updater import _leaves, _map
+
+
+class ComputationGraph:
+    def __init__(self, conf: ComputationGraphConfiguration, device=None):
+        self.conf = conf
+        self.device = resolve_device(device)
+        self.topo = conf.topological_order()
+        self.layers = None          # runtime layers of the layer vertices
+        self.vertex_kind = None     # name -> "layer" | "vertex"
+        self.params = None
+        self.state = None
+        self.opt_state = None
+        self.iteration = 0
+        self.epoch = 0
+        self.score_value = None
+        self._gen = None
+        self._lr_scale = 1.0
+        self._fusion_plans = {}
+        self._fusion_interior = frozenset()
+
+    def set_lr_scale(self, scale: float):
+        """Scale every layer's scheduled learning rate by ``scale`` from
+        the next step on."""
+        scale = float(scale)
+        if scale <= 0.0:
+            raise ValueError(f"lr scale must be > 0, got {scale}")
+        self._lr_scale = scale
+        return self
+
+    # ------------------------------------------------------------------ init
+    def init(self, seed: Optional[int] = None):
+        """Resolve input types through the DAG, build the runtime layers,
+        match the fusable tails, draw parameters from a ``torch.Generator``
+        seeded with ``seed`` (default: the config's) and start a fresh
+        optimizer state. Carry a JAX model across with
+        utils/serialization.py instead."""
+        gc = self.conf.global_conf
+        seed = gc.seed if seed is None else seed
+        input_types: Dict[str, object] = {}
+        if self.conf.input_types is not None:
+            for name, it in zip(self.conf.network_inputs,
+                                self.conf.input_types):
+                input_types[name] = it
+        self.layers = []
+        self._layer_by_name = {}
+        self.vertex_kind = {}
+        self._resolved_confs = {}
+        for name in self.topo:
+            conf = self.conf.vertices[name]
+            in_names = self.conf.vertex_inputs[name]
+            in_types = [input_types.get(i) for i in in_names]
+            if isinstance(conf, BaseLayerConfig):
+                self.vertex_kind[name] = "layer"
+                if len(in_names) != 1:
+                    raise ValueError(
+                        f"Layer vertex '{name}' must have exactly 1 input, "
+                        f"got {in_names}")
+                it = in_types[0]
+                if it is not None:
+                    conf = conf.with_n_in(it)
+                if getattr(conf, "n_in", 1) is None:
+                    raise ValueError(
+                        f"Layer vertex '{name}': n_in not set and no "
+                        f"input type available for inference")
+                layer = conf.make_layer(it, gc, gc.dtype)
+                self.layers.append(layer)
+                self._layer_by_name[name] = layer
+                self._resolved_confs[name] = conf
+                input_types[name] = layer.output_type
+            else:
+                self.vertex_kind[name] = "vertex"
+                self._resolved_confs[name] = conf
+                input_types[name] = (conf.output_type(*in_types)
+                                     if all(t is not None for t in in_types)
+                                     else None)
+
+        # block-fusion pass on the RESOLVED configs; applied in _walk for
+        # training walks only
+        self._fusion_plans = _fusion.find_fusable_chains(
+            self._resolved_confs, self.conf.vertex_inputs,
+            self.conf.network_outputs,
+            default_activation=gc.activation or "sigmoid")
+        self._fusion_interior = frozenset(
+            _fusion.interior_vertices(self._fusion_plans))
+
+        gen = torch.Generator(device="cpu").manual_seed(int(seed))
+        self.params, self.state = {}, {}
+        for layer in self.layers:
+            p = layer.init_params(gen, self.device)
+            if p:
+                self.params[layer.name] = p
+            s = layer.init_state(self.device)
+            if s:
+                self.state[layer.name] = s
+        self.opt_state = {}
+        for layer in self.layers:
+            if layer.name in self.params:
+                self.opt_state[layer.name] = layer.resolve(
+                    "updater").init_state(self.params[layer.name])
+        ls = precision.init_loss_scale_state(gc.dtype, self.device)
+        if ls is not None:
+            self.opt_state[precision.LOSS_SCALE_KEY] = ls
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(int(seed))
+        self.iteration = 0
+        return self
+
+    def _require_init(self):
+        if self.params is None:
+            raise RuntimeError(
+                "Graph not initialized — call net.init() before "
+                "fit()/output()")
+
+    # -------------------------------------------------------------- forward
+    def _walk(self, params, state, inputs: Dict, *, train, gen=None,
+              fmasks: Optional[Dict] = None, need_inputs_of=()):
+        """Walk the DAG in topological order. Returns (activations,
+        {vertex: (inputs, input masks)} for ``need_inputs_of``, masks,
+        new_state)."""
+        acts = dict(inputs)
+        masks = dict(fmasks or {})
+        saved_inputs = {}
+        new_state = dict(state)
+        plans = self._fusion_plans if train else {}
+        interior = self._fusion_interior if plans else frozenset()
+        for name in self.topo:
+            if name in interior:
+                continue
+            if name in plans:
+                fb = plans[name]
+                y, bn_state_new = _fusion.execute_fused_tail(
+                    fb, self, params, state, acts)
+                acts[name] = y
+                masks[name] = None
+                new_state[fb.bn] = bn_state_new
+                continue
+            conf = self._resolved_confs[name]
+            in_names = self.conf.vertex_inputs[name]
+            xs = [acts[i] for i in in_names]
+            in_masks = [masks.get(i) for i in in_names]
+            if name in need_inputs_of:
+                saved_inputs[name] = (xs, in_masks)
+            if self.vertex_kind[name] == "layer":
+                layer = self._layer_by_name[name]
+                y, s_new = layer.apply(params.get(name, {}),
+                                       state.get(name, {}), xs[0],
+                                       train=train, gen=gen,
+                                       mask=in_masks[0])
+                if s_new:
+                    new_state[name] = s_new
+                acts[name] = y
+                masks[name] = layer.feed_forward_mask(in_masks[0])
+            else:
+                acts[name] = conf.forward(*xs, masks=in_masks)
+                masks[name] = conf.feed_forward_mask(*in_masks)
+        return acts, saved_inputs, masks, new_state
+
+    def _as_tensor(self, x):
+        if x is None:
+            return None
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device)
+        return torch.as_tensor(np.asarray(x), device=self.device)
+
+    def _prepare_inputs(self, features, fmasks=None):
+        inputs = {n: self._as_tensor(f)
+                  for n, f in zip(self.conf.network_inputs, features)}
+        md = {}
+        if fmasks is not None:
+            for n, m in zip(self.conf.network_inputs, fmasks):
+                if m is not None:
+                    md[n] = self._as_tensor(m)
+        return inputs, md
+
+    def _loss(self, params, state, inputs, labels, fmasks=None, lmasks=None,
+              gen=None, train=True):
+        """Sum of the output layers' losses plus regularization (the
+        scalar a train step differentiates) and the new layer state."""
+        outs = self.conf.network_outputs
+        acts, saved, masks, new_state = self._walk(
+            params, state, inputs, train=train, gen=gen, fmasks=fmasks,
+            need_inputs_of=set(outs))
+        total = None
+        for i, name in enumerate(outs):
+            layer = self._layer_by_name.get(name)
+            if layer is None or not hasattr(layer, "loss"):
+                raise ValueError(
+                    f"Network output '{name}' is not a loss-bearing layer")
+            xs, _ = saved[name]
+            lm = None if lmasks is None else lmasks[i]
+            l = layer.loss(params.get(name, {}), xs[0], labels[i],
+                           train=train, gen=gen, mask=lm)
+            total = l if total is None else total + l
+        for layer in self.layers:
+            if layer.name in params:
+                total = total + layer.regularization(params[layer.name])
+        return total, new_state
+
+    # ---------------------------------------------------------------- train
+    @staticmethod
+    def _coerce(data) -> MultiDataSet:
+        if isinstance(data, MultiDataSet):
+            return data
+        if isinstance(data, DataSet):
+            return MultiDataSet.from_dataset(data)
+        raise TypeError(f"Expected DataSet or MultiDataSet, got {type(data)}")
+
+    def _batch(self, mds: MultiDataSet):
+        inputs, fmasks = self._prepare_inputs(mds.features,
+                                              mds.features_masks)
+        labels = [self._as_tensor(l) for l in mds.labels]
+        lmasks = [self._as_tensor(m) for m in mds.labels_masks]
+        if all(m is None for m in lmasks):
+            lmasks = None
+        return inputs, labels, fmasks, lmasks
+
+    def fit_batch(self, data):
+        """One optimization step on one DataSet or MultiDataSet minibatch.
+        Returns the score as a 0-d tensor on the graph's device."""
+        self._require_init()
+        mds = self._coerce(data)
+        step = precision.build_step_fn(self._loss, self.layers,
+                                       self.conf.global_conf, self._lr_scale)
+        leaves = _map(lambda t: t.detach().requires_grad_(), self.params)
+        new_state, score = step(leaves, self.state, self.opt_state,
+                                self.iteration, *self._batch(mds), self._gen)
+        self.state = _map(lambda t: t.detach(), new_state)
+        self.iteration += 1
+        self.score_value = score
+        return score
+
+    def fit(self, data, *, epochs: int = 1):
+        """Train on a DataSet, a MultiDataSet, or an iterable of them (a
+        list, or an iterator with ``reset()``), one ``fit_batch`` each."""
+        self._require_init()
+        items = [data] if isinstance(data, (DataSet, MultiDataSet)) else data
+        for _ in range(epochs):
+            for d in items:
+                self.fit_batch(d)
+            self.epoch += 1
+            if hasattr(items, "reset"):
+                items.reset()
+        return self
+
+    def score(self, data, train: bool = False) -> float:
+        """The loss (with regularization) on one dataset."""
+        self._require_init()
+        with torch.no_grad():
+            loss, _ = self._loss(self.params, self.state,
+                                 *self._batch(self._coerce(data)),
+                                 gen=self._gen, train=train)
+        return float(loss)
+
+    def output(self, *features, masks=None, train: bool = False):
+        """The network outputs' activations (one tensor for a one-output
+        graph, else a tuple)."""
+        self._require_init()
+        inputs, fmasks = self._prepare_inputs(features, masks)
+        with torch.inference_mode():
+            acts, _, _, _ = self._walk(self.params, self.state, inputs,
+                                       train=train, gen=self._gen,
+                                       fmasks=fmasks)
+        outs = tuple(acts[o] for o in self.conf.network_outputs)
+        return outs[0] if len(outs) == 1 else outs
+
+    def feed_forward(self, *features, masks=None, train: bool = False):
+        """Every vertex's activation, by name."""
+        self._require_init()
+        inputs, fmasks = self._prepare_inputs(features, masks)
+        with torch.inference_mode():
+            acts, _, _, _ = self._walk(self.params, self.state, inputs,
+                                       train=train, gen=self._gen,
+                                       fmasks=fmasks)
+        return acts
+
+    def num_params(self) -> int:
+        return sum(t.numel() for t in _leaves(self.params))

@@ -19,6 +19,7 @@ from deeplearning4j_tpu_torch.ops import activations as activations_mod
 class Layer:
     def __init__(self, conf, input_type, global_conf, policy):
         self.conf = conf
+        self.input_type = input_type
         self.global_conf = global_conf
         self.policy = policy
         self.output_type = conf.get_output_type(input_type)
@@ -50,7 +51,7 @@ class Layer:
     def init_params(self, gen: torch.Generator, device) -> dict:
         return {}
 
-    def init_state(self) -> dict:
+    def init_state(self, device="cpu") -> dict:
         return {}
 
     def apply(self, params, state, x, *, train=False, gen=None, mask=None):

@@ -78,7 +78,7 @@ class MultiLayerNetwork:
             p = layer.init_params(gen, self.device)
             if p:
                 self.params[layer.name] = p
-            s = layer.init_state()
+            s = layer.init_state(self.device)
             if s:
                 self.state[layer.name] = s
         # each layer's updater state, plus the loss-scale state when the

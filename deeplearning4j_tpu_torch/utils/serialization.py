@@ -1,7 +1,8 @@
 """Model zip, read and written in the JAX package's format (counterpart of
 deeplearning4j_tpu/utils/serialization.py).
 
-The zip holds ``configuration.json`` (the MultiLayerConfiguration JSON),
+The zip holds ``configuration.json`` (the MultiLayerConfiguration or
+ComputationGraphConfiguration JSON),
 ``coefficients.npz`` (params, keyed by JAX tree paths such as
 ``['layer_0']['Wh']``), ``updaterState.npz`` (the optimizer state, keyed
 the same way: ``['layer_0']['m']['Wh']``, ``['layer_0']['t']``,
@@ -74,9 +75,7 @@ def _npz_into(data: bytes, template):
     return fill(template)
 
 
-def write_model(net, path):
-    """Write ``net`` as a zip that the JAX package's
-    ``restore_multi_layer_network`` reads."""
+def _write(net, path, model_type):
     with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as zf:
         zf.writestr("configuration.json", net.conf.to_json())
         zf.writestr("coefficients.npz", _tree_to_npz_bytes(net.params))
@@ -85,24 +84,33 @@ def write_model(net, path):
         zf.writestr("updaterState.npz", _tree_to_npz_bytes(net.opt_state))
         zf.writestr("metadata.json", json.dumps({
             "format_version": _FORMAT_VERSION,
-            "model_type": "multi_layer_network",
+            "model_type": model_type,
             "iteration": int(net.iteration),
             "epoch": int(net.epoch),
         }))
 
 
-def restore_multi_layer_network(path, device=None):
-    """Restore a MultiLayerNetwork zip (written by either package) onto
-    ``device`` (default: the card), with its updater state when the zip
-    holds one (else the fresh state ``init`` made)."""
-    from deeplearning4j_tpu_torch.nn.conf.core import MultiLayerConfiguration
-    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+def write_model(net, path):
+    """Write ``net`` as a zip that the JAX package's
+    ``restore_multi_layer_network`` reads."""
+    _write(net, path, "multi_layer_network")
 
+
+def write_computation_graph(net, path):
+    """Write a ComputationGraph as a zip that the JAX package's
+    ``restore_computation_graph`` reads (``state.npz`` carries the
+    batch-norm running statistics, ``updaterState.npz`` the updater's
+    state, e.g. Nesterov's velocity)."""
+    _write(net, path, "computation_graph")
+
+
+def _restore(path, build):
+    """Restore a zip into the net ``build(conf_json)`` makes: params, layer
+    state and updater state where the zip holds them (else what ``init``
+    made), and the step counters."""
     with zipfile.ZipFile(path, "r") as zf:
         names = set(zf.namelist())
-        conf = MultiLayerConfiguration.from_json(
-            zf.read("configuration.json").decode("utf-8"))
-        net = MultiLayerNetwork(conf, device=device).init()
+        net = build(zf.read("configuration.json").decode("utf-8"))
         net.params = _npz_into(zf.read("coefficients.npz"), net.params)
         if "state.npz" in names and net.state:
             net.state = _npz_into(zf.read("state.npz"), net.state)
@@ -114,3 +122,26 @@ def restore_multi_layer_network(path, device=None):
             net.iteration = meta.get("iteration", 0)
             net.epoch = meta.get("epoch", 0)
     return net
+
+
+def restore_multi_layer_network(path, device=None):
+    """Restore a MultiLayerNetwork zip (written by either package) onto
+    ``device`` (default: the card), with its updater state when the zip
+    holds one (else the fresh state ``init`` made)."""
+    from deeplearning4j_tpu_torch.nn.conf.core import MultiLayerConfiguration
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    return _restore(path, lambda s: MultiLayerNetwork(
+        MultiLayerConfiguration.from_json(s), device=device).init())
+
+
+def restore_computation_graph(path, device=None):
+    """Restore a ComputationGraph zip (written by either package) onto
+    ``device`` (default: the card), with its batch-norm running statistics
+    and its updater state when the zip holds them."""
+    from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
+        ComputationGraphConfiguration)
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    return _restore(path, lambda s: ComputationGraph(
+        ComputationGraphConfiguration.from_json(s), device=device).init())

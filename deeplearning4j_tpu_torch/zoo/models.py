@@ -1,6 +1,6 @@
 """Model builders (counterpart of deeplearning4j_tpu/zoo/models.py):
-``char_rnn``, ``gpt_mini`` and ``gpt_mini_draft``, with the JAX package's
-configurations and defaults."""
+``char_rnn``, ``gpt_mini``, ``gpt_mini_draft`` and ``resnet50``, with the
+JAX package's configurations and defaults."""
 
 from __future__ import annotations
 
@@ -9,12 +9,19 @@ from typing import Optional
 from deeplearning4j_tpu_torch.nn.conf.core import (DtypePolicy,
                                                    NeuralNetConfiguration)
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.conf.layers import ActivationLayer, Output
 from deeplearning4j_tpu_torch.nn.conf.layers_attention import (
     GptEmbedding, GptOutput, TransformerBlock)
+from deeplearning4j_tpu_torch.nn.conf.layers_conv import (BatchNorm,
+                                                          Convolution2D,
+                                                          GlobalPooling,
+                                                          Subsampling)
 from deeplearning4j_tpu_torch.nn.conf.layers_recurrent import (GravesLSTM,
                                                                RnnOutput)
+from deeplearning4j_tpu_torch.nn.conf.vertices import ElementWiseVertex
+from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
-from deeplearning4j_tpu_torch.nn.updater import Adam
+from deeplearning4j_tpu_torch.nn.updater import Adam, Nesterovs
 
 BF16 = DtypePolicy(param_dtype="float32", compute_dtype="bfloat16")
 F32 = DtypePolicy(param_dtype="float32", compute_dtype="float32")
@@ -76,3 +83,90 @@ def gpt_mini_draft(vocab_size: int = 80, width: int = 128,
                     n_heads=n_heads, max_len=max_len,
                     max_cache_len=max_cache_len, seed=seed, dtype=dtype,
                     device=device)
+
+
+def _conv_bn(g, name: str, n_out: int, kernel, stride, inputs: str,
+             activation: str = "relu"):
+    g.add_layer(f"{name}_conv",
+                Convolution2D(n_out=n_out, kernel=kernel, stride=stride,
+                              mode="same", has_bias=False,
+                              activation="identity"),
+                inputs)
+    # an EXPLICIT identity: a bare BatchNorm() inherits the global default
+    # activation (sigmoid)
+    g.add_layer(f"{name}_bn", BatchNorm(activation="identity"),
+                f"{name}_conv")
+    if activation != "identity":
+        g.add_layer(f"{name}_act", ActivationLayer(activation=activation),
+                    f"{name}_bn")
+        return f"{name}_act"
+    return f"{name}_bn"
+
+
+def _bottleneck(g, name: str, inputs: str, filters: int, stride: int,
+                project: bool) -> str:
+    """ResNet-v1 bottleneck: 1x1 (reduce, strided) -> 3x3 -> 1x1 (expand,
+    x4), with an identity or projection shortcut, then add and relu (the
+    tail the fusion pass matches)."""
+    x = _conv_bn(g, f"{name}_a", filters, (1, 1), (stride, stride), inputs)
+    x = _conv_bn(g, f"{name}_b", filters, (3, 3), (1, 1), x)
+    x = _conv_bn(g, f"{name}_c", filters * 4, (1, 1), (1, 1), x,
+                 activation="identity")
+    if project:
+        shortcut = _conv_bn(g, f"{name}_proj", filters * 4, (1, 1),
+                            (stride, stride), inputs, activation="identity")
+    else:
+        shortcut = inputs
+    g.add_vertex(f"{name}_add", ElementWiseVertex(op="add"), x, shortcut)
+    g.add_layer(f"{name}_out", ActivationLayer(activation="relu"),
+                f"{name}_add")
+    return f"{name}_out"
+
+
+def _resnet(stage_blocks, block_fn, bottleneck: bool, *, image_size: int,
+            n_classes: int, seed: int, dtype: Optional[DtypePolicy],
+            updater=None, device=None) -> ComputationGraph:
+    g = (NeuralNetConfiguration.builder()
+         .seed(seed).updater(updater or Nesterovs(0.1, 0.9))
+         .dtype(dtype or BF16)
+         .graph_builder()
+         .add_inputs("img"))
+    x = _conv_bn(g, "stem", 64, (7, 7), (2, 2), "img")
+    g.add_layer("stem_pool",
+                Subsampling(kernel=(3, 3), stride=(2, 2), pooling="max",
+                            mode="same"),
+                x)
+    x = "stem_pool"
+    filters = 64
+    in_ch = 64
+    for stage, n_blocks in enumerate(stage_blocks):
+        out_ch = filters * 4 if bottleneck else filters
+        for b in range(n_blocks):
+            stride = 2 if (stage > 0 and b == 0) else 1
+            # a projection shortcut only where the shape changes
+            project = b == 0 and (stride != 1 or in_ch != out_ch)
+            x = block_fn(g, f"s{stage}b{b}", x, filters, stride, project)
+            in_ch = out_ch
+        filters *= 2
+    g.add_layer("head_pool", GlobalPooling(pooling="avg"), x)
+    g.add_layer("fc", Output(n_out=n_classes, loss="mcxent",
+                             activation="softmax"), "head_pool")
+    conf = (g.set_outputs("fc")
+            .set_input_types(InputType.convolutional(image_size, image_size,
+                                                     3))
+            .build())
+    return ComputationGraph(conf, device=device).init()
+
+
+def resnet50(seed: int = 42, n_classes: int = 1000, image_size: int = 224,
+             dtype: Optional[DtypePolicy] = None, updater=None,
+             device=None) -> ComputationGraph:
+    """ResNet-50 v1: bottleneck stages [3, 4, 6, 3] on NHWC images. Same
+    configuration (and configuration.json) as the JAX package's
+    ``zoo.resnet50``: BF16 policy and Nesterovs(0.1, 0.9) by default. With
+    ``DL4J_TPU_FUSE_BLOCKS=1`` its training walk runs the 13 expand tails
+    of stages 2-4 through the fused op (K4-K7 on the card). Runs on
+    ``device`` (default: the card)."""
+    return _resnet([3, 4, 6, 3], _bottleneck, True, image_size=image_size,
+                   n_classes=n_classes, seed=seed, dtype=dtype,
+                   updater=updater, device=device)

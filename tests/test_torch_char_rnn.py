@@ -196,8 +196,10 @@ def test_other_recurrent_layers_match_jax(name, tmp_path):
 
 
 def test_unported_layer_type_is_refused_by_name():
-    conf = jzoo.mnist_mlp().conf
-    with pytest.raises(NotImplementedError, match="'dense'"):
+    from deeplearning4j_tpu.nn.conf.layers import Embedding, Output
+    conf = (JNNC.builder().list().layer(Embedding(n_in=5, n_out=4))
+            .layer(Output(n_out=2)).build())
+    with pytest.raises(NotImplementedError, match="'embedding'"):
         TMLC.from_json(conf.to_json())
 
 

@@ -67,6 +67,26 @@ def test_transformer_modules_are_checked(module):
     assert module in {_module_name(p) for p in SOURCES}
 
 
+@pytest.mark.parametrize("module", [
+    "deeplearning4j_tpu_torch.nn.graph",
+    "deeplearning4j_tpu_torch.nn.fusion",
+    "deeplearning4j_tpu_torch.nn.conf.graph_conf",
+    "deeplearning4j_tpu_torch.nn.conf.vertices",
+    "deeplearning4j_tpu_torch.nn.conf.layers_conv",
+    "deeplearning4j_tpu_torch.nn.layers.feedforward",
+    "deeplearning4j_tpu_torch.nn.layers.convolution",
+    "deeplearning4j_tpu_torch.nn.layers.pooling",
+    "deeplearning4j_tpu_torch.nn.layers.normalization",
+    "deeplearning4j_tpu_torch.ops.convolution",
+    "deeplearning4j_tpu_torch.ops.normalization",
+    "deeplearning4j_tpu_torch.ops.fused_block",
+])
+def test_resnet_modules_are_checked(module):
+    """The ResNet-50 slice's modules are among the sources the import
+    tests check."""
+    assert module in {_module_name(p) for p in SOURCES}
+
+
 def test_package_imports_with_jax_blocked():
     mods = [_module_name(p) for p in SOURCES if p.parent != ROOT]
     code = ("import sys\n"
@@ -109,6 +129,24 @@ def test_entry_points_raise_without_a_card(no_cuda, tmp_path):
         serialization.restore_multi_layer_network(str(path))
     assert serialization.restore_multi_layer_network(
         str(path), device="cpu").device.type == "cpu"
+
+
+def test_graph_entry_points_raise_without_a_card(no_cuda, tmp_path):
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.utils import serialization
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        zoo.resnet50(image_size=32)
+    net = zoo.resnet50(image_size=32, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ComputationGraph(net.conf)
+    path = tmp_path / "g.zip"
+    serialization.write_computation_graph(net, str(path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serialization.restore_computation_graph(str(path))
+    back = serialization.restore_computation_graph(str(path), device="cpu")
+    assert back.device.type == "cpu" and back.num_params() == 25557032
 
 
 def test_chip_smoke_refuses_without_a_card(no_cuda):
