@@ -97,6 +97,15 @@ __device__ __forceinline__ int col_of(int jb, int tx) {
   return (jb >> 2) * 64 + tx * 4 + (jb & 3);
 }
 
+// Whether rows of ``width`` values of p may be moved 4 values (16 bytes
+// f32, 8 bytes bf16) at a time: every 4-aligned column of a row is then
+// aligned. Uniform over the grid, so a kernel decides it once.
+template <typename T>
+__device__ __forceinline__ bool vec_ok(const T* p, int width) {
+  return width % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(p) % (4 * sizeof(T)) == 0;
+}
+
 // 4 consecutive values as f32, vectorised when all 4 are in range and the
 // row is aligned (vec), else element by element; out of range reads 0.
 __device__ __forceinline__ void ld4(const float* p, int nv, bool vec,
@@ -484,13 +493,14 @@ __global__ void __launch_bounds__(kThreads, 2)
     apply_kernel(const T* __restrict__ x, const T* __restrict__ w,
                  const float* __restrict__ scale,
                  const float* __restrict__ sh, const T* __restrict__ sc,
-                 T* __restrict__ y, int M, int K, int N, int vec) {
+                 T* __restrict__ y, int M, int K, int N) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& s = *reinterpret_cast<Smem*>(smem_raw);
   __shared__ float cv[2][BN];
   const int tid = threadIdx.x;
   const int ty = tid >> 4, tx = tid & 15;
   const int i0 = blockIdx.y * BM, j0 = blockIdx.x * BN;
+  const bool vec = vec_ok(sc, N) && vec_ok(y, N);
   const float* const vs[2] = {scale, sh};
   stage_cols<2>(vs, cv, j0, N);
   float acc[8][8];
@@ -527,8 +537,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                      const float* __restrict__ mean,
                      const float* __restrict__ inv,
                      const T* __restrict__ dy, const T* __restrict__ y,
-                     float* __restrict__ part, int M, int K, int N,
-                     int vec) {
+                     float* __restrict__ part, int M, int K, int N) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& s = *reinterpret_cast<Smem*>(smem_raw);
   __shared__ float cv[2][BN];
@@ -536,6 +545,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int tid = threadIdx.x;
   const int ty = tid >> 4, tx = tid & 15;
   const int j0 = blockIdx.x * BN;
+  const bool vec = vec_ok(dy, N) && vec_ok(y, N);
   const float* const vs[2] = {mean, inv};
   stage_cols<2>(vs, cv, j0, N);
   zero_red(red);
@@ -582,13 +592,15 @@ __global__ void __launch_bounds__(kThreads, 2)
               const float* __restrict__ scale, const float* __restrict__ cav,
               const float* __restrict__ cbv, const T* __restrict__ dy,
               const T* __restrict__ y, T* __restrict__ dz,
-              T* __restrict__ dsc, int M, int K, int N, int vec) {
+              T* __restrict__ dsc, int M, int K, int N) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& s = *reinterpret_cast<Smem*>(smem_raw);
   __shared__ float cv[5][BN];  // mean, inv, scale, ca, cb
   const int tid = threadIdx.x;
   const int ty = tid >> 4, tx = tid & 15;
   const int i0 = blockIdx.y * BM, j0 = blockIdx.x * BN;
+  const bool vec = vec_ok(dy, N) && vec_ok(y, N) && vec_ok(dz, N) &&
+                   vec_ok(dsc, N);
   const float* const vs[5] = {mean, inv, scale, cav, cbv};
   stage_cols<5>(vs, cv, j0, N);
   float acc[8][8];
@@ -626,7 +638,7 @@ template <typename T, bool A_ROW, bool B_ROW, typename OutT>
 __global__ void __launch_bounds__(kThreads, 2)
     gemm_kernel(const T* __restrict__ A, int lda, const T* __restrict__ B,
                 int ldb, OutT* __restrict__ out, int rows, int cols, int R,
-                int chunk, int vec) {
+                int chunk) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& s = *reinterpret_cast<Smem*>(smem_raw);
   const int tid = threadIdx.x;
@@ -638,6 +650,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   mainloop<T, A_ROW, B_ROW>(A, lda, B, ldb, rows, cols, r_begin, r_end, i0,
                             j0, acc, s);
   OutT* o = out + static_cast<size_t>(blockIdx.z) * rows * cols;
+  const bool vec = vec_ok(o, cols);
 #pragma unroll
   for (int ib = 0; ib < 8; ++ib) {
     const int row = i0 + row_of(ib, ty);
@@ -695,13 +708,13 @@ cudaError_t stats(const void* x, const void* w, const float* shift,
 template <typename T, bool RELU>
 cudaError_t apply(const void* x, const void* w, const float* scale,
                   const float* sh, const void* sc, void* y, int M, int K,
-                  int N, int vec, cudaStream_t st) {
+                  int N, cudaStream_t st) {
   auto kern = apply_kernel<T, RELU>;
   cudaError_t e = allow_smem<T>(kern);
   if (e != cudaSuccess) return e;
   kern<<<tiles(M, N), kThreads, smem_bytes<T>(), st>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), scale, sh,
-      static_cast<const T*>(sc), static_cast<T*>(y), M, K, N, vec);
+      static_cast<const T*>(sc), static_cast<T*>(y), M, K, N);
   return cudaGetLastError();
 }
 
@@ -709,14 +722,13 @@ template <typename T, bool RELU>
 cudaError_t bwd_stats(const void* x, const void* w, const float* mean,
                       const float* inv, const void* dy, const void* y,
                       float* part, float* out, int M, int K, int N, int R,
-                      int vec, cudaStream_t st) {
+                      cudaStream_t st) {
   auto kern = bwd_stats_kernel<T, RELU>;
   cudaError_t e = allow_smem<T>(kern);
   if (e != cudaSuccess) return e;
   kern<<<dim3((N + BN - 1) / BN, R), kThreads, smem_bytes<T>(), st>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), mean, inv,
-      static_cast<const T*>(dy), static_cast<const T*>(y), part, M, K, N,
-      vec);
+      static_cast<const T*>(dy), static_cast<const T*>(y), part, M, K, N);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   sum_partials2<<<dim3((N + 255) / 256, 2), 256, 0, st>>>(part, out, R, N);
@@ -729,7 +741,7 @@ cudaError_t bwd_apply(const void* x, const void* w, const float* mean,
                       const float* cb, const void* dy, const void* y,
                       void* dz, void* dsc, void* dx, float* dw_part,
                       float* dw, int M, int K, int N, int S, int chunk,
-                      int vec_n, int vec_k, cudaStream_t st) {
+                      cudaStream_t st) {
   const T* xt = static_cast<const T*>(x);
   const T* wt = static_cast<const T*>(w);
   T* dzt = static_cast<T*>(dz);
@@ -742,18 +754,18 @@ cudaError_t bwd_apply(const void* x, const void* w, const float* mean,
   if (e != cudaSuccess) return e;
   kdz<<<tiles(M, N), kThreads, smem_bytes<T>(), st>>>(
       xt, wt, mean, inv, scale, ca, cb, static_cast<const T*>(dy),
-      static_cast<const T*>(y), dzt, static_cast<T*>(dsc), M, K, N, vec_n);
+      static_cast<const T*>(y), dzt, static_cast<T*>(dsc), M, K, N);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   // dx [M, K] = dz [M, N] @ W^T, W^T(n, k) = W[k * N + n]
   kdx<<<tiles(M, K), kThreads, smem_bytes<T>(), st>>>(
-      dzt, N, wt, N, static_cast<T*>(dx), M, K, N, N, vec_k);
+      dzt, N, wt, N, static_cast<T*>(dx), M, K, N, N);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   // dW [K, N] = x^T @ dz, x^T(k, m) = x[m * K + k], over S chunks of M
   float* target = S == 1 ? dw : dw_part;
   kdw<<<tiles(K, N, S), kThreads, smem_bytes<T>(), st>>>(
-      xt, K, dzt, N, target, K, N, M, chunk, vec_n);
+      xt, K, dzt, N, target, K, N, M, chunk);
   e = cudaGetLastError();
   if (e != cudaSuccess || S == 1) return e;
   const size_t n = static_cast<size_t>(K) * N;
@@ -768,11 +780,12 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (x, W, shortcut, dy, y, dz, dsc, dx);
 // every [N] vector and the partial buffers are f32. All arrays are
-// contiguous, row-major. vec flags (0/1) say that the rows of the [*, N]
-// (vec_n) or [*, K] (vec_k) arrays may be read and written 16 bytes (f32)
-// or 8 bytes (bf16) at a time. Each returns a cudaError_t (0 on success).
+// contiguous, row-major; a kernel moves rows 4 values at a time where
+// their width and base pointer allow it (vec_ok). Each returns a
+// cudaError_t (0 on success).
 
-// K4: part is [2, R, N] scratch, out [2, N] = (s1, s2).
+// K4: part is [2, R, N] scratch, out [2, N] = (s1, s2). Two launches,
+// as for K6: the tiles' pass and the sum of their partials.
 int dl4j_fused_stats(int dtype, const void* x, const void* w,
                      const float* shift, float* part, float* out, int M,
                      int K, int N, int R, void* stream) {
@@ -788,19 +801,17 @@ int dl4j_fused_stats(int dtype, const void* x, const void* w,
 // K5: y [M, N] = relu?(z * scale + sh + sc).
 int dl4j_fused_apply(int dtype, const void* x, const void* w,
                      const float* scale, const float* sh, const void* sc,
-                     void* y, int M, int K, int N, int relu, int vec,
-                     void* stream) {
+                     void* y, int M, int K, int N, int relu, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (M < 1 || K < 1 || N < 1) return cudaErrorInvalidValue;
   if (dtype == 0)
-    return relu ? apply<float, true>(x, w, scale, sh, sc, y, M, K, N, vec, st)
-                : apply<float, false>(x, w, scale, sh, sc, y, M, K, N, vec,
-                                      st);
+    return relu ? apply<float, true>(x, w, scale, sh, sc, y, M, K, N, st)
+                : apply<float, false>(x, w, scale, sh, sc, y, M, K, N, st);
   if (dtype == 1)
     return relu ? apply<__nv_bfloat16, true>(x, w, scale, sh, sc, y, M, K, N,
-                                             vec, st)
+                                             st)
                 : apply<__nv_bfloat16, false>(x, w, scale, sh, sc, y, M, K,
-                                              N, vec, st);
+                                              N, st);
   return cudaErrorInvalidValue;
 }
 
@@ -808,35 +819,32 @@ int dl4j_fused_apply(int dtype, const void* x, const void* w,
 int dl4j_fused_bwd_stats(int dtype, const void* x, const void* w,
                          const float* mean, const float* inv, const void* dy,
                          const void* y, float* part, float* out, int M,
-                         int K, int N, int R, int relu, int vec,
-                         void* stream) {
+                         int K, int N, int R, int relu, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (M < 1 || K < 1 || N < 1 || R < 1) return cudaErrorInvalidValue;
   if (dtype == 0)
     return relu ? bwd_stats<float, true>(x, w, mean, inv, dy, y, part, out, M,
-                                         K, N, R, vec, st)
+                                         K, N, R, st)
                 : bwd_stats<float, false>(x, w, mean, inv, dy, y, part, out,
-                                          M, K, N, R, vec, st);
+                                          M, K, N, R, st);
   if (dtype == 1)
     return relu ? bwd_stats<__nv_bfloat16, true>(x, w, mean, inv, dy, y,
-                                                 part, out, M, K, N, R, vec,
-                                                 st)
+                                                 part, out, M, K, N, R, st)
                 : bwd_stats<__nv_bfloat16, false>(x, w, mean, inv, dy, y,
-                                                  part, out, M, K, N, R, vec,
-                                                  st);
+                                                  part, out, M, K, N, R, st);
   return cudaErrorInvalidValue;
 }
 
 // K7: dz [M, N] (cd) is scratch; dw_part [S, K, N] f32 scratch (unused when
 // S == 1); writes dsc [M, N], dx [M, K] (cd) and dw [K, N] (f32). chunk is
-// the rows of M per split, S * chunk >= M.
+// the rows of M per split, S * chunk >= M. Three launches, four when S > 1.
 int dl4j_fused_bwd_apply(int dtype, const void* x, const void* w,
                          const float* mean, const float* inv,
                          const float* scale, const float* ca,
                          const float* cb, const void* dy, const void* y,
                          void* dz, void* dsc, void* dx, float* dw_part,
                          float* dw, int M, int K, int N, int S, int chunk,
-                         int relu, int vec_n, int vec_k, void* stream) {
+                         int relu, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (M < 1 || K < 1 || N < 1 || S < 1 || chunk < 1 ||
       static_cast<long long>(S) * chunk < M)
@@ -844,17 +852,17 @@ int dl4j_fused_bwd_apply(int dtype, const void* x, const void* w,
   if (dtype == 0)
     return relu ? bwd_apply<float, true>(x, w, mean, inv, scale, ca, cb, dy,
                                          y, dz, dsc, dx, dw_part, dw, M, K,
-                                         N, S, chunk, vec_n, vec_k, st)
+                                         N, S, chunk, st)
                 : bwd_apply<float, false>(x, w, mean, inv, scale, ca, cb, dy,
                                           y, dz, dsc, dx, dw_part, dw, M, K,
-                                          N, S, chunk, vec_n, vec_k, st);
+                                          N, S, chunk, st);
   if (dtype == 1)
     return relu ? bwd_apply<__nv_bfloat16, true>(
                       x, w, mean, inv, scale, ca, cb, dy, y, dz, dsc, dx,
-                      dw_part, dw, M, K, N, S, chunk, vec_n, vec_k, st)
+                      dw_part, dw, M, K, N, S, chunk, st)
                 : bwd_apply<__nv_bfloat16, false>(
                       x, w, mean, inv, scale, ca, cb, dy, y, dz, dsc, dx,
-                      dw_part, dw, M, K, N, S, chunk, vec_n, vec_k, st);
+                      dw_part, dw, M, K, N, S, chunk, st);
   return cudaErrorInvalidValue;
 }
 

@@ -18,9 +18,10 @@ Every pass rounds z through the compute dtype before use (``_round_trip``)
 and runs its epilogue in f32. Each kernel has its plain PyTorch version
 here (``*_torch``, used for CPU tensors) and its CUDA wrapper (``*_cuda``,
 csrc/fused_block.cu, used for CUDA tensors; it raises on what the kernel
-does not take and never falls back). ``conv1x1_bn_add_relu`` is the op the
-block-fusion pass calls (nn/fusion.py); ``FusedTailFn`` is its
-``torch.autograd.Function``.
+does not take and never falls back, and counts every device launch it
+makes under the kernel's name: K4 and K6 make two, K7 three or four).
+``conv1x1_bn_add_relu`` is the op the block-fusion pass calls
+(nn/fusion.py); ``FusedTailFn`` is its ``torch.autograd.Function``.
 
 Under BF16 this differs from the JAX package's fused training step, which
 goes through its ``xla_recompute`` backend and forms the epilogue in the
@@ -139,9 +140,9 @@ def _bind():
         return lib
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.dl4j_fused_stats.argtypes = [i] + [p] * 5 + [i] * 4 + [p]
-    lib.dl4j_fused_apply.argtypes = [i] + [p] * 6 + [i] * 5 + [p]
-    lib.dl4j_fused_bwd_stats.argtypes = [i] + [p] * 8 + [i] * 6 + [p]
-    lib.dl4j_fused_bwd_apply.argtypes = ([i] + [p] * 14 + [i] * 8 + [p])
+    lib.dl4j_fused_apply.argtypes = [i] + [p] * 6 + [i] * 4 + [p]
+    lib.dl4j_fused_bwd_stats.argtypes = [i] + [p] * 8 + [i] * 5 + [p]
+    lib.dl4j_fused_bwd_apply.argtypes = [i] + [p] * 14 + [i] * 6 + [p]
     for fn in (lib.dl4j_fused_stats, lib.dl4j_fused_apply,
                lib.dl4j_fused_bwd_stats, lib.dl4j_fused_bwd_apply,
                lib.dl4j_fused_tile_rows, lib.dl4j_fused_tile_cols):
@@ -174,6 +175,15 @@ def dw_splits(M, K, N):
     return _cdiv(M, chunk), chunk
 
 
+def launches_per_call(name, M, K, N):
+    """Device launches one call of kernel ``name`` makes: K4 and K6 a pass
+    over the tiles and the sum of its partials, K5 one, K7 dz, dx and dW
+    and, when dW is split over M, the sum of its splits."""
+    if name == BWD_APPLY:
+        return 3 + (dw_splits(M, K, N)[0] > 1)
+    return 1 if name == APPLY else 2
+
+
 def _check_cuda(name, *tensors):
     dev = tensors[0].device
     if dev.type != "cuda":
@@ -190,18 +200,14 @@ def _check_cuda(name, *tensors):
             f"FusedTailFn, or run under torch.no_grad()")
 
 
-def _vec(width, *tensors):
-    """1 when rows of ``width`` elements may be moved 16 (f32) or 8 (bf16)
-    bytes at a time."""
-    return int(width % 4 == 0 and all(t.data_ptr() % 16 == 0
-                                      for t in tensors))
-
-
 def _f32(*vs):
     return [v.float().contiguous() for v in vs]
 
 
-def _launch(lib, name, fn, *args):
+def _launch(lib, name, fn, *args, launches):
+    """Calls entry point ``fn`` on the current stream of the device
+    ``args[-1]`` and counts the ``launches`` device launches it makes
+    under ``name``."""
     with torch.cuda.device(args[-1]):
         stream = torch.cuda.current_stream(args[-1]).cuda_stream
         rc = fn(*args[:-1], stream)
@@ -209,7 +215,7 @@ def _launch(lib, name, fn, *args):
         msg = lib.dl4j_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}: "
                            f"{msg}")
-    registry.count_launch(name)
+    registry.count_launch(name, launches)
 
 
 def _operands(name, x2, W, **mn):
@@ -239,7 +245,8 @@ def fused_stats_cuda(x2, W, shift):
     out = torch.empty((2, N), dtype=torch.float32, device=x2.device)
     _launch(lib, STATS, lib.dl4j_fused_stats, code, x2.data_ptr(),
             W.data_ptr(), shift.data_ptr(), part.data_ptr(), out.data_ptr(),
-            M, K, N, R, x2.device)
+            M, K, N, R, x2.device,
+            launches=launches_per_call(STATS, M, K, N))
     return out[0], out[1]
 
 
@@ -251,8 +258,8 @@ def fused_apply_cuda(x2, W, scale, sh, sc2, relu):
     y = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
     _launch(lib, APPLY, lib.dl4j_fused_apply, code, x2.data_ptr(),
             W.data_ptr(), scale.data_ptr(), sh.data_ptr(), sc2.data_ptr(),
-            y.data_ptr(), M, K, N, int(bool(relu)), _vec(N, sc2, y),
-            x2.device)
+            y.data_ptr(), M, K, N, int(bool(relu)), x2.device,
+            launches=launches_per_call(APPLY, M, K, N))
     return y
 
 
@@ -267,7 +274,8 @@ def fused_bwd_stats_cuda(x2, W, mean, inv, dy2, y2, relu):
     _launch(lib, BWD_STATS, lib.dl4j_fused_bwd_stats, code, x2.data_ptr(),
             W.data_ptr(), mean.data_ptr(), inv.data_ptr(), dy2.data_ptr(),
             y2.data_ptr(), part.data_ptr(), out.data_ptr(), M, K, N, R,
-            int(bool(relu)), _vec(N, dy2, y2), x2.device)
+            int(bool(relu)), x2.device,
+            launches=launches_per_call(BWD_STATS, M, K, N))
     return out[0], out[1]
 
 
@@ -288,8 +296,8 @@ def fused_bwd_apply_cuda(x2, W, mean, inv, scale, ca, cb, dy2, y2, relu):
             W.data_ptr(), mean.data_ptr(), inv.data_ptr(), scale.data_ptr(),
             ca.data_ptr(), cb.data_ptr(), dy2.data_ptr(), y2.data_ptr(),
             dz.data_ptr(), dsc.data_ptr(), dx.data_ptr(), part.data_ptr(),
-            dW.data_ptr(), M, K, N, S, chunk, int(bool(relu)),
-            _vec(N, dy2, y2, dz, dsc, part), _vec(K, dx), dev)
+            dW.data_ptr(), M, K, N, S, chunk, int(bool(relu)), dev,
+            launches=launches_per_call(BWD_APPLY, M, K, N))
     return dx, dW, dsc
 
 

@@ -384,5 +384,5 @@ def lstm_sequence_bwd_cuda(residuals, mask_t, Wh, p, dy, dhT, dcT):
             f"lstm_bwd kernel launch failed (T={T}, b={b}, n={n}, {cd}, "
             f"{lib.dl4j_lstm_bwd_smem_bytes(_DTYPE_CODES[cd], n)} B shared "
             f"memory per block): cudaError {rc}: {msg}")
-    registry.count_launch(BWD_KERNEL)
+    registry.count_launch(BWD_KERNEL, 2)  # the chain, then the dWh GEMM
     return dxz, dh0, dc0, dWh, dp

@@ -8,8 +8,9 @@ the device of the tensors decides, and nothing falls back:
 - a CUDA tensor runs the op's hand-written kernel, or the kernel's wrapper
   raises (unsupported dtype, shape or activation).
 
-Each kernel wrapper adds one to its launch counter when it launches, so a
-run can show which kernels its main path went through.
+Each kernel wrapper adds to its launch counter the device launches it
+makes (one, or each launch of a kernel split into several), so a run can
+show which kernels its main path went through.
 """
 
 from __future__ import annotations
@@ -45,9 +46,9 @@ def get(name: str, device) -> callable:
     return impls[dtype]
 
 
-def count_launch(kernel: str):
+def count_launch(kernel: str, n: int = 1):
     with _LAUNCH_LOCK:
-        _LAUNCHES[kernel] = _LAUNCHES.get(kernel, 0) + 1
+        _LAUNCHES[kernel] = _LAUNCHES.get(kernel, 0) + n
 
 
 def launches() -> dict[str, int]:

@@ -272,6 +272,41 @@ def test_fused_step_matches_unfused_step(fuse):
                                        err_msg=f"state {ln}.{k}")
 
 
+def test_f64_gradients_jump_under_a_tiny_input_change(fuse):
+    """The gradient of a relu/max-pool net is discontinuous: a change that
+    moves a pre-activation across 0, or changes a pool's winner, moves it
+    by a finite amount. At this graph's weights one such switch lies
+    within 1e-6 of the input: an additive 1e-6 change of it moves the f64
+    gradients by thousands of times 1e-6 (L2, relative to each gradient's
+    norm), as far as f32 rounding moves them. The full-depth net has
+    millions of pre-activations, so chip_smoke.py's [train_resnet] holds
+    its first-step gradients, card vs CPU, in L2 and not to 1e-4 of max."""
+    import dataclasses
+    from deeplearning4j_tpu_torch.nn.conf.core import DtypePolicy
+    fuse(False)
+    conf = _build("torch")
+    net32 = TGraph(conf, device="cpu").init()
+    f64 = DtypePolicy(param_dtype="float64", compute_dtype="float64")
+    net64 = TGraph(dataclasses.replace(conf, global_conf=dataclasses.replace(
+        conf.global_conf, dtype=f64)), device="cpu").init()
+    net64.params = {ln: {k: t.double() for k, t in lp.items()}
+                    for ln, lp in net32.params.items()}
+    x, y = _data(0)
+    x64, y64 = torch.from_numpy(x).double(), torch.from_numpy(y).double()
+    noise = torch.randn(x.shape, generator=torch.Generator().manual_seed(0),
+                        dtype=torch.float64)
+    _, g = _tgrads(net64, x64, y64)
+    _, g_moved = _tgrads(net64, x64 + 1e-6 * noise, y64)
+    _, g32 = _tgrads(net32, torch.from_numpy(x), torch.from_numpy(y))
+
+    def worst_l2(got):
+        return max(float((got[k].double() - w).norm() / w.norm())
+                   for k, w in g.items() if float(w.norm()) > 0)
+    moved, rounded = worst_l2(g_moved), worst_l2(g32)
+    assert moved > 1e3 * 1e-6, moved
+    assert moved > 0.1 * rounded, (moved, rounded)
+
+
 def test_eval_walk_is_unfused_and_deterministic(fuse, monkeypatch):
     fuse(True)
     net = TGraph(_build("torch"), device="cpu").init()
