@@ -22,6 +22,18 @@ and prints no result.
 Output: one line per phase; the card's name and power limit as nvidia-smi
 gives them; a JSON line ``{"kernels": [...]}``; and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+
+    python3 chip_smoke.py --k7-split
+
+times K7 alone, with its split by pass, at ResNet-50's three tail shapes,
+for whatever K7 the package beside the script has (copy the script into a
+checkout of another commit to measure that commit's K7 the same way), and
+
+    python3 chip_smoke.py --tail-check
+
+runs only [train_resnet]'s check of each fused tail's K6 and K7 on the
+inputs one BF16 step gives them (run it from a copy with a planted fault
+to see the check fail).
 """
 
 from __future__ import annotations
@@ -207,6 +219,12 @@ def phase_device():
           count=torch.cuda.device_count(), torch=torch.__version__,
           cuda=torch.version.cuda, built=sorted(built),
           build_s=f"{build_s:.2f}")
+    # K7's bf16 path runs on wgmma fed by TMA: the compiler must have
+    # emitted both into the library this run loads
+    sass = _build.sass_counts("fused_block", ("HGMMA", "UTMALDG"))
+    phase("sass", library="fused_block", **sass)
+    check(all(sass.values()), f"fused_block's SASS holds {sass}: no wgmma "
+          f"(HGMMA) or no TMA load (UTMALDG)")
     return card
 
 
@@ -1437,7 +1455,8 @@ def sum_limits(t, p, relu):
         for nm, (tm, flip) in terms.items():
             out[nm] = (float(tm.abs().sum(0).max()), flip,
                        float(tm[:fb.TILE_M].sum(0).abs().max()))
-        chunk = fb.dw_splits(M, K, t["W"].shape[1])[1]
+        sm90 = fb.takes_sm90(x, t["W"], t["dy"], p["y"])
+        chunk = fb.dw_splits(M, K, t["W"].shape[1], sm90)[1]
         out["dW"] = (float((xf.abs().t() @ dz.abs()).max()),
                      float(xf.abs().max()) * bf16_ulp(float(dz.abs().max())),
                      float((xf[:chunk].t() @ dz[:chunk]).abs().max()))
@@ -1448,29 +1467,48 @@ def sum_limits(t, p, relu):
             for nm, (mag, flip, fault) in out.items()}
 
 
+def k7_path(x, W, dy, y):
+    """The path K7 takes on these operands: "sm90" (TMA + wgmma, bf16 with
+    rows TMA can read), "mma.sync" (other bf16) or "fma" (f32)."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import fused_block as fb
+    if fb.takes_sm90(x, W, dy, y):
+        return "sm90"
+    return "mma.sync" if x.dtype == torch.bfloat16 else "fma"
+
+
 def phase_fused_vs_plain():
-    """K4-K7 against their plain versions at ResNet-50's s1 and s3 tail
-    shapes (bf16), at ragged shapes in f32 and bf16, relu on and off; two
-    calls bit-equal; FusedTailFn's gradients vs autograd of the composed
-    f32 reference. Returns each kernel's max abs error at s1 (bf16)."""
+    """K4-K7 against their plain versions at ResNet-50's s1, s2 and s3
+    tail shapes (bf16), at ragged shapes in f32 and bf16, relu on and off;
+    two calls bit-equal; FusedTailFn's gradients vs autograd of the
+    composed f32 reference. K7 takes its sm90 path on every bf16 case whose
+    rows TMA can read (K and N multiples of 8) and its mma.sync path on
+    37 x 5 x 7. Returns each kernel's max abs error at s1 (bf16)."""
     import torch
     from deeplearning4j_tpu_torch.ops import fused_block as fb
     from deeplearning4j_tpu_torch.ops import registry
     bf, f32 = torch.bfloat16, torch.float32
-    cases = [(200704, 128, 512, bf, True), (12544, 512, 2048, bf, True),
+    cases = [(200704, 128, 512, bf, True), (50176, 256, 1024, bf, True),
+             (12544, 512, 2048, bf, True),
              (1000, 128, 512, f32, True), (1000, 128, 512, f32, False),
              (1000, 128, 512, bf, True), (1000, 128, 512, bf, False),
              (777, 72, 200, f32, True), (777, 72, 200, bf, False),
              (37, 5, 7, f32, True), (37, 5, 7, bf, True)]
     kernels = (fb.STATS, fb.APPLY, fb.BWD_STATS, fb.BWD_APPLY)
     main_err = {}
-    expected = dict.fromkeys(kernels, 0)
+    expected = dict.fromkeys(kernels + (fb.BWD_APPLY_SM90,), 0)
     registry.reset_launches()
     for M, K, N, dtype, relu in cases:
         dname = str(dtype).split(".")[-1]
         t = tail_inputs(M, K, N, dtype)
         p = tail_plain(t, relu)
         limits = sum_limits(t, p, relu)
+        path = k7_path(t["x"], t["W"], t["dy"], p["y"])
+        want_path = ("fma" if dtype == f32 else "sm90"
+                     if K % 8 == 0 and N % 8 == 0 else "mma.sync")
+        check(path == want_path, f"K7 ({M},{K},{N}) {dname} takes the "
+              f"{path} path, expected {want_path}")
+        sm90 = path == "sm90"
         sum_ratio, fault_ratio = 0.0, math.inf
         with torch.no_grad():
             args = {
@@ -1490,7 +1528,10 @@ def phase_fused_vs_plain():
                 cuda_fn = registry.get(kern, "cuda")
                 got = cuda_fn(*a)
                 again = cuda_fn(*a)
-                expected[kern] += 2 * fb.launches_per_call(kern, M, K, N)
+                expected[kern] += 2 * fb.launches_per_call(kern, M, K, N,
+                                                           sm90)
+                if kern == fb.BWD_APPLY and sm90:
+                    expected[fb.BWD_APPLY_SM90] += 2
                 torch.cuda.synchronize()
                 want = registry.get(kern, "cpu")(*a)
                 got = got if isinstance(got, tuple) else (got,)
@@ -1530,14 +1571,14 @@ def phase_fused_vs_plain():
             for kern in kernels:
                 expected[kern] += fb.launches_per_call(kern, M, K, N)
         phase("kernel_vs_plain", kernel="fused_block", dtype=dname, M=M, K=K,
-              N=N, relu=relu, deterministic=True,
+              N=N, relu=relu, k7_path=path, deterministic=True,
               max_abs_err=json.dumps({k: float(f"{v:.3e}")
                                       for k, v in errs.items()}),
               sums_worst_err_over_limit=f"{sum_ratio:.3e}",
               sums_least_dropped_tile_over_limit=f"{fault_ratio:.3e}",
               **fields)
     launched = registry.launches()
-    for kern in kernels:
+    for kern in expected:
         check(launched.get(kern, 0) == expected[kern],
               f"{kern} launch counter read {launched.get(kern, 0)}, "
               f"expected {expected[kern]} device launches")
@@ -1691,7 +1732,8 @@ def resnet_profile(net, data):
     # bwd_stats_kernel before stats_kernel: the first name found wins
     fused_names = {"bwd_stats_kernel": "K6", "stats_kernel": "K4",
                    "apply_kernel": "K5", "dz_kernel": "K7",
-                   "gemm_kernel": "K7", "sum_splits": "K7",
+                   "gemm_kernel": "K7", "tma_wgmma_gemm": "K7",
+                   "sum_splits": "K7",
                    "sum_partials2": "K4/K6 partial sums"}
     groups, fused, seen = {}, {}, {}
     for e in kernels:
@@ -1767,16 +1809,105 @@ def timed_steps(net, data, steps):
             "launches": registry.launches()}
 
 
-def resnet_step_launches(b):
+def resnet_step_launches(b, sm90):
     """Device launches of K4-K7 that one ResNet-50 train step at batch
-    ``b`` (224 x 224) makes: each of the 13 tails calls each kernel once."""
+    ``b`` (224 x 224) makes: each of the 13 tails calls each kernel once;
+    with ``sm90`` (BF16: every tail's rows TMA can read), each K7 call on
+    the sm90 path, also counted as such."""
     from deeplearning4j_tpu_torch.ops import fused_block as fb
     out = {}
     for stage, M, K, N in RESNET_TAILS:
         for kern in (fb.STATS, fb.APPLY, fb.BWD_STATS, fb.BWD_APPLY):
             out[kern] = out.get(kern, 0) + RESNET_TAIL_COUNT[stage] * (
-                fb.launches_per_call(kern, M * b // 256, K, N))
+                fb.launches_per_call(kern, M * b // 256, K, N, sm90))
+    if sm90:
+        out[fb.BWD_APPLY_SM90] = sum(RESNET_TAIL_COUNT.values())
     return out
+
+
+def capture_tail_inputs(fn):
+    """Runs ``fn()`` with spies on K6's and K7's CUDA wrappers that keep a
+    copy of every call's inputs (a tail's K6 and K7 share x, W, dy and y,
+    copied once): returns [(k6_args, k7_args)], one pair a fused tail, in
+    call order."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import fused_block as fb
+    from deeplearning4j_tpu_torch.ops import registry
+    real = {k: registry.get(k, "cuda") for k in (fb.BWD_STATS, fb.BWD_APPLY)}
+    copies, calls = {}, {fb.BWD_STATS: [], fb.BWD_APPLY: []}
+
+    def keep(a):
+        if not torch.is_tensor(a):
+            return a
+        key = (a.data_ptr(), tuple(a.shape), a.dtype)
+        if key not in copies:
+            copies[key] = a.detach().clone()
+        return copies[key]
+
+    def spy(kern):
+        def wrapper(*args):
+            calls[kern].append(tuple(keep(a) for a in args))
+            if kern == fb.BWD_APPLY:  # the tail's last call: its memory
+                copies.clear()        # may be reused by the next tail
+            return real[kern](*args)
+        return wrapper
+
+    try:
+        for kern in real:
+            registry.register(kern, "cuda")(spy(kern))
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        for kern, f in real.items():
+            registry.register(kern, "cuda")(f)
+    check(len(calls[fb.BWD_STATS]) == len(calls[fb.BWD_APPLY]),
+          f"K6 ran {len(calls[fb.BWD_STATS])} times, K7 "
+          f"{len(calls[fb.BWD_APPLY])}")
+    return list(zip(calls[fb.BWD_STATS], calls[fb.BWD_APPLY]))
+
+
+def hold_tail_on_its_inputs(a6, a7):
+    """K6 and K7 on one tail's inputs captured from the main path, against
+    their plain versions on the card at fused_vs_plain's limits (the sums
+    over M by sum_limits, which also shows that a dropped m-tile or dW
+    split would fail; dx and dshortcut two bf16 ulps at their max).
+    Returns (K7's path, the worst error over its limit, a message for
+    each output that failed)."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import fused_block as fb
+    from deeplearning4j_tpu_torch.ops import registry
+    x, W, mean, inv, dy, y, relu = a6
+    scale, ca, cb = a7[4:7]
+    M = x.shape[0]
+    t = dict(x=x, W=W, dy=dy, shift=mean)  # shift feeds only s1/s2
+    p = dict(y=y, mean=mean, inv=inv, scale=scale, ca=ca, cb=cb)
+    limits = sum_limits(t, p, relu)
+    worst_ratio, failed = 0.0, []
+    with torch.no_grad():
+        pairs = ((fb.BWD_STATS, a6, ("a", "b")),
+                 (fb.BWD_APPLY, a7, ("dx", "dW", "dshortcut")))
+        for kern, args, names in pairs:
+            got = registry.get(kern, "cuda")(*args)
+            want = registry.get(kern, "cpu")(*args)
+            for nm, g, w in zip(names, got, want):
+                err = float((g.float() - w.float()).abs().max())
+                if nm in limits:
+                    lim, fault = limits[nm]
+                    if not fault > lim:
+                        failed.append(f"tail M={M} {kern} {nm}: a dropped "
+                                      f"m-tile would be off by {fault:.3e}, "
+                                      f"inside the limit {lim:.3e}")
+                else:
+                    lim = bf16_tol(w.float())
+                if not (torch.isfinite(g.float()).all().item()
+                        and err <= lim):
+                    failed.append(f"tail M={M} K={x.shape[1]} "
+                                  f"N={W.shape[1]}: {kern} {nm} on the main "
+                                  f"path's inputs disagrees with the plain "
+                                  f"version: {err:.3e} > {lim:.3e}")
+                worst_ratio = max(worst_ratio, err / lim if lim else 0.0)
+    return k7_path(x, W, dy, y), worst_ratio, failed
+
 
 
 def block_worst(errs):
@@ -1794,10 +1925,11 @@ def phase_train_resnet():
     block-fusion pass on (DL4J_TPU_FUSE_BLOCKS=1): the first step on the
     card (fused and unfused) and on the plain CPU path against the f64
     plain CPU path (F32 and BF16, b = 8), fused vs unfused on the card at
-    b = 256, 20 timed steps each way at b = 256, 224 x 224, the launches
-    of K4-K7 (13 calls each per step; 26, 13, 26 and 52 device launches
-    at b = 256), a profile, and one eval forward vs the
-    CPU path."""
+    b = 256, each fused tail's K6 and K7 held against their plain versions
+    on the inputs that step gave them, 20 timed steps each way at b = 256,
+    224 x 224, the launches of K4-K7 (13 calls each per step, every K7 on
+    its sm90 path; 26, 13, 26 and 52 device launches at b = 256), a
+    profile, and one eval forward vs the CPU path."""
     import os
     import torch
     from deeplearning4j_tpu_torch import zoo
@@ -1836,9 +1968,10 @@ def phase_train_resnet():
     for name, card_net in (("bf16", net), ("f32", f32)):
         registry.reset_launches()
         card_loss, card_g = graph_loss_and_grads(card_net, xs, ys)
-        check(registry.launches() == resnet_step_launches(nb),
+        want_launches = resnet_step_launches(nb, name == "bf16")
+        check(registry.launches() == want_launches,
               f"the card's {name} step launched {registry.launches()}, "
-              f"expected {resnet_step_launches(nb)}")
+              f"expected {want_launches}")
         un_loss, un_g = graph_loss_and_grads(
             graph_copy(card_net, "cuda", False), xs, ys)
         cpu_loss, cpu_g = graph_loss_and_grads(
@@ -1889,10 +2022,30 @@ def phase_train_resnet():
     del f32, card_g, un_g, cpu_g, ref_g
     out["first_step_checks_s"] = f"{time.perf_counter() - t0:.1f}"
 
-    # fused vs unfused on the card at the run's batch, BF16
+    # fused vs unfused on the card at the run's batch, BF16; the fused
+    # step's K6 and K7 inputs, tail by tail, are kept and each tail's K6
+    # and K7 are held against their plain versions on them
     unfused = graph_copy(net, "cuda", False)
     check(not unfused._fusion_plans, "the unfused copy matched tails")
-    f_loss, f_g = graph_loss_and_grads(net, x0, y0)
+    step = {}
+    tails_in = capture_tail_inputs(
+        lambda: step.update(zip(("loss", "g"),
+                                graph_loss_and_grads(net, x0, y0))))
+    f_loss, f_g = step["loss"], step["g"]
+    check(len(tails_in) == tails, f"captured {len(tails_in)} tails' K6/K7 "
+          f"inputs, expected {tails}")
+    held = [hold_tail_on_its_inputs(a6, a7) for a6, a7 in tails_in]
+    failed = [m for _, _, msgs in held for m in msgs]
+    check(not failed, "; ".join(failed))
+    paths = [path for path, _, _ in held]
+    check(paths == ["sm90"] * tails, f"K7's paths on the main path's "
+          f"tails: {paths}")
+    out["tails_k6_k7_vs_plain_worst_err_over_limit"] = (
+        f"{max(r for _, r, _ in held):.3e}")
+    out["tails_k6_k7_vs_plain_by_tail"] = json.dumps(
+        [float(f"{r:.3e}") for _, r, _ in held])
+    del tails_in, held
+    torch.cuda.empty_cache()
     u_loss, u_g = graph_loss_and_grads(unfused, x0, y0)
     score_err = abs(f_loss - u_loss) / abs(u_loss)
     k, e = worst(grad_errors(f_g, u_g, rel_l2=True))
@@ -1910,8 +2063,8 @@ def phase_train_resnet():
     data = [DataSet(x, y) for x, y in batches]
     runs = {"fused": timed_steps(net, data, steps)}
     runs["unfused"] = timed_steps(unfused, data, steps)
-    per_step = resnet_step_launches(b)
-    for kern in kernels:
+    per_step = resnet_step_launches(b, True)
+    for kern in kernels + (fb.BWD_APPLY_SM90,):
         got = runs["fused"]["launches"].get(kern, 0)
         check(got == per_step[kern] * steps, f"{kern} launched {got} times "
               f"in {steps} fused steps, expected {per_step[kern] * steps}")
@@ -1936,6 +2089,8 @@ def phase_train_resnet():
     out["calls_per_step"] = json.dumps(
         {k: runs["fused"]["launches"].get(k, 0) * tails // per_step[k] // steps
          for k in kernels})
+    out["k7_sm90_calls_per_step"] = (
+        runs["fused"]["launches"].get(fb.BWD_APPLY_SM90, 0) // steps)
 
     # the Nesterov update alone, on copies
     gc = net.conf.global_conf
@@ -1987,11 +2142,69 @@ def fused_bound(kern, M, K, N):
     return 3 * gemm, mk + kn + 5 * v + 2 * mn + mk + K * N * 4 + mn
 
 
+# K7's passes by kernel name, for the profiler's split: the sm90 path's
+# epilogues, and the mma.sync path's dz_kernel and gemm_kernel
+# instantiations (dx = <T, true, false, T>, dW = <T, false, true, float>);
+# the first match wins
+K7_PASSES = (("dz", ("DzEpi", "dz_kernel")), ("dx", ("DxEpi", "true, false")),
+             ("dW", ("DwEpi", "false, true")), ("sum", ("sum_splits",)))
+
+
+def k7_split(fn, reps=10):
+    """K7's device ms a call by pass (dz, dx, dW, sum of the dW splits)
+    over ``reps`` calls of ``fn``, from torch.profiler, with the kernels
+    it could not place under "other"."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {name: 0.0 for name, _ in K7_PASSES}
+    out["other"] = 0.0
+    for e in prof.key_averages():
+        if e.device_type.name != "CUDA":
+            continue
+        tag = next((name for name, keys in K7_PASSES
+                    if any(k in e.key for k in keys)), "other")
+        out[tag] += e.self_device_time_total / 1e3 / reps
+    return out
+
+
+def k7_mma_sync(x, W, mean, inv, scale, ca, cb, dy, y, relu):
+    """A call of K7's first bf16 path (mma.sync, dl4j_fused_bwd_apply) on
+    the same inputs, for timing it beside the sm90 path in the same run:
+    returns a function that launches it into preallocated outputs."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import fused_block as fb
+    lib = fb._bind()
+    M, K = x.shape
+    N = W.shape[1]
+    S, chunk = fb.dw_splits(M, K, N)
+    dz, dsc = torch.empty_like(dy), torch.empty_like(dy)
+    dx = torch.empty_like(x)
+    dW = torch.empty((K, N), dtype=torch.float32, device=x.device)
+    part = torch.empty((S, K, N), dtype=torch.float32, device=x.device)
+    ptrs = [t.data_ptr() for t in (x, W, mean, inv, scale, ca, cb, dy, y, dz,
+                                   dsc, dx, part, dW)]
+
+    def call():
+        rc = lib.dl4j_fused_bwd_apply(
+            1, *ptrs, M, K, N, S, chunk, int(relu),
+            torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"mma.sync K7 failed: cudaError {rc}")
+    return call
+
+
 def phase_times_fused(card, errs, rtrain):
     """K4-K7 at each ResNet-50 stage shape (bf16): 20 launches back to
     back, the plain version, the bound, and torch.matmul of the same
     [M, K] x [K, N] product as a yardstick (no single PyTorch call
-    computes these functions)."""
+    computes these functions). K7 (on its sm90 path) also beside its
+    mma.sync path on the same inputs, each with its split by pass from
+    the profiler."""
     import torch
     from deeplearning4j_tpu_torch.ops import fused_block as fb
     from deeplearning4j_tpu_torch.ops import registry
@@ -2021,6 +2234,23 @@ def phase_times_fused(card, errs, rtrain):
                 rows[(kern, stage)] = dict(ms=ms, plain_ms=plain_ms,
                                            bound_ms=bound_ms,
                                            bound_by=bound_by)
+                extra = {}
+                if kern == fb.BWD_APPLY:
+                    old = k7_mma_sync(*a)
+                    old_ms = cuda_ms_per_launch(old, reps=5)
+                    split = k7_split(lambda: cuda_fn(*a))
+                    old_split = k7_split(old)
+                    rows[(kern, stage)].update(
+                        mma_sync_ms=old_ms, split_ms=split,
+                        path=k7_path(t["x"], t["W"], t["dy"], p["y"]))
+                    extra = dict(
+                        k7_path=rows[(kern, stage)]["path"],
+                        split_ms=json.dumps(
+                            {k: round(v, 4) for k, v in split.items()}),
+                        mma_sync_ms=f"{old_ms:.4f}",
+                        mma_sync_split_ms=json.dumps(
+                            {k: round(v, 4) for k, v in old_split.items()}),
+                        mma_sync_roofline_share=f"{bound_ms / old_ms:.4f}")
                 phase("times", kernel=kern, stage=stage, M=M, K=K, N=N,
                       dtype="bfloat16", card=json.dumps(card),
                       ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
@@ -2031,7 +2261,8 @@ def phase_times_fused(card, errs, rtrain):
                       library="none (no single PyTorch call computes it); "
                               "yardstick torch.matmul of the same product",
                       matmul_ms=f"{gemm_ms:.4f}",
-                      matmul_ms_times_products=f"{gemm_ms * gemms:.4f}")
+                      matmul_ms_times_products=f"{gemm_ms * gemms:.4f}",
+                      **extra)
         del t, p, args
         torch.cuda.empty_cache()
     phase("times", kernel="resnet50_train_step", b=256,
@@ -2053,7 +2284,67 @@ def phase_times_fused(card, errs, rtrain):
                     "shape": "s1 (M=200704, K=128, N=512, bf16)",
                     "by_stage_ms": {st: rows[(kern, st)]["ms"]
                                     for st, _, _, _ in RESNET_TAILS}})
+    k7 = out[-1]
+    k7["path"] = "sm90: TMA ring feeding wgmma (csrc/sm90_gemm.cuh)"
+    k7["by_stage_split_ms"] = {st: rows[(fb.BWD_APPLY, st)]["split_ms"]
+                               for st, _, _, _ in RESNET_TAILS}
+    k7["by_stage_mma_sync_ms"] = {
+        st: rows[(fb.BWD_APPLY, st)]["mma_sync_ms"]
+        for st, _, _, _ in RESNET_TAILS}
     return out
+
+
+def phase_tail_check():
+    """[train_resnet]'s check of every fused tail's K6 and K7 on the
+    inputs one BF16 step at b = 256 gives them, alone (``python3
+    chip_smoke.py --tail-check``): each tail's path and worst error over
+    its limit, and a failure if any output misses its limit. Run from a
+    copy of the checkout with a planted fault in a kernel, it shows that
+    the check catches it."""
+    import os
+    from deeplearning4j_tpu_torch import zoo
+    os.environ["DL4J_TPU_FUSE_BLOCKS"] = "1"
+    net = zoo.resnet50(seed=SEED + 20)
+    x0, y0 = resnet_batches(2, 256, SEED + 21)[0]
+    tails_in = capture_tail_inputs(lambda: graph_loss_and_grads(net, x0, y0))
+    failed = []
+    for i, (a6, a7) in enumerate(tails_in):
+        path, ratio, msgs = hold_tail_on_its_inputs(a6, a7)
+        M, K = a6[0].shape
+        phase("tail_check", tail=i, M=M, K=K, N=a6[1].shape[1], k7_path=path,
+              worst_err_over_limit=f"{ratio:.3e}", failed=len(msgs))
+        failed += msgs
+    check(len(tails_in) == 13, f"captured {len(tails_in)} tails, expected 13")
+    check(not failed, "; ".join(failed))
+
+
+def phase_k7_split():
+    """K7 alone at ResNet-50's three tail shapes (bf16, relu): ms a call
+    over 20 back-to-back launches and the profiler's split by pass, for
+    whatever K7 the package beside this script has. ``python3
+    chip_smoke.py --k7-split`` runs only this; run from a checkout of
+    another commit it measures that commit's K7 with the same code."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import _build
+    from deeplearning4j_tpu_torch.ops import fused_block as fb
+    from deeplearning4j_tpu_torch.ops import registry
+    _build.build(("fused_block",))
+    fn = registry.get(fb.BWD_APPLY, "cuda")
+    for stage, M, K, N in RESNET_TAILS:
+        t = tail_inputs(M, K, N, torch.bfloat16, seed=1)
+        p = tail_plain(t, True)
+        a = (t["x"], t["W"], p["mean"], p["inv"], p["scale"], p["ca"],
+             p["cb"], t["dy"], p["y"], True)
+        path = (k7_path(t["x"], t["W"], t["dy"], p["y"])
+                if hasattr(fb, "takes_sm90") else "mma.sync")
+        with torch.no_grad():
+            ms = cuda_ms_per_launch(lambda: fn(*a), reps=5)
+            split = k7_split(lambda: fn(*a))
+        phase("k7_split", stage=stage, M=M, K=K, N=N, path=path,
+              ms=f"{ms:.4f}",
+              split_ms=json.dumps({k: round(v, 4) for k, v in split.items()}))
+        del t, p, a
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2068,8 +2359,25 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
         return 2
+    # f32 matrix products in full f32 (PyTorch's default, stated); the F32
+    # convolutions turn cuDNN's TF32 off themselves (ops/convolution.py)
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    ok_line = json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}})
+    if "--k7-split" in sys.argv[1:]:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60)
+        print(smi.stdout.strip(), flush=True)
+        phase_k7_split()
+        print(ok_line, flush=True)
+        return 0
+    if "--tail-check" in sys.argv[1:]:
+        phase_device()
+        phase_tail_check()
+        print(ok_line, flush=True)
+        return 0
 
     card = phase_device()
     errs = {"lstm_fwd": phase_kernel_vs_plain(),
@@ -2090,9 +2398,7 @@ def main() -> int:
     kernels += phase_times_flash(card, gnet, errs, launches, gtrain)
     kernels += phase_times_fused(card, errs, rtrain)
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    print(ok_line, flush=True)
     return 0
 
 

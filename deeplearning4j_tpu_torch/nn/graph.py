@@ -16,7 +16,8 @@ The training walk routes every bottleneck tail the fusion pass matched
 op: K4-K7 on the card. The eval walk (``output``) runs vertex by vertex
 with the running statistics.
 
-Not ported (ROADMAP.md): remat spans, mesh placement, truncated BPTT and
+Not ported (ROADMAP.md): remat spans, mesh placement, truncated BPTT
+(``fit_batch`` refuses a batch longer than the window by name) and
 ``rnn_time_step`` on graphs, pretraining, ``fit_batch_repeated``,
 listeners and evaluation.
 """
@@ -257,6 +258,15 @@ class ComputationGraph:
         Returns the score as a 0-d tensor on the graph's device."""
         self._require_init()
         mds = self._coerce(data)
+        if self.conf.backprop_type == "tbptt":
+            t_dims = {f.shape[1] for f in mds.features
+                      if getattr(f, "ndim", 0) == 3}
+            if t_dims and max(t_dims) > self.conf.tbptt_fwd_length:
+                raise NotImplementedError(
+                    f"truncated BPTT on a ComputationGraph is not ported: a "
+                    f"feature of T = {max(t_dims)} exceeds tbptt_fwd_length "
+                    f"= {self.conf.tbptt_fwd_length}; use standard backprop "
+                    f"or a MultiLayerNetwork")
         step = precision.build_step_fn(self._loss, self.layers,
                                        self.conf.global_conf, self._lr_scale)
         leaves = _map(lambda t: t.detach().requires_grad_(), self.params)

@@ -4,7 +4,8 @@ Each ``ops/csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with ``ctypes``. A library
 is built at first use into ``deeplearning4j_tpu_torch/build/`` (listed in
 ``.gitignore``) and its file name carries a hash of the sources and the
-flags, so a changed source is rebuilt and an unchanged one is reused.
+flags (and of the headers in ``csrc/``), so a changed source is rebuilt
+and an unchanged one is reused.
 ``build()`` compiles several sources at once, one ``nvcc`` process each.
 
 Nothing here runs at import: the CPU tests import every module of the
@@ -27,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 KERNELS = ("lstm_fwd", "lstm_bwd", "flash_attn_fwd", "fused_block")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
-              "-Xptxas=-v")
+              "-Xptxas=-v", "-ldl")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -55,6 +56,8 @@ def library_path(name: str) -> Path:
     h = hashlib.sha256()
     h.update(" ".join(NVCC_FLAGS).encode())
     h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
@@ -99,3 +102,15 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             _LIBS[name] = lib
         return lib
+
+
+def sass_counts(name: str, opcodes) -> dict:
+    """How many times each SASS opcode in ``opcodes`` (e.g. HGMMA,
+    UTMALDG) appears in the built library of kernel ``name``, from
+    ``cuobjdump -sass``: which instructions the compiler emitted."""
+    tool = Path(nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(library_path(name))],
+                          check=True, capture_output=True, text=True).stdout
+    words = [w.split(".")[0] for line in sass.splitlines()
+             for w in line.replace(";", " ").split()]
+    return {op: words.count(op) for op in opcodes}

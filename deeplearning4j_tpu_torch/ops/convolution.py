@@ -12,10 +12,15 @@ tensors, so no layout copy is made. ``F.conv2d`` and the pooling functions
 pad only symmetrically, so an asymmetric SAME padding (the 7x7/s2 stem at
 224 pads (2, 3), the 3x3/s2 max pool at 112 pads (0, 1)) is applied first:
 zeros for convolution and average pooling, -inf for max pooling.
+
+An f32 convolution runs with cuDNN's TF32 off, whatever the caller's
+``torch.backends.cudnn.allow_tf32`` says (PyTorch's default is on): the
+JAX package's F32 convolution rounds no input to TF32's 10-bit mantissa.
 """
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 
 
@@ -95,11 +100,48 @@ def _nhwc(y):
 
 def conv2d(x, w, *, strides, padding, dilation=(1, 1)):
     """x: [N, H, W, C], w: [kH, kW, C_in, C_out] (HWIO), padding:
-    [(lo, hi), (lo, hi)] -> [N, H', W', C_out]."""
+    [(lo, hi), (lo, hi)] -> [N, H', W', C_out]. f32 runs without TF32,
+    forward and backward (``Conv2dF32``)."""
     x, sym = _pad_nhwc(x, padding)
-    y = F.conv2d(_nchw(x), w.permute(3, 2, 0, 1), stride=tuple(strides),
-                 padding=sym, dilation=tuple(dilation))
-    return _nhwc(y)
+    args = (_nchw(x), w.permute(3, 2, 0, 1), tuple(strides), tuple(sym),
+            tuple(dilation))
+    if x.dtype == torch.float32:
+        return _nhwc(Conv2dF32.apply(*args))
+    return _nhwc(F.conv2d(args[0], args[1], stride=args[2], padding=args[3],
+                          dilation=args[4]))
+
+
+def _no_tf32():
+    """cuDNN's flags with TF32 off and every other flag left as it stands
+    (None sets nothing)."""
+    return torch.backends.cudnn.flags(enabled=None, benchmark=None,
+                                      benchmark_limit=None,
+                                      deterministic=None, allow_tf32=False)
+
+
+class Conv2dF32(torch.autograd.Function):
+    """``F.conv2d`` of f32 tensors with cuDNN's TF32 off in the forward and
+    in the backward: autograd's own backward would read the global flag
+    when it runs, after any context around the forward has closed."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding, dilation):
+        ctx.save_for_backward(x, w)
+        ctx.conf = (stride, padding, dilation)
+        with _no_tf32():
+            return F.conv2d(x, w, stride=stride, padding=padding,
+                            dilation=dilation)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        stride, padding, dilation = ctx.conf
+        with _no_tf32():
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                gy, x, w, None, list(stride), list(padding), list(dilation),
+                False, [0, 0], 1,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return gx, gw, None, None, None
 
 
 # ---------------------------------------------------------------------------

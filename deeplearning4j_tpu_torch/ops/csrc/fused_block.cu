@@ -24,16 +24,32 @@
 // the bf16 tensor-core rate), K5, K6 and K7 by their bytes (K5 and K6 move
 // 462 MB at stage 1, 0.14 ms; K7 719 MB, 0.21 ms).
 //
-// What the design does about it, simply: every pass is one tiled GEMM
-// with its epilogue. A block of 256 threads owns a 128 x 128 output tile
-// and walks the reduction dimension through shared memory. For bf16 the
-// products run on the tensor cores (mma.sync m16n8k16, bf16 inputs, f32
-// sums; 8 warps of 64 x 32 fragments, 32 k a step, 16-byte loads where
-// rows are aligned), then the fragments go through shared memory into the
-// thread tile the epilogues read: each thread owns an 8 x 8 block. For
-// f32 the same tile runs plain f32 FMA from f32 shared-memory tiles (the
-// tensor cores' f32 path, TF32, would round the inputs). No pipelining of
-// the loads, no wgmma or TMA: those are later work.
+// What the design does about it. Every pass is one tiled GEMM with its
+// epilogue. K4-K6, and K7 in f32 or at shapes TMA cannot read, run the
+// first, simple mainloops: a block of 256 threads owns a 128 x 128 output
+// tile and walks the reduction through single-buffered shared memory, two
+// barriers a step, no asynchronous copies. For bf16 the products run on
+// mma.sync m16n8k16 (mainloop_mma: 8 warps of 64 x 32 fragments, 32 k a
+// step, 16-byte loads where rows are aligned), then the fragments go
+// through a 67.6 KB f32 shared tile into the thread tile the epilogues
+// read (each thread owns an 8 x 8 block). For f32 the same tile runs plain
+// f32 FMA (mainloop_fma; the tensor cores' f32 path, TF32, would round the
+// inputs). These loops run at 30-70 TFLOP/s, so they, and not the bytes,
+// bound those passes: K7 on them took 1.7 ms at stage 1 against its
+// 0.21 ms bound, its three GEMMs at ~0.4-0.9 ms each.
+//
+// K7 in bf16 (bwd_apply_sm90), when every row is a multiple of 16 bytes
+// and every base 16-byte aligned (every ResNet-50 tail), runs its three
+// GEMMs on the Hopper mainloop of sm90_gemm.cuh instead: TMA loads into a
+// ring of stages, one producer warp, two consumer warpgroups on wgmma
+// m64n128k16, persistent blocks, the sums in registers and no staging
+// tile. z = x W reads A K-major and B MN-major, dx = dz W^T both K-major,
+// dW = x^T dz both MN-major. With the products at the tensor cores' rate,
+// K7's passes move ~1.4 GB at stage 1 (dz written once and read twice)
+// and are bound by their bytes again; the dz pass moves 873 MB of it, so
+// its epilogue has TMA bring dy and y into shared memory and take dz and
+// dsc out, double-buffered, while the dx and dW epilogues store from
+// their registers, four consecutive columns a lane.
 //
 // Determinism: no float atomics. K4 and K6 reduce over M in a fixed order:
 // each block walks a fixed set of m-tiles and adds each thread's per-column
@@ -44,7 +60,9 @@
 // K7 writes dz once (cd) and then runs two GEMMs over it: dx = dz @ W^T,
 // and dW = x^T @ dz split over S fixed chunks of M whose f32 partials a
 // last launch sums in order (the [K, N] f32 accumulator of the TPU kernel
-// does not fit a block). Two calls give the same bits.
+// does not fit a block). Two calls give the same bits. The sm90 path keeps
+// that scheme (its chunks of M are multiples of its 64-row step); no TMA
+// reduce-add.
 //
 // Any M, K and N: ragged tiles load zeros and store nothing out of range.
 
@@ -53,6 +71,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "sm90_gemm.cuh"
 
 namespace {
 
@@ -774,6 +794,210 @@ cudaError_t bwd_apply(const void* x, const void* w, const float* mean,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------- K7 on sm90
+// The epilogues of K7's three GEMMs on the sm90 mainloop. Each works from
+// the accumulator fragment, four consecutive columns a lane
+// (sm90::Frag::quad), and moves them at once (8 bytes of bf16, 16 of f32):
+// every row holds a multiple of 8 values and every base is 16-byte aligned
+// (the path's condition), so four columns never straddle the edge or a
+// misaligned word.
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ void unpack_bf4(const uint2 raw, float (&v)[4]) {
+  const float2 a =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 b =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+__device__ __forceinline__ uint2 pack_bf4(const float (&v)[4]) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 raw;
+  raw.x = *reinterpret_cast<uint32_t*>(&lo);
+  raw.y = *reinterpret_cast<uint32_t*>(&hi);
+  return raw;
+}
+__device__ __forceinline__ void st_bf4(bf16* p, const float (&v)[4]) {
+  *reinterpret_cast<uint2*>(p) = pack_bf4(v);
+}
+
+// Pass 1: z = x W (x K-major, W MN-major); dz = round_cd(scale * ((g - ca)
+// - xhat * cb)) and dsc = g, the f32 operations of dz_kernel in its order.
+// The tile's dy and y come in, and its dz and dsc go out, by TMA through
+// 64 KB of shared memory (the mainloop's staged epilogue): dz over dy, dsc
+// over y, each lane on its own four columns. TMA reads zeros outside the
+// matrix and writes nothing there, so the epilogue needs no edge checks.
+template <bool RELU>
+struct DzEpi {
+  static constexpr uint32_t kStagedBytes = 2 * 128 * 128 * 2;  // dy, y
+  CUtensorMap mdy, my, mdz, mdsc;
+  const float *mean, *inv, *scale, *ca, *cb;
+  int N;
+
+  __device__ __forceinline__ void load_staged(unsigned char* st,
+                                              uint64_t* bar, int i0,
+                                              int j0) const {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int r = i0 + 64 * (b >> 1), c = j0 + 64 * (b & 1);
+      sm90::tma_load(st + b * sm90::kBoxBytes, &mdy, bar, c, r);
+      sm90::tma_load(st + (4 + b) * sm90::kBoxBytes, &my, bar, c, r);
+    }
+  }
+
+  __device__ __forceinline__ void store_staged(const unsigned char* st,
+                                               int i0, int j0) const {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int r = i0 + 64 * (b >> 1), c = j0 + 64 * (b & 1);
+      sm90::tma_store(&mdz, st + b * sm90::kBoxBytes, c, r);
+      sm90::tma_store(&mdsc, st + (4 + b) * sm90::kBoxBytes, c, r);
+    }
+  }
+
+  __device__ __forceinline__ void stage(float (*cv)[sm90::BN], int j0) const {
+    const float* const v[5] = {mean, inv, scale, ca, cb};
+    for (int c = threadIdx.x; c < sm90::BN; c += sm90::kConsumers) {
+      const int col = j0 + c;
+#pragma unroll
+      for (int k = 0; k < 5; ++k) cv[k][c] = col < N ? v[k][col] : 0.f;
+    }
+  }
+
+  __device__ __forceinline__ void store(const float (&acc)[64],
+                                        const float (*cv)[sm90::BN],
+                                        unsigned char* st, int, int, int,
+                                        int wg) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = sm90::Frag::row(wg, h);
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        float zv[4];
+        sm90::Frag::quad(acc, h, m, zv);
+        const int c = sm90::Frag::col4(m);
+        uint2* pg = reinterpret_cast<uint2*>(st + sm90::staged_off(r, c));
+        uint2* py = reinterpret_cast<uint2*>(st + 4 * sm90::kBoxBytes +
+                                             sm90::staged_off(r, c));
+        float g[4], yv[4], d[4];
+        unpack_bf4(*pg, g);
+        unpack_bf4(*py, yv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float xhat =
+              (round_cd<bf16>(zv[e]) - cv[0][c + e]) * cv[1][c + e];
+          if (RELU && !(yv[e] > 0.f)) g[e] = 0.f;
+          d[e] = cv[2][c + e] * ((g[e] - cv[3][c + e]) - xhat * cv[4][c + e]);
+        }
+        *pg = pack_bf4(d);
+        *py = pack_bf4(g);
+      }
+    }
+  }
+};
+
+// Pass 2: dx = dz W^T (both K-major), stored in bf16.
+struct DxEpi {
+  bf16* dx;
+  int M, K;
+  static constexpr uint32_t kStagedBytes = 0;
+
+  __device__ __forceinline__ void stage(float (*)[sm90::BN], int) const {}
+
+  __device__ __forceinline__ void store(const float (&acc)[64],
+                                        const float (*)[sm90::BN],
+                                        unsigned char*, int i0, int j0, int,
+                                        int wg) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = i0 + sm90::Frag::row(wg, h);
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        float v[4];
+        sm90::Frag::quad(acc, h, m, v);
+        const int c = j0 + sm90::Frag::col4(m);
+        if (row < M && c < K) st_bf4(dx + static_cast<size_t>(row) * K + c, v);
+      }
+    }
+  }
+};
+
+// Pass 3: the f32 partial of split z of dW = x^T dz (both MN-major),
+// out[z][k][n].
+struct DwEpi {
+  float* out;
+  int K, N;
+  static constexpr uint32_t kStagedBytes = 0;
+
+  __device__ __forceinline__ void stage(float (*)[sm90::BN], int) const {}
+
+  __device__ __forceinline__ void store(const float (&acc)[64],
+                                        const float (*)[sm90::BN],
+                                        unsigned char*, int i0, int j0, int z,
+                                        int wg) const {
+    float* o = out + static_cast<size_t>(z) * K * N;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = i0 + sm90::Frag::row(wg, h);
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        float v[4];
+        sm90::Frag::quad(acc, h, m, v);
+        const int c = j0 + sm90::Frag::col4(m);
+        if (row < K && c < N)
+          *reinterpret_cast<float4*>(o + static_cast<size_t>(row) * N + c) =
+              make_float4(v[0], v[1], v[2], v[3]);
+      }
+    }
+  }
+};
+
+template <bool RELU>
+cudaError_t bwd_apply_sm90(const void* x, const void* w, const float* mean,
+                           const float* inv, const float* scale,
+                           const float* ca, const float* cb, const void* dy,
+                           const void* y, void* dz, void* dsc, void* dx,
+                           float* dw_part, float* dw, int M, int K, int N,
+                           int S, int chunk, cudaStream_t st) {
+  // one map a matrix, each read K-major or MN-major as the pass needs:
+  // x [M][K], W [K][N], dz [M][N]
+  CUtensorMap mx, mw, mdz;
+  DzEpi<RELU> edz;
+  cudaError_t e = sm90::make_map(&mx, x, M, K);
+  if (e == cudaSuccess) e = sm90::make_map(&mw, w, K, N);
+  if (e == cudaSuccess) e = sm90::make_map(&mdz, dz, M, N);
+  // the dz pass's epilogue: dy and y in, dz and dsc out, [M][N] each
+  if (e == cudaSuccess) e = sm90::make_map(&edz.mdy, dy, M, N);
+  if (e == cudaSuccess) e = sm90::make_map(&edz.my, y, M, N);
+  if (e == cudaSuccess) e = sm90::make_map(&edz.mdsc, dsc, M, N);
+  if (e != cudaSuccess) return e;
+  edz.mdz = mdz;
+  edz.mean = mean;
+  edz.inv = inv;
+  edz.scale = scale;
+  edz.ca = ca;
+  edz.cb = cb;
+  edz.N = N;
+  // z [M, N] = x W: A(m, k) = x[m][k] K-major, B(k, n) = W[k][n] MN-major
+  e = sm90::launch<true, false>(mx, mw, M, N, K, K, 1, edz, st);
+  if (e != cudaSuccess) return e;
+  // dx [M, K] = dz W^T: A(m, n) = dz[m][n], B(n, k) = W[k][n], both K-major
+  e = sm90::launch<true, true>(mdz, mw, M, K, N, N, 1,
+                               DxEpi{static_cast<bf16*>(dx), M, K}, st);
+  if (e != cudaSuccess) return e;
+  // dW [K, N] = x^T dz over S chunks of M: A(k, m) = x[m][k], B(m, n) =
+  // dz[m][n], both MN-major
+  float* target = S == 1 ? dw : dw_part;
+  e = sm90::launch<false, false>(mx, mdz, K, N, M, chunk, S,
+                                 DwEpi{target, K, N}, st);
+  if (e != cudaSuccess || S == 1) return e;
+  const size_t n = static_cast<size_t>(K) * N;
+  sum_splits<<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
+      dw_part, dw, S, n);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -865,6 +1089,37 @@ int dl4j_fused_bwd_apply(int dtype, const void* x, const void* w,
                       dw_part, dw, M, K, N, S, chunk, st);
   return cudaErrorInvalidValue;
 }
+
+// K7, bf16, on the sm90 mainloop: the arguments and outputs of
+// dl4j_fused_bwd_apply. Takes only what TMA reads: K and N multiples of 8
+// (rows of 16 bytes) and every array 16-byte aligned; chunk a multiple of
+// the 64-row step when S > 1. Three launches, four when S > 1.
+int dl4j_fused_bwd_apply_sm90(const void* x, const void* w,
+                              const float* mean, const float* inv,
+                              const float* scale, const float* ca,
+                              const float* cb, const void* dy, const void* y,
+                              void* dz, void* dsc, void* dx, float* dw_part,
+                              float* dw, int M, int K, int N, int S,
+                              int chunk, int relu, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  const void* arrays[] = {x, w, dy, y, dz, dsc, dx, dw, dw_part};
+  bool aligned = true;
+  for (const void* p : arrays)
+    aligned = aligned && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  if (M < 1 || K < 1 || N < 1 || S < 1 || chunk < 1 || K % 8 != 0 ||
+      N % 8 != 0 || !aligned || (S > 1 && chunk % sm90::BK != 0) ||
+      static_cast<long long>(S) * chunk < M)
+    return cudaErrorInvalidValue;
+  return relu ? bwd_apply_sm90<true>(x, w, mean, inv, scale, ca, cb, dy, y,
+                                     dz, dsc, dx, dw_part, dw, M, K, N, S,
+                                     chunk, st)
+              : bwd_apply_sm90<false>(x, w, mean, inv, scale, ca, cb, dy, y,
+                                      dz, dsc, dx, dw_part, dw, M, K, N, S,
+                                      chunk, st);
+}
+
+// The sm90 mainloop's reduction step: dW's chunks of M are multiples of it.
+int dl4j_fused_sm90_step() { return sm90::BK; }
 
 // The tile shape, so the wrapper sizes its grids and scratch alike.
 int dl4j_fused_tile_rows() { return BM; }

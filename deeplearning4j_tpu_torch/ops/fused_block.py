@@ -20,6 +20,11 @@ here (``*_torch``, used for CPU tensors) and its CUDA wrapper (``*_cuda``,
 csrc/fused_block.cu, used for CUDA tensors; it raises on what the kernel
 does not take and never falls back, and counts every device launch it
 makes under the kernel's name: K4 and K6 make two, K7 three or four).
+K7 in bf16 takes the Hopper path (TMA + wgmma, csrc/sm90_gemm.cuh) when
+TMA can read its operands (``takes_sm90``: rows of a multiple of 16
+bytes, 16-byte-aligned bases), and counts each such call once more under
+``fused_block_bwd_apply_sm90``; any other call takes the first mainloops.
+The choice is by shape and alignment only: a failure raises.
 ``conv1x1_bn_add_relu`` is the op the block-fusion pass calls
 (nn/fusion.py); ``FusedTailFn`` is its ``torch.autograd.Function``.
 
@@ -41,6 +46,7 @@ KERNEL = "fused_block"
 STATS, APPLY, BWD_STATS, BWD_APPLY = (
     "fused_block_stats", "fused_block_apply", "fused_block_bwd_stats",
     "fused_block_bwd_apply")
+BWD_APPLY_SM90 = "fused_block_bwd_apply_sm90"  # calls on the sm90 path
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # the kernel's tile (dl4j_fused_tile_rows/cols), and the number of blocks
@@ -49,6 +55,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the sums' order, and the bits, do not depend on the card
 TILE_M = TILE_N = 128
 _TARGET_BLOCKS = 528
+# the sm90 mainloop's reduction step (dl4j_fused_sm90_step): dW's chunks
+# of M are multiples of it there, so no step reads the next chunk's rows
+SM90_STEP = 64
 
 
 def _round_trip(z, cd):
@@ -143,8 +152,10 @@ def _bind():
     lib.dl4j_fused_apply.argtypes = [i] + [p] * 6 + [i] * 4 + [p]
     lib.dl4j_fused_bwd_stats.argtypes = [i] + [p] * 8 + [i] * 5 + [p]
     lib.dl4j_fused_bwd_apply.argtypes = [i] + [p] * 14 + [i] * 6 + [p]
+    lib.dl4j_fused_bwd_apply_sm90.argtypes = [p] * 14 + [i] * 6 + [p]
     for fn in (lib.dl4j_fused_stats, lib.dl4j_fused_apply,
                lib.dl4j_fused_bwd_stats, lib.dl4j_fused_bwd_apply,
+               lib.dl4j_fused_bwd_apply_sm90, lib.dl4j_fused_sm90_step,
                lib.dl4j_fused_tile_rows, lib.dl4j_fused_tile_cols):
         fn.restype = i
     lib.dl4j_cuda_error_string.argtypes = [i]
@@ -153,6 +164,10 @@ def _bind():
     if tile != (TILE_M, TILE_N):
         raise RuntimeError(f"fused_block.cu tiles {tile}, the wrapper "
                            f"expects {(TILE_M, TILE_N)}")
+    if lib.dl4j_fused_sm90_step() != SM90_STEP:
+        raise RuntimeError(f"fused_block.cu's sm90 step is "
+                           f"{lib.dl4j_fused_sm90_step()}, the wrapper "
+                           f"expects {SM90_STEP}")
     lib._dl4j_bound = True
     return lib
 
@@ -167,21 +182,35 @@ def stat_rows(M, N):
     return max(1, min(_cdiv(M, TILE_M), _TARGET_BLOCKS // _cdiv(N, TILE_N)))
 
 
-def dw_splits(M, K, N):
-    """(S, chunk): K7 sums dW over S chunks of ``chunk`` rows of M."""
+def dw_splits(M, K, N, sm90=False):
+    """(S, chunk): K7 sums dW over S chunks of ``chunk`` rows of M, about
+    264 blocks (two resident a multiprocessor) in all; chunks are
+    multiples of 16 rows, of SM90_STEP on the sm90 path."""
     tiles = _cdiv(K, TILE_M) * _cdiv(N, TILE_N)
     S = max(1, min(_TARGET_BLOCKS // 2 // tiles, _cdiv(M, 1024)))
-    chunk = _cdiv(_cdiv(M, S), 16) * 16
+    step = SM90_STEP if sm90 else 16
+    chunk = _cdiv(_cdiv(M, S), step) * step
     return _cdiv(M, chunk), chunk
 
 
-def launches_per_call(name, M, K, N):
+def launches_per_call(name, M, K, N, sm90=False):
     """Device launches one call of kernel ``name`` makes: K4 and K6 a pass
     over the tiles and the sum of its partials, K5 one, K7 dz, dx and dW
-    and, when dW is split over M, the sum of its splits."""
+    and, when dW is split over M, the sum of its splits (on either
+    path)."""
     if name == BWD_APPLY:
-        return 3 + (dw_splits(M, K, N)[0] > 1)
+        return 3 + (dw_splits(M, K, N, sm90)[0] > 1)
     return 1 if name == APPLY else 2
+
+
+def takes_sm90(x2, W, *mn):
+    """Whether K7 runs on the sm90 path (TMA + wgmma) for x [M, K], W
+    [K, N] and the [M, N] tensors ``mn``: bf16, K and N multiples of 8
+    (every row a multiple of 16 bytes) and every base 16-byte aligned.
+    The outputs and scratch K7 allocates are aligned by the allocator."""
+    return (x2.dtype == torch.bfloat16 and x2.shape[-1] % 8 == 0
+            and W.shape[-1] % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (x2, W, *mn)))
 
 
 def _check_cuda(name, *tensors):
@@ -284,7 +313,8 @@ def fused_bwd_apply_cuda(x2, W, mean, inv, scale, ca, cb, dy2, y2, relu):
     M, K, N, code = _operands(BWD_APPLY, x2, W, dy=dy2, y=y2)
     mean, inv, scale, ca, cb = _f32(mean, inv, scale, ca, cb)
     lib = _bind()
-    S, chunk = dw_splits(M, K, N)
+    sm90 = takes_sm90(x2, W, dy2, y2)
+    S, chunk = dw_splits(M, K, N, sm90)
     dev = x2.device
     dz = torch.empty((M, N), dtype=x2.dtype, device=dev)
     dsc = torch.empty((M, N), dtype=x2.dtype, device=dev)
@@ -292,12 +322,19 @@ def fused_bwd_apply_cuda(x2, W, mean, inv, scale, ca, cb, dy2, y2, relu):
     dW = torch.empty((K, N), dtype=torch.float32, device=dev)
     part = (torch.empty((S, K, N), dtype=torch.float32, device=dev)
             if S > 1 else dW)
-    _launch(lib, BWD_APPLY, lib.dl4j_fused_bwd_apply, code, x2.data_ptr(),
-            W.data_ptr(), mean.data_ptr(), inv.data_ptr(), scale.data_ptr(),
-            ca.data_ptr(), cb.data_ptr(), dy2.data_ptr(), y2.data_ptr(),
-            dz.data_ptr(), dsc.data_ptr(), dx.data_ptr(), part.data_ptr(),
-            dW.data_ptr(), M, K, N, S, chunk, int(bool(relu)), dev,
-            launches=launches_per_call(BWD_APPLY, M, K, N))
+    args = (x2.data_ptr(), W.data_ptr(), mean.data_ptr(), inv.data_ptr(),
+            scale.data_ptr(), ca.data_ptr(), cb.data_ptr(), dy2.data_ptr(),
+            y2.data_ptr(), dz.data_ptr(), dsc.data_ptr(), dx.data_ptr(),
+            part.data_ptr(), dW.data_ptr(), M, K, N, S, chunk,
+            int(bool(relu)), dev)
+    launches = launches_per_call(BWD_APPLY, M, K, N, sm90)
+    if sm90:
+        _launch(lib, BWD_APPLY, lib.dl4j_fused_bwd_apply_sm90, *args,
+                launches=launches)
+        registry.count_launch(BWD_APPLY_SM90)
+    else:
+        _launch(lib, BWD_APPLY, lib.dl4j_fused_bwd_apply, code, *args,
+                launches=launches)
     return dx, dW, dsc
 
 

@@ -244,3 +244,34 @@ def test_pnorm_subsampling_is_refused_by_name():
                       TInputType.convolutional(4, 4, 2))
     with pytest.raises(NotImplementedError, match="pnorm"):
         tl.apply({}, {}, torch.zeros(1, 4, 4, 2))
+
+
+@pytest.mark.parametrize("dtype,tf32_off", [(torch.float32, True),
+                                            (torch.bfloat16, False)],
+                         ids=["f32", "bf16"])
+def test_conv2d_turns_tf32_off_for_f32_only(monkeypatch, dtype, tf32_off):
+    """An F32 convolution enters cuDNN's flags with TF32 off and every
+    other flag left as it stands (None), in its forward and again in its
+    backward; a bf16 one changes nothing."""
+    import contextlib
+    calls = []
+
+    def recorder(**kw):
+        calls.append(kw)
+        return contextlib.nullcontext()
+
+    monkeypatch.setattr(torch.backends.cudnn, "flags", recorder)
+    x = torch.ones((1, 4, 4, 2), dtype=dtype, requires_grad=True)
+    w = torch.ones((3, 3, 2, 3), dtype=dtype, requires_grad=True)
+    y = tconv.conv2d(x, w, strides=(1, 1), padding=[(1, 1), (1, 1)])
+    assert y.shape == (1, 4, 4, 3) and y.dtype == dtype
+    assert len(calls) == (1 if tf32_off else 0)
+    y.sum().backward()
+    assert x.grad.shape == x.shape and w.grad.shape == w.shape
+    if tf32_off:
+        assert len(calls) == 2
+        for kw in calls:
+            assert kw.pop("allow_tf32") is False
+            assert all(v is None for v in kw.values()), kw
+    else:
+        assert calls == []

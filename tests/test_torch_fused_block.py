@@ -276,3 +276,63 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     W = torch.zeros(64, 128)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         tfb.fused_stats_cuda(x, W, torch.zeros(128))
+
+
+def _k7_operands(case):
+    """x [M, K], W [K, N], dy and y [M, N] for one sm90 path case."""
+    M, K, N = 64, 128, 256
+    dt = torch.float32 if case == "f32" else torch.bfloat16
+    if case == "k_not_multiple_of_8":
+        K = 76
+    if case == "n_not_multiple_of_8":
+        N = 252
+
+    def make(rows, cols, misaligned):
+        if not misaligned:
+            return torch.zeros(rows, cols, dtype=dt)
+        # one element into the buffer: 2 bytes off a 16-byte boundary
+        return torch.zeros(rows * cols + 1, dtype=dt)[1:].view(rows, cols)
+
+    return (make(M, K, case == "x_misaligned"),
+            make(K, N, case == "w_misaligned"),
+            make(M, N, case == "dy_misaligned"),
+            make(M, N, case == "y_misaligned"))
+
+
+@pytest.mark.parametrize("case,want", [
+    ("bf16", True), ("f32", False), ("k_not_multiple_of_8", False),
+    ("n_not_multiple_of_8", False), ("x_misaligned", False),
+    ("w_misaligned", False), ("dy_misaligned", False),
+    ("y_misaligned", False)])
+def test_sm90_path_is_chosen_by_dtype_stride_and_alignment(case, want):
+    """K7 takes its TMA path only where TMA can read every operand: bf16,
+    rows of a multiple of 16 bytes, 16-byte-aligned bases."""
+    x, W, dy, y = _k7_operands(case)
+    assert x.is_contiguous() and dy.is_contiguous()
+    assert tfb.takes_sm90(x, W, dy, y) is want
+
+
+@pytest.mark.parametrize("M,K,N,sm90,want", [
+    (200704, 128, 512, True, 4), (200704, 128, 512, False, 4),
+    (50176, 256, 1024, True, 4), (12544, 512, 2048, True, 4),
+    (1000, 128, 512, True, 3), (1000, 128, 512, False, 3),
+    (777, 72, 200, True, 3), (37, 5, 7, False, 3)])
+def test_launches_per_call_on_both_paths(M, K, N, sm90, want):
+    """K7 makes dz, dx and dW launches and, when dW is split over M, the
+    sum of its splits, on either path; K4-K6 do not depend on it."""
+    assert tfb.launches_per_call(tfb.BWD_APPLY, M, K, N, sm90) == want
+    assert want == 3 + (tfb.dw_splits(M, K, N, sm90)[0] > 1)
+    for name, n in ((tfb.STATS, 2), (tfb.APPLY, 1), (tfb.BWD_STATS, 2)):
+        assert tfb.launches_per_call(name, M, K, N, sm90) == n
+
+
+@pytest.mark.parametrize("M,K,N", [(200704, 128, 512), (50176, 256, 1024),
+                                   (12544, 512, 2048), (1000, 128, 512),
+                                   (130, 8, 8), (1, 8, 8)])
+def test_sm90_dw_split_covers_every_row_in_whole_steps(M, K, N):
+    """On the sm90 path dW's chunks of M are whole 64-row steps (no step
+    reads the next chunk's rows) and still cover M exactly once."""
+    S, chunk = tfb.dw_splits(M, K, N, sm90=True)
+    assert S >= 1 and chunk % tfb.SM90_STEP == 0
+    assert S * chunk >= M and (S - 1) * chunk < M
+    assert S <= tfb.dw_splits(M, K, N)[0]

@@ -378,3 +378,84 @@ def test_fit_accepts_a_list_and_counts_epochs(fuse):
     net.set_lr_scale(0.5)
     with pytest.raises(ValueError, match="lr scale"):
         net.set_lr_scale(0.0)
+
+
+# ------------------------------------------------------------ truncated BPTT
+def _rnn_graph(pkg, tbptt):
+    """GravesLSTM(8) -> RnnOutput(5) over 4 features, F32, Sgd(0.1);
+    ``tbptt``: truncated BPTT of 4 steps each way, else standard."""
+    if pkg == "jax":
+        from deeplearning4j_tpu.nn.conf.core import DtypePolicy
+        from deeplearning4j_tpu.nn.conf.layers_recurrent import (
+            GravesLSTM, RnnOutput)
+        from deeplearning4j_tpu.nn.updater import Sgd
+        nnc, it = JNNC, JInputType
+    else:
+        from deeplearning4j_tpu_torch.nn.conf.core import DtypePolicy
+        from deeplearning4j_tpu_torch.nn.conf.layers_recurrent import (
+            GravesLSTM, RnnOutput)
+        from deeplearning4j_tpu_torch.nn.updater import Sgd
+        nnc, it = TNNC, TInputType
+    pol = DtypePolicy(param_dtype="float32", compute_dtype="float32")
+    g = (nnc.builder().seed(3).updater(Sgd(0.1)).dtype(pol)
+         .graph_builder().add_inputs("seq")
+         .add_layer("lstm", GravesLSTM(n_out=8, activation="tanh"), "seq")
+         .add_layer("out", RnnOutput(n_out=5, loss="mcxent",
+                                     activation="softmax"), "lstm")
+         .set_outputs("out").set_input_types(it.recurrent(4)))
+    if tbptt:
+        g = g.backprop_type("tbptt", 4, 4)
+    return g.build()
+
+
+def _rnn_pair(tmp_path, fuse, tbptt):
+    fuse(False)
+    jnet = JGraph(_rnn_graph("jax", tbptt)).init()
+    path = tmp_path / f"rnn_{tbptt}.zip"
+    jser.write_computation_graph(jnet, str(path))
+    return jnet, tser.restore_computation_graph(str(path), device="cpu")
+
+
+def _rnn_data(T):
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(3, T, 4)).astype(np.float32)
+    y = np.eye(5, dtype=np.float32)[rng.integers(0, 5, (3, T))]
+    return x, y
+
+
+def test_graph_standard_backprop_rnn_step_matches_jax(tmp_path, fuse):
+    """The twin of the tBPTT refusal below: the same graph with standard
+    backprop takes one step as the JAX package does (the same f32 LSTM
+    arithmetic over 16 steps): every parameter to 1e-8 absolute plus one
+    f32 ulp of its value, for an update that lands the parameter's own
+    rounding the other way (out.W reads one ulp at 0.5, 3e-8)."""
+    jnet, tnet = _rnn_pair(tmp_path, fuse, tbptt=False)
+    x, y = _rnn_data(16)
+    js = float(jnet.fit_batch(JMDS([x], [y])))
+    ts = float(tnet.fit_batch(TMDS([x], [y])))
+    assert abs(ts - js) <= 1e-6 * abs(js), (ts, js)
+    for ln, lp in tnet.params.items():
+        for k, t in lp.items():
+            got, want = _np(t), _np(jnet.params[ln][k])
+            tol = 1e-8 + np.spacing(np.abs(want))
+            assert (np.abs(got - want) <= tol).all(), f"param {ln}.{k}"
+
+
+def test_graph_tbptt_batch_longer_than_its_window_is_refused(tmp_path,
+                                                             fuse):
+    """The reference routes such a batch to ``_fit_tbptt``; the port has
+    no graph tBPTT yet and says so instead of running full BPTT."""
+    _, tnet = _rnn_pair(tmp_path, fuse, tbptt=True)
+    assert tnet.conf.backprop_type == "tbptt"
+    before = {ln: {k: t.clone() for k, t in lp.items()}
+              for ln, lp in tnet.params.items()}
+    with pytest.raises(NotImplementedError, match="truncated BPTT"):
+        tnet.fit_batch(TMDS(*map(lambda a: [a], _rnn_data(16))))
+    assert tnet.iteration == 0
+    for ln, lp in tnet.params.items():
+        for k, t in lp.items():
+            assert torch.equal(t, before[ln][k])
+    # a batch inside one window takes the standard step, as in the JAX
+    # package
+    assert np.isfinite(float(tnet.fit_batch(
+        TMDS(*map(lambda a: [a], _rnn_data(4))))))
