@@ -33,7 +33,20 @@ checkout of another commit to measure that commit's K7 the same way), and
 
 runs only [train_resnet]'s check of each fused tail's K6 and K7 on the
 inputs one BF16 step gives them (run it from a copy with a planted fault
-to see the check fail).
+to see the check fail), and
+
+    python3 chip_smoke.py --k6-split
+
+times K6 alone at the same three shapes, on its sm90 path and on its
+mma.sync path in the same run, each split into its GEMM launch and the
+sum of its partials.
+
+K3 (bf16) and K6 and K7 (bf16, where TMA can read their operands) run on
+Hopper kernels (TMA loads, wgmma products); the phases hold each of
+those, and the first kernels kept callable beside them, against the plain
+versions, and count the new routes' launches under their own counters
+(flash_attn_fwd_sm90, fused_block_bwd_stats_sm90,
+fused_block_bwd_apply_sm90).
 """
 
 from __future__ import annotations
@@ -177,6 +190,53 @@ def cuda_ms_per_launch(fn, reps, inner=20):
     return statistics.median(times)
 
 
+def host_ms_per_call(fn, calls=200):
+    """Milliseconds the host takes to issue one call of ``fn()``: ``calls``
+    calls with no wait on the card between them, on the host's clock, after
+    a warm-up call. Where it is at or above cuda_ms_per_launch's time, that
+    time is the host's rate of issue, not the card's."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    issued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return issued * 1e3 / calls
+
+
+def device_events(fn, reps):
+    """torch.profiler's per-kernel averages (CUDA only) over ``reps``
+    calls of ``fn()``, after a warm-up call. A profile that saw no device
+    time at all (the profiler now and then comes back empty) is taken
+    again, up to three times in all; then the run fails rather than
+    report a time of zero."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type.name == "CUDA"]
+        if sum(e.self_device_time_total for e in events) > 0:
+            return events
+    raise SmokeFailure("the profiler saw no device time in three profiles")
+
+
+def device_ms_per_call(fn, reps=20):
+    """The device time of one call of ``fn()``: the self time of every
+    kernel it launched over ``reps`` calls, from torch.profiler, over
+    ``reps``. Unlike cuda_ms_per_launch it does not count the gaps where
+    the card waits for the host to issue the next call."""
+    return sum(e.self_device_time_total
+               for e in device_events(fn, reps)) / 1e3 / reps
+
+
 def lstm_inputs(T, b, n, dtype, masked=False, nonzero_carry=False):
     """Seeded numpy draws at the model's scale, as CUDA tensors."""
     import torch
@@ -219,12 +279,14 @@ def phase_device():
           count=torch.cuda.device_count(), torch=torch.__version__,
           cuda=torch.version.cuda, built=sorted(built),
           build_s=f"{build_s:.2f}")
-    # K7's bf16 path runs on wgmma fed by TMA: the compiler must have
-    # emitted both into the library this run loads
-    sass = _build.sass_counts("fused_block", ("HGMMA", "UTMALDG"))
-    phase("sass", library="fused_block", **sass)
-    check(all(sass.values()), f"fused_block's SASS holds {sass}: no wgmma "
-          f"(HGMMA) or no TMA load (UTMALDG)")
+    # K3's bf16 route and K6's and K7's bf16 paths run on wgmma fed by
+    # TMA: the compiler must have emitted both into the libraries this run
+    # loads
+    for lib in ("flash_attn_fwd", "fused_block"):
+        sass = _build.sass_counts(lib, ("HGMMA", "UTMALDG"))
+        phase("sass", library=lib, **sass)
+        check(all(sass.values()), f"{lib}'s SASS holds {sass}: no wgmma "
+              f"(HGMMA) or no TMA load (UTMALDG)")
     return card
 
 
@@ -782,73 +844,111 @@ def flash_grads_vs_exact(q, k, v):
     return worst
 
 
+def flash_fma(q, k, v):
+    """K3's first kernel (f32 FMA, dl4j_flash_attn_fwd) on bf16 inputs,
+    called through the library directly: the port's wrapper takes the
+    sm90 kernel for bf16, and this keeps the FMA kernel's bf16
+    instantiation held and timed beside it. Not a launch of the port's
+    path, so not counted."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import attention as att
+    lib = att._bind()
+    b, T, h, dh = q.shape
+    out = torch.empty_like(q)
+    rc = lib.dl4j_flash_attn_fwd(1, q.data_ptr(), k.data_ptr(),
+                                 v.data_ptr(), out.data_ptr(), b, T, h, dh,
+                                 torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"the FMA flash kernel failed: cudaError {rc}")
+    return out
+
+
 def phase_flash_vs_plain():
     """K3 against causal_mha_dot at the served/trained shape, the JAX
-    test's shape, ragged T and b = 1, in f32 and bf16; determinism and
-    batch invariance bit for bit; FlashAttentionFn's gradients."""
+    test's shape, ragged T and b = 1, in f32 and bf16, on both kernels:
+    bf16 through the port's wrapper (the sm90 route) and through the FMA
+    kernel's bf16 instantiation, f32 through the wrapper (the FMA route);
+    determinism and batch invariance bit for bit on each; FlashAttentionFn's
+    gradients; the launch counters. Returns the sm90 route's max abs error
+    at the main shape."""
     import torch
     from deeplearning4j_tpu_torch.ops import attention as att
     from deeplearning4j_tpu_torch.ops import registry
     cases = [(32, 256, 4, 64), (2, 128, 2, 128), (4, 200, 4, 64),
              (2, 200, 2, 128), (4, 1, 4, 64), (1, 256, 4, 64)]
     main_err = None
-    n_calls = 0
+    n_calls = n_sm90 = 0
     registry.reset_launches()
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         for b, T, h, dh in cases:
             q, k, v = flash_inputs(b, T, h, dh, dtype)
             with torch.inference_mode():
-                got = att.flash_attn_fwd_cuda(q, k, v)
-                again = att.flash_attn_fwd_cuda(q, k, v)
-                n_calls += 2
-                rows = sorted({0, b // 2, b - 1})
-                alone = [att.flash_attn_fwd_cuda(
-                    q[i:i + 1].contiguous(), k[i:i + 1].contiguous(),
-                    v[i:i + 1].contiguous()) for i in rows]
-                n_calls += len(rows)
-                torch.cuda.synchronize()
                 want = att.flash_attn_fwd_torch(q, k, v)
-            check(got.dtype == want.dtype and got.shape == want.shape,
-                  f"flash_attn_fwd {got.dtype}{tuple(got.shape)} vs plain "
-                  f"{want.dtype}{tuple(want.shape)}")
-            check(torch.isfinite(got.float()).all().item(),
-                  f"flash_attn_fwd not finite ({b},{T},{h},{dh}) {dname}")
-            check(torch.equal(got, again), f"flash_attn_fwd: two identical "
-                  f"calls gave different bits ({b},{T},{h},{dh}) {dname}")
-            check(all(torch.equal(a[0], got[i]) for a, i in zip(alone, rows)),
-                  f"flash_attn_fwd: a row computed alone differs from the "
-                  f"same row in a batch of {b} ({T},{h},{dh}) {dname}")
-            d = (got.float() - want.float()).abs()
-            err = d.max().item()
-            vmax = float(v.float().abs().max())
-            if dtype == torch.float32:
-                tol = f"{FLASH_F32_TOL}+{FLASH_F32_TOL}*|want|"
-                ok = not (d > FLASH_F32_TOL * (1 + want.float().abs())).any()
-            else:
-                lim = FLASH_BF16_ULPS * 2.0 ** (math.floor(math.log2(vmax))
-                                                - 7)
-                tol = f"{lim:.3e}"
-                ok = err <= lim
-            check(bool(ok), f"flash_attn_fwd disagrees with the plain "
-                  f"version ({b},{T},{h},{dh}) {dname}: max abs err "
-                  f"{err:.3e} > {tol}")
-            fields = {}
+            routes = {att.flash_route(dtype): att.flash_attn_fwd_cuda}
             if dtype == torch.bfloat16:
-                fields["ulps_at_out_max"] = f"{ulps_off(got, want.float()):.2f}"
-            else:
-                fields["grad_err_of_tol"] = (
-                    f"{flash_grads_vs_exact(q, k, v):.2e}")
-                n_calls += 1
-            if (b, T, h, dh, dname) == (32, 256, 4, 64, "bfloat16"):
-                main_err = err
-            phase("kernel_vs_plain", kernel="flash_attn_fwd", dtype=dname,
-                  b=b, T=T, h=h, dh=dh, max_abs_err=f"{err:.3e}", tol=tol,
-                  deterministic=True, batch_invariant=True, **fields)
-    launched = registry.launches().get("flash_attn_fwd", 0)
-    check(launched == n_calls,
-          f"flash_attn_fwd launch counter read {launched} after {n_calls} "
-          f"calls")
+                routes["fma"] = flash_fma
+            for route, fn in routes.items():
+                counted = fn is att.flash_attn_fwd_cuda
+                with torch.inference_mode():
+                    got = fn(q, k, v)
+                    again = fn(q, k, v)
+                    rows = sorted({0, b // 2, b - 1})
+                    alone = [fn(q[i:i + 1].contiguous(),
+                                k[i:i + 1].contiguous(),
+                                v[i:i + 1].contiguous()) for i in rows]
+                    torch.cuda.synchronize()
+                if counted:
+                    n_calls += 2 + len(rows)
+                    n_sm90 += (2 + len(rows)) * (route == "sm90")
+                what = f"flash_attn_fwd ({route}) ({b},{T},{h},{dh}) {dname}"
+                check(got.dtype == want.dtype and got.shape == want.shape,
+                      f"{what}: {got.dtype}{tuple(got.shape)} vs plain "
+                      f"{want.dtype}{tuple(want.shape)}")
+                check(torch.isfinite(got.float()).all().item(),
+                      f"{what}: not finite")
+                check(torch.equal(got, again),
+                      f"{what}: two identical calls gave different bits")
+                check(all(torch.equal(a[0], got[i])
+                          for a, i in zip(alone, rows)),
+                      f"{what}: a row computed alone differs from the same "
+                      f"row in a batch of {b}")
+                d = (got.float() - want.float()).abs()
+                err = d.max().item()
+                vmax = float(v.float().abs().max())
+                if dtype == torch.float32:
+                    tol = f"{FLASH_F32_TOL}+{FLASH_F32_TOL}*|want|"
+                    ok = not (d > FLASH_F32_TOL
+                              * (1 + want.float().abs())).any()
+                else:
+                    lim = FLASH_BF16_ULPS * 2.0 ** (
+                        math.floor(math.log2(vmax)) - 7)
+                    tol = f"{lim:.3e}"
+                    ok = err <= lim
+                check(bool(ok), f"{what} disagrees with the plain version: "
+                      f"max abs err {err:.3e} > {tol}")
+                fields = {}
+                if dtype == torch.bfloat16:
+                    fields["ulps_at_out_max"] = (
+                        f"{ulps_off(got, want.float()):.2f}")
+                else:
+                    fields["grad_err_of_tol"] = (
+                        f"{flash_grads_vs_exact(q, k, v):.2e}")
+                    n_calls += 1
+                if (b, T, h, dh, dname, route) == (32, 256, 4, 64,
+                                                   "bfloat16", "sm90"):
+                    main_err = err
+                phase("kernel_vs_plain", kernel="flash_attn_fwd",
+                      route=route, dtype=dname, b=b, T=T, h=h, dh=dh,
+                      max_abs_err=f"{err:.3e}", tol=tol, deterministic=True,
+                      batch_invariant=True, **fields)
+    launched = registry.launches()
+    check(launched.get(att.KERNEL, 0) == n_calls,
+          f"flash_attn_fwd launch counter read "
+          f"{launched.get(att.KERNEL, 0)} after {n_calls} calls")
+    check(launched.get(att.KERNEL_SM90, 0) == n_sm90,
+          f"flash_attn_fwd_sm90 launch counter read "
+          f"{launched.get(att.KERNEL_SM90, 0)} after {n_sm90} bf16 calls")
+    check(main_err is not None, "the sm90 route never ran the main shape")
     return main_err
 
 
@@ -903,7 +1003,8 @@ def phase_serve_gpt():
         check(not any(t.is_alive() for t in threads), "a client hung")
         check(not errors, "; ".join(errors))
         torch.cuda.synchronize()
-        launches = registry.launches().get("flash_attn_fwd", 0)
+        launches = registry.launches().get(att.KERNEL, 0)
+        sm90_launches = registry.launches().get(att.KERNEL_SM90, 0)
         status, metrics = get_json(srv.url + "/metrics")
         check(status == 200, f"/metrics answered {status}")
     finally:
@@ -912,6 +1013,9 @@ def phase_serve_gpt():
     check(launches == 4 * forwards,
           f"the served path launched flash_attn_fwd {launches} times in "
           f"{forwards} forwards, expected 4 per forward")
+    check(sm90_launches == launches,
+          f"the served path (bf16) launched {launches} flash_attn_fwd, "
+          f"{sm90_launches} of them on the sm90 route")
 
     rows = sum(x.shape[0] for reqs in requests for x in reqs)
     bit_equal, max_err = True, 0.0
@@ -972,6 +1076,7 @@ def phase_serve_gpt():
           batch_hist=json.dumps(metrics["batch_size_hist"]),
           device_ms_by_bucket=json.dumps(metrics["device_ms_by_bucket"]),
           warmup_s=f"{srv.warmup_s:.2f}", flash_attn_fwd_launches=launches,
+          flash_attn_fwd_sm90_launches=sm90_launches,
           launches_per_forward=f"{launches / forwards:g}",
           rows_bit_equal_alone=bit_equal,
           max_abs_err_vs_alone=f"{max_err:.3e}",
@@ -981,7 +1086,7 @@ def phase_serve_gpt():
           stream_card_vs_cpu=f"{stream_diff:.4f}",
           stream_card_vs_cpu_ulps=f"{ulps_off(stream_card, stream_cpu):.2f}",
           cpu_dot_vs_exact=f"{forms_diff:.3e}", cpu_check_s=f"{cpu_s:.2f}")
-    return net, launches
+    return net, {att.KERNEL: launches, att.KERNEL_SM90: sm90_launches}
 
 
 def gpt_grads_vs_cpu(net, x, y, dtype):
@@ -1116,9 +1221,10 @@ def phase_train_gpt():
     last5 = statistics.mean(scores[-5:])
     check(last5 < scores[0], f"gpt training did not lower the score: first "
           f"{scores[0]:.4f}, mean of last 5 {last5:.4f}")
-    check(launches.get("flash_attn_fwd", 0) == 4 * steps,
-          f"flash_attn_fwd launched {launches.get('flash_attn_fwd', 0)} "
-          f"times in {steps} train steps, expected {4 * steps}")
+    for kern in ("flash_attn_fwd", "flash_attn_fwd_sm90"):
+        check(launches.get(kern, 0) == 4 * steps,
+              f"{kern} launched {launches.get(kern, 0)} times in {steps} "
+              f"train steps (bf16), expected {4 * steps}")
     med = statistics.median(step_ms[-20:])
     prof = profile_steps(net, data[:3])
     phase("train_gpt", model="gpt_mini(vocab=80,width=256,blocks=4,heads=4,"
@@ -1140,26 +1246,53 @@ def phase_train_gpt():
 
 
 def phase_times_flash(card, gnet, errs, launches, gtrain):
-    """K3 at the served/trained shape beside its bound, its plain version
-    and scaled_dot_product_attention (the yardstick only; the port never
-    calls it)."""
+    """K3 at the served/trained shape beside its bound, its plain version,
+    its first kernel (the FMA kernel's bf16 instantiation) and
+    scaled_dot_product_attention (the yardstick only; the port never
+    calls it). The two kernels are timed in turns: FMA, sm90, sm90,
+    FMA."""
     import torch
     import torch.nn.functional as F
     from deeplearning4j_tpu_torch.ops import attention as att
     b, T, h, dh = 32, 256, 4, 64
     q, k, v = flash_inputs(b, T, h, dh, torch.bfloat16)
     with torch.inference_mode():
-        ms = cuda_ms_per_launch(lambda: att.flash_attn_fwd_cuda(q, k, v),
-                                reps=10)
-        one_ms = cuda_ms(lambda: att.flash_attn_fwd_cuda(q, k, v), reps=50)
+        sm90 = lambda: att.flash_attn_fwd_cuda(q, k, v)  # noqa: E731
+        fma = lambda: flash_fma(q, k, v)  # noqa: E731
+        fma_ms = [cuda_ms_per_launch(fma, reps=10)]
+        sm90_ms = [cuda_ms_per_launch(sm90, reps=10) for _ in range(2)]
+        fma_ms.append(cuda_ms_per_launch(fma, reps=10))
+        ms, old_ms = statistics.mean(sm90_ms), statistics.mean(fma_ms)
+        one_ms = cuda_ms(sm90, reps=50)
+        # back to back, a call of ~0.01 ms on the card is issued more slowly
+        # than the card runs it: the host's time to issue one call (the
+        # wrapper, the entry point straight through ctypes into a
+        # preallocated output, SDPA) says how much of each back-to-back
+        # time is the host's, and the profiler's device time, taken in
+        # turns with SDPA's (sm90, SDPA, three times), is the kernel's
+        lib, out = att._bind(), torch.empty_like(q)
+        ptrs = [x.data_ptr() for x in (q, k, v, out)]
+        stream = torch.cuda.current_stream().cuda_stream
+        entry = lambda: lib.dl4j_flash_attn_fwd_sm90(  # noqa: E731
+            *ptrs, b, T, h, dh, stream)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True)
+        c_ms = cuda_ms_per_launch(entry, reps=10)
         plain_ms = cuda_ms_per_launch(
             lambda: att.flash_attn_fwd_torch(q, k, v), reps=10)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        lib_ms = cuda_ms_per_launch(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), reps=10)
-        lib_err = float((F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True).transpose(1, 2).float()
-            - att.flash_attn_fwd_cuda(q, k, v).float()).abs().max())
+        lib_ms = cuda_ms_per_launch(sdpa, reps=10)
+        host_ms = {name: host_ms_per_call(fn) for name, fn in
+                   (("sm90", sm90), ("entry_point", entry), ("sdpa", sdpa))}
+        dev_readings, dev_lib_readings = [], []
+        for _ in range(3):
+            dev_readings.append(device_ms_per_call(sm90, reps=100))
+            dev_lib_readings.append(device_ms_per_call(sdpa, reps=100))
+        dev_ms = statistics.median(dev_readings)
+        dev_lib_ms = statistics.median(dev_lib_readings)
+        dev_fma_ms = device_ms_per_call(fma, reps=100)
+        lib_err = float((sdpa().transpose(1, 2).float()
+            - sm90().float()).abs().max())
     # least work: q, k, v read once and out written once (bf16); the
     # causal products q.k and p.v over the b*h*T*(T+1)/2 visible pairs
     # (the softmax's ~5 ops per pair are under 2% of it)
@@ -1173,9 +1306,22 @@ def phase_times_flash(card, gnet, errs, launches, gtrain):
         x = torch.from_numpy(np.eye(80, dtype=np.float32)[
             rng.integers(0, 80, (rows, T))]).cuda()
         forward_ms[rows] = cuda_ms(lambda: gnet.output(x), reps=20)
-    phase("times", kernel="flash_attn_fwd", b=b, T=T, h=h, dh=dh,
-          dtype="bfloat16", card=json.dumps(card), ms=f"{ms:.4f}",
+    phase("times", kernel="flash_attn_fwd", route="sm90", b=b, T=T, h=h,
+          dh=dh, dtype="bfloat16", card=json.dumps(card), ms=f"{ms:.4f}",
+          ms_readings=json.dumps([round(t, 5) for t in sm90_ms]),
+          fma_bf16_ms=f"{old_ms:.4f}",
+          fma_bf16_ms_readings=json.dumps([round(t, 5) for t in fma_ms]),
           ms_one_call_with_host=f"{one_ms:.4f}",
+          device_ms=f"{dev_ms:.4f}",
+          device_ms_readings=json.dumps([round(t, 5) for t in dev_readings]),
+          fma_bf16_device_ms=f"{dev_fma_ms:.4f}",
+          entry_point_ms=f"{c_ms:.4f}",
+          library_device_ms=f"{dev_lib_ms:.4f}",
+          library_device_ms_readings=json.dumps(
+              [round(t, 5) for t in dev_lib_readings]),
+          host_issue_ms=json.dumps({k: round(t, 5)
+                                    for k, t in host_ms.items()}),
+          device_roofline_share=f"{bound_ms / dev_ms:.4f}",
           plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}",
           library="torch.nn.functional.scaled_dot_product_attention"
                   "(is_causal=True)",
@@ -1183,16 +1329,25 @@ def phase_times_flash(card, gnet, errs, launches, gtrain):
           bound_ms=f"{bound_ms:.5f}", bound_by=bound_by,
           flops=f"{flops:.4g}", bytes=f"{nbytes:.4g}",
           roofline_share=f"{bound_ms / ms:.4f}",
+          fma_roofline_share=f"{bound_ms / old_ms:.4f}",
           gpt_forward_ms_b1=f"{forward_ms[1]:.4f}",
           gpt_forward_ms_b32=f"{forward_ms[32]:.4f}",
           gpt_train_step_ms=f"{gtrain['step_ms']:.4f}")
     return [{"name": "flash_attn_fwd", "route": "cuda",
              "source": "deeplearning4j_tpu_torch/ops/csrc/flash_attn_fwd.cu",
              "replaces": "deeplearning4j_tpu/ops/attention.py:197",
-             "launches": launches["serve_gpt"]["flash_attn_fwd"],
-             "launches_by_path": {p: v.get("flash_attn_fwd", 0)
+             "launches": launches["serve_gpt"][att.KERNEL],
+             "launches_by_path": {p: v.get(att.KERNEL, 0)
                                   for p, v in launches.items()},
+             "launches_sm90_by_path": {p: v.get(att.KERNEL_SM90, 0)
+                                       for p, v in launches.items()},
+             "path": "bf16: sm90 (TMA loads, wgmma, P from registers); "
+                     "f32: FMA",
              "max_abs_err": errs["flash_attn_fwd"], "ms": ms,
+             "fma_bf16_ms": old_ms, "device_ms": dev_ms,
+             "fma_bf16_device_ms": dev_fma_ms,
+             "library_device_ms": dev_lib_ms,
+             "host_issue_ms": host_ms,
              "plain_ms": plain_ms, "bound_ms": bound_ms,
              "bound_by": bound_by, "library_ms": lib_ms}]
 
@@ -1467,9 +1622,10 @@ def sum_limits(t, p, relu):
             for nm, (mag, flip, fault) in out.items()}
 
 
-def k7_path(x, W, dy, y):
-    """The path K7 takes on these operands: "sm90" (TMA + wgmma, bf16 with
-    rows TMA can read), "mma.sync" (other bf16) or "fma" (f32)."""
+def tail_path(x, W, dy, y):
+    """The path K6 and K7 take on these operands: "sm90" (TMA + wgmma,
+    bf16 with rows TMA can read), "mma.sync" (other bf16) or "fma"
+    (f32)."""
     import torch
     from deeplearning4j_tpu_torch.ops import fused_block as fb
     if fb.takes_sm90(x, W, dy, y):
@@ -1481,9 +1637,10 @@ def phase_fused_vs_plain():
     """K4-K7 against their plain versions at ResNet-50's s1, s2 and s3
     tail shapes (bf16), at ragged shapes in f32 and bf16, relu on and off;
     two calls bit-equal; FusedTailFn's gradients vs autograd of the
-    composed f32 reference. K7 takes its sm90 path on every bf16 case whose
-    rows TMA can read (K and N multiples of 8) and its mma.sync path on
-    37 x 5 x 7. Returns each kernel's max abs error at s1 (bf16)."""
+    composed f32 reference. K6 and K7 take their sm90 paths on every bf16
+    case whose rows TMA can read (K and N multiples of 8) and their
+    mma.sync paths on 37 x 5 x 7, each sm90 call counted once more under
+    its own counter. Returns each kernel's max abs error at s1 (bf16)."""
     import torch
     from deeplearning4j_tpu_torch.ops import fused_block as fb
     from deeplearning4j_tpu_torch.ops import registry
@@ -1496,17 +1653,19 @@ def phase_fused_vs_plain():
              (37, 5, 7, f32, True), (37, 5, 7, bf, True)]
     kernels = (fb.STATS, fb.APPLY, fb.BWD_STATS, fb.BWD_APPLY)
     main_err = {}
-    expected = dict.fromkeys(kernels + (fb.BWD_APPLY_SM90,), 0)
+    sm90_counter = {fb.BWD_STATS: fb.BWD_STATS_SM90,
+                    fb.BWD_APPLY: fb.BWD_APPLY_SM90}
+    expected = dict.fromkeys(kernels + tuple(sm90_counter.values()), 0)
     registry.reset_launches()
     for M, K, N, dtype, relu in cases:
         dname = str(dtype).split(".")[-1]
         t = tail_inputs(M, K, N, dtype)
         p = tail_plain(t, relu)
         limits = sum_limits(t, p, relu)
-        path = k7_path(t["x"], t["W"], t["dy"], p["y"])
+        path = tail_path(t["x"], t["W"], t["dy"], p["y"])
         want_path = ("fma" if dtype == f32 else "sm90"
                      if K % 8 == 0 and N % 8 == 0 else "mma.sync")
-        check(path == want_path, f"K7 ({M},{K},{N}) {dname} takes the "
+        check(path == want_path, f"K6/K7 ({M},{K},{N}) {dname} take the "
               f"{path} path, expected {want_path}")
         sm90 = path == "sm90"
         sum_ratio, fault_ratio = 0.0, math.inf
@@ -1530,8 +1689,8 @@ def phase_fused_vs_plain():
                 again = cuda_fn(*a)
                 expected[kern] += 2 * fb.launches_per_call(kern, M, K, N,
                                                            sm90)
-                if kern == fb.BWD_APPLY and sm90:
-                    expected[fb.BWD_APPLY_SM90] += 2
+                if kern in sm90_counter and sm90:
+                    expected[sm90_counter[kern]] += 2
                 torch.cuda.synchronize()
                 want = registry.get(kern, "cpu")(*a)
                 got = got if isinstance(got, tuple) else (got,)
@@ -1571,7 +1730,7 @@ def phase_fused_vs_plain():
             for kern in kernels:
                 expected[kern] += fb.launches_per_call(kern, M, K, N)
         phase("kernel_vs_plain", kernel="fused_block", dtype=dname, M=M, K=K,
-              N=N, relu=relu, k7_path=path, deterministic=True,
+              N=N, relu=relu, k6_k7_path=path, deterministic=True,
               max_abs_err=json.dumps({k: float(f"{v:.3e}")
                                       for k, v in errs.items()}),
               sums_worst_err_over_limit=f"{sum_ratio:.3e}",
@@ -1729,12 +1888,14 @@ def resnet_profile(net, data):
     n = len(data)
     total = sum(e.self_device_time_total for e in kernels)
     check(total > 0, "the profiler saw no device time")
-    # bwd_stats_kernel before stats_kernel: the first name found wins
-    fused_names = {"bwd_stats_kernel": "K6", "stats_kernel": "K4",
+    # bwd_stats_kernel before stats_kernel, and K6's sm90 epilogue before
+    # the mainloop's name: the first name found wins
+    fused_names = {"BwdStatsEpi": "K6",
+                   "bwd_stats_kernel": "K6", "stats_kernel": "K4",
                    "apply_kernel": "K5", "dz_kernel": "K7",
                    "gemm_kernel": "K7", "tma_wgmma_gemm": "K7",
                    "sum_splits": "K7",
-                   "sum_partials2": "K4/K6 partial sums"}
+                   "sum_partials": "K4/K6 partial sums"}
     groups, fused, seen = {}, {}, {}
     for e in kernels:
         name = e.key.lower()
@@ -1812,8 +1973,8 @@ def timed_steps(net, data, steps):
 def resnet_step_launches(b, sm90):
     """Device launches of K4-K7 that one ResNet-50 train step at batch
     ``b`` (224 x 224) makes: each of the 13 tails calls each kernel once;
-    with ``sm90`` (BF16: every tail's rows TMA can read), each K7 call on
-    the sm90 path, also counted as such."""
+    with ``sm90`` (BF16: every tail's rows TMA can read), each K6 and K7
+    call on its sm90 path, also counted as such."""
     from deeplearning4j_tpu_torch.ops import fused_block as fb
     out = {}
     for stage, M, K, N in RESNET_TAILS:
@@ -1821,6 +1982,7 @@ def resnet_step_launches(b, sm90):
             out[kern] = out.get(kern, 0) + RESNET_TAIL_COUNT[stage] * (
                 fb.launches_per_call(kern, M * b // 256, K, N, sm90))
     if sm90:
+        out[fb.BWD_STATS_SM90] = sum(RESNET_TAIL_COUNT.values())
         out[fb.BWD_APPLY_SM90] = sum(RESNET_TAIL_COUNT.values())
     return out
 
@@ -1871,8 +2033,8 @@ def hold_tail_on_its_inputs(a6, a7):
     their plain versions on the card at fused_vs_plain's limits (the sums
     over M by sum_limits, which also shows that a dropped m-tile or dW
     split would fail; dx and dshortcut two bf16 ulps at their max).
-    Returns (K7's path, the worst error over its limit, a message for
-    each output that failed)."""
+    Returns (K6's and K7's path, the worst error over its limit, a
+    message for each output that failed)."""
     import torch
     from deeplearning4j_tpu_torch.ops import fused_block as fb
     from deeplearning4j_tpu_torch.ops import registry
@@ -1906,7 +2068,7 @@ def hold_tail_on_its_inputs(a6, a7):
                                   f"path's inputs disagrees with the plain "
                                   f"version: {err:.3e} > {lim:.3e}")
                 worst_ratio = max(worst_ratio, err / lim if lim else 0.0)
-    return k7_path(x, W, dy, y), worst_ratio, failed
+    return tail_path(x, W, dy, y), worst_ratio, failed
 
 
 
@@ -2038,8 +2200,8 @@ def phase_train_resnet():
     failed = [m for _, _, msgs in held for m in msgs]
     check(not failed, "; ".join(failed))
     paths = [path for path, _, _ in held]
-    check(paths == ["sm90"] * tails, f"K7's paths on the main path's "
-          f"tails: {paths}")
+    check(paths == ["sm90"] * tails, f"K6's and K7's paths on the main "
+          f"path's tails: {paths}")
     out["tails_k6_k7_vs_plain_worst_err_over_limit"] = (
         f"{max(r for _, r, _ in held):.3e}")
     out["tails_k6_k7_vs_plain_by_tail"] = json.dumps(
@@ -2064,7 +2226,7 @@ def phase_train_resnet():
     runs = {"fused": timed_steps(net, data, steps)}
     runs["unfused"] = timed_steps(unfused, data, steps)
     per_step = resnet_step_launches(b, True)
-    for kern in kernels + (fb.BWD_APPLY_SM90,):
+    for kern in kernels + (fb.BWD_STATS_SM90, fb.BWD_APPLY_SM90):
         got = runs["fused"]["launches"].get(kern, 0)
         check(got == per_step[kern] * steps, f"{kern} launched {got} times "
               f"in {steps} fused steps, expected {per_step[kern] * steps}")
@@ -2089,6 +2251,8 @@ def phase_train_resnet():
     out["calls_per_step"] = json.dumps(
         {k: runs["fused"]["launches"].get(k, 0) * tails // per_step[k] // steps
          for k in kernels})
+    out["k6_sm90_calls_per_step"] = (
+        runs["fused"]["launches"].get(fb.BWD_STATS_SM90, 0) // steps)
     out["k7_sm90_calls_per_step"] = (
         runs["fused"]["launches"].get(fb.BWD_APPLY_SM90, 0) // steps)
 
@@ -2148,29 +2312,47 @@ def fused_bound(kern, M, K, N):
 # the first match wins
 K7_PASSES = (("dz", ("DzEpi", "dz_kernel")), ("dx", ("DxEpi", "true, false")),
              ("dW", ("DwEpi", "false, true")), ("sum", ("sum_splits",)))
+# K6's launches: the GEMM with its column sums (sm90: the BwdStatsEpi
+# epilogue; mma.sync: bwd_stats_kernel) and the sum of its partials
+K6_PASSES = (("gemm", ("BwdStatsEpi", "bwd_stats_kernel")),
+             ("sum", ("sum_partials",)))
+# K4's launches: the tiles' pass with its column sums and the same sum
+K4_PASSES = (("tiles", ("stats_kernel",)), ("sum", ("sum_partials",)))
 
 
-def k7_split(fn, reps=10):
-    """K7's device ms a call by pass (dz, dx, dW, sum of the dW splits)
-    over ``reps`` calls of ``fn``, from torch.profiler, with the kernels
-    it could not place under "other"."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {name: 0.0 for name, _ in K7_PASSES}
+def pass_split(fn, passes=K7_PASSES, reps=10):
+    """A kernel's device ms a call by pass (K7: dz, dx, dW, sum of the dW
+    splits; K6: gemm, sum) over ``reps`` calls of ``fn``, from
+    torch.profiler, with the kernels it could not place under "other"."""
+    out = {name: 0.0 for name, _ in passes}
     out["other"] = 0.0
-    for e in prof.key_averages():
-        if e.device_type.name != "CUDA":
-            continue
-        tag = next((name for name, keys in K7_PASSES
+    for e in device_events(fn, reps):
+        tag = next((name for name, keys in passes
                     if any(k in e.key for k in keys)), "other")
         out[tag] += e.self_device_time_total / 1e3 / reps
     return out
+
+
+def k6_mma_sync(x, W, mean, inv, dy, y, relu):
+    """A call of K6's first bf16 path (mma.sync, dl4j_fused_bwd_stats) on
+    the same inputs, for timing it beside the sm90 path in the same run:
+    returns a function that launches it into preallocated outputs."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import fused_block as fb
+    lib = fb._bind()
+    M, K = x.shape
+    N = W.shape[1]
+    R = fb.stat_rows(M, N)
+    part = torch.empty((2, R, N), dtype=torch.float32, device=x.device)
+    out = torch.empty((2, N), dtype=torch.float32, device=x.device)
+    ptrs = [t.data_ptr() for t in (x, W, mean, inv, dy, y, part, out)]
+
+    def call():
+        rc = lib.dl4j_fused_bwd_stats(
+            1, *ptrs, M, K, N, R, int(relu),
+            torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"mma.sync K6 failed: cudaError {rc}")
+    return call
 
 
 def k7_mma_sync(x, W, mean, inv, scale, ca, cb, dy, y, relu):
@@ -2202,9 +2384,9 @@ def phase_times_fused(card, errs, rtrain):
     """K4-K7 at each ResNet-50 stage shape (bf16): 20 launches back to
     back, the plain version, the bound, and torch.matmul of the same
     [M, K] x [K, N] product as a yardstick (no single PyTorch call
-    computes these functions). K7 (on its sm90 path) also beside its
-    mma.sync path on the same inputs, each with its split by pass from
-    the profiler."""
+    computes these functions). K6 and K7 (on their sm90 paths) also
+    beside their mma.sync paths on the same inputs, each with its split
+    by pass from the profiler."""
     import torch
     from deeplearning4j_tpu_torch.ops import fused_block as fb
     from deeplearning4j_tpu_torch.ops import registry
@@ -2235,16 +2417,20 @@ def phase_times_fused(card, errs, rtrain):
                                            bound_ms=bound_ms,
                                            bound_by=bound_by)
                 extra = {}
-                if kern == fb.BWD_APPLY:
-                    old = k7_mma_sync(*a)
+                if kern in (fb.BWD_STATS, fb.BWD_APPLY):
+                    k6 = kern == fb.BWD_STATS
+                    old = k6_mma_sync(*a) if k6 else k7_mma_sync(*a)
+                    passes = K6_PASSES if k6 else K7_PASSES
                     old_ms = cuda_ms_per_launch(old, reps=5)
-                    split = k7_split(lambda: cuda_fn(*a))
-                    old_split = k7_split(old)
+                    split = pass_split(lambda: cuda_fn(*a), passes)
+                    old_split = pass_split(old, passes)
                     rows[(kern, stage)].update(
                         mma_sync_ms=old_ms, split_ms=split,
-                        path=k7_path(t["x"], t["W"], t["dy"], p["y"]))
+                        path=tail_path(t["x"], t["W"], t["dy"], p["y"]))
                     extra = dict(
-                        k7_path=rows[(kern, stage)]["path"],
+                        path=rows[(kern, stage)]["path"],
+                        device_ms=f"{sum(split.values()):.4f}",
+                        mma_sync_device_ms=f"{sum(old_split.values()):.4f}",
                         split_ms=json.dumps(
                             {k: round(v, 4) for k, v in split.items()}),
                         mma_sync_ms=f"{old_ms:.4f}",
@@ -2284,13 +2470,15 @@ def phase_times_fused(card, errs, rtrain):
                     "shape": "s1 (M=200704, K=128, N=512, bf16)",
                     "by_stage_ms": {st: rows[(kern, st)]["ms"]
                                     for st, _, _, _ in RESNET_TAILS}})
-    k7 = out[-1]
-    k7["path"] = "sm90: TMA ring feeding wgmma (csrc/sm90_gemm.cuh)"
-    k7["by_stage_split_ms"] = {st: rows[(fb.BWD_APPLY, st)]["split_ms"]
-                               for st, _, _, _ in RESNET_TAILS}
-    k7["by_stage_mma_sync_ms"] = {
-        st: rows[(fb.BWD_APPLY, st)]["mma_sync_ms"]
-        for st, _, _, _ in RESNET_TAILS}
+    for entry, kern, counter in ((out[2], fb.BWD_STATS, fb.BWD_STATS_SM90),
+                                 (out[3], fb.BWD_APPLY, fb.BWD_APPLY_SM90)):
+        entry["path"] = "sm90: TMA ring feeding wgmma (csrc/sm90_gemm.cuh)"
+        entry["calls_on_sm90_path"] = rtrain["launches"].get(counter, 0)
+        entry["by_stage_split_ms"] = {st: rows[(kern, st)]["split_ms"]
+                                      for st, _, _, _ in RESNET_TAILS}
+        entry["by_stage_mma_sync_ms"] = {
+            st: rows[(kern, st)]["mma_sync_ms"]
+            for st, _, _, _ in RESNET_TAILS}
     return out
 
 
@@ -2311,38 +2499,63 @@ def phase_tail_check():
     for i, (a6, a7) in enumerate(tails_in):
         path, ratio, msgs = hold_tail_on_its_inputs(a6, a7)
         M, K = a6[0].shape
-        phase("tail_check", tail=i, M=M, K=K, N=a6[1].shape[1], k7_path=path,
+        phase("tail_check", tail=i, M=M, K=K, N=a6[1].shape[1],
+              k6_k7_path=path,
               worst_err_over_limit=f"{ratio:.3e}", failed=len(msgs))
         failed += msgs
     check(len(tails_in) == 13, f"captured {len(tails_in)} tails, expected 13")
     check(not failed, "; ".join(failed))
 
 
-def phase_k7_split():
-    """K7 alone at ResNet-50's three tail shapes (bf16, relu): ms a call
-    over 20 back-to-back launches and the profiler's split by pass, for
-    whatever K7 the package beside this script has. ``python3
-    chip_smoke.py --k7-split`` runs only this; run from a checkout of
-    another commit it measures that commit's K7 with the same code."""
+def phase_split(kern):
+    """K7 (or K6) alone at ResNet-50's three tail shapes (bf16, relu): ms a
+    call over 20 back-to-back launches and the profiler's split by pass,
+    for whatever kernel the package beside this script has; for K6 also
+    its mma.sync path and K4 (whose partials the same kernel sums) in the
+    same run. ``python3 chip_smoke.py --k7-split`` (``--k6-split``) runs
+    only this; run from a checkout of another commit it measures that
+    commit's kernel with the same code."""
     import torch
     from deeplearning4j_tpu_torch.ops import _build
     from deeplearning4j_tpu_torch.ops import fused_block as fb
     from deeplearning4j_tpu_torch.ops import registry
     _build.build(("fused_block",))
-    fn = registry.get(fb.BWD_APPLY, "cuda")
+    k6 = kern == fb.BWD_STATS
+    fn = registry.get(kern, "cuda")
+    passes = K6_PASSES if k6 else K7_PASSES
     for stage, M, K, N in RESNET_TAILS:
         t = tail_inputs(M, K, N, torch.bfloat16, seed=1)
         p = tail_plain(t, True)
-        a = (t["x"], t["W"], p["mean"], p["inv"], p["scale"], p["ca"],
-             p["cb"], t["dy"], p["y"], True)
-        path = (k7_path(t["x"], t["W"], t["dy"], p["y"])
+        if k6:
+            a = (t["x"], t["W"], p["mean"], p["inv"], t["dy"], p["y"], True)
+        else:
+            a = (t["x"], t["W"], p["mean"], p["inv"], p["scale"], p["ca"],
+                 p["cb"], t["dy"], p["y"], True)
+        path = (tail_path(t["x"], t["W"], t["dy"], p["y"])
                 if hasattr(fb, "takes_sm90") else "mma.sync")
+        if k6 and not hasattr(fb, "BWD_STATS_SM90"):
+            path = "mma.sync"
+        extra = {}
         with torch.no_grad():
             ms = cuda_ms_per_launch(lambda: fn(*a), reps=5)
-            split = k7_split(lambda: fn(*a))
-        phase("k7_split", stage=stage, M=M, K=K, N=N, path=path,
-              ms=f"{ms:.4f}",
-              split_ms=json.dumps({k: round(v, 4) for k, v in split.items()}))
+            split = pass_split(lambda: fn(*a), passes)
+            if k6:
+                old = k6_mma_sync(*a)
+                k4 = registry.get(fb.STATS, "cuda")
+                a4 = (t["x"], t["W"], t["shift"])
+                extra = dict(
+                    mma_sync_ms=f"{cuda_ms_per_launch(old, reps=5):.4f}",
+                    mma_sync_split_ms=json.dumps(
+                        {k: round(v, 4)
+                         for k, v in pass_split(old, passes).items()}),
+                    k4_ms=f"{cuda_ms_per_launch(lambda: k4(*a4), reps=5):.4f}",
+                    k4_split_ms=json.dumps(
+                        {k: round(v, 4) for k, v in pass_split(
+                            lambda: k4(*a4), K4_PASSES).items()}))
+        phase("k6_split" if k6 else "k7_split", stage=stage, M=M, K=K, N=N,
+              path=path, ms=f"{ms:.4f}",
+              split_ms=json.dumps({k: round(v, 4) for k, v in split.items()}),
+              **extra)
         del t, p, a
         torch.cuda.empty_cache()
 
@@ -2365,14 +2578,17 @@ def main() -> int:
     ok_line = json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})
-    if "--k7-split" in sys.argv[1:]:
-        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True,
-                             text=True, timeout=60)
-        print(smi.stdout.strip(), flush=True)
-        phase_k7_split()
-        print(ok_line, flush=True)
-        return 0
+    for flag, kern in (("--k7-split", "fused_block_bwd_apply"),
+                       ("--k6-split", "fused_block_bwd_stats")):
+        if flag in sys.argv[1:]:
+            smi = subprocess.run(["nvidia-smi",
+                                  "--query-gpu=name,power.limit",
+                                  "--format=csv,noheader"],
+                                 capture_output=True, text=True, timeout=60)
+            print(smi.stdout.strip(), flush=True)
+            phase_split(kern)
+            print(ok_line, flush=True)
+            return 0
     if "--tail-check" in sys.argv[1:]:
         phase_device()
         phase_tail_check()
@@ -2391,7 +2607,7 @@ def main() -> int:
                 "train": train["launches"], "tbptt": phase_tbptt()}
     gnet, gserve_launches = phase_serve_gpt()
     gtrain = phase_train_gpt()
-    launches["serve_gpt"] = {"flash_attn_fwd": gserve_launches}
+    launches["serve_gpt"] = gserve_launches
     launches["train_gpt"] = gtrain["launches"]
     rtrain = phase_train_resnet()
     kernels = phase_times(card, net, errs, launches, train)

@@ -21,7 +21,12 @@ softmax run in f32 whatever the compute dtype; masked positions get
   covers (q_start == 0, tq == tk, dh 64 or 128, bf16 or f32) and raises
   ``NotImplementedError`` for anything else; with grad on it goes through
   ``FlashAttentionFn``, whose backward recomputes through
-  ``causal_mha_dot`` by autograd, as ``_flash_vjp_bwd`` does.
+  ``causal_mha_dot`` by autograd, as ``_flash_vjp_bwd`` does. The dtype
+  picks the kernel (``flash_route``): bf16 runs the Hopper kernel (TMA
+  loads, wgmma products; each launch also counted under
+  ``flash_attn_fwd_sm90``), f32 the f32-FMA kernel (the tensor cores' f32
+  path, TF32, would round the inputs). A failure raises, naming the
+  route; nothing falls back.
 - ``extend_cache``: the streaming KV-cache write, with
   ``lax.dynamic_update_slice``'s clamp of the start.
 
@@ -39,6 +44,7 @@ import torch
 from deeplearning4j_tpu_torch.ops import registry
 
 KERNEL = "flash_attn_fwd"
+KERNEL_SM90 = "flash_attn_fwd_sm90"  # launches on the bf16 (sm90) route
 # the head sizes K3 is compiled for
 KERNEL_HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -214,18 +220,34 @@ def _bind():
     lib.dl4j_flash_attn_fwd.restype = i32
     lib.dl4j_flash_attn_fwd_smem_bytes.argtypes = [i32, i32]
     lib.dl4j_flash_attn_fwd_smem_bytes.restype = i32
+    lib.dl4j_flash_attn_fwd_sm90.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+    lib.dl4j_flash_attn_fwd_sm90.restype = i32
+    lib.dl4j_flash_attn_fwd_sm90_smem_bytes.argtypes = [i32]
+    lib.dl4j_flash_attn_fwd_sm90_smem_bytes.restype = i32
     lib.dl4j_cuda_error_string.argtypes = [i32]
     lib.dl4j_cuda_error_string.restype = ctypes.c_char_p
     lib._dl4j_bound = True
     return lib
 
 
+def flash_route(dtype):
+    """The kernel K3 runs for inputs of ``dtype``: "sm90" (bf16: TMA and
+    wgmma) or "fma" (f32: f32 FMA). Raises for any other dtype."""
+    if dtype == torch.bfloat16:
+        return "sm90"
+    if dtype == torch.float32:
+        return "fma"
+    raise NotImplementedError(
+        f"flash_attn_fwd takes float32 or bfloat16, got {dtype}")
+
+
 @registry.register("flash_attn_fwd", "cuda")
 def flash_attn_fwd_cuda(q, k, v):
     """Launch csrc/flash_attn_fwd.cu on the current stream: causal MHA
-    over contiguous q/k/v [b, T, h, dh], read in that layout. Raises on
-    what the kernel does not take; never falls back to the plain
-    version."""
+    over contiguous q/k/v [b, T, h, dh], read in that layout; bf16 on the
+    sm90 kernel, f32 on the FMA kernel (``flash_route``). Raises on what
+    the kernel does not take; never falls back to the other kernel or to
+    the plain version."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attn_fwd needs CUDA tensors, got "
                          f"{q.device}")
@@ -241,20 +263,26 @@ def flash_attn_fwd_cuda(q, k, v):
             "the flash_attn_fwd wrapper records no graph; call causal_mha, "
             "which differentiates through FlashAttentionFn, or run under "
             "torch.inference_mode()/torch.no_grad()")
+    route = flash_route(q.dtype)
     lib = _bind()
     out = torch.empty_like(q)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     code = _DTYPE_CODES[q.dtype]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.dl4j_flash_attn_fwd(code, q.data_ptr(), k.data_ptr(),
-                                     v.data_ptr(), out.data_ptr(), b, T, h,
-                                     dh, stream)
+        if route == "sm90":
+            rc = lib.dl4j_flash_attn_fwd_sm90(*ptrs, b, T, h, dh, stream)
+        else:
+            rc = lib.dl4j_flash_attn_fwd(code, *ptrs, b, T, h, dh, stream)
     if rc != 0:
         msg = lib.dl4j_cuda_error_string(rc).decode()
+        smem = (lib.dl4j_flash_attn_fwd_sm90_smem_bytes(dh) if route == "sm90"
+                else lib.dl4j_flash_attn_fwd_smem_bytes(code, dh))
         raise RuntimeError(
-            f"flash_attn_fwd kernel launch failed (b={b}, T={T}, h={h}, "
-            f"dh={dh}, {q.dtype}, "
-            f"{lib.dl4j_flash_attn_fwd_smem_bytes(code, dh)} B shared "
+            f"flash_attn_fwd kernel launch failed on the {route} route "
+            f"(b={b}, T={T}, h={h}, dh={dh}, {q.dtype}, {smem} B shared "
             f"memory per block): cudaError {rc}: {msg}")
     registry.count_launch(KERNEL)
+    if route == "sm90":
+        registry.count_launch(KERNEL_SM90)
     return out

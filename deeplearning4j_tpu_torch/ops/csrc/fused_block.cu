@@ -51,12 +51,31 @@
 // dsc out, double-buffered, while the dx and dW epilogues store from
 // their registers, four consecutive columns a lane.
 //
-// Determinism: no float atomics. K4 and K6 reduce over M in a fixed order:
-// each block walks a fixed set of m-tiles and adds each thread's per-column
-// partials to its own slots in shared memory, the 16 row groups of a block
-// are summed in order, and a second launch sums the blocks' partials in
-// order. The epilogues read their per-column vectors from shared memory,
-// which keeps every pass within 128 registers.
+// K6 in bf16 (bwd_stats_sm90), under the same condition, runs z = x W on
+// that mainloop too, with the dz pass's operands and maps, and a staged
+// epilogue (BwdStatsEpi): TMA brings the tile's dy and y into shared
+// memory, double-buffered across tiles; nothing is stored but one row of
+// per-column partial sums a 128-row tile. Each tile reduces its 128 rows
+// in a fixed order: the thread's two rows, the eight lanes that share its
+// columns by a butterfly of shuffles that leaves each lane a distinct
+// eighth of the sums (56 shuffles a thread, not 192), then the eight warps
+// in order through shared memory. A second launch sums the tiles'
+// partials per column in a fixed two-level order (32 interleaved slices of
+// rows, then the slices in turn; a one-level sum, one thread a column
+// walking all 1,568 rows in turn, took 0.087 ms at stage 1 against
+// 0.006). K6 moves 462 MB at stage 1 and computes 26 GFLOP, so it is
+// bound by its bytes once the products run at wgmma's rate. A partial
+// row belongs to its m-tile, not to the block that took the tile, so the
+// sums do not depend on the grid or the card.
+//
+// Determinism: no float atomics. K4 and K6 on the first mainloops reduce
+// over M in a fixed order: each block walks a fixed set of m-tiles and
+// adds each thread's per-column partials to its own slots in shared
+// memory, the 16 row groups of a block are summed in order, and a second
+// launch (sum_partials, the one K6's sm90 path uses) sums the blocks'
+// partials in its fixed two-level order. The epilogues read their
+// per-column vectors from shared memory, which keeps every pass within 128
+// registers.
 // K7 writes dz once (cd) and then runs two GEMMs over it: dx = dz @ W^T,
 // and dW = x^T @ dz split over S fixed chunks of M whose f32 partials a
 // last launch sums in order (the [K, N] f32 accumulator of the TPU kernel
@@ -495,16 +514,37 @@ __global__ void __launch_bounds__(kThreads, 2)
   block_col_sums(red, part, gridDim.y, j0, N);
 }
 
-// out[k][n] = sum_{r < R} part[k][r][n] for k in {0, 1}, r in order.
-__global__ void sum_partials2(const float* __restrict__ part,
-                              float* __restrict__ out, int R, int N) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  const int k = blockIdx.y;
-  if (n >= N) return;
-  const float* p = part + static_cast<size_t>(k) * R * N + n;
-  float t = 0.f;
-  for (int r = 0; r < R; ++r) t += p[static_cast<size_t>(r) * N];
-  out[static_cast<size_t>(k) * N + n] = t;
+// out[k][n] = sum_{r < R} part[k][r][n] for k in {0, 1}, in a fixed
+// two-level order: slice y of 32 sums rows y, y + 32, ... in turn, then the
+// 32 slices are added in turn. A block is 32 columns x 32 slices. K4 and K6
+// (either path) sum their partial rows with it.
+__global__ void __launch_bounds__(1024)
+    sum_partials(const float* __restrict__ part, float* __restrict__ out,
+                 int R, int N) {
+  __shared__ float red[32][33];
+  const int n = blockIdx.x * 32 + threadIdx.x, k = blockIdx.y;
+  float acc = 0.f;
+  if (n < N) {
+    const float* p = part + static_cast<size_t>(k) * R * N + n;
+#pragma unroll 8
+    for (int r = threadIdx.y; r < R; r += 32)
+      acc += p[static_cast<size_t>(r) * N];
+  }
+  red[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y == 0 && n < N) {
+    float sum = 0.f;
+#pragma unroll 8
+    for (int y = 0; y < 32; ++y) sum += red[y][threadIdx.x];
+    out[static_cast<size_t>(k) * N + n] = sum;
+  }
+}
+
+cudaError_t launch_sum_partials(const float* part, float* out, int R, int N,
+                                cudaStream_t st) {
+  sum_partials<<<dim3((N + 31) / 32, 2), dim3(32, 32), 0, st>>>(part, out, R,
+                                                               N);
+  return cudaGetLastError();
 }
 
 // ----------------------------------------------------------------- K5
@@ -721,8 +761,7 @@ cudaError_t stats(const void* x, const void* w, const float* shift,
       N);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  sum_partials2<<<dim3((N + 255) / 256, 2), 256, 0, st>>>(part, out, R, N);
-  return cudaGetLastError();
+  return launch_sum_partials(part, out, R, N, st);
 }
 
 template <typename T, bool RELU>
@@ -751,8 +790,7 @@ cudaError_t bwd_stats(const void* x, const void* w, const float* mean,
       static_cast<const T*>(dy), static_cast<const T*>(y), part, M, K, N);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  sum_partials2<<<dim3((N + 255) / 256, 2), 256, 0, st>>>(part, out, R, N);
-  return cudaGetLastError();
+  return launch_sum_partials(part, out, R, N, st);
 }
 
 template <typename T, bool RELU>
@@ -953,6 +991,154 @@ struct DwEpi {
   }
 };
 
+// ---------------------------------------------------------- K6 on sm90
+// z = x W (x K-major, W MN-major) as in the dz pass; for every element
+// g = RELU && !(y > 0) ? 0 : dy and xhat = (round_cd(z) - mean) * inv, in
+// bwd_stats_kernel's f32 order; a tile writes the sums of g and g * xhat
+// over its 128 rows, part[0][i0 / 128][j0 + c] and part[1][...]. Rows past
+// M read dy = 0 (TMA's zeros), so they add nothing. dy and y come in by
+// TMA as in DzEpi; nothing goes out that way, so store_staged is empty and
+// the staged buffer, once every warp has read it, holds the cross-warp
+// reduction.
+template <bool RELU>
+struct BwdStatsEpi {
+  static constexpr uint32_t kStagedBytes = 2 * 128 * 128 * 2;  // dy, y
+  CUtensorMap mdy, my;
+  const float *mean, *inv;
+  float* part;  // [2][R][N], R = ceil(M / 128)
+  int N, R;
+
+  __device__ __forceinline__ void load_staged(unsigned char* st,
+                                              uint64_t* bar, int i0,
+                                              int j0) const {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int r = i0 + 64 * (b >> 1), c = j0 + 64 * (b & 1);
+      sm90::tma_load(st + b * sm90::kBoxBytes, &mdy, bar, c, r);
+      sm90::tma_load(st + (4 + b) * sm90::kBoxBytes, &my, bar, c, r);
+    }
+  }
+
+  __device__ __forceinline__ void store_staged(const unsigned char*, int,
+                                               int) const {}
+
+  __device__ __forceinline__ void stage(float (*cv)[sm90::BN], int j0) const {
+    for (int c = threadIdx.x; c < sm90::BN; c += sm90::kConsumers) {
+      const int col = j0 + c;
+      cv[0][c] = col < N ? mean[col] : 0.f;
+      cv[1][c] = col < N ? inv[col] : 0.f;
+    }
+  }
+
+  // Lane t's column of its sums v[c], c < 32 (n8 block c / 2, e = c % 2).
+  __device__ __forceinline__ static int col_of(int c, int t) {
+    return 8 * (c >> 1) + 2 * t + (c & 1);
+  }
+
+  __device__ __forceinline__ void store(const float (&acc)[64],
+                                        const float (*cv)[sm90::BN],
+                                        unsigned char* st, int i0, int j0,
+                                        int, int wg) const {
+    const int lane = threadIdx.x & 31, t = lane & 3;
+    // v[c] = the thread's sum of g over its two rows in column col_of(c),
+    // v[32 + c] that of g * xhat (acc[4 j + 2 h + e] is row h, column
+    // 8 j + 2 t + e; dy and y are read two columns at a time)
+    float v[64];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = sm90::Frag::row(wg, h);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const uint32_t off = sm90::staged_off(r, 8 * j + 2 * t);
+        const float2 dy2 = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(st + off));
+        const float2 y2 = __bfloat1622float2(*reinterpret_cast<
+            const __nv_bfloat162*>(st + 4 * sm90::kBoxBytes + off));
+        const float dyv[2] = {dy2.x, dy2.y}, yv[2] = {y2.x, y2.y};
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 2 * j + e, col = 8 * j + 2 * t + e;
+          const float xhat =
+              (round_cd<bf16>(acc[4 * j + 2 * h + e]) - cv[0][col]) *
+              cv[1][col];
+          const float gj = (RELU && !(yv[e] > 0.f)) ? 0.f : dyv[e];
+          if (h == 0) {
+            v[c] = gj;
+            v[32 + c] = gj * xhat;
+          } else {
+            v[c] += gj;
+            v[32 + c] += gj * xhat;
+          }
+        }
+      }
+    }
+    // The eight lanes with the same t (lane bits 2-4) hold the same
+    // columns. Each round pairs lanes across one bit: a lane keeps the
+    // half of its sums named by that bit, adds its partner's copy of that
+    // half, and hands over the other. After three rounds lane
+    // (b4, b3, b2, t) holds, in v[i] (i < 8), the warp's sum of index
+    // 32 b4 + 16 b3 + 8 b2 + i.
+    const int b4 = (lane >> 4) & 1, b3 = (lane >> 3) & 1, b2 = (lane >> 2) & 1;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float send = b4 ? v[i] : v[32 + i];
+      const float keep = b4 ? v[32 + i] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const float send = b3 ? v[i] : v[16 + i];
+      const float keep = b3 ? v[16 + i] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float send = b2 ? v[i] : v[8 + i];
+      const float keep = b2 ? v[8 + i] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, 4);
+    }
+    // the eight warps in order, through the staged buffer: red[w][k][c]
+    sm90::consumer_sync();  // every warp has read its dy and y
+    float* red = reinterpret_cast<float*>(st);
+    const int w = threadIdx.x >> 5;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      red[(2 * w + b4) * sm90::BN + col_of(16 * b3 + 8 * b2 + i, t)] = v[i];
+    sm90::consumer_sync();
+    const int k = threadIdx.x >> 7, c = threadIdx.x & 127;
+    if (j0 + c < N) {
+      float sum = 0.f;
+#pragma unroll
+      for (int q = 0; q < sm90::kConsumers / 32; ++q)
+        sum += red[(2 * q + k) * sm90::BN + c];
+      part[(static_cast<size_t>(k) * R + i0 / sm90::BM) * N + j0 + c] = sum;
+    }
+  }
+};
+
+template <bool RELU>
+cudaError_t bwd_stats_sm90(const void* x, const void* w, const float* mean,
+                           const float* inv, const void* dy, const void* y,
+                           float* part, float* out, int M, int K, int N,
+                           int R, cudaStream_t st) {
+  CUtensorMap mx, mw;
+  BwdStatsEpi<RELU> epi;
+  cudaError_t e = sm90::make_map(&mx, x, M, K);
+  if (e == cudaSuccess) e = sm90::make_map(&mw, w, K, N);
+  if (e == cudaSuccess) e = sm90::make_map(&epi.mdy, dy, M, N);
+  if (e == cudaSuccess) e = sm90::make_map(&epi.my, y, M, N);
+  if (e != cudaSuccess) return e;
+  epi.mean = mean;
+  epi.inv = inv;
+  epi.part = part;
+  epi.N = N;
+  epi.R = R;
+  // z [M, N] = x W: A(m, k) = x[m][k] K-major, B(k, n) = W[k][n] MN-major
+  e = sm90::launch<true, false>(mx, mw, M, N, K, K, 1, epi, st);
+  if (e != cudaSuccess) return e;
+  return launch_sum_partials(part, out, R, N, st);
+}
+
 template <bool RELU>
 cudaError_t bwd_apply_sm90(const void* x, const void* w, const float* mean,
                            const float* inv, const float* scale,
@@ -1057,6 +1243,29 @@ int dl4j_fused_bwd_stats(int dtype, const void* x, const void* w,
                 : bwd_stats<__nv_bfloat16, false>(x, w, mean, inv, dy, y,
                                                   part, out, M, K, N, R, st);
   return cudaErrorInvalidValue;
+}
+
+// K6, bf16, on the sm90 mainloop: the arguments and outputs of
+// dl4j_fused_bwd_stats, but part is [2, R, N] with R = ceil(M / 128), one
+// row of partials a 128-row tile. Takes only what TMA reads: K and N
+// multiples of 8 and x, W, dy and y 16-byte aligned. Two launches.
+int dl4j_fused_bwd_stats_sm90(const void* x, const void* w,
+                              const float* mean, const float* inv,
+                              const void* dy, const void* y, float* part,
+                              float* out, int M, int K, int N, int R,
+                              int relu, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  const void* arrays[] = {x, w, dy, y};
+  bool aligned = true;
+  for (const void* p : arrays)
+    aligned = aligned && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  if (M < 1 || K < 1 || N < 1 || K % 8 != 0 || N % 8 != 0 || !aligned ||
+      R != (M + sm90::BM - 1) / sm90::BM)
+    return cudaErrorInvalidValue;
+  return relu ? bwd_stats_sm90<true>(x, w, mean, inv, dy, y, part, out, M, K,
+                                     N, R, st)
+              : bwd_stats_sm90<false>(x, w, mean, inv, dy, y, part, out, M,
+                                      K, N, R, st);
 }
 
 // K7: dz [M, N] (cd) is scratch; dw_part [S, K, N] f32 scratch (unused when

@@ -20,11 +20,12 @@ here (``*_torch``, used for CPU tensors) and its CUDA wrapper (``*_cuda``,
 csrc/fused_block.cu, used for CUDA tensors; it raises on what the kernel
 does not take and never falls back, and counts every device launch it
 makes under the kernel's name: K4 and K6 make two, K7 three or four).
-K7 in bf16 takes the Hopper path (TMA + wgmma, csrc/sm90_gemm.cuh) when
-TMA can read its operands (``takes_sm90``: rows of a multiple of 16
-bytes, 16-byte-aligned bases), and counts each such call once more under
-``fused_block_bwd_apply_sm90``; any other call takes the first mainloops.
-The choice is by shape and alignment only: a failure raises.
+K6 and K7 in bf16 take the Hopper path (TMA + wgmma, csrc/sm90_gemm.cuh)
+when TMA can read their operands (``takes_sm90``: rows of a multiple of 16
+bytes, 16-byte-aligned bases), and count each such call once more under
+``fused_block_bwd_stats_sm90`` and ``fused_block_bwd_apply_sm90``; any
+other call takes the first mainloops. The choice is by dtype, shape and
+alignment only: a failure raises.
 ``conv1x1_bn_add_relu`` is the op the block-fusion pass calls
 (nn/fusion.py); ``FusedTailFn`` is its ``torch.autograd.Function``.
 
@@ -46,7 +47,9 @@ KERNEL = "fused_block"
 STATS, APPLY, BWD_STATS, BWD_APPLY = (
     "fused_block_stats", "fused_block_apply", "fused_block_bwd_stats",
     "fused_block_bwd_apply")
-BWD_APPLY_SM90 = "fused_block_bwd_apply_sm90"  # calls on the sm90 path
+# calls on the sm90 path
+BWD_STATS_SM90 = "fused_block_bwd_stats_sm90"
+BWD_APPLY_SM90 = "fused_block_bwd_apply_sm90"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # the kernel's tile (dl4j_fused_tile_rows/cols), and the number of blocks
@@ -153,9 +156,11 @@ def _bind():
     lib.dl4j_fused_bwd_stats.argtypes = [i] + [p] * 8 + [i] * 5 + [p]
     lib.dl4j_fused_bwd_apply.argtypes = [i] + [p] * 14 + [i] * 6 + [p]
     lib.dl4j_fused_bwd_apply_sm90.argtypes = [p] * 14 + [i] * 6 + [p]
+    lib.dl4j_fused_bwd_stats_sm90.argtypes = [p] * 8 + [i] * 5 + [p]
     for fn in (lib.dl4j_fused_stats, lib.dl4j_fused_apply,
                lib.dl4j_fused_bwd_stats, lib.dl4j_fused_bwd_apply,
-               lib.dl4j_fused_bwd_apply_sm90, lib.dl4j_fused_sm90_step,
+               lib.dl4j_fused_bwd_apply_sm90, lib.dl4j_fused_bwd_stats_sm90,
+               lib.dl4j_fused_sm90_step,
                lib.dl4j_fused_tile_rows, lib.dl4j_fused_tile_cols):
         fn.restype = i
     lib.dl4j_cuda_error_string.argtypes = [i]
@@ -176,9 +181,12 @@ def _cdiv(a, b):
     return -(-a // b)
 
 
-def stat_rows(M, N):
-    """Rows of partial sums K4 and K6 write: the m-tiles are dealt to this
-    many blocks per column tile."""
+def stat_rows(M, N, sm90=False):
+    """Rows of partial sums K4 and K6 write: on the first mainloops the
+    m-tiles are dealt to this many blocks per column tile; K6's sm90 path
+    writes one row for each 128-row m-tile."""
+    if sm90:
+        return _cdiv(M, TILE_M)
     return max(1, min(_cdiv(M, TILE_M), _TARGET_BLOCKS // _cdiv(N, TILE_N)))
 
 
@@ -195,19 +203,20 @@ def dw_splits(M, K, N, sm90=False):
 
 def launches_per_call(name, M, K, N, sm90=False):
     """Device launches one call of kernel ``name`` makes: K4 and K6 a pass
-    over the tiles and the sum of its partials, K5 one, K7 dz, dx and dW
-    and, when dW is split over M, the sum of its splits (on either
-    path)."""
+    over the tiles and the sum of its partials (K6 on either path), K5
+    one, K7 dz, dx and dW and, when dW is split over M, the sum of its
+    splits (on either path)."""
     if name == BWD_APPLY:
         return 3 + (dw_splits(M, K, N, sm90)[0] > 1)
     return 1 if name == APPLY else 2
 
 
 def takes_sm90(x2, W, *mn):
-    """Whether K7 runs on the sm90 path (TMA + wgmma) for x [M, K], W
-    [K, N] and the [M, N] tensors ``mn``: bf16, K and N multiples of 8
-    (every row a multiple of 16 bytes) and every base 16-byte aligned.
-    The outputs and scratch K7 allocates are aligned by the allocator."""
+    """Whether K6 and K7 run on the sm90 path (TMA + wgmma) for x [M, K],
+    W [K, N] and the [M, N] tensors ``mn`` (dy, y): bf16, K and N
+    multiples of 8 (every row a multiple of 16 bytes) and every base
+    16-byte aligned. The outputs and scratch the wrappers allocate are
+    aligned by the allocator."""
     return (x2.dtype == torch.bfloat16 and x2.shape[-1] % 8 == 0
             and W.shape[-1] % 8 == 0
             and all(t.data_ptr() % 16 == 0 for t in (x2, W, *mn)))
@@ -297,14 +306,21 @@ def fused_bwd_stats_cuda(x2, W, mean, inv, dy2, y2, relu):
     M, K, N, code = _operands(BWD_STATS, x2, W, dy=dy2, y=y2)
     mean, inv = _f32(mean, inv)
     lib = _bind()
-    R = stat_rows(M, N)
+    sm90 = takes_sm90(x2, W, dy2, y2)
+    R = stat_rows(M, N, sm90)
     part = torch.empty((2, R, N), dtype=torch.float32, device=x2.device)
     out = torch.empty((2, N), dtype=torch.float32, device=x2.device)
-    _launch(lib, BWD_STATS, lib.dl4j_fused_bwd_stats, code, x2.data_ptr(),
-            W.data_ptr(), mean.data_ptr(), inv.data_ptr(), dy2.data_ptr(),
-            y2.data_ptr(), part.data_ptr(), out.data_ptr(), M, K, N, R,
-            int(bool(relu)), x2.device,
-            launches=launches_per_call(BWD_STATS, M, K, N))
+    args = (x2.data_ptr(), W.data_ptr(), mean.data_ptr(), inv.data_ptr(),
+            dy2.data_ptr(), y2.data_ptr(), part.data_ptr(), out.data_ptr(),
+            M, K, N, R, int(bool(relu)), x2.device)
+    launches = launches_per_call(BWD_STATS, M, K, N, sm90)
+    if sm90:
+        _launch(lib, BWD_STATS, lib.dl4j_fused_bwd_stats_sm90, *args,
+                launches=launches)
+        registry.count_launch(BWD_STATS_SM90)
+    else:
+        _launch(lib, BWD_STATS, lib.dl4j_fused_bwd_stats, code, *args,
+                launches=launches)
     return out[0], out[1]
 
 

@@ -214,6 +214,39 @@ def test_cuda_gate_accepts_what_the_kernel_covers(b, t, dtype, dh):
     assert tatt.check_flash_inputs(q, q, q, 0) == (b, t, 2, dh)
 
 
+@pytest.mark.parametrize("over,match", [
+    ({"q_start": 3}, "q_start"),
+    ({"tk": 8}, "tq == tk"),
+    ({"dh": 32}, "head size"),
+    ({"dh": 256}, "head size"),
+])
+def test_cuda_gate_refuses_bf16_calls_the_sm90_route_does_not_cover(over,
+                                                                    match):
+    """bf16 takes the sm90 kernel, and the gate in front of it refuses the
+    same calls by name as for f32."""
+    b, t, h = 2, 16, 2
+    dh, tk = over.get("dh", 64), over.get("tk", t)
+    q = torch.zeros(b, t, h, dh, dtype=torch.bfloat16)
+    k = torch.zeros(b, tk, h, dh, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match=match):
+        tatt.check_flash_inputs(q, k, k, over.get("q_start", 0))
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "sm90"),
+                                         (torch.float32, "fma")])
+def test_route_is_chosen_by_dtype_alone(dtype, route):
+    """bf16 runs the Hopper kernel (TMA, wgmma), f32 the f32-FMA kernel
+    (the tensor cores' f32 path would round the inputs to TF32)."""
+    assert tatt.flash_route(dtype) == route
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64,
+                                   torch.int32])
+def test_route_refuses_other_dtypes_by_name(dtype):
+    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
+        tatt.flash_route(dtype)
+
+
 def test_cuda_gate_refuses_malformed_inputs():
     q = torch.zeros(2, 16, 2, 64)
     with pytest.raises(ValueError, match="v must be"):
@@ -237,6 +270,16 @@ def test_cuda_wrapper_refuses_cpu_tensors():
         tatt.flash_attn_fwd_cuda(q, q, q)
 
 
+def test_cuda_wrapper_refuses_cpu_tensors_on_the_sm90_route_too():
+    """bf16 CPU tensors are refused before any route is taken, and
+    nothing is counted."""
+    q = torch.zeros(1, 4, 2, 64, dtype=torch.bfloat16)
+    registry.reset_launches()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tatt.flash_attn_fwd_cuda(q, q, q)
+    assert registry.launches() == {}
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -256,6 +299,19 @@ def test_cuda_kernel_matches_plain(cuda_device, shape, dtype):
     assert torch.equal(got, again)
     vmax = float(arrs[2].float().abs().max())
     _assert_close(got.cpu(), want.cpu(), dtype, ulps=2, ulp_ref=vmax)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_launches_are_counted_by_route(cuda_device, dtype):
+    arrs = [t.to(cuda_device)
+            for t in _torch(_qkv(2, 64, 2, 64, seed=10), str(dtype)[6:])]
+    registry.reset_launches()
+    with torch.inference_mode():
+        tatt.flash_attn_fwd_cuda(*arrs)
+    want = {tatt.KERNEL: 1}
+    if dtype == torch.bfloat16:
+        want[tatt.KERNEL_SM90] = 1
+    assert registry.launches() == want
 
 
 def test_cuda_wrapper_refuses_grad_outside_the_function(cuda_device):

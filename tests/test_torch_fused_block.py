@@ -278,9 +278,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         tfb.fused_stats_cuda(x, W, torch.zeros(128))
 
 
-def _k7_operands(case):
+def _k7_operands(case, M=64):
     """x [M, K], W [K, N], dy and y [M, N] for one sm90 path case."""
-    M, K, N = 64, 128, 256
+    K, N = 128, 256
     dt = torch.float32 if case == "f32" else torch.bfloat16
     if case == "k_not_multiple_of_8":
         K = 76
@@ -336,3 +336,62 @@ def test_sm90_dw_split_covers_every_row_in_whole_steps(M, K, N):
     assert S >= 1 and chunk % tfb.SM90_STEP == 0
     assert S * chunk >= M and (S - 1) * chunk < M
     assert S <= tfb.dw_splits(M, K, N)[0]
+
+
+class _Recorder:
+    """Stands in for the built library and the launcher, so the CUDA
+    wrappers' plan (entry point, partial rows, launch count) can be read
+    on the CPU: records each entry point called and its arguments."""
+
+    def __init__(self, monkeypatch):
+        self.calls = []
+        monkeypatch.setattr(tfb, "_check_cuda", lambda name, *t: None)
+        monkeypatch.setattr(tfb, "_bind", lambda: self)
+        monkeypatch.setattr(tfb, "_launch", self._launch)
+
+    def __getattr__(self, name):
+        if not name.startswith("dl4j_"):
+            raise AttributeError(name)
+        return name
+
+    def _launch(self, lib, kern, fn, *args, launches):
+        self.calls.append((fn, args[:-1], launches))
+        registry.count_launch(kern, launches)
+
+
+@pytest.mark.parametrize("case,want,M", [
+    ("bf16", True, 64), ("f32", False, 64), ("k_not_multiple_of_8", False, 64),
+    ("n_not_multiple_of_8", False, 64), ("x_misaligned", False, 64),
+    ("w_misaligned", False, 64), ("dy_misaligned", False, 64),
+    ("y_misaligned", False, 64), ("bf16", True, 1), ("bf16", True, 127),
+    ("bf16", True, 129), ("bf16", True, 777), ("f32", False, 777)])
+def test_k6_takes_its_path_as_k7_does(monkeypatch, case, want, M):
+    """K6's wrapper asks takes_sm90 as K7's does: the sm90 entry point,
+    one row of partials a 128-row m-tile (ragged M included: the rows it
+    passes cover every row of M exactly once) and one more count under
+    fused_block_bwd_stats_sm90 where TMA can read every operand; else the
+    first mainloop, its own partial rows and no sm90 count. Either way it
+    counts launches_per_call's device launches."""
+    x, W, dy, y = _k7_operands(case, M)
+    M, K = x.shape
+    N = W.shape[1]
+    rec = _Recorder(monkeypatch)
+    registry.reset_launches()
+    with torch.no_grad():
+        tfb.fused_bwd_stats_cuda(x, W, torch.zeros(N), torch.ones(N), dy, y,
+                                 True)
+    (fn, args, launches), = rec.calls
+    assert tfb.takes_sm90(x, W, dy, y) is want
+    if want:
+        assert fn == "dl4j_fused_bwd_stats_sm90"
+        assert args[8:11] == (M, K, N)
+        R = args[11]
+        assert R * tfb.TILE_M >= M > (R - 1) * tfb.TILE_M
+    else:
+        assert fn == "dl4j_fused_bwd_stats"
+        assert args[9:13] == (M, K, N, tfb.stat_rows(M, N))
+    assert launches == tfb.launches_per_call(tfb.BWD_STATS, M, K, N, want)
+    want_counts = {tfb.BWD_STATS: launches}
+    if want:
+        want_counts[tfb.BWD_STATS_SM90] = 1
+    assert registry.launches() == want_counts
