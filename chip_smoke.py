@@ -31,7 +31,7 @@ checkout of another commit to measure that commit's K7 the same way), and
 
     python3 chip_smoke.py --tail-check
 
-runs only [train_resnet]'s check of each fused tail's K6 and K7 on the
+runs only [train_resnet]'s check of each fused tail's K4-K7 on the
 inputs one BF16 step gives them (run it from a copy with a planted fault
 to see the check fail), and
 
@@ -39,14 +39,19 @@ to see the check fail), and
 
 times K6 alone at the same three shapes, on its sm90 path and on its
 mma.sync path in the same run, each split into its GEMM launch and the
-sum of its partials.
+sum of its partials, and
 
-K3 (bf16) and K6 and K7 (bf16, where TMA can read their operands) run on
+    python3 chip_smoke.py --fwd-split
+
+times K4 and K5 the same way, each path twice, in the order mma.sync,
+sm90, sm90, mma.sync.
+
+K3 (bf16) and K4-K7 (bf16, where TMA can read their operands) run on
 Hopper kernels (TMA loads, wgmma products); the phases hold each of
 those, and the first kernels kept callable beside them, against the plain
 versions, and count the new routes' launches under their own counters
-(flash_attn_fwd_sm90, fused_block_bwd_stats_sm90,
-fused_block_bwd_apply_sm90).
+(flash_attn_fwd_sm90, fused_block_stats_sm90, fused_block_apply_sm90,
+fused_block_bwd_stats_sm90, fused_block_bwd_apply_sm90).
 """
 
 from __future__ import annotations
@@ -229,12 +234,16 @@ def device_events(fn, reps):
 
 
 def device_ms_per_call(fn, reps=20):
-    """The device time of one call of ``fn()``: the self time of every
-    kernel it launched over ``reps`` calls, from torch.profiler, over
-    ``reps``. Unlike cuda_ms_per_launch it does not count the gaps where
-    the card waits for the host to issue the next call."""
-    return sum(e.self_device_time_total
-               for e in device_events(fn, reps)) / 1e3 / reps
+    """The device time of one call of ``fn()``, which launches each of its
+    kernels once, from torch.profiler over ``reps`` calls: each kernel's
+    mean self time over the launches the profiler kept, summed over the
+    kernels; and the fewest launches of one kernel that it kept. Late in
+    a long process it has kept as few as a tenth, so a sum over ``reps``
+    would read short. Unlike cuda_ms_per_launch it does not count the
+    gaps where the card waits for the host to issue the next call."""
+    events = device_events(fn, reps)
+    return (sum(e.self_device_time_total / e.count for e in events) / 1e3,
+            min(e.count for e in events))
 
 
 def lstm_inputs(T, b, n, dtype, masked=False, nonzero_carry=False):
@@ -279,14 +288,20 @@ def phase_device():
           count=torch.cuda.device_count(), torch=torch.__version__,
           cuda=torch.version.cuda, built=sorted(built),
           build_s=f"{build_s:.2f}")
-    # K3's bf16 route and K6's and K7's bf16 paths run on wgmma fed by
-    # TMA: the compiler must have emitted both into the libraries this run
-    # loads
-    for lib in ("flash_attn_fwd", "fused_block"):
-        sass = _build.sass_counts(lib, ("HGMMA", "UTMALDG"))
-        phase("sass", library=lib, **sass)
-        check(all(sass.values()), f"{lib}'s SASS holds {sass}: no wgmma "
-              f"(HGMMA) or no TMA load (UTMALDG)")
+    # K3's bf16 route and K4-K7's bf16 paths run on wgmma fed by TMA: the
+    # compiler must have emitted both into the libraries this run loads,
+    # and into K4's and K5's instantiations of the mainloop, with K5's TMA
+    # stores of y
+    for lib, fn, ops in (
+            ("flash_attn_fwd", "", ("HGMMA", "UTMALDG")),
+            ("fused_block", "", ("HGMMA", "UTMALDG", "UTMASTG")),
+            ("fused_block", "FwdStatsEpi", ("HGMMA", "UTMALDG")),
+            ("fused_block", "ApplyEpi", ("HGMMA", "UTMALDG", "UTMASTG"))):
+        sass = _build.sass_counts(lib, ops, fn)
+        phase("sass", library=lib, function=fn or "all", **sass)
+        check(all(sass.values()), f"{lib} {fn}: its SASS holds {sass}: no "
+              f"wgmma (HGMMA), no TMA load (UTMALDG) or no TMA store "
+              f"(UTMASTG)")
     return card
 
 
@@ -1284,13 +1299,17 @@ def phase_times_flash(card, gnet, errs, launches, gtrain):
         lib_ms = cuda_ms_per_launch(sdpa, reps=10)
         host_ms = {name: host_ms_per_call(fn) for name, fn in
                    (("sm90", sm90), ("entry_point", entry), ("sdpa", sdpa))}
-        dev_readings, dev_lib_readings = [], []
+        dev_readings, dev_lib_readings, kept = [], [], []
         for _ in range(3):
-            dev_readings.append(device_ms_per_call(sm90, reps=100))
-            dev_lib_readings.append(device_ms_per_call(sdpa, reps=100))
+            for readings, fn in ((dev_readings, sm90),
+                                 (dev_lib_readings, sdpa)):
+                dev, n = device_ms_per_call(fn, reps=100)
+                readings.append(dev)
+                kept.append(n)
         dev_ms = statistics.median(dev_readings)
         dev_lib_ms = statistics.median(dev_lib_readings)
-        dev_fma_ms = device_ms_per_call(fma, reps=100)
+        dev_fma_ms, n = device_ms_per_call(fma, reps=100)
+        kept.append(n)
         lib_err = float((sdpa().transpose(1, 2).float()
             - sm90().float()).abs().max())
     # least work: q, k, v read once and out written once (bf16); the
@@ -1314,6 +1333,7 @@ def phase_times_flash(card, gnet, errs, launches, gtrain):
           ms_one_call_with_host=f"{one_ms:.4f}",
           device_ms=f"{dev_ms:.4f}",
           device_ms_readings=json.dumps([round(t, 5) for t in dev_readings]),
+          profiler_kept_of_100=json.dumps(kept),
           fma_bf16_device_ms=f"{dev_fma_ms:.4f}",
           entry_point_ms=f"{c_ms:.4f}",
           library_device_ms=f"{dev_lib_ms:.4f}",
@@ -1576,6 +1596,19 @@ def tail_plain(t, relu):
                 ca=a / M, cb=b / M)
 
 
+def fused_args(t, p, relu):
+    """K4-K7's arguments, as their wrappers take them, from a tail's
+    inputs ``t`` and the plain passes' intermediates ``p``."""
+    from deeplearning4j_tpu_torch.ops import fused_block as fb
+    return {
+        fb.STATS: (t["x"], t["W"], t["shift"]),
+        fb.APPLY: (t["x"], t["W"], p["scale"], p["sh"], t["sc"], relu),
+        fb.BWD_STATS: (t["x"], t["W"], p["mean"], p["inv"], t["dy"], p["y"],
+                       relu),
+        fb.BWD_APPLY: (t["x"], t["W"], p["mean"], p["inv"], p["scale"],
+                       p["ca"], p["cb"], t["dy"], p["y"], relu)}
+
+
 def bf16_ulp(v):
     """The bf16 ulp at magnitude ``v`` (0 at 0)."""
     return 2.0 ** (math.floor(math.log2(v)) - 7) if v > 0 else 0.0
@@ -1622,22 +1655,32 @@ def sum_limits(t, p, relu):
             for nm, (mag, flip, fault) in out.items()}
 
 
-def tail_path(x, W, dy, y):
-    """The path K6 and K7 take on these operands: "sm90" (TMA + wgmma,
-    bf16 with rows TMA can read), "mma.sync" (other bf16) or "fma"
-    (f32)."""
+def tail_path(x, W, *mn):
+    """The path a fused-tail kernel takes on x, W and the [M, N] tensors
+    it reads (K4 none, K5 the shortcut, K6 and K7 dy and y): "sm90" (TMA
+    + wgmma, bf16 with rows TMA can read), "mma.sync" (other bf16) or
+    "fma" (f32)."""
     import torch
     from deeplearning4j_tpu_torch.ops import fused_block as fb
-    if fb.takes_sm90(x, W, dy, y):
+    if fb.takes_sm90(x, W, *mn):
         return "sm90"
     return "mma.sync" if x.dtype == torch.bfloat16 else "fma"
+
+
+def kernel_path(kern, args):
+    """The path kernel ``kern`` takes on its arguments ``args`` (as its
+    wrapper gets them)."""
+    from deeplearning4j_tpu_torch.ops import fused_block as fb
+    mn = {fb.STATS: (), fb.APPLY: args[4:5], fb.BWD_STATS: args[4:6],
+          fb.BWD_APPLY: args[7:9]}[kern]
+    return tail_path(args[0], args[1], *mn)
 
 
 def phase_fused_vs_plain():
     """K4-K7 against their plain versions at ResNet-50's s1, s2 and s3
     tail shapes (bf16), at ragged shapes in f32 and bf16, relu on and off;
     two calls bit-equal; FusedTailFn's gradients vs autograd of the
-    composed f32 reference. K6 and K7 take their sm90 paths on every bf16
+    composed f32 reference. K4-K7 take their sm90 paths on every bf16
     case whose rows TMA can read (K and N multiples of 8) and their
     mma.sync paths on 37 x 5 x 7, each sm90 call counted once more under
     its own counter. Returns each kernel's max abs error at s1 (bf16)."""
@@ -1653,32 +1696,23 @@ def phase_fused_vs_plain():
              (37, 5, 7, f32, True), (37, 5, 7, bf, True)]
     kernels = (fb.STATS, fb.APPLY, fb.BWD_STATS, fb.BWD_APPLY)
     main_err = {}
-    sm90_counter = {fb.BWD_STATS: fb.BWD_STATS_SM90,
-                    fb.BWD_APPLY: fb.BWD_APPLY_SM90}
-    expected = dict.fromkeys(kernels + tuple(sm90_counter.values()), 0)
+    expected = dict.fromkeys(
+        kernels + tuple(fb.SM90_COUNTER[k] for k in kernels), 0)
     registry.reset_launches()
     for M, K, N, dtype, relu in cases:
         dname = str(dtype).split(".")[-1]
         t = tail_inputs(M, K, N, dtype)
         p = tail_plain(t, relu)
         limits = sum_limits(t, p, relu)
-        path = tail_path(t["x"], t["W"], t["dy"], p["y"])
-        want_path = ("fma" if dtype == f32 else "sm90"
-                     if K % 8 == 0 and N % 8 == 0 else "mma.sync")
-        check(path == want_path, f"K6/K7 ({M},{K},{N}) {dname} take the "
-              f"{path} path, expected {want_path}")
+        path = ("fma" if dtype == f32 else "sm90"
+                if K % 8 == 0 and N % 8 == 0 else "mma.sync")
         sm90 = path == "sm90"
         sum_ratio, fault_ratio = 0.0, math.inf
         with torch.no_grad():
-            args = {
-                fb.STATS: (t["x"], t["W"], t["shift"]),
-                fb.APPLY: (t["x"], t["W"], p["scale"], p["sh"], t["sc"],
-                           relu),
-                fb.BWD_STATS: (t["x"], t["W"], p["mean"], p["inv"], t["dy"],
-                               p["y"], relu),
-                fb.BWD_APPLY: (t["x"], t["W"], p["mean"], p["inv"],
-                               p["scale"], p["ca"], p["cb"], t["dy"], p["y"],
-                               relu)}
+            args = fused_args(t, p, relu)
+            paths = {kern: kernel_path(kern, a) for kern, a in args.items()}
+            check(set(paths.values()) == {path}, f"K4-K7 ({M},{K},{N}) "
+                  f"{dname} take the paths {paths}, expected {path}")
             names = {fb.STATS: ("s1", "s2"), fb.APPLY: ("y",),
                      fb.BWD_STATS: ("a", "b"),
                      fb.BWD_APPLY: ("dx", "dW", "dshortcut")}
@@ -1689,8 +1723,8 @@ def phase_fused_vs_plain():
                 again = cuda_fn(*a)
                 expected[kern] += 2 * fb.launches_per_call(kern, M, K, N,
                                                            sm90)
-                if kern in sm90_counter and sm90:
-                    expected[sm90_counter[kern]] += 2
+                if sm90:
+                    expected[fb.SM90_COUNTER[kern]] += 2
                 torch.cuda.synchronize()
                 want = registry.get(kern, "cpu")(*a)
                 got = got if isinstance(got, tuple) else (got,)
@@ -1730,7 +1764,7 @@ def phase_fused_vs_plain():
             for kern in kernels:
                 expected[kern] += fb.launches_per_call(kern, M, K, N)
         phase("kernel_vs_plain", kernel="fused_block", dtype=dname, M=M, K=K,
-              N=N, relu=relu, k6_k7_path=path, deterministic=True,
+              N=N, relu=relu, k4_k7_path=path, deterministic=True,
               max_abs_err=json.dumps({k: float(f"{v:.3e}")
                                       for k, v in errs.items()}),
               sums_worst_err_over_limit=f"{sum_ratio:.3e}",
@@ -1888,9 +1922,11 @@ def resnet_profile(net, data):
     n = len(data)
     total = sum(e.self_device_time_total for e in kernels)
     check(total > 0, "the profiler saw no device time")
-    # bwd_stats_kernel before stats_kernel, and K6's sm90 epilogue before
-    # the mainloop's name: the first name found wins
-    fused_names = {"BwdStatsEpi": "K6",
+    # bwd_stats_kernel before stats_kernel, and K4's, K5's and K6's sm90
+    # epilogues (BwdStatsEpi before K4's FwdStatsEpi) before the mainloop's
+    # name, which the rest of K7's passes carry: the first name found wins
+    fused_names = {"BwdStatsEpi": "K6", "FwdStatsEpi": "K4",
+                   "ApplyEpi": "K5",
                    "bwd_stats_kernel": "K6", "stats_kernel": "K4",
                    "apply_kernel": "K5", "dz_kernel": "K7",
                    "gemm_kernel": "K7", "tma_wgmma_gemm": "K7",
@@ -1973,8 +2009,8 @@ def timed_steps(net, data, steps):
 def resnet_step_launches(b, sm90):
     """Device launches of K4-K7 that one ResNet-50 train step at batch
     ``b`` (224 x 224) makes: each of the 13 tails calls each kernel once;
-    with ``sm90`` (BF16: every tail's rows TMA can read), each K6 and K7
-    call on its sm90 path, also counted as such."""
+    with ``sm90`` (BF16: every tail's rows TMA can read), each call on its
+    sm90 path, also counted as such."""
     from deeplearning4j_tpu_torch.ops import fused_block as fb
     out = {}
     for stage, M, K, N in RESNET_TAILS:
@@ -1982,21 +2018,24 @@ def resnet_step_launches(b, sm90):
             out[kern] = out.get(kern, 0) + RESNET_TAIL_COUNT[stage] * (
                 fb.launches_per_call(kern, M * b // 256, K, N, sm90))
     if sm90:
-        out[fb.BWD_STATS_SM90] = sum(RESNET_TAIL_COUNT.values())
-        out[fb.BWD_APPLY_SM90] = sum(RESNET_TAIL_COUNT.values())
+        for counter in fb.SM90_COUNTER.values():
+            out[counter] = sum(RESNET_TAIL_COUNT.values())
     return out
 
 
 def capture_tail_inputs(fn):
-    """Runs ``fn()`` with spies on K6's and K7's CUDA wrappers that keep a
-    copy of every call's inputs (a tail's K6 and K7 share x, W, dy and y,
-    copied once): returns [(k6_args, k7_args)], one pair a fused tail, in
-    call order."""
+    """Runs ``fn()`` with spies on K4-K7's CUDA wrappers that keep a copy
+    of every call's inputs (a tail's K4 and K5 share x and W, its K6 and
+    K7 x, W, dy and y: each copied once): returns [(k4_args, k5_args,
+    k6_args, k7_args)], one a fused tail, in the forward's order. The
+    backward meets the tails in the reverse order; each tail's K6 must
+    see the x its K4 saw."""
     import torch
     from deeplearning4j_tpu_torch.ops import fused_block as fb
     from deeplearning4j_tpu_torch.ops import registry
-    real = {k: registry.get(k, "cuda") for k in (fb.BWD_STATS, fb.BWD_APPLY)}
-    copies, calls = {}, {fb.BWD_STATS: [], fb.BWD_APPLY: []}
+    kerns = (fb.STATS, fb.APPLY, fb.BWD_STATS, fb.BWD_APPLY)
+    real = {k: registry.get(k, "cuda") for k in kerns}
+    copies, calls = {}, {k: [] for k in kerns}
 
     def keep(a):
         if not torch.is_tensor(a):
@@ -2009,8 +2048,10 @@ def capture_tail_inputs(fn):
     def spy(kern):
         def wrapper(*args):
             calls[kern].append(tuple(keep(a) for a in args))
-            if kern == fb.BWD_APPLY:  # the tail's last call: its memory
-                copies.clear()        # may be reused by the next tail
+            # K5 and K7 are a tail's last call of its pass: its memory may
+            # be reused by the next tail
+            if kern in (fb.APPLY, fb.BWD_APPLY):
+                copies.clear()
             return real[kern](*args)
         return wrapper
 
@@ -2022,35 +2063,44 @@ def capture_tail_inputs(fn):
     finally:
         for kern, f in real.items():
             registry.register(kern, "cuda")(f)
-    check(len(calls[fb.BWD_STATS]) == len(calls[fb.BWD_APPLY]),
-          f"K6 ran {len(calls[fb.BWD_STATS])} times, K7 "
-          f"{len(calls[fb.BWD_APPLY])}")
-    return list(zip(calls[fb.BWD_STATS], calls[fb.BWD_APPLY]))
+    n = {kern: len(c) for kern, c in calls.items()}
+    check(len(set(n.values())) == 1, f"K4-K7 ran unequal numbers of times: "
+          f"{n}")
+    tails = list(zip(calls[fb.STATS], calls[fb.APPLY],
+                     reversed(calls[fb.BWD_STATS]),
+                     reversed(calls[fb.BWD_APPLY])))
+    for i, (a4, _, a6, _) in enumerate(tails):
+        check(torch.equal(a4[0], a6[0]), f"tail {i}: K6's x is not K4's")
+    return tails
 
 
-def hold_tail_on_its_inputs(a6, a7):
-    """K6 and K7 on one tail's inputs captured from the main path, against
+def hold_tail_on_its_inputs(a4, a5, a6, a7):
+    """K4-K7 on one tail's inputs captured from the main path, against
     their plain versions on the card at fused_vs_plain's limits (the sums
     over M by sum_limits, which also shows that a dropped m-tile or dW
-    split would fail; dx and dshortcut two bf16 ulps at their max).
-    Returns (K6's and K7's path, the worst error over its limit, a
-    message for each output that failed)."""
+    split would fail; y, dx and dshortcut two bf16 ulps at their max).
+    Returns (the tail's path, or each kernel's where they differ, the
+    worst error over its limit, a message for each output that
+    failed)."""
     import torch
     from deeplearning4j_tpu_torch.ops import fused_block as fb
     from deeplearning4j_tpu_torch.ops import registry
     x, W, mean, inv, dy, y, relu = a6
     scale, ca, cb = a7[4:7]
     M = x.shape[0]
-    t = dict(x=x, W=W, dy=dy, shift=mean)  # shift feeds only s1/s2
+    t = dict(x=x, W=W, dy=dy, shift=a4[2])
     p = dict(y=y, mean=mean, inv=inv, scale=scale, ca=ca, cb=cb)
     limits = sum_limits(t, p, relu)
     worst_ratio, failed = 0.0, []
+    pairs = ((fb.STATS, a4, ("s1", "s2")), (fb.APPLY, a5, ("y",)),
+             (fb.BWD_STATS, a6, ("a", "b")),
+             (fb.BWD_APPLY, a7, ("dx", "dW", "dshortcut")))
     with torch.no_grad():
-        pairs = ((fb.BWD_STATS, a6, ("a", "b")),
-                 (fb.BWD_APPLY, a7, ("dx", "dW", "dshortcut")))
         for kern, args, names in pairs:
             got = registry.get(kern, "cuda")(*args)
             want = registry.get(kern, "cpu")(*args)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
             for nm, g, w in zip(names, got, want):
                 err = float((g.float() - w.float()).abs().max())
                 if nm in limits:
@@ -2068,8 +2118,8 @@ def hold_tail_on_its_inputs(a6, a7):
                                   f"path's inputs disagrees with the plain "
                                   f"version: {err:.3e} > {lim:.3e}")
                 worst_ratio = max(worst_ratio, err / lim if lim else 0.0)
-    return tail_path(x, W, dy, y), worst_ratio, failed
-
+    paths = {kernel_path(kern, args) for kern, args, _ in pairs}
+    return "/".join(sorted(paths)), worst_ratio, failed
 
 
 def block_worst(errs):
@@ -2087,10 +2137,10 @@ def phase_train_resnet():
     block-fusion pass on (DL4J_TPU_FUSE_BLOCKS=1): the first step on the
     card (fused and unfused) and on the plain CPU path against the f64
     plain CPU path (F32 and BF16, b = 8), fused vs unfused on the card at
-    b = 256, each fused tail's K6 and K7 held against their plain versions
-    on the inputs that step gave them, 20 timed steps each way at b = 256,
-    224 x 224, the launches of K4-K7 (13 calls each per step, every K7 on
-    its sm90 path; 26, 13, 26 and 52 device launches at b = 256), a
+    b = 256, each fused tail's K4-K7 held against their plain versions on
+    the inputs that step gave them, 20 timed steps each way at b = 256,
+    224 x 224, the launches of K4-K7 (13 calls each per step, every call
+    on its sm90 path; 26, 13, 26 and 52 device launches at b = 256), a
     profile, and one eval forward vs the CPU path."""
     import os
     import torch
@@ -2185,8 +2235,8 @@ def phase_train_resnet():
     out["first_step_checks_s"] = f"{time.perf_counter() - t0:.1f}"
 
     # fused vs unfused on the card at the run's batch, BF16; the fused
-    # step's K6 and K7 inputs, tail by tail, are kept and each tail's K6
-    # and K7 are held against their plain versions on them
+    # step's K4-K7 inputs, tail by tail, are kept and each tail's K4-K7
+    # are held against their plain versions on them
     unfused = graph_copy(net, "cuda", False)
     check(not unfused._fusion_plans, "the unfused copy matched tails")
     step = {}
@@ -2194,17 +2244,17 @@ def phase_train_resnet():
         lambda: step.update(zip(("loss", "g"),
                                 graph_loss_and_grads(net, x0, y0))))
     f_loss, f_g = step["loss"], step["g"]
-    check(len(tails_in) == tails, f"captured {len(tails_in)} tails' K6/K7 "
+    check(len(tails_in) == tails, f"captured {len(tails_in)} tails' K4-K7 "
           f"inputs, expected {tails}")
-    held = [hold_tail_on_its_inputs(a6, a7) for a6, a7 in tails_in]
+    held = [hold_tail_on_its_inputs(*a) for a in tails_in]
     failed = [m for _, _, msgs in held for m in msgs]
     check(not failed, "; ".join(failed))
     paths = [path for path, _, _ in held]
-    check(paths == ["sm90"] * tails, f"K6's and K7's paths on the main "
-          f"path's tails: {paths}")
-    out["tails_k6_k7_vs_plain_worst_err_over_limit"] = (
+    check(paths == ["sm90"] * tails, f"K4-K7's paths on the main path's "
+          f"tails: {paths}")
+    out["tails_k4_k7_vs_plain_worst_err_over_limit"] = (
         f"{max(r for _, r, _ in held):.3e}")
-    out["tails_k6_k7_vs_plain_by_tail"] = json.dumps(
+    out["tails_k4_k7_vs_plain_by_tail"] = json.dumps(
         [float(f"{r:.3e}") for _, r, _ in held])
     del tails_in, held
     torch.cuda.empty_cache()
@@ -2226,7 +2276,7 @@ def phase_train_resnet():
     runs = {"fused": timed_steps(net, data, steps)}
     runs["unfused"] = timed_steps(unfused, data, steps)
     per_step = resnet_step_launches(b, True)
-    for kern in kernels + (fb.BWD_STATS_SM90, fb.BWD_APPLY_SM90):
+    for kern in kernels + tuple(fb.SM90_COUNTER[k] for k in kernels):
         got = runs["fused"]["launches"].get(kern, 0)
         check(got == per_step[kern] * steps, f"{kern} launched {got} times "
               f"in {steps} fused steps, expected {per_step[kern] * steps}")
@@ -2251,10 +2301,9 @@ def phase_train_resnet():
     out["calls_per_step"] = json.dumps(
         {k: runs["fused"]["launches"].get(k, 0) * tails // per_step[k] // steps
          for k in kernels})
-    out["k6_sm90_calls_per_step"] = (
-        runs["fused"]["launches"].get(fb.BWD_STATS_SM90, 0) // steps)
-    out["k7_sm90_calls_per_step"] = (
-        runs["fused"]["launches"].get(fb.BWD_APPLY_SM90, 0) // steps)
+    out["sm90_calls_per_step"] = json.dumps(
+        {k: runs["fused"]["launches"].get(fb.SM90_COUNTER[k], 0) // steps
+         for k in kernels})
 
     # the Nesterov update alone, on copies
     gc = net.conf.global_conf
@@ -2316,21 +2365,78 @@ K7_PASSES = (("dz", ("DzEpi", "dz_kernel")), ("dx", ("DxEpi", "true, false")),
 # epilogue; mma.sync: bwd_stats_kernel) and the sum of its partials
 K6_PASSES = (("gemm", ("BwdStatsEpi", "bwd_stats_kernel")),
              ("sum", ("sum_partials",)))
-# K4's launches: the tiles' pass with its column sums and the same sum
-K4_PASSES = (("tiles", ("stats_kernel",)), ("sum", ("sum_partials",)))
+# K4's launches: the tiles' pass with its column sums (FwdStatsEpi,
+# stats_kernel) and the same sum; K5's one launch (ApplyEpi, apply_kernel)
+K4_PASSES = (("tiles", ("FwdStatsEpi", "stats_kernel")),
+             ("sum", ("sum_partials",)))
+K5_PASSES = (("apply", ("ApplyEpi", "apply_kernel")),)
+
+
+class Split(dict):
+    """Device ms a call by pass, and ``kept``: the fewest launches of any
+    one kernel that the profiler kept of the ``reps`` it was asked to
+    time."""
+    kept = 0
 
 
 def pass_split(fn, passes=K7_PASSES, reps=10):
     """A kernel's device ms a call by pass (K7: dz, dx, dW, sum of the dW
     splits; K6: gemm, sum) over ``reps`` calls of ``fn``, from
-    torch.profiler, with the kernels it could not place under "other"."""
-    out = {name: 0.0 for name, _ in passes}
+    torch.profiler, with the kernels it could not place under "other".
+    Each kernel of K4-K7 launches once a call, so a pass's time is the
+    mean over the launches the profiler kept: a sum over ``reps`` would
+    read short if it kept fewer (``kept`` says how many it did)."""
+    out = Split({name: 0.0 for name, _ in passes})
     out["other"] = 0.0
+    out.kept = reps
     for e in device_events(fn, reps):
         tag = next((name for name, keys in passes
                     if any(k in e.key for k in keys)), "other")
-        out[tag] += e.self_device_time_total / 1e3 / reps
+        out[tag] += e.self_device_time_total / 1e3 / e.count
+        out.kept = min(out.kept, e.count)
     return out
+
+
+def k4_mma_sync(x, W, shift):
+    """A call of K4's first bf16 path (mma.sync, dl4j_fused_stats) on the
+    same inputs, for timing it beside the sm90 path in the same run:
+    returns a function that launches it into preallocated outputs."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import fused_block as fb
+    lib = fb._bind()
+    M, K = x.shape
+    N = W.shape[1]
+    R = fb.stat_rows(M, N)
+    part = torch.empty((2, R, N), dtype=torch.float32, device=x.device)
+    out = torch.empty((2, N), dtype=torch.float32, device=x.device)
+    ptrs = [t.data_ptr() for t in (x, W, shift, part, out)]
+
+    def call():
+        rc = lib.dl4j_fused_stats(1, *ptrs, M, K, N, R,
+                                  torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"mma.sync K4 failed: cudaError {rc}")
+    return call
+
+
+def k5_mma_sync(x, W, scale, sh, sc, relu):
+    """A call of K5's first bf16 path (mma.sync, dl4j_fused_apply) on the
+    same inputs, for timing it beside the sm90 path in the same run:
+    returns a function that launches it into a preallocated y and returns
+    y."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import fused_block as fb
+    lib = fb._bind()
+    M, K = x.shape
+    N = W.shape[1]
+    y = torch.empty_like(sc)
+    ptrs = [t.data_ptr() for t in (x, W, scale, sh, sc, y)]
+
+    def call():
+        rc = lib.dl4j_fused_apply(1, *ptrs, M, K, N, int(relu),
+                                  torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"mma.sync K5 failed: cudaError {rc}")
+        return y
+    return call
 
 
 def k6_mma_sync(x, W, mean, inv, dy, y, relu):
@@ -2380,27 +2486,63 @@ def k7_mma_sync(x, W, mean, inv, scale, ca, cb, dy, y, relu):
     return call
 
 
+def mma_sync_and_passes(kern):
+    """Kernel ``kern``'s mma.sync caller (k4_mma_sync ... k7_mma_sync) and
+    its launches by name for pass_split."""
+    from deeplearning4j_tpu_torch.ops import fused_block as fb
+    return {fb.STATS: (k4_mma_sync, K4_PASSES),
+            fb.APPLY: (k5_mma_sync, K5_PASSES),
+            fb.BWD_STATS: (k6_mma_sync, K6_PASSES),
+            fb.BWD_APPLY: (k7_mma_sync, K7_PASSES)}[kern]
+
+
+def z_bits(t):
+    """K5 with scale 1, sh 0, a zero shortcut and no relu gives y =
+    round_cd(z) itself: on the sm90 path and on the mma.sync path, on the
+    same x and W. Returns the elements of z, how many the two paths round
+    differently (so many elements of z K4 and K5 saw otherwise than K6
+    and K7 before K4 and K5 moved to the sm90 mainloop), and how many
+    each path gives otherwise than torch.matmul's f32 product rounded to
+    bf16."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import fused_block as fb
+    from deeplearning4j_tpu_torch.ops import registry
+    x, W = t["x"], t["W"]
+    N = W.shape[1]
+    a = (x, W, torch.ones(N, device=x.device),
+         torch.zeros(N, device=x.device), torch.zeros_like(t["sc"]), False)
+    check(kernel_path(fb.APPLY, a) == "sm90", "z_bits: K5 not on sm90")
+    with torch.no_grad():
+        z_sm90 = registry.get(fb.APPLY, "cuda")(*a)
+        z_mma = k5_mma_sync(*a)()
+        z_f32 = fb._z(x, W).to(torch.bfloat16)
+        torch.cuda.synchronize()
+        return {"elements": z_f32.numel(),
+                "mma_sync_vs_sm90": int((z_mma != z_sm90).sum()),
+                "sm90_vs_matmul": int((z_sm90 != z_f32).sum()),
+                "mma_sync_vs_matmul": int((z_mma != z_f32).sum())}
+
+
 def phase_times_fused(card, errs, rtrain):
     """K4-K7 at each ResNet-50 stage shape (bf16): 20 launches back to
     back, the plain version, the bound, and torch.matmul of the same
     [M, K] x [K, N] product as a yardstick (no single PyTorch call
-    computes these functions). K6 and K7 (on their sm90 paths) also
-    beside their mma.sync paths on the same inputs, each with its split
-    by pass from the profiler."""
+    computes these functions). Each (on its sm90 path) also beside its
+    mma.sync path on the same inputs, both with their device time and
+    split by launch from the profiler; how many elements of z the two
+    paths round differently (z_bits)."""
     import torch
     from deeplearning4j_tpu_torch.ops import fused_block as fb
     from deeplearning4j_tpu_torch.ops import registry
     rows = {}
+
+    def by_stage(kern, key):
+        return {st: rows[(kern, st)][key] for st, _, _, _ in RESNET_TAILS}
+
     for stage, M, K, N in RESNET_TAILS:
         t = tail_inputs(M, K, N, torch.bfloat16, seed=1)
         p = tail_plain(t, True)
-        args = {
-            fb.STATS: (t["x"], t["W"], t["shift"]),
-            fb.APPLY: (t["x"], t["W"], p["scale"], p["sh"], t["sc"], True),
-            fb.BWD_STATS: (t["x"], t["W"], p["mean"], p["inv"], t["dy"],
-                           p["y"], True),
-            fb.BWD_APPLY: (t["x"], t["W"], p["mean"], p["inv"], p["scale"],
-                           p["ca"], p["cb"], t["dy"], p["y"], True)}
+        args = fused_args(t, p, True)
         with torch.no_grad():
             gemm_ms = cuda_ms_per_launch(
                 lambda: torch.matmul(t["x"], t["W"]), reps=5)
@@ -2413,42 +2555,43 @@ def phase_times_fused(card, errs, rtrain):
                 flops, nbytes = fused_bound(kern, M, K, N)
                 bound_ms, bound_by = bound(flops, nbytes, "bfloat16")
                 gemms = 3 if kern == fb.BWD_APPLY else 1
-                rows[(kern, stage)] = dict(ms=ms, plain_ms=plain_ms,
-                                           bound_ms=bound_ms,
-                                           bound_by=bound_by)
-                extra = {}
-                if kern in (fb.BWD_STATS, fb.BWD_APPLY):
-                    k6 = kern == fb.BWD_STATS
-                    old = k6_mma_sync(*a) if k6 else k7_mma_sync(*a)
-                    passes = K6_PASSES if k6 else K7_PASSES
-                    old_ms = cuda_ms_per_launch(old, reps=5)
-                    split = pass_split(lambda: cuda_fn(*a), passes)
-                    old_split = pass_split(old, passes)
-                    rows[(kern, stage)].update(
-                        mma_sync_ms=old_ms, split_ms=split,
-                        path=tail_path(t["x"], t["W"], t["dy"], p["y"]))
-                    extra = dict(
-                        path=rows[(kern, stage)]["path"],
-                        device_ms=f"{sum(split.values()):.4f}",
-                        mma_sync_device_ms=f"{sum(old_split.values()):.4f}",
-                        split_ms=json.dumps(
-                            {k: round(v, 4) for k, v in split.items()}),
-                        mma_sync_ms=f"{old_ms:.4f}",
-                        mma_sync_split_ms=json.dumps(
-                            {k: round(v, 4) for k, v in old_split.items()}),
-                        mma_sync_roofline_share=f"{bound_ms / old_ms:.4f}")
+                mma_sync, passes = mma_sync_and_passes(kern)
+                old = mma_sync(*a)
+                old_ms = cuda_ms_per_launch(old, reps=5)
+                split = pass_split(lambda: cuda_fn(*a), passes)
+                old_split = pass_split(old, passes)
+                device_ms = sum(split.values())
+                rows[(kern, stage)] = dict(
+                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, mma_sync_ms=old_ms, split_ms=split,
+                    device_ms=device_ms, path=kernel_path(kern, a))
+                check(rows[(kern, stage)]["path"] == "sm90",
+                      f"{kern} at {stage} took the "
+                      f"{rows[(kern, stage)]['path']} path")
                 phase("times", kernel=kern, stage=stage, M=M, K=K, N=N,
                       dtype="bfloat16", card=json.dumps(card),
+                      path=rows[(kern, stage)]["path"],
                       ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
                       bound_ms=f"{bound_ms:.5f}", bound_by=bound_by,
                       flops=f"{flops:.4g}", bytes=f"{nbytes:.4g}",
                       roofline_share=f"{bound_ms / ms:.4f}",
+                      device_ms=f"{device_ms:.4f}",
+                      device_roofline_share=f"{bound_ms / device_ms:.4f}",
                       tflops=f"{flops / ms / 1e9:.2f}",
                       library="none (no single PyTorch call computes it); "
                               "yardstick torch.matmul of the same product",
                       matmul_ms=f"{gemm_ms:.4f}",
                       matmul_ms_times_products=f"{gemm_ms * gemms:.4f}",
-                      **extra)
+                      split_ms=json.dumps(
+                          {k: round(v, 4) for k, v in split.items()}),
+                      profiler_kept=f"{split.kept}/{old_split.kept}/10",
+                      mma_sync_ms=f"{old_ms:.4f}",
+                      mma_sync_device_ms=f"{sum(old_split.values()):.4f}",
+                      mma_sync_split_ms=json.dumps(
+                          {k: round(v, 4) for k, v in old_split.items()}),
+                      mma_sync_roofline_share=f"{bound_ms / old_ms:.4f}")
+            phase("times", kernel="z_bits", stage=stage, M=M, K=K, N=N,
+                  **z_bits(t))
         del t, p, args
         torch.cuda.empty_cache()
     phase("times", kernel="resnet50_train_step", b=256,
@@ -2468,22 +2611,19 @@ def phase_times_fused(card, errs, rtrain):
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": None,
                     "shape": "s1 (M=200704, K=128, N=512, bf16)",
-                    "by_stage_ms": {st: rows[(kern, st)]["ms"]
-                                    for st, _, _, _ in RESNET_TAILS}})
-    for entry, kern, counter in ((out[2], fb.BWD_STATS, fb.BWD_STATS_SM90),
-                                 (out[3], fb.BWD_APPLY, fb.BWD_APPLY_SM90)):
-        entry["path"] = "sm90: TMA ring feeding wgmma (csrc/sm90_gemm.cuh)"
-        entry["calls_on_sm90_path"] = rtrain["launches"].get(counter, 0)
-        entry["by_stage_split_ms"] = {st: rows[(kern, st)]["split_ms"]
-                                      for st, _, _, _ in RESNET_TAILS}
-        entry["by_stage_mma_sync_ms"] = {
-            st: rows[(kern, st)]["mma_sync_ms"]
-            for st, _, _, _ in RESNET_TAILS}
+                    "path": "sm90: TMA ring feeding wgmma "
+                            "(csrc/sm90_gemm.cuh)",
+                    "calls_on_sm90_path": rtrain["launches"].get(
+                        fb.SM90_COUNTER[kern], 0),
+                    "by_stage_ms": by_stage(kern, "ms"),
+                    "by_stage_device_ms": by_stage(kern, "device_ms"),
+                    "by_stage_split_ms": by_stage(kern, "split_ms"),
+                    "by_stage_mma_sync_ms": by_stage(kern, "mma_sync_ms")})
     return out
 
 
 def phase_tail_check():
-    """[train_resnet]'s check of every fused tail's K6 and K7 on the
+    """[train_resnet]'s check of every fused tail's K4-K7 on the
     inputs one BF16 step at b = 256 gives them, alone (``python3
     chip_smoke.py --tail-check``): each tail's path and worst error over
     its limit, and a failure if any output misses its limit. Run from a
@@ -2496,11 +2636,11 @@ def phase_tail_check():
     x0, y0 = resnet_batches(2, 256, SEED + 21)[0]
     tails_in = capture_tail_inputs(lambda: graph_loss_and_grads(net, x0, y0))
     failed = []
-    for i, (a6, a7) in enumerate(tails_in):
-        path, ratio, msgs = hold_tail_on_its_inputs(a6, a7)
-        M, K = a6[0].shape
-        phase("tail_check", tail=i, M=M, K=K, N=a6[1].shape[1],
-              k6_k7_path=path,
+    for i, args in enumerate(tails_in):
+        path, ratio, msgs = hold_tail_on_its_inputs(*args)
+        M, K = args[0][0].shape
+        phase("tail_check", tail=i, M=M, K=K, N=args[0][1].shape[1],
+              k4_k7_path=path,
               worst_err_over_limit=f"{ratio:.3e}", failed=len(msgs))
         failed += msgs
     check(len(tails_in) == 13, f"captured {len(tails_in)} tails, expected 13")
@@ -2526,11 +2666,7 @@ def phase_split(kern):
     for stage, M, K, N in RESNET_TAILS:
         t = tail_inputs(M, K, N, torch.bfloat16, seed=1)
         p = tail_plain(t, True)
-        if k6:
-            a = (t["x"], t["W"], p["mean"], p["inv"], t["dy"], p["y"], True)
-        else:
-            a = (t["x"], t["W"], p["mean"], p["inv"], p["scale"], p["ca"],
-                 p["cb"], t["dy"], p["y"], True)
+        a = fused_args(t, p, True)[kern]
         path = (tail_path(t["x"], t["W"], t["dy"], p["y"])
                 if hasattr(fb, "takes_sm90") else "mma.sync")
         if k6 and not hasattr(fb, "BWD_STATS_SM90"):
@@ -2542,7 +2678,7 @@ def phase_split(kern):
             if k6:
                 old = k6_mma_sync(*a)
                 k4 = registry.get(fb.STATS, "cuda")
-                a4 = (t["x"], t["W"], t["shift"])
+                a4 = fused_args(t, p, True)[fb.STATS]
                 extra = dict(
                     mma_sync_ms=f"{cuda_ms_per_launch(old, reps=5):.4f}",
                     mma_sync_split_ms=json.dumps(
@@ -2557,6 +2693,47 @@ def phase_split(kern):
               split_ms=json.dumps({k: round(v, 4) for k, v in split.items()}),
               **extra)
         del t, p, a
+        torch.cuda.empty_cache()
+
+
+def phase_fwd_split():
+    """K4 and K5 alone at ResNet-50's three tail shapes (bf16, relu), each
+    on its mma.sync path (before) and its sm90 path (after), ms a call over
+    20 back-to-back launches in the order before, after, after, before,
+    and the profiler's split by launch of each path. ``python3
+    chip_smoke.py --fwd-split`` runs only this."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import _build
+    from deeplearning4j_tpu_torch.ops import fused_block as fb
+    from deeplearning4j_tpu_torch.ops import registry
+    _build.build(("fused_block",))
+    for stage, M, K, N in RESNET_TAILS:
+        t = tail_inputs(M, K, N, torch.bfloat16, seed=1)
+        p = tail_plain(t, True)
+        args = fused_args(t, p, True)
+        for kern in (fb.STATS, fb.APPLY):
+            a = args[kern]
+            fn = registry.get(kern, "cuda")
+            mma_sync, passes = mma_sync_and_passes(kern)
+            old = mma_sync(*a)
+            with torch.no_grad():
+                ms = [cuda_ms_per_launch(f, reps=5)
+                      for f in (old, lambda: fn(*a), lambda: fn(*a), old)]
+                split = pass_split(lambda: fn(*a), passes)
+                old_split = pass_split(old, passes)
+            bound_ms, bound_by = bound(*fused_bound(kern, M, K, N),
+                                       "bfloat16")
+            phase("fwd_split", kernel=kern, stage=stage, M=M, K=K, N=N,
+                  path=kernel_path(kern, a),
+                  mma_sync_ms=json.dumps([round(ms[0], 4), round(ms[3], 4)]),
+                  sm90_ms=json.dumps([round(ms[1], 4), round(ms[2], 4)]),
+                  split_ms=json.dumps(
+                      {k: round(v, 4) for k, v in split.items()}),
+                  mma_sync_split_ms=json.dumps(
+                      {k: round(v, 4) for k, v in old_split.items()}),
+                  profiler_kept=f"{split.kept}/{old_split.kept}/10",
+                  bound_ms=f"{bound_ms:.5f}", bound_by=bound_by)
+        del t, p, args
         torch.cuda.empty_cache()
 
 
@@ -2578,15 +2755,17 @@ def main() -> int:
     ok_line = json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})
-    for flag, kern in (("--k7-split", "fused_block_bwd_apply"),
-                       ("--k6-split", "fused_block_bwd_stats")):
+    for flag, split in (
+            ("--k7-split", lambda: phase_split("fused_block_bwd_apply")),
+            ("--k6-split", lambda: phase_split("fused_block_bwd_stats")),
+            ("--fwd-split", phase_fwd_split)):
         if flag in sys.argv[1:]:
             smi = subprocess.run(["nvidia-smi",
                                   "--query-gpu=name,power.limit",
                                   "--format=csv,noheader"],
                                  capture_output=True, text=True, timeout=60)
             print(smi.stdout.strip(), flush=True)
-            phase_split(kern)
+            split()
             print(ok_line, flush=True)
             return 0
     if "--tail-check" in sys.argv[1:]:

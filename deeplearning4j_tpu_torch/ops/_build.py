@@ -104,13 +104,18 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def sass_counts(name: str, opcodes) -> dict:
+def sass_counts(name: str, opcodes, function: str = "") -> dict:
     """How many times each SASS opcode in ``opcodes`` (e.g. HGMMA,
     UTMALDG) appears in the built library of kernel ``name``, from
-    ``cuobjdump -sass``: which instructions the compiler emitted."""
+    ``cuobjdump -sass``: which instructions the compiler emitted. Only the
+    functions whose mangled name holds ``function`` count (all by
+    default), so one template instantiation can be read alone."""
     tool = Path(nvcc_path()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(library_path(name))],
                           check=True, capture_output=True, text=True).stdout
+    if function:  # each function's code follows "Function : <name>"
+        sass = "\n".join(f for f in sass.split("Function : ")[1:]
+                         if function in f.split(None, 1)[0])
     words = [w.split(".")[0] for line in sass.splitlines()
              for w in line.replace(";", " ").split()]
     return {op: words.count(op) for op in opcodes}

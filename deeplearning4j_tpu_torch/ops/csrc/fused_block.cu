@@ -16,8 +16,16 @@
 //                  dW = x^T @ dz (f32); dshortcut = g (cd)
 //
 // z is recomputed by every pass and never stored, as on the TPU. Every
-// pass rounds z through cd before any use, so the stats, the apply and
-// both backward passes see the same z; the epilogues run in f32.
+// pass rounds z through cd before any use and runs its epilogue in f32.
+// The four passes see the same z because they form it with the same loop:
+// on the sm90 path (bf16 where TMA can read every operand, below) all four
+// form z = x W on the one Hopper mainloop with the same operands, maps and
+// order of sums, so their f32 sums, and z, agree bit for bit; on the
+// first paths (f32, or bf16 at shapes TMA cannot read) all four use the
+// same first mainloop of their dtype. The bf16 loops (wgmma, mma.sync)
+// both add their k16 products into f32 with k ascending; whether the two
+// round z alike is the tensor cores' to say, and chip_smoke.py's [times]
+// counts the elements on which they differ (z_bits).
 //
 // What bounds it: at ResNet-50's stage shapes (b = 256, 224 x 224, bf16)
 // each product is 26.3 GFLOP; K4 is bound by its operations (0.027 ms at
@@ -25,54 +33,51 @@
 // 462 MB at stage 1, 0.14 ms; K7 719 MB, 0.21 ms).
 //
 // What the design does about it. Every pass is one tiled GEMM with its
-// epilogue. K4-K6, and K7 in f32 or at shapes TMA cannot read, run the
-// first, simple mainloops: a block of 256 threads owns a 128 x 128 output
-// tile and walks the reduction through single-buffered shared memory, two
-// barriers a step, no asynchronous copies. For bf16 the products run on
-// mma.sync m16n8k16 (mainloop_mma: 8 warps of 64 x 32 fragments, 32 k a
-// step, 16-byte loads where rows are aligned), then the fragments go
-// through a 67.6 KB f32 shared tile into the thread tile the epilogues
-// read (each thread owns an 8 x 8 block). For f32 the same tile runs plain
-// f32 FMA (mainloop_fma; the tensor cores' f32 path, TF32, would round the
-// inputs). These loops run at 30-70 TFLOP/s, so they, and not the bytes,
-// bound those passes: K7 on them took 1.7 ms at stage 1 against its
-// 0.21 ms bound, its three GEMMs at ~0.4-0.9 ms each.
+// epilogue. In bf16, when every row is a multiple of 16 bytes and every
+// base 16-byte aligned (every ResNet-50 tail), all four passes run on the
+// Hopper mainloop of sm90_gemm.cuh: TMA loads into a ring of stages, one
+// producer warp, two consumer warpgroups on wgmma m64n128k16, persistent
+// blocks, the sums in registers. z = x W reads A K-major and B MN-major;
+// K7's dx = dz W^T both K-major, dW = x^T dz both MN-major. With the
+// products at the tensor cores' rate K5-K7 are bound by their bytes, so
+// their epilogues move whole sectors; K4 is bound by its operations, but
+// at stage 1 each of its tiles takes only two 64-deep steps against an
+// epilogue of 56 shuffles and a barrier:
 //
-// K7 in bf16 (bwd_apply_sm90), when every row is a multiple of 16 bytes
-// and every base 16-byte aligned (every ResNet-50 tail), runs its three
-// GEMMs on the Hopper mainloop of sm90_gemm.cuh instead: TMA loads into a
-// ring of stages, one producer warp, two consumer warpgroups on wgmma
-// m64n128k16, persistent blocks, the sums in registers and no staging
-// tile. z = x W reads A K-major and B MN-major, dx = dz W^T both K-major,
-// dW = x^T dz both MN-major. With the products at the tensor cores' rate,
-// K7's passes move ~1.4 GB at stage 1 (dz written once and read twice)
-// and are bound by their bytes again; the dz pass moves 873 MB of it, so
-// its epilogue has TMA bring dy and y into shared memory and take dz and
-// dsc out, double-buffered, while the dx and dW epilogues store from
-// their registers, four consecutive columns a lane.
+// - K5 (ApplyEpi) and K7's dz pass (DzEpi) have TMA bring their [M, N]
+//   inputs into shared memory and take their outputs out, double-buffered
+//   across tiles (K5: the shortcut in, y over it; K7: dy and y in, dz and
+//   dsc out); K7's dx and dW epilogues store from their registers, four
+//   consecutive columns a lane.
+// - K4 (FwdStatsEpi) and K6 (BwdStatsEpi, dy and y staged like K7's) store
+//   nothing but one row of per-column partial sums a 128-row tile, through
+//   one reduction (tile_col_sums): the thread's two rows, then the eight
+//   lanes that share its columns by a butterfly of shuffles that leaves
+//   each lane a distinct eighth of the sums (56 shuffles a thread, not
+//   192), then the eight warps in order through the mainloop's scratch. A
+//   second launch sums the tiles' partials per column in a fixed two-level
+//   order (32 interleaved slices of rows, then the slices in turn; a
+//   one-level sum, one thread a column walking all 1,568 rows in turn, took
+//   0.087 ms at stage 1 against 0.006). A partial row belongs to its
+//   m-tile, not to the block that took the tile, so the sums do not depend
+//   on the grid or the card.
 //
-// K6 in bf16 (bwd_stats_sm90), under the same condition, runs z = x W on
-// that mainloop too, with the dz pass's operands and maps, and a staged
-// epilogue (BwdStatsEpi): TMA brings the tile's dy and y into shared
-// memory, double-buffered across tiles; nothing is stored but one row of
-// per-column partial sums a 128-row tile. Each tile reduces its 128 rows
-// in a fixed order: the thread's two rows, the eight lanes that share its
-// columns by a butterfly of shuffles that leaves each lane a distinct
-// eighth of the sums (56 shuffles a thread, not 192), then the eight warps
-// in order through shared memory. A second launch sums the tiles'
-// partials per column in a fixed two-level order (32 interleaved slices of
-// rows, then the slices in turn; a one-level sum, one thread a column
-// walking all 1,568 rows in turn, took 0.087 ms at stage 1 against
-// 0.006). K6 moves 462 MB at stage 1 and computes 26 GFLOP, so it is
-// bound by its bytes once the products run at wgmma's rate. A partial
-// row belongs to its m-tile, not to the block that took the tile, so the
-// sums do not depend on the grid or the card.
+// The first paths, for f32 and for shapes TMA cannot read: a block of 256
+// threads owns a 128 x 128 output tile and walks the reduction through
+// single-buffered shared memory, two barriers a step, no asynchronous
+// copies. For bf16 the products run on mma.sync m16n8k16 (mainloop_mma: 8
+// warps of 64 x 32 fragments, 32 k a step, 16-byte loads where rows are
+// aligned), then the fragments go through a 67.6 KB f32 shared tile into
+// the thread tile the epilogues read (each thread owns an 8 x 8 block).
+// For f32 the same tile runs plain f32 FMA (mainloop_fma; the tensor
+// cores' f32 path, TF32, would round the inputs). These loops run at 30-70
+// TFLOP/s, so they, and not the bytes, bound those passes.
 //
 // Determinism: no float atomics. K4 and K6 on the first mainloops reduce
 // over M in a fixed order: each block walks a fixed set of m-tiles and
 // adds each thread's per-column partials to its own slots in shared
 // memory, the 16 row groups of a block are summed in order, and a second
-// launch (sum_partials, the one K6's sm90 path uses) sums the blocks'
+// launch (sum_partials, the one the sm90 paths use) sums the blocks'
 // partials in its fixed two-level order. The epilogues read their
 // per-column vectors from shared memory, which keeps every pass within 128
 // registers.
@@ -89,6 +94,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <initializer_list>
 #include <type_traits>
 
 #include "sm90_gemm.cuh"
@@ -905,8 +911,8 @@ struct DzEpi {
 
   __device__ __forceinline__ void store(const float (&acc)[64],
                                         const float (*cv)[sm90::BN],
-                                        unsigned char* st, int, int, int,
-                                        int wg) const {
+                                        unsigned char* st, float*, int, int,
+                                        int, int wg) const {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = sm90::Frag::row(wg, h);
@@ -945,8 +951,8 @@ struct DxEpi {
 
   __device__ __forceinline__ void store(const float (&acc)[64],
                                         const float (*)[sm90::BN],
-                                        unsigned char*, int i0, int j0, int,
-                                        int wg) const {
+                                        unsigned char*, float*, int i0,
+                                        int j0, int, int wg) const {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = i0 + sm90::Frag::row(wg, h);
@@ -972,8 +978,8 @@ struct DwEpi {
 
   __device__ __forceinline__ void store(const float (&acc)[64],
                                         const float (*)[sm90::BN],
-                                        unsigned char*, int i0, int j0, int z,
-                                        int wg) const {
+                                        unsigned char*, float*, int i0,
+                                        int j0, int z, int wg) const {
     float* o = out + static_cast<size_t>(z) * K * N;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -991,15 +997,130 @@ struct DwEpi {
   }
 };
 
-// ---------------------------------------------------------- K6 on sm90
-// z = x W (x K-major, W MN-major) as in the dz pass; for every element
-// g = RELU && !(y > 0) ? 0 : dy and xhat = (round_cd(z) - mean) * inv, in
-// bwd_stats_kernel's f32 order; a tile writes the sums of g and g * xhat
-// over its 128 rows, part[0][i0 / 128][j0 + c] and part[1][...]. Rows past
-// M read dy = 0 (TMA's zeros), so they add nothing. dy and y come in by
-// TMA as in DzEpi; nothing goes out that way, so store_staged is empty and
-// the staged buffer, once every warp has read it, holds the cross-warp
-// reduction.
+// ------------------------------------------------- K4 and K6 on sm90
+// The column sums of one 128 x 128 tile, for K4's and K6's epilogues:
+// term(h, j, p, q) gives the thread's two terms of each kind (p, q) in
+// row Frag::row(wg, h), columns 8 j + 2 t and 8 j + 2 t + 1 (t = lane % 4,
+// the columns of acc[4 j + 2 h] and acc[4 j + 2 h + 1]); the tile's sums
+// of p and of q over its 128 rows go to part[0][i0 / 128][j0 + c] and
+// part[1][...], in a fixed order: the thread's two rows, the eight lanes
+// that share its columns by a butterfly of shuffles, then the eight warps
+// in order through red, the mainloop's scratch (16 x 128 f32).
+__device__ __forceinline__ int sum_col(int c, int t) {  // v[c]'s column
+  return 8 * (c >> 1) + 2 * t + (c & 1);
+}
+
+template <typename Term>
+__device__ __forceinline__ void tile_col_sums(const Term& term, float* red,
+                                              float* part, int R, int N,
+                                              int i0, int j0) {
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  // v[c] = the thread's sum of p over its two rows in column sum_col(c),
+  // v[32 + c] that of q (j outer, so that each sum of acc dies as its
+  // two terms are taken)
+  float v[64];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float p[2], q[2];
+      term(h, j, p, q);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 2 * j + e;
+        if (h == 0) {
+          v[c] = p[e];
+          v[32 + c] = q[e];
+        } else {
+          v[c] += p[e];
+          v[32 + c] += q[e];
+        }
+      }
+    }
+  }
+  // The eight lanes with the same t (lane bits 2-4) hold the same
+  // columns. Each round pairs lanes across one bit: a lane keeps the
+  // half of its sums named by that bit, adds its partner's copy of that
+  // half, and hands over the other. After three rounds lane
+  // (b4, b3, b2, t) holds, in v[i] (i < 8), the warp's sum of index
+  // 32 b4 + 16 b3 + 8 b2 + i.
+  const int b4 = (lane >> 4) & 1, b3 = (lane >> 3) & 1, b2 = (lane >> 2) & 1;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const float send = b4 ? v[i] : v[32 + i];
+    const float keep = b4 ? v[32 + i] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
+  }
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const float send = b3 ? v[i] : v[16 + i];
+    const float keep = b3 ? v[16 + i] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float send = b2 ? v[i] : v[8 + i];
+    const float keep = b2 ? v[8 + i] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, 4);
+  }
+  // the eight warps in order: red[2 w + k][c]. The mainloop's barrier at
+  // the start of the tile keeps the last tile's readers off red.
+  const int w = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    red[(2 * w + b4) * sm90::BN + sum_col(16 * b3 + 8 * b2 + i, t)] = v[i];
+  sm90::consumer_sync();
+  const int k = threadIdx.x >> 7, c = threadIdx.x & 127;
+  if (j0 + c < N) {
+    float sum = 0.f;
+#pragma unroll
+    for (int q = 0; q < sm90::kConsumers / 32; ++q)
+      sum += red[(2 * q + k) * sm90::BN + c];
+    part[(static_cast<size_t>(k) * R + i0 / sm90::BM) * N + j0 + c] = sum;
+  }
+}
+
+// K4: z = x W (x K-major, W MN-major) as in K7's dz pass; for every
+// element zs = round_cd(z) - shift, and the tile's sums of zs and zs * zs
+// (stats_kernel's f32 operations) over its rows below M. Rows past M read
+// x = 0 (TMA's zeros) but would add -shift, so they are left out.
+struct FwdStatsEpi {
+  static constexpr uint32_t kStagedBytes = 0;
+  const float* shift;
+  float* part;  // [2][R][N], R = ceil(M / 128)
+  int M, N, R;
+
+  __device__ __forceinline__ void stage(float (*cv)[sm90::BN], int j0) const {
+    for (int c = threadIdx.x; c < sm90::BN; c += sm90::kConsumers)
+      cv[0][c] = j0 + c < N ? shift[j0 + c] : 0.f;
+  }
+
+  __device__ __forceinline__ void store(const float (&acc)[64],
+                                        const float (*cv)[sm90::BN],
+                                        unsigned char*, float* red, int i0,
+                                        int j0, int, int wg) const {
+    const int t = threadIdx.x & 3;
+    tile_col_sums(
+        [&](int h, int j, float (&p)[2], float (&q)[2]) {
+          const int r = sm90::Frag::row(wg, h);
+          const bool in = i0 + r < M;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float zs = round_cd<bf16>(acc[4 * j + 2 * h + e]) -
+                             cv[0][8 * j + 2 * t + e];
+            p[e] = in ? zs : 0.f;
+            q[e] = in ? zs * zs : 0.f;
+          }
+        },
+        red, part, R, N, i0, j0);
+  }
+};
+
+// K6: z = x W as for K4; for every element g = RELU && !(y > 0) ? 0 : dy
+// and xhat = (round_cd(z) - mean) * inv, in bwd_stats_kernel's f32 order,
+// and the tile's sums of g and g * xhat. Rows past M read dy = 0 (TMA's
+// zeros), so they add nothing. dy and y come in by TMA as in DzEpi;
+// nothing goes out that way, so store_staged is empty.
 template <bool RELU>
 struct BwdStatsEpi {
   static constexpr uint32_t kStagedBytes = 2 * 128 * 128 * 2;  // dy, y
@@ -1030,91 +1151,133 @@ struct BwdStatsEpi {
     }
   }
 
-  // Lane t's column of its sums v[c], c < 32 (n8 block c / 2, e = c % 2).
-  __device__ __forceinline__ static int col_of(int c, int t) {
-    return 8 * (c >> 1) + 2 * t + (c & 1);
+  __device__ __forceinline__ void store(const float (&acc)[64],
+                                        const float (*cv)[sm90::BN],
+                                        unsigned char* st, float* red, int i0,
+                                        int j0, int, int wg) const {
+    const int t = threadIdx.x & 3;
+    tile_col_sums(
+        [&](int h, int j, float (&p)[2], float (&q)[2]) {
+          // dy and y two columns at a time
+          const uint32_t off =
+              sm90::staged_off(sm90::Frag::row(wg, h), 8 * j + 2 * t);
+          const float2 dy2 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(st + off));
+          const float2 y2 = __bfloat1622float2(*reinterpret_cast<
+              const __nv_bfloat162*>(st + 4 * sm90::kBoxBytes + off));
+          const float dyv[2] = {dy2.x, dy2.y}, yv[2] = {y2.x, y2.y};
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = 8 * j + 2 * t + e;
+            const float xhat =
+                (round_cd<bf16>(acc[4 * j + 2 * h + e]) - cv[0][col]) *
+                cv[1][col];
+            const float gj = (RELU && !(yv[e] > 0.f)) ? 0.f : dyv[e];
+            p[e] = gj;
+            q[e] = gj * xhat;
+          }
+        },
+        red, part, R, N, i0, j0);
+  }
+};
+
+// ---------------------------------------------------------- K5 on sm90
+// z = x W as for K4; y = relu?(round_cd(z) * scale + sh + shortcut), the
+// f32 operations of apply_kernel in its order. The tile's shortcut comes
+// in by TMA (four 64 x 64 boxes, 32 KB; the mainloop's staged epilogue),
+// each lane turns its four columns of it into y in place, and TMA writes
+// y out: zeros come in outside the matrix and nothing goes out there, so
+// the epilogue needs no edge checks.
+template <bool RELU>
+struct ApplyEpi {
+  static constexpr uint32_t kStagedBytes = 128 * 128 * 2;  // sc, then y
+  CUtensorMap msc, my;
+  const float *scale, *sh;
+  int N;
+
+  __device__ __forceinline__ void load_staged(unsigned char* st,
+                                              uint64_t* bar, int i0,
+                                              int j0) const {
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      sm90::tma_load(st + b * sm90::kBoxBytes, &msc, bar, j0 + 64 * (b & 1),
+                     i0 + 64 * (b >> 1));
+  }
+
+  __device__ __forceinline__ void store_staged(const unsigned char* st,
+                                               int i0, int j0) const {
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      sm90::tma_store(&my, st + b * sm90::kBoxBytes, j0 + 64 * (b & 1),
+                      i0 + 64 * (b >> 1));
+  }
+
+  __device__ __forceinline__ void stage(float (*cv)[sm90::BN], int j0) const {
+    for (int c = threadIdx.x; c < sm90::BN; c += sm90::kConsumers) {
+      const int col = j0 + c;
+      cv[0][c] = col < N ? scale[col] : 0.f;
+      cv[1][c] = col < N ? sh[col] : 0.f;
+    }
   }
 
   __device__ __forceinline__ void store(const float (&acc)[64],
                                         const float (*cv)[sm90::BN],
-                                        unsigned char* st, int i0, int j0,
+                                        unsigned char* st, float*, int, int,
                                         int, int wg) const {
-    const int lane = threadIdx.x & 31, t = lane & 3;
-    // v[c] = the thread's sum of g over its two rows in column col_of(c),
-    // v[32 + c] that of g * xhat (acc[4 j + 2 h + e] is row h, column
-    // 8 j + 2 t + e; dy and y are read two columns at a time)
-    float v[64];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = sm90::Frag::row(wg, h);
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const uint32_t off = sm90::staged_off(r, 8 * j + 2 * t);
-        const float2 dy2 = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(st + off));
-        const float2 y2 = __bfloat1622float2(*reinterpret_cast<
-            const __nv_bfloat162*>(st + 4 * sm90::kBoxBytes + off));
-        const float dyv[2] = {dy2.x, dy2.y}, yv[2] = {y2.x, y2.y};
+      for (int m = 0; m < 8; ++m) {
+        float zv[4];
+        sm90::Frag::quad(acc, h, m, zv);
+        const int c = sm90::Frag::col4(m);
+        uint2* ps = reinterpret_cast<uint2*>(st + sm90::staged_off(r, c));
+        float v[4];
+        unpack_bf4(*ps, v);
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = 2 * j + e, col = 8 * j + 2 * t + e;
-          const float xhat =
-              (round_cd<bf16>(acc[4 * j + 2 * h + e]) - cv[0][col]) *
-              cv[1][col];
-          const float gj = (RELU && !(yv[e] > 0.f)) ? 0.f : dyv[e];
-          if (h == 0) {
-            v[c] = gj;
-            v[32 + c] = gj * xhat;
-          } else {
-            v[c] += gj;
-            v[32 + c] += gj * xhat;
-          }
+        for (int e = 0; e < 4; ++e) {
+          float o =
+              round_cd<bf16>(zv[e]) * cv[0][c + e] + cv[1][c + e] + v[e];
+          if (RELU) o = fmaxf(o, 0.f);
+          v[e] = o;
         }
+        *ps = pack_bf4(v);
       }
-    }
-    // The eight lanes with the same t (lane bits 2-4) hold the same
-    // columns. Each round pairs lanes across one bit: a lane keeps the
-    // half of its sums named by that bit, adds its partner's copy of that
-    // half, and hands over the other. After three rounds lane
-    // (b4, b3, b2, t) holds, in v[i] (i < 8), the warp's sum of index
-    // 32 b4 + 16 b3 + 8 b2 + i.
-    const int b4 = (lane >> 4) & 1, b3 = (lane >> 3) & 1, b2 = (lane >> 2) & 1;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const float send = b4 ? v[i] : v[32 + i];
-      const float keep = b4 ? v[32 + i] : v[i];
-      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
-    }
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const float send = b3 ? v[i] : v[16 + i];
-      const float keep = b3 ? v[16 + i] : v[i];
-      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float send = b2 ? v[i] : v[8 + i];
-      const float keep = b2 ? v[8 + i] : v[i];
-      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, 4);
-    }
-    // the eight warps in order, through the staged buffer: red[w][k][c]
-    sm90::consumer_sync();  // every warp has read its dy and y
-    float* red = reinterpret_cast<float*>(st);
-    const int w = threadIdx.x >> 5;
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      red[(2 * w + b4) * sm90::BN + col_of(16 * b3 + 8 * b2 + i, t)] = v[i];
-    sm90::consumer_sync();
-    const int k = threadIdx.x >> 7, c = threadIdx.x & 127;
-    if (j0 + c < N) {
-      float sum = 0.f;
-#pragma unroll
-      for (int q = 0; q < sm90::kConsumers / 32; ++q)
-        sum += red[(2 * q + k) * sm90::BN + c];
-      part[(static_cast<size_t>(k) * R + i0 / sm90::BM) * N + j0 + c] = sum;
     }
   }
 };
+
+cudaError_t stats_sm90(const void* x, const void* w, const float* shift,
+                       float* part, float* out, int M, int K, int N, int R,
+                       cudaStream_t st) {
+  CUtensorMap mx, mw;
+  cudaError_t e = sm90::make_map(&mx, x, M, K);
+  if (e == cudaSuccess) e = sm90::make_map(&mw, w, K, N);
+  if (e != cudaSuccess) return e;
+  // z [M, N] = x W: A(m, k) = x[m][k] K-major, B(k, n) = W[k][n] MN-major
+  e = sm90::launch<true, false>(mx, mw, M, N, K, K, 1,
+                                FwdStatsEpi{shift, part, M, N, R}, st);
+  if (e != cudaSuccess) return e;
+  return launch_sum_partials(part, out, R, N, st);
+}
+
+template <bool RELU>
+cudaError_t apply_sm90(const void* x, const void* w, const float* scale,
+                       const float* sh, const void* sc, void* y, int M, int K,
+                       int N, cudaStream_t st) {
+  CUtensorMap mx, mw;
+  ApplyEpi<RELU> epi;
+  cudaError_t e = sm90::make_map(&mx, x, M, K);
+  if (e == cudaSuccess) e = sm90::make_map(&mw, w, K, N);
+  if (e == cudaSuccess) e = sm90::make_map(&epi.msc, sc, M, N);
+  if (e == cudaSuccess) e = sm90::make_map(&epi.my, y, M, N);
+  if (e != cudaSuccess) return e;
+  epi.scale = scale;
+  epi.sh = sh;
+  epi.N = N;
+  return sm90::launch<true, false>(mx, mw, M, N, K, K, 1, epi, st);
+}
 
 template <bool RELU>
 cudaError_t bwd_stats_sm90(const void* x, const void* w, const float* mean,
@@ -1184,6 +1347,15 @@ cudaError_t bwd_apply_sm90(const void* x, const void* w, const float* mean,
   return cudaGetLastError();
 }
 
+// The sm90 paths take only what TMA reads: K and N multiples of 8 (rows of
+// 16 bytes) and every array 16-byte aligned.
+bool tma_reads(int K, int N, std::initializer_list<const void*> ps) {
+  bool ok = K % 8 == 0 && N % 8 == 0;
+  for (const void* p : ps)
+    ok = ok && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  return ok;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1225,6 +1397,31 @@ int dl4j_fused_apply(int dtype, const void* x, const void* w,
   return cudaErrorInvalidValue;
 }
 
+// K4, bf16, on the sm90 mainloop: the arguments and outputs of
+// dl4j_fused_stats, but part is [2, R, N] with R = ceil(M / 128), one row
+// of partials a 128-row tile. Two launches.
+int dl4j_fused_stats_sm90(const void* x, const void* w, const float* shift,
+                          float* part, float* out, int M, int K, int N,
+                          int R, void* stream) {
+  if (M < 1 || K < 1 || N < 1 || !tma_reads(K, N, {x, w}) ||
+      R != (M + sm90::BM - 1) / sm90::BM)
+    return cudaErrorInvalidValue;
+  return stats_sm90(x, w, shift, part, out, M, K, N, R,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// K5, bf16, on the sm90 mainloop: the arguments and outputs of
+// dl4j_fused_apply. One launch.
+int dl4j_fused_apply_sm90(const void* x, const void* w, const float* scale,
+                          const float* sh, const void* sc, void* y, int M,
+                          int K, int N, int relu, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (M < 1 || K < 1 || N < 1 || !tma_reads(K, N, {x, w, sc, y}))
+    return cudaErrorInvalidValue;
+  return relu ? apply_sm90<true>(x, w, scale, sh, sc, y, M, K, N, st)
+              : apply_sm90<false>(x, w, scale, sh, sc, y, M, K, N, st);
+}
+
 // K6: part is [2, R, N] scratch, out [2, N] = (a, b).
 int dl4j_fused_bwd_stats(int dtype, const void* x, const void* w,
                          const float* mean, const float* inv, const void* dy,
@@ -1246,20 +1443,15 @@ int dl4j_fused_bwd_stats(int dtype, const void* x, const void* w,
 }
 
 // K6, bf16, on the sm90 mainloop: the arguments and outputs of
-// dl4j_fused_bwd_stats, but part is [2, R, N] with R = ceil(M / 128), one
-// row of partials a 128-row tile. Takes only what TMA reads: K and N
-// multiples of 8 and x, W, dy and y 16-byte aligned. Two launches.
+// dl4j_fused_bwd_stats, with part as for dl4j_fused_stats_sm90. Two
+// launches.
 int dl4j_fused_bwd_stats_sm90(const void* x, const void* w,
                               const float* mean, const float* inv,
                               const void* dy, const void* y, float* part,
                               float* out, int M, int K, int N, int R,
                               int relu, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  const void* arrays[] = {x, w, dy, y};
-  bool aligned = true;
-  for (const void* p : arrays)
-    aligned = aligned && reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  if (M < 1 || K < 1 || N < 1 || K % 8 != 0 || N % 8 != 0 || !aligned ||
+  if (M < 1 || K < 1 || N < 1 || !tma_reads(K, N, {x, w, dy, y}) ||
       R != (M + sm90::BM - 1) / sm90::BM)
     return cudaErrorInvalidValue;
   return relu ? bwd_stats_sm90<true>(x, w, mean, inv, dy, y, part, out, M, K,
@@ -1300,9 +1492,9 @@ int dl4j_fused_bwd_apply(int dtype, const void* x, const void* w,
 }
 
 // K7, bf16, on the sm90 mainloop: the arguments and outputs of
-// dl4j_fused_bwd_apply. Takes only what TMA reads: K and N multiples of 8
-// (rows of 16 bytes) and every array 16-byte aligned; chunk a multiple of
-// the 64-row step when S > 1. Three launches, four when S > 1.
+// dl4j_fused_bwd_apply (the f32 dW and its partials 16-byte aligned too);
+// chunk a multiple of the 64-row step when S > 1. Three launches, four
+// when S > 1.
 int dl4j_fused_bwd_apply_sm90(const void* x, const void* w,
                               const float* mean, const float* inv,
                               const float* scale, const float* ca,
@@ -1311,12 +1503,9 @@ int dl4j_fused_bwd_apply_sm90(const void* x, const void* w,
                               float* dw, int M, int K, int N, int S,
                               int chunk, int relu, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  const void* arrays[] = {x, w, dy, y, dz, dsc, dx, dw, dw_part};
-  bool aligned = true;
-  for (const void* p : arrays)
-    aligned = aligned && reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  if (M < 1 || K < 1 || N < 1 || S < 1 || chunk < 1 || K % 8 != 0 ||
-      N % 8 != 0 || !aligned || (S > 1 && chunk % sm90::BK != 0) ||
+  if (M < 1 || K < 1 || N < 1 || S < 1 || chunk < 1 ||
+      !tma_reads(K, N, {x, w, dy, y, dz, dsc, dx, dw, dw_part}) ||
+      (S > 1 && chunk % sm90::BK != 0) ||
       static_cast<long long>(S) * chunk < M)
     return cudaErrorInvalidValue;
   return relu ? bwd_apply_sm90<true>(x, w, mean, inv, scale, ca, cb, dy, y,

@@ -8,9 +8,10 @@
 //
 // - warp 8, the producer: one thread issues, for each step, four TMA
 //   loads (cp.async.bulk.tensor, 64 x 64 bf16 boxes, 128-byte swizzle)
-//   into one of the ring's stages (kStages = 3; 2 beside a staged
-//   epilogue), after waiting on that stage's `empty` mbarrier; the loads
-//   complete on its `full` mbarrier;
+//   into one of the ring's stages (kStages = 3; 2 where a staged
+//   epilogue's buffers leave no room for the third, ring_stages), after
+//   waiting on that stage's `empty` mbarrier; the loads complete on its
+//   `full` mbarrier;
 // - warps 0-7, two consumer warpgroups: each waits on `full`, issues four
 //   wgmma.mma_async m64n128k16 (its 64 rows of the tile), waits for them
 //   with wgmma.wait_group and only then releases the stage on `empty`
@@ -22,7 +23,9 @@
 // registers, or (Epi::kStagedBytes > 0) has TMA bring its inputs into
 // shared memory and take its outputs out, double-buffered across tiles
 // (tma_wgmma_gemm says how); a lane's loads then wait on one barrier
-// instead of on each load's latency in turn.
+// instead of on each load's latency in turn. Every epilogue also gets an
+// 8 KB scratch region of shared memory (kScratchBytes: 16 x 128 f32, what
+// a cross-warp column sum of the tile needs), its own for the tile.
 //
 // Operands. A(i, r) is [rows][R] or [R][rows] in memory, B(r, j) is
 // [cols][R] or [R][cols]: each is "K-major" (the reduction index r is the
@@ -55,11 +58,11 @@
 // The reduction over r runs in one fixed order (the steps in turn, k16 by
 // k16 inside each), so two launches give the same bits.
 //
-// Users: fused_block.cu's K6 (one GEMM with a column-sum epilogue) and K7
-// (three GEMMs). flash_attn_fwd.cu takes only the building blocks (the
-// barriers, the 4-D TMA load and store, the descriptors, wgmma m64n64k16
-// from shared memory and m64n{64,128}k16 with A from registers), not the
-// mainloop.
+// Users: fused_block.cu's K4 and K6 (one GEMM each with a column-sum
+// epilogue), K5 (one GEMM with a staged epilogue) and K7 (three GEMMs).
+// flash_attn_fwd.cu takes only the building blocks (the barriers, the 4-D
+// TMA load and store, the descriptors, wgmma m64n64k16 from shared memory
+// and m64n{64,128}k16 with A from registers), not the mainloop.
 
 #pragma once
 
@@ -81,6 +84,8 @@ constexpr uint32_t kBoxBytes = kBox * kBox * 2;   // 8 KB
 constexpr uint32_t kTileBytes = 2 * kBoxBytes;    // one operand's stage
 constexpr uint32_t kStageBytes = 2 * kTileBytes;  // A and B
 constexpr int kCols = 8;                   // per-column f32 vectors
+constexpr uint32_t kScratchBytes = 16 * BN * sizeof(float);  // 8 KB
+constexpr size_t kMaxSmem = 232448;        // the most a block may have
 // a barrier wait that lasts this many cycles (~5 s) is a fault: trap
 // rather than hang the card
 constexpr long long kHangCycles = 1LL << 33;
@@ -413,23 +418,35 @@ __device__ __forceinline__ uint32_t staged_off(int r, int c) {
          ((((cb >> 4) ^ (rr & 7)) << 4) | (cb & 15));
 }
 
-// The ring's depth: an epilogue staged through shared memory takes two of
-// its stages' room for a second staging buffer.
+// Shared memory beside the ring and the staging buffers: the alignment
+// slack, the barriers, cv and the epilogue's scratch.
+constexpr size_t kFixedBytes = 1024 + (2 * kStages + 4) * sizeof(uint64_t) +
+                               kCols * BN * sizeof(float) + kScratchBytes;
+
+// The ring's depth: kStages, unless an epilogue's two staging buffers leave
+// no room for them (64 KB buffers, K6's and K7's dz pass: 2 stages; 32 KB,
+// K5's: 3).
 template <typename Epi>
 __host__ __device__ constexpr int ring_stages() {
-  return Epi::kStagedBytes ? 2 : kStages;
+  return kStages * kStageBytes + 2 * Epi::kStagedBytes + kFixedBytes <=
+                 kMaxSmem
+             ? kStages
+             : 2;
 }
 
 template <typename Epi>
 constexpr size_t smem_bytes() {
-  return ring_stages<Epi>() * kStageBytes + 2 * Epi::kStagedBytes + 1024 +
-         (2 * kStages + 4) * sizeof(uint64_t) + kCols * BN * sizeof(float);
+  return ring_stages<Epi>() * kStageBytes + 2 * Epi::kStagedBytes +
+         kFixedBytes;
 }
 
 // Persistent: block b takes tiles b, b + gridDim.x, ... For each tile,
 // acc = sum over r in [z * chunk, min(R, (z + 1) * chunk)) of A(i, r)
-// B(r, j), then epi.store(acc, cv, staged, i0, j0, z, wg). A is read
-// through map ma, B through mb (see the head of this file for KA / KB).
+// B(r, j), then epi.store(acc, cv, staged, scratch, i0, j0, z, wg), where
+// scratch is kScratchBytes of shared memory that no one else touches
+// between the consumers' barrier at the start of the tile and the one at
+// the start of the next. A is read through map ma, B through mb (see the
+// head of this file for KA / KB).
 // The producer runs up to ring_stages steps ahead, across tiles, so the
 // next tile's loads overlap this tile's epilogue. At the start of each
 // tile the consumers call epi.stage(cv, j0), which may fill
@@ -445,7 +462,8 @@ constexpr size_t smem_bytes() {
 // waits until the consumers are done with tile n - 1 (staged_done) and
 // has epi.store_staged write that buffer out. So tile n's inputs arrive
 // while the consumers work on tile n - 1. Such a kernel holds one block
-// a multiprocessor; the others two.
+// a multiprocessor; the others two (smem_bytes stays under half of the
+// multiprocessor's 228 KB).
 template <bool KA, bool KB, typename Epi>
 __global__ void __launch_bounds__(kThreads, Epi::kStagedBytes ? 1 : 2)
     tma_wgmma_gemm(const __grid_constant__ CUtensorMap ma,
@@ -463,6 +481,7 @@ __global__ void __launch_bounds__(kThreads, Epi::kStagedBytes ? 1 : 2)
   uint64_t* staged_full = empty + kStages;  // [2]
   uint64_t* staged_done = staged_full + 2;  // [2]
   float(*cv)[BN] = reinterpret_cast<float(*)[BN]>(staged_done + 2);
+  float* scratch = &cv[kCols][0];
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int s = 0; s < kRing; ++s) {
@@ -575,7 +594,8 @@ __global__ void __launch_bounds__(kThreads, Epi::kStagedBytes ? 1 : 2)
       mbar_wait(&staged_full[q], (n >> 1) & 1);
       __syncwarp();
     }
-    epi.store(acc, cv, staged + q * Epi::kStagedBytes, i0, j0, z, wg);
+    epi.store(acc, cv, staged + q * Epi::kStagedBytes, scratch, i0, j0, z,
+              wg);
     if constexpr (kStaged) {
       fence_proxy_async();
       __syncwarp();
@@ -635,6 +655,10 @@ cudaError_t launch(const CUtensorMap& ma, const CUtensorMap& mb, int rows,
                    cudaStream_t st) {
   auto kern = tma_wgmma_gemm<KA, KB, Epi>;
   constexpr size_t smem = smem_bytes<Epi>();
+  static_assert(smem <= kMaxSmem, "the epilogue's buffers do not fit");
+  // a multiprocessor holds 228 KB, 1 KB of it reserved for each block
+  static_assert(Epi::kStagedBytes > 0 || 2 * (smem + 1024) <= 228 * 1024,
+                "two blocks of an unstaged epilogue no longer fit");
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

@@ -20,12 +20,14 @@ here (``*_torch``, used for CPU tensors) and its CUDA wrapper (``*_cuda``,
 csrc/fused_block.cu, used for CUDA tensors; it raises on what the kernel
 does not take and never falls back, and counts every device launch it
 makes under the kernel's name: K4 and K6 make two, K7 three or four).
-K6 and K7 in bf16 take the Hopper path (TMA + wgmma, csrc/sm90_gemm.cuh)
+In bf16 all four take the Hopper path (TMA + wgmma, csrc/sm90_gemm.cuh)
 when TMA can read their operands (``takes_sm90``: rows of a multiple of 16
 bytes, 16-byte-aligned bases), and count each such call once more under
-``fused_block_bwd_stats_sm90`` and ``fused_block_bwd_apply_sm90``; any
-other call takes the first mainloops. The choice is by dtype, shape and
-alignment only: a failure raises.
+their ``*_sm90`` counter (``SM90_COUNTER``: ``fused_block_stats_sm90``,
+``fused_block_apply_sm90``, ``fused_block_bwd_stats_sm90``,
+``fused_block_bwd_apply_sm90``); any other call takes the first
+mainloops. The choice is by dtype, shape and alignment only: a failure
+raises.
 ``conv1x1_bn_add_relu`` is the op the block-fusion pass calls
 (nn/fusion.py); ``FusedTailFn`` is its ``torch.autograd.Function``.
 
@@ -48,8 +50,16 @@ STATS, APPLY, BWD_STATS, BWD_APPLY = (
     "fused_block_stats", "fused_block_apply", "fused_block_bwd_stats",
     "fused_block_bwd_apply")
 # calls on the sm90 path
+STATS_SM90 = "fused_block_stats_sm90"
+APPLY_SM90 = "fused_block_apply_sm90"
 BWD_STATS_SM90 = "fused_block_bwd_stats_sm90"
 BWD_APPLY_SM90 = "fused_block_bwd_apply_sm90"
+SM90_COUNTER = {STATS: STATS_SM90, APPLY: APPLY_SM90,
+                BWD_STATS: BWD_STATS_SM90, BWD_APPLY: BWD_APPLY_SM90}
+# each kernel's entry point on the first mainloops (dtype code first);
+# its sm90 entry point is the same name + "_sm90", without the code
+_ENTRY = {STATS: "dl4j_fused_stats", APPLY: "dl4j_fused_apply",
+          BWD_STATS: "dl4j_fused_bwd_stats", BWD_APPLY: "dl4j_fused_bwd_apply"}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # the kernel's tile (dl4j_fused_tile_rows/cols), and the number of blocks
@@ -155,13 +165,12 @@ def _bind():
     lib.dl4j_fused_apply.argtypes = [i] + [p] * 6 + [i] * 4 + [p]
     lib.dl4j_fused_bwd_stats.argtypes = [i] + [p] * 8 + [i] * 5 + [p]
     lib.dl4j_fused_bwd_apply.argtypes = [i] + [p] * 14 + [i] * 6 + [p]
-    lib.dl4j_fused_bwd_apply_sm90.argtypes = [p] * 14 + [i] * 6 + [p]
-    lib.dl4j_fused_bwd_stats_sm90.argtypes = [p] * 8 + [i] * 5 + [p]
-    for fn in (lib.dl4j_fused_stats, lib.dl4j_fused_apply,
-               lib.dl4j_fused_bwd_stats, lib.dl4j_fused_bwd_apply,
-               lib.dl4j_fused_bwd_apply_sm90, lib.dl4j_fused_bwd_stats_sm90,
-               lib.dl4j_fused_sm90_step,
-               lib.dl4j_fused_tile_rows, lib.dl4j_fused_tile_cols):
+    for entry in _ENTRY.values():
+        first, sm90 = getattr(lib, entry), getattr(lib, entry + "_sm90")
+        sm90.argtypes = first.argtypes[1:]  # no dtype code
+        first.restype = sm90.restype = i
+    for fn in (lib.dl4j_fused_sm90_step, lib.dl4j_fused_tile_rows,
+               lib.dl4j_fused_tile_cols):
         fn.restype = i
     lib.dl4j_cuda_error_string.argtypes = [i]
     lib.dl4j_cuda_error_string.restype = ctypes.c_char_p
@@ -183,8 +192,8 @@ def _cdiv(a, b):
 
 def stat_rows(M, N, sm90=False):
     """Rows of partial sums K4 and K6 write: on the first mainloops the
-    m-tiles are dealt to this many blocks per column tile; K6's sm90 path
-    writes one row for each 128-row m-tile."""
+    m-tiles are dealt to this many blocks per column tile; their sm90
+    paths write one row for each 128-row m-tile."""
     if sm90:
         return _cdiv(M, TILE_M)
     return max(1, min(_cdiv(M, TILE_M), _TARGET_BLOCKS // _cdiv(N, TILE_N)))
@@ -212,11 +221,11 @@ def launches_per_call(name, M, K, N, sm90=False):
 
 
 def takes_sm90(x2, W, *mn):
-    """Whether K6 and K7 run on the sm90 path (TMA + wgmma) for x [M, K],
-    W [K, N] and the [M, N] tensors ``mn`` (dy, y): bf16, K and N
-    multiples of 8 (every row a multiple of 16 bytes) and every base
-    16-byte aligned. The outputs and scratch the wrappers allocate are
-    aligned by the allocator."""
+    """Whether K4-K7 run on the sm90 path (TMA + wgmma) for x [M, K],
+    W [K, N] and the [M, N] tensors ``mn`` each reads (K4 none, K5 the
+    shortcut, K6 and K7 dy and y): bf16, K and N multiples of 8 (every row
+    a multiple of 16 bytes) and every base 16-byte aligned. The outputs
+    and scratch the wrappers allocate are aligned by the allocator."""
     return (x2.dtype == torch.bfloat16 and x2.shape[-1] % 8 == 0
             and W.shape[-1] % 8 == 0
             and all(t.data_ptr() % 16 == 0 for t in (x2, W, *mn)))
@@ -240,6 +249,19 @@ def _check_cuda(name, *tensors):
 
 def _f32(*vs):
     return [v.float().contiguous() for v in vs]
+
+
+def _launch_routed(lib, name, sm90, code, *args, launches):
+    """Launches kernel ``name`` through its sm90 entry point, counted once
+    more under ``SM90_COUNTER[name]``, or through its first one, which
+    takes the dtype ``code`` first."""
+    if sm90:
+        _launch(lib, name, getattr(lib, _ENTRY[name] + "_sm90"), *args,
+                launches=launches)
+        registry.count_launch(SM90_COUNTER[name])
+    else:
+        _launch(lib, name, getattr(lib, _ENTRY[name]), code, *args,
+                launches=launches)
 
 
 def _launch(lib, name, fn, *args, launches):
@@ -278,13 +300,14 @@ def fused_stats_cuda(x2, W, shift):
     M, K, N, code = _operands(STATS, x2, W)
     (shift,) = _f32(shift)
     lib = _bind()
-    R = stat_rows(M, N)
+    sm90 = takes_sm90(x2, W)
+    R = stat_rows(M, N, sm90)
     part = torch.empty((2, R, N), dtype=torch.float32, device=x2.device)
     out = torch.empty((2, N), dtype=torch.float32, device=x2.device)
-    _launch(lib, STATS, lib.dl4j_fused_stats, code, x2.data_ptr(),
-            W.data_ptr(), shift.data_ptr(), part.data_ptr(), out.data_ptr(),
-            M, K, N, R, x2.device,
-            launches=launches_per_call(STATS, M, K, N))
+    _launch_routed(lib, STATS, sm90, code, x2.data_ptr(), W.data_ptr(),
+                   shift.data_ptr(), part.data_ptr(), out.data_ptr(), M, K,
+                   N, R, x2.device,
+                   launches=launches_per_call(STATS, M, K, N, sm90))
     return out[0], out[1]
 
 
@@ -293,11 +316,12 @@ def fused_apply_cuda(x2, W, scale, sh, sc2, relu):
     M, K, N, code = _operands(APPLY, x2, W, shortcut=sc2)
     scale, sh = _f32(scale, sh)
     lib = _bind()
+    sm90 = takes_sm90(x2, W, sc2)
     y = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
-    _launch(lib, APPLY, lib.dl4j_fused_apply, code, x2.data_ptr(),
-            W.data_ptr(), scale.data_ptr(), sh.data_ptr(), sc2.data_ptr(),
-            y.data_ptr(), M, K, N, int(bool(relu)), x2.device,
-            launches=launches_per_call(APPLY, M, K, N))
+    _launch_routed(lib, APPLY, sm90, code, x2.data_ptr(), W.data_ptr(),
+                   scale.data_ptr(), sh.data_ptr(), sc2.data_ptr(),
+                   y.data_ptr(), M, K, N, int(bool(relu)), x2.device,
+                   launches=launches_per_call(APPLY, M, K, N, sm90))
     return y
 
 
@@ -310,17 +334,11 @@ def fused_bwd_stats_cuda(x2, W, mean, inv, dy2, y2, relu):
     R = stat_rows(M, N, sm90)
     part = torch.empty((2, R, N), dtype=torch.float32, device=x2.device)
     out = torch.empty((2, N), dtype=torch.float32, device=x2.device)
-    args = (x2.data_ptr(), W.data_ptr(), mean.data_ptr(), inv.data_ptr(),
-            dy2.data_ptr(), y2.data_ptr(), part.data_ptr(), out.data_ptr(),
-            M, K, N, R, int(bool(relu)), x2.device)
-    launches = launches_per_call(BWD_STATS, M, K, N, sm90)
-    if sm90:
-        _launch(lib, BWD_STATS, lib.dl4j_fused_bwd_stats_sm90, *args,
-                launches=launches)
-        registry.count_launch(BWD_STATS_SM90)
-    else:
-        _launch(lib, BWD_STATS, lib.dl4j_fused_bwd_stats, code, *args,
-                launches=launches)
+    _launch_routed(lib, BWD_STATS, sm90, code, x2.data_ptr(), W.data_ptr(),
+                   mean.data_ptr(), inv.data_ptr(), dy2.data_ptr(),
+                   y2.data_ptr(), part.data_ptr(), out.data_ptr(), M, K, N,
+                   R, int(bool(relu)), x2.device,
+                   launches=launches_per_call(BWD_STATS, M, K, N, sm90))
     return out[0], out[1]
 
 
@@ -338,19 +356,13 @@ def fused_bwd_apply_cuda(x2, W, mean, inv, scale, ca, cb, dy2, y2, relu):
     dW = torch.empty((K, N), dtype=torch.float32, device=dev)
     part = (torch.empty((S, K, N), dtype=torch.float32, device=dev)
             if S > 1 else dW)
-    args = (x2.data_ptr(), W.data_ptr(), mean.data_ptr(), inv.data_ptr(),
-            scale.data_ptr(), ca.data_ptr(), cb.data_ptr(), dy2.data_ptr(),
-            y2.data_ptr(), dz.data_ptr(), dsc.data_ptr(), dx.data_ptr(),
-            part.data_ptr(), dW.data_ptr(), M, K, N, S, chunk,
-            int(bool(relu)), dev)
-    launches = launches_per_call(BWD_APPLY, M, K, N, sm90)
-    if sm90:
-        _launch(lib, BWD_APPLY, lib.dl4j_fused_bwd_apply_sm90, *args,
-                launches=launches)
-        registry.count_launch(BWD_APPLY_SM90)
-    else:
-        _launch(lib, BWD_APPLY, lib.dl4j_fused_bwd_apply, code, *args,
-                launches=launches)
+    _launch_routed(lib, BWD_APPLY, sm90, code, x2.data_ptr(), W.data_ptr(),
+                   mean.data_ptr(), inv.data_ptr(), scale.data_ptr(),
+                   ca.data_ptr(), cb.data_ptr(), dy2.data_ptr(),
+                   y2.data_ptr(), dz.data_ptr(), dsc.data_ptr(),
+                   dx.data_ptr(), part.data_ptr(), dW.data_ptr(), M, K, N, S,
+                   chunk, int(bool(relu)), dev,
+                   launches=launches_per_call(BWD_APPLY, M, K, N, sm90))
     return dx, dW, dsc
 
 

@@ -295,7 +295,7 @@ def _k7_operands(case, M=64):
 
     return (make(M, K, case == "x_misaligned"),
             make(K, N, case == "w_misaligned"),
-            make(M, N, case == "dy_misaligned"),
+            make(M, N, case in ("dy_misaligned", "sc_misaligned")),
             make(M, N, case == "y_misaligned"))
 
 
@@ -359,39 +359,83 @@ class _Recorder:
         registry.count_launch(kern, launches)
 
 
-@pytest.mark.parametrize("case,want,M", [
+# (case, want, M) for each kernel whose wrapper test_k6_takes_its_path_as_
+# k7_does reads: K4 reads no [M, N] tensor, K5 the shortcut (in dy's
+# place), K6 dy and y
+_K6_CASES = [
     ("bf16", True, 64), ("f32", False, 64), ("k_not_multiple_of_8", False, 64),
     ("n_not_multiple_of_8", False, 64), ("x_misaligned", False, 64),
     ("w_misaligned", False, 64), ("dy_misaligned", False, 64),
     ("y_misaligned", False, 64), ("bf16", True, 1), ("bf16", True, 127),
-    ("bf16", True, 129), ("bf16", True, 777), ("f32", False, 777)])
-def test_k6_takes_its_path_as_k7_does(monkeypatch, case, want, M):
-    """K6's wrapper asks takes_sm90 as K7's does: the sm90 entry point,
-    one row of partials a 128-row m-tile (ragged M included: the rows it
-    passes cover every row of M exactly once) and one more count under
-    fused_block_bwd_stats_sm90 where TMA can read every operand; else the
-    first mainloop, its own partial rows and no sm90 count. Either way it
-    counts launches_per_call's device launches."""
+    ("bf16", True, 129), ("bf16", True, 777), ("f32", False, 777)]
+_K4_CASES = [
+    ("bf16", True, 64), ("f32", False, 64), ("k_not_multiple_of_8", False, 64),
+    ("n_not_multiple_of_8", False, 64), ("x_misaligned", False, 64),
+    ("w_misaligned", False, 64), ("dy_misaligned", True, 64),
+    ("bf16", True, 1), ("bf16", True, 127), ("bf16", True, 129),
+    ("bf16", True, 777), ("f32", False, 777)]
+_K5_CASES = [
+    ("bf16", True, 64), ("f32", False, 64), ("k_not_multiple_of_8", False, 64),
+    ("n_not_multiple_of_8", False, 64), ("x_misaligned", False, 64),
+    ("w_misaligned", False, 64), ("sc_misaligned", False, 64),
+    ("y_misaligned", True, 64), ("bf16", True, 1), ("bf16", True, 129),
+    ("bf16", True, 777), ("f32", False, 777)]
+# where the shape arguments start: after the pointers, and on the first
+# path after the dtype code too
+_N_POINTERS = {tfb.STATS: 5, tfb.APPLY: 6, tfb.BWD_STATS: 8}
+
+
+@pytest.mark.parametrize("kern,case,want,M", [
+    *(pytest.param(tfb.BWD_STATS, c, w, m, id=f"{c}-{w}-{m}")
+      for c, w, m in _K6_CASES),
+    *(pytest.param(tfb.STATS, c, w, m, id=f"k4-{c}-{w}-{m}")
+      for c, w, m in _K4_CASES),
+    *(pytest.param(tfb.APPLY, c, w, m, id=f"k5-{c}-{w}-{m}")
+      for c, w, m in _K5_CASES)])
+def test_k6_takes_its_path_as_k7_does(monkeypatch, kern, case, want, M):
+    """K4's, K5's and K6's wrappers ask takes_sm90 as K7's does, on the
+    operands each reads (K4 x and W, K5 also the shortcut, K6 also dy and
+    y): the sm90 entry point and one more count under its sm90 counter
+    where TMA can read every one of them; else the first mainloop (bf16
+    on mma.sync: a misaligned shortcut sends K5 there) and no sm90 count.
+    K4 and K6 on the sm90 path pass one row of partials a 128-row m-tile
+    (ragged M included: the rows cover every row of M exactly once), on
+    the first path their own partial rows. Either way each counts
+    launches_per_call's device launches."""
     x, W, dy, y = _k7_operands(case, M)
     M, K = x.shape
     N = W.shape[1]
     rec = _Recorder(monkeypatch)
     registry.reset_launches()
     with torch.no_grad():
-        tfb.fused_bwd_stats_cuda(x, W, torch.zeros(N), torch.ones(N), dy, y,
+        if kern == tfb.STATS:
+            tfb.fused_stats_cuda(x, W, torch.zeros(N))
+            mn = ()
+        elif kern == tfb.APPLY:
+            tfb.fused_apply_cuda(x, W, torch.ones(N), torch.zeros(N), dy,
                                  True)
+            mn = (dy,)
+        else:
+            tfb.fused_bwd_stats_cuda(x, W, torch.zeros(N), torch.ones(N), dy,
+                                     y, True)
+            mn = (dy, y)
     (fn, args, launches), = rec.calls
-    assert tfb.takes_sm90(x, W, dy, y) is want
+    assert tfb.takes_sm90(x, W, *mn) is want
+    first = tfb._ENTRY[kern]
+    assert fn == (first + "_sm90" if want else first)
+    at = _N_POINTERS[kern]
+    if not want:
+        assert args[0] == tfb._DTYPE_CODES[x.dtype]
+        at += 1
+    assert args[at:at + 3] == (M, K, N)
+    if kern != tfb.APPLY:
+        R = args[at + 3]
+        if want:
+            assert R * tfb.TILE_M >= M > (R - 1) * tfb.TILE_M
+        else:
+            assert R == tfb.stat_rows(M, N)
+    assert launches == tfb.launches_per_call(kern, M, K, N, want)
+    want_counts = {kern: launches}
     if want:
-        assert fn == "dl4j_fused_bwd_stats_sm90"
-        assert args[8:11] == (M, K, N)
-        R = args[11]
-        assert R * tfb.TILE_M >= M > (R - 1) * tfb.TILE_M
-    else:
-        assert fn == "dl4j_fused_bwd_stats"
-        assert args[9:13] == (M, K, N, tfb.stat_rows(M, N))
-    assert launches == tfb.launches_per_call(tfb.BWD_STATS, M, K, N, want)
-    want_counts = {tfb.BWD_STATS: launches}
-    if want:
-        want_counts[tfb.BWD_STATS_SM90] = 1
+        want_counts[tfb.SM90_COUNTER[kern]] = 1
     assert registry.launches() == want_counts
