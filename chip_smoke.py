@@ -44,13 +44,27 @@ sum of its partials, and
     python3 chip_smoke.py --fwd-split
 
 times K4 and K5 the same way, each path twice, in the order mma.sync,
-sm90, sm90, mma.sync.
+sm90, sm90, mma.sync, and
 
-K3 (bf16) and K4-K7 (bf16, where TMA can read their operands) run on
-Hopper kernels (TMA loads, wgmma products); the phases hold each of
-those, and the first kernels kept callable beside them, against the plain
-versions, and count the new routes' launches under their own counters
-(flash_attn_fwd_sm90, fused_block_stats_sm90, fused_block_apply_sm90,
+    python3 chip_smoke.py --lstm-split
+
+times K1 and K2 at the char-RNN's shape (T = 64, b = 32, n = 512, bf16)
+on their grid route and their cluster route in turns (grid, cluster,
+cluster, grid), each with its T sweep (cost per step, fixed cost), and
+K2's cluster route split by launch (chain, dp sum, dWh), and
+
+    python3 chip_smoke.py --lstm-parts
+
+prints where a step of the two cluster kernels goes, in cycles per part
+(a build with the kernels' step marks).
+
+K1 and K2 (bf16 at n a multiple of 64 up to 512: thread-block clusters
+with Wh resident, DSMEM exchange, wgmma), K3 (bf16) and K4-K7 (bf16,
+where TMA can read their operands) run on Hopper kernels (TMA loads,
+wgmma products); the phases hold each of those, and the first kernels
+kept callable beside them, against the plain versions, and count the new
+routes' launches under their own counters (lstm_fwd_sm90, lstm_bwd_sm90,
+flash_attn_fwd_sm90, fused_block_stats_sm90, fused_block_apply_sm90,
 fused_block_bwd_stats_sm90, fused_block_bwd_apply_sm90).
 """
 
@@ -291,8 +305,12 @@ def phase_device():
     # K3's bf16 route and K4-K7's bf16 paths run on wgmma fed by TMA: the
     # compiler must have emitted both into the libraries this run loads,
     # and into K4's and K5's instantiations of the mainloop, with K5's TMA
-    # stores of y
+    # stores of y; K1's and K2's cluster kernels run their products on
+    # wgmma, and K2's dWh on the mainloop
     for lib, fn, ops in (
+            ("lstm_fwd", "lstm_fwd_cluster_kernel", ("HGMMA",)),
+            ("lstm_bwd", "lstm_bwd_cluster_kernel", ("HGMMA",)),
+            ("lstm_bwd", "DwhEpi", ("HGMMA", "UTMALDG")),
             ("flash_attn_fwd", "", ("HGMMA", "UTMALDG")),
             ("fused_block", "", ("HGMMA", "UTMALDG", "UTMASTG")),
             ("fused_block", "FwdStatsEpi", ("HGMMA", "UTMALDG")),
@@ -305,58 +323,96 @@ def phase_device():
     return card
 
 
-def phase_kernel_vs_plain():
-    import torch
-    from deeplearning4j_tpu_torch.ops import lstm as lstm_ops
-    from deeplearning4j_tpu_torch.ops import registry
-    cases = [(64, 32, 512, False, False, True),
+# K1's cases: (T, b, n, masked, nonzero carry, residuals). b = 33 and 70
+# leave the last 32-row cluster ragged; T = 1 is the streaming step.
+FWD_CASES = [(64, 32, 512, False, False, True),
              (64, 32, 512, False, False, False),
              (64, 2, 512, False, True, False),
              (1, 1, 512, False, True, False),
              (7, 3, 512, True, False, True),
-             (7, 3, 512, True, True, False)]
+             (7, 3, 512, True, True, False),
+             (64, 33, 512, False, True, True),
+             (64, 70, 512, True, False, True),
+             (1, 70, 512, False, True, True)]
+
+
+def fwd_errors(got, want, tol, what):
+    """{field: max abs error} of K1's outputs against the plain version's;
+    fails unless every element is within tol + tol * |want| and finite."""
+    import torch
+    errs = {}
+    for field in got._fields:
+        g, w = getattr(got, field), getattr(want, field)
+        if g is None and w is None:
+            continue
+        check(g.dtype == w.dtype and g.shape == w.shape,
+              f"{field}: kernel {g.dtype}{tuple(g.shape)} vs plain "
+              f"{w.dtype}{tuple(w.shape)}")
+        d = (g.float() - w.float()).abs()
+        errs[field] = d.max().item()
+        check(torch.isfinite(g.float()).all().item(),
+              f"{field} not finite ({what})")
+        over = (d / (tol + tol * w.float().abs())).max().item()
+        check(over <= 1.0,
+              f"lstm_fwd {field} disagrees with the plain version ({what}): "
+              f"max abs err {errs[field]:.3e} > {tol} + {tol}*|want|, the "
+              f"worst element {over:.1f}x its limit")
+    return errs
+
+
+def short(errs):
+    return json.dumps({k: float(f"{v:.3e}") for k, v in errs.items()})
+
+
+def phase_kernel_vs_plain():
+    """K1 against its plain version: f32 on the grid route, bf16 on the
+    cluster route through the wrapper and on the grid kernel's bf16
+    instantiation called directly (not counted), at unchanged limits."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import lstm as lstm_ops
+    from deeplearning4j_tpu_torch.ops import registry
     main_err = None
-    n_calls = 0
+    n_calls = n_cluster = 0
     registry.reset_launches()
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         tol = TOL[dname]
-        for T, b, n, masked, carry, save in cases:
+        for T, b, n, masked, carry, save in FWD_CASES:
             args = lstm_inputs(T, b, n, dtype, masked, carry)
+            what = (f"T={T} b={b} n={n} {dname} masked={masked} "
+                    f"save={save}")
+            cluster = lstm_ops.takes_cluster(dtype, n)
             with torch.inference_mode():
                 got = lstm_ops.lstm_sequence_cuda(*args, save_residuals=save)
                 torch.cuda.synchronize()
                 n_calls += 1
+                n_cluster += cluster
                 want = lstm_ops.lstm_sequence_torch(*args,
                                                     save_residuals=save)
-            errs = {}
-            for field in got._fields:
-                g, w = getattr(got, field), getattr(want, field)
-                if g is None and w is None:
-                    continue
-                check(g.dtype == w.dtype and g.shape == w.shape,
-                      f"{field}: kernel {g.dtype}{tuple(g.shape)} vs plain "
-                      f"{w.dtype}{tuple(w.shape)}")
-                d = (g.float() - w.float()).abs()
-                errs[field] = d.max().item()
-                bad = d > tol + tol * w.float().abs()
-                check(torch.isfinite(g.float()).all().item(),
-                      f"{field} not finite (T={T} b={b} {dname})")
-                check(not bad.any().item(),
-                      f"lstm_fwd {field} disagrees with the plain version "
-                      f"(T={T} b={b} n={n} {dname} masked={masked} "
-                      f"save={save}): max abs err {errs[field]:.3e} > "
-                      f"{tol} + {tol}*|want|")
+            errs = fwd_errors(got, want, tol, what)
+            fields = {}
+            if cluster:
+                mask = args[5]
+                if mask is None:
+                    mask = torch.ones((T, b), dtype=dtype, device="cuda")
+                with torch.inference_mode():
+                    grid = lstm_ops.lstm_fwd_launch(False, *args[:5], mask,
+                                                    save)
+                    torch.cuda.synchronize()
+                fields["grid_max_abs_err"] = short(
+                    fwd_errors(grid, want, tol, what + " grid route"))
             if (T, b, dname, save) == (64, 32, "bfloat16", False):
                 main_err = errs["y"]
             phase("kernel_vs_plain", kernel="lstm_fwd", dtype=dname, T=T,
                   b=b, n=n, masked=masked, carry=carry, residuals=save,
-                  tol=tol,
-                  max_abs_err=json.dumps({k: float(f"{v:.3e}")
-                                          for k, v in errs.items()}))
-    launched = registry.launches().get("lstm_fwd", 0)
-    check(launched == n_calls,
+                  route="cluster" if cluster else "grid", tol=tol,
+                  max_abs_err=short(errs), **fields)
+    launched = registry.launches()
+    check(launched.get("lstm_fwd", 0) == n_calls,
           f"launch counter read {launched} after {n_calls} kernel calls")
+    check(launched.get(lstm_ops.FWD_SM90, 0) == n_cluster,
+          f"lstm_fwd_sm90 read {launched} after {n_cluster} calls on the "
+          f"cluster route")
     return main_err
 
 
@@ -431,61 +487,89 @@ def fn_vs_autograd(fwd_args):
     return worst
 
 
+# K2's cases: (T, b, n, masked, nonzero carry)
+BWD_CASES = [(64, 32, 512, False, False), (64, 2, 512, False, True),
+             (7, 3, 512, True, False), (1, 1, 512, False, True),
+             (64, 33, 512, False, True), (64, 70, 512, True, False),
+             (1, 70, 512, True, True)]
+
+
+def bwd_errors(got, again, want, dtype, what):
+    """({name: max abs error}, {name: tolerance}) of K2's outputs against
+    the plain version's; fails unless two calls gave the same bits and
+    every element is within tol + tol * |want| and finite."""
+    import torch
+    check(all(torch.equal(g, a) for g, a in zip(got, again)),
+          f"lstm_bwd: two identical calls gave different bits ({what})")
+    errs, tols = {}, {}
+    for name, g, w in zip(("dxz", "dh0", "dc0", "dWh", "dp"), got, want):
+        check(g.dtype == w.dtype and g.shape == w.shape,
+              f"{name}: kernel {g.dtype}{tuple(g.shape)} vs plain "
+              f"{w.dtype}{tuple(w.shape)}")
+        check(torch.isfinite(g.float()).all().item(),
+              f"lstm_bwd {name} not finite ({what})")
+        tol = (BWD_F32_TOL if dtype == torch.float32
+               else bf16_tol(w.float()))
+        d = (g.float() - w.float()).abs()
+        errs[name], tols[name] = d.max().item(), tol
+        over = (d / (tol + tol * w.float().abs())).max().item()
+        check(over <= 1.0,
+              f"lstm_bwd {name} disagrees with the plain version ({what}): "
+              f"max abs err {errs[name]:.3e} > {tol:.3e} + {tol:.3e}*|want|, "
+              f"the worst element {over:.1f}x its limit")
+    return errs, tols
+
+
 def phase_bwd_vs_plain():
+    """K2 against its plain version, as phase_kernel_vs_plain holds K1:
+    the bf16 cases on the cluster route and on the grid kernel called
+    directly, f32 on the grid route; every call twice, bit-equal."""
     import torch
     from deeplearning4j_tpu_torch.ops import lstm as lstm_ops
     from deeplearning4j_tpu_torch.ops import registry
-    cases = [(64, 32, 512, False, False), (64, 2, 512, False, True),
-             (7, 3, 512, True, False), (1, 1, 512, False, True)]
-    names = ("dxz", "dh0", "dc0", "dWh", "dp")
     main_err = None
-    n_calls = 0
-    base = registry.launches().get("lstm_bwd", 0)
+    want_launches = n_cluster = 0
+    base = registry.launches()
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        for T, b, n, masked, carry in cases:
+        for T, b, n, masked, carry in BWD_CASES:
             args, fwd_args = bwd_inputs(T, b, n, dtype, masked, carry)
+            what = f"T={T} b={b} n={n} {dname} masked={masked}"
+            cluster = lstm_ops.takes_cluster(dtype, n)
             with torch.inference_mode():
                 got = lstm_ops.lstm_sequence_bwd_cuda(*args)
                 again = lstm_ops.lstm_sequence_bwd_cuda(*args)
                 torch.cuda.synchronize()
-                n_calls += 2
+                want_launches += 2 * lstm_ops.bwd_launches_per_call(dtype, n)
+                n_cluster += 2 * cluster
                 want = lstm_ops.lstm_sequence_bwd_torch(*args)
-            check(all(torch.equal(g, a) for g, a in zip(got, again)),
-                  f"lstm_bwd: two identical calls gave different bits "
-                  f"(T={T} b={b} {dname})")
-            errs, tols = {}, {}
-            for name, g, w in zip(names, got, want):
-                check(g.dtype == w.dtype and g.shape == w.shape,
-                      f"{name}: kernel {g.dtype}{tuple(g.shape)} vs plain "
-                      f"{w.dtype}{tuple(w.shape)}")
-                check(torch.isfinite(g.float()).all().item(),
-                      f"lstm_bwd {name} not finite (T={T} b={b} {dname})")
-                tol = (BWD_F32_TOL if dtype == torch.float32
-                       else bf16_tol(w.float()))
-                d = (g.float() - w.float()).abs()
-                errs[name], tols[name] = d.max().item(), tol
-                check(not (d > tol + tol * w.float().abs()).any().item(),
-                      f"lstm_bwd {name} disagrees with the plain version "
-                      f"(T={T} b={b} n={n} {dname} masked={masked}): max "
-                      f"abs err {errs[name]:.3e} > {tol:.3e} + "
-                      f"{tol:.3e}*|want|")
+            errs, tols = bwd_errors(got, again, want, dtype, what)
             fields = {}
+            if cluster:
+                with torch.inference_mode():
+                    grid = lstm_ops.lstm_bwd_launch(False, *args)
+                    grid2 = lstm_ops.lstm_bwd_launch(False, *args)
+                    torch.cuda.synchronize()
+                fields["grid_max_abs_err"] = short(bwd_errors(
+                    grid, grid2, want, dtype, what + " grid route")[0])
             if dtype == torch.float32:
                 fields["fn_vs_autograd_rel_err"] = (
                     f"{fn_vs_autograd(fwd_args):.3e}")
-                n_calls += 1
+                want_launches += lstm_ops.bwd_launches_per_call(dtype, n)
             if (T, b, dname) == (64, 32, "bfloat16"):
                 main_err = max(errs.values())
             phase("kernel_vs_plain", kernel="lstm_bwd", dtype=dname, T=T,
-                  b=b, n=n, masked=masked, carry=carry, deterministic=True,
-                  max_abs_err=json.dumps({k: float(f"{v:.3e}")
-                                          for k, v in errs.items()}),
-                  tol=json.dumps({k: float(f"{v:.3e}")
-                                  for k, v in tols.items()}), **fields)
-    launched = registry.launches().get("lstm_bwd", 0) - base
-    check(launched == 2 * n_calls, f"lstm_bwd launch counter read "
-          f"{launched} after {n_calls} calls of two device launches")
+                  b=b, n=n, masked=masked, carry=carry,
+                  route="cluster" if cluster else "grid", deterministic=True,
+                  max_abs_err=short(errs), tol=short(tols), **fields)
+    now = registry.launches()
+    launched = now.get("lstm_bwd", 0) - base.get("lstm_bwd", 0)
+    check(launched == want_launches, f"lstm_bwd launch counter read "
+          f"{launched}, expected {want_launches}")
+    sm90 = (now.get(lstm_ops.BWD_SM90, 0)
+            - base.get(lstm_ops.BWD_SM90, 0))
+    check(sm90 == n_cluster, f"lstm_bwd_sm90 read {sm90} after "
+          f"{n_cluster} calls on the cluster route")
     return main_err
 
 
@@ -547,12 +631,16 @@ def phase_serve():
         check(not any(t.is_alive() for t in threads), "a client hung")
         check(not errors, "; ".join(errors))
         torch.cuda.synchronize()
-        launches = registry.launches().get("lstm_fwd", 0)
+        counts = registry.launches()
+        launches = counts.get("lstm_fwd", 0)
         status, metrics = get_json(srv.url + "/metrics")
         check(status == 200, f"/metrics answered {status}")
     finally:
         srv.stop()
     check(launches > 0, "the served path launched lstm_fwd no time")
+    # bf16 at n = 512: every served forward on the cluster route
+    check(counts.get("lstm_fwd_sm90", 0) == launches,
+          f"served forwards off the cluster route: {counts}")
 
     rows = sum(x.shape[0] for reqs in requests for x in reqs)
     bit_equal, max_err = True, 0.0
@@ -589,10 +677,11 @@ def phase_serve():
           batch_hist=json.dumps(metrics["batch_size_hist"]),
           device_ms_by_bucket=json.dumps(metrics["device_ms_by_bucket"]),
           warmup_s=f"{srv.warmup_s:.2f}", lstm_fwd_launches=launches,
+          lstm_fwd_sm90=counts.get("lstm_fwd_sm90", 0),
           rows_bit_equal_alone=bit_equal,
           max_abs_err_vs_alone=f"{max_err:.3e}",
           max_abs_err_vs_cpu_plain=f"{cpu_err:.3e}", tol=PROB_TOL)
-    return net, launches
+    return net, {k: counts.get(k, 0) for k in ("lstm_fwd", "lstm_fwd_sm90")}
 
 
 def phase_stream(net):
@@ -607,15 +696,19 @@ def phase_stream(net):
     steps = [net.rnn_time_step(x[:, t, :]).float().cpu().numpy()
              for t in range(T)]
     torch.cuda.synchronize()
-    launches = registry.launches().get("lstm_fwd", 0)
+    counts = registry.launches()
+    launches = counts.get("lstm_fwd", 0)
     streamed = np.stack(steps, axis=1)
     err = float(np.abs(streamed - one_shot).max())
     check(streamed.shape == one_shot.shape, "stream shape")
     check(launches == 2 * T, f"stream launched lstm_fwd {launches} times, "
           f"expected {2 * T}")
+    check(counts.get("lstm_fwd_sm90", 0) == 2 * T,
+          f"streamed steps off the cluster route: {counts}")
     check(err <= PROB_TOL,
           f"rnn_time_step vs one-shot output: {err:.3e} > {PROB_TOL}")
     phase("stream", steps=T, lstm_fwd_launches=launches,
+          lstm_fwd_sm90=counts.get("lstm_fwd_sm90", 0),
           max_abs_err_vs_one_shot=f"{err:.3e}", tol=PROB_TOL)
 
 
@@ -668,6 +761,13 @@ def on_card(batches):
     from deeplearning4j_tpu_torch import DataSet
     return [DataSet(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
             for x, y in batches]
+
+
+def lstm_launches_per_bwd():
+    """K2's device launches a call of the char-RNN (bf16, n = 512)."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import lstm as lstm_ops
+    return lstm_ops.bwd_launches_per_call(torch.bfloat16, 512)
 
 
 def phase_train():
@@ -728,12 +828,19 @@ def phase_train():
     last5 = statistics.mean(scores[-5:])
     check(last5 < scores[0], f"training did not lower the score: first "
           f"{scores[0]:.4f}, mean of last 5 {last5:.4f}")
-    # two layers a step; K2 makes two device launches a call
-    for k, want in (("lstm_fwd", 2 * steps), ("lstm_bwd", 4 * steps)):
+    # two layers a step, every call on the cluster route (bf16, n = 512);
+    # K2 makes three device launches a call there
+    per_bwd = lstm_launches_per_bwd()
+    for k, want in (("lstm_fwd", 2 * steps), ("lstm_fwd_sm90", 2 * steps),
+                    ("lstm_bwd", 2 * per_bwd * steps),
+                    ("lstm_bwd_sm90", 2 * steps)):
         check(launches.get(k, 0) == want,
               f"{k} launched {launches.get(k, 0)} times in {steps} train "
               f"steps, expected {want}")
     med = statistics.median(step_ms[-20:])
+    # where a step's time goes: K1 and K2 (lstm), the dWh GEMM (gemm), the
+    # rest, and how busy the card is over the steps' wall time
+    prof = profile_steps(net, data[-3:])
     phase("train", model="char_rnn(vocab=80,hidden=512,layers=2,BF16,"
           "Adam(2e-3))", steps=steps, b=b, T=T,
           first_score=f"{scores[0]:.4f}", last5_mean=f"{last5:.4f}",
@@ -744,7 +851,8 @@ def phase_train():
           launches=json.dumps(launches),
           score_vs_cpu_rel=f"{score_err:.3e}",
           grad_vs_cpu_max_ulps=f"{max(grad_ulps.values()):.2f}",
-          cpu_first_step_s=f"{cpu_s:.2f}")
+          cpu_first_step_s=f"{cpu_s:.2f}",
+          **{k: v for k, v in prof.items() if "flash" not in k})
     return {"launches": launches, "step_ms": med}
 
 
@@ -792,7 +900,9 @@ def phase_tbptt():
     launches = registry.launches()
     scores = [float(s) for s in scores]
     check(all(math.isfinite(s) for s in scores), f"tbptt scores {scores}")
-    for k, per_call in (("lstm_fwd", 1), ("lstm_bwd", 2)):
+    for k, per_call in (("lstm_fwd", 1), ("lstm_fwd_sm90", 1),
+                        ("lstm_bwd", lstm_launches_per_bwd()),
+                        ("lstm_bwd_sm90", 1)):
         want = 2 * chunks * n_batches * per_call
         check(launches.get(k, 0) == want,
               f"{k} launched {launches.get(k, 0)} times in tBPTT, "
@@ -1158,6 +1268,7 @@ def profile_steps(net, data):
     for e in kernels:
         name = e.key.lower()
         g = ("flash_attn_fwd" if "flash_fwd_kernel" in name
+             else "lstm" if "lstm_" in name
              else "gemm" if any(w in name for w in ("gemm", "xmma", "cutlass",
                                                     "sm90_", "cublas"))
              else "reduce" if "reduce" in name
@@ -1392,7 +1503,57 @@ def bound(flops, nbytes, dtype):
                                  else "bytes")
 
 
-def phase_times(card, net, errs, launches, train):
+def sweep_fields(sweep, per_step, fixed, T):
+    return dict(ms=f"{sweep[T]:.4f}", ms_T1=f"{sweep[1]:.4f}",
+                ms_T16=f"{sweep[16]:.4f}", per_step_us=f"{1e3 * per_step:.2f}",
+                fixed_us=f"{1e3 * fixed:.2f}",
+                chain_ms=f"{T * per_step:.4f}")
+
+
+def fwd_on(cluster):
+    """K1 through the route ``cluster`` names, uncounted (the grid route's
+    bf16 instantiation is not the wrapper's for bf16 at n = 512)."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import lstm as lstm_ops
+
+    def run(xz, h0, c0, Wh, p, mask, save=False):
+        if mask is None:
+            mask = torch.ones(xz.shape[:2], dtype=xz.dtype, device=xz.device)
+        return lstm_ops.lstm_fwd_launch(cluster, xz, h0, c0, Wh, p, mask,
+                                        save)
+    return run
+
+
+def bwd_on(cluster):
+    from deeplearning4j_tpu_torch.ops import lstm as lstm_ops
+    return lambda *a: lstm_ops.lstm_bwd_launch(cluster, *a)
+
+
+def bwd_split(args):
+    """K2's cluster route split by launch (torch.profiler): the chain, the
+    sum of dp's partials and dWh on the sm90 mainloop, each kernel's mean
+    device ms over the launches the profiler kept."""
+    import torch
+    names = {"lstm_bwd_cluster_kernel": "chain", "lstm_bwd_dp_sum": "dp_sum",
+             "DwhEpi": "dwh"}
+    with torch.inference_mode():
+        events = device_events(lambda: bwd_on(True)(*args), reps=20)
+    split, kept = {}, []
+    for e in events:
+        for key, name in names.items():
+            if key in e.key:
+                split[name] = e.self_device_time_total / e.count / 1e3
+                kept.append(e.count)
+    check(set(split) == set(names.values()),
+          f"the profiler did not see every K2 launch: {split}")
+    return split, min(kept)
+
+
+def lstm_times(card, tag="times"):
+    """K1 and K2 at (T = 64, b = 32, n = 512, bf16) on the cluster route
+    and on the grid route in the same run: ms, the T sweep (per-step and
+    fixed cost), the bound, and K2's split by launch. Returns the numbers
+    phase_times puts in the kernels line."""
     import torch
     from deeplearning4j_tpu_torch.ops import lstm as lstm_ops
     T, b, n = 64, 32, 512
@@ -1400,63 +1561,45 @@ def phase_times(card, net, errs, launches, train):
     esize = 2
     no_library = ("none: cuDNN's LSTM has neither peepholes nor this mask "
                   "semantics")
+    out = {}
+    # clusters of n / 32 blocks each kernel's cluster route fits at once
+    # (cudaOccupancyMaxActiveClusters): b above 32 x that runs in waves
+    fits = {name: getattr(lstm_ops._bind(name),
+                          f"dl4j_{name}_sm90_clusters")(n)
+            for name in (lstm_ops.KERNEL, lstm_ops.BWD_KERNEL)}
 
-    # K1
-    args = lstm_inputs(T, b, n, dtype)
-    with torch.inference_mode():
-        plain_ms = cuda_ms(lambda: lstm_ops.lstm_sequence_torch(*args),
-                           reps=5)
-        # as the train path runs it: residuals written for K2
-        res_ms = cuda_ms(lambda: lstm_ops.lstm_sequence_cuda(
-            *args, save_residuals=True), reps=50)
-    sweep, per_step, fixed = sweep_ms(
-        lambda steps: lstm_inputs(steps, b, n, dtype),
-        lstm_ops.lstm_sequence_cuda, T)
-    ms = sweep[T]
-    # the whole served forward (2 LSTM layers + projections + head) at
-    # the largest and smallest bucket
-    rng = np.random.default_rng(SEED + 2)
-    forward_ms = {}
-    for rows in (2, 32):
-        x = torch.from_numpy(np.eye(80, dtype=np.float32)[
-            rng.integers(0, 80, (rows, T))]).cuda()
-        forward_ms[rows] = cuda_ms(lambda: net.output(x), reps=20)
-    # least work: the recurrent products (the gates' elementwise work is
-    # ~20 ops per output, 0.05% of it) and each input read once, each
+    # K1: least work, the recurrent products (the gates' elementwise work
+    # is ~20 ops per output, 0.05% of it), each input read once, each
     # output written once
     flops = 2.0 * T * b * n * 4 * n
     nbytes = esize * (T * b * 4 * n + T * b + 2 * b * n + n * 4 * n + 3 * n
                       + T * b * n + 2 * b * n)
     bound_ms, bound_by = bound(flops, nbytes, "bfloat16")
-    phase("times", kernel="lstm_fwd", T=T, b=b, n=n, dtype="bfloat16",
-          card=json.dumps(card), ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-          bound_ms=f"{bound_ms:.5f}", flops=f"{flops:.4g}",
-          bytes=f"{nbytes:.4g}", roofline_share=f"{bound_ms / ms:.4f}",
-          ms_T1=f"{sweep[1]:.4f}", ms_T16=f"{sweep[16]:.4f}",
-          per_step_us=f"{1e3 * per_step:.2f}", fixed_us=f"{1e3 * fixed:.2f}",
-          ms_with_residuals=f"{res_ms:.4f}",
-          forward_ms_b2=f"{forward_ms[2]:.4f}",
-          forward_ms_b32=f"{forward_ms[32]:.4f}", library=no_library)
-    kernels = [{"name": "lstm_fwd", "route": "cuda",
-                "source": "deeplearning4j_tpu_torch/ops/csrc/lstm_fwd.cu",
-                "replaces": "deeplearning4j_tpu/ops/lstm.py:100",
-                "launches": launches["serve"]["lstm_fwd"],
-                "launches_by_path": {k: v.get("lstm_fwd", 0)
-                                     for k, v in launches.items()},
-                "max_abs_err": errs["lstm_fwd"], "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": None}]
-
-    # K2
-    bargs, _ = bwd_inputs(T, b, n, dtype)
+    args = lstm_inputs(T, b, n, dtype)
     with torch.inference_mode():
-        bplain_ms = cuda_ms(lambda: lstm_ops.lstm_sequence_bwd_torch(*bargs),
-                            reps=5)
-    bsweep, bper_step, bfixed = sweep_ms(
-        lambda steps: bwd_inputs(steps, b, n, dtype)[0],
-        lstm_ops.lstm_sequence_bwd_cuda, T)
-    bms = bsweep[T]
-    # least work: the chain's dz @ Wh^T and dWh = h_prev^T dz (the
+        plain_ms = cuda_ms(lambda: lstm_ops.lstm_sequence_torch(*args),
+                           reps=5)
+        # as the train path runs it: residuals written for K2
+        res_ms = cuda_ms(lambda: fwd_on(True)(*args, True), reps=50)
+    for cluster in (False, True, True, False):
+        sweep, per_step, fixed = sweep_ms(
+            lambda steps: lstm_inputs(steps, b, n, dtype), fwd_on(cluster), T)
+        route = "cluster" if cluster else "grid"
+        out.setdefault(("fwd", route), []).append(sweep[T])
+        phase(tag, kernel="lstm_fwd", route=route, T=T, b=b, n=n,
+              dtype="bfloat16", card=json.dumps(card),
+              plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.5f}",
+              bound_by=bound_by, flops=f"{flops:.4g}", bytes=f"{nbytes:.4g}",
+              roofline_share=f"{bound_ms / sweep[T]:.4f}",
+              **sweep_fields(sweep, per_step, fixed, T),
+              **({"ms_with_residuals": f"{res_ms:.4f}",
+                  "active_clusters": fits["lstm_fwd"]} if cluster else {}),
+              library=no_library)
+    out["fwd"] = dict(ms=min(out[("fwd", "cluster")]), plain_ms=plain_ms,
+                      bound_ms=bound_ms, bound_by=bound_by,
+                      grid_ms=min(out[("fwd", "grid")]))
+
+    # K2: least work, the chain's dz @ Wh^T and dWh = h_prev^T dz (the
     # elementwise gate work is ~30 ops per element, under 0.1% of it);
     # G, h_prev, c_prev, mask, Wh, p, dy, dhT, dcT read once, dxz, dh0,
     # dc0, dWh, dp written once
@@ -1465,24 +1608,148 @@ def phase_times(card, net, errs, launches, train):
                       + 3 * n + T * b * n + 2 * b * n + T * b * 4 * n
                       + 2 * b * n + n * 4 * n + 3 * n)
     bbound_ms, bbound_by = bound(bflops, bbytes, "bfloat16")
-    phase("times", kernel="lstm_bwd", T=T, b=b, n=n, dtype="bfloat16",
-          card=json.dumps(card), ms=f"{bms:.4f}", plain_ms=f"{bplain_ms:.4f}",
-          bound_ms=f"{bbound_ms:.5f}", flops=f"{bflops:.4g}",
-          bytes=f"{bbytes:.4g}", roofline_share=f"{bbound_ms / bms:.4f}",
-          ms_T1=f"{bsweep[1]:.4f}", ms_T16=f"{bsweep[16]:.4f}",
-          per_step_us=f"{1e3 * bper_step:.2f}",
-          fixed_us=f"{1e3 * bfixed:.2f}",
-          train_step_ms=f"{train['step_ms']:.4f}", library=no_library)
-    kernels.append({
-        "name": "lstm_bwd", "route": "cuda",
-        "source": "deeplearning4j_tpu_torch/ops/csrc/lstm_bwd.cu",
-        "replaces": "deeplearning4j_tpu/ops/lstm.py:145",
-        "launches": launches["train"]["lstm_bwd"],
-        "launches_by_path": {k: v.get("lstm_bwd", 0)
-                             for k, v in launches.items()},
-        "max_abs_err": errs["lstm_bwd"], "ms": bms, "plain_ms": bplain_ms,
-        "bound_ms": bbound_ms, "bound_by": bbound_by, "library_ms": None})
+    bargs, _ = bwd_inputs(T, b, n, dtype)
+    with torch.inference_mode():
+        bplain_ms = cuda_ms(lambda: lstm_ops.lstm_sequence_bwd_torch(*bargs),
+                            reps=5)
+    for cluster in (False, True, True, False):
+        sweep, per_step, fixed = sweep_ms(
+            lambda steps: bwd_inputs(steps, b, n, dtype)[0], bwd_on(cluster),
+            T)
+        route = "cluster" if cluster else "grid"
+        out.setdefault(("bwd", route), []).append(sweep[T])
+        extra = {}
+        if cluster:
+            split, kept = bwd_split(bargs)
+            extra = dict(split_device_ms=json.dumps(
+                {k: round(v, 5) for k, v in split.items()}),
+                profiler_kept=f"{kept}/20",
+                active_clusters=fits["lstm_bwd"])
+        phase(tag, kernel="lstm_bwd", route=route, T=T, b=b, n=n,
+              dtype="bfloat16", card=json.dumps(card),
+              plain_ms=f"{bplain_ms:.4f}", bound_ms=f"{bbound_ms:.5f}",
+              bound_by=bbound_by, flops=f"{bflops:.4g}",
+              bytes=f"{bbytes:.4g}",
+              roofline_share=f"{bbound_ms / sweep[T]:.4f}",
+              **sweep_fields(sweep, per_step, fixed, T), **extra,
+              library=no_library)
+    out["bwd"] = dict(ms=min(out[("bwd", "cluster")]), plain_ms=bplain_ms,
+                      bound_ms=bbound_ms, bound_by=bbound_by,
+                      grid_ms=min(out[("bwd", "grid")]))
+    return out
+
+
+def phase_times(card, net, errs, launches, train):
+    """[times] for K1 and K2 (lstm_times), the whole served forward at
+    the smallest and largest bucket, and the kernels line's entries."""
+    import torch
+    t = lstm_times(card)
+    T = 64
+    rng = np.random.default_rng(SEED + 2)
+    forward_ms = {}
+    for rows in (2, 32):
+        x = torch.from_numpy(np.eye(80, dtype=np.float32)[
+            rng.integers(0, 80, (rows, T))]).cuda()
+        forward_ms[rows] = cuda_ms(lambda: net.output(x), reps=20)
+    phase("times", kernel="char_rnn", forward_ms_b2=f"{forward_ms[2]:.4f}",
+          forward_ms_b32=f"{forward_ms[32]:.4f}",
+          train_step_ms=f"{train['step_ms']:.4f}")
+    kernels = []
+    for name, key, path, line in (("lstm_fwd", "fwd", "serve", 100),
+                                  ("lstm_bwd", "bwd", "train", 145)):
+        r = t[key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"deeplearning4j_tpu_torch/ops/csrc/{name}.cu",
+            "replaces": f"deeplearning4j_tpu/ops/lstm.py:{line}",
+            "launches": launches[path][name],
+            "launches_by_path": {k: v.get(name, 0)
+                                 for k, v in launches.items()},
+            "cluster_route_calls": launches[path].get(name + "_sm90", 0),
+            "max_abs_err": errs[name], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            "grid_route_ms": r["grid_ms"]})
     return kernels
+
+
+# The parts of a cluster-kernel step between its STEP_MARKs
+# (ops/csrc/lstm_cluster.cuh), in order
+STEP_PARTS = {"lstm_fwd": ("product", "z_staging", "cell_update",
+                           "h_copies_issued", "wait_h"),
+              "lstm_bwd": ("phase_a", "wait_readers", "product",
+                           "partials_copies_issued", "wait_partials", "sum")}
+
+
+def phase_lstm_parts():
+    """``python3 chip_smoke.py --lstm-parts``: where a step of K1's and
+    K2's cluster kernels goes. Builds both libraries once more with
+    -DDL4J_LSTM_STEP_MARKS (clock64() at the end of each part of a step,
+    block 0, one thread a warpgroup), runs each at (T = 64, b = 32, n =
+    512, bf16) and prints each part's median cycles over steps 8-55 and
+    the SM clock to read them by."""
+    import ctypes
+    import torch
+    from deeplearning4j_tpu_torch.ops import _build
+    out = _build.BUILD_DIR / "step_marks"
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = _build.nvcc_path()
+    libs = {}
+    for name in STEP_PARTS:
+        path = out / f"lib{name}_marks.so"
+        libs[name] = (subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-DDL4J_LSTM_STEP_MARKS", "-o",
+             str(path), str(_build.CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            path)
+    for name, (proc, _) in libs.items():
+        log = proc.communicate()[0]
+        check(proc.returncode == 0, f"{name} with step marks: {log[-3000:]}")
+    T, b, n = 64, 32, 512
+    for name, (_, path) in libs.items():
+        lib = ctypes.CDLL(str(path))
+        _build._LIBS[name] = lib  # the wrappers bind this build
+        try:
+            if name == "lstm_fwd":
+                args = lstm_inputs(T, b, n, torch.bfloat16)
+                fn = lambda: fwd_on(True)(*args)  # noqa: E731
+            else:
+                bargs, _ = bwd_inputs(T, b, n, torch.bfloat16)
+                fn = lambda: bwd_on(True)(*bargs)  # noqa: E731
+            with torch.inference_mode():
+                ms = cuda_ms(fn, 20)
+                fn()
+            torch.cuda.synchronize()
+            marks = np.zeros((2, 64, 8), np.int64)
+            entry = getattr(lib, f"dl4j_{name}_step_marks")
+            entry.argtypes = [ctypes.c_void_p]
+            check(entry(marks.ctypes.data) == 0, f"{name}: no step marks")
+        finally:
+            _build._LIBS.pop(name)
+        k = len(STEP_PARTS[name])
+        for wg in (0, 1):
+            m = marks[wg, 8:57, :k + 1].astype(np.float64)
+            parts = np.median(np.diff(m[:-1], axis=1), axis=0)
+            phase("lstm_parts", kernel=name, T=T, b=b, n=n, warpgroup=wg,
+                  ms=f"{ms:.4f}",
+                  step_cycles=int(np.median(np.diff(m[:, 0]))),
+                  **{p: int(v) for p, v in zip(STEP_PARTS[name], parts)})
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    phase("lstm_parts", sm_clock=json.dumps(smi.stdout.strip()))
+
+
+def phase_lstm_split():
+    """``python3 chip_smoke.py --lstm-split``: only K1's and K2's times on
+    both routes (grid, cluster, cluster, grid) with the T sweep and K2's
+    split by launch."""
+    from deeplearning4j_tpu_torch.ops import _build
+    _build.build(("lstm_fwd", "lstm_bwd"))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    lstm_times(smi.stdout.strip(), tag="lstm_split")
 
 
 # --------------------------------------------------------------- K4-K7
@@ -2756,6 +3023,8 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})
     for flag, split in (
+            ("--lstm-split", phase_lstm_split),
+            ("--lstm-parts", phase_lstm_parts),
             ("--k7-split", lambda: phase_split("fused_block_bwd_apply")),
             ("--k6-split", lambda: phase_split("fused_block_bwd_stats")),
             ("--fwd-split", phase_fwd_split)):
@@ -2782,7 +3051,7 @@ def main() -> int:
     net, serve_launches = phase_serve()
     phase_stream(net)
     train = phase_train()
-    launches = {"serve": {"lstm_fwd": serve_launches},
+    launches = {"serve": serve_launches,
                 "train": train["launches"], "tbptt": phase_tbptt()}
     gnet, gserve_launches = phase_serve_gpt()
     gtrain = phase_train_gpt()

@@ -59,10 +59,12 @@
 // k16 inside each), so two launches give the same bits.
 //
 // Users: fused_block.cu's K4 and K6 (one GEMM each with a column-sum
-// epilogue), K5 (one GEMM with a staged epilogue) and K7 (three GEMMs).
-// flash_attn_fwd.cu takes only the building blocks (the barriers, the 4-D
-// TMA load and store, the descriptors, wgmma m64n64k16 from shared memory
-// and m64n{64,128}k16 with A from registers), not the mainloop.
+// epilogue), K5 (one GEMM with a staged epilogue) and K7 (three GEMMs);
+// lstm_bwd.cu's dWh (one GEMM). flash_attn_fwd.cu takes only the building
+// blocks (the barriers, the 4-D TMA load and store, the descriptors, wgmma
+// m64n64k16 from shared memory and m64n{64,128}k16 with A from registers),
+// not the mainloop, and so do the LSTM's cluster kernels
+// (lstm_cluster.cuh: the barriers, the descriptors, the bulk-group waits).
 
 #pragma once
 

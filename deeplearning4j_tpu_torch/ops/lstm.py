@@ -22,8 +22,17 @@ are computed in f32, and outputs are rounded to the compute dtype.
 Dispatch is by device (ops/registry.py): a CPU tensor runs the plain
 loops; a CUDA tensor launches ``csrc/lstm_fwd.cu`` (op ``lstm_sequence``,
 replaces ``_fwd_kernel``) or ``csrc/lstm_bwd.cu`` (op
-``lstm_sequence_bwd``, replaces ``_bwd_kernel``), or raises. Each source
-note says what bounds the kernel and what its design does about it.
+``lstm_sequence_bwd``, replaces ``_bwd_kernel``), or raises. Each kernel
+has two routes, chosen by dtype and n only (``takes_cluster``): bf16 with
+n a multiple of 64 up to 512 takes the cluster kernels (Wh resident in a
+thread-block cluster of n / 32 blocks, h and dh exchanged through
+distributed shared memory, the per-step products and dWh on wgmma; each
+call counted once more under ``FWD_SM90`` / ``BWD_SM90``), everything
+else the persistent-grid kernels. A failure raises; nothing falls back.
+Each source note says what bounds the kernel and what its design does
+about it; ``lstm_sequence_cluster_emulation`` and
+``lstm_sequence_bwd_cluster_emulation`` write the cluster route's
+decomposition plainly for the tests.
 
 Gradients: ``lstm_sequence`` routes through ``LstmSequenceFn`` when grad
 is enabled and an input requires it (sigmoid gates and a tanh cell, the
@@ -44,6 +53,12 @@ from deeplearning4j_tpu_torch.ops import registry
 
 KERNEL = "lstm_fwd"
 BWD_KERNEL = "lstm_bwd"
+# calls on the cluster route (takes_cluster), counted beside the above
+FWD_SM90 = "lstm_fwd_sm90"
+BWD_SM90 = "lstm_bwd_sm90"
+CLUSTER_UNITS = 32   # hidden units a cluster block owns
+CLUSTER_ROWS = 32    # batch rows one cluster walks
+MAX_CLUSTER = 16     # the largest cluster Hopper schedules (non-portable)
 
 
 class LstmOut(NamedTuple):
@@ -218,30 +233,223 @@ def lstm_sequence_bwd_torch(residuals, mask_t, Wh, p, dy, dhT, dcT):
             dp.to(cd))
 
 
+# ------------------------------------------------- the cluster kernels' plan
+# What the cluster route (takes_cluster) splits and how, written plainly:
+# the tests hold these against the plain loops above, which shows that the
+# decomposition computes the same function. Only the tests use them.
+def _rank_columns(n, ranks):
+    """The gate columns rank q owns, in its local order g * U + u: units
+    [q U, (q + 1) U) of each gate g, U = n / ranks."""
+    U = n // ranks
+    return [torch.cat([torch.arange(g * n + q * U, g * n + (q + 1) * U)
+                       for g in range(4)]) for q in range(ranks)]
+
+
+def lstm_sequence_cluster_emulation(xz_t, h0, c0, Wh, p, mask_t=None, *,
+                                    ranks=MAX_CLUSTER) -> LstmOut:
+    """K1's cluster decomposition (sigmoid gates, tanh cell): each step,
+    rank q forms z of its 4U columns from its slice Wh[:, columns] and the
+    whole of h[t-1] rounded to the compute dtype (its copy, filled by every
+    rank), updates its U units, and the new h is gathered from the ranks
+    (the DSMEM exchange). Returns what lstm_sequence_torch returns with
+    residuals."""
+    cd = xz_t.dtype
+    acc = _acc_dtype(cd)
+    T, n = xz_t.shape[0], h0.shape[-1]
+    U = n // ranks
+    cols = _rank_columns(n, ranks)
+    up = lambda x: x.to(cd).to(acc)  # noqa: E731
+    W, pv, h, c = up(Wh), up(p), up(h0), up(c0)
+    ys, Gs, hps, cps = [], [], [], []
+    for t in range(T):
+        hb = up(h)  # every rank's copy of h[t-1]
+        m = None if mask_t is None else up(mask_t[t])[:, None]
+        outs = []
+        for q in range(ranks):
+            z = xz_t[t][:, cols[q]].to(acc) + hb @ W[:, cols[q]]
+            zi, zf, zo, zg = z.split(U, dim=1)
+            own = slice(q * U, (q + 1) * U)
+            cp, hp = c[:, own], h[:, own]
+            i = torch.sigmoid(zi + pv[0, own] * cp)
+            f = torch.sigmoid(zf + pv[1, own] * cp)
+            g = torch.tanh(zg)
+            cn = f * cp + i * g
+            o = torch.sigmoid(zo + pv[2, own] * cn)
+            hn = o * torch.tanh(cn)
+            y = hn if m is None else hn * m
+            if m is not None:
+                keep = m > 0
+                hn, cn = torch.where(keep, hn, hp), torch.where(keep, cn, cp)
+            outs.append((y, hn, cn, (i, f, o, g)))
+        ys.append(torch.cat([o[0] for o in outs], dim=1).to(cd))
+        Gs.append(torch.cat([torch.cat([o[3][k] for o in outs], dim=1)
+                             for k in range(4)], dim=1).to(cd))
+        hps.append(h.to(cd))
+        cps.append(c.to(cd))
+        h = torch.cat([o[1] for o in outs], dim=1)
+        c = torch.cat([o[2] for o in outs], dim=1)
+    return LstmOut(torch.stack(ys), h.to(cd), c.to(cd), torch.stack(Gs),
+                   torch.stack(hps), torch.stack(cps))
+
+
+def lstm_sequence_bwd_cluster_emulation(residuals, mask_t, Wh, p, dy, dhT,
+                                        dcT, *, ranks=MAX_CLUSTER):
+    """K2's cluster decomposition: each step, rank q forms dz of its 4U
+    columns and dc of its units (phase A), then its partial P_q = Wh[:,
+    its columns] dz_q^T for all n units; rank q's dh_prev is the sum of
+    rows [q U, (q + 1) U) of P_0, P_1, ... in rank order (the reduce-
+    scatter) plus (1 - m) dh_next. dWh = h_prev^T dxz over all T b rows
+    after the chain. Returns what lstm_sequence_bwd_torch returns."""
+    G, hprev, cprev = residuals
+    cd = G.dtype
+    acc = _acc_dtype(cd)
+    T, b, n = hprev.shape
+    U = n // ranks
+    cols = _rank_columns(n, ranks)
+    up = lambda x: x.to(cd).to(acc)  # noqa: E731
+    W, pv = up(Wh), up(p)
+    dh, dc = up(dhT), up(dcT)
+    dxz = torch.zeros((T, b, 4 * n), dtype=acc)
+    dp = torch.zeros((3, n), dtype=acc)
+    for t in reversed(range(T)):
+        m = up(mask_t[t])[:, None]
+        P, dcs = [], []
+        for q in range(ranks):
+            own = slice(q * U, (q + 1) * U)
+            i, f, o, g = G[t][:, cols[q]].to(acc).split(U, dim=1)
+            cp = cprev[t][:, own].to(acc)
+            c = f * cp + i * g
+            tc = torch.tanh(c)
+            dhv = m * (dh[:, own] + up(dy[t][:, own]))
+            dzo = dhv * tc * o * (1.0 - o)
+            dc_in = (m * dc[:, own] + dhv * o * (1.0 - tc * tc)
+                     + dzo * pv[2, own])
+            dzi = dc_in * g * i * (1.0 - i)
+            dzf = dc_in * cp * f * (1.0 - f)
+            dzg = dc_in * i * (1.0 - g * g)
+            dz = up(torch.cat([dzi, dzf, dzo, dzg], dim=1))
+            dxz[t][:, cols[q]] = dz
+            P.append(W[:, cols[q]] @ dz.T)
+            dcs.append(dc_in * f + dzi * pv[0, own] + dzf * pv[1, own]
+                       + (1.0 - m) * dc[:, own])
+            dp[0, own] += torch.sum(dzi * cp, dim=0)
+            dp[1, own] += torch.sum(dzf * cp, dim=0)
+            dp[2, own] += torch.sum(dzo * c, dim=0)
+        dh_prev = []
+        for q in range(ranks):
+            own = slice(q * U, (q + 1) * U)
+            s = P[0][own]
+            for d in range(1, ranks):
+                s = s + P[d][own]
+            dh_prev.append(s.T + (1.0 - m) * dh[:, own])
+        dh, dc = torch.cat(dh_prev, dim=1), torch.cat(dcs, dim=1)
+    dWh = (hprev.reshape(T * b, n).to(acc).T
+           @ dxz.reshape(T * b, 4 * n))
+    return (dxz.to(cd), dh.to(cd), dc.to(cd), dWh.to(cd), dp.to(cd))
+
+
 # ----------------------------------------------------------------- cuda
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _bind(kernel, n_ptrs, n_ints):
-    """The loaded library of ``kernel`` with its C entry points typed:
-    ``dl4j_<kernel>(dtype, n_ptrs pointers, n_ints ints, stream)``,
-    ``dl4j_<kernel>_smem_bytes`` and ``dl4j_cuda_error_string``."""
+def takes_cluster(dtype, n) -> bool:
+    """Whether K1 and K2 take their cluster route for hidden size ``n``
+    in ``dtype``: bf16, and n a multiple of 64 that clusters of at most 16
+    blocks of 32 units cover (64 <= n <= 512), so that each block's Wh
+    slice [n, 128] and its buffers fit in its shared memory. Decided by
+    dtype and n only, never by b, T or the mask: a row served in a bucket
+    takes the route it takes alone. Everything else (f32, wider or ragged
+    n) takes the grid kernels."""
+    return (dtype == torch.bfloat16 and n % 64 == 0
+            and 64 <= n <= CLUSTER_UNITS * MAX_CLUSTER)
+
+
+def bwd_launches_per_call(dtype, n) -> int:
+    """Device launches one K2 call makes: the chain, the sum of dp's
+    partials and dWh on the cluster route; the chain and dWh on the grid
+    route."""
+    return 3 if takes_cluster(dtype, n) else 2
+
+
+# entry point -> (pointers, ints) before the stream
+_ENTRIES = {
+    KERNEL: {"dl4j_lstm_fwd": (14, 4), "dl4j_lstm_fwd_sm90": (12, 4)},
+    BWD_KERNEL: {"dl4j_lstm_bwd": (16, 3), "dl4j_lstm_bwd_sm90": (15, 3)},
+}
+
+
+def _bind(kernel):
+    """The loaded library of ``kernel`` with its C entry points typed (the
+    grid route's takes the dtype code first), their ``_smem_bytes`` and
+    ``_sm90_clusters`` queries and ``dl4j_cuda_error_string``."""
     from deeplearning4j_tpu_torch.ops import _build
 
     lib = _build.load(kernel)
     if getattr(lib, "_dl4j_bound", False):
         return lib
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn = getattr(lib, f"dl4j_{kernel}")
-    fn.argtypes = [i32] + [ptr] * n_ptrs + [i32] * n_ints + [ptr]
-    fn.restype = i32
+    for entry, (n_ptrs, n_ints) in _ENTRIES[kernel].items():
+        fn = getattr(lib, entry)
+        code = [] if entry.endswith("_sm90") else [i32]
+        fn.argtypes = code + [ptr] * n_ptrs + [i32] * n_ints + [ptr]
+        fn.restype = i32
     smem = getattr(lib, f"dl4j_{kernel}_smem_bytes")
     smem.argtypes = [i32, i32]
-    smem.restype = i32
+    for query in (f"dl4j_{kernel}_sm90_smem_bytes",
+                  f"dl4j_{kernel}_sm90_clusters"):
+        getattr(lib, query).argtypes = [i32]
+    for fn in (smem, getattr(lib, f"dl4j_{kernel}_sm90_smem_bytes"),
+               getattr(lib, f"dl4j_{kernel}_sm90_clusters")):
+        fn.restype = i32
     lib.dl4j_cuda_error_string.argtypes = [i32]
     lib.dl4j_cuda_error_string.restype = ctypes.c_char_p
     lib._dl4j_bound = True
     return lib
+
+
+def _check_on_cuda(x, what):
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} needs CUDA tensors, got {x.device}")
+
+
+def _aligned(x):
+    """x, or a copy of it whose data is 16-byte aligned: the cluster
+    kernels read Wh, h0 and h_prev 16 bytes at a time (and h_prev through
+    TMA). A view into another tensor may start anywhere."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _launch(lib, kernel, cluster, args, dev, what):
+    """Calls ``kernel``'s entry point on ``cluster``'s route (the grid
+    route's with the dtype code ``args[0]``) on the current stream of
+    ``dev``; raises, naming the kernel, the route and ``what``, on any
+    error, and when not one cluster fits on the card."""
+    name = f"dl4j_{kernel}_sm90" if cluster else f"dl4j_{kernel}"
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, name)(*args, stream)
+    if rc == 0:
+        return
+    route = "cluster" if cluster else "grid"
+    if rc == -1:
+        raise RuntimeError(
+            f"{kernel} ({route} route, {what}): not one cluster of "
+            f"{what.n // CLUSTER_UNITS} blocks with "
+            f"{getattr(lib, f'dl4j_{kernel}_sm90_smem_bytes')(what.n)} B of "
+            f"shared memory each fits on this card")
+    msg = lib.dl4j_cuda_error_string(rc).decode()
+    raise RuntimeError(f"{kernel} kernel launch failed ({route} route, "
+                       f"{what}): cudaError {rc}: {msg}")
+
+
+class _Shape(NamedTuple):
+    T: int
+    b: int
+    n: int
+    dtype: torch.dtype
+
+    def __str__(self):
+        return f"T={self.T}, b={self.b}, n={self.n}, {self.dtype}"
 
 
 def _check_like(cd, device, want: dict):
@@ -294,43 +502,53 @@ def _check_cuda_inputs(xz_t, h0, c0, Wh, p, mask_t, gate_act, cell_act):
 def lstm_sequence_cuda(xz_t, h0, c0, Wh, p, mask_t=None, *,
                        gate_act="sigmoid", cell_act="tanh",
                        save_residuals=False) -> LstmOut:
-    """Launch csrc/lstm_fwd.cu on the current stream. Raises on what the
-    kernel does not take; never falls back to the plain version."""
-    if xz_t.device.type != "cuda":
-        raise ValueError(f"the CUDA LSTM kernel needs CUDA tensors, got "
-                         f"{xz_t.device}")
+    """Launch csrc/lstm_fwd.cu on the current stream, on the cluster route
+    where ``takes_cluster`` holds (counted once more under ``FWD_SM90``),
+    else on the grid route. Raises on what the kernel does not take; never
+    falls back to the plain version."""
+    _check_on_cuda(xz_t, "the CUDA LSTM kernel")
     cd = xz_t.dtype
     if mask_t is None:
         mask_t = torch.ones(xz_t.shape[:2], dtype=cd, device=xz_t.device)
     T, b, n = _check_cuda_inputs(xz_t, h0, c0, Wh, p, mask_t, gate_act,
                                  cell_act)
-    lib = _bind(KERNEL, n_ptrs=14, n_ints=4)
-    dev = xz_t.device
+    cluster = takes_cluster(cd, n)
+    out = lstm_fwd_launch(cluster, xz_t, h0, c0, Wh, p, mask_t,
+                          save_residuals)
+    registry.count_launch(KERNEL)
+    if cluster:
+        registry.count_launch(FWD_SM90)
+    return out
+
+
+def lstm_fwd_launch(cluster, xz_t, h0, c0, Wh, p, mask_t, save_residuals):
+    """One K1 launch on the route ``cluster`` names, on checked inputs,
+    not counted: the wrapper's, and chip_smoke.py's way to hold and time
+    the grid kernel's bf16 instantiation beside the cluster kernel."""
+    T, b, n4 = xz_t.shape
+    n, cd, dev = n4 // 4, xz_t.dtype, xz_t.device
+    lib = _bind(KERNEL)
     empty = lambda *shape: torch.empty(shape, dtype=cd, device=dev)  # noqa: E731
     y, hT, cT = empty(T, b, n), empty(b, n), empty(b, n)
     G = hprev = cprev = None
     if save_residuals:
         G, hprev, cprev = empty(T, b, 4 * n), empty(T, b, n), empty(T, b, n)
-    # f32 carry scratch. It may be freed as soon as this returns: the
-    # caching allocator reuses it only for work queued after the kernel on
-    # this stream.
-    hbuf = torch.empty((2, b, n), dtype=torch.float32, device=dev)
-    cbuf = torch.empty((b, n), dtype=torch.float32, device=dev)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.dl4j_lstm_fwd(
-            _DTYPE_CODES[cd], ptr(xz_t), ptr(mask_t), ptr(h0), ptr(c0),
-            ptr(Wh), ptr(p), ptr(y), ptr(hT), ptr(cT), ptr(G), ptr(hprev),
-            ptr(cprev), ptr(hbuf), ptr(cbuf), T, b, n, int(save_residuals),
-            stream)
-    if rc != 0:
-        msg = lib.dl4j_cuda_error_string(rc).decode()
-        raise RuntimeError(
-            f"lstm_fwd kernel launch failed (T={T}, b={b}, n={n}, {cd}, "
-            f"{lib.dl4j_lstm_fwd_smem_bytes(_DTYPE_CODES[cd], n)} B shared "
-            f"memory per block): cudaError {rc}: {msg}")
-    registry.count_launch(KERNEL)
+    outs = [ptr(x) for x in (y, hT, cT, G, hprev, cprev)]
+    ints = [T, b, n, int(save_residuals)]
+    if cluster:
+        ins = [ptr(_aligned(x)) for x in (xz_t, mask_t, h0, c0, Wh, p)]
+        args = ins + outs + ints
+    else:
+        # f32 carry scratch. It may be freed as soon as this returns: the
+        # caching allocator reuses it only for work queued after the
+        # kernel on this stream.
+        hbuf = torch.empty((2, b, n), dtype=torch.float32, device=dev)
+        cbuf = torch.empty((b, n), dtype=torch.float32, device=dev)
+        ins = [ptr(x) for x in (xz_t, mask_t, h0, c0, Wh, p)]
+        args = ([_DTYPE_CODES[cd]] + ins + outs + [ptr(hbuf), ptr(cbuf)]
+                + ints)
+    _launch(lib, KERNEL, cluster, args, dev, _Shape(T, b, n, cd))
     return LstmOut(y, hT, cT, G, hprev, cprev)
 
 
@@ -355,34 +573,45 @@ def _check_cuda_bwd_inputs(residuals, mask_t, Wh, p, dy, dhT, dcT):
 @registry.register("lstm_sequence_bwd", "cuda")
 def lstm_sequence_bwd_cuda(residuals, mask_t, Wh, p, dy, dhT, dcT):
     """Launch csrc/lstm_bwd.cu (the reverse chain, then dWh) on the current
-    stream. Raises on what the kernel does not take; never falls back to
-    the plain version."""
-    G = residuals[0]
-    if G.device.type != "cuda":
-        raise ValueError(f"the CUDA LSTM backward kernel needs CUDA tensors, "
-                         f"got {G.device}")
+    stream, on the cluster route where ``takes_cluster`` holds (counted
+    once more under ``BWD_SM90``), else on the grid route. Raises on what
+    the kernel does not take; never falls back to the plain version."""
+    _check_on_cuda(residuals[0], "the CUDA LSTM backward kernel")
     T, b, n = _check_cuda_bwd_inputs(residuals, mask_t, Wh, p, dy, dhT, dcT)
-    cd = G.dtype
-    lib = _bind(BWD_KERNEL, n_ptrs=16, n_ints=3)
-    dev = G.device
+    cd = residuals[0].dtype
+    cluster = takes_cluster(cd, n)
+    out = lstm_bwd_launch(cluster, residuals, mask_t, Wh, p, dy, dhT, dcT)
+    registry.count_launch(BWD_KERNEL, bwd_launches_per_call(cd, n))
+    if cluster:
+        registry.count_launch(BWD_SM90)
+    return out
+
+
+def lstm_bwd_launch(cluster, residuals, mask_t, Wh, p, dy, dhT, dcT):
+    """One K2 call on the route ``cluster`` names, on checked inputs, not
+    counted (as lstm_fwd_launch)."""
+    G, hprev, cprev = residuals
+    T, b, n4 = G.shape
+    n, cd, dev = n4 // 4, G.dtype, G.device
+    lib = _bind(BWD_KERNEL)
     empty = lambda *shape: torch.empty(shape, dtype=cd, device=dev)  # noqa: E731
     dxz, dh0, dc0 = empty(T, b, 4 * n), empty(b, n), empty(b, n)
     dWh, dp = empty(n, 4 * n), empty(3, n)
-    # f32 (dh, dc) carry scratch, freed as for the forward
-    dhbuf = torch.empty((b, n), dtype=torch.float32, device=dev)
-    dcbuf = torch.empty((b, n), dtype=torch.float32, device=dev)
-    _, hprev, cprev = residuals
-    args = [x.data_ptr() for x in (G, cprev, hprev, mask_t, Wh, p, dy, dhT,
-                                   dcT, dxz, dh0, dc0, dWh, dp, dhbuf,
-                                   dcbuf)]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.dl4j_lstm_bwd(_DTYPE_CODES[cd], *args, T, b, n, stream)
-    if rc != 0:
-        msg = lib.dl4j_cuda_error_string(rc).decode()
-        raise RuntimeError(
-            f"lstm_bwd kernel launch failed (T={T}, b={b}, n={n}, {cd}, "
-            f"{lib.dl4j_lstm_bwd_smem_bytes(_DTYPE_CODES[cd], n)} B shared "
-            f"memory per block): cudaError {rc}: {msg}")
-    registry.count_launch(BWD_KERNEL, 2)  # the chain, then the dWh GEMM
+    outs = [x.data_ptr() for x in (dxz, dh0, dc0, dWh, dp)]
+    if cluster:
+        # per-cluster f32 partials of dp, summed by the second launch
+        part = torch.empty((-(-b // CLUSTER_ROWS), 3, n), dtype=torch.float32,
+                           device=dev)
+        ins = [x.data_ptr() for x in (G, cprev, _aligned(hprev), mask_t,
+                                      _aligned(Wh), p, dy, dhT, dcT)]
+        args = ins + outs + [part.data_ptr(), T, b, n]
+    else:
+        # f32 (dh, dc) carry scratch, freed as for the forward
+        dhbuf = torch.empty((b, n), dtype=torch.float32, device=dev)
+        dcbuf = torch.empty((b, n), dtype=torch.float32, device=dev)
+        ins = [x.data_ptr() for x in (G, cprev, hprev, mask_t, Wh, p, dy,
+                                      dhT, dcT)]
+        args = ([_DTYPE_CODES[cd]] + ins + outs
+                + [dhbuf.data_ptr(), dcbuf.data_ptr(), T, b, n])
+    _launch(lib, BWD_KERNEL, cluster, args, dev, _Shape(T, b, n, cd))
     return dxz, dh0, dc0, dWh, dp

@@ -167,3 +167,110 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype):
         want = tlstm.lstm_sequence_torch(*_args(t), save_residuals=True)
     for g, w in zip(got, want):
         _close(g.cpu(), w.float().cpu().numpy(), tol)
+
+
+# ------------------------------------------------- the cluster route's gate
+class _Recorder:
+    """Stands in for the built library and the launcher, so the CUDA
+    wrappers' choice of route and their counters can be read on the CPU:
+    records each launch's kernel, route and arguments."""
+
+    def __init__(self, monkeypatch):
+        self.calls = []
+        monkeypatch.setattr(tlstm, "_check_on_cuda", lambda x, what: None)
+        monkeypatch.setattr(tlstm, "_bind", lambda kernel: self)
+        monkeypatch.setattr(tlstm, "_launch", self._launch)
+
+    def _launch(self, lib, kernel, cluster, args, dev, what):
+        self.calls.append((kernel, cluster, args, what))
+
+
+def _zeros_fwd(T, b, n, dtype, masked=False):
+    z = lambda *s: torch.zeros(s, dtype=dtype)  # noqa: E731
+    mask = torch.ones(T, b, dtype=dtype) if masked else None
+    return z(T, b, 4 * n), z(b, n), z(b, n), z(n, 4 * n), z(3, n), mask
+
+
+# (dtype, n, cluster): bf16 at n a multiple of 64 up to 16 blocks of 32
+# units takes the cluster route; f32, ragged and too wide n the grid
+_ROUTES = [(torch.bfloat16, 512, True), (torch.bfloat16, 64, True),
+           (torch.bfloat16, 256, True), (torch.float32, 512, False),
+           (torch.bfloat16, 576, False), (torch.bfloat16, 96, False),
+           (torch.bfloat16, 32, False), (torch.float32, 64, False)]
+
+
+@pytest.mark.parametrize("dtype,n,cluster", _ROUTES)
+def test_takes_cluster_reads_dtype_and_width(dtype, n, cluster):
+    assert tlstm.takes_cluster(dtype, n) is cluster
+
+
+@pytest.mark.parametrize("b", [1, 3, 32, 33, 1024])
+@pytest.mark.parametrize("T,masked", [(1, False), (2, True)])
+@pytest.mark.parametrize("dtype,n,cluster", [(torch.bfloat16, 512, True),
+                                             (torch.float32, 512, False),
+                                             (torch.bfloat16, 576, False)])
+def test_forward_route_depends_on_dtype_and_n_only(monkeypatch, dtype, n,
+                                                    cluster, T, masked, b):
+    rec = _Recorder(monkeypatch)
+    registry.reset_launches()
+    with torch.no_grad():
+        out = tlstm.lstm_sequence_cuda(*_zeros_fwd(T, b, n, dtype, masked),
+                                       save_residuals=True)
+    (kernel, got_cluster, args, what), = rec.calls
+    assert (kernel, got_cluster) == (tlstm.KERNEL, cluster)
+    assert (what.T, what.b, what.n, what.dtype) == (T, b, n, dtype)
+    # the cluster entry point takes no dtype code and no carry scratch
+    assert len(args) == (16 if cluster else 19)
+    assert args[-4:] == [T, b, n, 1]
+    assert out.G.shape == (T, b, 4 * n) and out.y.dtype == dtype
+    want = {tlstm.KERNEL: 1}
+    if cluster:
+        want[tlstm.FWD_SM90] = 1
+    assert registry.launches() == want
+
+
+def test_cluster_route_reads_wh_and_h0_aligned(monkeypatch):
+    """The cluster kernels read Wh and h0 16 bytes at a time: a view that
+    starts off a 16-byte boundary is copied first (the route stays)."""
+    rec = _Recorder(monkeypatch)
+    T, b, n = 2, 3, 64
+    xz, h0, c0, Wh, p, _ = _zeros_fwd(T, b, n, torch.bfloat16)
+    Wh_off = torch.zeros(n * 4 * n + 1, dtype=torch.bfloat16)[1:].view(n,
+                                                                      4 * n)
+    h0_off = torch.zeros(b * n + 3, dtype=torch.bfloat16)[3:].view(b, n)
+    assert Wh_off.data_ptr() % 16 and h0_off.data_ptr() % 16
+    with torch.no_grad():
+        tlstm.lstm_sequence_cuda(xz, h0_off, c0, Wh_off, p)
+    (_, cluster, args, _), = rec.calls
+    assert cluster
+    assert all(a % 16 == 0 for a in args[:6])
+
+
+@pytest.mark.parametrize("carry", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+def test_cluster_decomposition_matches_plain_f32(carry, masked):
+    """K1's cluster decomposition (16 ranks, each its 4 units' columns of
+    Wh, h gathered from the ranks every step) computes the plain loop's
+    function: f32 at n = 64, 1e-6 (the same products in slices)."""
+    d = _torch(_draw(6, 3, 64, seed=11, carry=carry, masked=masked),
+               torch.float32)
+    got = tlstm.lstm_sequence_cluster_emulation(*_args(d))
+    want = tlstm.lstm_sequence_torch(*_args(d), save_residuals=True)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        _close(g, w.numpy(), 1e-6)
+
+
+def test_cluster_decomposition_matches_jax_bf16(monkeypatch):
+    """The decomposition in bf16 (16 ranks of 8 units) against the JAX
+    package's Pallas kernel in interpret mode, residuals included, at the
+    bf16 tolerance."""
+    monkeypatch.setenv("DL4J_TPU_PALLAS_INTERPRET", "1")
+    d = _draw(5, 16, 128, seed=12, carry=True, masked=True)
+    want = jlstm._fwd_call(*_args({k: jnp.asarray(v, jnp.bfloat16)
+                                   for k, v in d.items()}))
+    got = tlstm.lstm_sequence_cluster_emulation(
+        *_args(_torch(d, torch.bfloat16)))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and tuple(g.shape) == tuple(w.shape)
+        _close(g, np.asarray(w.astype(jnp.float32)), BF16_TOL)

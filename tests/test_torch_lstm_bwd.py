@@ -259,3 +259,107 @@ def test_cuda_bwd_kernel_matches_plain(cuda_device, dtype):
         tol = 1e-4 if dtype == "float32" else _bf16_tol(wn)
         np.testing.assert_allclose(g.float().cpu().numpy(), wn, atol=tol,
                                    rtol=tol)
+
+
+# ------------------------------------------------- the cluster route's gate
+class _Recorder:
+    """Stands in for the built library and the launcher (as in
+    test_torch_lstm.py), so K2's route and counters can be read on the
+    CPU."""
+
+    def __init__(self, monkeypatch):
+        self.calls = []
+        monkeypatch.setattr(tlstm, "_check_on_cuda", lambda x, what: None)
+        monkeypatch.setattr(tlstm, "_bind", lambda kernel: self)
+        monkeypatch.setattr(tlstm, "_launch", self._launch)
+
+    def _launch(self, lib, kernel, cluster, args, dev, what):
+        self.calls.append((kernel, cluster, args, what))
+
+
+@pytest.mark.parametrize("b", [1, 3, 32, 33, 1024])
+@pytest.mark.parametrize("T", [1, 2])
+@pytest.mark.parametrize("dtype,n,cluster", [(torch.bfloat16, 512, True),
+                                             (torch.float32, 512, False),
+                                             (torch.bfloat16, 576, False),
+                                             (torch.bfloat16, 96, False)])
+def test_backward_route_depends_on_dtype_and_n_only(monkeypatch, dtype, n,
+                                                     cluster, T, b):
+    rec = _Recorder(monkeypatch)
+    registry.reset_launches()
+    z = lambda *s: torch.zeros(s, dtype=dtype)  # noqa: E731
+    with torch.no_grad():
+        out = tlstm.lstm_sequence_bwd_cuda(
+            (z(T, b, 4 * n), z(T, b, n), z(T, b, n)), z(T, b), z(n, 4 * n),
+            z(3, n), z(T, b, n), z(b, n), z(b, n))
+    (kernel, got_cluster, args, what), = rec.calls
+    assert (kernel, got_cluster) == (tlstm.BWD_KERNEL, cluster)
+    assert (what.T, what.b, what.n) == (T, b, n)
+    # the cluster entry point: 15 pointers (dp's partials last), no dtype
+    # code; the grid one: the code, 16 pointers (two carry scratches)
+    assert len(args) == (18 if cluster else 20)
+    assert args[-3:] == [T, b, n]
+    assert [tuple(o.shape) for o in out] == [(T, b, 4 * n), (b, n), (b, n),
+                                            (n, 4 * n), (3, n)]
+    per_call = tlstm.bwd_launches_per_call(dtype, n)
+    assert per_call == (3 if cluster else 2)
+    want = {tlstm.BWD_KERNEL: per_call}
+    if cluster:
+        want[tlstm.BWD_SM90] = 1
+    assert registry.launches() == want
+
+
+@pytest.mark.parametrize("carry", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+def test_cluster_decomposition_matches_plain_bwd_f32(masked, carry):
+    """K2's cluster decomposition (16 ranks; phase A on each rank's
+    columns, the partials P_q = Wh[:, q's columns] dz_q^T summed in rank
+    order for each rank's units, dWh over all T b rows after the chain)
+    computes the plain backward's function: f32 at n = 64, 1e-6."""
+    d = _draw(6, 3, 64, seed=13, carry=carry, masked=masked)
+    t = {k: _t(v, torch.float32) for k, v in d.items()}
+    res = tlstm.lstm_sequence_torch(*_fwd_args(t), save_residuals=True)
+    args = ((res.G, res.h_prev, res.c_prev), t["mask"], t["Wh"], t["p"],
+            t["dy"], t["dhT"], t["dcT"])
+    got = tlstm.lstm_sequence_bwd_cluster_emulation(*args)
+    want = tlstm.lstm_sequence_bwd_torch(*args)
+    for name, g, w in zip(OUT_NAMES, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        _close(g, w, 1e-6)
+
+
+def test_cluster_decomposition_matches_pallas_bwd_bf16(monkeypatch):
+    """The decomposition in bf16 (16 ranks of 8 units) against the Pallas
+    backward kernel in interpret mode on its own forward's residuals, at
+    two bf16 ulps of each output's largest magnitude."""
+    monkeypatch.setenv("DL4J_TPU_PALLAS_INTERPRET", "1")
+    d = _draw(5, 16, 128, seed=14, carry=True, masked=True)
+    j = {k: jnp.asarray(v, jnp.bfloat16) for k, v in d.items()}
+    _, _, _, G, hp, cp = jlstm._fwd_call(*_fwd_args(j))
+    want = jlstm._bwd_call((G, hp, cp, j["mask"], j["Wh"], j["p"]),
+                           (j["dy"], j["dhT"], j["dcT"]))
+    tt = lambda a: _t(_np(a), torch.bfloat16)  # noqa: E731
+    got = tlstm.lstm_sequence_bwd_cluster_emulation(
+        (tt(G), tt(hp), tt(cp)), tt(j["mask"]), tt(j["Wh"]), tt(j["p"]),
+        tt(j["dy"]), tt(j["dhT"]), tt(j["dcT"]))
+    for name, g, w in zip(OUT_NAMES, got, want):
+        assert g.dtype == torch.bfloat16, name
+        _close(g, w, _bf16_tol(_np(w)))
+
+
+@pytest.mark.parametrize("ranks", [2, 4, 8])
+def test_cluster_decomposition_holds_for_every_cluster_size(ranks):
+    """Clusters of n / 32 blocks for n below 512 split the same function
+    into fewer, wider ranks: forward and backward decompositions at 2, 4
+    and 8 ranks of n = 64 agree with the plain loops to 1e-6 (f32)."""
+    d = _draw(4, 3, 64, seed=15, carry=True, masked=True)
+    t = {k: _t(v, torch.float32) for k, v in d.items()}
+    res = tlstm.lstm_sequence_torch(*_fwd_args(t), save_residuals=True)
+    emu = tlstm.lstm_sequence_cluster_emulation(*_fwd_args(t), ranks=ranks)
+    for g, w in zip(emu, res):
+        _close(g, w, 1e-6)
+    args = ((res.G, res.h_prev, res.c_prev), t["mask"], t["Wh"], t["p"],
+            t["dy"], t["dhT"], t["dcT"])
+    got = tlstm.lstm_sequence_bwd_cluster_emulation(*args, ranks=ranks)
+    for g, w in zip(got, tlstm.lstm_sequence_bwd_torch(*args)):
+        _close(g, w, 1e-6)
