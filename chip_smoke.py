@@ -14,7 +14,11 @@ transformer (vocab 80, width 256, 4 blocks of 4 heads, T = 256, BF16,
 Adam) the same way, trains the full-width ResNet-50 (1000 classes,
 224 x 224, b = 256, BF16, Nesterovs) with the block-fusion pass on and
 off, checks that each path launched its kernels, and times the kernels
-and the train steps. Every
+and the train steps. Then it trains LeNet (28 x 28 x 1, BF16) through
+``MultiLayerNetwork.fit`` with the listeners, early-stops it and evaluates
+it, trains the full-width VGG-16 (224 x 224, 1000 classes, BF16) and
+ResNet-18 (32 x 32, 10 classes, BF16) and evaluates the graph; these
+paths reach none of the port's kernels (cuDNN and cuBLAS only). Every
 phase that fails ends the run with a nonzero exit code. It needs one CUDA
 card; without one (or without the package beside it) it exits nonzero
 and prints no result.
@@ -34,6 +38,13 @@ checkout of another commit to measure that commit's K7 the same way), and
 runs only [train_resnet]'s check of each fused tail's K4-K7 on the
 inputs one BF16 step gives them (run it from a copy with a planted fault
 to see the check fail), and
+
+    python3 chip_smoke.py --conv-nets
+
+runs only the three MultiLayerNetwork/ComputationGraph conv phases
+([train_lenet], [train_vgg16], [train_resnet18]; one alone:
+``python3 -c "import chip_smoke as c; c.phase_device();
+c.phase_train_lenet()"``), and
 
     python3 chip_smoke.py --k6-split
 
@@ -73,6 +84,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -1244,10 +1256,50 @@ def gpt_grads_vs_cpu(net, x, y, dtype):
     return score_err, max(errs.values()), card_loss
 
 
-def profile_steps(net, data):
+# Kernels by kind, from the words in their names (lower case), tried in
+# this order (the words read from the kernel listings of VGG-16, LeNet and
+# ResNet-18 steps, profile_out/<net>_kernels.json): cuDNN's layout and
+# padding transforms; the split-K parts of cuDNN's weight gradients and of
+# cuBLAS's products; cuDNN's workspace initialisation; PyTorch's pooling;
+# cuDNN's convolutions (forward, data and weight gradients), before the
+# GEMM words, which the implicit-GEMM convolutions' names hold too; then
+# PyTorch's reductions ("reduce_kernel"), copies, memsets and elementwise
+# kernels.
+KERNEL_KINDS = (
+    ("layout", ("nchwtonhwc", "nhwctonchw", "transpose", "addpadding")),
+    ("splitk", ("splitk", "split_k")),
+    ("conv_workspace", ("init_device_workspace",)),
+    ("pool", ("max_pool", "avg_pool")),
+    ("cudnn_conv", ("fprop", "dgrad", "wgrad", "convolve", "conv2d",
+                    "winograd")),
+    ("gemm", ("gemm", "xmma", "cutlass", "sm90_", "cublas", "nvjet")),
+    ("reduce", ("reduce",)),
+    ("copy", ("copy",)),
+    ("memset", ("memset",)),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def kernel_kind(name):
+    """The kind a kernel of the profiler's listing is counted under."""
+    name = name.lower()
+    if "flash_fwd_kernel" in name:
+        return "flash_attn_fwd"
+    if "lstm_" in name:
+        return "lstm"
+    for kind, words in KERNEL_KINDS:
+        if any(w in name for w in words):
+            return kind
+    return "other"
+
+
+def profile_steps(net, data, names_to=None):
     """torch.profiler over len(data) more fit_batch steps: the device's
     kernel time and kernel count per step, its busy share of the steps'
-    host-clock wall time, and both by kind of kernel."""
+    host-clock wall time, and both by kind of kernel (``kernel_kind``).
+    With ``names_to`` (a file name), every kernel's name, kind, launches
+    and device ms a step go to profile_out/<names_to> (beside this script)
+    as JSON."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1264,20 +1316,22 @@ def profile_steps(net, data):
     n = len(data)
     check(sum(dev_us.values()) > 0, "the profiler saw no device time")
     flash_us = sum(v for k, v in dev_us.items() if "flash_fwd_kernel" in k)
-    groups = {}
+    groups, listing = {}, []
     for e in kernels:
-        name = e.key.lower()
-        g = ("flash_attn_fwd" if "flash_fwd_kernel" in name
-             else "lstm" if "lstm_" in name
-             else "gemm" if any(w in name for w in ("gemm", "xmma", "cutlass",
-                                                    "sm90_", "cublas"))
-             else "reduce" if "reduce" in name
-             else "copy" if "copy" in name or "memcpy" in name
-             else "elementwise" if "elementwise" in name
-             else "other")
+        g = kernel_kind(e.key)
         ms, cnt = groups.get(g, (0.0, 0))
         groups[g] = (ms + e.self_device_time_total / 1e3 / n,
                      cnt + e.count // n)
+        listing.append({"kind": g, "launches_per_step": e.count / n,
+                        "ms_per_step": e.self_device_time_total / 1e3 / n,
+                        "name": e.key})
+    if names_to is not None:
+        out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "profile_out")
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, names_to), "w") as f:
+            json.dump(sorted(listing, key=lambda r: -r["ms_per_step"]), f,
+                      indent=1)
     return {
         "prof_by_kind_ms_and_kernels_per_step": json.dumps(
             {g: [round(ms, 4), c] for g, (ms, c) in sorted(groups.items())}),
@@ -3004,6 +3058,518 @@ def phase_fwd_split():
         torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------
+# The MultiLayerNetwork conv path, evaluation, listeners and early stopping:
+# LeNet, VGG-16, ResNet-18. No kernel of the port is on these paths (their
+# convolutions and products go to cuDNN and cuBLAS, as the JAX package
+# leaves them to XLA); each phase checks that K1-K7 were not launched.
+# --------------------------------------------------------------------------
+
+# LeNet's F32 first step (b = 64), card and plain CPU path, each against an
+# f64 CPU run of the same step: a relu/max-pool net's gradients are
+# discontinuous (ROADMAP.md C.4), so the card's must be as accurate as the
+# CPU's f32 gradients, to within CONV_ACCURACY_RATIO plus 1e-3, in each
+# gradient's L2 error relative to its norm (worst gradient); the scores
+# card vs CPU to CONV_F32_SCORE_RTOL. The same holds ResNet-18's F32 step,
+# the form tests/test_torch_graph.py states for it on the card.
+CONV_ACCURACY_RATIO = 2.0
+CONV_F32_SCORE_RTOL = 1e-5
+# LeNet's held-out accuracy after early stopping (10 classes: chance 0.1)
+LENET_MIN_ACCURACY = 0.9
+# F32 evaluate, card vs CPU on the same weights: rows whose CPU top-two
+# probability gap is below LENET_TIE_GAP may take either class on either
+# side and are left out (their count is printed); every other row must
+# land in the same cell of the confusion matrix
+LENET_TIE_GAP = 1e-5
+# VGG-16's BF16 steps: at the zoo's Nesterovs(0.01, 0.9) the score of this
+# xavier-initialised net (no batch norm) on mean-subtracted 0-255 images
+# diverges within 12 steps (NVIDIA H100 80GB HBM3, b = 32: 6.94, 6.88,
+# 6.17, 24.9, 12.2, 6.0, 3519, 7.5e12, then NaN), and the JAX package's
+# F32 steps diverge alike on the CPU at 64 x 64 with 1000 classes
+# (tests/test_torch_mln_vgg.py), so the phase trains at VGG_LR with the
+# same momentum
+VGG_LR = 1e-3
+# VGG-16's F32 forward at b = 2, card vs CPU: each row's largest
+# probability error at most VGG_ROW_PROB_TOL of the row's largest
+# probability (the same f32 arithmetic, sums in another order; TF32 off
+# for the convolutions and the dense products alike)
+VGG_ROW_PROB_TOL = 1e-3
+# ResNet-18's F32 eval-mode forward on its trained weights and BN state,
+# card vs CPU: the same limit as VGG-16's F32 forward (in eval mode BN is
+# an affine map of the running statistics; no batch statistics enter)
+RESNET18_EVAL_ROW_TOL = VGG_ROW_PROB_TOL
+# train-mode walks that refresh ResNet-18's BN running statistics on its
+# trained weights (decay 0.9: 0.9^40 = 1.5% of the old statistics remain)
+RESNET18_BN_REFRESH_PASSES = 40
+
+
+def lenet_data(n, seed):
+    """``n`` 28 x 28 x 1 images: ten class templates from N(0, 1), each
+    image its class's template plus N(0, 2^2) noise (an F32 LeNet reaches
+    ~0.91 held-out accuracy after one epoch of 60 steps, ~0.99 after
+    three); one-hot labels. Made on the host from a seed."""
+    rng = np.random.default_rng(seed)
+    templates = rng.normal(0.0, 1.0, (10, 28, 28, 1)).astype(np.float32)
+    idx = rng.integers(0, 10, n)
+    x = templates[idx] + rng.normal(0.0, 2.0, (n, 28, 28, 1)).astype(
+        np.float32)
+    return x, np.eye(10, dtype=np.float32)[idx]
+
+
+def mln_copy(net, device, dtype=None):
+    """The same configuration, weights and layer state on ``device``;
+    ``dtype`` ("float32", "float64") also sets the policy and casts the
+    weights."""
+    import dataclasses
+    from deeplearning4j_tpu_torch import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.conf.core import TORCH_DTYPES, DtypePolicy
+    conf, cast = net.conf, None
+    if dtype is not None:
+        gc = dataclasses.replace(conf.global_conf, dtype=DtypePolicy(
+            param_dtype=dtype, compute_dtype=dtype))
+        conf = dataclasses.replace(conf, global_conf=gc)
+        cast = TORCH_DTYPES[dtype]
+    cp = MultiLayerNetwork(conf, device=device).init()
+    copy = lambda t: t.detach().to(device, cast).clone()  # noqa: E731
+    cp.params = {ln: {k: copy(t) for k, t in lp.items()}
+                 for ln, lp in net.params.items()}
+    cp.state = {ln: {k: copy(t) for k, t in lp.items()}
+                for ln, lp in net.state.items()}
+    return cp
+
+
+def f32_step_vs_f64(card_net, cpu_net, ref_net, grads_fn, xs, ys, what):
+    """One F32 step's score and gradients on the card and on the plain CPU
+    path, each against the f64 CPU path; fails unless the card is as
+    accurate as the CPU (CONV_ACCURACY_RATIO) and the scores agree to
+    CONV_F32_SCORE_RTOL. Returns the fields to print."""
+    ref_loss, ref_g = grads_fn(ref_net, xs.cpu().double(), ys.cpu().double())
+    card_loss, card_g = grads_fn(card_net, xs, ys)
+    cpu_loss, cpu_g = grads_fn(cpu_net, xs.cpu(), ys.cpu())
+    card_err = worst(grad_errors(card_g, ref_g, rel_l2=True))
+    cpu_err = worst(grad_errors(cpu_g, ref_g, rel_l2=True))
+    score_err = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    print(f"  {what} F32 first step: scores card {card_loss:.7f}, CPU "
+          f"{cpu_loss:.7f}, f64 {ref_loss:.7f}; worst gradient L2 error vs "
+          f"f64: card {card_err[0]}:{card_err[1]:.3e}, CPU "
+          f"{cpu_err[0]}:{cpu_err[1]:.3e}", flush=True)
+    check(score_err <= CONV_F32_SCORE_RTOL, f"{what} F32 first step score "
+          f"card vs CPU {score_err:.3e} > {CONV_F32_SCORE_RTOL}")
+    lim = CONV_ACCURACY_RATIO * cpu_err[1] + 1e-3
+    check(card_err[1] <= lim, f"{what} F32 first step: the card's gradients "
+          f"are {card_err[1]:.3e} (L2) from f64, more than "
+          f"{CONV_ACCURACY_RATIO} x the CPU's {cpu_err[1]:.3e} + 1e-3")
+    return {"score_rel": f"{score_err:.3e}",
+            "grad_l2_vs_f64_card": f"{card_err[1]:.3e}",
+            "grad_l2_vs_f64_cpu": f"{cpu_err[1]:.3e}"}
+
+
+def check_no_kernel_launched(what):
+    """No kernel of the port (K1-K7) runs on the conv nets' paths."""
+    from deeplearning4j_tpu_torch.ops import registry
+    launched = {k: v for k, v in registry.launches().items() if v}
+    check(not launched, f"{what} launched the port's kernels: {launched}")
+
+
+def conv_profile(net, data, step_ms, tag):
+    """profile_steps over ``data`` (one step a batch), its kernel listing
+    written to profile_out/<tag>_kernels.json, and the device time a step
+    over ``step_ms``, the step timed without the profiler: the profiler
+    slows the host's issue of each kernel, so its own wall time (and the
+    busy share over it) reads long where the host bounds the step."""
+    prof = profile_steps(net, data, names_to=f"{tag}_kernels.json")
+    prof.pop("prof_flash_attn_fwd_ms_per_step")
+    prof["device_ms_over_timed_step_ms"] = (
+        f"{float(prof['prof_device_ms_per_step']) / step_ms:.3f}")
+    return prof
+
+
+def epoch_ms(net, it):
+    """One fit(it) epoch's milliseconds per step, by CUDA events around the
+    whole epoch (the host's issue and the data's copies included)."""
+    import torch
+    steps0 = net.iteration
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    net.fit(it)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (net.iteration - steps0)
+
+
+class _BothSavers:
+    """An early-stopping saver that writes the zip and keeps a clone."""
+
+    def __init__(self, directory):
+        from deeplearning4j_tpu_torch.optimize.earlystopping import (
+            InMemoryModelSaver, LocalFileModelSaver)
+        self.file = LocalFileModelSaver(directory)
+        self.memory = InMemoryModelSaver()
+
+    def save_best(self, net):
+        self.file.save_best(net)
+        self.memory.save_best(net)
+
+    def save_latest(self, net):
+        self.file.save_latest(net)
+        self.memory.save_latest(net)
+
+    def get_best(self):
+        return self.file.get_best()
+
+
+def phase_train_lenet():
+    """zoo.lenet at its published width (28 x 28 x 1, conv 20/50, dense
+    500, BF16, Nesterovs(0.01, 0.9)) on synthetic template images: the F32
+    first step against f64, fit(iterator) at b = 64 with and without the
+    three listeners, a profile, early stopping with EvaluationScoreCalculator
+    and LocalFileModelSaver, and F32 evaluate card vs CPU."""
+    import io
+    import tempfile
+    import torch
+    from deeplearning4j_tpu_torch import ArrayDataSetIterator, DataSet, zoo
+    from deeplearning4j_tpu_torch.eval import Evaluation
+    from deeplearning4j_tpu_torch.ops import registry
+    from deeplearning4j_tpu_torch.optimize.earlystopping import (
+        EarlyStoppingConfiguration, EarlyStoppingTrainer,
+        EvaluationScoreCalculator, MaxEpochsTermination)
+    from deeplearning4j_tpu_torch.optimize.listeners import (
+        CollectScoresIterationListener, PerformanceListener,
+        ScoreIterationListener)
+    t_phase = time.perf_counter()
+    b, n_train, n_held = 64, 64 * 60, 2048
+    x, y = lenet_data(n_train + n_held, SEED + 30)
+    xt, yt, xh, yh = x[:n_train], y[:n_train], x[n_train:], y[n_train:]
+    net = zoo.lenet(seed=SEED + 31)
+    pol = net.conf.global_conf.dtype
+    check(pol.compute_dtype == "bfloat16", f"lenet policy {pol}")
+    upd = net.layers[0].resolve("updater")
+    check(upd.kind == "nesterovs" and upd.learning_rate == 0.01
+          and upd.momentum == 0.9, f"lenet updater {upd}")
+    out = {"model": "lenet(28x28x1,conv20/50,dense500,BF16,"
+                    "Nesterovs(0.01,0.9))", "b": b,
+           "params": net.num_params(),
+           "preprocessors": json.dumps(
+               [type(p).__name__ if p else None for p in net.preprocessors])}
+
+    # the F32 first step against f64, same weights and batch
+    f32 = mln_copy(net, "cuda", "float32")
+    xs, ys = torch.from_numpy(xt[:b]).cuda(), torch.from_numpy(yt[:b]).cuda()
+    registry.reset_launches()
+    out.update({f"first_step_f32_{k}": v for k, v in f32_step_vs_f64(
+        f32, mln_copy(net, "cpu", "float32"), mln_copy(net, "cpu", "float64"),
+        loss_and_grads, xs, ys, "lenet").items()})
+    del f32
+
+    # fit(iterator): a warm-up epoch, then epochs without and with the
+    # listeners in turns (without, with, with, without)
+    it = ArrayDataSetIterator(xt, yt, batch_size=b, shuffle=True,
+                              seed=SEED + 32)
+    log = io.StringIO()
+    listeners = (ScoreIterationListener(20, out=log),
+                 CollectScoresIterationListener(10),
+                 PerformanceListener(frequency=20))
+    registry.reset_launches()
+    warm = CollectScoresIterationListener(5)
+    net.set_listeners(warm)
+    net.fit(it)
+    sc = [s for _, s in warm.scores]
+    check(all(math.isfinite(v) for v in sc), f"lenet scores {sc}")
+    check(statistics.mean(sc[-5:]) < sc[0], f"lenet training did not lower "
+          f"the score: first {sc[0]:.4f}, mean of last 5 "
+          f"{statistics.mean(sc[-5:]):.4f}")
+    out["first_epoch_scores_every_5"] = json.dumps([round(v, 4) for v in sc])
+    ms = {"without": [], "with": []}
+    for kind in ("without", "with", "with", "without"):
+        net.set_listeners(*(listeners if kind == "with" else ()))
+        ms[kind].append(epoch_ms(net, it))
+    net.set_listeners()
+    check_no_kernel_launched("lenet fit")
+    steps = net.iteration
+    sc = [s for _, s in listeners[1].scores]
+    printed = log.getvalue().count("Score at iteration")
+    # two epochs of 60 steps with the listeners attached: a score line
+    # every 20 iterations, a score every 10, a performance record every 20
+    check(printed == 6 and len(sc) == 12 and len(listeners[2].records) == 6,
+          f"listener cadence: {printed} score lines, {len(sc)} scores, "
+          f"{len(listeners[2].records)} performance records")
+    with_ms = statistics.mean(ms["with"])
+    without_ms = statistics.mean(ms["without"])
+    out["step_ms_with_listeners"] = f"{with_ms:.4f}"
+    out["step_ms_without_listeners"] = f"{without_ms:.4f}"
+    out["step_ms_by_epoch"] = json.dumps(
+        {k: [round(v, 4) for v in vs] for k, vs in ms.items()})
+    out["images_per_s"] = f"{b / without_ms * 1e3:.1f}"
+    out["listener_examples_per_s"] = json.dumps(
+        [round(r["examples_per_sec"], 1) for r in listeners[2].records])
+    out["listener_scores_every_10"] = json.dumps([round(v, 4) for v in sc])
+    out["steps"] = steps
+    data = [DataSet(torch.from_numpy(xt[i * b:(i + 1) * b]).cuda(),
+                    torch.from_numpy(yt[i * b:(i + 1) * b]).cuda())
+            for i in range(10)]
+    out.update(conv_profile(net, data, without_ms, "lenet"))
+
+    # early stopping on a fresh net: max epochs, 1 - accuracy on the
+    # held-out split, the best model zipped and read back
+    es_net = zoo.lenet(seed=SEED + 33)
+    held = ArrayDataSetIterator(xh, yh, batch_size=512)
+    with tempfile.TemporaryDirectory() as tmp:
+        saver = _BothSavers(tmp)
+        cfg = EarlyStoppingConfiguration(
+            score_calculator=EvaluationScoreCalculator(held),
+            epoch_terminations=[MaxEpochsTermination(3)],
+            model_saver=saver)
+        t0 = time.perf_counter()
+        result = EarlyStoppingTrainer(
+            cfg, es_net, ArrayDataSetIterator(xt, yt, batch_size=b,
+                                              shuffle=True,
+                                              seed=SEED + 34)).fit()
+        out["early_stopping_s"] = f"{time.perf_counter() - t0:.2f}"
+        best = result.best_model
+        check(best.device.type == "cuda", f"best model on {best.device}")
+        ev_file = best.evaluate(held)
+        ev_mem = saver.memory.get_best().evaluate(held)
+    check(np.array_equal(ev_file.confusion.matrix, ev_mem.confusion.matrix),
+          "the restored best model's evaluate differs from the in-memory "
+          "one's")
+    acc = ev_file.accuracy()
+    out["early_stopping"] = json.dumps({
+        "reason": result.termination_reason, "epochs": result.total_epochs,
+        "best_epoch": result.best_model_epoch,
+        "score_vs_epoch": {k: round(v, 4)
+                           for k, v in result.score_vs_epoch.items()}})
+    out["heldout_accuracy"] = f"{acc:.4f}"
+    check(result.termination_reason == "MaxEpochsTermination"
+          and result.total_epochs == 3, f"early stopping ended with "
+          f"{result.termination_reason} after {result.total_epochs}")
+    check(abs((1.0 - acc) - result.best_model_score) < 1e-12,
+          f"best score {result.best_model_score} vs 1 - accuracy {1 - acc}")
+    check(acc >= LENET_MIN_ACCURACY, f"held-out accuracy {acc:.4f} < "
+          f"{LENET_MIN_ACCURACY}")
+
+    # F32 evaluate, card vs CPU, on the early-stopped weights
+    card32, cpu32 = mln_copy(best, "cuda", "float32"), mln_copy(best, "cpu",
+                                                                "float32")
+    p_cpu = cpu32.output(xh).float().numpy()
+    top2 = np.sort(p_cpu, axis=1)[:, -2:]
+    keep = (top2[:, 1] - top2[:, 0]) >= LENET_TIE_GAP
+    ev_card, ev_cpu = Evaluation(), Evaluation()
+    ev_card.eval(yh, card32.output(xh), mask=keep)
+    ev_cpu.eval(yh, p_cpu, mask=keep)
+    out["f32_eval_rows_left_out_near_ties"] = int((~keep).sum())
+    out["f32_eval_accuracy_card"] = f"{ev_card.accuracy():.4f}"
+    check(np.array_equal(ev_card.confusion.matrix, ev_cpu.confusion.matrix),
+          "F32 evaluate: the card's confusion matrix differs from the CPU's")
+    check_no_kernel_launched("lenet")
+    out["phase_s"] = f"{time.perf_counter() - t_phase:.1f}"
+    phase("train_lenet", **out)
+
+
+def vgg_batches(n, b, seed, size=224, classes=1000):
+    """``n`` batches made on the card from a seed: 0-255 RGB images of
+    noise around a per-class colour, through vgg16_preprocess; one-hot
+    labels."""
+    import torch
+    from deeplearning4j_tpu_torch import zoo
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    colour = torch.rand((classes, 3), generator=gen, device="cuda") * 255
+    out = []
+    for _ in range(n):
+        lab = torch.randint(0, classes, (b,), generator=gen, device="cuda")
+        img = colour[lab][:, None, None, :] + 40 * torch.randn(
+            (b, size, size, 3), generator=gen, device="cuda")
+        img = zoo.vgg16_preprocess(img.clamp(0, 255))
+        out.append((img, torch.nn.functional.one_hot(lab, classes).float()))
+    return out
+
+
+def phase_train_vgg16():
+    """zoo.vgg16 at full width (224 x 224 x 3, 1000 classes, 138 M
+    parameters, BF16; Nesterovs(VGG_LR, 0.9)): the F32 forward at b = 2
+    card vs the plain CPU path, then 12 BF16 fit_batch steps at b = 32 on
+    batches made on the card, a profile by kind of kernel."""
+    import torch
+    from deeplearning4j_tpu_torch import DataSet, zoo
+    from deeplearning4j_tpu_torch.nn.updater import Nesterovs
+    from deeplearning4j_tpu_torch.ops import registry
+    t_phase = time.perf_counter()
+    b, steps = 32, 12
+    net = zoo.vgg16(seed=SEED + 40, updater=Nesterovs(VGG_LR, 0.9))
+    check(net.num_params() == 138357544, f"vgg16 has {net.num_params()} "
+          f"parameters")
+    pol = net.conf.global_conf.dtype
+    check(pol.compute_dtype == "bfloat16", f"vgg16 policy {pol}")
+    out = {"model": f"vgg16(224x224x3,classes=1000,BF16,"
+                    f"Nesterovs({VGG_LR},0.9))",
+           "b": b, "params": net.num_params()}
+
+    # the F32 forward, card vs the plain CPU path, same weights
+    registry.reset_launches()
+    xe = vgg_batches(1, 2, SEED + 41)[0][0]
+    f32 = mln_copy(net, "cuda", "float32")
+    card_p = f32.output(xe).float().cpu()
+    del f32
+    cpu_p = mln_copy(net, "cpu", "float32").output(xe.cpu()).float()
+    check(torch.isfinite(card_p).all().item() and card_p.shape == (2, 1000),
+          f"vgg16 output {tuple(card_p.shape)} not finite")
+    row_err = float(((card_p - cpu_p).abs().amax(1)
+                     / cpu_p.amax(1)).max())
+    out["f32_forward_b2_prob_vs_cpu_over_row_max"] = f"{row_err:.3e}"
+    out["f32_forward_b2_row_max_prob"] = json.dumps(
+        [float(f"{v:.4e}") for v in cpu_p.amax(1)])
+    check(row_err <= VGG_ROW_PROB_TOL, f"vgg16 F32 forward card vs CPU: "
+          f"{row_err:.3e} of a row's largest probability > "
+          f"{VGG_ROW_PROB_TOL}")
+    torch.cuda.empty_cache()
+
+    # 12 BF16 steps on two batches made on the card
+    data = [DataSet(x, y) for x, y in vgg_batches(2, b, SEED + 42)]
+    run = timed_steps(net, data, steps)
+    sc = run["scores"]
+    check(all(math.isfinite(v) for v in sc), f"vgg16 scores {sc}")
+    check(statistics.mean(sc[-5:]) < sc[0], f"vgg16 training did not lower "
+          f"the score: first {sc[0]:.4f}, mean of last 5 "
+          f"{statistics.mean(sc[-5:]):.4f}")
+    med = statistics.median(run["step_ms"][-8:])
+    out["step_ms_median_last8"] = f"{med:.3f}"
+    out["step_ms_min_max_last8"] = (f"{min(run['step_ms'][-8:]):.3f}/"
+                                    f"{max(run['step_ms'][-8:]):.3f}")
+    out["images_per_s"] = f"{b / med * 1e3:.1f}"
+    out["peak_mem_mb"] = f"{run['peak_mb']:.0f}"
+    out["scores"] = json.dumps([round(v, 4) for v in sc])
+    out.update(conv_profile(net, data, med, "vgg16"))
+    check_no_kernel_launched("vgg16")
+    out["phase_s"] = f"{time.perf_counter() - t_phase:.1f}"
+    phase("train_vgg16", **out)
+
+
+def refresh_bn_statistics(net, xs, passes):
+    """``passes`` train-mode walks of a graph over ``xs`` in turn, each
+    moving the BN running statistics toward that batch's and changing no
+    weight."""
+    import torch
+    with torch.inference_mode():
+        for i in range(passes):
+            inputs, fmasks = net._prepare_inputs((xs[i % len(xs)],))
+            *_, net.state = net._walk(net.params, net.state, inputs,
+                                      train=True, gen=net._gen,
+                                      fmasks=fmasks)
+
+
+def phase_train_resnet18():
+    """zoo.resnet18 at its defaults (32 x 32 x 3, 10 classes, BF16,
+    Nesterovs(0.1, 0.9)) with DL4J_TPU_FUSE_BLOCKS=1 (no tail matches):
+    the F32 first step card vs CPU against f64, fusion off and on; 20 BF16
+    steps at b = 128; ComputationGraph.evaluate on the card."""
+    import os
+    import torch
+    from deeplearning4j_tpu_torch import DataSet, MultiDataSet, zoo
+    from deeplearning4j_tpu_torch.ops import registry
+    t_phase = time.perf_counter()
+    b, steps = 128, 20
+    before = os.environ.get("DL4J_TPU_FUSE_BLOCKS")
+    os.environ["DL4J_TPU_FUSE_BLOCKS"] = "1"
+    try:
+        net = zoo.resnet18(seed=SEED + 50)
+    finally:
+        if before is None:
+            del os.environ["DL4J_TPU_FUSE_BLOCKS"]
+        else:
+            os.environ["DL4J_TPU_FUSE_BLOCKS"] = before
+    check(net._fusion_plans == {}, f"resnet18 matched "
+          f"{len(net._fusion_plans)} tails")
+    out = {"model": "resnet18(32x32x3,classes=10,BF16,Nesterovs(0.1,0.9),"
+                    "DL4J_TPU_FUSE_BLOCKS=1)", "b": b,
+           "params": net.num_params(), "fused_tails": 0}
+    batches = resnet_batches(3, b, SEED + 51, size=32, classes=10)
+
+    # the F32 first step, fusion off and on, card vs CPU against f64
+    nb = 16
+    xs, ys = batches[0][0][:nb], batches[0][1][:nb]
+    registry.reset_launches()
+    ref = graph_copy(net, "cpu", False, dtype="float64")
+    for fuse in (False, True):
+        card = graph_copy(net, "cuda", fuse, dtype="float32")
+        check(card._fusion_plans == {}, "resnet18 F32 copy matched tails")
+        fields = f32_step_vs_f64(
+            card, graph_copy(net, "cpu", fuse, dtype="float32"), ref,
+            graph_loss_and_grads, xs, ys,
+            f"resnet18 ({'fusion on' if fuse else 'fusion off'})")
+        tag = "on" if fuse else "off"
+        out.update({f"first_step_f32_fusion_{tag}_{k}": v
+                    for k, v in fields.items()})
+    del ref
+
+    # 20 BF16 steps at b = 128 on two batches made on the card
+    data = [DataSet(x, y) for x, y in batches[:2]]
+    run = timed_steps(net, data, steps)
+    sc = run["scores"]
+    check(all(math.isfinite(v) for v in sc), f"resnet18 scores {sc}")
+    check(statistics.mean(sc[-5:]) < sc[0], f"resnet18 training did not "
+          f"lower the score: first {sc[0]:.4f}, mean of last 5 "
+          f"{statistics.mean(sc[-5:]):.4f}")
+    med = statistics.median(run["step_ms"][-10:])
+    out["step_ms_median_last10"] = f"{med:.3f}"
+    out["step_ms_min_max_last10"] = (f"{min(run['step_ms'][-10:]):.3f}/"
+                                     f"{max(run['step_ms'][-10:]):.3f}")
+    out["images_per_s"] = f"{b / med * 1e3:.1f}"
+    out["peak_mem_mb"] = f"{run['peak_mb']:.0f}"
+    out["scores"] = json.dumps([round(v, 4) for v in sc])
+    out.update(conv_profile(net, data, med, "resnet18"))
+
+    # ComputationGraph.evaluate on the card: the trained batches and a
+    # third, against the argmax of the graph's own output
+    ev = net.evaluate([MultiDataSet([x], [y]) for x, y in batches])
+    want = np.zeros((10, 10), np.int64)
+    for x, y in batches:
+        np.add.at(want, (y.argmax(1).cpu().numpy(),
+                         net.output(x).float().argmax(1).cpu().numpy()), 1)
+    check(np.array_equal(ev.confusion.matrix, want), "resnet18 evaluate's "
+          "confusion matrix differs from its outputs' argmax")
+    out["evaluate_accuracy_b384"] = f"{ev.accuracy():.4f}"
+
+    # eval mode on the trained weights and BN state, F32, card vs the plain
+    # CPU path: 64 rows of a trained batch and 64 of the unseen one
+    rows = torch.cat([batches[0][0][:64], batches[2][0][:64]])
+    card_p = graph_copy(net, "cuda", False, dtype="float32").output(
+        rows).float().cpu()
+    cpu_p = graph_copy(net, "cpu", False, dtype="float32").output(
+        rows.cpu()).float()
+    row_err = float(((card_p - cpu_p).abs().amax(1)
+                     / cpu_p.amax(1)).max())
+    out["eval_f32_b128_prob_vs_cpu_over_row_max"] = f"{row_err:.3e}"
+    check(row_err <= RESNET18_EVAL_ROW_TOL, f"resnet18 F32 eval card vs "
+          f"CPU: {row_err:.3e} of a row's largest probability > "
+          f"{RESNET18_EVAL_ROW_TOL}")
+
+    # the eval-mode accuracy by batch (two trained, one unseen), beside the
+    # train-mode one (batch statistics) and the eval-mode one after the BN
+    # running statistics are refreshed on the trained weights
+    def accuracies(g, train):
+        return json.dumps([round(float(
+            (g.output(x, train=train).float().argmax(1) == y.argmax(1))
+            .float().mean()), 4) for x, y in batches])
+    out["accuracy_by_batch_eval"] = accuracies(net, False)
+    out["accuracy_by_batch_train_mode"] = accuracies(net, True)
+    fresh = graph_copy(net, "cuda", False)
+    refresh_bn_statistics(fresh, [x for x, _ in batches[:2]],
+                          RESNET18_BN_REFRESH_PASSES)
+    out["accuracy_by_batch_eval_after_bn_refresh"] = accuracies(fresh,
+                                                                False)
+    del fresh
+    check_no_kernel_launched("resnet18")
+    out["phase_s"] = f"{time.perf_counter() - t_phase:.1f}"
+    phase("train_resnet18", **out)
+
+
+def phase_conv_nets():
+    phase_train_lenet()
+    phase_train_vgg16()
+    phase_train_resnet18()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3037,11 +3603,13 @@ def main() -> int:
             split()
             print(ok_line, flush=True)
             return 0
-    if "--tail-check" in sys.argv[1:]:
-        phase_device()
-        phase_tail_check()
-        print(ok_line, flush=True)
-        return 0
+    for flag, only in (("--tail-check", phase_tail_check),
+                       ("--conv-nets", phase_conv_nets)):
+        if flag in sys.argv[1:]:
+            phase_device()
+            only()
+            print(ok_line, flush=True)
+            return 0
 
     card = phase_device()
     errs = {"lstm_fwd": phase_kernel_vs_plain(),
@@ -3061,6 +3629,7 @@ def main() -> int:
     kernels = phase_times(card, net, errs, launches, train)
     kernels += phase_times_flash(card, gnet, errs, launches, gtrain)
     kernels += phase_times_fused(card, errs, rtrain)
+    phase_conv_nets()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(ok_line, flush=True)
     return 0

@@ -23,6 +23,10 @@ from deeplearning4j_tpu_torch.nn.conf.layers import (
     layer_from_dict,
     layer_to_dict,
 )
+from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
+    preprocessor_from_dict,
+    preprocessor_to_dict,
+)
 from deeplearning4j_tpu_torch.nn.updater import (
     NoneSchedule,
     Schedule,
@@ -220,6 +224,7 @@ class ListBuilder:
         self._backprop_type = "standard"
         self._tbptt_fwd = 20
         self._tbptt_bwd = 20
+        self._preprocessors = {}
 
     def layer(self, layer_conf: BaseLayerConfig, index: int | None = None):
         if index is not None and index != len(self._layers):
@@ -231,6 +236,12 @@ class ListBuilder:
 
     def set_input_type(self, input_type: InputType):
         self._input_type = input_type
+        return self
+
+    def input_preprocessor(self, layer_index: int, preprocessor):
+        """Run ``preprocessor`` on the input of layer ``layer_index``; it
+        takes the place of the one ``set_input_type`` would insert."""
+        self._preprocessors[int(layer_index)] = preprocessor
         return self
 
     def backprop_type(self, kind: str, tbptt_fwd: int = 20,
@@ -250,14 +261,15 @@ class ListBuilder:
             backprop_type=self._backprop_type,
             tbptt_fwd_length=self._tbptt_fwd,
             tbptt_bwd_length=self._tbptt_bwd,
+            preprocessors=dict(self._preprocessors),
         )
 
 
 @dataclass(frozen=True)
 class MultiLayerConfiguration:
     """A sequential stack of layer configs with the JAX package's JSON
-    round trip. Input preprocessors are not ported yet: a configuration
-    that names one is refused."""
+    round trip; ``preprocessors`` maps a layer index to the explicit input
+    preprocessor of that layer (``{str(i): dict}`` in the JSON)."""
 
     global_conf: NeuralNetConfiguration
     layers: tuple
@@ -268,10 +280,6 @@ class MultiLayerConfiguration:
     preprocessors: dict = field(default_factory=dict)
 
     def __post_init__(self):
-        if self.preprocessors:
-            raise NotImplementedError(
-                "input preprocessors are not ported to "
-                "deeplearning4j_tpu_torch yet")
         if (self.backprop_type == "tbptt"
                 and self.tbptt_fwd_length != self.tbptt_bwd_length):
             raise ValueError(
@@ -289,7 +297,10 @@ class MultiLayerConfiguration:
                 "backprop_type": self.backprop_type,
                 "tbptt_fwd_length": self.tbptt_fwd_length,
                 "tbptt_bwd_length": self.tbptt_bwd_length,
-                "preprocessors": {},
+                "preprocessors": {
+                    str(k): preprocessor_to_dict(v)
+                    for k, v in self.preprocessors.items()
+                },
             },
             indent=2,
         )
@@ -297,10 +308,6 @@ class MultiLayerConfiguration:
     @staticmethod
     def from_json(s: str) -> "MultiLayerConfiguration":
         d = json.loads(s)
-        if d.get("preprocessors"):
-            raise NotImplementedError(
-                "input preprocessors are not ported to "
-                f"deeplearning4j_tpu_torch yet: {d['preprocessors']}")
         return MultiLayerConfiguration(
             global_conf=NeuralNetConfiguration.from_dict(d["global_conf"]),
             layers=tuple(layer_from_dict(l) for l in d["layers"]),
@@ -309,4 +316,8 @@ class MultiLayerConfiguration:
             backprop_type=d.get("backprop_type", "standard"),
             tbptt_fwd_length=d.get("tbptt_fwd_length", 20),
             tbptt_bwd_length=d.get("tbptt_bwd_length", 20),
+            preprocessors={
+                int(k): preprocessor_from_dict(v)
+                for k, v in d.get("preprocessors", {}).items()
+            },
         )

@@ -1,7 +1,8 @@
 """ComputationGraph — a DAG network that trains and serves (counterpart of
 deeplearning4j_tpu/nn/graph.py: ``init``, ``_walk`` with the block-fusion
-pass, ``_loss``, ``fit_batch``, in-memory ``fit``, ``score``, ``output``,
-``feed_forward``, ``num_params``, ``set_lr_scale``).
+pass, ``_loss``, ``fit_batch``, in-memory ``fit``, listeners, ``score``,
+``output``, ``feed_forward``, ``evaluate``, ``evaluate_regression``,
+``num_params``, ``summary``, ``clone``, ``set_lr_scale``).
 
 Parameters are ``{vertex_name: {param: tensor}}`` and the layer state
 (batch-norm running statistics) ``{vertex_name: {...}}``, in the JAX
@@ -18,8 +19,7 @@ with the running statistics.
 
 Not ported (ROADMAP.md): remat spans, mesh placement, truncated BPTT
 (``fit_batch`` refuses a batch longer than the window by name) and
-``rnn_time_step`` on graphs, pretraining, ``fit_batch_repeated``,
-listeners and evaluation.
+``rnn_time_step`` on graphs, pretraining and ``fit_batch_repeated``.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ from deeplearning4j_tpu_torch.nn import precision
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
     ComputationGraphConfiguration)
 from deeplearning4j_tpu_torch.nn.conf.layers import BaseLayerConfig
-from deeplearning4j_tpu_torch.nn.updater import _leaves, _map
+from deeplearning4j_tpu_torch.nn.updater import _copy_tree, _leaves, _map
 
 
 class ComputationGraph:
@@ -52,10 +52,20 @@ class ComputationGraph:
         self.iteration = 0
         self.epoch = 0
         self.score_value = None
+        self.last_batch_examples = 0
+        self.listeners: list = []
         self._gen = None
         self._lr_scale = 1.0
         self._fusion_plans = {}
         self._fusion_interior = frozenset()
+
+    def set_listeners(self, *listeners):
+        self.listeners = list(listeners)
+        return self
+
+    def add_listener(self, listener):
+        self.listeners.append(listener)
+        return self
 
     def set_lr_scale(self, scale: float):
         """Scale every layer's scheduled learning rate by ``scale`` from
@@ -75,6 +85,33 @@ class ComputationGraph:
         utils/serialization.py instead."""
         gc = self.conf.global_conf
         seed = gc.seed if seed is None else seed
+        self._build_vertices()
+        gen = torch.Generator(device="cpu").manual_seed(int(seed))
+        self.params, self.state = {}, {}
+        for layer in self.layers:
+            p = layer.init_params(gen, self.device)
+            if p:
+                self.params[layer.name] = p
+            s = layer.init_state(self.device)
+            if s:
+                self.state[layer.name] = s
+        self.opt_state = {}
+        for layer in self.layers:
+            if layer.name in self.params:
+                self.opt_state[layer.name] = layer.resolve(
+                    "updater").init_state(self.params[layer.name])
+        ls = precision.init_loss_scale_state(gc.dtype, self.device)
+        if ls is not None:
+            self.opt_state[precision.LOSS_SCALE_KEY] = ls
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(int(seed))
+        self.iteration = 0
+        return self
+
+    def _build_vertices(self):
+        """The runtime layers, each vertex's kind and resolved config, and
+        the fusion pass's plans."""
+        gc = self.conf.global_conf
         input_types: Dict[str, object] = {}
         if self.conf.input_types is not None:
             for name, it in zip(self.conf.network_inputs,
@@ -121,28 +158,6 @@ class ComputationGraph:
             default_activation=gc.activation or "sigmoid")
         self._fusion_interior = frozenset(
             _fusion.interior_vertices(self._fusion_plans))
-
-        gen = torch.Generator(device="cpu").manual_seed(int(seed))
-        self.params, self.state = {}, {}
-        for layer in self.layers:
-            p = layer.init_params(gen, self.device)
-            if p:
-                self.params[layer.name] = p
-            s = layer.init_state(self.device)
-            if s:
-                self.state[layer.name] = s
-        self.opt_state = {}
-        for layer in self.layers:
-            if layer.name in self.params:
-                self.opt_state[layer.name] = layer.resolve(
-                    "updater").init_state(self.params[layer.name])
-        ls = precision.init_loss_scale_state(gc.dtype, self.device)
-        if ls is not None:
-            self.opt_state[precision.LOSS_SCALE_KEY] = ls
-        self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(int(seed))
-        self.iteration = 0
-        return self
 
     def _require_init(self):
         if self.params is None:
@@ -275,16 +290,25 @@ class ComputationGraph:
         self.state = _map(lambda t: t.detach(), new_state)
         self.iteration += 1
         self.score_value = score
+        self.last_batch_examples = mds.num_examples
+        for l in self.listeners:
+            l.iteration_done(self, self.iteration, self.epoch)
         return score
 
     def fit(self, data, *, epochs: int = 1):
         """Train on a DataSet, a MultiDataSet, or an iterable of them (a
-        list, or an iterator with ``reset()``), one ``fit_batch`` each."""
+        list, or an iterator with ``reset()``), one ``fit_batch`` each;
+        the listeners' ``on_epoch_start``/``on_epoch_end`` run around each
+        epoch."""
         self._require_init()
         items = [data] if isinstance(data, (DataSet, MultiDataSet)) else data
         for _ in range(epochs):
+            for l in self.listeners:
+                l.on_epoch_start(self)
             for d in items:
                 self.fit_batch(d)
+            for l in self.listeners:
+                l.on_epoch_end(self)
             self.epoch += 1
             if hasattr(items, "reset"):
                 items.reset()
@@ -321,5 +345,71 @@ class ComputationGraph:
                                        fmasks=fmasks)
         return acts
 
+    def _evaluate_with(self, ev, iterator, what: str):
+        """The single-output evaluation loop of evaluate and
+        evaluate_regression."""
+        if len(self.conf.network_outputs) != 1:
+            raise ValueError(f"{what}() requires a single-output graph; this "
+                             f"one has outputs {self.conf.network_outputs}")
+        if isinstance(iterator, (DataSet, MultiDataSet)):
+            iterator = [iterator]
+        for d in iterator:
+            mds = self._coerce(d)
+            out = self.output(*mds.features, masks=(
+                mds.features_masks
+                if any(m is not None for m in mds.features_masks) else None))
+            ev.eval(mds.labels[0], out, mask=mds.labels_masks[0])
+        return ev
+
+    def evaluate(self, iterator):
+        """Classification evaluation (``eval.Evaluation``) of a
+        single-output graph over a DataSet, a MultiDataSet or an iterable
+        of them."""
+        from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+        return self._evaluate_with(Evaluation(), iterator, "evaluate")
+
+    def evaluate_regression(self, iterator):
+        """Regression evaluation (``eval.RegressionEvaluation``) of a
+        single-output graph."""
+        from deeplearning4j_tpu_torch.eval.regression import (
+            RegressionEvaluation)
+        return self._evaluate_with(RegressionEvaluation(), iterator,
+                                   "evaluate_regression")
+
     def num_params(self) -> int:
         return sum(t.numel() for t in _leaves(self.params))
+
+    def summary(self) -> str:
+        lines = ["=" * 78]
+        lines.append(f"{'name':<20}{'kind':<16}{'inputs':<28}{'params':>10}")
+        lines.append("-" * 78)
+        for name in self.topo:
+            kind = self.vertex_kind[name]
+            t = (self._resolved_confs[name].layer_type if kind == "layer"
+                 else self._resolved_confs[name].vertex_type)
+            n = sum(a.numel() for a in _leaves(self.params.get(name, {})))
+            ins = ",".join(self.conf.vertex_inputs[name])
+            lines.append(f"{name:<20}{t:<16}{ins:<28}{n:>10}")
+        lines.append("-" * 78)
+        lines.append(f"total params: {self.num_params()}")
+        lines.append("=" * 78)
+        return "\n".join(lines)
+
+    def clone(self) -> "ComputationGraph":
+        """A copy on the same device that shares no storage with this
+        graph: parameters, layer state, optimizer state, the counters and
+        the generator's state, and the same fusion plans."""
+        self._require_init()
+        net = ComputationGraph(self.conf, device=self.device)
+        net._build_vertices()
+        net._fusion_plans = self._fusion_plans
+        net._fusion_interior = self._fusion_interior
+        net.params = _copy_tree(self.params)
+        net.state = _copy_tree(self.state)
+        net.opt_state = _copy_tree(self.opt_state)
+        net.iteration = self.iteration
+        net.epoch = self.epoch
+        net._lr_scale = self._lr_scale
+        net._gen = torch.Generator(device=self.device)
+        net._gen.set_state(self._gen.get_state())
+        return net

@@ -24,6 +24,7 @@ from deeplearning4j_tpu_torch.nn.layers.base import Layer
 from deeplearning4j_tpu_torch.ops import initializers as init_mod
 from deeplearning4j_tpu_torch.ops import losses as losses_mod
 from deeplearning4j_tpu_torch.ops import lstm as lstm_ops
+from deeplearning4j_tpu_torch.ops.sequence import last_unmasked_step
 
 # the recurrent (h, c) carries a streaming layer keeps in its state, plus
 # the attention layers' KV-cache carries (k/v caches and each row's
@@ -165,20 +166,6 @@ class RnnOutputLayerImpl(Layer):
         labels2 = labels.reshape(-1, n_out).to(z2.dtype)
         m2 = None if mask is None else mask.reshape(-1)
         return self.loss_fn.score(labels2, z2, self.activation_fn, m2)
-
-
-def last_unmasked_step(x, mask):
-    """[b, t, f] -> [b, f]: the last step, or the last unmasked step of
-    each example when a [b, t] mask is given (an all-masked row takes
-    step 0)."""
-    if mask is None:
-        return x[:, -1, :]
-    m = mask.reshape(mask.shape[0], -1) > 0
-    t = m.shape[1]
-    last_nz = (t - 1) - torch.argmax(torch.flip(m, dims=(1,)).to(torch.int32),
-                                     dim=1)
-    idx = torch.where(m.any(dim=1), last_nz, torch.zeros_like(last_nz))
-    return x[torch.arange(x.shape[0], device=x.device), idx, :]
 
 
 class LastTimeStepLayer(Layer):

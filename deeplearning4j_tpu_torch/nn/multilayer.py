@@ -1,7 +1,9 @@
-"""MultiLayerNetwork — a sequential stack that trains and serves
-(counterpart of deeplearning4j_tpu/nn/multilayer.py: ``init``, ``fit``,
-``fit_batch``, truncated BPTT, ``score``, ``output``, ``feed_forward``,
-``rnn_time_step``, ``rnn_clear_previous_state``).
+"""MultiLayerNetwork — a sequential stack that trains, serves and evaluates
+(counterpart of deeplearning4j_tpu/nn/multilayer.py: ``init`` with the
+input preprocessors ``set_input_type`` inserts, ``fit``, ``fit_batch``,
+truncated BPTT, listeners, ``score``, ``output``, ``feed_forward``,
+``evaluate``, ``evaluate_regression``, ``rnn_time_step``,
+``rnn_clear_previous_state``, ``summary``, ``clone``).
 
 Parameters are a dict ``{layer_name: {param_name: tensor}}`` in the JAX
 package's layouts, and the optimizer state a dict keyed as the JAX
@@ -28,10 +30,34 @@ from deeplearning4j_tpu_torch.datasets.iterator import (ArrayDataSetIterator,
                                                         ListDataSetIterator)
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.nn import precision
+from deeplearning4j_tpu_torch.nn.conf import layers as layer_confs
 from deeplearning4j_tpu_torch.nn.conf.core import MultiLayerConfiguration
+from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.conf.preprocessors import (CnnToFeedForward,
+                                                            FeedForwardToCnn,
+                                                            RnnToFeedForward)
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (set_streaming,
                                                           strip_carries)
-from deeplearning4j_tpu_torch.nn.updater import _leaves, _map
+from deeplearning4j_tpu_torch.nn.updater import _copy_tree, _leaves, _map
+
+
+def _auto_preprocessor(input_type: InputType, conf):
+    """The shape adapter ``set_input_type`` puts between two layer
+    families that do not fit (conv -> dense, flat -> conv, rnn -> dense),
+    or None."""
+    kind = input_type.kind
+    is_ff = isinstance(conf, layer_confs.FeedForwardLayerConfig)
+    wants_cnn = getattr(conf, "expects_cnn_input", False)
+    wants_rnn = getattr(conf, "expects_rnn_input", False)
+    if kind == "convolutional" and is_ff and not wants_cnn and not wants_rnn:
+        return CnnToFeedForward(input_type.height, input_type.width,
+                                input_type.channels)
+    if kind == "convolutional_flat" and wants_cnn:
+        return FeedForwardToCnn(input_type.height, input_type.width,
+                                input_type.channels)
+    if kind == "recurrent" and is_ff and not wants_rnn and not wants_cnn:
+        return RnnToFeedForward()
+    return None
 
 
 class MultiLayerNetwork:
@@ -39,12 +65,15 @@ class MultiLayerNetwork:
         self.conf = conf
         self.device = resolve_device(device)
         self.layers = None
+        self.preprocessors = None  # per layer: its input preprocessor or None
         self.params = None     # {layer_name: {param: tensor}}
         self.state = None      # {layer_name: {...}}
         self.opt_state = None  # {layer_name: updater state, "_loss_scale"?}
         self.iteration = 0
         self.epoch = 0
         self.score_value = None
+        self.last_batch_examples = 0
+        self.listeners: list = []
         self._gen = None
         self._lr_scale = 1.0
         self._rnn_state = None
@@ -59,20 +88,7 @@ class MultiLayerNetwork:
         gc = self.conf.global_conf
         seed = gc.seed if seed is None else seed
         gen = torch.Generator(device="cpu").manual_seed(int(seed))
-        input_type = self.conf.input_type
-        self.layers = []
-        for i, lc in enumerate(self.conf.layers):
-            if input_type is not None:
-                lc = lc.with_n_in(input_type)
-            if getattr(lc, "n_in", 1) is None:
-                raise ValueError(
-                    f"Layer {i} ({lc.layer_type}): n_in not set and no "
-                    f"input_type provided for inference")
-            if lc.name is None:
-                lc = lc.replace(name=f"layer_{i}")
-            layer = lc.make_layer(input_type, gc, gc.dtype)
-            self.layers.append(layer)
-            input_type = layer.output_type
+        self._build_layers()
         self.params, self.state = {}, {}
         for layer in self.layers:
             p = layer.init_params(gen, self.device)
@@ -97,6 +113,33 @@ class MultiLayerNetwork:
         self._rnn_state = None
         return self
 
+    def _build_layers(self):
+        """The runtime layers and each one's input preprocessor: an
+        explicit one from the configuration, else the one the input type
+        calls for."""
+        gc = self.conf.global_conf
+        input_type = self.conf.input_type
+        self.layers = []
+        self.preprocessors = []
+        for i, lc in enumerate(self.conf.layers):
+            prep = self.conf.preprocessors.get(i)
+            if prep is None and input_type is not None:
+                prep = _auto_preprocessor(input_type, lc)
+            if prep is not None and input_type is not None:
+                input_type = prep.output_type(input_type)
+            self.preprocessors.append(prep)
+            if input_type is not None:
+                lc = lc.with_n_in(input_type)
+            if getattr(lc, "n_in", 1) is None:
+                raise ValueError(
+                    f"Layer {i} ({lc.layer_type}): n_in not set and no "
+                    f"input_type provided for inference")
+            if lc.name is None:
+                lc = lc.replace(name=f"layer_{i}")
+            layer = lc.make_layer(input_type, gc, gc.dtype)
+            self.layers.append(layer)
+            input_type = layer.output_type
+
     def set_lr_scale(self, scale: float):
         """Scale every layer's scheduled learning rate by ``scale`` from
         the next step on."""
@@ -104,6 +147,14 @@ class MultiLayerNetwork:
         if scale <= 0.0:
             raise ValueError(f"lr scale must be > 0, got {scale}")
         self._lr_scale = scale
+        return self
+
+    def set_listeners(self, *listeners):
+        self.listeners = list(listeners)
+        return self
+
+    def add_listener(self, listener):
+        self.listeners.append(listener)
         return self
 
     def _require_init(self):
@@ -126,7 +177,9 @@ class MultiLayerNetwork:
         acts = []
         new_state = dict(state)
         n = len(self.layers) if to_layer is None else to_layer
-        for layer in self.layers[:n]:
+        for layer, prep in zip(self.layers[:n], self.preprocessors):
+            if prep is not None:
+                x = prep(x)
             x, s_new = layer.apply(params.get(layer.name, {}),
                                    state.get(layer.name, {}), x, train=train,
                                    gen=gen, mask=fmask)
@@ -149,6 +202,10 @@ class MultiLayerNetwork:
             raise ValueError(
                 f"the last layer ({out_layer.conf.layer_type}) has no loss; "
                 f"training needs an output layer")
+        # the walk stopped before the output layer, so its preprocessor
+        # (conv -> Output) is applied here
+        if self.preprocessors[-1] is not None:
+            h = self.preprocessors[-1](h)
         data_loss = out_layer.loss(params.get(out_layer.name, {}), h, labels,
                                    train=train, gen=gen, mask=lmask)
         reg = torch.zeros((), dtype=data_loss.dtype, device=data_loss.device)
@@ -217,7 +274,13 @@ class MultiLayerNetwork:
         score = self._run_step(*self._batch(ds))
         self.iteration += 1
         self.score_value = score
+        self._iteration_done(ds)
         return score
+
+    def _iteration_done(self, ds: DataSet):
+        self.last_batch_examples = ds.num_examples
+        for l in self.listeners:
+            l.iteration_done(self, self.iteration, self.epoch)
 
     def _fit_tbptt(self, ds: DataSet):
         """Truncated BPTT: one step per ``tbptt_fwd_length`` chunk of the
@@ -249,13 +312,15 @@ class MultiLayerNetwork:
             set_streaming(self.layers, False)
         self.iteration += 1
         self.score_value = score
+        self._iteration_done(ds)
         return score
 
     def fit(self, data, labels=None, *, epochs: int = 1,
             batch_size: int = 32):
         """Train on a DataSetIterator, a DataSet, or (features, labels)
-        arrays, one ``fit_batch`` per minibatch; the iterator is reset
-        after each epoch."""
+        arrays, one ``fit_batch`` per minibatch; the listeners'
+        ``on_epoch_start``/``on_epoch_end`` run around each epoch, and the
+        iterator is reset after it."""
         self._require_init()
         if isinstance(data, DataSetIterator):
             it = data
@@ -264,8 +329,12 @@ class MultiLayerNetwork:
         else:
             it = ArrayDataSetIterator(data, labels, batch_size=batch_size)
         for _ in range(epochs):
+            for l in self.listeners:
+                l.on_epoch_start(self)
             for ds in it:
                 self.fit_batch(ds)
+            for l in self.listeners:
+                l.on_epoch_end(self)
             self.epoch += 1
             it.reset()
         return self
@@ -277,6 +346,28 @@ class MultiLayerNetwork:
             loss, _ = self._loss(self.params, self.state, *self._batch(ds),
                                  gen=self._gen, train=train)
         return float(loss)
+
+    def _evaluate_with(self, ev, iterator):
+        if isinstance(iterator, DataSet):
+            iterator = ListDataSetIterator([iterator])
+        for ds in iterator:
+            ev.eval(ds.labels,
+                    self.output(ds.features, mask=ds.features_mask),
+                    mask=ds.labels_mask)
+        return ev
+
+    def evaluate(self, iterator):
+        """Classification evaluation (``eval.Evaluation``) of the outputs
+        over a DataSet or an iterator of them."""
+        from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+        return self._evaluate_with(Evaluation(), iterator)
+
+    def evaluate_regression(self, iterator):
+        """Regression evaluation (``eval.RegressionEvaluation``) of the
+        outputs over a DataSet or an iterator of them."""
+        from deeplearning4j_tpu_torch.eval.regression import (
+            RegressionEvaluation)
+        return self._evaluate_with(RegressionEvaluation(), iterator)
 
     # ------------------------------------------------- streaming inference
     def rnn_clear_previous_state(self):
@@ -305,3 +396,36 @@ class MultiLayerNetwork:
     # ---------------------------------------------------------------- misc
     def num_params(self) -> int:
         return sum(t.numel() for t in _leaves(self.params))
+
+    def summary(self) -> str:
+        lines = ["=" * 70]
+        lines.append(f"{'name':<18}{'type':<16}{'out type':<22}{'params':>10}")
+        lines.append("-" * 70)
+        for layer in self.layers:
+            n = sum(t.numel() for t in _leaves(self.params.get(layer.name,
+                                                               {})))
+            lines.append(
+                f"{layer.name:<18}{layer.conf.layer_type:<16}"
+                f"{str(layer.output_type.kind):<22}{n:>10}")
+        lines.append("-" * 70)
+        lines.append(f"total params: {self.num_params()}")
+        lines.append("=" * 70)
+        return "\n".join(lines)
+
+    def clone(self) -> "MultiLayerNetwork":
+        """A copy on the same device that shares no storage with this
+        net: parameters, layer state, optimizer state, the counters and
+        the generator's state. Training either net leaves the other as it
+        was (the update writes the parameters in place)."""
+        self._require_init()
+        net = MultiLayerNetwork(self.conf, device=self.device)
+        net._build_layers()
+        net.params = _copy_tree(self.params)
+        net.state = _copy_tree(self.state)
+        net.opt_state = _copy_tree(self.opt_state)
+        net.iteration = self.iteration
+        net.epoch = self.epoch
+        net._lr_scale = self._lr_scale
+        net._gen = torch.Generator(device=self.device)
+        net._gen.set_state(self._gen.get_state())
+        return net

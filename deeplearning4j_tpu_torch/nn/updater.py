@@ -30,6 +30,11 @@ def _map(fn, *trees):
     return fn(*trees)
 
 
+def _copy_tree(tree):
+    """A copy of a nested dict of tensors that shares no storage."""
+    return _map(lambda t: t.detach().clone(), tree)
+
+
 def _leaves(tree):
     """Leaves in the JAX package's tree order (dict keys sorted)."""
     if isinstance(tree, dict):

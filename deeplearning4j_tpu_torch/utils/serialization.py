@@ -145,3 +145,17 @@ def restore_computation_graph(path, device=None):
 
     return _restore(path, lambda s: ComputationGraph(
         ComputationGraphConfiguration.from_json(s), device=device).init())
+
+
+def restore_model(path, device=None):
+    """Restore either kind of model zip, by ``metadata.json``'s
+    ``model_type`` (a zip without one is a MultiLayerNetwork), onto
+    ``device`` (default: the card)."""
+    with zipfile.ZipFile(path, "r") as zf:
+        mtype = "multi_layer_network"
+        if "metadata.json" in zf.namelist():
+            mtype = json.loads(zf.read("metadata.json")).get(
+                "model_type", mtype)
+    if mtype == "computation_graph":
+        return restore_computation_graph(path, device=device)
+    return restore_multi_layer_network(path, device=device)

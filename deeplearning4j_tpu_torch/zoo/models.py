@@ -1,15 +1,21 @@
 """Model builders (counterpart of deeplearning4j_tpu/zoo/models.py):
-``char_rnn``, ``gpt_mini``, ``gpt_mini_draft`` and ``resnet50``, with the
-JAX package's configurations and defaults."""
+``mnist_mlp``, ``lenet``, ``vgg16`` (with ``vgg16_preprocess``),
+``char_rnn``, ``gpt_mini``, ``gpt_mini_draft``, ``resnet18`` and
+``resnet50``, with the JAX package's configurations and defaults. Each
+runs on ``device`` (default: the card)."""
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
+import torch
+
 from deeplearning4j_tpu_torch.nn.conf.core import (DtypePolicy,
                                                    NeuralNetConfiguration)
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
-from deeplearning4j_tpu_torch.nn.conf.layers import ActivationLayer, Output
+from deeplearning4j_tpu_torch.nn.conf.layers import (ActivationLayer, Dense,
+                                                     Output)
 from deeplearning4j_tpu_torch.nn.conf.layers_attention import (
     GptEmbedding, GptOutput, TransformerBlock)
 from deeplearning4j_tpu_torch.nn.conf.layers_conv import (BatchNorm,
@@ -25,6 +31,92 @@ from deeplearning4j_tpu_torch.nn.updater import Adam, Nesterovs
 
 BF16 = DtypePolicy(param_dtype="float32", compute_dtype="bfloat16")
 F32 = DtypePolicy(param_dtype="float32", compute_dtype="float32")
+
+
+def mnist_mlp(seed: int = 42, dtype: Optional[DtypePolicy] = None,
+              device=None) -> MultiLayerNetwork:
+    """784-256-128-10 MLP: relu, softmax head, Adam(1e-3), F32 by
+    default."""
+    conf = (NeuralNetConfiguration.builder()
+            .seed(seed).updater(Adam(1e-3)).activation("relu")
+            .dtype(dtype or F32)
+            .list()
+            .layer(Dense(n_out=256))
+            .layer(Dense(n_out=128))
+            .layer(Output(n_out=10, loss="mcxent", activation="softmax"))
+            .set_input_type(InputType.feed_forward(784))
+            .build())
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def lenet(seed: int = 42, n_classes: int = 10,
+          dtype: Optional[DtypePolicy] = None,
+          device=None) -> MultiLayerNetwork:
+    """LeNet on 28 x 28 x 1 images (BASELINE.md config #1): conv 5x5x20 ->
+    max pool 2 -> conv 5x5x50 -> max pool 2 -> dense 500 (relu) ->
+    softmax; BF16 and Nesterovs(0.01, 0.9) by default. ``set_input_type``
+    puts a CnnToFeedForward before the dense layer."""
+    conf = (NeuralNetConfiguration.builder()
+            .seed(seed).updater(Nesterovs(0.01, 0.9)).activation("relu")
+            .dtype(dtype or BF16)
+            .list()
+            .layer(Convolution2D(n_out=20, kernel=(5, 5), stride=(1, 1),
+                                 activation="identity"))
+            .layer(Subsampling(kernel=(2, 2), stride=(2, 2), pooling="max"))
+            .layer(Convolution2D(n_out=50, kernel=(5, 5), stride=(1, 1),
+                                 activation="identity"))
+            .layer(Subsampling(kernel=(2, 2), stride=(2, 2), pooling="max"))
+            .layer(Dense(n_out=500, activation="relu"))
+            .layer(Output(n_out=n_classes, loss="mcxent",
+                          activation="softmax"))
+            .set_input_type(InputType.convolutional(28, 28, 1))
+            .build())
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def vgg16(seed: int = 42, n_classes: int = 1000, image_size: int = 224,
+          dtype: Optional[DtypePolicy] = None, updater=None,
+          device=None) -> MultiLayerNetwork:
+    """VGG-16: five blocks of 3x3 same convs (2, 2, 3, 3, 3 of 64, 128,
+    256, 512, 512 channels, relu), each closed by a 2x2 max pool, then
+    dense 4096, dense 4096 and a softmax head; BF16 and Nesterovs(0.01,
+    0.9) by default. At 224 x 224 and 1000 classes it has 138,357,544
+    parameters. ``vgg16_preprocess`` makes its inputs."""
+    b = (NeuralNetConfiguration.builder()
+         .seed(seed).updater(updater or Nesterovs(0.01, 0.9))
+         .dtype(dtype or BF16).activation("relu")
+         .list())
+    blocks = [(2, 64), (2, 128), (3, 256), (3, 512), (3, 512)]
+    for n_convs, ch in blocks:
+        for _ in range(n_convs):
+            b = b.layer(Convolution2D(n_out=ch, kernel=(3, 3), mode="same",
+                                      activation="relu"))
+        b = b.layer(Subsampling(kernel=(2, 2), stride=(2, 2),
+                                pooling="max"))
+    conf = (b.layer(Dense(n_out=4096, activation="relu"))
+            .layer(Dense(n_out=4096, activation="relu"))
+            .layer(Output(n_out=n_classes, loss="mcxent",
+                          activation="softmax"))
+            .set_input_type(InputType.convolutional(image_size, image_size,
+                                                    3))
+            .build())
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+#: VGG-16's per-channel ImageNet means, RGB order
+VGG16_MEAN_RGB = (123.68, 116.779, 103.939)
+
+
+def vgg16_preprocess(images):
+    """[b, h, w, 3] RGB images (0-255) -> f32 with VGG16_MEAN_RGB
+    subtracted: a tensor stays on its device, anything else becomes a
+    numpy array, as in the JAX package."""
+    if isinstance(images, torch.Tensor):
+        x = images.to(torch.float32)
+        return x - torch.tensor(VGG16_MEAN_RGB, dtype=torch.float32,
+                                device=x.device)
+    x = np.asarray(images, np.float32)
+    return x - np.asarray(VGG16_MEAN_RGB, np.float32)
 
 
 def char_rnn(vocab_size: int = 80, hidden: int = 512, n_layers: int = 2,
@@ -123,6 +215,24 @@ def _bottleneck(g, name: str, inputs: str, filters: int, stride: int,
     return f"{name}_out"
 
 
+def _basic_block(g, name: str, inputs: str, filters: int, stride: int,
+                 project: bool) -> str:
+    """ResNet-v1 basic block (3x3 -> 3x3) for ResNet-18/34, with an
+    identity or projection (1x1, strided) shortcut, then add and relu."""
+    x = _conv_bn(g, f"{name}_a", filters, (3, 3), (stride, stride), inputs)
+    x = _conv_bn(g, f"{name}_b", filters, (3, 3), (1, 1), x,
+                 activation="identity")
+    if project:
+        shortcut = _conv_bn(g, f"{name}_proj", filters, (1, 1),
+                            (stride, stride), inputs, activation="identity")
+    else:
+        shortcut = inputs
+    g.add_vertex(f"{name}_add", ElementWiseVertex(op="add"), x, shortcut)
+    g.add_layer(f"{name}_out", ActivationLayer(activation="relu"),
+                f"{name}_add")
+    return f"{name}_out"
+
+
 def _resnet(stage_blocks, block_fn, bottleneck: bool, *, image_size: int,
             n_classes: int, seed: int, dtype: Optional[DtypePolicy],
             updater=None, device=None) -> ComputationGraph:
@@ -156,6 +266,19 @@ def _resnet(stage_blocks, block_fn, bottleneck: bool, *, image_size: int,
                                                      3))
             .build())
     return ComputationGraph(conf, device=device).init()
+
+
+def resnet18(seed: int = 42, n_classes: int = 10, image_size: int = 32,
+             dtype: Optional[DtypePolicy] = None, updater=None,
+             device=None) -> ComputationGraph:
+    """ResNet-18: basic-block stages [2, 2, 2, 2], sized for CIFAR-10 by
+    default (32 x 32 x 3, 10 classes); BF16 and Nesterovs(0.1, 0.9). Its
+    block tails are 3x3 convs, so the fusion pass matches none of them.
+    Same configuration (and configuration.json) as the JAX package's
+    ``zoo.resnet18``."""
+    return _resnet([2, 2, 2, 2], _basic_block, False, image_size=image_size,
+                   n_classes=n_classes, seed=seed, dtype=dtype,
+                   updater=updater, device=device)
 
 
 def resnet50(seed: int = 42, n_classes: int = 1000, image_size: int = 224,

@@ -33,6 +33,17 @@ Tolerances, each with its reason:
 - BF16 (fusion off): the forward's activations are rounded to bf16 after
   every conv and BN on both sides, and each rounding may land the other
   way; probabilities 1e-2 absolute and the score 1e-2 relative.
+- A narrow ResNet-18 (basic blocks, filters 8/16/32/64, 16 x 16 images,
+  b = 16), F32, fusion off and on (no tail matches: the basic block's
+  tail conv is 3x3): the score 1e-5 relative and the gradients 1e-4 of
+  each gradient's largest magnitude, as above. Its last two stages are
+  1 x 1, so a train-mode BN there normalises over b values; at b = 4 its
+  1/sigma carries the f32 rounding order up to 1.4e-4 of a gradient's
+  largest, at b = 16 to 8.5e-6. At full width on the card
+  (chip_smoke.py's [train_resnet18]) the same F32 step is held in the form
+  ROADMAP.md C.4 gives relu/max-pool nets: the score 1e-5 relative card
+  vs CPU, and the card's gradients as accurate against an f64 CPU run as
+  the CPU's f32 gradients, within a factor of 2 plus 1e-3 (L2).
 """
 
 import jax
@@ -52,6 +63,7 @@ from deeplearning4j_tpu.nn.graph import ComputationGraph as JGraph
 from deeplearning4j_tpu.utils import serialization as jser
 from deeplearning4j_tpu.zoo import models as jmodels
 from deeplearning4j_tpu_torch import zoo as tzoo
+from deeplearning4j_tpu_torch.datasets import DataSet
 from deeplearning4j_tpu_torch.datasets import MultiDataSet as TMDS
 from deeplearning4j_tpu_torch.nn import fusion as tfusion
 from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration as TNNC
@@ -459,3 +471,149 @@ def test_graph_tbptt_batch_longer_than_its_window_is_refused(tmp_path,
     # package
     assert np.isfinite(float(tnet.fit_batch(
         TMDS(*map(lambda a: [a], _rnn_data(4))))))
+
+
+# ---------------------------------------------------------------- ResNet-18
+def _resnet18_narrow(pkg):
+    """ResNet-18's topology (stem, basic-block stages [2, 2, 2, 2]) at
+    filters 8/16/32/64 on 16 x 16 x 3 images, F32, Nesterovs(0.01, 0.9):
+    the zoo's ``_basic_block`` of each package."""
+    if pkg == "jax":
+        from deeplearning4j_tpu.nn.conf.core import DtypePolicy
+        from deeplearning4j_tpu.nn.updater import Nesterovs
+        nnc, m, out, gp, sub, it = (JNNC, jmodels, JOutput, JGlobalPooling,
+                                    JSubsampling, JInputType)
+    else:
+        from deeplearning4j_tpu_torch.nn.conf.core import DtypePolicy
+        from deeplearning4j_tpu_torch.nn.updater import Nesterovs
+        from deeplearning4j_tpu_torch.zoo import models as m
+        nnc, out, gp, sub, it = (TNNC, TOutput, TGlobalPooling,
+                                 TSubsampling, TInputType)
+    pol = DtypePolicy(param_dtype="float32", compute_dtype="float32")
+    g = (nnc.builder().seed(5).updater(Nesterovs(0.01, 0.9)).dtype(pol)
+         .graph_builder().add_inputs("img"))
+    x = m._conv_bn(g, "stem", 8, (7, 7), (2, 2), "img")
+    g.add_layer("stem_pool", sub(kernel=(3, 3), stride=(2, 2),
+                                 pooling="max", mode="same"), x)
+    x, filters, in_ch = "stem_pool", 8, 8
+    for stage in range(4):
+        for b in range(2):
+            stride = 2 if (stage > 0 and b == 0) else 1
+            project = b == 0 and (stride != 1 or in_ch != filters)
+            x = m._basic_block(g, f"s{stage}b{b}", x, filters, stride,
+                               project)
+            in_ch = filters
+        filters *= 2
+    g.add_layer("head_pool", gp(pooling="avg"), x)
+    g.add_layer("fc", out(n_out=CLASSES, loss="mcxent",
+                          activation="softmax"), "head_pool")
+    return (g.set_outputs("fc")
+            .set_input_types(it.convolutional(IMG, IMG, 3)).build())
+
+
+@pytest.mark.parametrize("on", [False, True], ids=["unfused", "fused"])
+def test_resnet18_narrow_f32_step_matches_jax(tmp_path, fuse, on):
+    fuse(on)
+    jconf, tconf = _resnet18_narrow("jax"), _resnet18_narrow("torch")
+    assert tconf.to_json() == jconf.to_json()
+    jnet = JGraph(jconf).init()
+    path = tmp_path / "r18.zip"
+    jser.write_computation_graph(jnet, str(path))
+    tnet = tser.restore_computation_graph(str(path), device="cpu")
+    assert tnet._fusion_plans == {} and jnet._fusion_plans == {}
+    x, y = _data(50, b=16)
+    jl, jg = _jgrads(jnet, x, y)
+    tl, tg = _tgrads(tnet, x, y)
+    assert abs(tl - jl) <= 1e-5 * abs(jl)
+    assert set(tg) == {(ln, k) for ln in jg for k in jg[ln]}
+    for (ln, k), g in tg.items():
+        _close_max(g, jg[ln][k], 1e-4, f"grad {ln}.{k}")
+    js = float(jnet.fit_batch(JMDS([x], [y])))
+    ts = float(tnet.fit_batch(TMDS([x], [y])))
+    assert abs(ts - js) <= 1e-5 * abs(js)
+    for ln, lp in tnet.params.items():
+        for k, t in lp.items():
+            _close_max(t, jnet.params[ln][k], 1e-4, f"param {ln}.{k}",
+                       floor=1e-6)
+
+
+def test_resnet18_narrow_eval_after_steps_matches_jax(tmp_path, fuse):
+    """Eval mode after BN-updating steps: two F32 steps on the narrow
+    ResNet-18 (one on each of two batches; the first step's 1/sigma
+    rounding, above, grows with each step), then the BN running statistics (1e-4 of each tensor's
+    largest magnitude plus 1e-6, as the parameters), the eval-mode
+    probabilities on the trained batches and an unseen one (1e-5
+    absolute, as every F32 output here) and ``evaluate``'s confusion
+    matrix (exactly) against the JAX graph."""
+    fuse(False)
+    jnet = JGraph(_resnet18_narrow("jax")).init()
+    path = tmp_path / "r18.zip"
+    jser.write_computation_graph(jnet, str(path))
+    tnet = tser.restore_computation_graph(str(path), device="cpu")
+    batches = [_data(70 + i, b=16) for i in range(3)]
+    for step in range(2):
+        x, y = batches[step]
+        js = float(jnet.fit_batch(JMDS([x], [y])))
+        ts = float(tnet.fit_batch(TMDS([x], [y])))
+        assert abs(ts - js) <= 1e-5 * abs(js), (step, ts, js)
+    assert set(tnet.state) == set(jnet.state) and len(tnet.state) == 20
+    for ln, ls in tnet.state.items():
+        for k, t in ls.items():
+            _close_max(t, jnet.state[ln][k], 1e-4, f"state {ln}.{k}",
+                       floor=1e-6)
+    for x, _ in batches:
+        np.testing.assert_allclose(_np(tnet.output(x)), _np(jnet.output(x)),
+                                   atol=1e-5, rtol=0)
+    tev = tnet.evaluate([TMDS([x], [y]) for x, y in batches])
+    jev = jnet.evaluate([JMDS([x], [y]) for x, y in batches])
+    np.testing.assert_array_equal(tev.confusion.matrix, jev.confusion.matrix)
+
+
+def test_resnet18_zoo_config_matches_jax(fuse):
+    fuse(True)
+    jnet = jzoo.resnet18()
+    tnet = tzoo.resnet18(device="cpu")
+    assert tnet.conf.to_json() == jnet.conf.to_json()
+    assert tnet.num_params() == jnet.num_params() == 11181642
+    assert tnet._fusion_plans == {} == jnet._fusion_plans
+    assert tnet.summary() == jnet.summary()
+
+
+def test_graph_evaluate_summary_and_clone(fuse):
+    fuse(False)
+    net = TGraph(_build("torch"), device="cpu").init()
+    x, y = _data(60, b=12)
+    net.fit_batch(TMDS([x], [y]))
+    ev = net.evaluate(TMDS([x], [y]))
+    want = np.zeros((CLASSES, CLASSES), np.int64)
+    np.add.at(want, (y.argmax(1), _np(net.output(x)).argmax(1)), 1)
+    np.testing.assert_array_equal(ev.confusion.matrix, want)
+    assert net.evaluate([DataSet(x, y)]).accuracy() == ev.accuracy()
+    reg = net.evaluate_regression(DataSet(x, y))
+    assert reg.num_columns() == CLASSES
+    twin = net.clone()
+    assert twin.summary() == net.summary()
+    for ln, lp in net.params.items():
+        for k, t in lp.items():
+            assert torch.equal(twin.params[ln][k], t)
+            assert twin.params[ln][k].data_ptr() != t.data_ptr()
+    s1 = float(net.fit_batch(TMDS([x], [y])))
+    s2 = float(twin.fit_batch(TMDS([x], [y])))
+    assert s1 == s2
+    for ln, ls in net.state.items():
+        for k, t in ls.items():
+            assert torch.equal(twin.state[ln][k], t)
+
+
+def test_graph_evaluate_refuses_a_two_output_graph():
+    conf = (TNNC.builder().graph_builder().add_inputs("in")
+            .add_layer("a", TOutput(n_out=2), "in")
+            .add_layer("b", TOutput(n_out=2), "in")
+            .set_outputs("a", "b")
+            .set_input_types(TInputType.feed_forward(3)).build())
+    net = TGraph(conf, device="cpu").init()
+    x = np.zeros((2, 3), np.float32)
+    with pytest.raises(ValueError, match="single-output"):
+        net.evaluate(TMDS([x], [x[:, :2], x[:, :2]]))
+    with pytest.raises(ValueError, match="evaluate_regression"):
+        net.evaluate_regression(TMDS([x], [x[:, :2], x[:, :2]]))

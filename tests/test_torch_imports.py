@@ -67,7 +67,8 @@ def test_transformer_modules_are_checked(module):
     assert module in {_module_name(p) for p in SOURCES}
 
 
-@pytest.mark.parametrize("module", [
+# the modules of the ResNet-50 slice and of the slices after it
+SLICE_MODULES = [
     "deeplearning4j_tpu_torch.nn.graph",
     "deeplearning4j_tpu_torch.nn.fusion",
     "deeplearning4j_tpu_torch.nn.conf.graph_conf",
@@ -80,10 +81,28 @@ def test_transformer_modules_are_checked(module):
     "deeplearning4j_tpu_torch.ops.convolution",
     "deeplearning4j_tpu_torch.ops.normalization",
     "deeplearning4j_tpu_torch.ops.fused_block",
-])
+    "deeplearning4j_tpu_torch.nn.conf.preprocessors",
+    "deeplearning4j_tpu_torch.nn.conf.core",
+    "deeplearning4j_tpu_torch.nn.multilayer",
+    "deeplearning4j_tpu_torch.ops.sequence",
+    "deeplearning4j_tpu_torch.eval",
+    "deeplearning4j_tpu_torch.eval.evaluation",
+    "deeplearning4j_tpu_torch.eval.regression",
+    "deeplearning4j_tpu_torch.eval.roc",
+    "deeplearning4j_tpu_torch.eval.binary",
+    "deeplearning4j_tpu_torch.eval.meta",
+    "deeplearning4j_tpu_torch.optimize",
+    "deeplearning4j_tpu_torch.optimize.listeners",
+    "deeplearning4j_tpu_torch.optimize.earlystopping",
+    "deeplearning4j_tpu_torch.utils.serialization",
+]
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES)
 def test_resnet_modules_are_checked(module):
-    """The ResNet-50 slice's modules are among the sources the import
-    tests check."""
+    """The modules of the ResNet-50 slice and of the slices after it (the
+    conv MLN, evaluation, listeners and early stopping) are among the
+    sources the import tests check."""
     assert module in {_module_name(p) for p in SOURCES}
 
 
@@ -155,3 +174,77 @@ def test_chip_smoke_refuses_without_a_card(no_cuda):
                        cwd=str(ROOT))
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+@pytest.mark.parametrize("builder,kw", [
+    ("mnist_mlp", {}), ("lenet", {}),
+    ("vgg16", dict(image_size=32, n_classes=7)), ("resnet18", {})],
+    ids=["mnist_mlp", "lenet", "vgg16", "resnet18"])
+def test_conv_zoo_entry_points_raise_without_a_card(no_cuda, builder, kw):
+    from deeplearning4j_tpu_torch import zoo
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(zoo, builder)(**kw)
+    net = getattr(zoo, builder)(device="cpu", **kw)
+    assert net.clone().device.type == "cpu"
+
+
+@pytest.mark.parametrize("builder", ["lenet", "resnet18"])
+def test_restore_model_and_file_saver_raise_without_a_card(no_cuda,
+                                                           tmp_path,
+                                                           builder):
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.optimize.earlystopping import (
+        LocalFileModelSaver)
+    from deeplearning4j_tpu_torch.utils import serialization
+
+    net = getattr(zoo, builder)(device="cpu")
+    path = str(tmp_path / "bestModel.zip")
+    LocalFileModelSaver(str(tmp_path)).save_best(net)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serialization.restore_model(path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LocalFileModelSaver(str(tmp_path), device=None)._restore(
+            "bestModel.zip")
+    back = LocalFileModelSaver(str(tmp_path), device="cpu").get_best()
+    assert back.device.type == "cpu" and type(back) is type(net)
+    assert back.num_params() == net.num_params()
+
+
+# kernel names of the profiler's listings of conv-net steps on the card
+# (chip_smoke.py writes them to profile_out/<net>_kernels.json), each with
+# the kind chip_smoke.kernel_kind must count it under
+KERNEL_NAMES = [
+    ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc_"
+     "tilesize128x128x64_warpgroupsize1x1x1_g1_execute_segment_k_off_kernel"
+     "__5x_cudnn", "cudnn_conv"),
+    ("sm90_xmma_wgrad_indexed_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_"
+     "nhwc_tilesize128x64x64_warpgroupsize1x1x1_g1_execute_split_k_kernel"
+     "__5x_cudnn", "splitk"),
+    ("void cask_plugin__5x_cudnn::xmma__5x_cudnn::init_device_workspace_"
+     "kernel<xmma__5x_cudnn::implicit_gemm::wgrad_indexed::Warp_specialized"
+     "_params<", "conv_workspace"),
+    ("void at::native::(anonymous namespace)::max_pool_backward_nhwc<c10::"
+     "BFloat16, float>(c10::BFloat16 const*, long const*, int)", "pool"),
+    ("void nhwcAddPaddingKernel<__nv_bfloat16, __nv_bfloat16, float, true, "
+     "(cudnnKernelDataType_t)0>(int, cudnn::reduced_divisor)", "layout"),
+    ("void cublasLt::splitKreduce_kernel<32, 16, int, float>", "splitk"),
+    ("nvjet_tst_128x256_64x4_2x1_v_bz_coopA_NTN", "gemm"),
+    ("void at::native::reduce_kernel<128, 4, at::native::ReduceOp<c10::"
+     "BFloat16>>", "reduce"),
+    ("Memset (Device)", "memset"),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::"
+     "CUDAFunctor_add<float>>", "elementwise"),
+    ("flash_fwd_kernel_sm90", "flash_attn_fwd"),
+]
+
+
+@pytest.mark.parametrize("name,kind", KERNEL_NAMES,
+                         ids=[k for _, k in KERNEL_NAMES])
+def test_profile_kernel_kinds(name, kind):
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    assert chip_smoke.kernel_kind(name) == kind

@@ -1,7 +1,8 @@
 """The port's small pure modules against the JAX package's: activations
 (f32, 1e-6: the same formula in another library), initializers (moments
 and bounds only: jax.random's bits are not reproduced), updater and
-schedule configs (the same dicts), and DtypePolicy validation.
+schedule configs (the same dicts), DtypePolicy validation, and
+``ops/sequence.py::last_unmasked_step`` (exact: an index gather).
 """
 
 import jax
@@ -115,3 +116,50 @@ def test_dtype_policy_overrides_resolve_like_jax():
     for path in ("layer_0", "layer_1", "head", None):
         assert t.compute_dtype_for(path) == j.compute_dtype_for(path)
     assert t.to_dict() == j.to_dict()
+
+
+# (name, [b, t] mask or None): prefix padding, end-aligned padding, a gap
+# inside the sequence, an all-masked row, and no mask
+LAST_STEP_MASKS = [
+    ("none", None),
+    ("prefix", [[1, 1, 1, 0, 0], [1, 1, 1, 1, 1], [1, 0, 0, 0, 0]]),
+    ("align_end", [[0, 0, 1, 1, 1], [0, 0, 0, 0, 1], [1, 1, 1, 1, 1]]),
+    ("gapped", [[1, 0, 1, 0, 0], [1, 1, 0, 1, 0], [0, 1, 0, 0, 1]]),
+    ("all_masked_row", [[1, 1, 0, 0, 0], [0, 0, 0, 0, 0], [0, 1, 1, 0, 0]]),
+]
+
+
+@pytest.mark.parametrize("name,mask", LAST_STEP_MASKS,
+                         ids=[m[0] for m in LAST_STEP_MASKS])
+def test_last_time_step_layer_matches_jax(name, mask):
+    """``LastTimeStepLayer`` takes ``last_unmasked_step`` from
+    ops/sequence.py (moved there from nn/layers/recurrent.py): the same
+    rows as the JAX package's function and as a plain loop (the last
+    nonzero mask entry; step 0 for an all-masked row)."""
+    from deeplearning4j_tpu.ops.sequence import last_unmasked_step as jlast
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.core import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.layers_recurrent import (
+        LastTimeStep)
+    from deeplearning4j_tpu_torch.nn.layers import recurrent as trec
+    from deeplearning4j_tpu_torch.ops import sequence as tseq
+
+    assert trec.last_unmasked_step is tseq.last_unmasked_step
+    x = np.random.default_rng(1).normal(size=(3, 5, 4)).astype(np.float32)
+    m = None if mask is None else np.asarray(mask, np.float32)
+    it = InputType.recurrent(4)
+    layer = LastTimeStep().with_n_in(it).make_layer(
+        it, NeuralNetConfiguration(), TPolicy())
+    got, _ = layer.apply({}, {}, torch.from_numpy(x),
+                         mask=None if m is None else torch.from_numpy(m))
+    want = np.asarray(jlast(jnp.asarray(x),
+                            None if m is None else jnp.asarray(m)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    for i in range(3):
+        if m is None:
+            step = 4
+        else:
+            nz = np.flatnonzero(m[i])
+            step = int(nz[-1]) if nz.size else 0
+        np.testing.assert_array_equal(got[i].numpy(), x[i, step])
+    assert layer.feed_forward_mask(m) is None
