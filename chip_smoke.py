@@ -46,6 +46,13 @@ runs only the three MultiLayerNetwork/ComputationGraph conv phases
 ``python3 -c "import chip_smoke as c; c.phase_device();
 c.phase_train_lenet()"``), and
 
+    python3 chip_smoke.py --captured
+
+runs only [train_captured] (the whole train step as one CUDA graph on
+the char-RNN, gpt_mini, LeNet, ResNet-18 and the fused ResNet-50: captured
+steps against eager ones, launches, step ms, busy share), [mfu] and
+[capture_routes], and
+
     python3 chip_smoke.py --k6-split
 
 times K6 alone at the same three shapes, on its sm90 path and on its
@@ -1276,6 +1283,8 @@ KERNEL_KINDS = (
     ("reduce", ("reduce",)),
     ("copy", ("copy",)),
     ("memset", ("memset",)),
+    # torch._foreach_* (the multi-tensor update)
+    ("update", ("multi_tensor_apply",)),
     ("elementwise", ("elementwise",)),
 )
 
@@ -2256,14 +2265,19 @@ def resnet_profile(net, data):
     groups, fused, seen = {}, {}, {}
     for e in kernels:
         name = e.key.lower()
+        # PyTorch's multi-tensor kernels (the update's torch._foreach_*
+        # ops) carry "apply_kernel" in their names too
         tag = next((v for k, v in fused_names.items()
-                    if k.lower() in name and "cutlass" not in name), None)
+                    if k.lower() in name and "cutlass" not in name
+                    and "multi_tensor_apply" not in name), None)
         if tag is not None:
             g = "fused_K4_K7"
             seen[tag] = seen.get(tag, 0) + e.count
             ms, cnt = fused.get(tag, (0.0, 0))
             fused[tag] = (ms + e.self_device_time_total / 1e3 / n,
                           cnt + e.count // n)
+        elif "multi_tensor_apply" in name:
+            g = "update"
         elif any(w in name for w in ("conv", "cudnn", "implicit", "fprop",
                                      "dgrad", "wgrad", "winograd", "nhwc",
                                      "xmma", "sm90_xmma")):
@@ -2467,7 +2481,8 @@ def phase_train_resnet():
     import torch
     from deeplearning4j_tpu_torch import zoo
     from deeplearning4j_tpu_torch.datasets import DataSet
-    from deeplearning4j_tpu_torch.nn.updater import _map, apply_layer_updates
+    from deeplearning4j_tpu_torch.nn.updater import (
+        _map, apply_layer_updates, apply_layer_updates_plain)
     from deeplearning4j_tpu_torch.ops import fused_block as fb
     from deeplearning4j_tpu_torch.ops import registry
     kernels = (fb.STATS, fb.APPLY, fb.BWD_STATS, fb.BWD_APPLY)
@@ -2626,15 +2641,22 @@ def phase_train_resnet():
         {k: runs["fused"]["launches"].get(fb.SM90_COUNTER[k], 0) // steps
          for k in kernels})
 
-    # the Nesterov update alone, on copies
+    # the Nesterov update alone, on copies: the multi-tensor path (what
+    # the step runs) and the per-tensor path it replaced, reading the
+    # iteration from the card as the step does; the update's device time
+    # a step is the profile's "update" kind below
     gc = net.conf.global_conf
     params = _map(lambda t: t.detach().clone(), net.params)
     opt = _map(lambda t: t.detach().clone(), net.opt_state)
     grads = _map(lambda t: torch.full_like(t, 1e-3), params)
+    it = torch.zeros((), dtype=torch.int32, device="cuda")
     with torch.no_grad():
         upd_ms = cuda_ms(lambda: apply_layer_updates(
-            net.layers, gc, params, grads, opt, 0), reps=5)
+            net.layers, gc, params, grads, opt, it), reps=5)
+        plain_ms = cuda_ms(lambda: apply_layer_updates_plain(
+            net.layers, gc, params, grads, opt, it), reps=5)
     out["nesterov_update_ms"] = f"{upd_ms:.3f}"
+    out["nesterov_update_plain_ms"] = f"{plain_ms:.3f}"
     del params, opt, grads
     out.update(resnet_profile(net, data[:1] * 3))
 
@@ -3184,19 +3206,47 @@ def conv_profile(net, data, step_ms, tag):
     return prof
 
 
-def epoch_ms(net, it):
-    """One fit(it) epoch's milliseconds per step, by CUDA events around the
-    whole epoch (the host's issue and the data's copies included)."""
+# fit as it ran before the training runtime: one eager step a batch, the
+# batch copied in by the step, no prefetch thread
+PLAIN_FIT = dict(multi_step=1, device_prefetch=False, async_prefetch=False)
+
+
+def epoch_ms(net, it, **fit_kw):
+    """One fit(it, **fit_kw) epoch's milliseconds per step, by CUDA events
+    around the whole epoch (the host's issue and the data's copies
+    included)."""
     import torch
     steps0 = net.iteration
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    net.fit(it)
+    net.fit(it, **fit_kw)
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (net.iteration - steps0)
+
+
+def lenet_runtime_epoch(net, it):
+    """One epoch through fit's runtime (multi_step="auto": chunks of 8
+    through the captured step; device_prefetch="auto": pinned memory and
+    a side stream) beside two epochs of the plain loop, from copies of
+    one net: epoch ms a step, and the final params bit-identical to the
+    plain loop's wherever two plain epochs are (else within twice their
+    difference)."""
+    plain, plain2, auto = net.clone(), net.clone(), net.clone()
+    plain_ms = epoch_ms(plain, it, **PLAIN_FIT)
+    auto_ms = epoch_ms(auto, it, multi_step="auto", device_prefetch="auto")
+    plain2_ms = epoch_ms(plain2, it, **PLAIN_FIT)
+    (sg,) = auto._multi_steps.values()
+    check(sg.captures == 1 and sg.replays > 0,
+          f"lenet auto epoch: {sg.captures} captures, {sg.replays} replays")
+    held = hold_captured_to_eager(tree_max_diffs(plain, plain2),
+                                  tree_max_diffs(auto, plain), "lenet epoch")
+    return {"runtime_epoch_step_ms_plain": f"{plain_ms:.4f}/{plain2_ms:.4f}",
+            "runtime_epoch_step_ms_auto": f"{auto_ms:.4f}",
+            "runtime_epoch_replays": sg.replays,
+            "runtime_epoch_vs_plain": json.dumps(held)}
 
 
 class _BothSavers:
@@ -3274,7 +3324,7 @@ def phase_train_lenet():
     registry.reset_launches()
     warm = CollectScoresIterationListener(5)
     net.set_listeners(warm)
-    net.fit(it)
+    net.fit(it, **PLAIN_FIT)
     sc = [s for _, s in warm.scores]
     check(all(math.isfinite(v) for v in sc), f"lenet scores {sc}")
     check(statistics.mean(sc[-5:]) < sc[0], f"lenet training did not lower "
@@ -3284,9 +3334,10 @@ def phase_train_lenet():
     ms = {"without": [], "with": []}
     for kind in ("without", "with", "with", "without"):
         net.set_listeners(*(listeners if kind == "with" else ()))
-        ms[kind].append(epoch_ms(net, it))
+        ms[kind].append(epoch_ms(net, it, **PLAIN_FIT))
     net.set_listeners()
     check_no_kernel_launched("lenet fit")
+    out.update(lenet_runtime_epoch(net, it))
     steps = net.iteration
     sc = [s for _, s in listeners[1].scores]
     printed = log.getvalue().count("Score at iteration")
@@ -3564,6 +3615,461 @@ def phase_train_resnet18():
     phase("train_resnet18", **out)
 
 
+# ---------------------------------------------------------------------------
+# [train_captured]: the whole train step as one CUDA graph
+# ---------------------------------------------------------------------------
+# steps of each run (eager, eager again, captured): the captured run's first
+# multistep.WARMUP_STEPS are its eager warm-ups, the rest replays
+CAPTURED_STEPS = 8
+# replays (and eager steps) timed alone by CUDA events, and profiled
+CAPTURED_TIMED = 10
+CAPTURED_PROFILED = 3
+
+
+def tree_max_diffs(a, b):
+    """{tensor path: max |a - b|} over two nets' params, updater state and
+    layer state (same structure), in f64 on the host."""
+    from deeplearning4j_tpu_torch.nn import multistep
+    out = {}
+    for (tn, path, x), (_, _, y) in zip(multistep._tree_paths(a),
+                                        multistep._tree_paths(b)):
+        d = (x.detach().double() - y.detach().double()).abs()
+        out[(tn,) + path] = float(d.max()) if d.numel() else 0.0
+    return out
+
+
+def hold_captured_to_eager(ee, ce, what):
+    """Captured vs eager (``ce``) against eager vs eager (``ee``): equal
+    bit for bit on every tensor the two eager runs agree on bit for bit;
+    where they do not (cuDNN's weight-gradient atomics), at most twice
+    their largest difference. Returns the summary printed."""
+    exact = [k for k, v in ee.items() if v == 0.0]
+    loose = [k for k, v in ee.items() if v != 0.0]
+    bad = [".".join(map(str, k)) for k in exact if ce[k] != 0.0]
+    check(not bad, f"{what}: captured vs eager differs where two eager "
+          f"runs are bit-identical: {bad[:6]} (max "
+          f"{max((ce[k] for k in exact), default=0.0):.3e})")
+    ee_max = max((ee[k] for k in loose), default=0.0)
+    ce_max = max((ce[k] for k in loose), default=0.0)
+    check(ce_max <= 2.0 * ee_max, f"{what}: captured vs eager {ce_max:.3e} "
+          f"> twice eager vs eager {ee_max:.3e}")
+    return {"tensors": len(ee), "bit_identical_eager_vs_eager": len(exact),
+            "eager_vs_eager_max": f"{ee_max:.3e}",
+            "captured_vs_eager_max": f"{ce_max:.3e}"}
+
+
+def eager_run(net, data):
+    """len(data) fit_batch steps: launches, step ms by CUDA events."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import registry
+    torch.cuda.synchronize()
+    registry.reset_launches()
+    events = []
+    for ds in data:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        net.fit_batch(ds)
+        e1.record()
+        events.append((e0, e1))
+    torch.cuda.synchronize()
+    return registry.launches(), [a.elapsed_time(b) for a, b in events]
+
+
+def replay_ms(net, ds, n):
+    """n replays of the captured step (``fit_batch_repeated(ds, 1)``:
+    the batch's copy in and one graph launch), each by CUDA events."""
+    import torch
+    events = []
+    for _ in range(n):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        net.fit_batch_repeated(ds, 1)
+        e1.record()
+        events.append((e0, e1))
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in events]
+
+
+def wall_ms_per_step(step, n):
+    """Host-clock ms a step over n back-to-back calls of ``step`` (one
+    train step each), ending in a synchronize: the rate a training loop
+    gets, host gaps between steps included."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def profile_call(fn, steps):
+    """torch.profiler over ``fn()`` (``steps`` train steps): device ms,
+    kernels and CUDA-graph launches a step, and the device's busy share
+    of the host-clock wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    avgs = prof.key_averages()
+    kernels = [e for e in avgs if e.device_type.name == "CUDA"]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    check(dev_ms > 0, "the profiler saw no device time in the replays")
+    graphs = sum(e.count for e in avgs if e.key == "cudaGraphLaunch")
+    return {"prof_device_ms_per_step": f"{dev_ms / steps:.3f}",
+            "prof_wall_ms_per_step": f"{wall_ms / steps:.3f}",
+            "prof_device_busy_share": f"{dev_ms / wall_ms:.3f}",
+            "prof_kernels_per_step": sum(e.count for e in kernels) // steps,
+            "prof_graph_launches_per_step": f"{graphs / steps:.2f}"}
+
+
+def captured_cell(name, model, make, data, expect=()):
+    """One cell of [train_captured]: three copies of one net; N eager
+    steps, N more, and N through fit(multi_step=N) (warm-ups, capture,
+    replays) on the same N batches; equality, launches, times."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    from deeplearning4j_tpu_torch.nn import multistep
+    from deeplearning4j_tpu_torch.ops import registry
+    n = len(data)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_cell = time.perf_counter()
+    base = make()
+    a, b, c = base.clone(), base.clone(), base.clone()
+    del base
+    la, ms_a = eager_run(a, data)
+    lb, ms_b = eager_run(b, data)
+    torch.cuda.synchronize()
+    registry.reset_launches()
+    c.fit(ListDataSetIterator(data), multi_step=n, async_prefetch=False,
+          device_prefetch=False)
+    torch.cuda.synchronize()
+    lc = registry.launches()
+    (sg,) = c._multi_steps.values()
+    replays = sg.replays
+    check(sg.captures == 1 and replays == n - multistep.WARMUP_STEPS,
+          f"{name}: {sg.captures} captures, {replays} replays in {n} "
+          f"steps")
+    check(c.iteration == a.iteration == n, f"{name}: iterations "
+          f"{c.iteration} / {a.iteration}")
+    # launches: the two eager runs alike, each replayed step as an eager one
+    check(la == lb, f"{name}: eager launches {la} vs {lb}")
+    per_step = {k: v // n for k, v in la.items()}
+    check(all(v % n == 0 for v in la.values()), f"{name}: eager launches "
+          f"{la} not a multiple of {n} steps")
+    check(sg.launches == per_step, f"{name}: the graph recorded "
+          f"{sg.launches}, an eager step launches {per_step}")
+    check(lc == la, f"{name}: launches in {n} captured-run steps {lc}, in "
+          f"{n} eager steps {la}")
+    for kern in expect:
+        check(per_step.get(kern, 0) > 0, f"{name}: {kern} not launched by "
+              f"the captured step")
+    ee, ce = tree_max_diffs(a, b), tree_max_diffs(c, a)
+    sa, sb, sc = (float(x.score_value) for x in (a, b, c))
+    check(math.isfinite(sc), f"{name}: captured score {sc}")
+    ee[("score",)], ce[("score",)] = abs(sa - sb), abs(sc - sa)
+    held = hold_captured_to_eager(ee, ce, name)
+    del b
+    # times: eager steps and replays in turns on the same batch
+    ds0 = data[0]
+    eager_ms = eager_run(a, [ds0] * CAPTURED_TIMED)[1]
+    graph_ms = replay_ms(c, ds0, CAPTURED_TIMED)
+    eager_ms2 = eager_run(a, [ds0] * CAPTURED_TIMED)[1]
+    graph_ms2 = replay_ms(c, ds0, CAPTURED_TIMED)
+    wall = {"eager": [], "captured": []}
+    for kind in ("eager", "captured", "captured", "eager"):
+        wall[kind].append(wall_ms_per_step(
+            (lambda: a.fit_batch(ds0)) if kind == "eager"
+            else (lambda: c.fit_batch_repeated(ds0, 1)), CAPTURED_TIMED))
+    prof = profile_call(lambda: c.fit_batch_repeated(ds0, CAPTURED_PROFILED),
+                        CAPTURED_PROFILED)
+    eprof = profile_call(lambda: [a.fit_batch(ds0)
+                                  for _ in range(CAPTURED_PROFILED)],
+                         CAPTURED_PROFILED)
+    med = statistics.median(graph_ms + graph_ms2)
+    wall_c, wall_e = min(wall["captured"]), min(wall["eager"])
+    dev_c = float(prof["prof_device_ms_per_step"])
+    dev_e = float(eprof["prof_device_ms_per_step"])
+    out = {"cell": name, "model": model, "steps": n,
+           "warmup_steps": multistep.WARMUP_STEPS, "replays": replays,
+           "launches_per_step": json.dumps(per_step),
+           "graph_launches_recorded": json.dumps(sg.launches),
+           **held,
+           "captured_step_ms_median": f"{med:.4f}",
+           "captured_step_ms_min_max": f"{min(graph_ms + graph_ms2):.4f}/"
+                                       f"{max(graph_ms + graph_ms2):.4f}",
+           "eager_step_ms_median": f"{statistics.median(eager_ms + eager_ms2):.4f}",
+           "eager_step_ms_min_max": f"{min(eager_ms + eager_ms2):.4f}/"
+                                    f"{max(eager_ms + eager_ms2):.4f}",
+           "captured_wall_ms_per_step": json.dumps(
+               [round(v, 4) for v in wall["captured"]]),
+           "eager_wall_ms_per_step": json.dumps(
+               [round(v, 4) for v in wall["eager"]]),
+           # device time a step (profiler) over the host-clock step time
+           # without the profiler
+           "captured_busy_share": f"{dev_c / wall_c:.3f}",
+           "eager_busy_share": f"{dev_e / wall_e:.3f}",
+           "capture_ms": f"{sg.capture_ms:.1f}",
+           "peak_mem_mb_with_graph_pool":
+               f"{torch.cuda.max_memory_allocated() / 2**20:.0f}",
+           **prof,
+           **{f"eager_{k}": v for k, v in eprof.items()},
+           "cell_s": f"{time.perf_counter() - t_cell:.1f}"}
+    phase("train_captured", **out)
+    return {"net": c, "step_ms": med, "ds": ds0, "wall_ms": wall_c}
+
+
+def capture_route_probe(what, make, ds, steps=None, lr_scale=0.01):
+    """A small net whose step takes a route the cells do not (the f32
+    grid LSTM, K3's FMA kernel, K4-K7's f32 path, dropout): captured vs
+    eager under ``hold_captured_to_eager``, or, where the route cannot be
+    captured, a CaptureError that names it (the step is never run eagerly
+    in its place). The rate is scaled (``lr_scale``) so that these small
+    nets do not diverge: a diverging run magnifies any difference, and
+    where two eager runs differ (the f32 fused path) a chaotic one makes
+    the comparison a draw."""
+    import torch
+    from deeplearning4j_tpu_torch.nn import multistep
+    steps = steps or multistep.WARMUP_STEPS + 2
+    base = make().set_lr_scale(lr_scale)
+    a, b, c = base.clone(), base.clone(), base.clone()
+    for _ in range(steps):
+        a.fit_batch(ds)
+        b.fit_batch(ds)
+    try:
+        c.fit_batch_repeated(ds, steps)
+    except multistep.CaptureError as e:
+        msg = str(e)
+        check("cannot be captured" in msg, f"{what}: {msg}")
+        return {"captures": False, "error": msg[:400]}
+    torch.cuda.synchronize()
+    (sg,) = c._multi_steps.values()
+    check(sg.replays == steps - multistep.WARMUP_STEPS, f"{what}: "
+          f"{sg.replays} replays")
+    return {"captures": True, **hold_captured_to_eager(
+        tree_max_diffs(a, b), tree_max_diffs(c, a), what)}
+
+
+def capture_routes():
+    """[capture_routes]: which of the kernels' other routes capture."""
+    import torch
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.nn import multistep
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.core import DtypePolicy
+    from deeplearning4j_tpu_torch.nn.conf.layers import Dense, Output
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    seq = on_card(markov_batches(1, 8, 16, 80, SEED + 50))[0]
+    out = {
+        "lstm_grid_f32": capture_route_probe(
+            "char_rnn F32 (K1/K2 grid route)",
+            lambda: zoo.char_rnn(seed=SEED, hidden=128, dtype=zoo.F32), seq),
+        "lstm_grid_bf16_n96": capture_route_probe(
+            "char_rnn BF16 n = 96 (K1/K2 grid route)",
+            lambda: zoo.char_rnn(seed=SEED, hidden=96), seq),
+        "flash_fma_f32": capture_route_probe(
+            "gpt_mini F32 (K3 FMA kernel)",
+            lambda: zoo.gpt_mini(seed=SEED, n_layers=1, max_len=16,
+                                 dtype=zoo.F32), seq),
+    }
+    # b = 16: the last stage's batch norm (1 x 1 spatial) over 16 rows;
+    # one replay after the warm-ups
+    x, y = resnet_batches(1, 16, SEED + 51, size=32, classes=10)[0]
+    with fuse_blocks(True):
+        out["fused_f32"] = capture_route_probe(
+            "resnet50 F32 32x32 (K4-K7 f32 path)",
+            lambda: zoo.resnet50(seed=SEED, image_size=32, n_classes=10,
+                                 dtype=zoo.F32), DataSet(x, y),
+            steps=multistep.WARMUP_STEPS + 1, lr_scale=1e-3)
+    f32 = DtypePolicy(param_dtype="float32", compute_dtype="float32")
+    conf = (NeuralNetConfiguration.builder().seed(SEED).dtype(f32).list()
+            .layer(Dense(n_in=32, n_out=256, activation="relu", dropout=0.5))
+            .layer(Output(n_out=10, activation="softmax", loss="mcxent"))
+            .build())
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 52)
+    xd = torch.randn((64, 32), generator=gen, device="cuda")
+    yd = torch.nn.functional.one_hot(torch.randint(
+        0, 10, (64,), generator=gen, device="cuda"), 10).float()
+    out["dropout_generator"] = capture_route_probe(
+        "dense + dropout (the net's generator)",
+        lambda: MultiLayerNetwork(conf).init(), DataSet(xd, yd))
+    check(out["dropout_generator"]["captures"],
+          "the dropout net's step did not capture")
+    out["host_read_refused"] = host_read_refusal(conf, DataSet(xd, yd))
+    phase("capture_routes", **{k: json.dumps(v) for k, v in out.items()})
+    return out
+
+
+def host_read_refusal(conf, ds):
+    """A step that reads its loss on the host (``float``) cannot be
+    captured: fit_batch_repeated runs the eager warm-ups, then raises a
+    CaptureError naming ``Tensor.__float__``, and runs no step eagerly in
+    the captured step's place."""
+    from deeplearning4j_tpu_torch.nn import multistep
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    net = MultiLayerNetwork(conf).init()
+    loss = net._loss
+
+    def reading_loss(*args, **kwargs):
+        out = loss(*args, **kwargs)
+        float(out[0])
+        return out
+
+    net._loss = reading_loss
+    try:
+        net.fit_batch_repeated(ds, multistep.WARMUP_STEPS + 2)
+    except multistep.CaptureError as e:
+        msg = str(e)
+    else:
+        check(False, "a step reading its loss on the host was captured")
+    check("Tensor.__float__" in msg, f"the refusal does not name the "
+          f"host read: {msg}")
+    check(net._it_twin.value == multistep.WARMUP_STEPS,
+          f"{net._it_twin.value} steps ran, expected the "
+          f"{multistep.WARMUP_STEPS} warm-ups alone")
+    return {"refused": True, "error": msg[:200]}
+
+
+@contextlib.contextmanager
+def fuse_blocks(on):
+    before = os.environ.get("DL4J_TPU_FUSE_BLOCKS")
+    os.environ["DL4J_TPU_FUSE_BLOCKS"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ["DL4J_TPU_FUSE_BLOCKS"]
+        else:
+            os.environ["DL4J_TPU_FUSE_BLOCKS"] = before
+
+
+def phase_train_captured():
+    """[train_captured]: the whole train step as one CUDA graph at full
+    width on the char-RNN (b = 32, T = 64, BF16, Adam), gpt_mini (b = 32,
+    T = 256), LeNet (b = 64), ResNet-18 (b = 128) and ResNet-50 with the
+    fusion pass on (b = 256, K4-K7). From one set of weights: N eager
+    steps, N more, and N captured steps through fit(multi_step=N); the
+    captured params, updater state and BN state bit-identical to the eager
+    ones wherever the two eager runs are, else within twice their
+    difference; each replayed step's launches equal an eager step's.
+    Then [capture_routes] and [mfu]."""
+    import torch
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    t0 = time.perf_counter()
+    n = CAPTURED_STEPS
+    cells = {}
+    cells["char_rnn"] = captured_cell(
+        "char_rnn", "char_rnn(vocab=80,hidden=512,layers=2,BF16,Adam(2e-3)),"
+        "b=32,T=64", lambda: zoo.char_rnn(seed=SEED),
+        on_card(markov_batches(n, 32, 64, 80, SEED + 40)),
+        expect=("lstm_fwd", "lstm_fwd_sm90", "lstm_bwd", "lstm_bwd_sm90"))
+    del cells["char_rnn"]["net"]
+    cells["gpt_mini"] = captured_cell(
+        "gpt_mini", "gpt_mini(vocab=80,width=256,blocks=4,heads=4,BF16,"
+        "Adam(3e-4)),b=32,T=256", lambda: zoo.gpt_mini(seed=SEED + 9),
+        on_card(markov_batches(n, 32, 256, 80, SEED + 41)),
+        expect=("flash_attn_fwd", "flash_attn_fwd_sm90"))
+    del cells["gpt_mini"]["net"]
+    xs, ys = lenet_data(64 * n, SEED + 42)
+    cells["lenet"] = captured_cell(
+        "lenet", "lenet(28x28x1,BF16,Nesterovs(0.01,0.9)),b=64",
+        lambda: zoo.lenet(seed=SEED + 31),
+        [DataSet(torch.from_numpy(xs[i * 64:(i + 1) * 64]).cuda(),
+                 torch.from_numpy(ys[i * 64:(i + 1) * 64]).cuda())
+         for i in range(n)])
+    del cells["lenet"]["net"]
+    with fuse_blocks(True):
+        cells["resnet18"] = captured_cell(
+            "resnet18", "resnet18(32x32,10 classes,BF16,Nesterovs(0.1,0.9),"
+            "DL4J_TPU_FUSE_BLOCKS=1),b=128",
+            lambda: zoo.resnet18(seed=SEED + 60),
+            [DataSet(x, y) for x, y in resnet_batches(n, 128, SEED + 43,
+                                                      size=32, classes=10)])
+        del cells["resnet18"]["net"]
+        fused = ("fused_block_stats", "fused_block_apply",
+                 "fused_block_bwd_stats", "fused_block_bwd_apply",
+                 "fused_block_stats_sm90", "fused_block_apply_sm90",
+                 "fused_block_bwd_stats_sm90", "fused_block_bwd_apply_sm90")
+        cells["resnet50"] = captured_cell(
+            "resnet50_fused", "resnet50(224x224,1000 classes,BF16,"
+            "Nesterovs(0.1,0.9),DL4J_TPU_FUSE_BLOCKS=1),b=256",
+            lambda: zoo.resnet50(seed=SEED + 20),
+            [DataSet(x, y) for x, y in resnet_batches(n, 256, SEED + 44)],
+            expect=fused)
+    phase_mfu(cells["resnet50"])
+    del cells
+    torch.cuda.empty_cache()
+    capture_routes()
+    phase("train_captured_total", seconds=f"{time.perf_counter() - t0:.1f}")
+
+
+def phase_mfu(cell):
+    """[mfu]: the ResNet-50 fused step's operations (step_cost_analysis:
+    FlopCounterMode plus K4-K7's own counts) at b = 256, 224 x 224; the
+    card's count equal to the plain CPU path's at image_size = 32; MFU of
+    the captured step against the card's bf16 peak (utils/perf.py); and
+    PerformanceListener(report_mfu=True) over eager steps."""
+    import torch
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.optimize.listeners import (
+        PerformanceListener)
+    from deeplearning4j_tpu_torch.utils.perf import peak_flops
+    net, ds = cell["net"], cell["ds"]
+    cost = net.step_cost_analysis(ds)
+    kernels = cost["kernel_flops"]
+    check(all(kernels.get(k, 0) > 0 for k in (
+        "fused_block_stats", "fused_block_apply", "fused_block_bwd_stats",
+        "fused_block_bwd_apply")), f"K4-K7 reported no operations: {kernels}")
+    peak = peak_flops(torch.device("cuda"))
+    check(peak is not None, f"no peak for {torch.cuda.get_device_name(0)}")
+    # the host-clock step time of back-to-back replays: what training gets
+    mfu = cost["flops"] / (cell["wall_ms"] / 1e3) / peak
+    # the count at 32 x 32, card (K4-K7 report theirs) vs the CPU's plain
+    # path (FlopCounterMode sees every product)
+    x, y = resnet_batches(1, 8, SEED + 45, size=32, classes=10)[0]
+    with fuse_blocks(True):
+        small = zoo.resnet50(seed=SEED, image_size=32, n_classes=10)
+        cpu = graph_copy(small, "cpu", True, dtype="float32")
+    card_small = small.step_cost_analysis(DataSet(x, y))
+    cpu_small = cpu.step_cost_analysis(DataSet(x.cpu(), y.cpu()))
+    check(card_small["flops"] == cpu_small["flops"],
+          f"step FLOPs at 32x32: card {card_small['flops']:.6e} vs CPU "
+          f"plain path {cpu_small['flops']:.6e}")
+    check(cpu_small["kernel_flops"] == {}, "the CPU path reported kernels")
+    # the listener, over eager steps of the same net
+    lst = PerformanceListener(frequency=1, report_mfu=True)
+    net.set_listeners(lst)
+    for _ in range(4):
+        net.fit_batch(ds)
+    torch.cuda.synchronize()
+    net.set_listeners()
+    mfus = [r.get("mfu") for r in lst.records]
+    check(len(mfus) == 3 and all(m is not None and 0 < m <= 1 for m in mfus),
+          f"PerformanceListener MFU records {lst.records}")
+    phase("mfu", model="resnet50 fused, BF16, b=256, 224x224",
+          flops_per_step=f"{cost['flops']:.6e}",
+          kernel_flops_per_step=json.dumps(
+              {k: f"{v:.4e}" for k, v in sorted(kernels.items())}),
+          captured_step_ms_events=f"{cell['step_ms']:.3f}",
+          captured_wall_ms_per_step=f"{cell['wall_ms']:.3f}",
+          peak_flops=f"{peak:.4e}", mfu_captured=f"{mfu:.4f}",
+          listener_mfu_eager=json.dumps([round(m, 4) for m in mfus]),
+          flops_32x32_b8_card=f"{card_small['flops']:.6e}",
+          flops_32x32_b8_cpu_plain=f"{cpu_small['flops']:.6e}")
+
+
 def phase_conv_nets():
     phase_train_lenet()
     phase_train_vgg16()
@@ -3604,7 +4110,8 @@ def main() -> int:
             print(ok_line, flush=True)
             return 0
     for flag, only in (("--tail-check", phase_tail_check),
-                       ("--conv-nets", phase_conv_nets)):
+                       ("--conv-nets", phase_conv_nets),
+                       ("--captured", phase_train_captured)):
         if flag in sys.argv[1:]:
             phase_device()
             only()
@@ -3630,6 +4137,7 @@ def main() -> int:
     kernels += phase_times_flash(card, gnet, errs, launches, gtrain)
     kernels += phase_times_fused(card, errs, rtrain)
     phase_conv_nets()
+    phase_train_captured()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(ok_line, flush=True)
     return 0

@@ -1,8 +1,19 @@
-"""Datasets and iterators (counterpart of deeplearning4j_tpu/datasets)."""
+"""Datasets, iterators and record readers (counterpart of
+deeplearning4j_tpu/datasets)."""
 
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.datasets.iterator import (
-    ArrayDataSetIterator, DataSetIterator, ListDataSetIterator)
+    ArrayDataSetIterator, AsyncDataSetIterator, DataSetIterator,
+    DevicePrefetchIterator, IteratorDataSetIterator, ListDataSetIterator,
+    MultipleEpochsIterator, SamplingDataSetIterator)
+from deeplearning4j_tpu_torch.datasets.records import (
+    CollectionRecordReader, CSVRecordReader, RecordReaderDataSetIterator,
+    SequenceRecordReaderDataSetIterator)
 
-__all__ = ["ArrayDataSetIterator", "DataSet", "DataSetIterator",
-           "ListDataSetIterator", "MultiDataSet"]
+__all__ = ["ArrayDataSetIterator", "AsyncDataSetIterator",
+           "CollectionRecordReader", "CSVRecordReader", "DataSet",
+           "DataSetIterator", "DevicePrefetchIterator",
+           "IteratorDataSetIterator", "ListDataSetIterator",
+           "MultiDataSet", "MultipleEpochsIterator",
+           "RecordReaderDataSetIterator", "SamplingDataSetIterator",
+           "SequenceRecordReaderDataSetIterator"]

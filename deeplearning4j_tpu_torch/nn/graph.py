@@ -7,10 +7,11 @@ pass, ``_loss``, ``fit_batch``, in-memory ``fit``, listeners, ``score``,
 Parameters are ``{vertex_name: {param: tensor}}`` and the layer state
 (batch-norm running statistics) ``{vertex_name: {...}}``, in the JAX
 package's layouts, so a graph crosses between the packages through the
-zip (utils/serialization.py). A train step is the same eager discipline
-as ``MultiLayerNetwork``'s: the walk, the summed output losses plus
-regularization, ``autograd``, then the per-layer update in place
-(nn/precision.py's ``build_step_fn``).
+zip (utils/serialization.py). A train step is the same discipline as
+``MultiLayerNetwork``'s (nn/multistep.py's ``train_step``): the walk, the
+summed output losses plus regularization, ``autograd``, then the
+multi-tensor update in place; ``fit(multi_step=k)`` and
+``fit_batch_repeated`` replay it as a CUDA graph.
 
 The training walk routes every bottleneck tail the fusion pass matched
 (nn/fusion.py, ``DL4J_TPU_FUSE_BLOCKS=1`` at ``init``) through the fused
@@ -19,7 +20,7 @@ with the running statistics.
 
 Not ported (ROADMAP.md): remat spans, mesh placement, truncated BPTT
 (``fit_batch`` refuses a batch longer than the window by name) and
-``rnn_time_step`` on graphs, pretraining and ``fit_batch_repeated``.
+``rnn_time_step`` on graphs, and pretraining.
 """
 
 from __future__ import annotations
@@ -30,13 +31,15 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
+from deeplearning4j_tpu_torch.datasets.iterator import (AsyncDataSetIterator,
+                                                        DevicePrefetchIterator)
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.nn import fusion as _fusion
-from deeplearning4j_tpu_torch.nn import precision
+from deeplearning4j_tpu_torch.nn import multistep, precision
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
     ComputationGraphConfiguration)
 from deeplearning4j_tpu_torch.nn.conf.layers import BaseLayerConfig
-from deeplearning4j_tpu_torch.nn.updater import _copy_tree, _leaves, _map
+from deeplearning4j_tpu_torch.nn.updater import _copy_tree, _leaves
 
 
 class ComputationGraph:
@@ -58,13 +61,18 @@ class ComputationGraph:
         self._lr_scale = 1.0
         self._fusion_plans = {}
         self._fusion_interior = frozenset()
+        self._multi_steps = {}     # batch signature -> multistep.StepGraph
+        self.flops_per_step = None
+        self._flops_key = None
 
     def set_listeners(self, *listeners):
         self.listeners = list(listeners)
+        self._multi_steps = {}
         return self
 
     def add_listener(self, listener):
         self.listeners.append(listener)
+        self._multi_steps = {}
         return self
 
     def set_lr_scale(self, scale: float):
@@ -73,7 +81,9 @@ class ComputationGraph:
         scale = float(scale)
         if scale <= 0.0:
             raise ValueError(f"lr scale must be > 0, got {scale}")
-        self._lr_scale = scale
+        if scale != self._lr_scale:
+            self._lr_scale = scale
+            self._multi_steps = {}   # the rate is a constant of a graph
         return self
 
     # ------------------------------------------------------------------ init
@@ -106,6 +116,7 @@ class ComputationGraph:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
         self.iteration = 0
+        self._multi_steps = {}
         return self
 
     def _build_vertices(self):
@@ -268,11 +279,20 @@ class ComputationGraph:
             lmasks = None
         return inputs, labels, fmasks, lmasks
 
-    def fit_batch(self, data):
-        """One optimization step on one DataSet or MultiDataSet minibatch.
-        Returns the score as a 0-d tensor on the graph's device."""
-        self._require_init()
-        mds = self._coerce(data)
+    def _step_batch(self, data):
+        """What nn/multistep.py's train_step takes."""
+        return self._batch(self._coerce(data))
+
+    @classmethod
+    def _signature(cls, data):
+        m = cls._coerce(data)
+        shape = lambda a: None if a is None else tuple(a.shape)  # noqa: E731
+        return (tuple(shape(f) for f in m.features),
+                tuple(shape(l) for l in m.labels),
+                tuple(shape(x) for x in m.features_masks),
+                tuple(shape(x) for x in m.labels_masks))
+
+    def _refuse_tbptt(self, mds):
         if self.conf.backprop_type == "tbptt":
             t_dims = {f.shape[1] for f in mds.features
                       if getattr(f, "ndim", 0) == 3}
@@ -282,31 +302,65 @@ class ComputationGraph:
                     f"feature of T = {max(t_dims)} exceeds tbptt_fwd_length "
                     f"= {self.conf.tbptt_fwd_length}; use standard backprop "
                     f"or a MultiLayerNetwork")
-        step = precision.build_step_fn(self._loss, self.layers,
-                                       self.conf.global_conf, self._lr_scale)
-        leaves = _map(lambda t: t.detach().requires_grad_(), self.params)
-        new_state, score = step(leaves, self.state, self.opt_state,
-                                self.iteration, *self._batch(mds), self._gen)
-        self.state = _map(lambda t: t.detach(), new_state)
+
+    def fit_batch(self, mds):
+        """One optimization step on one DataSet or MultiDataSet minibatch.
+        Returns the score as a 0-d tensor on the graph's device."""
+        self._require_init()
+        mds = self._coerce(mds)
+        self._refuse_tbptt(mds)
+        score = multistep.train_step(self, self._batch(mds))
         self.iteration += 1
         self.score_value = score
         self.last_batch_examples = mds.num_examples
+        multistep.maybe_derive_flops(self, mds)
         for l in self.listeners:
             l.iteration_done(self, self.iteration, self.epoch)
         return score
 
-    def fit(self, data, *, epochs: int = 1):
+    def fit_batch_repeated(self, mds, n_steps: int):
+        """``n_steps`` optimization steps on one minibatch through the
+        captured step (see MultiLayerNetwork.fit_batch_repeated)."""
+        self._require_init()
+        mds = self._coerce(mds)
+        self._refuse_tbptt(mds)
+        return multistep.fit_batch_repeated(self, mds, n_steps)
+
+    def step_cost_analysis(self, mds) -> dict:
+        """The operations of ONE train step on this batch (see
+        MultiLayerNetwork.step_cost_analysis)."""
+        from deeplearning4j_tpu_torch.utils.perf import step_flops
+        self._require_init()
+        return step_flops(self, self._step_batch(mds))
+
+    def fit(self, data, *, epochs: int = 1, async_prefetch: bool = True,
+            device_prefetch="auto", multi_step="auto"):
         """Train on a DataSet, a MultiDataSet, or an iterable of them (a
-        list, or an iterator with ``reset()``), one ``fit_batch`` each;
-        the listeners' ``on_epoch_start``/``on_epoch_end`` run around each
-        epoch."""
+        list, or an iterator with ``reset()``); the listeners'
+        ``on_epoch_start``/``on_epoch_end`` run around each epoch.
+        ``async_prefetch`` (iterators with ``reset()``),
+        ``device_prefetch`` and ``multi_step`` as in
+        ``MultiLayerNetwork.fit``, each equal bit for bit to the
+        per-batch loop."""
         self._require_init()
         items = [data] if isinstance(data, (DataSet, MultiDataSet)) else data
+        chunk = multistep.resolve_multi_step(self, multi_step)
+        device_prefetch = multistep.resolve_device_prefetch(self,
+                                                            device_prefetch)
         for _ in range(epochs):
+            source = items
+            if async_prefetch and hasattr(items, "reset"):
+                source = AsyncDataSetIterator(items)
+            if device_prefetch:
+                source = DevicePrefetchIterator(source, device=self.device)
             for l in self.listeners:
                 l.on_epoch_start(self)
-            for d in items:
-                self.fit_batch(d)
+            if chunk > 1:
+                multistep.fit_epoch_chunked(self, source, chunk,
+                                            self._signature)
+            else:
+                for d in source:
+                    self.fit_batch(d)
             for l in self.listeners:
                 l.on_epoch_end(self)
             self.epoch += 1
@@ -314,12 +368,12 @@ class ComputationGraph:
                 items.reset()
         return self
 
-    def score(self, data, train: bool = False) -> float:
+    def score(self, mds, train: bool = False) -> float:
         """The loss (with regularization) on one dataset."""
         self._require_init()
         with torch.no_grad():
             loss, _ = self._loss(self.params, self.state,
-                                 *self._batch(self._coerce(data)),
+                                 *self._batch(self._coerce(mds)),
                                  gen=self._gen, train=train)
         return float(loss)
 

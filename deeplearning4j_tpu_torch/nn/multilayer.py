@@ -10,11 +10,13 @@ package's layouts, and the optimizer state a dict keyed as the JAX
 package keys it, so a model and its updater state cross between the
 packages through the zip format unchanged.
 
-PyTorch runs eagerly: a train step is forward → loss → ``autograd`` (the
-LSTM's backward is its own kernel on the card) → per-layer update in
-place, one call after another, with no compiled-step cache. Randomness
-(dropout) comes from one ``torch.Generator`` on the net's device, seeded
-from the configuration.
+A train step is forward → loss → ``autograd`` (the LSTM's backward is
+its own kernel on the card) → the multi-tensor update in place
+(nn/multistep.py's ``train_step``). ``fit_batch`` runs it eagerly;
+``fit(multi_step=k)`` and ``fit_batch_repeated`` replay it as one CUDA
+graph per batch signature (nn/multistep.py), the counterpart of the JAX
+package's scanned steps. Randomness (dropout) comes from one
+``torch.Generator`` on the net's device, seeded from the configuration.
 """
 
 from __future__ import annotations
@@ -25,11 +27,11 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
-from deeplearning4j_tpu_torch.datasets.iterator import (ArrayDataSetIterator,
-                                                        DataSetIterator,
-                                                        ListDataSetIterator)
+from deeplearning4j_tpu_torch.datasets.iterator import (
+    ArrayDataSetIterator, AsyncDataSetIterator, DataSetIterator,
+    DevicePrefetchIterator, ListDataSetIterator)
 from deeplearning4j_tpu_torch.device import resolve_device
-from deeplearning4j_tpu_torch.nn import precision
+from deeplearning4j_tpu_torch.nn import multistep, precision
 from deeplearning4j_tpu_torch.nn.conf import layers as layer_confs
 from deeplearning4j_tpu_torch.nn.conf.core import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
@@ -77,6 +79,9 @@ class MultiLayerNetwork:
         self._gen = None
         self._lr_scale = 1.0
         self._rnn_state = None
+        self._multi_steps = {}     # batch signature -> multistep.StepGraph
+        self.flops_per_step = None
+        self._flops_key = None
 
     # ------------------------------------------------------------------ init
     def init(self, seed: Optional[int] = None):
@@ -111,6 +116,7 @@ class MultiLayerNetwork:
         self._gen.manual_seed(int(seed))
         self.iteration = 0
         self._rnn_state = None
+        self._multi_steps = {}
         return self
 
     def _build_layers(self):
@@ -146,15 +152,19 @@ class MultiLayerNetwork:
         scale = float(scale)
         if scale <= 0.0:
             raise ValueError(f"lr scale must be > 0, got {scale}")
-        self._lr_scale = scale
+        if scale != self._lr_scale:
+            self._lr_scale = scale
+            self._multi_steps = {}   # the rate is a constant of a graph
         return self
 
     def set_listeners(self, *listeners):
         self.listeners = list(listeners)
+        self._multi_steps = {}
         return self
 
     def add_listener(self, listener):
         self.listeners.append(listener)
+        self._multi_steps = {}
         return self
 
     def _require_init(self):
@@ -214,10 +224,10 @@ class MultiLayerNetwork:
                 reg = reg + layer.regularization(params[layer.name])
         return data_loss + reg, new_state
 
-    def output(self, x, mask=None, *, train: bool = False) -> torch.Tensor:
-        """Final layer activations. ``mask`` is the [b, t] per-timestep
-        features mask for variable-length sequences; ``train`` applies
-        dropout."""
+    def output(self, x, train: bool = False, mask=None) -> torch.Tensor:
+        """Final layer activations (the JAX package's parameter order).
+        ``train`` applies dropout; ``mask`` is the [b, t] per-timestep
+        features mask for variable-length sequences."""
         self._require_init()
         with torch.inference_mode():
             out, _ = self._forward(self.params, self.state,
@@ -226,7 +236,7 @@ class MultiLayerNetwork:
                                    fmask=self._as_tensor(mask))
         return out
 
-    def feed_forward(self, x, mask=None, *, train: bool = False
+    def feed_forward(self, x, train: bool = False, mask=None
                      ) -> List[torch.Tensor]:
         """Every layer's activations."""
         self._require_init()
@@ -240,17 +250,18 @@ class MultiLayerNetwork:
 
     # --------------------------------------------------------------- train
     def _run_step(self, x, y, fmask, lmask):
-        """One optimization step on tensors; returns the (true) score as a
-        0-d tensor. The params are handed to the step as leaves that share
-        storage with ``self.params``, so the in-place update lands there;
-        carries the step leaves in the state are detached (gradients stop
-        at a chunk boundary, as in the JAX package)."""
+        """One tBPTT chunk's optimization step on tensors; returns the
+        (true) score as a 0-d tensor. The params are handed to the step as
+        leaves that share storage with ``self.params``, so the in-place
+        update lands there; the carries the step leaves in the state are
+        detached (gradients stop at a chunk boundary, as in the JAX
+        package). Every chunk of a batch reads the batch's iteration."""
         step = precision.build_step_fn(self._loss, self.layers,
                                        self.conf.global_conf, self._lr_scale)
         leaves = _map(lambda t: t.detach().requires_grad_(), self.params)
         new_state, score = step(leaves, self.state, self.opt_state,
-                                self.iteration, x, y, fmask, lmask,
-                                self._gen)
+                                multistep.device_iteration(self), x, y,
+                                fmask, lmask, self._gen)
         self.state = _map(lambda t: t.detach(), new_state)
         return score
 
@@ -258,6 +269,14 @@ class MultiLayerNetwork:
         return (self._as_tensor(ds.features), self._as_tensor(ds.labels),
                 self._as_tensor(ds.features_mask),
                 self._as_tensor(ds.labels_mask))
+
+    _step_batch = _batch   # what nn/multistep.py's train_step takes
+
+    @staticmethod
+    def _signature(ds: DataSet):
+        shape = lambda a: None if a is None else tuple(a.shape)  # noqa: E731
+        return (shape(ds.features), shape(ds.labels),
+                shape(ds.features_mask), shape(ds.labels_mask))
 
     def _needs_tbptt(self, features) -> bool:
         return (self.conf.backprop_type == "tbptt"
@@ -271,11 +290,37 @@ class MultiLayerNetwork:
         self._require_init()
         if self._needs_tbptt(ds.features):
             return self._fit_tbptt(ds)
-        score = self._run_step(*self._batch(ds))
+        score = multistep.train_step(self, self._batch(ds))
         self.iteration += 1
         self.score_value = score
+        multistep.maybe_derive_flops(self, ds)
         self._iteration_done(ds)
         return score
+
+    def fit_batch_repeated(self, ds: DataSet, n_steps: int):
+        """``n_steps`` optimization steps on one minibatch: on the card n
+        replays of the captured step (nn/multistep.py), one host dispatch
+        each instead of hundreds of kernel launches; on the CPU n eager
+        steps. tBPTT runs n ``fit_batch`` calls, as in the JAX package.
+        Listeners are not called; returns the last score."""
+        self._require_init()
+        if n_steps < 1:
+            raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+        if self._needs_tbptt(ds.features):
+            for _ in range(n_steps):
+                score = self.fit_batch(ds)
+            return score
+        return multistep.fit_batch_repeated(self, ds, n_steps)
+
+    def step_cost_analysis(self, ds: DataSet) -> dict:
+        """The operations of ONE train step on this batch:
+        {"flops", "kernel_flops", "bytes_accessed"} (utils/perf.py's
+        ``step_flops``; feeds ``PerformanceListener(flops_per_step=...)``
+        for MFU). The net is left as it was."""
+        from deeplearning4j_tpu_torch.utils.perf import step_flops
+        self._require_init()
+        return step_flops(self, self._batch(ds))
+
 
     def _iteration_done(self, ds: DataSet):
         self.last_batch_examples = ds.num_examples
@@ -316,11 +361,21 @@ class MultiLayerNetwork:
         return score
 
     def fit(self, data, labels=None, *, epochs: int = 1,
-            batch_size: int = 32):
+            batch_size: int = 32, async_prefetch: bool = True,
+            device_prefetch="auto", multi_step="auto"):
         """Train on a DataSetIterator, a DataSet, or (features, labels)
-        arrays, one ``fit_batch`` per minibatch; the listeners'
-        ``on_epoch_start``/``on_epoch_end`` run around each epoch, and the
-        iterator is reset after it."""
+        arrays; the listeners' ``on_epoch_start``/``on_epoch_end`` run
+        around each epoch, and the iterator is reset after it.
+
+        The JAX package's runtime, each equal bit for bit to the
+        per-batch loop: ``async_prefetch`` prepares batches on a
+        background thread; ``device_prefetch`` copies batch N+1 to the
+        card (pinned memory, a side stream) while step N runs ("auto": on
+        for the card, off on the CPU); ``multi_step`` runs chunks of k
+        batches through the captured step and replays the listeners
+        after each chunk ("auto": 8 on the card when no listener needs
+        per-iteration values, 1 on the CPU; an int is honored; tBPTT runs
+        per batch)."""
         self._require_init()
         if isinstance(data, DataSetIterator):
             it = data
@@ -328,11 +383,21 @@ class MultiLayerNetwork:
             it = ListDataSetIterator([data])
         else:
             it = ArrayDataSetIterator(data, labels, batch_size=batch_size)
+        chunk = multistep.resolve_multi_step(self, multi_step)
+        device_prefetch = multistep.resolve_device_prefetch(self,
+                                                            device_prefetch)
         for _ in range(epochs):
+            source = AsyncDataSetIterator(it) if async_prefetch else it
+            if device_prefetch:
+                source = DevicePrefetchIterator(source, device=self.device)
             for l in self.listeners:
                 l.on_epoch_start(self)
-            for ds in it:
-                self.fit_batch(ds)
+            if chunk > 1:
+                multistep.fit_epoch_chunked(self, source, chunk,
+                                            self._signature)
+            else:
+                for ds in source:
+                    self.fit_batch(ds)
             for l in self.listeners:
                 l.on_epoch_end(self)
             self.epoch += 1

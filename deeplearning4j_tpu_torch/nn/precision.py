@@ -12,7 +12,11 @@ honor it at their boundaries. This module is the step's discipline:
   inf/nan is SKIPPED: params and optimizer state are not touched at all
   (bit-identical), while the scale backs off by ``1/loss_scale_factor``.
   After ``loss_scale_growth_interval`` finite steps in a row the scale
-  regrows by ``loss_scale_factor``, up to 2**24.
+  regrows by ``loss_scale_factor``, up to 2**24. The skip is a select on
+  the card, as the JAX package's ``jnp.where``: the update runs, then
+  every parameter and updater slot takes its new value where the
+  gradients were finite and its old one where not. The step reads nothing
+  back to the host, so a CUDA graph can capture it.
 
 The scale state lives in ``opt_state`` under :data:`LOSS_SCALE_KEY` as
 ``{"scale": f32, "good_steps": int32}``, as in the JAX package, so it is
@@ -74,7 +78,8 @@ def build_step_fn(loss_fn, layers, gc, lr_scale):
     """The train step: ``step(params, state, opt_state, it, *data) ->
     (new_state, score)``. ``loss_fn(params, state, *data) -> (loss,
     new_state)``. ``params`` hold the leaf tensors the step differentiates
-    and updates in place; ``opt_state`` is updated in place."""
+    and updates in place; ``opt_state``'s tensors are updated in place.
+    ``it`` is the iteration (an int, or the net's int32 device twin)."""
     policy = gc.dtype
     mode = policy.loss_scale_mode()
     master = getattr(torch, policy.param_dtype)
@@ -105,10 +110,18 @@ def build_step_fn(loss_fn, layers, gc, lr_scale):
         grads = _fill(grads, iter([g.to(master) * inv
                                    for g in _leaves(grads)]))
         finite = all_finite(grads)
-        if bool(finite):
+        # the skip as a select on the card: no host read
+        kept = list(_leaves(params)) + [
+            t for k, sub in opt_state.items() if k != LOSS_SCALE_KEY
+            for t in _leaves(sub)]
+        with torch.no_grad():
+            before = [t.clone() for t in kept]
             apply_layer_updates(layers, gc, params, grads, opt_state, it,
                                 lr_scale)
-        opt_state[LOSS_SCALE_KEY] = next_scale_state(ls, finite, mode, policy)
+            for t, old in zip(kept, before):
+                t.copy_(torch.where(finite, t, old))
+            for k, v in next_scale_state(ls, finite, mode, policy).items():
+                ls[k].copy_(v)
         return new_state, loss.detach()
 
     return step

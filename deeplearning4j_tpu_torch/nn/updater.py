@@ -11,8 +11,18 @@ tensors, with ``new_params = params - deltas``: the same rules, in the same
 operation order, as the JAX package. Optimizer state is a dict mirroring
 the params (plus an int32 step count ``t`` for Adam and AdaMax), keyed as
 the JAX package keys it, so ``updaterState.npz`` crosses too.
-``apply_layer_updates`` runs the whole update in the master dtype and
-writes the parameters in place.
+
+``apply_layer_updates`` runs the whole update in the master dtype, in
+place: each updater's ``update_`` applies the rule with multi-tensor
+(``torch._foreach_*``) operations over every tensor of the layers that
+share that updater and base rate, one operation of the rule at a time in
+the order ``update`` computes it, so the result is ``update``'s bit for
+bit (``apply_layer_updates_plain`` keeps the per-tensor path as the plain
+version). Parameters and every updater slot are written into the tensors
+already there, so a captured train step (nn/multistep.py) updates the
+same storage on every replay. The scheduled rate is read from the
+iteration as given: a Python int, or the net's int32 device twin of it,
+which a captured step advances on the card.
 """
 
 from __future__ import annotations
@@ -57,6 +67,26 @@ def _lr_dtype(lr):
     master dtype under apply_layer_updates), f32 for plain floats."""
     return lr.dtype if isinstance(lr, torch.Tensor) else torch.float32
 
+
+def _moment_(acc, xs, decay, squared=False):
+    """acc = decay * acc + (1 - decay) * x (times x again when
+    ``squared``), in place, as ``update`` orders it."""
+    torch._foreach_mul_(acc, decay)
+    tmp = torch._foreach_mul(xs, 1 - decay)
+    if squared:
+        torch._foreach_mul_(tmp, xs)
+    torch._foreach_add_(acc, tmp)
+
+
+def _times_layer_alpha(m, ts, spans, alpha_of, lr):
+    """alpha * m for every tensor, alpha a 0-d tensor of each layer's own
+    step count (``alpha_of(t)``, computed as ``update`` computes it)."""
+    out = []
+    for (start, stop), t in zip(spans, ts):
+        alpha = alpha_of(t.to(_lr_dtype(lr)))
+        out += torch._foreach_mul(m[start:stop], alpha)
+    return out
+
 _UPDATERS: dict[str, type] = {}
 _SCHEDULES: dict[str, type] = {}
 
@@ -90,6 +120,15 @@ class Updater:
     def update(self, grads, state, lr):
         raise NotImplementedError
 
+    def update_(self, ps, gs, slots, lr, spans):
+        """``update`` in place over flat lists: ``ps`` the parameters and
+        ``gs`` their gradients (left as they are), ``slots`` {slot: list
+        aligned with ``ps``} (the step count ``t``: one tensor a layer),
+        ``spans`` each layer's [start, stop) in ``ps``. Writes the new
+        parameters and slots into the tensors given, computing each value
+        with ``update``'s operations in ``update``'s order."""
+        raise NotImplementedError
+
     @staticmethod
     def _zeros_like(params):
         return _map(torch.zeros_like, params)
@@ -107,6 +146,9 @@ class Sgd(Updater):
 
     def update(self, grads, state, lr):
         return _map(lambda g: lr * g, grads), state
+
+    def update_(self, ps, gs, slots, lr, spans):
+        torch._foreach_sub_(ps, torch._foreach_mul(gs, lr))
 
 
 @register_updater
@@ -131,6 +173,16 @@ class Nesterovs(Updater):
 
         deltas, v = _unzip(_map(upd, grads, state["v"]), 2)
         return deltas, {"v": v}
+
+    def update_(self, ps, gs, slots, lr, spans):
+        mu, v = self.momentum, slots["v"]
+        lg = torch._foreach_mul(gs, lr)
+        torch._foreach_mul_(v, mu)                     # mu * v
+        v_new = torch._foreach_sub(v, lg)              # mu * v - lr * g
+        del lg
+        torch._foreach_sub_(v, torch._foreach_mul(v_new, 1.0 + mu))
+        torch._foreach_sub_(ps, v)                     # v holds the delta
+        torch._foreach_copy_(v, v_new)
 
 
 @register_updater
@@ -158,6 +210,19 @@ class Adam(Updater):
                                                    + self.epsilon), m, v)
         return deltas, {"m": m, "v": v, "t": t}
 
+    def update_(self, ps, gs, slots, lr, spans):
+        b1, b2 = self.beta1, self.beta2
+        m, v, ts = slots["m"], slots["v"], slots["t"]
+        torch._foreach_add_(ts, 1)
+        _moment_(m, gs, b1)
+        _moment_(v, gs, b2, squared=True)
+        x = _times_layer_alpha(m, ts, spans, lambda tf: lr * torch.sqrt(
+            1 - b2 ** tf) / (1 - b1 ** tf), lr)
+        den = torch._foreach_sqrt(v)
+        torch._foreach_add_(den, self.epsilon)
+        torch._foreach_div_(x, den)
+        torch._foreach_sub_(ps, x)
+
 
 @register_updater
 @dataclass(frozen=True)
@@ -183,6 +248,18 @@ class AdaMax(Updater):
         deltas = _map(lambda m_, u_: alpha * m_ / (u_ + self.epsilon), m, u)
         return deltas, {"m": m, "u": u, "t": t}
 
+    def update_(self, ps, gs, slots, lr, spans):
+        b1, b2 = self.beta1, self.beta2
+        m, u, ts = slots["m"], slots["u"], slots["t"]
+        torch._foreach_add_(ts, 1)
+        _moment_(m, gs, b1)
+        torch._foreach_mul_(u, b2)
+        torch._foreach_maximum_(u, torch._foreach_abs(gs))
+        x = _times_layer_alpha(m, ts, spans,
+                               lambda tf: lr / (1 - b1 ** tf), lr)
+        torch._foreach_div_(x, torch._foreach_add(u, self.epsilon))
+        torch._foreach_sub_(ps, x)
+
 
 @register_updater
 @dataclass(frozen=True)
@@ -199,6 +276,15 @@ class AdaGrad(Updater):
         deltas = _map(lambda g, h_: lr * g / (torch.sqrt(h_) + self.epsilon),
                       grads, h)
         return deltas, {"h": h}
+
+    def update_(self, ps, gs, slots, lr, spans):
+        h = slots["h"]
+        torch._foreach_add_(h, torch._foreach_mul(gs, gs))
+        x = torch._foreach_mul(gs, lr)
+        den = torch._foreach_sqrt(h)
+        torch._foreach_add_(den, self.epsilon)
+        torch._foreach_div_(x, den)
+        torch._foreach_sub_(ps, x)
 
 
 @register_updater
@@ -224,6 +310,19 @@ class AdaDelta(Updater):
         deltas, eg, ex = _unzip(_map(upd, grads, state["eg"], state["ex"]), 3)
         return deltas, {"eg": eg, "ex": ex}
 
+    def update_(self, ps, gs, slots, lr, spans):
+        rho, eps = self.rho, self.epsilon
+        eg, ex = slots["eg"], slots["ex"]
+        _moment_(eg, gs, rho, squared=True)
+        delta = torch._foreach_add(ex, eps)
+        torch._foreach_sqrt_(delta)
+        den = torch._foreach_add(eg, eps)
+        torch._foreach_sqrt_(den)
+        torch._foreach_div_(delta, den)
+        torch._foreach_mul_(delta, gs)
+        _moment_(ex, delta, rho, squared=True)
+        torch._foreach_sub_(ps, delta)
+
 
 @register_updater
 @dataclass(frozen=True)
@@ -243,6 +342,15 @@ class RmsProp(Updater):
                       grads, g2)
         return deltas, {"g2": g2}
 
+    def update_(self, ps, gs, slots, lr, spans):
+        g2 = slots["g2"]
+        _moment_(g2, gs, self.rms_decay, squared=True)
+        x = torch._foreach_mul(gs, lr)
+        den = torch._foreach_add(g2, self.epsilon)
+        torch._foreach_sqrt_(den)
+        torch._foreach_div_(x, den)
+        torch._foreach_sub_(ps, x)
+
 
 @register_updater
 @dataclass(frozen=True)
@@ -254,6 +362,9 @@ class NoOp(Updater):
 
     def update(self, grads, state, lr):
         return _map(torch.zeros_like, grads), state
+
+    def update_(self, ps, gs, slots, lr, spans):
+        pass  # p - 0 is p, bit for bit (-0.0 and NaN included)
 
 
 # ------------------------------------------------------------- schedules
@@ -273,8 +384,12 @@ def schedule_from_dict(d):
     return _SCHEDULES[kind](**d)
 
 
-def _const(v, dtype):
-    return torch.tensor(v, dtype=dtype)
+def _const(v, dtype, step=None):
+    """``v`` as a 0-d tensor of ``dtype`` on the device of ``step`` (a
+    fill, which a CUDA graph can capture; a copy from the host it
+    cannot)."""
+    device = step.device if isinstance(step, torch.Tensor) else None
+    return torch.full((), v, dtype=dtype, device=device)
 
 
 def _step(step, dtype):
@@ -304,7 +419,7 @@ class NoneSchedule(Schedule):
     kind = "none"
 
     def __call__(self, base_lr, step, dtype=None):
-        return _const(base_lr, dtype or torch.float32)
+        return _const(base_lr, dtype or torch.float32, step)
 
 
 @register_schedule
@@ -315,8 +430,8 @@ class Exponential(Schedule):
 
     def __call__(self, base_lr, step, dtype=None):
         dtype = dtype or torch.float32
-        return _const(base_lr, dtype) * _const(
-            self.decay_rate, dtype) ** _step(step, dtype)
+        return _const(base_lr, dtype, step) * _const(
+            self.decay_rate, dtype, step) ** _step(step, dtype)
 
 
 @register_schedule
@@ -328,7 +443,7 @@ class Inverse(Schedule):
 
     def __call__(self, base_lr, step, dtype=None):
         dtype = dtype or torch.float32
-        return _const(base_lr, dtype) / (
+        return _const(base_lr, dtype, step) / (
             1.0 + self.gamma * _step(step, dtype)) ** self.power
 
 
@@ -342,7 +457,7 @@ class Poly(Schedule):
     def __call__(self, base_lr, step, dtype=None):
         dtype = dtype or torch.float32
         frac = torch.clamp(_step(step, dtype) / self.max_iter, 0.0, 1.0)
-        return _const(base_lr, dtype) * (1.0 - frac) ** self.power
+        return _const(base_lr, dtype, step) * (1.0 - frac) ** self.power
 
 
 @register_schedule
@@ -354,7 +469,7 @@ class Sigmoid(Schedule):
 
     def __call__(self, base_lr, step, dtype=None):
         dtype = dtype or torch.float32
-        return _const(base_lr, dtype) / (
+        return _const(base_lr, dtype, step) / (
             1.0 + torch.exp(self.gamma * (_step(step, dtype) - self.steps)))
 
 
@@ -367,8 +482,8 @@ class Step(Schedule):
 
     def __call__(self, base_lr, step, dtype=None):
         dtype = dtype or torch.float32
-        return _const(base_lr, dtype) * _const(
-            self.decay_rate, dtype) ** torch.floor(
+        return _const(base_lr, dtype, step) * _const(
+            self.decay_rate, dtype, step) ** torch.floor(
                 _step(step, dtype) / self.steps)
 
 
@@ -382,10 +497,11 @@ class MapSchedule(Schedule):
 
     def __call__(self, base_lr, step, dtype=None):
         dtype = dtype or torch.float32
-        lr = _const(base_lr, dtype)
+        lr = _const(base_lr, dtype, step)
         at = torch.as_tensor(step)
         for it in sorted(self.schedule):
-            lr = torch.where(at >= it, _const(self.schedule[it], dtype), lr)
+            lr = torch.where(at >= it, _const(self.schedule[it], dtype, step),
+                             lr)
         return lr
 
 
@@ -428,37 +544,83 @@ def normalize_gradients(grads, mode, threshold: float = 1.0):
     raise ValueError(f"Unknown gradient normalization mode: {mode}")
 
 
+def _resolve_layer(layer, gc):
+    """(gradient normalization mode, threshold, updater, base rate) of
+    one layer, each from the layer, else the global config."""
+    mode = layer.resolve("gradient_normalization")
+    thr = float(layer.resolve("gradient_normalization_threshold", 1.0)
+                or 1.0)
+    upd = layer.resolve("updater")
+    base_lr = layer.conf.learning_rate
+    if base_lr is None:
+        base_lr = gc.learning_rate
+    if base_lr is None:
+        base_lr = upd.learning_rate
+    return mode, thr, upd, base_lr
+
+
 def apply_layer_updates(layers, gc, params, grads, opt_state, it,
                         lr_scale: float = 1.0):
     """Per-layer gradient normalization + updater for every layer with
-    params (counterpart of the JAX package's apply_layer_updates).
+    params (counterpart of the JAX package's apply_layer_updates), as
+    multi-tensor operations, in place.
 
     The update runs in the policy's master dtype: gradients (bf16 under
     BF16, from the LSTM's backward) are cast to each parameter's dtype
     before normalization and the rule, and the scheduled rate is computed
     in the master dtype. ``lr_scale`` multiplies every layer's rate.
 
-    Unlike the JAX package, which returns new trees, this updates
-    ``params`` IN PLACE under ``torch.no_grad()`` (the params' storage is
-    reused) and replaces each layer's entry of ``opt_state`` with its new
-    state dict; keys that are not layers (the loss-scale state) are left
-    alone."""
+    The layers are grouped by (updater, base rate, dtype, device); each
+    group's rate is computed once from ``it`` and its rule applied by
+    ``Updater.update_`` over all its tensors at once. Unlike the JAX
+    package, which returns new trees, this writes the new parameters and
+    every updater slot (Adam's ``t`` too) into the tensors ``params`` and
+    ``opt_state`` already hold; keys that are not layers (the loss-scale
+    state) are left alone. Bit for bit the result of
+    ``apply_layer_updates_plain``."""
+    master = getattr(torch, gc.dtype.param_dtype)
+    groups: dict = {}
+    with torch.no_grad():
+        for layer in layers:
+            name = layer.name
+            if name not in params:
+                continue
+            mode, thr, upd, base_lr = _resolve_layer(layer, gc)
+            g = _map(lambda gr, p: gr.to(p.dtype), grads[name], params[name])
+            g = normalize_gradients(g, mode, thr)
+            first = next(_leaves(params[name]))
+            key = (upd, base_lr, first.dtype, first.device)
+            groups.setdefault(key, []).append((name, g))
+        for (upd, base_lr, _, device), members in groups.items():
+            lr = gc.lr_schedule(base_lr, it, dtype=master) * lr_scale
+            if lr.device != device:
+                lr = lr.to(device)
+            ps, gs, spans = [], [], []
+            slots = {k: [] for k in opt_state[members[0][0]]}
+            for name, g in members:
+                start = len(ps)
+                ps += _leaves(params[name])
+                gs += _leaves(g)
+                spans.append((start, len(ps)))
+                for k, sub in opt_state[name].items():
+                    slots[k] += _leaves(sub)
+            upd.update_(ps, gs, slots, lr, spans)
+
+
+def apply_layer_updates_plain(layers, gc, params, grads, opt_state, it,
+                              lr_scale: float = 1.0):
+    """The per-tensor update, ``apply_layer_updates``'s plain version:
+    each layer's rule through ``Updater.update`` (new tensors), the params
+    updated in place and each layer's ``opt_state`` entry replaced by its
+    new state dict."""
     master = getattr(torch, gc.dtype.param_dtype)
     for layer in layers:
         name = layer.name
         if name not in params:
             continue
+        mode, thr, upd, base_lr = _resolve_layer(layer, gc)
         g = _map(lambda gr, p: gr.to(p.dtype), grads[name], params[name])
-        mode = layer.resolve("gradient_normalization")
-        thr = float(layer.resolve("gradient_normalization_threshold", 1.0)
-                    or 1.0)
         g = normalize_gradients(g, mode, thr)
-        upd = layer.resolve("updater")
-        base_lr = layer.conf.learning_rate
-        if base_lr is None:
-            base_lr = gc.learning_rate
-        if base_lr is None:
-            base_lr = upd.learning_rate
         lr = gc.lr_schedule(base_lr, it, dtype=master) * lr_scale
         deltas, opt_state[name] = upd.update(g, opt_state[name], lr)
         with torch.no_grad():

@@ -51,7 +51,12 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _positions(q_start, tq, device):
-    """Absolute position of every query row: [b|1, tq] int32."""
+    """Absolute position of every query row: [b|1, tq] int32. An int
+    ``q_start`` is a range on the device (a copy of a host value would
+    keep a captured train step from capturing)."""
+    if isinstance(q_start, int):
+        return torch.arange(q_start, q_start + tq, dtype=torch.int32,
+                            device=device)[None, :]
     qs = torch.as_tensor(q_start, dtype=torch.int32, device=device)
     if qs.dim() == 0:
         qs = qs[None]
@@ -230,6 +235,13 @@ def _bind():
     return lib
 
 
+def flash_flops(b, T, h, dh) -> int:
+    """K3's operations as FlopCounterMode counts its plain version
+    (``causal_mha_dot``): q kᵀ and p v over the whole T x T square (the
+    causal mask is applied to the scores, not to the products)."""
+    return 4 * b * h * T * T * dh
+
+
 def flash_route(dtype):
     """The kernel K3 runs for inputs of ``dtype``: "sm90" (bf16: TMA and
     wgmma) or "fma" (f32: f32 FMA). Raises for any other dtype."""
@@ -285,4 +297,5 @@ def flash_attn_fwd_cuda(q, k, v):
     registry.count_launch(KERNEL)
     if route == "sm90":
         registry.count_launch(KERNEL_SM90)
+    registry.count_flops(KERNEL, flash_flops(b, T, h, dh))
     return out

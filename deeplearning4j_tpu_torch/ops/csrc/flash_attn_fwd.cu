@@ -549,7 +549,10 @@ __global__ void __launch_bounds__(kThreads)
 
 // A TMA map over x [b][T][h][dh] bf16 (contiguous, dh a multiple of 64):
 // dimensions (dh, h, T, b), boxes of 64 x 1 x 64 x 1 (one [64 rows][64]
-// tile of one (batch, head)), 128-byte swizzle, zeros outside.
+// tile of one (batch, head)), 128-byte swizzle, zeros outside. Under a
+// captured train step the maps are encoded once, at capture, from q, k,
+// v and out's addresses, which the graph's private pool keeps for its
+// life (see sm90::make_map).
 inline cudaError_t make_map(CUtensorMap* map, const void* p, int b, int seq,
                             int heads, int dh) {
   const sm90::EncodeTiledFn enc = sm90::encode_tiled();

@@ -629,6 +629,13 @@ inline EncodeTiledFn encode_tiled() {
 // A TMA map over a row-major bf16 matrix [rows][cols] (rows of cols * 2
 // bytes, a multiple of 16), 64 x 64 boxes, 128-byte swizzle, zeros
 // outside.
+//
+// The map holds the address it was encoded from, and it reaches the
+// kernel as a __grid_constant__ argument. When a train step is captured
+// as a CUDA graph (nn/multistep.py) the map is encoded once, at capture,
+// and every replay reads through it again: sound only because every
+// operand of a captured step is a graph input buffer or a tensor of the
+// graph's private pool, which keeps its address for the graph's life.
 inline cudaError_t make_map(CUtensorMap* map, const void* p, int rows,
                             int cols) {
   const EncodeTiledFn enc = encode_tiled();

@@ -220,6 +220,18 @@ def launches_per_call(name, M, K, N, sm90=False):
     return 1 if name == APPLY else 2
 
 
+# [M, K] x [K, N] products in each kernel's plain version: z for K4, K5
+# and K6; z, dz Wᵀ and xᵀ dz for K7
+_PRODUCTS = {STATS: 1, APPLY: 1, BWD_STATS: 1, BWD_APPLY: 3}
+
+
+def flops(name, M, K, N) -> int:
+    """Kernel ``name``'s operations as FlopCounterMode counts its plain
+    version (``step_cost_analysis`` adds them: FlopCounterMode does not
+    see a kernel launched through ``ctypes``)."""
+    return 2 * _PRODUCTS[name] * M * K * N
+
+
 def takes_sm90(x2, W, *mn):
     """Whether K4-K7 run on the sm90 path (TMA + wgmma) for x [M, K],
     W [K, N] and the [M, N] tensors ``mn`` each reads (K4 none, K5 the
@@ -308,6 +320,7 @@ def fused_stats_cuda(x2, W, shift):
                    shift.data_ptr(), part.data_ptr(), out.data_ptr(), M, K,
                    N, R, x2.device,
                    launches=launches_per_call(STATS, M, K, N, sm90))
+    registry.count_flops(STATS, flops(STATS, M, K, N))
     return out[0], out[1]
 
 
@@ -322,6 +335,7 @@ def fused_apply_cuda(x2, W, scale, sh, sc2, relu):
                    scale.data_ptr(), sh.data_ptr(), sc2.data_ptr(),
                    y.data_ptr(), M, K, N, int(bool(relu)), x2.device,
                    launches=launches_per_call(APPLY, M, K, N, sm90))
+    registry.count_flops(APPLY, flops(APPLY, M, K, N))
     return y
 
 
@@ -339,6 +353,7 @@ def fused_bwd_stats_cuda(x2, W, mean, inv, dy2, y2, relu):
                    y2.data_ptr(), part.data_ptr(), out.data_ptr(), M, K, N,
                    R, int(bool(relu)), x2.device,
                    launches=launches_per_call(BWD_STATS, M, K, N, sm90))
+    registry.count_flops(BWD_STATS, flops(BWD_STATS, M, K, N))
     return out[0], out[1]
 
 
@@ -363,6 +378,7 @@ def fused_bwd_apply_cuda(x2, W, mean, inv, scale, ca, cb, dy2, y2, relu):
                    dx.data_ptr(), part.data_ptr(), dW.data_ptr(), M, K, N, S,
                    chunk, int(bool(relu)), dev,
                    launches=launches_per_call(BWD_APPLY, M, K, N, sm90))
+    registry.count_flops(BWD_APPLY, flops(BWD_APPLY, M, K, N))
     return dx, dW, dsc
 
 

@@ -364,6 +364,19 @@ def takes_cluster(dtype, n) -> bool:
             and 64 <= n <= CLUSTER_UNITS * MAX_CLUSTER)
 
 
+def fwd_flops(T, b, n) -> int:
+    """K1's operations as FlopCounterMode counts its plain version: one
+    [b, n] x [n, 4n] product a step (``step_cost_analysis`` adds it, since
+    FlopCounterMode does not see a kernel launched through ``ctypes``)."""
+    return 8 * T * b * n * n
+
+
+def bwd_flops(T, b, n) -> int:
+    """K2's operations, counted as ``fwd_flops``: dz Whᵀ and h_prevᵀ dz,
+    each [b, n] x [n, 4n] a step."""
+    return 16 * T * b * n * n
+
+
 def bwd_launches_per_call(dtype, n) -> int:
     """Device launches one K2 call makes: the chain, the sum of dp's
     partials and dWh on the cluster route; the chain and dWh on the grid
@@ -518,6 +531,7 @@ def lstm_sequence_cuda(xz_t, h0, c0, Wh, p, mask_t=None, *,
     registry.count_launch(KERNEL)
     if cluster:
         registry.count_launch(FWD_SM90)
+    registry.count_flops(KERNEL, fwd_flops(T, b, n))
     return out
 
 
@@ -584,6 +598,7 @@ def lstm_sequence_bwd_cuda(residuals, mask_t, Wh, p, dy, dhT, dcT):
     registry.count_launch(BWD_KERNEL, bwd_launches_per_call(cd, n))
     if cluster:
         registry.count_launch(BWD_SM90)
+    registry.count_flops(BWD_KERNEL, bwd_flops(T, b, n))
     return out
 
 

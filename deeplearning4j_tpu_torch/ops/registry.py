@@ -11,10 +11,22 @@ the device of the tensors decides, and nothing falls back:
 Each kernel wrapper adds to its launch counter the device launches it
 makes (one, or each launch of a kernel split into several), so a run can
 show which kernels its main path went through.
+
+While a train step is captured as a CUDA graph (nn/multistep.py), its
+launches are recorded against that graph instead (``recording``), since
+capture runs nothing; each replay then adds the graph's recorded counts
+(``add_launches``). So ``launches()`` counts a replayed step as it counts
+the same step run eagerly, per kernel and per sm90 counter.
+
+Each kernel wrapper also reports the floating-point operations of what
+it launched (``count_flops``), counted as FlopCounterMode counts the
+kernel's plain version, for ``step_cost_analysis``: FlopCounterMode sees
+PyTorch's operators but not a kernel launched through ``ctypes``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
@@ -22,6 +34,9 @@ import torch
 _IMPLS: dict[str, dict[str, callable]] = {}
 _LAUNCH_LOCK = threading.Lock()
 _LAUNCHES: dict[str, int] = {}
+# open recordings (capture, cost analysis): launches go to the innermost
+_RECORDINGS: list[dict[str, int]] = []
+_FLOP_COUNTS: list[dict[str, float]] = []
 
 
 def register(name: str, device_type: str):
@@ -48,7 +63,30 @@ def get(name: str, device) -> callable:
 
 def count_launch(kernel: str, n: int = 1):
     with _LAUNCH_LOCK:
-        _LAUNCHES[kernel] = _LAUNCHES.get(kernel, 0) + n
+        into = _RECORDINGS[-1] if _RECORDINGS else _LAUNCHES
+        into[kernel] = into.get(kernel, 0) + n
+
+
+@contextlib.contextmanager
+def recording():
+    """Launches made while open go to the dict this yields, not to the
+    global counters (a step being captured, or one run only to count its
+    operations). The autograd engine launches a backward kernel from its
+    own thread, so this is process-wide, not per thread."""
+    rec: dict[str, int] = {}
+    with _LAUNCH_LOCK:
+        _RECORDINGS.append(rec)
+    try:
+        yield rec
+    finally:
+        with _LAUNCH_LOCK:
+            _RECORDINGS.remove(rec)
+
+
+def add_launches(counts: dict[str, int], times: int = 1):
+    """Adds ``counts`` ``times`` over (a replayed graph's launches)."""
+    for kernel, n in counts.items():
+        count_launch(kernel, n * times)
 
 
 def launches() -> dict[str, int]:
@@ -59,3 +97,23 @@ def launches() -> dict[str, int]:
 def reset_launches():
     with _LAUNCH_LOCK:
         _LAUNCHES.clear()
+
+
+def count_flops(kernel: str, flops: float):
+    """Adds a kernel's operations to every open ``counting_flops``."""
+    with _LAUNCH_LOCK:
+        for into in _FLOP_COUNTS:
+            into[kernel] = into.get(kernel, 0.0) + float(flops)
+
+
+@contextlib.contextmanager
+def counting_flops():
+    """{kernel: operations} of the kernels launched while open."""
+    rec: dict[str, float] = {}
+    with _LAUNCH_LOCK:
+        _FLOP_COUNTS.append(rec)
+    try:
+        yield rec
+    finally:
+        with _LAUNCH_LOCK:
+            _FLOP_COUNTS.remove(rec)

@@ -7,10 +7,11 @@ from deeplearning4j_tpu_torch.optimize.listeners import (
     ComposableIterationListener,
     ParamAndGradientIterationListener,
     PerformanceListener,
+    ProfilerListener,
     ScoreIterationListener,
     TrainingListener,
 )
 
 __all__ = ["CollectScoresIterationListener", "ComposableIterationListener",
            "ParamAndGradientIterationListener", "PerformanceListener",
-           "ScoreIterationListener", "TrainingListener"]
+           "ProfilerListener", "ScoreIterationListener", "TrainingListener"]

@@ -1,7 +1,8 @@
 """Training listeners (counterpart of deeplearning4j_tpu/optimize/listeners.py):
 ``TrainingListener``, ``ScoreIterationListener``,
 ``CollectScoresIterationListener``, ``PerformanceListener``,
-``ComposableIterationListener`` and ``ParamAndGradientIterationListener``.
+``ComposableIterationListener``, ``ProfilerListener`` and
+``ParamAndGradientIterationListener``.
 
 A network calls ``iteration_done(net, iteration, epoch)`` after every
 ``fit_batch`` and ``on_epoch_start``/``on_epoch_end`` around each epoch of
@@ -9,11 +10,18 @@ A network calls ``iteration_done(net, iteration, epoch)`` after every
 it (``float``) waits for the card to finish the step. Each listener reads
 it only at its own cadence, so the iterations it skips cost the host a
 few Python calls and no wait on the card.
+
+``needs_per_iteration`` (the JAX package's values): True when a
+listener must run at the moment each step ends (timings, parameter
+pulls). When every attached listener declares False, ``fit`` may run a
+chunk of steps through the captured step and replay ``iteration_done``
+for each after it, with the same (iteration, score) values.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 
 import numpy as np
@@ -24,6 +32,8 @@ logger = logging.getLogger("deeplearning4j_tpu_torch")
 
 class TrainingListener:
     """Base listener: every hook does nothing."""
+
+    needs_per_iteration = True
 
     def iteration_done(self, net, iteration: int, epoch: int):
         pass
@@ -38,6 +48,8 @@ class TrainingListener:
 class ScoreIterationListener(TrainingListener):
     """Logs the score every ``print_iterations`` iterations (to ``out``
     when given, else to the logger)."""
+
+    needs_per_iteration = False  # a cadence-sampled score only
 
     def __init__(self, print_iterations: int = 10, out=None):
         self.print_iterations = max(1, print_iterations)
@@ -56,6 +68,8 @@ class ScoreIterationListener(TrainingListener):
 class CollectScoresIterationListener(TrainingListener):
     """Keeps (iteration, score) every ``frequency`` iterations."""
 
+    needs_per_iteration = False  # a cadence-sampled score only
+
     def __init__(self, frequency: int = 1):
         self.frequency = max(1, frequency)
         self.scores: list[tuple[int, float]] = []
@@ -72,20 +86,22 @@ class PerformanceListener(TrainingListener):
     until the card's queue fills). Records go to ``records`` and the
     logger.
 
-    MFU is not ported: the port has no FLOP count of a step nor a peak
-    rate per card, so ``report_mfu=True`` (or ``flops_per_step``) raises.
-    """
+    MFU when ``report_mfu`` (or ``flops_per_step``) is set: a step's
+    operations (``flops_per_step``, else the count the net derives from
+    ``step_cost_analysis`` at its first step of each batch shape) times
+    the iterations over the seconds, over the card's peak
+    (utils/perf.py's ``peak_flops``). An MFU outside (0, 1] is not
+    published."""
+
+    needs_per_iteration = True  # measures the wall clock of each step
 
     def __init__(self, frequency: int = 10, report_examples: bool = True,
                  flops_per_step: float | None = None,
                  report_mfu: bool = False):
-        if report_mfu or flops_per_step is not None:
-            raise NotImplementedError(
-                "PerformanceListener: MFU (report_mfu / flops_per_step) is "
-                "not ported to deeplearning4j_tpu_torch yet; it needs a "
-                "FLOP count of the step and the card's peak rate")
         self.frequency = max(1, frequency)
         self.report_examples = report_examples
+        self.flops_per_step = flops_per_step
+        self.report_mfu = bool(report_mfu) or flops_per_step is not None
         self.records: list[dict] = []
         self._last_time = None
         self._last_iter = None
@@ -113,10 +129,26 @@ class PerformanceListener(TrainingListener):
                 rec["examples_per_sec"] = (
                     self._examples / dt if dt > 0 else float("inf"))
                 msg += f", {rec['examples_per_sec']:.1f} examples/s"
+            flops = self._resolve_flops(net)
+            if flops and dt > 0:
+                from deeplearning4j_tpu_torch.utils.perf import peak_flops
+                peak = peak_flops(getattr(net, "device", None))
+                if peak:
+                    mfu = flops * iters / dt / peak
+                    if 0.0 < mfu <= 1.0:  # never publish an impossible MFU
+                        rec["mfu"] = mfu
+                        msg += f", MFU {100 * mfu:.1f}%"
             self.records.append(rec)
             logger.info(msg)
             self._last_time, self._last_iter = now, iteration
             self._examples = 0
+
+    def _resolve_flops(self, net):
+        if self.flops_per_step:
+            return self.flops_per_step
+        if self.report_mfu:
+            return getattr(net, "flops_per_step", None)
+        return None
 
 
 class ComposableIterationListener(TrainingListener):
@@ -124,6 +156,11 @@ class ComposableIterationListener(TrainingListener):
 
     def __init__(self, *listeners):
         self.listeners = listeners
+
+    @property
+    def needs_per_iteration(self):
+        return any(getattr(l, "needs_per_iteration", True)
+                   for l in self.listeners)
 
     def iteration_done(self, net, iteration, epoch):
         for l in self.listeners:
@@ -136,6 +173,78 @@ class ComposableIterationListener(TrainingListener):
     def on_epoch_end(self, net):
         for l in self.listeners:
             l.on_epoch_end(net)
+
+
+class ProfilerListener(TrainingListener):
+    """A ``torch.profiler`` trace of a window of iterations, written as a
+    Chrome trace (``trace_<first>_<last>.json``) into ``log_dir``
+    (counterpart of the JAX package's ProfilerListener): it starts once
+    ``start_iteration`` has run and stops ``num_iterations`` iterations
+    later (or at the epoch's end). A failure to start or stop is logged
+    and turns profiling off; training goes on."""
+
+    def __init__(self, log_dir: str, start_iteration: int = 5,
+                 num_iterations: int = 5):
+        self.log_dir = log_dir
+        self.start_iteration = start_iteration
+        self.num_iterations = max(1, num_iterations)
+        self.captured = False
+        self.trace_path = None
+        self._prof = None
+        self._warned = False
+
+    def _warn_once(self, what: str, exc: Exception):
+        if not self._warned:
+            self._warned = True
+            logger.warning(
+                "ProfilerListener: %s failed (%s: %s); profiling disabled "
+                "for this window, training continues",
+                what, type(exc).__name__, exc)
+
+    def _stop(self, net, iteration):
+        prof, self._prof = self._prof, None
+        self.captured = True
+        try:
+            if net is not None and getattr(net, "score_value", None) \
+                    is not None:
+                float(net.score_value)   # the step's work into the window
+            prof.__exit__(None, None, None)
+            os.makedirs(self.log_dir, exist_ok=True)
+            path = os.path.join(self.log_dir,
+                                f"trace_{self._first}_{iteration}.json")
+            prof.export_chrome_trace(path)
+            self.trace_path = path
+        except Exception as e:  # profiling must never stop training
+            self._warn_once("stopping the trace", e)
+
+    def close(self, net=None):
+        """Stops and writes the trace if it is still recording."""
+        if self._prof is not None:
+            self._stop(net, getattr(net, "iteration", self._first))
+
+    def iteration_done(self, net, iteration, epoch):
+        if (not self.captured and self._prof is None
+                and iteration >= self.start_iteration):
+            import torch.profiler as tp
+            acts = [tp.ProfilerActivity.CPU]
+            if getattr(net, "device", None) is not None \
+                    and net.device.type == "cuda":
+                acts.append(tp.ProfilerActivity.CUDA)
+            try:
+                prof = tp.profile(activities=acts)
+                prof.__enter__()
+            except Exception as e:
+                self._warn_once("starting the trace", e)
+                self.captured = True
+                return
+            self._prof, self._first = prof, iteration
+            self._stop_at = iteration + self.num_iterations
+            return
+        if self._prof is not None and iteration >= self._stop_at:
+            self._stop(net, iteration)
+
+    def on_epoch_end(self, net):
+        self.close(net)   # an epoch shorter than the window
 
 
 def _flat_params(net):

@@ -336,7 +336,10 @@ def test_score_listeners_read_the_score_only_at_their_cadence(freq):
     assert [i for i, _ in lst.scores] == list(range(freq, 26, freq))
 
 
-def test_performance_listener_reads_no_score_and_refuses_mfu():
+def test_performance_listener_reads_no_score_and_refuses_mfu(monkeypatch):
+    """MFU is reported since the training runtime's port: only with a
+    FLOP count and a peak (none for the CPU unless DL4J_TPU_PEAK_FLOPS
+    names one), and still without reading the score."""
     net = _Net()
     lst = PerformanceListener(frequency=5)
     for i in range(1, 21):
@@ -344,10 +347,20 @@ def test_performance_listener_reads_no_score_and_refuses_mfu():
     assert net.score_value.reads == 0
     assert [r["iteration"] for r in lst.records] == [5, 10, 15, 20]
     assert all(r["examples_per_sec"] > 0 for r in lst.records)
-    with pytest.raises(NotImplementedError, match="MFU"):
-        PerformanceListener(report_mfu=True)
-    with pytest.raises(NotImplementedError, match="MFU"):
-        PerformanceListener(flops_per_step=1e9)
+    monkeypatch.delenv("DL4J_TPU_PEAK_FLOPS", raising=False)
+    no_count = PerformanceListener(frequency=5, report_mfu=True)
+    no_peak = PerformanceListener(frequency=5, flops_per_step=1e3)
+    for i in range(1, 11):
+        no_count.iteration_done(net, i, 0)
+        no_peak.iteration_done(net, i, 0)
+    assert all("mfu" not in r for r in no_count.records + no_peak.records)
+    monkeypatch.setenv("DL4J_TPU_PEAK_FLOPS", "1e12")
+    mfu = PerformanceListener(frequency=5, flops_per_step=1e3)
+    for i in range(1, 11):
+        mfu.iteration_done(net, i, 0)
+    assert [r["iteration"] for r in mfu.records] == [5, 10]
+    assert all(0.0 < r["mfu"] <= 1.0 for r in mfu.records)
+    assert net.score_value.reads == 0
 
 
 def test_listeners_on_a_network_fit():

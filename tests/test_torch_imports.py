@@ -95,6 +95,10 @@ SLICE_MODULES = [
     "deeplearning4j_tpu_torch.optimize.listeners",
     "deeplearning4j_tpu_torch.optimize.earlystopping",
     "deeplearning4j_tpu_torch.utils.serialization",
+    "deeplearning4j_tpu_torch.nn.multistep",
+    "deeplearning4j_tpu_torch.utils.perf",
+    "deeplearning4j_tpu_torch.datasets.records",
+    "deeplearning4j_tpu_torch.datasets.iterator",
 ]
 
 

@@ -179,7 +179,7 @@ def test_output_ignores_the_features_mask(tmp_path):
     x = _one_hot(2, T, seed=2)
     m = np.ones((2, T), np.float32)
     m[0, 5:] = 0.0
-    assert torch.equal(tnet.output(x, m), tnet.output(x))
+    assert torch.equal(tnet.output(x, mask=m), tnet.output(x))
 
 
 def _jax_loss_and_grads(jnet, x, y):
