@@ -18,7 +18,10 @@ and the train steps. Then it trains LeNet (28 x 28 x 1, BF16) through
 ``MultiLayerNetwork.fit`` with the listeners, early-stops it and evaluates
 it, trains the full-width VGG-16 (224 x 224, 1000 classes, BF16) and
 ResNet-18 (32 x 32, 10 classes, BF16) and evaluates the graph; these
-paths reach none of the port's kernels (cuDNN and cuBLAS only). Every
+paths reach none of the port's kernels (cuDNN and cuBLAS only). Then it
+captures the train steps ([train_captured]) and runs the fault-tolerant
+supervisor, the solvers, gradient checks, transfer learning and
+pretraining (--slice12 below). Every
 phase that fails ends the run with a nonzero exit code. It needs one CUDA
 card; without one (or without the package beside it) it exits nonzero
 and prints no result.
@@ -52,6 +55,19 @@ runs only [train_captured] (the whole train step as one CUDA graph on
 the char-RNN, gpt_mini, LeNet, ResNet-18 and the fused ResNet-50: captured
 steps against eager ones, launches, step ms, busy share), [mfu] and
 [capture_routes], and
+
+    python3 chip_smoke.py --slice12
+
+runs only the fault-tolerance, solver, gradient-check, transfer and
+pretrain phases ([resilient]: the char-RNN through chaos_train's fault
+schedule on fresh nets, resumed from disk only, bit-identical to an
+uninterrupted run, a poisoned step rolled back, a SIGKILLed child
+resumed by another, checkpoint and step costs; [resilient_resnet]:
+ResNet-50 fused preempted and resumed on a fresh graph; [solvers] on
+LeNet; [gradcheck] F64; [transfer] on VGG-16 frozen through its last
+conv block; [pretrain] a VAE and an AE/RBM stack), each also alone
+(--resilient, --resilient-resnet, --solvers, --gradcheck, --transfer,
+--pretrain), and
 
     python3 chip_smoke.py --k6-split
 
@@ -4076,6 +4092,785 @@ def phase_conv_nets():
     phase_train_resnet18()
 
 
+# ---------------------------------------------------------------------------
+# Slice 12: checkpoint and resume, the supervisor with fault injection, the
+# full-batch solvers, gradient checks, transfer learning with frozen layers
+# ---------------------------------------------------------------------------
+
+# chaos_train's schedule (a crash during a save, a transient then a
+# preemption, a crash again, a clean launch) at 24 steps, a checkpoint
+# every 4: the recovery events (kind, step) each launch must emit, as the
+# supervisor emits them on the CPU (tests/test_torch_resilience.py holds
+# those to the JAX package's)
+RES_STEPS, RES_EVERY = 24, 4
+CHAOS_PLAN = [[("crash_save", 1)],
+              [("transient", RES_STEPS // 3), ("preempt", RES_STEPS // 2)],
+              [("crash_save", 1)],
+              []]
+CHAOS_EVENTS = [
+    [("checkpoint", 0)],
+    [("resume", 0), ("checkpoint", 4), ("retry", 8), ("retry", 8),
+     ("checkpoint", 8), ("checkpoint", 12), ("gc", 12), ("checkpoint", 13),
+     ("gc", 13), ("preempt", 13)],
+    [("resume", 13), ("checkpoint", 16), ("gc", 16)],
+    [("resume", 16), ("checkpoint", 20), ("gc", 20), ("checkpoint", 24),
+     ("gc", 24)]]
+CHAOS_OUTCOMES = ["crashed", "preempted", "crashed", "completed"]
+# a step poisoned at 10 under the lazy sentinel (a check every 4): read at
+# iteration 12, rolled back to step_8, LR scale 0.5
+POISON_EVENTS = [("checkpoint", 0), ("checkpoint", 4), ("checkpoint", 8),
+                 ("rollback", 8), ("checkpoint", 12), ("gc", 12),
+                 ("checkpoint", 16), ("gc", 16), ("checkpoint", 20),
+                 ("gc", 20), ("checkpoint", 24), ("gc", 24)]
+# the SIGKILL child: 16 steps, killed at the boundary of step 10
+KILL_STEPS, KILL_AT = 16, 10
+# solvers: the card's first iteration vs the plain CPU path's, F32 LeNet:
+# the same loss over 256 images summed in another order (relu and max-pool
+# winners may differ at ties), so f_new to 1e-4 relative and the Armijo
+# step exactly
+SOLVER_FNEW_RTOL = 1e-4
+SOLVER_ALGOS = ("lbfgs", "conjugate_gradient", "line_gradient_descent")
+# VGG-16's layers: 13 convs and 5 pools (0-17), dense 18, 19, output 20
+VGG_LAST_POOL, VGG_OUTPUT = 17, 20
+
+
+def _arm(faults):
+    from deeplearning4j_tpu_torch.resilience import FaultInjector
+    inj = FaultInjector()
+    for fault, at in faults:
+        if fault == "crash_save":
+            inj.crash_during_save(at)
+        elif fault == "transient":
+            inj.fail_step(at, times=2)
+        elif fault == "preempt":
+            inj.preempt_at_step(at)
+        elif fault == "poison":
+            inj.poison_step(at)
+        elif fault == "kill":
+            inj.kill_at_step(at)
+    return inj
+
+
+def _supervisor(net, ckpt, injector=None, **kw):
+    from deeplearning4j_tpu_torch.resilience import (SupervisorConfig,
+                                                     TrainingSupervisor)
+    cfg = dict(checkpoint_every_steps=RES_EVERY, keep_checkpoints=3,
+               backoff_initial_s=0.0, handle_sigterm=False,
+               async_checkpoints=True)
+    cfg.update(kw)
+    return TrainingSupervisor(net, SupervisorConfig(checkpoint_dir=ckpt,
+                                                    **cfg),
+                              injector=injector)
+
+
+def _host_trees(net):
+    """Every tensor of params, state and opt_state, copied to the host."""
+    from deeplearning4j_tpu_torch.nn import multistep
+    return {(tn,) + path: t.detach().cpu().clone()
+            for tn, path, t in multistep._tree_paths(net)}
+
+
+def _trees_bit_equal(got, want, what):
+    check(got.keys() == want.keys(), f"{what}: the trees' keys differ")
+    bad = [".".join(map(str, k)) for k in want
+           if not (got[k].dtype == want[k].dtype
+                   and torch_equal_bits(got[k], want[k]))]
+    check(not bad, f"{what}: {len(bad)} of {len(want)} tensors differ from "
+          f"the uninterrupted run's, e.g. {bad[:4]}")
+    return len(want)
+
+
+def torch_equal_bits(a, b):
+    import torch
+    a, b = a.contiguous(), b.contiguous()
+    if a.shape != b.shape:
+        return False
+    if a.dtype.is_floating_point and a.element_size() in (2, 4, 8):
+        iv = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            a.element_size()]
+        return torch.equal(a.view(iv), b.view(iv))
+    return torch.equal(a, b)
+
+
+def _dir_mb(path):
+    total = 0
+    for root, _, files in os.walk(path):
+        total += sum(os.path.getsize(os.path.join(root, f)) for f in files)
+    return total / 2**20
+
+
+def _checkpoint_costs(net, ckpt):
+    """The step path's snapshot (host ms of the call, ms until its clones
+    are done), the writer's ms and MB for it, and the restore's ms into
+    the live net."""
+    import torch
+    from deeplearning4j_tpu_torch.utils.checkpoint import (
+        save_checkpoint, snapshot_for_checkpoint)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snap = snapshot_for_checkpoint(net)
+    t1 = time.perf_counter()
+    snap.ready.synchronize()
+    t2 = time.perf_counter()
+    path = os.path.join(ckpt, f"step_{net.iteration}")
+    save_checkpoint(snap, path)
+    t3 = time.perf_counter()
+    sup = _supervisor(net, ckpt)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    sup._load_into(path)
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    return snap, {"snapshot_host_ms": f"{(t1 - t0) * 1e3:.3f}",
+                  "snapshot_ms": f"{(t2 - t0) * 1e3:.3f}",
+                  "write_ms": f"{(t3 - t2) * 1e3:.1f}",
+                  "write_mb": f"{_dir_mb(path):.1f}",
+                  "restore_ms": f"{(t5 - t4) * 1e3:.1f}"}
+
+
+def _chaos(make, batch_fn, ckpt, plan, **kw):
+    """The plan's launches, each on a fresh net (resume from disk only),
+    until one completes: (net, per-launch events, outcomes, per-relaunch
+    ms from the new net to its first step read back)."""
+    import torch
+    from deeplearning4j_tpu_torch.resilience import InjectedCrash
+    events, outcomes, first_step_ms, net = [], [], [], None
+    for i, faults in enumerate(plan):
+        t0 = time.perf_counter()
+        net = make()
+        inj = _arm(faults)
+        sup = _supervisor(net, ckpt, inj, **kw)
+        marks = []
+
+        def timed_batch(step, marks=marks):
+            marks.append(time.perf_counter())
+            return batch_fn(step)
+
+        try:
+            with inj.installed():
+                res = sup.run(timed_batch, RES_STEPS)
+            outcomes.append(res.status)
+        except InjectedCrash:
+            outcomes.append("crashed")
+        torch.cuda.synchronize()
+        events.append([(e.kind, e.step) for e in sup.events])
+        if i and len(marks) > 1:
+            # the second batch is asked for once the first step's score
+            # was read (a check every step): the relaunch's first step
+            first_step_ms.append((marks[1] - t0) * 1e3)
+        if outcomes[-1] == "completed":
+            break
+        del sup
+    return net, events, outcomes, first_step_ms
+
+
+def resilient_child(ckpt, kill, out):
+    """A relaunchable training process for [resilient]: the char-RNN,
+    supervised to KILL_STEPS with a checkpoint every RES_EVERY steps, a
+    SIGKILL at step ``kill`` (None: none); writes its params to ``out``
+    when it completes."""
+    import torch
+    from deeplearning4j_tpu_torch import zoo
+    data = on_card(markov_batches(8, 32, 64, 80, SEED + 50))
+    net = zoo.char_rnn(seed=SEED)
+    inj = _arm([] if kill is None else [("kill", kill)])
+    res = _supervisor(net, ckpt, inj).run(lambda s: data[s % 8], KILL_STEPS)
+    torch.save({k: v for k, v in _host_trees(net).items()}, out)
+    print(f"CHILD {res.status} {res.final_step} {res.resumed_from}",
+          flush=True)
+
+
+def _run_child(ckpt, kill, out):
+    code = (f"import chip_smoke as c; c.resilient_child({ckpt!r}, {kill!r}, "
+            f"{out!r})")
+    return subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def _step_cost_ms(make, batch_fn, ckpt, mode):
+    """Host-clock ms a step over 32 back-to-back steps of a fresh net,
+    after 8: ``mode`` "eager" (fit_batch), "captured" (the replayed step,
+    fit_batch_repeated one batch at a time), or "supervised_<k>" (the
+    TrainingSupervisor with a NaN check every k steps, no periodic
+    checkpoint and a synchronous baseline, so no writer thread runs
+    beside the steps timed; from the batch of step 8 to that of step 40,
+    which covers the lazy sentinel's reads)."""
+    import torch
+    net = make()
+    if mode.startswith("supervised_"):
+        marks = {}
+
+        def timed_batch(step):
+            marks[step] = time.perf_counter()
+            return batch_fn(step)
+
+        _supervisor(net, ckpt, checkpoint_every_steps=10**6, resume=False,
+                    async_checkpoints=False,
+                    nan_check_every=int(mode.split("_")[1])).run(
+                        timed_batch, 41)
+        return (marks[40] - marks[8]) * 1e3 / 32
+    step = (net.fit_batch if mode == "eager"
+            else lambda ds: net.fit_batch_repeated(ds, 1))
+    for i in range(8):
+        step(batch_fn(i))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(8, 40):
+        step(batch_fn(i))
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / 32
+
+
+STEP_COST_MODES = ("eager", "supervised_1", "supervised_8", "captured")
+
+
+def phase_resilient():
+    """[resilient]: the full-width char-RNN (hidden 512, 2 GravesLSTM,
+    BF16, Adam; b = 32, T = 64; K1/K2 on the cluster route) under the
+    TrainingSupervisor: chaos_train's schedule over fresh nets (resume
+    from disk only, asynchronous checkpoints), the survivor's params equal
+    an uninterrupted fit_batch run's bit for bit; a poisoned step rolled
+    back with the LR backed off; SIGKILL of a child process and a second
+    child resuming it; a restore into a net with a captured step. Then
+    the step's cost supervised and not, and the checkpoint's costs."""
+    import shutil
+    import tempfile
+    import torch
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.ops import registry
+    t_phase = time.perf_counter()
+    out = {"model": "char_rnn(vocab=80,hidden=512,layers=2,BF16,Adam(2e-3))",
+           "b": 32, "T": 64, "steps": RES_STEPS, "every": RES_EVERY}
+    root = tempfile.mkdtemp(prefix="dl4j_resilient_")
+    data = on_card(markov_batches(8, 32, 64, 80, SEED + 50))
+    batch_fn = lambda step: data[step % 8]  # noqa: E731
+    make = lambda: zoo.char_rnn(seed=SEED)  # noqa: E731
+    try:
+        # the uninterrupted run
+        ref = make()
+        for step in range(RES_STEPS):
+            ref.fit_batch(batch_fn(step))
+            if step == KILL_STEPS - 1:
+                at16 = _host_trees(ref)
+        want = _host_trees(ref)
+
+        # the chaos run: the main path, counted
+        registry.reset_launches()
+        calls = [0]
+
+        def counted(step):
+            calls[0] += 1
+            return batch_fn(step)
+
+        net, events, outcomes, first_ms = _chaos(
+            make, counted, os.path.join(root, "chaos"), CHAOS_PLAN)
+        launches = registry.launches()
+        check(outcomes == CHAOS_OUTCOMES, f"chaos outcomes {outcomes}")
+        check(events == CHAOS_EVENTS, f"chaos events {events} != the "
+              f"schedule's {CHAOS_EVENTS}")
+        check(net.iteration == RES_STEPS, f"survivor at {net.iteration}")
+        out["tensors_bit_identical"] = _trees_bit_equal(
+            _host_trees(net), want, "chaos survivor")
+        for k in ("lstm_fwd", "lstm_fwd_sm90", "lstm_bwd_sm90"):
+            check(launches.get(k, 0) == 2 * calls[0],
+                  f"{k} launched {launches.get(k, 0)} times in {calls[0]} "
+                  f"supervised steps, expected {2 * calls[0]}")
+        check(launches.get("lstm_bwd", 0) == 2 * lstm_launches_per_bwd()
+              * calls[0], f"lstm_bwd launched {launches.get('lstm_bwd')}")
+        out["chaos_steps_run"] = calls[0]
+        out["chaos_launches"] = json.dumps(launches)
+        out["relaunch_ms_to_first_step"] = json.dumps(
+            [round(v, 1) for v in first_ms])
+        del net
+        # the survivor's checkpoint restores on the CPU, and a checkpoint
+        # saved from the CPU restores on the card, bit for bit
+        from deeplearning4j_tpu_torch.utils.checkpoint import (
+            find_latest_checkpoint, restore_multi_layer_network,
+            save_checkpoint)
+        last = find_latest_checkpoint(os.path.join(root, "chaos"))
+        on_cpu = restore_multi_layer_network(last, device="cpu")
+        _trees_bit_equal(_host_trees(on_cpu), want, "card -> CPU restore")
+        back = restore_multi_layer_network(save_checkpoint(
+            on_cpu, os.path.join(root, "cpu", "step_24")))
+        check(back.device.type == "cuda", f"restored on {back.device}")
+        _trees_bit_equal(_host_trees(back), want, "CPU -> card restore")
+        out["cross_device_restore"] = "card->cpu->card bit-identical"
+        del on_cpu, back
+
+        # a poisoned step: rollback and LR backoff under the lazy sentinel
+        pnet, pev, pout, _ = _chaos(make, batch_fn,
+                                    os.path.join(root, "poison"),
+                                    [[("poison", 10)]], nan_check_every=4)
+        check(pout == ["completed"] and pev == [POISON_EVENTS],
+              f"poison run {pout} {pev}")
+        check(pnet._lr_scale == 0.5, f"lr scale {pnet._lr_scale}")
+        check(all(torch.isfinite(t).all().item()
+                  for t in _host_trees(pnet).values()
+                  if t.dtype.is_floating_point), "poison survived")
+        out["poison_rollback"] = "step 10 -> step_8, lr scale 0.5"
+        del pnet
+
+        # SIGKILL: a child killed at step KILL_AT, a second one resumes
+        kdir = os.path.join(root, "kill")
+        first = _run_child(kdir, KILL_AT, os.path.join(root, "a.pt"))
+        check(first.returncode == -9 and "CHILD" not in first.stdout,
+              f"the killed child exited {first.returncode}: "
+              f"{first.stderr[-1500:]}")
+        second = _run_child(kdir, None, os.path.join(root, "b.pt"))
+        check(second.returncode == 0 and "CHILD completed 16" in
+              second.stdout, f"the resuming child: {second.returncode} "
+              f"{second.stdout[-500:]} {second.stderr[-1500:]}")
+        resumed = second.stdout.split()[-1]
+        got = torch.load(os.path.join(root, "b.pt"))
+        _trees_bit_equal(got, at16, "SIGKILL + resume")
+        out["sigkill_resumed_from"] = os.path.basename(resumed)
+
+        # restore into a net whose step is captured: the replays after it
+        # rebind the restored leaves and continue the same trajectory
+        cap = make()
+        cap.fit_batch_repeated(data[0], 8)
+        cpath = save_checkpoint(cap, os.path.join(root, "cap", "step_8"))
+        cap.fit_batch_repeated(data[0], 4)
+        want12 = _host_trees(cap)
+        _supervisor(cap, os.path.join(root, "cap"))._load_into(cpath)
+        cap.fit_batch_repeated(data[0], 4)
+        sg = next(iter(cap._multi_steps.values()))
+        check(sg.captures == 1, f"{sg.captures} captures")
+        _trees_bit_equal(_host_trees(cap), want12, "captured after restore")
+        out["captured_restore"] = f"bit-identical, {sg.replays} replays"
+        del cap
+        # a step's cost, in turns (each mode, then each in reverse order)
+        costs = {m: [] for m in STEP_COST_MODES}
+        for m in STEP_COST_MODES + STEP_COST_MODES[::-1]:
+            costs[m].append(_step_cost_ms(make, batch_fn,
+                                          os.path.join(root, f"t_{m}"), m))
+        for m, v in costs.items():
+            out[f"{m}_step_ms"] = "/".join(f"{x:.3f}" for x in v)
+        _, ck = _checkpoint_costs(ref, os.path.join(root, "costs"))
+        out.update(ck)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = f"{time.perf_counter() - t_phase:.1f}"
+    phase("resilient", **out)
+
+
+def phase_resilient_resnet():
+    """[resilient_resnet]: ResNet-50 with the fusion pass (BF16, b = 256,
+    13 tails on K4-K7 sm90, Nesterovs): supervised steps with a
+    checkpoint, preempted, then a relaunch onto a fresh graph (the first
+    freed first); params, BN state and Nesterov velocity after the resumed
+    steps bit-identical to uninterrupted ones. Snapshot, write and restore
+    costs, and the peak memory of a step with a snapshot held."""
+    import shutil
+    import tempfile
+    import torch
+    from deeplearning4j_tpu_torch import DataSet, zoo
+    from deeplearning4j_tpu_torch.ops import registry
+    t_phase = time.perf_counter()
+    steps, b = 6, 256
+    out = {"model": "resnet50(224x224,1000 classes,BF16,Nesterovs(0.1,0.9),"
+                    "DL4J_TPU_FUSE_BLOCKS=1)", "b": b, "steps": steps}
+    root = tempfile.mkdtemp(prefix="dl4j_resilient_resnet_")
+    try:
+        with fuse_blocks(True):
+            make = lambda: zoo.resnet50(seed=SEED + 20)  # noqa: E731
+            data = [DataSet(x, y) for x, y in resnet_batches(2, b, SEED + 45)]
+            batch_fn = lambda step: data[step % 2]  # noqa: E731
+            ref = make()
+            check(len(ref._fusion_plans) == 13,
+                  f"{len(ref._fusion_plans)} fused tails")
+            for step in range(steps):
+                ref.fit_batch(batch_fn(step))
+            want = _host_trees(ref)
+            # the checkpoint's costs, and a step's peak with a snapshot held
+            snap, costs = _checkpoint_costs(ref, os.path.join(root, "costs"))
+            out.update(costs)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ref.fit_batch(batch_fn(0))
+            torch.cuda.synchronize()
+            out["peak_mb_step_with_snapshot"] = (
+                f"{torch.cuda.max_memory_allocated() / 2**20:.0f}")
+            del snap
+            torch.cuda.reset_peak_memory_stats()
+            ref.fit_batch(batch_fn(1))
+            torch.cuda.synchronize()
+            out["peak_mb_step"] = (
+                f"{torch.cuda.max_memory_allocated() / 2**20:.0f}")
+            del ref
+            torch.cuda.empty_cache()
+
+            registry.reset_launches()
+            ckpt = os.path.join(root, "run")
+            net = make()
+            res = _supervisor(net, ckpt, _arm([("preempt", 3)]),
+                              checkpoint_every_steps=3).run(batch_fn, steps)
+            check(res.status == "preempted" and res.final_step == 4,
+                  f"first launch {res.status} at {res.final_step}")
+            del net, res
+            torch.cuda.empty_cache()
+            marks = {}
+
+            def timed_batch(step):
+                marks[step] = time.perf_counter()
+                return batch_fn(step)
+
+            t0 = time.perf_counter()
+            net = make()
+            res = _supervisor(net, ckpt, checkpoint_every_steps=3).run(
+                timed_batch, steps)
+            # the batch of step 5 is asked for once step 4's score was
+            # read: the relaunch's first step is done
+            out["relaunch_ms_to_first_step"] = f"{(marks[5] - t0) * 1e3:.1f}"
+            check(res.status == "completed" and
+                  res.resumed_from.endswith("step_4"),
+                  f"relaunch {res.status} from {res.resumed_from}")
+            launches = registry.launches()
+            for k in ("fused_block_stats_sm90", "fused_block_apply_sm90",
+                      "fused_block_bwd_stats_sm90",
+                      "fused_block_bwd_apply_sm90"):
+                check(launches.get(k, 0) == 13 * steps,
+                      f"{k} launched {launches.get(k, 0)} times in {steps} "
+                      f"supervised steps, expected {13 * steps}")
+            out["launches"] = json.dumps(launches)
+            out["tensors_bit_identical"] = _trees_bit_equal(
+                _host_trees(net), want, "resnet50 resumed")
+            out["events"] = json.dumps([(e.kind, e.step) for e in res.events])
+            del net
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    out["phase_s"] = f"{time.perf_counter() - t_phase:.1f}"
+    phase("resilient_resnet", **out)
+
+
+def phase_solvers():
+    """[solvers]: L-BFGS, conjugate gradient and line gradient descent on
+    LeNet (F32) over one full batch of 256 images: the card's first
+    iteration (Armijo step, f_new) held to the plain CPU path's, the loss
+    falls; ms and loss evaluations an iteration."""
+    import torch
+    from deeplearning4j_tpu_torch import DataSet, zoo
+    from deeplearning4j_tpu_torch.optimize.solvers import Solver
+    from deeplearning4j_tpu_torch.ops import registry
+    xs, ys = lenet_data(256, SEED + 70)
+    card_ds = DataSet(torch.from_numpy(xs).cuda(), torch.from_numpy(ys).cuda())
+    registry.reset_launches()
+    for algo in SOLVER_ALGOS:
+        net = zoo.lenet(seed=SEED + 71, dtype=zoo.F32)
+        cpu = mln_copy(net, "cpu")
+        s0 = net.score(card_ds, train=True)
+        first = Solver.ALGOS[algo](cpu, max_iterations=1)
+        first.optimize(DataSet(xs, ys))
+        solver = Solver.ALGOS[algo](net, max_iterations=20)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solver.optimize(card_ds)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        (a, fnew), (ca, cfnew) = solver.first_step, first.first_step
+        check(a == ca and abs(fnew - cfnew) <= SOLVER_FNEW_RTOL * abs(cfnew),
+              f"{algo} first iteration: card (step {a}, f {fnew}) vs CPU "
+              f"(step {ca}, f {cfnew})")
+        check(math.isfinite(res.score) and res.score < s0,
+              f"{algo}: score {s0} -> {res.score}")
+        phase("solvers", algo=algo, model="lenet(28x28x1,F32)", b=256,
+              iterations=res.iterations, converged=res.converged,
+              score0=f"{s0:.5f}", score=f"{res.score:.5f}",
+              first_step=a, first_f_new=f"{fnew:.6f}",
+              first_f_new_cpu=f"{cfnew:.6f}",
+              ms_per_iteration=f"{dt / res.iterations:.2f}",
+              probes_per_iteration=f"{solver.probes / res.iterations:.2f}")
+    check_no_kernel_launched("solvers on lenet")
+
+
+def _gradcheck_net(device):
+    from deeplearning4j_tpu_torch import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.conf import (DtypePolicy, InputType,
+                                                  NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.layers import Dense, Output
+    from deeplearning4j_tpu_torch.nn.conf.layers_conv import (
+        BatchNorm, Convolution2D, Subsampling)
+    from deeplearning4j_tpu_torch.nn.updater import Sgd
+    f64 = DtypePolicy(param_dtype="float64", compute_dtype="float64")
+    conf = (NeuralNetConfiguration.builder().seed(SEED + 90).updater(Sgd(0.1))
+            .dtype(f64).list()
+            .layer(Convolution2D(n_out=4, kernel=(3, 3),
+                                 activation="identity"))
+            .layer(BatchNorm(activation="relu"))
+            .layer(Subsampling(kernel=(2, 2), stride=(2, 2), pooling="max"))
+            .layer(Dense(n_out=6, activation="tanh"))
+            .layer(Output(n_out=3, activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.convolutional(8, 8, 2)).build())
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def phase_gradcheck():
+    """[gradcheck]: central differences against autograd on the card, F64:
+    conv 3x3 -> BN relu -> max pool -> dense -> softmax (cuDNN's f64
+    convolution and pooling, the composed BN); 0 failures, and a planted
+    wrong gradient caught. A GravesLSTM in F64 on the card refuses by name
+    (its kernels take f32 and bf16)."""
+    import torch
+    from deeplearning4j_tpu_torch import DataSet, zoo
+    from deeplearning4j_tpu_torch.nn.conf import DtypePolicy
+    from deeplearning4j_tpu_torch.nn.precision import tree_grads
+    from deeplearning4j_tpu_torch.nn.updater import _map
+    from deeplearning4j_tpu_torch.utils.gradient_check import (
+        check_network_gradients)
+    rng = np.random.default_rng(SEED + 91)
+    x = torch.from_numpy(rng.normal(size=(6, 8, 8, 2))).cuda()
+    y = torch.from_numpy(np.eye(3)[rng.integers(0, 3, 6)]).cuda()
+    net = _gradcheck_net(None)
+    ds = DataSet(x, y)
+    t0 = time.perf_counter()
+    res = check_network_gradients(net, ds, sample_per_leaf=32, seed=0)
+    dt = time.perf_counter() - t0
+    check(res.passed, f"gradient check failed: {res.failures[:3]}")
+    batch = net._step_batch(ds)
+
+    def wrong(params):
+        leaves = _map(lambda t: t.detach().clone().requires_grad_(), params)
+        loss, _ = net._loss(leaves, net.state, *batch, gen=None, train=True)
+        grads = tree_grads(loss, leaves)
+        grads["layer_3"]["W"] = grads["layer_3"]["W"] * 1.5
+        return grads
+
+    planted = check_network_gradients(net, ds, sample_per_leaf=32, seed=0,
+                                      grad_fn=wrong)
+    check(planted.total_failed > 0 and {f["param"] for f in
+                                        planted.failures}
+          == {"['layer_3']['W']"}, f"the planted gradient was not caught "
+          f"alone: {planted.total_failed} failures")
+    lstm = zoo.char_rnn(hidden=8, vocab_size=6, seed=SEED,
+                        dtype=DtypePolicy(param_dtype="float64",
+                                          compute_dtype="float64"))
+    xr = np.eye(6)[rng.integers(0, 6, (2, 5))]
+    try:
+        check_network_gradients(lstm, DataSet(xr, xr), sample_per_leaf=2)
+        refused = None
+    except NotImplementedError as e:
+        refused = str(e)
+    check(refused is not None and "float32 or bfloat16" in refused,
+          f"an F64 GravesLSTM check on the card was not refused: {refused}")
+    phase("gradcheck", net="conv3x3(4)-BN-relu-maxpool-dense(6)-softmax,F64,"
+          "8x8x2,b=6", checked=res.total_checked, failed=res.total_failed,
+          max_rel_error=f"{res.max_rel_error:.3e}", seconds=f"{dt:.2f}",
+          planted_failed=f"{planted.total_failed}/{planted.total_checked}",
+          lstm_f64="refused")
+
+
+def phase_transfer():
+    """[transfer]: VGG-16 at full width (224 x 224, BF16, b = 32) frozen
+    through its last conv block, the output replaced by 10 classes: after
+    eager and captured steps the frozen params bit-unchanged, the tail's
+    moved; the frozen step beside the whole net's, eager and captured;
+    TransferLearningHelper.featurize's ms."""
+    import torch
+    from deeplearning4j_tpu_torch import DataSet, zoo
+    from deeplearning4j_tpu_torch.nn import multistep
+    from deeplearning4j_tpu_torch.nn.transferlearning import (
+        TransferLearning, TransferLearningHelper)
+    from deeplearning4j_tpu_torch.nn.updater import Nesterovs
+    from deeplearning4j_tpu_torch.ops import registry
+    t_phase = time.perf_counter()
+    b = 32
+    out = {"model": f"vgg16(224x224x3,BF16,Nesterovs({VGG_LR},0.9))",
+           "b": b, "frozen_through": VGG_LAST_POOL, "n_out": 10}
+    registry.reset_launches()
+    net = zoo.vgg16(seed=SEED + 80, updater=Nesterovs(VGG_LR, 0.9))
+    new = (TransferLearning.Builder(net)
+           .set_feature_extractor(VGG_LAST_POOL)
+           .n_out_replace(VGG_OUTPUT, 10).build())
+    frozen = multistep.frozen_layers(new)
+    check(len(frozen) == VGG_LAST_POOL + 1, f"{len(frozen)} frozen layers")
+
+    def step_ms(m, data):
+        for i in range(3):
+            m.fit_batch(data[i % 2])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(8):
+            m.fit_batch(data[i % 2])
+        torch.cuda.synchronize()
+        eager = (time.perf_counter() - t0) * 1e3 / 8
+        for i in range(5):    # warm-ups, capture, a replay
+            m.fit_batch_repeated(data[i % 2], 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(8):
+            m.fit_batch_repeated(data[i % 2], 1)
+        torch.cuda.synchronize()
+        return eager, (time.perf_counter() - t0) * 1e3 / 8
+
+    whole = [DataSet(x, y) for x, y in vgg_batches(2, b, SEED + 81)]
+    eager, captured = step_ms(net, whole)
+    out["whole_step_ms_eager"] = f"{eager:.3f}"
+    out["whole_step_ms_captured"] = f"{captured:.3f}"
+    del net, whole
+    torch.cuda.empty_cache()
+
+    data = [DataSet(x, y) for x, y in vgg_batches(2, b, SEED + 82,
+                                                  classes=10)]
+    before = {n: {k: t.clone() for k, t in sub.items()}
+              for n, sub in new.params.items()}
+    eager, captured = step_ms(new, data)
+    out["frozen_step_ms_eager"] = f"{eager:.3f}"
+    out["frozen_step_ms_captured"] = f"{captured:.3f}"
+    sg = next(iter(new._multi_steps.values()))
+    check(sg.captures == 1 and sg.replays >= 8, f"{sg.captures} captures, "
+          f"{sg.replays} replays")
+    moved = []
+    for n, sub in before.items():
+        for k, t in sub.items():
+            same = torch.equal(new.params[n][k], t)
+            if n in frozen:
+                check(same, f"frozen {n}.{k} changed")
+            elif not same:
+                moved.append(f"{n}.{k}")
+    check(len(moved) == 6, f"the tail's params that moved: {moved}")
+    out["frozen_tensors_unchanged"] = sum(len(before[n]) for n in frozen
+                                          if n in before)
+    out["tail_tensors_moved"] = len(moved)
+    helper = TransferLearningHelper(new, VGG_LAST_POOL)
+    helper.featurize(data[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = helper.featurize(data[1])
+    torch.cuda.synchronize()
+    out["featurize_ms"] = f"{(time.perf_counter() - t0) * 1e3:.3f}"
+    check(tuple(feats.features.shape) == (b, 7, 7, 512),
+          f"features {tuple(feats.features.shape)}")
+    check_no_kernel_launched("transfer on vgg16")
+    del new, data, before, helper, feats
+    torch.cuda.empty_cache()
+    out["phase_s"] = f"{time.perf_counter() - t_phase:.1f}"
+    phase("transfer", **out)
+
+
+def binary_images(n, seed):
+    """``n`` 784-pixel binary images: ten random binary class templates,
+    5% of each image's pixels flipped. Made on the host from a seed."""
+    rng = np.random.default_rng(seed)
+    templates = rng.random((10, 784)) > 0.5
+    x = templates[rng.integers(0, 10, n)].astype(np.float32)
+    flip = rng.random(x.shape) < 0.05
+    x[flip] = 1 - x[flip]
+    return x
+
+
+def _pretrain_ms(net, idx, it, epochs):
+    """pretrain_layer's ms a step (host clock, ending in a synchronize)."""
+    import torch
+    steps0 = net.iteration
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.pretrain_layer(idx, it, epochs=epochs)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / (net.iteration - steps0)
+
+
+def phase_pretrain():
+    """[pretrain]: a VAE (784 -> 256 -> 256 -> 32, Bernoulli, F32) and an
+    AutoEncoder/RBM stack (784 -> 256 -> 128, F32) pretrained layer-wise
+    at b = 128 on 1,280 binary template images, on the card: the -ELBO (at
+    fixed draws of epsilon), the VAE's reconstruction error and the AE's
+    reconstruction loss (at a fixed corruption mask) fall; ms a step."""
+    import torch
+    from deeplearning4j_tpu_torch import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.datasets import ArrayDataSetIterator
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.layers import Output
+    from deeplearning4j_tpu_torch.nn.conf.layers_pretrain import (
+        RBM, AutoEncoder, BernoulliReconstruction, VariationalAutoencoder)
+    from deeplearning4j_tpu_torch.nn.updater import Adam
+    from deeplearning4j_tpu_torch.ops import registry
+    registry.reset_launches()
+    b, epochs = 128, 4
+    xs = binary_images(1280, SEED + 95)
+    x = torch.from_numpy(xs).cuda()
+    it = ArrayDataSetIterator(xs, None, batch_size=b)
+
+    conf = (NeuralNetConfiguration.builder().seed(SEED + 96)
+            .updater(Adam(1e-3)).list()
+            .layer(VariationalAutoencoder(
+                n_in=784, n_out=32, encoder_layer_sizes=(256, 256),
+                decoder_layer_sizes=(256, 256), activation="tanh",
+                reconstruction=BernoulliReconstruction()))
+            .layer(Output(n_out=10, activation="softmax", loss="mcxent"))
+            .build())
+    vnet = MultiLayerNetwork(conf).init()
+    vae = vnet.layers[0]
+    eps = torch.randn((1, 1280, 32), device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(
+                          SEED + 97))
+
+    def vae_eval():
+        with torch.no_grad():
+            p = vnet.params[vae.name]
+            return (float(vae.pretrain_loss(p, x, None, eps=eps)),
+                    float(vae.reconstruction_error(p, x)))
+
+    elbo0, rec0 = vae_eval()
+    vae_ms = _pretrain_ms(vnet, 0, it, epochs)
+    elbo1, rec1 = vae_eval()
+    check(elbo1 < elbo0 and rec1 < rec0, f"VAE pretraining: -ELBO "
+          f"{elbo0:.3f} -> {elbo1:.3f}, reconstruction {rec0:.3f} -> "
+          f"{rec1:.3f}")
+    phase("pretrain", model="vae(784-256-256-32,Bernoulli,F32,Adam(1e-3))",
+          b=b, steps=vnet.iteration, neg_elbo=f"{elbo0:.3f}->{elbo1:.3f}",
+          reconstruction_error=f"{rec0:.3f}->{rec1:.3f}",
+          ms_per_step=f"{vae_ms:.3f}")
+
+    conf = (NeuralNetConfiguration.builder().seed(SEED + 98)
+            .updater(Adam(1e-3)).list()
+            .layer(AutoEncoder(n_in=784, n_out=256, activation="sigmoid",
+                               corruption_level=0.3, loss="xent"))
+            .layer(RBM(n_out=128, k=1))
+            .layer(Output(n_out=10, activation="softmax", loss="mcxent"))
+            .build())
+    snet = MultiLayerNetwork(conf).init()
+    ae, rbm = snet.layers[0], snet.layers[1]
+
+    def ae_loss():
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 99)
+        with torch.no_grad():
+            return float(ae.pretrain_loss(snet.params[ae.name], x, gen))
+
+    def rbm_recon():
+        with torch.no_grad():
+            h = snet.feed_forward(x)[0]
+            p = snet.params[rbm.name]
+            return float(((rbm._propdown(p, rbm._propup(p, h)) - h) ** 2
+                          ).mean())
+
+    ae0 = ae_loss()
+    ae_ms = _pretrain_ms(snet, 0, it, epochs)
+    ae1 = ae_loss()
+    check(ae1 < ae0, f"AutoEncoder pretraining: loss {ae0:.4f} -> {ae1:.4f}")
+    rbm0 = rbm_recon()
+    rbm_ms = _pretrain_ms(snet, 1, it, epochs)
+    rbm1 = rbm_recon()
+    check(math.isfinite(rbm1), f"RBM reconstruction {rbm1}")
+    check_no_kernel_launched("pretrain")
+    phase("pretrain", model="autoencoder(784-256,xent,corruption=0.3)+"
+          "rbm(256-128,k=1),F32,Adam(1e-3)", b=b, steps=snet.iteration,
+          ae_loss=f"{ae0:.4f}->{ae1:.4f}", ae_ms_per_step=f"{ae_ms:.3f}",
+          rbm_reconstruction_mse=f"{rbm0:.5f}->{rbm1:.5f}",
+          rbm_ms_per_step=f"{rbm_ms:.3f}")
+
+
+def phase_slice12():
+    """The phases of slice 12, in order."""
+    phase_resilient()
+    phase_resilient_resnet()
+    phase_solvers()
+    phase_gradcheck()
+    phase_transfer()
+    phase_pretrain()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4111,7 +4906,14 @@ def main() -> int:
             return 0
     for flag, only in (("--tail-check", phase_tail_check),
                        ("--conv-nets", phase_conv_nets),
-                       ("--captured", phase_train_captured)):
+                       ("--captured", phase_train_captured),
+                       ("--resilient", phase_resilient),
+                       ("--resilient-resnet", phase_resilient_resnet),
+                       ("--solvers", phase_solvers),
+                       ("--gradcheck", phase_gradcheck),
+                       ("--transfer", phase_transfer),
+                       ("--pretrain", phase_pretrain),
+                       ("--slice12", phase_slice12)):
         if flag in sys.argv[1:]:
             phase_device()
             only()
@@ -4138,6 +4940,7 @@ def main() -> int:
     kernels += phase_times_fused(card, errs, rtrain)
     phase_conv_nets()
     phase_train_captured()
+    phase_slice12()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(ok_line, flush=True)
     return 0

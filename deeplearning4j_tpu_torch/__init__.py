@@ -17,7 +17,10 @@ losses and loss scaling; ``ComputationGraph`` training and inference with
 the block-fusion pass; ``evaluate``/``evaluate_regression`` and the
 evaluation classes (``eval``); training listeners and early stopping
 (``optimize``); datasets and in-memory iterators; the model zips, updater
-state included, in both directions; and ``ModelServer``. On the card the
+state included, in both directions; step-directory checkpoints and the
+fault-tolerant supervisor (``utils.checkpoint``, ``resilience``); the
+full-batch solvers and gradient checks; transfer learning with frozen
+layers; the pretrain and VAE layers; and ``ModelServer``. On the card the
 LSTM runs forward and backward as hand-written kernels
 (ops/csrc/lstm_fwd.cu, lstm_bwd.cu), causal attention's forward as a
 hand-written flash kernel (ops/csrc/flash_attn_fwd.cu), and the fused

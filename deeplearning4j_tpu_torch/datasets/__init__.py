@@ -5,7 +5,8 @@ from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.datasets.iterator import (
     ArrayDataSetIterator, AsyncDataSetIterator, DataSetIterator,
     DevicePrefetchIterator, IteratorDataSetIterator, ListDataSetIterator,
-    MultipleEpochsIterator, SamplingDataSetIterator)
+    MultipleEpochsIterator, ReconstructionDataSetIterator,
+    SamplingDataSetIterator)
 from deeplearning4j_tpu_torch.datasets.records import (
     CollectionRecordReader, CSVRecordReader, RecordReaderDataSetIterator,
     SequenceRecordReaderDataSetIterator)
@@ -15,5 +16,5 @@ __all__ = ["ArrayDataSetIterator", "AsyncDataSetIterator",
            "DataSetIterator", "DevicePrefetchIterator",
            "IteratorDataSetIterator", "ListDataSetIterator",
            "MultiDataSet", "MultipleEpochsIterator",
-           "RecordReaderDataSetIterator", "SamplingDataSetIterator",
+           "ReconstructionDataSetIterator", "RecordReaderDataSetIterator", "SamplingDataSetIterator",
            "SequenceRecordReaderDataSetIterator"]

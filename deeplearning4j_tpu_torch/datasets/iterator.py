@@ -2,7 +2,8 @@
 (counterpart of deeplearning4j_tpu/datasets/iterator.py):
 ``AsyncDataSetIterator`` prepares batches on a background thread,
 ``DevicePrefetchIterator`` copies batch N+1 to the card while step N
-runs. The native loader's iterator is not ported (ROADMAP.md A.6)."""
+runs, ``ReconstructionDataSetIterator`` makes the features the labels.
+The native loader's iterator is not ported (ROADMAP.md A.6)."""
 
 from __future__ import annotations
 
@@ -316,3 +317,25 @@ class SamplingDataSetIterator(DataSetIterator):
     @property
     def batch_size(self):
         return self._batch_size
+
+
+class ReconstructionDataSetIterator(DataSetIterator):
+    """Wraps an iterator, replacing the labels with the features:
+    autoencoder reconstruction targets. The features mask applies to both
+    sides, so a masked sequence autoencoder does not score padded
+    steps."""
+
+    def __init__(self, base: DataSetIterator):
+        self.base = base
+
+    def __iter__(self):
+        for ds in self.base:
+            yield DataSet(ds.features, ds.features, ds.features_mask,
+                          ds.features_mask)
+
+    def reset(self):
+        self.base.reset()
+
+    @property
+    def batch_size(self):
+        return self.base.batch_size

@@ -56,6 +56,8 @@ def layer_from_dict(d: dict) -> "BaseLayerConfig":
             f"yet (ported: {sorted(LAYER_REGISTRY)})")
     if "updater" in d and isinstance(d["updater"], dict):
         d["updater"] = updater_from_dict(d["updater"])
+    if hasattr(cls, "_decode_fields"):  # nested configs (Frozen's inner)
+        d = cls._decode_fields(d)
     fields = {f.name for f in dataclasses.fields(cls)}
     # tuple-valued fields arrive as lists from JSON
     for k, v in list(d.items()):

@@ -2,7 +2,8 @@
 deeplearning4j_tpu/nn/graph.py: ``init``, ``_walk`` with the block-fusion
 pass, ``_loss``, ``fit_batch``, in-memory ``fit``, listeners, ``score``,
 ``output``, ``feed_forward``, ``evaluate``, ``evaluate_regression``,
-``num_params``, ``summary``, ``clone``, ``set_lr_scale``).
+``num_params``, ``summary``, ``clone``, ``set_lr_scale``,
+``resilient_fit``, ``pretrain``, ``pretrain_layer``).
 
 Parameters are ``{vertex_name: {param: tensor}}`` and the layer state
 (batch-norm running statistics) ``{vertex_name: {...}}``, in the JAX
@@ -18,9 +19,10 @@ The training walk routes every bottleneck tail the fusion pass matched
 op: K4-K7 on the card. The eval walk (``output``) runs vertex by vertex
 with the running statistics.
 
-Not ported (ROADMAP.md): remat spans, mesh placement, truncated BPTT
-(``fit_batch`` refuses a batch longer than the window by name) and
-``rnn_time_step`` on graphs, and pretraining.
+``resilient_fit`` supervises training (resilience/), and ``pretrain``
+trains the pretrainable layer vertices. Not ported (ROADMAP.md): remat
+spans, mesh placement, truncated BPTT (``fit_batch`` refuses a batch
+longer than the window by name) and ``rnn_time_step`` on graphs.
 """
 
 from __future__ import annotations
@@ -253,8 +255,16 @@ class ComputationGraph:
                     f"Network output '{name}' is not a loss-bearing layer")
             xs, _ = saved[name]
             lm = None if lmasks is None else lmasks[i]
-            l = layer.loss(params.get(name, {}), xs[0], labels[i],
-                           train=train, gen=gen, mask=lm)
+            if getattr(layer, "loss_uses_state", False):
+                s_out = state.get(name, {})
+                l = layer.loss(params.get(name, {}), xs[0], labels[i],
+                               train=train, gen=gen, mask=lm, state=s_out)
+                if train:
+                    new_state[name] = layer.update_centers(
+                        s_out, xs[0].detach(), labels[i], mask=lm)
+            else:
+                l = layer.loss(params.get(name, {}), xs[0], labels[i],
+                               train=train, gen=gen, mask=lm)
             total = l if total is None else total + l
         for layer in self.layers:
             if layer.name in params:
@@ -366,6 +376,61 @@ class ComputationGraph:
             self.epoch += 1
             if hasattr(items, "reset"):
                 items.reset()
+        return self
+
+    def resilient_fit(self, data, labels=None, *, checkpoint_dir: str,
+                      epochs: int = 1, batch_size: int = 32,
+                      **supervisor_kw):
+        """Supervised ``fit``: periodic checkpoints to fresh step
+        directories, auto-resume from the newest valid one, transient-step
+        retry, NaN rollback with LR backoff and SIGTERM preemption
+        (resilience/supervisor.py). Returns the SupervisorResult."""
+        from deeplearning4j_tpu_torch.resilience import resilient_fit
+        return resilient_fit(self, data, labels,
+                             checkpoint_dir=checkpoint_dir, epochs=epochs,
+                             batch_size=batch_size, **supervisor_kw)
+
+    # ------------------------------------------------------------ pretrain
+    def pretrain(self, data, *, epochs: int = 1):
+        """Layer-wise unsupervised pretraining over the DAG: each
+        pretrainable layer vertex (VAE, AutoEncoder, RBM), in topological
+        order, trains on the activations its input vertex produces under
+        the current parameters."""
+        self._require_init()
+        for name in self.topo:
+            layer = self._layer_by_name.get(name)
+            if layer is not None and getattr(layer, "is_pretrainable", False):
+                self.pretrain_layer(name, data, epochs=epochs)
+        return self
+
+    def pretrain_layer(self, name: str, data, *, epochs: int = 1):
+        """Pretrain one layer vertex on its input's activations (see
+        MultiLayerNetwork.pretrain_layer); ``data`` a DataSet, a
+        MultiDataSet or an iterable of them."""
+        from deeplearning4j_tpu_torch.nn.layers.pretrain import pretrain_step
+        self._require_init()
+        layer = self._layer_by_name.get(name)
+        if layer is None or not getattr(layer, "is_pretrainable", False):
+            raise ValueError(f"Vertex '{name}' is not a pretrainable layer")
+        gc = self.conf.global_conf
+        items = [data] if isinstance(data, (DataSet, MultiDataSet)) else data
+        last = None
+        for _ in range(epochs):
+            for d in items:
+                mds = self._coerce(d)
+                inputs, fmasks = self._prepare_inputs(mds.features,
+                                                      mds.features_masks)
+                with torch.no_grad():
+                    _, saved, _, _ = self._walk(
+                        self.params, self.state, inputs, train=False,
+                        fmasks=fmasks, need_inputs_of=(name,))
+                last = pretrain_step(layer, gc, self.params, self.opt_state,
+                                     self.iteration, saved[name][0][0],
+                                     self._gen)
+                self.iteration += 1
+            if hasattr(items, "reset"):
+                items.reset()
+        self.score_value = last
         return self
 
     def score(self, mds, train: bool = False) -> float:

@@ -3,7 +3,8 @@
 input preprocessors ``set_input_type`` inserts, ``fit``, ``fit_batch``,
 truncated BPTT, listeners, ``score``, ``output``, ``feed_forward``,
 ``evaluate``, ``evaluate_regression``, ``rnn_time_step``,
-``rnn_clear_previous_state``, ``summary``, ``clone``).
+``rnn_clear_previous_state``, ``summary``, ``clone``, ``resilient_fit``,
+``pretrain``, ``pretrain_layer``).
 
 Parameters are a dict ``{layer_name: {param_name: tensor}}`` in the JAX
 package's layouts, and the optimizer state a dict keyed as the JAX
@@ -216,8 +217,19 @@ class MultiLayerNetwork:
         # (conv -> Output) is applied here
         if self.preprocessors[-1] is not None:
             h = self.preprocessors[-1](h)
-        data_loss = out_layer.loss(params.get(out_layer.name, {}), h, labels,
-                                   train=train, gen=gen, mask=lmask)
+        p_out = params.get(out_layer.name, {})
+        if getattr(out_layer, "loss_uses_state", False):
+            # the center loss: its term reads the centers, which move by
+            # their own rule outside the differentiated loss
+            s_out = state.get(out_layer.name, {})
+            data_loss = out_layer.loss(p_out, h, labels, train=train,
+                                       gen=gen, mask=lmask, state=s_out)
+            if train:
+                new_state[out_layer.name] = out_layer.update_centers(
+                    s_out, h.detach(), labels, mask=lmask)
+        else:
+            data_loss = out_layer.loss(p_out, h, labels, train=train,
+                                       gen=gen, mask=lmask)
         reg = torch.zeros((), dtype=data_loss.dtype, device=data_loss.device)
         for layer in self.layers:
             if layer.name in params:
@@ -258,8 +270,8 @@ class MultiLayerNetwork:
         package). Every chunk of a batch reads the batch's iteration."""
         step = precision.build_step_fn(self._loss, self.layers,
                                        self.conf.global_conf, self._lr_scale)
-        leaves = _map(lambda t: t.detach().requires_grad_(), self.params)
-        new_state, score = step(leaves, self.state, self.opt_state,
+        new_state, score = step(multistep.step_leaves(self), self.state,
+                                self.opt_state,
                                 multistep.device_iteration(self), x, y,
                                 fmask, lmask, self._gen)
         self.state = _map(lambda t: t.detach(), new_state)
@@ -402,6 +414,68 @@ class MultiLayerNetwork:
                 l.on_epoch_end(self)
             self.epoch += 1
             it.reset()
+        return self
+
+    def resilient_fit(self, data, labels=None, *, checkpoint_dir: str,
+                      epochs: int = 1, batch_size: int = 32,
+                      **supervisor_kw):
+        """Supervised ``fit``: periodic checkpoints to fresh step
+        directories, auto-resume from the newest valid one, transient-step
+        retry, NaN rollback with LR backoff and SIGTERM preemption
+        (resilience/supervisor.py). Returns the SupervisorResult."""
+        from deeplearning4j_tpu_torch.resilience import resilient_fit
+        return resilient_fit(self, data, labels,
+                             checkpoint_dir=checkpoint_dir, epochs=epochs,
+                             batch_size=batch_size, **supervisor_kw)
+
+    # ------------------------------------------------------------ pretrain
+    def pretrain(self, data, *, epochs: int = 1, batch_size: int = 32):
+        """Layer-wise unsupervised pretraining: each pretrainable layer
+        (VAE, AutoEncoder, RBM) in turn trains on the activations of the
+        layers below it. ``data``: an iterator, a DataSet or a features
+        array."""
+        self._require_init()
+        if isinstance(data, DataSetIterator):
+            it = data
+        elif isinstance(data, DataSet):
+            it = ListDataSetIterator([data])
+        else:
+            it = ArrayDataSetIterator(data, None, batch_size=batch_size)
+        for i, layer in enumerate(self.layers):
+            if getattr(layer, "is_pretrainable", False):
+                self.pretrain_layer(i, it, epochs=epochs)
+        return self
+
+    def pretrain_layer(self, idx: int, iterator, *, epochs: int = 1):
+        """Pretrain one layer on its (preprocessed) input activations with
+        its own unsupervised objective (``pretrain_loss``: -ELBO for a
+        VAE, the reconstruction for an AutoEncoder, the CD free-energy
+        difference for an RBM) and its updater; each batch is one step and
+        one iteration."""
+        from deeplearning4j_tpu_torch.nn.layers.pretrain import pretrain_step
+        self._require_init()
+        layer = self.layers[idx]
+        if not getattr(layer, "is_pretrainable", False):
+            raise ValueError(f"Layer {idx} ({layer.conf.layer_type}) is not "
+                             f"pretrainable")
+        if isinstance(iterator, DataSet):
+            iterator = ListDataSetIterator([iterator])
+        gc = self.conf.global_conf
+        last = None
+        for _ in range(epochs):
+            for ds in iterator:
+                with torch.no_grad():
+                    x = self._as_tensor(ds.features)
+                    if idx > 0:
+                        x, _ = self._forward(self.params, self.state, x,
+                                             train=False, to_layer=idx)
+                    if self.preprocessors[idx] is not None:
+                        x = self.preprocessors[idx](x)
+                last = pretrain_step(layer, gc, self.params, self.opt_state,
+                                     self.iteration, x, self._gen)
+                self.iteration += 1
+            iterator.reset()
+        self.score_value = last
         return self
 
     def score(self, ds: DataSet, train: bool = False) -> float:

@@ -50,7 +50,7 @@ import time
 import torch
 
 from deeplearning4j_tpu_torch.nn import precision
-from deeplearning4j_tpu_torch.nn.updater import _map
+from deeplearning4j_tpu_torch.nn.updater import NoOp, _map
 from deeplearning4j_tpu_torch.ops import registry
 
 #: eager steps on the side stream before a capture (the count
@@ -113,6 +113,27 @@ def _same_kind(a, b):
             and a.device == b.device)
 
 
+def frozen_layers(net) -> frozenset:
+    """Names of the layers whose updater is ``NoOp`` (a ``Frozen``
+    wrapper's, or one configured so): their update discards the
+    gradient, so a step does not compute it."""
+    return frozenset(l.name for l in net.layers
+                     if isinstance(l.resolve("updater"), NoOp))
+
+
+def step_leaves(net) -> dict:
+    """The parameter leaves a step differentiates and updates in place:
+    tensors sharing storage with ``net.params``, each requiring grad but
+    a frozen layer's. The JAX package differentiates every parameter and
+    lets ``NoOp`` discard the frozen ones (dead code to XLA); here
+    autograd is not asked for them, so a frozen prefix costs no weight
+    gradient, and no backward at all below the first trained layer."""
+    frozen = frozen_layers(net)
+    return {name: _map(lambda t: t.detach() if name in frozen
+                       else t.detach().requires_grad_(), sub)
+            for name, sub in net.params.items()}
+
+
 def train_step(net, batch) -> torch.Tensor:
     """One optimization step on ``batch`` (the net's ``_step_batch``
     tuple of device tensors), everything in place: parameters, updater
@@ -121,8 +142,8 @@ def train_step(net, batch) -> torch.Tensor:
     step = precision.build_step_fn(net._loss, net.layers,
                                    net.conf.global_conf, net._lr_scale)
     it = device_iteration(net)
-    leaves = _map(lambda t: t.detach().requires_grad_(), net.params)
-    new_state, score = step(leaves, net.state, net.opt_state, it, *batch,
+    new_state, score = step(step_leaves(net), net.state, net.opt_state, it,
+                            *batch,
                             net._gen)
     commit_state(net.state, new_state)
     it.add_(1)

@@ -28,7 +28,8 @@ from __future__ import annotations
 
 import torch
 
-from deeplearning4j_tpu_torch.nn.updater import _leaves, apply_layer_updates
+from deeplearning4j_tpu_torch.nn.updater import (_fill, _leaves,
+                                                 apply_layer_updates)
 
 #: reserved top-level opt_state key holding {"scale", "good_steps"}
 LOSS_SCALE_KEY = "_loss_scale"
@@ -48,8 +49,9 @@ def init_loss_scale_state(policy, device="cpu"):
 
 
 def all_finite(tree) -> torch.Tensor:
-    """0-d bool: every leaf of ``tree`` is free of inf/nan."""
-    leaves = list(_leaves(tree))
+    """0-d bool: every leaf of ``tree`` is free of inf/nan (None leaves,
+    a frozen layer's gradients, are left out)."""
+    leaves = [l for l in _leaves(tree) if l is not None]
     if not leaves:
         return torch.tensor(True)
     return torch.stack([torch.isfinite(l).all() for l in leaves]).all()
@@ -74,27 +76,39 @@ def next_scale_state(ls, finite, mode, policy):
     return {"scale": scale, "good_steps": good}
 
 
+def tree_grads(loss, params):
+    """d loss / d params as a tree shaped like ``params``: zeros for a
+    leaf the loss does not reach, None for a leaf that does not require
+    grad (a frozen layer's, which autograd is not asked for)."""
+    leaves = list(_leaves(params))
+    wanted = [p for p in leaves if p.requires_grad]
+    gs = iter(torch.autograd.grad(loss, wanted, allow_unused=True)
+              if wanted else ())
+    out = []
+    for p in leaves:
+        g = next(gs) if p.requires_grad else None
+        if g is None and p.requires_grad:
+            g = torch.zeros_like(p)
+        out.append(g)
+    return _fill(params, iter(out))
+
+
 def build_step_fn(loss_fn, layers, gc, lr_scale):
     """The train step: ``step(params, state, opt_state, it, *data) ->
     (new_state, score)``. ``loss_fn(params, state, *data) -> (loss,
     new_state)``. ``params`` hold the leaf tensors the step differentiates
     and updates in place; ``opt_state``'s tensors are updated in place.
-    ``it`` is the iteration (an int, or the net's int32 device twin)."""
+    ``it`` is the iteration (an int, or the net's int32 device twin).
+    A leaf that does not require grad (a frozen layer's, see
+    nn/multistep.py's ``step_leaves``) gets no gradient and no update."""
     policy = gc.dtype
     mode = policy.loss_scale_mode()
     master = getattr(torch, policy.param_dtype)
 
-    def grads_of(loss, params):
-        leaves = list(_leaves(params))
-        gs = torch.autograd.grad(loss, leaves, allow_unused=True)
-        gs = iter([torch.zeros_like(p) if g is None else g
-                   for p, g in zip(leaves, gs)])
-        return _fill(params, gs)
-
     if mode is None:
         def step(params, state, opt_state, it, *data):
             loss, new_state = loss_fn(params, state, *data)
-            grads = grads_of(loss, params)
+            grads = tree_grads(loss, params)
             apply_layer_updates(layers, gc, params, grads, opt_state, it,
                                 lr_scale)
             return new_state, loss.detach()
@@ -105,9 +119,9 @@ def build_step_fn(loss_fn, layers, gc, lr_scale):
         ls = opt_state[LOSS_SCALE_KEY]
         scale = ls["scale"]
         loss, new_state = loss_fn(params, state, *data)
-        grads = grads_of(loss * scale.to(loss.dtype), params)
+        grads = tree_grads(loss * scale.to(loss.dtype), params)
         inv = (1.0 / scale).to(master)
-        grads = _fill(grads, iter([g.to(master) * inv
+        grads = _fill(grads, iter([None if g is None else g.to(master) * inv
                                    for g in _leaves(grads)]))
         finite = all_finite(grads)
         # the skip as a select on the card: no host read
@@ -125,14 +139,6 @@ def build_step_fn(loss_fn, layers, gc, lr_scale):
         return new_state, loss.detach()
 
     return step
-
-
-def _fill(tree, it):
-    """``tree``'s structure with its leaves taken from ``it`` in the order
-    of ``_leaves``."""
-    if isinstance(tree, dict):
-        return {k: _fill(tree[k], it) for k in sorted(tree)}
-    return next(it)
 
 
 def current_loss_scale(net):

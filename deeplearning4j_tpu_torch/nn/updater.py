@@ -54,6 +54,14 @@ def _leaves(tree):
         yield tree
 
 
+def _fill(tree, it):
+    """``tree``'s structure with its leaves taken from ``it`` in the order
+    of ``_leaves``."""
+    if isinstance(tree, dict):
+        return {k: _fill(tree[k], it) for k in sorted(tree)}
+    return next(it)
+
+
 def _unzip(pairs, n):
     """A tree of n-tuples -> n trees."""
     if isinstance(pairs, dict):
@@ -576,8 +584,9 @@ def apply_layer_updates(layers, gc, params, grads, opt_state, it,
     package, which returns new trees, this writes the new parameters and
     every updater slot (Adam's ``t`` too) into the tensors ``params`` and
     ``opt_state`` already hold; keys that are not layers (the loss-scale
-    state) are left alone. Bit for bit the result of
-    ``apply_layer_updates_plain``."""
+    state) are left alone, and so is a layer whose updater is ``NoOp``
+    (frozen: its gradient may be None, never computed). Bit for bit the
+    result of ``apply_layer_updates_plain``."""
     master = getattr(torch, gc.dtype.param_dtype)
     groups: dict = {}
     with torch.no_grad():
@@ -586,6 +595,8 @@ def apply_layer_updates(layers, gc, params, grads, opt_state, it,
             if name not in params:
                 continue
             mode, thr, upd, base_lr = _resolve_layer(layer, gc)
+            if isinstance(upd, NoOp):
+                continue  # frozen: no gradient was computed, none applied
             g = _map(lambda gr, p: gr.to(p.dtype), grads[name], params[name])
             g = normalize_gradients(g, mode, thr)
             first = next(_leaves(params[name]))
@@ -619,6 +630,8 @@ def apply_layer_updates_plain(layers, gc, params, grads, opt_state, it,
         if name not in params:
             continue
         mode, thr, upd, base_lr = _resolve_layer(layer, gc)
+        if isinstance(upd, NoOp):
+            continue  # frozen: p - 0 is p
         g = _map(lambda gr, p: gr.to(p.dtype), grads[name], params[name])
         g = normalize_gradients(g, mode, thr)
         lr = gc.lr_schedule(base_lr, it, dtype=master) * lr_scale

@@ -1,6 +1,6 @@
-"""Training listeners and early stopping (counterpart of
-deeplearning4j_tpu/optimize: listeners.py and earlystopping.py; the
-full-batch solvers are not ported yet)."""
+"""Training listeners, early stopping and the full-batch solvers
+(counterpart of deeplearning4j_tpu/optimize: listeners.py,
+earlystopping.py and solvers.py)."""
 
 from deeplearning4j_tpu_torch.optimize.listeners import (
     CollectScoresIterationListener,
@@ -8,10 +8,12 @@ from deeplearning4j_tpu_torch.optimize.listeners import (
     ParamAndGradientIterationListener,
     PerformanceListener,
     ProfilerListener,
+    RecoveryEventListener,
     ScoreIterationListener,
     TrainingListener,
 )
 
 __all__ = ["CollectScoresIterationListener", "ComposableIterationListener",
            "ParamAndGradientIterationListener", "PerformanceListener",
-           "ProfilerListener", "ScoreIterationListener", "TrainingListener"]
+           "ProfilerListener", "RecoveryEventListener",
+           "ScoreIterationListener", "TrainingListener"]

@@ -1,15 +1,16 @@
 """Training listeners (counterpart of deeplearning4j_tpu/optimize/listeners.py):
 ``TrainingListener``, ``ScoreIterationListener``,
 ``CollectScoresIterationListener``, ``PerformanceListener``,
-``ComposableIterationListener``, ``ProfilerListener`` and
-``ParamAndGradientIterationListener``.
+``ComposableIterationListener``, ``ProfilerListener``,
+``ParamAndGradientIterationListener`` and ``RecoveryEventListener``.
 
 A network calls ``iteration_done(net, iteration, epoch)`` after every
 ``fit_batch`` and ``on_epoch_start``/``on_epoch_end`` around each epoch of
-``fit``. ``net.score_value`` is a 0-d tensor on the net's device: reading
-it (``float``) waits for the card to finish the step. Each listener reads
-it only at its own cadence, so the iterations it skips cost the host a
-few Python calls and no wait on the card.
+``fit``; the TrainingSupervisor calls ``on_recovery(net, event)`` for
+each of its recovery events. ``net.score_value`` is a 0-d tensor on the
+net's device: reading it (``float``) waits for the card to finish the
+step. Each listener reads it only at its own cadence, so the iterations
+it skips cost the host a few Python calls and no wait on the card.
 
 ``needs_per_iteration`` (the JAX package's values): True when a
 listener must run at the moment each step ends (timings, parameter
@@ -42,6 +43,12 @@ class TrainingListener:
         pass
 
     def on_epoch_end(self, net):
+        pass
+
+    def on_recovery(self, net, event):
+        """Called by the TrainingSupervisor (resilience/supervisor.py)
+        with a ``RecoveryEvent`` for every checkpoint, resume, retry,
+        rollback, preemption and retention GC."""
         pass
 
 
@@ -173,6 +180,33 @@ class ComposableIterationListener(TrainingListener):
     def on_epoch_end(self, net):
         for l in self.listeners:
             l.on_epoch_end(net)
+
+    def on_recovery(self, net, event):
+        for l in self.listeners:
+            l.on_recovery(net, event)
+
+
+class RecoveryEventListener(TrainingListener):
+    """Collects (and optionally logs) the supervisor's recovery events:
+    the listener's view of restarts, rollbacks and retries
+    (``ResilienceStats`` keeps the counters)."""
+
+    needs_per_iteration = False  # only observes recovery events
+
+    def __init__(self, log: bool = True):
+        self.log = log
+        self.events: list = []
+
+    def on_recovery(self, net, event):
+        self.events.append(event)
+        if self.log:
+            logger.warning("recovery: %s", event)
+
+    def counts(self) -> dict:
+        out: dict[str, int] = {}
+        for e in self.events:
+            out[e.kind] = out.get(e.kind, 0) + 1
+        return out
 
 
 class ProfilerListener(TrainingListener):

@@ -62,17 +62,19 @@ def step_flops(net, batch) -> dict:
     {kernel: operations}, "bytes_accessed": None (not counted)}."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    from deeplearning4j_tpu_torch.nn.updater import _leaves, _map
+    from deeplearning4j_tpu_torch.nn.multistep import step_leaves
+    from deeplearning4j_tpu_torch.nn.updater import _leaves
     from deeplearning4j_tpu_torch.ops import registry
 
     gen_state = net._gen.get_state()
-    leaves = _map(lambda t: t.detach().requires_grad_(), net.params)
+    leaves = step_leaves(net)
+    wanted = [t for t in _leaves(leaves) if t.requires_grad]
     try:
         with registry.recording(), registry.counting_flops() as kf, \
                 FlopCounterMode(display=False) as fc:
             loss, _ = net._loss(leaves, net.state, *batch, net._gen)
-            torch.autograd.grad(loss, list(_leaves(leaves)),
-                                allow_unused=True)
+            if wanted:
+                torch.autograd.grad(loss, wanted, allow_unused=True)
     finally:
         net._gen.set_state(gen_state)
     total = float(fc.get_total_flops()) + sum(kf.values())
