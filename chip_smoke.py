@@ -69,6 +69,19 @@ conv block; [pretrain] a VAE and an AE/RBM stack), each also alone
 (--resilient, --resilient-resnet, --solvers, --gradcheck, --transfer,
 --pretrain), and
 
+    python3 chip_smoke.py --slice13
+
+runs only the data-fed, observed training phases ([datapipe_resilient]:
+the char-RNN fed by a datapipe (tokenize, window, shuffle over the
+epoch, batch, prefetch) through fit_pipeline's crashes, SIGTERM and
+relaunches, bit-identical to an uninterrupted run, batch for batch,
+with its flight files, RunReports and Chrome trace; [datapipe_feed]:
+the pipeline's rate, and fit(pipe) eager and captured beside the same
+batches from memory, char-RNN and LeNet; [observability]: the tracer's
+and the flight recorder's cost on the step), each also alone
+(--datapipe-resilient, --datapipe-feed, --observability); the traces
+land in profile_out/, and
+
     python3 chip_smoke.py --k6-split
 
 times K6 alone at the same three shapes, on its sm90 path and on its
@@ -260,6 +273,24 @@ def host_ms_per_call(fn, calls=200):
     return issued * 1e3 / calls
 
 
+# the tracer's span names: while a torch.profiler profile records, each
+# span is a record_function annotation, listed among the CUDA entries as
+# a GPU user annotation (the span's interval on the card, not work)
+SPAN_NAMES = frozenset((
+    "data_wait", "host_dispatch", "device_step", "score_sync",
+    "flops_derive", "checkpoint_snapshot", "checkpoint_write",
+    "checkpoint_barrier", "rollback", "restore", "run_start",
+    "pipe_shuffle_fill", "pipe_collate", "pipe_prefetch_pull"))
+
+
+def device_kernels(events):
+    """The CUDA entries of a profile's ``key_averages()`` that are device
+    work (kernels, copies, memsets), the tracer's annotations left out."""
+    return [e for e in events if e.device_type.name == "CUDA"
+            and not getattr(e, "is_user_annotation", False)
+            and e.key not in SPAN_NAMES]
+
+
 def device_events(fn, reps):
     """torch.profiler's per-kernel averages (CUDA only) over ``reps``
     calls of ``fn()``, after a warm-up call. A profile that saw no device
@@ -275,8 +306,7 @@ def device_events(fn, reps):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type.name == "CUDA"]
+        events = device_kernels(prof.key_averages())
         if sum(e.self_device_time_total for e in events) > 0:
             return events
     raise SmokeFailure("the profiler saw no device time in three profiles")
@@ -1335,8 +1365,7 @@ def profile_steps(net, data, names_to=None):
             net.fit_batch(ds)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type.name == "CUDA"]
+    kernels = device_kernels(prof.key_averages())
     dev_us = {e.key: e.self_device_time_total for e in kernels}
     n = len(data)
     check(sum(dev_us.values()) > 0, "the profiler saw no device time")
@@ -2263,8 +2292,7 @@ def resnet_profile(net, data):
             net.fit_batch(ds)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type.name == "CUDA"]
+    kernels = device_kernels(prof.key_averages())
     n = len(data)
     total = sum(e.self_device_time_total for e in kernels)
     check(total > 0, "the profiler saw no device time")
@@ -3735,7 +3763,7 @@ def profile_call(fn, steps):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     avgs = prof.key_averages()
-    kernels = [e for e in avgs if e.device_type.name == "CUDA"]
+    kernels = device_kernels(avgs)
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     check(dev_ms > 0, "the profiler saw no device time in the replays")
     graphs = sum(e.count for e in avgs if e.key == "cudaGraphLaunch")
@@ -4871,6 +4899,647 @@ def phase_slice12():
     phase_pretrain()
 
 
+# --------------------------------------------------------------------------
+# slice 13: the data-fed, observed training run
+# --------------------------------------------------------------------------
+# the char-RNN's token stream: 12 batches of b = 32 windows of T = 64 an
+# epoch, cut from one text of markov_batches' order-2 chain over 80
+# printable symbols (chr(33) ...), shuffled over the whole epoch
+DP_V, DP_T, DP_B, DP_BATCHES, DP_EPOCHS, DP_EVERY = 80, 64, 32, 12, 3, 4
+DP_SHUFFLE_WINDOW = 512
+DP_ALPHABET = "".join(chr(33 + i) for i in range(DP_V))
+# the fault schedule over fit_pipeline's 36 steps, one launch each, every
+# one on a fresh net and a fresh pipeline, resumed from disk only: a
+# crash mid-epoch 1 (step 18 keeps failing past its 3 retries), a crash
+# inside the relaunch's second save, a SIGTERM mid-epoch 2 (at step 30),
+# a clean relaunch
+DP_PLAN = [[("crash_step", 18)], [("crash_save", 1)], [("sigterm", 30)], []]
+DP_OUTCOMES = ["crashed", "crashed", "preempted", "completed"]
+# the recovery events (kind, step) each launch must emit, as the port's
+# supervisor emits them on the CPU for this schedule (the CPU tests hold
+# its fit_pipeline events to the JAX package's)
+DP_EVENTS = [
+    [("checkpoint", 0), ("checkpoint", 4), ("checkpoint", 8),
+     ("checkpoint", 12), ("gc", 12), ("retry", 18), ("retry", 18),
+     ("retry", 18), ("checkpoint", 16), ("gc", 16)],
+    [("resume", 16), ("checkpoint", 20), ("gc", 20)],
+    [("resume", 20), ("checkpoint", 24), ("gc", 24), ("checkpoint", 28),
+     ("gc", 28), ("checkpoint", 31), ("gc", 31), ("preempt", 31)],
+    [("resume", 31), ("checkpoint", 32), ("gc", 32), ("checkpoint", 36),
+     ("gc", 36)]]
+# the ledger's invariant, as the JAX package's CI holds it
+LEDGER_ATTRIBUTED_SHARE = 0.95
+# the cost of observing, as the JAX package budgets it (bench.py's
+# trace_overhead and identity_overhead): reported against, not gated
+TRACE_BUDGET, FLIGHT_BUDGET = 0.03, 0.01
+# where the phases' traces go (beside this script, as the kernel listings)
+OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "profile_out")
+
+
+def markov_text(n, V, seed):
+    """``n`` symbols of markov_batches' order-2 chain as one text over V
+    printable characters (chr(33) ...)."""
+    rng = np.random.default_rng(seed)
+    table = rng.integers(0, V, (V, 2, 3))
+    succ = table[:, np.arange(V) % 2].transpose(1, 0, 2)  # [a, b, 3]
+    seq = np.empty(n, np.int64)
+    seq[:2] = rng.integers(0, V, 2)
+    pick = rng.choice(3, size=n, p=[0.6, 0.3, 0.1])
+    for t in range(2, n):
+        seq[t] = succ[seq[t - 2], seq[t - 1], pick[t]]
+    return "".join(chr(33 + int(i)) for i in seq)
+
+
+def dp_corpus():
+    """A text of DP_BATCHES * DP_B full windows of DP_T + 1 tokens each
+    (one token shared between neighbours)."""
+    return markov_text(DP_BATCHES * DP_B * DP_T + 1, DP_V, SEED + 60)
+
+
+def dp_pipeline(corpus, depth=2, window=DP_SHUFFLE_WINDOW, t=DP_T, b=DP_B):
+    """from_text -> tokenize -> window(T) -> shuffle -> batch(b) ->
+    prefetch(depth) (no prefetch stage at depth 0)."""
+    from deeplearning4j_tpu_torch import datapipe
+    tok = datapipe.CharTokenizer(DP_ALPHABET)
+    check(tok.vocab_size == DP_V, f"vocab {tok.vocab_size}")
+    pipe = (datapipe.from_text(corpus).tokenize(tok)
+            .window(t, vocab_size=DP_V)
+            .shuffle(window=window, seed=SEED + 61)
+            .batch(b, drop_last=True))
+    return pipe.prefetch(depth) if depth else pipe
+
+
+def batch_hash(ds):
+    """sha256 of a batch's features and labels (host arrays)."""
+    import hashlib
+    h = hashlib.sha256(np.ascontiguousarray(ds.features).tobytes())
+    h.update(np.ascontiguousarray(ds.labels).tobytes())
+    return h.hexdigest()[:16]
+
+
+def record_batches(net, kept):
+    """Wraps ``net.fit_batch`` so each batch it trains on is kept in
+    ``kept`` (a reference; hashed after the run, so the step path pays an
+    append)."""
+    step = net.fit_batch
+
+    def fit_batch(ds):
+        kept.append(ds)
+        return step(ds)
+
+    net.fit_batch = fit_batch
+    return net
+
+
+def _arm_dp(faults):
+    from deeplearning4j_tpu_torch.resilience import FaultInjector
+    inj = FaultInjector()
+    for fault, at in faults:
+        if fault == "crash_step":
+            inj.fail_step(at, times=4)       # past max_step_retries = 3
+        elif fault == "crash_save":
+            inj.crash_during_save(at)
+        elif fault == "sigterm":
+            inj.sigterm_at_step(at)
+    return inj
+
+
+def dp_chaos(make, corpus, ckpt, plan=DP_PLAN):
+    """DP_PLAN's launches through fit_pipeline, each on a fresh net and a
+    fresh pipeline (resume from disk only, the SIGTERM handler installed,
+    a new incarnation a relaunch), until one completes. Returns (net,
+    per-launch events, outcomes, per-launch batch hashes, reports of the
+    launches that returned, the flight files, steps run)."""
+    from deeplearning4j_tpu_torch.observability import distributed as odist
+    from deeplearning4j_tpu_torch.resilience import (InjectedCrash,
+                                                     TransientStepError)
+    events, outcomes, hashes, reports, net = [], [], [], [], None
+    for i, faults in enumerate(plan):
+        if i:
+            odist.bump_incarnation()
+        kept = []
+        net = record_batches(make(), kept)
+        inj = _arm_dp(faults)
+        sup = _supervisor(net, ckpt, inj, handle_sigterm=True,
+                          checkpoint_every_steps=DP_EVERY)
+        try:
+            with inj.installed():
+                res = sup.fit_pipeline(dp_pipeline(corpus), epochs=DP_EPOCHS)
+            outcomes.append(res.status)
+            reports.append(res.report)
+        except (InjectedCrash, TransientStepError):
+            outcomes.append("crashed")
+        events.append([(e.kind, e.step) for e in sup.events])
+        hashes.append([batch_hash(ds) for ds in kept])
+        if outcomes[-1] == "completed":
+            break
+        del sup
+    flights = sorted(n for n in os.listdir(ckpt) if n.startswith("flight_"))
+    return (net, events, outcomes, hashes, reports, flights,
+            sum(len(h) for h in hashes))
+
+
+def check_report(report, what):
+    """A RunReport whose exclusive phases account for its wall time within
+    the JAX package's 5%; returns its summary."""
+    from deeplearning4j_tpu_torch.observability.goodput import RunReport
+    check(isinstance(report, RunReport), f"{what}: report {report!r}")
+    share = report.attributed_s / report.wall_s
+    check(share >= LEDGER_ATTRIBUTED_SHARE, f"{what}: the ledger attributes "
+          f"{share:.4f} of {report.wall_s:.3f} s: {report.phases}")
+    return {"wall_s": round(report.wall_s, 4), "attributed": round(share, 4),
+            "goodput": report.goodput_fraction and round(
+                report.goodput_fraction, 4),
+            "steps": report.steps}
+
+
+def phase_datapipe_resilient(make=None, corpus=None, root=None):
+    """[datapipe_resilient]: the full-width char-RNN (hidden 512, 2
+    GravesLSTM, BF16, Adam(2e-3); b = 32, T = 64; K1/K2 on the cluster
+    route) fed by a datapipe (from_text -> tokenize -> window -> shuffle
+    over the epoch -> batch -> prefetch 2) through fit_pipeline: DP_PLAN's
+    crashes, SIGTERM and relaunches on fresh nets and pipelines against
+    one uninterrupted fit_pipeline run. Gates: params and Adam slots bit
+    for bit, the batches trained on (a hash each), the events, the flight
+    files, the RunReports' attribution, K1/K2's launches. Also writes the
+    uninterrupted run's Chrome trace to profile_out/."""
+    import shutil
+    import tempfile
+    import torch
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.observability import flightrec
+    from deeplearning4j_tpu_torch.observability import trace as otrace
+    from deeplearning4j_tpu_torch.ops import registry
+    t_phase = time.perf_counter()
+    make = make or (lambda: zoo.char_rnn(seed=SEED))
+    corpus = corpus or dp_corpus()
+    root = root or tempfile.mkdtemp(prefix="dl4j_datapipe_")
+    out = {"model": "char_rnn(vocab=80,hidden=512,layers=2,BF16,Adam(2e-3))",
+           "pipeline": f"from_text.tokenize.window({DP_T}).shuffle("
+                       f"{DP_SHUFFLE_WINDOW}).batch({DP_B}).prefetch(2)",
+           "epochs": DP_EPOCHS, "batches_per_epoch": DP_BATCHES,
+           "every": DP_EVERY}
+    steps = DP_EPOCHS * DP_BATCHES
+    try:
+        # the step's FLOP count, which a ledger run derives once a net and
+        # batch signature (flops_derive): its first call in the process
+        # and a second one
+        probe = make()
+        b0 = next(iter(dp_pipeline(corpus, depth=0)))
+        derive_s = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            flops = probe.step_cost_analysis(b0)["flops"]
+            torch.cuda.synchronize()
+            derive_s.append(time.perf_counter() - t0)
+        out["flops_derive_s_first_second"] = "/".join(
+            f"{v:.3f}" for v in derive_s)
+        out["step_gflop"] = f"{flops / 1e9:.2f}"
+        del probe
+        # the uninterrupted run, traced from a fresh ring: its Chrome
+        # trace shows the main loop, the prefetch worker and the writer
+        tracer = otrace.Tracer()
+        prev = otrace.set_tracer(tracer)
+        try:
+            kept = []
+            ref = record_batches(make(), kept)
+            ref_res = _supervisor(
+                ref, os.path.join(root, "ref"),
+                checkpoint_every_steps=DP_EVERY,
+                keep_checkpoints=steps).fit_pipeline(
+                    dp_pipeline(corpus), epochs=DP_EPOCHS)
+        finally:
+            otrace.set_tracer(prev)
+        check(ref_res.status == "completed" and ref.iteration == steps,
+              f"uninterrupted run {ref_res.status} at {ref.iteration}")
+        ref_hashes = [batch_hash(ds) for ds in kept]
+        del kept
+        check(len(set(ref_hashes[:DP_BATCHES])) == DP_BATCHES
+              and ref_hashes[:DP_BATCHES] != ref_hashes[DP_BATCHES:
+                                                       2 * DP_BATCHES],
+              "the epochs' orders repeat")
+        want = _host_trees(ref)
+        out["uninterrupted_report"] = json.dumps(check_report(
+            ref_res.report, "uninterrupted"))
+        out["uninterrupted_phases_s"] = json.dumps(
+            {k: round(v["seconds"], 4)
+             for k, v in ref_res.report.phases.items()})
+        trace_doc = tracer.to_chrome_trace()
+        lanes = sorted({e["args"]["name"] for e in trace_doc["traceEvents"]
+                        if e["ph"] == "M"})
+        for lane in ("dl4j-pipe-prefetch", "dl4j-ckpt-writer",
+                     threading.current_thread().name):
+            check(lane in lanes, f"no {lane} lane in the trace: {lanes}")
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "fit_pipeline_trace.json"),
+                  "w") as f:
+            json.dump(trace_doc, f)
+        out["trace_lanes"] = json.dumps(lanes)
+        out["trace_spans"] = len(tracer.spans())
+        # meta.json across the run: the pipeline's state is O(window),
+        # so it shrinks through each epoch as the shuffle window drains
+        sizes = {}
+        for name in os.listdir(os.path.join(root, "ref")):
+            meta = os.path.join(root, "ref", name, "meta.json")
+            if name.startswith("step_") and os.path.isfile(meta):
+                sizes[int(name[5:])] = os.path.getsize(meta) / 2**20
+        out["meta_json_mb_by_step"] = json.dumps(
+            {k: round(v, 2) for k, v in sorted(sizes.items())})
+        del ref
+
+        # the chaos run: the main path, counted
+        registry.reset_launches()
+        net, events, outcomes, hashes, reports, flights, run = dp_chaos(
+            make, corpus, os.path.join(root, "chaos"))
+        launches = registry.launches()
+        check(outcomes == DP_OUTCOMES, f"outcomes {outcomes}")
+        check(events == DP_EVENTS, f"events {events} != the schedule's "
+              f"{DP_EVENTS}")
+        check(net.iteration == steps, f"survivor at {net.iteration}")
+        out["tensors_bit_identical"] = _trees_bit_equal(
+            _host_trees(net), want, "datapipe chaos survivor")
+        resumes = [dict(ev).get("resume", 0) for ev in events]
+        for i, got in enumerate(hashes):
+            start = resumes[i]
+            check(got == ref_hashes[start:start + len(got)],
+                  f"launch {i}: the batches trained on differ from the "
+                  f"uninterrupted run's from step {start}")
+            end = resumes[i + 1] if i + 1 < len(hashes) else steps
+            check(start + len(got) >= end, f"launch {i} stopped at "
+                  f"{start + len(got)}, the next resumed at {end}")
+        check(resumes[-1] + len(hashes[-1]) == steps, "the last launch")
+        out["batches_identical"] = run
+        for k in ("lstm_fwd", "lstm_fwd_sm90", "lstm_bwd_sm90"):
+            check(launches.get(k, 0) == 2 * run,
+                  f"{k} launched {launches.get(k, 0)} times in {run} "
+                  f"supervised steps, expected {2 * run}")
+        check(launches.get("lstm_bwd", 0) == 2 * lstm_launches_per_bwd()
+              * run, f"lstm_bwd launched {launches.get('lstm_bwd')}")
+        out["steps_run"] = run
+        out["chaos_launches"] = json.dumps(launches)
+        out["events"] = json.dumps(events)
+        # the flight files: one a launch that ended badly, each schema 1
+        check(len(flights) >= 3, f"flight files {flights}")
+        docs = {}
+        for name in flights:
+            with open(os.path.join(root, "chaos", name)) as f:
+                docs[name] = json.load(f)
+            check(docs[name]["schema"] == 1, f"{name} schema")
+        preempted = [d for d in docs.values() if d["reason"] == "preemption"]
+        check(len(preempted) == 1 and ("preempt", resumes[3]) in [
+            (e["kind"], e["step"]) for e in preempted[0]["events"]],
+            f"no preemption flight record naming step {resumes[3]}: "
+            f"{[(n, d['reason']) for n, d in docs.items()]}")
+        out["flight_files"] = json.dumps({n: d["reason"]
+                                          for n, d in docs.items()})
+        out["reports"] = json.dumps([check_report(r, f"launch {i + 2}")
+                                     for i, r in enumerate(reports)])
+        del net
+    finally:
+        flightrec.uninstall_flight_recorder()
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = f"{time.perf_counter() - t_phase:.1f}"
+    phase("datapipe_resilient", **out)
+
+
+def pipeline_rate(pipe, epochs=1):
+    """The pipeline alone, consumed as fast as it gives: batches/s and
+    MB/s of features and labels, host clock over ``epochs`` epochs."""
+    n, nbytes = 0, 0
+    t0 = time.perf_counter()
+    for _ in range(epochs):
+        for ds in pipe:
+            n += 1
+            nbytes += ds.features.nbytes + ds.labels.nbytes
+    dt = time.perf_counter() - t0
+    pipe.close()
+    return n / dt, nbytes / dt / 1e6
+
+
+def fit_ms(net, it, epochs=1, **fit_kw):
+    """Host-clock ms a step of one ``fit(it, epochs=epochs, **fit_kw)``,
+    from a synchronize before to one after."""
+    import torch
+    steps0 = net.iteration
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.fit(it, epochs=epochs, **fit_kw)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / (net.iteration - steps0)
+
+
+FEED_MODES = (("eager", dict(multi_step=1)), ("captured", dict(multi_step=8)))
+# epochs a timed fit of [datapipe_feed] runs: 84 char-RNN steps, enough
+# for a fit's one-time start-up (threads, a stream, the ledger) to
+# amortize, as the JAX package's 80-step ledger test has it
+FEED_TIMED_EPOCHS = 7
+
+
+def traced_fit_ms(net, it, epochs=1, **fit_kw):
+    """``fit_ms`` with a fresh tracer. Also returns the fit thread's own
+    ``data_wait`` seconds (the pipeline's internal spans run on the
+    prefetching threads, and the RunReport's phases sum every thread)
+    and where the fit thread's time outside every span went: ms before
+    its first span, after its last (to fit's return), and the three
+    largest stretches between spans, each with the span it follows."""
+    import torch
+    from deeplearning4j_tpu_torch.observability import trace as otrace
+    tracer = otrace.Tracer()
+    prev = otrace.set_tracer(tracer)
+    steps0 = net.iteration
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(it, epochs=epochs, **fit_kw)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    finally:
+        otrace.set_tracer(prev)
+    me = threading.get_ident()
+    mine = sorted((sp for sp in tracer.spans() if sp.tid == me),
+                  key=lambda sp: sp.ts_us)
+    wait = sum(sp.dur_us for sp in mine if sp.name == "data_wait") / 1e6
+    at = lambda us: tracer._epoch + us / 1e6  # noqa: E731
+    gaps, end, after = [], mine[0].ts_us, "start"
+    for sp in mine:
+        gaps.append((round((sp.ts_us - end) / 1e3, 3), after))
+        if sp.ts_us + sp.dur_us > end:
+            end, after = sp.ts_us + sp.dur_us, sp.name
+    untracked = {"head_ms": round((at(mine[0].ts_us) - t0) * 1e3, 3),
+                 "tail_ms": round((t1 - at(end)) * 1e3, 3),
+                 "between_top_ms": sorted(gaps, reverse=True)[:3],
+                 "between_sum_ms": round(sum(g for g, _ in gaps), 3),
+                 "host_ms": round((t1 - t0) * 1e3, 3)}
+    return (t2 - t0) * 1e3 / (net.iteration - steps0), wait, untracked
+
+
+def profile_kernels(fn, steps, top=6):
+    """torch.profiler over ``fn()``: the device's busy share of the host
+    clock, device ms a step, and the ``top`` kernels by device time (ms a
+    step, by kind)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = device_kernels(prof.key_averages())
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    check(dev_ms > 0, "the profiler saw no device time")
+    by_kind = {}
+    for e in kernels:
+        k = kernel_kind(e.key)
+        by_kind[k] = by_kind.get(k, 0.0) + e.self_device_time_total / 1e3
+    return {"busy": round(dev_ms / wall_ms, 3),
+            "device_ms": round(dev_ms / steps, 3),
+            "wall_ms": round(wall_ms / steps, 3),
+            "by_kind_ms": {k: round(v / steps, 3) for k, v in sorted(
+                by_kind.items(), key=lambda kv: -kv[1])[:top]}}
+
+
+def feed_cell(name, make, make_pipe, gate_ledger, timed=FEED_TIMED_EPOCHS):
+    """One [datapipe_feed] cell: for eager and captured (chunks of 8)
+    steps, two fresh nets, one fed by ``fit(pipe)`` and one by the same
+    batches from memory (a twin pipeline's, materialized): epoch 0 warms
+    up (and captures), the next ``timed`` epochs are timed (memory, then
+    pipeline, one fit each), one more runs under the profiler. Gates:
+    after them the two nets' params, updater and layer state are
+    bit-identical (the same batches in the same order); with
+    ``gate_ledger`` the timed fits' RunReports attribute their wall time
+    within 5% (but a captured fit from memory's: reported). Reported: step ms pipeline vs memory, the fit thread's
+    data_wait share, the ledger's goodput beside the profiler's busy
+    share, the device time by kind."""
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    twin = make_pipe()
+    mem = [list(twin) for _ in range(timed + 2)]
+    twin.close()
+    steps = len(mem[0])
+    out, gates = {}, []
+    for mode, kw in FEED_MODES:
+        p_net, m_net = make(), make()
+        pipe = make_pipe()
+        p_net.fit(pipe, epochs=1, **kw)
+        m_net.fit(ListDataSetIterator(mem[0]), epochs=1, **kw)
+        m_ms, _, m_gaps = traced_fit_ms(m_net, ListDataSetIterator(
+            [ds for epoch in mem[1:1 + timed] for ds in epoch]), **kw)
+        m_rep = m_net.last_run_report
+        p_ms, wait, p_gaps = traced_fit_ms(p_net, pipe, epochs=timed, **kw)
+        rep = p_net.last_run_report
+        prof = profile_kernels(lambda: p_net.fit(pipe, epochs=1, **kw),
+                               steps)
+        # the ledger's goodput for the same (profiled) steps
+        prof["ledger_goodput"] = round(
+            p_net.last_run_report.goodput_fraction or 0.0, 4)
+        m_net.fit(ListDataSetIterator(mem[timed + 1]), epochs=1, **kw)
+        pipe.close()
+        n = _trees_bit_equal(_host_trees(p_net), _host_trees(m_net),
+                             f"{name} {mode}: pipeline-fed vs memory-fed")
+        reports = {"pipeline": rep, "memory": m_rep}
+        shares = {k: r.attributed_s / r.wall_s for k, r in reports.items()}
+        if gate_ledger:
+            for src, share in shares.items():
+                # a captured fit from memory is a host loop of ~1 ms a
+                # batch, where the spans' own recording (~30 µs a batch,
+                # outside every span) is a few percent: reported only
+                if (mode, src) != ("captured", "memory") and \
+                        share < LEDGER_ATTRIBUTED_SHARE:
+                    gates.append(
+                        f"{name} {mode} fit from {src}: the ledger "
+                        f"attributes {share:.4f} of "
+                        f"{reports[src].wall_s:.4f} s: "
+                        f"{reports[src].phases}")
+        out[f"{mode}_step_ms_pipeline"] = f"{p_ms:.3f}"
+        out[f"{mode}_step_ms_memory"] = f"{m_ms:.3f}"
+        out[f"{mode}_ledger"] = json.dumps({
+            "fit_thread_data_wait_share": round(wait / rep.wall_s, 4),
+            "goodput": rep.goodput_fraction and round(
+                rep.goodput_fraction, 4),
+            "memory_goodput": m_rep.goodput_fraction and round(
+                m_rep.goodput_fraction, 4),
+            "attributed": {k: round(v, 4) for k, v in shares.items()},
+            "untracked": {"pipeline": p_gaps, "memory": m_gaps}})
+        out[f"{mode}_profile"] = json.dumps(prof)
+        out[f"{mode}_tensors_bit_identical"] = n
+        if mode == "captured":
+            out["captured_graphs"] = json.dumps(
+                [(sg.captures, sg.replays)
+                 for sg in p_net._multi_steps.values()])
+        del p_net, m_net
+    return out, gates
+
+
+def bucket_graphs(make, corpus):
+    """bucket_batch under capture: documents of varied lengths cut into
+    windows of up to T, padded to the power-of-two ladder and batched
+    per bucket; fit(multi_step=8) keeps one StepGraph per batch
+    signature. Returns (signatures, captures, replays, eager steps)."""
+    from deeplearning4j_tpu_torch import datapipe
+    rng = np.random.default_rng(SEED + 62)
+    cuts = np.sort(rng.choice(np.arange(1, len(corpus)), 47, replace=False))
+    docs = [corpus[a:b] for a, b in zip(np.r_[0, cuts], np.r_[cuts,
+                                                            len(corpus)])]
+    tok = datapipe.CharTokenizer(DP_ALPHABET)
+    pipe = (datapipe.from_text(docs).tokenize(tok)
+            .window(DP_T, vocab_size=DP_V).bucket_batch(DP_B))
+    net = make()
+    net.fit(pipe, epochs=1, multi_step=8)
+    graphs = list(net._multi_steps.values())
+    report = net.last_run_report
+    return (len(graphs), sum(g.captures for g in graphs),
+            sum(g.replays for g in graphs), net.iteration,
+            report.padding.get("datapipe_bucket_batch"))
+
+
+def phase_datapipe_feed(make_rnn=None, make_lenet=None, corpus=None,
+                        lenet_n=64 * 24):
+    """[datapipe_feed]: does the pipeline keep the card fed? The
+    char-RNN's pipeline alone (batches/s, MB/s; prefetch 0 and 2), then
+    fit(pipe) eager and captured beside the same batches from memory; the
+    same for LeNet (b = 64) through from_arrays -> shuffle -> normalize ->
+    batch(64); bucket_batch's graphs under capture. Reported only, but
+    the pipeline-fed and memory-fed nets must end bit-identical."""
+    from deeplearning4j_tpu_torch import datapipe, zoo
+    t_phase = time.perf_counter()
+    make_rnn = make_rnn or (lambda: zoo.char_rnn(seed=SEED))
+    make_lenet = make_lenet or (lambda: zoo.lenet(seed=SEED))
+    corpus = corpus or dp_corpus()
+    out = {}
+    for depth in (0, 2, 2, 0):
+        rate, mbs = pipeline_rate(dp_pipeline(corpus, depth), epochs=2)
+        out.setdefault(f"rnn_pipe_prefetch{depth}_batches_per_s",
+                       []).append(round(rate, 1))
+        out.setdefault(f"rnn_pipe_prefetch{depth}_mb_per_s",
+                       []).append(round(mbs, 1))
+    rnn, gates = feed_cell("char-RNN", make_rnn, lambda: dp_pipeline(corpus),
+                           gate_ledger=True)
+    out.update({f"rnn_{k}": v for k, v in rnn.items()})
+    x, y = lenet_data(lenet_n, SEED + 63)
+
+    def lenet_pipe():
+        return (datapipe.from_arrays(x, y).shuffle(window=256, seed=SEED + 64)
+                .normalize().batch(64))
+
+    rate, mbs = pipeline_rate(lenet_pipe())
+    out["lenet_pipe_batches_per_s"] = round(rate, 1)
+    out["lenet_pipe_mb_per_s"] = round(mbs, 1)
+    lenet, _ = feed_cell("LeNet", make_lenet, lenet_pipe, gate_ledger=False,
+                         timed=3)
+    out.update({f"lenet_{k}": v for k, v in lenet.items()})
+    sigs, caps, reps, it, pad = bucket_graphs(make_rnn, corpus)
+    out["bucket_batch_graphs"] = json.dumps(
+        {"signatures": sigs, "captures": caps, "replays": reps,
+         "steps": it, "padding": pad})
+    for k, v in list(out.items()):
+        if isinstance(v, list):
+            out[k] = "/".join(str(e) for e in v)
+    out["phase_s"] = f"{time.perf_counter() - t_phase:.1f}"
+    phase("datapipe_feed", **out)
+    # the ledger's gate, after the line: its numbers say what missed
+    check(not gates, "; ".join(gates))
+
+
+def phase_observability(make=None, corpus=None):
+    """[observability]: the cost of observing. Step ms of the char-RNN
+    fit from memory (48 steps a reading), eager and captured, with the
+    tracer on and with DL4J_TPU_TRACE=0's tracer, in turns (on, off, off,
+    on, twice; the medians compared); then with and without the
+    flight recorder installed (tracer on), in turns;
+    a torch.profiler trace of an eager epoch in which the fit loop's span
+    names appear (profile_out/profiler_trace.json)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    from deeplearning4j_tpu_torch.observability import flightrec
+    from deeplearning4j_tpu_torch.observability import trace as otrace
+    t_phase = time.perf_counter()
+    make = make or (lambda: zoo.char_rnn(seed=SEED))
+    corpus = corpus or dp_corpus()
+    pipe = dp_pipeline(corpus, depth=0)
+    mem = list(pipe) + list(pipe)
+    prev = otrace.get_tracer()
+    out = {}
+    flightrec.uninstall_flight_recorder()
+
+    def tracer(on):
+        old = os.environ.get("DL4J_TPU_TRACE")
+        os.environ["DL4J_TPU_TRACE"] = "1" if on else "0"
+        try:
+            return otrace._env_default()
+        finally:
+            if old is None:
+                del os.environ["DL4J_TPU_TRACE"]
+            else:
+                os.environ["DL4J_TPU_TRACE"] = old
+
+    try:
+        for mode, kw in FEED_MODES:
+            net = make()
+            net.fit(ListDataSetIterator(mem), epochs=1, **kw)   # warm-up
+            ms = {"on": [], "off": []}
+            for which in ("on", "off", "off", "on") * 2:
+                otrace.set_tracer(tracer(which == "on"))
+                ms[which].append(fit_ms(net, ListDataSetIterator(mem),
+                                        epochs=2, **kw))
+            otrace.set_tracer(tracer(True))
+            fl = {"installed": [], "not": []}
+            for which in ("not", "installed", "installed", "not") * 2:
+                if which == "installed":
+                    flightrec.install_flight_recorder(
+                        dir=os.path.join(OUT_DIR, "flight"))
+                fl[which].append(fit_ms(net, ListDataSetIterator(mem),
+                                        epochs=2, **kw))
+                flightrec.uninstall_flight_recorder()
+            med = {k: statistics.median(v) for k, v in ms.items()}
+            fmed = {k: statistics.median(v) for k, v in fl.items()}
+            out[f"{mode}_step_ms_trace_on"] = "/".join(
+                f"{v:.3f}" for v in ms["on"])
+            out[f"{mode}_step_ms_trace_off"] = "/".join(
+                f"{v:.3f}" for v in ms["off"])
+            out[f"{mode}_trace_overhead"] = \
+                f"{med['on'] / med['off'] - 1:+.4f}"
+            out[f"{mode}_step_ms_flight_installed"] = "/".join(
+                f"{v:.3f}" for v in fl["installed"])
+            out[f"{mode}_step_ms_flight_not"] = "/".join(
+                f"{v:.3f}" for v in fl["not"])
+            out[f"{mode}_flight_overhead"] = \
+                f"{fmed['installed'] / fmed['not'] - 1:+.4f}"
+            if mode == "eager":
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    net.fit(ListDataSetIterator(mem[:4]), epochs=1, **kw)
+                    torch.cuda.synchronize()
+                names = {e.key for e in prof.key_averages()}
+                spans = sorted(n for n in ("data_wait", "host_dispatch",
+                                           "device_step") if n in names)
+                check(len(spans) == 3, f"span names in the profile: {spans}")
+                os.makedirs(OUT_DIR, exist_ok=True)
+                prof.export_chrome_trace(os.path.join(
+                    OUT_DIR, "profiler_trace.json"))
+                out["profiler_span_names"] = json.dumps(spans)
+            del net
+    finally:
+        otrace.set_tracer(prev)
+        flightrec.uninstall_flight_recorder()
+    out["budgets"] = json.dumps({"trace": TRACE_BUDGET,
+                                 "flight": FLIGHT_BUDGET})
+    out["phase_s"] = f"{time.perf_counter() - t_phase:.1f}"
+    phase("observability", **out)
+
+
+def phase_slice13():
+    """The phases of slice 13, in order."""
+    phase_datapipe_resilient()
+    phase_datapipe_feed()
+    phase_observability()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4913,7 +5582,11 @@ def main() -> int:
                        ("--gradcheck", phase_gradcheck),
                        ("--transfer", phase_transfer),
                        ("--pretrain", phase_pretrain),
-                       ("--slice12", phase_slice12)):
+                       ("--slice12", phase_slice12),
+                       ("--datapipe-resilient", phase_datapipe_resilient),
+                       ("--datapipe-feed", phase_datapipe_feed),
+                       ("--observability", phase_observability),
+                       ("--slice13", phase_slice13)):
         if flag in sys.argv[1:]:
             phase_device()
             only()
@@ -4941,6 +5614,7 @@ def main() -> int:
     phase_conv_nets()
     phase_train_captured()
     phase_slice12()
+    phase_slice13()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(ok_line, flush=True)
     return 0

@@ -27,6 +27,7 @@ longer than the window by name) and ``rnn_time_step`` on graphs.
 
 from __future__ import annotations
 
+import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -42,6 +43,10 @@ from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
     ComputationGraphConfiguration)
 from deeplearning4j_tpu_torch.nn.conf.layers import BaseLayerConfig
 from deeplearning4j_tpu_torch.nn.updater import _copy_tree, _leaves
+from deeplearning4j_tpu_torch.observability import distributed as _obs_dist
+from deeplearning4j_tpu_torch.observability import goodput as _goodput
+from deeplearning4j_tpu_torch.observability import metrics as _obs_metrics
+from deeplearning4j_tpu_torch.observability.trace import get_tracer
 
 
 class ComputationGraph:
@@ -64,6 +69,7 @@ class ComputationGraph:
         self._fusion_plans = {}
         self._fusion_interior = frozenset()
         self._multi_steps = {}     # batch signature -> multistep.StepGraph
+        self.last_run_report = None  # the last fit's goodput RunReport
         self.flops_per_step = None
         self._flops_key = None
 
@@ -319,13 +325,23 @@ class ComputationGraph:
         self._require_init()
         mds = self._coerce(mds)
         self._refuse_tbptt(mds)
-        score = multistep.train_step(self, self._batch(mds))
+        tracer = get_tracer()
+        with tracer.span("host_dispatch"):
+            batch = self._batch(mds)
+        with tracer.span("device_step"):
+            score = multistep.train_step(self, batch)
         self.iteration += 1
         self.score_value = score
         self.last_batch_examples = mds.num_examples
+        _goodput.observe_steps(1)
         multistep.maybe_derive_flops(self, mds)
-        for l in self.listeners:
-            l.iteration_done(self, self.iteration, self.epoch)
+        if self.listeners:
+            t0 = time.perf_counter()
+            for l in self.listeners:
+                l.iteration_done(self, self.iteration, self.epoch)
+            t1 = time.perf_counter()
+            tracer.record("score_sync", t0, t1)
+            _obs_metrics.observe_dispatch_lag(t1 - t0)
         return score
 
     def fit_batch_repeated(self, mds, n_steps: int):
@@ -351,31 +367,55 @@ class ComputationGraph:
         ``async_prefetch`` (iterators with ``reset()``),
         ``device_prefetch`` and ``multi_step`` as in
         ``MultiLayerNetwork.fit``, each equal bit for bit to the
-        per-batch loop."""
+        per-batch loop. An iterator is reset after each epoch unless it
+        advances its own epochs (``auto_epochs``: a datapipe Pipeline).
+        The run is a goodput ledger run; its RunReport lands in
+        ``self.last_run_report``."""
         self._require_init()
         items = [data] if isinstance(data, (DataSet, MultiDataSet)) else data
         chunk = multistep.resolve_multi_step(self, multi_step)
         device_prefetch = multistep.resolve_device_prefetch(self,
                                                             device_prefetch)
-        for _ in range(epochs):
-            source = items
-            if async_prefetch and hasattr(items, "reset"):
-                source = AsyncDataSetIterator(items)
-            if device_prefetch:
-                source = DevicePrefetchIterator(source, device=self.device)
-            for l in self.listeners:
-                l.on_epoch_start(self)
-            if chunk > 1:
-                multistep.fit_epoch_chunked(self, source, chunk,
-                                            self._signature)
-            else:
-                for d in source:
-                    self.fit_batch(d)
-            for l in self.listeners:
-                l.on_epoch_end(self)
-            self.epoch += 1
-            if hasattr(items, "reset"):
-                items.reset()
+        _obs_metrics.install_runtime_metrics()
+        tracer = get_tracer()
+        ledger = _goodput.start_run("fit", net=self)
+        _obs_dist.stamp_run_marker("fit")
+        status = "completed"
+        try:
+            for _ in range(epochs):
+                source = items
+                if async_prefetch and hasattr(items, "reset"):
+                    source = AsyncDataSetIterator(items)
+                if device_prefetch:
+                    source = DevicePrefetchIterator(source,
+                                                    device=self.device)
+                for l in self.listeners:
+                    l.on_epoch_start(self)
+                it0, t0 = self.iteration, time.perf_counter()
+                if chunk > 1:
+                    multistep.fit_epoch_chunked(self, source, chunk,
+                                                self._signature)
+                else:
+                    stream = iter(source)
+                    while True:
+                        with tracer.span("data_wait"):
+                            d = next(stream, None)
+                        if d is None:
+                            break
+                        self.fit_batch(d)
+                _obs_metrics.observe_rate(self.iteration - it0,
+                                          time.perf_counter() - t0)
+                for l in self.listeners:
+                    l.on_epoch_end(self)
+                self.epoch += 1
+                if hasattr(items, "reset") and not getattr(
+                        items, "auto_epochs", False):
+                    items.reset()
+        except BaseException:
+            status = "failed"
+            raise
+        finally:
+            self.last_run_report = _goodput.end_run(ledger, status=status)
         return self
 
     def resilient_fit(self, data, labels=None, *, checkpoint_dir: str,

@@ -22,6 +22,7 @@ package's scanned steps. Randomness (dropout) comes from one
 
 from __future__ import annotations
 
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -42,6 +43,10 @@ from deeplearning4j_tpu_torch.nn.conf.preprocessors import (CnnToFeedForward,
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (set_streaming,
                                                           strip_carries)
 from deeplearning4j_tpu_torch.nn.updater import _copy_tree, _leaves, _map
+from deeplearning4j_tpu_torch.observability import distributed as _obs_dist
+from deeplearning4j_tpu_torch.observability import goodput as _goodput
+from deeplearning4j_tpu_torch.observability import metrics as _obs_metrics
+from deeplearning4j_tpu_torch.observability.trace import get_tracer
 
 
 def _auto_preprocessor(input_type: InputType, conf):
@@ -81,6 +86,7 @@ class MultiLayerNetwork:
         self._lr_scale = 1.0
         self._rnn_state = None
         self._multi_steps = {}     # batch signature -> multistep.StepGraph
+        self.last_run_report = None  # the last fit's goodput RunReport
         self.flops_per_step = None
         self._flops_key = None
 
@@ -302,9 +308,14 @@ class MultiLayerNetwork:
         self._require_init()
         if self._needs_tbptt(ds.features):
             return self._fit_tbptt(ds)
-        score = multistep.train_step(self, self._batch(ds))
+        tracer = get_tracer()
+        with tracer.span("host_dispatch"):
+            batch = self._batch(ds)
+        with tracer.span("device_step"):
+            score = multistep.train_step(self, batch)
         self.iteration += 1
         self.score_value = score
+        _goodput.observe_steps(1)
         multistep.maybe_derive_flops(self, ds)
         self._iteration_done(ds)
         return score
@@ -335,9 +346,16 @@ class MultiLayerNetwork:
 
 
     def _iteration_done(self, ds: DataSet):
+        """The listeners' ``iteration_done``, timed as ``score_sync`` (a
+        listener that reads the score waits on the card there)."""
         self.last_batch_examples = ds.num_examples
-        for l in self.listeners:
-            l.iteration_done(self, self.iteration, self.epoch)
+        if self.listeners:
+            t0 = time.perf_counter()
+            for l in self.listeners:
+                l.iteration_done(self, self.iteration, self.epoch)
+            t1 = time.perf_counter()
+            get_tracer().record("score_sync", t0, t1)
+            _obs_metrics.observe_dispatch_lag(t1 - t0)
 
     def _fit_tbptt(self, ds: DataSet):
         """Truncated BPTT: one step per ``tbptt_fwd_length`` chunk of the
@@ -369,6 +387,7 @@ class MultiLayerNetwork:
             set_streaming(self.layers, False)
         self.iteration += 1
         self.score_value = score
+        _goodput.observe_steps(1)
         self._iteration_done(ds)
         return score
 
@@ -377,7 +396,10 @@ class MultiLayerNetwork:
             device_prefetch="auto", multi_step="auto"):
         """Train on a DataSetIterator, a DataSet, or (features, labels)
         arrays; the listeners' ``on_epoch_start``/``on_epoch_end`` run
-        around each epoch, and the iterator is reset after it.
+        around each epoch, and the iterator is reset after it unless it
+        advances its own epochs (``auto_epochs``: a datapipe Pipeline
+        draws epoch e's order from ``seed + e``, and a reset would
+        replay epoch 0).
 
         The JAX package's runtime, each equal bit for bit to the
         per-batch loop: ``async_prefetch`` prepares batches on a
@@ -387,7 +409,11 @@ class MultiLayerNetwork:
         batches through the captured step and replays the listeners
         after each chunk ("auto": 8 on the card when no listener needs
         per-iteration values, 1 on the CPU; an int is honored; tBPTT runs
-        per batch)."""
+        per batch).
+
+        The run is a goodput ledger run (observability/goodput.py):
+        each pull from the iterator is a ``data_wait`` span, and the
+        RunReport lands in ``self.last_run_report``."""
         self._require_init()
         if isinstance(data, DataSetIterator):
             it = data
@@ -398,22 +424,43 @@ class MultiLayerNetwork:
         chunk = multistep.resolve_multi_step(self, multi_step)
         device_prefetch = multistep.resolve_device_prefetch(self,
                                                             device_prefetch)
-        for _ in range(epochs):
-            source = AsyncDataSetIterator(it) if async_prefetch else it
-            if device_prefetch:
-                source = DevicePrefetchIterator(source, device=self.device)
-            for l in self.listeners:
-                l.on_epoch_start(self)
-            if chunk > 1:
-                multistep.fit_epoch_chunked(self, source, chunk,
-                                            self._signature)
-            else:
-                for ds in source:
-                    self.fit_batch(ds)
-            for l in self.listeners:
-                l.on_epoch_end(self)
-            self.epoch += 1
-            it.reset()
+        _obs_metrics.install_runtime_metrics()
+        tracer = get_tracer()
+        ledger = _goodput.start_run("fit", net=self)
+        _obs_dist.stamp_run_marker("fit")
+        status = "completed"
+        try:
+            for _ in range(epochs):
+                source = AsyncDataSetIterator(it) if async_prefetch else it
+                if device_prefetch:
+                    source = DevicePrefetchIterator(source,
+                                                    device=self.device)
+                for l in self.listeners:
+                    l.on_epoch_start(self)
+                it0, t0 = self.iteration, time.perf_counter()
+                if chunk > 1:
+                    multistep.fit_epoch_chunked(self, source, chunk,
+                                                self._signature)
+                else:
+                    stream = iter(source)
+                    while True:
+                        with tracer.span("data_wait"):
+                            ds = next(stream, None)
+                        if ds is None:
+                            break
+                        self.fit_batch(ds)
+                _obs_metrics.observe_rate(self.iteration - it0,
+                                          time.perf_counter() - t0)
+                for l in self.listeners:
+                    l.on_epoch_end(self)
+                self.epoch += 1
+                if not getattr(it, "auto_epochs", False):
+                    it.reset()
+        except BaseException:
+            status = "failed"
+            raise
+        finally:
+            self.last_run_report = _goodput.end_run(ledger, status=status)
         return self
 
     def resilient_fit(self, data, labels=None, *, checkpoint_dir: str,

@@ -51,6 +51,9 @@ import torch
 
 from deeplearning4j_tpu_torch.nn import precision
 from deeplearning4j_tpu_torch.nn.updater import NoOp, _map
+from deeplearning4j_tpu_torch.observability import goodput as _goodput
+from deeplearning4j_tpu_torch.observability import metrics as _obs_metrics
+from deeplearning4j_tpu_torch.observability.trace import get_tracer
 from deeplearning4j_tpu_torch.ops import registry
 
 #: eager steps on the side stream before a capture (the count
@@ -298,6 +301,7 @@ class StepGraph:
         # the capture ran nothing: the step it recorded is still to run
         net._it_twin.value -= 1
         self.capture_ms = 1e3 * (time.perf_counter() - t0)
+        _obs_metrics.note_compile(self.capture_ms / 1e3)
         self.captures += 1
         self.graph, self._score, self.launches = g, score, dict(rec)
         self._bound = _tree_paths(net)
@@ -352,6 +356,7 @@ def fit_batch_repeated(net, ds, n_steps: int):
         net.iteration += 1
     net.score_value = score
     net.last_batch_examples = ds.num_examples
+    _goodput.observe_steps(n_steps)
     return score
 
 
@@ -382,9 +387,16 @@ def resolve_device_prefetch(net, device_prefetch) -> bool:
 
 def fit_epoch_chunked(net, source, chunk: int, signature):
     """Groups consecutive batches of one signature into chunks of at most
-    ``chunk`` and runs each through ``dispatch_chunk``."""
+    ``chunk`` and runs each through ``dispatch_chunk``; each pull from
+    ``source`` is a ``data_wait`` span."""
+    tracer = get_tracer()
     buf, sig = [], None
-    for ds in source:
+    stream = iter(source)
+    while True:
+        with tracer.span("data_wait"):
+            ds = next(stream, None)
+        if ds is None:
+            break
         s = signature(ds)
         if buf and s != sig:
             dispatch_chunk(net, buf)
@@ -401,37 +413,53 @@ def fit_epoch_chunked(net, source, chunk: int, signature):
 def dispatch_chunk(net, batches):
     """The chunk's steps through the captured step (one ``fit_batch``
     when it holds one batch), then the listeners replayed with each
-    step's (iteration, score)."""
+    step's (iteration, score). Spans as the JAX package's chunk: the
+    batches' tensors in ``host_dispatch``, the replays in
+    ``device_step``, the listeners in ``score_sync``, each with
+    ``steps=len(batches)``."""
     if len(batches) == 1:
         net.fit_batch(batches[0])
         return
-    first = net._step_batch(batches[0])
-    sg = step_graph(net, first)
+    tracer = get_tracer()
+    k = len(batches)
+    with tracer.span("host_dispatch", steps=k):
+        tensors = [net._step_batch(ds) for ds in batches]
+        sg = step_graph(net, tensors[0])
     start = net.iteration
     scores = []
-    for i, ds in enumerate(batches):
-        sg.load(first if i == 0 else net._step_batch(ds))
-        scores.append(sg.step())
-        net.iteration += 1
+    with tracer.span("device_step", steps=k):
+        for batch in tensors:
+            sg.load(batch)
+            scores.append(sg.step())
+            net.iteration += 1
     net.score_value = scores[-1]
     net.last_batch_examples = batches[-1].num_examples
+    _goodput.observe_steps(k)  # one chunk, k real steps
     maybe_derive_flops(net, batches[0])
-    replay_listeners(net, start, scores, [b.num_examples for b in batches])
+    with tracer.span("score_sync", steps=k):
+        replay_listeners(net, start, scores,
+                         [b.num_examples for b in batches])
 
 
 def maybe_derive_flops(net, ds):
-    """Sets ``net.flops_per_step`` from ``step_cost_analysis`` once per
-    batch signature, when a listener reports MFU without a count of its
-    own (the JAX package derives it from XLA's cost model at every new
-    batch shape)."""
-    if not any(getattr(l, "report_mfu", False)
-               and not getattr(l, "flops_per_step", None)
-               for l in net.listeners):
+    """Sets ``net.flops_per_step`` from ``step_cost_analysis`` (a
+    ``flops_derive`` span) once per batch signature while a goodput
+    ledger is open (``DL4J_TPU_AUTO_FLOPS=0`` turns that off), or when a
+    listener reports MFU without a count of its own; the JAX package
+    derives it from XLA's cost model at every new batch shape. The
+    ledgers get the count (``goodput.observe_flops``)."""
+    wanted = (_goodput.auto_flops_enabled()
+              and _goodput.current_ledger() is not None)
+    if not wanted and not any(getattr(l, "report_mfu", False)
+                              and not getattr(l, "flops_per_step", None)
+                              for l in net.listeners):
         return
     key = net._signature(ds)
     if key != net._flops_key:
         net._flops_key = key
-        net.flops_per_step = net.step_cost_analysis(ds)["flops"] or None
+        with get_tracer().span("flops_derive"):
+            net.flops_per_step = net.step_cost_analysis(ds)["flops"] or None
+        _goodput.observe_flops(net.flops_per_step)
 
 
 def replay_listeners(net, start: int, scores, examples):

@@ -1,0 +1,647 @@
+"""Goodput & efficiency attribution: where did every wall-second go,
+and how much of the machine did it buy? (counterpart of
+deeplearning4j_tpu/observability/goodput.py)
+
+- **EfficiencyLedger** — a per-run wall-time ledger fed by the span
+  tracer (``Tracer.add_sink``): every recorded span accumulates into a
+  per-phase total, independent of the tracer's bounded ring, so the
+  attribution never loses data to ring eviction. Phases recorded on the
+  run's own thread and named in the run-kind's *exclusive* set
+  (``data_wait`` / ``host_dispatch`` / ``device_step`` / ``score_sync``
+  / ``flops_derive`` for fit; plus the ``checkpoint_*`` / ``rollback`` /
+  ``restore`` family under the supervisor; ``batch_assembly`` /
+  ``device_compute`` for serving) are mutually non-overlapping, so their
+  sum is the *attributed* share of total wall time — the ledger
+  invariant is ``attributed_s ≈ wall_s`` within 5% for a fit run.
+- **Goodput** — ``device_step`` + ``device_compute`` seconds over total
+  wall seconds. On the card a launch returns before the kernel ends, so
+  ``device_step`` times the host issuing the step: an eager step's
+  launches, a CUDA-graph replay's microseconds. The card's own time
+  lands in whichever span next waits on it (``score_sync``, a pinned
+  copy in ``data_wait``). The profiler's busy share is the card's side
+  of the same question.
+- **Live MFU with zero wiring** — both nets derive per-step FLOPs with
+  ``utils.perf.step_flops`` (FlopCounterMode plus the kernels' counts)
+  once per batch signature while a ledger is open, and report them
+  here, so ``dl4j_mfu`` / ``dl4j_flops_per_second`` /
+  ``dl4j_goodput_fraction`` are live gauges during any ``fit``. Peak
+  FLOP/s comes from ``utils.perf.PEAK_FLOPS`` or the
+  ``DL4J_TPU_PEAK_FLOPS`` override (the CPU has no table entry).
+- **Padding waste** — ``datapipe.bucket_batch`` reports real vs padded
+  timestep cells per source; the waste fraction is padded / (real +
+  padded).
+- **RunReport** — a structured JSON artifact emitted at the end of
+  ``fit`` / ``resilient_fit``: goodput, MFU, the phase ledger, compiles
+  over the run (nvcc builds and CUDA-graph captures), the device-memory
+  watermark, padding waste. The keys are the JAX package's.
+
+Kill switch: ``DL4J_TPU_GOODPUT=0`` (or ``set_enabled(False)``) makes
+``start_run`` return a no-op ledger. Set ``DL4J_TPU_RUN_REPORT_DIR`` to
+also write every report to a file.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+__all__ = [
+    "EfficiencyLedger", "RunReport", "start_run", "end_run",
+    "current_ledger", "last_report", "observe_steps", "observe_flops",
+    "record_padding", "goodput_collector", "live_snapshot",
+    "set_enabled", "enabled", "auto_flops_enabled", "resolve_peak_flops",
+    "SCHEMA_VERSION",
+]
+
+SCHEMA_VERSION = 1
+
+#: phases that are mutually exclusive on the thread driving a training
+#: run — their sum is the attributed share of the run's wall time
+FIT_EXCLUSIVE = frozenset({
+    "data_wait", "host_dispatch", "device_step", "score_sync",
+    "flops_derive",
+})
+SUPERVISOR_EXCLUSIVE = FIT_EXCLUSIVE | frozenset({
+    "checkpoint_snapshot", "checkpoint_write", "checkpoint_barrier",
+    "rollback", "restore",
+})
+#: serving attribution happens on the single micro-batcher device
+#: thread, not the thread that called start()/stop() — no tid filter
+SERVING_EXCLUSIVE = frozenset({"batch_assembly", "device_compute"})
+
+#: productive device time — the goodput numerator
+DEVICE_PHASES = frozenset({"device_step", "device_compute"})
+
+_EXCLUSIVE_BY_KIND = {
+    "fit": (FIT_EXCLUSIVE, True),
+    "resilient_fit": (SUPERVISOR_EXCLUSIVE, True),
+    "serving": (SERVING_EXCLUSIVE, False),
+}
+
+_lock = threading.Lock()
+_ACTIVE: List["EfficiencyLedger"] = []
+_LAST_REPORT: Optional["RunReport"] = None
+_ENABLED: Optional[bool] = None  # None = read env on first use
+
+
+def enabled() -> bool:
+    global _ENABLED
+    if _ENABLED is None:
+        _ENABLED = os.environ.get("DL4J_TPU_GOODPUT", "1") != "0"
+    return _ENABLED
+
+
+def set_enabled(flag: bool) -> None:
+    """Process-wide switch (to measure the ledger's own overhead)."""
+    global _ENABLED
+    _ENABLED = bool(flag)
+
+
+def auto_flops_enabled() -> bool:
+    """Whether the fit loops should derive per-step FLOPs while a ledger
+    is open (``DL4J_TPU_AUTO_FLOPS=0`` disables just the derivation
+    while keeping the ledger)."""
+    return enabled() and os.environ.get("DL4J_TPU_AUTO_FLOPS", "1") != "0"
+
+
+def resolve_peak_flops() -> Optional[float]:
+    """Device peak FLOP/s for the MFU denominator: the PEAK_FLOPS table
+    keyed by the card's name, or the ``DL4J_TPU_PEAK_FLOPS`` env override
+    (the only way to get MFU on CPU, which has no honest table entry)."""
+    try:
+        from deeplearning4j_tpu_torch.utils.perf import peak_flops
+        return peak_flops()
+    except Exception:
+        return None
+
+
+# ---------------------------------------------------------------------------
+# the report artifact
+# ---------------------------------------------------------------------------
+
+@dataclass
+class RunReport:
+    """Structured end-of-run efficiency report (JSON round-trippable).
+
+    ``phases`` maps span name -> {"seconds", "count"} over the whole
+    run; ``attributed_s`` sums the run-kind's exclusive phases (on the
+    run thread where that applies) and ``untracked_s`` is the wall time
+    no exclusive phase claimed. ``padding`` maps source ->
+    {"real", "padded", "waste_fraction"}."""
+
+    kind: str
+    status: str = "completed"
+    wall_s: float = 0.0
+    steps: int = 0
+    phases: Dict[str, dict] = field(default_factory=dict)
+    attributed_s: float = 0.0
+    untracked_s: float = 0.0
+    device_s: float = 0.0
+    goodput_fraction: Optional[float] = None
+    flops_per_step: Optional[float] = None
+    flops_per_second: Optional[float] = None
+    mfu: Optional[float] = None
+    peak_flops: Optional[float] = None
+    compile_count: int = 0
+    compile_seconds: float = 0.0
+    # persistent-compilation-cache traffic over the run (compilecache/):
+    # warm boots show hits ~= ladder size and misses ~= 0; both 0 when
+    # no cache dir is configured
+    xla_cache_hits: int = 0
+    xla_cache_misses: int = 0
+    # cold-start attribution, annotated by the serving runtime:
+    # process start -> first successful reply, and the warm-up ladder's
+    # wall time (None outside serving / before the first reply)
+    cold_start_s: Optional[float] = None
+    warmup_s: Optional[float] = None
+    device_memory_peak_bytes: Optional[float] = None
+    padding: Dict[str, dict] = field(default_factory=dict)
+    trace_dropped_spans: int = 0
+    # elastic resharding (resilience/supervisor): old/new mesh + datapipe
+    # shard cursors when this run resumed a checkpoint saved under a
+    # different fleet size; None for a same-topology run
+    reshard: Optional[dict] = None
+    # SLO attainment summary (observability.slo): SLOEngine.report()
+    # stamped by ModelServer.stop() onto the serving drain report, so
+    # the receipt that says how fast the run was also says whether it
+    # honored its objectives; None outside the serving tier
+    slo: Optional[dict] = None
+    # fleet identity (observability.distributed): which process/relaunch
+    # produced this report — stamped by the ledger at finish time
+    run_id: Optional[str] = None
+    instance: Optional[str] = None
+    incarnation: Optional[int] = None
+    schema_version: int = SCHEMA_VERSION
+
+    def to_dict(self) -> dict:
+        return {
+            "schema_version": self.schema_version,
+            "kind": self.kind,
+            "status": self.status,
+            "wall_s": self.wall_s,
+            "steps": self.steps,
+            "phases": self.phases,
+            "attributed_s": self.attributed_s,
+            "untracked_s": self.untracked_s,
+            "device_s": self.device_s,
+            "goodput_fraction": self.goodput_fraction,
+            "flops_per_step": self.flops_per_step,
+            "flops_per_second": self.flops_per_second,
+            "mfu": self.mfu,
+            "peak_flops": self.peak_flops,
+            "compile_count": self.compile_count,
+            "compile_seconds": self.compile_seconds,
+            "xla_cache_hits": self.xla_cache_hits,
+            "xla_cache_misses": self.xla_cache_misses,
+            "cold_start_s": self.cold_start_s,
+            "warmup_s": self.warmup_s,
+            "device_memory_peak_bytes": self.device_memory_peak_bytes,
+            "padding": self.padding,
+            "trace_dropped_spans": self.trace_dropped_spans,
+            "reshard": self.reshard,
+            "slo": self.slo,
+            "run_id": self.run_id,
+            "instance": self.instance,
+            "incarnation": self.incarnation,
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "RunReport":
+        known = {f for f in cls.__dataclass_fields__}  # noqa: C416
+        return cls(**{k: v for k, v in d.items() if k in known})
+
+    def to_json(self, **kw) -> str:
+        return json.dumps(self.to_dict(), **kw)
+
+    @classmethod
+    def from_json(cls, s: str) -> "RunReport":
+        return cls.from_dict(json.loads(s))
+
+    def save(self, path: str) -> str:
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            f.write(self.to_json(indent=2, sort_keys=True))
+        os.replace(tmp, path)
+        return path
+
+    @classmethod
+    def load(cls, path: str) -> "RunReport":
+        with open(path) as f:
+            return cls.from_json(f.read())
+
+
+# ---------------------------------------------------------------------------
+# the ledger
+# ---------------------------------------------------------------------------
+
+class EfficiencyLedger:
+    """Accumulates one run's wall-time attribution. Registered as a
+    tracer sink for its lifetime, so every span recorded anywhere in
+    the process lands in ``phases`` — the exclusive/attributed subset
+    is filtered by name (and, for training runs, by the run thread, so
+    e.g. an async ``checkpoint_write`` on the writer thread shows up in
+    the breakdown without double-counting the main thread's overlapping
+    ``device_step`` time)."""
+
+    def __init__(self, kind: str):
+        self.kind = kind
+        exclusive, tid_filtered = _EXCLUSIVE_BY_KIND.get(
+            kind, (FIT_EXCLUSIVE, True))
+        self._exclusive = exclusive
+        self._tid_filtered = tid_filtered
+        self._tid = threading.get_ident()
+        self._lock = threading.Lock()
+        self._phases: Dict[str, list] = {}   # name -> [seconds, count]
+        self._attributed_s = 0.0
+        self._device_s = 0.0
+        self._steps = 0
+        self._flops_per_step: Optional[float] = None
+        self._padding: Dict[str, list] = {}  # source -> [real, padded]
+        self._t0 = time.perf_counter()
+        self._tracer = None
+        # per-run compile/cache baseline over the process-global
+        # counters (metrics.compile_snapshot — the documented delta
+        # seam); start_run overwrites this with a live snapshot
+        self._compile0 = {"count": 0, "seconds": 0.0,
+                          "cache_hits": 0, "cache_misses": 0}
+        self._annotations: Dict[str, object] = {}
+        self._dropped0 = 0
+        self._closed = False
+
+    # -------------------------------------------------------------- feeding
+    def _on_span(self, span) -> None:
+        dur_s = span.dur_us / 1e6
+        with self._lock:
+            ent = self._phases.get(span.name)
+            if ent is None:
+                self._phases[span.name] = [dur_s, 1]
+            else:
+                ent[0] += dur_s
+                ent[1] += 1
+            if span.name in self._exclusive and (
+                    not self._tid_filtered or span.tid == self._tid):
+                self._attributed_s += dur_s
+            if span.name in DEVICE_PHASES:
+                self._device_s += dur_s
+
+    def observe_steps(self, n: int) -> None:
+        with self._lock:
+            self._steps += int(n)
+
+    def set_flops_per_step(self, flops: Optional[float]) -> None:
+        if flops:
+            with self._lock:
+                self._flops_per_step = float(flops)
+
+    def record_padding(self, source: str, real: int, padded: int) -> None:
+        with self._lock:
+            ent = self._padding.get(source)
+            if ent is None:
+                self._padding[source] = [int(real), int(padded)]
+            else:
+                ent[0] += int(real)
+                ent[1] += int(padded)
+
+    def annotate(self, **fields) -> None:
+        """Stamp RunReport fields the runtime measures out-of-band of
+        the span stream (e.g. the server's ``warmup_s`` / ``cold_start_s``).
+        Only keys that are RunReport dataclass fields land on the
+        report; unknown keys are dropped at finish, so annotating stays
+        forward-compatible across schema versions."""
+        with self._lock:
+            self._annotations.update(fields)
+
+    def rebase_compile(self, snapshot: dict) -> None:
+        """Move the compile/cache baseline back to *snapshot* (an
+        earlier ``metrics.compile_snapshot()``), so compiles that ran
+        before ``start_run`` — e.g. the server's warm-up ladder — are
+        charged to this run's report."""
+        with self._lock:
+            self._compile0 = dict(snapshot)
+
+    # ---------------------------------------------------------------- views
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
+    def live(self) -> dict:
+        """Current-state snapshot (the live-gauge source): same shape
+        as RunReport.to_dict() minus the end-of-run-only fields."""
+        wall = time.perf_counter() - self._t0
+        with self._lock:
+            steps = self._steps
+            device_s = self._device_s
+            flops_step = self._flops_per_step
+            padding = {k: list(v) for k, v in self._padding.items()}
+        out = {
+            "kind": self.kind,
+            "wall_s": wall,
+            "steps": steps,
+            "device_s": device_s,
+            "goodput_fraction": (device_s / wall if wall > 0 and device_s
+                                 else None),
+            "flops_per_step": flops_step,
+            "flops_per_second": None,
+            "mfu": None,
+            "padding": {k: _padding_entry(r, p)
+                        for k, (r, p) in padding.items()},
+        }
+        if flops_step and steps and wall > 0:
+            fps = flops_step * steps / wall
+            out["flops_per_second"] = fps
+            peak = resolve_peak_flops()
+            if peak:
+                mfu = fps / peak
+                if 0.0 < mfu <= 1.0:  # never publish impossible MFU
+                    out["mfu"] = mfu
+        return out
+
+    def phase_totals(self) -> Dict[str, dict]:
+        with self._lock:
+            return {k: {"seconds": v[0], "count": v[1]}
+                    for k, v in sorted(self._phases.items())}
+
+    # -------------------------------------------------------------- closing
+    def _finish(self, status: str) -> RunReport:
+        from deeplearning4j_tpu_torch.observability import metrics as _m
+        wall = time.perf_counter() - self._t0
+        compile_run = _m.compile_delta(self._compile0)
+        live = self.live()
+        with self._lock:
+            attributed = self._attributed_s
+            known = RunReport.__dataclass_fields__
+            extra = {k: v for k, v in self._annotations.items()
+                     if k in known}
+        tracer = self._tracer
+        dropped = 0
+        if tracer is not None:
+            dropped = max(0, tracer.dropped - self._dropped0)
+        peak = resolve_peak_flops()
+        fps = live["flops_per_second"]
+        try:
+            from deeplearning4j_tpu_torch.observability.distributed import \
+                get_identity
+            ident = get_identity()
+            identity = {"run_id": ident.run_id, "instance": ident.instance,
+                        "incarnation": ident.incarnation}
+        except Exception:
+            identity = {}
+        report = RunReport(
+            **identity,
+            kind=self.kind,
+            status=status,
+            wall_s=wall,
+            steps=live["steps"],
+            phases=self.phase_totals(),
+            attributed_s=attributed,
+            untracked_s=max(0.0, wall - attributed),
+            device_s=live["device_s"],
+            goodput_fraction=live["goodput_fraction"],
+            flops_per_step=live["flops_per_step"],
+            flops_per_second=fps,
+            mfu=live["mfu"],
+            peak_flops=peak,
+            compile_count=compile_run["count"],
+            compile_seconds=compile_run["seconds"],
+            xla_cache_hits=compile_run["cache_hits"],
+            xla_cache_misses=compile_run["cache_misses"],
+            device_memory_peak_bytes=_m.memory_watermark_bytes(),
+            padding=live["padding"],
+            trace_dropped_spans=dropped,
+        )
+        for k, v in extra.items():  # annotations override measured fields
+            setattr(report, k, v)
+        return report
+
+
+class _NullLedger:
+    """Returned by start_run when the engine is disabled: every method
+    is a no-op so call sites need no branching."""
+
+    kind = "disabled"
+    closed = True
+
+    def _on_span(self, span):
+        pass
+
+    def observe_steps(self, n):
+        pass
+
+    def set_flops_per_step(self, flops):
+        pass
+
+    def record_padding(self, source, real, padded):
+        pass
+
+    def annotate(self, **fields):
+        pass
+
+    def rebase_compile(self, snapshot):
+        pass
+
+    def live(self):
+        return {}
+
+
+_NULL = _NullLedger()
+
+
+def _padding_entry(real: int, padded: int) -> dict:
+    total = real + padded
+    return {"real": real, "padded": padded,
+            "waste_fraction": (padded / total if total else 0.0)}
+
+
+# ---------------------------------------------------------------------------
+# run lifecycle
+# ---------------------------------------------------------------------------
+
+def start_run(kind: str, net=None):
+    """Open an efficiency ledger for one run ("fit" | "resilient_fit" |
+    "serving"). The ledger immediately feeds the live gauges; close it
+    with :func:`end_run`. Returns a no-op ledger when disabled."""
+    if not enabled():
+        return _NULL
+    from deeplearning4j_tpu_torch.observability import metrics as _m
+    from deeplearning4j_tpu_torch.observability.trace import get_tracer
+    ledger = EfficiencyLedger(kind)
+    ledger._compile0 = _m.compile_snapshot()
+    _m.update_memory_watermark()
+    tracer = get_tracer()
+    ledger._tracer = tracer
+    ledger._dropped0 = tracer.dropped
+    tracer.add_sink(ledger._on_span)
+    with _lock:
+        _ACTIVE.append(ledger)
+    # a net that already derived FLOPs (earlier fit, same step) seeds
+    # the new run so MFU is live from step one
+    if net is not None:
+        ledger.set_flops_per_step(getattr(net, "flops_per_step", None))
+    return ledger
+
+
+def end_run(ledger, status: str = "completed",
+            save_to: Optional[str] = None) -> Optional[RunReport]:
+    """Close a ledger opened by :func:`start_run` and build its
+    RunReport (also kept as :func:`last_report` for post-run scrapes).
+    ``save_to``/``DL4J_TPU_RUN_REPORT_DIR`` write the JSON artifact."""
+    global _LAST_REPORT
+    if ledger is None or isinstance(ledger, _NullLedger) or ledger.closed:
+        return None
+    from deeplearning4j_tpu_torch.observability import metrics as _m
+    _m.update_memory_watermark()
+    if ledger._tracer is not None:
+        ledger._tracer.remove_sink(ledger._on_span)
+    report = ledger._finish(status)
+    ledger._closed = True
+    with _lock:
+        try:
+            _ACTIVE.remove(ledger)
+        except ValueError:
+            pass
+        _LAST_REPORT = report
+    path = save_to
+    if path is None:
+        out_dir = os.environ.get("DL4J_TPU_RUN_REPORT_DIR")
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+            path = os.path.join(
+                out_dir, f"run_report_{ledger.kind}_{int(time.time())}.json")
+    if path:
+        try:
+            report.save(path)
+        except OSError:
+            pass
+    return report
+
+
+def current_ledger() -> Optional[EfficiencyLedger]:
+    """The innermost active ledger (live gauges read it)."""
+    with _lock:
+        return _ACTIVE[-1] if _ACTIVE else None
+
+
+def last_report() -> Optional[RunReport]:
+    with _lock:
+        return _LAST_REPORT
+
+
+# ---------------------------------------------------------------------------
+# runtime feeding (fit loops / batcher / datapipe call these)
+# ---------------------------------------------------------------------------
+
+def observe_steps(n: int = 1) -> None:
+    """Count n dispatched training steps: feeds every active ledger AND
+    the runtime ``dl4j_fit_steps_total`` counter (one call site per
+    dispatch — a captured chunk of k batches counts k)."""
+    from deeplearning4j_tpu_torch.observability import metrics as _m
+    _m.observe_step(n)
+    with _lock:
+        active = list(_ACTIVE)
+    for ledger in active:
+        ledger.observe_steps(n)
+
+
+def observe_flops(flops: Optional[float]) -> None:
+    if not flops:
+        return
+    with _lock:
+        active = list(_ACTIVE)
+    for ledger in active:
+        ledger.set_flops_per_step(flops)
+
+
+def record_padding(source: str, real: int, padded: int) -> None:
+    """Padding-waste accounting: ``real`` productive rows/cells vs
+    ``padded`` filler in the same device op (serving bucket forwards,
+    bucket_batch collation)."""
+    if padded < 0:
+        padded = 0
+    with _lock:
+        active = list(_ACTIVE)
+    for ledger in active:
+        ledger.record_padding(source, real, padded)
+
+
+# ---------------------------------------------------------------------------
+# live gauges (registered by install_runtime_metrics)
+# ---------------------------------------------------------------------------
+
+def live_snapshot() -> dict:
+    """The /api/goodput payload: the active ledger's live view, or the
+    last finished report (tagged by ``source``)."""
+    ledger = current_ledger()
+    if ledger is not None:
+        out = ledger.live()
+        out["phases"] = ledger.phase_totals()
+        out["source"] = "live"
+        return out
+    report = last_report()
+    if report is not None:
+        out = report.to_dict()
+        out["source"] = "last_report"
+        return out
+    return {"source": "none"}
+
+
+def goodput_collector() -> list:
+    """Render-time collector for the ``dl4j_goodput_*`` / ``dl4j_mfu``
+    families — reads the active ledger (live) or the last report, so a
+    scrape right after ``fit`` returns still sees the run."""
+    from deeplearning4j_tpu_torch.observability.metrics import MetricFamily
+    ledger = current_ledger()
+    if ledger is not None:
+        snap = ledger.live()
+        phases = ledger.phase_totals()
+    else:
+        report = last_report()
+        if report is None:
+            return []
+        snap = report.to_dict()
+        phases = report.phases
+    L = {"run": snap.get("kind", "unknown")}
+    fams = [
+        MetricFamily("dl4j_run_wall_seconds", "gauge",
+                     "Wall-clock seconds of the current (or last) "
+                     "instrumented run").add(snap.get("wall_s") or 0.0, L),
+    ]
+    gp = snap.get("goodput_fraction")
+    fams.append(MetricFamily(
+        "dl4j_goodput_fraction", "gauge",
+        "Productive device seconds (device_step/device_compute) over "
+        "total wall seconds for the current or last run"
+        ).add(gp if gp is not None else 0.0, L))
+    fps = snap.get("flops_per_second")
+    if fps is not None:
+        fams.append(MetricFamily(
+            "dl4j_flops_per_second", "gauge",
+            "Achieved FLOP/s (auto-derived per-step FLOPs x steps / "
+            "wall)").add(fps, L))
+    mfu = snap.get("mfu")
+    if mfu is not None:
+        fams.append(MetricFamily(
+            "dl4j_mfu", "gauge",
+            "Model FLOPs utilization: achieved FLOP/s over device peak "
+            "(PEAK_FLOPS table or DL4J_TPU_PEAK_FLOPS)").add(mfu, L))
+    if phases:
+        fam = MetricFamily(
+            "dl4j_goodput_phase_seconds", "gauge",
+            "Wall-time ledger: cumulative seconds per traced phase "
+            "over the current or last run")
+        for name, ent in phases.items():
+            fam.add(round(ent["seconds"], 6), {**L, "phase": name})
+        fams.append(fam)
+    padding = snap.get("padding") or {}
+    if padding:
+        fam = MetricFamily(
+            "dl4j_padding_waste_fraction", "gauge",
+            "Padded rows/cells over total per padding source (serving "
+            "bucket ladder, datapipe bucket_batch)")
+        for source, ent in padding.items():
+            fam.add(ent["waste_fraction"], {**L, "source": source})
+        fams.append(fam)
+    return fams

@@ -1,0 +1,732 @@
+"""Cross-runtime metrics registry with Prometheus text exposition
+(counterpart of deeplearning4j_tpu/observability/metrics.py).
+
+The single registry the runtime's counters feed (``ResilienceStats``,
+``PipelineStats``, the goodput gauges, the runtime families below),
+rendered two ways: JSON snapshots and Prometheus text exposition for
+scrapers. The registry, its families and its text are the JAX
+package's, byte for byte.
+
+Two kinds of participants:
+
+- **Direct instruments** — ``registry.counter(...)``/``gauge``/
+  ``histogram`` families with ``.labels(...)`` children, owned by the
+  registry.
+- **Collectors** — callables registered with ``register_collector``
+  that return metric families at render time. ResilienceStats and
+  PipelineStats keep their own lock-guarded counters and attach a
+  collector view, so there is one source of truth and zero double
+  bookkeeping. The runtime collector renders the port's compiles
+  (``nvcc`` builds of the kernels and CUDA-graph captures, under the
+  JAX package's ``dl4j_xla_*`` family names), device memory from
+  ``torch.cuda.memory_stats``, steps/sec and the dispatch lag.
+
+Naming follows Prometheus conventions: ``dl4j_`` prefix, ``_total``
+suffix on counters, base units (seconds, bytes).
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+__all__ = [
+    "Counter", "Gauge", "Histogram", "MetricFamily", "MetricsRegistry",
+    "Sample", "get_registry", "set_registry", "sample_key",
+    "install_runtime_metrics", "observe_step", "observe_dispatch_lag",
+    "wants_prometheus", "PROMETHEUS_CONTENT_TYPE",
+]
+
+PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+
+
+def wants_prometheus(accept: str, query: str = "") -> bool:
+    """/metrics content negotiation: Prometheus text when the client
+    asks for it (scrapers send ``Accept: text/plain`` or an openmetrics
+    type, or ``?format=prometheus`` forces it); JSON otherwise — the
+    pre-existing payload stays the default for ``Accept: */*``."""
+    if "format=prometheus" in (query or ""):
+        return True
+    a = (accept or "").lower()
+    return "text/plain" in a or "openmetrics" in a
+
+_VALID_KINDS = ("counter", "gauge", "histogram")
+
+DEFAULT_BUCKETS = (0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+                   1.0, 2.5, 5.0, 10.0, float("inf"))
+
+
+def _escape_label_value(v: str) -> str:
+    # Exposition-format escaping: backslash, double-quote, newline.
+    return (str(v).replace("\\", "\\\\").replace('"', '\\"')
+            .replace("\n", "\\n"))
+
+
+def _escape_help(v: str) -> str:
+    return str(v).replace("\\", "\\\\").replace("\n", "\\n")
+
+
+def sample_key(name: str, labels: Optional[Dict[str, str]] = None,
+               suffix: str = "") -> str:
+    """The canonical identity of one sample: exactly the series string
+    the exposition format renders (`name{k="escaped"}`), labels sorted,
+    values exposition-escaped. Both the Prometheus renderer and the
+    federation JSON wire format key samples by this, so a label value
+    containing `"` or a newline can never be encoded two different ways
+    on the two paths."""
+    if not labels:
+        return f"{name}{suffix}"
+    inner = ",".join(f'{k}="{_escape_label_value(v)}"'
+                     for k, v in sorted(labels.items()))
+    return f"{name}{suffix}{{{inner}}}"
+
+
+def _fmt_value(v: float) -> str:
+    if v == float("inf"):
+        return "+Inf"
+    if v == float("-inf"):
+        return "-Inf"
+    if v != v:  # NaN
+        return "NaN"
+    if isinstance(v, float) and v.is_integer():
+        return str(int(v))
+    return repr(float(v)) if isinstance(v, float) else str(v)
+
+
+class Sample(Tuple):
+    """(suffix, labels, value) — suffix is appended to the family name
+    ("" for the plain sample, "_bucket"/"_sum"/"_count" for histograms)."""
+
+    def __new__(cls, suffix: str, labels: Dict[str, str], value: float):
+        return super().__new__(cls, (suffix, labels, value))
+
+    @property
+    def suffix(self):
+        return self[0]
+
+    @property
+    def labels(self):
+        return self[1]
+
+    @property
+    def value(self):
+        return self[2]
+
+
+class MetricFamily:
+    """One named metric + HELP/TYPE + its samples. Collectors return
+    lists of these; direct instruments render themselves into these."""
+
+    def __init__(self, name: str, kind: str, help: str,
+                 samples: Optional[List[Sample]] = None):
+        if kind not in _VALID_KINDS:
+            raise ValueError(f"metric kind must be one of {_VALID_KINDS}")
+        self.name = name
+        self.kind = kind
+        self.help = help
+        self.samples: List[Sample] = samples if samples is not None else []
+
+    def add(self, value: float, labels: Optional[Dict[str, str]] = None,
+            suffix: str = ""):
+        self.samples.append(Sample(suffix, labels or {}, value))
+        return self
+
+    def render(self) -> str:
+        lines = [f"# HELP {self.name} {_escape_help(self.help)}",
+                 f"# TYPE {self.name} {self.kind}"]
+        for s in self.samples:
+            lines.append(f"{sample_key(self.name, s.labels, s.suffix)} "
+                         f"{_fmt_value(s.value)}")
+        return "\n".join(lines)
+
+    def to_json(self):
+        if len(self.samples) == 1 and not self.samples[0].labels \
+                and not self.samples[0].suffix:
+            return self.samples[0].value
+        return [{"labels": s.labels, "value": s.value,
+                 **({"suffix": s.suffix} if s.suffix else {})}
+                for s in self.samples]
+
+
+class _Child:
+    """One labeled child of a family; value updates are lock-guarded by
+    the owning registry's lock (coarse, but these are cold-ish paths —
+    the span tracer owns the per-step hot path)."""
+
+    __slots__ = ("_lock", "_value")
+
+    def __init__(self, lock):
+        self._lock = lock
+        self._value = 0.0
+
+
+class _CounterChild(_Child):
+    def inc(self, amount: float = 1.0):
+        if amount < 0:
+            raise ValueError("counters only go up")
+        with self._lock:
+            self._value += amount
+
+    @property
+    def value(self):
+        return self._value
+
+
+class _GaugeChild(_Child):
+    __slots__ = ("_fn",)
+
+    def __init__(self, lock):
+        super().__init__(lock)
+        self._fn = None
+
+    def set(self, value: float):
+        with self._lock:
+            self._value = float(value)
+
+    def inc(self, amount: float = 1.0):
+        with self._lock:
+            self._value += amount
+
+    def dec(self, amount: float = 1.0):
+        self.inc(-amount)
+
+    def set_function(self, fn: Callable[[], float]):
+        """Lazily evaluated at render time (queue depths, clock-derived
+        rates)."""
+        self._fn = fn
+
+    @property
+    def value(self):
+        if self._fn is not None:
+            try:
+                return float(self._fn())
+            except Exception:
+                return float("nan")
+        return self._value
+
+
+class _HistogramChild:
+    __slots__ = ("_lock", "_buckets", "_counts", "_sum", "_count")
+
+    def __init__(self, lock, buckets):
+        self._lock = lock
+        self._buckets = buckets
+        self._counts = [0] * len(buckets)
+        self._sum = 0.0
+        self._count = 0
+
+    def observe(self, value: float):
+        with self._lock:
+            self._sum += value
+            self._count += 1
+            # per-bucket counts; collect() accumulates into the
+            # cumulative le-series the exposition format wants
+            for i, b in enumerate(self._buckets):
+                if value <= b:
+                    self._counts[i] += 1
+                    break
+
+
+class _Family:
+    def __init__(self, registry, name, kind, help, labelnames, buckets=None):
+        self._registry = registry
+        self.name = name
+        self.kind = kind
+        self.help = help
+        self.labelnames = tuple(labelnames)
+        self.buckets = buckets
+        self._children: Dict[Tuple[str, ...], object] = {}
+        # Label-less families get one implicit child so counter.inc()
+        # works without .labels().
+        if not self.labelnames:
+            self._children[()] = self._make_child()
+
+    def _make_child(self):
+        lock = self._registry._lock
+        if self.kind == "counter":
+            return _CounterChild(lock)
+        if self.kind == "gauge":
+            return _GaugeChild(lock)
+        return _HistogramChild(lock, self.buckets)
+
+    def labels(self, **kv):
+        if set(kv) != set(self.labelnames):
+            raise ValueError(
+                f"{self.name}: expected labels {self.labelnames}, "
+                f"got {tuple(kv)}")
+        key = tuple(str(kv[n]) for n in self.labelnames)
+        with self._registry._lock:
+            child = self._children.get(key)
+            if child is None:
+                child = self._make_child()
+                self._children[key] = child
+        return child
+
+    # label-less convenience passthroughs
+    def inc(self, amount: float = 1.0):
+        self._children[()].inc(amount)
+
+    def set(self, value: float):
+        self._children[()].set(value)
+
+    def set_function(self, fn):
+        self._children[()].set_function(fn)
+
+    def observe(self, value: float):
+        self._children[()].observe(value)
+
+    @property
+    def value(self):
+        return self._children[()].value
+
+    def collect(self) -> MetricFamily:
+        fam = MetricFamily(self.name, self.kind, self.help)
+        with self._registry._lock:
+            items = list(self._children.items())
+        for key, child in items:
+            labels = dict(zip(self.labelnames, key))
+            if self.kind == "histogram":
+                cumulative = 0
+                for b, c in zip(child._buckets, child._counts):
+                    cumulative += c
+                    fam.add(cumulative,
+                            {**labels, "le": _fmt_value(b)}, "_bucket")
+                fam.add(child._sum, labels, "_sum")
+                fam.add(child._count, labels, "_count")
+            else:
+                fam.add(child.value, labels)
+        return fam
+
+
+# Public aliases so isinstance/typing reads naturally downstream.
+Counter = Gauge = Histogram = _Family
+
+
+class MetricsRegistry:
+    """The central registry: direct instrument families + render-time
+    collectors, rendered as Prometheus text or a JSON snapshot."""
+
+    def __init__(self):
+        self._lock = threading.RLock()
+        self._families: Dict[str, _Family] = {}
+        self._collectors: List[Callable[[], Sequence[MetricFamily]]] = []
+
+    # ----------------------------------------------------------- instruments
+    def _family(self, name, kind, help, labelnames, buckets=None):
+        with self._lock:
+            fam = self._families.get(name)
+            if fam is not None:
+                if fam.kind != kind or fam.labelnames != tuple(labelnames):
+                    raise ValueError(
+                        f"metric {name!r} already registered as "
+                        f"{fam.kind}{fam.labelnames}")
+                return fam
+            fam = _Family(self, name, kind, help, labelnames, buckets)
+            self._families[name] = fam
+            return fam
+
+    def counter(self, name: str, help: str = "",
+                labelnames: Sequence[str] = ()) -> _Family:
+        return self._family(name, "counter", help, labelnames)
+
+    def gauge(self, name: str, help: str = "",
+              labelnames: Sequence[str] = ()) -> _Family:
+        return self._family(name, "gauge", help, labelnames)
+
+    def histogram(self, name: str, help: str = "",
+                  labelnames: Sequence[str] = (),
+                  buckets: Sequence[float] = DEFAULT_BUCKETS) -> _Family:
+        buckets = tuple(buckets)
+        if not buckets or buckets[-1] != float("inf"):
+            buckets = buckets + (float("inf"),)
+        return self._family(name, "histogram", help, labelnames, buckets)
+
+    # ------------------------------------------------------------ collectors
+    def register_collector(self, fn: Callable[[], Sequence[MetricFamily]]):
+        with self._lock:
+            if fn not in self._collectors:
+                self._collectors.append(fn)
+        return fn
+
+    def unregister_collector(self, fn):
+        with self._lock:
+            try:
+                self._collectors.remove(fn)
+            except ValueError:
+                pass
+
+    # -------------------------------------------------------------- renderers
+    def collect(self) -> List[MetricFamily]:
+        with self._lock:
+            families = list(self._families.values())
+            collectors = list(self._collectors)
+        out = [f.collect() for f in families]
+        for fn in collectors:
+            try:
+                out.extend(fn())
+            except Exception:
+                # A broken collector must not take down the scrape
+                # endpoint; its series simply go missing.
+                continue
+        return out
+
+    def render_prometheus(self) -> str:
+        return "\n".join(f.render() for f in self.collect()) + "\n"
+
+    def snapshot(self) -> dict:
+        """JSON view: {name: value | [{labels, value}...]}."""
+        return {f.name: f.to_json() for f in self.collect()}
+
+
+# --------------------------------------------------------------------------
+# process-global registry
+# --------------------------------------------------------------------------
+
+_GLOBAL = MetricsRegistry()
+
+
+def get_registry() -> MetricsRegistry:
+    return _GLOBAL
+
+
+def set_registry(registry: MetricsRegistry) -> MetricsRegistry:
+    """Swap the process-global registry (tests). Returns the previous
+    one. Runtime metrics (compile/memory/steps) re-install themselves
+    into the new registry on next touch."""
+    global _GLOBAL, _RUNTIME_INSTALLED_ON
+    prev, _GLOBAL = _GLOBAL, registry
+    with _runtime_lock:
+        _RUNTIME_INSTALLED_ON = None
+    return prev
+
+
+# --------------------------------------------------------------------------
+# runtime metrics: compiles, device memory, async-loop rates
+# --------------------------------------------------------------------------
+#
+# The JAX package counts XLA's backend compiles through jax.monitoring.
+# The port's compiles are its own: an nvcc build of a kernel library
+# (ops/_build.py) and a CUDA-graph capture of a train step
+# (nn/multistep.py). Both report here through note_compile, under the
+# same family names, so an "are we recompiling?" alarm reads the same
+# series in both packages.
+
+_runtime_lock = threading.Lock()
+# Stamped at module import — the standard Prometheus process-identity
+# anchor; the federation's health scoreboard keys heartbeat age off the
+# companion dl4j_heartbeat_timestamp_seconds rendered per scrape.
+_PROCESS_START_TIME = time.time()
+_COMPILE = {"count": 0, "seconds": 0.0}
+# the kernel build cache's traffic (ops/_build.py, the counterpart of
+# the JAX package's persistent compilation cache): a hit is a library
+# loaded from the build directory without compiling, a miss one nvcc
+# built into it in this process
+_CACHE = {"hits": 0, "misses": 0}
+_RUNTIME_INSTALLED_ON: Optional[MetricsRegistry] = None
+_STEPS = {"count": 0.0, "per_sec": 0.0, "dispatch_lag_s": 0.0}
+# memory high-water marks, updated on every watermark sample
+# (render-time scrape, observe_rate, goodput run start/end — never on
+# the per-step hot path): device key -> peak bytes_in_use seen
+_MEM_PEAK: dict = {}
+
+
+def note_compile(seconds: float) -> None:
+    """Count one compile of the port's: an nvcc build of a kernel
+    library or a CUDA-graph capture, taking ``seconds``."""
+    with _runtime_lock:
+        _COMPILE["count"] += 1
+        _COMPILE["seconds"] += float(seconds)
+
+
+def note_cache(hit: bool) -> None:
+    """Count one kernel-library load: from the build cache (hit) or
+    built by nvcc first (miss)."""
+    with _runtime_lock:
+        _CACHE["hits" if hit else "misses"] += 1
+
+
+def _cuda_memory() -> list:
+    """``(device, stats)`` for each card this process has initialised:
+    the JAX package's ``memory_stats()`` keys from
+    ``torch.cuda.memory_stats`` (allocated and reserved bytes, the
+    card's total as the limit). Never initialises CUDA itself."""
+    import torch
+    if not torch.cuda.is_initialized():
+        return []
+    out = []
+    for i in range(torch.cuda.device_count()):
+        st = torch.cuda.memory_stats(i)
+        out.append((f"cuda:{i}", {
+            "bytes_in_use": st.get("allocated_bytes.all.current", 0),
+            "peak_bytes_in_use": st.get("allocated_bytes.all.peak", 0),
+            "bytes_limit": torch.cuda.get_device_properties(i).total_memory,
+            "bytes_reserved": st.get("reserved_bytes.all.current", 0)}))
+    return out
+
+
+def _runtime_collector() -> List[MetricFamily]:
+    with _runtime_lock:
+        compile_count = _COMPILE["count"]
+        compile_secs = _COMPILE["seconds"]
+        cache_hits = _CACHE["hits"]
+        cache_misses = _CACHE["misses"]
+        steps = dict(_STEPS)
+    fams = [
+        MetricFamily("dl4j_xla_compile_total", "counter",
+                     "Compiles: nvcc builds of kernel libraries and "
+                     "CUDA-graph captures of train steps"
+                     ).add(compile_count),
+        MetricFamily("dl4j_xla_compile_seconds_total", "counter",
+                     "Cumulative compile wall-clock seconds (nvcc "
+                     "builds and CUDA-graph captures)"
+                     ).add(compile_secs),
+        MetricFamily("dl4j_xla_cache_hits_total", "counter",
+                     "Kernel libraries loaded from the build cache "
+                     "instead of compiled").add(cache_hits),
+        MetricFamily("dl4j_xla_cache_misses_total", "counter",
+                     "Kernel libraries nvcc built into the build cache"
+                     ).add(cache_misses),
+        MetricFamily("dl4j_fit_steps_total", "counter",
+                     "Training steps dispatched by the fit loop"
+                     ).add(steps["count"]),
+        MetricFamily("dl4j_fit_steps_per_second", "gauge",
+                     "Recent fit-loop dispatch rate (steps/sec)"
+                     ).add(steps["per_sec"]),
+        MetricFamily("dl4j_fit_dispatch_lag_seconds", "gauge",
+                     "Last observed host->device dispatch lag (time the "
+                     "host waited on device results at a sync point)"
+                     ).add(steps["dispatch_lag_s"]),
+        MetricFamily("dl4j_process_start_time_seconds", "gauge",
+                     "Unix time the observability runtime was imported "
+                     "(standard process-identity family)"
+                     ).add(_PROCESS_START_TIME),
+        MetricFamily("dl4j_heartbeat_timestamp_seconds", "gauge",
+                     "Unix time of this render — liveness heartbeat; the "
+                     "fleet scoreboard derives heartbeat age from it"
+                     ).add(time.time()),
+    ]
+    try:
+        from deeplearning4j_tpu_torch.observability.distributed import get_identity
+        fams.append(MetricFamily(
+            "dl4j_instance_info", "gauge",
+            "Process identity as labels (run_id/instance/incarnation/"
+            "pid); always 1").add(1.0, get_identity().labels()))
+    except Exception:
+        pass
+    mem = MetricFamily(
+        "dl4j_device_memory_bytes", "gauge",
+        "Per-card memory from torch.cuda.memory_stats(i); without an "
+        "initialised card, one process-wide kind=\"host_rss_bytes\" "
+        "sample")
+    reported = False
+    try:
+        for dev, stats in _cuda_memory():
+            for key in ("bytes_in_use", "peak_bytes_in_use",
+                        "bytes_limit", "bytes_reserved"):
+                mem.add(stats[key], {"device": dev, "kind": key})
+                reported = True
+    except Exception:
+        pass
+    if not reported:
+        rss = _host_rss_bytes()
+        if rss is not None:
+            mem.add(rss, {"device": "process", "kind": "host_rss_bytes"})
+    if mem.samples:
+        fams.append(mem)
+    update_memory_watermark()
+    with _runtime_lock:
+        peaks = dict(_MEM_PEAK)
+    if peaks:
+        peak_fam = MetricFamily(
+            "dl4j_device_memory_peak_bytes", "gauge",
+            "High-water memory mark per device: max peak_bytes_in_use "
+            "from torch.cuda.memory_stats() across watermark samples; "
+            "without a card, the process VmHWM RSS high-water mark")
+        for dev, v in sorted(peaks.items()):
+            peak_fam.add(v, {"device": dev})
+        fams.append(peak_fam)
+    fams.extend(_trace_drop_families())
+    return fams
+
+
+def _trace_drop_families() -> List[MetricFamily]:
+    """dl4j_trace_dropped_spans_total: ring-buffer data loss made
+    visible — per evicted/sampled span name, plus the process total."""
+    try:
+        from deeplearning4j_tpu_torch.observability.trace import get_tracer
+        tracer = get_tracer()
+        total = tracer.dropped
+        by_name = tracer.dropped_spans()
+    except Exception:
+        return []
+    if not total and not by_name:
+        return []
+    fam = MetricFamily(
+        "dl4j_trace_dropped_spans_total", "counter",
+        "Spans lost to tracer ring eviction or sampling, by span name "
+        "(the 'total' label-less sample is the process-wide count)")
+    fam.add(total)
+    for name, n in sorted(by_name.items()):
+        fam.add(n, {"span": name})
+    return [fam]
+
+
+def _host_rss_bytes() -> Optional[float]:
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return float(line.split()[1]) * 1024.0
+    except OSError:
+        return None
+    return None
+
+
+def _host_hwm_bytes() -> Optional[float]:
+    """Kernel-tracked RSS high-water mark (VmHWM) — the honest host
+    watermark, no sampling cadence required."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmHWM:"):
+                    return float(line.split()[1]) * 1024.0
+    except OSError:
+        return None
+    return None
+
+
+def update_memory_watermark() -> None:
+    """Fold the current device memory state into the high-water table.
+    Called at scrape time, epoch boundaries and goodput run start/end —
+    deliberately NOT per-step (a /proc read per step would eat the
+    trace-overhead budget)."""
+    reported = False
+    try:
+        for dev, stats in _cuda_memory():
+            peak = stats["peak_bytes_in_use"]
+            with _runtime_lock:
+                if peak > _MEM_PEAK.get(dev, 0.0):
+                    _MEM_PEAK[dev] = float(peak)
+            reported = True
+    except Exception:
+        pass
+    if reported:
+        return
+    hwm = _host_hwm_bytes() or _host_rss_bytes()
+    if hwm is not None:
+        with _runtime_lock:
+            if hwm > _MEM_PEAK.get("process", 0.0):
+                _MEM_PEAK["process"] = float(hwm)
+
+
+def memory_watermark_bytes() -> Optional[float]:
+    """The single-number memory watermark (max across devices) the
+    RunReport records. Samples current state first."""
+    update_memory_watermark()
+    with _runtime_lock:
+        return max(_MEM_PEAK.values()) if _MEM_PEAK else None
+
+
+def install_runtime_metrics(
+        registry: Optional[MetricsRegistry] = None) -> MetricsRegistry:
+    """Idempotently attach the runtime collector (compile count/seconds,
+    device memory, steps/sec, dispatch lag) to *registry* (default: the
+    global one). Called by the fit loops and the supervisor, so any
+    surfaced registry carries these."""
+    global _RUNTIME_INSTALLED_ON
+    reg = registry or get_registry()
+    with _runtime_lock:
+        if _RUNTIME_INSTALLED_ON is reg:
+            return reg
+        _RUNTIME_INSTALLED_ON = reg
+    reg.register_collector(_runtime_collector)
+    try:  # the goodput gauges ride along wherever runtime metrics go
+        from deeplearning4j_tpu_torch.observability.goodput import goodput_collector
+        reg.register_collector(goodput_collector)
+    except Exception:
+        pass
+    return reg
+
+
+def observe_step(n: int = 1, wall_s: Optional[float] = None):
+    """Fit loops report dispatched steps; steps/sec derives from the
+    wall-clock the caller measured for those n steps."""
+    with _runtime_lock:
+        _STEPS["count"] += n
+        if wall_s and wall_s > 0:
+            _STEPS["per_sec"] = n / wall_s
+
+
+def observe_rate(n: int, wall_s: Optional[float]):
+    """Update the steps/sec gauge WITHOUT advancing steps_total — the
+    fit loops count steps per dispatch (k per captured chunk) via
+    goodput.observe_steps and report the epoch-level rate here."""
+    with _runtime_lock:
+        if wall_s and wall_s > 0:
+            _STEPS["per_sec"] = n / wall_s
+
+
+def observe_dispatch_lag(seconds: float):
+    """Record the latest host->device sync wait (e.g. a score_sync)."""
+    with _runtime_lock:
+        _STEPS["dispatch_lag_s"] = float(seconds)
+
+
+def compile_stats() -> dict:
+    with _runtime_lock:
+        return dict(_COMPILE)
+
+
+def cache_stats() -> dict:
+    """Kernel build-cache traffic since process start:
+    ``{"hits", "misses"}`` (libraries loaded from the build directory
+    as they were, and libraries nvcc built into it)."""
+    with _runtime_lock:
+        return dict(_CACHE)
+
+
+def compile_snapshot() -> dict:
+    """Baseline snapshot for :func:`compile_delta` — the documented
+    per-run seam over the process-global compile/cache counters.
+
+    ``_COMPILE`` and ``_CACHE`` are process-cumulative (a counter that
+    resets under a live scrape would corrupt Prometheus rate()).
+    Run-scoped numbers — what the goodput ledger puts in a RunReport —
+    must therefore be DELTAS: snapshot at run start, subtract at run
+    end. Nested or sequential ledgers each take their own snapshot, so
+    two fits in one process report their own compiles, not each
+    other's."""
+    with _runtime_lock:
+        return {"count": _COMPILE["count"], "seconds": _COMPILE["seconds"],
+                "cache_hits": _CACHE["hits"],
+                "cache_misses": _CACHE["misses"]}
+
+
+def compile_delta(baseline: dict) -> dict:
+    """Compile/cache activity since *baseline* (a
+    :func:`compile_snapshot`). Missing baseline keys count from 0."""
+    now = compile_snapshot()
+    return {k: (round(now[k] - baseline.get(k, 0), 6)
+                if k == "seconds" else now[k] - baseline.get(k, 0))
+            for k in now}
+
+
+def process_start_unix() -> float:
+    """Unix time this PROCESS started (kernel starttime via /proc, so
+    it predates every import) — the cold-start clock's zero. Falls back
+    to the module-import stamp where /proc is unavailable."""
+    try:
+        with open("/proc/self/stat") as f:
+            after_comm = f.read().rsplit(")", 1)[1].split()
+        ticks = float(after_comm[19])  # field 22: starttime
+        with open("/proc/uptime") as f:
+            uptime = float(f.read().split()[0])
+        return time.time() - uptime + ticks / os.sysconf("SC_CLK_TCK")
+    except Exception:
+        return _PROCESS_START_TIME
+
+
+def _monotonic() -> float:
+    return time.perf_counter()

@@ -7,6 +7,9 @@ is built at first use into ``deeplearning4j_tpu_torch/build/`` (listed in
 flags (and of the headers in ``csrc/``), so a changed source is rebuilt
 and an unchanged one is reused.
 ``build()`` compiles several sources at once, one ``nvcc`` process each.
+Each build counts as a compile and a build-cache miss in the metrics
+registry (observability/metrics.py), each library loaded as it was
+found on disk as a cache hit.
 
 Nothing here runs at import: the CPU tests import every module of the
 package on a machine without ``nvcc``.
@@ -23,6 +26,8 @@ import threading
 import time
 from pathlib import Path
 
+from deeplearning4j_tpu_torch.observability import metrics as _metrics
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 KERNELS = ("lstm_fwd", "lstm_bwd", "flash_attn_fwd", "fused_block")
@@ -32,6 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
+_BUILT: set = set()     # libraries nvcc built in this process
 
 
 class KernelBuildError(RuntimeError):
@@ -86,6 +92,9 @@ def build(names=KERNELS) -> dict:
             continue
         os.replace(tmp, out)
         done[name] = {"seconds": time.perf_counter() - t0, "log": log}
+        _BUILT.add(name)
+        _metrics.note_compile(done[name]["seconds"])
+        _metrics.note_cache(hit=False)
     if failed:
         raise KernelBuildError("\n".join(failed))
     return done
@@ -99,6 +108,8 @@ def load(name: str) -> ctypes.CDLL:
             path = library_path(name)
             if not path.exists():
                 build((name,))
+            elif name not in _BUILT:
+                _metrics.note_cache(hit=True)
             lib = ctypes.CDLL(str(path))
             _LIBS[name] = lib
         return lib

@@ -24,19 +24,31 @@
   package's donation-safe copy. Writer errors, injected crashes
   included, surface at the next drain.
 
+- **Streaming sources** (:meth:`TrainingSupervisor.fit_pipeline`): a
+  ``datapipe.Pipeline``'s ``state_dict()`` rides in every checkpoint's
+  ``meta.json``, taken at the step boundary of the snapshot, so a resume
+  or rollback restores the data position with the parameters and a
+  relaunched run trains on the record sequence an uninterrupted one
+  would. The supervisor pulls batches from the pipeline itself, with no
+  prefetching wrapper of its own, so the only batches taken ahead of the
+  step are the prefetch stage's, and they are part of the state.
+
 Every recovery action is a :class:`RecoveryEvent`, passed to the net's
-listeners (``TrainingListener.on_recovery``) and counted in
-:class:`ResilienceStats`.
+listeners (``TrainingListener.on_recovery``), counted in
+:class:`ResilienceStats` (rendered by the metrics registry while a run
+is attached) and recorded by the crash flight recorder, which flushes
+``flight_<tag>.json`` into the checkpoint directory on SIGTERM, NaN
+rollback, preemption and crash. A run is a goodput ledger run
+(``resilient_fit``): ``SupervisorResult.report`` is its RunReport, also
+written as ``run_report.json`` in the checkpoint directory. Spans:
+``restore``, ``rollback``, ``checkpoint_snapshot``, ``checkpoint_write``
+(on the writer thread when asynchronous) and ``checkpoint_barrier``.
 
 Not ported yet, refused by name (``NotImplementedError``): cross-process
 coordination (``coordinate=True``, ``collective_timeout_s``) and the
 statistics collector (ROADMAP.md A.5; ``coordinate="auto"`` resolves to
-single-process, as the JAX package's does in one process), the
-``datapipe`` loop ``fit_pipeline`` (A.1), the compile cache and the
-flight recorder (A.4; ``flight_recorder`` defaults to False here). The
-tracer spans, goodput ledger and metrics registry (A.4) are not attached;
-``SupervisorResult.report`` is None, the JAX package's value when its
-goodput engine is off.
+single-process, as the JAX package's does in one process) and the
+compile cache (A.4).
 """
 
 from __future__ import annotations
@@ -46,10 +58,16 @@ import math
 import os
 import shutil
 import signal
+import sys
 import threading
 import time
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional
+
+from deeplearning4j_tpu_torch.observability import goodput as _goodput
+from deeplearning4j_tpu_torch.observability import metrics as _obs_metrics
+from deeplearning4j_tpu_torch.observability.trace import (
+    get_tracer as _get_tracer)
 
 logger = logging.getLogger("deeplearning4j_tpu_torch")
 
@@ -64,7 +82,7 @@ class TrainingDivergedError(RuntimeError):
 @dataclass(frozen=True)
 class RecoveryEvent:
     """One supervisor action: kind is ``resume`` | ``checkpoint`` |
-    ``retry`` | ``rollback`` | ``preempt`` | ``gc``."""
+    ``retry`` | ``rollback`` | ``preempt`` | ``gc`` | ``reshard``."""
     kind: str
     step: int
     detail: str = ""
@@ -75,8 +93,9 @@ class RecoveryEvent:
 
 class ResilienceStats:
     """Thread-safe recovery counters; ``snapshot()`` is the dict a
-    dashboard polls, with the JAX package's keys (``reshards_total`` and
-    ``peer_losses_total`` stay 0 in one process)."""
+    dashboard polls, with the JAX package's keys (``peer_losses_total``
+    stays 0 in one process), and ``attach_to_registry`` renders them as
+    ``dl4j_resilience_*`` families at scrape time."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -115,6 +134,56 @@ class ResilienceStats:
                 "peer_losses_total": self.peer_losses,
             }
 
+    # ------------------------------------------- unified-registry bridge
+    # the counters stay the source of truth; the registry renders them
+    # at scrape time
+
+    _HELP = {
+        "resumes_total": "Runs resumed from a checkpoint",
+        "checkpoints_total": "Checkpoints committed",
+        "retries_total": "Transient step failures retried",
+        "rollbacks_total": "NaN/Inf rollbacks to the last good checkpoint",
+        "preemptions_total": "Clean preemption exits",
+        "checkpoints_gc_total": "Old/partial checkpoints removed by GC",
+        "nan_check_lag_max": "Max steps the lazy NaN sentinel lagged",
+        "reshards_total": "Resumes that re-laid the run onto a "
+                          "different fleet size",
+        "peer_losses_total": "Consensus timeouts naming a dead peer "
+                             "(the run exited with status peer_lost)",
+    }
+
+    def metric_families(self, labels=None):
+        from deeplearning4j_tpu_torch.observability.metrics import (
+            MetricFamily)
+
+        L = dict(labels or {})
+        out = []
+        for key, value in self.snapshot().items():
+            kind = "gauge" if key == "nan_check_lag_max" else "counter"
+            out.append(MetricFamily(f"dl4j_resilience_{key}", kind,
+                                    self._HELP[key]).add(value, L))
+        return out
+
+    def attach_to_registry(self, registry=None, *, labels=None):
+        from deeplearning4j_tpu_torch.observability.metrics import (
+            get_registry)
+
+        self.detach_from_registry()
+        reg = registry if registry is not None else get_registry()
+
+        def _collect():
+            return self.metric_families(labels)
+
+        reg.register_collector(_collect)
+        self._registry, self._collector = reg, _collect
+        return reg
+
+    def detach_from_registry(self):
+        reg = getattr(self, "_registry", None)
+        if reg is not None:
+            reg.unregister_collector(self._collector)
+            self._registry = self._collector = None
+
 
 def _default_retry_on():
     from deeplearning4j_tpu_torch.resilience.faultinject import (
@@ -125,7 +194,7 @@ def _default_retry_on():
 @dataclass
 class SupervisorConfig:
     """Knobs for one supervised run (the JAX package's fields and
-    defaults, but ``flight_recorder``, which waits for ROADMAP.md A.4)."""
+    defaults)."""
 
     checkpoint_dir: str
     checkpoint_every_steps: int = 100
@@ -153,9 +222,11 @@ class SupervisorConfig:
     #: raised) at the next save, NaN rollback, preemption and exit.
     async_checkpoints: bool = True
     handle_sigterm: bool = True
-    #: the crash flight recorder waits for ROADMAP.md A.4
-    #: (observability/flightrec.py); True raises NotImplementedError
-    flight_recorder: bool = False
+    #: keep a crash flight recorder (observability.flightrec) installed
+    #: for the run: recent spans + recovery events, flushed atomically
+    #: to flight_<instance>.json in checkpoint_dir on SIGTERM, NaN
+    #: rollback, preemption and crash
+    flight_recorder: bool = True
     #: the compile cache waits for ROADMAP.md A.4; a value raises
     compile_cache_dir: Optional[str] = None
     #: cross-process consensus waits for ROADMAP.md A.5 (parallel/):
@@ -175,11 +246,6 @@ class SupervisorConfig:
             raise NotImplementedError(
                 "SupervisorConfig(collective_timeout_s=...): the consensus "
                 "deadline waits for ROADMAP.md A.5 (parallel/)")
-        if self.flight_recorder:
-            raise NotImplementedError(
-                "SupervisorConfig(flight_recorder=True): the flight "
-                "recorder waits for ROADMAP.md A.4 "
-                "(observability/flightrec.py)")
         if self.compile_cache_dir is not None:
             raise NotImplementedError(
                 "SupervisorConfig(compile_cache_dir=...): the compile "
@@ -193,7 +259,9 @@ class SupervisorResult:
     resumed_from: Optional[str]
     events: List[RecoveryEvent]
     stats: dict
-    #: the goodput RunReport waits for ROADMAP.md A.4: always None
+    #: goodput.RunReport for the whole supervised run (None when the
+    #: goodput engine is disabled); also saved as run_report.json in the
+    #: checkpoint dir
     report: Optional[object] = None
     #: a lost peer is a multi-process outcome (ROADMAP.md A.5): always None
     peer_loss: Optional[dict] = None
@@ -225,7 +293,35 @@ class TrainingSupervisor:
         self._ckpt_pending: Optional[dict] = None
         #: (step, 0-d device score) pairs not yet NaN-checked
         self._pending_scores: List[tuple] = []
+        #: datapipe.Pipeline being supervised (fit_pipeline): its
+        #: state_dict rides in every checkpoint's meta.json and is
+        #: restored alongside the net on resume/rollback
+        self._pipeline = None
+        self._resumed_from: Optional[str] = None
+        #: goodput ledger of the active run (a reshard lands on the
+        #: RunReport through it)
+        self._ledger = None
         os.makedirs(config.checkpoint_dir, exist_ok=True)
+        #: crash flight recorder (black box): best-effort, its absence
+        #: must never break training
+        self.flight = None
+        if config.flight_recorder:
+            try:
+                from deeplearning4j_tpu_torch.observability.flightrec import (
+                    install_flight_recorder)
+                self.flight = install_flight_recorder(
+                    dir=config.checkpoint_dir)
+            except Exception:
+                self.flight = None
+
+    def _flight_flush(self, reason: str, exc=None) -> Optional[str]:
+        """Flush the black box (best-effort; returns the artifact path)."""
+        if self.flight is None:
+            return None
+        try:
+            return self.flight.flush(reason, exc=exc)
+        except Exception:
+            return None
 
     # --------------------------------------------------------------- events
     def _emit(self, kind: str, step: int, detail: str = "",
@@ -234,6 +330,11 @@ class TrainingSupervisor:
         self.events.append(ev)
         if counter:
             self.stats.bump(counter)
+        if self.flight is not None:
+            try:  # the black box sees every recovery event
+                self.flight.record_event(kind, step, detail)
+            except Exception:
+                pass
         logger.info("resilience %s", ev)
         for l in getattr(self.net, "listeners", ()):
             on_recovery = getattr(l, "on_recovery", None)
@@ -266,21 +367,32 @@ class TrainingSupervisor:
         would in place."""
         from deeplearning4j_tpu_torch.utils.checkpoint import (
             save_checkpoint, snapshot_for_checkpoint)
+        tracer = _get_tracer()
         self._drain_checkpoint()
         path = self._step_dir(step)
         if not self.config.async_checkpoints:
-            save_checkpoint(self.net, path)
-            self._write_latest_pointer(path)
-            self._commit_checkpoint(step, reason, path)
+            with tracer.span("checkpoint_write", step=step, reason=reason):
+                save_checkpoint(self.net, path, extra_meta=self._extra_meta())
+                self._write_latest_pointer(path)
+                self._commit_checkpoint(step, reason, path)
             return path
-        snap = snapshot_for_checkpoint(self.net)
+        with tracer.span("checkpoint_snapshot", step=step):
+            # the data half of the snapshot: the pipeline's state is taken
+            # here on the main thread, at the step boundary of the
+            # device-side copy, so the writer gets plain data
+            extra = self._extra_meta()
+            snap = snapshot_for_checkpoint(self.net)
         pending = {"step": step, "reason": reason, "path": path,
                    "error": None}
 
         def write():
+            # runs on dl4j-ckpt-writer: its span lands in that thread's
+            # trace lane, beside the main loop's steps
             try:
-                save_checkpoint(snap, path)
-                self._write_latest_pointer(path)
+                with tracer.span("checkpoint_write", step=step,
+                                 reason=reason):
+                    save_checkpoint(snap, path, extra_meta=extra)
+                    self._write_latest_pointer(path)
             except BaseException as e:  # kept for the drain barrier
                 pending["error"] = e
 
@@ -292,6 +404,13 @@ class TrainingSupervisor:
         if wait:
             self._drain_checkpoint()
         return path
+
+    def _extra_meta(self):
+        """The checkpoint's ``extra_meta``: the supervised pipeline's
+        ``state_dict()`` (fit_pipeline), else None."""
+        if self._pipeline is None:
+            return None
+        return {"datapipe": self._pipeline.state_dict()}
 
     def _commit_checkpoint(self, step: int, reason: str, path: str):
         """Post-write bookkeeping (main thread only): rollback target,
@@ -311,25 +430,29 @@ class TrainingSupervisor:
             return
         timeout_s = float(os.environ.get(
             "DL4J_TPU_CKPT_JOIN_TIMEOUT_S", "600"))
-        t.join(timeout=timeout_s)
-        self._ckpt_thread = None
-        self._ckpt_pending = None
-        if t.is_alive():
-            # a wedged writer (dead filesystem) must not freeze training:
-            # fail the drain and leave the daemon thread to the interpreter
-            err = TimeoutError(
-                f"checkpoint writer did not finish within {timeout_s:g}s "
-                "(DL4J_TPU_CKPT_JOIN_TIMEOUT_S)")
-        else:
-            err = pending["error"]
+        with _get_tracer().span("checkpoint_barrier"):
+            t.join(timeout=timeout_s)
+            self._ckpt_thread = None
+            self._ckpt_pending = None
+            if t.is_alive():
+                # a wedged writer (dead filesystem) must not freeze
+                # training: fail the drain and leave the daemon thread to
+                # the interpreter
+                err = TimeoutError(
+                    f"checkpoint writer did not finish within {timeout_s:g}s"
+                    " (DL4J_TPU_CKPT_JOIN_TIMEOUT_S)")
+            else:
+                err = pending["error"]
+            if err is None:
+                # the commit's bookkeeping and retention GC are the
+                # barrier's main-thread work
+                self._commit_checkpoint(pending["step"], pending["reason"],
+                                        pending["path"])
         if err is not None:
             if raise_errors:
                 raise err
             logger.error("async checkpoint write for %s failed: %r",
                          pending["path"], err)
-            return
-        self._commit_checkpoint(pending["step"], pending["reason"],
-                                pending["path"])
 
     def _gc(self, current_step: int):
         """Retention: keep the newest ``keep_checkpoints`` valid steps, and
@@ -365,7 +488,13 @@ class TrainingSupervisor:
         user references to the net stay valid. A captured step copies the
         replaced leaves into its own tensors before its next replay, and
         the device iteration refills from ``net.iteration``
-        (nn/multistep.py)."""
+        (nn/multistep.py).
+
+        Under ``fit_pipeline`` the pipeline's state comes back too. A
+        shard cursor saved for another ``(n, i)`` than the live
+        pipeline's is re-cut at the coverage rule's low-water mark
+        (datapipe/reshard.py), emitted as a ``reshard`` event and stamped
+        onto the RunReport."""
         from deeplearning4j_tpu_torch.utils.checkpoint import (
             _checked_meta, _net_kind, read_checkpoint_trees)
         net = self.net
@@ -377,6 +506,33 @@ class TrainingSupervisor:
         net.iteration = int(meta["iteration"])
         net.epoch = int(meta["epoch"])
         self._last_good = path
+        if self._pipeline is None:
+            return
+        if "datapipe" not in meta:
+            logger.warning(
+                "checkpoint %s carries no datapipe state; the pipeline "
+                "keeps its current position", path)
+            return
+        from deeplearning4j_tpu_torch.datapipe.reshard import (
+            remap_for, shard_position)
+        dp_state = meta["datapipe"]
+        old_pos = shard_position(dp_state)
+        try:
+            self._pipeline.load_state_dict(dp_state)
+            return
+        except ValueError:
+            # a shard cursor baked for another fleet size: re-cut the
+            # stream at the coverage rule's low-water mark
+            remapped = remap_for(self._pipeline, dp_state)
+        self._pipeline.load_state_dict(remapped)
+        new_pos = shard_position(remapped)
+        detail = {"datapipe": {"from": old_pos and dict(zip("nik", old_pos)),
+                               "to": new_pos and dict(zip("nik", new_pos))}}
+        self._emit("reshard", net.iteration,
+                   f"datapipe shard cursor {old_pos} re-cut to {new_pos} "
+                   f"from {path}", counter="reshards")
+        if self._ledger is not None:
+            self._ledger.annotate(reshard=detail)
 
     # ------------------------------------------------------------- stepping
     def request_preemption(self):
@@ -388,6 +544,9 @@ class TrainingSupervisor:
     def _sigterm(self, signum, frame):
         logger.warning("SIGTERM received: will checkpoint and exit at "
                        "the next step boundary")
+        # flush the black box NOW: if the sender escalates to SIGKILL
+        # before the clean boundary, the post-mortem already exists
+        self._flight_flush("sigterm")
         self.request_preemption()
 
     def _attempt_step(self, ds, step: int):
@@ -419,14 +578,17 @@ class TrainingSupervisor:
         """Read every pending score (the wait on the card happens HERE,
         not on the step path) and return the first non-finite ``(step,
         value)``, or None. The detection lag, how many steps ran past a
-        score before it was read, goes to ``nan_check_lag``."""
+        score before it was read, goes to ``nan_check_lag``. The reads
+        are a ``score_sync`` span, the fit loops' name for the host's
+        wait on a score, so the ledger attributes the wait."""
         pending, self._pending_scores = self._pending_scores, []
         bad = None
         now = self.net.iteration
-        for step, score in pending:
-            self.stats.note_nan_check_lag(now - (step + 1))
-            if bad is None and not math.isfinite(float(score)):
-                bad = (step, float(score))
+        with _get_tracer().span("score_sync", steps=len(pending)):
+            for step, score in pending:
+                self.stats.note_nan_check_lag(now - (step + 1))
+                if bad is None and not math.isfinite(float(score)):
+                    bad = (step, float(score))
         return bad
 
     def _agreed_bad(self):
@@ -450,41 +612,83 @@ class TrainingSupervisor:
                 f"loss is non-finite ({score}) at step {step} and no good "
                 "checkpoint exists to roll back to")
         new_scale = getattr(self.net, "_lr_scale", 1.0) * cfg.nan_lr_backoff
-        self._load_into(self._last_good)
+        with _get_tracer().span("rollback", step=step):
+            self._load_into(self._last_good)
         if hasattr(self.net, "set_lr_scale"):
             self.net.set_lr_scale(new_scale)
         self._emit("rollback", self.net.iteration,
                    f"non-finite loss ({score}) at step {step}; restored "
                    f"{self._last_good}, lr scale now {new_scale:g}",
                    counter="rollbacks")
+        self._flight_flush("nan_rollback")
 
     # ------------------------------------------------------------ main loop
+    def _open_run(self):
+        """What a run starts with: the runtime metrics, this supervisor's
+        counters in the registry (attached after the run too, so a later
+        scrape still reports them), the goodput ledger and, with
+        ``resume``, the newest valid checkpoint restored. Returns the
+        ledger and the checkpoint resumed from (or None)."""
+        from deeplearning4j_tpu_torch.utils.checkpoint import (
+            find_latest_checkpoint)
+        cfg = self.config
+        _obs_metrics.install_runtime_metrics()
+        self.stats.attach_to_registry(
+            labels={"job": os.path.basename(
+                os.path.normpath(cfg.checkpoint_dir))})
+        ledger = _goodput.start_run("resilient_fit", net=self.net)
+        self._ledger = ledger
+        if cfg.resume:
+            # the search reads the newest meta.json (with a pipeline's
+            # state, megabytes): it is part of the restore's span
+            t0 = time.perf_counter()
+            latest = find_latest_checkpoint(cfg.checkpoint_dir)
+            if latest is not None:
+                self._load_into(latest)
+                _get_tracer().record("restore", t0, time.perf_counter())
+                return ledger, latest
+        return ledger, None
+
+    def _close_run(self, ledger, status: str) -> SupervisorResult:
+        report = _goodput.end_run(
+            ledger, status=status, save_to=self._report_path())
+        return SupervisorResult(
+            status=status, final_step=self.net.iteration,
+            resumed_from=self._resumed_from, events=list(self.events),
+            stats=self.stats.snapshot(), report=report)
+
+    def _on_exit(self, ledger):
+        """The exit barrier of a run's ``finally``: with an exception
+        already propagating, the writer's own error must not mask it
+        (join and log only), the black box is flushed and the ledger
+        closed as failed."""
+        self._drain_checkpoint(raise_errors=False)
+        if sys.exc_info()[0] is not None:
+            self._flight_flush("exception", exc=sys.exc_info()[1])
+            _goodput.end_run(ledger, status="failed")
+
+    def _signal_handler(self):
+        """Installs the SIGTERM handler (main thread only); returns what
+        to restore, or None."""
+        if not (self.config.handle_sigterm
+                and threading.current_thread() is threading.main_thread()):
+            return None
+        return (signal.signal(signal.SIGTERM, self._sigterm),)
+
     def run(self, batch_fn: Callable[[int], object],
             target_step: int) -> SupervisorResult:
         """Train until ``net.iteration == target_step``, feeding
         ``batch_fn(step)`` at each step. Resumable: relaunching with the
         same arguments continues from the newest valid checkpoint to the
         same final step."""
-        from deeplearning4j_tpu_torch.utils.checkpoint import (
-            find_latest_checkpoint)
         cfg = self.config
         net = self.net
-        resumed_from = None
+        ledger, self._resumed_from = self._open_run()
+        if self._resumed_from is not None:
+            self._emit("resume", net.iteration,
+                       f"restored {self._resumed_from}", counter="resumes")
 
-        if cfg.resume:
-            latest = find_latest_checkpoint(cfg.checkpoint_dir)
-            if latest is not None:
-                self._load_into(latest)
-                self._emit("resume", net.iteration, f"restored {latest}",
-                           counter="resumes")
-                resumed_from = latest
-
-        old_handler = None
-        use_signal = (cfg.handle_sigterm
-                      and threading.current_thread()
-                      is threading.main_thread())
-        if use_signal:
-            old_handler = signal.signal(signal.SIGTERM, self._sigterm)
+        old_handler = self._signal_handler()
         rollbacks = 0
         status = "completed"
         try:
@@ -537,29 +741,134 @@ class TrainingSupervisor:
                 self._emit("preempt", net.iteration,
                            f"clean exit at step {net.iteration} of "
                            f"{target_step}", counter="preemptions")
+                self._flight_flush("preemption")
             else:
                 self._drain_checkpoint()  # settle _last_good first
                 if self._last_good != self._step_dir(net.iteration):
                     self._checkpoint(net.iteration, "final", wait=True)
         finally:
-            if use_signal:
-                signal.signal(signal.SIGTERM, old_handler)
-            # exit barrier: with an exception already propagating, the
-            # writer's own error must not mask it (join and log only); on
-            # clean paths the writer was drained above
-            self._drain_checkpoint(raise_errors=False)
+            if old_handler is not None:
+                signal.signal(signal.SIGTERM, old_handler[0])
+            self._on_exit(ledger)
+        return self._close_run(ledger, status)
 
-        return SupervisorResult(
-            status=status, final_step=net.iteration,
-            resumed_from=resumed_from, events=list(self.events),
-            stats=self.stats.snapshot())
+    def _report_path(self) -> str:
+        """``run_report.json`` in the checkpoint dir (rank-suffixed off
+        rank 0 in a multi-process run)."""
+        from deeplearning4j_tpu_torch.observability.distributed import (
+            rank_suffix)
+        return os.path.join(self.config.checkpoint_dir,
+                            f"run_report{rank_suffix()}.json")
 
-    def fit_pipeline(self, pipeline, *, epochs: int = 1):
-        """Supervised training over a ``datapipe.Pipeline``: waits for
-        ROADMAP.md A.1's ``datapipe/``."""
-        raise NotImplementedError(
-            "TrainingSupervisor.fit_pipeline: the datapipe loop waits for "
-            "ROADMAP.md A.1 (datapipe/)")
+    # ------------------------------------------------------- pipeline loop
+    def fit_pipeline(self, pipeline, *, epochs: int = 1) -> SupervisorResult:
+        """Supervise training over a ``datapipe.Pipeline``, the
+        streaming-source twin of :meth:`run`. The pipeline's
+        ``state_dict()`` rides in every checkpoint's ``meta.json``
+        (taken at the step boundary of the snapshot), so resume and NaN
+        rollback restore the data position (epoch, source cursor,
+        shuffle RNG and window, partial batch buffers, prefetched
+        batches) alongside the parameters: a killed-and-relaunched run
+        trains on the exact record sequence an uninterrupted one would.
+        Completion is data-driven (the stream runs out of epochs) rather
+        than an absolute target step.
+
+        Before a restore or rollback the live stream is closed (its
+        prefetch worker stopped), so no batch taken from the old stream
+        is trained on after it; the batches the worker had buffered are
+        in the checkpoint's state and come back from there."""
+        cfg = self.config
+        net = self.net
+        self._pipeline = pipeline
+        ledger, self._resumed_from = self._open_run()
+        if self._resumed_from is not None:
+            self._emit("resume", net.iteration,
+                       f"restored {self._resumed_from} (datapipe epoch "
+                       f"{pipeline.epoch})", counter="resumes")
+
+        old_handler = self._signal_handler()
+        stream = None
+
+        def invalidate_stream():
+            # close the live generator chain FIRST (stops the prefetch
+            # worker mid-pull), so a restore never races a worker still
+            # mutating upstream stage state
+            nonlocal stream
+            if stream is not None:
+                stream.close()
+                stream = None
+
+        rollbacks = 0
+        status = "completed"
+        try:
+            if self._last_good is None:
+                # baseline save: a rollback target from the first step,
+                # with the pipeline's start-of-run state
+                self._checkpoint(net.iteration, "baseline")
+
+            while True:
+                if self._preempt_requested:
+                    status = "preempted"
+                    break
+                if stream is None:
+                    stream = pipeline.stream(epochs)
+                ds = next(stream, None)
+                if ds is None:
+                    # stream exhausted, but the unread scores may hold
+                    # poison; a rollback rewinds the data position too
+                    # and re-enters with a new stream
+                    bad = self._agreed_bad()
+                    if bad is not None:
+                        rollbacks += 1
+                        invalidate_stream()
+                        self._rollback(bad[0], bad[1], rollbacks)
+                        continue
+                    break
+                step = net.iteration
+                score = self._attempt_step(ds, step)
+                if cfg.nan_check_every > 0:
+                    self._pending_scores.append((step, score))
+                due_check = (cfg.nan_check_every > 0
+                             and net.iteration % cfg.nan_check_every == 0)
+                due_ckpt = net.iteration % cfg.checkpoint_every_steps == 0
+                if (due_check or due_ckpt) and self._pending_scores:
+                    bad = self._agreed_bad()
+                    if bad is not None:
+                        rollbacks += 1
+                        invalidate_stream()
+                        self._rollback(bad[0], bad[1], rollbacks)
+                        continue
+                if due_ckpt:
+                    self._checkpoint(net.iteration, "periodic")
+
+            if status == "preempted":
+                bad = self._agreed_bad()
+                if bad is not None:
+                    rollbacks += 1
+                    invalidate_stream()
+                    self._rollback(bad[0], bad[1], rollbacks)
+                # park the prefetch worker so the saved pipeline state is
+                # the final word on the data position
+                invalidate_stream()
+                self._checkpoint(net.iteration, "preemption", wait=True)
+                self._emit("preempt", net.iteration,
+                           f"clean exit at step {net.iteration} "
+                           f"(datapipe epoch {pipeline.epoch} of "
+                           f"{epochs})", counter="preemptions")
+                self._flight_flush("preemption")
+            else:
+                self._drain_checkpoint()  # settle _last_good first
+                if self._last_good != self._step_dir(net.iteration):
+                    self._checkpoint(net.iteration, "final", wait=True)
+        finally:
+            if old_handler is not None:
+                signal.signal(signal.SIGTERM, old_handler[0])
+            invalidate_stream()
+            # the pipeline reports only while consumed: back-to-back runs
+            # over fresh pipelines must not pile stale families up
+            pipeline.stats.detach_from_registry()
+            self._on_exit(ledger)
+        return self._close_run(ledger, status)
 
     # ----------------------------------------------------------- fit facade
     def fit(self, data, labels=None, *, epochs: int = 1,
@@ -567,7 +876,12 @@ class TrainingSupervisor:
         """The ``fit``-shaped entry: materializes the batch sequence and
         supervises to the absolute step ``epochs * len(batches)``, so a
         killed-and-relaunched run lands on the SAME final step as an
-        uninterrupted one."""
+        uninterrupted one. A ``datapipe.Pipeline`` goes to
+        :meth:`fit_pipeline` instead (streamed, never materialized; its
+        data position checkpointed)."""
+        from deeplearning4j_tpu_torch.datapipe.core import Pipeline
+        if isinstance(data, Pipeline):
+            return self.fit_pipeline(data, epochs=epochs)
         batches = _materialize_batches(data, labels, batch_size)
         if not batches:
             raise ValueError("no training batches")

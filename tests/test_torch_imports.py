@@ -110,6 +110,35 @@ def test_resnet_modules_are_checked(module):
     assert module in {_module_name(p) for p in SOURCES}
 
 
+# the modules of the data-fed, observed training slice: the input
+# pipeline, the observability core and the lock-guard declaration
+PIPELINE_MODULES = [
+    "deeplearning4j_tpu_torch.analysis",
+    "deeplearning4j_tpu_torch.analysis.guards",
+    "deeplearning4j_tpu_torch.observability",
+    "deeplearning4j_tpu_torch.observability.trace",
+    "deeplearning4j_tpu_torch.observability.metrics",
+    "deeplearning4j_tpu_torch.observability.distributed",
+    "deeplearning4j_tpu_torch.observability.goodput",
+    "deeplearning4j_tpu_torch.observability.flightrec",
+    "deeplearning4j_tpu_torch.datapipe",
+    "deeplearning4j_tpu_torch.datapipe.core",
+    "deeplearning4j_tpu_torch.datapipe.sources",
+    "deeplearning4j_tpu_torch.datapipe.stages",
+    "deeplearning4j_tpu_torch.datapipe.tokens",
+    "deeplearning4j_tpu_torch.datapipe.prefetch",
+    "deeplearning4j_tpu_torch.datapipe.reshard",
+]
+
+
+@pytest.mark.parametrize("module", PIPELINE_MODULES)
+def test_pipeline_and_observability_modules_are_checked(module):
+    """Each module of the pipeline and observability slice is among the
+    sources the import tests check (so the test below imports it with
+    jax and the JAX package blocked)."""
+    assert module in {_module_name(p) for p in SOURCES}
+
+
 def test_package_imports_with_jax_blocked():
     mods = [_module_name(p) for p in SOURCES if p.parent != ROOT]
     code = ("import sys\n"

@@ -42,6 +42,7 @@ from deeplearning4j_tpu.nn.conf.layers import Output as JOutput
 from deeplearning4j_tpu.nn.multilayer import MultiLayerNetwork as JMLN
 from deeplearning4j_tpu.nn.updater import Adam as JAdam
 from deeplearning4j_tpu.utils import serialization as jser
+from deeplearning4j_tpu_torch import datapipe
 from deeplearning4j_tpu_torch import resilience as tres
 from deeplearning4j_tpu_torch.datasets import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.nn import multistep
@@ -51,6 +52,7 @@ from deeplearning4j_tpu_torch.nn.conf.layers import Dense, Output
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.nn.updater import Adam
+from deeplearning4j_tpu_torch.observability.goodput import RunReport
 from deeplearning4j_tpu_torch.optimize.listeners import RecoveryEventListener
 from deeplearning4j_tpu_torch.resilience import (
     FaultInjector,
@@ -156,7 +158,10 @@ def test_supervised_fit_matches_plain_fit_and_retains_k(tmp_path):
     res = resilient_fit(net, ds, checkpoint_dir=str(tmp_path), epochs=10,
                         checkpoint_every_steps=3, keep_checkpoints=2)
     assert res.status == "completed" and res.final_step == 10
-    assert res.report is None
+    # the run's goodput report, returned and written beside the steps
+    assert isinstance(res.report, RunReport)
+    assert res.report.kind == "resilient_fit" and res.report.steps == 10
+    assert RunReport.load(str(tmp_path / "run_report.json")).steps == 10
     _assert_params_equal(ref, net)
     assert _steps_on_disk(tmp_path) == ["step_10", "step_9"]
     with open(tmp_path / "LATEST") as f:
@@ -601,11 +606,28 @@ def test_restore_into_live_net_rebinds_a_captured_step(tmp_path):
 @pytest.mark.parametrize("kw,item", [
     ({"coordinate": True}, "A.5"),
     ({"collective_timeout_s": 5.0}, "A.5"),
-    ({"flight_recorder": True}, "A.4"),
+    ({"flight_recorder": True}, None),
     ({"compile_cache_dir": "cache"}, "A.4"),
 ], ids=["coordinate", "collective_timeout_s", "flight_recorder",
         "compile_cache_dir"])
 def test_unported_config_options_refused_by_name(tmp_path, kw, item):
+    if item is None:
+        # ported (the flight recorder): accepted, and a preempted run
+        # leaves its flight file in the checkpoint directory
+        inj = FaultInjector()
+        inj.preempt_at_step(2)
+        with inj.installed():
+            res = resilient_fit(_mln(), _data(), checkpoint_dir=str(tmp_path),
+                                epochs=4, injector=inj, **kw)
+        assert res.status == "preempted"
+        flights = [n for n in os.listdir(str(tmp_path))
+                   if n.startswith("flight_")]
+        assert len(flights) == 1
+        doc = json.load(open(str(tmp_path / flights[0])))
+        assert doc["schema"] == 1 and doc["reason"] == "preemption"
+        last = doc["events"][-1]
+        assert (last["kind"], last["step"]) == ("preempt", res.final_step)
+        return
     with pytest.raises(NotImplementedError, match=item):
         SupervisorConfig(checkpoint_dir=str(tmp_path), **kw)
     with pytest.raises(NotImplementedError, match=item):
@@ -613,13 +635,28 @@ def test_unported_config_options_refused_by_name(tmp_path, kw, item):
 
 
 def test_stats_collector_and_fit_pipeline_refused_by_name(tmp_path):
+    """The statistics collector is still refused (A.5); fit_pipeline is
+    ported (it trains on the pipeline's batches, epoch after epoch), and
+    the flight recorder is on by default, as in the JAX package."""
     cfg = SupervisorConfig(checkpoint_dir=str(tmp_path))
     with pytest.raises(NotImplementedError, match="A.5"):
         TrainingSupervisor(_mln(), cfg, stats_collector=object())
-    with pytest.raises(NotImplementedError, match="A.1"):
-        TrainingSupervisor(_mln(), cfg).fit_pipeline(object())
+    ds = _data()
+
+    def pipe():
+        return datapipe.from_arrays(ds.features, ds.labels).shuffle(
+            window=8, seed=5).batch(8)
+
+    net = _mln()
+    res = TrainingSupervisor(net, cfg).fit_pipeline(pipe(), epochs=2)
+    assert res.status == "completed" and res.final_step == 8
+    ref, p = _mln(), pipe()
+    for _ in range(2):
+        for b in p:
+            ref.fit_batch(b)
+    _assert_params_equal(ref, net)
     assert SupervisorConfig(checkpoint_dir=str(tmp_path),
-                            coordinate="auto").flight_recorder is False
+                            coordinate="auto").flight_recorder is True
 
 
 # ---------------------------------------------------------------------------
@@ -724,6 +761,174 @@ def test_same_fault_schedule_as_the_jax_supervisor(tmp_path, name):
         open(os.path.join(jdir, "LATEST")).read()
     assert tnet.iteration == jnet.iteration == plan["steps"]
     assert tnet._lr_scale == jnet._lr_scale
+    for n, sub in jnet.params.items():
+        for k, v in sub.items():
+            np.testing.assert_allclose(
+                tnet.params[n][k].numpy(), np.asarray(v), rtol=1e-5,
+                atol=1e-5, err_msg=f"{n}/{k}")
+
+
+# ---------------------------------------------------------------------------
+# fit_pipeline: a shuffled, prefetched token stream resumed mid-epoch
+# ---------------------------------------------------------------------------
+
+PIPE_V, PIPE_T, PIPE_B = 12, 8, 4
+PIPE_ALPHABET = "abcdefghijkl"
+# the chaos schedule over a 3-epoch pipeline of 6 batches an epoch: a
+# crash mid-epoch 1 (a step that keeps failing past its retries), a
+# crash inside a save, a preemption mid-epoch 2, a clean relaunch
+PIPE_EPOCHS, PIPE_EVERY = 3, 4
+PIPE_PLAN = [[("crash_step", 8)], [("crash_save", 1)], [("preempt", 14)], []]
+
+
+def _corpus():
+    rng = np.random.default_rng(17)
+    return "".join(rng.choice(list(PIPE_ALPHABET), 6 * PIPE_B * PIPE_T + 1))
+
+
+def _token_pipe(mod):
+    """from_text -> tokenize -> window -> shuffle -> batch -> prefetch, in
+    either package (``mod`` is a ``datapipe`` module)."""
+    tok = mod.CharTokenizer.fit(PIPE_ALPHABET)
+    return (mod.from_text(_corpus()).tokenize(tok)
+            .window(PIPE_T, vocab_size=PIPE_V)
+            .shuffle(window=16, seed=9)
+            .batch(PIPE_B, drop_last=True).prefetch(2))
+
+
+def _small_char_rnn(pkg):
+    if pkg == "jax":
+        from deeplearning4j_tpu import zoo as jzoo
+        return jzoo.char_rnn(vocab_size=PIPE_V, hidden=16, n_layers=1,
+                             seed=5, dtype=jzoo.models.F32)
+    from deeplearning4j_tpu_torch import zoo as tzoo
+    return tzoo.char_rnn(vocab_size=PIPE_V, hidden=16, n_layers=1, seed=5,
+                         dtype=tzoo.F32, device="cpu")
+
+
+def _record_batches(net, seen):
+    """Wraps ``net.fit_batch`` so each batch it trains on leaves a hash of
+    its features and labels in ``seen``."""
+    import hashlib
+    step = net.fit_batch
+
+    def fit_batch(ds):
+        h = hashlib.sha256(np.ascontiguousarray(ds.features).tobytes())
+        h.update(np.ascontiguousarray(ds.labels).tobytes())
+        seen.append(h.hexdigest()[:16])
+        return step(ds)
+
+    net.fit_batch = fit_batch
+    return net
+
+
+def _arm_pipe(mod, faults):
+    inj = mod.FaultInjector()
+    for fault, at in faults:
+        if fault == "crash_step":
+            inj.fail_step(at, times=4)       # past max_step_retries = 3
+        elif fault == "crash_save":
+            inj.crash_during_save(at)
+        elif fault == "preempt":
+            inj.preempt_at_step(at)
+    return inj
+
+
+def _supervise_pipe(mod, pipe_mod, make_net, ckpt, plan=PIPE_PLAN):
+    """Each launch on a fresh net and a fresh pipeline, resumed from disk
+    only, until one completes: (net, per-launch [(kind, step)],
+    outcomes, per-launch hashes of the batches trained on)."""
+    events, outcomes, seen, net = [], [], [], None
+    for faults in plan:
+        seen.append([])
+        net = _record_batches(make_net(), seen[-1])
+        inj = _arm_pipe(mod, faults)
+        cfg = mod.SupervisorConfig(
+            checkpoint_dir=ckpt, checkpoint_every_steps=PIPE_EVERY,
+            keep_checkpoints=3, backoff_initial_s=0.0, handle_sigterm=False,
+            sleep_fn=lambda s: None)
+        sup = mod.TrainingSupervisor(net, cfg, injector=inj)
+        try:
+            with inj.installed():
+                res = sup.fit_pipeline(_token_pipe(pipe_mod),
+                                       epochs=PIPE_EPOCHS)
+            outcomes.append(res.status)
+        except (mod.InjectedCrash, mod.TransientStepError):
+            outcomes.append("crashed")
+        events.append([(e.kind, e.step) for e in sup.events])
+        if outcomes[-1] == "completed":
+            break
+    return net, events, outcomes, seen
+
+
+def test_fit_pipeline_resumes_mid_epoch_bit_identical(tmp_path):
+    """The chaos schedule through fit_pipeline: the survivor's params and
+    Adam slots equal an uninterrupted fit_pipeline run's bit for bit, and
+    the batches trained on after each restore continue the uninterrupted
+    sequence (a batch trained before a crash is trained again only when
+    the checkpoint the relaunch restored predates it)."""
+    ref_seen = []
+    ref = _record_batches(_small_char_rnn("port"), ref_seen)
+    ref_res = TrainingSupervisor(ref, SupervisorConfig(
+        checkpoint_dir=str(tmp_path / "ref"),
+        checkpoint_every_steps=PIPE_EVERY)).fit_pipeline(
+            _token_pipe(datapipe), epochs=PIPE_EPOCHS)
+    steps = PIPE_EPOCHS * 6
+    assert ref_res.final_step == steps == len(ref_seen)
+    assert len(set(ref_seen[:6])) == 6
+    assert ref_seen[:6] != ref_seen[6:12]   # each epoch its own order
+
+    net, events, outcomes, seen = _supervise_pipe(
+        tres, datapipe, lambda: _small_char_rnn("port"),
+        str(tmp_path / "chaos"))
+    assert outcomes == ["crashed", "crashed", "preempted", "completed"]
+    assert net.iteration == steps
+    # each launch trains on the uninterrupted run's batches from the step
+    # it resumed at, and reaches at least the step the next one resumes
+    # at: no batch skipped, none out of order
+    resumes = [dict(ev).get("resume", 0) for ev in events]
+    assert resumes[0] == 0 and 0 < resumes[1] <= resumes[2] <= resumes[3]
+    for i, got in enumerate(seen):
+        start = resumes[i]
+        assert got == ref_seen[start:start + len(got)], i
+        end = resumes[i + 1] if i + 1 < len(seen) else steps
+        assert start + len(got) >= end, i
+    assert resumes[-1] + len(seen[-1]) == steps
+    for t_ref, t_got in zip(multistep._tree_paths(ref),
+                            multistep._tree_paths(net)):
+        assert t_ref[:2] == t_got[:2]
+        assert torch.equal(t_ref[2], t_got[2]), t_ref[:2]
+    meta = read_checkpoint_meta(find_latest_checkpoint(
+        str(tmp_path / "chaos")))
+    assert meta["datapipe"]["epoch"] == PIPE_EPOCHS
+
+
+def test_fit_pipeline_same_schedule_as_the_jax_supervisor(tmp_path):
+    """The same chaos schedule through both supervisors' fit_pipeline,
+    over the same token pipeline built in each package, on a char-RNN
+    (hidden 16, T = 8, F32) transplanted from the JAX package: the same
+    outcomes, recovery events (kind, step), batches trained on and
+    pipeline state in the final checkpoint; params within 1e-5 (f32 Adam
+    over 18 LSTM steps, the same arithmetic in another order)."""
+    from deeplearning4j_tpu import datapipe as jpipe
+    jnet0 = _small_char_rnn("jax")
+    zpath = str(tmp_path / "init.zip")
+    jser.write_model(jnet0, zpath)
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    jnet, jev, jout, jseen = _supervise_pipe(
+        jres, jpipe, lambda: _small_char_rnn("jax"), jdir)
+    tnet, tev, tout, tseen = _supervise_pipe(
+        tres, datapipe,
+        lambda: tser.restore_multi_layer_network(zpath, device="cpu"), tdir)
+    assert tout == jout == ["crashed", "crashed", "preempted", "completed"]
+    assert tev == jev
+    assert tseen == jseen
+    assert _steps_on_disk(tmp_path / "port") == \
+        _steps_on_disk(tmp_path / "jax")
+    jm = read_checkpoint_meta(find_latest_checkpoint(jdir))
+    tm = read_checkpoint_meta(find_latest_checkpoint(tdir))
+    assert tm["datapipe"] == jm["datapipe"]
+    assert tnet.iteration == jnet.iteration == PIPE_EPOCHS * 6
     for n, sub in jnet.params.items():
         for k, v in sub.items():
             np.testing.assert_allclose(
