@@ -21,7 +21,10 @@ ResNet-18 (32 x 32, 10 classes, BF16) and evaluates the graph; these
 paths reach none of the port's kernels (cuDNN and cuBLAS only). Then it
 captures the train steps ([train_captured]) and runs the fault-tolerant
 supervisor, the solvers, gradient checks, transfer learning and
-pretraining (--slice12 below). Every
+pretraining (--slice12 below), the data-fed observed runs (--slice13),
+and slice 14's graph phases (--slice14 below: the skip-connected
+char-RNN graph trained with tBPTT and streamed, a vertex-rich F64
+graph, ResNet-50's remat spans). Every
 phase that fails ends the run with a nonzero exit code. It needs one CUDA
 card; without one (or without the package beside it) it exits nonzero
 and prints no result.
@@ -81,6 +84,22 @@ batches from memory, char-RNN and LeNet; [observability]: the tracer's
 and the flight recorder's cost on the step), each also alone
 (--datapipe-resilient, --datapipe-feed, --observability); the traces
 land in profile_out/, and
+
+    python3 chip_smoke.py --slice14
+
+runs only slice 14's phases ([graph_tbptt]: DL4J's CompGraphLSTMExample
+at full width, two GravesLSTM(512) with a skip connection merged into
+the head, BF16, Adam(2e-3), tBPTT 50 over 3 batches of b = 32, T =
+1000, with K1/K2's launches on the cluster route, the carries spied,
+device ms a window and a T = 200 batch held against the plain CPU path;
+[graph_stream]: the trained graph sampled one character at a time
+through rnn_time_step, against one-shot output (BF16, and the carry
+alone under F32); [graph_layers]: a small F64 graph with every vertex
+type and each new layer type, card against CPU, and with the two exact
+conv rewrites on against off; [remat]: ResNet-50 unfused at b = 256 with
+DL4J_TPU_REMAT=s0b,s1b,s2b,s3b against without, bit-equal, step ms and
+peak memory, and no span under the fusion pass), each also alone
+(--graph-tbptt, --graph-stream, --graph-layers, --remat), and
 
     python3 chip_smoke.py --k6-split
 
@@ -390,7 +409,11 @@ def phase_device():
 
 # K1's cases: (T, b, n, masked, nonzero carry, residuals). b = 33 and 70
 # leave the last 32-row cluster ragged; T = 1 is the streaming step.
+# (50, 32) is a [graph_tbptt] window after the first, (1, 4) a
+# [graph_stream] call.
 FWD_CASES = [(64, 32, 512, False, False, True),
+             (50, 32, 512, False, True, True),
+             (1, 4, 512, False, True, False),
              (64, 32, 512, False, False, False),
              (64, 2, 512, False, True, False),
              (1, 1, 512, False, True, False),
@@ -552,8 +575,10 @@ def fn_vs_autograd(fwd_args):
     return worst
 
 
-# K2's cases: (T, b, n, masked, nonzero carry)
+# K2's cases: (T, b, n, masked, nonzero carry); (50, 32) is a
+# [graph_tbptt] window after the first
 BWD_CASES = [(64, 32, 512, False, False), (64, 2, 512, False, True),
+             (50, 32, 512, False, True),
              (7, 3, 512, True, False), (1, 1, 512, False, True),
              (64, 33, 512, False, True), (64, 70, 512, True, False),
              (1, 70, 512, True, True)]
@@ -2222,14 +2247,17 @@ def graph_loss_and_grads(net, x, y):
     return float(loss.detach()), dict(zip(keys, grads))
 
 
-def graph_copy(net, device, fuse, dtype=None):
+def graph_copy(net, device, fuse, dtype=None, opt_state=False):
     """The same configuration, weights and BN state on ``device``, with
     the fusion pass on or off; ``dtype`` ("float64") also changes the
-    policy and the weights' type."""
+    policy and the weights' type; ``opt_state`` also copies the optimizer
+    state and the iteration."""
     import dataclasses
     import os
+    import torch
     from deeplearning4j_tpu_torch import ComputationGraph
     from deeplearning4j_tpu_torch.nn.conf.core import TORCH_DTYPES, DtypePolicy
+    from deeplearning4j_tpu_torch.nn.updater import _map
     conf, cast = net.conf, None
     if dtype is not None:
         gc = dataclasses.replace(conf.global_conf, dtype=DtypePolicy(
@@ -2245,11 +2273,18 @@ def graph_copy(net, device, fuse, dtype=None):
             del os.environ["DL4J_TPU_FUSE_BLOCKS"]
         else:
             os.environ["DL4J_TPU_FUSE_BLOCKS"] = before
-    copy = lambda t: t.detach().to(device, cast).clone()  # noqa: E731
-    cp.params = {ln: {k: copy(t) for k, t in lp.items()}
-                 for ln, lp in net.params.items()}
-    cp.state = {ln: {k: copy(t) for k, t in lp.items()}
-                for ln, lp in net.state.items()}
+
+    def copy(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        to = cast if t.is_floating_point() else None
+        return t.detach().to(device, to).clone()
+
+    cp.params = _map(copy, net.params)
+    cp.state = _map(copy, net.state)
+    if opt_state:
+        cp.opt_state = _map(copy, net.opt_state)
+        cp.iteration = net.iteration
     return cp
 
 
@@ -3950,8 +3985,47 @@ def capture_routes():
     check(out["dropout_generator"]["captures"],
           "the dropout net's step did not capture")
     out["host_read_refused"] = host_read_refusal(conf, DataSet(xd, yd))
+    out["collector_mid_capture"] = collector_mid_capture(conf,
+                                                         DataSet(xd, yd))
     phase("capture_routes", **{k: json.dumps(v) for k, v in out.items()})
     return out
+
+
+def collector_mid_capture(conf, ds):
+    """A captured net left in a dead reference cycle while another net's
+    step is captured, with a full collection run as the capture begins
+    (as the collector may run at any allocation): the capture succeeds
+    and replays. Were the cycle collected inside the capture, destroying
+    its CUDA graph would invalidate the capture."""
+    import gc
+    import torch
+    from deeplearning4j_tpu_torch.nn import multistep
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    net = MultiLayerNetwork(conf).init()
+    net.fit_batch_repeated(ds, multistep.WARMUP_STEPS)   # warm-ups only
+    (sg,) = net._multi_steps.values()
+    old = MultiLayerNetwork(conf).init()
+    old.fit_batch_repeated(ds, multistep.WARMUP_STEPS + 1)
+    check(sg.graph is None and old._multi_steps, "collector_mid_capture: "
+          "the warm-ups captured, or the first net did not")
+    old.cycle = old       # only the collector can free it now
+    del old
+    cls = torch.cuda.CUDAGraph
+    begin = cls.capture_begin
+
+    def begin_then_collect(self, *a, **k):
+        begin(self, *a, **k)
+        gc.collect()
+
+    cls.capture_begin = begin_then_collect
+    try:
+        net.fit_batch_repeated(ds, 2)
+    finally:
+        cls.capture_begin = begin
+    torch.cuda.synchronize()
+    check(sg.captures == 1 and sg.replays == 2, f"collector_mid_capture: "
+          f"{sg.captures} captures, {sg.replays} replays")
+    return {"captures": True, "replays": sg.replays}
 
 
 def host_read_refusal(conf, ds):
@@ -5540,6 +5614,622 @@ def phase_slice13():
     phase_observability()
 
 
+# --------------------------------------------------------------------------
+# slice 14: the ComputationGraph's recurrent path, every vertex type and the
+# remaining layer types, remat spans
+# --------------------------------------------------------------------------
+# DL4J's CompGraphLSTMExample at full width: 80 symbols, two GravesLSTMs of
+# 512 with a skip connection (both merged into the head), tBPTT of 50 over
+# examples of 1000 characters, b = 32
+GT_V, GT_H, GT_L, GT_T, GT_B, GT_BATCHES = 80, 512, 50, 1000, 32, 3
+# the extra batch held against the plain CPU path (4 windows: seconds)
+GT_CHECK_T = 200
+# [graph_stream]: rows, characters each, and the prefix held one-shot
+GS_ROWS, GS_STEPS, GS_PREFIX = 4, 300, 32
+# streamed vs one-shot probabilities of the trained BF16 graph: PROB_TOL
+# (1e-2), [stream]'s bound, for its reason: each call stores the carry c
+# in bf16, the one-shot loop keeps it in f32 within the call, and a
+# trained net magnifies the rounding. On this graph's trained weights
+# (--save-stream, then scripts/stream_vs_one_shot.py) the JAX package's
+# Pallas LSTM, which does the same, reads 7.57e-3, the port's plain CPU
+# path 7.56e-3 and the card 9.15e-3; the JAX package's XLA scan (bf16
+# batches of other than 16k rows) rounds c at every step, one-shot too,
+# and reads 8.7e-4; any two of these bf16 paths' one-shot outputs lie
+# 8.3e-3 to 1.15e-2 apart. The card's stream is held against the CPU's
+# at the same bound (7.61e-3). The char-RNN tests' BF16_PROB_TOL (2e-3,
+# tests/test_torch_char_rnn.py, set on random weights) holds the same
+# graph before training, and the carry itself is held under F32, where
+# nothing is rounded between calls: STREAM_F32_TOL.
+BF16_PROB_TOL = 2e-3
+STREAM_F32_TOL = 1e-5
+# --save-stream (with --slice14): where [graph_stream] writes its graph
+# and probabilities (save_stream)
+STREAM_OUT = os.path.join("chiprun_out", "graph_stream")
+# [graph_layers] card vs CPU (and rewrites on vs off), F64: the same f64
+# arithmetic in another order is ~1e-15 off
+F64_REL_TOL = 1e-9
+# [remat]: ResNet-50 unfused at b = 256, 2 steps an arm
+REMAT_SPANS = "s0b,s1b,s2b,s3b"
+REMAT_B, REMAT_STEPS = 256, 2
+
+
+def skip_char_rnn(device=None, seed=SEED, tbptt=GT_L):
+    """The skip-connected char-RNN as a ComputationGraph: in -> first ->
+    second; merge(first, second) -> out. BF16, Adam(2e-3)."""
+    from deeplearning4j_tpu_torch import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers_recurrent import (
+        GravesLSTM, RnnOutput)
+    from deeplearning4j_tpu_torch.nn.conf.vertices import MergeVertex
+    from deeplearning4j_tpu_torch.nn.updater import Adam
+    from deeplearning4j_tpu_torch.zoo.models import BF16
+    g = (NeuralNetConfiguration.builder().seed(seed).updater(Adam(2e-3))
+         .dtype(BF16).graph_builder().add_inputs("in")
+         .add_layer("first", GravesLSTM(n_out=GT_H, activation="tanh"), "in")
+         .add_layer("second", GravesLSTM(n_out=GT_H, activation="tanh"),
+                    "first")
+         .add_vertex("merge", MergeVertex(), "first", "second")
+         .add_layer("out", RnnOutput(n_out=GT_V, activation="softmax",
+                                     loss="mcxent"), "merge")
+         .set_outputs("out").set_input_types(InputType.recurrent(GT_V)))
+    if tbptt:
+        g = g.backprop_type("tbptt", tbptt, tbptt)
+    return ComputationGraph(g.build(), device=device).init()
+
+
+def mds_on(batches, device="cuda"):
+    import torch
+    from deeplearning4j_tpu_torch.datasets import MultiDataSet
+    return [MultiDataSet([torch.from_numpy(x).to(device)],
+                         [torch.from_numpy(y).to(device)])
+            for x, y in batches]
+
+
+def phase_graph_tbptt():
+    """The skip-connected char-RNN graph trained with tBPTT at full width:
+    3 batches of 20 windows through fit_batch, K1/K2 counted on the
+    cluster route, the carries spied; one more batch of 4 windows held
+    against the plain CPU path. Returns (net, launches)."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import registry
+    chunks = GT_T // GT_L
+    net = skip_char_rnn()
+    batches = markov_batches(GT_BATCHES, GT_B, GT_T, GT_V, SEED + 14)
+    data = mds_on(batches)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    h0_sums, scores, events = [], [], []
+    registry.reset_launches()
+    with carry_spy(h0_sums):
+        for ds in data:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            scores.append(net.fit_batch(ds))
+            end.record()
+            events.append((start, end))
+            check(net.state == {}, f"carries left in the state after a "
+                  f"batch: {list(net.state)}")
+        torch.cuda.synchronize()
+    launches = registry.launches()
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    batch_ms = [s.elapsed_time(e) for s, e in events]
+    scores = [float(s) for s in scores]
+    check(all(math.isfinite(s) for s in scores), f"graph tBPTT scores "
+          f"{scores}")
+    check(net.iteration == GT_BATCHES, f"iteration {net.iteration}")
+    for k, per_call in (("lstm_fwd", 1), ("lstm_fwd_sm90", 1),
+                        ("lstm_bwd", lstm_launches_per_bwd()),
+                        ("lstm_bwd_sm90", 1)):
+        want = 2 * chunks * GT_BATCHES * per_call
+        check(launches.get(k, 0) == want,
+              f"{k} launched {launches.get(k, 0)} times in graph tBPTT, "
+              f"expected {want}")
+    per_batch = 2 * chunks
+    check(len(h0_sums) == per_batch * GT_BATCHES,
+          f"{len(h0_sums)} forward-kernel calls seen")
+    for i in range(GT_BATCHES):
+        got = h0_sums[i * per_batch:(i + 1) * per_batch]
+        check(got[0] == 0.0 and got[1] == 0.0,
+              f"batch {i}: the first window did not start from a zero carry")
+        check(all(v > 0.0 for v in got[2:]),
+              f"batch {i}: windows 2-{chunks} did not get a nonzero carry")
+    # where a window's device time goes, over one more batch
+    prof = profile_steps(net, data[:1])
+    by_kind = json.loads(prof["prof_by_kind_ms_and_kernels_per_step"])
+    dev_batch = float(prof["prof_device_ms_per_step"])
+    lstm_ms = by_kind.get("lstm", [0.0])[0]
+    # the extra batch: card and CPU from the same trees
+    x, y = markov_batches(1, GT_B, GT_CHECK_T, GT_V, SEED + 15)[0]
+    cpu = graph_copy(net, "cpu", fuse=False, opt_state=True)
+    card_score = float(net.fit_batch(mds_on([(x, y)])[0]))
+    t0 = time.perf_counter()
+    cpu_score = float(cpu.fit_batch(mds_on([(x, y)], "cpu")[0]))
+    cpu_s = time.perf_counter() - t0
+    err = abs(card_score - cpu_score) / abs(cpu_score)
+    check(err <= TBPTT_SCORE_RTOL, f"graph tBPTT T = {GT_CHECK_T} card vs "
+          f"CPU: {err:.3e} > {TBPTT_SCORE_RTOL}")
+    med = statistics.median(batch_ms)
+    phase("graph_tbptt", model=f"skip_char_rnn(vocab={GT_V},hidden={GT_H},"
+          f"layers=2,merge,BF16,Adam(2e-3))", tbptt=GT_L, T=GT_T, b=GT_B,
+          batches=GT_BATCHES, windows=chunks,
+          scores=json.dumps([round(s, 4) for s in scores]),
+          batch_ms=json.dumps([round(v, 3) for v in batch_ms]),
+          window_ms_median=f"{med / chunks:.4f}",
+          prof_device_ms_per_window=f"{dev_batch / chunks:.4f}",
+          prof_k1_k2_ms_per_window=f"{lstm_ms / chunks:.4f}",
+          prof_rest_ms_per_window=f"{(dev_batch - lstm_ms) / chunks:.4f}",
+          prof_device_busy_share=prof["prof_device_busy_share"],
+          prof_by_kind_ms_and_kernels_per_batch=prof[
+              "prof_by_kind_ms_and_kernels_per_step"],
+          peak_mb=f"{peak_mb:.0f}",
+          carry_h0_abs_sum=json.dumps([round(v, 1)
+                                       for v in h0_sums[:6]]),
+          launches=json.dumps(launches), check_T=GT_CHECK_T,
+          check_score_card=f"{card_score:.5f}",
+          check_score_cpu=f"{cpu_score:.5f}", score_vs_cpu_rel=f"{err:.3e}",
+          tol=TBPTT_SCORE_RTOL, cpu_check_batch_s=f"{cpu_s:.2f}")
+    return net, launches
+
+
+def stream_probs(net, eye, chars):
+    """rnn_time_step over ``chars`` (a list of [rows] index tensors) from a
+    cleared stream: the probabilities, [rows, len(chars), V]."""
+    import torch
+    net.rnn_clear_previous_state()
+    out = torch.stack([net.rnn_time_step(eye[c]) for c in chars], dim=1)
+    net.rnn_clear_previous_state()
+    return out.float()
+
+
+def save_stream(out_dir, net, seq, streamed, one_shot, cpu_stream,
+                cpu_one_shot):
+    """The trained graph as a zip both packages read, and the prefix with
+    the card's and the plain CPU path's probabilities over it, for
+    scripts/stream_vs_one_shot.py."""
+    from deeplearning4j_tpu_torch.utils.serialization import (
+        write_computation_graph)
+    os.makedirs(out_dir, exist_ok=True)
+    write_computation_graph(net, os.path.join(out_dir, "skip_char_rnn.zip"))
+    np.savez(os.path.join(out_dir, "stream.npz"),
+             prefix=seq.cpu().numpy(), card_stream=streamed.cpu().numpy(),
+             card_one_shot=one_shot.cpu().numpy(),
+             cpu_stream=cpu_stream.numpy(),
+             cpu_one_shot=cpu_one_shot.numpy())
+
+
+def phase_graph_stream(net=None, save_dir=None):
+    """The trained graph served one character at a time: GS_ROWS rows of
+    GS_STEPS rnn_time_step calls, each sampling the next character from
+    the returned probabilities (a seeded generator on the card); the
+    first GS_PREFIX steps against one-shot ``output`` on the card, and
+    against the plain CPU path's stream; the same prefix under F32 and
+    through the graph before training. ``save_dir``: where
+    save_stream writes the graph and the probabilities. Returns the
+    launches."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import registry
+    net = net if net is not None else skip_char_rnn(tbptt=None)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    eye = torch.eye(GT_V, device="cuda")
+    cur = torch.randint(0, GT_V, (GS_ROWS,), generator=gen, device="cuda")
+    chars, probs, host_ms = [cur], [], []
+    net.rnn_clear_previous_state()
+    torch.cuda.synchronize()
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(GS_STEPS):
+        h0 = time.perf_counter()
+        p = net.rnn_time_step(eye[cur])
+        cur = torch.multinomial(p.float(), 1, generator=gen)[:, 0]
+        host_ms.append((time.perf_counter() - h0) * 1e3)
+        probs.append(p)
+        chars.append(cur)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = registry.launches()
+    for k in ("lstm_fwd", "lstm_fwd_sm90"):
+        check(launches.get(k, 0) == 2 * GS_STEPS,
+              f"{k} launched {launches.get(k, 0)} times in {GS_STEPS} "
+              f"streamed calls, expected {2 * GS_STEPS}")
+    check(tuple(probs[0].shape) == (GS_ROWS, GT_V),
+          f"a single step returned {tuple(probs[0].shape)}")
+    check(all(bool(torch.isfinite(p).all()) for p in probs[::50]),
+          "streamed probabilities not finite")
+    prefix = chars[:GS_PREFIX]
+    seq = torch.stack(prefix, dim=1)
+    streamed = torch.stack(probs[:GS_PREFIX], dim=1).float()
+    one_shot = net.output(eye[seq]).float()
+    err = float((streamed - one_shot).abs().max())
+    check(err <= PROB_TOL, f"streamed vs one-shot over the first "
+          f"{GS_PREFIX} characters: {err:.3e} > {PROB_TOL}")
+    net.rnn_clear_previous_state()
+    again = net.rnn_time_step(eye[chars[0]])
+    check(torch.equal(again, probs[0]), "rnn_clear_previous_state: the "
+          "next call differs from a fresh stream's first")
+    net.rnn_clear_previous_state()
+    # the same prefix on the plain CPU path, and under F32 on the card
+    cpu = graph_copy(net, "cpu", fuse=False, opt_state=True)
+    eye_c, prefix_c = eye.cpu(), [c.cpu() for c in prefix]
+    cpu_stream = stream_probs(cpu, eye_c, prefix_c)
+    cpu_one_shot = cpu.output(eye_c[seq.cpu()]).float()
+    cpu_err = float((cpu_stream - cpu_one_shot).abs().max())
+    card_vs_cpu = float((streamed.cpu() - cpu_stream).abs().max())
+    one_shot_vs_cpu = float((one_shot.cpu() - cpu_one_shot).abs().max())
+    if save_dir is not None:
+        save_stream(save_dir, net, seq, streamed, one_shot, cpu_stream,
+                    cpu_one_shot)
+    f32 = graph_copy(net, "cuda", fuse=False, dtype="float32")
+    f32_err = float((stream_probs(f32, eye, prefix)
+                     - f32.output(eye[seq]).float()).abs().max())
+    check(f32_err <= STREAM_F32_TOL, f"F32 streamed vs one-shot: "
+          f"{f32_err:.3e} > {STREAM_F32_TOL}")
+    check(card_vs_cpu <= PROB_TOL, f"the card's stream vs the plain CPU "
+          f"path's: {card_vs_cpu:.3e} > {PROB_TOL}")
+    fresh = skip_char_rnn(tbptt=None)
+    fresh_err = float((stream_probs(fresh, eye, prefix)
+                       - fresh.output(eye[seq]).float()).abs().max())
+    check(fresh_err <= BF16_PROB_TOL, f"untrained graph: streamed vs "
+          f"one-shot {fresh_err:.3e} > {BF16_PROB_TOL}")
+    phase("graph_stream", rows=GS_ROWS, steps=GS_STEPS,
+          host_ms_per_call_median=f"{statistics.median(host_ms):.4f}",
+          chars_per_s=f"{GS_ROWS * GS_STEPS / wall:.1f}",
+          wall_s=f"{wall:.3f}", launches=json.dumps(launches),
+          prefix=GS_PREFIX, max_abs_err_vs_one_shot=f"{err:.3e}",
+          tol=PROB_TOL, cpu_stream_vs_one_shot=f"{cpu_err:.3e}",
+          card_vs_cpu_stream=f"{card_vs_cpu:.3e}",
+          card_vs_cpu_one_shot=f"{one_shot_vs_cpu:.3e}",
+          f32_stream_vs_one_shot=f"{f32_err:.3e}",
+          f32_tol=STREAM_F32_TOL,
+          untrained_stream_vs_one_shot=f"{fresh_err:.3e}",
+          untrained_tol=BF16_PROB_TOL, clear_restarts="equal")
+    return launches
+
+
+def layers_graph(device=None):
+    """One small F64 graph with every vertex type and each layer type of
+    slice 14 (tests/test_torch_vertices.py's ``_layers_graph``): its stem
+    (5x5/s2 on 3 channels) and a 1x1/s2 projection meet the gates of the
+    two exact conv rewrites."""
+    from deeplearning4j_tpu_torch import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    from deeplearning4j_tpu_torch.nn.conf import layers_conv as C
+    from deeplearning4j_tpu_torch.nn.conf import layers_recurrent as R
+    from deeplearning4j_tpu_torch.nn.conf import vertices as V
+    from deeplearning4j_tpu_torch.nn.conf.core import DtypePolicy
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType as it
+    from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
+        CnnToFeedForward)
+    from deeplearning4j_tpu_torch.nn.updater import Adam
+    pol = DtypePolicy(param_dtype="float64", compute_dtype="float64")
+    g = (NeuralNetConfiguration.builder().seed(11).updater(Adam(1e-2))
+         .dtype(pol).graph_builder()
+         .add_inputs("seq", "img", "static", "ids"))
+    g.add_layer("c1", C.Convolution1D(n_out=6, kernel=3, mode="same",
+                                      activation="tanh"), "seq")
+    g.add_layer("sub1", C.Subsampling1D(kernel=2, stride=1, mode="same",
+                                        pooling="pnorm", pnorm=2), "c1")
+    g.add_layer("tdd", R.TimeDistributedDense(n_out=5, activation="tanh"),
+                "sub1")
+    g.add_vertex("lts", V.LastTimeStepVertex(mask_input="seq"), "tdd")
+    g.add_vertex("dup", V.DuplicateToTimeSeriesVertex(seq_input="seq"),
+                 "static")
+    g.add_vertex("merge_t", V.MergeVertex(), "tdd", "dup")
+    g.add_layer("gp", C.GlobalPooling(pooling="avg"), "merge_t")
+    g.add_vertex("subset", V.SubsetVertex(from_index=2, to_index=6), "gp")
+    g.add_vertex("stack", V.StackVertex(), "lts", "subset")
+    g.add_vertex("un0", V.UnstackVertex(index=0, stack_size=2), "stack")
+    g.add_vertex("un1", V.UnstackVertex(index=1, stack_size=2), "stack")
+    g.add_vertex("l2", V.L2Vertex(), "un0", "un1")
+    g.add_layer("zp", C.ZeroPadding(pad=(1, 1, 1, 1)), "img")
+    g.add_layer("stem", C.Convolution2D(n_out=4, kernel=(5, 5),
+                                        stride=(2, 2), mode="same",
+                                        activation="relu"), "zp")
+    g.add_layer("conv", C.Convolution2D(n_out=4, kernel=(3, 3),
+                                        mode="same", activation="tanh"),
+                "stem")
+    g.add_layer("lrn", C.LocalResponseNormalization(n=3, alpha=0.1), "conv")
+    g.add_vertex("merge_c", V.MergeVertex(), "lrn", "stem")
+    g.add_layer("pool", C.Subsampling(kernel=(3, 3), stride=(2, 2),
+                                      pooling="pnorm", pnorm=3), "merge_c")
+    g.add_vertex("pv", V.PreprocessorVertex(
+        preprocessor=CnnToFeedForward(4, 4, 8)), "pool")
+    g.add_layer("proj", C.Convolution2D(n_out=4, kernel=(1, 1),
+                                        stride=(2, 2), has_bias=False,
+                                        activation="identity"), "merge_c")
+    g.add_layer("gpi", C.GlobalPooling(pooling="sum"), "proj")
+    g.add_layer("emb", L.Embedding(n_in=7, n_out=3, activation="identity"),
+                "ids")
+    g.add_vertex("merge_f", V.MergeVertex(), "l2", "pv", "emb", "un0",
+                 "gpi")
+    g.add_layer("drop", L.Dropout(), "merge_f")
+    g.add_vertex("scale", V.ScaleVertex(factor=0.5), "drop")
+    g.add_vertex("l2n", V.L2NormalizeVertex(), "scale")
+    g.add_vertex("ew", V.ElementWiseVertex(op="add"), "l2n", "scale")
+    g.add_layer("dense", L.Dense(n_out=2, activation="tanh"), "ew")
+    g.add_layer("out", L.Output(n_out=3, activation="softmax",
+                                loss="mcxent"), "ew")
+    g.add_layer("loss", L.LossLayer(loss="mse", activation="identity"),
+                "dense")
+    conf = (g.set_outputs("out", "loss")
+            .set_input_types(it.recurrent(4, 6), it.convolutional(16, 16, 3),
+                             it.feed_forward(4), it.feed_forward(1))
+            .build())
+    return ComputationGraph(conf, device=device).init()
+
+
+def layers_data(device, b=8):
+    import torch
+    rng = np.random.default_rng(SEED + 17)
+    f = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    mask = np.ones((b, 6))
+    mask[1, 4:] = 0.0
+    mask[2, 2:] = 0.0
+    feats = [f(rng.normal(size=(b, 6, 4))), f(rng.normal(size=(b, 16, 16, 3))),
+             f(rng.normal(size=(b, 4))),
+             f(rng.integers(0, 7, (b, 1)).astype(np.int32))]
+    labels = [f(np.eye(3)[rng.integers(0, 3, b)]), f(rng.normal(size=(b, 2)))]
+    return feats, labels, [f(mask), None, None, None]
+
+
+def layers_outputs(net, feats, labels, fmasks):
+    """(outputs, score, {param: gradient}) of one training walk."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import MultiDataSet
+    outs = net.output(*feats, masks=fmasks)
+    leaves = {ln: {k: t.detach().clone().requires_grad_()
+                   for k, t in lp.items()} for ln, lp in net.params.items()}
+    loss, _ = net._loss(leaves, net.state,
+                        *net._batch(MultiDataSet(feats, labels, fmasks)),
+                        gen=net._gen)
+    keys = [(ln, k) for ln in leaves for k in leaves[ln]]
+    grads = torch.autograd.grad(loss, [leaves[ln][k] for ln, k in keys])
+    return outs, loss.detach(), dict(zip(keys, grads))
+
+
+def rel_err(got, want):
+    """max |got - want| over max |want| (0 where want is all zeros)."""
+    g, w = got.detach().double().cpu(), want.detach().double().cpu()
+    top = float(w.abs().max())
+    return float((g - w).abs().max()) / top if top else float(
+        (g - w).abs().max())
+
+
+def phase_graph_layers():
+    """The vertex-rich F64 graph on the card against the CPU from the same
+    parameters (outputs, score, every gradient), then with both conv
+    rewrites on against them off, on the card."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import convolution as conv_ops
+    cpu = layers_graph(device="cpu")
+    card = graph_copy(cpu, "cuda", fuse=False, opt_state=True)
+    errs = {}
+    c_out, c_loss, c_g = layers_outputs(cpu, *layers_data("cpu"))
+    d_out, d_loss, d_g = layers_outputs(card, *layers_data("cuda"))
+    for i, (a, b) in enumerate(zip(d_out, c_out)):
+        errs[f"out{i}"] = rel_err(a, b)
+    errs["score"] = rel_err(d_loss, c_loss)
+    for key, g in c_g.items():
+        errs[".".join(key)] = rel_err(d_g[key], g)
+    worst_cpu = max(errs.values())
+    check(worst_cpu <= F64_REL_TOL, f"F64 graph card vs CPU: "
+          + json.dumps({k: v for k, v in errs.items() if v > F64_REL_TOL}))
+    # run to run: with cuDNN's defaults, and with its deterministic flag,
+    # where every other op of the graph (the embedding's F.embedding
+    # backward, LRN's unfold, the pools) must give the same bits
+    _, _, again = layers_outputs(card, *layers_data("cuda"))
+    varies = sorted(".".join(k) for k in d_g
+                    if not torch.equal(again[k], d_g[k]))
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True):
+        det = [layers_outputs(card, *layers_data("cuda"))[2]
+               for _ in range(2)]
+    det_varies = sorted(".".join(k) for k in d_g
+                        if not torch.equal(det[0][k], det[1][k]))
+    check(not det_varies, f"gradients differ run to run under cuDNN's "
+          f"deterministic flag: {det_varies}")
+    taken = {"conv2d_space_to_depth": 0, "conv2d_strided_1x1_as_slice": 0}
+    reals = {name: getattr(conv_ops, name) for name in taken}
+
+    def counted(name):
+        def call(*a, **k):
+            taken[name] += 1
+            return reals[name](*a, **k)
+        return call
+
+    flags = ("DL4J_TPU_S2D_STEM", "DL4J_TPU_SLICE_1X1")
+    before = {f: os.environ.get(f) for f in flags}
+    try:
+        for name in taken:
+            setattr(conv_ops, name, counted(name))
+        for f in flags:
+            os.environ[f] = "1"
+        r_out, r_loss, r_g = layers_outputs(card, *layers_data("cuda"))
+    finally:
+        for name, fn in reals.items():
+            setattr(conv_ops, name, fn)
+        for f, v in before.items():
+            if v is None:
+                os.environ.pop(f, None)
+            else:
+                os.environ[f] = v
+    check(all(v == 2 for v in taken.values()),
+          f"the rewrites were not taken once a walk: {taken}")
+    rew = {f"out{i}": rel_err(a, b) for i, (a, b) in enumerate(zip(r_out,
+                                                                  d_out))}
+    rew["score"] = rel_err(r_loss, d_loss)
+    for key, g in d_g.items():
+        rew[".".join(key)] = rel_err(r_g[key], g)
+    worst_rew = max(rew.values())
+    check(worst_rew <= F64_REL_TOL, "F64 graph with the rewrites vs "
+          "without: " + json.dumps({k: v for k, v in rew.items()
+                                     if v > F64_REL_TOL}))
+    phase("graph_layers", dtype="float64", vertices=len(card.topo),
+          params=card.num_params(), card_vs_cpu_max_rel=f"{worst_cpu:.3e}",
+          worst=max(errs, key=errs.get),
+          rewrites_vs_plain_max_rel=f"{worst_rew:.3e}",
+          rewrites_taken=json.dumps(taken), tol=F64_REL_TOL,
+          grads_varying_run_to_run_default_flags=json.dumps(varies),
+          grads_deterministic_flag="bit-equal")
+
+
+@contextlib.contextmanager
+def remat_env(spans):
+    """DL4J_TPU_REMAT set to ``spans`` (None: unset) while the block runs,
+    and a count of the remat spans run in it (yields a one-item list)."""
+    from deeplearning4j_tpu_torch.nn import remat
+    before = os.environ.get(remat.ENV)
+    if spans is None:
+        os.environ.pop(remat.ENV, None)
+    else:
+        os.environ[remat.ENV] = spans
+    runs = [0]
+    real = remat.run_span
+
+    def counted(fn, *a):
+        runs[0] += 1
+        return real(fn, *a)
+
+    remat.run_span = counted
+    try:
+        yield runs
+    finally:
+        remat.run_span = real
+        if before is None:
+            os.environ.pop(remat.ENV, None)
+        else:
+            os.environ[remat.ENV] = before
+
+
+def remat_arm(base, data, spans, deterministic):
+    """A fresh copy of ``base`` (unfused) with DL4J_TPU_REMAT = spans
+    (None: unset), REMAT_STEPS fit_batch steps with cuDNN's deterministic
+    flag as given: (net, step ms, peak MB, spans run a step, scores)."""
+    import torch
+    with remat_env(spans) as runs:
+        net = graph_copy(base, "cuda", fuse=False)
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=deterministic):
+            out = timed_steps(net, data, REMAT_STEPS)
+    return (net, out["step_ms"], out["peak_mb"], runs[0] / REMAT_STEPS,
+            out["scores"])
+
+
+def remat_dropout_graph():
+    """in(64) -> d0, d1 (Dense(256), dropout 0.3) -> out: a remat span
+    (DL4J_TPU_REMAT=d) with dropout inside, F32, Adam(1e-3)."""
+    from deeplearning4j_tpu_torch import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import Dense, Output
+    from deeplearning4j_tpu_torch.nn.updater import Adam
+    from deeplearning4j_tpu_torch.zoo.models import F32
+    conf = (NeuralNetConfiguration.builder().seed(SEED).updater(Adam(1e-3))
+            .dtype(F32).graph_builder().add_inputs("in")
+            .add_layer("d0", Dense(n_out=256, activation="tanh",
+                                   dropout=0.3), "in")
+            .add_layer("d1", Dense(n_out=256, activation="relu",
+                                   dropout=0.3), "d0")
+            .add_layer("out", Output(n_out=10, activation="softmax",
+                                     loss="mcxent"), "d1")
+            .set_outputs("out").set_input_types(InputType.feed_forward(64))
+            .build())
+    return ComputationGraph(conf).init()
+
+
+def captured_remat_span(steps=8):
+    """The dropout span eagerly and through the captured step, from one
+    parameter set and one generator state: bit-equal after ``steps``
+    steps. Returns the captured step's graph captures and replays."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import MultiDataSet
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    x = torch.randn((128, 64), generator=gen, device="cuda")
+    y = torch.nn.functional.one_hot(torch.randint(
+        0, 10, (128,), generator=gen, device="cuda"), 10).float()
+    ds = MultiDataSet([x], [y])
+    with remat_env("d") as runs:
+        eager = remat_dropout_graph()
+        captured = eager.clone()
+        for _ in range(steps):
+            eager.fit_batch(ds)
+        captured.fit_batch_repeated(ds, steps)
+    diffs = {k: v for k, v in tree_max_diffs(eager, captured).items() if v}
+    check(not diffs, f"remat span with dropout, captured vs eager: {diffs}")
+    (sg,) = captured._multi_steps.values()
+    check(sg.captures == 1 and sg.replays >= 1 and runs[0] >= steps,
+          f"captures {sg.captures}, replays {sg.replays}, spans {runs[0]}")
+    return sg.captures, sg.replays
+
+
+def phase_remat():
+    """ResNet-50 unfused (224, 1000 classes, BF16, b = 256) with
+    DL4J_TPU_REMAT=s0b,s1b,s2b,s3b and without, on fresh copies of one
+    parameter set: parameters and optimizer state bit-equal after 2 steps
+    (cuDNN deterministic), step ms and peak memory (cuDNN's defaults);
+    with the fusion pass on, no span."""
+    import torch
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.datasets import MultiDataSet
+    base = zoo.resnet50(seed=SEED)
+    data = [MultiDataSet([x], [y]) for x, y in
+            resnet_batches(REMAT_STEPS, REMAT_B, SEED + 18)]
+    arms = {}
+    for name, spans, det in (("remat_det", REMAT_SPANS, True),
+                             ("plain_det", None, True),
+                             ("remat", REMAT_SPANS, False),
+                             ("plain", None, False)):
+        arms[name] = remat_arm(base, data, spans, det)
+        torch.cuda.empty_cache()
+    diffs = tree_max_diffs(arms["remat_det"][0], arms["plain_det"][0])
+    unequal = {"/".join(map(str, k)): v for k, v in diffs.items() if v}
+    check(arms["remat_det"][3] == 1 and arms["plain_det"][3] == 0,
+          f"spans run a step: remat {arms['remat_det'][3]}, plain "
+          f"{arms['plain_det'][3]}")
+    check(not unequal, f"remat vs plain after {REMAT_STEPS} steps differ "
+          f"in {len(unequal)} tensors: largest "
+          f"{max(unequal.values(), default=0.0):.3e} at "
+          f"{max(unequal, key=unequal.get, default=None)}")
+    default_diff = max(tree_max_diffs(arms["remat"][0],
+                                      arms["plain"][0]).values())
+    for name in arms:
+        arms[name] = arms[name][1:]
+    # the fusion pass leaves no span
+    with remat_env(REMAT_SPANS) as runs:
+        fused = graph_copy(base, "cuda", fuse=True)
+        x, y = resnet_batches(1, 32, SEED + 19)[0]
+        fused_score = float(fused.fit_batch(MultiDataSet([x], [y])))
+    check(len(fused._fusion_plans) == 13 and runs[0] == 0
+          and fused.remat_prefixes == tuple(REMAT_SPANS.split(",")),
+          f"fused graph: {len(fused._fusion_plans)} plans, {runs[0]} spans")
+    check(math.isfinite(fused_score), f"fused score {fused_score}")
+    captures, replays = captured_remat_span()
+    phase("remat", model="resnet50(224,1000,BF16,unfused)", b=REMAT_B,
+          steps=REMAT_STEPS, spans=REMAT_SPANS,
+          bit_equal_deterministic="yes",
+          default_flags_max_diff=f"{default_diff:.3e}",
+          **{f"{n}_step_ms": "/".join(f"{v:.3f}" for v in a[0])
+             for n, a in arms.items()},
+          **{f"{n}_peak_mb": f"{a[1]:.0f}" for n, a in arms.items()},
+          spans_per_step=json.dumps({n: a[2] for n, a in arms.items()}),
+          scores=json.dumps({n: [round(s, 5) for s in a[3]]
+                             for n, a in arms.items()}),
+          fused_plans=len(fused._fusion_plans), fused_spans=runs[0],
+          captured_dropout_span=f"bit-equal({captures} capture, "
+          f"{replays} replays)")
+
+
+def phase_slice14():
+    """The phases of slice 14, in order."""
+    net, _ = phase_graph_tbptt()
+    phase_graph_stream(net, save_dir=STREAM_OUT if "--save-stream"
+                       in sys.argv[1:] else None)
+    phase_graph_layers()
+    phase_remat()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5586,7 +6276,12 @@ def main() -> int:
                        ("--datapipe-resilient", phase_datapipe_resilient),
                        ("--datapipe-feed", phase_datapipe_feed),
                        ("--observability", phase_observability),
-                       ("--slice13", phase_slice13)):
+                       ("--slice13", phase_slice13),
+                       ("--graph-tbptt", phase_graph_tbptt),
+                       ("--graph-stream", phase_graph_stream),
+                       ("--graph-layers", phase_graph_layers),
+                       ("--remat", phase_remat),
+                       ("--slice14", phase_slice14)):
         if flag in sys.argv[1:]:
             phase_device()
             only()
@@ -5603,6 +6298,9 @@ def main() -> int:
     train = phase_train()
     launches = {"serve": serve_launches,
                 "train": train["launches"], "tbptt": phase_tbptt()}
+    gt_net, launches["graph_tbptt"] = phase_graph_tbptt()
+    launches["graph_stream"] = phase_graph_stream(gt_net)
+    del gt_net
     gnet, gserve_launches = phase_serve_gpt()
     gtrain = phase_train_gpt()
     launches["serve_gpt"] = gserve_launches
@@ -5615,6 +6313,8 @@ def main() -> int:
     phase_train_captured()
     phase_slice12()
     phase_slice13()
+    phase_graph_layers()
+    phase_remat()
     print(json.dumps({"kernels": kernels}), flush=True)
     print(ok_line, flush=True)
     return 0

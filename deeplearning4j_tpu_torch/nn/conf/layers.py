@@ -1,11 +1,12 @@
 """Layer configuration base classes, the layer-type registry and the
-feed-forward configs ``Dense``, ``Output`` and ``ActivationLayer``
-(counterpart of deeplearning4j_tpu/nn/conf/layers.py).
+feed-forward configs ``Dense``, ``Output``, ``LossLayer``,
+``ActivationLayer``, ``Dropout`` and ``Embedding`` (counterpart of
+deeplearning4j_tpu/nn/conf/layers.py).
 
 Each config is a frozen dataclass registered by ``layer_type``, with the
 same fields in the same order as in the JAX package, so that
-``layer_to_dict`` gives the same JSON. A layer type that this package has
-not ported yet raises a clear error when a configuration names it.
+``layer_to_dict`` gives the same JSON. A layer type the registry does not
+know is refused by name when a configuration names it.
 """
 
 from __future__ import annotations
@@ -51,9 +52,8 @@ def layer_from_dict(d: dict) -> "BaseLayerConfig":
     ltype = d.pop("layer_type")
     cls = LAYER_REGISTRY.get(ltype)
     if cls is None:
-        raise NotImplementedError(
-            f"layer type {ltype!r} is not ported to deeplearning4j_tpu_torch "
-            f"yet (ported: {sorted(LAYER_REGISTRY)})")
+        raise ValueError(
+            f"unknown layer type {ltype!r} (known: {sorted(LAYER_REGISTRY)})")
     if "updater" in d and isinstance(d["updater"], dict):
         d["updater"] = updater_from_dict(d["updater"])
     if hasattr(cls, "_decode_fields"):  # nested configs (Frozen's inner)
@@ -153,6 +153,20 @@ class Output(FeedForwardLayerConfig):
 
 @register_layer
 @dataclass(frozen=True)
+class LossLayer(BaseLayerConfig):
+    """Loss-only head without params."""
+
+    layer_type = "loss"
+    loss: str = "mcxent"
+
+    def make_layer(self, input_type, global_conf, policy):
+        from deeplearning4j_tpu_torch.nn.layers.feedforward import (
+            LossOnlyLayer)
+        return LossOnlyLayer(self, input_type, global_conf, policy)
+
+
+@register_layer
+@dataclass(frozen=True)
 class ActivationLayer(BaseLayerConfig):
     """Standalone activation."""
 
@@ -162,3 +176,32 @@ class ActivationLayer(BaseLayerConfig):
         from deeplearning4j_tpu_torch.nn.layers.feedforward import (
             ActivationOnlyLayer)
         return ActivationOnlyLayer(self, input_type, global_conf, policy)
+
+
+@register_layer
+@dataclass(frozen=True)
+class Dropout(BaseLayerConfig):
+    """Standalone dropout layer: the layer's ``dropout`` (or the global
+    one) is the drop probability of its input."""
+
+    layer_type = "dropout"
+
+    def make_layer(self, input_type, global_conf, policy):
+        from deeplearning4j_tpu_torch.nn.layers.feedforward import (
+            DropoutOnlyLayer)
+        return DropoutOnlyLayer(self, input_type, global_conf, policy)
+
+
+@register_layer
+@dataclass(frozen=True)
+class Embedding(FeedForwardLayerConfig):
+    """Embedding lookup of integer indices (a column of them, or one-hot
+    rows), plus bias."""
+
+    layer_type = "embedding"
+    has_bias: bool = True
+
+    def make_layer(self, input_type, global_conf, policy):
+        from deeplearning4j_tpu_torch.nn.layers.feedforward import (
+            EmbeddingLayerImpl)
+        return EmbeddingLayerImpl(self, input_type, global_conf, policy)

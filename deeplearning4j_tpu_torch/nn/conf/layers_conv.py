@@ -1,11 +1,9 @@
 """Convolutional-family layer configs (counterpart of
 deeplearning4j_tpu/nn/conf/layers_conv.py): ``Convolution2D``,
-``Subsampling``, ``BatchNorm`` and ``GlobalPooling``, with the same fields
-and JSON ``layer_type``s. Layout is NHWC.
-
-``Convolution1D``, ``Subsampling1D``, ``ZeroPadding`` and LRN are not
-ported: a configuration that names one is refused by name
-(``layer_from_dict``).
+``Convolution1D``, ``Subsampling``, ``Subsampling1D``, ``ZeroPadding``,
+``BatchNorm``, ``LocalResponseNormalization`` and ``GlobalPooling``, with
+the same fields and JSON ``layer_type``s. Layout is NHWC ([batch, time,
+features] for the 1-D variants).
 """
 
 from __future__ import annotations
@@ -66,6 +64,44 @@ class Convolution2D(FeedForwardLayerConfig):
 
 @register_layer
 @dataclass(frozen=True)
+class Convolution1D(FeedForwardLayerConfig):
+    """1D convolution over [batch, time, features]; W is
+    [kernel, n_in, n_out]."""
+
+    layer_type = "conv1d"
+    expects_rnn_input = True
+
+    kernel: int = 3
+    stride: int = 1
+    padding: int = 0
+    dilation: int = 1
+    mode: str = "truncate"
+    has_bias: bool = True
+
+    def with_n_in(self, input_type: InputType):
+        if self.n_in is None:
+            if input_type.kind != "recurrent":
+                raise ValueError(
+                    f"Convolution1D needs recurrent input, got "
+                    f"{input_type.kind}")
+            return self.replace(n_in=input_type.size)
+        return self
+
+    def get_output_type(self, input_type: InputType) -> InputType:
+        t = input_type.timesteps
+        t_out = None if t is None else out_size(
+            t, self.kernel, self.stride, self.padding, self.mode,
+            self.dilation)
+        return InputType.recurrent(self.n_out, t_out)
+
+    def make_layer(self, input_type, global_conf, policy):
+        from deeplearning4j_tpu_torch.nn.layers.convolution import (
+            Convolution1DLayerImpl)
+        return Convolution1DLayerImpl(self, input_type, global_conf, policy)
+
+
+@register_layer
+@dataclass(frozen=True)
 class Subsampling(BaseLayerConfig):
     """2D pooling; ``pooling`` in {max, avg, pnorm}, ``pnorm`` the p
     exponent."""
@@ -96,6 +132,55 @@ class Subsampling(BaseLayerConfig):
 
 @register_layer
 @dataclass(frozen=True)
+class Subsampling1D(BaseLayerConfig):
+    """1D pooling over [batch, time, features]."""
+
+    layer_type = "subsampling1d"
+    expects_rnn_input = True
+
+    kernel: int = 2
+    stride: int = 2
+    padding: int = 0
+    pooling: str = "max"
+    pnorm: int = 2
+    mode: str = "truncate"
+
+    def get_output_type(self, input_type: InputType) -> InputType:
+        t = input_type.timesteps
+        t_out = None if t is None else out_size(
+            t, self.kernel, self.stride, self.padding, self.mode)
+        return InputType.recurrent(input_type.size, t_out)
+
+    def make_layer(self, input_type, global_conf, policy):
+        from deeplearning4j_tpu_torch.nn.layers.convolution import (
+            Subsampling1DLayerImpl)
+        return Subsampling1DLayerImpl(self, input_type, global_conf, policy)
+
+
+@register_layer
+@dataclass(frozen=True)
+class ZeroPadding(BaseLayerConfig):
+    """Spatial zero padding; pad = (top, bottom, left, right)."""
+
+    layer_type = "zero_padding"
+    expects_cnn_input = True
+
+    pad: Tuple[int, int, int, int] = (0, 0, 0, 0)
+
+    def get_output_type(self, input_type: InputType) -> InputType:
+        t, b, l, r = self.pad
+        return InputType.convolutional(
+            input_type.height + t + b, input_type.width + l + r,
+            input_type.channels)
+
+    def make_layer(self, input_type, global_conf, policy):
+        from deeplearning4j_tpu_torch.nn.layers.convolution import (
+            ZeroPaddingLayerImpl)
+        return ZeroPaddingLayerImpl(self, input_type, global_conf, policy)
+
+
+@register_layer
+@dataclass(frozen=True)
 class BatchNorm(BaseLayerConfig):
     """Batch normalization: learnable gamma/beta (unless
     ``lock_gamma_beta``); running mean/var in the layer state, updated with
@@ -116,6 +201,24 @@ class BatchNorm(BaseLayerConfig):
         from deeplearning4j_tpu_torch.nn.layers.normalization import (
             BatchNormLayer)
         return BatchNormLayer(self, input_type, global_conf, policy)
+
+
+@register_layer
+@dataclass(frozen=True)
+class LocalResponseNormalization(BaseLayerConfig):
+    """Across-channel LRN (defaults k=2, n=5, alpha=1e-4, beta=0.75)."""
+
+    layer_type = "lrn"
+    expects_cnn_input = True
+
+    k: float = 2.0
+    n: int = 5
+    alpha: float = 1e-4
+    beta: float = 0.75
+
+    def make_layer(self, input_type, global_conf, policy):
+        from deeplearning4j_tpu_torch.nn.layers.normalization import LRNLayer
+        return LRNLayer(self, input_type, global_conf, policy)
 
 
 @register_layer

@@ -101,3 +101,19 @@ class LastTimeStep(BaseRecurrentConfig):
         from deeplearning4j_tpu_torch.nn.layers.recurrent import (
             LastTimeStepLayer)
         return LastTimeStepLayer(self, input_type, global_conf, policy)
+
+
+@register_layer
+@dataclass(frozen=True)
+class TimeDistributedDense(BaseRecurrentConfig):
+    """Per-timestep dense without a loss head: [b, t, n_in] ->
+    [b, t, n_out]."""
+
+    layer_type = "time_distributed_dense"
+    has_bias: bool = True
+
+    def make_layer(self, input_type, global_conf, policy):
+        from deeplearning4j_tpu_torch.nn.layers.recurrent import (
+            TimeDistributedDenseLayer)
+        return TimeDistributedDenseLayer(self, input_type, global_conf,
+                                         policy)

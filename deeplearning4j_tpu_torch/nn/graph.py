@@ -1,28 +1,37 @@
 """ComputationGraph — a DAG network that trains and serves (counterpart of
 deeplearning4j_tpu/nn/graph.py: ``init``, ``_walk`` with the block-fusion
-pass, ``_loss``, ``fit_batch``, in-memory ``fit``, listeners, ``score``,
-``output``, ``feed_forward``, ``evaluate``, ``evaluate_regression``,
-``num_params``, ``summary``, ``clone``, ``set_lr_scale``,
-``resilient_fit``, ``pretrain``, ``pretrain_layer``).
+pass and the remat spans, ``_loss``, ``fit_batch`` with truncated BPTT,
+in-memory ``fit``, listeners, ``score``, ``output``, ``feed_forward``,
+``rnn_time_step``, ``rnn_clear_previous_state``, ``evaluate``,
+``evaluate_regression``, ``num_params``, ``summary``, ``clone``,
+``set_lr_scale``, ``resilient_fit``, ``pretrain``, ``pretrain_layer``).
 
 Parameters are ``{vertex_name: {param: tensor}}`` and the layer state
-(batch-norm running statistics) ``{vertex_name: {...}}``, in the JAX
-package's layouts, so a graph crosses between the packages through the
-zip (utils/serialization.py). A train step is the same discipline as
-``MultiLayerNetwork``'s (nn/multistep.py's ``train_step``): the walk, the
-summed output losses plus regularization, ``autograd``, then the
-multi-tensor update in place; ``fit(multi_step=k)`` and
-``fit_batch_repeated`` replay it as a CUDA graph.
+(batch-norm running statistics, a streaming LSTM's carry)
+``{vertex_name: {...}}``, in the JAX package's layouts, so a graph
+crosses between the packages through the zip (utils/serialization.py). A
+train step is the same discipline as ``MultiLayerNetwork``'s
+(nn/multistep.py's ``train_step``): the walk, the summed output losses
+plus regularization, ``autograd``, then the multi-tensor update in place;
+``fit(multi_step=k)`` and ``fit_batch_repeated`` replay it as a CUDA
+graph.
 
 The training walk routes every bottleneck tail the fusion pass matched
 (nn/fusion.py, ``DL4J_TPU_FUSE_BLOCKS=1`` at ``init``) through the fused
-op: K4-K7 on the card. The eval walk (``output``) runs vertex by vertex
-with the running statistics.
+op: K4-K7 on the card. Without fusion plans, the vertices that
+``DL4J_TPU_REMAT`` names run in remat spans (nn/remat.py). The eval walk
+(``output``) runs vertex by vertex with the running statistics.
+
+Truncated BPTT (``backprop_type="tbptt"``, a batch longer than
+``tbptt_fwd_length``) cuts every time series into windows and takes one
+update a window, each at the batch's iteration; the recurrent vertices
+carry (h, c) from window to window in the layer state, which is cleared
+after the batch. ``rnn_time_step`` streams the same carry from call to
+call. The LSTM vertices run K1 (forward) and K2 (backward) on the card.
 
 ``resilient_fit`` supervises training (resilience/), and ``pretrain``
-trains the pretrainable layer vertices. Not ported (ROADMAP.md): remat
-spans, mesh placement, truncated BPTT (``fit_batch`` refuses a batch
-longer than the window by name) and ``rnn_time_step`` on graphs.
+trains the pretrainable layer vertices. Not ported (ROADMAP.md): mesh
+placement.
 """
 
 from __future__ import annotations
@@ -38,10 +47,14 @@ from deeplearning4j_tpu_torch.datasets.iterator import (AsyncDataSetIterator,
                                                         DevicePrefetchIterator)
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.nn import fusion as _fusion
-from deeplearning4j_tpu_torch.nn import multistep, precision
+from deeplearning4j_tpu_torch.nn import multistep, precision, remat
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
     ComputationGraphConfiguration)
 from deeplearning4j_tpu_torch.nn.conf.layers import BaseLayerConfig
+from deeplearning4j_tpu_torch.nn.conf.vertices import (
+    DuplicateToTimeSeriesVertex, LastTimeStepVertex)
+from deeplearning4j_tpu_torch.nn.layers.recurrent import (set_streaming,
+                                                          strip_carries)
 from deeplearning4j_tpu_torch.nn.updater import _copy_tree, _leaves
 from deeplearning4j_tpu_torch.observability import distributed as _obs_dist
 from deeplearning4j_tpu_torch.observability import goodput as _goodput
@@ -66,6 +79,10 @@ class ComputationGraph:
         self.listeners: list = []
         self._gen = None
         self._lr_scale = 1.0
+        self._rnn_state = None     # rnn_time_step's carries between calls
+        # DL4J_TPU_REMAT, read at the first train step (nn/remat.py)
+        self.remat_prefixes = None
+        self._remat_warned = False
         self._fusion_plans = {}
         self._fusion_interior = frozenset()
         self._multi_steps = {}     # batch signature -> multistep.StepGraph
@@ -125,6 +142,7 @@ class ComputationGraph:
         self._gen.manual_seed(int(seed))
         self.iteration = 0
         self._multi_steps = {}
+        self._rnn_state = None
         return self
 
     def _build_vertices(self):
@@ -196,7 +214,23 @@ class ComputationGraph:
         new_state = dict(state)
         plans = self._fusion_plans if train else {}
         interior = self._fusion_interior if plans else frozenset()
-        for name in self.topo:
+        # remat spans: training walks without fusion plans, and only where
+        # no input of the span carries a mask
+        prefixes = remat.active(self) if train and not plans else ()
+        spans = (self._remat_spans(prefixes, set(need_inputs_of))
+                 if prefixes else {})
+        i = 0
+        while i < len(self.topo):
+            name = self.topo[i]
+            span = spans.get(name)
+            if span is not None and not any(
+                    masks.get(e) is not None
+                    for e in self._span_ext_inputs(span)):
+                self._run_remat_span(span, params, state, acts, masks,
+                                     new_state, gen)
+                i += len(span)
+                continue
+            i += 1
             if name in interior:
                 continue
             if name in plans:
@@ -208,9 +242,17 @@ class ComputationGraph:
                 new_state[fb.bn] = bn_state_new
                 continue
             conf = self._resolved_confs[name]
-            in_names = self.conf.vertex_inputs[name]
-            xs = [acts[i] for i in in_names]
-            in_masks = [masks.get(i) for i in in_names]
+            xs = [acts[src] for src in self.conf.vertex_inputs[name]]
+            in_masks = [masks.get(src) for src in self.conf.vertex_inputs[name]]
+            # the rnn vertices' named inputs: the named vertex supplies the
+            # mask (LastTimeStep) or the time length and mask
+            # (DuplicateToTimeSeries)
+            if isinstance(conf, LastTimeStepVertex) and conf.mask_input:
+                in_masks = [masks.get(conf.mask_input)]
+            if (isinstance(conf, DuplicateToTimeSeriesVertex)
+                    and conf.seq_input):
+                xs = [xs[0], acts[conf.seq_input]]
+                in_masks = [in_masks[0], masks.get(conf.seq_input)]
             if name in need_inputs_of:
                 saved_inputs[name] = (xs, in_masks)
             if self.vertex_kind[name] == "layer":
@@ -227,6 +269,74 @@ class ComputationGraph:
                 acts[name] = conf.forward(*xs, masks=in_masks)
                 masks[name] = conf.feed_forward_mask(*in_masks)
         return acts, saved_inputs, masks, new_state
+
+    # -------------------------------------------------- selective remat
+    def _remat_spans(self, prefixes, skip: set) -> Dict[str, list]:
+        """Maximal contiguous topological runs of vertices matching the
+        prefixes, keyed by their first vertex; loss-bearing layers, the
+        vertices whose inputs the caller needs and the rnn vertices with
+        named inputs stay outside (the JAX package's rule)."""
+        spans: Dict[str, list] = {}
+        run: list = []
+        for name in self.topo:
+            layer = self._layer_by_name.get(name)
+            if (remat.match(name, prefixes) and name not in skip
+                    and not (layer is not None and hasattr(layer, "loss"))
+                    and not isinstance(self._resolved_confs[name],
+                                       (LastTimeStepVertex,
+                                        DuplicateToTimeSeriesVertex))):
+                run.append(name)
+            elif run:
+                spans[run[0]] = run
+                run = []
+        if run:
+            spans[run[0]] = run
+        return spans
+
+    def _span_ext_inputs(self, span: list) -> list:
+        inside = set(span)
+        ext = []
+        for v in span:
+            for src in self.conf.vertex_inputs[v]:
+                if src not in inside and src not in ext:
+                    ext.append(src)
+        return ext
+
+    def _run_remat_span(self, span, params, state, acts, masks, new_state,
+                        gen):
+        """One span under nn/remat.py's ``run_span``: its inputs in, the
+        activations consumed outside it (or its last) and its layers' new
+        state out. Mutates acts, masks and new_state."""
+        inside = set(span)
+        ext = self._span_ext_inputs(span)
+        consumed_outside = set(self.conf.network_outputs)
+        for v, ins in self.conf.vertex_inputs.items():
+            if v not in inside:
+                consumed_outside.update(ins)
+        outs = [v for v in span if v in consumed_outside] or [span[-1]]
+
+        def run(*ext_acts):
+            local = dict(zip(ext, ext_acts))
+            ns = {}
+            for v in span:
+                xs = [local[src] for src in self.conf.vertex_inputs[v]]
+                if self.vertex_kind[v] == "layer":
+                    y, s_new = self._layer_by_name[v].apply(
+                        params.get(v, {}), state.get(v, {}), xs[0],
+                        train=True, gen=gen, mask=None)
+                    if s_new:
+                        ns[v] = s_new
+                    local[v] = y
+                else:
+                    local[v] = self._resolved_confs[v].forward(
+                        *xs, masks=[None] * len(xs))
+            return [local[v] for v in outs], ns
+
+        out_acts, ns = remat.run_span(run, *[acts[e] for e in ext])
+        acts.update(zip(outs, out_acts))
+        for v in span:
+            masks[v] = None
+        new_state.update(ns)
 
     def _as_tensor(self, x):
         if x is None:
@@ -258,7 +368,8 @@ class ComputationGraph:
             layer = self._layer_by_name.get(name)
             if layer is None or not hasattr(layer, "loss"):
                 raise ValueError(
-                    f"Network output '{name}' is not a loss-bearing layer")
+                    f"Network output '{name}' is not a loss-bearing layer "
+                    f"(Output/RnnOutput/LossLayer)")
             xs, _ = saved[name]
             lm = None if lmasks is None else lmasks[i]
             if getattr(layer, "loss_uses_state", False):
@@ -308,23 +419,67 @@ class ComputationGraph:
                 tuple(shape(x) for x in m.features_masks),
                 tuple(shape(x) for x in m.labels_masks))
 
-    def _refuse_tbptt(self, mds):
-        if self.conf.backprop_type == "tbptt":
-            t_dims = {f.shape[1] for f in mds.features
-                      if getattr(f, "ndim", 0) == 3}
-            if t_dims and max(t_dims) > self.conf.tbptt_fwd_length:
-                raise NotImplementedError(
-                    f"truncated BPTT on a ComputationGraph is not ported: a "
-                    f"feature of T = {max(t_dims)} exceeds tbptt_fwd_length "
-                    f"= {self.conf.tbptt_fwd_length}; use standard backprop "
-                    f"or a MultiLayerNetwork")
+    def _needs_tbptt(self, mds) -> bool:
+        """tBPTT configured and a time series longer than one window."""
+        if self.conf.backprop_type != "tbptt":
+            return False
+        t_dims = {f.shape[1] for f in mds.features
+                  if getattr(f, "ndim", 0) == 3}
+        return bool(t_dims) and max(t_dims) > self.conf.tbptt_fwd_length
+
+    def _fit_tbptt(self, mds):
+        """Truncated BPTT on the DAG: every time series (3-D input,
+        per-timestep label, [b, t] mask) cut into ``tbptt_fwd_length``
+        windows; a static 2-D input goes whole to every window. One update
+        a window, each at the batch's iteration (the JAX package passes
+        the same ``it`` to every chunk); the recurrent vertices carry
+        (h, c) from window to window through the layer state, cleared
+        after the batch. The score is the windows' mean weighted by their
+        lengths."""
+        inputs, labels, fmasks, lmasks = self._batch(mds)
+        if any(l.dim() == 2 for l in labels):
+            raise ValueError(
+                "tBPTT requires per-timestep labels [batch, time, out]; got "
+                "a 2d (sequence-classification) label — use "
+                "backprop_type='standard' for sequence classification")
+        t_lens = {f.shape[1] for f in inputs.values() if f.dim() == 3}
+        t_lens |= {l.shape[1] for l in labels if l.dim() == 3}
+        if len(t_lens) != 1:
+            raise ValueError(
+                "tBPTT requires all time-series inputs AND per-timestep "
+                "labels to share one time length; got time lengths "
+                f"{sorted(t_lens)} (sequence-classification labels need "
+                "backprop_type='standard')")
+
+        def cut(a, sl, dims):
+            return a[:, sl] if a is not None and a.dim() == dims else a
+
+        def window(sl):
+            return ({n: cut(f, sl, 3) for n, f in inputs.items()},
+                    [cut(l, sl, 3) for l in labels],
+                    {n: cut(m, sl, 2) for n, m in fmasks.items()},
+                    None if lmasks is None else [cut(m, sl, 2)
+                                                 for m in lmasks])
+
+        with get_tracer().span("device_step", tbptt=True):
+            score = multistep.fit_windows(self, t_lens.pop(), window)
+        self.state = strip_carries(self.state)
+        self.iteration += 1
+        self.score_value = score
+        self.last_batch_examples = mds.num_examples
+        _goodput.observe_steps(1)
+        with get_tracer().span("score_sync"):
+            for l in self.listeners:
+                l.iteration_done(self, self.iteration, self.epoch)
+        return score
 
     def fit_batch(self, mds):
         """One optimization step on one DataSet or MultiDataSet minibatch.
         Returns the score as a 0-d tensor on the graph's device."""
         self._require_init()
         mds = self._coerce(mds)
-        self._refuse_tbptt(mds)
+        if self._needs_tbptt(mds):
+            return self._fit_tbptt(mds)
         tracer = get_tracer()
         with tracer.span("host_dispatch"):
             batch = self._batch(mds)
@@ -346,10 +501,17 @@ class ComputationGraph:
 
     def fit_batch_repeated(self, mds, n_steps: int):
         """``n_steps`` optimization steps on one minibatch through the
-        captured step (see MultiLayerNetwork.fit_batch_repeated)."""
+        captured step (see MultiLayerNetwork.fit_batch_repeated). A graph
+        set to tBPTT runs n ``fit_batch`` calls instead, as in the JAX
+        package (the window loop is not captured)."""
         self._require_init()
+        if n_steps < 1:
+            raise ValueError(f"n_steps must be >= 1, got {n_steps}")
         mds = self._coerce(mds)
-        self._refuse_tbptt(mds)
+        if self.conf.backprop_type == "tbptt":
+            for _ in range(n_steps):
+                score = self.fit_batch(mds)
+            return score
         return multistep.fit_batch_repeated(self, mds, n_steps)
 
     def step_cost_analysis(self, mds) -> dict:
@@ -492,6 +654,42 @@ class ComputationGraph:
                                        train=train, gen=self._gen,
                                        fmasks=fmasks)
         outs = tuple(acts[o] for o in self.conf.network_outputs)
+        return outs[0] if len(outs) == 1 else outs
+
+    # ------------------------------------------------- streaming inference
+    def rnn_clear_previous_state(self):
+        """Forget the carries ``rnn_time_step`` keeps between calls."""
+        self._rnn_state = None
+
+    def rnn_time_step(self, *features, masks=None):
+        """Stateful streaming inference: one step [b, f] or a chunk
+        [b, t, f] per network input; the recurrent vertices carry (h, c)
+        from call to call. When no input has a time axis, each input is
+        taken as one step ([b, 1, f]) unless its input type is explicitly
+        non-recurrent (the static side of a DuplicateToTimeSeriesVertex),
+        and 3-D outputs come back as [b, f]."""
+        self._require_init()
+        feats = [self._as_tensor(f) for f in features]
+        single = all(f.dim() == 2 for f in feats)
+        if single:
+            its = self.conf.input_types or [None] * len(feats)
+            feats = [f[:, None, :] if it is None or it.kind == "recurrent"
+                     else f for f, it in zip(feats, its)]
+        inputs, fmasks = self._prepare_inputs(feats, masks)
+        state_in = (self._rnn_state if self._rnn_state is not None
+                    else self.state)
+        set_streaming(self.layers, True)
+        try:
+            with torch.inference_mode():
+                acts, _, _, new_state = self._walk(
+                    self.params, state_in, inputs, train=False,
+                    gen=self._gen, fmasks=fmasks)
+            self._rnn_state = new_state
+        finally:
+            set_streaming(self.layers, False)
+        outs = tuple(acts[o] for o in self.conf.network_outputs)
+        if single:
+            outs = tuple(o[:, 0, :] if o.dim() == 3 else o for o in outs)
         return outs[0] if len(outs) == 1 else outs
 
     def feed_forward(self, *features, masks=None, train: bool = False):

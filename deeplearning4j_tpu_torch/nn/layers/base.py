@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from deeplearning4j_tpu_torch.nn import remat
 from deeplearning4j_tpu_torch.nn.conf.core import TORCH_DTYPES
 from deeplearning4j_tpu_torch.ops import activations as activations_mod
 
@@ -66,7 +67,8 @@ class Layer:
         """Inverted dropout on the layer's input while training:
         ``dropout`` is the DROP probability, kept inputs are scaled by
         1/keep. ``gen`` is the net's ``torch.Generator`` on x's device; the
-        bits differ from the JAX package's jax.random ones."""
+        bits differ from the JAX package's jax.random ones. Inside a remat
+        span the mask is recorded and replayed (nn/remat.py)."""
         p = float(self.resolve("dropout", 0.0) or 0.0)
         if not train or p <= 0.0:
             return x
@@ -75,7 +77,7 @@ class Layer:
                 f"Layer {self.name}: dropout requires a generator during "
                 f"training")
         keep = 1.0 - p
-        mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+        mask = remat.keep_mask(x.shape, keep, gen, x.device)
         return torch.where(mask, x / keep, 0.0).to(x.dtype)
 
     def regularization(self, params) -> torch.Tensor:

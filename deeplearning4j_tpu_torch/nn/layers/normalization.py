@@ -1,5 +1,6 @@
-"""Batch-norm runtime layer (counterpart of
-deeplearning4j_tpu/nn/layers/normalization.py::BatchNormLayer).
+"""Batch-norm and LRN runtime layers (counterpart of
+deeplearning4j_tpu/nn/layers/normalization.py: ``BatchNormLayer``,
+``LRNLayer``).
 
 Training uses the batch statistics through ops/normalization.py's
 ``batch_norm_train`` with the RUNNING mean as the variance shift, and
@@ -12,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from deeplearning4j_tpu_torch.nn.layers.base import Layer
+from deeplearning4j_tpu_torch.ops.convolution import lrn
 from deeplearning4j_tpu_torch.ops.normalization import batch_norm_train
 
 
@@ -72,3 +74,12 @@ class BatchNormLayer(Layer):
             scale, shift = gamma * inv, beta - mean * gamma * inv
             xhat = x * scale.to(x.dtype) + shift.to(x.dtype)
         return self.activation_fn(xhat), new_state
+
+
+class LRNLayer(Layer):
+    """Across-channel local response normalization on NHWC
+    (ops/convolution.py's ``lrn``)."""
+
+    def apply(self, params, state, x, *, train=False, gen=None, mask=None):
+        c = self.conf
+        return lrn(x, k=c.k, n=c.n, alpha=c.alpha, beta=c.beta), state

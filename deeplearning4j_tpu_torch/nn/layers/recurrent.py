@@ -1,6 +1,6 @@
 """Recurrent runtime layers: Graves LSTM (and bidirectional), the RNN
-output head, last-time-step extraction (counterpart of
-deeplearning4j_tpu/nn/layers/recurrent.py).
+output head, the per-timestep dense without a head, last-time-step
+extraction (counterpart of deeplearning4j_tpu/nn/layers/recurrent.py).
 
 The input projection of the whole sequence is one ``torch.matmul`` in the
 compute dtype; the time loop is the ``lstm_sequence`` op (ops/lstm.py):
@@ -166,6 +166,20 @@ class RnnOutputLayerImpl(Layer):
         labels2 = labels.reshape(-1, n_out).to(z2.dtype)
         m2 = None if mask is None else mask.reshape(-1)
         return self.loss_fn.score(labels2, z2, self.activation_fn, m2)
+
+
+class TimeDistributedDenseLayer(RnnOutputLayerImpl):
+    """Per-timestep dense, no loss head; mid-network, so its activation
+    stays in the compute dtype."""
+
+    def apply(self, params, state, x, *, train=False, gen=None, mask=None):
+        x = self._input_dropout(x, train, gen)
+        return self.activation_fn(self.preout(params, x)), state
+
+    def loss(self, *args, **kwargs):
+        raise ValueError(
+            "TimeDistributedDense has no loss head — use RnnOutput as the "
+            "terminal layer")
 
 
 class LastTimeStepLayer(Layer):

@@ -4,7 +4,7 @@ input preprocessors ``set_input_type`` inserts, ``fit``, ``fit_batch``,
 truncated BPTT, listeners, ``score``, ``output``, ``feed_forward``,
 ``evaluate``, ``evaluate_regression``, ``rnn_time_step``,
 ``rnn_clear_previous_state``, ``summary``, ``clone``, ``resilient_fit``,
-``pretrain``, ``pretrain_layer``).
+``pretrain``, ``pretrain_layer``, the remat spans of ``DL4J_TPU_REMAT``).
 
 Parameters are a dict ``{layer_name: {param_name: tensor}}`` in the JAX
 package's layouts, and the optimizer state a dict keyed as the JAX
@@ -22,6 +22,7 @@ package's scanned steps. Randomness (dropout) comes from one
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import List, Optional
 
@@ -33,7 +34,7 @@ from deeplearning4j_tpu_torch.datasets.iterator import (
     ArrayDataSetIterator, AsyncDataSetIterator, DataSetIterator,
     DevicePrefetchIterator, ListDataSetIterator)
 from deeplearning4j_tpu_torch.device import resolve_device
-from deeplearning4j_tpu_torch.nn import multistep, precision
+from deeplearning4j_tpu_torch.nn import multistep, precision, remat
 from deeplearning4j_tpu_torch.nn.conf import layers as layer_confs
 from deeplearning4j_tpu_torch.nn.conf.core import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
@@ -42,7 +43,7 @@ from deeplearning4j_tpu_torch.nn.conf.preprocessors import (CnnToFeedForward,
                                                             RnnToFeedForward)
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (set_streaming,
                                                           strip_carries)
-from deeplearning4j_tpu_torch.nn.updater import _copy_tree, _leaves, _map
+from deeplearning4j_tpu_torch.nn.updater import _copy_tree, _leaves
 from deeplearning4j_tpu_torch.observability import distributed as _obs_dist
 from deeplearning4j_tpu_torch.observability import goodput as _goodput
 from deeplearning4j_tpu_torch.observability import metrics as _obs_metrics
@@ -85,6 +86,9 @@ class MultiLayerNetwork:
         self._gen = None
         self._lr_scale = 1.0
         self._rnn_state = None
+        # DL4J_TPU_REMAT, read at the first train step (nn/remat.py)
+        self.remat_prefixes = None
+        self._remat_warned = False
         self._multi_steps = {}     # batch signature -> multistep.StepGraph
         self.last_run_report = None  # the last fit's goodput RunReport
         self.flops_per_step = None
@@ -190,11 +194,35 @@ class MultiLayerNetwork:
 
     def _forward(self, params, state, x, *, train=False, gen=None,
                  fmask=None, to_layer=None, collect=False):
-        """Walk the stack; returns (final activation or list, new_state)."""
+        """Walk the stack; returns (final activation or list, new_state).
+        A training walk that collects nothing runs each maximal run of
+        layers ``DL4J_TPU_REMAT`` names as one remat span."""
         acts = []
         new_state = dict(state)
         n = len(self.layers) if to_layer is None else to_layer
-        for layer, prep in zip(self.layers[:n], self.preprocessors):
+        spans = self._remat_spans(n) if train and not collect else {}
+        i = 0
+        while i < n:
+            end = spans.get(i)
+            if end is not None:
+                run = functools.partial(self._run_layers, params, state,
+                                        lo=i, hi=end, train=train, gen=gen)
+                x, fmask, ns = remat.run_span(run, x, fmask)
+            else:
+                end = i + 1
+                x, fmask, ns = self._run_layers(params, state, x, fmask, i,
+                                                end, train, gen)
+                if collect:
+                    acts.append(x)
+            new_state.update(ns)
+            i = end
+        return (acts if collect else x), new_state
+
+    def _run_layers(self, params, state, x, fmask, lo, hi, train, gen):
+        """Layers [lo, hi) with their preprocessors: (x, mask, new
+        state of those layers)."""
+        ns = {}
+        for layer, prep in zip(self.layers[lo:hi], self.preprocessors[lo:hi]):
             if prep is not None:
                 x = prep(x)
             x, s_new = layer.apply(params.get(layer.name, {}),
@@ -202,10 +230,24 @@ class MultiLayerNetwork:
                                    gen=gen, mask=fmask)
             fmask = layer.feed_forward_mask(fmask)
             if s_new:
-                new_state[layer.name] = s_new
-            if collect:
-                acts.append(x)
-        return (acts if collect else x), new_state
+                ns[layer.name] = s_new
+        return x, fmask, ns
+
+    def _remat_spans(self, n: int) -> dict:
+        """start -> end of each maximal run of layers among the first n
+        whose names match the remat prefixes, loss heads left out."""
+        prefixes = remat.active(self)
+        spans, start = {}, None
+        for i in range(n):
+            ok = (remat.match(self.layers[i].name, prefixes)
+                  and not hasattr(self.layers[i], "loss"))
+            if ok and start is None:
+                start = i
+            elif not ok and start is not None:
+                spans[start], start = i, None
+        if start is not None:
+            spans[start] = n
+        return spans
 
     def _loss(self, params, state, x, labels, fmask=None, lmask=None,
               gen=None, train=True):
@@ -267,22 +309,6 @@ class MultiLayerNetwork:
         return acts
 
     # --------------------------------------------------------------- train
-    def _run_step(self, x, y, fmask, lmask):
-        """One tBPTT chunk's optimization step on tensors; returns the
-        (true) score as a 0-d tensor. The params are handed to the step as
-        leaves that share storage with ``self.params``, so the in-place
-        update lands there; the carries the step leaves in the state are
-        detached (gradients stop at a chunk boundary, as in the JAX
-        package). Every chunk of a batch reads the batch's iteration."""
-        step = precision.build_step_fn(self._loss, self.layers,
-                                       self.conf.global_conf, self._lr_scale)
-        new_state, score = step(multistep.step_leaves(self), self.state,
-                                self.opt_state,
-                                multistep.device_iteration(self), x, y,
-                                fmask, lmask, self._gen)
-        self.state = _map(lambda t: t.detach(), new_state)
-        return score
-
     def _batch(self, ds: DataSet):
         return (self._as_tensor(ds.features), self._as_tensor(ds.labels),
                 self._as_tensor(ds.features_mask),
@@ -359,10 +385,11 @@ class MultiLayerNetwork:
 
     def _fit_tbptt(self, ds: DataSet):
         """Truncated BPTT: one step per ``tbptt_fwd_length`` chunk of the
-        time axis; the recurrent carry crosses chunks through the layer
-        state and is reset after the batch. The score is the chunk scores'
-        mean weighted by chunk length."""
-        L = self.conf.tbptt_fwd_length
+        time axis, each at the batch's iteration; the recurrent carry
+        crosses chunks through the layer state (detached: gradients stop
+        at a chunk boundary, as in the JAX package) and is reset after the
+        batch. The score is the chunk scores' mean weighted by chunk
+        length."""
         x, y, fmask, lmask = self._batch(ds)
         if y.dim() != 3 or y.shape[1] != x.shape[1]:
             raise ValueError(
@@ -371,20 +398,10 @@ class MultiLayerNetwork:
                 f"{tuple(y.shape)} vs features {tuple(x.shape)}. For "
                 "sequence-classification labels use backprop_type='standard'")
         cut = lambda a, sl: None if a is None else a[:, sl]  # noqa: E731
-        set_streaming(self.layers, True)
-        try:
-            score_sum, weight = 0.0, 0
-            for start in range(0, x.shape[1], L):
-                sl = slice(start, min(start + L, x.shape[1]))
-                chunk = self._run_step(x[:, sl], y[:, sl], cut(fmask, sl),
-                                       cut(lmask, sl))
-                w = sl.stop - sl.start
-                score_sum = score_sum + chunk * w
-                weight += w
-            self.state = strip_carries(self.state)
-            score = score_sum / max(weight, 1)
-        finally:
-            set_streaming(self.layers, False)
+        score = multistep.fit_windows(
+            self, x.shape[1],
+            lambda sl: (x[:, sl], y[:, sl], cut(fmask, sl), cut(lmask, sl)))
+        self.state = strip_carries(self.state)
         self.iteration += 1
         self.score_value = score
         _goodput.observe_steps(1)

@@ -45,11 +45,12 @@ listeners are set; a ``clone`` starts with none.
 from __future__ import annotations
 
 import contextlib
+import gc
 import time
 
 import torch
 
-from deeplearning4j_tpu_torch.nn import precision
+from deeplearning4j_tpu_torch.nn import precision, remat
 from deeplearning4j_tpu_torch.nn.updater import NoOp, _map
 from deeplearning4j_tpu_torch.observability import goodput as _goodput
 from deeplearning4j_tpu_torch.observability import metrics as _obs_metrics
@@ -137,11 +138,15 @@ def step_leaves(net) -> dict:
             for name, sub in net.params.items()}
 
 
-def train_step(net, batch) -> torch.Tensor:
+def train_step(net, batch, advance: bool = True) -> torch.Tensor:
     """One optimization step on ``batch`` (the net's ``_step_batch``
     tuple of device tensors), everything in place: parameters, updater
     slots, layer state and the device iteration. Returns the score, a
-    0-d tensor. Reads nothing back to the host, so it can be captured."""
+    0-d tensor. Reads nothing back to the host, so it can be captured.
+    ``advance=False`` leaves the iteration where it is: a tBPTT window's
+    step, every window of a batch at the batch's iteration. The first
+    step resolves the net's ``DL4J_TPU_REMAT`` (nn/remat.py)."""
+    remat.resolve(net)
     step = precision.build_step_fn(net._loss, net.layers,
                                    net.conf.global_conf, net._lr_scale)
     it = device_iteration(net)
@@ -149,9 +154,33 @@ def train_step(net, batch) -> torch.Tensor:
                             *batch,
                             net._gen)
     commit_state(net.state, new_state)
-    it.add_(1)
-    net._it_twin.value += 1
+    if advance:
+        it.add_(1)
+        net._it_twin.value += 1
     return score
+
+
+def fit_windows(net, t_total: int, window) -> torch.Tensor:
+    """Truncated BPTT's loop over one batch, for either network kind: one
+    ``train_step`` a ``tbptt_fwd_length`` window, each at the batch's
+    iteration, on ``window(sl)`` (the step batch of time slice ``sl``);
+    the recurrent layers stream their carry from window to window through
+    the layer state (the caller drops the carries after the batch).
+    Returns the windows' scores averaged by window length."""
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import set_streaming
+    L = net.conf.tbptt_fwd_length
+    set_streaming(net.layers, True)
+    try:
+        score_sum, weight = 0.0, 0
+        for start in range(0, t_total, L):
+            sl = slice(start, min(start + L, t_total))
+            w = sl.stop - sl.start
+            score_sum = score_sum + train_step(net, window(sl),
+                                               advance=False) * w
+            weight += w
+    finally:
+        set_streaming(net.layers, False)
+    return score_sum / max(weight, 1)
 
 
 # ---------------------------------------------------------- the graph
@@ -290,6 +319,13 @@ class StepGraph:
         g.register_generator_state(net._gen)
         self._stream.wait_stream(torch.cuda.current_stream(net.device))
         t0 = time.perf_counter()
+        # a dead reference cycle holding another CUDA graph (an earlier
+        # net's step) must not be collected during the capture: freeing
+        # a graph then invalidates the capture. Collect it now, and let
+        # no collection run until the capture ends.
+        gc.collect()
+        gc_on = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(g, stream=self._stream):
                 with registry.recording() as rec, refusing_host_reads():
@@ -298,6 +334,9 @@ class StepGraph:
             raise CaptureError(
                 f"{type(net).__name__}: the train step cannot be captured "
                 f"as a CUDA graph: {type(e).__name__}: {e}") from e
+        finally:
+            if gc_on:
+                gc.enable()
         # the capture ran nothing: the step it recorded is still to run
         net._it_twin.value -= 1
         self.capture_ms = 1e3 * (time.perf_counter() - t0)

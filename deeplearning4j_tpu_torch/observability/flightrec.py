@@ -178,8 +178,9 @@ class FlightRecorder:
         try:
             os.makedirs(self.dir, exist_ok=True)
             tmp = f"{path}.tmp.{os.getpid()}"
+            text = json.dumps(doc, indent=1, default=str)
             with open(tmp, "w") as fh:
-                json.dump(doc, fh, indent=1, default=str)
+                fh.write(text)    # one write: json.dump writes each token
             os.replace(tmp, path)
         except OSError:
             return None

@@ -16,6 +16,12 @@ zeros for convolution and average pooling, -inf for max pooling.
 An f32 convolution runs with cuDNN's TF32 off, whatever the caller's
 ``torch.backends.cudnn.allow_tf32`` says (PyTorch's default is on): the
 JAX package's F32 convolution rounds no input to TF32's 10-bit mantissa.
+
+Besides: the 1-D convolution on [N, T, C], p-norm pooling, across-channel
+LRN, and the JAX package's two exact stride-2 rewrites (space-to-depth
+for a few-channel stem, a strided 1x1 as slice + 1x1), which
+``ConvolutionLayer`` selects only under ``DL4J_TPU_S2D_STEM=1`` /
+``DL4J_TPU_SLICE_1X1=1``.
 """
 
 from __future__ import annotations
@@ -101,14 +107,30 @@ def _nhwc(y):
 def conv2d(x, w, *, strides, padding, dilation=(1, 1)):
     """x: [N, H, W, C], w: [kH, kW, C_in, C_out] (HWIO), padding:
     [(lo, hi), (lo, hi)] -> [N, H', W', C_out]. f32 runs without TF32,
-    forward and backward (``Conv2dF32``)."""
+    forward and backward (``ConvF32``)."""
     x, sym = _pad_nhwc(x, padding)
-    args = (_nchw(x), w.permute(3, 2, 0, 1), tuple(strides), tuple(sym),
-            tuple(dilation))
+    return _nhwc(_conv(_nchw(x), w.permute(3, 2, 0, 1), tuple(strides),
+                       tuple(sym), tuple(dilation)))
+
+
+def conv1d(x, w, *, stride, padding, dilation=1):
+    """x: [N, T, C], w: [k, C_in, C_out] (WIO), padding: [(lo, hi)] ->
+    [N, T', C_out]; f32 without TF32, as ``conv2d``."""
+    (lo, hi), = padding
+    if lo != hi:
+        x = F.pad(x, (0, 0, lo, hi))
+        lo = 0
+    y = _conv(x.transpose(1, 2), w.permute(2, 1, 0), (int(stride),), (lo,),
+              (int(dilation),))
+    return y.transpose(1, 2).contiguous()
+
+
+def _conv(x, w, stride, padding, dilation):
+    """``F.conv1d``/``F.conv2d`` of channels-first x and OI(H)W w."""
     if x.dtype == torch.float32:
-        return _nhwc(Conv2dF32.apply(*args))
-    return _nhwc(F.conv2d(args[0], args[1], stride=args[2], padding=args[3],
-                          dilation=args[4]))
+        return ConvF32.apply(x, w, stride, padding, dilation)
+    fn = F.conv1d if x.dim() == 3 else F.conv2d
+    return fn(x, w, stride=stride, padding=padding, dilation=dilation)
 
 
 def _no_tf32():
@@ -119,18 +141,20 @@ def _no_tf32():
                                       deterministic=None, allow_tf32=False)
 
 
-class Conv2dF32(torch.autograd.Function):
-    """``F.conv2d`` of f32 tensors with cuDNN's TF32 off in the forward and
-    in the backward: autograd's own backward would read the global flag
-    when it runs, after any context around the forward has closed."""
+class ConvF32(torch.autograd.Function):
+    """``F.conv1d``/``F.conv2d`` of f32 tensors with cuDNN's TF32 off in
+    the forward and in the backward: autograd's own backward would read
+    the global flag when it runs, after any context around the forward
+    has closed."""
 
     @staticmethod
     def forward(ctx, x, w, stride, padding, dilation):
         ctx.save_for_backward(x, w)
         ctx.conf = (stride, padding, dilation)
+        fn = F.conv1d if x.dim() == 3 else F.conv2d
         with _no_tf32():
-            return F.conv2d(x, w, stride=stride, padding=padding,
-                            dilation=dilation)
+            return fn(x, w, stride=stride, padding=padding,
+                      dilation=dilation)
 
     @staticmethod
     def backward(ctx, gy):
@@ -139,7 +163,7 @@ class Conv2dF32(torch.autograd.Function):
         with _no_tf32():
             gx, gw, _ = torch.ops.aten.convolution_backward(
                 gy, x, w, None, list(stride), list(padding), list(dilation),
-                False, [0, 0], 1,
+                False, [0] * len(stride), 1,
                 [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
         return gx, gw, None, None, None
 
@@ -165,3 +189,66 @@ def avg_pool2d(x, *, kernel, strides, padding):
                      count_include_pad=True)
     return _nhwc(y)
 
+
+
+def pnorm_pool2d(x, *, kernel, strides, padding, p, eps=1e-8):
+    """P-norm pooling, (sum |x|^p + eps)^(1/p) over each window, eps inside
+    the root (PoolingType.PNORM); padded positions add 0."""
+    x, sym = _pad_nhwc(torch.abs(x) ** p, padding)
+    summed = F.avg_pool2d(_nchw(x), tuple(kernel), tuple(strides),
+                          padding=sym, divisor_override=1)
+    return _nhwc((summed + eps) ** (1.0 / p))
+
+
+# ---------------------------------------------------------------------------
+# Local response normalization (LocalResponseNormalization.java)
+# ---------------------------------------------------------------------------
+
+def lrn(x, *, k=2.0, n=5, alpha=1e-4, beta=0.75):
+    """Across-channel LRN on NHWC: y = x / (k + alpha * sum x^2)^beta, the
+    sum over the channel window [c - n//2, c + n-1-n//2] (zeros past the
+    ends). Not ``F.local_response_norm``: that one divides alpha by n,
+    works on dim 1 and centres an even window the other way."""
+    half = n // 2
+    sq = F.pad(x * x, (half, n - 1 - half))
+    ssum = sq.unfold(-1, n, 1).sum(-1)
+    return x / (k + alpha * ssum) ** beta
+
+
+# ---------------------------------------------------------------------------
+# Exact stride-2 conv rewrites (off by default; nn/layers/convolution.py)
+# ---------------------------------------------------------------------------
+
+def conv2d_space_to_depth(x, w, *, padding):
+    """An odd-kernel stride-2 conv as a stride-1 VALID conv on 2x2 blocks
+    folded into channels, with the kernel zero-padded to even size and
+    re-blocked the same way: y[i, j] = sum w[di, dj, c] xp[2i+di, 2j+dj, c]
+    with di = 2p+a, dj = 2q+b is a (kh+1)/2 x (kw+1)/2 window over the
+    block grid. The same function as ``conv2d`` (the JAX package's
+    ``conv2d_space_to_depth``)."""
+    n, h, wd, c = x.shape
+    kh, kw, _, c_out = w.shape
+    (lo_h, hi_h), (lo_w, hi_w) = padding
+    big_kh, big_kw = kh + (kh % 2), kw + (kw % 2)
+    out_h = (h + lo_h + hi_h - kh) // 2 + 1
+    out_w = (wd + lo_w + hi_w - kw) // 2 + 1
+    pad_h = 2 * (out_h - 1) + big_kh
+    pad_w = 2 * (out_w - 1) + big_kw
+    xp = F.pad(x, (0, 0, lo_w, pad_w - wd - lo_w, lo_h, pad_h - h - lo_h))
+    xsd = xp.reshape(n, pad_h // 2, 2, pad_w // 2, 2, c)
+    xsd = xsd.permute(0, 1, 3, 2, 4, 5).reshape(
+        n, pad_h // 2, pad_w // 2, 4 * c)
+    w8 = F.pad(w, (0, 0, 0, 0, 0, big_kw - kw, 0, big_kh - kh))
+    wsd = w8.reshape(big_kh // 2, 2, big_kw // 2, 2, c, c_out)
+    wsd = wsd.permute(0, 2, 1, 3, 4, 5).reshape(
+        big_kh // 2, big_kw // 2, 4 * c, c_out)
+    return conv2d(xsd.contiguous(), wsd, strides=(1, 1),
+                  padding=[(0, 0), (0, 0)])
+
+
+def conv2d_strided_1x1_as_slice(x, w, *, strides):
+    """An unpadded strided 1x1 conv as a slice and a 1x1 stride-1 conv (the
+    JAX package's ``conv2d_strided_1x1_as_slice``)."""
+    sh, sw = strides
+    return conv2d(x[:, ::sh, ::sw, :].contiguous(), w, strides=(1, 1),
+                  padding=[(0, 0), (0, 0)])

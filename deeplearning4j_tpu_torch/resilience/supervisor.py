@@ -323,6 +323,15 @@ class TrainingSupervisor:
         except Exception:
             return None
 
+    def _preempt_exit(self, detail: str):
+        """After the preemption's save: its event and the black box, timed
+        with the save's barrier (the flush writes the flight file, which
+        the ledger would otherwise leave untracked)."""
+        with _get_tracer().span("checkpoint_barrier"):
+            self._emit("preempt", self.net.iteration, detail,
+                       counter="preemptions")
+            self._flight_flush("preemption")
+
     # --------------------------------------------------------------- events
     def _emit(self, kind: str, step: int, detail: str = "",
               counter: Optional[str] = None):
@@ -376,31 +385,34 @@ class TrainingSupervisor:
                 self._write_latest_pointer(path)
                 self._commit_checkpoint(step, reason, path)
             return path
+        pending = {"step": step, "reason": reason, "path": path,
+                   "error": None}
         with tracer.span("checkpoint_snapshot", step=step):
             # the data half of the snapshot: the pipeline's state is taken
             # here on the main thread, at the step boundary of the
             # device-side copy, so the writer gets plain data
             extra = self._extra_meta()
             snap = snapshot_for_checkpoint(self.net)
-        pending = {"step": step, "reason": reason, "path": path,
-                   "error": None}
 
-        def write():
-            # runs on dl4j-ckpt-writer: its span lands in that thread's
-            # trace lane, beside the main loop's steps
-            try:
-                with tracer.span("checkpoint_write", step=step,
-                                 reason=reason):
-                    save_checkpoint(snap, path, extra_meta=extra)
-                    self._write_latest_pointer(path)
-            except BaseException as e:  # kept for the drain barrier
-                pending["error"] = e
+            def write():
+                # runs on dl4j-ckpt-writer: its span lands in that
+                # thread's trace lane, beside the main loop's steps
+                try:
+                    with tracer.span("checkpoint_write", step=step,
+                                     reason=reason):
+                        save_checkpoint(snap, path, extra_meta=extra)
+                        self._write_latest_pointer(path)
+                except BaseException as e:  # kept for the drain barrier
+                    pending["error"] = e
 
-        t = threading.Thread(target=write, name="dl4j-ckpt-writer",
-                             daemon=True)
-        self._ckpt_pending = pending
-        self._ckpt_thread = t
-        t.start()
+            # the hand-off is part of the step path's cost: the new
+            # writer takes the interpreter lock at once and the main
+            # thread gets it back only after a switch interval (~5 ms)
+            t = threading.Thread(target=write, name="dl4j-ckpt-writer",
+                                 daemon=True)
+            self._ckpt_pending = pending
+            self._ckpt_thread = t
+            t.start()
         if wait:
             self._drain_checkpoint()
         return path
@@ -738,10 +750,8 @@ class TrainingSupervisor:
                     rollbacks += 1
                     self._rollback(bad[0], bad[1], rollbacks)
                 self._checkpoint(net.iteration, "preemption", wait=True)
-                self._emit("preempt", net.iteration,
-                           f"clean exit at step {net.iteration} of "
-                           f"{target_step}", counter="preemptions")
-                self._flight_flush("preemption")
+                self._preempt_exit(f"clean exit at step {net.iteration} of "
+                                   f"{target_step}")
             else:
                 self._drain_checkpoint()  # settle _last_good first
                 if self._last_good != self._step_dir(net.iteration):
@@ -851,11 +861,9 @@ class TrainingSupervisor:
                 # the final word on the data position
                 invalidate_stream()
                 self._checkpoint(net.iteration, "preemption", wait=True)
-                self._emit("preempt", net.iteration,
-                           f"clean exit at step {net.iteration} "
-                           f"(datapipe epoch {pipeline.epoch} of "
-                           f"{epochs})", counter="preemptions")
-                self._flight_flush("preemption")
+                self._preempt_exit(f"clean exit at step {net.iteration} "
+                                   f"(datapipe epoch {pipeline.epoch} of "
+                                   f"{epochs})")
             else:
                 self._drain_checkpoint()  # settle _last_good first
                 if self._last_good != self._step_dir(net.iteration):

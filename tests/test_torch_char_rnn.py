@@ -196,11 +196,16 @@ def test_other_recurrent_layers_match_jax(name, tmp_path):
 
 
 def test_unported_layer_type_is_refused_by_name():
+    """The embedding layer, refused before slice 14, now loads from the
+    JAX package's JSON key for key; a layer type neither package knows is
+    still refused by name."""
     from deeplearning4j_tpu.nn.conf.layers import Embedding, Output
     conf = (JNNC.builder().list().layer(Embedding(n_in=5, n_out=4))
             .layer(Output(n_out=2)).build())
-    with pytest.raises(NotImplementedError, match="'embedding'"):
-        TMLC.from_json(conf.to_json())
+    assert TMLC.from_json(conf.to_json()).to_json() == conf.to_json()
+    bad = conf.to_json().replace('"embedding"', '"no_such_layer"')
+    with pytest.raises(ValueError, match="'no_such_layer'"):
+        TMLC.from_json(bad)
 
 
 def test_params_from_numpy_keeps_jax_layouts(tmp_path):

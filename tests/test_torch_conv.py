@@ -162,10 +162,21 @@ def test_global_pooling_matches(pooling, shape):
 
 
 def test_global_pooling_refuses_a_masked_time_series():
+    """Refused before slice 14; a masked time series now pools over its
+    unmasked steps as the JAX package's does (avg divides by the count of
+    unmasked steps; all four modes in tests/test_torch_vertices.py)."""
+    jl = _graph_layer("jax", jconf.GlobalPooling(pooling="avg"),
+                      JInputType.recurrent(5, 6))
     tl = _graph_layer("torch", tconf.GlobalPooling(pooling="avg"),
                       TInputType.recurrent(5, 6))
-    with pytest.raises(NotImplementedError, match="masked time series"):
-        tl.apply({}, {}, torch.zeros(2, 6, 5), mask=torch.ones(2, 6))
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(2, 6, 5)).astype(np.float32)
+    m = np.ones((2, 6), np.float32)
+    m[1, 2:] = 0.0
+    ty, _ = tl.apply({}, {}, torch.tensor(x), mask=torch.tensor(m))
+    jy, _ = jl.apply({}, {}, jnp.asarray(x), mask=jnp.asarray(m))
+    _close(ty, jy, "masked avg pool")
+    _close(ty[1], x[1, :2].mean(axis=0), "row 1 over its 2 steps")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -235,15 +246,51 @@ def test_batch_norm_layer_train_and_eval_match():
 @pytest.mark.parametrize("ltype", ["conv1d", "subsampling1d",
                                    "zero_padding", "lrn"])
 def test_unported_conv_layers_are_refused_by_name(ltype):
-    with pytest.raises(NotImplementedError, match=ltype):
-        layer_from_dict({"layer_type": ltype})
+    """Refused before slice 14; each now loads from the JAX package's
+    dict, round-trips key for key and gives the JAX package's output type
+    and forward (f32; F64 parity and gradients in
+    tests/test_torch_vertices.py)."""
+    from deeplearning4j_tpu.nn.conf.layers import layer_to_dict as jto
+    from deeplearning4j_tpu_torch.nn.conf.layers import layer_to_dict as tto
+    jc = {"conv1d": jconf.Convolution1D(n_out=3, kernel=3, stride=2),
+          "subsampling1d": jconf.Subsampling1D(kernel=2, stride=2),
+          "zero_padding": jconf.ZeroPadding(pad=(1, 0, 2, 1)),
+          "lrn": jconf.LocalResponseNormalization(n=4)}[ltype]
+    tc = layer_from_dict(jto(jc))
+    assert tc.layer_type == ltype and tto(tc) == jto(jc)
+    rng = np.random.default_rng(6)
+    if ltype in ("conv1d", "subsampling1d"):
+        its, shape = (JInputType.recurrent(4, 9),
+                      TInputType.recurrent(4, 9)), (2, 9, 4)
+    else:
+        its, shape = (JInputType.convolutional(5, 6, 4),
+                      TInputType.convolutional(5, 6, 4)), (2, 5, 6, 4)
+    jl = _graph_layer("jax", jc, its[0])
+    tl = _graph_layer("torch", tc, its[1])
+    assert tl.output_type.to_dict() == jl.output_type.to_dict()
+    x = rng.normal(size=shape).astype(np.float32)
+    params = {"W": rng.normal(size=(3, 4, 3)).astype(np.float32),
+              "b": rng.normal(size=3).astype(np.float32)} \
+        if ltype == "conv1d" else {}
+    jy, _ = jl.apply({k: jnp.asarray(v) for k, v in params.items()}, {},
+                     jnp.asarray(x))
+    ty, _ = tl.apply({k: torch.tensor(v) for k, v in params.items()}, {},
+                     torch.tensor(x))
+    _close(ty, jy, ltype)
 
 
 def test_pnorm_subsampling_is_refused_by_name():
+    """Refused before slice 14; p-norm subsampling now gives the JAX
+    package's (sum |x|^p + eps)^(1/p) (p = 2 here; p = 3 and gradients
+    in tests/test_torch_vertices.py)."""
+    jl = _graph_layer("jax", jconf.Subsampling(pooling="pnorm"),
+                      JInputType.convolutional(4, 4, 2))
     tl = _graph_layer("torch", tconf.Subsampling(pooling="pnorm"),
                       TInputType.convolutional(4, 4, 2))
-    with pytest.raises(NotImplementedError, match="pnorm"):
-        tl.apply({}, {}, torch.zeros(1, 4, 4, 2))
+    x = np.random.default_rng(7).normal(size=(1, 4, 4, 2)).astype(np.float32)
+    ty, _ = tl.apply({}, {}, torch.tensor(x))
+    jy, _ = jl.apply({}, {}, jnp.asarray(x))
+    _close(ty, jy, "pnorm pool")
 
 
 @pytest.mark.parametrize("dtype,tf32_off", [(torch.float32, True),

@@ -212,11 +212,26 @@ def test_fusion_gate_matches_jax():
 
 
 def test_switch_default_off_and_unported_vertices_refused(monkeypatch):
+    """The fusion switch is off by default. Every vertex type of the JAX
+    package now loads (the merge vertex, refused here before slice 14,
+    concatenates on the trailing axis as the JAX package's does); a type
+    neither package knows is refused by name."""
     monkeypatch.delenv("DL4J_TPU_FUSE_BLOCKS", raising=False)
     assert not tfusion.enabled()
     assert TGraph(_build("torch"), device="cpu").init()._fusion_plans == {}
-    with pytest.raises(NotImplementedError, match="merge"):
-        vertex_from_dict({"vertex_type": "merge"})
+    from deeplearning4j_tpu.nn.conf.vertices import MergeVertex as JMerge
+    merge = vertex_from_dict({"vertex_type": "merge"})
+    rng = np.random.default_rng(0)
+    a, b = rng.normal(size=(2, 3, 4, 5)), rng.normal(size=(2, 3, 4, 2))
+    np.testing.assert_array_equal(
+        merge.forward(torch.tensor(a), torch.tensor(b)).numpy(),
+        np.asarray(JMerge().forward(jnp.asarray(a), jnp.asarray(b))))
+    assert merge.output_type(TInputType.convolutional(3, 4, 5),
+                             TInputType.convolutional(3, 4, 2)).to_dict() \
+        == JMerge().output_type(JInputType.convolutional(3, 4, 5),
+                                JInputType.convolutional(3, 4, 2)).to_dict()
+    with pytest.raises(ValueError, match="'no_such_vertex'"):
+        vertex_from_dict({"vertex_type": "no_such_vertex"})
 
 
 # ------------------------------------------------------------- parity
@@ -455,22 +470,26 @@ def test_graph_standard_backprop_rnn_step_matches_jax(tmp_path, fuse):
 
 def test_graph_tbptt_batch_longer_than_its_window_is_refused(tmp_path,
                                                              fuse):
-    """The reference routes such a batch to ``_fit_tbptt``; the port has
-    no graph tBPTT yet and says so instead of running full BPTT."""
-    _, tnet = _rnn_pair(tmp_path, fuse, tbptt=True)
+    """Refused before slice 14; now such a batch takes truncated BPTT, as
+    the JAX package's ``_fit_tbptt`` does: one Sgd step a 4-step window
+    (4 windows of 16), the same parameters afterwards, the carries gone
+    from the state, one iteration; and a batch inside one window takes
+    the standard step, as in the JAX package."""
+    jnet, tnet = _rnn_pair(tmp_path, fuse, tbptt=True)
     assert tnet.conf.backprop_type == "tbptt"
-    before = {ln: {k: t.clone() for k, t in lp.items()}
-              for ln, lp in tnet.params.items()}
-    with pytest.raises(NotImplementedError, match="truncated BPTT"):
-        tnet.fit_batch(TMDS(*map(lambda a: [a], _rnn_data(16))))
-    assert tnet.iteration == 0
+    x, y = _rnn_data(16)
+    js = float(jnet.fit_batch(JMDS([x], [y])))
+    ts = float(tnet.fit_batch(TMDS([x], [y])))
+    assert abs(ts - js) <= 1e-5 * abs(js), (ts, js)
+    assert tnet.iteration == jnet.iteration == 1
+    assert tnet.state == {}
     for ln, lp in tnet.params.items():
         for k, t in lp.items():
-            assert torch.equal(t, before[ln][k])
-    # a batch inside one window takes the standard step, as in the JAX
-    # package
-    assert np.isfinite(float(tnet.fit_batch(
-        TMDS(*map(lambda a: [a], _rnn_data(4))))))
+            _close_max(t, jnet.params[ln][k], 1e-5, f"param {ln}.{k}")
+    x4, y4 = _rnn_data(4)
+    js = float(jnet.fit_batch(JMDS([x4], [y4])))
+    ts = float(tnet.fit_batch(TMDS([x4], [y4])))
+    assert abs(ts - js) <= 1e-5 * abs(js), (ts, js)
 
 
 # ---------------------------------------------------------------- ResNet-18
