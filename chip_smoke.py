@@ -101,6 +101,24 @@ DL4J_TPU_REMAT=s0b,s1b,s2b,s3b against without, bit-equal, step ms and
 peak memory, and no span under the fusion pass), each also alone
 (--graph-tbptt, --graph-stream, --graph-layers, --remat), and
 
+    python3 chip_smoke.py --slice15
+
+runs only slice 15's phases (decode serving): [stream_invariance] (do
+PyTorch's LayerNorm statistics, softmax and GELU keep their bits on the
+card across 1-2048 rows; cuBLAS beside them), [stream_exact_vs_plain]
+(the order-fixed kernels S1 stream_dense, S2 stream_mha and S3
+stream_rownorm against their plain versions, bit for bit, and their
+gradients), [decode] (gpt_mini at full width, BF16, through DecodeEngine:
+32 concurrent sessions with chunked prefill and prefix sharing bit-equal
+to the card's sequential greedy decode, evictions recovered bit for bit,
+256 tokens one at a time against one-shot, tokens/s, inter-token p50/p99,
+prefill ms, bytes moved and the busy share of a decode step),
+[decode_spec] (speculative decode with gpt_mini_draft, k = 4, bit-equal to
+plain greedy), [decode_http] (serve() with 2 replicas and /decode, and K3
+through /predict), [decode_lstm] (the char-RNN engine through K1's cluster
+route) and the S kernels' times; the full run ends with the same phases,
+and
+
     python3 chip_smoke.py --k6-split
 
 times K6 alone at the same three shapes, on its sm90 path and on its
@@ -122,7 +140,13 @@ K2's cluster route split by launch (chain, dp sum, dWh), and
     python3 chip_smoke.py --lstm-parts
 
 prints where a step of the two cluster kernels goes, in cycles per part
-(a build with the kernels' step marks).
+(a build with the kernels' step marks), and
+
+    python3 chip_smoke.py --profiler-pause
+
+counts how many of ten short launches torch.profiler keeps in one
+profile, with no pause after the profile's start and with the pause that
+every profile of this script takes (PROFILE_PAUSE_S), in turns for 60 s.
 
 K1 and K2 (bf16 at n a multiple of 64 up to 512: thread-block clusters
 with Wh resident, DSMEM exchange, wgmma), K3 (bf16) and K4-K7 (bf16,
@@ -145,6 +169,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -310,25 +335,88 @@ def device_kernels(events):
             and e.key not in SPAN_NAMES]
 
 
-def device_events(fn, reps):
-    """torch.profiler's per-kernel averages (CUDA only) over ``reps``
-    calls of ``fn()``, after a warm-up call. A profile that saw no device
-    time at all (the profiler now and then comes back empty) is taken
-    again, up to three times in all; then the run fails rather than
-    report a time of zero."""
+# torch.profiler loses launches issued just after its start on the card:
+# a short window issued just after the start comes back
+# with launches missing, and now and then with none. The pause after the
+# start below keeps them all (``--profiler-pause`` counts them, with and
+# without it)
+PROFILE_PAUSE_S = 0.02
+# profiles taken by profiled() in this run, and how many of them saw no
+# device time and were taken again (the [profiler] line)
+PROFILES = {"taken": 0, "empty": 0}
+
+
+def profiled(body, cpu=False, attempts=5):
+    """``body()`` under torch.profiler (the card's activity, and the
+    host's with ``cpu``): ``(prof, kernels, wall_ms)``, where ``kernels``
+    are the profile's device work (device_kernels) and ``wall_ms`` is
+    body's host-clock time. The host waits PROFILE_PAUSE_S after the
+    profile starts and before it stops, so that no launch of body falls
+    before the start on the card's clock; a profile that still saw no
+    device time is taken again (body runs again), up to ``attempts`` in
+    all, and then the run fails rather than report a time of zero."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            time.sleep(PROFILE_PAUSE_S)
+            t0 = time.perf_counter()
+            body()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            time.sleep(PROFILE_PAUSE_S)
+        PROFILES["taken"] += 1
+        kernels = device_kernels(prof.key_averages())
+        if sum(e.self_device_time_total for e in kernels) > 0:
+            return prof, kernels, wall_ms
+        PROFILES["empty"] += 1
+    raise SmokeFailure(
+        f"the profiler saw no device time in {attempts} profiles")
+
+
+def phase_profiler_pause(seconds=60.0):
+    """How many of ten launches of a short kernel (an in-place add over
+    2^18 f32) torch.profiler keeps in one profile, with no pause after
+    its start and with PROFILE_PAUSE_S, in turns for ``seconds``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.zeros(1 << 18, device="cuda")
+    x.add_(1.0)
+    torch.cuda.synchronize()
+
+    def kept(pause):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(pause)
+            for _ in range(10):
+                x.add_(1.0)
+            torch.cuda.synchronize()
+            time.sleep(pause)
+        return sum(e.count for e in device_kernels(prof.key_averages()))
+    runs = {0.0: [], PROFILE_PAUSE_S: []}
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for pause, counts in runs.items():
+            counts.append(kept(pause))
+    for pause, counts in runs.items():
+        phase("profiler_pause", pause_s=pause, profiles=len(counts),
+              launches_each=10, empty=counts.count(0),
+              short=sum(k < 10 for k in counts),
+              kept_mean=f"{statistics.mean(counts):.4f}")
+
+
+def device_events(fn, reps):
+    """torch.profiler's per-kernel averages (CUDA only) over ``reps``
+    calls of ``fn()``, after a warm-up call (profiled)."""
+    import torch
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = device_kernels(prof.key_averages())
-        if sum(e.self_device_time_total for e in events) > 0:
-            return events
-    raise SmokeFailure("the profiler saw no device time in three profiles")
+
+    def body():
+        for _ in range(reps):
+            fn()
+    return profiled(body)[1]
 
 
 def device_ms_per_call(fn, reps=20):
@@ -1380,20 +1468,12 @@ def profile_steps(net, data, names_to=None):
     With ``names_to`` (a file name), every kernel's name, kind, launches
     and device ms a step go to profile_out/<names_to> (beside this script)
     as JSON."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    def body():
         for ds in data:
             net.fit_batch(ds)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = device_kernels(prof.key_averages())
+    _, kernels, wall_ms = profiled(body, cpu=True)
     dev_us = {e.key: e.self_device_time_total for e in kernels}
     n = len(data)
-    check(sum(dev_us.values()) > 0, "the profiler saw no device time")
     flash_us = sum(v for k, v in dev_us.items() if "flash_fwd_kernel" in k)
     groups, listing = {}, []
     for e in kernels:
@@ -2314,23 +2394,16 @@ def resnet_profile(net, data):
     """torch.profiler over len(data) fit_batch steps: device time and
     kernels per step by kind, and the busy share of the wall time. The
     K4-K7 launches the profiler saw must equal the launch counters'."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     from deeplearning4j_tpu_torch.ops import fused_block as fb
     from deeplearning4j_tpu_torch.ops import registry
-    torch.cuda.synchronize()
-    registry.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def body():
+        registry.reset_launches()   # counts of the profile that is kept
         for ds in data:
             net.fit_batch(ds)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = device_kernels(prof.key_averages())
+    _, kernels, wall_ms = profiled(body, cpu=True)
     n = len(data)
     total = sum(e.self_device_time_total for e in kernels)
-    check(total > 0, "the profiler saw no device time")
     # bwd_stats_kernel before stats_kernel, and K4's, K5's and K6's sm90
     # epilogues (BwdStatsEpi before K4's FwdStatsEpi) before the mainloop's
     # name, which the rest of K7's passes carry: the first name found wins
@@ -3788,19 +3861,9 @@ def profile_call(fn, steps):
     """torch.profiler over ``fn()`` (``steps`` train steps): device ms,
     kernels and CUDA-graph launches a step, and the device's busy share
     of the host-clock wall time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof, kernels, wall_ms = profiled(fn, cpu=True)
     avgs = prof.key_averages()
-    kernels = device_kernels(avgs)
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    check(dev_ms > 0, "the profiler saw no device time in the replays")
     graphs = sum(e.count for e in avgs if e.key == "cudaGraphLaunch")
     return {"prof_device_ms_per_step": f"{dev_ms / steps:.3f}",
             "prof_wall_ms_per_step": f"{wall_ms / steps:.3f}",
@@ -5353,18 +5416,8 @@ def profile_kernels(fn, steps, top=6):
     """torch.profiler over ``fn()``: the device's busy share of the host
     clock, device ms a step, and the ``top`` kernels by device time (ms a
     step, by kind)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = device_kernels(prof.key_averages())
+    _, kernels, wall_ms = profiled(fn, cpu=True)
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    check(dev_ms > 0, "the profiler saw no device time")
     by_kind = {}
     for e in kernels:
         k = kernel_kind(e.key)
@@ -5525,8 +5578,6 @@ def phase_observability(make=None, corpus=None):
     flight recorder installed (tracer on), in turns;
     a torch.profiler trace of an eager epoch in which the fit loop's span
     names appear (profile_out/profiler_trace.json)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     from deeplearning4j_tpu_torch import zoo
     from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
     from deeplearning4j_tpu_torch.observability import flightrec
@@ -5584,11 +5635,9 @@ def phase_observability(make=None, corpus=None):
             out[f"{mode}_flight_overhead"] = \
                 f"{fmed['installed'] / fmed['not'] - 1:+.4f}"
             if mode == "eager":
-                torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
-                    net.fit(ListDataSetIterator(mem[:4]), epochs=1, **kw)
-                    torch.cuda.synchronize()
+                prof = profiled(lambda: net.fit(
+                    ListDataSetIterator(mem[:4]), epochs=1, **kw),
+                    cpu=True)[0]
                 names = {e.key for e in prof.key_averages()}
                 spans = sorted(n for n in ("data_wait", "host_dispatch",
                                            "device_step") if n in names)
@@ -6230,6 +6279,732 @@ def phase_slice14():
     phase_remat()
 
 
+# ------------------------------------------------------------------ slice 15
+# [stream_invariance]: row counts, and the widths of gpt_mini's LayerNorm
+# rows and head softmax rows
+SI_ROWS = (1, 8, 64, 2048)
+SI_WIDTH, SI_V = 256, 80
+
+
+def rows_moved(fn, x):
+    """How fn's output rows move with the number of rows it is given:
+    fn(x[:R]) against fn(x)[:R] for R in SI_ROWS, bit for bit. Returns
+    {R: (rows that differ, max abs difference)}."""
+    import torch
+    full = fn(x)
+    out = {}
+    for R in SI_ROWS:
+        got = fn(x[:R].clone())
+        diff = (got != full[:R]).reshape(R, -1).any(dim=1)
+        out[R] = (int(diff.sum()),
+                  float((got - full[:R]).abs().max()))
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_stream_invariance():
+    """Whether PyTorch's own ops on the streaming path keep their bits on
+    the card whatever the number of rows (1, 8, 64, 2048): LayerNorm's row
+    statistics at width 256 (nn/layers/attention.py::_layer_norm) and the
+    head's softmax at V = 80, in the 2-D and the [b, t, f] layouts the path
+    gives them; GELU (elementwise) beside them. Also reads torch.matmul
+    (cuBLAS) at the projection shape [R, 256] x [256, 1024], the product
+    the order-fixed kernel S1 replaces. Returns {op: moved?}."""
+    import torch
+    from deeplearning4j_tpu_torch.nn.layers import attention as natt
+    from deeplearning4j_tpu_torch.ops import activations
+    g = torch.Generator(device="cpu").manual_seed(SEED + 15)
+    n = max(SI_ROWS)
+    x = (torch.randn(n, SI_WIDTH, generator=g) * 3.0).cuda()
+    lg = (torch.randn(SI_WIDTH, generator=g) * 0.1 + 1.0).cuda()
+    lb = (torch.randn(SI_WIDTH, generator=g) * 0.1).cuda()
+    z = (torch.randn(n, SI_V, generator=g) * 4.0).cuda()
+    W = (torch.randn(SI_WIDTH, 4 * SI_WIDTH, generator=g) * 0.05).cuda()
+    softmax = activations.get("softmax")
+    gelu = activations.get("gelu")
+    ops = {
+        "layernorm_2d": (lambda a: natt._layer_norm(a, lg, lb, 1e-5), x),
+        "layernorm_3d": (lambda a: natt._layer_norm(a[:, None], lg, lb,
+                                                    1e-5)[:, 0], x),
+        "softmax_2d": (softmax, z),
+        "softmax_3d": (lambda a: softmax(a[:, None])[:, 0], z),
+        "gelu": (gelu, x),
+        "matmul_cublas": (lambda a: torch.matmul(a, W), x),
+    }
+    moved = {}
+    for name, (fn, arg) in ops.items():
+        with torch.inference_mode():
+            res = rows_moved(fn, arg)
+        moved[name] = any(d for d, _ in res.values())
+        phase("stream_invariance", op=name, moved=moved[name],
+              **{f"rows{R}": f"{d}/{e:.3g}" for R, (d, e) in res.items()})
+    return moved
+
+
+# [stream_exact_vs_plain] holds S1-S3 to their plain versions bit for bit:
+# the same products and sums in the same order, each rounded on its own,
+# the same correctly rounded division and square root, and on the card the
+# plain version's exp is the same expf as S2's.
+# gpt_mini at full width (vocab 80, width 256, 4 blocks of 4 heads, dh 64,
+# cache 256) and its draft (width 128, 2 blocks of 2 heads)
+DEC_V, DEC_W, DEC_L, DEC_H, DEC_C = 80, 256, 4, 4, 256
+
+
+def stream_cases():
+    """(name, kernel, plain, args) at the decode path's shapes: a step of
+    32 rows and a 16-token chunk of 4 rows, each of the four projections
+    and the head; attention at those and at a 256-token one-shot prefill;
+    the block's LayerNorm."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import stream_exact as se
+    g = torch.Generator(device="cpu").manual_seed(SEED + 150)
+
+    def r(*shape, s=1.0):
+        return (torch.randn(*shape, generator=g) * s).cuda()
+
+    W = DEC_W
+    cases = []
+    for rows in (32, 64):
+        x = r(rows, W)
+        for f, n in ((W, W), (W, 4 * W), (4 * W, W), (W, DEC_V)):
+            xi = x if f == W else r(rows, f)
+            cases.append((f"dense_{rows}x{f}x{n}", se.KERNEL_DENSE,
+                          (xi, r(f, n, s=f ** -0.5), r(n, s=0.1))))
+        cases.append((f"rownorm_{rows}x{W}", se.KERNEL_NORM,
+                      (r(rows, W, s=3.0), r(W, s=0.1) + 1.0, r(W, s=0.1),
+                       1e-5)))
+    for b, t in ((32, 1), (4, 16), (1, DEC_C)):
+        hd = W // DEC_H
+        pos = torch.randint(0, DEC_C - t + 1, (b,), generator=g)
+        if t == DEC_C:
+            pos.zero_()
+        cases.append((f"mha_b{b}_t{t}", se.KERNEL_MHA,
+                      (r(b, t, DEC_H, hd), r(b, DEC_C, DEC_H, hd),
+                       r(b, DEC_C, DEC_H, hd),
+                       pos.to(torch.int32).cuda())))
+    return cases
+
+
+def phase_stream_exact_vs_plain():
+    """S1-S3 against their plain versions on the same CUDA inputs at the
+    decode path's shapes. Returns {kernel: worst max abs error}."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import registry
+    from deeplearning4j_tpu_torch.ops import stream_exact as se
+    plain = {se.KERNEL_DENSE: se.stream_dense_torch,
+             se.KERNEL_MHA: se.stream_mha_torch,
+             se.KERNEL_NORM: se.stream_rownorm_torch}
+    worst = {}
+    with torch.inference_mode():
+        for name, kern, args in stream_cases():
+            got = registry.get(kern, "cuda")(*args)
+            want = plain[kern](*args)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            bits = bool(torch.equal(got, want))
+            phase("stream_exact_vs_plain", case=name,
+                  max_abs_err=f"{err:.3g}", bit_equal=bits)
+            check(bits, f"{name}: {kern} differs from its plain version "
+                  f"(max {err:.3g}); it must agree bit for bit")
+            worst[kern] = max(worst.get(kern, 0.0), err)
+    return worst
+
+
+def dec_net(dtype="BF16", device="cuda", seed=SEED, draft=False):
+    """gpt_mini at full width (or its draft), seeded, BF16 by default."""
+    from deeplearning4j_tpu_torch import zoo
+    kw = dict(vocab_size=DEC_V, max_len=DEC_C, seed=seed,
+              dtype=getattr(zoo, dtype), device=device)
+    if draft:
+        return zoo.gpt_mini_draft(**kw)
+    return zoo.gpt_mini(width=DEC_W, n_layers=DEC_L, n_heads=DEC_H, **kw)
+
+
+def dec_ids(n, seed):
+    return [int(i) for i in np.random.default_rng(seed).integers(0, DEC_V, n)]
+
+
+def dec_onehot(ids):
+    return np.eye(DEC_V, dtype=np.float32)[np.asarray(ids)]
+
+
+def token_by_token_vs_one_shot(net, n=None, seed=SEED + 151):
+    """rnn_time_step over n tokens (default the whole cache) one at a time
+    against one call with all n, bit for bit. Returns (positions that
+    differ, max abs diff)."""
+    import torch
+    ids = dec_ids(n or DEC_C, seed)
+    net.rnn_clear_previous_state()
+    full = net.rnn_time_step(dec_onehot(ids)[None])[0]
+    net.rnn_clear_previous_state()
+    steps = torch.stack([net.rnn_time_step(dec_onehot([i]))[0]
+                         for i in ids])
+    net.rnn_clear_previous_state()
+    torch.cuda.synchronize()
+    diff = (steps != full).any(dim=1)
+    return int(diff.sum()), float((steps - full).abs().max())
+
+
+# [decode]: 32 sessions, prompts of 5-200 tokens (half of those past the
+# prefix open with one shared 64-token system prompt), 32 tokens each
+DEC_SESSIONS, DEC_TOKENS, DEC_SHARED = 32, 32, 64
+DEC_PROMPTS = [int(t) for t in np.linspace(5, 200, DEC_SESSIONS)]
+# the pool of the eviction check: 8 sessions of ~100 tokens in 24 pages
+DEC_EVICT_SESSIONS, DEC_EVICT_PAGES, DEC_EVICT_STEPS = 8, 24, 6
+# [decode_spec]: draft gpt_mini_draft (width 128, 2 blocks of 2 heads)
+SPEC_K, SPEC_SESSIONS = 4, 4
+# [decode_lstm]: the char-RNN engine's sessions
+LSTM_SESSIONS, LSTM_TOKENS = 8, 16
+
+
+def dec_prompt(i, n):
+    """Session i's prompt of n tokens: sessions of even index past the
+    shared prefix open with it."""
+    ids = dec_ids(n, SEED + 300 + i)
+    if i % 2 == 0 and n > DEC_SHARED:
+        ids[:DEC_SHARED] = dec_ids(DEC_SHARED, SEED + 299)
+    return ids
+
+
+def greedy_reference(net, ids, n):
+    """Sequential greedy decode through rnn_time_step on the net's own
+    device: (tokens, the logits row before each token and after the last)
+    as host arrays."""
+    import torch
+    net.rnn_clear_previous_state()
+    try:
+        with torch.inference_mode():
+            rows = [net.rnn_time_step(dec_onehot(ids)[None])[0, -1]
+                    .float().cpu().numpy()]
+            toks = []
+            for _ in range(n):
+                toks.append(int(np.argmax(rows[-1])))
+                rows.append(net.rnn_time_step(dec_onehot([toks[-1]]))[0]
+                            .float().cpu().numpy())
+        return toks, rows
+    finally:
+        net.rnn_clear_previous_state()
+
+
+def run_threads(fn, args):
+    """fn(*a) for each a in args, one thread each; returns the results in
+    order, and raises if any thread failed."""
+    out, errs = [None] * len(args), []
+
+    def run(i, a):
+        try:
+            out[i] = fn(*a)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errs.append(f"{a[0]}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=run, args=(i, a))
+               for i, a in enumerate(args)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    check(not any(t.is_alive() for t in threads), "a session thread hung")
+    check(not errs, "; ".join(errs))
+    return out
+
+
+def leaf_bytes(eng):
+    """Bytes of one session's cache leaves (the host rows a decode ticket
+    carries to the card and back)."""
+    return sum(int(np.prod(s)) * np.dtype(d).itemsize for s, d in
+               zip(eng.forward.carry_row_shapes, eng.forward.carry_np_dtypes))
+
+
+def profile_forward(fn, reps=5):
+    """Wall ms per call of fn() and the card's time in it by the profiler:
+    (wall_ms, kernel_ms, copy_ms), each per call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+
+    def body():
+        for _ in range(reps):
+            fn()
+    _, events, wall = profiled(body)
+    total = sum(e.self_device_time_total for e in events) / 1e3 / reps
+    copy = sum(e.self_device_time_total for e in events
+               if "memcpy" in e.key.lower()
+               or "memset" in e.key.lower()) / 1e3 / reps
+    return wall / reps, total - copy, copy
+
+
+def decode_rates(eng, tag, sessions, prompt_len=32, tokens=None):
+    """Prefill ``sessions`` sessions, then decode ``tokens`` steps in each
+    from its own thread: tokens/s of the decode and the inter-token
+    times (ms) of every step."""
+    tokens = tokens or DEC_TOKENS
+    prompts = [dec_ids(prompt_len, SEED + 400 + i) for i in range(sessions)]
+    sids = [f"{tag}{i}" for i in range(sessions)]
+    first = run_threads(lambda s, p: eng.prefill(s, p), list(zip(sids,
+                                                                 prompts)))
+
+    def steps(sid, logits):
+        times = []
+        for _ in range(tokens):
+            t0 = time.perf_counter()
+            logits = eng.step(sid, int(np.argmax(logits)))
+            times.append((time.perf_counter() - t0) * 1e3)
+        return times
+
+    t0 = time.perf_counter()
+    times = run_threads(steps, list(zip(sids, first)))
+    wall = time.perf_counter() - t0
+    for s in sids:
+        eng.close_session(s)
+    flat = sorted(t for ts in times for t in ts)
+    return (sessions * tokens / wall,
+            flat[len(flat) // 2], flat[min(len(flat) - 1,
+                                           int(0.99 * len(flat)))])
+
+
+def phase_decode():
+    """gpt_mini at full width (BF16 policy) through DecodeEngine: 32
+    concurrent sessions (prompts of 5-200 tokens, chunked prefill and
+    prefix sharing on) bit-equal to the card's sequential greedy decode;
+    a small pool's evictions recovered bit for bit; token by token against
+    one-shot over 256 tokens; the card against the plain CPU path; then
+    tokens/s at 1, 8 and 32 sessions, inter-token p50/p99, prefill ms,
+    bytes moved and the card's busy share per decode step. Returns
+    (net, {kernel: launches of the 32-session run})."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import registry
+    from deeplearning4j_tpu_torch.ops import stream_exact as se
+    from deeplearning4j_tpu_torch.serving import DecodeEngine, ServingStats
+
+    net = dec_net("BF16")
+    tbt_diff, tbt_err = token_by_token_vs_one_shot(net)
+    check(tbt_diff == 0, f"token by token vs one-shot over {DEC_C} tokens: "
+          f"{tbt_diff} positions differ (max {tbt_err:.3g})")
+    prompts = [dec_prompt(i, n) for i, n in enumerate(DEC_PROMPTS)]
+    t0 = time.perf_counter()
+    refs = [greedy_reference(net, p, DEC_TOKENS) for p in prompts]
+    ref_s = time.perf_counter() - t0
+
+    stats = ServingStats()
+    eng = DecodeEngine(net, n_pages=1024, stats=stats)
+    try:
+        # the system prompt's first user: its pages are in the pool when
+        # the 32 sessions start, so the sessions that open with it adopt
+        # them
+        eng.prefill("system", dec_prompt(0, DEC_SHARED + 1))
+        torch.cuda.synchronize()
+        batches0 = stats.batches
+        registry.reset_launches()
+        t0 = time.perf_counter()
+        got = run_threads(lambda s, p: eng.generate(s, p, DEC_TOKENS),
+                          [(f"s{i}", p) for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = registry.launches()
+        d = eng.describe()
+        batches = stats.batches - batches0
+    finally:
+        eng.stop()
+    bad = [i for i, (g, r) in enumerate(zip(got, refs)) if g != r[0]]
+    check(not bad, f"sessions {bad} differ from the sequential greedy "
+          f"decode on the card")
+    per_forward = {se.KERNEL_DENSE: 6 * DEC_L + 1, se.KERNEL_MHA: DEC_L,
+                   se.KERNEL_NORM: 2 * DEC_L}
+    for kern, n in per_forward.items():
+        check(launches.get(kern, 0) == n * batches,
+              f"{kern}: {launches.get(kern, 0)} launches in {batches} "
+              f"forwards, expected {n} a forward")
+    check(launches.get("flash_attn_fwd", 0) == 0,
+          "the decode path launched flash_attn_fwd")
+    check(d["prefix_hits"] > 0 and d["chunked_prefills"] > 0,
+          f"sharing or chunking did not run: {d}")
+
+    # a pool too small for its sessions: evictions re-prefilled bit for bit
+    ev = DecodeEngine(net, n_pages=DEC_EVICT_PAGES)
+    try:
+        ev_prompts = [dec_ids(96 + 3 * i, SEED + 500 + i)
+                      for i in range(DEC_EVICT_SESSIONS)]
+        ev_refs = [greedy_reference(net, p, DEC_EVICT_STEPS)
+                   for p in ev_prompts]
+        logits = [ev.prefill(f"e{i}", p) for i, p in enumerate(ev_prompts)]
+        ev_bits = all(np.array_equal(g, r[1][0])
+                      for g, r in zip(logits, ev_refs))
+        for k in range(DEC_EVICT_STEPS):
+            for i, r in enumerate(ev_refs):
+                logits[i] = ev.step(f"e{i}", r[0][k])
+                ev_bits &= bool(np.array_equal(logits[i], r[1][k + 1]))
+        evictions, reprefills = ev.pool.evictions, ev.reprefills
+    finally:
+        ev.stop()
+    check(ev_bits, "logits after an eviction differ from the sequential "
+          "reference")
+    check(evictions > 0 and reprefills > 0,
+          f"the small pool did not evict ({evictions}, {reprefills})")
+
+    # the card against the plain CPU path on one short session (F32 work:
+    # the streaming path runs in f32 under either policy; only exp may
+    # differ in its last bit, and PyTorch's GELU and softmax on the CPU)
+    cpu = cpu_copy(net)
+    short = dec_ids(12, SEED + 600)
+    card_rows = greedy_reference(net, short, 3)[1]
+    cpu_rows = greedy_reference(cpu, short, 3)[1]
+    cpu_err = max(float(np.abs(a - b).max())
+                  for a, b in zip(card_rows, cpu_rows))
+    check(cpu_err <= GPT_F32_TOL, f"decode logits card vs plain CPU path: "
+          f"{cpu_err:.3e} > {GPT_F32_TOL}")
+
+    # rates, latency, prefill, bytes and the busy share of a decode step
+    eng = DecodeEngine(net, n_pages=1024)
+    try:
+        rates = {n: decode_rates(eng, f"r{n}_", n) for n in (1, 8, 32)}
+        prefill_ms = {}
+        for n in (16, 200):
+            p = dec_ids(n, SEED + 700 + n)
+            t0 = time.perf_counter()
+            eng.prefill(f"pf{n}", p)
+            prefill_ms[n] = (time.perf_counter() - t0) * 1e3
+            eng.close_session(f"pf{n}")
+        rows = 32
+        for i in range(rows):
+            eng.prefill(f"b{i}", dec_ids(32, SEED + 800 + i))
+        leaves = [eng.pool.get(f"b{i}") for i in range(rows)]
+        feats = [np.concatenate([dec_onehot([1])[None]] * rows)] + [
+            np.concatenate([lv[j] for lv in leaves])
+            for j in range(eng.forward.n_carries)]
+        step_ms, kern_ms, copy_ms = profile_forward(
+            lambda: eng.forward(feats))
+        per_row = leaf_bytes(eng)
+    finally:
+        eng.stop()
+    step_bytes = 2 * rows * per_row
+    phase("decode", model=f"gpt_mini(vocab={DEC_V},width={DEC_W},"
+          f"blocks={DEC_L},heads={DEC_H},cache={DEC_C},BF16)",
+          sessions=DEC_SESSIONS, prompts=f"{DEC_PROMPTS[0]}-"
+          f"{DEC_PROMPTS[-1]}", tokens=DEC_TOKENS,
+          bit_equal_sequential=True, token_by_token_256_bit_equal=True,
+          eviction_bit_equal=ev_bits, evictions=evictions,
+          reprefills=reprefills, card_vs_cpu=f"{cpu_err:.3e}",
+          cpu_tol=GPT_F32_TOL, run_s=f"{wall:.2f}",
+          reference_s=f"{ref_s:.2f}", forwards=batches,
+          prefill_chunks=d["prefill_chunks"],
+          chunked_prefills=d["chunked_prefills"],
+          interleaved_prefills=d["interleaved_prefills"],
+          prefix_hits=d["prefix_hits"], shared_tokens=d["shared_tokens"],
+          dedup_ratio=d["dedup_ratio"],
+          tokens_per_s=json.dumps({n: round(r[0], 2)
+                                   for n, r in rates.items()}),
+          inter_token_p50_ms=json.dumps({n: round(r[1], 3)
+                                         for n, r in rates.items()}),
+          inter_token_p99_ms=json.dumps({n: round(r[2], 3)
+                                         for n, r in rates.items()}),
+          prefill_ms=json.dumps({n: round(t, 3)
+                                 for n, t in prefill_ms.items()}),
+          step_rows=rows, step_ms=f"{step_ms:.3f}",
+          step_kernel_ms=f"{kern_ms:.3f}", step_copy_ms=f"{copy_ms:.3f}",
+          step_busy_share=f"{(kern_ms + copy_ms) / step_ms:.4f}",
+          step_bytes_each_way=step_bytes // 2,
+          leaf_bytes_per_row=per_row,
+          launches=json.dumps({k: launches.get(k, 0)
+                               for k in per_forward}),
+          launches_per_forward=json.dumps(per_forward))
+    return net, {k: launches.get(k, 0) for k in per_forward}
+
+
+def phase_decode_spec(net):
+    """Speculative decode with gpt_mini_draft proposing k = 4 tokens a
+    round: the streams are bit-equal to plain greedy decode; the
+    acceptance rate and the target's forwards and launches per token."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import registry
+    from deeplearning4j_tpu_torch.ops import stream_exact as se
+    from deeplearning4j_tpu_torch.serving import DecodeEngine, ServingStats
+    draft = dec_net("BF16", seed=SEED + 1, draft=True)
+    prompts = [dec_ids(20 + 30 * i, SEED + 900 + i)
+               for i in range(SPEC_SESSIONS)]
+    refs = [greedy_reference(net, p, DEC_TOKENS)[0] for p in prompts]
+    stats = ServingStats()
+    eng = DecodeEngine(net, n_pages=1024, speculative=SPEC_K,
+                       draft_net=draft, stats=stats)
+    try:
+        registry.reset_launches()
+        t0 = time.perf_counter()
+        got = run_threads(lambda s, p: eng.generate(s, p, DEC_TOKENS),
+                          [(f"k{i}", p) for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = registry.launches()
+        d = eng.describe()
+    finally:
+        eng.stop()
+    check(got == refs, "the speculative streams differ from plain greedy")
+    check(d["spec_rounds"] > 0, f"no speculative round ran: {d}")
+    tokens = SPEC_SESSIONS * DEC_TOKENS
+    phase("decode_spec", draft="gpt_mini_draft(width=128,blocks=2,heads=2,"
+          "BF16)", k=SPEC_K, sessions=SPEC_SESSIONS, tokens=DEC_TOKENS,
+          bit_equal_plain=True, rounds=d["spec_rounds"],
+          proposed=d["spec_proposed"], accepted=d["spec_accepted"],
+          acceptance=f"{d['spec_accepted'] / max(1, d['spec_proposed']):.4f}",
+          tokens_per_target_step=d["spec_accept_tokens_per_step"],
+          target_forwards_per_token=f"{stats.batches / tokens:.4f}",
+          draft_truncations=d["spec_draft_truncations"],
+          stream_mha_launches_per_token=
+          f"{launches.get(se.KERNEL_MHA, 0) / tokens:.3f}",
+          tokens_per_s=f"{tokens / wall:.2f}")
+
+
+def phase_decode_http(net):
+    """serve(net, decode_engine=...) with 2 replicas end to end: four
+    clients /decode generate over HTTP (bit-equal to the sequential
+    reference), a step for an unknown session is recovered from its
+    history or answered 404, and /predict on the same server runs K3."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import registry
+    from deeplearning4j_tpu_torch.serving import DecodeEngine, serve
+    prompts = [dec_ids(10 + 7 * i, SEED + 1000 + i) for i in range(4)]
+    refs = [greedy_reference(net, p, 16) for p in prompts]
+    srv = serve(net, port=0, warmup=False, replicas=2, max_batch=32,
+                decode_engine=DecodeEngine(net, replicas=2, n_pages=1024))
+    try:
+        registry.reset_launches()
+
+        def client(sid, p):
+            status, body = post_json(srv.url + "/decode",
+                                     {"op": "generate", "sid": sid,
+                                      "ids": p, "n_tokens": 16})
+            check(status == 200, f"/decode answered {status}")
+            return body["tokens"]
+
+        t0 = time.perf_counter()
+        got = run_threads(client, [(f"h{i}", p)
+                                   for i, p in enumerate(prompts)])
+        wall = time.perf_counter() - t0
+        check(got == [r[0] for r in refs], "/decode generate differs from "
+              "the sequential reference")
+        toks, rows = refs[0]
+        status, body = post_json(srv.url + "/decode",
+                                 {"op": "step", "sid": "moved",
+                                  "ids": prompts[0], "token": toks[0]})
+        check(status == 200 and body["recovered"] and np.array_equal(
+            np.asarray(body["logits"], np.float32), rows[1]),
+            "a recovered step differs from the reference")
+        try:
+            post_json(srv.url + "/decode", {"op": "step", "sid": "ghost",
+                                            "token": 1})
+            code = 200
+        except urllib.error.HTTPError as e:
+            code = e.code
+        check(code == 404, f"an unknown session answered {code}, not 404")
+        x = dec_onehot(dec_ids(2 * 64, SEED + 1100)).reshape(2, 64, DEC_V)
+        status, body = post_json(srv.url + "/predict",
+                                 {"features": x.tolist()})
+        check(status == 200, f"/predict answered {status}")
+        torch.cuda.synchronize()
+        launches = registry.launches()
+        status, health = get_json(srv.url + "/healthz")
+        check(len(health["replicas"]) == 2 and "decode" in health,
+              f"/healthz: {health}")
+    finally:
+        srv.stop()
+    check(launches.get("flash_attn_fwd", 0) == DEC_L,
+          f"/predict launched flash_attn_fwd "
+          f"{launches.get('flash_attn_fwd', 0)} times, expected {DEC_L}")
+    check(launches.get("stream_mha", 0) > 0, "/decode ran no stream_mha")
+    phase("decode_http", replicas=2, clients=len(prompts), tokens=16,
+          bit_equal_sequential=True, recovered_step_bit_equal=True,
+          unknown_session=404, tokens_per_s=f"{64 / wall:.2f}",
+          launches=json.dumps({k: launches.get(k, 0) for k in (
+              "stream_dense", "stream_mha", "stream_rownorm",
+              "flash_attn_fwd")}))
+
+
+def phase_decode_lstm():
+    """The char-RNN (vocab 80, hidden 512, 2 layers, BF16) through the
+    decode engine: its carries (h, c) have no token axis, so it decodes
+    unpaged, through rnn_time_step's streaming K1 on the cluster route.
+    Fed the sequential reference's tokens from 8 threads, its logits are
+    held to PROB_TOL ([stream]'s limit) and said bit-equal or not."""
+    import torch
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.ops import registry
+    from deeplearning4j_tpu_torch.serving import DecodeEngine
+    net = zoo.char_rnn(seed=SEED)
+    prompts = [dec_ids(5 + 8 * i, SEED + 1200 + i)
+               for i in range(LSTM_SESSIONS)]
+    refs = [greedy_reference(net, p, LSTM_TOKENS) for p in prompts]
+    eng = DecodeEngine(net)
+    try:
+        registry.reset_launches()
+
+        def session(sid, p, ref):
+            toks, rows = ref
+            got = [eng.prefill(sid, p)]
+            for tok in toks:
+                got.append(eng.step(sid, tok))
+            return [float(np.abs(g - r).max()) for g, r in zip(got, rows)]
+
+        errs = run_threads(session, [(f"l{i}", p, r) for i, (p, r)
+                                     in enumerate(zip(prompts, refs))])
+        torch.cuda.synchronize()
+        launches = registry.launches()
+    finally:
+        eng.stop()
+    err = max(max(e) for e in errs)
+    check(err <= PROB_TOL, f"char-RNN engine vs sequential reference: "
+          f"{err:.3e} > {PROB_TOL}")
+    check(launches.get("lstm_fwd_sm90", 0) > 0
+          and launches.get("lstm_fwd_sm90") == launches.get("lstm_fwd"),
+          f"the char-RNN engine left K1's cluster route: {launches}")
+    phase("decode_lstm", model="char_rnn(vocab=80,hidden=512,layers=2,"
+          "BF16)", sessions=LSTM_SESSIONS, tokens=LSTM_TOKENS,
+          max_abs_err_vs_sequential=f"{err:.3e}", tol=PROB_TOL,
+          bit_equal=err == 0.0, lstm_fwd=launches.get("lstm_fwd", 0),
+          lstm_fwd_sm90=launches.get("lstm_fwd_sm90", 0))
+
+
+def stream_time_cases():
+    """(kernel, args, library call, flops, bytes) for the timing of each S
+    kernel at the decode step's shape (32 rows): the MLP's up projection,
+    the attention at random positions, the block's LayerNorm."""
+    import torch
+    import torch.nn.functional as F
+    g = torch.Generator(device="cpu").manual_seed(SEED + 160)
+    rows, W, hd = 32, DEC_W, DEC_W // DEC_H
+    r = lambda *s: torch.randn(*s, generator=g).cuda()  # noqa: E731
+    x, Wm, b = r(rows, W), r(W, 4 * W) * W ** -0.5, r(4 * W)
+    q, k, v = r(rows, 1, DEC_H, hd), r(rows, DEC_C, DEC_H, hd), \
+        r(rows, DEC_C, DEC_H, hd)
+    pos = torch.randint(5, DEC_C, (rows,), generator=g).to(torch.int32)
+    visible = int((pos + 1).sum())
+    pos = pos.cuda()
+    mask = (torch.arange(DEC_C, device="cuda")[None, :]
+            <= pos[:, None])[:, None, None, :]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ln_g, ln_b = r(W) * 0.1 + 1.0, r(W) * 0.1
+    return {
+        "stream_dense": ((x, Wm, b), lambda: torch.addmm(b, x, Wm),
+                         "torch.addmm", 2 * rows * W * 4 * W,
+                         4 * (rows * W + W * 4 * W + 4 * W + rows * 4 * W)),
+        "stream_mha": ((q, k, v, pos), lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask),
+            "torch.nn.functional.scaled_dot_product_attention(attn_mask)",
+            4 * DEC_H * hd * visible,
+            4 * (2 * rows * DEC_H * hd + 2 * DEC_H * hd * visible) + 4 * rows),
+        "stream_rownorm": ((x, ln_g, ln_b, 1e-5),
+                           lambda: F.layer_norm(x, (W,), ln_g, ln_b, 1e-5),
+                           "torch.nn.functional.layer_norm", 8 * rows * W,
+                           4 * (2 * rows * W + 2 * W)),
+    }
+
+
+def phase_times_stream(card, errs, launches):
+    """S1-S3 at the decode step's shapes beside their bounds, their plain
+    versions and one PyTorch call of the same function (the yardstick
+    only; the port never calls it). Returns the kernels' JSON entries."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import registry
+    from deeplearning4j_tpu_torch.ops import stream_exact as se
+    plain = {se.KERNEL_DENSE: se.stream_dense_torch,
+             se.KERNEL_MHA: se.stream_mha_torch,
+             se.KERNEL_NORM: se.stream_rownorm_torch}
+    entries = []
+    with torch.inference_mode():
+        for name, (args, lib, lib_name, flops, nbytes) in \
+                stream_time_cases().items():
+            kern = registry.get(name, "cuda")
+            run = lambda: kern(*args)  # noqa: E731
+            ms = cuda_ms_per_launch(run, reps=10)
+            plain_ms = cuda_ms(lambda: plain[name](*args), reps=3)
+            lib_ms = cuda_ms_per_launch(lib, reps=10)
+            # back to back these calls are issued more slowly than the card
+            # runs them: the profiler's device times, in turns, and the
+            # host's time to issue one call
+            dev, dev_lib = [], []
+            for _ in range(2):
+                dev.append(device_ms_per_call(run, reps=50)[0])
+                dev_lib.append(device_ms_per_call(lib, reps=50)[0])
+            dev_ms, dev_lib_ms = statistics.mean(dev), statistics.mean(dev_lib)
+            host_ms = host_ms_per_call(run)
+            bound_ms, bound_by = bound(flops, nbytes, "float32")
+            phase("times", kernel=name, route="cuda", card=json.dumps(card),
+                  ms=f"{ms:.4f}", device_ms=f"{dev_ms:.4f}",
+                  device_ms_readings=json.dumps([round(t, 5) for t in dev]),
+                  host_issue_ms=f"{host_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+                  library=lib_name, library_ms=f"{lib_ms:.4f}",
+                  library_device_ms=f"{dev_lib_ms:.4f}",
+                  library_device_ms_readings=json.dumps(
+                      [round(t, 5) for t in dev_lib]),
+                  device_roofline_share=f"{bound_ms / dev_ms:.4f}",
+                  bound_ms=f"{bound_ms:.5f}", bound_by=bound_by,
+                  flops=f"{flops:.4g}", bytes=f"{nbytes:.4g}",
+                  roofline_share=f"{bound_ms / ms:.4f}")
+            entries.append({
+                "name": name, "route": "cuda",
+                "source": "deeplearning4j_tpu_torch/ops/csrc/stream_exact.cu",
+                "replaces": ("none: deeplearning4j_tpu/nn/layers/attention.py"
+                             ":63 _dense_exact (XLA)" if name == "stream_dense"
+                             else "none: deeplearning4j_tpu/ops/attention.py"
+                             ":91 _causal_mha_exact (XLA)"
+                             if name == "stream_mha" else
+                             "none: deeplearning4j_tpu/nn/layers/attention."
+                             "py:52 _layer_norm (XLA)"),
+                "launches": launches.get(name, 0),
+                "max_abs_err": errs.get(name, 0.0), "ms": ms,
+                "device_ms": dev_ms, "host_issue_ms": host_ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": lib_ms,
+                "library_device_ms": dev_lib_ms})
+    return entries
+
+
+def stream_grads_vs_plain():
+    """Gradients through the S kernels' autograd Functions (a truncated
+    BPTT step through the streaming path) against autograd of their plain
+    versions, on the card: the largest error over FLASH_GRAD_TOL * (1 +
+    |want|)."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import stream_exact as se
+    g = torch.Generator(device="cpu").manual_seed(SEED + 170)
+    r = lambda *s: torch.randn(*s, generator=g).cuda()  # noqa: E731
+    cases = [(se.stream_dense_cuda, se.stream_dense_torch,
+              [r(4, 3, 64), r(64, 48) * 0.1, r(48)], ()),
+             (se.stream_rownorm_cuda, se.stream_rownorm_torch,
+              [r(4, 3, 64) * 3.0, r(64) * 0.1 + 1.0, r(64) * 0.1], (1e-5,)),
+             (se.stream_mha_cuda, se.stream_mha_torch,
+              [r(2, 3, 4, 16), r(2, 12, 4, 16), r(2, 12, 4, 16)],
+              (torch.tensor([0, 7], dtype=torch.int32, device="cuda"),))]
+    worst = 0.0
+    for fn, ref, args, extra in cases:
+        grads = []
+        for f in (fn, ref):
+            leaves = [a.clone().requires_grad_() for a in args]
+            out = f(*leaves, *extra)
+            w = torch.cos(torch.arange(out.numel(), device="cuda",
+                                       dtype=torch.float32)).reshape(
+                out.shape)
+            grads.append(torch.autograd.grad((out * w).sum(), leaves))
+        for got, want in zip(*grads):
+            ratio = float(((got - want).abs()
+                           / (FLASH_GRAD_TOL * (1.0 + want.abs()))).max())
+            check(ratio <= 1.0, f"{fn.__name__} gradients vs autograd of "
+                  f"its plain version: {ratio:.3f} of the tolerance")
+            worst = max(worst, ratio)
+    phase("stream_grads_vs_plain", worst_ratio=f"{worst:.4f}",
+          tol=FLASH_GRAD_TOL)
+
+
+def phase_slice15(card):
+    """The phases of slice 15, in order. Returns the S kernels' JSON
+    entries."""
+    phase_stream_invariance()
+    errs = phase_stream_exact_vs_plain()
+    stream_grads_vs_plain()
+    net, launches = phase_decode()
+    phase_decode_spec(net)
+    phase_decode_http(net)
+    phase_decode_lstm()
+    return phase_times_stream(card, errs, launches)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6253,7 +7028,8 @@ def main() -> int:
             ("--lstm-parts", phase_lstm_parts),
             ("--k7-split", lambda: phase_split("fused_block_bwd_apply")),
             ("--k6-split", lambda: phase_split("fused_block_bwd_stats")),
-            ("--fwd-split", phase_fwd_split)):
+            ("--fwd-split", phase_fwd_split),
+            ("--profiler-pause", phase_profiler_pause)):
         if flag in sys.argv[1:]:
             smi = subprocess.run(["nvidia-smi",
                                   "--query-gpu=name,power.limit",
@@ -6287,6 +7063,11 @@ def main() -> int:
             only()
             print(ok_line, flush=True)
             return 0
+    if "--slice15" in sys.argv[1:]:
+        kernels = phase_slice15(phase_device())
+        print(json.dumps({"kernels": kernels}), flush=True)
+        print(ok_line, flush=True)
+        return 0
 
     card = phase_device()
     errs = {"lstm_fwd": phase_kernel_vs_plain(),
@@ -6315,6 +7096,8 @@ def main() -> int:
     phase_slice13()
     phase_graph_layers()
     phase_remat()
+    kernels += phase_slice15(card)
+    phase("profiler", pause_s=PROFILE_PAUSE_S, **PROFILES)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(ok_line, flush=True)
     return 0

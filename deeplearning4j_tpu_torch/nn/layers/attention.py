@@ -10,15 +10,18 @@ Two arithmetic paths, as in the JAX package:
   formulation on the CPU, the hand-written flash kernel K3 on the card,
   differentiated through its recompute backward. The features mask is
   ignored here, as in the JAX package.
-- **streaming** (``rnn_time_step`` and truncated BPTT): f32 projections
-  (``_dense_exact``), f32 LayerNorm and ``causal_mha_exact`` against a KV
-  cache ("k"/"v" [b, C, heads, dh] f32, allocated once at
-  ``max_cache_len``) with each row's absolute position ("pos" [b] int32).
-  Plain PyTorch on either device; the JAX package runs it in XLA, never
-  in a kernel. The JAX package lowers this path as fused reduces so that
-  token-by-token decode is bit-identical to a one-shot prefill; here it is
-  ``torch.matmul`` in f32 and agrees with the JAX package to f32
-  tolerance (the decode engine that needs bit-identity is not ported).
+- **streaming** (``rnn_time_step``, truncated BPTT and the decode engine,
+  serving/decode.py): f32 projections (``_dense_exact``), f32 LayerNorm
+  (``_layer_norm_exact``) and ``decode_mha`` against a KV cache
+  ("k"/"v" [b, C, heads, dh] f32, allocated once at ``max_cache_len``)
+  with each row's absolute position ("pos" [b] int32). Each of the three
+  sums its reduced axis in one fixed order whatever the number of rows,
+  the query length or the position (ops/stream_exact.py: plain PyTorch
+  loops on the CPU, the order-fixed kernels S1-S3 on the card), so a
+  token decoded one at a time has the bits it has in a one-shot or
+  chunked prefill or in a padded bucket, as the JAX package's fused
+  reduces give it there. Against the JAX package this path agrees to f32
+  tolerance: both are exact in their own order, and the orders differ.
 
 Rounding order follows the JAX package exactly: LayerNorm in f32, then a
 cast to the compute dtype; residual adds in the compute dtype; GELU on
@@ -36,6 +39,7 @@ from deeplearning4j_tpu_torch.nn.layers.recurrent import RnnOutputLayerImpl
 from deeplearning4j_tpu_torch.ops import activations as activations_mod
 from deeplearning4j_tpu_torch.ops import attention as att
 from deeplearning4j_tpu_torch.ops import initializers as init_mod
+from deeplearning4j_tpu_torch.ops import stream_exact
 
 _DEFAULT_CACHE_LEN = 256
 
@@ -50,12 +54,20 @@ def _layer_norm(x, g, b, eps):
     return y * g.to(torch.float32) + b.to(torch.float32)
 
 
+def _layer_norm_exact(x, g, b, eps):
+    """The streaming path's LayerNorm, f32, row sums in a fixed order
+    (S3, ops/stream_exact.py)."""
+    return stream_exact.stream_rownorm(x.to(torch.float32),
+                                       g.to(torch.float32),
+                                       b.to(torch.float32), eps)
+
+
 def _dense_exact(x, W, b):
-    """[b, t, f] @ [f, g] in f32 (the streaming path's projection)."""
-    out = torch.matmul(x.to(torch.float32), W.to(torch.float32))
-    if b is not None:
-        out = out + b.to(torch.float32)
-    return out
+    """[b, t, f] @ [f, g] in f32, summed over f in a fixed order (the
+    streaming path's projection; S1, ops/stream_exact.py)."""
+    return stream_exact.stream_dense(
+        x.to(torch.float32).contiguous(), W.to(torch.float32).contiguous(),
+        None if b is None else b.to(torch.float32).contiguous())
 
 
 def _dense_gemm(x, W, b, cd):
@@ -174,7 +186,7 @@ class _AttentionCore(Layer):
                 vc = torch.zeros_like(kc)
                 pos0 = torch.zeros((b,), dtype=torch.int32, device=h.device)
             kc, vc = att.extend_cache(kc, vc, k, v, pos0)
-            out = att.causal_mha_exact(q, kc, vc, q_start=pos0)
+            out = att.decode_mha(q, kc, vc, pos0)
             lengths = _mask_lengths(mask)
             new_pos = pos0 + (t if lengths is None else lengths)
             proj = _dense_exact(out.reshape(b, t, d), params["Wo"],
@@ -254,10 +266,10 @@ class TransformerBlockLayer(_AttentionCore):
         x = self._input_dropout(x, train, gen)
         if self.streaming:
             xf = x.to(torch.float32)
-            h1 = _layer_norm(xf, params["ln1_g"], params["ln1_b"], eps)
+            h1 = _layer_norm_exact(xf, params["ln1_g"], params["ln1_b"], eps)
             proj, carries = self._attn(params, state, h1, mask)
             a = xf + proj
-            h2 = _layer_norm(a, params["ln2_g"], params["ln2_b"], eps)
+            h2 = _layer_norm_exact(a, params["ln2_g"], params["ln2_b"], eps)
             m = self.activation_fn(_dense_exact(h2, params["W1"],
                                                 params["b1"]))
             y = a + _dense_exact(m, params["W2"], params["b2"])

@@ -30,7 +30,8 @@ from deeplearning4j_tpu_torch.observability import metrics as _metrics
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
-KERNELS = ("lstm_fwd", "lstm_bwd", "flash_attn_fwd", "fused_block")
+KERNELS = ("lstm_fwd", "lstm_bwd", "flash_attn_fwd", "fused_block",
+           "stream_exact")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas=-v", "-ldl")

@@ -6,11 +6,13 @@ Tensors are in the layers' layout, q/k/v [b, t, h, dh]. Scores and the
 softmax run in f32 whatever the compute dtype; masked positions get
 ``-inf`` in the plain versions, so they add an exact 0.0 to every sum.
 
-- ``causal_mha_exact``: the JAX package's contract-bearing formulation
-  (``_causal_mha_exact``): f32 products and sums, normalised after the
-  weighted sum. The CPU dispatch of ``causal_mha`` (the JAX package runs
-  it on its CPU, where ``attention_supported`` is false) and the
-  attention layers' streaming path on either device.
+- ``causal_mha_exact``: the f32 formulation of the JAX package's
+  ``_causal_mha_exact``: f32 products and sums, normalised after the
+  weighted sum, with both products as ``torch.matmul``. The CPU dispatch
+  of ``causal_mha`` (the JAX package runs its exact formulation on its
+  CPU, where ``attention_supported`` is false), and the reference whose
+  autograd K3's backward is held against. Its reduction order follows the
+  GEMM's choice of kernel, so it is not decode-stable.
 - ``causal_mha_dot``: the batched-product formulation (``_causal_mha_dot``):
   the scores as an f32 product of the inputs, p rounded to the compute
   dtype before the product with v. The plain version of K3, and the
@@ -29,9 +31,12 @@ softmax run in f32 whatever the compute dtype; masked positions get
   route; nothing falls back.
 - ``extend_cache``: the streaming KV-cache write, with
   ``lax.dynamic_update_slice``'s clamp of the start.
-
-Incremental decode (``decode_mha``, q_start != 0 on the card) is not
-ported yet: the streaming path attends through ``causal_mha_exact``.
+- ``decode_mha``: incremental decode, the new tokens' queries against the
+  fixed-extent cache from each row's own position. It runs the
+  order-fixed ``stream_mha`` (ops/stream_exact.py: the plain loop on the
+  CPU, the kernel S2 on the card), so a token's output has the same bits
+  whatever the query length, the bucket or the position it was fed at;
+  the attention layers' streaming path attends through it.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ import math
 
 import torch
 
-from deeplearning4j_tpu_torch.ops import registry
+from deeplearning4j_tpu_torch.ops import registry, stream_exact
 
 KERNEL = "flash_attn_fwd"
 KERNEL_SM90 = "flash_attn_fwd_sm90"  # launches on the bf16 (sm90) route
@@ -153,6 +158,16 @@ class FlashAttentionFn(torch.autograd.Function):
 def flash_attn_fwd_torch(q, k, v):
     """K3's plain version: ``causal_mha_dot`` at q_start 0."""
     return causal_mha_dot(q, k, v)
+
+
+def decode_mha(q, k_cache, v_cache, pos):
+    """Incremental decode: ``q`` [b, t_new, h, dh] holds the new tokens'
+    queries, the caches [b, C, h, dh] hold every earlier position and the
+    new tokens (written by ``extend_cache``), ``pos`` [b] is each row's
+    prefix length. Row i of the step attends keys j <= pos + i, the
+    visible set the full-sequence forward gives that position, summed in
+    one fixed order (``stream_mha``). Returns f32 [b, t_new, h, dh]."""
+    return stream_exact.stream_mha(q, k_cache, v_cache, pos)
 
 
 def extend_cache(k_cache, v_cache, k_new, v_new, pos):

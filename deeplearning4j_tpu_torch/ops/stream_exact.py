@@ -1,0 +1,419 @@
+"""The decode-stable streaming ops: order-fixed projections and attention,
+with plain PyTorch versions and the Hopper kernels' wrappers.
+
+The JAX package's streaming path (``_dense_exact``,
+``_causal_mha_exact``) is written as multiply+reduce chains that XLA
+lowers to fused reduces. Each output element then sums its reduced axis in
+an order that depends only on that axis's length, so a token's logits have
+the same bits whether it came from a one-shot prefill, a chunked prefill,
+a single-token step or a row padded into a bucket: the decode engine's
+guarantees (serving/decode.py) rest on that. The JAX package leaves these
+products to XLA; the port may not leave them to ``torch.matmul``, because
+cuBLAS (and the CPU's GEMM) pick their kernel, and with it the reduction
+order, by the number of rows. So both devices compute them here in one
+fixed order:
+
+- ``stream_dense`` (S1): y = x.W + b in f32. Each output sums over f in
+  ascending order, each product and each sum rounded on its own (no FMA),
+  then adds the bias.
+- ``stream_mha`` (S2): causal MHA of q [b, t, h, dh] against the
+  fixed-extent f32 cache [b, C, h, dh], row i of batch row r at absolute
+  position pos[r] + i. Scores sum over dh in ascending order, times
+  1/sqrt(dh); positions past the row's own are masked; the row max, then
+  p = exp(s - max); the sum of p and the weighted sum of v over the cache
+  positions in ascending order; normalised after the sum.
+- ``stream_rownorm`` (S3): LayerNorm of each row in f32, its mean and
+  variance summed over the row in ascending order, the reciprocal square
+  root as a rounded square root and a rounded division. PyTorch's own
+  mean moves on the card with the number of rows (chip_smoke.py
+  ``[stream_invariance]``); its softmax and GELU do not, so the head's
+  softmax and the MLP's GELU stay PyTorch's.
+
+Dispatch by device (ops/registry.py): a CPU tensor runs the plain version,
+an ascending loop of elementwise products and sums over [rows, out] slabs
+(never a [rows, f, g] product); a CUDA tensor runs
+``csrc/stream_exact.cu`` (S1 ``dl4j_stream_dense``, S2
+``dl4j_stream_mha``, S3 ``dl4j_stream_rownorm``), whose threads sum in
+the same order with the same roundings, or raises, naming the route.
+Nothing falls back. With gradients on (a truncated-BPTT step through
+the streaming path), each kernel runs inside an autograd Function whose
+backward is the same function's ordinary derivative in PyTorch (the
+linear map's, ``F.layer_norm``'s, ``causal_mha_exact``'s): decode
+stability is a property of the forward. On the card each kernel agrees
+with its plain version bit for bit (chip_smoke.py
+``[stream_exact_vs_plain]``); between the devices only exp may differ, in
+its last bit (the card's ``expf`` against the CPU's).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from deeplearning4j_tpu_torch.ops import registry
+
+LIB = "stream_exact"
+KERNEL_DENSE = "stream_dense"
+KERNEL_MHA = "stream_mha"
+KERNEL_NORM = "stream_rownorm"
+
+
+# ----------------------------------------------------------------- plain
+@registry.register(KERNEL_DENSE, "cpu")
+def stream_dense_torch(x, W, b=None):
+    """S1's plain version: x [..., f] @ W [f, g] (+ b [g]) in f32, summed
+    over f in ascending order, each product and sum rounded on its own."""
+    lead = x.shape[:-1]
+    f, g = W.shape
+    x2 = x.reshape(-1, f).to(torch.float32)
+    Wf = W.to(torch.float32)
+    acc = torch.zeros((x2.shape[0], g), dtype=torch.float32,
+                      device=x.device)
+    for i in range(f):
+        acc = torch.add(acc, torch.mul(x2[:, i:i + 1], Wf[i]))
+    if b is not None:
+        acc = torch.add(acc, b.to(torch.float32))
+    return acc.reshape(*lead, g)
+
+
+def _positions(pos, b, t, device):
+    """Absolute position of every query row, [b, t] int64."""
+    p = torch.as_tensor(pos, device=device).to(torch.int64).reshape(-1)
+    p = p.expand(b) if p.numel() == 1 else p
+    return p[:, None] + torch.arange(t, device=device)[None, :]
+
+
+@registry.register(KERNEL_MHA, "cpu")
+def stream_mha_torch(q, k_cache, v_cache, pos):
+    """S2's plain version: causal MHA of q [b, t, h, dh] against the
+    caches [b, C, h, dh], in f32, every sum in ascending order of its
+    reduced index. Returns [b, t, h, dh] f32."""
+    b, t, h, dh = q.shape
+    C = k_cache.shape[1]
+    scale = 1.0 / math.sqrt(dh)
+    qh = q.to(torch.float32).permute(0, 2, 1, 3)           # [b, h, t, dh]
+    kh = k_cache.to(torch.float32).permute(0, 2, 1, 3)     # [b, h, C, dh]
+    vh = v_cache.to(torch.float32).permute(0, 2, 1, 3)
+    s = torch.zeros((b, h, t, C), dtype=torch.float32, device=q.device)
+    for d in range(dh):
+        s = torch.add(s, torch.mul(qh[:, :, :, d, None],
+                                   kh[:, :, None, :, d]))
+    s = torch.mul(s, scale)
+    qpos = _positions(pos, b, t, q.device)                 # [b, t]
+    j = torch.arange(C, device=q.device)
+    visible = qpos[:, None, :, None] >= j[None, None, None, :]
+    s = torch.where(visible, s, float("-inf"))
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(torch.sub(s, m))                         # [b, h, t, C]
+    l = torch.zeros((b, h, t, 1), dtype=torch.float32, device=q.device)
+    o = torch.zeros((b, h, t, dh), dtype=torch.float32, device=q.device)
+    for jj in range(C):
+        pj = p[:, :, :, jj, None]
+        l = torch.add(l, pj)
+        o = torch.add(o, torch.mul(pj, vh[:, :, None, jj, :]))
+    return torch.div(o, l).permute(0, 2, 1, 3).contiguous()
+
+
+def _full_div(a, n):
+    """a / n elementwise, n as a tensor: a scalar divisor may be taken as
+    a product with its reciprocal, which rounds otherwise."""
+    return torch.div(a, torch.full_like(a, float(n)))
+
+
+@registry.register(KERNEL_NORM, "cpu")
+def stream_rownorm_torch(x, gamma, beta, eps):
+    """S3's plain version: LayerNorm over the last axis of x in f32, the
+    row sums in ascending order. Returns f32."""
+    w = x.shape[-1]
+    xf = x.to(torch.float32)
+    s = torch.zeros(xf.shape[:-1] + (1,), dtype=torch.float32,
+                    device=x.device)
+    for i in range(w):
+        s = torch.add(s, xf[..., i:i + 1])
+    d = torch.sub(xf, _full_div(s, w))
+    ss = torch.zeros_like(s)
+    for i in range(w):
+        di = d[..., i:i + 1]
+        ss = torch.add(ss, torch.mul(di, di))
+    var = torch.add(_full_div(ss, w), float(eps))
+    inv = torch.div(torch.ones_like(var), torch.sqrt(var))
+    y = torch.mul(torch.mul(d, inv), gamma.to(torch.float32))
+    return torch.add(y, beta.to(torch.float32))
+
+
+def stream_dense(x, W, b=None):
+    """S1 through the registry: the plain version on the CPU, the kernel
+    on the card."""
+    return registry.get(KERNEL_DENSE, x.device)(x, W, b)
+
+
+def stream_mha(q, k_cache, v_cache, pos):
+    """S2 through the registry: the plain version on the CPU, the kernel
+    on the card."""
+    return registry.get(KERNEL_MHA, q.device)(q, k_cache, v_cache, pos)
+
+
+def stream_rownorm(x, gamma, beta, eps):
+    """S3 through the registry: the plain version on the CPU, the kernel
+    on the card."""
+    return registry.get(KERNEL_NORM, x.device)(x, gamma, beta, eps)
+
+
+# ------------------------------------------------------------------ cuda
+def _bind():
+    from deeplearning4j_tpu_torch.ops import _build
+
+    lib = _build.load(LIB)
+    if getattr(lib, "_dl4j_bound", False):
+        return lib
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.dl4j_stream_dense.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
+    lib.dl4j_stream_dense.restype = i32
+    lib.dl4j_stream_mha.argtypes = ([ptr] * 5 + [i32] * 5
+                                    + [ctypes.c_float, ptr])
+    lib.dl4j_stream_mha.restype = i32
+    lib.dl4j_stream_rownorm.argtypes = ([ptr] * 4 + [i32] * 2
+                                        + [ctypes.c_float, ptr])
+    lib.dl4j_stream_rownorm.restype = i32
+    lib.dl4j_stream_mha_smem_bytes.argtypes = [i32, i32]
+    lib.dl4j_stream_mha_smem_bytes.restype = i32
+    lib.dl4j_cuda_error_string.argtypes = [i32]
+    lib.dl4j_cuda_error_string.restype = ctypes.c_char_p
+    lib._dl4j_bound = True
+    return lib
+
+
+def _require(x, name, dtype=torch.float32):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _raise(lib, rc, route, what):
+    msg = lib.dl4j_cuda_error_string(rc).decode()
+    raise RuntimeError(f"{route} kernel launch failed ({what}): "
+                       f"cudaError {rc}: {msg}")
+
+
+def dense_flops(rows, f, g, bias=True) -> int:
+    """S1's operations: a product and a sum per (row, f, g), plus the
+    bias."""
+    return 2 * rows * f * g + (rows * g if bias else 0)
+
+
+def _grad_needed(*xs):
+    return torch.is_grad_enabled() and any(
+        x is not None and x.requires_grad for x in xs)
+
+
+class StreamDenseFn(torch.autograd.Function):
+    """S1 forward; the backward is the linear map's own (dx = dy.Wᵀ,
+    dW = xᵀ.dy, db = sum dy) in ``torch.matmul``: decode stability is a
+    property of the forward, and a truncated-BPTT step differentiates
+    through it."""
+
+    @staticmethod
+    def forward(ctx, x, W, b):
+        ctx.save_for_backward(x, W)
+        ctx.has_bias = b is not None
+        return _dense_launch(x, W, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, W = ctx.saved_tensors
+        g2 = g.reshape(-1, W.shape[1])
+        x2 = x.reshape(-1, W.shape[0])
+        dx = torch.matmul(g2, W.t()).reshape(x.shape)
+        dW = torch.matmul(x2.t(), g2)
+        db = g2.sum(0) if ctx.has_bias else None
+        return dx, dW, db
+
+
+class StreamMhaFn(torch.autograd.Function):
+    """S2 forward; the backward differentiates ``causal_mha_exact`` (the
+    same function as batched products) by autograd, as K3's backward
+    recomputes through its plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, pos):
+        ctx.save_for_backward(q, k, v, pos)
+        return _mha_launch(q, k, v, pos)
+
+    @staticmethod
+    def backward(ctx, g):
+        from deeplearning4j_tpu_torch.ops import attention as att
+        q, k, v, pos = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = att.causal_mha_exact(*leaves, q_start=pos)
+            return (*torch.autograd.grad(out, leaves, g), None)
+
+
+class StreamRowNormFn(torch.autograd.Function):
+    """S3 forward; the backward differentiates ``F.layer_norm`` (the same
+    function) by autograd."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        ctx.save_for_backward(x, gamma, beta)
+        ctx.eps = eps
+        return _rownorm_launch(x, gamma, beta, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma, beta = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (x, gamma, beta)]
+            y = torch.nn.functional.layer_norm(
+                leaves[0], (x.shape[-1],), leaves[1], leaves[2], ctx.eps)
+            return (*torch.autograd.grad(y, leaves, g), None)
+
+
+@registry.register(KERNEL_DENSE, "cuda")
+def stream_dense_cuda(x, W, b=None):
+    """S1 on the card; with gradients on, through ``StreamDenseFn``."""
+    if _grad_needed(x, W, b):
+        return StreamDenseFn.apply(x, W, b)
+    return _dense_launch(x, W, b)
+
+
+@registry.register(KERNEL_MHA, "cuda")
+def stream_mha_cuda(q, k_cache, v_cache, pos):
+    """S2 on the card; with gradients on, through ``StreamMhaFn``."""
+    if _grad_needed(q, k_cache, v_cache):
+        p = torch.as_tensor(pos, device=q.device).to(torch.int32)
+        return StreamMhaFn.apply(q, k_cache, v_cache, p)
+    return _mha_launch(q, k_cache, v_cache, pos)
+
+
+@registry.register(KERNEL_NORM, "cuda")
+def stream_rownorm_cuda(x, gamma, beta, eps):
+    """S3 on the card; with gradients on, through ``StreamRowNormFn``."""
+    if _grad_needed(x, gamma, beta):
+        return StreamRowNormFn.apply(x, gamma, beta, eps)
+    return _rownorm_launch(x, gamma, beta, eps)
+
+
+def _dense_launch(x, W, b=None):
+    """Launch S1 on the current stream: x [..., f] f32 @ W [f, g] f32
+    (+ b [g] f32) -> [..., g] f32. Raises on what the kernel does not
+    take; never falls back."""
+    lead = x.shape[:-1]
+    f, g = W.shape
+    x2 = x.reshape(-1, f)
+    rows = x2.shape[0]
+    for name, a in (("x", x2), ("W", W)) + ((("b", b),) if b is not None
+                                            else ()):
+        _require(a, name)
+        if a.device != x.device:
+            raise ValueError(f"{name} is on {a.device}, x on {x.device}")
+    if x.shape[-1] != f or (b is not None and tuple(b.shape) != (g,)):
+        raise ValueError(f"stream_dense: x {tuple(x.shape)}, W "
+                         f"{tuple(W.shape)}, b "
+                         f"{None if b is None else tuple(b.shape)}")
+    if rows > 65535:
+        raise NotImplementedError(
+            f"stream_dense takes at most 65535 rows, got {rows}")
+    y = torch.empty((rows, g), dtype=torch.float32, device=x.device)
+    if rows == 0:
+        return y.reshape(*lead, g)
+    lib = _bind()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.dl4j_stream_dense(x2.data_ptr(), W.data_ptr(),
+                                   None if b is None else b.data_ptr(),
+                                   y.data_ptr(), rows, f, g, stream)
+    if rc != 0:
+        _raise(lib, rc, KERNEL_DENSE, f"rows={rows}, f={f}, g={g}")
+    registry.count_launch(KERNEL_DENSE)
+    registry.count_flops(KERNEL_DENSE, dense_flops(rows, f, g,
+                                                   b is not None))
+    return y.reshape(*lead, g)
+
+
+def mha_flops(b, t, h, dh, C) -> int:
+    """S2's operations as its plain version counts them: q.k and p.v over
+    the whole fixed extent."""
+    return 4 * b * h * t * C * dh
+
+
+def _mha_launch(q, k_cache, v_cache, pos):
+    """Launch S2 on the current stream: q [b, t, h, dh] f32 against the
+    caches [b, C, h, dh] f32 with per-row positions ``pos`` ([b] or a
+    scalar) -> [b, t, h, dh] f32. Raises on what the kernel does not take;
+    never falls back."""
+    for name, a in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+        _require(a, name)
+        if a.dim() != 4:
+            raise ValueError(f"{name} must be 4-D, got {tuple(a.shape)}")
+    b, t, h, dh = q.shape
+    C = k_cache.shape[1]
+    if tuple(k_cache.shape) != (b, C, h, dh) or \
+            tuple(v_cache.shape) != (b, C, h, dh):
+        raise ValueError(f"stream_mha: q {tuple(q.shape)}, caches "
+                         f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
+    if k_cache.device != q.device or v_cache.device != q.device:
+        raise ValueError("stream_mha: q and the caches must share a device")
+    p = torch.as_tensor(pos, device=q.device).to(torch.int32).reshape(-1)
+    p = (p.expand(b) if p.numel() == 1 else p).contiguous()
+    if p.numel() != b:
+        raise ValueError(f"stream_mha: pos has {p.numel()} rows, q {b}")
+    lib = _bind()
+    smem = lib.dl4j_stream_mha_smem_bytes(dh, C)
+    if smem > 227 * 1024:
+        raise NotImplementedError(
+            f"stream_mha holds p for the whole cache in shared memory: "
+            f"C={C}, dh={dh} needs {smem} B per block (at most 227 KB)")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.dl4j_stream_mha(q.data_ptr(), k_cache.data_ptr(),
+                                 v_cache.data_ptr(), p.data_ptr(),
+                                 out.data_ptr(), b, t, h, dh, C,
+                                 1.0 / math.sqrt(dh), stream)
+    if rc != 0:
+        _raise(lib, rc, KERNEL_MHA,
+               f"b={b}, t={t}, h={h}, dh={dh}, C={C}, {smem} B shared "
+               f"memory per block")
+    registry.count_launch(KERNEL_MHA)
+    registry.count_flops(KERNEL_MHA, mha_flops(b, t, h, dh, C))
+    return out
+
+
+def _rownorm_launch(x, gamma, beta, eps):
+    """Launch S3 on the current stream: LayerNorm over the last axis of x
+    f32 with gamma, beta [w] f32 -> f32 of x's shape. Raises on what the
+    kernel does not take; never falls back."""
+    w = x.shape[-1]
+    x2 = x.reshape(-1, w)
+    for name, a in (("x", x2), ("gamma", gamma), ("beta", beta)):
+        _require(a, name)
+        if a.device != x.device:
+            raise ValueError(f"{name} is on {a.device}, x on {x.device}")
+    if tuple(gamma.shape) != (w,) or tuple(beta.shape) != (w,):
+        raise ValueError(f"stream_rownorm: x {tuple(x.shape)}, gamma "
+                         f"{tuple(gamma.shape)}, beta {tuple(beta.shape)}")
+    if (w + 2) * 4 > 227 * 1024:
+        raise NotImplementedError(
+            f"stream_rownorm holds a row in shared memory: w={w} is too "
+            f"wide")
+    rows = x2.shape[0]
+    y = torch.empty((rows, w), dtype=torch.float32, device=x.device)
+    if rows == 0:
+        return y.reshape(x.shape)
+    lib = _bind()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.dl4j_stream_rownorm(x2.data_ptr(), gamma.data_ptr(),
+                                     beta.data_ptr(), y.data_ptr(), rows, w,
+                                     float(eps), stream)
+    if rc != 0:
+        _raise(lib, rc, KERNEL_NORM, f"rows={rows}, w={w}")
+    registry.count_launch(KERNEL_NORM)
+    registry.count_flops(KERNEL_NORM, 8 * rows * w)
+    return y.reshape(x.shape)

@@ -1,10 +1,24 @@
-"""Serving runtime: micro-batcher, stats and the HTTP model server."""
+"""Serving runtime: the micro-batcher, the replica set, stats, the paged
+KV pool, the decode engine and the HTTP model server."""
 
-from deeplearning4j_tpu_torch.serving.batcher import (MicroBatcher,
+from deeplearning4j_tpu_torch.serving.batcher import (BatcherDeadError,
+                                                      MicroBatcher,
                                                       QueueFullError,
                                                       next_bucket)
+from deeplearning4j_tpu_torch.serving.decode import (DecodeEngine,
+                                                     DecodeSession,
+                                                     StreamingKVForward)
+from deeplearning4j_tpu_torch.serving.fleet import Replica, ReplicaSet
+from deeplearning4j_tpu_torch.serving.kvcache import (CachePoolFullError,
+                                                      KVPagePool)
 from deeplearning4j_tpu_torch.serving.metrics import ServingStats
-from deeplearning4j_tpu_torch.serving.server import ModelServer
+from deeplearning4j_tpu_torch.serving.server import (DeadlineExceededError,
+                                                     ModelServer,
+                                                     UnknownSessionError,
+                                                     serve)
 
-__all__ = ["MicroBatcher", "ModelServer", "QueueFullError", "ServingStats",
-           "next_bucket"]
+__all__ = ["ModelServer", "serve", "MicroBatcher", "QueueFullError",
+           "BatcherDeadError", "DeadlineExceededError",
+           "UnknownSessionError", "ServingStats", "Replica", "ReplicaSet",
+           "DecodeEngine", "DecodeSession", "StreamingKVForward",
+           "KVPagePool", "CachePoolFullError", "next_bucket"]

@@ -1,24 +1,47 @@
 """Continuous-batching HTTP inference server (counterpart of
-deeplearning4j_tpu/serving/server.py, with one batcher: no replica set,
-mesh, decode engine, hot swap, scheduler or Prometheus exposition yet).
+deeplearning4j_tpu/serving/server.py).
 
-HTTP handler threads enqueue tickets into a bounded queue; one device
-thread (serving/batcher.py) coalesces what is pending into one padded
-power-of-two bucket forward through ``net.output`` and scatters the rows
-back. On a CUDA net that forward runs the port's kernels.
+HTTP handler threads enqueue tickets; a replica set (serving/fleet.py) of
+batcher device threads (serving/batcher.py) coalesces what is pending
+into padded power-of-two bucket forwards through ``net.output`` and
+scatters the rows back. On a CUDA net that forward runs the port's
+kernels. With ``decode_engine=`` the server also serves sessionful decode
+(serving/decode.py).
 
 Endpoints:
 - ``POST /predict`` {"features": [[...]]} -> {"predictions": ...}
-- ``GET /healthz``  liveness + parameter count
-- ``GET /metrics``  the ServingStats snapshot (JSON)
+- ``POST /decode`` (with ``decode_engine=``): {"op": "prefill" | "step" |
+  "generate" | "close", "sid": ..., "ids": [history], "token": t,
+  "n_tokens": n}. A ``step`` for a session this server does not hold is
+  recovered by re-prefilling the ``ids`` it carries (bit-identical); with
+  no ``ids`` it answers 404 (``UnknownSessionError``).
+- ``GET /healthz``  liveness, the replicas' rows, and ``decode``
+- ``GET /metrics``  the ServingStats snapshot with the replicas and
+  ``decode`` (JSON); with ``Accept: text/plain`` or ``?format=prometheus``
+  the unified registry in Prometheus text instead
+
+Each POST carries ``X-DL4J-Trace-Id`` (the client's, or one minted here)
+onto its handler span and batcher tickets and echoes it back.
 
 ``start()`` warms the bucket ladder from ``input_shapes`` (or the row
 shape the configuration implies) before it accepts traffic. A full queue
-answers 503 with ``Retry-After``; ``stop()`` drains accepted work first.
+answers 503 with ``Retry-After``; ``stop()`` drains accepted work first
+and closes the serving goodput ledger (``run_report``).
+
+``compute_dtype=`` serves through a shadow net over the same parameters
+with only the policy's compute dtype replaced: its rows hold a tolerance
+against the net's own, not bit-identity.
+
+Not ported, each refused by name when given: ``mesh`` (mesh-parallel
+serving, ROADMAP A.5), ``hot_swap`` and publications (A.3, live reload),
+``push_url`` (federation, A.5), ``slos`` (the SLO engine, A.4),
+``compile_cache_dir``, ``aot_manifest`` and ``tuning_report`` (the
+compile cache, A.4), and ``scheduler`` (A.3, scheduling).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import threading
 import time
@@ -28,14 +51,47 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.observability import distributed as _dist
+from deeplearning4j_tpu_torch.observability import goodput as _goodput
+from deeplearning4j_tpu_torch.observability import metrics as _obs_metrics
+from deeplearning4j_tpu_torch.observability import trace as _obs_trace
 from deeplearning4j_tpu_torch.serving.batcher import (BatcherDeadError,
-                                                      MicroBatcher,
                                                       QueueFullError)
-from deeplearning4j_tpu_torch.serving.metrics import ServingStats
+from deeplearning4j_tpu_torch.serving.fleet import (SCHEDULER_NOT_PORTED,
+                                                    ReplicaSet)
+from deeplearning4j_tpu_torch.serving.metrics import (ServingStats,
+                                                      decode_metric_families)
+
+#: what each refused parameter waits for
+NOT_PORTED = {
+    "mesh": "mesh-parallel serving (parallel/inference.py) is not ported "
+            "(ROADMAP.md A.5)",
+    "hot_swap": "live reload (serving/publish.py, hot_swap) is not ported "
+                "(ROADMAP.md A.3, hot_swap and serving/publish.py)",
+    "push_url": "the federation heartbeat (HeartbeatPusher) is not ported "
+                "(ROADMAP.md A.5)",
+    "slos": "the SLO engine (observability/slo.py) is not ported "
+            "(ROADMAP.md A.4)",
+    "compile_cache_dir": "the compile cache (compilecache/) is not ported "
+                         "(ROADMAP.md A.4)",
+    "aot_manifest": "the compile cache's AOT manifest (compilecache/) is "
+                    "not ported (ROADMAP.md A.4)",
+    "tuning_report": "the autotuner (compilecache/autotune.py) is not "
+                     "ported (ROADMAP.md A.4)",
+    "scheduler": SCHEDULER_NOT_PORTED,
+}
 
 
 class DeadlineExceededError(RuntimeError):
     """The per-request deadline expired before the result came (HTTP 504)."""
+
+
+class UnknownSessionError(KeyError):
+    """A decode op named a session this server does not hold and carried
+    no token history to recover it from (HTTP 404)."""
+
+    def __str__(self):
+        return self.args[0] if self.args else ""
 
 
 class _ServingHTTPServer(ThreadingHTTPServer):
@@ -48,7 +104,24 @@ class ModelServer:
     def __init__(self, net, host: str = "127.0.0.1", port: int = 9500,
                  max_batch: int = 1024, batch_window_ms: float = 2.0,
                  max_queue: int = 1024, warmup: bool = True,
-                 input_shapes=None, request_timeout_s: float = 300.0):
+                 input_shapes=None, request_timeout_s: float = 300.0,
+                 compute_dtype=None, replicas: int = 1, mesh=None,
+                 model_axis: str = "model", data_axis=None, tp_rules=None,
+                 compile_cache_dir=None, aot_manifest=None,
+                 tuning_report=None, decode_engine=None,
+                 push_url=None, push_interval_s: float = 2.0,
+                 slos=None, scheduler=None):
+        given = {"mesh": mesh is not None or data_axis is not None
+                 or tp_rules is not None,
+                 "push_url": bool(push_url), "slos": bool(slos),
+                 "compile_cache_dir": compile_cache_dir is not None,
+                 "aot_manifest": aot_manifest is not None,
+                 "tuning_report": tuning_report is not None,
+                 "scheduler": scheduler not in (None, False)}
+        for name, on in given.items():
+            if on:
+                raise NotImplementedError(f"ModelServer({name}=...): "
+                                          f"{NOT_PORTED[name]}")
         self.net = net
         self.host = host
         self.port = port
@@ -57,20 +130,71 @@ class ModelServer:
         self.input_shapes = input_shapes
         self.request_timeout_s = float(request_timeout_s)
         self.warmup_s = None
+        self.run_report = None   # goodput RunReport, set by stop()
+        self.model_version = 0
+        self.swaps_total = 0
+        self.compute_dtype = compute_dtype
+        self._serving_net = None
+        if (compute_dtype is not None and compute_dtype
+                != net.conf.global_conf.dtype.compute_dtype):
+            self._serving_net = self._build_serving_net(compute_dtype)
         self.stats = ServingStats()
-        self._batcher = MicroBatcher(
-            self._device_forward, max_batch=max_batch,
+        self._fleet = ReplicaSet(
+            self._device_forward, int(replicas), max_batch=max_batch,
             batch_window_ms=batch_window_ms, max_queue=max_queue,
             min_batch=2, stats=self.stats)
-        self.shapes_seen = self._batcher.shapes_seen
+        self.shapes_seen = self._fleet.shapes_seen
+        self.decode_engine = decode_engine
         self._httpd = None
         self._thread = None
+        self._ledger = None
+        self._collectors = []
+
+    @property
+    def _batcher(self):
+        """Replica 0's batcher (the single-batcher surface)."""
+        return self._fleet.replicas[0].batcher
+
+    @property
+    def fleet(self) -> ReplicaSet:
+        return self._fleet
 
     # ------------------------------------------------------------ device side
+    def _build_serving_net(self, compute_dtype):
+        """A shadow net over the same configuration with only the policy's
+        compute dtype replaced. It holds no parameters of its own:
+        ``_device_forward`` hands it the net's live ones each call."""
+        gc = self.net.conf.global_conf
+        # replace() validates the policy again: an unknown dtype fails here
+        gc2 = dataclasses.replace(gc, dtype=dataclasses.replace(
+            gc.dtype, compute_dtype=compute_dtype))
+        conf2 = dataclasses.replace(self.net.conf, global_conf=gc2)
+        shadow = type(self.net)(conf2, device=self.net.device)
+        build = getattr(shadow, "_build_layers", None) \
+            or shadow._build_vertices
+        build()
+        return shadow
+
+    @property
+    def serving_compute_dtype(self) -> str:
+        """The dtype the serving forward computes in."""
+        if self.compute_dtype is not None:
+            return self.compute_dtype
+        return self.net.conf.global_conf.dtype.compute_dtype
+
     def _device_forward(self, feats):
-        """Runs only on the batcher's device thread (and in warm-up)."""
-        out = self.net.output(feats[0])
+        """Runs only on a batcher's device thread (and in warm-up)."""
+        net = self.net
+        if self._serving_net is not None:
+            self._serving_net.params = self.net.params
+            self._serving_net.state = self.net.state
+            net = self._serving_net
+        out = net.output(feats[0])
         return out.float().cpu().numpy()
+
+    def hot_swap(self, publication=None, *, net=None, version=None):
+        raise NotImplementedError(f"ModelServer.hot_swap: "
+                                  f"{NOT_PORTED['hot_swap']}")
 
     def _infer_row_shapes(self):
         """Per-input row shapes for warm-up: ``input_shapes`` if given,
@@ -88,15 +212,16 @@ class ModelServer:
         return None
 
     # ------------------------------------------------------------ inference
-    def predict(self, features):
+    def predict(self, features, trace_id=None):
         """Enqueue one request and wait for its rows. Requests larger than
         ``max_batch`` go as ``max_batch`` chunks. Raises QueueFullError
         when admission control refuses (HTTP 503)."""
         t0 = time.perf_counter()
         feats = np.asarray(features, np.float32)
         n = feats.shape[0]
-        self._batcher.start()
-        futures = [self._batcher.submit([feats[i:i + self.max_batch]])
+        self._fleet.start()
+        futures = [self._fleet.submit([feats[i:i + self.max_batch]],
+                                      trace_id=trace_id)
                    for i in range(0, max(n, 1), self.max_batch)]
         deadline = t0 + self.request_timeout_s
         chunks = []
@@ -110,28 +235,154 @@ class ModelServer:
                     f"request exceeded {self.request_timeout_s:g}s "
                     "deadline") from None
         out = np.concatenate(chunks) if len(chunks) > 1 else chunks[0]
+        # the serving NaN sentinel: rows with a non-finite value
+        flat = out.reshape(out.shape[0], -1)
+        nan_rows = int((~np.isfinite(flat).all(axis=1)).sum())
+        if nan_rows:
+            self.stats.record_nan_rows(nan_rows)
         self.stats.record_request(n, time.perf_counter() - t0)
         return out
 
+    def decode_op(self, payload, trace_id=None):
+        """One ``/decode`` op. The request carries the session's whole
+        token history (``ids``), so a ``step`` for a session this server
+        does not hold is answered after re-prefilling that history
+        (bit-identical, serving/decode.py); with no history it raises
+        ``UnknownSessionError``."""
+        eng = self.decode_engine
+        op = payload.get("op")
+        sid = payload["sid"]
+        if op == "prefill":
+            logits = eng.prefill(sid, payload["ids"], trace_id=trace_id)
+            return {"logits": np.asarray(logits).tolist()}
+        if op == "step":
+            recovered = False
+            if sid not in eng.sessions:
+                ids = payload.get("ids") or ()
+                if not ids:
+                    raise UnknownSessionError(
+                        f"unknown decode session '{sid}' and no ids "
+                        "history to recover from")
+                eng.prefill(sid, ids, trace_id=trace_id)
+                recovered = True
+            logits = eng.step(sid, int(payload["token"]), trace_id=trace_id)
+            return {"logits": np.asarray(logits).tolist(),
+                    "recovered": recovered}
+        if op == "generate":
+            ids = payload.get("ids") or ()
+            if not ids:
+                raise KeyError(f"decode generate for '{sid}' needs ids")
+            toks = eng.generate(sid, [int(i) for i in ids],
+                                int(payload.get("n_tokens", 0)),
+                                trace_id=trace_id)
+            return {"tokens": [int(t) for t in toks],
+                    "speculative": bool(eng.spec_k)}
+        if op == "close":
+            return {"closed": eng.close_session(sid)}
+        raise ValueError(f"unknown decode op {op!r}")
+
     def metrics(self) -> dict:
+        """The ``/metrics`` JSON payload: the stats snapshot, the replicas'
+        rows, the requeue count and the decode engine's ``describe()``."""
         snap = self.stats.snapshot(self.shapes_seen)
-        snap["batcher_healthy"] = self._batcher.healthy
+        snap["batcher_healthy"] = self._fleet.healthy
+        snap["replicas"] = self._fleet.describe()
+        snap["requeued_total"] = self._fleet.requeued
+        snap["model_version"] = self.model_version
+        snap["weight_swaps_total"] = self.swaps_total
+        if self.decode_engine is not None:
+            snap["decode"] = self.decode_engine.describe()
         return snap
+
+    def health(self):
+        """(status code, ``/healthz`` payload)."""
+        rows = self._fleet.describe()
+        if not self._fleet.healthy:
+            return 503, {"status": "unhealthy",
+                         "reason": "batcher device thread dead",
+                         "replicas": rows}
+        n_live = sum(1 for r in rows if r["status"] == "live")
+        body = {"status": "ok" if n_live == len(rows) else "degraded",
+                "params": int(self.net.num_params()),
+                "device": str(self.net.device),
+                "model_version": self.model_version,
+                "replicas": rows}
+        if self.decode_engine is not None:
+            body["decode"] = self.decode_engine.describe()
+        return 200, body
+
+    # ------------------------------------------------------------ registry
+    def _attach_collectors(self):
+        """The stats, the replicas' gauges and (with a decode engine) the
+        decode families on the unified registry, read at render time."""
+        from deeplearning4j_tpu_torch.observability.metrics import \
+            MetricFamily
+        addr = f"{self.host}:{self.port}"
+        self.stats.attach_to_registry(
+            labels={"server": addr,
+                    "compute_dtype": self.serving_compute_dtype},
+            shapes_fn=lambda: self.shapes_seen)
+        score = {"live": 1.0, "draining": 0.5, "dead": 0.0}
+
+        def fleet_families():
+            tag = _dist.get_identity().tag
+            depth = MetricFamily(
+                "dl4j_serving_replica_queue_depth", "gauge",
+                "Tickets pending per fleet replica (the routing signal)")
+            up = MetricFamily(
+                "dl4j_serving_replica_up", "gauge",
+                "Replica status: 1 live, 0.5 draining, 0 dead")
+            for row in self._fleet.describe():
+                labels = {"instance": f"{tag}/r{row['replica']}",
+                          "server": addr}
+                depth.add(row["queue_depth"], labels)
+                up.add(score.get(row["status"], 0.0),
+                       {**labels, "status": row["status"]})
+            requeued = MetricFamily(
+                "dl4j_serving_requeued_total", "counter",
+                "Tickets resubmitted onto survivors after an eviction")
+            requeued.add(self._fleet.requeued, {"server": addr})
+            version = MetricFamily(
+                "dl4j_serving_model_version", "gauge",
+                "Published weight version currently serving (0 = boot "
+                "weights, never hot-swapped)")
+            version.add(self.model_version, {"server": addr})
+            swaps = MetricFamily(
+                "dl4j_serving_weight_swaps_total", "counter",
+                "Completed zero-downtime weight hot swaps")
+            swaps.add(self.swaps_total, {"server": addr})
+            return [depth, up, requeued, version, swaps]
+
+        collectors = [fleet_families]
+        if self.decode_engine is not None:
+            collectors.append(lambda: decode_metric_families(
+                self.decode_engine.describe(), {"server": addr}))
+        reg = _obs_metrics.get_registry()
+        for fn in collectors:
+            reg.register_collector(fn)
+            self._collectors.append((reg, fn))
+
+    def _detach_collectors(self):
+        self.stats.detach_from_registry()
+        for reg, fn in self._collectors:
+            reg.unregister_collector(fn)
+        self._collectors = []
 
     # -------------------------------------------------------------- server
     def start(self):
         """Warm the bucket ladder (errors propagate: a kernel that cannot
         run must stop the boot, not surface on the first request), then
-        start the device thread and the HTTP listener."""
+        start the device threads and the HTTP listener."""
+        compile0 = _obs_metrics.compile_snapshot()
         if self.warmup:
             shapes = self._infer_row_shapes()
             if shapes is not None:
                 t_warm = time.perf_counter()
-                self._batcher.warm(shapes)
+                self._fleet.warm(shapes)
                 if self.net.device.type == "cuda":
                     torch.cuda.synchronize(self.net.device)
                 self.warmup_s = time.perf_counter() - t_warm
-        self._batcher.start()
+        self._fleet.start()
         server = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -141,55 +392,86 @@ class ModelServer:
             def log_message(self, *args):
                 pass
 
-            def _json(self, obj, code=200, headers=()):
-                body = json.dumps(obj).encode()
+            def _send(self, body: bytes, code, content_type, headers=()):
                 self.send_response(code)
-                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Type", content_type)
                 self.send_header("Content-Length", str(len(body)))
                 for k, v in headers:
                     self.send_header(k, v)
                 self.end_headers()
                 self.wfile.write(body)
 
+            def _json(self, obj, code=200, headers=()):
+                self._send(json.dumps(obj).encode(), code,
+                           "application/json", headers)
+
             def do_GET(self):  # noqa: N802
                 if self.path.startswith("/healthz"):
-                    if not server._batcher.healthy:
-                        self._json({"status": "unhealthy",
-                                    "reason": "batcher device thread dead"},
-                                   503)
-                        return
-                    self._json({"status": "ok",
-                                "params": int(server.net.num_params()),
-                                "device": str(server.net.device)})
+                    code, body = server.health()
+                    self._json(body, code)
                 elif self.path.startswith("/metrics"):
-                    self._json(server.metrics())
+                    if _obs_metrics.wants_prometheus(
+                            self.headers.get("Accept", ""), self.path):
+                        self._send(_obs_metrics.get_registry()
+                                   .render_prometheus().encode(), 200,
+                                   _obs_metrics.PROMETHEUS_CONTENT_TYPE)
+                    else:
+                        self._json(server.metrics())
                 else:
                     self._json({"error": "not found"}, 404)
 
             def do_POST(self):  # noqa: N802
-                if not self.path.startswith("/predict"):
+                is_decode = (self.path.startswith("/decode")
+                             and server.decode_engine is not None)
+                if not self.path.startswith("/predict") and not is_decode:
                     self._json({"error": "not found"}, 404)
                     return
+                trace_id = (self.headers.get(_dist.TRACE_HEADER)
+                            or _dist.new_trace_id())
+                echo = ((_dist.TRACE_HEADER, trace_id),)
+                with _obs_trace.get_tracer().span(
+                        "decode_op" if is_decode else "predict_handler",
+                        trace_id=trace_id, server_url=server.url):
+                    self._handle_post(is_decode, trace_id, echo)
+
+            def _handle_post(self, is_decode, trace_id, echo):
                 try:
                     n = int(self.headers.get("Content-Length", 0))
                     payload = json.loads(self.rfile.read(n).decode())
-                    out = server.predict(payload["features"])
-                    self._json({"predictions": out.tolist()})
+                    if is_decode:
+                        self._json(server.decode_op(payload,
+                                                    trace_id=trace_id),
+                                   headers=echo)
+                        return
+                    out = server.predict(payload["features"],
+                                         trace_id=trace_id)
+                    self._json({"predictions": out.tolist()}, headers=echo)
                 except QueueFullError as e:
                     self._json({"error": f"overloaded: {e}"}, 503,
                                headers=(("Retry-After",
                                          f"{server.stats.retry_after_s():g}"
-                                         ),))
+                                         ),) + echo)
                 except BatcherDeadError as e:
-                    self._json({"error": f"unhealthy: {e}"}, 503)
+                    self._json({"error": f"unhealthy: {e}"}, 503,
+                               headers=echo)
                 except DeadlineExceededError as e:
-                    self._json({"error": str(e)}, 504)
+                    self._json({"error": str(e)}, 504, headers=echo)
+                except UnknownSessionError as e:
+                    # a routing miss, not a malformed request
+                    self._json({"error": str(e)}, 404, headers=echo)
                 except Exception as e:  # a bad request: answer 400, keep serving
                     server.stats.record_error()
-                    self._json({"error": f"{type(e).__name__}: {e}"}, 400)
+                    self._json({"error": f"{type(e).__name__}: {e}"}, 400,
+                               headers=echo)
 
         self._httpd = _ServingHTTPServer((self.host, self.port), Handler)
         self.port = self._httpd.server_address[1]
+        _obs_metrics.install_runtime_metrics()
+        self._attach_collectors()
+        self._ledger = _goodput.start_run("serving", net=self.net)
+        self._ledger.rebase_compile(compile0)
+        if self.warmup_s is not None:
+            self._ledger.annotate(warmup_s=round(self.warmup_s, 6))
         self._thread = threading.Thread(target=self._httpd.serve_forever,
                                         daemon=True, name="model-server-http")
         self._thread.start()
@@ -201,7 +483,8 @@ class ModelServer:
 
     def stop(self):
         """Stop accepting, then drain: every accepted ticket completes
-        before the device thread exits."""
+        before the device threads exit. Closes the serving goodput ledger
+        (``run_report``)."""
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
@@ -209,4 +492,42 @@ class ModelServer:
         if self._thread is not None:
             self._thread.join(timeout=10)
             self._thread = None
-        self._batcher.stop()
+        if self.decode_engine is not None:
+            self.decode_engine.stop()
+        self._fleet.stop()
+        self._detach_collectors()
+        ledger = self._ledger
+        if ledger is not None and self.stats.first_reply_unix is not None:
+            ledger.annotate(cold_start_s=round(
+                self.stats.first_reply_unix
+                - _obs_metrics.process_start_unix(), 6))
+        report = _goodput.end_run(ledger) if ledger is not None else None
+        self._ledger = None
+        if report is not None:
+            self.run_report = report
+
+
+def serve(net, host: str = "127.0.0.1", port: int = 9500,
+          max_batch: int = 1024, batch_window_ms: float = 2.0,
+          max_queue: int = 1024, warmup: bool = True,
+          input_shapes=None, request_timeout_s: float = 300.0,
+          compute_dtype=None, replicas: int = 1, mesh=None,
+          model_axis: str = "model", data_axis=None,
+          tp_rules=None, compile_cache_dir=None, aot_manifest=None,
+          tuning_report=None, decode_engine=None, push_url=None,
+          push_interval_s: float = 2.0, slos=None,
+          scheduler=None) -> ModelServer:
+    """One-call serving entry point: ``serve(net).url`` is live."""
+    return ModelServer(net, host, port, max_batch,
+                       batch_window_ms=batch_window_ms, max_queue=max_queue,
+                       warmup=warmup, input_shapes=input_shapes,
+                       request_timeout_s=request_timeout_s,
+                       compute_dtype=compute_dtype, replicas=replicas,
+                       mesh=mesh, model_axis=model_axis,
+                       data_axis=data_axis, tp_rules=tp_rules,
+                       compile_cache_dir=compile_cache_dir,
+                       aot_manifest=aot_manifest,
+                       tuning_report=tuning_report,
+                       decode_engine=decode_engine, push_url=push_url,
+                       push_interval_s=push_interval_s,
+                       slos=slos, scheduler=scheduler).start()

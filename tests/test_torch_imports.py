@@ -139,6 +139,27 @@ def test_pipeline_and_observability_modules_are_checked(module):
     assert module in {_module_name(p) for p in SOURCES}
 
 
+# the modules of the decode-serving slice: the order-fixed streaming ops,
+# the paged KV pool, the replica set, the decode engine and the server
+DECODE_MODULES = [
+    "deeplearning4j_tpu_torch.ops.stream_exact",
+    "deeplearning4j_tpu_torch.serving",
+    "deeplearning4j_tpu_torch.serving.batcher",
+    "deeplearning4j_tpu_torch.serving.kvcache",
+    "deeplearning4j_tpu_torch.serving.fleet",
+    "deeplearning4j_tpu_torch.serving.metrics",
+    "deeplearning4j_tpu_torch.serving.decode",
+    "deeplearning4j_tpu_torch.serving.server",
+]
+
+
+@pytest.mark.parametrize("module", DECODE_MODULES)
+def test_decode_serving_modules_are_checked(module):
+    """Each module of the decode-serving slice is among the sources the
+    import tests check."""
+    assert module in {_module_name(p) for p in SOURCES}
+
+
 def test_package_imports_with_jax_blocked():
     mods = [_module_name(p) for p in SOURCES if p.parent != ROOT]
     code = ("import sys\n"
