@@ -105,7 +105,8 @@ peak memory, and no span under the fusion pass), each also alone
 
 runs only slice 15's phases (decode serving): [stream_invariance] (do
 PyTorch's LayerNorm statistics, softmax and GELU keep their bits on the
-card across 1-2048 rows; cuBLAS beside them), [stream_exact_vs_plain]
+card across 1-2048 rows; cuBLAS beside them; S1 and S2 must keep theirs),
+[stream_exact_vs_plain]
 (the order-fixed kernels S1 stream_dense, S2 stream_mha and S3
 stream_rownorm against their plain versions, bit for bit, and their
 gradients), [decode] (gpt_mini at full width, BF16, through DecodeEngine:
@@ -118,6 +119,18 @@ plain greedy), [decode_http] (serve() with 2 replicas and /decode, and K3
 through /predict), [decode_lstm] (the char-RNN engine through K1's cluster
 route) and the S kernels' times; the full run ends with the same phases,
 and
+
+    python3 chip_smoke.py --stream-split
+
+(also after --slice15's phases when both flags are given, and at the end
+of the full run) times S1 and S2, the Hopper redesigns of PR 16, beside
+their first versions at the decode step's shapes ([stream_split]: S1 at
+[32, 256] x [256, 1024] and [32, 1024] x [1024, 256], S2 at a 32-row
+step and a 16-token chunk of 4 rows; first, new and the library call in
+turns, back to back by CUDA events, the profiler's device time, the
+host's time to issue a call; the plain version, the bound, S1's chain
+floor from [stream_floor], the card's own cycles a dependent add takes;
+then S1's device time at every launch plan it can choose), and
 
     python3 chip_smoke.py --k6-split
 
@@ -161,6 +174,7 @@ fused_block_bwd_stats_sm90, fused_block_bwd_apply_sm90).
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import os
@@ -492,6 +506,18 @@ def phase_device():
         check(all(sass.values()), f"{lib} {fn}: its SASS holds {sass}: no "
               f"wgmma (HGMMA), no TMA load (UTMALDG) or no TMA store "
               f"(UTMASTG)")
+    # S1 and S2 (PR 16) stage their operands by cp.async (LDGSTS) and sum
+    # on the f32 pipe: no tensor-core op, and no FFMA in S1, whose products
+    # and sums are rounded apart (S2's expf has FFMAs of its own)
+    for fn in ("stream_dense_kernelI", "stream_mha_kernelI"):
+        sass = _build.sass_counts("stream_exact", ("LDGSTS", "HMMA", "HGMMA",
+                                                   "FFMA", "FMUL", "FADD"),
+                                  fn)
+        phase("sass", library="stream_exact", function=fn, **sass)
+        check(sass["LDGSTS"] > 0 and sass["HMMA"] == sass["HGMMA"] == 0
+              and (fn != "stream_dense_kernelI" or sass["FFMA"] == 0),
+              f"stream_exact {fn}: its SASS holds {sass}: no cp.async, a "
+              f"tensor-core op or a fused multiply-add")
     return card
 
 
@@ -3241,11 +3267,12 @@ def phase_fwd_split():
 
 # LeNet's F32 first step (b = 64), card and plain CPU path, each against an
 # f64 CPU run of the same step: a relu/max-pool net's gradients are
-# discontinuous (ROADMAP.md C.4), so the card's must be as accurate as the
-# CPU's f32 gradients, to within CONV_ACCURACY_RATIO plus 1e-3, in each
-# gradient's L2 error relative to its norm (worst gradient); the scores
-# card vs CPU to CONV_F32_SCORE_RTOL. The same holds ResNet-18's F32 step,
-# the form tests/test_torch_graph.py states for it on the card.
+# discontinuous (ROADMAP.md C.1, first bullet), so the card's must be as
+# accurate as the CPU's f32 gradients, to within CONV_ACCURACY_RATIO plus
+# 1e-3, in each gradient's L2 error relative to its norm (worst
+# gradient); the scores card vs CPU to CONV_F32_SCORE_RTOL. The same
+# holds ResNet-18's F32 step, the form tests/test_torch_graph.py states
+# for it on the card.
 CONV_ACCURACY_RATIO = 2.0
 CONV_F32_SCORE_RTOL = 1e-5
 # LeNet's held-out accuracy after early stopping (10 classes: chance 0.1)
@@ -6309,10 +6336,15 @@ def phase_stream_invariance():
     head's softmax at V = 80, in the 2-D and the [b, t, f] layouts the path
     gives them; GELU (elementwise) beside them. Also reads torch.matmul
     (cuBLAS) at the projection shape [R, 256] x [256, 1024], the product
-    the order-fixed kernel S1 replaces. Returns {op: moved?}."""
+    the order-fixed kernel S1 replaces. Then reads S1 and S2 the same way
+    (PR 16's kernels: their tiles and blocks change with the row count),
+    and fails if either moves a bit: S1 at [R, 256] x [256, 1024] and at
+    fc2's [R, 1024] x [1024, 256], S2 at a decode step's attention over
+    R batch rows at random positions (cache 256). Returns {op: moved?}."""
     import torch
     from deeplearning4j_tpu_torch.nn.layers import attention as natt
     from deeplearning4j_tpu_torch.ops import activations
+    from deeplearning4j_tpu_torch.ops import stream_exact as se
     g = torch.Generator(device="cpu").manual_seed(SEED + 15)
     n = max(SI_ROWS)
     x = (torch.randn(n, SI_WIDTH, generator=g) * 3.0).cuda()
@@ -6320,6 +6352,15 @@ def phase_stream_invariance():
     lb = (torch.randn(SI_WIDTH, generator=g) * 0.1).cuda()
     z = (torch.randn(n, SI_V, generator=g) * 4.0).cuda()
     W = (torch.randn(SI_WIDTH, 4 * SI_WIDTH, generator=g) * 0.05).cuda()
+    x4 = torch.randn(n, 4 * SI_WIDTH, generator=g).cuda()
+    W2 = (torch.randn(4 * SI_WIDTH, SI_WIDTH, generator=g) * 0.03).cuda()
+    b2 = (torch.randn(SI_WIDTH, generator=g) * 0.1).cuda()
+    hd = DEC_W // DEC_H
+    q = torch.randn(n, 1, DEC_H, hd, generator=g).cuda()
+    kc, vc = (torch.randn(n, DEC_C, DEC_H, hd, generator=g).cuda()
+              for _ in range(2))
+    pos = torch.randint(0, DEC_C, (n,), generator=g).to(torch.int32).cuda()
+    rows = torch.arange(n, device="cuda")
     softmax = activations.get("softmax")
     gelu = activations.get("gelu")
     ops = {
@@ -6330,6 +6371,10 @@ def phase_stream_invariance():
         "softmax_3d": (lambda a: softmax(a[:, None])[:, 0], z),
         "gelu": (gelu, x),
         "matmul_cublas": (lambda a: torch.matmul(a, W), x),
+        "stream_dense_fc1": (lambda a: se.stream_dense(a, W), x),
+        "stream_dense_fc2": (lambda a: se.stream_dense(a, W2, b2), x4),
+        "stream_mha": (lambda i: se.stream_mha(q[i], kc[i], vc[i], pos[i]),
+                       rows),
     }
     moved = {}
     for name, (fn, arg) in ops.items():
@@ -6338,6 +6383,9 @@ def phase_stream_invariance():
         moved[name] = any(d for d, _ in res.values())
         phase("stream_invariance", op=name, moved=moved[name],
               **{f"rows{R}": f"{d}/{e:.3g}" for R, (d, e) in res.items()})
+    for name in ("stream_dense_fc1", "stream_dense_fc2", "stream_mha"):
+        check(not moved[name], f"{name} moved bits with the row count; "
+              f"it must not")
     return moved
 
 
@@ -6354,7 +6402,12 @@ def stream_cases():
     """(name, kernel, plain, args) at the decode path's shapes: a step of
     32 rows and a 16-token chunk of 4 rows, each of the four projections
     and the head; attention at those and at a 256-token one-shot prefill;
-    the block's LayerNorm."""
+    the block's LayerNorm. Then the new kernels' edges (PR 16): 1, 7, 33
+    and 256 rows (ragged row tiles; 256 a one-shot prefill) at fc1 and at
+    fc2's f = 1024; a ragged f, g and the 4-byte copy path; attention at
+    positions 0 and C - 1, a 16-token chunk whose last row sees C - 1, the
+    visible range ending on a tile edge, and a head width off the 16-byte
+    path."""
     import torch
     from deeplearning4j_tpu_torch.ops import stream_exact as se
     g = torch.Generator(device="cpu").manual_seed(SEED + 150)
@@ -6363,6 +6416,7 @@ def stream_cases():
         return (torch.randn(*shape, generator=g) * s).cuda()
 
     W = DEC_W
+    hd = W // DEC_H
     cases = []
     for rows in (32, 64):
         x = r(rows, W)
@@ -6373,15 +6427,31 @@ def stream_cases():
         cases.append((f"rownorm_{rows}x{W}", se.KERNEL_NORM,
                       (r(rows, W, s=3.0), r(W, s=0.1) + 1.0, r(W, s=0.1),
                        1e-5)))
+    for rows in (1, 7, 33, 256):
+        for f, n in ((W, 4 * W), (4 * W, W)):
+            cases.append((f"dense_{rows}x{f}x{n}", se.KERNEL_DENSE,
+                          (r(rows, f), r(f, n, s=f ** -0.5), r(n, s=0.1))))
+    cases.append(("dense_33x1000x80_nobias", se.KERNEL_DENSE,
+                  (r(33, 1000), r(1000, DEC_V, s=0.03), None)))
+    cases.append(("dense_7x37x33_4byte", se.KERNEL_DENSE,
+                  (r(7, 37), r(37, 33, s=0.2), r(33, s=0.1))))
+
+    def mha(name, b, t, pos, dh=hd, C=DEC_C):
+        cases.append((name, se.KERNEL_MHA,
+                      (r(b, t, DEC_H, dh), r(b, C, DEC_H, dh),
+                       r(b, C, DEC_H, dh),
+                       torch.tensor(pos, dtype=torch.int32).cuda())))
+
     for b, t in ((32, 1), (4, 16), (1, DEC_C)):
-        hd = W // DEC_H
         pos = torch.randint(0, DEC_C - t + 1, (b,), generator=g)
         if t == DEC_C:
             pos.zero_()
-        cases.append((f"mha_b{b}_t{t}", se.KERNEL_MHA,
-                      (r(b, t, DEC_H, hd), r(b, DEC_C, DEC_H, hd),
-                       r(b, DEC_C, DEC_H, hd),
-                       pos.to(torch.int32).cuda())))
+        mha(f"mha_b{b}_t{t}", b, t, pos.tolist())
+    tile = se.mha_plan(1, 1, DEC_H, hd, DEC_C).tj
+    mha("mha_pos_0_and_last", 2, 1, [0, DEC_C - 1])
+    mha("mha_b1_t16_sees_last", 1, 16, [DEC_C - 16])
+    mha("mha_tile_edges", 4, 1, [tile - 1, tile, tile + 1, 2 * tile - 1])
+    mha("mha_dh10_4byte", 3, 5, [0, 17, 40], dh=10, C=48)
     return cases
 
 
@@ -6861,6 +6931,47 @@ def phase_decode_lstm():
           lstm_fwd_sm90=launches.get("lstm_fwd_sm90", 0))
 
 
+def dense_time_case(g, rows, f, n):
+    """S1's timing case at x [rows, f] @ W [f, n] + b: (args, library call,
+    its name, operations, bytes). The product and the sum are rounded
+    apart, two f32 instructions each where an FMA would be one: counted
+    as 2 x 2 rows f n flops against the FMA rate (67 TFLOP/s counts an
+    FMA as two)."""
+    import torch
+    r = lambda *s: torch.randn(*s, generator=g).cuda()  # noqa: E731
+    x, Wm, b = r(rows, f), r(f, n) * f ** -0.5, r(n)
+    return ((x, Wm, b), lambda: torch.addmm(b, x, Wm), "torch.addmm",
+            4 * rows * f * n, 4 * (rows * f + f * n + n + rows * n))
+
+
+def mha_time_case(g, rows, t=1):
+    """S2's timing case: q [rows, t, 4, 64] against caches of DEC_C rows at
+    random positions 5 ... DEC_C - t (args, masked SDPA, its name,
+    operations over every (query row, visible position) and bytes of the
+    visible k and v rows, q, the output and the positions)."""
+    import torch
+    import torch.nn.functional as F
+    hd = DEC_W // DEC_H
+    r = lambda *s: torch.randn(*s, generator=g).cuda()  # noqa: E731
+    q, k, v = r(rows, t, DEC_H, hd), r(rows, DEC_C, DEC_H, hd), \
+        r(rows, DEC_C, DEC_H, hd)
+    pos = torch.randint(5, DEC_C - t + 1, (rows,), generator=g).to(
+        torch.int32)
+    kv_rows = int((pos + t).sum())          # k and v rows read
+    pairs = int((pos + 1).sum()) * t + rows * t * (t - 1) // 2
+    pos = pos.cuda()
+    mask = (torch.arange(DEC_C, device="cuda")[None, None, :]
+            <= (pos[:, None] + torch.arange(t, device="cuda"))[:, :, None]
+            )[:, None]
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    return ((q, k, v, pos), lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask),
+        "torch.nn.functional.scaled_dot_product_attention(attn_mask)",
+        4 * DEC_H * hd * pairs,
+        4 * (2 * rows * t * DEC_H * hd + 2 * DEC_H * hd * kv_rows)
+        + 4 * rows)
+
+
 def stream_time_cases():
     """(kernel, args, library call, flops, bytes) for the timing of each S
     kernel at the decode step's shape (32 rows): the MLP's up projection,
@@ -6868,32 +6979,31 @@ def stream_time_cases():
     import torch
     import torch.nn.functional as F
     g = torch.Generator(device="cpu").manual_seed(SEED + 160)
-    rows, W, hd = 32, DEC_W, DEC_W // DEC_H
+    rows, W = 32, DEC_W
     r = lambda *s: torch.randn(*s, generator=g).cuda()  # noqa: E731
-    x, Wm, b = r(rows, W), r(W, 4 * W) * W ** -0.5, r(4 * W)
-    q, k, v = r(rows, 1, DEC_H, hd), r(rows, DEC_C, DEC_H, hd), \
-        r(rows, DEC_C, DEC_H, hd)
-    pos = torch.randint(5, DEC_C, (rows,), generator=g).to(torch.int32)
-    visible = int((pos + 1).sum())
-    pos = pos.cuda()
-    mask = (torch.arange(DEC_C, device="cuda")[None, :]
-            <= pos[:, None])[:, None, None, :]
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    dense = dense_time_case(g, rows, W, 4 * W)
+    mha = mha_time_case(g, rows)
+    x = dense[0][0]
     ln_g, ln_b = r(W) * 0.1 + 1.0, r(W) * 0.1
     return {
-        "stream_dense": ((x, Wm, b), lambda: torch.addmm(b, x, Wm),
-                         "torch.addmm", 2 * rows * W * 4 * W,
-                         4 * (rows * W + W * 4 * W + 4 * W + rows * 4 * W)),
-        "stream_mha": ((q, k, v, pos), lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask),
-            "torch.nn.functional.scaled_dot_product_attention(attn_mask)",
-            4 * DEC_H * hd * visible,
-            4 * (2 * rows * DEC_H * hd + 2 * DEC_H * hd * visible) + 4 * rows),
+        "stream_dense": dense,
+        "stream_mha": mha,
         "stream_rownorm": ((x, ln_g, ln_b, 1e-5),
                            lambda: F.layer_norm(x, (W,), ln_g, ln_b, 1e-5),
                            "torch.nn.functional.layer_norm", 8 * rows * W,
                            4 * (2 * rows * W + 2 * W)),
     }
+
+
+def max_sm_clock_hz():
+    """The card's highest SM clock (nvidia-smi clocks.max.sm), in Hz."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    return float(smi.stdout.strip().splitlines()[0]) * 1e6
+
+
 
 
 def phase_times_stream(card, errs, launches):
@@ -6906,6 +7016,8 @@ def phase_times_stream(card, errs, launches):
     plain = {se.KERNEL_DENSE: se.stream_dense_torch,
              se.KERNEL_MHA: se.stream_mha_torch,
              se.KERNEL_NORM: se.stream_rownorm_torch}
+    first = {se.KERNEL_DENSE: se.dense_launch_v1,
+             se.KERNEL_MHA: se.mha_launch_v1}
     entries = []
     with torch.inference_mode():
         for name, (args, lib, lib_name, flops, nbytes) in \
@@ -6925,6 +7037,13 @@ def phase_times_stream(card, errs, launches):
             dev_ms, dev_lib_ms = statistics.mean(dev), statistics.mean(dev_lib)
             host_ms = host_ms_per_call(run)
             bound_ms, bound_by = bound(flops, nbytes, "float32")
+            old = {}
+            if name in first:   # the first version (PR 15) beside it
+                v1 = lambda: first[name](*args)  # noqa: E731
+                old = dict(first_version_ms=cuda_ms_per_launch(v1, reps=10),
+                           first_version_device_ms=device_ms_per_call(
+                               v1, reps=50)[0],
+                           first_version_host_issue_ms=host_ms_per_call(v1))
             phase("times", kernel=name, route="cuda", card=json.dumps(card),
                   ms=f"{ms:.4f}", device_ms=f"{dev_ms:.4f}",
                   device_ms_readings=json.dumps([round(t, 5) for t in dev]),
@@ -6936,7 +7055,8 @@ def phase_times_stream(card, errs, launches):
                   device_roofline_share=f"{bound_ms / dev_ms:.4f}",
                   bound_ms=f"{bound_ms:.5f}", bound_by=bound_by,
                   flops=f"{flops:.4g}", bytes=f"{nbytes:.4g}",
-                  roofline_share=f"{bound_ms / ms:.4f}")
+                  roofline_share=f"{bound_ms / ms:.4f}",
+                  **{k: f"{t:.4f}" for k, t in old.items()})
             entries.append({
                 "name": name, "route": "cuda",
                 "source": "deeplearning4j_tpu_torch/ops/csrc/stream_exact.cu",
@@ -6952,8 +7072,114 @@ def phase_times_stream(card, errs, launches):
                 "device_ms": dev_ms, "host_issue_ms": host_ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": lib_ms,
-                "library_device_ms": dev_lib_ms})
+                "library_device_ms": dev_lib_ms, **old})
     return entries
+
+
+def phase_stream_split():
+    """S1 and S2 (PR 16's kernels) beside their first versions (PR 15) at
+    the decode step's shapes, each in one run: S1 at fc1 [32, 256] x [256,
+    1024] and fc2 [32, 1024] x [1024, 256], S2 at a 32-row step and a
+    16-token chunk of 4 rows. In turns (first, new, library, library, new,
+    first): back to back by CUDA events, the profiler's device time, the
+    host's time to issue a call; the plain version once; the bound, S1's
+    chain floor (f dependent adds at the card's top SM clock). Both
+    versions are held bit-equal to the plain one. Then S1's device time
+    at every (rows a thread, warps a block) its plan can choose, at fc1
+    and fc2. The chain floor comes from the card itself
+    (stream_exact.chain_cycles: cycles a dependent add takes)."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import stream_exact as se
+    clock = max_sm_clock_hz()
+    # a chain step's cycles: a chain of f dependent adds takes at least f
+    # times this; and the same step with its operands read from shared
+    # memory just before it (what an unhidden read costs)
+    step_cycles, step_cycles_smem = se.chain_cycles()
+    phase("stream_floor", cycles_per_chain_step=f"{step_cycles:.3f}",
+          cycles_per_chain_step_smem_read=f"{step_cycles_smem:.3f}",
+          sm_clock_mhz=f"{clock / 1e6:.0f}")
+    g = torch.Generator(device="cpu").manual_seed(SEED + 161)
+    W = DEC_W
+    cases = {
+        "dense_fc1_32x256x1024": (se.KERNEL_DENSE,
+                                  dense_time_case(g, 32, W, 4 * W)),
+        "dense_fc2_32x1024x256": (se.KERNEL_DENSE,
+                                  dense_time_case(g, 32, 4 * W, W)),
+        "mha_step_b32_t1": (se.KERNEL_MHA, mha_time_case(g, 32)),
+        "mha_chunk_b4_t16": (se.KERNEL_MHA, mha_time_case(g, 4, 16)),
+    }
+    fns = {se.KERNEL_DENSE: (se.stream_dense_cuda, se.dense_launch_v1,
+                             se.stream_dense_torch),
+           se.KERNEL_MHA: (se.stream_mha_cuda, se.mha_launch_v1,
+                           se.stream_mha_torch)}
+    with torch.inference_mode():
+        for case, (kern, (args, lib, lib_name, flops, nbytes)) in \
+                cases.items():
+            new, v1, plain = fns[kern]
+            want = plain(*args)
+            for who, fn in (("new", new), ("first", v1)):
+                got = fn(*args)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want), f"{case}: the {who} version "
+                      f"differs from the plain one (max "
+                      f"{float((got - want).abs().max()):.3g})")
+            run = {"first": lambda: v1(*args), "new": lambda: new(*args),
+                   "library": lib}
+            b2b = {k: [] for k in run}
+            dev = {k: [] for k in run}
+            for who in ("first", "new", "library", "library", "new",
+                        "first"):
+                b2b[who].append(cuda_ms_per_launch(run[who], reps=10))
+                dev[who].append(device_ms_per_call(run[who], reps=50)[0])
+            host = {k: host_ms_per_call(fn) for k, fn in run.items()}
+            plain_ms = cuda_ms(lambda: plain(*args), reps=3)
+            bound_ms, bound_by = bound(flops, nbytes, "float32")
+            if kern == se.KERNEL_DENSE:
+                rows, f = args[0].shape
+                plan = se.dense_plan(rows, f, args[1].shape[1])
+                floor_ms = f * step_cycles / clock * 1e3
+                extra = dict(chain_floor_ms=f"{floor_ms:.5f}")
+            else:
+                plan = se.mha_plan(*args[0].shape, args[1].shape[1])
+                extra = {}
+            extra["plan"] = json.dumps(plan._asdict())
+            phase("stream_split", case=case, kernel=kern,
+                  **{f"{k}_ms": f"{statistics.mean(v):.4f}"
+                     for k, v in b2b.items()},
+                  **{f"{k}_device_ms": f"{statistics.mean(v):.4f}"
+                     for k, v in dev.items()},
+                  **{f"{k}_host_issue_ms": f"{t:.4f}"
+                     for k, t in host.items()},
+                  device_readings=json.dumps(
+                      {k: [round(t, 5) for t in v] for k, v in dev.items()}),
+                  plain_ms=f"{plain_ms:.4f}", library=lib_name,
+                  bound_ms=f"{bound_ms:.5f}", bound_by=bound_by,
+                  sm_clock_mhz=f"{clock / 1e6:.0f}", **extra)
+        sweep_cases = {
+            "dense_qkvo_32x256x256": dense_time_case(g, 32, W, W)[0],
+            "dense_fc1_32x256x1024": cases["dense_fc1_32x256x1024"][1][0],
+            "dense_fc2_32x1024x256": cases["dense_fc2_32x1024x256"][1][0],
+            "dense_head_32x256x80": dense_time_case(g, 32, W, DEC_V)[0]}
+        for case, (x, Wm, b) in sweep_cases.items():
+            want = se.stream_dense_torch(x, Wm, b)
+            sweep = {}
+            for rt, tc, wb in itertools.product((1, 2, 4), (4, 16),
+                                                (1, 2, 4)):
+                plan = se.dense_plan(x.shape[0], Wm.shape[0], Wm.shape[1],
+                                     rt=rt, tc=tc, wb=wb)
+                got = se._dense_launch(x, Wm, b, plan=plan)
+                check(torch.equal(got, want),
+                      f"{case}: rt={rt}, tc={tc}, wb={wb} moved bits")
+                sweep[f"rt{rt}_tc{tc}_wb{wb}"] = round(device_ms_per_call(
+                    lambda: se._dense_launch(x, Wm, b, plan=plan),
+                    reps=50)[0], 5)
+            chosen = se.dense_plan(x.shape[0], Wm.shape[0], Wm.shape[1])
+            phase("stream_split", case=f"{case}_plans",
+                  chosen=json.dumps(chosen._asdict()),
+                  chosen_device_ms=sweep[f"rt{chosen.rt}_tc{chosen.tc}"
+                                         f"_wb{chosen.wb}"],
+                  fastest=min(sweep, key=sweep.get),
+                  device_ms=json.dumps(sweep))
 
 
 def stream_grads_vs_plain():
@@ -7029,8 +7255,10 @@ def main() -> int:
             ("--k7-split", lambda: phase_split("fused_block_bwd_apply")),
             ("--k6-split", lambda: phase_split("fused_block_bwd_stats")),
             ("--fwd-split", phase_fwd_split),
-            ("--profiler-pause", phase_profiler_pause)):
-        if flag in sys.argv[1:]:
+            ("--profiler-pause", phase_profiler_pause),
+            ("--stream-split", phase_stream_split)):
+        if flag in sys.argv[1:] and not (flag == "--stream-split"
+                                         and "--slice15" in sys.argv[1:]):
             smi = subprocess.run(["nvidia-smi",
                                   "--query-gpu=name,power.limit",
                                   "--format=csv,noheader"],
@@ -7065,6 +7293,8 @@ def main() -> int:
             return 0
     if "--slice15" in sys.argv[1:]:
         kernels = phase_slice15(phase_device())
+        if "--stream-split" in sys.argv[1:]:
+            phase_stream_split()
         print(json.dumps({"kernels": kernels}), flush=True)
         print(ok_line, flush=True)
         return 0
@@ -7097,6 +7327,7 @@ def main() -> int:
     phase_graph_layers()
     phase_remat()
     kernels += phase_slice15(card)
+    phase_stream_split()
     phase("profiler", pause_s=PROFILE_PAUSE_S, **PROFILES)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(ok_line, flush=True)

@@ -34,9 +34,9 @@ Span taxonomy (the JAX package's names):
   ``checkpoint_barrier``, ``rollback``, ``restore``
 - datapipe: ``pipe_shuffle_fill``, ``pipe_collate``,
   ``pipe_prefetch_pull``
-- the serving batcher's spans (``queue_wait``, ``batch_assembly``,
-  ``device_compute``) wait for ROADMAP.md A.3, the distributed phases
-  for A.5.
+- the serving batcher (serving/batcher.py): ``queue_wait``,
+  ``batch_assembly``, ``device_compute``; the distributed phases wait
+  for ROADMAP.md A.5.
 
 Launches are asynchronous on the card, so a span around them times the
 host issuing them; no span waits on the card.

@@ -48,7 +48,9 @@ its last bit (the card's ``expf`` against the CPU's).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -161,33 +163,167 @@ def stream_rownorm(x, gamma, beta, eps):
     return registry.get(KERNEL_NORM, x.device)(x, gamma, beta, eps)
 
 
+# ------------------------------------------------------------ launch plans
+# The launch geometry of S1 and S2, mirrored by csrc/stream_exact.cu's
+# constants. A plan never changes a sum's order: it only says how many
+# outputs a thread and a block own.
+SMEM_MAX = 232448        # bytes of shared memory a block can use (227 KB)
+WAVE_BLOCKS = 128        # about one block for each of the card's 132 SMs
+SCHEDULERS = 512         # about one warp for each of its 528 schedulers
+DENSE_FK = 64            # S1: f values a staged chunk
+DENSE_STAGES = 4
+DENSE_XS = DENSE_FK + 4  # S1: a staged x row, padded by 16 bytes
+MAX_COL_TILES = 65535
+MHA_THREADS = 128
+MHA_STAGE_FLOATS = 8192  # S2: a stage holds 8192 / dh cache rows
+MHA_STAGES = 3
+MHA_MAX_ITEMS = 8        # S2: (query row, column) outputs a thread
+MHA_BLOCKS = 2 * 132     # S2: blocks a prefill aims at (two an SM)
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+class DensePlan(NamedTuple):
+    rt: int          # rows a thread (2 rt independent chains: 2 columns)
+    tc: int          # column threads a warp (a warp spans 2 tc columns)
+    wb: int          # warps a block
+    row_tiles: int   # grid x: blocks of (32 / tc) rt wb rows
+    col_tiles: int   # grid y: blocks of 2 tc columns
+    smem: int        # bytes of shared memory a block
+
+    @property
+    def blocks(self):
+        return self.row_tiles * self.col_tiles
+
+
+def dense_plan(rows, f, g, rt=None, tc=None, wb=None) -> DensePlan:
+    """S1's launch for x [rows, f] @ W [f, g]: the most rows a thread (4,
+    2, 1) that still leaves a warp for each of ~512 warp schedulers (a
+    warp owns 64 rt outputs); then blocks of four warps 16 column threads
+    wide (8 rt rows by 32 columns) where that gives ~a block an SM
+    (WAVE_BLOCKS), else of two warps 4 column threads wide (16 rt rows by
+    8 columns): the fastest of the 18 choices at each decode shape in
+    chip_smoke.py --stream-split's sweep, or within 1% of it.
+    ``rt``/``tc``/``wb`` force a choice (for timing the alternatives)."""
+    if rows > 2 ** 31 - 1:
+        raise NotImplementedError(
+            f"stream_dense takes at most {2 ** 31 - 1} rows, got {rows}")
+    if rt is None:
+        rt = next((r for r in (4, 2)
+                   if _cdiv(rows * g, 64 * r) >= SCHEDULERS), 1)
+    if tc is None and wb is None:
+        wide = _cdiv(rows, 2 * rt * 4) * _cdiv(g, 32) >= WAVE_BLOCKS
+        tc, wb = (16, 4) if wide else (4, 2)
+    tc, wb = tc or 16, wb or 4
+    col_tiles = _cdiv(g, 2 * tc)
+    if col_tiles > MAX_COL_TILES:
+        raise NotImplementedError(
+            f"stream_dense takes at most {MAX_COL_TILES * 2 * tc} output "
+            f"columns at {tc} column threads a warp, got {g}")
+    br = (32 // tc) * rt * wb
+    return DensePlan(rt, tc, wb, _cdiv(rows, br), col_tiles,
+                     4 * DENSE_STAGES * (br * DENSE_XS + DENSE_FK * 2 * tc))
+
+
+class MhaPlan(NamedTuple):
+    qg: int          # query rows a block
+    groups: int      # blocks a (batch row, head)
+    tj: int          # cache rows a stage of the ring (8192 / dh, at most C)
+    smem: int        # bytes of shared memory a block
+    blocks: int
+
+
+def mha_cache_limit(dh, v4=True) -> int:
+    """The longest cache S2 takes at head width ``dh``: one row of p for
+    the whole cache beside the ring, in 227 KB."""
+    ks = dh + 4 if v4 else dh + 1
+    ring = MHA_STAGES * max(1, MHA_STAGE_FLOATS // dh) * ks
+    return SMEM_MAX // 4 - ring - dh - 5
+
+
+def mha_plan(b, t, h, dh, C, v4=True) -> MhaPlan:
+    """S2's launch for q [b, t, h, dh] against caches of C rows: one block
+    per (batch row, head, group of qg query rows), the query rows split so
+    that a prefill launches ~two blocks an SM where t allows, as few rows
+    a block as that needs; qg bounded by the outputs a thread holds and by
+    shared memory (the ring, q's rows, a row of p of C floats each).
+    ``v4``: 16-byte copies into rows padded to dh + 4 (dh % 4 == 0,
+    aligned bases); else 4-byte copies into rows of dh + 1."""
+    if dh > MHA_MAX_ITEMS * MHA_THREADS:
+        raise NotImplementedError(
+            f"stream_mha takes head widths up to "
+            f"{MHA_MAX_ITEMS * MHA_THREADS}, got dh={dh}")
+    ks = dh + 4 if v4 else dh + 1
+    tj = max(1, min(MHA_STAGE_FLOATS // dh, C))
+    ring = MHA_STAGES * tj * ks
+    row = dh + C + 5     # q's row, p's row, the row max and its 4 parts
+    qg_max = min(MHA_MAX_ITEMS * MHA_THREADS // dh,
+                 (SMEM_MAX // 4 - ring) // row)
+    if qg_max < 1:
+        raise NotImplementedError(
+            f"stream_mha holds a row of p for the whole cache in shared "
+            f"memory beside its {4 * ring} B ring: C={C}, dh={dh} needs "
+            f"{4 * (ring + row)} B per block (at most 227 KB, "
+            f"so C <= {mha_cache_limit(dh, v4)} at dh={dh})")
+    groups = min(t, _cdiv(MHA_BLOCKS, b * h))
+    qg = min(_cdiv(t, groups), qg_max)
+    groups = _cdiv(t, qg)
+    return MhaPlan(qg, groups, tj, 4 * (ring + qg * row), b * h * groups)
+
+
 # ------------------------------------------------------------------ cuda
+_LIB = None
+_RAW_STREAM = None
+
+
 def _bind():
+    global _LIB, _RAW_STREAM
+    if _LIB is not None:
+        return _LIB
     from deeplearning4j_tpu_torch.ops import _build
 
     lib = _build.load(LIB)
-    if getattr(lib, "_dl4j_bound", False):
-        return lib
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.dl4j_stream_dense.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
+    lib.dl4j_stream_dense.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
     lib.dl4j_stream_dense.restype = i32
-    lib.dl4j_stream_mha.argtypes = ([ptr] * 5 + [i32] * 5
+    lib.dl4j_stream_dense_v1.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
+    lib.dl4j_stream_dense_v1.restype = i32
+    lib.dl4j_stream_mha.argtypes = ([ptr] * 5 + [i32] * 8
                                     + [ctypes.c_float, ptr])
     lib.dl4j_stream_mha.restype = i32
+    lib.dl4j_stream_mha_v1.argtypes = ([ptr] * 5 + [i32] * 5
+                                       + [ctypes.c_float, ptr])
+    lib.dl4j_stream_mha_v1.restype = i32
     lib.dl4j_stream_rownorm.argtypes = ([ptr] * 4 + [i32] * 2
                                         + [ctypes.c_float, ptr])
     lib.dl4j_stream_rownorm.restype = i32
-    lib.dl4j_stream_mha_smem_bytes.argtypes = [i32, i32]
-    lib.dl4j_stream_mha_smem_bytes.restype = i32
+    lib.dl4j_stream_chain_probe.argtypes = [ptr] * 3 + [i32, ptr]
+    lib.dl4j_stream_chain_probe.restype = i32
     lib.dl4j_cuda_error_string.argtypes = [i32]
     lib.dl4j_cuda_error_string.restype = ctypes.c_char_p
-    lib._dl4j_bound = True
+    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    _RAW_STREAM = get or (lambda i: torch.cuda.current_stream(i).cuda_stream)
+    _LIB = lib
     return lib
 
 
-def _require(x, name, dtype=torch.float32):
-    if x.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
+def _launch(device, fn, *args):
+    """fn(*args, stream) on ``device``'s current stream: the device is
+    entered only when it is not the thread's current one."""
+    idx = device.index
+    if idx is None or idx == torch.cuda.current_device():
+        return fn(*args, _RAW_STREAM(torch.cuda.current_device()
+                                     if idx is None else idx))
+    with torch.cuda.device(idx):
+        return fn(*args, _RAW_STREAM(idx))
+
+
+def _require(x, name, device, dtype=torch.float32):
+    if x.device != device:
+        raise ValueError(f"{name} must be a CUDA tensor on {device}, got "
+                         f"{x.device}")
     if x.dtype != dtype:
         raise ValueError(f"{name} must be {dtype}, got {x.dtype}")
     if not x.is_contiguous():
@@ -286,8 +422,8 @@ def stream_dense_cuda(x, W, b=None):
 def stream_mha_cuda(q, k_cache, v_cache, pos):
     """S2 on the card; with gradients on, through ``StreamMhaFn``."""
     if _grad_needed(q, k_cache, v_cache):
-        p = torch.as_tensor(pos, device=q.device).to(torch.int32)
-        return StreamMhaFn.apply(q, k_cache, v_cache, p)
+        return StreamMhaFn.apply(q, k_cache, v_cache,
+                                 _positions_i32(pos, q.shape[0], q.device))
     return _mha_launch(q, k_cache, v_cache, pos)
 
 
@@ -299,41 +435,50 @@ def stream_rownorm_cuda(x, gamma, beta, eps):
     return _rownorm_launch(x, gamma, beta, eps)
 
 
-def _dense_launch(x, W, b=None):
-    """Launch S1 on the current stream: x [..., f] f32 @ W [f, g] f32
-    (+ b [g] f32) -> [..., g] f32. Raises on what the kernel does not
-    take; never falls back."""
-    lead = x.shape[:-1]
-    f, g = W.shape
-    x2 = x.reshape(-1, f)
-    rows = x2.shape[0]
-    for name, a in (("x", x2), ("W", W)) + ((("b", b),) if b is not None
-                                            else ()):
-        _require(a, name)
-        if a.device != x.device:
-            raise ValueError(f"{name} is on {a.device}, x on {x.device}")
-    if x.shape[-1] != f or (b is not None and tuple(b.shape) != (g,)):
+def _dense_args(x, W, b):
+    """x as [rows, f] after the checks S1's kernels share."""
+    if W.dim() != 2 or x.shape[-1] != W.shape[0] or (
+            b is not None and (b.dim() != 1 or b.shape[0] != W.shape[1])):
         raise ValueError(f"stream_dense: x {tuple(x.shape)}, W "
                          f"{tuple(W.shape)}, b "
                          f"{None if b is None else tuple(b.shape)}")
-    if rows > 65535:
-        raise NotImplementedError(
-            f"stream_dense takes at most 65535 rows, got {rows}")
-    y = torch.empty((rows, g), dtype=torch.float32, device=x.device)
+    x2 = x if x.dim() == 2 else x.reshape(-1, W.shape[0])
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"x must be a CUDA tensor, got {dev}")
+    _require(x2, "x", dev)
+    _require(W, "W", dev)
+    if b is not None:
+        _require(b, "b", dev)
+    return x2
+
+
+def _dense_launch(x, W, b=None, plan=None):
+    """Launch S1 on the current stream: x [..., f] f32 @ W [f, g] f32
+    (+ b [g] f32) -> [..., g] f32. Raises on what the kernel does not
+    take; never falls back. ``plan`` forces a launch geometry (for timing
+    the alternatives); by default ``dense_plan``'s."""
+    x2 = _dense_args(x, W, b)
+    rows, (f, g) = x2.shape[0], W.shape
+    y = x2.new_empty((rows, g))
     if rows == 0:
-        return y.reshape(*lead, g)
+        return y.reshape(*x.shape[:-1], g)
+    plan = plan or _dense_plan(rows, f, g)
     lib = _bind()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.dl4j_stream_dense(x2.data_ptr(), W.data_ptr(),
-                                   None if b is None else b.data_ptr(),
-                                   y.data_ptr(), rows, f, g, stream)
+    rc = _launch(x.device, lib.dl4j_stream_dense, x2.data_ptr(),
+                 W.data_ptr(), None if b is None else b.data_ptr(),
+                 y.data_ptr(), rows, f, g, plan.rt, plan.tc, plan.wb)
     if rc != 0:
-        _raise(lib, rc, KERNEL_DENSE, f"rows={rows}, f={f}, g={g}")
+        _raise(lib, rc, KERNEL_DENSE, f"rows={rows}, f={f}, g={g}, {plan}")
     registry.count_launch(KERNEL_DENSE)
     registry.count_flops(KERNEL_DENSE, dense_flops(rows, f, g,
                                                    b is not None))
-    return y.reshape(*lead, g)
+    return y if x.dim() == 2 else y.reshape(*x.shape[:-1], g)
+
+
+@functools.lru_cache(maxsize=256)
+def _dense_plan(rows, f, g):
+    return dense_plan(rows, f, g)
 
 
 def mha_flops(b, t, h, dh, C) -> int:
@@ -342,47 +487,123 @@ def mha_flops(b, t, h, dh, C) -> int:
     return 4 * b * h * t * C * dh
 
 
+def _positions_i32(pos, b, device):
+    """``pos`` ([b] or a scalar) as a contiguous int32 [b] tensor on
+    ``device``; one already so is taken as it is, without a copy."""
+    if isinstance(pos, torch.Tensor) and pos.dtype == torch.int32 and \
+            pos.device == device and pos.shape == (b,) and \
+            pos.is_contiguous():
+        return pos
+    p = torch.as_tensor(pos, device=device).to(torch.int32).reshape(-1)
+    p = (p.expand(b) if p.numel() == 1 else p).contiguous()
+    if p.numel() != b:
+        raise ValueError(f"stream_mha: pos has {p.numel()} rows, q {b}")
+    return p
+
+
+def _mha_args(q, k_cache, v_cache, pos):
+    """(b, t, h, dh, C, int32 positions) after the checks S2's kernels
+    share."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"q must be a CUDA tensor, got {dev}")
+    for name, a in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+        _require(a, name, dev)
+        if a.dim() != 4:
+            raise ValueError(f"{name} must be 4-D, got {tuple(a.shape)}")
+    b, t, h, dh = q.shape
+    C = k_cache.shape[1]
+    if k_cache.shape != (b, C, h, dh) or v_cache.shape != (b, C, h, dh):
+        raise ValueError(f"stream_mha: q {tuple(q.shape)}, caches "
+                         f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
+    return b, t, h, dh, C, _positions_i32(pos, b, dev)
+
+
+def _v4(dh, *ts):
+    """S2 takes 16-byte copies: dh a multiple of 4, every base aligned."""
+    return dh % 4 == 0 and all(a.data_ptr() % 16 == 0 for a in ts)
+
+
+@functools.lru_cache(maxsize=256)
+def _mha_plan(b, t, h, dh, C, v4):
+    return mha_plan(b, t, h, dh, C, v4)
+
+
 def _mha_launch(q, k_cache, v_cache, pos):
     """Launch S2 on the current stream: q [b, t, h, dh] f32 against the
     caches [b, C, h, dh] f32 with per-row positions ``pos`` ([b] or a
     scalar) -> [b, t, h, dh] f32. Raises on what the kernel does not take;
     never falls back."""
-    for name, a in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        _require(a, name)
-        if a.dim() != 4:
-            raise ValueError(f"{name} must be 4-D, got {tuple(a.shape)}")
-    b, t, h, dh = q.shape
-    C = k_cache.shape[1]
-    if tuple(k_cache.shape) != (b, C, h, dh) or \
-            tuple(v_cache.shape) != (b, C, h, dh):
-        raise ValueError(f"stream_mha: q {tuple(q.shape)}, caches "
-                         f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
-    if k_cache.device != q.device or v_cache.device != q.device:
-        raise ValueError("stream_mha: q and the caches must share a device")
-    p = torch.as_tensor(pos, device=q.device).to(torch.int32).reshape(-1)
-    p = (p.expand(b) if p.numel() == 1 else p).contiguous()
-    if p.numel() != b:
-        raise ValueError(f"stream_mha: pos has {p.numel()} rows, q {b}")
-    lib = _bind()
-    smem = lib.dl4j_stream_mha_smem_bytes(dh, C)
-    if smem > 227 * 1024:
-        raise NotImplementedError(
-            f"stream_mha holds p for the whole cache in shared memory: "
-            f"C={C}, dh={dh} needs {smem} B per block (at most 227 KB)")
+    b, t, h, dh, C, p = _mha_args(q, k_cache, v_cache, pos)
+    v4 = _v4(dh, q, k_cache, v_cache)
+    plan = _mha_plan(b, t, h, dh, C, v4)
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.dl4j_stream_mha(q.data_ptr(), k_cache.data_ptr(),
-                                 v_cache.data_ptr(), p.data_ptr(),
-                                 out.data_ptr(), b, t, h, dh, C,
-                                 1.0 / math.sqrt(dh), stream)
+    lib = _bind()
+    rc = _launch(q.device, lib.dl4j_stream_mha, q.data_ptr(),
+                 k_cache.data_ptr(), v_cache.data_ptr(), p.data_ptr(),
+                 out.data_ptr(), b, t, h, dh, C, plan.qg, plan.groups,
+                 int(v4), 1.0 / math.sqrt(dh))
     if rc != 0:
         _raise(lib, rc, KERNEL_MHA,
-               f"b={b}, t={t}, h={h}, dh={dh}, C={C}, {smem} B shared "
-               f"memory per block")
+               f"b={b}, t={t}, h={h}, dh={dh}, C={C}, {plan}")
     registry.count_launch(KERNEL_MHA)
     registry.count_flops(KERNEL_MHA, mha_flops(b, t, h, dh, C))
     return out
+
+
+def dense_launch_v1(x, W, b=None):
+    """S1's first version (one thread an output, W read once a row),
+    kept for timing beside the new kernel; the registry never reaches it
+    and it counts no launch."""
+    x2 = _dense_args(x, W, b)
+    rows, (f, g) = x2.shape[0], W.shape
+    if rows > 65535:
+        raise NotImplementedError(
+            f"stream_dense's first version takes at most 65535 rows, got "
+            f"{rows}")
+    y = torch.empty((rows, g), dtype=torch.float32, device=x.device)
+    lib = _bind()
+    rc = _launch(x.device, lib.dl4j_stream_dense_v1, x2.data_ptr(),
+                 W.data_ptr(), None if b is None else b.data_ptr(),
+                 y.data_ptr(), rows, f, g)
+    if rc != 0:
+        _raise(lib, rc, KERNEL_DENSE + "_v1", f"rows={rows}, f={f}, g={g}")
+    return y.reshape(*x.shape[:-1], g)
+
+
+def mha_launch_v1(q, k_cache, v_cache, pos):
+    """S2's first version (a warp a (row, query, head), k read a row a
+    lane), kept for timing beside the new kernel; the registry never
+    reaches it and it counts no launch."""
+    b, t, h, dh, C, p = _mha_args(q, k_cache, v_cache, pos)
+    out = torch.empty_like(q)
+    lib = _bind()
+    rc = _launch(q.device, lib.dl4j_stream_mha_v1, q.data_ptr(),
+                 k_cache.data_ptr(), v_cache.data_ptr(), p.data_ptr(),
+                 out.data_ptr(), b, t, h, dh, C, 1.0 / math.sqrt(dh))
+    if rc != 0:
+        _raise(lib, rc, KERNEL_MHA + "_v1",
+               f"b={b}, t={t}, h={h}, dh={dh}, C={C}")
+    return out
+
+
+def chain_cycles(n=4096):
+    """Cycles a step of a dependent add chain takes on the current card,
+    as S1 and S2 sum (a separately rounded product and sum): (operands
+    in registers, operands read from shared memory just before the step).
+    The chain floor of a kernel whose outputs are single chains."""
+    lib = _bind()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    src = torch.rand(1024, device=dev)
+    out = torch.empty(32, device=dev)
+    cyc = torch.zeros(2, dtype=torch.int64, device=dev)
+    for _ in range(2):                      # the second run is timed warm
+        rc = _launch(dev, lib.dl4j_stream_chain_probe, src.data_ptr(),
+                     out.data_ptr(), cyc.data_ptr(), n)
+        if rc != 0:
+            _raise(lib, rc, "stream_chain_probe", f"n={n}")
+    torch.cuda.synchronize(dev)
+    return tuple(c / n for c in cyc.tolist())
 
 
 def _rownorm_launch(x, gamma, beta, eps):
@@ -390,30 +611,29 @@ def _rownorm_launch(x, gamma, beta, eps):
     f32 with gamma, beta [w] f32 -> f32 of x's shape. Raises on what the
     kernel does not take; never falls back."""
     w = x.shape[-1]
-    x2 = x.reshape(-1, w)
+    x2 = x if x.dim() == 2 else x.reshape(-1, w)
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"x must be a CUDA tensor, got {dev}")
     for name, a in (("x", x2), ("gamma", gamma), ("beta", beta)):
-        _require(a, name)
-        if a.device != x.device:
-            raise ValueError(f"{name} is on {a.device}, x on {x.device}")
-    if tuple(gamma.shape) != (w,) or tuple(beta.shape) != (w,):
+        _require(a, name, dev)
+    if gamma.shape != (w,) or beta.shape != (w,):
         raise ValueError(f"stream_rownorm: x {tuple(x.shape)}, gamma "
                          f"{tuple(gamma.shape)}, beta {tuple(beta.shape)}")
-    if (w + 2) * 4 > 227 * 1024:
+    if (w + 2) * 4 > SMEM_MAX:
         raise NotImplementedError(
             f"stream_rownorm holds a row in shared memory: w={w} is too "
             f"wide")
     rows = x2.shape[0]
-    y = torch.empty((rows, w), dtype=torch.float32, device=x.device)
+    y = torch.empty((rows, w), dtype=torch.float32, device=dev)
     if rows == 0:
         return y.reshape(x.shape)
     lib = _bind()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.dl4j_stream_rownorm(x2.data_ptr(), gamma.data_ptr(),
-                                     beta.data_ptr(), y.data_ptr(), rows, w,
-                                     float(eps), stream)
+    rc = _launch(dev, lib.dl4j_stream_rownorm, x2.data_ptr(),
+                 gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), rows, w,
+                 float(eps))
     if rc != 0:
         _raise(lib, rc, KERNEL_NORM, f"rows={rows}, w={w}")
     registry.count_launch(KERNEL_NORM)
     registry.count_flops(KERNEL_NORM, 8 * rows * w)
-    return y.reshape(x.shape)
+    return y if x.dim() == 2 else y.reshape(x.shape)

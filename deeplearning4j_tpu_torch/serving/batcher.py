@@ -46,6 +46,10 @@ from deeplearning4j_tpu_torch.observability import goodput as _goodput
 from deeplearning4j_tpu_torch.observability.trace import \
     get_tracer as _get_tracer
 
+# the idle device thread re-checks its queue at least this often, so no
+# wait of it is unbounded (a submit or stop wakes it at once)
+_IDLE_RECHECK_S = 1.0
+
 
 class QueueFullError(RuntimeError):
     """Admission control: the pending-ticket queue is at ``max_queue``."""
@@ -259,7 +263,7 @@ class MicroBatcher:
             while True:
                 with self._cond:
                     while not self._pending and not self._stopping:
-                        self._cond.wait()
+                        self._cond.wait(_IDLE_RECHECK_S)
                     if not self._pending:
                         return  # stopping and fully drained
                     batch, rows = self._gather_locked()

@@ -41,9 +41,10 @@ Tolerances, each with its reason:
   1/sigma carries the f32 rounding order up to 1.4e-4 of a gradient's
   largest, at b = 16 to 8.5e-6. At full width on the card
   (chip_smoke.py's [train_resnet18]) the same F32 step is held in the form
-  ROADMAP.md C.4 gives relu/max-pool nets: the score 1e-5 relative card
-  vs CPU, and the card's gradients as accurate against an f64 CPU run as
-  the CPU's f32 gradients, within a factor of 2 plus 1e-3 (L2).
+  ROADMAP.md C.1's first bullet gives relu/max-pool nets: the score 1e-5
+  relative card vs CPU, and the card's gradients as accurate against an
+  f64 CPU run as the CPU's f32 gradients, within a factor of 2 plus 1e-3
+  (L2).
 """
 
 import jax

@@ -769,7 +769,8 @@ def test_remat_nets_in_two_threads_match_their_single_threaded_runs():
     for t in threads:
         t.start()
     for t in threads:
-        t.join()
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads), "a training thread hung"
     for g, w in zip(got, want):
         _assert_same_params(g, w)
 
@@ -823,7 +824,8 @@ def test_a_span_open_in_one_thread_leaves_another_threads_dropout_alone():
     t = threading.Thread(target=other)
     t.start()
     span_grad = grad(True, True)
-    t.join()
+    t.join(timeout=300)
+    assert not t.is_alive(), "the other training thread hung"
     assert calls == [0, 1]
     assert torch.equal(span_grad, grad(False, False))
     _assert_same_params(got["net"], want)
