@@ -24,7 +24,8 @@ supervisor, the solvers, gradient checks, transfer learning and
 pretraining (--slice12 below), the data-fed observed runs (--slice13),
 and slice 14's graph phases (--slice14 below: the skip-connected
 char-RNN graph trained with tBPTT and streamed, a vertex-rich F64
-graph, ResNet-50's remat spans). Every
+graph, ResNet-50's remat spans), decode serving (--slice15 below) and
+live reload (--live-reload below). Every
 phase that fails ends the run with a nonzero exit code. It needs one CUDA
 card; without one (or without the package beside it) it exits nonzero
 and prints no result.
@@ -123,14 +124,16 @@ and
     python3 chip_smoke.py --stream-split
 
 (also after --slice15's phases when both flags are given, and at the end
-of the full run) times S1 and S2, the Hopper redesigns of PR 16, beside
-their first versions at the decode step's shapes ([stream_split]: S1 at
-[32, 256] x [256, 1024] and [32, 1024] x [1024, 256], S2 at a 32-row
-step and a 16-token chunk of 4 rows; first, new and the library call in
-turns, back to back by CUDA events, the profiler's device time, the
-host's time to issue a call; the plain version, the bound, S1's chain
-floor from [stream_floor], the card's own cycles a dependent add takes;
-then S1's device time at every launch plan it can choose), and
+of the full run) times S1, S2 and S3, the Hopper redesigns, beside
+their first versions at the decode step's shapes
+([stream_split]: S1 at [32, 256] x [256, 1024] and [32, 1024] x [1024,
+256], S2 at a 32-row step and a 16-token chunk of 4 rows, S3 at [32,
+256], [64, 256] and [2048, 256]; first, new and the library call in
+turns, back to back by CUDA events, the device time (calls queued
+behind a spin), the host's time to issue a call; the plain version, the
+bound, S1's chain floor from [stream_floor], the card's own cycles a
+dependent add takes; then S1's device time at every launch plan it can
+choose), and
 
     python3 chip_smoke.py --k6-split
 
@@ -157,9 +160,21 @@ prints where a step of the two cluster kernels goes, in cycles per part
 
     python3 chip_smoke.py --profiler-pause
 
-counts how many of ten short launches torch.profiler keeps in one
-profile, with no pause after the profile's start and with the pause that
-every profile of this script takes (PROFILE_PAUSE_S), in turns for 60 s.
+counts which of ten short launches (ten different kernels) torch.profiler
+keeps in one profile, with pauses of 0, 20 ms (PROFILE_PAUSE_S, every
+profile of this script), 200 ms and 1 s after the profile's start:
+first in the process, after 10 s of idle, after 10 s of launches and
+after 10 s of profiles; and the device-time method of the [times] rows
+(CUDA events around calls queued behind a spin) beside the profiler's
+kernel times (the full run takes the same probe first and last), and
+
+    python3 chip_smoke.py --live-reload
+
+runs only [live_reload]: gpt_mini at full width published in
+two versions into a WeightStore, served by a ModelServer of 2 replicas to
+4 client threads while hot_swap moves it from v1 to v2, bit for bit
+against each version's own replies, with no kernel built across the
+swap; a NaN-poisoned version counted; rollback and a swap back to v1.
 
 K1 and K2 (bf16 at n a multiple of 64 up to 512: thread-block clusters
 with Wh resident, DSMEM exchange, wgmma), K3 (bf16) and K4-K7 (bf16,
@@ -349,15 +364,21 @@ def device_kernels(events):
             and e.key not in SPAN_NAMES]
 
 
-# torch.profiler loses launches issued just after its start on the card:
-# a short window issued just after the start comes back
-# with launches missing, and now and then with none. The pause after the
-# start below keeps them all (``--profiler-pause`` counts them, with and
-# without it)
+# torch.profiler loses launches. In a young process a short window issued
+# just after the profile's start came back with launches missing, and now
+# and then with none; the pause after the start below cured that.
+# Later in a process (once the card has idled for seconds) its trace drops
+# a launch or more from most profiles whatever the pause, as outside the
+# trace's window (Kineto's own "Out-of-range" count; --profiler-pause's
+# probe, PERF.md section 6). So the [times] rows' device times come from
+# device_ms_per_call, which sees every launch; profiles serve where a lost
+# launch biases nothing the run gates on (busy shares, kernel kinds)
 PROFILE_PAUSE_S = 0.02
 # profiles taken by profiled() in this run, and how many of them saw no
 # device time and were taken again (the [profiler] line)
 PROFILES = {"taken": 0, "empty": 0}
+# the process's start on the host's clock (the probes report their age)
+PROCESS_T0 = time.perf_counter()
 
 
 def profiled(body, cpu=False, attempts=5):
@@ -367,20 +388,23 @@ def profiled(body, cpu=False, attempts=5):
     body's host-clock time. The host waits PROFILE_PAUSE_S after the
     profile starts and before it stops, so that no launch of body falls
     before the start on the card's clock; a profile that still saw no
-    device time is taken again (body runs again), up to ``attempts`` in
-    all, and then the run fails rather than report a time of zero."""
+    device time is taken again (body runs again) with twice the pause,
+    since late in a process the trace's clock strays from the host's
+    (PERF.md section 6), up to ``attempts`` in all, and then the run
+    fails rather than report a time of zero."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
-    for _ in range(attempts):
+    for attempt in range(attempts):
+        pause = PROFILE_PAUSE_S * 2 ** attempt
         torch.cuda.synchronize()
         with profile(activities=acts) as prof:
-            time.sleep(PROFILE_PAUSE_S)
+            time.sleep(pause)
             t0 = time.perf_counter()
             body()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-            time.sleep(PROFILE_PAUSE_S)
+            time.sleep(pause)
         PROFILES["taken"] += 1
         kernels = device_kernels(prof.key_averages())
         if sum(e.self_device_time_total for e in kernels) > 0:
@@ -390,34 +414,157 @@ def profiled(body, cpu=False, attempts=5):
         f"the profiler saw no device time in {attempts} profiles")
 
 
-def phase_profiler_pause(seconds=60.0):
-    """How many of ten launches of a short kernel (an in-place add over
-    2^18 f32) torch.profiler keeps in one profile, with no pause after
-    its start and with PROFILE_PAUSE_S, in turns for ``seconds``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    x = torch.zeros(1 << 18, device="cuda")
-    x.add_(1.0)
-    torch.cuda.synchronize()
+# the probe's ten launches: ten in-place ops of ten different kernels, so
+# that a profile that loses launches says which
+PROBE_OPS = ("add_", "mul_", "neg_", "abs_", "exp_", "sin_", "cos_",
+             "sqrt_", "reciprocal_", "tanh_")
 
-    def kept(pause):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            time.sleep(pause)
-            for _ in range(10):
-                x.add_(1.0)
-            torch.cuda.synchronize()
-            time.sleep(pause)
-        return sum(e.count for e in device_kernels(prof.key_averages()))
-    runs = {0.0: [], PROFILE_PAUSE_S: []}
+
+def probe_launch(x, op):
+    getattr(x, op)(*((1.0,) if op in ("add_", "mul_") else ()))
+
+
+def probe_profile(x, pause):
+    """One profile of the ten PROBE_OPS on ``x`` (2^18 f32 on the card),
+    ``pause`` seconds of idle after its start and before its stop: {kept:
+    the kernels torch.profiler's key_averages() kept, raw: the device
+    events in its raw (Kineto) results, order: the raw events' names by
+    start, lead_ms: the host's time from the trace's start to the first
+    launch, skew_ms: when all ten are kept, the median of (a kernel's
+    start on the trace's clock minus the host's clock just before its
+    launch)}."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    launch_ns = []
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(pause)
+        for op in PROBE_OPS:
+            launch_ns.append(time.time_ns())
+            probe_launch(x, op)
+        torch.cuda.synchronize()
+        time.sleep(pause)
+    res = prof.profiler.kineto_results
+    t0 = res.trace_start_ns()
+    raw = sorted((e.start_ns(), e.name()) for e in res.events()
+                 if e.device_type() == DeviceType.CUDA
+                 and not e.is_user_annotation())
+    kept = device_kernels(prof.key_averages())
+    out = dict(kept=sum(e.count for e in kept), raw=len(raw),
+               order=[n for _, n in raw], lead_ms=(launch_ns[0] - t0) / 1e6,
+               skew_ms=None)
+    if len(raw) == len(launch_ns):
+        out["skew_ms"] = statistics.median(
+            (k - h) / 1e6 for (k, _), h in zip(raw, launch_ns))
+    return out
+
+
+def profiler_probe(tag, profiles=20, pauses=(0.0, PROFILE_PAUSE_S),
+                   names=None):
+    """--profiler-pause's probe: ``profiles`` profiles of the ten
+    PROBE_OPS at each pause, in turns. One [profiler_probe] line a pause:
+    profiles short of ten, the mean kept, which of the ten were lost
+    (by index; ``names`` maps a kernel name to its index, learnt from a
+    whole profile), the skew. Returns the names' map."""
+    import torch
+    x = torch.rand(1 << 18, device="cuda") + 1.0
+    for op in PROBE_OPS:
+        probe_launch(x, op)
+    torch.cuda.synchronize()
+    runs = {p: [] for p in pauses}
+    for _ in range(profiles):
+        for pause, got in runs.items():
+            got.append(probe_profile(x, pause))
+            if names is None and got[-1]["raw"] == len(PROBE_OPS):
+                names = {n: i for i, n in enumerate(got[-1]["order"])}
+    for pause, got in runs.items():
+        kept = [g["kept"] for g in got]
+        skews = [g["skew_ms"] for g in got if g["skew_ms"] is not None]
+        lost = [0] * len(PROBE_OPS)
+        for g in got:
+            seen = {names.get(n) for n in g["order"]} if names else set()
+            for i in range(len(PROBE_OPS)):
+                lost[i] += i not in seen
+        phase("profiler_probe", at=tag, pause_s=pause, profiles=len(got),
+              launches_each=len(PROBE_OPS), empty=kept.count(0),
+              short=sum(k < len(PROBE_OPS) for k in kept),
+              kept_mean=f"{statistics.mean(kept):.4f}",
+              raw_short=sum(g["raw"] < len(PROBE_OPS) for g in got),
+              lost_by_index=json.dumps(lost if names else None),
+              lead_ms=f"{statistics.median(g['lead_ms'] for g in got):.3f}",
+              skew_ms=json.dumps([round(min(skews), 3),
+                                  round(statistics.median(skews), 3),
+                                  round(max(skews), 3)] if skews else None),
+              process_s=f"{time.perf_counter() - PROCESS_T0:.1f}")
+    return names
+
+
+def events_vs_profiler():
+    """device_ms_per_call (events behind a spin) beside the profiler's
+    kernel time for the same calls (the mean over the launches it kept,
+    and how many it kept of 50): a one-element add (the events' floor:
+    an almost empty launch), an add over 2^18 f32, S3 at [32, 256]."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import stream_exact as se
+    one = torch.zeros(1, device="cuda")
+    x = torch.zeros(1 << 18, device="cuda")
+    g = torch.Generator(device="cpu").manual_seed(SEED + 162)
+    args = norm_time_case(g, 32)[0]
+    for name, fn in (("add_1", lambda: one.add_(1.0)),
+                     ("add_2^18", lambda: x.add_(1.0)),
+                     ("stream_rownorm_32x256",
+                      lambda: se.stream_rownorm_cuda(*args))):
+        ev = [device_ms_per_call(fn, 50)[0] for _ in range(2)]
+        prof = [profiler_ms_per_call(fn, 50) for _ in range(2)]
+        phase("events_vs_profiler", call=name,
+              events_ms=json.dumps([round(t, 5) for t in ev]),
+              profiler_ms_kept=json.dumps([[round(t, 5), k]
+                                           for t, k in prof]))
+
+
+def profiler_ms_per_call(fn, reps=50):
+    """torch.profiler's kernel time for one call of ``fn()`` (each
+    kernel's mean over the launches it kept, summed) and the fewest
+    launches of one kernel it kept of ``reps``."""
+    events = device_events(fn, reps)
+    return (sum(e.self_device_time_total / e.count for e in events) / 1e3,
+            min(e.count for e in events))
+
+
+def phase_profiler_pause(seconds=10.0):
+    """What keeps torch.profiler from seeing a launch, read on one card:
+    the probe (profiler_probe) first in the process, at pauses of 0, 20
+    ms, 200 ms and 1 s; then after ``seconds`` of idle; after
+    ``seconds`` of launches with no profile; after ``seconds`` of many
+    short profiles (does it grow with the profiles taken, as filling
+    buffers would make it?)."""
+    import torch
+    pauses = (0.0, PROFILE_PAUSE_S, 0.2, 1.0)
+    names = profiler_probe("first", profiles=5, pauses=pauses)
+    events_vs_profiler()
+    time.sleep(seconds)
+    profiler_probe("after_idle", profiles=5, pauses=pauses, names=names)
+    x = torch.randn(1 << 20, device="cuda")
     t0 = time.perf_counter()
     while time.perf_counter() - t0 < seconds:
-        for pause, counts in runs.items():
-            counts.append(kept(pause))
-    for pause, counts in runs.items():
-        phase("profiler_pause", pause_s=pause, profiles=len(counts),
-              launches_each=10, empty=counts.count(0),
-              short=sum(k < 10 for k in counts),
-              kept_mean=f"{statistics.mean(counts):.4f}")
+        for _ in range(100):
+            torch.exp(x)
+        torch.cuda.synchronize()
+    profiler_probe("after_busy", profiles=5, pauses=pauses, names=names)
+    y = torch.empty_like(x)
+    taken, short = 0, 0
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for fn in (lambda: torch.mul(x, 2.0, out=y),
+                   lambda: torch.exp(x, out=y),
+                   lambda: torch.sum(x)):
+            ev = device_events(fn, 50)
+            taken += 1
+            short += any(e.count != 50 for e in ev)
+    phase("profiler_aging", profiles=taken, short=short,
+          process_s=f"{time.perf_counter() - PROCESS_T0:.1f}")
+    profiler_probe("after_profiles", profiles=5, pauses=pauses, names=names)
+    events_vs_profiler()
 
 
 def device_events(fn, reps):
@@ -433,17 +580,54 @@ def device_events(fn, reps):
     return profiled(body)[1]
 
 
-def device_ms_per_call(fn, reps=20):
-    """The device time of one call of ``fn()``, which launches each of its
-    kernels once, from torch.profiler over ``reps`` calls: each kernel's
-    mean self time over the launches the profiler kept, summed over the
-    kernels; and the fewest launches of one kernel that it kept. Late in
-    a long process it has kept as few as a tenth, so a sum over ``reps``
-    would read short. Unlike cuda_ms_per_launch it does not count the
-    gaps where the card waits for the host to issue the next call."""
-    events = device_events(fn, reps)
-    return (sum(e.self_device_time_total / e.count for e in events) / 1e3,
-            min(e.count for e in events))
+# how the [times] rows' device times are taken (device_ms_per_call)
+DEVICE_METHOD = "cuda_events_around_calls_queued_behind_a_spin"
+# the card's cycles a second, for sizing a spin (its top SM clock; at a
+# lower clock a spin only lasts longer)
+SPIN_HZ = 1.98e9
+
+
+def device_ms_per_call(fn, reps=20, attempts=4):
+    """The card's time for one call of ``fn()``: ``reps`` calls queued
+    back to back behind a spin kernel (torch.cuda._sleep) long enough for
+    the host to issue them all, between two CUDA events recorded after
+    the spin and after the last call; the elapsed time over ``reps``.
+    So the card runs the calls one after another with no wait on the
+    host, and the events see every launch: torch.profiler loses launches
+    late in a long process (its own trace drops them as out of range,
+    PERF.md section 6), so the [times] rows' device times are taken this
+    way. Unlike the profiler's sum of kernel times it counts the gaps the
+    card itself leaves between launches (``events_floor`` in [times]).
+    If the spin ended before the host had issued every call, the card
+    may have waited on the host: the reading is taken again with a spin
+    twice as long, up to ``attempts`` times, and then the run fails.
+    Returns (ms, calls timed)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    issue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    spin_s = 2.0 * reps * issue_s + 2e-4
+    for _ in range(attempts):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        spun = torch.cuda.Event()
+        torch.cuda._sleep(int(spin_s * SPIN_HZ))
+        spun.record()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        waited = spun.query()      # the spin ended before the last issue
+        end.synchronize()
+        if not waited:
+            return start.elapsed_time(end) / reps, reps
+        spin_s *= 2.0
+    raise SmokeFailure(
+        f"the host could not issue {reps} calls inside a {spin_s:.4f} s "
+        f"spin: the card would have waited on it")
 
 
 def lstm_inputs(T, b, n, dtype, masked=False, nonzero_carry=False):
@@ -1633,8 +1817,9 @@ def phase_times_flash(card, gnet, errs, launches, gtrain):
         # than the card runs it: the host's time to issue one call (the
         # wrapper, the entry point straight through ctypes into a
         # preallocated output, SDPA) says how much of each back-to-back
-        # time is the host's, and the profiler's device time, taken in
-        # turns with SDPA's (sm90, SDPA, three times), is the kernel's
+        # time is the host's, and the device time (calls queued behind a
+        # spin, device_ms_per_call), taken in turns with SDPA's (sm90,
+        # SDPA, three times), is the card's
         lib, out = att._bind(), torch.empty_like(q)
         ptrs = [x.data_ptr() for x in (q, k, v, out)]
         stream = torch.cuda.current_stream().cuda_stream
@@ -1649,17 +1834,14 @@ def phase_times_flash(card, gnet, errs, launches, gtrain):
         lib_ms = cuda_ms_per_launch(sdpa, reps=10)
         host_ms = {name: host_ms_per_call(fn) for name, fn in
                    (("sm90", sm90), ("entry_point", entry), ("sdpa", sdpa))}
-        dev_readings, dev_lib_readings, kept = [], [], []
+        dev_readings, dev_lib_readings = [], []
         for _ in range(3):
             for readings, fn in ((dev_readings, sm90),
                                  (dev_lib_readings, sdpa)):
-                dev, n = device_ms_per_call(fn, reps=100)
-                readings.append(dev)
-                kept.append(n)
+                readings.append(device_ms_per_call(fn, reps=100)[0])
         dev_ms = statistics.median(dev_readings)
         dev_lib_ms = statistics.median(dev_lib_readings)
-        dev_fma_ms, n = device_ms_per_call(fma, reps=100)
-        kept.append(n)
+        dev_fma_ms = device_ms_per_call(fma, reps=100)[0]
         lib_err = float((sdpa().transpose(1, 2).float()
             - sm90().float()).abs().max())
     # least work: q, k, v read once and out written once (bf16); the
@@ -1683,7 +1865,7 @@ def phase_times_flash(card, gnet, errs, launches, gtrain):
           ms_one_call_with_host=f"{one_ms:.4f}",
           device_ms=f"{dev_ms:.4f}",
           device_ms_readings=json.dumps([round(t, 5) for t in dev_readings]),
-          profiler_kept_of_100=json.dumps(kept),
+          device_method=DEVICE_METHOD, device_calls_timed=100,
           fma_bf16_device_ms=f"{dev_fma_ms:.4f}",
           entry_point_ms=f"{c_ms:.4f}",
           library_device_ms=f"{dev_lib_ms:.4f}",
@@ -1783,8 +1965,9 @@ def bwd_split(args):
             if key in e.key:
                 split[name] = e.self_device_time_total / e.count / 1e3
                 kept.append(e.count)
-    check(set(split) == set(names.values()),
-          f"the profiler did not see every K2 launch: {split}")
+    check(set(split) == set(names.values()) and min(kept) == 20,
+          f"the profiler did not see every K2 launch: {split}, kept "
+          f"{kept} of 20")
     return split, min(kept)
 
 
@@ -1859,11 +2042,16 @@ def lstm_times(card, tag="times"):
         out.setdefault(("bwd", route), []).append(sweep[T])
         extra = {}
         if cluster:
+            extra = dict(active_clusters=fits["lstm_bwd"])
+        if cluster and tag != "times":
+            # the split by launch needs the profiler's kernel names; the
+            # full run's [times] rows leave it out (the profiler loses
+            # launches late in a long process), --lstm-split keeps it,
+            # and fails if the profiler lost a launch
             split, kept = bwd_split(bargs)
-            extra = dict(split_device_ms=json.dumps(
+            extra.update(split_device_ms=json.dumps(
                 {k: round(v, 5) for k, v in split.items()}),
-                profiler_kept=f"{kept}/20",
-                active_clusters=fits["lstm_bwd"])
+                profiler_kept=f"{kept}/20")
         phase(tag, kernel="lstm_bwd", route=route, T=T, b=b, n=n,
               dtype="bfloat16", card=json.dumps(card),
               plain_ms=f"{bplain_ms:.4f}", bound_ms=f"{bbound_ms:.5f}",
@@ -2896,7 +3084,7 @@ K5_PASSES = (("apply", ("ApplyEpi", "apply_kernel")),)
 class Split(dict):
     """Device ms a call by pass, and ``kept``: the fewest launches of any
     one kernel that the profiler kept of the ``reps`` it was asked to
-    time."""
+    time (pass_split fails unless it kept them all)."""
     kept = 0
 
 
@@ -2905,8 +3093,10 @@ def pass_split(fn, passes=K7_PASSES, reps=10):
     splits; K6: gemm, sum) over ``reps`` calls of ``fn``, from
     torch.profiler, with the kernels it could not place under "other".
     Each kernel of K4-K7 launches once a call, so a pass's time is the
-    mean over the launches the profiler kept: a sum over ``reps`` would
-    read short if it kept fewer (``kept`` says how many it did)."""
+    mean over its launches; the run fails if the profiler kept fewer than
+    ``reps`` of one (it loses launches late in a long process, so the
+    full run's [times] rows do not split by pass; the split modes,
+    --k7-split, --k6-split and --fwd-split, do)."""
     out = Split({name: 0.0 for name, _ in passes})
     out["other"] = 0.0
     out.kept = reps
@@ -2915,6 +3105,9 @@ def pass_split(fn, passes=K7_PASSES, reps=10):
                     if any(k in e.key for k in keys)), "other")
         out[tag] += e.self_device_time_total / 1e3 / e.count
         out.kept = min(out.kept, e.count)
+    check(out.kept == reps, f"the profiler kept {out.kept} of {reps} "
+          f"launches of a kernel: the split would be a mean over fewer "
+          f"launches than were timed")
     return out
 
 
@@ -3049,9 +3242,10 @@ def phase_times_fused(card, errs, rtrain):
     back, the plain version, the bound, and torch.matmul of the same
     [M, K] x [K, N] product as a yardstick (no single PyTorch call
     computes these functions). Each (on its sm90 path) also beside its
-    mma.sync path on the same inputs, both with their device time and
-    split by launch from the profiler; how many elements of z the two
-    paths round differently (z_bits)."""
+    mma.sync path on the same inputs, both with their device time (ten
+    calls behind a spin, device_ms_per_call; the split by launch is the
+    split modes', --k7-split, --k6-split, --fwd-split); how many
+    elements of z the two paths round differently (z_bits)."""
     import torch
     from deeplearning4j_tpu_torch.ops import fused_block as fb
     from deeplearning4j_tpu_torch.ops import registry
@@ -3076,15 +3270,14 @@ def phase_times_fused(card, errs, rtrain):
                 flops, nbytes = fused_bound(kern, M, K, N)
                 bound_ms, bound_by = bound(flops, nbytes, "bfloat16")
                 gemms = 3 if kern == fb.BWD_APPLY else 1
-                mma_sync, passes = mma_sync_and_passes(kern)
+                mma_sync, _ = mma_sync_and_passes(kern)
                 old = mma_sync(*a)
                 old_ms = cuda_ms_per_launch(old, reps=5)
-                split = pass_split(lambda: cuda_fn(*a), passes)
-                old_split = pass_split(old, passes)
-                device_ms = sum(split.values())
+                device_ms = device_ms_per_call(lambda: cuda_fn(*a), 10)[0]
+                old_device_ms = device_ms_per_call(old, 10)[0]
                 rows[(kern, stage)] = dict(
                     ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                    bound_by=bound_by, mma_sync_ms=old_ms, split_ms=split,
+                    bound_by=bound_by, mma_sync_ms=old_ms,
                     device_ms=device_ms, path=kernel_path(kern, a))
                 check(rows[(kern, stage)]["path"] == "sm90",
                       f"{kern} at {stage} took the "
@@ -3097,19 +3290,15 @@ def phase_times_fused(card, errs, rtrain):
                       flops=f"{flops:.4g}", bytes=f"{nbytes:.4g}",
                       roofline_share=f"{bound_ms / ms:.4f}",
                       device_ms=f"{device_ms:.4f}",
+                      device_method=DEVICE_METHOD, device_calls_timed=10,
                       device_roofline_share=f"{bound_ms / device_ms:.4f}",
                       tflops=f"{flops / ms / 1e9:.2f}",
                       library="none (no single PyTorch call computes it); "
                               "yardstick torch.matmul of the same product",
                       matmul_ms=f"{gemm_ms:.4f}",
                       matmul_ms_times_products=f"{gemm_ms * gemms:.4f}",
-                      split_ms=json.dumps(
-                          {k: round(v, 4) for k, v in split.items()}),
-                      profiler_kept=f"{split.kept}/{old_split.kept}/10",
                       mma_sync_ms=f"{old_ms:.4f}",
-                      mma_sync_device_ms=f"{sum(old_split.values()):.4f}",
-                      mma_sync_split_ms=json.dumps(
-                          {k: round(v, 4) for k, v in old_split.items()}),
+                      mma_sync_device_ms=f"{old_device_ms:.4f}",
                       mma_sync_roofline_share=f"{bound_ms / old_ms:.4f}")
             phase("times", kernel="z_bits", stage=stage, M=M, K=K, N=N,
                   **z_bits(t))
@@ -3138,7 +3327,6 @@ def phase_times_fused(card, errs, rtrain):
                         fb.SM90_COUNTER[kern], 0),
                     "by_stage_ms": by_stage(kern, "ms"),
                     "by_stage_device_ms": by_stage(kern, "device_ms"),
-                    "by_stage_split_ms": by_stage(kern, "split_ms"),
                     "by_stage_mma_sync_ms": by_stage(kern, "mma_sync_ms")})
     return out
 
@@ -6337,10 +6525,11 @@ def phase_stream_invariance():
     gives them; GELU (elementwise) beside them. Also reads torch.matmul
     (cuBLAS) at the projection shape [R, 256] x [256, 1024], the product
     the order-fixed kernel S1 replaces. Then reads S1 and S2 the same way
-    (PR 16's kernels: their tiles and blocks change with the row count),
-    and fails if either moves a bit: S1 at [R, 256] x [256, 1024] and at
-    fc2's [R, 1024] x [1024, 256], S2 at a decode step's attention over
-    R batch rows at random positions (cache 256). Returns {op: moved?}."""
+    (their tiles and blocks change with the row count) and S3 (its rows
+    land in other blocks), and fails if one moves a bit: S1 at [R, 256] x [256, 1024] and at fc2's [R, 1024] x
+    [1024, 256], S2 at a decode step's attention over R batch rows at
+    random positions (cache 256), S3 at width 256 and at 4099 (the looped
+    kernel). Returns {op: moved?}."""
     import torch
     from deeplearning4j_tpu_torch.nn.layers import attention as natt
     from deeplearning4j_tpu_torch.ops import activations
@@ -6361,6 +6550,9 @@ def phase_stream_invariance():
               for _ in range(2))
     pos = torch.randint(0, DEC_C, (n,), generator=g).to(torch.int32).cuda()
     rows = torch.arange(n, device="cuda")
+    xw = (torch.randn(n, NORM_WIDTHS[-1], generator=g) * 3.0).cuda()
+    lgw = (torch.randn(NORM_WIDTHS[-1], generator=g) * 0.1 + 1.0).cuda()
+    lbw = (torch.randn(NORM_WIDTHS[-1], generator=g) * 0.1).cuda()
     softmax = activations.get("softmax")
     gelu = activations.get("gelu")
     ops = {
@@ -6375,6 +6567,9 @@ def phase_stream_invariance():
         "stream_dense_fc2": (lambda a: se.stream_dense(a, W2, b2), x4),
         "stream_mha": (lambda i: se.stream_mha(q[i], kc[i], vc[i], pos[i]),
                        rows),
+        "stream_rownorm": (lambda a: se.stream_rownorm(a, lg, lb, 1e-5), x),
+        "stream_rownorm_looped": (
+            lambda a: se.stream_rownorm(a, lgw, lbw, 1e-5), xw),
     }
     moved = {}
     for name, (fn, arg) in ops.items():
@@ -6383,7 +6578,8 @@ def phase_stream_invariance():
         moved[name] = any(d for d, _ in res.values())
         phase("stream_invariance", op=name, moved=moved[name],
               **{f"rows{R}": f"{d}/{e:.3g}" for R, (d, e) in res.items()})
-    for name in ("stream_dense_fc1", "stream_dense_fc2", "stream_mha"):
+    for name in ("stream_dense_fc1", "stream_dense_fc2", "stream_mha",
+                 "stream_rownorm", "stream_rownorm_looped"):
         check(not moved[name], f"{name} moved bits with the row count; "
               f"it must not")
     return moved
@@ -6396,6 +6592,10 @@ def phase_stream_invariance():
 # gpt_mini at full width (vocab 80, width 256, 4 blocks of 4 heads, dh 64,
 # cache 256) and its draft (width 128, 2 blocks of 2 heads)
 DEC_V, DEC_W, DEC_L, DEC_H, DEC_C = 80, 256, 4, 4, 256
+# S3's widths and row counts in [stream_exact_vs_plain]: 1024 is the widest
+# row a lane's registers hold (stream_exact.rownorm_plan), 4099 loops
+NORM_WIDTHS = (1, 31, 32, 33, 256, 1024, 4099)
+NORM_ROWS = (1, 7, 33, 2048)
 
 
 def stream_cases():
@@ -6452,6 +6652,14 @@ def stream_cases():
     mha("mha_b1_t16_sees_last", 1, 16, [DEC_C - 16])
     mha("mha_tile_edges", 4, 1, [tile - 1, tile, tile + 1, 2 * tile - 1])
     mha("mha_dh10_4byte", 3, 5, [0, 17, 40], dh=10, C=48)
+    # S3: widths off, on and past a warp, the decode
+    # width, the widest held in registers (1024) and one the looped kernel
+    # takes, each at 1 to 2048 rows
+    for w in NORM_WIDTHS:
+        for rows in NORM_ROWS:
+            cases.append((f"rownorm_{rows}x{w}", se.KERNEL_NORM,
+                          (r(rows, w, s=3.0) + 0.5, r(w, s=0.1) + 1.0,
+                           r(w, s=0.1), 1e-5)))
     return cases
 
 
@@ -6972,27 +7180,64 @@ def mha_time_case(g, rows, t=1):
         + 4 * rows)
 
 
+def norm_time_case(g, rows, w=DEC_W):
+    """S3's timing case at x [rows, w]: (args, F.layer_norm, its name,
+    operations, bytes: x read and y written once, gamma and beta)."""
+    import torch
+    import torch.nn.functional as F
+    r = lambda *s: torch.randn(*s, generator=g).cuda()  # noqa: E731
+    x, ln_g, ln_b = r(rows, w) * 3.0, r(w) * 0.1 + 1.0, r(w) * 0.1
+    return ((x, ln_g, ln_b, 1e-5),
+            lambda: F.layer_norm(x, (w,), ln_g, ln_b, 1e-5),
+            "torch.nn.functional.layer_norm", 8 * rows * w,
+            4 * (2 * rows * w + 2 * w))
+
+
+def rownorm_ascending(x, gamma, beta, eps):
+    """LayerNorm in S3's first version's order: each row's two sums one
+    ascending chain, the rest as stream_rownorm_torch; what S3's first
+    version is held to."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import stream_exact as se
+    w = x.shape[-1]
+    s = torch.zeros(x.shape[:-1] + (1,), device=x.device)
+    for i in range(w):
+        s = torch.add(s, x[..., i:i + 1])
+    d = torch.sub(x, se._full_div(s, w))
+    ss = torch.zeros_like(s)
+    for i in range(w):
+        ss = torch.add(ss, torch.mul(d[..., i:i + 1], d[..., i:i + 1]))
+    var = torch.add(se._full_div(ss, w), float(eps))
+    inv = torch.div(torch.ones_like(var), torch.sqrt(var))
+    return torch.add(torch.mul(torch.mul(d, inv), gamma), beta)
+
+
 def stream_time_cases():
     """(kernel, args, library call, flops, bytes) for the timing of each S
     kernel at the decode step's shape (32 rows): the MLP's up projection,
     the attention at random positions, the block's LayerNorm."""
     import torch
-    import torch.nn.functional as F
     g = torch.Generator(device="cpu").manual_seed(SEED + 160)
     rows, W = 32, DEC_W
-    r = lambda *s: torch.randn(*s, generator=g).cuda()  # noqa: E731
-    dense = dense_time_case(g, rows, W, 4 * W)
-    mha = mha_time_case(g, rows)
-    x = dense[0][0]
-    ln_g, ln_b = r(W) * 0.1 + 1.0, r(W) * 0.1
     return {
-        "stream_dense": dense,
-        "stream_mha": mha,
-        "stream_rownorm": ((x, ln_g, ln_b, 1e-5),
-                           lambda: F.layer_norm(x, (W,), ln_g, ln_b, 1e-5),
-                           "torch.nn.functional.layer_norm", 8 * rows * W,
-                           4 * (2 * rows * W + 2 * W)),
+        "stream_dense": dense_time_case(g, rows, W, 4 * W),
+        "stream_mha": mha_time_case(g, rows),
+        "stream_rownorm": norm_time_case(g, rows),
     }
+
+
+def events_floor(card, tag="times"):
+    """device_ms_per_call of an almost empty launch (an add to one f32):
+    what the device-time method reads for a launch that does nothing,
+    the card's own gap between back-to-back launches included."""
+    import torch
+    one = torch.zeros(1, device="cuda")
+    readings = [device_ms_per_call(lambda: one.add_(1.0), 50)[0]
+                for _ in range(3)]
+    phase(tag, kernel="events_floor", card=json.dumps(card),
+          device_ms=f"{statistics.median(readings):.5f}",
+          readings=json.dumps([round(t, 5) for t in readings]),
+          device_method=DEVICE_METHOD, device_calls_timed=50)
 
 
 def max_sm_clock_hz():
@@ -7017,8 +7262,10 @@ def phase_times_stream(card, errs, launches):
              se.KERNEL_MHA: se.stream_mha_torch,
              se.KERNEL_NORM: se.stream_rownorm_torch}
     first = {se.KERNEL_DENSE: se.dense_launch_v1,
-             se.KERNEL_MHA: se.mha_launch_v1}
+             se.KERNEL_MHA: se.mha_launch_v1,
+             se.KERNEL_NORM: se.rownorm_launch_v1}
     entries = []
+    events_floor(card)
     with torch.inference_mode():
         for name, (args, lib, lib_name, flops, nbytes) in \
                 stream_time_cases().items():
@@ -7046,6 +7293,7 @@ def phase_times_stream(card, errs, launches):
                            first_version_host_issue_ms=host_ms_per_call(v1))
             phase("times", kernel=name, route="cuda", card=json.dumps(card),
                   ms=f"{ms:.4f}", device_ms=f"{dev_ms:.4f}",
+                  device_method=DEVICE_METHOD, device_calls_timed=50,
                   device_ms_readings=json.dumps([round(t, 5) for t in dev]),
                   host_issue_ms=f"{host_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
                   library=lib_name, library_ms=f"{lib_ms:.4f}",
@@ -7077,16 +7325,18 @@ def phase_times_stream(card, errs, launches):
 
 
 def phase_stream_split():
-    """S1 and S2 (PR 16's kernels) beside their first versions (PR 15) at
-    the decode step's shapes, each in one run: S1 at fc1 [32, 256] x [256,
-    1024] and fc2 [32, 1024] x [1024, 256], S2 at a 32-row step and a
-    16-token chunk of 4 rows. In turns (first, new, library, library, new,
-    first): back to back by CUDA events, the profiler's device time, the
-    host's time to issue a call; the plain version once; the bound, S1's
-    chain floor (f dependent adds at the card's top SM clock). Both
-    versions are held bit-equal to the plain one. Then S1's device time
-    at every (rows a thread, warps a block) its plan can choose, at fc1
-    and fc2. The chain floor comes from the card itself
+    """S1, S2 and S3, the redesigned kernels, beside their first versions
+    at the decode step's shapes, each in one run: S1 at fc1 [32, 256] x
+    [256, 1024] and fc2 [32, 1024] x [1024, 256], S2 at a 32-row step and
+    a 16-token chunk of 4 rows, S3 at [32, 256], [64, 256] (a 16-token
+    chunk of 4 rows) and [2048, 256]. In turns (first, new, library,
+    library, new, first): back to back by CUDA events, the device time
+    (device_ms_per_call), the host's time to issue a call; the plain
+    version once; the bound, S1's chain floor (f dependent adds at the
+    card's top SM clock). The new versions are held bit-equal to the
+    plain one, S1's and S2's first versions too, S3's to its own order
+    (rownorm_ascending). Then S1's device time at every (rows a thread,
+    warps a block) its plan can choose, at fc1 and fc2. The chain floor comes from the card itself
     (stream_exact.chain_cycles: cycles a dependent add takes)."""
     import torch
     from deeplearning4j_tpu_torch.ops import stream_exact as se
@@ -7098,6 +7348,7 @@ def phase_stream_split():
     phase("stream_floor", cycles_per_chain_step=f"{step_cycles:.3f}",
           cycles_per_chain_step_smem_read=f"{step_cycles_smem:.3f}",
           sm_clock_mhz=f"{clock / 1e6:.0f}")
+    events_floor(None, tag="stream_floor")
     g = torch.Generator(device="cpu").manual_seed(SEED + 161)
     W = DEC_W
     cases = {
@@ -7107,21 +7358,28 @@ def phase_stream_split():
                                   dense_time_case(g, 32, 4 * W, W)),
         "mha_step_b32_t1": (se.KERNEL_MHA, mha_time_case(g, 32)),
         "mha_chunk_b4_t16": (se.KERNEL_MHA, mha_time_case(g, 4, 16)),
+        "rownorm_step_32x256": (se.KERNEL_NORM, norm_time_case(g, 32)),
+        "rownorm_chunk_64x256": (se.KERNEL_NORM, norm_time_case(g, 64)),
+        "rownorm_2048x256": (se.KERNEL_NORM, norm_time_case(g, 2048)),
     }
     fns = {se.KERNEL_DENSE: (se.stream_dense_cuda, se.dense_launch_v1,
                              se.stream_dense_torch),
            se.KERNEL_MHA: (se.stream_mha_cuda, se.mha_launch_v1,
-                           se.stream_mha_torch)}
+                           se.stream_mha_torch),
+           se.KERNEL_NORM: (se.stream_rownorm_cuda, se.rownorm_launch_v1,
+                            se.stream_rownorm_torch)}
+    # the first version of S3 sums in its own order
+    first_ref = {se.KERNEL_NORM: rownorm_ascending}
     with torch.inference_mode():
         for case, (kern, (args, lib, lib_name, flops, nbytes)) in \
                 cases.items():
             new, v1, plain = fns[kern]
-            want = plain(*args)
-            for who, fn in (("new", new), ("first", v1)):
-                got = fn(*args)
+            for who, fn, ref in (("new", new, plain),
+                                 ("first", v1, first_ref.get(kern, plain))):
+                got, want = fn(*args), ref(*args)
                 torch.cuda.synchronize()
                 check(torch.equal(got, want), f"{case}: the {who} version "
-                      f"differs from the plain one (max "
+                      f"differs from {ref.__name__} (max "
                       f"{float((got - want).abs().max()):.3g})")
             run = {"first": lambda: v1(*args), "new": lambda: new(*args),
                    "library": lib}
@@ -7139,11 +7397,16 @@ def phase_stream_split():
                 plan = se.dense_plan(rows, f, args[1].shape[1])
                 floor_ms = f * step_cycles / clock * 1e3
                 extra = dict(chain_floor_ms=f"{floor_ms:.5f}")
-            else:
+            elif kern == se.KERNEL_MHA:
                 plan = se.mha_plan(*args[0].shape, args[1].shape[1])
                 extra = {}
-            extra["plan"] = json.dumps(plan._asdict())
+            else:
+                plan = None
+                extra = dict(cols_a_lane=se.rownorm_plan(*args[0].shape))
+            if plan is not None:
+                extra["plan"] = json.dumps(plan._asdict())
             phase("stream_split", case=case, kernel=kern,
+                  device_method=DEVICE_METHOD, device_calls_timed=50,
                   **{f"{k}_ms": f"{statistics.mean(v):.4f}"
                      for k, v in b2b.items()},
                   **{f"{k}_device_ms": f"{statistics.mean(v):.4f}"
@@ -7231,6 +7494,205 @@ def phase_slice15(card):
     return phase_times_stream(card, errs, launches)
 
 
+# ------------------------------------------------------------- live reload
+# [live_reload]: 4 clients x LR_REQUESTS one-row requests from a pool of
+# LR_POOL distinct rows of T = 256, max_batch 2 (every forward one bucket
+# of two rows, so a row's bits are its own and its version's)
+LR_CLIENTS, LR_REQUESTS, LR_POOL, LR_T = 4, 24, 8, 256
+
+
+def phase_live_reload():
+    """Live reload at full width: gpt_mini (vocab 80, width 256, 4 blocks
+    of 4 heads, BF16) from two seeds, saved as two port checkpoints and
+    published into a WeightStore; a ModelServer with 2 replicas warmed on
+    v1 (load_net) serves 4 client threads of one-row predict calls while
+    hot_swap(publication=v2) runs. Checks: no error, no reply lost or
+    doubled; every reply bit-equal to v1's or v2's reply to the same row
+    alone, both seen, and every reply after the swap v2's, which equals
+    load_net(v2.path)'s output; no kernel built and no kernel-cache miss
+    across the traffic and the swap; K3 launched 4 times a served
+    forward; a NaN-poisoned net swapped in counted in nan_rows_total;
+    rollback() then hot_swap(store.latest()) serves v1's bits again.
+    Reported: swap_s, load_net ms, reply p50/p99 before and during the
+    swap."""
+    import shutil
+    import tempfile
+
+    import torch
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.observability import metrics as obs
+    from deeplearning4j_tpu_torch.ops import attention as att
+    from deeplearning4j_tpu_torch.ops import registry
+    from deeplearning4j_tpu_torch.serving import (ModelServer, WeightStore,
+                                                  load_net)
+    from deeplearning4j_tpu_torch.utils.checkpoint import save_checkpoint
+
+    V, T = DEC_V, LR_T
+    rng = np.random.default_rng(SEED + 171)
+    pool = np.eye(V, dtype=np.float32)[rng.integers(0, V, (LR_POOL, 1, T))]
+    root = tempfile.mkdtemp(prefix="live_reload_")
+    srv = None
+    try:
+        store = WeightStore(os.path.join(root, "store"), keep=3)
+        pubs = []
+        for v in (1, 2):
+            net = zoo.gpt_mini(seed=SEED + 170 + v)
+            ckpt = os.path.join(root, f"train_{v}", "step_10")
+            save_checkpoint(net, ckpt)
+            pubs.append(store.publish(ckpt))
+            del net
+        p1, p2 = pubs
+        check(p1.fingerprint == p2.fingerprint,
+              f"one configuration, two fingerprints: {p1}, {p2}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v2_net = load_net(p2.path)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+
+        srv = ModelServer(load_net(p1.path), port=0, max_batch=2,
+                          replicas=2, input_shapes=[(T, V)])
+        srv.start()
+
+        def served(x):
+            return srv.predict(x)
+        ref = {1: [served(x) for x in pool]}
+        ref[2] = [v2_net.output(np.concatenate([x, np.zeros_like(x)]))
+                  .float().cpu().numpy()[:1] for x in pool]
+        check(all(not np.array_equal(a, b) for a, b in zip(ref[1], ref[2])),
+              "v1 and v2 agree on a row: the check could not tell them "
+              "apart")
+        torch.cuda.synchronize()
+
+        picks = rng.integers(0, LR_POOL, (LR_CLIENTS, LR_REQUESTS))
+        replies = [[None] * LR_REQUESTS for _ in range(LR_CLIENTS)]
+        times = [[None] * LR_REQUESTS for _ in range(LR_CLIENTS)]
+        errors = []
+        half = threading.Event()
+        done = [0]
+        lock = threading.Lock()
+
+        def client(c):
+            for j, i in enumerate(picks[c]):
+                t_a = time.perf_counter()
+                try:
+                    replies[c][j] = served(pool[i])
+                except Exception as e:  # noqa: BLE001 — the main thread checks
+                    errors.append(f"client {c}: {type(e).__name__}: {e}")
+                times[c][j] = (t_a, time.perf_counter())
+                with lock:
+                    done[0] += 1
+                    if done[0] >= LR_CLIENTS * LR_REQUESTS // 3:
+                        half.set()
+
+        base = obs.compile_snapshot()
+        batches0 = srv.metrics()["batches_total"]
+        registry.reset_launches()
+        threads = [threading.Thread(target=client, args=(c,), daemon=True)
+                   for c in range(LR_CLIENTS)]
+        for t in threads:
+            t.start()
+        half.wait(timeout=300)
+        swap_t0 = time.perf_counter()
+        rec = srv.hot_swap(publication=p2)
+        swap_t1 = time.perf_counter()
+        for t in threads:
+            t.join(timeout=300)
+        check(not any(t.is_alive() for t in threads), "a client hung")
+        torch.cuda.synchronize()
+        launches = registry.launches().get(att.KERNEL, 0)
+        forwards = srv.metrics()["batches_total"] - batches0
+        delta = obs.compile_delta(base)
+        check(not errors, "; ".join(errors[:5]))
+        got = [(picks[c][j], replies[c][j], times[c][j])
+               for c in range(LR_CLIENTS) for j in range(LR_REQUESTS)]
+        check(all(r is not None for _, r, _ in got) and
+              len(got) == LR_CLIENTS * LR_REQUESTS,
+              "a reply was lost")
+        which = []
+        for i, r, (t_a, _) in got:
+            v = 1 if np.array_equal(r, ref[1][i]) else \
+                2 if np.array_equal(r, ref[2][i]) else None
+            check(v is not None, f"a reply of row {i} is neither v1's nor "
+                  f"v2's bit for bit")
+            check(not (t_a > swap_t1 and v != 2),
+                  f"a request sent after the swap got v{v}'s reply")
+            which.append(v)
+        check(1 in which and 2 in which,
+              f"the traffic saw only v{which[0]}: the swap did not land "
+              f"mid-traffic")
+        check(srv.metrics()["requests_total"] >= len(got) + LR_POOL,
+              "the server counted fewer requests than were sent")
+        check(rec["fresh_compiles"] == 0 and delta["count"] == 0
+              and delta["cache_misses"] == 0,
+              f"kernels built across the swap: {rec}, {delta}")
+        check(rec["replicas_swapped"] == 2, f"swap receipt {rec}")
+        check(launches == 4 * forwards,
+              f"K3 launched {launches} times in {forwards} served forwards, "
+              f"expected 4 a forward")
+        after = [served(x) for x in pool]
+        check(all(np.array_equal(a, b) for a, b in zip(after, ref[2])),
+              "after the swap a reply differs from load_net(v2)'s output")
+
+        def lat(sel):
+            ms = sorted((t_b - t_a) * 1e3 for _, _, (t_a, t_b) in got
+                        if sel(t_a, t_b))
+            return ([round(float(np.percentile(ms, q)), 3) for q in (50, 99)]
+                    if ms else None), len(ms)
+        before, n_before = lat(lambda a, b: a < swap_t0)
+        during, n_during = lat(lambda a, b: a <= swap_t1 and b >= swap_t0)
+
+        # the NaN sentinel: a poisoned version counts its rows
+        poisoned = load_net(p2.path)
+        poisoned.params = {ln: {k: torch.full_like(t, float("nan"))
+                                for k, t in lp.items()}
+                           for ln, lp in poisoned.params.items()}
+        nan0 = srv.metrics()["nan_rows_total"]
+        srv.hot_swap(net=poisoned, version=99)
+        out = served(pool[0])
+        nan_rows = srv.metrics()["nan_rows_total"] - nan0
+        check(not np.isfinite(out).all() and nan_rows == 1,
+              f"the poisoned version's row was not counted ({nan_rows})")
+        check(srv.health()[1]["model_version"] == 99,
+              "health() does not report the swapped version")
+        # roll back: v2 rejected, LATEST v1, swapped back to v1's bits
+        back = store.rollback("live_reload check")
+        check(back.version == 1 and store.latest().version == 1,
+              f"rollback landed on {back}")
+        rec1 = srv.hot_swap(publication=store.latest())
+        again = [served(x) for x in pool]
+        check(all(np.array_equal(a, b) for a, b in zip(again, ref[1])),
+              "after rollback the replies are not v1's bits")
+        check(rec1["fresh_compiles"] == 0 and srv.model_version == 1
+              and srv.swaps_total == 3,
+              f"rollback swap {rec1}, version {srv.model_version}, swaps "
+              f"{srv.swaps_total}")
+        prom = obs.get_registry().render_prometheus()
+        check("dl4j_serving_weight_swaps_total" in prom and
+              "dl4j_serving_model_version" in prom,
+              "the swap families are missing from the registry")
+        phase("live_reload", model="gpt_mini(vocab=80,width=256,blocks=4,"
+              "heads=4,T=256,BF16)", replicas=2, clients=LR_CLIENTS,
+              requests=len(got), forwards=forwards,
+              replies_v1=which.count(1), replies_v2=which.count(2),
+              errors=len(errors), bit_equal=True,
+              swap_s=f"{rec['swap_s']:.6f}", load_net_ms=f"{load_ms:.1f}",
+              fresh_compiles=rec["fresh_compiles"],
+              cache_misses=delta["cache_misses"],
+              flash_attn_fwd_launches=launches,
+              launches_per_forward=f"{launches / forwards:g}",
+              p50_p99_ms_before=json.dumps(before), requests_before=n_before,
+              p50_p99_ms_during=json.dumps(during), requests_during=n_during,
+              nan_rows_counted=nan_rows, rollback_swap_s=
+              f"{rec1['swap_s']:.6f}", model_version=srv.model_version,
+              swaps_total=srv.swaps_total, fingerprint=rec["fingerprint"])
+        return {att.KERNEL: launches}
+    finally:
+        if srv is not None:
+            srv.stop()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7285,7 +7747,8 @@ def main() -> int:
                        ("--graph-stream", phase_graph_stream),
                        ("--graph-layers", phase_graph_layers),
                        ("--remat", phase_remat),
-                       ("--slice14", phase_slice14)):
+                       ("--slice14", phase_slice14),
+                       ("--live-reload", phase_live_reload)):
         if flag in sys.argv[1:]:
             phase_device()
             only()
@@ -7300,6 +7763,9 @@ def main() -> int:
         return 0
 
     card = phase_device()
+    # C.3.2: the profiler's probe first in the process, and again after
+    # every other phase (PERF.md section 6)
+    names = profiler_probe("first", profiles=5)
     errs = {"lstm_fwd": phase_kernel_vs_plain(),
             "lstm_bwd": phase_bwd_vs_plain(),
             "flash_attn_fwd": phase_flash_vs_plain()}
@@ -7327,7 +7793,9 @@ def main() -> int:
     phase_graph_layers()
     phase_remat()
     kernels += phase_slice15(card)
+    phase_live_reload()
     phase_stream_split()
+    profiler_probe("after_all", profiles=5, names=names)
     phase("profiler", pause_s=PROFILE_PAUSE_S, **PROFILES)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(ok_line, flush=True)

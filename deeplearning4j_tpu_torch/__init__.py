@@ -28,6 +28,7 @@ bottleneck tail (1x1 conv + batch norm + add + relu) forward and backward
 as four hand-written kernels (ops/csrc/fused_block.cu).
 """
 
+from deeplearning4j_tpu_torch.ops import activations, initializers, losses
 from deeplearning4j_tpu_torch.datasets import (ArrayDataSetIterator,
                                                DataSet,
                                                ListDataSetIterator,
@@ -47,6 +48,6 @@ __all__ = ["ArrayDataSetIterator", "ComputationGraph",
            "ComputationGraphConfiguration", "DataSet", "DtypePolicy",
            "InputType", "ListDataSetIterator", "MultiDataSet",
            "MultiLayerConfiguration", "MultiLayerNetwork",
-           "NeuralNetConfiguration", "char_rnn", "gpt_mini",
-           "gpt_mini_draft", "lenet", "mnist_mlp", "resnet18", "resnet50",
-           "resolve_device", "vgg16"]
+           "NeuralNetConfiguration", "activations", "char_rnn", "gpt_mini",
+           "gpt_mini_draft", "initializers", "lenet", "losses", "mnist_mlp",
+           "resnet18", "resnet50", "resolve_device", "vgg16"]

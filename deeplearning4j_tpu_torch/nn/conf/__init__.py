@@ -6,6 +6,7 @@ from deeplearning4j_tpu_torch.nn.conf import layers_conv  # noqa: F401  register
 from deeplearning4j_tpu_torch.nn.conf import layers_pretrain  # noqa: F401  registers Frozen
 from deeplearning4j_tpu_torch.nn.conf.core import (
     DtypePolicy,
+    ListBuilder,
     MultiLayerConfiguration,
     NeuralNetConfiguration,
 )
@@ -14,4 +15,4 @@ from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 
 __all__ = ["ComputationGraphConfiguration", "DtypePolicy", "InputType",
-           "MultiLayerConfiguration", "NeuralNetConfiguration"]
+           "ListBuilder", "MultiLayerConfiguration", "NeuralNetConfiguration"]

@@ -62,6 +62,10 @@ class Convolution2D(FeedForwardLayerConfig):
         return ConvolutionLayer(self, input_type, global_conf, policy)
 
 
+# DL4J name alias
+Convolution = Convolution2D
+
+
 @register_layer
 @dataclass(frozen=True)
 class Convolution1D(FeedForwardLayerConfig):

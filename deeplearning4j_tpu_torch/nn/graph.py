@@ -47,7 +47,8 @@ from deeplearning4j_tpu_torch.datasets.iterator import (AsyncDataSetIterator,
                                                         DevicePrefetchIterator)
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.nn import fusion as _fusion
-from deeplearning4j_tpu_torch.nn import multistep, precision, remat
+from deeplearning4j_tpu_torch.nn import multilayer as _mln
+from deeplearning4j_tpu_torch.nn import multistep, remat
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
     ComputationGraphConfiguration)
 from deeplearning4j_tpu_torch.nn.conf.layers import BaseLayerConfig
@@ -112,38 +113,45 @@ class ComputationGraph:
         return self
 
     # ------------------------------------------------------------------ init
-    def init(self, seed: Optional[int] = None):
+    def init(self, seed: Optional[int] = None, *,
+             structure_only: bool = False):
         """Resolve input types through the DAG, build the runtime layers,
         match the fusable tails, draw parameters from a ``torch.Generator``
         seeded with ``seed`` (default: the config's) and start a fresh
         optimizer state. Carry a JAX model across with
-        utils/serialization.py instead."""
+        utils/serialization.py instead. With ``structure_only`` the
+        params, state and updater state are ``meta`` tensors of the
+        shapes and dtypes ``init()`` gives and nothing is drawn."""
         gc = self.conf.global_conf
         seed = gc.seed if seed is None else seed
         self._build_vertices()
-        gen = torch.Generator(device="cpu").manual_seed(int(seed))
-        self.params, self.state = {}, {}
-        for layer in self.layers:
-            p = layer.init_params(gen, self.device)
-            if p:
-                self.params[layer.name] = p
-            s = layer.init_state(self.device)
-            if s:
-                self.state[layer.name] = s
-        self.opt_state = {}
-        for layer in self.layers:
-            if layer.name in self.params:
-                self.opt_state[layer.name] = layer.resolve(
-                    "updater").init_state(self.params[layer.name])
-        ls = precision.init_loss_scale_state(gc.dtype, self.device)
-        if ls is not None:
-            self.opt_state[precision.LOSS_SCALE_KEY] = ls
+        if structure_only:
+            gen, dev = None, torch.device("meta")
+        else:
+            gen = torch.Generator(device="cpu").manual_seed(int(seed))
+            dev = self.device
+        self.params, self.state, self.opt_state = _mln.init_trees(
+            self.layers, gc.dtype, gen, dev)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
         self.iteration = 0
         self._multi_steps = {}
         self._rnn_state = None
         return self
+
+    def materialize_state(self):
+        """Concrete layer state on the net's device (batch norm's running
+        statistics as ``init()`` starts them): after a structure-only
+        init, for a net whose checkpoint holds no state."""
+        self.state = _mln.init_state(self.layers, self.device)
+
+    def materialize_opt_state(self):
+        """A fresh updater state over the (concrete) params on the net's
+        device: after a structure-only init, when the updater state is
+        not restored."""
+        self.opt_state = _mln.init_opt_state(self.layers, self.params,
+                                             self.conf.global_conf.dtype,
+                                             self.device)
 
     def _build_vertices(self):
         """The runtime layers, each vertex's kind and resolved config, and

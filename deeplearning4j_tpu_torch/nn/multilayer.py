@@ -69,6 +69,45 @@ def _auto_preprocessor(input_type: InputType, conf):
     return None
 
 
+def init_trees(layers, policy, gen, device):
+    """(params, state, opt_state) of ``layers``: parameters drawn from
+    ``gen`` onto ``device``, each layer's state, each updater's state and
+    the loss-scale state when ``policy`` scales the loss. On the ``meta``
+    device every leaf has its shape and dtype and nothing is drawn."""
+    params = {}
+    for layer in layers:
+        p = layer.init_params(gen, device)
+        if p:
+            params[layer.name] = p
+    return (params, init_state(layers, device),
+            init_opt_state(layers, params, policy, device))
+
+
+def init_opt_state(layers, params, policy, device):
+    """Each layer's updater state over ``params``, plus the loss-scale
+    state when ``policy`` scales the loss."""
+    opt_state = {}
+    for layer in layers:
+        if layer.name in params:
+            opt_state[layer.name] = layer.resolve("updater").init_state(
+                params[layer.name])
+    ls = precision.init_loss_scale_state(policy, device)
+    if ls is not None:
+        opt_state[precision.LOSS_SCALE_KEY] = ls
+    return opt_state
+
+
+def init_state(layers, device):
+    """Each layer's state (batch norm's running statistics) on
+    ``device``."""
+    state = {}
+    for layer in layers:
+        s = layer.init_state(device)
+        if s:
+            state[layer.name] = s
+    return state
+
+
 class MultiLayerNetwork:
     def __init__(self, conf: MultiLayerConfiguration, device=None):
         self.conf = conf
@@ -95,40 +134,46 @@ class MultiLayerNetwork:
         self._flops_key = None
 
     # ------------------------------------------------------------------ init
-    def init(self, seed: Optional[int] = None):
+    def init(self, seed: Optional[int] = None, *,
+             structure_only: bool = False):
         """Build the runtime layers, draw parameters from a
         ``torch.Generator`` seeded with ``seed`` (default: the config's)
         and start a fresh optimizer state. The draws do not reproduce the
         JAX package's; carry a JAX model across with
-        utils/serialization.py instead."""
+        utils/serialization.py instead. With ``structure_only`` the
+        params, state and updater state are ``meta`` tensors of the
+        shapes and dtypes ``init()`` gives and nothing is drawn: for a
+        restore, which overwrites every leaf, and for a fingerprint."""
         gc = self.conf.global_conf
         seed = gc.seed if seed is None else seed
-        gen = torch.Generator(device="cpu").manual_seed(int(seed))
         self._build_layers()
-        self.params, self.state = {}, {}
-        for layer in self.layers:
-            p = layer.init_params(gen, self.device)
-            if p:
-                self.params[layer.name] = p
-            s = layer.init_state(self.device)
-            if s:
-                self.state[layer.name] = s
-        # each layer's updater state, plus the loss-scale state when the
-        # dtype policy scales the loss
-        self.opt_state = {}
-        for layer in self.layers:
-            if layer.name in self.params:
-                self.opt_state[layer.name] = layer.resolve(
-                    "updater").init_state(self.params[layer.name])
-        ls = precision.init_loss_scale_state(gc.dtype, self.device)
-        if ls is not None:
-            self.opt_state[precision.LOSS_SCALE_KEY] = ls
+        if structure_only:
+            gen, dev = None, torch.device("meta")
+        else:
+            gen = torch.Generator(device="cpu").manual_seed(int(seed))
+            dev = self.device
+        self.params, self.state, self.opt_state = init_trees(
+            self.layers, gc.dtype, gen, dev)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
         self.iteration = 0
         self._rnn_state = None
         self._multi_steps = {}
         return self
+
+    def materialize_state(self):
+        """Concrete layer state on the net's device (batch norm's running
+        statistics as ``init()`` starts them): after a structure-only
+        init, for a net whose checkpoint holds no state."""
+        self.state = init_state(self.layers, self.device)
+
+    def materialize_opt_state(self):
+        """A fresh updater state over the (concrete) params on the net's
+        device: after a structure-only init, when the updater state is
+        not restored."""
+        self.opt_state = init_opt_state(self.layers, self.params,
+                                        self.conf.global_conf.dtype,
+                                        self.device)
 
     def _build_layers(self):
         """The runtime layers and each one's input preprocessor: an

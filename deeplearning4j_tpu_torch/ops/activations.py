@@ -33,6 +33,10 @@ def get(name):
     return _REGISTRY[key]
 
 
+def names():
+    return sorted(_REGISTRY)
+
+
 @register("identity")
 def identity(x):
     return x

@@ -16,9 +16,11 @@
 // the plain versions in ops/stream_exact.py. Nothing depends on the number
 // of rows, the query length, q_start, the bucket or the tile a row lands
 // in. That rules out tensor cores (their products round and sum in the
-// hardware's own order), split-K and any reduction tree: each sum stays
-// one dependent chain in one thread, and the design can only change how
-// the operands reach that thread and how many chains run at once.
+// hardware's own order), split-K and any reduction tree whose shape
+// follows the launch: S1's and S2's sums stay one dependent chain in one
+// thread, and the design can only change how the operands reach that
+// thread and how many chains run at once. S3 sums by one tree whose shape
+// depends only on the row's width (below).
 //
 // S1 (dl4j_stream_dense): y[r, c] = (sum_i x[r, i] * W[i, c]) + bias[c],
 // f32, i ascending.
@@ -94,20 +96,38 @@
 //
 // S3 (dl4j_stream_rownorm): LayerNorm of each row of x [rows, w], f32:
 // mu = (sum_i x_i) / w, d = x - mu, var = (sum_i d_i * d_i) / w,
-// y = d * (1 / sqrt(var + eps)) * gamma + beta, every sum ascending in i,
-// the reciprocal square root as a rounded sqrt and a rounded division (the
-// plain version's torch.sqrt and division round the same way). PyTorch's
-// own mean is not decode-stable on the card: chip_smoke.py's
-// [stream_invariance] read 5 of 8 rows moving by up to 2.4e-7 when the
-// same rows came in a batch of 8 instead of 2048 (NVIDIA H100 80GB HBM3,
-// 700.00 W). One block of 128 threads per row: the row to shared memory,
-// thread 0 sums it twice in order, then every thread normalises its
-// columns. Bound: x read once and y written once, 2 x 4 B a value: bytes.
-//
-// The first versions of S1 and S2 stay as dl4j_stream_dense_v1 and
-// dl4j_stream_mha_v1 (one thread an output with W read through L2 once a
-// row; one warp a (row, query, head) with k read one row a lane,
-// uncoalesced). Only chip_smoke.py's timing ([times], --stream-split)
+// y = d * (1 / sqrt(var + eps)) * gamma + beta, the reciprocal square root
+// as a rounded sqrt and a rounded division (the plain version's torch.sqrt
+// and division round the same way). PyTorch's own mean is not
+// decode-stable on the card: chip_smoke.py's [stream_invariance] read 5 of
+// 8 rows moving by up to 2.4e-7 when the same rows came in a batch of 8
+// instead of 2048 (NVIDIA H100 80GB HBM3, 700.00 W).
+//   The order of both sums, fixed by w alone: lane l of a warp
+//   sums columns l, l + 32, l + 64, ... ascending from +0.0 (a lane with
+//   no column keeps +0.0); then five butterfly rounds p = p + p[l ^ m],
+//   m = 16, 8, 4, 2, 1, by __shfl_xor_sync. IEEE addition commutes, so
+//   every lane ends with the same bits. The plain version
+//   (ops/stream_exact.py::stream_rownorm_torch) computes the same 32
+//   partials and the same tree. The statistics are this order, not a
+//   single ascending chain: only S3 sums by a tree, and its tree depends on
+//   nothing but w, so a row's bits still depend on nothing but the row.
+//   Design. One warp a row, kNormWarps rows a block, no __syncthreads.
+//   Up to w = 32 K columns (K = 1, 2, 4, ..., kNormMaxCols) a lane holds
+//   its columns of x, gamma and beta in registers, all loaded before the
+//   sums start: x is read once (coalesced, a 128-byte line a step), the
+//   two sums are K + 5 dependent adds each, y is written once.
+//   A wider row loops over it in three passes (sum, sum of squares,
+//   output), x read three times through L2. Bound: x read once and y
+//   written once, 2 x 4 B a value: bytes; at the decode step's [32, 256]
+//   the launch and the 2 x (8 + 5)-step chain set the floor.
+//   The first version (one block of 128 threads a row, the row in shared
+//   memory, thread 0 summing it twice in ascending order) stays as
+//   dl4j_stream_rownorm_v1 for timing only.
+
+// The first versions of S1, S2 and S3 stay as dl4j_stream_dense_v1,
+// dl4j_stream_mha_v1 and dl4j_stream_rownorm_v1 (one thread an output
+// with W read through L2 once a row; one warp a (row, query, head) with k
+// read one row a lane, uncoalesced; a block a row, summed by one thread). Only chip_smoke.py's timing ([times], --stream-split)
 // runs them, beside the new kernels; the registry never reaches them.
 //
 // The wrappers (ops/stream_exact.py) check shapes, dtypes, contiguity and
@@ -141,7 +161,11 @@ constexpr int kMhaMaxItems = 8;         // (query row, column) outputs a thread
 // first versions
 constexpr int kDenseThreadsV1 = 128;
 constexpr int kMhaWarpsV1 = 4;
-constexpr int kNormThreads = 128;
+constexpr int kNormThreadsV1 = 128;
+
+// S3
+constexpr int kNormWarps = 4;         // rows a block (one warp a row)
+constexpr int kNormMaxCols = 32;      // columns a lane holds: w <= 1024
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -700,18 +724,94 @@ __global__ void chain_probe_kernel(const float* __restrict__ in,
 }
 
 // ------------------------------------------------------------------ S3
-// dynamic shared memory: the row (w floats) and its two statistics
-__global__ void stream_rownorm_kernel(const float* __restrict__ x,
-                                     const float* __restrict__ gamma,
-                                     const float* __restrict__ beta,
-                                     float* __restrict__ y, int w,
-                                     float eps) {
+// The fixed tree: five butterfly rounds over the warp's 32 partials.
+__device__ __forceinline__ float warp_tree(float p) {
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1)
+    p = __fadd_rn(p, __shfl_xor_sync(0xffffffffu, p, m));
+  return p;
+}
+
+// One warp a row. K > 0: lane l holds columns l + 32 k (k < K) in
+// registers (w <= 32 K); K == 0: any w, three passes over the row.
+template <int K>
+__global__ void __launch_bounds__(32 * kNormWarps)
+    stream_rownorm_kernel(const float* __restrict__ x,
+                          const float* __restrict__ gamma,
+                          const float* __restrict__ beta,
+                          float* __restrict__ y, int64_t rows, int w,
+                          float eps) {
+  const int lane = threadIdx.x & 31;
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * kNormWarps +
+                    (threadIdx.x >> 5);
+  if (r >= rows) return;             // the whole warp leaves together
+  const float* xr = x + r * w;
+  float* yr = y + r * w;
+  const float n = static_cast<float>(w);
+  if constexpr (K > 0) {
+    // x, gamma and beta all loaded up front: the scale and shift arrive
+    // while the sums run, not after them
+    float v[K], gk[K], bk[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int c = lane + 32 * k;
+      v[k] = c < w ? xr[c] : 0.0f;
+      gk[k] = c < w ? gamma[c] : 0.0f;
+      bk[k] = c < w ? beta[c] : 0.0f;
+    }
+    float p = 0.0f;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (lane + 32 * k < w) p = __fadd_rn(p, v[k]);
+    const float mu = __fdiv_rn(warp_tree(p), n);
+    float q = 0.0f;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (lane + 32 * k < w) {
+        v[k] = __fsub_rn(v[k], mu);
+        q = __fadd_rn(q, __fmul_rn(v[k], v[k]));
+      }
+    }
+    const float var = __fdiv_rn(warp_tree(q), n);
+    const float inv = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, eps)));
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int c = lane + 32 * k;
+      if (c < w)
+        yr[c] = __fadd_rn(__fmul_rn(__fmul_rn(v[k], inv), gk[k]), bk[k]);
+    }
+  } else {
+    float p = 0.0f;
+    for (int c = lane; c < w; c += 32) p = __fadd_rn(p, xr[c]);
+    const float mu = __fdiv_rn(warp_tree(p), n);
+    float q = 0.0f;
+    for (int c = lane; c < w; c += 32) {
+      const float d = __fsub_rn(xr[c], mu);
+      q = __fadd_rn(q, __fmul_rn(d, d));
+    }
+    const float var = __fdiv_rn(warp_tree(q), n);
+    const float inv = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, eps)));
+    for (int c = lane; c < w; c += 32)
+      yr[c] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(xr[c], mu), inv),
+                                  gamma[c]),
+                        beta[c]);
+  }
+}
+
+// The first version of S3: one block of 128 threads a row, the row in
+// dynamic shared memory (w floats and its two statistics), thread 0
+// summing it in ascending order twice.
+__global__ void stream_rownorm_kernel_v1(const float* __restrict__ x,
+                                         const float* __restrict__ gamma,
+                                         const float* __restrict__ beta,
+                                         float* __restrict__ y, int w,
+                                         float eps) {
   extern __shared__ float smem[];
   float* xs = smem;
   float* stats = smem + w;
   const int64_t r = blockIdx.x;
   const float* xr = x + r * w;
-  for (int i = threadIdx.x; i < w; i += kNormThreads) xs[i] = xr[i];
+  for (int i = threadIdx.x; i < w; i += kNormThreadsV1) xs[i] = xr[i];
   __syncthreads();
   if (threadIdx.x == 0) {
     const float n = static_cast<float>(w);
@@ -731,10 +831,18 @@ __global__ void stream_rownorm_kernel(const float* __restrict__ x,
   const float mu = stats[0];
   const float inv = stats[1];
   float* yr = y + r * w;
-  for (int i = threadIdx.x; i < w; i += kNormThreads) {
+  for (int i = threadIdx.x; i < w; i += kNormThreadsV1) {
     const float d = __fsub_rn(xs[i], mu);
     yr[i] = __fadd_rn(__fmul_rn(__fmul_rn(d, inv), gamma[i]), beta[i]);
   }
+}
+
+template <int K>
+void launch_rownorm(unsigned blocks, cudaStream_t s, const float* x,
+                    const float* gamma, const float* beta, float* y,
+                    int64_t rows, int w, float eps) {
+  stream_rownorm_kernel<K><<<blocks, 32 * kNormWarps, 0, s>>>(
+      x, gamma, beta, y, rows, w, eps);
 }
 
 bool aligned16(const void* p) {
@@ -904,19 +1012,53 @@ int dl4j_stream_mha_v1(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// S3. x, y [rows, w]; gamma, beta [w]; all f32 and contiguous.
+// S3. x, y [rows, w]; gamma, beta [w]; all f32 and contiguous. cols: the
+// columns a lane holds in registers (1, 2, 4, ..., kNormMaxCols, at least
+// w / 32), or 0 for the looped kernel (any w); from
+// ops/stream_exact.py::rownorm_plan.
 int dl4j_stream_rownorm(const void* x, const void* gamma, const void* beta,
-                        void* y, int rows, int w, float eps, void* stream) {
+                        void* y, long long rows, int w, int cols, float eps,
+                        void* stream) {
+  if (rows < 1 || w < 1 || cols < 0 || cols > kNormMaxCols ||
+      (cols & (cols - 1)) != 0 ||
+      (cols > 0 && static_cast<int64_t>(cols) * 32 < w))
+    return cudaErrorInvalidValue;
+  const int64_t blocks = (rows + kNormWarps - 1) / kNormWarps;
+  if (blocks > 2147483647LL) return cudaErrorInvalidValue;
+  const auto b = static_cast<unsigned>(blocks);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* xf = static_cast<const float*>(x);
+  const auto* gf = static_cast<const float*>(gamma);
+  const auto* bf = static_cast<const float*>(beta);
+  auto* yf = static_cast<float*>(y);
+  switch (cols) {
+    case 0: launch_rownorm<0>(b, s, xf, gf, bf, yf, rows, w, eps); break;
+    case 1: launch_rownorm<1>(b, s, xf, gf, bf, yf, rows, w, eps); break;
+    case 2: launch_rownorm<2>(b, s, xf, gf, bf, yf, rows, w, eps); break;
+    case 4: launch_rownorm<4>(b, s, xf, gf, bf, yf, rows, w, eps); break;
+    case 8: launch_rownorm<8>(b, s, xf, gf, bf, yf, rows, w, eps); break;
+    case 16: launch_rownorm<16>(b, s, xf, gf, bf, yf, rows, w, eps); break;
+    default: launch_rownorm<32>(b, s, xf, gf, bf, yf, rows, w, eps); break;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The first version of S3 (timed by chip_smoke.py only): w + 2 floats of
+// shared memory a block, so w <= 58,110.
+int dl4j_stream_rownorm_v1(const void* x, const void* gamma,
+                           const void* beta, void* y, int rows, int w,
+                           float eps, void* stream) {
   if (rows < 1 || w < 1) return cudaErrorInvalidValue;
-  const int smem = static_cast<int>((w + 2) * sizeof(float));
+  const int64_t smem = (static_cast<int64_t>(w) + 2) * sizeof(float);
+  if (smem > kSmemMax) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        stream_rownorm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        stream_rownorm_kernel_v1, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  stream_rownorm_kernel<<<rows, kNormThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
+  stream_rownorm_kernel_v1<<<rows, kNormThreadsV1, static_cast<int>(smem),
+                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(gamma),
       static_cast<const float*>(beta), static_cast<float*>(y), w, eps);
   return static_cast<int>(cudaGetLastError());

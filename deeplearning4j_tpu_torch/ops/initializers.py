@@ -1,8 +1,10 @@
 """Weight initialization (counterpart of deeplearning4j_tpu/ops/initializers.py).
 
 Each initializer is ``fn(gen, shape, fan_in, fan_out, dtype, device)`` and
-draws from an explicit ``torch.Generator``. The draws are made on the CPU
-and then moved, so one seed gives the same weights on every device. They
+draws from an explicit ``torch.Generator``; on the ``meta`` device it
+draws nothing and returns the shape and dtype alone (a structure-only
+``init``). The draws are made on the CPU and then moved, so one seed
+gives the same weights on every device. They
 do not reproduce ``jax.random``'s bits; only the distributions (moments and
 bounds) match the JAX package. A model is carried across bit for bit
 through the zip format instead (utils/serialization.py).
@@ -35,12 +37,26 @@ def get(name):
     return _REGISTRY[key]
 
 
+def names():
+    return sorted(_REGISTRY)
+
+
+def _structure_only(device):
+    """A ``meta`` device asks for shapes and dtypes only: nothing is
+    drawn (a structure-only ``init``)."""
+    return torch.device(device).type == "meta"
+
+
 def _normal(gen, shape, std, dtype, device, mean=0.0):
+    if _structure_only(device):
+        return torch.empty(shape, dtype=dtype, device=device)
     x = torch.randn(shape, generator=gen, dtype=torch.float32)
     return (mean + std * x).to(device=device, dtype=dtype)
 
 
 def _uniform(gen, shape, lo, hi, dtype, device):
+    if _structure_only(device):
+        return torch.empty(shape, dtype=dtype, device=device)
     x = torch.rand(shape, generator=gen, dtype=torch.float32)
     return (lo + (hi - lo) * x).to(device=device, dtype=dtype)
 
@@ -128,6 +144,8 @@ def distribution(dist: dict):
             return _uniform(gen, shape, dist.get("lower", -1.0),
                             dist.get("upper", 1.0), dtype, device)
         if t == "binomial":
+            if _structure_only(device):
+                return torch.empty(shape, dtype=dtype, device=device)
             probs = torch.full(shape, float(dist.get("probability", 0.5)))
             trials = torch.full(shape, float(dist.get("trials", 1)))
             x = torch.binomial(trials, probs, generator=gen)

@@ -23,8 +23,10 @@ fixed order:
   p = exp(s - max); the sum of p and the weighted sum of v over the cache
   positions in ascending order; normalised after the sum.
 - ``stream_rownorm`` (S3): LayerNorm of each row in f32, its mean and
-  variance summed over the row in ascending order, the reciprocal square
-  root as a rounded square root and a rounded division. PyTorch's own
+  variance each summed in one fixed order that depends only on the row's
+  width (32 lane partials over columns l, l + 32, ... ascending, then a
+  five-round butterfly, ``_row_tree``), the reciprocal square root as a
+  rounded square root and a rounded division. PyTorch's own
   mean moves on the card with the number of rows (chip_smoke.py
   ``[stream_invariance]``); its softmax and GELU do not, so the head's
   softmax and the MLP's GELU stay PyTorch's.
@@ -124,23 +126,39 @@ def _full_div(a, n):
     return torch.div(a, torch.full_like(a, float(n)))
 
 
+def _row_tree(x):
+    """S3's sum of each row of x [..., w] (f32): lane l of a 32-lane warp
+    sums columns l, l + 32, ... in ascending order from +0.0 (a lane with
+    no column keeps +0.0), then five butterfly rounds p = p + p[l ^ m] for
+    m = 16, 8, 4, 2, 1; every lane ends with the same bits (IEEE addition
+    commutes), lane 0's are returned as [..., 1]. w / 32 + 5 vectorised
+    adds, each rounded on its own."""
+    w = x.shape[-1]
+    p = torch.zeros(x.shape[:-1] + (WARP,), dtype=torch.float32,
+                    device=x.device)
+    for c0 in range(0, w, WARP):
+        n = min(WARP, w - c0)
+        head = torch.add(p[..., :n], x[..., c0:c0 + n])
+        p = torch.cat((head, p[..., n:]), dim=-1) if n < WARP else head
+    lanes = torch.arange(WARP, device=x.device)
+    for m in (16, 8, 4, 2, 1):
+        p = torch.add(p, p[..., lanes ^ m])
+    return p[..., :1]
+
+
 @registry.register(KERNEL_NORM, "cpu")
 def stream_rownorm_torch(x, gamma, beta, eps):
     """S3's plain version: LayerNorm over the last axis of x in f32, the
-    row sums in ascending order. Returns f32."""
+    two row sums in S3's fixed order (``_row_tree``), the square root and
+    the division each correctly rounded. Returns f32."""
     w = x.shape[-1]
     xf = x.to(torch.float32)
-    s = torch.zeros(xf.shape[:-1] + (1,), dtype=torch.float32,
-                    device=x.device)
-    for i in range(w):
-        s = torch.add(s, xf[..., i:i + 1])
-    d = torch.sub(xf, _full_div(s, w))
-    ss = torch.zeros_like(s)
-    for i in range(w):
-        di = d[..., i:i + 1]
-        ss = torch.add(ss, torch.mul(di, di))
-    var = torch.add(_full_div(ss, w), float(eps))
-    inv = torch.div(torch.ones_like(var), torch.sqrt(var))
+    d = torch.sub(xf, _full_div(_row_tree(xf), w))
+    var = torch.add(_full_div(_row_tree(torch.mul(d, d)), w), float(eps))
+    # the CPU's float32 sqrt may miss the correct rounding by an ulp; the
+    # float64 root rounded once to float32 is the correctly rounded one
+    root = torch.sqrt(var.to(torch.float64)).to(torch.float32)
+    inv = torch.div(torch.ones_like(var), root)
     y = torch.mul(torch.mul(d, inv), gamma.to(torch.float32))
     return torch.add(y, beta.to(torch.float32))
 
@@ -179,6 +197,11 @@ MHA_STAGE_FLOATS = 8192  # S2: a stage holds 8192 / dh cache rows
 MHA_STAGES = 3
 MHA_MAX_ITEMS = 8        # S2: (query row, column) outputs a thread
 MHA_BLOCKS = 2 * 132     # S2: blocks a prefill aims at (two an SM)
+WARP = 32                # S3: lanes a row's partial sums
+NORM_WARPS = 4           # S3: rows a block (one warp a row)
+NORM_MAX_COLS = 32       # S3: columns a lane holds in registers
+NORM_MAX_W = 2 ** 31 - 1
+NORM_MAX_BLOCKS = 2 ** 31 - 1
 
 
 def _cdiv(a, b):
@@ -273,6 +296,29 @@ def mha_plan(b, t, h, dh, C, v4=True) -> MhaPlan:
     return MhaPlan(qg, groups, tj, 4 * (ring + qg * row), b * h * groups)
 
 
+def rownorm_plan(rows, w) -> int:
+    """S3's launch for x [rows, w]: the columns a lane holds in registers
+    (the least power of two from 1 to NORM_MAX_COLS with 32 of them >= w),
+    or 0 for the looped kernel past 32 NORM_MAX_COLS = 1024 columns, which
+    reads the row three times. Raises on widths or row counts the kernel
+    does not take (its widths are an int's; its blocks of NORM_WARPS rows
+    a grid's)."""
+    if w > NORM_MAX_W:
+        raise NotImplementedError(
+            f"stream_rownorm takes rows of at most {NORM_MAX_W} columns, "
+            f"got w={w}")
+    if _cdiv(rows, NORM_WARPS) > NORM_MAX_BLOCKS:
+        raise NotImplementedError(
+            f"stream_rownorm takes at most {NORM_WARPS * NORM_MAX_BLOCKS} "
+            f"rows, got {rows}")
+    if w > WARP * NORM_MAX_COLS:
+        return 0
+    cols = 1
+    while WARP * cols < w:
+        cols *= 2
+    return cols
+
+
 # ------------------------------------------------------------------ cuda
 _LIB = None
 _RAW_STREAM = None
@@ -296,9 +342,13 @@ def _bind():
     lib.dl4j_stream_mha_v1.argtypes = ([ptr] * 5 + [i32] * 5
                                        + [ctypes.c_float, ptr])
     lib.dl4j_stream_mha_v1.restype = i32
-    lib.dl4j_stream_rownorm.argtypes = ([ptr] * 4 + [i32] * 2
+    lib.dl4j_stream_rownorm.argtypes = ([ptr] * 4
+                                        + [ctypes.c_longlong, i32, i32]
                                         + [ctypes.c_float, ptr])
     lib.dl4j_stream_rownorm.restype = i32
+    lib.dl4j_stream_rownorm_v1.argtypes = ([ptr] * 4 + [i32] * 2
+                                           + [ctypes.c_float, ptr])
+    lib.dl4j_stream_rownorm_v1.restype = i32
     lib.dl4j_stream_chain_probe.argtypes = [ptr] * 3 + [i32, ptr]
     lib.dl4j_stream_chain_probe.restype = i32
     lib.dl4j_cuda_error_string.argtypes = [i32]
@@ -606,10 +656,8 @@ def chain_cycles(n=4096):
     return tuple(c / n for c in cyc.tolist())
 
 
-def _rownorm_launch(x, gamma, beta, eps):
-    """Launch S3 on the current stream: LayerNorm over the last axis of x
-    f32 with gamma, beta [w] f32 -> f32 of x's shape. Raises on what the
-    kernel does not take; never falls back."""
+def _rownorm_args(x, gamma, beta):
+    """x as [rows, w] after the checks S3's kernels share."""
     w = x.shape[-1]
     x2 = x if x.dim() == 2 else x.reshape(-1, w)
     dev = x.device
@@ -620,20 +668,46 @@ def _rownorm_launch(x, gamma, beta, eps):
     if gamma.shape != (w,) or beta.shape != (w,):
         raise ValueError(f"stream_rownorm: x {tuple(x.shape)}, gamma "
                          f"{tuple(gamma.shape)}, beta {tuple(beta.shape)}")
-    if (w + 2) * 4 > SMEM_MAX:
-        raise NotImplementedError(
-            f"stream_rownorm holds a row in shared memory: w={w} is too "
-            f"wide")
-    rows = x2.shape[0]
-    y = torch.empty((rows, w), dtype=torch.float32, device=dev)
+    return x2
+
+
+def _rownorm_launch(x, gamma, beta, eps):
+    """Launch S3 on the current stream: LayerNorm over the last axis of x
+    f32 with gamma, beta [w] f32 -> f32 of x's shape. Raises on what the
+    kernel does not take; never falls back."""
+    x2 = _rownorm_args(x, gamma, beta)
+    rows, w = x2.shape
+    y = torch.empty((rows, w), dtype=torch.float32, device=x.device)
     if rows == 0:
         return y.reshape(x.shape)
+    cols = rownorm_plan(rows, w)
     lib = _bind()
-    rc = _launch(dev, lib.dl4j_stream_rownorm, x2.data_ptr(),
+    rc = _launch(x.device, lib.dl4j_stream_rownorm, x2.data_ptr(),
                  gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), rows, w,
-                 float(eps))
+                 cols, float(eps))
     if rc != 0:
-        _raise(lib, rc, KERNEL_NORM, f"rows={rows}, w={w}")
+        _raise(lib, rc, KERNEL_NORM, f"rows={rows}, w={w}, cols={cols}")
     registry.count_launch(KERNEL_NORM)
     registry.count_flops(KERNEL_NORM, 8 * rows * w)
     return y if x.dim() == 2 else y.reshape(x.shape)
+
+
+def rownorm_launch_v1(x, gamma, beta, eps):
+    """S3's first version (a block of 128 threads a row, the row in shared
+    memory, one thread summing it in ascending order), kept for timing
+    beside the new kernel; the registry never reaches it and it counts no
+    launch. Its sums run in another order than the plain version's."""
+    x2 = _rownorm_args(x, gamma, beta)
+    rows, w = x2.shape
+    if (w + 2) * 4 > SMEM_MAX or rows > 2 ** 31 - 1:
+        raise NotImplementedError(
+            f"stream_rownorm's first version holds a row in shared memory "
+            f"(w <= {SMEM_MAX // 4 - 2}), got rows={rows}, w={w}")
+    y = torch.empty((rows, w), dtype=torch.float32, device=x.device)
+    lib = _bind()
+    rc = _launch(x.device, lib.dl4j_stream_rownorm_v1, x2.data_ptr(),
+                 gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), rows, w,
+                 float(eps))
+    if rc != 0:
+        _raise(lib, rc, KERNEL_NORM + "_v1", f"rows={rows}, w={w}")
+    return y.reshape(x.shape)

@@ -1,5 +1,6 @@
 """Serving runtime: the micro-batcher, the replica set, stats, the paged
-KV pool, the decode engine and the HTTP model server."""
+KV pool, the decode engine, the HTTP model server and the publication
+store its live reload reads."""
 
 from deeplearning4j_tpu_torch.serving.batcher import (BatcherDeadError,
                                                       MicroBatcher,
@@ -12,6 +13,8 @@ from deeplearning4j_tpu_torch.serving.fleet import Replica, ReplicaSet
 from deeplearning4j_tpu_torch.serving.kvcache import (CachePoolFullError,
                                                       KVPagePool)
 from deeplearning4j_tpu_torch.serving.metrics import ServingStats
+from deeplearning4j_tpu_torch.serving.publish import (Publication,
+                                                      WeightStore, load_net)
 from deeplearning4j_tpu_torch.serving.server import (DeadlineExceededError,
                                                      ModelServer,
                                                      UnknownSessionError,
@@ -21,4 +24,5 @@ __all__ = ["ModelServer", "serve", "MicroBatcher", "QueueFullError",
            "BatcherDeadError", "DeadlineExceededError",
            "UnknownSessionError", "ServingStats", "Replica", "ReplicaSet",
            "DecodeEngine", "DecodeSession", "StreamingKVForward",
-           "KVPagePool", "CachePoolFullError", "next_bucket"]
+           "KVPagePool", "CachePoolFullError", "next_bucket",
+           "WeightStore", "Publication", "load_net"]

@@ -32,11 +32,17 @@ and closes the serving goodput ledger (``run_report``).
 with only the policy's compute dtype replaced: its rows hold a tolerance
 against the net's own, not bit-identity.
 
+``hot_swap(publication)`` reloads the served weights with no gap: a
+rolling ``ReplicaSet.swap_forward`` onto a forward bound to the
+published weights (serving/publish.py), one structure-only net object a
+version, so requests still finishing on the old weights never see a
+mutated net. A warmed server builds no kernel across a swap.
+
 Not ported, each refused by name when given: ``mesh`` (mesh-parallel
-serving, ROADMAP A.5), ``hot_swap`` and publications (A.3, live reload),
-``push_url`` (federation, A.5), ``slos`` (the SLO engine, A.4),
-``compile_cache_dir``, ``aot_manifest`` and ``tuning_report`` (the
-compile cache, A.4), and ``scheduler`` (A.3, scheduling).
+serving, ROADMAP A.5), ``push_url`` (federation) and ``slos`` (the SLO
+engine) (A.3.3), ``compile_cache_dir``, ``aot_manifest`` and
+``tuning_report`` (the compile cache, A.4), and ``scheduler`` (A.3,
+scheduling).
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.nn.updater import _map
 from deeplearning4j_tpu_torch.observability import distributed as _dist
 from deeplearning4j_tpu_torch.observability import goodput as _goodput
 from deeplearning4j_tpu_torch.observability import metrics as _obs_metrics
@@ -66,12 +73,10 @@ from deeplearning4j_tpu_torch.serving.metrics import (ServingStats,
 NOT_PORTED = {
     "mesh": "mesh-parallel serving (parallel/inference.py) is not ported "
             "(ROADMAP.md A.5)",
-    "hot_swap": "live reload (serving/publish.py, hot_swap) is not ported "
-                "(ROADMAP.md A.3, hot_swap and serving/publish.py)",
     "push_url": "the federation heartbeat (HeartbeatPusher) is not ported "
-                "(ROADMAP.md A.5)",
+                "(ROADMAP.md A.3.3)",
     "slos": "the SLO engine (observability/slo.py) is not ported "
-            "(ROADMAP.md A.4)",
+            "(ROADMAP.md A.3.3)",
     "compile_cache_dir": "the compile cache (compilecache/) is not ported "
                          "(ROADMAP.md A.4)",
     "aot_manifest": "the compile cache's AOT manifest (compilecache/) is "
@@ -133,6 +138,7 @@ class ModelServer:
         self.run_report = None   # goodput RunReport, set by stop()
         self.model_version = 0
         self.swaps_total = 0
+        self._swap_lock = threading.Lock()
         self.compute_dtype = compute_dtype
         self._serving_net = None
         if (compute_dtype is not None and compute_dtype
@@ -169,11 +175,8 @@ class ModelServer:
         gc2 = dataclasses.replace(gc, dtype=dataclasses.replace(
             gc.dtype, compute_dtype=compute_dtype))
         conf2 = dataclasses.replace(self.net.conf, global_conf=gc2)
-        shadow = type(self.net)(conf2, device=self.net.device)
-        build = getattr(shadow, "_build_layers", None) \
-            or shadow._build_vertices
-        build()
-        return shadow
+        return type(self.net)(conf2, device=self.net.device).init(
+            structure_only=True)
 
     @property
     def serving_compute_dtype(self) -> str:
@@ -192,9 +195,88 @@ class ModelServer:
         out = net.output(feats[0])
         return out.float().cpu().numpy()
 
+    # ----------------------------------------------------------- live reload
+    def _versioned_forward(self, params, state):
+        """A forward bound to published weights: a structure-only net of
+        the serving configuration (the shadow's when ``compute_dtype``
+        is set) of its own, holding ``params`` and ``state``. Nothing on
+        the live net is assigned, so replicas mid-swap, some on the old
+        version and some on the new, never share a mutated net; and the
+        forward runs the kernels the warm-up built."""
+        like = self._serving_net if self._serving_net is not None \
+            else self.net
+        net = type(like)(like.conf, device=self.net.device).init(
+            structure_only=True)
+        net.params, net.state = params, state
+
+        def forward(feats):
+            return net.output(feats[0]).float().cpu().numpy()
+        return forward
+
     def hot_swap(self, publication=None, *, net=None, version=None):
-        raise NotImplementedError(f"ModelServer.hot_swap: "
-                                  f"{NOT_PORTED['hot_swap']}")
+        """Reload the served weights with no gap: a rolling
+        ``swap_forward`` over every live replica, each publishing a
+        batcher over the new weights and then draining the old one, so
+        requests in flight finish on the old weights and new ones run on
+        the new.
+
+        ``publication``: a serving.publish.Publication, restored here
+        (``load_net``) unless a restored ``net`` is passed. Its
+        fingerprint must equal the serving net's (the same parameter
+        structure). Refused with a decode engine (its sessions hold KV
+        state of the old weights: drain the host instead); a server on a
+        mesh is refused when it is built (ROADMAP.md A.5). Returns ``{version, fingerprint,
+        replicas_swapped, swap_s, fresh_compiles}``: ``fresh_compiles``
+        is the kernel builds during the swap, 0 on a warmed server."""
+        if self.decode_engine is not None:
+            raise ValueError(
+                "hot_swap cannot re-weight live decode sessions (their KV "
+                "caches hold the old weights' state): drain the host and "
+                "re-prefill the sessions elsewhere")
+        from deeplearning4j_tpu_torch.compilecache.manifest import (
+            model_fingerprint)
+        from deeplearning4j_tpu_torch.serving import publish as _publish
+        with self._swap_lock:
+            if publication is not None:
+                if net is None:
+                    net = _publish.load_net(publication.path,
+                                            device=self.net.device)
+                if version is None:
+                    version = publication.version
+                expect = publication.fingerprint
+            else:
+                if net is None:
+                    raise ValueError("hot_swap needs a publication or a "
+                                     "restored net")
+                expect = model_fingerprint(net)
+            serving_fp = model_fingerprint(self.net)
+            if expect is not None and expect != serving_fp:
+                raise ValueError(
+                    f"published fingerprint {expect} does not match the "
+                    f"serving net's {serving_fp}: a hot swap binds only "
+                    "weights of the same parameter structure (another "
+                    "architecture needs a new server)")
+            dev = self.net.device
+            params = _map(lambda t: t.to(dev), net.params)
+            state = _map(lambda t: t.to(dev), net.state or {})
+            forward = self._versioned_forward(params, state)
+            compile0 = _obs_metrics.compile_snapshot()
+            t0 = time.perf_counter()
+            swapped = 0
+            for r in list(self._fleet.replicas):
+                if r.status == "dead":
+                    continue    # an evicted slot keeps its slot semantics
+                self._fleet.swap_forward(r.index, forward)
+                swapped += 1
+            self.model_version = int(version) if version is not None \
+                else self.model_version + 1
+            self.swaps_total += 1
+            delta = _obs_metrics.compile_delta(compile0)
+            return {"version": self.model_version,
+                    "fingerprint": serving_fp,
+                    "replicas_swapped": swapped,
+                    "swap_s": round(time.perf_counter() - t0, 6),
+                    "fresh_compiles": delta["count"]}
 
     def _infer_row_shapes(self):
         """Per-input row shapes for warm-up: ``input_shapes`` if given,

@@ -372,13 +372,15 @@ def _restore(path, expect_kind, device, mesh, data_axis, model_axis,
             ComputationGraphConfiguration)
         from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
         net = ComputationGraph(ComputationGraphConfiguration.from_json(
-            meta["config"]), device=device).init()
+            meta["config"]), device=device).init(structure_only=True)
     else:
         from deeplearning4j_tpu_torch.nn.conf.core import (
             MultiLayerConfiguration)
         from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
         net = MultiLayerNetwork(MultiLayerConfiguration.from_json(
-            meta["config"]), device=device).init()
+            meta["config"]), device=device).init(structure_only=True)
+    # every leaf of the structure-only net is overwritten here, so the
+    # restore draws nothing: its cost is reading the trees
     trees = read_checkpoint_trees(path, net, net.device)
     net.params, net.state, net.opt_state = (
         trees["params"], trees["state"], trees["opt_state"])

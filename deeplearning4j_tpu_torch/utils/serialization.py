@@ -55,9 +55,9 @@ def _tree_to_npz_bytes(tree) -> bytes:
     return buf.getvalue()
 
 
-def _npz_into(data: bytes, template):
-    """Arrays of an npz, in the structure, dtypes and device of
-    ``template``."""
+def _npz_into(data: bytes, template, device):
+    """Arrays of an npz, in the structure and dtypes of ``template``, on
+    ``device``."""
     npz = np.load(io.BytesIO(data))
 
     def fill(tree, path=()):
@@ -70,7 +70,7 @@ def _npz_into(data: bytes, template):
         if tuple(arr.shape) != tuple(tree.shape):
             raise ValueError(f"{key}: checkpoint shape {arr.shape} != "
                              f"model shape {tuple(tree.shape)}")
-        return params_from_numpy(arr, tree.device, tree.dtype)
+        return params_from_numpy(arr, device, tree.dtype)
 
     return fill(template)
 
@@ -105,18 +105,24 @@ def write_computation_graph(net, path):
 
 
 def _restore(path, build):
-    """Restore a zip into the net ``build(conf_json)`` makes: params, layer
-    state and updater state where the zip holds them (else what ``init``
-    made), and the step counters."""
+    """Restore a zip into the structure-only net ``build(conf_json)``
+    makes: params, layer state and updater state where the zip holds them
+    (else the fresh ones ``init`` would make), and the step counters.
+    Nothing is drawn: every parameter comes from the zip."""
     with zipfile.ZipFile(path, "r") as zf:
         names = set(zf.namelist())
         net = build(zf.read("configuration.json").decode("utf-8"))
-        net.params = _npz_into(zf.read("coefficients.npz"), net.params)
+        dev = net.device
+        net.params = _npz_into(zf.read("coefficients.npz"), net.params, dev)
         if "state.npz" in names and net.state:
-            net.state = _npz_into(zf.read("state.npz"), net.state)
+            net.state = _npz_into(zf.read("state.npz"), net.state, dev)
+        else:
+            net.materialize_state()
         if "updaterState.npz" in names:
             net.opt_state = _npz_into(zf.read("updaterState.npz"),
-                                      net.opt_state)
+                                      net.opt_state, dev)
+        else:
+            net.materialize_opt_state()
         if "metadata.json" in names:
             meta = json.loads(zf.read("metadata.json"))
             net.iteration = meta.get("iteration", 0)
@@ -132,7 +138,8 @@ def restore_multi_layer_network(path, device=None):
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 
     return _restore(path, lambda s: MultiLayerNetwork(
-        MultiLayerConfiguration.from_json(s), device=device).init())
+        MultiLayerConfiguration.from_json(s), device=device).init(
+            structure_only=True))
 
 
 def restore_computation_graph(path, device=None):
@@ -144,7 +151,8 @@ def restore_computation_graph(path, device=None):
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 
     return _restore(path, lambda s: ComputationGraph(
-        ComputationGraphConfiguration.from_json(s), device=device).init())
+        ComputationGraphConfiguration.from_json(s), device=device).init(
+            structure_only=True))
 
 
 def restore_model(path, device=None):

@@ -160,6 +160,22 @@ def test_decode_serving_modules_are_checked(module):
     assert module in {_module_name(p) for p in SOURCES}
 
 
+# the modules of the live-reload slice: the model fingerprint and the
+# publication store
+LIVE_RELOAD_MODULES = [
+    "deeplearning4j_tpu_torch.compilecache",
+    "deeplearning4j_tpu_torch.compilecache.manifest",
+    "deeplearning4j_tpu_torch.serving.publish",
+]
+
+
+@pytest.mark.parametrize("module", LIVE_RELOAD_MODULES)
+def test_live_reload_modules_are_checked(module):
+    """Each module of the live-reload slice is among the sources the
+    import tests check."""
+    assert module in {_module_name(p) for p in SOURCES}
+
+
 def test_package_imports_with_jax_blocked():
     mods = [_module_name(p) for p in SOURCES if p.parent != ROOT]
     code = ("import sys\n"
@@ -302,3 +318,15 @@ def test_profile_kernel_kinds(name, kind):
     finally:
         sys.path.remove(str(ROOT))
     assert chip_smoke.kernel_kind(name) == kind
+
+
+def test_load_net_raises_without_a_card(no_cuda, tmp_path):
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.serving import load_net
+    from deeplearning4j_tpu_torch.utils.checkpoint import save_checkpoint
+
+    save_checkpoint(zoo.char_rnn(hidden=8, device="cpu"),
+                    str(tmp_path / "c"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_net(str(tmp_path / "c"))
+    assert load_net(str(tmp_path / "c"), device="cpu").device.type == "cpu"

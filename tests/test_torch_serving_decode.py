@@ -249,6 +249,13 @@ def test_unported_parameters_are_refused_by_name(nets, kw):
 
 
 def test_hot_swap_is_refused_by_name(nets):
-    srv = ModelServer(nets[1], port=0, warmup=False)
-    with pytest.raises(NotImplementedError, match="hot_swap"):
+    """hot_swap is ported (tests/test_torch_publish.py); what it still
+    refuses, with the reason named, is a server holding decode sessions,
+    whose KV caches carry the old weights' state."""
+    srv = ModelServer(nets[1], port=0, warmup=False,
+                      decode_engine=DecodeEngine(nets[1], replicas=1))
+    with pytest.raises(ValueError, match="hot_swap cannot re-weight live "
+                       "decode sessions"):
         srv.hot_swap(net=nets[1])
+    assert srv.model_version == 0 and srv.swaps_total == 0
+    srv.decode_engine.stop()

@@ -1,5 +1,6 @@
-"""The order the streaming kernels S1 (``stream_dense``) and S2
-(``stream_mha``) sum in, pinned on the CPU (ops/stream_exact.py).
+"""The order the streaming kernels S1 (``stream_dense``), S2
+(``stream_mha``) and S3 (``stream_rownorm``) sum in, pinned on the CPU
+(ops/stream_exact.py).
 
 An independent numpy float32 reference of each (explicit ascending loops,
 every product and every sum rounded to float32 on its own) holds the plain
@@ -17,6 +18,14 @@ row's sums do not depend on the tile or the block it falls in. A row's
 plain output is bit-equal alone and in batches of 1, 8 and 64 rows. The
 wrappers' refusals and the launch plans (tile counts, shared memory, the
 cache limit) are checked without a card.
+
+S3 sums each row by one tree fixed by the row's width: lane l of a
+32-lane warp sums columns l, l + 32, ... ascending from +0.0, then five
+butterfly rounds p + p[l ^ m] (m = 16, 8, 4, 2, 1). Its numpy reference
+walks the lanes and the rounds one scalar add at a time and holds the
+plain version bit for bit at widths 1, 31, 32, 33, 64 and 256; a row is
+bit-equal alone and among 8 and 64 others; its launch plan and its
+refusals, the width limit among them, are checked without a card.
 """
 
 import math
@@ -355,3 +364,106 @@ def test_the_registry_reaches_only_the_new_entry_points():
     assert registry.get(se.KERNEL_MHA, "cuda") is se.stream_mha_cuda
     assert registry.get(se.KERNEL_DENSE, "cpu") is se.stream_dense_torch
     assert registry.get(se.KERNEL_MHA, "cpu") is se.stream_mha_torch
+
+
+# ------------------------------------------------------------------- S3
+def _tree_sum(row):
+    """One row's sum in S3's order, one scalar float32 add at a time: lane
+    l sums columns l, l + 32, ... ascending from +0.0 (a lane with no
+    column keeps +0.0), then the butterfly p[l] + p[l ^ m] for m = 16, 8,
+    4, 2, 1; lane 0's value."""
+    p = [F32(0.0)] * 32
+    for lane in range(32):
+        for c in range(lane, row.shape[0], 32):
+            p[lane] = np.add(p[lane], row[c], dtype=F32)
+    for m in (16, 8, 4, 2, 1):
+        p = [np.add(p[lane], p[lane ^ m], dtype=F32) for lane in range(32)]
+    assert len({v.tobytes() for v in p}) == 1   # every lane, the same bits
+    return p[0]
+
+
+def rownorm_reference(x, gamma, beta, eps):
+    """LayerNorm of each row of x [rows, w] in S3's order: mu = tree(x) /
+    w, d = x - mu, var = tree(d * d) / w, inv = 1 / sqrt(var + eps), y =
+    d * inv * gamma + beta, every operation rounded to float32 on its
+    own."""
+    rows, w = x.shape
+    n, eps = F32(w), F32(eps)
+    y = np.empty_like(x)
+    for r in range(rows):
+        mu = np.divide(_tree_sum(x[r]), n, dtype=F32)
+        d = np.subtract(x[r], mu, dtype=F32)
+        var = np.divide(_tree_sum(np.multiply(d, d, dtype=F32)), n,
+                        dtype=F32)
+        inv = np.divide(F32(1.0), np.sqrt(np.add(var, eps, dtype=F32),
+                                          dtype=F32), dtype=F32)
+        y[r] = np.add(np.multiply(np.multiply(d, inv, dtype=F32), gamma,
+                                  dtype=F32), beta, dtype=F32)
+    return y
+
+
+def _norm_inputs(rows, w, seed):
+    rng = _rng(seed)
+    x = (rng.normal(size=(rows, w)) * 3.0 + 0.5).astype(F32)
+    gamma = (rng.normal(size=(w,)) * 0.1 + 1.0).astype(F32)
+    beta = (rng.normal(size=(w,)) * 0.1).astype(F32)
+    return x, gamma, beta
+
+
+@pytest.mark.parametrize("w", [1, 31, 32, 33, 64, 256])
+@pytest.mark.parametrize("rows", [1, 7, 33])
+def test_rownorm_plain_equals_the_numpy_tree_reference(rows, w):
+    x, gamma, beta = _norm_inputs(rows, w, seed=rows * 1000 + w)
+    got = se.stream_rownorm_torch(_t(x), _t(gamma), _t(beta), 1e-5)
+    assert _bits_equal(got, rownorm_reference(x, gamma, beta, 1e-5))
+
+
+def test_rownorm_tree_is_not_the_ascending_chain():
+    """The reference really sums by the tree: on these rows a single
+    ascending chain lands on other bits (so the test above could not pass
+    with the first version's order)."""
+    x, _, _ = _norm_inputs(64, 256, seed=5)
+    chain = [np.add.accumulate(row, dtype=F32)[-1] for row in x]
+    assert any(_tree_sum(row) != c for row, c in zip(x, chain))
+
+
+@pytest.mark.parametrize("batch", [1, 8, 64])
+def test_rownorm_row_is_bit_equal_alone_and_in_a_batch(batch):
+    x, gamma, beta = _norm_inputs(64, 256, seed=17)
+    g, b = _t(gamma), _t(beta)
+    many = se.stream_rownorm_torch(_t(x[:batch]), g, b, 1e-5)
+    for r in (0, batch - 1):
+        alone = se.stream_rownorm_torch(_t(x[r:r + 1]), g, b, 1e-5)
+        assert torch.equal(alone[0], many[r])
+    # the [b, t, w] layout the streaming path gives it
+    assert torch.equal(
+        se.stream_rownorm_torch(_t(x[:batch]).reshape(batch, 1, 256), g, b,
+                                1e-5)[:, 0], many)
+
+
+@pytest.mark.parametrize("w,want", [(1, 1), (31, 1), (32, 1), (33, 2),
+                                    (256, 8), (1000, 32), (1024, 32),
+                                    (1025, 0), (4099, 0)])
+def test_rownorm_plan_holds_the_row_in_registers_up_to_1024(w, want):
+    assert se.rownorm_plan(32, w) == want
+
+
+def test_rownorm_refusals():
+    with pytest.raises(NotImplementedError, match="at most 2147483647 "
+                       "columns"):
+        se.rownorm_plan(1, 2 ** 31)
+    with pytest.raises(NotImplementedError, match="rows"):
+        se.rownorm_plan(se.NORM_WARPS * (2 ** 31 - 1) + 1, 256)
+    x = torch.zeros(4, 8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        se.stream_rownorm_cuda(x, torch.ones(8), torch.zeros(8), 1e-5)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        se.rownorm_launch_v1(x, torch.ones(8), torch.zeros(8), 1e-5)
+    assert registry_get_norm() == (se.stream_rownorm_torch,
+                                   se.stream_rownorm_cuda)
+
+
+def registry_get_norm():
+    from deeplearning4j_tpu_torch.ops import registry
+    return (registry.get(se.KERNEL_NORM, "cpu"),
+            registry.get(se.KERNEL_NORM, "cuda"))
