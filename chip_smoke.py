@@ -25,7 +25,8 @@ pretraining (--slice12 below), the data-fed observed runs (--slice13),
 and slice 14's graph phases (--slice14 below: the skip-connected
 char-RNN graph trained with tBPTT and streamed, a vertex-rich F64
 graph, ResNet-50's remat spans), decode serving (--slice15 below) and
-live reload (--live-reload below). Every
+live reload (--live-reload below) and the front door (--front-door
+below). Every
 phase that fails ends the run with a nonzero exit code. It needs one CUDA
 card; without one (or without the package beside it) it exits nonzero
 and prints no result.
@@ -174,7 +175,21 @@ runs only [live_reload]: gpt_mini at full width published in
 two versions into a WeightStore, served by a ModelServer of 2 replicas to
 4 client threads while hot_swap moves it from v1 to v2, bit for bit
 against each version's own replies, with no kernel built across the
-swap; a NaN-poisoned version counted; rollback and a swap back to v1.
+swap; a NaN-poisoned version counted; rollback and a swap back to v1,
+and
+
+    python3 chip_smoke.py --front-door
+
+runs only [front_door]: gpt_mini at full width behind a FrontDoorRouter
+in this process over two host processes that share the card (each
+restores this process's zip and serves it with 2 replicas, a
+DecodeEngine and heartbeats to the router): /predict rows through the
+router bit-equal to net.output here, open-loop traffic at twice that rate
+with batch and best_effort shed before interactive and one tenant's
+quota, 8 /decode sessions bit-equal to the sequential greedy decode
+across a SIGKILL of one host, the federation's scheduler and SLO
+families and a stitched trace, the survivor's exact K3 and S1-S3
+launches with no kernel built, and the autoscaler's bounds.
 
 K1 and K2 (bf16 at n a multiple of 64 up to 512: thread-block clusters
 with Wh resident, DSMEM exchange, wgmma), K3 (bf16) and K4-K7 (bf16,
@@ -7693,6 +7708,568 @@ def phase_live_reload():
         shutil.rmtree(root, ignore_errors=True)
 
 
+# [front_door]: gpt_mini at full width behind a FrontDoorRouter over two
+# host processes sharing the one card. Each host serves /predict with 2
+# replicas of max_batch 2 (a row's bits depend only on the row, as in
+# [live_reload]) and a queue of FD_MAX_QUEUE tickets, so its scheduler's
+# class watermarks (best_effort at 1 pending, batch at 2, interactive at
+# 4) trip under overload; /decode through a DecodeEngine; a heartbeat to
+# the router every FD_PUSH_S.
+FD_T, FD_ROWS, FD_CLIENTS, FD_MAX_QUEUE, FD_PUSH_S = 256, 64, 8, 4, 0.5
+# the router's stale window and its auto-evict factor
+FD_STALE_S, FD_EVICT = 5.0, 2.0
+# gate 2: open-loop arrivals at twice gate 1's rows/s for FD_ADMIT_S, the
+# class mix, two tenants, t2's quota (rows/s, burst)
+FD_ADMIT_S, FD_MIX = 6.0, {"interactive": 0.5, "batch": 0.3,
+                           "best_effort": 0.2}
+FD_QUOTA = (20.0, 10.0)
+# gate 3: sessions, tokens each, the step before which a host is killed
+FD_SESSIONS, FD_TOKENS, FD_KILL_AT = 8, 32, 8
+
+
+def front_door_host(zip_path, push_url, out_path):
+    """One host process of [front_door]: restores the parent's gpt_mini
+    zip on the card, serves it with a DecodeEngine and pushes heartbeats
+    to ``push_url``; prints its URL when it takes traffic. On SIGTERM it
+    stops (which stamps RunReport.slo) and writes its launch counts since
+    it took traffic, its forwards, its kernel builds and its SLO report to
+    ``out_path``."""
+    import signal
+
+    import torch
+    from deeplearning4j_tpu_torch.observability import distributed as dist
+    from deeplearning4j_tpu_torch.observability import metrics as obs
+    from deeplearning4j_tpu_torch.ops import registry
+    from deeplearning4j_tpu_torch.serving import (DecodeEngine, ServingStats,
+                                                  serve)
+    from deeplearning4j_tpu_torch.utils.serialization import \
+        restore_multi_layer_network
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *a: stop.set())
+    base = obs.compile_snapshot()
+    net = restore_multi_layer_network(zip_path)
+    dstats = ServingStats()
+    srv = serve(net, port=0, max_batch=2, max_queue=FD_MAX_QUEUE,
+                replicas=2, input_shapes=[(FD_T, DEC_V)],
+                decode_engine=DecodeEngine(net, n_pages=1024, stats=dstats),
+                push_url=push_url, push_interval_s=FD_PUSH_S)
+    torch.cuda.synchronize()
+    registry.reset_launches()
+    p0, d0 = srv.stats.batches, dstats.batches
+    print(f"FRONT_DOOR_HOST {srv.url}", flush=True)
+    while not stop.wait(0.2):
+        pass
+    srv.stop()
+    torch.cuda.synchronize()
+    delta = obs.compile_delta(base)
+    report = srv.run_report
+    with open(out_path, "w") as f:
+        json.dump({"url": srv.url, "tag": dist.get_identity().tag,
+                   "launches": registry.launches(),
+                   "predict_forwards": srv.stats.batches - p0,
+                   "decode_forwards": dstats.batches - d0,
+                   "builds": delta["count"],
+                   "cache_misses": delta["cache_misses"],
+                   "slo": report.slo if report is not None else None,
+                   "sched": srv.scheduler.snapshot()}, f)
+
+
+class _Host:
+    """A [front_door] host process: its stdout read on a thread, its
+    stderr in a file."""
+
+    def __init__(self, i, zip_path, push_url, root):
+        self.tag = f"front-door-host-{i}"
+        self.out = os.path.join(root, f"host{i}.json")
+        self.err = open(os.path.join(root, f"host{i}.err"), "w")
+        env = dict(os.environ, DL4J_TPU_INSTANCE=self.tag)
+        code = (f"import chip_smoke as c; c.front_door_host({zip_path!r}, "
+                f"{push_url!r}, {self.out!r})")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", code], stdout=subprocess.PIPE,
+            stderr=self.err, text=True, env=env,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        self.url = None
+        self.ready = threading.Event()
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            if line.startswith("FRONT_DOOR_HOST "):
+                self.url = line.split()[1]
+                self.ready.set()
+        self.ready.set()
+
+    def stderr_tail(self):
+        self.err.flush()
+        with open(self.err.name) as f:
+            return f.read()[-2000:]
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(timeout=60)
+        self.err.close()
+
+
+def _raw_post(url, body, headers=None, timeout=120):
+    """POST raw JSON bytes: (status, headers, body bytes), an error reply
+    the same way."""
+    req = urllib.request.Request(url, data=body, headers={
+        "Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def _pct(ms, q):
+    return round(float(np.percentile(ms, q)), 3) if len(ms) else None
+
+
+def fd_routing(router, hosts, net, rng):
+    """Gate 1: FD_ROWS one-row /predict requests from FD_CLIENTS threads
+    through the router, each reply bit-equal to the row through the
+    parent's net.output (in a bucket of two, beside a row of zeros), both
+    backends seen; the router's added latency against a host called
+    directly; one traced request stitched from the router's and a host's
+    spans. Returns rows/s."""
+    from deeplearning4j_tpu_torch.observability import distributed as dist
+    from deeplearning4j_tpu_torch.serving.router import BACKEND_HEADER
+    x = np.eye(DEC_V, dtype=np.float32)[rng.integers(0, DEC_V,
+                                                     (FD_ROWS, 1, FD_T))]
+    bodies = [json.dumps({"features": r.tolist()}).encode() for r in x]
+    refs = [net.output(np.concatenate([r, np.zeros_like(r)])).float()
+            .cpu().numpy()[:1] for r in x]
+    got = [None] * FD_ROWS
+    per = FD_ROWS // FD_CLIENTS
+
+    def client(c):
+        for i in range(c * per, (c + 1) * per):
+            got[i] = _raw_post(router.url + "/predict", bodies[i])
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(FD_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "a /predict client hung")
+    rate = FD_ROWS / wall
+    check(all(g is not None and g[0] == 200 for g in got),
+          f"/predict through the router: {[g and g[0] for g in got]}")
+    backends = {g[1].get(BACKEND_HEADER) for g in got}
+    bad = [i for i, (g, r) in enumerate(zip(got, refs)) if not
+           np.array_equal(np.asarray(json.loads(g[2])["predictions"],
+                                     np.float32), r)]
+    check(not bad, f"rows {bad[:8]} through the router differ from the "
+          f"parent's net.output")
+    check(backends == {h.url for h in hosts},
+          f"the router used {backends}, not both hosts")
+    # the router's added latency: the same row direct and routed, in turns
+    direct, routed = [], []
+    for k in range(32):
+        for url, ms in ((hosts[k % 2].url, direct), (router.url, routed)):
+            t_a = time.perf_counter()
+            st = _raw_post(url + "/predict", bodies[k])[0]
+            ms.append((time.perf_counter() - t_a) * 1e3)
+            check(st == 200, f"{url}/predict answered {st}")
+    # one traced request stitched from the router's and a host's spans
+    tid = dist.new_trace_id()
+    st = _raw_post(router.url + "/predict", bodies[0],
+                   {dist.TRACE_HEADER: tid})[0]
+    check(st == 200, f"the traced /predict answered {st}")
+    tags = {h.tag for h in hosts}
+    wf = {}
+    deadline = time.time() + 20
+    while time.time() < deadline:
+        wf = get_json_code(f"{router.url}/api/trace/{tid}")[1]
+        if "router" in wf.get("instances", ()) and \
+                tags & set(wf.get("instances", ())):
+            break
+        time.sleep(0.25)
+    check("router" in wf.get("instances", ()) and
+          tags & set(wf.get("instances", ())),
+          f"/api/trace/{tid} did not stitch the router and a host: {wf}")
+    return rate, {
+        "rows": FD_ROWS, "clients": FD_CLIENTS, "rows_per_s":
+        f"{rate:.2f}", "bit_equal": True, "backends": len(backends),
+        "router_added_p50_ms": round(_pct(routed, 50) - _pct(direct, 50), 3),
+        "router_added_p99_ms": round(_pct(routed, 99) - _pct(direct, 99), 3),
+        "direct_p50_p99_ms": [_pct(direct, 50), _pct(direct, 99)],
+        "routed_p50_p99_ms": [_pct(routed, 50), _pct(routed, 99)],
+        "trace_instances": wf["instances"],
+        "trace_segments": len(wf["segments"])}
+
+
+def fd_admission(router, hosts, rate, rng):
+    """Gate 2: open-loop TrafficModel arrivals through the router at twice
+    gate 1's rows/s: every 503 carries Retry-After and X-DL4J-Shed-Class,
+    every quota shed is t2's, the hosts shed, and at the hosts batch and
+    best_effort shed a larger share of their requests than interactive.
+    Returns each class's attainment and the hosts' sheds."""
+    from deeplearning4j_tpu_torch.scheduling import (SHED_CLASS_HEADER,
+                                                     OpenLoopRunner,
+                                                     TrafficModel,
+                                                     attainment)
+    pool = np.eye(DEC_V, dtype=np.float32)[rng.integers(0, DEC_V,
+                                                        (16, 1, FD_T))]
+    bodies = [json.dumps({"features": r.tolist()}).encode() for r in pool]
+    model = TrafficModel(seed=SEED + 1900, duration_s=FD_ADMIT_S,
+                         base_rps=2.0 * rate, diurnal_amplitude=0.0,
+                         class_mix=FD_MIX, tenants={"t1": 0.5, "t2": 0.5},
+                         max_rows=1)
+    arrivals = model.arrivals()
+
+    def submit(a):
+        st, h, body = _raw_post(router.url + "/predict",
+                                bodies[int(a.t * 1e6) % len(bodies)],
+                                a.headers())
+        out = {"status": st, "shed_class": h.get(SHED_CLASS_HEADER)}
+        if st == 503:
+            out["retry_after"] = h.get("Retry-After")
+            out["quota"] = b"quota" in body
+        return out
+
+    def host_sched():
+        return [get_json(h.url + "/metrics")[1]["sched"] for h in hosts]
+
+    sched0 = host_sched()
+    rows = OpenLoopRunner(submit, arrivals, max_workers=128).run()
+    sched1 = host_sched()
+    check(len(rows) == len(arrivals), "an arrival left no row")
+    check(all(r["status"] in (200, 503) for r in rows),
+          f"statuses {sorted({str(r['status']) for r in rows})}, errors "
+          f"{[r['error'] for r in rows if r['error']][:3]}")
+    shed = [r for r in rows if r["status"] == 503]
+    check(all(r["retry_after"] is not None and r["shed_class"] == r["class"]
+              for r in shed), "a 503 lacks Retry-After or its shed class")
+    quota = [r for r in shed if r["quota"]]
+    check(all(r["tenant"] == "t2" for r in quota),
+          "a quota shed of a tenant without a quota")
+    frac = {}
+    for k in FD_MIX:
+        passed = [r for r in rows if r["class"] == k and not r.get("quota")]
+        frac[k] = (sum(r["status"] == 503 for r in passed) / len(passed)
+                   if passed else 0.0)
+    # the hosts' own admissions and sheds over this gate, per class
+    host = {k: {"admitted": 0, "shed": 0} for k in FD_MIX}
+    for a, b in zip(sched0, sched1):
+        for k in FD_MIX:
+            host[k]["admitted"] += (b["admitted_total"][k]
+                                    - a["admitted_total"][k])
+            host[k]["shed"] += b["shed_total"][k] - a["shed_total"][k]
+    share = {k: v["shed"] / max(1, v["shed"] + v["admitted"])
+             for k, v in host.items()}
+    check(sum(v["shed"] for v in host.values()) > 0,
+          f"the hosts shed nothing at twice their rate: {host}")
+    check(share["batch"] > share["interactive"] and
+          share["best_effort"] > share["interactive"],
+          f"the hosts' shed shares by class {share}: batch and best_effort "
+          f"must shed before interactive")
+    att = {}
+    for k in FD_MIX:
+        a = attainment(rows, k)
+        served_rows = sum(r["rows"] for r in rows
+                          if r["class"] == k and r["status"] == 200)
+        att[k] = {"offered": a["offered"], "served": a["served"],
+                  "p50_ms": a["p50_ms"], "p99_ms": a["p99_ms"],
+                  "rows_per_s": round(served_rows / FD_ADMIT_S, 2),
+                  "shed": sum(r["status"] == 503 for r in rows
+                              if r["class"] == k),
+                  "quota_shed": sum(1 for r in quota if r["class"] == k),
+                  "shed_share": round(frac[k], 4)}
+    return {"arrivals": len(arrivals), "offered_rows_per_s":
+            f"{2.0 * rate:.2f}", "quota_sheds": len(quota),
+            "host_sched": host, "host_shed_share": {
+                k: round(v, 4) for k, v in share.items()},
+            "attainment": att}
+
+
+def fd_failover(router, hosts, net):
+    """Gate 3: FD_SESSIONS /decode sessions of FD_TOKENS tokens through the
+    router; before step FD_KILL_AT the host holding the most sessions is
+    SIGKILLed. Every session's tokens and logits are bit-equal to
+    greedy_reference on the parent's net; failovers >= the sessions that
+    host held; /healthz degraded, then after the stale window one live
+    host, as /api/fleet says. Returns (the killed host, the report)."""
+    prompts = [dec_ids(12 + 5 * i, SEED + 1950 + i)
+               for i in range(FD_SESSIONS)]
+    refs = [greedy_reference(net, p, FD_TOKENS) for p in prompts]
+    before, after = (threading.Barrier(FD_SESSIONS + 1, timeout=600)
+                     for _ in range(2))
+
+    def session(sid, prompt):
+        st, _, body = _raw_post(router.url + "/decode", json.dumps(
+            {"op": "prefill", "sid": sid, "ids": prompt}).encode())
+        check(st == 200, f"{sid} prefill answered {st}")
+        rows = [np.asarray(json.loads(body)["logits"], np.float32)]
+        toks, steps = [], []
+        for k in range(FD_TOKENS):
+            if k == FD_KILL_AT:
+                before.wait()
+                after.wait()
+            toks.append(int(np.argmax(rows[-1])))
+            t_a = time.perf_counter()
+            st, _, body = _raw_post(router.url + "/decode", json.dumps(
+                {"op": "step", "sid": sid, "token": toks[-1]}).encode())
+            check(st == 200, f"{sid} step {k} answered {st}")
+            out = json.loads(body)
+            steps.append(((time.perf_counter() - t_a) * 1e3,
+                          bool(out.get("recovered"))))
+            rows.append(np.asarray(out["logits"], np.float32))
+        return toks, rows, steps
+
+    results = [None] * FD_SESSIONS
+    errors = []
+
+    def run(i):
+        try:
+            results[i] = session(f"fd{i}", prompts[i])
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(f"fd{i}: {type(e).__name__}: {e}")
+            before.abort()
+            after.abort()
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(FD_SESSIONS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    try:
+        before.wait()
+    except threading.BrokenBarrierError:
+        check(False, "a session failed before the kill: "
+              + "; ".join(errors[:4]))
+    t_kill = time.perf_counter()
+    pins = {}
+    for sid, h in router._affinity.items():
+        pins[h.base_url] = pins.get(h.base_url, 0) + 1
+    victim_url = max(pins, key=pins.get)
+    victim = next(h for h in hosts if h.url == victim_url)
+    victim.proc.kill()
+    victim.proc.wait(timeout=60)
+    try:
+        after.wait()
+    except threading.BrokenBarrierError:
+        check(False, "a session failed at the kill: " + "; ".join(errors[:4]))
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "a session hung")
+    check(not errors, "; ".join(errors[:4]))
+    for i, ((toks, rows, _), (rtoks, rrows)) in enumerate(zip(results,
+                                                             refs)):
+        check(toks == rtoks and all(np.array_equal(a, b)
+                                    for a, b in zip(rows, rrows)),
+              f"session fd{i} differs from the sequential greedy decode")
+    d = router.describe()
+    check(d["failovers_total"] >= pins[victim_url],
+          f"{d['failovers_total']} failovers for {pins[victim_url]} "
+          f"sessions on the killed host")
+    code, hz = get_json_code(router.url + "/healthz")
+    check(code == 200 and hz["status"] == "degraded",
+          f"/healthz after the kill: {code} {hz.get('status')}")
+    survivor = next(h for h in hosts if h is not victim)
+    deadline = time.time() + FD_STALE_S * FD_EVICT + 20
+    fleet = {}
+    while time.time() < deadline:
+        fleet = get_json(router.url + "/api/fleet")[1]
+        if fleet["live"] == 1 and len(fleet["instances"]) == 1:
+            break
+        time.sleep(0.5)
+    check(fleet.get("live") == 1 and [r["instance"] for r in
+                                      fleet["instances"]] == [survivor.tag],
+          f"/api/fleet after the stale window: {fleet.get('instances')}")
+    code, hz = get_json_code(router.url + "/healthz")
+    live = [r["url"] for r in hz["hosts"] if r["routable"]]
+    check(code == 200 and live == [survivor.url] and
+          [r["url"] for r in fleet["routing"] if r["routable"]] == live,
+          f"/healthz and /api/fleet after the stale window: {live}")
+    steps = [s for _, _, ss in results for s in ss]
+    plain = sorted(ms for ms, rec in steps if not rec)
+    recovered = [round(ms, 3) for ms, rec in steps if rec]
+    early = FD_SESSIONS * FD_KILL_AT / (t_kill - t0)
+    return victim, {
+        "sessions": FD_SESSIONS, "tokens": FD_TOKENS, "bit_equal": True,
+        "killed": victim.tag, "sessions_on_killed": pins[victim_url],
+        "failovers": d["failovers_total"], "evicted": d["evicted_total"],
+        "healthz_after_kill": "degraded",
+        "tokens_per_s_8_sessions": f"{FD_SESSIONS * FD_TOKENS / wall:.2f}",
+        "tokens_per_s_before_kill": f"{early:.2f}",
+        "step_p50_ms": _pct(plain, 50), "step_p99_ms": _pct(plain, 99),
+        "reprefill_step_ms": recovered}
+
+
+def get_json_code(url, timeout=30):
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def fd_autoscaler(net):
+    """Gate 6: an in-process ModelServer with 3 replica slots, 2 of them
+    parked (ReplicaSetActuator re-lights parked slots: it never adds
+    one), under an Autoscaler (min 1, max 3): a held queue-depth breach
+    scales up, quiet scales down after the cooldown, at most 2
+    scale-ups."""
+    from deeplearning4j_tpu_torch.scheduling import (Autoscaler,
+                                                     ReplicaSetActuator)
+    from deeplearning4j_tpu_torch.serving import ModelServer
+    srv = ModelServer(net, port=0, max_batch=2, max_queue=1024, replicas=3,
+                      input_shapes=[(FD_T, DEC_V)]).start()
+    scaler = None
+    try:
+        srv.fleet.drain(1)
+        srv.fleet.drain(2)
+        act = ReplicaSetActuator(srv.fleet)
+        scaler = Autoscaler(signals_fn=act.signals, up=act.up, down=act.down,
+                            min_size=1, max_size=3, up_queue_depth=8,
+                            down_queue_depth=0, breach_n=2, clear_n=5,
+                            up_cooldown_s=0.1, down_cooldown_s=0.5,
+                            interval_s=0.02)
+        check(act.live() == 1, f"{act.live()} live replicas at the start")
+        scaler.start()
+        row = np.eye(DEC_V, dtype=np.float32)[np.arange(FD_T) % DEC_V][None]
+        futs = [srv.fleet.submit([row]) for _ in range(256)]
+        peak = 1
+        for f in futs:
+            out = f.result(timeout=300)
+            check(out.shape == (1, FD_T, DEC_V) and np.isfinite(out).all(),
+                  "an autoscaled reply is not finite rows of its shape")
+            peak = max(peak, act.live())
+        deadline = time.time() + 10
+        while scaler.snapshot()["scale_downs_total"] == 0 and \
+                time.time() < deadline:
+            time.sleep(0.05)
+        snap = scaler.snapshot()
+    finally:
+        if scaler is not None:
+            scaler.stop()
+        srv.stop()
+    check(1 <= snap["scale_ups_total"] <= 2 and peak > 1,
+          f"the held breach scaled up {snap['scale_ups_total']} times "
+          f"(peak {peak} live)")
+    check(snap["scale_downs_total"] >= 1, f"quiet did not scale down: {snap}")
+    return {"scale_ups": snap["scale_ups_total"],
+            "scale_downs": snap["scale_downs_total"], "peak_live": peak,
+            "reaction_s": snap["last_reaction_s"],
+            "breaches": snap["breaches_total"]}
+
+
+def phase_front_door(card=None):
+    """gpt_mini at full width (vocab 80, width 256, 4 blocks of 4 heads,
+    T = 256, BF16) behind a FrontDoorRouter over two host processes that
+    share the card, each restoring the parent's zip and serving it with 2
+    replicas, a DecodeEngine and heartbeats to the router. Gates: routing
+    (bit-equal rows, both backends), admission (class-ordered sheds, t2's
+    quota), decode failover after a SIGKILL (bit-equal to the sequential
+    greedy decode, degraded then one live host), the federation's
+    dl4j_sched_* and dl4j_slo_* families and a stitched trace, the
+    survivor's exact K3 and S1-S3 launches with no kernel built and its
+    RunReport.slo, and the autoscaler's bounds. Every failure raises."""
+    import shutil
+    import tempfile
+
+    import torch
+    from deeplearning4j_tpu_torch.ops import attention as att
+    from deeplearning4j_tpu_torch.ops import stream_exact as se
+    from deeplearning4j_tpu_torch.scheduling import SchedulingCore
+    from deeplearning4j_tpu_torch.serving import FrontDoorRouter
+    from deeplearning4j_tpu_torch.utils.serialization import write_model
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 1800)
+    root = tempfile.mkdtemp(prefix="front_door_")
+    hosts, router = [], None
+    try:
+        net = dec_net("BF16")
+        zip_path = os.path.join(root, "gpt_mini.zip")
+        write_model(net, zip_path)
+        router = FrontDoorRouter(
+            stale_after_s=FD_STALE_S, evict_after_factor=FD_EVICT,
+            scheduler=SchedulingCore(quotas={"t2": FD_QUOTA})).start()
+        push = router.url + "/api/metrics_push"
+        hosts = [_Host(i, zip_path, push, root) for i in range(2)]
+        for h in hosts:
+            h.ready.wait(timeout=300)
+            check(h.url is not None, f"{h.tag} did not start: "
+                  f"{h.stderr_tail()}")
+            st, _, body = _raw_post(router.url + "/api/hosts", json.dumps(
+                {"url": h.url, "action": "add"}).encode())
+            check(st == 200 and json.loads(body)["added"],
+                  f"/api/hosts add {h.url}: {st} {body[:200]}")
+        deadline = time.time() + 60
+        while time.time() < deadline and \
+                set(router._fed_rows()) != {h.url for h in hosts}:
+            time.sleep(0.1)
+        check(set(router._fed_rows()) == {h.url for h in hosts},
+              f"the hosts' heartbeats did not reach the router: "
+              f"{sorted(router._fed_rows())}")
+        t_ready = time.perf_counter() - t_phase
+        rate, routing = fd_routing(router, hosts, net, rng)
+        admission = fd_admission(router, hosts, rate, rng)
+        victim, failover = fd_failover(router, hosts, net)
+        survivor = next(h for h in hosts if h is not victim)
+        # gate 4: the survivor's families in the router's federation
+        text = router.federation.render_prometheus()
+        lines = [ln for ln in text.splitlines()
+                 if f'instance="{survivor.tag}"' in ln]
+        fams = sorted({ln.split("{")[0] for ln in lines
+                       if ln.startswith(("dl4j_sched_", "dl4j_slo_"))})
+        check(any(f.startswith("dl4j_sched_") for f in fams) and
+              any(f.startswith("dl4j_slo_") for f in fams),
+              f"the federation renders {fams} of the survivor")
+        # gate 5: the survivor's launches, forwards and builds
+        survivor.proc.terminate()
+        survivor.proc.wait(timeout=120)
+        check(survivor.proc.returncode == 0 and os.path.exists(survivor.out),
+              f"{survivor.tag} exited {survivor.proc.returncode}: "
+              f"{survivor.stderr_tail()}")
+        with open(survivor.out) as f:
+            rep = json.load(f)
+        ln = rep["launches"]
+        pf, df = rep["predict_forwards"], rep["decode_forwards"]
+        expect = {att.KERNEL: DEC_L * pf, se.KERNEL_DENSE: (6 * DEC_L + 1)
+                  * df, se.KERNEL_MHA: DEC_L * df,
+                  se.KERNEL_NORM: 2 * DEC_L * df}
+        got = {k: ln.get(k, 0) for k in expect}
+        check(pf > 0 and df > 0 and got == expect,
+              f"{survivor.tag}: launches {got}, expected {expect} for "
+              f"{pf} /predict and {df} decode forwards")
+        check(rep["builds"] == 0 and rep["cache_misses"] == 0,
+              f"{survivor.tag} built {rep['builds']} kernels")
+        check(rep["slo"] is not None and rep["slo"]["slos"],
+              f"{survivor.tag}'s RunReport.slo is {rep['slo']}")
+        torch.cuda.synchronize()
+        autoscale = fd_autoscaler(net)
+        phase("front_door", model="gpt_mini(vocab=80,width=256,blocks=4,"
+              "heads=4,T=256,BF16)", card=card, hosts=2,
+              host_replicas=2, host_max_batch=2,
+              host_max_queue=FD_MAX_QUEUE, ready_s=f"{t_ready:.1f}",
+              routing=json.dumps(routing), admission=json.dumps(admission),
+              failover=json.dumps(failover), federation_families=len(fams),
+              survivor=json.dumps({k: rep[k] for k in (
+                  "tag", "predict_forwards", "decode_forwards", "builds")}),
+              survivor_launches=json.dumps(got),
+              survivor_slo=json.dumps({k: v["attainment"] for k, v in
+                                       rep["slo"]["slos"].items()}),
+              autoscaler=json.dumps(autoscale),
+              phase_s=f"{time.perf_counter() - t_phase:.1f}")
+        return got
+    finally:
+        for h in hosts:
+            h.close()
+        if router is not None:
+            router.stop()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7754,6 +8331,10 @@ def main() -> int:
             only()
             print(ok_line, flush=True)
             return 0
+    if "--front-door" in sys.argv[1:]:
+        phase_front_door(phase_device())
+        print(ok_line, flush=True)
+        return 0
     if "--slice15" in sys.argv[1:]:
         kernels = phase_slice15(phase_device())
         if "--stream-split" in sys.argv[1:]:
@@ -7794,6 +8375,7 @@ def main() -> int:
     phase_remat()
     kernels += phase_slice15(card)
     phase_live_reload()
+    phase_front_door(card)
     phase_stream_split()
     profiler_probe("after_all", profiles=5, names=names)
     phase("profiler", pause_s=PROFILE_PAUSE_S, **PROFILES)

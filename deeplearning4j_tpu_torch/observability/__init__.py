@@ -9,16 +9,18 @@ the runtime feeds (Prometheus text exposition + JSON snapshot);
 ``goodput`` turns both into efficiency accounting — a per-run wall-time
 ledger, live MFU/goodput gauges with derived FLOPs, padding-waste
 fractions, and the RunReport JSON artifact; ``distributed`` holds the
-process identity (its federation and scoreboard wait for ROADMAP.md
-A.5); ``flightrec`` is the crash flight recorder flushed on
-SIGTERM/NaN/preemption/crash. The JAX package's ``slo`` module waits for
-ROADMAP.md A.4.
+process identity and the cross-process plane (snapshot export and push,
+the heartbeat pusher, the metrics federation with its health scoreboard,
+the span push buffer and the trace store);
+``slo`` declares SLOs and evaluates their sliding-window attainment and
+burn rate; ``flightrec`` is the crash flight recorder flushed on
+SIGTERM/NaN/preemption/crash.
 
 Environment (the JAX package's names): ``DL4J_TPU_TRACE``,
 ``DL4J_TPU_TRACE_SAMPLE``, ``DL4J_TPU_GOODPUT``, ``DL4J_TPU_AUTO_FLOPS``,
 ``DL4J_TPU_PEAK_FLOPS``, ``DL4J_TPU_RUN_REPORT_DIR``,
 ``DL4J_TPU_FLIGHT_DIR``, ``DL4J_TPU_RUN_ID``, ``DL4J_TPU_INSTANCE``,
-``DL4J_TPU_INCARNATION``.
+``DL4J_TPU_INCARNATION``, ``DL4J_TPU_SLO_P99_MS``.
 """
 
 from deeplearning4j_tpu_torch.observability.trace import (  # noqa: F401

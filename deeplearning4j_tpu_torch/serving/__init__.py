@@ -1,6 +1,6 @@
 """Serving runtime: the micro-batcher, the replica set, stats, the paged
-KV pool, the decode engine, the HTTP model server and the publication
-store its live reload reads."""
+KV pool, the decode engine, the HTTP model server, the publication
+store its live reload reads, and the front-door router over N hosts."""
 
 from deeplearning4j_tpu_torch.serving.batcher import (BatcherDeadError,
                                                       MicroBatcher,
@@ -15,6 +15,8 @@ from deeplearning4j_tpu_torch.serving.kvcache import (CachePoolFullError,
 from deeplearning4j_tpu_torch.serving.metrics import ServingStats
 from deeplearning4j_tpu_torch.serving.publish import (Publication,
                                                       WeightStore, load_net)
+from deeplearning4j_tpu_torch.serving.router import (FrontDoorRouter,
+                                                     HostHandle, NoHostsError)
 from deeplearning4j_tpu_torch.serving.server import (DeadlineExceededError,
                                                      ModelServer,
                                                      UnknownSessionError,
@@ -25,4 +27,5 @@ __all__ = ["ModelServer", "serve", "MicroBatcher", "QueueFullError",
            "UnknownSessionError", "ServingStats", "Replica", "ReplicaSet",
            "DecodeEngine", "DecodeSession", "StreamingKVForward",
            "KVPagePool", "CachePoolFullError", "next_bucket",
+           "FrontDoorRouter", "HostHandle", "NoHostsError",
            "WeightStore", "Publication", "load_net"]

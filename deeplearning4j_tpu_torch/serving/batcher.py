@@ -28,8 +28,8 @@ ticket's future.
 A forward returns one array or a list of arrays, each with ``bucket``
 rows; each ticket's future gets its rows of each.
 
-Not ported: the scheduler's admission classes that set ``priority``
-(ROADMAP A.3, scheduling).
+The scheduler (scheduling/core.py) sets ``priority``: the fleet maps an
+admitted class to its tier (interactive 0, batch 1, best_effort 2).
 """
 
 from __future__ import annotations

@@ -69,8 +69,9 @@ built on. A net with recurrent carries that have no token axis (an LSTM's
 h/c) decodes through the same engine unpaged: chunking, sharing and
 speculation stay off for it, as in the JAX package.
 
-Not ported: the scheduler (``scheduler=``, ROADMAP A.3's scheduling
-item); giving one raises ``NotImplementedError``.
+``scheduler=`` (a scheduling.SchedulingCore) goes to the engine's
+``ReplicaSet``: its decode tickets are admitted at the interactive tier,
+so under overload the fleet sheds batch work first.
 """
 
 from __future__ import annotations

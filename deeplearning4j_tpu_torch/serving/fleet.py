@@ -3,7 +3,12 @@ queue (counterpart of deeplearning4j_tpu/serving/fleet.py).
 
 - **Admission** is global: ``submit`` rejects with ``QueueFullError``
   once the sum of the live replicas' queue depths reaches ``max_queue``
-  (a dead replica's stranded tickets are not capacity).
+  (a dead replica's stranded tickets are not capacity). With a
+  ``scheduler`` (scheduling/core.py) admission runs its discipline
+  instead: tenant quotas, class watermarks (batch sheds at 50% of
+  ``max_queue``, interactive only at 100%) and deadline sheds against
+  the derived wait estimate; the admitted class's tier rides the
+  batcher ticket as its priority.
 - **Routing** is by observed load: each ticket goes to the live replica
   with the shallowest queue, ties taken round-robin.
 - **Eviction**: when a replica's device thread dies, its in-flight and
@@ -31,10 +36,6 @@ Replicas share the forward, one ``ServingStats`` (its ``queue_depth_fn``
 rebound to the fleet total) and one ``shapes_seen`` set. On the card they
 share one device and launch on its default stream, each from its own
 device thread.
-
-Not ported: the scheduler (``scheduler=``, ROADMAP A.3's scheduling item),
-whose admission classes and tenant quotas would run ``submit``'s
-admission; a fleet built with one raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -52,10 +53,6 @@ from deeplearning4j_tpu_torch.serving.batcher import (BatcherDeadError,
 LIVE = "live"
 DRAINING = "draining"
 DEAD = "dead"
-
-SCHEDULER_NOT_PORTED = (
-    "the scheduling core (deeplearning4j_tpu/scheduling/) is not ported "
-    "(ROADMAP.md A.3, scheduling); pass scheduler=None")
 
 
 class Replica:
@@ -89,13 +86,13 @@ class ReplicaSet:
                  batch_window_ms: float = 2.0, max_queue: int = 1024,
                  min_batch: int = 2, stats=None, forwards=None,
                  scheduler=None):
-        if scheduler is not None:
-            raise NotImplementedError(SCHEDULER_NOT_PORTED)
         if forwards is None:
             forwards = [forward] * int(n)
         self.max_queue = int(max_queue)
         self.stats = stats
-        self.scheduler = None
+        #: optional SchedulingCore: admission classes, tenant quotas and
+        #: deadline sheds run in submit()
+        self.scheduler = scheduler
         self.shapes_seen: set[int] = set()
         self._batcher_cfg = dict(max_batch=max_batch,
                                  batch_window_ms=batch_window_ms,
@@ -307,16 +304,31 @@ class ReplicaSet:
                deadline_ms=None) -> Future:
         """Admit one ticket fleet-wide and route it to the shallowest live
         queue, or with ``session=`` to the session's pinned replica while
-        it stays live. Raises ``QueueFullError`` on reject and
-        ``BatcherDeadError`` only when no live replica remains.
-        ``klass``, ``tenant`` and ``deadline_ms`` belong to the scheduler,
-        which is not ported: giving one raises ``NotImplementedError``."""
-        if klass is not None or tenant is not None \
-                or deadline_ms is not None:
-            raise NotImplementedError(SCHEDULER_NOT_PORTED)
+        it stays live. Admission counts only live replicas' depths. With
+        a ``scheduler``, admission runs its discipline (``klass``,
+        ``tenant``, ``deadline_ms``; the wait estimate is derived only
+        when a deadline is given) and the admitted class's tier rides
+        the ticket. Raises ``QueueFullError`` (or its ``ShedError``
+        subclass) on reject and ``BatcherDeadError`` only when no live
+        replica remains."""
         self.start()
         depth = self.live_depth()
-        if depth >= self.max_queue:
+        priority = 0
+        if self.scheduler is not None:
+            wait = self.stats.retry_after_s(depth) \
+                if deadline_ms is not None and self.stats is not None \
+                else None
+            try:
+                k = self.scheduler.admit(
+                    tenant=tenant, klass=klass, deadline_ms=deadline_ms,
+                    rows=int(feats[0].shape[0]), depth=depth,
+                    capacity=self.max_queue, wait_estimate_s=wait)
+            except QueueFullError:
+                if self.stats is not None:
+                    self.stats.record_rejected()
+                raise
+            priority = self.scheduler.PRIORITY[k]
+        elif depth >= self.max_queue:
             if self.stats is not None:
                 self.stats.record_rejected()
             raise QueueFullError(
@@ -324,11 +336,12 @@ class ReplicaSet:
                 f"{len(self.replicas)} replicas (max_queue="
                 f"{self.max_queue})")
         outer = Future()
-        self._dispatch(feats, trace_id, outer, first=True, session=session)
+        self._dispatch(feats, trace_id, outer, first=True, session=session,
+                       priority=priority)
         return outer
 
     def _dispatch(self, feats, trace_id, outer: Future, first: bool,
-                  session=None):
+                  session=None, priority: int = 0):
         while True:
             r = self._pick(session)
             if r is None:
@@ -339,7 +352,7 @@ class ReplicaSet:
                 return
             b = r.batcher
             try:
-                inner = b.submit(feats, trace_id)
+                inner = b.submit(feats, trace_id, priority=priority)
             except BatcherDeadError:
                 # lost the race with a dying device thread: evict it and
                 # try the next live replica
@@ -363,11 +376,11 @@ class ReplicaSet:
                 return
             inner.add_done_callback(
                 lambda f, rep=r: self._on_done(f, rep, feats, trace_id,
-                                               outer, session))
+                                               outer, session, priority))
             return
 
     def _on_done(self, inner: Future, replica: Replica, feats, trace_id,
-                 outer: Future, session=None):
+                 outer: Future, session=None, priority: int = 0):
         exc = inner.exception()
         if exc is None:
             outer.set_result(inner.result())
@@ -378,6 +391,6 @@ class ReplicaSet:
             with self._lock:
                 self.requeued += 1
             self._dispatch(feats, trace_id, outer, first=False,
-                           session=session)
+                           session=session, priority=priority)
         else:
             outer.set_exception(exc)

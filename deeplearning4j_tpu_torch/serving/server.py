@@ -21,12 +21,26 @@ Endpoints:
   the unified registry in Prometheus text instead
 
 Each POST carries ``X-DL4J-Trace-Id`` (the client's, or one minted here)
-onto its handler span and batcher tickets and echoes it back.
+onto its handler span and batcher tickets and echoes it back; the
+scheduling headers ``X-DL4J-Priority`` / ``-Tenant`` / ``-Deadline-Ms``
+go into fleet admission and are echoed back normalized.
 
 ``start()`` warms the bucket ladder from ``input_shapes`` (or the row
-shape the configuration implies) before it accepts traffic. A full queue
-answers 503 with ``Retry-After``; ``stop()`` drains accepted work first
-and closes the serving goodput ledger (``run_report``).
+shape the configuration implies) before it accepts traffic. A shed or a
+full queue answers 503 with ``Retry-After`` and ``X-DL4J-Shed-Class``;
+``stop()`` drains accepted work first and closes the serving goodput
+ledger (``run_report``, with the SLO engine's ``slo`` report).
+
+Traffic engine: ``scheduler=None`` builds a default ``SchedulingCore``
+(no quotas; class watermarks shed batch first), ``False`` turns
+admission scheduling off, an instance is used as given; its
+``dl4j_sched_*`` families go on the registry. ``slos=None`` builds the
+default SLO pair (``default_serving_slos``, p99 bound
+``$DL4J_TPU_SLO_P99_MS`` or 500 ms), a falsy list none; its
+``dl4j_slo_*`` families are evaluated at each scrape. ``push_url=``
+pushes this host's snapshot (with ``server_url`` and its request-scoped
+spans) to a router's or aggregator's ``/api/metrics_push`` every
+``push_interval_s``.
 
 ``compute_dtype=`` serves through a shadow net over the same parameters
 with only the policy's compute dtype replaced: its rows hold a tolerance
@@ -39,16 +53,15 @@ version, so requests still finishing on the old weights never see a
 mutated net. A warmed server builds no kernel across a swap.
 
 Not ported, each refused by name when given: ``mesh`` (mesh-parallel
-serving, ROADMAP A.5), ``push_url`` (federation) and ``slos`` (the SLO
-engine) (A.3.3), ``compile_cache_dir``, ``aot_manifest`` and
-``tuning_report`` (the compile cache, A.4), and ``scheduler`` (A.3,
-scheduling).
+serving, ROADMAP A.5), ``compile_cache_dir``, ``aot_manifest`` and
+``tuning_report`` (the compile cache, A.4).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import threading
 import time
 from concurrent.futures import TimeoutError as _FutureTimeout
@@ -61,11 +74,12 @@ from deeplearning4j_tpu_torch.nn.updater import _map
 from deeplearning4j_tpu_torch.observability import distributed as _dist
 from deeplearning4j_tpu_torch.observability import goodput as _goodput
 from deeplearning4j_tpu_torch.observability import metrics as _obs_metrics
+from deeplearning4j_tpu_torch.observability import slo as _slo
 from deeplearning4j_tpu_torch.observability import trace as _obs_trace
+from deeplearning4j_tpu_torch.scheduling import core as _sched
 from deeplearning4j_tpu_torch.serving.batcher import (BatcherDeadError,
                                                       QueueFullError)
-from deeplearning4j_tpu_torch.serving.fleet import (SCHEDULER_NOT_PORTED,
-                                                    ReplicaSet)
+from deeplearning4j_tpu_torch.serving.fleet import ReplicaSet
 from deeplearning4j_tpu_torch.serving.metrics import (ServingStats,
                                                       decode_metric_families)
 
@@ -73,17 +87,12 @@ from deeplearning4j_tpu_torch.serving.metrics import (ServingStats,
 NOT_PORTED = {
     "mesh": "mesh-parallel serving (parallel/inference.py) is not ported "
             "(ROADMAP.md A.5)",
-    "push_url": "the federation heartbeat (HeartbeatPusher) is not ported "
-                "(ROADMAP.md A.3.3)",
-    "slos": "the SLO engine (observability/slo.py) is not ported "
-            "(ROADMAP.md A.3.3)",
     "compile_cache_dir": "the compile cache (compilecache/) is not ported "
                          "(ROADMAP.md A.4)",
     "aot_manifest": "the compile cache's AOT manifest (compilecache/) is "
                     "not ported (ROADMAP.md A.4)",
     "tuning_report": "the autotuner (compilecache/autotune.py) is not "
                      "ported (ROADMAP.md A.4)",
-    "scheduler": SCHEDULER_NOT_PORTED,
 }
 
 
@@ -118,11 +127,9 @@ class ModelServer:
                  slos=None, scheduler=None):
         given = {"mesh": mesh is not None or data_axis is not None
                  or tp_rules is not None,
-                 "push_url": bool(push_url), "slos": bool(slos),
                  "compile_cache_dir": compile_cache_dir is not None,
                  "aot_manifest": aot_manifest is not None,
-                 "tuning_report": tuning_report is not None,
-                 "scheduler": scheduler not in (None, False)}
+                 "tuning_report": tuning_report is not None}
         for name, on in given.items():
             if on:
                 raise NotImplementedError(f"ModelServer({name}=...): "
@@ -145,12 +152,26 @@ class ModelServer:
                 != net.conf.global_conf.dtype.compute_dtype):
             self._serving_net = self._build_serving_net(compute_dtype)
         self.stats = ServingStats()
+        if scheduler is False:
+            self.scheduler = None
+        elif scheduler is None:
+            self.scheduler = _sched.SchedulingCore()
+        else:
+            self.scheduler = scheduler
         self._fleet = ReplicaSet(
             self._device_forward, int(replicas), max_batch=max_batch,
             batch_window_ms=batch_window_ms, max_queue=max_queue,
-            min_batch=2, stats=self.stats)
+            min_batch=2, stats=self.stats, scheduler=self.scheduler)
         self.shapes_seen = self._fleet.shapes_seen
         self.decode_engine = decode_engine
+        if slos is None:
+            slos = _slo.default_serving_slos(p99_bound_ms=float(
+                os.environ.get("DL4J_TPU_SLO_P99_MS", "500")))
+        self.slo_engine = _slo.SLOEngine(slos) if slos else None
+        self.push_url = push_url
+        self.push_interval_s = float(push_interval_s)
+        self._pusher = None
+        self._span_push = None
         self._httpd = None
         self._thread = None
         self._ledger = None
@@ -294,16 +315,20 @@ class ModelServer:
         return None
 
     # ------------------------------------------------------------ inference
-    def predict(self, features, trace_id=None):
+    def predict(self, features, trace_id=None, klass=None, tenant=None,
+                deadline_ms=None):
         """Enqueue one request and wait for its rows. Requests larger than
-        ``max_batch`` go as ``max_batch`` chunks. Raises QueueFullError
-        when admission control refuses (HTTP 503)."""
+        ``max_batch`` go as ``max_batch`` chunks. ``klass`` / ``tenant`` /
+        ``deadline_ms`` are the scheduling headers, passed to fleet
+        admission. Raises QueueFullError (or its ShedError subclass
+        naming the shed class) when admission refuses (HTTP 503)."""
         t0 = time.perf_counter()
         feats = np.asarray(features, np.float32)
         n = feats.shape[0]
         self._fleet.start()
         futures = [self._fleet.submit([feats[i:i + self.max_batch]],
-                                      trace_id=trace_id)
+                                      trace_id=trace_id, klass=klass,
+                                      tenant=tenant, deadline_ms=deadline_ms)
                    for i in range(0, max(n, 1), self.max_batch)]
         deadline = t0 + self.request_timeout_s
         chunks = []
@@ -372,9 +397,32 @@ class ModelServer:
         snap["requeued_total"] = self._fleet.requeued
         snap["model_version"] = self.model_version
         snap["weight_swaps_total"] = self.swaps_total
+        if self.scheduler is not None:
+            snap["sched"] = self.scheduler.snapshot()
         if self.decode_engine is not None:
             snap["decode"] = self.decode_engine.describe()
         return snap
+
+    def _push_health(self) -> dict:
+        """The health payload each federation push carries: readiness,
+        ``server_url`` (the key a FrontDoorRouter joins pushed gauges to
+        its proxy target by) and the counters a router's canary gates
+        difference."""
+        snap = self.stats.snapshot(self.shapes_seen)
+        health = {"batcher_healthy": self._fleet.healthy,
+                  "server_url": self.url,
+                  "model_version": self.model_version,
+                  "replicas": self._fleet.describe(),
+                  "serving": {
+                      "requests_total": snap["requests_total"],
+                      "errors_total": snap["errors_total"],
+                      "timeouts_total": snap["timeouts_total"],
+                      "nan_rows_total": snap["nan_rows_total"],
+                      "latency_p99_ms": snap["latency_ms"]["p99"],
+                  }}
+        if self.decode_engine is not None:
+            health["decode"] = self.decode_engine.describe()
+        return health
 
     def health(self):
         """(status code, ``/healthz`` payload)."""
@@ -439,6 +487,15 @@ class ModelServer:
         if self.decode_engine is not None:
             collectors.append(lambda: decode_metric_families(
                 self.decode_engine.describe(), {"server": addr}))
+        if self.slo_engine is not None:
+            def slo_families():
+                # each render advances the sliding windows
+                self.slo_engine.ingest(self.stats.snapshot(self.shapes_seen))
+                return self.slo_engine.families()
+            collectors.append(slo_families)
+        if self.scheduler is not None:
+            collectors.append(
+                lambda: self.scheduler.metric_families({"server": addr}))
         reg = _obs_metrics.get_registry()
         for fn in collectors:
             reg.register_collector(fn)
@@ -511,12 +568,19 @@ class ModelServer:
                 trace_id = (self.headers.get(_dist.TRACE_HEADER)
                             or _dist.new_trace_id())
                 echo = ((_dist.TRACE_HEADER, trace_id),)
+                sched = _sched.parse_sched_headers(self.headers)
+                echo += ((_sched.PRIORITY_HEADER, sched["klass"]),)
+                if sched["tenant"]:
+                    echo += ((_sched.TENANT_HEADER, sched["tenant"]),)
+                if sched["deadline_ms"] is not None:
+                    echo += ((_sched.DEADLINE_HEADER,
+                              f"{sched['deadline_ms']:g}"),)
                 with _obs_trace.get_tracer().span(
                         "decode_op" if is_decode else "predict_handler",
                         trace_id=trace_id, server_url=server.url):
-                    self._handle_post(is_decode, trace_id, echo)
+                    self._handle_post(is_decode, trace_id, echo, sched)
 
-            def _handle_post(self, is_decode, trace_id, echo):
+            def _handle_post(self, is_decode, trace_id, echo, sched):
                 try:
                     n = int(self.headers.get("Content-Length", 0))
                     payload = json.loads(self.rfile.read(n).decode())
@@ -526,13 +590,22 @@ class ModelServer:
                                    headers=echo)
                         return
                     out = server.predict(payload["features"],
-                                         trace_id=trace_id)
+                                         trace_id=trace_id, **sched)
                     self._json({"predictions": out.tolist()}, headers=echo)
                 except QueueFullError as e:
+                    # the shed class: the ShedError's, else a plain
+                    # full-queue reject sheds the request's own class
+                    shed_k = e.klass if isinstance(e, _sched.ShedError) \
+                        else sched["klass"]
+                    if not isinstance(e, _sched.ShedError) \
+                            and server.scheduler is not None:
+                        server.scheduler.record_shed(shed_k)
                     self._json({"error": f"overloaded: {e}"}, 503,
                                headers=(("Retry-After",
                                          f"{server.stats.retry_after_s():g}"
-                                         ),) + echo)
+                                         ),
+                                        (_sched.SHED_CLASS_HEADER, shed_k))
+                               + echo)
                 except BatcherDeadError as e:
                     self._json({"error": f"unhealthy: {e}"}, 503,
                                headers=echo)
@@ -554,9 +627,18 @@ class ModelServer:
         self._ledger.rebase_compile(compile0)
         if self.warmup_s is not None:
             self._ledger.annotate(warmup_s=round(self.warmup_s, 6))
+        _dist.stamp_run_marker("serving")
         self._thread = threading.Thread(target=self._httpd.serve_forever,
                                         daemon=True, name="model-server-http")
         self._thread.start()
+        if self.push_url:
+            # request-scoped spans ride the heartbeat pushes, so the
+            # router's TraceStore can stitch this host into waterfalls
+            self._span_push = _dist.SpanPushBuffer().install()
+            self._pusher = _dist.HeartbeatPusher(
+                self.push_url, self.push_interval_s,
+                health_fn=self._push_health,
+                spans_fn=self._span_push.payload).start()
         return self
 
     @property
@@ -566,7 +648,13 @@ class ModelServer:
     def stop(self):
         """Stop accepting, then drain: every accepted ticket completes
         before the device threads exit. Closes the serving goodput ledger
-        (``run_report``)."""
+        (``run_report``, its ``slo`` the SLO engine's final report)."""
+        if self._pusher is not None:
+            self._pusher.stop()
+            self._pusher = None
+        if self._span_push is not None:
+            self._span_push.remove()
+            self._span_push = None
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
@@ -579,6 +667,9 @@ class ModelServer:
         self._fleet.stop()
         self._detach_collectors()
         ledger = self._ledger
+        if ledger is not None and self.slo_engine is not None:
+            self.slo_engine.ingest(self.stats.snapshot(self.shapes_seen))
+            ledger.annotate(slo=self.slo_engine.report())
         if ledger is not None and self.stats.first_reply_unix is not None:
             ledger.annotate(cold_start_s=round(
                 self.stats.first_reply_unix

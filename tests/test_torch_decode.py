@@ -389,8 +389,14 @@ def test_speculative_errors_match_jax(pkgs):
         tdecode.DecodeEngine(net, speculative=2, draft_net=short)
     with pytest.raises(ValueError, match="draft_net"):
         tdecode.DecodeEngine(net, speculative=2)
-    with pytest.raises(NotImplementedError, match="A.3"):
-        tdecode.DecodeEngine(net, scheduler=object())
+    # the scheduler is ported: the engine hands it to its replica set
+    from deeplearning4j_tpu_torch.scheduling import SchedulingCore
+    core = SchedulingCore()
+    eng = tdecode.DecodeEngine(net, scheduler=core)
+    try:
+        assert eng.scheduler is core and eng.fleet.scheduler is core
+    finally:
+        eng.stop()
 
 
 def test_env_knobs(pkgs, monkeypatch):

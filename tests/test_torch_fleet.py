@@ -195,12 +195,21 @@ def test_requeue_facts():
 
 
 def test_scheduler_and_its_admission_fields_are_refused_by_name():
-    with pytest.raises(NotImplementedError, match="A.3"):
-        tfleet.ReplicaSet(_tagged(0), 1, scheduler=object())
+    """The scheduler is ported: a fleet built with one admits through it
+    (the class is counted), and without one the admission fields are
+    accepted and ignored, as in the JAX package."""
+    from deeplearning4j_tpu_torch.scheduling import SchedulingCore
+    core = SchedulingCore()
+    rs = tfleet.ReplicaSet(_tagged(0), 1, scheduler=core)
+    try:
+        assert _served_by(rs.submit(_row(), klass="batch",
+                                    tenant="t", deadline_ms=1e6)) == 0
+        assert core.snapshot()["admitted_total"]["batch"] == 1
+    finally:
+        rs.stop()
     rs = tfleet.ReplicaSet(_tagged(0), 1)
     try:
-        with pytest.raises(NotImplementedError, match="scheduling"):
-            rs.submit(_row(), klass="batch")
+        assert _served_by(rs.submit(_row(), klass="batch")) == 0
     finally:
         rs.stop()
 

@@ -176,6 +176,49 @@ def test_live_reload_modules_are_checked(module):
     assert module in {_module_name(p) for p in SOURCES}
 
 
+# the modules of the traffic-engine slice: scheduling, the SLO engine,
+# the federation's HTTP half and the front-door router
+TRAFFIC_MODULES = [
+    "deeplearning4j_tpu_torch.scheduling",
+    "deeplearning4j_tpu_torch.scheduling.core",
+    "deeplearning4j_tpu_torch.scheduling.autoscaler",
+    "deeplearning4j_tpu_torch.scheduling.loadgen",
+    "deeplearning4j_tpu_torch.observability.slo",
+    "deeplearning4j_tpu_torch.observability.distributed",
+    "deeplearning4j_tpu_torch.serving.router",
+]
+
+
+@pytest.mark.parametrize("module", TRAFFIC_MODULES)
+def test_traffic_engine_modules_are_checked(module):
+    """Each module of the traffic-engine slice is among the sources the
+    import tests check."""
+    assert module in {_module_name(p) for p in SOURCES}
+
+
+def test_traffic_engine_imports_with_jax_blocked():
+    """The traffic-engine modules import in a fresh interpreter with jax
+    and the JAX package blocked, and their names match the JAX
+    package's ``__all__``."""
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['deeplearning4j_tpu'] = None\n"
+            f"sys.path.insert(0, {str(ROOT)!r})\n"
+            "import importlib\n"
+            f"for m in {TRAFFIC_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "import deeplearning4j_tpu_torch.scheduling as s\n"
+            "import deeplearning4j_tpu_torch.serving.router as r\n"
+            "print(sorted(s.__all__), sorted(r.__all__))\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, cwd=str(ROOT))
+    assert r.returncode == 0, r.stderr
+    from deeplearning4j_tpu import scheduling as jsched
+    from deeplearning4j_tpu.serving import router as jrouter
+    assert r.stdout.strip() == (f"{sorted(jsched.__all__)} "
+                                f"{sorted(jrouter.__all__)}")
+
+
 def test_package_imports_with_jax_blocked():
     mods = [_module_name(p) for p in SOURCES if p.parent != ROOT]
     code = ("import sys\n"

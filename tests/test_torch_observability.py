@@ -331,12 +331,36 @@ def test_identity_comes_from_the_env(fresh_identity):
         "worker-3" and marker.attrs["incarnation"] == 3
 
 
+def _federation_use(name):
+    """One call of each federation name, as a caller makes it; None on
+    success (tests/test_torch_federation.py holds them to the JAX
+    package)."""
+    dead = "http://127.0.0.1:1/api/metrics_push"   # refused at once
+    if name == "export_snapshot":
+        snap = tdist.export_snapshot(health={"batcher_healthy": True})
+        assert snap["schema"] == tdist.SNAPSHOT_SCHEMA_VERSION
+    elif name == "push_snapshot":
+        with pytest.raises(OSError):
+            tdist.push_snapshot(dead, timeout=2.0)
+    elif name == "MetricsFederation":
+        fed = tdist.MetricsFederation()
+        assert fed.ingest(tdist.export_snapshot()) in fed.instance_tags()
+    elif name == "HeartbeatPusher":
+        hb = tdist.HeartbeatPusher(dead, timeout=2.0, attempts=1)
+        assert hb.push_once() is False and hb.pushes_failed == 1
+    elif name == "SpanPushBuffer":
+        assert tdist.SpanPushBuffer().payload() is None
+    else:
+        assert tdist.TraceStore().waterfall("x")["found"] is False
+
+
 @pytest.mark.parametrize("name", ["export_snapshot", "push_snapshot",
                                   "MetricsFederation", "HeartbeatPusher",
                                   "SpanPushBuffer", "TraceStore"])
 def test_federation_waits_by_name(name):
-    with pytest.raises(NotImplementedError, match="A.5"):
-        getattr(tdist, name)("x")
+    """The federation names no longer wait (they were refused naming
+    ROADMAP.md A.5): each one is ported and works when called."""
+    _federation_use(name)
 
 
 def test_exports_match_the_jax_packages():

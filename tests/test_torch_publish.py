@@ -12,8 +12,8 @@ package on the CPU.
 - Ports of the JAX package's tests of the publication store, of an
   incomplete checkpoint, of a hot swap under load (two replicas, no
   kernel built) and of its refusals and the NaN sentinel (read through
-  ``metrics()`` and ``health()``: the heartbeat push waits for ROADMAP.md
-  A.3.3).
+  ``metrics()`` and ``health()``, and through the heartbeat push's
+  ``serving`` counters).
 
 The JAX side runs once per module (``jax_side``); every thread join has
 a timeout.
@@ -330,8 +330,15 @@ def test_swap_families_render_after_a_swap():
 
 @pytest.mark.parametrize("name", ["push_url", "slos"])
 def test_remaining_refusals_name_their_roadmap_item(name):
-    assert "A.3.3" in NOT_PORTED[name]
-    assert "hot_swap" not in NOT_PORTED
-    with pytest.raises(NotImplementedError, match="A.3.3"):
-        ModelServer(_mlp(1), **{name: "http://localhost:1" if name ==
-                                "push_url" else ["p99<1"]})
+    """push_url and slos are ported (no longer refused); the refusals
+    that remain name their ROADMAP.md item."""
+    from deeplearning4j_tpu_torch.observability.slo import SLO
+    assert name not in NOT_PORTED and "hot_swap" not in NOT_PORTED
+    assert all("ROADMAP.md A." in why for why in NOT_PORTED.values())
+    value = ("http://localhost:1" if name == "push_url" else
+             [SLO("p99", metric="latency_p99_ms", objective=0.9, bound=1.0)])
+    srv = ModelServer(_mlp(1), port=0, warmup=False, **{name: value})
+    if name == "push_url":
+        assert srv.push_url == value and srv._pusher is None
+    else:
+        assert srv.slo_engine.slos == value

@@ -7,7 +7,8 @@ the history; ``X-DL4J-Trace-Id`` is echoed and rides the batcher's spans;
 agrees with the JAX package's shadow; the Prometheus exposition carries
 the JAX package's serving, KV-pool and decode family names; ``serve()``
 starts a replica set; the parameters whose modules are not ported are
-refused by name.
+refused by name, and the traffic engine's (``push_url``, ``slos``,
+``scheduler``) are accepted.
 
 Tolerance: the BF16 shadow's log-probabilities against the JAX package's
 shadow, 2**-2 abs. The two packages round the bf16 stream at other places
@@ -238,14 +239,35 @@ def test_serve_replicas_padding_and_run_report(nets):
     assert pad["real"] == 3 and pad["padded"] == 1
 
 
+def _ported_kw(name):
+    from deeplearning4j_tpu_torch.observability.slo import SLO
+    from deeplearning4j_tpu_torch.scheduling import SchedulingCore
+    return {"push_url": "http://localhost:1",
+            "slos": [SLO("availability", metric="availability",
+                         objective=0.99)],
+            "scheduler": SchedulingCore()}[name]
+
+
 @pytest.mark.parametrize("kw", [
-    {"mesh": object()}, {"push_url": "http://localhost:1"},
-    {"slos": [object()]}, {"compile_cache_dir": "cache"},
+    {"mesh": object()}, {"push_url": None},
+    {"slos": None}, {"compile_cache_dir": "cache"},
     {"aot_manifest": "m.json"}, {"tuning_report": "t.json"},
-    {"scheduler": object()}], ids=lambda kw: next(iter(kw)))
+    {"scheduler": None}], ids=lambda kw: next(iter(kw)))
 def test_unported_parameters_are_refused_by_name(nets, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.[345]"):
-        ModelServer(nets[1], port=0, warmup=False, **kw)
+    """mesh (A.5) and the compile cache's three (A.4) are refused by
+    name; push_url, slos and scheduler are ported and build a server
+    that holds what was given (nothing starts: no push is made)."""
+    from deeplearning4j_tpu_torch.serving.server import NOT_PORTED
+    (name, value), = kw.items()
+    if name in NOT_PORTED:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A.[45]"):
+            ModelServer(nets[1], port=0, warmup=False, **kw)
+        return
+    value = _ported_kw(name)
+    srv = ModelServer(nets[1], port=0, warmup=False, **{name: value})
+    held = {"push_url": srv.push_url, "scheduler": srv.scheduler,
+            "slos": srv.slo_engine and srv.slo_engine.slos}[name]
+    assert held == value
 
 
 def test_hot_swap_is_refused_by_name(nets):
