@@ -25,8 +25,9 @@ pretraining (--slice12 below), the data-fed observed runs (--slice13),
 and slice 14's graph phases (--slice14 below: the skip-connected
 char-RNN graph trained with tBPTT and streamed, a vertex-rich F64
 graph, ResNet-50's remat spans), decode serving (--slice15 below) and
-live reload (--live-reload below) and the front door (--front-door
-below). Every
+live reload (--live-reload below), the front door (--front-door
+below), cold start (--cold-start below) and the training dashboard
+(--dashboard below). Every
 phase that fails ends the run with a nonzero exit code. It needs one CUDA
 card; without one (or without the package beside it) it exits nonzero
 and prints no result.
@@ -189,7 +190,25 @@ with batch and best_effort shed before interactive and one tenant's
 quota, 8 /decode sessions bit-equal to the sequential greedy decode
 across a SIGKILL of one host, the federation's scheduler and SLO
 families and a stitched trace, the survivor's exact K3 and S1-S3
-launches with no kernel built, and the autoscaler's bounds.
+launches with no kernel built, and the autoscaler's bounds, and
+
+    python3 chip_smoke.py --cold-start
+
+runs only [cold_start]: gpt_mini at full width (max_batch 32, a
+DecodeEngine) booted in fresh processes against the kernel build cache
+(DL4J_TPU_COMPILE_CACHE): cold, warm, against a precompile manifest and
+a mismatched one, two processes on one empty dir at once, and with the
+tuning report autotune made from open-loop traffic served here; every
+arm's /predict row and /decode tokens bit-equal, K3 and S1-S3 launches
+exact, 0 builds warm; each arm's time to its first reply, and
+
+    python3 chip_smoke.py --dashboard
+
+runs only [dashboard]: the full-width char-RNN trained 30 steps under a
+StatsListener reporting through a RemoteStatsStorageRouter to a UIServer
+and into a FileStatsStorage, params bit-equal to a run without it, then
+the evaluation report, the trace timeline and the output layer's t-SNE
+on the card against the CPU.
 
 K1 and K2 (bf16 at n a multiple of 64 up to 512: thread-block clusters
 with Wh resident, DSMEM exchange, wgmma), K3 (bf16) and K4-K7 (bf16,
@@ -8270,6 +8289,626 @@ def phase_front_door(card=None):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------------------------------ slice 19
+# [cold_start]: gpt_mini at full width (BF16, T = 256, max_batch 32, a
+# DecodeEngine) booted in fresh processes against the kernel build cache:
+# cold (an empty dir), warm (the same dir again), aot (a dir precompile
+# filled, with its manifest; then a manifest written for max_batch 16),
+# shared (two processes cold-booting one empty dir at once) and tuned (a
+# boot with the tuning report autotune made from traffic served here).
+# Each boot answers one /predict row and one CS_TOKENS-token /decode.
+CS_MAX_BATCH, CS_SMALL_BATCH, CS_TOKENS, CS_PROMPT = 32, 16, 8, 12
+# the autotune arm's open-loop traffic: seconds, mean rate, rows
+CS_TRAFFIC_S, CS_TRAFFIC_RPS, CS_TRAFFIC_ROWS = 5.0, 40.0, 8
+
+
+def cs_row():
+    """The /predict row every arm answers: one T = 256 one-hot row."""
+    return dec_onehot(dec_ids(DEC_C, SEED + 1900))
+
+
+def cs_prompt():
+    return dec_ids(CS_PROMPT, SEED + 1901)
+
+
+def cold_start_arm(zip_path, out_path, mode, aot_manifest=None,
+                   tuning_report=None, max_batch=CS_MAX_BATCH):
+    """One [cold_start] boot, in a process of its own, against the build
+    cache ``$DL4J_TPU_COMPILE_CACHE`` names. ``mode`` "serve": restore
+    the parent's gpt_mini zip, build a DecodeEngine and a ModelServer
+    (``aot_manifest``, ``tuning_report``), answer one /predict row and
+    one /decode over HTTP, stop; "precompile": precompile_serving into
+    the cache dir with the decode engine and save the manifest (then one
+    for max_batch CS_SMALL_BATCH beside it). Writes what it measured and
+    counted to ``out_path`` as JSON."""
+    import warnings
+
+    from deeplearning4j_tpu_torch.observability import metrics as obs
+    t_start = obs.process_start_unix()
+    import torch
+
+    import deeplearning4j_tpu_torch  # noqa: F401
+    from deeplearning4j_tpu_torch.compilecache import manifest as man
+    from deeplearning4j_tpu_torch.compilecache.precompile import \
+        precompile_serving
+    from deeplearning4j_tpu_torch.ops import registry
+    from deeplearning4j_tpu_torch.serving import (DecodeEngine, ModelServer,
+                                                  ServingStats)
+    from deeplearning4j_tpu_torch.utils.serialization import \
+        restore_multi_layer_network
+    t_import = time.time()
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    t_cuda = time.time()
+    base = obs.compile_snapshot()
+    net = restore_multi_layer_network(zip_path)
+    dstats = ServingStats()
+    eng = DecodeEngine(net, n_pages=256, stats=dstats)
+    torch.cuda.synchronize()
+    t_engine = time.time()
+    cache = os.environ["DL4J_TPU_COMPILE_CACHE"]
+    rec = {"mode": mode, "pid": os.getpid(),
+           "import_s": t_import - t_start, "cuda_init_s": t_cuda - t_import,
+           "engine_s": t_engine - t_cuda}
+    if mode == "precompile":
+        entry = precompile_serving(net, cache_dir=cache, max_batch=max_batch,
+                                   input_shapes=[(DEC_C, DEC_V)],
+                                   decode_engine=eng)
+        rec["manifest"] = man.save(man.build(net, serving=entry), cache)
+        small = precompile_serving(
+            net, cache_dir=cache, max_batch=CS_SMALL_BATCH,
+            input_shapes=[(DEC_C, DEC_V)], decode_engine=eng)
+        rec["manifest_small"] = man.save(
+            man.build(net, serving=small),
+            os.path.join(cache, f"aot_manifest_{CS_SMALL_BATCH}.json"))
+        rec["entry"] = entry
+        eng.stop()
+    else:
+        srv = ModelServer(net, port=0, max_batch=max_batch,
+                          input_shapes=[(DEC_C, DEC_V)], decode_engine=eng,
+                          aot_manifest=aot_manifest,
+                          tuning_report=tuning_report)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            srv.start()
+        torch.cuda.synchronize()
+        t_up = time.time()
+        registry.reset_launches()
+        p0, d0 = srv.stats.batches, dstats.batches
+        try:
+            t0 = time.perf_counter()
+            _, pred = post_json(srv.url + "/predict",
+                                {"features": [cs_row().tolist()]})
+            predict_ms = 1000 * (time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            _, gen = post_json(srv.url + "/decode", {
+                "op": "generate", "sid": "cs", "ids": cs_prompt(),
+                "n_tokens": CS_TOKENS})
+            decode_ms = 1000 * (time.perf_counter() - t0)
+            post_json(srv.url + "/decode", {"op": "close", "sid": "cs"})
+            torch.cuda.synchronize()
+            rec.update(
+                launches=registry.launches(),
+                predict_forwards=srv.stats.batches - p0,
+                decode_forwards=dstats.batches - d0,
+                predictions=pred["predictions"], tokens=gen["tokens"],
+                predict_ms=predict_ms, decode_ms=decode_ms,
+                aot_manifest_ok=srv.aot_manifest_ok,
+                warnings=[str(w.message)[:300] for w in caught
+                          if issubclass(w.category, RuntimeWarning)],
+                max_batch=srv.max_batch,
+                batch_window_ms=srv._batcher.batch_window_ms,
+                tuned=srv.tuned_config, warmup_s=srv.warmup_s,
+                build_s=srv.build_s, start_s=t_up - t_engine)
+        finally:
+            srv.stop()
+        report = srv.run_report
+        rec["cold_start_s"] = report.cold_start_s
+    delta = obs.compile_delta(base)
+    rec.update(builds=delta["count"], build_seconds=delta["seconds"],
+               cache_hits=delta["cache_hits"],
+               cache_misses=delta["cache_misses"],
+               libraries=sorted(os.listdir(cache)))
+    with open(out_path, "w") as f:
+        json.dump(rec, f)
+
+
+def _cs_spawn(root, name, cache, zip_path, mode="serve", **kw):
+    """Start one [cold_start] arm: (process, its JSON path, stderr file)."""
+    out = os.path.join(root, f"{name}.json")
+    err = open(os.path.join(root, f"{name}.err"), "w")
+    args = ", ".join(f"{k}={v!r}" for k, v in kw.items())
+    code = (f"import chip_smoke as c; c.cold_start_arm({zip_path!r}, "
+            f"{out!r}, {mode!r}{', ' + args if args else ''})")
+    env = dict(os.environ, DL4J_TPU_COMPILE_CACHE=cache,
+               DL4J_TPU_INSTANCE=f"cold-start-{name}")
+    proc = subprocess.Popen([sys.executable, "-c", code], stderr=err,
+                            stdout=subprocess.DEVNULL, env=env,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    return proc, out, err
+
+
+def _cs_wait(root, name, spawned, timeout=600):
+    proc, out, err = spawned
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=60)
+        rc = "timeout"
+    err.close()
+    if rc != 0 or not os.path.exists(out):
+        with open(err.name) as f:
+            tail = f.read()[-3000:]
+        check(False, f"[cold_start] arm {name} exited {rc}: {tail}")
+    with open(out) as f:
+        return json.load(f)
+
+
+def _cs_arm(root, name, cache, zip_path, mode="serve", **kw):
+    return _cs_wait(root, name, _cs_spawn(root, name, cache, zip_path, mode,
+                                          **kw))
+
+
+def cs_traffic(net, root):
+    """The autotune arm's trace: CS_TRAFFIC_S s of seeded open-loop
+    traffic (scheduling/loadgen.py) through a ModelServer here, then
+    autotune over it. Returns (the tuning report's path, its summary)."""
+    import torch
+    from deeplearning4j_tpu_torch.compilecache import autotune as at
+    from deeplearning4j_tpu_torch.scheduling import OpenLoopRunner, \
+        TrafficModel
+    from deeplearning4j_tpu_torch.serving import ModelServer
+    model = TrafficModel(seed=SEED + 1902, duration_s=CS_TRAFFIC_S,
+                         base_rps=CS_TRAFFIC_RPS, max_rows=CS_TRAFFIC_ROWS)
+    arrivals = model.arrivals()
+    feats = np.stack([dec_onehot(dec_ids(DEC_C, SEED + 1903 + i))
+                      for i in range(CS_TRAFFIC_ROWS)])
+    srv = ModelServer(net, port=0, max_batch=CS_MAX_BATCH,
+                      input_shapes=[(DEC_C, DEC_V)]).start()
+    try:
+        def submit(a):
+            srv.predict(feats[:a.rows], klass=a.klass, tenant=a.tenant)
+            return {"status": 200}
+        rows = OpenLoopRunner(submit, arrivals, max_workers=32).run()
+        torch.cuda.synchronize()
+        snap = srv.stats.snapshot(srv.shapes_seen)
+    finally:
+        srv.stop()
+    check(all(r["status"] == 200 for r in rows),
+          f"[cold_start] autotune traffic: "
+          f"{sum(r['status'] != 200 for r in rows)} of {len(rows)} failed")
+    rep = at.autotune(at.bench_results(
+        arrivals, snap, max_batch=CS_MAX_BATCH,
+        batch_window_ms=srv._batcher.batch_window_ms, concurrency=32))
+    check(rep["tuned"]["objective"] <= rep["default"]["objective"],
+          f"autotune: tuned {rep['tuned']} worse than default "
+          f"{rep['default']}")
+    path = os.path.join(root, "tuning.json")
+    with open(path, "w") as f:
+        json.dump(rep, f)
+    return path, {"requests": len(arrivals),
+                  "rows": int(sum(a.rows for a in arrivals)),
+                  "buckets_ms": snap["device_ms_by_bucket"],
+                  "default": {k: rep["default"][k] for k in (
+                      "max_batch", "batch_window_ms", "p99_ms",
+                      "padding_waste_fraction", "objective")},
+                  "tuned": {k: rep["tuned"][k] for k in (
+                      "max_batch", "batch_window_ms", "p99_ms",
+                      "padding_waste_fraction", "objective")},
+                  "objective_ratio": rep["objective_ratio"]}
+
+
+def _cs_expect(arm, name, ref, libs, builds=None):
+    """The gates every serving arm holds: replies bit-equal to the cold
+    arm's, K3 and S1-S3 launches exact, the library helper naming exactly
+    the libraries launched, and (where given) the builds."""
+    from deeplearning4j_tpu_torch.ops import _build
+    from deeplearning4j_tpu_torch.ops import attention as att
+    from deeplearning4j_tpu_torch.ops import stream_exact as se
+    if ref is not None:
+        check(arm["predictions"] == ref["predictions"],
+              f"[cold_start] {name}: the /predict row differs from the "
+              f"cold arm's")
+        check(arm["tokens"] == ref["tokens"],
+              f"[cold_start] {name}: tokens {arm['tokens']} != the cold "
+              f"arm's {ref['tokens']}")
+    ln, pf, df = arm["launches"], arm["predict_forwards"], \
+        arm["decode_forwards"]
+    expect = {att.KERNEL: DEC_L * pf, se.KERNEL_DENSE: (6 * DEC_L + 1) * df,
+              se.KERNEL_MHA: DEC_L * df, se.KERNEL_NORM: 2 * DEC_L * df}
+    got = {k: ln.get(k, 0) for k in expect}
+    check(pf > 0 and df > 0 and got == expect,
+          f"[cold_start] {name}: launches {got}, expected {expect} for "
+          f"{pf} /predict and {df} decode forwards")
+    launched = {_build.COUNTER_LIBRARY[k] for k, v in ln.items() if v}
+    check(launched == set(libs),
+          f"[cold_start] {name}: launches came from {sorted(launched)}, "
+          f"libraries_for names {libs}")
+    if builds is not None:
+        check(arm["builds"] == builds and arm["cache_misses"] == builds,
+              f"[cold_start] {name}: {arm['builds']} builds, "
+              f"{arm['cache_misses']} misses (expected {builds})")
+    return got
+
+
+def _cs_times(arm):
+    keys = ("cold_start_s", "warmup_s", "build_seconds", "import_s",
+            "cuda_init_s", "engine_s", "start_s", "predict_ms",
+            "decode_ms")
+    out = {k: round(arm[k], 4) for k in keys if arm.get(k) is not None}
+    if arm.get("cold_start_s"):
+        out["import_cuda_share"] = round(
+            (arm["import_s"] + arm["cuda_init_s"]) / arm["cold_start_s"], 4)
+    return out
+
+
+def phase_cold_start(card=None):
+    """gpt_mini at full width (vocab 80, width 256, 4 blocks of 4 heads,
+    T = 256, BF16, max_batch 32 with a DecodeEngine) booted in fresh
+    processes against the kernel build cache: cold, warm, aot (and a
+    mismatched manifest), shared (two processes at once on one empty
+    dir) and tuned (autotune over traffic served here). Gates: every
+    arm's /predict row and /decode tokens bit-equal to the cold arm's, K3
+    and S1-S3 launches exact, the library helper naming exactly the
+    launched libraries, 2 builds cold and 0 warm and aot,
+    aot_manifest_ok true then false, the shared dir whole. Every failure
+    raises."""
+    import glob
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch.compilecache import cache as ccache
+    from deeplearning4j_tpu_torch.ops import _build
+    from deeplearning4j_tpu_torch.utils.serialization import write_model
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="cold_start_")
+    try:
+        net = dec_net("BF16")
+        libs = _build.libraries_for(net, decode=True)
+        check(libs == ("flash_attn_fwd", "stream_exact"),
+              f"libraries_for(gpt_mini, decode=True) = {libs}")
+        zip_path = os.path.join(root, "gpt_mini.zip")
+        write_model(net, zip_path)
+        dirs = {k: os.path.join(root, k) for k in ("cold", "aot", "shared")}
+        arms = {"cold": _cs_arm(root, "cold", dirs["cold"], zip_path)}
+        cold = arms["cold"]
+        _cs_expect(cold, "cold", None, libs, builds=len(libs))
+        running = {"precompile": _cs_spawn(root, "precompile", dirs["aot"],
+                                           zip_path, "precompile"),
+                   "shared_a": _cs_spawn(root, "shared_a", dirs["shared"],
+                                         zip_path),
+                   "shared_b": _cs_spawn(root, "shared_b", dirs["shared"],
+                                         zip_path)}
+        for name, sp in running.items():
+            arms[name] = _cs_wait(root, name, sp)
+        arms["warm"] = _cs_arm(root, "warm", dirs["cold"], zip_path)
+        _cs_expect(arms["warm"], "warm", cold, libs, builds=0)
+        check(arms["warm"]["cache_hits"] == len(libs),
+              f"warm: {arms['warm']['cache_hits']} hits")
+        pre = arms["precompile"]
+        arms["aot"] = _cs_arm(root, "aot", dirs["aot"], zip_path,
+                              aot_manifest=True)
+        _cs_expect(arms["aot"], "aot", cold, libs, builds=0)
+        check(arms["aot"]["aot_manifest_ok"] is True
+              and not arms["aot"]["warnings"],
+              f"aot: aot_manifest_ok {arms['aot']['aot_manifest_ok']}, "
+              f"warnings {arms['aot']['warnings']}")
+        arms["aot_mismatch"] = _cs_arm(root, "aot_mismatch", dirs["aot"],
+                                       zip_path,
+                                       aot_manifest=pre["manifest_small"])
+        mis = arms["aot_mismatch"]
+        _cs_expect(mis, "aot_mismatch", cold, libs, builds=0)
+        check(mis["aot_manifest_ok"] is False and any(
+            "max_batch" in w for w in mis["warnings"]),
+              f"aot_mismatch: aot_manifest_ok {mis['aot_manifest_ok']}, "
+              f"warnings {mis['warnings']}")
+        for name in ("shared_a", "shared_b"):
+            _cs_expect(arms[name], name, cold, libs)
+        left = sorted(os.listdir(dirs["shared"]))
+        tmp = glob.glob(os.path.join(dirs["shared"], "*.tmp")) + glob.glob(
+            os.path.join(dirs["shared"], ".*.tmp"))
+        meta = ccache.shared_meta(dirs["shared"])
+        so_files = [n for n in left if n.endswith(".so")]
+        check(not tmp and meta is not None and meta["schema"] == 1
+              and left.count(ccache.META_NAME) == 1
+              and sorted(n[3:].rsplit("_", 1)[0] for n in so_files)
+              == list(libs),
+              f"shared dir holds {left} (tmp {tmp}, marker {meta})")
+        tuning, tuned = cs_traffic(net, root)
+        arms["tuned"] = _cs_arm(root, "tuned", dirs["cold"], zip_path,
+                                tuning_report=tuning)
+        t = arms["tuned"]
+        _cs_expect(t, "tuned", cold, libs, builds=0)
+        check(t["max_batch"] == tuned["tuned"]["max_batch"]
+              and t["batch_window_ms"] == tuned["tuned"]["batch_window_ms"]
+              and t["tuned"] == {k: tuned["tuned"][k] for k in (
+                  "max_batch", "batch_window_ms")},
+              f"tuned boot serves max_batch {t['max_batch']}, window "
+              f"{t['batch_window_ms']}, tuning {tuned['tuned']}")
+        phase("cold_start", model="gpt_mini(vocab=80,width=256,blocks=4,"
+              "heads=4,T=256,BF16)", card=card, max_batch=CS_MAX_BATCH,
+              libraries=",".join(libs),
+              builds=json.dumps({k: a["builds"] for k, a in arms.items()}),
+              hits=json.dumps({k: a["cache_hits"] for k, a in arms.items()}),
+              aot_manifest_ok=json.dumps({
+                  k: arms[k]["aot_manifest_ok"]
+                  for k in ("aot", "aot_mismatch")}),
+              launches=json.dumps({k: a["launches"] for k, a in arms.items()
+                                   if "launches" in a}),
+              shared_dir=json.dumps(left), autotune=json.dumps(tuned),
+              times=json.dumps({k: _cs_times(a) for k, a in arms.items()}),
+              phase_s=f"{time.perf_counter() - t_phase:.1f}")
+        return arms
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# [dashboard]: the char-RNN at full width trained under a StatsListener
+# whose reports go through a RemoteStatsStorageRouter to a UIServer and
+# into a FileStatsStorage, then the trained net's evaluation report, the
+# run's trace timeline and the output layer's t-SNE embedding.
+DB_STEPS, DB_FREQ, DB_PROBE_ROWS = 30, 10, 4
+DB_B, DB_T, DB_V = 32, 64, 80
+# t-SNE of the output layer: the perplexity and iterations
+# publish_embedding uses, and P's bound against the plain CPU run
+DB_TSNE_PERPLEXITY, DB_TSNE_ITERS, DB_P_TOL = 15.0, 300, 1e-5
+# the final KL within 5% of the CPU runs' range. The exaggerated phase
+# (learning rate 200, exaggeration 12) grows a one-ulp difference in the
+# inputs into another embedding within ~10 iterations (the CPU tests'
+# measure), so the CPU reference is DB_TSNE_RUNS runs on inputs moved by
+# one ulp each (the card's own rounding is of that size), not one run
+DB_KL_RTOL, DB_TSNE_RUNS = 0.05, 6
+
+
+class _Tee:
+    """One StatsStorage surface over several (a router and a file)."""
+
+    def __init__(self, *sinks):
+        self.sinks = sinks
+
+    def put_update(self, report):
+        for s in self.sinks:
+            s.put_update(report)
+
+    def put_static_info(self, session_id, worker_id, info):
+        for s in self.sinks:
+            s.put_static_info(session_id, worker_id, info)
+
+
+def _snap_listener(at):
+    """A listener reading the params at the iterations ``at`` (host
+    copies): the listener-free run's update statistics come from these."""
+    from deeplearning4j_tpu_torch.optimize.listeners import \
+        TrainingListener
+
+    class Snap(TrainingListener):
+        needs_per_iteration = True
+
+        def __init__(self):
+            self.at, self.params = set(at), {}
+
+        def iteration_done(self, net, iteration, epoch):
+            from deeplearning4j_tpu_torch.ui.stats import host_params
+            if iteration in self.at:
+                self.params[iteration] = host_params(net.params)
+    return Snap()
+
+
+def _db_fit(zip_path, batches, listeners):
+    """A fresh restore of the zip trained over ``batches`` by ``fit``,
+    one step a chunk; returns (net, ms a step by the host clock, K1/K2
+    launches)."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import (DataSet,
+                                                   ListDataSetIterator)
+    from deeplearning4j_tpu_torch.ops import registry
+    from deeplearning4j_tpu_torch.utils.serialization import \
+        restore_multi_layer_network
+    net = restore_multi_layer_network(zip_path)
+    net.set_listeners(*listeners)
+    it = ListDataSetIterator([DataSet(x, y) for x, y in batches])
+    torch.cuda.synchronize()
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    net.fit(it, epochs=1, multi_step=1, async_prefetch=False,
+            device_prefetch=False)
+    torch.cuda.synchronize()
+    ms = 1000 * (time.perf_counter() - t0) / len(batches)
+    return net, ms, registry.launches()
+
+
+def phase_dashboard(card=None):
+    """The char-RNN at full width (vocab 80, hidden 512, 2 GravesLSTM,
+    BF16, b = 32, T = 64) trained DB_STEPS steps with a StatsListener
+    (frequency 10, histograms, a 4-row activation probe) reporting
+    through a RemoteStatsStorageRouter to a UIServer and into a
+    FileStatsStorage. Gates: params bit-equal to a run without it, K1/K2
+    launches exact per step with the probe's counted apart, the reports
+    at /api/updates and in the file, the update statistics those of one
+    step's delta, the evaluation report and the trace timeline written,
+    the output layer's t-SNE on the card (P 1e-5 against the CPU, the
+    final KL within 5% of the CPU runs' range) served at /api/embedding.
+    Every failure raises."""
+    import shutil
+    import tempfile
+
+    import torch
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.eval.tools import (
+        evaluation_html, export_evaluation_to_html_file)
+    from deeplearning4j_tpu_torch.observability.trace import (
+        export_trace_html, get_tracer)
+    from deeplearning4j_tpu_torch.plot.tsne import Tsne
+    from deeplearning4j_tpu_torch.ui import (FileStatsStorage,
+                                             RemoteStatsStorageRouter,
+                                             StatsListener, UIServer,
+                                             publish_embedding)
+    from deeplearning4j_tpu_torch.ui.stats import _array_stats, host_params
+    from deeplearning4j_tpu_torch.utils.serialization import write_model
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="dashboard_")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    ui = None
+    try:
+        net0 = zoo.char_rnn(seed=SEED)
+        zip_path = os.path.join(root, "char_rnn.zip")
+        write_model(net0, zip_path)
+        del net0
+        batches = markov_batches(DB_STEPS + 1, DB_B, DB_T, DB_V, SEED + 1950)
+        held = batches.pop()
+        probe = batches[0][0][:DB_PROBE_ROWS]
+        reports = [i for i in range(1, DB_STEPS + 1) if i % DB_FREQ == 0]
+        # the listener-free runs: one reading params around each reported
+        # step (update statistics; it also takes the first fit's one-time
+        # costs), one alone (timing, final params)
+        snap = _snap_listener({i - d for i in reports for d in (0, 1)})
+        _db_fit(zip_path, batches, [snap])
+        plain, plain_ms, plain_ln = _db_fit(zip_path, batches, [])
+        # the listener's run
+        ui = UIServer(port=0)
+        router = RemoteStatsStorageRouter(ui.url)
+        file_path = os.path.join(root, "stats.jsonl")
+        fstore = FileStatsStorage(file_path)
+        session = "dashboard"
+        listener = StatsListener(_Tee(router, fstore), frequency=DB_FREQ,
+                                 histograms=True, session_id=session,
+                                 activation_probe=probe)
+        get_tracer().clear()
+        net, listen_ms, ln = _db_fit(zip_path, batches, [listener])
+        spans = get_tracer().spans()
+        check(router.flush() >= 0 and router.pending == 0,
+              f"router: {router.pending} reports pending")
+        # params bit-equal to the run without the listener
+        want, got = host_params(plain.params), host_params(net.params)
+        bad = [k for k in want if want[k].tobytes() != got[k].tobytes()]
+        check(not bad, f"[dashboard] params after {DB_STEPS} steps differ "
+              f"from the run without the listener: {bad}")
+        # K1/K2 exact: 2 forwards, 2 backward calls (6 device launches) a
+        # step; each report's probe forward 2 K1 launches more
+        per_bwd = lstm_launches_per_bwd()
+        expect_plain = {"lstm_fwd": 2 * DB_STEPS,
+                        "lstm_bwd": 2 * per_bwd * DB_STEPS}
+        expect = {"lstm_fwd": 2 * DB_STEPS + 2 * len(reports),
+                  "lstm_bwd": 2 * per_bwd * DB_STEPS}
+        got_plain = {k: plain_ln.get(k, 0) for k in expect_plain}
+        got_ln = {k: ln.get(k, 0) for k in expect}
+        check(got_plain == expect_plain and got_ln == expect,
+              f"[dashboard] launches {got_ln} (without the listener "
+              f"{got_plain}), expected {expect} ({expect_plain})")
+        # the reports at /api/updates and in the file
+        _, upd = get_json(f"{ui.url}api/updates?session={session}")
+        check(upd["iterations"] == reports,
+              f"/api/updates iterations {upd['iterations']} != {reports}")
+        fstore.close()
+        back = FileStatsStorage(file_path)
+        file_reports = back.get_all_updates(session)
+        back.close()
+        check([r.iteration for r in file_reports] == reports,
+              f"the file holds iterations "
+              f"{[r.iteration for r in file_reports]}")
+        _, model = get_json(f"{ui.url}api/model?session={session}")
+        # update statistics: params(i) - params(i - 1) of the run without
+        for r in file_reports:
+            i = r.iteration
+            delta = {k: snap.params[i][k] - snap.params[i - 1][k]
+                     for k in snap.params[i]}
+            want_u = {k: _array_stats(d, True, 20) for k, d in delta.items()}
+            check(r.update_stats == want_u,
+                  f"[dashboard] iteration {i}: update statistics differ "
+                  f"from params({i}) - params({i - 1})")
+            want_p = {k: _array_stats(a, True, 20)
+                      for k, a in snap.params[i].items()}
+            check(r.param_stats == want_p,
+                  f"[dashboard] iteration {i}: param statistics differ")
+            check(set(r.activation_stats) == {"layer_0", "layer_1",
+                                              "layer_2"},
+                  f"activation stats {sorted(r.activation_stats)}")
+        check(model["update_stats"] == file_reports[-1].update_stats,
+              "/api/model's update statistics differ from the file's")
+        # the router's POST, timed on the last report
+        payload = {"type": "update", "report": file_reports[-1].to_dict()}
+        post_ms = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            check(router._post(payload), "router POST failed")
+            post_ms.append(1000 * (time.perf_counter() - t0))
+        # the trained net's next-character evaluation and the trace
+        ev = net.evaluate(DataSet(*held))
+        html = evaluation_html(ev)
+        ev_path = os.path.join(OUT_DIR, "dashboard_evaluation.html")
+        export_evaluation_to_html_file(ev, ev_path)
+        tr_path = os.path.join(OUT_DIR, "dashboard_trace.html")
+        export_trace_html(spans, tr_path)
+        check("Confusion matrix" in html and os.path.getsize(ev_path) > 0
+              and os.path.getsize(tr_path) > 0 and len(spans) > 0,
+              f"evaluation/trace html: {len(html)} chars, {len(spans)} "
+              f"spans")
+        # the output layer's embedding on the card
+        W = net.params["layer_2"]["W"].detach().float().cpu().numpy().T
+        labels = [chr(33 + i) for i in range(DB_V)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xy = publish_embedding(router, session, W, labels,
+                               perplexity=DB_TSNE_PERPLEXITY,
+                               iterations=DB_TSNE_ITERS)
+        router.flush()
+        publish_s = time.perf_counter() - t0
+        card_t = Tsne(perplexity=DB_TSNE_PERPLEXITY, max_iter=DB_TSNE_ITERS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card_xy = card_t.fit_transform(W)
+        tsne_ms = 1000 * (time.perf_counter() - t0)
+        check(np.array_equal(card_xy, xy),
+              "publish_embedding's coordinates differ from Tsne's on the "
+              "card")
+        cpu_t = Tsne(perplexity=DB_TSNE_PERPLEXITY, max_iter=DB_TSNE_ITERS,
+                     device="cpu")
+        t0 = time.perf_counter()
+        cpu_t.fit_transform(W)
+        cpu_ms = 1000 * (time.perf_counter() - t0)
+        p_err = float((card_t.P.cpu() - cpu_t.P).abs().max())
+        kls = [cpu_t.kl]
+        ulp = np.spacing(np.abs(W)).astype(np.float32)
+        for s in range(1, DB_TSNE_RUNS):
+            sign = np.random.default_rng(SEED + 1960 + s).choice(
+                [-1.0, 0.0, 1.0], size=W.shape).astype(np.float32)
+            t = Tsne(perplexity=DB_TSNE_PERPLEXITY, max_iter=DB_TSNE_ITERS,
+                     device="cpu")
+            t.fit_transform(W + sign * ulp)
+            kls.append(t.kl)
+        lo, hi = min(kls) * (1 - DB_KL_RTOL), max(kls) * (1 + DB_KL_RTOL)
+        check(p_err <= DB_P_TOL and lo <= card_t.kl <= hi,
+              f"[dashboard] t-SNE: P {p_err:.3g} off the CPU's (limit "
+              f"{DB_P_TOL}), KL {card_t.kl:.5f} outside [{lo:.5f}, "
+              f"{hi:.5f}] (CPU runs {kls})")
+        _, emb = get_json(f"{ui.url}api/embedding?session={session}")
+        check(emb["labels"] == labels and len(emb["xy"]) == DB_V,
+              f"/api/embedding: {len(emb.get('xy', []))} points")
+        phase("dashboard", model="char_rnn(vocab=80,hidden=512,layers=2,"
+              "BF16)", card=card, params=net.num_params(), b=DB_B, T=DB_T,
+              steps=DB_STEPS,
+              reports=reports, launches=json.dumps(got_ln),
+              launches_without=json.dumps(got_plain),
+              step_ms_without=f"{plain_ms:.3f}",
+              step_ms_with=f"{listen_ms:.3f}",
+              listener_ms_per_step=f"{listen_ms - plain_ms:.3f}",
+              router_post_ms=f"{statistics.median(post_ms):.3f}",
+              report_kb=len(json.dumps(payload)) // 1024,
+              accuracy=f"{ev.accuracy():.4f}", spans=len(spans),
+              tsne_ms_card=f"{tsne_ms:.1f}", tsne_ms_cpu=f"{cpu_ms:.1f}",
+              publish_s=f"{publish_s:.2f}", tsne_p_err=f"{p_err:.3g}",
+              tsne_kl_card=f"{card_t.kl:.5f}",
+              tsne_kl_cpu=json.dumps([round(k, 5) for k in kls]),
+              phase_s=f"{time.perf_counter() - t_phase:.1f}")
+    finally:
+        if ui is not None:
+            ui.stop()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8331,10 +8970,13 @@ def main() -> int:
             only()
             print(ok_line, flush=True)
             return 0
-    if "--front-door" in sys.argv[1:]:
-        phase_front_door(phase_device())
-        print(ok_line, flush=True)
-        return 0
+    for flag, only in (("--front-door", phase_front_door),
+                       ("--cold-start", phase_cold_start),
+                       ("--dashboard", phase_dashboard)):
+        if flag in sys.argv[1:]:
+            only(phase_device())
+            print(ok_line, flush=True)
+            return 0
     if "--slice15" in sys.argv[1:]:
         kernels = phase_slice15(phase_device())
         if "--stream-split" in sys.argv[1:]:
@@ -8376,6 +9018,8 @@ def main() -> int:
     kernels += phase_slice15(card)
     phase_live_reload()
     phase_front_door(card)
+    phase_cold_start(card)
+    phase_dashboard(card)
     phase_stream_split()
     profiler_probe("after_all", profiles=5, names=names)
     phase("profiler", pause_s=PROFILE_PAUSE_S, **PROFILES)

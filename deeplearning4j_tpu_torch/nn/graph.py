@@ -541,6 +541,8 @@ class ComputationGraph:
         advances its own epochs (``auto_epochs``: a datapipe Pipeline).
         The run is a goodput ledger run; its RunReport lands in
         ``self.last_run_report``."""
+        from deeplearning4j_tpu_torch.compilecache import ensure_configured
+        ensure_configured()  # DL4J_TPU_COMPILE_CACHE, if set
         self._require_init()
         items = [data] if isinstance(data, (DataSet, MultiDataSet)) else data
         chunk = multistep.resolve_multi_step(self, multi_step)

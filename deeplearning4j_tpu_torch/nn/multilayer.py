@@ -476,6 +476,8 @@ class MultiLayerNetwork:
         The run is a goodput ledger run (observability/goodput.py):
         each pull from the iterator is a ``data_wait`` span, and the
         RunReport lands in ``self.last_run_report``."""
+        from deeplearning4j_tpu_torch.compilecache import ensure_configured
+        ensure_configured()  # DL4J_TPU_COMPILE_CACHE, if set
         self._require_init()
         if isinstance(data, DataSetIterator):
             it = data

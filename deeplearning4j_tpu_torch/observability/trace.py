@@ -386,16 +386,28 @@ def span_color(name: str) -> str:
 
 def trace_timeline_component(spans: Sequence[Span],
                              title: str = "Runtime trace"):
-    """Per-thread lanes of span bars through the UI tier's
-    ``ChartTimeline``: waits for ROADMAP.md A.4 (``ui/``)."""
-    raise NotImplementedError(
-        "trace_timeline_component: the UI components wait for ROADMAP.md "
-        "A.4 (ui/); export_chrome_trace gives the same lanes for Perfetto")
+    """Per-thread lanes of colored span bars through the UI tier's
+    ``ChartTimeline`` (ui/components.py)."""
+    from deeplearning4j_tpu_torch.ui.components import ChartTimeline, Style
+
+    by_thread: dict = {}
+    for s in spans:
+        by_thread.setdefault(s.thread or f"thread-{s.tid}", []).append(s)
+    chart = ChartTimeline(title, Style(
+        width=760, height=max(120, 46 + 34 * len(by_thread))),
+        xlabel="seconds")
+    for name in sorted(by_thread):
+        entries = [(s.ts_us / 1e6, (s.ts_us + s.dur_us) / 1e6, s.name,
+                    span_color(s.name))
+                   for s in sorted(by_thread[name], key=lambda s: s.ts_us)]
+        chart.add_lane(name, entries)
+    return chart
 
 
 def export_trace_html(spans: Sequence[Span], path: str,
                       title: str = "Runtime trace") -> None:
-    """Standalone HTML timeline: waits for ROADMAP.md A.4 (``ui/``)."""
-    raise NotImplementedError(
-        "export_trace_html: the UI components wait for ROADMAP.md A.4 "
-        "(ui/); export_chrome_trace gives the same lanes for Perfetto")
+    """Standalone HTML timeline of ``spans``, one lane a thread."""
+    from deeplearning4j_tpu_torch.ui.components import \
+        render_components_to_file
+
+    render_components_to_file([trace_timeline_component(spans)], path, title)

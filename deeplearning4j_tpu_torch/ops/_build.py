@@ -2,14 +2,23 @@
 
 Each ``ops/csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with ``ctypes``. A library
-is built at first use into ``deeplearning4j_tpu_torch/build/`` (listed in
-``.gitignore``) and its file name carries a hash of the sources and the
-flags (and of the headers in ``csrc/``), so a changed source is rebuilt
-and an unchanged one is reused.
+is built at first use into the build directory and its file name carries
+a hash of the sources, the flags, the headers in ``csrc/`` and the
+``nvcc`` release, so a changed source or another toolkit is rebuilt and
+an unchanged one is reused.
+
+The build directory is ``BUILD_DIR`` (``deeplearning4j_tpu_torch/build/``,
+listed in ``.gitignore``) unless the compile cache
+(compilecache/cache.py: ``configure(dir)`` or ``$DL4J_TPU_COMPILE_CACHE``)
+points it elsewhere, for example at a directory a fleet of hosts shares.
+A library is written under a temporary name unique to its process and
+thread and renamed into place, so two builders of one library (threads,
+or processes on a shared directory) never see each other's partial file.
 ``build()`` compiles several sources at once, one ``nvcc`` process each.
 Each build counts as a compile and a build-cache miss in the metrics
 registry (observability/metrics.py), each library loaded as it was
-found on disk as a cache hit.
+found on disk as a cache hit. ``libraries_for(net)`` names the libraries
+a net's forward, train step or decode path reaches.
 
 Nothing here runs at import: the CPU tests import every module of the
 package on a machine without ``nvcc``.
@@ -24,14 +33,45 @@ import shutil
 import subprocess
 import threading
 import time
+import uuid
 from pathlib import Path
 
 from deeplearning4j_tpu_torch.observability import metrics as _metrics
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+#: the default build directory (the compile cache may point elsewhere)
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 KERNELS = ("lstm_fwd", "lstm_bwd", "flash_attn_fwd", "fused_block",
            "stream_exact")
+
+#: the library each launch counter's kernel lives in (ops/registry.py)
+COUNTER_LIBRARY = {
+    "lstm_fwd": "lstm_fwd", "lstm_fwd_sm90": "lstm_fwd",
+    "lstm_bwd": "lstm_bwd", "lstm_bwd_sm90": "lstm_bwd",
+    "flash_attn_fwd": "flash_attn_fwd",
+    "flash_attn_fwd_sm90": "flash_attn_fwd",
+    "stream_dense": "stream_exact", "stream_mha": "stream_exact",
+    "stream_rownorm": "stream_exact",
+    **{f"fused_block_{k}{s}": "fused_block"
+       for k in ("stats", "apply", "bwd_stats", "bwd_apply")
+       for s in ("", "_sm90")},
+}
+
+#: the libraries each layer configuration's ops reach, by path: the
+#: forward (``output``, served rows), what a train step adds (the
+#: backward) and the streaming path (``rnn_time_step``, decode)
+LAYER_LIBRARIES = {
+    "GravesLSTM": {"forward": ("lstm_fwd",), "train": ("lstm_bwd",),
+                   "decode": ("lstm_fwd",)},
+    "GravesBidirectionalLSTM": {"forward": ("lstm_fwd",),
+                                "train": ("lstm_bwd",),
+                                "decode": ("lstm_fwd",)},
+    "SelfAttention": {"forward": ("flash_attn_fwd",), "train": (),
+                      "decode": ("stream_exact",)},
+    "TransformerBlock": {"forward": ("flash_attn_fwd",), "train": (),
+                         "decode": ("stream_exact",)},
+    "GptOutput": {"forward": (), "train": (), "decode": ("stream_exact",)},
+}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas=-v", "-ldl")
@@ -39,6 +79,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 _BUILT: set = set()     # libraries nvcc built in this process
+_DIR = [BUILD_DIR]      # the build directory in use
+_RELEASE: list = []     # nvcc's release line, read once a process
 
 
 class KernelBuildError(RuntimeError):
@@ -59,20 +101,86 @@ def nvcc_path() -> str:
     return found
 
 
+def nvcc_release() -> str:
+    """The first line of ``nvcc --version`` that names the release
+    ("Cuda compilation tools, release 12.4, V12.4.131"), read once a
+    process; "nvcc not found" where there is none (the key stays
+    computable on a machine without the toolkit)."""
+    if not _RELEASE:
+        try:
+            out = subprocess.run([nvcc_path(), "--version"],
+                                 capture_output=True, text=True,
+                                 timeout=60).stdout
+            line = next((ln.strip() for ln in out.splitlines()
+                         if "release" in ln), out.strip())
+        except (KernelBuildError, OSError, subprocess.SubprocessError):
+            line = "nvcc not found"
+        _RELEASE[:] = [line]
+    return _RELEASE[0]
+
+
+def build_dir() -> Path:
+    """The build directory in use: ``BUILD_DIR`` unless the compile
+    cache points elsewhere."""
+    return _DIR[0]
+
+
+def set_build_dir(path=None) -> Path:
+    """Point builds and loads at ``path`` (``BUILD_DIR`` for None).
+    Libraries already loaded stay loaded: their sources are the same."""
+    _DIR[0] = BUILD_DIR if path is None else Path(path)
+    return _DIR[0]
+
+
+def _configure_from_env():
+    """``$DL4J_TPU_COMPILE_CACHE`` takes effect at the first build or
+    load, whichever entry point ran first."""
+    from deeplearning4j_tpu_torch.compilecache import cache
+    cache.ensure_configured()
+
+
 def library_path(name: str) -> Path:
     h = hashlib.sha256()
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(nvcc_release().encode())
     h.update((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
-    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    return build_dir() / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def temp_path(out: Path) -> Path:
+    """Where ``out`` is written before its rename: a name unique to this
+    process and thread, in the same directory."""
+    return out.with_name(f".{out.name}.{os.getpid()}."
+                         f"{uuid.uuid4().hex[:12]}.tmp")
+
+
+def libraries_for(net, *, train: bool = False, decode: bool = False
+                  ) -> tuple:
+    """The libraries ``net``'s forward reaches, with what its train step
+    (``train``) and its streaming path (``decode``) add, in ``KERNELS``
+    order. Read from the layer configurations (``LAYER_LIBRARIES``); a
+    graph's fused bottleneck tails add ``fused_block`` to its train step
+    (eval is never fused)."""
+    names = set()
+    paths = ("forward",) + (("train",) if train else ()) \
+        + (("decode",) if decode else ())
+    for layer in net.layers or ():
+        libs = LAYER_LIBRARIES.get(type(layer.conf).__name__, {})
+        for p in paths:
+            names.update(libs.get(p, ()))
+    if train and getattr(net, "_fusion_plans", None):
+        names.add("fused_block")
+    return tuple(k for k in KERNELS if k in names)
 
 
 def build(names=KERNELS) -> dict:
     """Compile every library in ``names`` that is not built yet, all in
     parallel. Returns {name: {"seconds", "log"}} for those compiled here;
     raises KernelBuildError with nvcc's output if any fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    _configure_from_env()
+    build_dir().mkdir(parents=True, exist_ok=True)
     nvcc = None
     procs = {}
     for name in names:
@@ -80,7 +188,7 @@ def build(names=KERNELS) -> dict:
         if out.exists():
             continue
         nvcc = nvcc or nvcc_path()
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        tmp = temp_path(out)
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
@@ -89,6 +197,7 @@ def build(names=KERNELS) -> dict:
     for name, (proc, tmp, out, t0) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
         os.replace(tmp, out)
@@ -103,6 +212,8 @@ def build(names=KERNELS) -> dict:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for kernel ``name``, built first if needed."""
+    if name not in _LIBS:
+        _configure_from_env()
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:

@@ -47,8 +47,9 @@ written as ``run_report.json`` in the checkpoint directory. Spans:
 Not ported yet, refused by name (``NotImplementedError``): cross-process
 coordination (``coordinate=True``, ``collective_timeout_s``) and the
 statistics collector (ROADMAP.md A.5; ``coordinate="auto"`` resolves to
-single-process, as the JAX package's does in one process) and the
-compile cache (A.4).
+single-process, as the JAX package's does in one process).
+``compile_cache_dir`` points the run's kernel builds at a build cache
+(compilecache/cache.py).
 """
 
 from __future__ import annotations
@@ -227,7 +228,8 @@ class SupervisorConfig:
     #: to flight_<instance>.json in checkpoint_dir on SIGTERM, NaN
     #: rollback, preemption and crash
     flight_recorder: bool = True
-    #: the compile cache waits for ROADMAP.md A.4; a value raises
+    #: the kernel build cache the run builds into and loads from
+    #: (compilecache.configure; None: ``$DL4J_TPU_COMPILE_CACHE``, if set)
     compile_cache_dir: Optional[str] = None
     #: cross-process consensus waits for ROADMAP.md A.5 (parallel/):
     #: "auto" and False run single-process, True raises
@@ -246,10 +248,6 @@ class SupervisorConfig:
             raise NotImplementedError(
                 "SupervisorConfig(collective_timeout_s=...): the consensus "
                 "deadline waits for ROADMAP.md A.5 (parallel/)")
-        if self.compile_cache_dir is not None:
-            raise NotImplementedError(
-                "SupervisorConfig(compile_cache_dir=...): the compile "
-                "cache waits for ROADMAP.md A.4 (compilecache/)")
 
 
 @dataclass
@@ -645,6 +643,8 @@ class TrainingSupervisor:
             find_latest_checkpoint)
         cfg = self.config
         _obs_metrics.install_runtime_metrics()
+        from deeplearning4j_tpu_torch.compilecache import configure
+        configure(cfg.compile_cache_dir)  # falls back to the env var
         self.stats.attach_to_registry(
             labels={"job": os.path.basename(
                 os.path.normpath(cfg.checkpoint_dir))})

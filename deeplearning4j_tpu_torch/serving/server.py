@@ -52,9 +52,20 @@ published weights (serving/publish.py), one structure-only net object a
 version, so requests still finishing on the old weights never see a
 mutated net. A warmed server builds no kernel across a swap.
 
-Not ported, each refused by name when given: ``mesh`` (mesh-parallel
-serving, ROADMAP A.5), ``compile_cache_dir``, ``aot_manifest`` and
-``tuning_report`` (the compile cache, A.4).
+Cold start (compilecache/): ``compile_cache_dir`` (or
+``$DL4J_TPU_COMPILE_CACHE``) points the kernel builds at a build cache,
+possibly one a fleet shares, so a second boot loads the libraries the
+first built; ``start()`` builds the libraries the net's forward (and
+its decode engine) needs, all at once, before it warms the ladder, and a
+failed build stops the boot. ``aot_manifest`` names a precompile
+manifest (``True``: the one in the cache dir), validated at ``start()``
+into ``aot_manifest_ok``; a mismatch warns and the boot builds what it
+lacks at first use (the same ``nvcc`` and the same kernels). A
+``tuning_report`` (compilecache/autotune.py) sets ``max_batch`` and
+``batch_window_ms``.
+
+Not ported, refused by name when given: ``mesh`` (mesh-parallel
+serving, ROADMAP A.5).
 """
 
 from __future__ import annotations
@@ -87,12 +98,6 @@ from deeplearning4j_tpu_torch.serving.metrics import (ServingStats,
 NOT_PORTED = {
     "mesh": "mesh-parallel serving (parallel/inference.py) is not ported "
             "(ROADMAP.md A.5)",
-    "compile_cache_dir": "the compile cache (compilecache/) is not ported "
-                         "(ROADMAP.md A.4)",
-    "aot_manifest": "the compile cache's AOT manifest (compilecache/) is "
-                    "not ported (ROADMAP.md A.4)",
-    "tuning_report": "the autotuner (compilecache/autotune.py) is not "
-                     "ported (ROADMAP.md A.4)",
 }
 
 
@@ -125,15 +130,22 @@ class ModelServer:
                  tuning_report=None, decode_engine=None,
                  push_url=None, push_interval_s: float = 2.0,
                  slos=None, scheduler=None):
-        given = {"mesh": mesh is not None or data_axis is not None
-                 or tp_rules is not None,
-                 "compile_cache_dir": compile_cache_dir is not None,
-                 "aot_manifest": aot_manifest is not None,
-                 "tuning_report": tuning_report is not None}
-        for name, on in given.items():
-            if on:
-                raise NotImplementedError(f"ModelServer({name}=...): "
-                                          f"{NOT_PORTED[name]}")
+        if mesh is not None or data_axis is not None or tp_rules is not None:
+            raise NotImplementedError(f"ModelServer(mesh=...): "
+                                      f"{NOT_PORTED['mesh']}")
+        from deeplearning4j_tpu_torch.compilecache import cache as _ccache
+        self.compile_cache_dir = _ccache.configure(compile_cache_dir)
+        self.aot_manifest = aot_manifest
+        self.aot_manifest_ok = None  # set by start() when a manifest loads
+        if tuning_report is not None:
+            from deeplearning4j_tpu_torch.compilecache import autotune as _at
+            tuned = _at.load_tuned(tuning_report)
+            max_batch = tuned["max_batch"]
+            batch_window_ms = tuned["batch_window_ms"]
+            self.tuned_config = tuned
+        else:
+            self.tuned_config = None
+        self.build_s = None      # start()'s kernel builds, seconds
         self.net = net
         self.host = host
         self.port = port
@@ -301,18 +313,56 @@ class ModelServer:
 
     def _infer_row_shapes(self):
         """Per-input row shapes for warm-up: ``input_shapes`` if given,
-        else what the configuration's input type implies; None when
-        neither says (a recurrent input without a fixed length)."""
+        else what the configuration's input types imply, else the first
+        feed-forward layer's ``n_in`` (the JAX package's inference); None
+        when nothing says (a recurrent input without a fixed length)."""
         if self.input_shapes is not None:
             return [tuple(s) for s in self.input_shapes]
-        it = getattr(self.net.conf, "input_type", None)
-        if it is None:
+        from deeplearning4j_tpu_torch.nn.conf.layers import \
+            FeedForwardLayerConfig
+        from deeplearning4j_tpu_torch.nn.conf.layers_recurrent import \
+            BaseRecurrentConfig
+
+        def from_itype(it):
+            if it is None:
+                return None
+            if it.kind in ("feed_forward", "convolutional_flat"):
+                return (it.size,)
+            if it.kind == "convolutional":
+                return (it.height, it.width, it.channels)
+            if it.kind == "recurrent" and it.timesteps:
+                return (it.timesteps, it.size)
             return None
-        if it.kind in ("feed_forward", "convolutional_flat"):
-            return [(it.size,)]
-        if it.kind == "recurrent" and it.timesteps:
-            return [(it.timesteps, it.size)]
-        return None
+
+        def from_conf(lc):
+            if (isinstance(lc, FeedForwardLayerConfig)
+                    and not isinstance(lc, BaseRecurrentConfig)
+                    and getattr(lc, "n_in", None)):
+                return (lc.n_in,)
+            return None
+
+        conf = self.net.conf
+        if hasattr(conf, "network_inputs"):
+            its = getattr(conf, "input_types", None)
+            if its:
+                shapes = [from_itype(it) for it in its]
+                return None if any(s is None for s in shapes) else shapes
+            shapes = []
+            for name in conf.network_inputs:
+                s = None
+                for v, ins in conf.vertex_inputs.items():
+                    if name in ins:
+                        s = from_conf(self.net._resolved_confs.get(v))
+                        if s is not None:
+                            break
+                if s is None:
+                    return None
+                shapes.append(s)
+            return shapes
+        s = from_itype(getattr(conf, "input_type", None))
+        if s is None and getattr(conf, "layers", None):
+            s = from_conf(conf.layers[0])
+        return None if s is None else [s]
 
     # ------------------------------------------------------------ inference
     def predict(self, features, trace_id=None, klass=None, tenant=None,
@@ -508,13 +558,69 @@ class ModelServer:
         self._collectors = []
 
     # -------------------------------------------------------------- server
+    def _validate_aot_manifest(self, row_shapes):
+        """Check the precompile manifest (a path or dict, or ``True``: the
+        one in the cache dir) against THIS boot's serving configuration
+        and set ``aot_manifest_ok``. A mismatch means the cached libraries
+        were built for another program: warn (a boot that believes it is
+        warm but builds is a silent cost) and build at first use. Never
+        raises."""
+        import warnings
+
+        from deeplearning4j_tpu_torch.compilecache import manifest as _man
+        from deeplearning4j_tpu_torch.serving.batcher import bucket_ladder
+        src = self.aot_manifest
+        auto = os.path.join(self.compile_cache_dir, _man.MANIFEST_NAME) \
+            if self.compile_cache_dir else None
+        if src is None and auto and os.path.exists(auto):
+            src = auto
+        if src is None:
+            return
+        try:
+            if src is True:
+                if auto is None:
+                    raise ValueError("aot_manifest=True names the manifest "
+                                     "in the compile cache dir; none is set")
+                src = auto
+            man = src if isinstance(src, dict) else _man.load(src)
+            mb = self._batcher
+            mismatches = _man.validate_serving(
+                man, self.net, row_shapes=row_shapes or (),
+                ladder=bucket_ladder(mb.min_batch, mb.max_batch),
+                max_batch=mb.max_batch, min_batch=mb.min_batch,
+                compute_dtype=self.serving_compute_dtype)
+        except Exception as e:
+            mismatches = [f"unreadable manifest: {type(e).__name__}: {e}"]
+        self.aot_manifest_ok = not mismatches
+        if mismatches:
+            warnings.warn(
+                "AOT precompile manifest does not match this serving "
+                "config — falling back to lazy compile (this boot builds "
+                "its kernels at first use): " + "; ".join(mismatches),
+                RuntimeWarning, stacklevel=3)
+
+    def _build_kernels(self):
+        """Build (or find in the cache) every library the net's forward
+        and the decode engine reach, all ``nvcc`` processes at once; a
+        failed build raises and stops the boot."""
+        from deeplearning4j_tpu_torch.ops import _build
+        if self.net.device.type != "cuda":
+            return
+        t0 = time.perf_counter()
+        _build.build(_build.libraries_for(
+            self.net, decode=self.decode_engine is not None))
+        self.build_s = time.perf_counter() - t0
+
     def start(self):
-        """Warm the bucket ladder (errors propagate: a kernel that cannot
-        run must stop the boot, not surface on the first request), then
-        start the device threads and the HTTP listener."""
+        """Build the kernels and warm the bucket ladder (errors propagate:
+        a kernel that cannot build or run must stop the boot, not surface
+        on the first request), then start the device threads and the HTTP
+        listener."""
         compile0 = _obs_metrics.compile_snapshot()
+        self._build_kernels()
         if self.warmup:
             shapes = self._infer_row_shapes()
+            self._validate_aot_manifest(shapes)
             if shapes is not None:
                 t_warm = time.perf_counter()
                 self._fleet.warm(shapes)

@@ -196,6 +196,85 @@ def test_traffic_engine_modules_are_checked(module):
     assert module in {_module_name(p) for p in SOURCES}
 
 
+# the modules of the cold-start and dashboard slice: the build cache,
+# the AOT manifest, precompile, the autotuner, the UI tier, the report
+# tools and the exact t-SNE
+COLD_START_UI_MODULES = [
+    "deeplearning4j_tpu_torch.compilecache.cache",
+    "deeplearning4j_tpu_torch.compilecache.manifest",
+    "deeplearning4j_tpu_torch.compilecache.precompile",
+    "deeplearning4j_tpu_torch.compilecache.autotune",
+    "deeplearning4j_tpu_torch.ui",
+    "deeplearning4j_tpu_torch.ui.__main__",
+    "deeplearning4j_tpu_torch.ui.components",
+    "deeplearning4j_tpu_torch.ui.embedding",
+    "deeplearning4j_tpu_torch.ui.router",
+    "deeplearning4j_tpu_torch.ui.server",
+    "deeplearning4j_tpu_torch.ui.stats",
+    "deeplearning4j_tpu_torch.ui.storage",
+    "deeplearning4j_tpu_torch.eval.tools",
+    "deeplearning4j_tpu_torch.plot",
+    "deeplearning4j_tpu_torch.plot.tsne",
+]
+
+
+@pytest.mark.parametrize("module", COLD_START_UI_MODULES)
+def test_cold_start_and_ui_modules_are_checked(module):
+    """Each module of the cold-start and dashboard slice is among the
+    sources the import tests check."""
+    assert module in {_module_name(p) for p in SOURCES}
+
+
+def test_cold_start_and_ui_public_names_match_the_jax_package():
+    """The slice's modules import in a fresh interpreter with jax and
+    the JAX package blocked, and carry the JAX modules' public names."""
+    mods = {"compilecache.cache": ["ENV_VAR", "META_NAME", "configure",
+                                   "cache_dir", "deactivate",
+                                   "ensure_configured", "atomic_publish",
+                                   "shared_meta"],
+            "compilecache.manifest": ["SCHEMA_VERSION", "MANIFEST_NAME",
+                                      "build", "save", "load",
+                                      "validate_serving",
+                                      "model_fingerprint"],
+            "compilecache.precompile": ["precompile_serving",
+                                        "precompile_fit"],
+            "compilecache.autotune": [
+                "extract_trace", "fit_service_model", "simulate",
+                "objective", "autotune", "load_tuned", "SCHEMA_VERSION",
+                "DEFAULT_MAX_BATCH_GRID", "DEFAULT_WINDOW_GRID_MS"],
+            "ui": ["StatsListener", "StatsReport", "FileStatsStorage",
+                   "InMemoryStatsStorage", "UIServer",
+                   "RemoteStatsStorageRouter", "publish_embedding"],
+            "ui.storage": ["NEW_SESSION", "NEW_WORKER", "POST_UPDATE",
+                           "POST_STATIC", "BaseStatsStorage"],
+            "ui.embedding": ["EMBEDDING_KEY", "publish_embedding",
+                             "get_embedding"],
+            "ui.components": ["render_components_to_html",
+                              "render_components_to_file", "ChartTimeline"],
+            "eval.tools": ["roc_components", "roc_chart_html",
+                           "export_roc_charts_to_html_file",
+                           "evaluation_components", "evaluation_html",
+                           "export_evaluation_to_html_file"],
+            "plot": ["Tsne", "BarnesHutTsne"]}
+    code = ("import sys, importlib, json\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['deeplearning4j_tpu'] = None\n"
+            f"sys.path.insert(0, {str(ROOT)!r})\n"
+            f"mods = {mods!r}\n"
+            "missing = {m: [n for n in names if not hasattr(importlib."
+            "import_module('deeplearning4j_tpu_torch.' + m), n)]\n"
+            "           for m, names in mods.items()}\n"
+            "print(json.dumps({m: v for m, v in missing.items() if v}))\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, cwd=str(ROOT))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "{}"
+    import importlib
+    for m, names in mods.items():
+        jm = importlib.import_module("deeplearning4j_tpu." + m)
+        assert all(hasattr(jm, n) for n in names), m
+
+
 def test_traffic_engine_imports_with_jax_blocked():
     """The traffic-engine modules import in a fresh interpreter with jax
     and the JAX package blocked, and their names match the JAX

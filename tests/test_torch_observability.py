@@ -107,11 +107,22 @@ def test_span_names_appear_in_a_torch_profile():
     assert [s.name for s in tr.spans()] == ["device_step", "host_dispatch"]
 
 
-def test_ui_timeline_waits_by_name():
-    with pytest.raises(NotImplementedError, match="A.4"):
-        ttrace.trace_timeline_component([])
-    with pytest.raises(NotImplementedError, match="A.4"):
-        ttrace.export_trace_html([], "x.html")
+def test_ui_timeline_waits_by_name(tmp_path):
+    """The timeline is ported (ui/ landed): for the same recorded spans it
+    renders the JAX package's HTML, lane for lane."""
+    tr, jtr = ttrace.Tracer(), jtrace.Tracer()
+    for t in (tr, jtr):
+        t.record("data_wait", 0.001, 0.002)
+        t.record("device_step", 0.002, 0.005)
+    spans = [s._replace(ts_us=round(s.ts_us), dur_us=round(s.dur_us))
+             for s in tr.spans()]
+    jspans = [jtrace.Span(*s) for s in spans]
+    assert ttrace.trace_timeline_component(spans).render() == \
+        jtrace.trace_timeline_component(jspans).render()
+    ttrace.export_trace_html(spans, str(tmp_path / "p.html"))
+    jtrace.export_trace_html(jspans, str(tmp_path / "j.html"))
+    assert (tmp_path / "p.html").read_text() == \
+        (tmp_path / "j.html").read_text()
     assert ttrace.span_color("data_wait") in ttrace._PALETTE
 
 

@@ -253,21 +253,59 @@ def _ported_kw(name):
     {"slos": None}, {"compile_cache_dir": "cache"},
     {"aot_manifest": "m.json"}, {"tuning_report": "t.json"},
     {"scheduler": None}], ids=lambda kw: next(iter(kw)))
-def test_unported_parameters_are_refused_by_name(nets, kw):
-    """mesh (A.5) and the compile cache's three (A.4) are refused by
-    name; push_url, slos and scheduler are ported and build a server
-    that holds what was given (nothing starts: no push is made)."""
+def test_unported_parameters_are_refused_by_name(nets, kw, tmp_path):
+    """mesh (A.5) is refused by name; the compile cache's three, push_url,
+    slos and scheduler are ported and build a server that holds what was
+    given (nothing starts: no push is made)."""
     from deeplearning4j_tpu_torch.serving.server import NOT_PORTED
     (name, value), = kw.items()
     if name in NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A.[45]"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A.5"):
             ModelServer(nets[1], port=0, warmup=False, **kw)
+        return
+    if name in ("compile_cache_dir", "aot_manifest", "tuning_report"):
+        _held_cold_start_parameter(nets[1], name, tmp_path)
         return
     value = _ported_kw(name)
     srv = ModelServer(nets[1], port=0, warmup=False, **{name: value})
     held = {"push_url": srv.push_url, "scheduler": srv.scheduler,
             "slos": srv.slo_engine and srv.slo_engine.slos}[name]
     assert held == value
+
+
+def _held_cold_start_parameter(net, name, tmp_path):
+    """The compile cache's parameters (compilecache/): the cache dir is
+    configured, a manifest is validated at start() (here: a missing one
+    reads unreadable, and the server still serves), a tuning report sets
+    max_batch and the linger window."""
+    from deeplearning4j_tpu_torch.compilecache import autotune, cache
+    try:
+        if name == "compile_cache_dir":
+            srv = ModelServer(net, port=0, warmup=False,
+                              compile_cache_dir=str(tmp_path / "cache"))
+            assert srv.compile_cache_dir == str(tmp_path / "cache")
+            assert cache.cache_dir() == srv.compile_cache_dir
+        elif name == "aot_manifest":
+            srv = ModelServer(net, port=0, max_batch=4,
+                              input_shapes=[(8, V)],
+                              aot_manifest=str(tmp_path / "m.json"))
+            with pytest.warns(RuntimeWarning, match="unreadable manifest"):
+                srv.start()
+            try:
+                assert srv.aot_manifest_ok is False
+                assert srv.predict(_onehot(_ids(8))[None]).shape == (1, 8, V)
+            finally:
+                srv.stop()
+        else:
+            rep = {"tuned": {"max_batch": 8, "batch_window_ms": 0.5}}
+            (tmp_path / "t.json").write_text(json.dumps(rep))
+            srv = ModelServer(net, port=0, warmup=False,
+                              tuning_report=str(tmp_path / "t.json"))
+            assert srv.tuned_config == autotune.load_tuned(rep)
+            assert (srv._batcher.max_batch,
+                    srv._batcher.batch_window_ms) == (8, 0.5)
+    finally:
+        cache.deactivate()
 
 
 def test_hot_swap_is_refused_by_name(nets):
