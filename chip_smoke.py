@@ -26,8 +26,9 @@ and slice 14's graph phases (--slice14 below: the skip-connected
 char-RNN graph trained with tBPTT and streamed, a vertex-rich F64
 graph, ResNet-50's remat spans), decode serving (--slice15 below) and
 live reload (--live-reload below), the front door (--front-door
-below), cold start (--cold-start below) and the training dashboard
-(--dashboard below). Every
+below), cold start (--cold-start below), the training dashboard
+(--dashboard below), the analysis gate (--analysis below) and the
+data-parallel tier (--data-parallel below). Every
 phase that fails ends the run with a nonzero exit code. It needs one CUDA
 card; without one (or without the package beside it) it exits nonzero
 and prints no result.
@@ -208,7 +209,27 @@ runs only [dashboard]: the full-width char-RNN trained 30 steps under a
 StatsListener reporting through a RemoteStatsStorageRouter to a UIServer
 and into a FileStatsStorage, params bit-equal to a run without it, then
 the evaluation report, the trace timeline and the output layer's t-SNE
-on the card against the CPU.
+on the card against the CPU, and
+
+    python3 chip_smoke.py --analysis
+
+runs only K3 and S1-S3 against their plain versions and [analysis]: the
+concurrency gate over the port, this script and the port's tests (0
+findings, empty baseline), the fx lint of gpt_mini's fit step at full
+width under BF16 recorded on the card (the aten op histogram, K3's
+kernel nodes, J001-J005 empty, one capture), then [lockorder]: the
+port's lock-order detector installed before 32 decode sessions and a
+hot swap (0 cycles; edges and long holds), and
+
+    python3 chip_smoke.py --data-parallel
+
+runs only K3 against its plain version and [data_parallel]: gpt_mini at
+full width on a 1-rank NCCL mesh bit-equal to the unmeshed captured
+step, ParallelWrapper(4 workers, averaging every 2) bit-equal to the
+explicit average on the card and within Adam's bound of the CPU path,
+and two host processes on the one card over a named gloo group (NCCL
+refuses two ranks on one card): ranks bit-equal, within Adam's bound of
+one process on the whole batch, their timeline written.
 
 K1 and K2 (bf16 at n a multiple of 64 up to 512: thread-block clusters
 with Wh resident, DSMEM exchange, wgmma), K3 (bf16) and K4-K7 (bf16,
@@ -1043,7 +1064,7 @@ def phase_serve():
                 errors.append(f"client {c}: {type(e).__name__}: {e}")
 
         t0 = time.perf_counter()
-        threads = [threading.Thread(target=client, args=(c,))
+        threads = [threading.Thread(target=client, args=(c,), daemon=True)
                    for c in range(clients)]
         for t in threads:
             t.start()
@@ -1540,7 +1561,7 @@ def phase_serve_gpt():
                 errors.append(f"client {c}: {type(e).__name__}: {e}")
 
         t0 = time.perf_counter()
-        threads = [threading.Thread(target=client, args=(c,))
+        threads = [threading.Thread(target=client, args=(c,), daemon=True)
                    for c in range(clients)]
         for t in threads:
             t.start()
@@ -6809,7 +6830,7 @@ def run_threads(fn, args):
         except Exception as e:  # noqa: BLE001 — reported below
             errs.append(f"{a[0]}: {type(e).__name__}: {e}")
 
-    threads = [threading.Thread(target=run, args=(i, a))
+    threads = [threading.Thread(target=run, args=(i, a), daemon=True)
                for i, a in enumerate(args)]
     for t in threads:
         t.start()
@@ -7868,7 +7889,7 @@ def fd_routing(router, hosts, net, rng):
         for i in range(c * per, (c + 1) * per):
             got[i] = _raw_post(router.url + "/predict", bodies[i])
 
-    threads = [threading.Thread(target=client, args=(c,))
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
                for c in range(FD_CLIENTS)]
     t0 = time.perf_counter()
     for t in threads:
@@ -8053,7 +8074,7 @@ def fd_failover(router, hosts, net):
             before.abort()
             after.abort()
 
-    threads = [threading.Thread(target=run, args=(i,))
+    threads = [threading.Thread(target=run, args=(i,), daemon=True)
                for i in range(FD_SESSIONS)]
     t0 = time.perf_counter()
     for t in threads:
@@ -8909,6 +8930,478 @@ def phase_dashboard(card=None):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# [analysis]: the port's static gate, the fx lint of gpt_mini's fit step at
+# full width under BF16 on the card (AN_B rows of T = 256; AN_STEPS step
+# graph steps after its warm-ups), and the lock-order detector around a
+# 32-session decode and a hot swap
+AN_B, AN_STEPS = 8, 4
+
+
+def phase_analysis(card=None):
+    """The analysis gate on the card. (1) The concurrency lint over the
+    port, this script and the port's tests: 0 findings against the empty
+    baseline. (2) The fx lint of gpt_mini.fit_step (vocab 80, width 256,
+    4 blocks of 4 heads, T = 256, BF16) recorded on the card under a
+    TorchDispatchMode: the aten op histogram and the kernel nodes (K3 4 a
+    step, each on the sm90 route), J001/J002/J005 empty, J004 over an
+    eager step and a replay, J003 as one capture of the step graph over
+    value-varied batches. (3) The port's lock-order detector installed
+    before anything is built, around 32 concurrent decode sessions (S1-S3
+    launched) and a hot swap: 0 cycles; edges and long holds reported."""
+    import torch
+    from deeplearning4j_tpu_torch import DataSet
+    from deeplearning4j_tpu_torch.analysis import concurrency, fx_lint
+    from deeplearning4j_tpu_torch.analysis import lockorder as lo
+    from deeplearning4j_tpu_torch.analysis import __main__ as gate_main
+    from deeplearning4j_tpu_torch.nn import multistep
+    from deeplearning4j_tpu_torch.observability import trace
+    from deeplearning4j_tpu_torch.ops import registry
+    from deeplearning4j_tpu_torch.ops import stream_exact as se
+    from deeplearning4j_tpu_torch.serving import DecodeEngine, ModelServer
+
+    t_phase = time.perf_counter()
+    # (1) the static gate
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    found = concurrency.lint_tree(root) + concurrency.lint_tests(root)
+    problems = gate_main.gate(found, gate_main.load_baseline(
+        gate_main.DEFAULT_BASELINE))
+    gate_s = time.perf_counter() - t0
+    check(not found and not problems,
+          "the static gate: " + "; ".join(map(str, found + problems))[:2000])
+
+    # (2) the fx lint on the card
+    net = dec_net("BF16", seed=SEED + 700)
+    pol = net.conf.global_conf.dtype
+    check(pol.compute_dtype == "bfloat16", f"gpt_mini policy {pol}")
+    (xa, ya), (xb, yb) = markov_batches(2, AN_B, DEC_C, DEC_V, SEED + 701)
+    batch_a = net._step_batch(DataSet(torch.from_numpy(xa).cuda(),
+                                      torch.from_numpy(ya).cuda()))
+    batch_b = net._step_batch(DataSet(torch.from_numpy(xb).cuda(),
+                                      torch.from_numpy(yb).cuda()))
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    findings, info = fx_lint.lint_on_device(net, batch_a, batch_b,
+                                            "gpt_mini.fit_step",
+                                            steps=AN_STEPS)
+    torch.cuda.synchronize()
+    lint_s = time.perf_counter() - t0
+    launches = registry.launches()
+    check(not findings, "fx lint on the card: " +
+          "; ".join(map(str, findings)))
+    kernels = info["kernels"]
+    check(kernels == {"flash_attn_fwd": DEC_L,
+                      "flash_attn_fwd_sm90": DEC_L},
+          f"the recorded step's kernel nodes {kernels}, expected K3 "
+          f"{DEC_L} times on the sm90 route")
+    # the eager warm-up, the recorded step, the step graph's steps
+    steps = 2 + multistep.WARMUP_STEPS + AN_STEPS
+    check(launches.get("flash_attn_fwd") == DEC_L * steps and
+          launches.get("flash_attn_fwd_sm90") == DEC_L * steps,
+          f"K3 launched {launches} in {steps} steps, expected {DEC_L} a "
+          f"step")
+    check(info["captures"] == 1, f"step graph captures {info['captures']}")
+    ops = info["ops"]
+    top = dict(sorted(ops.items(), key=lambda kv: -kv[1])[:12])
+    phase("analysis", model=f"gpt_mini(vocab={DEC_V},width={DEC_W},"
+          f"blocks={DEC_L},heads={DEC_H},T={DEC_C},BF16)", b=AN_B,
+          gate_findings=len(found), gate_baseline_entries=0,
+          gate_s=f"{gate_s:.3f}", fx_findings=len(findings),
+          aten_nodes=info["nodes"] - info["kernel_nodes"],
+          aten_ops=len(ops), kernel_nodes=json.dumps(kernels),
+          captures=info["captures"], lint_s=f"{lint_s:.2f}",
+          top_ops=json.dumps(top), card=card)
+    phase("analysis_ops", histogram=json.dumps(dict(sorted(ops.items()))))
+    del net
+
+    # (3) the lock-order detector: installed before anything is built
+    prev = trace.get_tracer()
+    tracer = trace.Tracer()
+    trace.set_tracer(tracer)
+    graph = lo.install()
+    graph.clear()
+    srv = None
+    try:
+        net = dec_net("BF16", seed=SEED + 702)
+        other = dec_net("BF16", seed=SEED + 703)
+        prompts = [dec_prompt(i, n) for i, n in enumerate(DEC_PROMPTS)]
+        eng = DecodeEngine(net, n_pages=1024)
+        try:
+            registry.reset_launches()
+            t0 = time.perf_counter()
+            got = run_threads(lambda s, p: eng.generate(s, p, DEC_TOKENS),
+                              [(f"s{i}", p) for i, p in enumerate(prompts)])
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t0
+            dec_launches = registry.launches()
+        finally:
+            eng.stop()
+        check(all(len(g) == DEC_TOKENS for g in got), "a session stopped "
+              "short")
+        for kern in (se.KERNEL_DENSE, se.KERNEL_MHA, se.KERNEL_NORM):
+            check(dec_launches.get(kern, 0) > 0,
+                  f"{kern} did not launch in the locked decode")
+        x = dec_onehot(dec_ids(DEC_C, SEED + 704))[None]
+        srv = ModelServer(net, port=0, max_batch=2, input_shapes=[(DEC_C,
+                                                                   DEC_V)])
+        srv.start()
+        before = srv.predict(x)
+        rec = srv.hot_swap(net=other, version=2)
+        after = srv.predict(x)
+        check(not np.array_equal(before, after) and rec["replicas_swapped"]
+              >= 1, f"the hot swap did not land: {rec}")
+    finally:
+        if srv is not None:
+            srv.stop()
+        lo.uninstall()
+        trace.set_tracer(prev)
+    cycles = graph.cycles()
+    edges = graph.edges()
+    holds = [s for s in tracer.spans() if s.name == "lock_hold"]
+    by_lock = {}
+    for s in holds:
+        by_lock.setdefault(s.attrs["lock"], []).append(s.dur_us / 1e3)
+    check(not cycles, f"lock-order cycles: {cycles}")
+    check(edges, "the lock-order graph recorded no edge: the detector saw "
+          "no nested acquisition")
+    phase("lockorder", sessions=DEC_SESSIONS, tokens=DEC_TOKENS,
+          decode_s=f"{decode_s:.2f}", edges=len(edges), cycles=len(cycles),
+          long_holds=len(holds), hold_ms_env=os.environ.get(
+              "DL4J_TPU_LOCK_HOLD_MS", "50"),
+          long_holds_by_lock=json.dumps({k: [len(v), round(max(v), 3)]
+                                         for k, v in sorted(by_lock.items())}),
+          edge_list=json.dumps(sorted(f"{a} -> {b}" for a, b in edges)),
+          s_launches=json.dumps({k: dec_launches.get(k, 0) for k in (
+              se.KERNEL_DENSE, se.KERNEL_MHA, se.KERNEL_NORM)}),
+          swap_s=f"{rec['swap_s']:.6f}",
+          phase_s=f"{time.perf_counter() - t_phase:.1f}", card=card)
+
+
+# [data_parallel]: gpt_mini at full width (T = 256) on a mesh: a 1-rank
+# NCCL group against the unmeshed captured step (MESH_STEPS batches of
+# MESH_B rows), ParallelWrapper(4 workers, averaging every 2) on PW_B-row
+# batches, and two host processes over a gloo group on the one card
+# (GLOO_B rows a global batch, GLOO_STEPS steps)
+MESH_B, MESH_STEPS = 16, 3 + 4
+PW_WORKERS, PW_FREQ, PW_B = 4, 2, 4
+GLOO_B, GLOO_STEPS = 16, 4
+# the two-process ranks against one process on the whole batch, and the
+# wrapper on the card against the CPU path, both F32 with Adam(3e-4):
+# the same gradients summed in another order (~1e-6 relative), except
+# where a gradient element is near 0 and its sign flips, where Adam's
+# update is ~lr whatever |g| is, so an element may differ by 2 lr a step
+ADAM_LR = 3e-4
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _leaf_list(tree):
+    from deeplearning4j_tpu_torch.nn.updater import _leaves
+    return list(_leaves(tree))
+
+
+def _bits_equal(a, b):
+    return all(torch_equal_bits(x, y) for x, y in zip(_leaf_list(a),
+                                                      _leaf_list(b)))
+
+
+def _max_diff(a, b):
+    return max(float((x.detach().cpu().double()
+                      - y.detach().cpu().double()).abs().max())
+               for x, y in zip(_leaf_list(a), _leaf_list(b)))
+
+
+def captured_steps(net, batches):
+    """Each step batch through the net's step graph (3 eager warm-ups,
+    then the capture and replays): (scores, ms of each step by CUDA
+    events, captures)."""
+    import torch
+    from deeplearning4j_tpu_torch.nn import multistep
+    sg = multistep.step_graph(net, batches[0])
+    scores, events = [], []
+    for batch in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        sg.load(batch)
+        scores.append(sg.step())
+        net.iteration += 1
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return ([float(s) for s in scores], [s.elapsed_time(e)
+                                         for s, e in events], sg.captures)
+
+
+def dp_rank(port, rank, out_path, dtype="F32"):
+    """One rank of [data_parallel]'s two host processes on the one card:
+    a gloo group named explicitly (NCCL refuses two ranks on one card),
+    gpt_mini at full width meshed, GLOO_STEPS fit_batch steps on this
+    rank's half of each global batch, the timeline of its fit phases,
+    and the time of the step's all-reduce alone. Writes its parameters
+    and its numbers to ``out_path`` (.pt and .json)."""
+    import torch
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch import DataSet
+    from deeplearning4j_tpu_torch.ops import registry
+    from deeplearning4j_tpu_torch.parallel import distributed as D
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+    from deeplearning4j_tpu_torch.parallel.stats import (
+        TrainingStatsCollector, export_timeline_html)
+    D.initialize(f"127.0.0.1:{port}", 2, rank, backend="gloo",
+                 timeout_s=300)
+    try:
+        net = dec_net(dtype, seed=SEED + 720)
+        net.use_mesh(make_mesh())
+        half = GLOO_B // 2
+        data = [(x[rank * half:(rank + 1) * half],
+                 y[rank * half:(rank + 1) * half])
+                for x, y in markov_batches(GLOO_STEPS, GLOO_B, DEC_C, DEC_V,
+                                           SEED + 721)]
+        data = on_card(data)
+        st = TrainingStatsCollector(worker_id=f"rank_{rank}")
+        torch.cuda.synchronize()
+        registry.reset_launches()
+        step_ms = []
+        for ds in data:
+            t0 = time.perf_counter()
+            with st.time_phase("fit"):
+                score = net.fit_batch(ds)
+                torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = registry.launches()
+        n = sum(t.numel() for t in _leaf_list(net.params))
+        buf = torch.zeros(n + 1, dtype=torch.float32, device=D.device())
+        ar_ms = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with st.time_phase("average"):
+                dist.all_reduce(buf)
+                torch.cuda.synchronize()
+            ar_ms.append((time.perf_counter() - t0) * 1e3)
+        ok = D.sync_check(net.params)
+        events = st.gather_across_processes()
+        if rank == 0:
+            export_timeline_html(events, out_path + ".html")
+        torch.save([t.detach().cpu() for t in _leaf_list(net.params)],
+                   out_path + ".pt")
+        with open(out_path + ".json", "w") as f:
+            json.dump({"score": float(score), "step_ms": step_ms,
+                       "allreduce_ms": ar_ms[1:], "launches": launches,
+                       "sync": ok, "params": n,
+                       "workers": sorted({e.worker_id for e in events}),
+                       "info": D.process_info()}, f)
+    finally:
+        D.shutdown()
+
+
+def phase_data_parallel(card=None):
+    """gpt_mini (vocab 80, width 256, 4 blocks of 4 heads, T = 256) on the
+    data-parallel tier. (1) use_mesh(make_mesh()) on a 1-rank NCCL group,
+    BF16: MESH_STEPS steps through the captured step graph (the gradient
+    all-reduce inside it) bit-equal to the unmeshed captured step.
+    (2) ParallelWrapper(workers=4, averaging_frequency=2), F32: bit-equal
+    to the explicit average of 4 copies' train steps on the card, and
+    within the Adam bound of the same wrapper on the CPU path. (3) Two
+    host processes on the one card over a named gloo group, F32: ranks
+    bit-equal to each other, within the Adam bound of one process on the
+    whole batch; the TrainingStatsCollector timeline written. K3 launch
+    counts exact in every arm."""
+    import shutil
+    import tempfile
+
+    import torch
+    from deeplearning4j_tpu_torch import DataSet
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    from deeplearning4j_tpu_torch.nn import multistep
+    from deeplearning4j_tpu_torch.nn.updater import _map
+    from deeplearning4j_tpu_torch.ops import registry
+    from deeplearning4j_tpu_torch.parallel import (ParallelWrapper,
+                                                   distributed, make_mesh)
+
+    t_phase = time.perf_counter()
+    # (1) a 1-rank NCCL group: the meshed captured step is the unmeshed one
+    info = distributed.initialize(f"127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        check(info["backend"] == "nccl", f"group {info}")
+        batches = on_card(markov_batches(MESH_STEPS, MESH_B, DEC_C, DEC_V,
+                                         SEED + 710))
+        arms = {}
+        for name in ("unmeshed", "meshed", "meshed_again", "unmeshed_again"):
+            net = dec_net("BF16", seed=SEED + 711)
+            if name.startswith("meshed"):
+                net.use_mesh(make_mesh())
+            step_batches = [net._step_batch(ds) for ds in batches]
+            torch.cuda.synchronize()
+            registry.reset_launches()
+            scores, ms, captures = captured_steps(net, step_batches)
+            launches = registry.launches()
+            check(captures == 1, f"{name}: {captures} captures")
+            for kern in ("flash_attn_fwd", "flash_attn_fwd_sm90"):
+                check(launches.get(kern, 0) == DEC_L * MESH_STEPS,
+                      f"{name}: {kern} launched {launches.get(kern, 0)} "
+                      f"times in {MESH_STEPS} steps")
+            arms[name] = (net, scores, ms)
+        ref_net, ref_scores, _ = arms["unmeshed"]
+        for name in ("meshed", "meshed_again", "unmeshed_again"):
+            net, scores, _ = arms[name]
+            check(scores == ref_scores, f"{name} scores {scores} != "
+                  f"{ref_scores}")
+            for tree in ("params", "opt_state"):
+                check(_bits_equal(getattr(net, tree), getattr(ref_net, tree)),
+                      f"{name}: {tree} differ from the unmeshed captured "
+                      f"step's")
+        replay = {n: statistics.median(arms[n][2][multistep.WARMUP_STEPS
+                                                  + 1:]) for n in arms}
+        meshed_ms = statistics.mean([replay["meshed"],
+                                     replay["meshed_again"]])
+        plain_ms = statistics.mean([replay["unmeshed"],
+                                    replay["unmeshed_again"]])
+        del arms, ref_net, net
+    finally:
+        distributed.shutdown()
+    phase("data_parallel", arm="mesh_1rank_nccl",
+          model=f"gpt_mini(vocab={DEC_V},width={DEC_W},blocks={DEC_L},"
+          f"heads={DEC_H},T={DEC_C},BF16,Adam(3e-4))", b=MESH_B,
+          steps=MESH_STEPS, bit_equal=True, captures=1,
+          step_ms_meshed=f"{meshed_ms:.4f}",
+          step_ms_unmeshed=f"{plain_ms:.4f}",
+          step_ms_by_arm=json.dumps({k: round(v, 4)
+                                     for k, v in replay.items()}),
+          k3_launches_per_step=DEC_L, card=card)
+
+    # (2) ParallelWrapper: 4 workers, an average every 2 steps
+    pw_data = markov_batches(PW_WORKERS * PW_FREQ, PW_B, DEC_C, DEC_V,
+                             SEED + 712)
+    net = dec_net("F32", seed=SEED + 713)
+    cpu = cpu_copy(net)
+    copies = [dec_net("F32", seed=SEED + 713) for _ in range(PW_WORKERS)]
+    registry.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ParallelWrapper(net, workers=PW_WORKERS, averaging_frequency=PW_FREQ) \
+        .fit(ListDataSetIterator(on_card(pw_data)))
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    launches = registry.launches()
+    check(launches.get("flash_attn_fwd", 0) == DEC_L * len(pw_data) and
+          launches.get("flash_attn_fwd_sm90", 0) == 0,
+          f"ParallelWrapper launched {launches} in {len(pw_data)} worker "
+          f"steps (F32: the FMA route, {DEC_L} a step)")
+    for k in range(PW_FREQ):
+        for w, c in enumerate(copies):
+            x, y = pw_data[k * PW_WORKERS + w]
+            multistep.train_step(c, c._step_batch(DataSet(
+                torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())),
+                advance=False)
+    want = _map(lambda *xs: sum(xs) / len(xs), *[c.params for c in copies])
+    check(_bits_equal(net.params, want), "ParallelWrapper's parameters "
+          "differ from the explicit average of the workers' train steps")
+    ParallelWrapper(cpu, workers=PW_WORKERS, averaging_frequency=PW_FREQ) \
+        .fit(ListDataSetIterator([DataSet(x, y) for x, y in pw_data]))
+    pw_cpu = _max_diff(net.params, cpu.params)
+    pw_bound = 2 * ADAM_LR * PW_FREQ
+    check(pw_cpu <= pw_bound, f"ParallelWrapper card vs CPU {pw_cpu:.3e} > "
+          f"{pw_bound:.1e}")
+    phase("data_parallel", arm="parallel_wrapper", workers=PW_WORKERS,
+          averaging_frequency=PW_FREQ, b=PW_B, policy="F32",
+          round_s=f"{round_s:.3f}", explicit_average_bit_equal=True,
+          card_vs_cpu_max_abs=f"{pw_cpu:.3e}", bound=f"{pw_bound:.1e}",
+          k3_launches=launches.get("flash_attn_fwd", 0), card=card)
+    del net, cpu, copies, want
+
+    # (3) two host processes on the one card over a named gloo group
+    root = tempfile.mkdtemp(prefix="data_parallel_")
+    procs = []
+    try:
+        port = _free_port()
+        here = os.path.dirname(os.path.abspath(__file__))
+        for r in range(2):
+            out = os.path.join(root, f"rank{r}")
+            err = open(out + ".err", "w")
+            code = f"import chip_smoke as c; c.dp_rank({port}, {r}, {out!r})"
+            procs.append((subprocess.Popen(
+                [sys.executable, "-c", code], stderr=err,
+                stdout=subprocess.DEVNULL, cwd=here), out, err))
+        # one process on the whole batch, meanwhile
+        one = dec_net("F32", seed=SEED + 720)
+        whole = on_card(markov_batches(GLOO_STEPS, GLOO_B, DEC_C, DEC_V,
+                                       SEED + 721))
+        registry.reset_launches()
+        one_ms = []
+        for ds in whole:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one.fit_batch(ds)
+            torch.cuda.synchronize()
+            one_ms.append((time.perf_counter() - t0) * 1e3)
+        one_launches = registry.launches()
+        res = []
+        for proc, out, err in procs:
+            try:
+                rc = proc.wait(timeout=600)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=60)
+                rc = "timeout"
+            err.close()
+            if rc != 0:
+                with open(err.name) as f:
+                    check(False, f"[data_parallel] rank exited {rc}: "
+                          f"{f.read()[-3000:]}")
+            with open(out + ".json") as f:
+                res.append(json.load(f))
+        p0 = torch.load(procs[0][1] + ".pt")
+        p1 = torch.load(procs[1][1] + ".pt")
+        check(all(torch.equal(a, b) for a, b in zip(p0, p1)) and
+              res[0]["sync"] and res[1]["sync"],
+              "the two ranks' parameters differ")
+        check(res[0]["score"] == res[1]["score"], "the ranks' scores differ")
+        ref = [t.detach().cpu() for t in _leaf_list(one.params)]
+        dp2 = max(float((a.double() - b.double()).abs().max())
+                  for a, b in zip(p0, ref))
+        dp2_bound = 2 * ADAM_LR * GLOO_STEPS
+        check(dp2 <= dp2_bound, f"two ranks vs one process {dp2:.3e} > "
+              f"{dp2_bound:.1e}")
+        for r in res:
+            check(r["launches"].get("flash_attn_fwd", 0)
+                  == DEC_L * GLOO_STEPS, f"a rank launched K3 "
+                  f"{r['launches']} in {GLOO_STEPS} steps")
+            check(r["workers"] == ["rank_0", "rank_1"], f"timeline workers "
+                  f"{r['workers']}")
+        check(one_launches.get("flash_attn_fwd", 0) == DEC_L * GLOO_STEPS,
+              f"one process launched K3 {one_launches}")
+        html = procs[0][1] + ".html"
+        check(os.path.getsize(html) > 0, "no timeline written")
+        os.makedirs(OUT_DIR, exist_ok=True)
+        timeline = os.path.join(OUT_DIR, "data_parallel_timeline.html")
+        shutil.copy(html, timeline)
+    finally:
+        for proc, _, err in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+            err.close()
+        shutil.rmtree(root, ignore_errors=True)
+    phase("data_parallel", arm="two_processes_gloo", backend="gloo",
+          ranks=2, global_b=GLOO_B, steps=GLOO_STEPS, policy="F32",
+          ranks_bit_equal=True, vs_one_process_max_abs=f"{dp2:.3e}",
+          bound=f"{dp2_bound:.1e}",
+          step_ms_rank0=json.dumps([round(v, 3) for v in res[0]["step_ms"]]),
+          step_ms_rank1=json.dumps([round(v, 3) for v in res[1]["step_ms"]]),
+          step_ms_one_process=json.dumps([round(v, 3) for v in one_ms]),
+          allreduce_ms_median=f"{statistics.median(res[0]['allreduce_ms']):.3f}",
+          allreduce_floats=res[0]["params"] + 1,
+          timeline=os.path.relpath(timeline),
+          phase_s=f"{time.perf_counter() - t_phase:.1f}", card=card)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8970,6 +9463,18 @@ def main() -> int:
             only()
             print(ok_line, flush=True)
             return 0
+    for flag, only in (("--analysis", phase_analysis),
+                       ("--data-parallel", phase_data_parallel)):
+        if flag in sys.argv[1:]:
+            card = phase_device()
+            # the kernels the phase's path runs, each against its plain
+            # version, as in the full run
+            phase_flash_vs_plain()
+            if flag == "--analysis":
+                phase_stream_exact_vs_plain()
+            only(card)
+            print(ok_line, flush=True)
+            return 0
     for flag, only in (("--front-door", phase_front_door),
                        ("--cold-start", phase_cold_start),
                        ("--dashboard", phase_dashboard)):
@@ -9020,6 +9525,8 @@ def main() -> int:
     phase_front_door(card)
     phase_cold_start(card)
     phase_dashboard(card)
+    phase_analysis(card)
+    phase_data_parallel(card)
     phase_stream_split()
     profiler_probe("after_all", profiles=5, names=names)
     phase("profiler", pause_s=PROFILE_PAUSE_S, **PROFILES)

@@ -8,8 +8,8 @@ Threaded classes register their lock-guarded state at class level:
 
 The declaration does two jobs:
 
-- **Statically** (the JAX package's analysis/concurrency.py; its port
-  waits for ROADMAP.md A.4): the AST lint reads the
+- **Statically** (analysis/concurrency.py, the JAX package's pass): the
+  AST lint reads the
   decorator literally and flags any write to a registered attribute
   (assignment, augmented assignment, item write/delete, or a mutator
   method call like ``.append``/``.clear``/``.update``) that is not

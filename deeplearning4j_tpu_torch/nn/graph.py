@@ -87,9 +87,21 @@ class ComputationGraph:
         self._fusion_plans = {}
         self._fusion_interior = frozenset()
         self._multi_steps = {}     # batch signature -> multistep.StepGraph
+        self._grad_reduce = None   # the meshed step's all-reduce
         self.last_run_report = None  # the last fit's goodput RunReport
         self.flops_per_step = None
         self._flops_key = None
+
+    def use_mesh(self, mesh, data_axis: str = "data",
+                 model_axis: str | None = None, tp_rules=None):
+        """Data-parallel training over a mesh (parallel/mesh.py
+        ``make_mesh``): parameters replicated over ``data_axis``, each rank
+        steps on its local batch, one gradient all-reduce a step (on NCCL
+        inside the captured step). ``model_axis``/``tp_rules`` (tensor
+        parallelism) wait for ROADMAP.md A.5's open half and raise."""
+        from deeplearning4j_tpu_torch.parallel.data_parallel import \
+            use_mesh
+        return use_mesh(self, mesh, data_axis, model_axis, tp_rules)
 
     def set_listeners(self, *listeners):
         self.listeners = list(listeners)

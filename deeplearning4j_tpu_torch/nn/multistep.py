@@ -148,7 +148,8 @@ def train_step(net, batch, advance: bool = True) -> torch.Tensor:
     step resolves the net's ``DL4J_TPU_REMAT`` (nn/remat.py)."""
     remat.resolve(net)
     step = precision.build_step_fn(net._loss, net.layers,
-                                   net.conf.global_conf, net._lr_scale)
+                                   net.conf.global_conf, net._lr_scale,
+                                   getattr(net, "_grad_reduce", None))
     it = device_iteration(net)
     new_state, score = step(step_leaves(net), net.state, net.opt_state, it,
                             *batch,

@@ -93,14 +93,17 @@ def tree_grads(loss, params):
     return _fill(params, iter(out))
 
 
-def build_step_fn(loss_fn, layers, gc, lr_scale):
+def build_step_fn(loss_fn, layers, gc, lr_scale, reduce=None):
     """The train step: ``step(params, state, opt_state, it, *data) ->
     (new_state, score)``. ``loss_fn(params, state, *data) -> (loss,
     new_state)``. ``params`` hold the leaf tensors the step differentiates
     and updates in place; ``opt_state``'s tensors are updated in place.
     ``it`` is the iteration (an int, or the net's int32 device twin).
     A leaf that does not require grad (a frozen layer's, see
-    nn/multistep.py's ``step_leaves``) gets no gradient and no update."""
+    nn/multistep.py's ``step_leaves``) gets no gradient and no update.
+    ``reduce(grads, loss, labels, lmask) -> (grads, loss)``, when given,
+    runs between the (unscaled) gradients and the update: a meshed
+    step's all-reduce (parallel/data_parallel.py)."""
     policy = gc.dtype
     mode = policy.loss_scale_mode()
     master = getattr(torch, policy.param_dtype)
@@ -109,6 +112,8 @@ def build_step_fn(loss_fn, layers, gc, lr_scale):
         def step(params, state, opt_state, it, *data):
             loss, new_state = loss_fn(params, state, *data)
             grads = tree_grads(loss, params)
+            if reduce is not None:
+                grads, loss = reduce(grads, loss, data[1], data[3])
             apply_layer_updates(layers, gc, params, grads, opt_state, it,
                                 lr_scale)
             return new_state, loss.detach()
@@ -123,6 +128,8 @@ def build_step_fn(loss_fn, layers, gc, lr_scale):
         inv = (1.0 / scale).to(master)
         grads = _fill(grads, iter([None if g is None else g.to(master) * inv
                                    for g in _leaves(grads)]))
+        if reduce is not None:
+            grads, loss = reduce(grads, loss, data[1], data[3])
         finite = all_finite(grads)
         # the skip as a select on the card: no host read
         kept = list(_leaves(params)) + [

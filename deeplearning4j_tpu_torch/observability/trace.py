@@ -35,8 +35,9 @@ Span taxonomy (the JAX package's names):
 - datapipe: ``pipe_shuffle_fill``, ``pipe_collate``,
   ``pipe_prefetch_pull``
 - the serving batcher (serving/batcher.py): ``queue_wait``,
-  ``batch_assembly``, ``device_compute``; the distributed phases wait
-  for ROADMAP.md A.5.
+  ``batch_assembly``, ``device_compute``
+- the distributed trainers (parallel/stats.py ``time_phase``): ``fit``,
+  ``average``
 
 Launches are asynchronous on the card, so a span around them times the
 host issuing them; no span waits on the card.

@@ -313,4 +313,6 @@ def flash_attn_fwd_cuda(q, k, v):
     if route == "sm90":
         registry.count_launch(KERNEL_SM90)
     registry.count_flops(KERNEL, flash_flops(b, T, h, dh))
+    registry.note_kernel(KERNEL, out,
+                         (KERNEL_SM90,) if route == "sm90" else ())
     return out

@@ -321,6 +321,8 @@ def fused_stats_cuda(x2, W, shift):
                    N, R, x2.device,
                    launches=launches_per_call(STATS, M, K, N, sm90))
     registry.count_flops(STATS, flops(STATS, M, K, N))
+    registry.note_kernel(STATS, (out[0], out[1]),
+                         (SM90_COUNTER[STATS],) if sm90 else ())
     return out[0], out[1]
 
 
@@ -336,6 +338,8 @@ def fused_apply_cuda(x2, W, scale, sh, sc2, relu):
                    y.data_ptr(), M, K, N, int(bool(relu)), x2.device,
                    launches=launches_per_call(APPLY, M, K, N, sm90))
     registry.count_flops(APPLY, flops(APPLY, M, K, N))
+    registry.note_kernel(APPLY, y,
+                         (SM90_COUNTER[APPLY],) if sm90 else ())
     return y
 
 
@@ -354,6 +358,8 @@ def fused_bwd_stats_cuda(x2, W, mean, inv, dy2, y2, relu):
                    R, int(bool(relu)), x2.device,
                    launches=launches_per_call(BWD_STATS, M, K, N, sm90))
     registry.count_flops(BWD_STATS, flops(BWD_STATS, M, K, N))
+    registry.note_kernel(BWD_STATS, (out[0], out[1]),
+                         (SM90_COUNTER[BWD_STATS],) if sm90 else ())
     return out[0], out[1]
 
 
@@ -379,6 +385,8 @@ def fused_bwd_apply_cuda(x2, W, mean, inv, scale, ca, cb, dy2, y2, relu):
                    chunk, int(bool(relu)), dev,
                    launches=launches_per_call(BWD_APPLY, M, K, N, sm90))
     registry.count_flops(BWD_APPLY, flops(BWD_APPLY, M, K, N))
+    registry.note_kernel(BWD_APPLY, (dx, dW, dsc),
+                         (SM90_COUNTER[BWD_APPLY],) if sm90 else ())
     return dx, dW, dsc
 
 

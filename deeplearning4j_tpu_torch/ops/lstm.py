@@ -532,6 +532,7 @@ def lstm_sequence_cuda(xz_t, h0, c0, Wh, p, mask_t=None, *,
     if cluster:
         registry.count_launch(FWD_SM90)
     registry.count_flops(KERNEL, fwd_flops(T, b, n))
+    registry.note_kernel(KERNEL, out, (FWD_SM90,) if cluster else ())
     return out
 
 
@@ -599,6 +600,7 @@ def lstm_sequence_bwd_cuda(residuals, mask_t, Wh, p, dy, dhT, dcT):
     if cluster:
         registry.count_launch(BWD_SM90)
     registry.count_flops(BWD_KERNEL, bwd_flops(T, b, n))
+    registry.note_kernel(BWD_KERNEL, out, (BWD_SM90,) if cluster else ())
     return out
 
 

@@ -22,6 +22,12 @@ Each kernel wrapper also reports the floating-point operations of what
 it launched (``count_flops``), counted as FlopCounterMode counts the
 kernel's plain version, for ``step_cost_analysis``: FlopCounterMode sees
 PyTorch's operators but not a kernel launched through ``ctypes``.
+
+For the same reason each kernel wrapper reports its call to the fx lint's
+recorder (``note_kernel``, analysis/fx_lint.py): a ``TorchDispatchMode``
+sees the ``empty`` that allocates a kernel's output but not the kernel,
+so the recorded graph shows each kernel as a node of its own, with its
+counters and the dtypes of what it returns.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ _LAUNCHES: dict[str, int] = {}
 # open recordings (capture, cost analysis): launches go to the innermost
 _RECORDINGS: list[dict[str, int]] = []
 _FLOP_COUNTS: list[dict[str, float]] = []
+_KERNEL_SINKS: list = []
 
 
 def register(name: str, device_type: str):
@@ -117,3 +124,33 @@ def counting_flops():
     finally:
         with _LAUNCH_LOCK:
             _FLOP_COUNTS.remove(rec)
+
+
+def note_kernel(kernel: str, outputs, also=()):
+    """Reports one kernel wrapper call to every open ``recording_kernels``:
+    ``sink(names, out_dtypes)`` with the counters the call added to
+    (``kernel``, then ``also``, such as its sm90 counter) and the dtypes
+    of the tensors it returns (``outputs``: a tensor or a sequence)."""
+    if not _KERNEL_SINKS:
+        return
+    outs = [outputs] if isinstance(outputs, torch.Tensor) else outputs
+    names = (kernel,) + tuple(also)
+    dtypes = tuple(t.dtype for t in outs if isinstance(t, torch.Tensor))
+    with _LAUNCH_LOCK:
+        sinks = list(_KERNEL_SINKS)
+    for sink in sinks:
+        sink(names, dtypes)
+
+
+@contextlib.contextmanager
+def recording_kernels(sink):
+    """While open, each kernel wrapper call is passed to ``sink`` (see
+    ``note_kernel``). Process-wide, as ``recording``: the autograd engine
+    runs a backward on a thread of its own."""
+    with _LAUNCH_LOCK:
+        _KERNEL_SINKS.append(sink)
+    try:
+        yield sink
+    finally:
+        with _LAUNCH_LOCK:
+            _KERNEL_SINKS.remove(sink)

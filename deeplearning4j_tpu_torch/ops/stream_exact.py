@@ -523,6 +523,7 @@ def _dense_launch(x, W, b=None, plan=None):
     registry.count_launch(KERNEL_DENSE)
     registry.count_flops(KERNEL_DENSE, dense_flops(rows, f, g,
                                                    b is not None))
+    registry.note_kernel(KERNEL_DENSE, y)
     return y if x.dim() == 2 else y.reshape(*x.shape[:-1], g)
 
 
@@ -598,6 +599,7 @@ def _mha_launch(q, k_cache, v_cache, pos):
                f"b={b}, t={t}, h={h}, dh={dh}, C={C}, {plan}")
     registry.count_launch(KERNEL_MHA)
     registry.count_flops(KERNEL_MHA, mha_flops(b, t, h, dh, C))
+    registry.note_kernel(KERNEL_MHA, out)
     return out
 
 
@@ -689,6 +691,7 @@ def _rownorm_launch(x, gamma, beta, eps):
         _raise(lib, rc, KERNEL_NORM, f"rows={rows}, w={w}, cols={cols}")
     registry.count_launch(KERNEL_NORM)
     registry.count_flops(KERNEL_NORM, 8 * rows * w)
+    registry.note_kernel(KERNEL_NORM, y)
     return y if x.dim() == 2 else y.reshape(x.shape)
 
 

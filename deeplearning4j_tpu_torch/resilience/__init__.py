@@ -7,7 +7,8 @@ auto-resume from the newest valid checkpoint, transient-step retry with
 exponential backoff, a NaN/Inf rollback sentinel with learning-rate
 backoff, and clean SIGTERM preemption. ``faultinject`` is the
 deterministic fault harness that keeps each of those paths under test.
-The multi-process ``FleetLauncher`` waits for ROADMAP.md A.5."""
+The multi-process ``FleetLauncher`` (resilience/launcher.py) waits for
+ROADMAP.md A.5's open half."""
 
 from deeplearning4j_tpu_torch.resilience.faultinject import (
     FaultInjector,

@@ -44,10 +44,12 @@ written as ``run_report.json`` in the checkpoint directory. Spans:
 ``restore``, ``rollback``, ``checkpoint_snapshot``, ``checkpoint_write``
 (on the writer thread when asynchronous) and ``checkpoint_barrier``.
 
-Not ported yet, refused by name (``NotImplementedError``): cross-process
-coordination (``coordinate=True``, ``collective_timeout_s``) and the
-statistics collector (ROADMAP.md A.5; ``coordinate="auto"`` resolves to
-single-process, as the JAX package's does in one process).
+Not ported yet, refused by name (``NotImplementedError``): the
+supervisor's cross-process coordination (``coordinate=True``,
+``collective_timeout_s``) and its statistics collector (ROADMAP.md A.5's
+open half; parallel/ has the consensus layer and the collector;
+``coordinate="auto"`` resolves to single-process, as the JAX package's
+does in one process).
 ``compile_cache_dir`` points the run's kernel builds at a build cache
 (compilecache/cache.py).
 """
@@ -231,10 +233,11 @@ class SupervisorConfig:
     #: the kernel build cache the run builds into and loads from
     #: (compilecache.configure; None: ``$DL4J_TPU_COMPILE_CACHE``, if set)
     compile_cache_dir: Optional[str] = None
-    #: cross-process consensus waits for ROADMAP.md A.5 (parallel/):
-    #: "auto" and False run single-process, True raises
+    #: the supervisor's cross-process consensus (over parallel/
+    #: distributed.py) waits for ROADMAP.md A.5's open half: "auto" and
+    #: False run single-process, True raises
     coordinate: object = "auto"
-    #: the consensus deadline waits for ROADMAP.md A.5; a value raises
+    #: the supervisor's consensus deadline waits with it; a value raises
     collective_timeout_s: Optional[float] = None
     #: injectable for tests (real runs sleep through backoff)
     sleep_fn: Callable[[float], None] = time.sleep
@@ -242,12 +245,15 @@ class SupervisorConfig:
     def __post_init__(self):
         if self.coordinate is True:
             raise NotImplementedError(
-                "SupervisorConfig(coordinate=True): cross-process "
-                "consensus waits for ROADMAP.md A.5 (parallel/)")
+                "SupervisorConfig(coordinate=True): the supervisor's "
+                "cross-process consensus waits for ROADMAP.md A.5's open "
+                "half (parallel/distributed.py has the consensus layer)")
         if self.collective_timeout_s is not None:
             raise NotImplementedError(
-                "SupervisorConfig(collective_timeout_s=...): the consensus "
-                "deadline waits for ROADMAP.md A.5 (parallel/)")
+                "SupervisorConfig(collective_timeout_s=...): the "
+                "supervisor's consensus deadline waits for ROADMAP.md "
+                "A.5's open half (parallel.distributed.collective_timeout_s"
+                " and DL4J_TPU_COLLECTIVE_TIMEOUT_S are ported)")
 
 
 @dataclass
@@ -261,7 +267,8 @@ class SupervisorResult:
     #: goodput engine is disabled); also saved as run_report.json in the
     #: checkpoint dir
     report: Optional[object] = None
-    #: a lost peer is a multi-process outcome (ROADMAP.md A.5): always None
+    #: a lost peer is a multi-process outcome of the supervisor's
+    #: coordination (ROADMAP.md A.5's open half): always None
     peer_loss: Optional[dict] = None
 
 
@@ -277,8 +284,9 @@ class TrainingSupervisor:
                  stats_collector=None):
         if stats_collector is not None:
             raise NotImplementedError(
-                "TrainingSupervisor(stats_collector=...): the training "
-                "statistics collector waits for ROADMAP.md A.5 (parallel/)")
+                "TrainingSupervisor(stats_collector=...): feeding the "
+                "supervisor's phases to a TrainingStatsCollector "
+                "(parallel/stats.py) waits for ROADMAP.md A.5's open half")
         self.net = net
         self.config = config
         self.injector = injector

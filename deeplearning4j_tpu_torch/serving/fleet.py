@@ -383,7 +383,7 @@ class ReplicaSet:
                  outer: Future, session=None, priority: int = 0):
         exc = inner.exception()
         if exc is None:
-            outer.set_result(inner.result())
+            outer.set_result(inner.result())  # analysis: ok(C003) — done-callback: future already resolved
         elif isinstance(exc, BatcherDeadError):
             # the replica died with this ticket in flight; _die failed its
             # future before any result, so a resubmit cannot deliver twice

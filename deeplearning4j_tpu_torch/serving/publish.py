@@ -36,8 +36,9 @@ Store layout (``root/``)::
 
 ``load_net`` restores a publication on the card unless a ``device`` is
 given; its cost is reading the trees (a structure-only net, no random
-draws, no kernel build). Restoring onto a mesh (``mesh=``) waits for
-ROADMAP.md A.5 and raises ``NotImplementedError``.
+draws, no kernel build). Restoring onto a mesh (``mesh=``) for mesh
+serving waits for ROADMAP.md A.5's open half and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -60,7 +61,8 @@ _LATEST = "LATEST"
 PUBLICATION_META = "publication.json"
 
 MESH_NOT_PORTED = ("load_net(mesh=...): restoring a publication onto a "
-                   "mesh waits for ROADMAP.md A.5 (parallel/)")
+                   "serving mesh waits for ROADMAP.md A.5's open half "
+                   "(parallel/inference.py)")
 
 
 class Publication:

@@ -65,7 +65,8 @@ lacks at first use (the same ``nvcc`` and the same kernels). A
 ``batch_window_ms``.
 
 Not ported, refused by name when given: ``mesh`` (mesh-parallel
-serving, ROADMAP A.5).
+serving, ROADMAP.md A.5's open half; data-parallel training over a mesh
+is ported, parallel/).
 """
 
 from __future__ import annotations
@@ -96,8 +97,9 @@ from deeplearning4j_tpu_torch.serving.metrics import (ServingStats,
 
 #: what each refused parameter waits for
 NOT_PORTED = {
-    "mesh": "mesh-parallel serving (parallel/inference.py) is not ported "
-            "(ROADMAP.md A.5)",
+    "mesh": "mesh-parallel serving (parallel/inference.py, tp_rules) "
+            "waits for ROADMAP.md A.5's open half; data-parallel training "
+            "(parallel/data_parallel.py, net.use_mesh) is ported",
 }
 
 
@@ -258,7 +260,8 @@ class ModelServer:
         fingerprint must equal the serving net's (the same parameter
         structure). Refused with a decode engine (its sessions hold KV
         state of the old weights: drain the host instead); a server on a
-        mesh is refused when it is built (ROADMAP.md A.5). Returns ``{version, fingerprint,
+        mesh is refused when it is built (ROADMAP.md A.5's open half).
+        Returns ``{version, fingerprint,
         replicas_swapped, swap_s, fresh_compiles}``: ``fresh_compiles``
         is the kernel builds during the swap, 0 on a warmed server."""
         if self.decode_engine is not None:

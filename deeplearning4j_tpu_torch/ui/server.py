@@ -38,18 +38,11 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import List, Optional
 from urllib.parse import parse_qs, urlparse
 
+# the distributed trainers' phase -> color map the timeline card and the
+# exported timeline share
+from deeplearning4j_tpu_torch.parallel.stats import PHASE_COLORS
 from deeplearning4j_tpu_torch.ui.storage import BaseStatsStorage
 
-#: the distributed trainers' phase -> color map the timeline card and the
-#: exported timeline share (the JAX package's parallel/stats.py
-#: ``PHASE_COLORS``; parallel/ itself waits for ROADMAP.md A.5)
-PHASE_COLORS = {
-    "fit": "#1f77b4",
-    "average": "#ff7f0e",
-    "checkpoint_barrier": "#2ca02c",
-    "broadcast": "#9467bd",
-    "vocab": "#8c564b",
-}
 
 _PAGE = """<!doctype html>
 <html><head><meta charset="utf-8"><title>deeplearning4j-tpu training UI</title>

@@ -36,8 +36,10 @@ Use::
     save_checkpoint(net, "/ckpt/step_1000")
     net = restore_multi_layer_network("/ckpt/step_1000")
 
-Restoring onto a mesh (``mesh=``, ``model_axis=``, ``tp_rules=``) waits
-for ROADMAP.md A.5 (``parallel/``) and raises ``NotImplementedError``.
+Restoring onto a mesh (``mesh=``, ``model_axis=``, ``tp_rules=``: the
+sharded restore) waits for ROADMAP.md A.5's open half and raises
+``NotImplementedError``; a data-parallel net restores unmeshed and then
+takes ``use_mesh(make_mesh())`` (parallel/).
 """
 
 from __future__ import annotations
@@ -209,12 +211,15 @@ def save_checkpoint(net, path: str, stats=None, extra_meta=None) -> str:
     save to a fresh step directory (``.../step_1000``).
 
     ``extra_meta``: a JSON-serializable dict merged into ``meta.json``; it
-    may not override the reserved keys. ``stats`` (a training-statistics
-    collector) waits for ROADMAP.md A.5 and raises."""
+    may not override the reserved keys. ``stats`` (the checkpoint's
+    ``checkpoint_barrier`` phase in a training-statistics collector)
+    waits with the supervisor's coordination for ROADMAP.md A.5's open
+    half and raises."""
     if stats is not None:
         raise NotImplementedError(
-            "save_checkpoint(stats=...): the training-statistics collector "
-            "waits for ROADMAP.md A.5 (parallel/)")
+            "save_checkpoint(stats=...): timing the save into a "
+            "TrainingStatsCollector (parallel/stats.py) waits with the "
+            "supervisor's coordination for ROADMAP.md A.5's open half")
     path = os.path.abspath(path)
     os.makedirs(path, exist_ok=True)
     arrays, dtypes = _host_trees(net)
@@ -359,7 +364,8 @@ def _refuse_mesh(mesh, model_axis, tp_rules):
     if mesh is not None or model_axis is not None or tp_rules:
         raise NotImplementedError(
             "restoring a checkpoint onto a mesh (mesh=, model_axis=, "
-            "tp_rules=) waits for ROADMAP.md A.5 (parallel/)")
+            "tp_rules=) waits for ROADMAP.md A.5's open half; restore "
+            "unmeshed, then net.use_mesh(parallel.make_mesh())")
 
 
 def _restore(path, expect_kind, device, mesh, data_axis, model_axis,

@@ -136,7 +136,7 @@ def test_marker_under_threads_and_processes(tmp_path):
         except Exception as e:  # pragma: no cover - reported below
             errors.append(e)
 
-    threads = [threading.Thread(target=configure) for _ in range(8)]
+    threads = [threading.Thread(target=configure, daemon=True) for _ in range(8)]
     for t in threads:
         t.start()
     for t in threads:
@@ -200,7 +200,7 @@ def test_temp_names_are_unique_per_process_and_thread():
             p = _build.temp_path(out)
             with lock:
                 names.add(p)
-    threads = [threading.Thread(target=take) for _ in range(8)]
+    threads = [threading.Thread(target=take, daemon=True) for _ in range(8)]
     for t in threads:
         t.start()
     for t in threads:
@@ -228,7 +228,7 @@ def test_build_into_the_cache_counts_and_leaves_no_temp(tmp_path,
             _build.build(("flash_attn_fwd", "stream_exact"))
         except Exception as e:  # pragma: no cover - reported below
             errors.append(e)
-    threads = [threading.Thread(target=build) for _ in range(2)]
+    threads = [threading.Thread(target=build, daemon=True) for _ in range(2)]
     for t in threads:
         t.start()
     for t in threads:

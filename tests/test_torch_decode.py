@@ -204,7 +204,7 @@ def speculative_evictions(P):
             except Exception as e:  # noqa: BLE001 — asserted below
                 errs.append(f"{sid}: {type(e).__name__}: {e}")
 
-        threads = [threading.Thread(target=run, args=(s,)) for s in prompts]
+        threads = [threading.Thread(target=run, args=(s,), daemon=True) for s in prompts]
         for t in threads:
             t.start()
         for t in threads:
@@ -327,7 +327,7 @@ def test_engine_logits_equal_sequential_reference_bit_for_bit(pkgs):
                 barrier.abort()
                 errs.append(f"{sid}: {type(e).__name__}: {e}")
 
-        threads = [threading.Thread(target=run, args=(s,)) for s in prompts]
+        threads = [threading.Thread(target=run, args=(s,), daemon=True) for s in prompts]
         for t in threads:
             t.start()
         for t in threads:

@@ -275,6 +275,77 @@ def test_cold_start_and_ui_public_names_match_the_jax_package():
         assert all(hasattr(jm, n) for n in names), m
 
 
+# the modules of the analysis gate and data-parallel slice
+ANALYSIS_PARALLEL_MODULES = [
+    "deeplearning4j_tpu_torch.analysis.concurrency",
+    "deeplearning4j_tpu_torch.analysis.lockorder",
+    "deeplearning4j_tpu_torch.analysis.fx_lint",
+    "deeplearning4j_tpu_torch.analysis.__main__",
+    "deeplearning4j_tpu_torch.parallel",
+    "deeplearning4j_tpu_torch.parallel.mesh",
+    "deeplearning4j_tpu_torch.parallel.distributed",
+    "deeplearning4j_tpu_torch.parallel.data_parallel",
+    "deeplearning4j_tpu_torch.parallel.stats",
+]
+
+
+@pytest.mark.parametrize("module", ANALYSIS_PARALLEL_MODULES)
+def test_analysis_and_parallel_modules_are_checked(module):
+    """Each module of the analysis and data-parallel slice is among the
+    sources the import tests check."""
+    assert module in {_module_name(p) for p in SOURCES}
+
+
+def test_analysis_and_parallel_public_names_match_the_jax_package():
+    """The slice's modules import in a fresh interpreter with jax and the
+    JAX package blocked, and carry the JAX modules' public names for
+    what the slice ports."""
+    mods = {"analysis": ["Finding", "guarded_by", "CODES",
+                         "sort_findings"],
+            "analysis.concurrency": ["lint_source", "lint_file",
+                                     "lint_tree", "DEFAULT_ROOTS"],
+            "analysis.lockorder": ["LockOrderGraph", "InstrumentedLock",
+                                   "instrument", "get_graph", "install",
+                                   "uninstall", "installed",
+                                   "maybe_install"],
+            "analysis.fx_lint": ["list_targets", "lint_target", "lint_all",
+                                 "DETERMINISM_ALLOWLIST", "TARGETS"],
+            "parallel": ["make_mesh", "apply_mesh", "shard_step",
+                         "shard_batch", "ParallelWrapper"],
+            "parallel.mesh": ["make_mesh"],
+            "parallel.data_parallel": ["apply_mesh", "shard_batch",
+                                       "_pad_batch", "shard_step",
+                                       "shard_step_multi",
+                                       "ParallelWrapper"],
+            "parallel.distributed": [
+                "initialize", "process_info", "is_multiprocess",
+                "sync_check", "agree_decision", "any_process", "barrier",
+                "collective_timeout_s", "consensus_available",
+                "CollectiveTimeoutError", "PeerLostError",
+                "MultiProcessLocalSGD", "DEFAULT_COLLECTIVE_TIMEOUT_S"],
+            "parallel.stats": ["EventStats", "TrainingStatsCollector",
+                               "timeline_component", "summary_table",
+                               "export_timeline_html", "PHASE_COLORS"]}
+    code = ("import sys, importlib, json\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['deeplearning4j_tpu'] = None\n"
+            f"sys.path.insert(0, {str(ROOT)!r})\n"
+            f"mods = {mods!r}\n"
+            "missing = {m: [n for n in names if not hasattr(importlib."
+            "import_module('deeplearning4j_tpu_torch.' + m), n)]\n"
+            "           for m, names in mods.items()}\n"
+            "print(json.dumps({m: v for m, v in missing.items() if v}))\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, cwd=str(ROOT))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "{}"
+    import importlib
+    for m, names in mods.items():
+        jm = importlib.import_module(
+            "deeplearning4j_tpu." + m.replace("fx_lint", "jaxpr_lint"))
+        assert all(hasattr(jm, n) for n in names), m
+
+
 def test_traffic_engine_imports_with_jax_blocked():
     """The traffic-engine modules import in a fresh interpreter with jax
     and the JAX package blocked, and their names match the JAX

@@ -69,7 +69,7 @@ def test_concurrent_predict_returns_net_output_rows(net):
 
     # more clients than cores, and frequent thread switches, so a lost
     # update in the batcher or the stats would show
-    threads = [threading.Thread(target=client, args=(c,)) for c in range(12)]
+    threads = [threading.Thread(target=client, args=(c,), daemon=True) for c in range(12)]
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-5)
     try:
@@ -133,11 +133,13 @@ def test_full_queue_answers_503_with_retry_after(net):
     try:
         x = _rows(1, seed=1).tolist()
         first = threading.Thread(
-            target=lambda: results.append(_post(srv.url, {"features": x})))
+            target=lambda: results.append(_post(srv.url, {"features": x})),
+            daemon=True)
         first.start()
         assert entered.wait(30)   # the device thread holds ticket 1
         second = threading.Thread(
-            target=lambda: results.append(_post(srv.url, {"features": x})))
+            target=lambda: results.append(_post(srv.url, {"features": x})),
+            daemon=True)
         second.start()
         deadline = time.monotonic() + 30
         while srv._batcher.depth < 1 and time.monotonic() < deadline:
@@ -163,7 +165,7 @@ def test_stop_drains_accepted_tickets(net):
     srv.stop()
     for s, f in enumerate(futures):
         assert f.done()
-        np.testing.assert_allclose(f.result(), net.output(_rows(1, s)).numpy(),
+        np.testing.assert_allclose(f.result(timeout=30), net.output(_rows(1, s)).numpy(),
                                    atol=1e-6, rtol=1e-6)
     with pytest.raises(RuntimeError, match="stopped"):
         srv._batcher.submit([_rows(1, seed=0)])

@@ -764,8 +764,8 @@ def test_remat_nets_in_two_threads_match_their_single_threaded_runs():
     def train(i, prefixes, seed):
         got[i] = _train_remat_graph(prefixes, seed, steps=3)
 
-    threads = [threading.Thread(target=train, args=(0, ("d",), 12)),
-               threading.Thread(target=train, args=(1, (), 13))]
+    threads = [threading.Thread(target=train, args=(0, ("d",), 12), daemon=True),
+               threading.Thread(target=train, args=(1, (), 13), daemon=True)]
     for t in threads:
         t.start()
     for t in threads:
@@ -821,7 +821,7 @@ def test_a_span_open_in_one_thread_leaves_another_threads_dropout_alone():
             resume[k].set()
         got["net"] = net
 
-    t = threading.Thread(target=other)
+    t = threading.Thread(target=other, daemon=True)
     t.start()
     span_grad = grad(True, True)
     t.join(timeout=300)
