@@ -5045,8 +5045,9 @@ def phase_gradcheck():
     """[gradcheck]: central differences against autograd on the card, F64:
     conv 3x3 -> BN relu -> max pool -> dense -> softmax (cuDNN's f64
     convolution and pooling, the composed BN); 0 failures, and a planted
-    wrong gradient caught. A GravesLSTM in F64 on the card refuses by name
-    (its kernels take f32 and bf16)."""
+    wrong gradient caught. A GravesLSTM in F64 on the card passes its
+    check through the composed route (its kernels take f32 and bf16; the
+    JAX package sends f64 to XLA), counted as such, K1/K2 not launched."""
     import torch
     from deeplearning4j_tpu_torch import DataSet, zoo
     from deeplearning4j_tpu_torch.nn.conf import DtypePolicy
@@ -5082,18 +5083,21 @@ def phase_gradcheck():
                         dtype=DtypePolicy(param_dtype="float64",
                                           compute_dtype="float64"))
     xr = np.eye(6)[rng.integers(0, 6, (2, 5))]
-    try:
-        check_network_gradients(lstm, DataSet(xr, xr), sample_per_leaf=2)
-        refused = None
-    except NotImplementedError as e:
-        refused = str(e)
-    check(refused is not None and "float32 or bfloat16" in refused,
-          f"an F64 GravesLSTM check on the card was not refused: {refused}")
+    from deeplearning4j_tpu_torch.ops import registry
+    registry.reset_launches()
+    lres = check_network_gradients(lstm, DataSet(xr, xr), sample_per_leaf=2)
+    launches = registry.launches()
+    check(lres.passed, f"the F64 GravesLSTM's gradient check failed on "
+          f"the card: {lres.failures[:3]}")
+    check(launches.get("lstm_sequence:composed[dtype=float64]", 0) > 0
+          and not any(launches.get(k, 0) for k in ("lstm_fwd", "lstm_bwd")),
+          f"the F64 GravesLSTM did not take its composed route: {launches}")
     phase("gradcheck", net="conv3x3(4)-BN-relu-maxpool-dense(6)-softmax,F64,"
           "8x8x2,b=6", checked=res.total_checked, failed=res.total_failed,
           max_rel_error=f"{res.max_rel_error:.3e}", seconds=f"{dt:.2f}",
           planted_failed=f"{planted.total_failed}/{planted.total_checked}",
-          lstm_f64="refused")
+          lstm_f64=f"composed,checked={lres.total_checked},"
+          f"failed={lres.total_failed}")
 
 
 def phase_transfer():
@@ -9402,6 +9406,855 @@ def phase_data_parallel(card=None):
           phase_s=f"{time.perf_counter() - t_phase:.1f}", card=card)
 
 
+# ---------------------------------------------------------- meshed BN
+MBN_IMG, MBN_CLASSES = 32, 10
+MBN_B, MBN_STEPS = 32, 6            # (a): the 1-rank NCCL arm, BF16
+MBN_GLOBAL_B, MBN_GLOO_STEPS = 16, 3  # (b): two gloo ranks, F32
+MBN_LR = 0.01
+# (b): two ranks against one process on the 16-row batch, F32. After the
+# first step the BN running statistics are the forward's global-batch
+# statistics of the same weights: each tensor's largest difference over
+# its largest magnitude plus 1e-6 within MBN_STEP1_TOL (the same f32 sums
+# over two partial sums; 1.5e-5 measured on the card, and a one-process
+# run on the same rows permuted reads the same). The weights' first
+# gradient is chaotic at 32 x 32 (the last stage's BN normalises 16
+# values a channel): after MBN_GLOO_STEPS steps a one-process run on the
+# rows permuted, whose only change is the order of its sums, lies up to
+# ~1.3 (statistics) and ~0.5 (head) from the unpermuted run (NVIDIA H100
+# 80GB HBM3, 700 W). So after MBN_GLOO_STEPS steps the ranks are held to
+# MBN_CHAOS_FACTOR times the larger distance of two such permuted runs
+# plus MBN_CHAOS_FLOOR, the statistics and the head's parameters each.
+MBN_STEP1_TOL = 1e-4
+MBN_CHAOS_FACTOR = 2.0
+MBN_CHAOS_FLOOR = 1e-3
+MBN_HEAD = ("fc",)
+
+
+def mbn_net(dtype, seed):
+    """zoo.resnet50 at full width on 32 x 32 images, 10 classes, with its
+    13 tails fused, Nesterovs(MBN_LR, 0.9)."""
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.nn.updater import Nesterovs
+    with fuse_blocks(True):
+        net = zoo.resnet50(seed=seed, image_size=MBN_IMG,
+                           n_classes=MBN_CLASSES, dtype=getattr(zoo, dtype),
+                           updater=Nesterovs(MBN_LR, 0.9))
+    check(len(net._fusion_plans) == 13,
+          f"resnet50 matched {len(net._fusion_plans)} tails, expected 13")
+    return net
+
+
+def mbn_batches(n, b, seed):
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    return [DataSet(x, y) for x, y in resnet_batches(n, b, seed,
+                                                      size=MBN_IMG,
+                                                      classes=MBN_CLASSES)]
+
+
+def mbn_rank(port, rank, out_path):
+    """One rank of [meshed_bn]'s arm (b): a named gloo group of two on the
+    one card, ResNet-50 (F32, fused tails) meshed, MBN_GLOO_STEPS
+    fit_batch steps on this rank's half of each global batch. The sizes
+    of the BN collectives the steps made are recorded, and one step's
+    worth of them timed alone afterwards. Writes its trees and numbers to
+    ``out_path`` (.pt and .json)."""
+    import torch
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.ops import fused_block as fb
+    from deeplearning4j_tpu_torch.ops import normalization as norm
+    from deeplearning4j_tpu_torch.ops import registry
+    from deeplearning4j_tpu_torch.parallel import distributed as D
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+    D.initialize(f"127.0.0.1:{port}", 2, rank, backend="gloo",
+                 timeout_s=300)
+    try:
+        sizes = []
+        plain = norm.all_reduce_sums
+
+        def recorded(sync, *sums, rows):
+            sizes.append(sum(t.numel() for t in sums) + 1)
+            return plain(sync, *sums, rows=rows)
+
+        norm.all_reduce_sums = fb.all_reduce_sums = recorded
+        net = mbn_net("F32", SEED + 801)
+        net.use_mesh(make_mesh())
+        half = MBN_GLOBAL_B // 2
+        data = [DataSet(ds.features[rank * half:(rank + 1) * half],
+                        ds.labels[rank * half:(rank + 1) * half])
+                for ds in mbn_batches(MBN_GLOO_STEPS, MBN_GLOBAL_B,
+                                      SEED + 802)]
+        torch.cuda.synchronize()
+        registry.reset_launches()
+        step_ms = []
+        state1 = None
+        for ds in data:
+            t0 = time.perf_counter()
+            score = net.fit_batch(ds)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if state1 is None:
+                state1 = [x.detach().cpu().clone()
+                          for x in _leaf_list(net.state)]
+        launches = registry.launches()
+        per_step = sizes[:len(sizes) // MBN_GLOO_STEPS]
+        bufs = [torch.zeros(n, dtype=torch.float32, device=D.device())
+                for n in per_step]
+        coll_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for buf in bufs:
+                dist.all_reduce(buf)
+            torch.cuda.synchronize()
+            coll_ms.append((time.perf_counter() - t0) * 1e3)
+        sync = D.sync_check(net.params) and D.sync_check(net.state)
+        trees = {t: [x.detach().cpu() for x in _leaf_list(getattr(net, t))]
+                 for t in ("params", "state")}
+        trees["state1"] = state1
+        torch.save(trees, out_path + ".pt")
+        with open(out_path + ".json", "w") as f:
+            json.dump({"score": float(score), "step_ms": step_ms,
+                       "launches": launches, "sync": sync,
+                       "bn_collectives_per_step": len(per_step),
+                       "bn_floats_per_step": sum(per_step),
+                       "bn_collectives_ms": coll_ms[1:]}, f)
+    finally:
+        D.shutdown()
+
+
+def _tree_rel_err(a, b, names=None):
+    """{leaf: max |a - b| / (max |b| + 1e-6)} over the leaves of two
+    nets' tree dicts (``names``: only layers whose name starts so)."""
+    out = {}
+    for ln in b:
+        if names and not ln.startswith(names):
+            continue
+        for k in b[ln]:
+            x = a[ln][k].detach().cpu().double()
+            y = b[ln][k].detach().cpu().double()
+            out[f"{ln}.{k}"] = float((x - y).abs().max()
+                                     / (y.abs().max() + 1e-6))
+    return out
+
+
+def phase_meshed_bn(card=None):
+    """C.5 on the card: batch norm over the global batch when meshed.
+    (a) ResNet-50 at full width (32 x 32, 10 classes, BF16, 13 fused
+    tails) on a 1-rank NCCL group: the meshed captured step bit-equal to
+    the unmeshed one (params, BN state, updater state, scores), K4-K7 13
+    calls a step each, on their sm90 paths, in both. (b) Two gloo ranks
+    sharing the card, F32, global b = 16 (8 a rank): the ranks' params
+    and BN state bit-equal to each other, K4-K7 launched on both, the BN
+    running statistics after the first step within MBN_STEP1_TOL of one
+    process on the 16-row batch, and after MBN_GLOO_STEPS steps the
+    statistics and the head within the chaos yardstick (see
+    MBN_STEP1_TOL). Prints each arm's step time and the BN collectives'
+    time."""
+    import shutil
+    import tempfile
+
+    import torch
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn import multistep
+    from deeplearning4j_tpu_torch.nn.updater import _map
+    from deeplearning4j_tpu_torch.ops import fused_block as fb
+    from deeplearning4j_tpu_torch.ops import registry
+    from deeplearning4j_tpu_torch.parallel import distributed, make_mesh
+
+    t_phase = time.perf_counter()
+    info = distributed.initialize(f"127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        check(info["backend"] == "nccl", f"group {info}")
+        batches = mbn_batches(MBN_STEPS, MBN_B, SEED + 800)
+        arms = {}
+        for name in ("unmeshed", "meshed", "meshed_again",
+                     "unmeshed_again"):
+            net = mbn_net("BF16", SEED + 801)
+            if name.startswith("meshed"):
+                net.use_mesh(make_mesh())
+            step_batches = [net._step_batch(ds) for ds in batches]
+            torch.cuda.synchronize()
+            registry.reset_launches()
+            scores, ms, captures = captured_steps(net, step_batches)
+            launches = registry.launches()
+            check(captures == 1, f"{name}: {captures} captures")
+            for kern in fb.SM90_COUNTER.values():
+                check(launches.get(kern, 0) == 13 * MBN_STEPS,
+                      f"{name}: {kern} {launches.get(kern, 0)} in "
+                      f"{MBN_STEPS} steps, expected {13 * MBN_STEPS}")
+            arms[name] = (net, scores, ms, launches)
+        ref, ref_scores, _, ref_launches = arms["unmeshed"]
+        for name in ("meshed", "meshed_again", "unmeshed_again"):
+            net, scores, _, launches = arms[name]
+            check(scores == ref_scores, f"{name} scores {scores} != "
+                  f"{ref_scores}")
+            check(launches == ref_launches, f"{name} launched {launches}, "
+                  f"the unmeshed step {ref_launches}")
+            for tree in ("params", "state", "opt_state"):
+                check(_bits_equal(getattr(net, tree), getattr(ref, tree)),
+                      f"{name}: {tree} differ from the unmeshed captured "
+                      f"step's")
+        replay = {n: statistics.median(arms[n][2][multistep.WARMUP_STEPS
+                                                  + 1:]) for n in arms}
+        del arms, ref, net
+    finally:
+        distributed.shutdown()
+    phase("meshed_bn", arm="mesh_1rank_nccl",
+          model=f"resnet50(classes={MBN_CLASSES},{MBN_IMG}x{MBN_IMG},BF16,"
+          f"Nesterovs({MBN_LR},0.9),DL4J_TPU_FUSE_BLOCKS=1)", b=MBN_B,
+          steps=MBN_STEPS, bit_equal=True, captures=1,
+          k4_k7_sm90_calls_per_step=13,
+          launches_per_step=json.dumps({k: v // MBN_STEPS for k, v in
+                                        sorted(ref_launches.items())}),
+          step_ms_meshed=f"{statistics.mean([replay['meshed'], replay['meshed_again']]):.4f}",
+          step_ms_unmeshed=f"{statistics.mean([replay['unmeshed'], replay['unmeshed_again']]):.4f}",
+          card=card)
+
+    root = tempfile.mkdtemp(prefix="meshed_bn_")
+    procs = []
+    try:
+        port = _free_port()
+        here = os.path.dirname(os.path.abspath(__file__))
+        for r in range(2):
+            out = os.path.join(root, f"rank{r}")
+            err = open(out + ".err", "w")
+            code = f"import chip_smoke as c; c.mbn_rank({port}, {r}, {out!r})"
+            procs.append((subprocess.Popen(
+                [sys.executable, "-c", code], stderr=err,
+                stdout=subprocess.DEVNULL, cwd=here), out, err))
+        one = mbn_net("F32", SEED + 801)
+        whole = mbn_batches(MBN_GLOO_STEPS, MBN_GLOBAL_B, SEED + 802)
+        registry.reset_launches()
+        one_ms, one_state1 = [], None
+        for ds in whole:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one.fit_batch(ds)
+            torch.cuda.synchronize()
+            one_ms.append((time.perf_counter() - t0) * 1e3)
+            if one_state1 is None:
+                one_state1 = _map(lambda t: t.detach().clone(), one.state)
+        one_launches = registry.launches()
+        # the chaos yardstick: the same process on the rows permuted
+        permuted = []
+        for k in range(2):
+            perm = mbn_net("F32", SEED + 801)
+            idx = torch.randperm(MBN_GLOBAL_B, generator=torch.Generator()
+                                 .manual_seed(SEED + 803 + k)).cuda()
+            for ds in whole:
+                perm.fit_batch(DataSet(ds.features[idx], ds.labels[idx]))
+            permuted.append(perm)
+        res = []
+        for proc, out, err in procs:
+            try:
+                rc = proc.wait(timeout=600)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=60)
+                rc = "timeout"
+            err.close()
+            if rc != 0:
+                with open(err.name) as f:
+                    check(False, f"[meshed_bn] rank exited {rc}: "
+                          f"{f.read()[-3000:]}")
+            with open(out + ".json") as f:
+                res.append(json.load(f))
+        t0_, t1_ = (torch.load(procs[r][1] + ".pt") for r in range(2))
+        for tree in ("params", "state"):
+            check(all(torch.equal(a, b) for a, b in zip(t0_[tree],
+                                                        t1_[tree])),
+                  f"the two ranks' {tree} differ")
+        check(res[0]["sync"] and res[1]["sync"], "sync_check failed")
+        for r in res:
+            for kern in (fb.STATS, fb.APPLY, fb.BWD_STATS, fb.BWD_APPLY):
+                check(r["launches"].get(kern, 0) >= 13 * MBN_GLOO_STEPS,
+                      f"a rank launched {kern} {r['launches'].get(kern, 0)}"
+                      f" times in {MBN_GLOO_STEPS} steps")
+        for kern in (fb.STATS, fb.APPLY, fb.BWD_STATS, fb.BWD_APPLY):
+            check(res[0]["launches"].get(kern) == res[1]["launches"].get(
+                kern), f"the ranks launched {kern} differently")
+        # the ranks' trees back into a net's structure (``_fill`` is
+        # ``_leaves``' inverse), against one process
+        from deeplearning4j_tpu_torch.nn.updater import _fill
+        got = {t: _fill(getattr(one, "state" if t == "state1" else t),
+                        iter(t0_[t])) for t in ("params", "state", "state1")}
+        step1 = max(_tree_rel_err(got["state1"], one_state1).values())
+        check(step1 <= MBN_STEP1_TOL, f"two ranks vs one process after the "
+              f"first step: BN statistics {step1:.3e} > {MBN_STEP1_TOL}")
+        worst_state = max(_tree_rel_err(got["state"], one.state).values())
+        worst_head = max(_tree_rel_err(got["params"], one.params,
+                                       MBN_HEAD).values())
+        chaos_state = max(max(_tree_rel_err(p.state, one.state).values())
+                          for p in permuted)
+        chaos_head = max(max(_tree_rel_err(p.params, one.params,
+                                           MBN_HEAD).values())
+                         for p in permuted)
+        for what, err, chaos in (("BN statistics", worst_state,
+                                  chaos_state),
+                                 ("head", worst_head, chaos_head)):
+            bound = MBN_CHAOS_FACTOR * chaos + MBN_CHAOS_FLOOR
+            check(err <= bound, f"two ranks vs one process after "
+                  f"{MBN_GLOO_STEPS} steps: {what} {err:.3e} > {bound:.3e} "
+                  f"({MBN_CHAOS_FACTOR} x the permuted runs' {chaos:.3e} "
+                  f"+ {MBN_CHAOS_FLOOR})")
+        del permuted
+    finally:
+        for proc, _, err in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+            err.close()
+        shutil.rmtree(root, ignore_errors=True)
+    phase("meshed_bn", arm="two_processes_gloo", backend="gloo", ranks=2,
+          global_b=MBN_GLOBAL_B, steps=MBN_GLOO_STEPS, policy="F32",
+          ranks_bit_equal=True,
+          bn_state_step1_vs_one_process=f"{step1:.3e}",
+          step1_bound=MBN_STEP1_TOL,
+          bn_state_vs_one_process=f"{worst_state:.3e}",
+          head_vs_one_process=f"{worst_head:.3e}",
+          permuted_one_process_state=f"{chaos_state:.3e}",
+          permuted_one_process_head=f"{chaos_head:.3e}",
+          step_ms_rank0=json.dumps([round(v, 3) for v in res[0]["step_ms"]]),
+          step_ms_rank1=json.dumps([round(v, 3) for v in res[1]["step_ms"]]),
+          step_ms_one_process=json.dumps([round(v, 3) for v in one_ms]),
+          bn_collectives_per_step=res[0]["bn_collectives_per_step"],
+          bn_floats_per_step=res[0]["bn_floats_per_step"],
+          bn_collectives_ms_per_step=json.dumps(
+              [round(v, 3) for v in res[0]["bn_collectives_ms"]]),
+          k4_k7_launches_rank0=json.dumps(
+              {k: res[0]["launches"].get(k, 0) for k in
+               (fb.STATS, fb.APPLY, fb.BWD_STATS, fb.BWD_APPLY)}),
+          k4_k7_launches_one_process=json.dumps(
+              {k: one_launches.get(k, 0) for k in
+               (fb.STATS, fb.APPLY, fb.BWD_STATS, fb.BWD_APPLY)}),
+          phase_s=f"{time.perf_counter() - t_phase:.1f}", card=card)
+
+
+# ------------------------------------------------- the composed routes
+# a composed route's output on the card against the port's CPU run of
+# the same weights: F16 rounds every product and activation to 11 bits
+# in another order on the card (cuBLAS, cuDNN) than on the CPU, through
+# 2-4 layers: probabilities 2e-2 absolute (BF16, hardsigmoid: the same
+# bound, 8 bits, where the plain loop's products are f32)
+ROUTE_PROB_TOL = 2e-2
+ROUTE_STEPS = 2
+ROUTE_RNN_B, ROUTE_RNN_T = 32, 64
+ROUTE_GPT_B = 8
+ROUTE_RES_B = 16
+
+
+def _rnn_conf_net(gate, dtype, device="cuda", hidden=512, seed=SEED + 820):
+    """The zoo's char-RNN (V = 80, 2 x 512) with ``gate`` as its LSTMs'
+    gate activation."""
+    import dataclasses
+    from deeplearning4j_tpu_torch import MultiLayerNetwork, zoo
+    net = zoo.char_rnn(hidden=hidden, seed=seed, dtype=getattr(zoo, dtype),
+                       device="cpu")
+    layers = [dataclasses.replace(l, gate_activation=gate)
+              if hasattr(l, "gate_activation") else l
+              for l in net.conf.layers]
+    conf = dataclasses.replace(net.conf, layers=layers)
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+@contextlib.contextmanager
+def counting_calls(op):
+    """Counts the calls of ``op``'s CUDA implementation while open."""
+    from deeplearning4j_tpu_torch.ops import registry
+    impl = registry._IMPLS[op]["cuda"]
+    calls = [0]
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return impl(*a, **kw)
+
+    registry._IMPLS[op]["cuda"] = counted
+    try:
+        yield calls
+    finally:
+        registry._IMPLS[op]["cuda"] = impl
+
+
+def _route_case(name, net, batches, x_out, ops, counters, kernels, cpu_net,
+                card):
+    """ROUTE_STEPS fit_batch steps and an output on the card: each route
+    counter in ``counters`` equals the calls of its op, the kernel
+    counters ``kernels`` stay at 0, the scores are finite, and the output
+    is within ROUTE_PROB_TOL of ``cpu_net`` (the same weights) on the
+    CPU."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import registry
+    torch.cuda.synchronize()
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        calls = {op: stack.enter_context(counting_calls(op)) for op in ops}
+        scores = [float(net.fit_batch(ds)) for ds in batches]
+        probs = net.output(x_out)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = registry.launches()
+    routes = registry.routes()
+    for op, counter in counters.items():
+        check(routes.get(counter, 0) == calls[op][0] > 0,
+              f"[routes] {name}: {counter} counted {routes.get(counter, 0)}"
+              f", {op} was called {calls[op][0]} times")
+    for kern in kernels:
+        check(launches.get(kern, 0) == 0, f"[routes] {name}: {kern} "
+              f"launched {launches.get(kern, 0)} times on a composed route")
+    check(all(math.isfinite(s) for s in scores), f"[routes] {name}: scores "
+          f"{scores}")
+    cpu_net.params = {ln: {k: t.detach().cpu().clone() for k, t in lp.items()}
+                      for ln, lp in net.params.items()}
+    cpu_net.state = {ln: {k: t.detach().cpu().clone() for k, t in lp.items()}
+                     for ln, lp in (net.state or {}).items()}
+    want = cpu_net.output(x_out.cpu())
+    err = float((probs.detach().float().cpu() - want.float()).abs().max())
+    check(err <= ROUTE_PROB_TOL, f"[routes] {name}: card vs CPU "
+          f"{err:.3e} > {ROUTE_PROB_TOL}")
+    phase("routes", case=name, routes=json.dumps(routes),
+          kernel_launches=json.dumps({k: launches.get(k, 0)
+                                      for k in kernels}),
+          scores=json.dumps([round(s, 5) for s in scores]),
+          out_vs_cpu=f"{err:.3e}", bound=ROUTE_PROB_TOL,
+          wall_ms=f"{wall_ms:.1f}", card=card)
+
+
+def phase_routes(card=None):
+    """C.6 on the card: each configuration the JAX package sends to XLA
+    and the kernels do not cover trains through its named, counted
+    composed route: the char-RNN (V = 80, 2 x 512) with hardsigmoid gates
+    (BF16); the char-RNN, gpt_mini (full width) and ResNet-50 (13 fused
+    tails, 32 x 32, 10 classes) under zoo.F16; gpt_mini at dh = 32 (8
+    heads of width 256, BF16). Then kernel-covered calls of each op, the
+    forward ones and with grad the backward ones, move the counters of
+    K1-K7."""
+    import torch
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.ops import attention as att
+    from deeplearning4j_tpu_torch.ops import fused_block as fb
+    from deeplearning4j_tpu_torch.ops import lstm as lstm_ops
+    from deeplearning4j_tpu_torch.ops import registry
+
+    t_phase = time.perf_counter()
+    lstm_k = ("lstm_fwd", "lstm_bwd", "lstm_fwd_sm90", "lstm_bwd_sm90")
+    flash_k = ("flash_attn_fwd", "flash_attn_fwd_sm90")
+    fused_k = (fb.STATS, fb.APPLY, fb.BWD_STATS, fb.BWD_APPLY)
+    rnn = on_card(markov_batches(ROUTE_STEPS, ROUTE_RNN_B, ROUTE_RNN_T, 80,
+                                 SEED + 821))
+    x_rnn = rnn[0].features[:4]
+    for name, gate, dtype, counters in (
+            ("char_rnn_hardsigmoid", "hardsigmoid", "BF16",
+             {"lstm_sequence":
+              "lstm_sequence:composed[gate_act=hardsigmoid]"}),
+            ("char_rnn_f16", "sigmoid", "F16",
+             {"lstm_sequence": "lstm_sequence:composed[dtype=float16]",
+              "lstm_sequence_bwd":
+              "lstm_sequence_bwd:composed[dtype=float16]"})):
+        net = _rnn_conf_net(gate, dtype)
+        _route_case(name, net, rnn, x_rnn, tuple(counters), counters,
+                    lstm_k, _rnn_conf_net(gate, dtype, device="cpu"), card)
+        del net
+    gpt = on_card(markov_batches(ROUTE_STEPS, ROUTE_GPT_B, DEC_C, DEC_V,
+                                 SEED + 822))
+    x_gpt = gpt[0].features[:2]
+    for name, heads, dtype, reason in (
+            ("gpt_mini_f16", DEC_H, "F16", "dtype=float16"),
+            ("gpt_mini_dh32", DEC_W // 32, "BF16", "dh=32")):
+        kw = dict(vocab_size=DEC_V, max_len=DEC_C, seed=SEED + 823,
+                  width=DEC_W, n_layers=DEC_L, n_heads=heads,
+                  dtype=getattr(zoo, dtype))
+        net = zoo.gpt_mini(**kw)
+        _route_case(name, net, gpt, x_gpt, ("causal_mha",),
+                    {"causal_mha": f"flash_attn:composed[{reason}]"},
+                    flash_k, zoo.gpt_mini(device="cpu", **kw), card)
+        del net
+    res = mbn_batches(ROUTE_STEPS, ROUTE_RES_B, SEED + 824)
+    net = mbn_net("F16", SEED + 825)
+    cpu = graph_copy(net, "cpu", False)
+    _route_case("resnet50_f16", net, res, res[0].features[:4],
+                ("conv1x1_bn_add_relu",),
+                {"conv1x1_bn_add_relu": "fused_tail:composed[dtype=float16]"},
+                fused_k, cpu, card)
+    del net, cpu
+
+    # one kernel-covered call of each op moves its kernel counter
+    g = torch.Generator(device="cuda").manual_seed(SEED + 826)
+    with torch.no_grad():
+        registry.reset_launches()
+        n, b, T = 512, 32, 8
+        xz = torch.randn((T, b, 4 * n), generator=g, device="cuda").bfloat16()
+        h0 = torch.zeros((b, n), device="cuda", dtype=torch.bfloat16)
+        Wh = (0.05 * torch.randn((n, 4 * n), generator=g,
+                                 device="cuda")).bfloat16()
+        p = torch.zeros((3, n), device="cuda", dtype=torch.bfloat16)
+        lstm_ops.lstm_sequence(xz, h0, h0, Wh, p)
+        q = torch.randn((2, 256, 4, 64), generator=g,
+                        device="cuda").bfloat16()
+        att.causal_mha(q, q, q)
+        x = torch.randn((512, 256), generator=g, device="cuda").bfloat16()
+        W = (0.05 * torch.randn((256, 256), generator=g,
+                                device="cuda")).bfloat16()
+        fb.conv1x1_bn_add_relu(x, W, torch.ones(256, device="cuda"),
+                               torch.zeros(256, device="cuda"), x,
+                               shift=torch.zeros(256, device="cuda"),
+                               eps=1e-5)
+    # and with grad, the backward kernels: K2 through LstmSequenceFn, K6
+    # and K7 through FusedTailFn
+    xz.requires_grad_()
+    lstm_ops.lstm_sequence(xz, h0, h0, Wh, p).y.float().sum().backward()
+    x.requires_grad_()
+    fb.conv1x1_bn_add_relu(x, W, torch.ones(256, device="cuda"),
+                           torch.zeros(256, device="cuda"), x,
+                           shift=torch.zeros(256, device="cuda"),
+                           eps=1e-5)[0].float().sum().backward()
+    torch.cuda.synchronize()
+    moved = registry.launches()
+    for kern in ("lstm_fwd", "lstm_bwd", "flash_attn_fwd", fb.STATS,
+                 fb.APPLY, fb.BWD_STATS, fb.BWD_APPLY):
+        check(moved.get(kern, 0) > 0, f"[routes] a kernel-covered call did "
+              f"not launch {kern}: {moved}")
+    check(not registry.routes(), f"[routes] a kernel-covered call took a "
+          f"composed route: {registry.routes()}")
+    phase("routes", case="kernel_covered", launches=json.dumps(moved),
+          phase_s=f"{time.perf_counter() - t_phase:.1f}", card=card)
+
+
+# ------------------------------------------------------- coordination
+CO_RECORDS = 64
+CO_GLOBAL_B = 8
+CO_CKPT_EVERY = 3
+CO_POISON_STEP = 4
+CO_KILL_STEP = 5
+CO_SIGTERM_STEP = 4
+CO_TIMEOUT_S = 10.0
+CO_SEED = SEED + 840
+CO_STEPS = CO_RECORDS // CO_GLOBAL_B
+
+
+def co_corpus():
+    """CO_RECORDS token sequences of DEC_C + 1 tokens from the order-2
+    Markov chain (markov_batches), as ids."""
+    rng = np.random.default_rng(CO_SEED)
+    table = rng.integers(0, DEC_V, (DEC_V, 2, 3))
+    succ = table[:, np.arange(DEC_V) % 2].transpose(1, 0, 2)
+    seq = np.empty((CO_RECORDS, DEC_C + 1), np.int64)
+    seq[:, :2] = rng.integers(0, DEC_V, (CO_RECORDS, 2))
+    for t in range(2, DEC_C + 1):
+        pick = rng.choice(3, size=CO_RECORDS, p=[0.6, 0.3, 0.1])
+        seq[:, t] = succ[seq[:, t - 2], seq[:, t - 1], pick]
+    return seq
+
+
+def co_pipeline(seq, size, rank, seen):
+    """Record ids sharded by rank, each mapped to its one-hot (features,
+    labels) pair, which also notes the id in ``seen``, then batched."""
+    from deeplearning4j_tpu_torch import datapipe
+    eye = np.eye(DEC_V, dtype=np.float32)
+    ids = np.arange(CO_RECORDS, dtype=np.float32)[:, None]
+
+    def expand(rec):
+        i = int(rec[0][0])
+        seen.append(i)
+        return eye[seq[i, :-1]], eye[seq[i, 1:]]
+
+    return (datapipe.from_arrays(ids, ids).shard(size, rank).map(expand)
+            .batch(CO_GLOBAL_B // size))
+
+
+def co_worker(args):
+    """One fleet member of [coordinated] (``chip_smoke.py --coord-worker
+    <json>``): a gloo group over the worker's size on the one card,
+    gpt_mini at full width (BF16, K3) meshed, the coordinated supervisor
+    over ``co_pipeline`` with the arm's fault plan and a statistics
+    collector. Writes its params, result and K3 launches to the output
+    directory; a lost peer exits PEER_LOST_EXIT."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import registry
+    from deeplearning4j_tpu_torch.parallel import distributed as D
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+    from deeplearning4j_tpu_torch.parallel.stats import (
+        TrainingStatsCollector)
+    from deeplearning4j_tpu_torch.resilience import (
+        PEER_LOST_EXIT, FaultInjector, SupervisorConfig, TrainingSupervisor)
+    a = json.loads(args)
+    size, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
+    t0 = time.perf_counter()
+    D.initialize(backend="gloo")
+    net = dec_net("BF16", seed=CO_SEED + 1)
+    net.use_mesh(make_mesh())
+    seen = []
+    pipe = co_pipeline(co_corpus(), size, rank, seen)
+    inj = FaultInjector()
+    for kind, (step, r) in a["faults"].items():
+        {"poison": inj.poison_step, "kill": inj.kill_at_step,
+         "sigterm": inj.sigterm_at_step}[kind](step, rank=r)
+    cfg = SupervisorConfig(
+        checkpoint_dir=a["ckpt"], checkpoint_every_steps=CO_CKPT_EVERY,
+        keep_checkpoints=10, backoff_initial_s=0.01, nan_lr_backoff=1.0,
+        coordinate=True, collective_timeout_s=CO_TIMEOUT_S)
+    st = TrainingStatsCollector(worker_id=f"worker_{rank}")
+    sup = TrainingSupervisor(net, cfg, injector=inj, stats_collector=st)
+    registry.reset_launches()
+    with inj.installed():
+        res = sup.fit_pipeline(pipe, epochs=1)
+    torch.cuda.synchronize()
+    inc = os.environ.get("DL4J_TPU_INCARNATION", "0")
+    out = a["out"]
+    torch.save([t.detach().cpu() for t in _leaf_list(net.params)],
+               os.path.join(out, f"params_l{inc}_r{rank}.pt"))
+    phases = {}
+    for e in st.events:
+        phases.setdefault(e.phase, [0, 0.0])
+        phases[e.phase][0] += 1
+        phases[e.phase][1] += e.duration_ms
+    doc = {"status": res.status, "final_step": res.final_step, "size": size,
+           "resumed_from": res.resumed_from and os.path.basename(
+               res.resumed_from),
+           "events": [[e.kind, e.step, e.detail] for e in res.events],
+           "stats": res.stats, "peer_loss": res.peer_loss, "seen": seen,
+           "phases": {k: [n, round(ms, 3)] for k, (n, ms) in phases.items()},
+           "k3": registry.launches().get("flash_attn_fwd", 0),
+           "k3_sm90": registry.launches().get("flash_attn_fwd_sm90", 0),
+           "wall_s": time.perf_counter() - t0,
+           "backend": D.process_info()["backend"]}
+    with open(os.path.join(out, f"result_l{inc}_r{rank}.json"), "w") as f:
+        json.dump(doc, f)
+    if res.status == "peer_lost":
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(PEER_LOST_EXIT)
+    D.shutdown()
+    return 0
+
+
+def _co_fleet(root, arm, faults, max_launches=1, audit=None):
+    """One arm's fleet of two workers on the card through the port's
+    launcher (the kernels built before, loaded from the shared build
+    directory): (FleetResult, checkpoint dir, output dir, wall s)."""
+    from deeplearning4j_tpu_torch.ops import _build
+    from deeplearning4j_tpu_torch.resilience.launcher import FleetLauncher
+    ckpt, out = os.path.join(root, f"ckpt{arm}"), os.path.join(root,
+                                                               f"out{arm}")
+    os.makedirs(out)
+    script = os.path.abspath(__file__)
+
+    def build_argv(size, rank, coordinator):
+        return [sys.executable, script, "--coord-worker",
+                json.dumps({"ckpt": ckpt, "out": out, "faults": faults})]
+
+    class Audited(FleetLauncher):
+        def launch_once(self, size, launch_index=0):
+            rec = super().launch_once(size, launch_index)
+            if audit is not None:
+                audit(rec)
+            return rec
+
+    t0 = time.perf_counter()
+    res = Audited(build_argv, min_size=1, max_launches=max_launches,
+                  straggler_grace_s=3 * CO_TIMEOUT_S, launch_timeout_s=600,
+                  cwd=os.path.dirname(script), log_dir=out,
+                  compile_cache_dir=str(_build.build_dir())).run(2)
+    return res, ckpt, out, time.perf_counter() - t0
+
+
+def _co_doc(out, launch, rank):
+    with open(os.path.join(out, f"result_l{launch}_r{rank}.json")) as f:
+        return json.load(f)
+
+
+def _co_params(out, launch, rank):
+    import torch
+    return torch.load(os.path.join(out, f"params_l{launch}_r{rank}.pt"))
+
+
+def _co_log(out):
+    import glob
+    return "\n".join(open(p).read()[-2500:]
+                     for p in sorted(glob.glob(os.path.join(out, "*.log"))))
+
+
+def phase_coordinated(card=None):
+    """The port's counterpart of scripts/chaos_multihost.py on the card:
+    fleets of two gloo workers sharing it, started by the port's
+    FleetLauncher; gpt_mini at full width (BF16, K3), coordinate=True,
+    collective_timeout_s = CO_TIMEOUT_S, fit_pipeline over a datapipe
+    sharded by rank, a TrainingStatsCollector on each rank. Arm A: a NaN
+    param leaf on rank 0 alone at step 4, both ranks roll back, params
+    bit-equal across ranks and to a no-fault control fleet. Arm B:
+    SIGKILL on rank 1 at step 5, rank 0 names it within the deadline,
+    writes a peer_lost flight record and no further checkpoint, exits
+    PEER_LOST_EXIT; the launcher relaunches one process, which restores
+    the two-process checkpoint (reshard) and lands bit for bit on a
+    one-process control restoring the same checkpoint here, its records
+    tiling the epoch from the low-water mark. Arm C: SIGTERM on rank 1,
+    both ranks stop at one step with one barriered checkpoint and both
+    run reports. The four fleets run at once."""
+    import glob
+    import shutil
+    import tempfile
+
+    import torch
+    from deeplearning4j_tpu_torch.datapipe.reshard import (low_water_mark,
+                                                           remap_for)
+    from deeplearning4j_tpu_torch.resilience.launcher import PEER_LOST_EXIT
+    from deeplearning4j_tpu_torch.utils.checkpoint import (
+        find_latest_checkpoint, read_checkpoint_meta,
+        restore_multi_layer_network)
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="coordinated_")
+    state = {}
+
+    def audit(rec):
+        if rec.peer_lost_ranks:
+            latest = find_latest_checkpoint(os.path.join(root, "ckptB"))
+            state["latest"] = latest
+            state["meta"] = read_checkpoint_meta(latest)
+            state["t_detect"] = time.perf_counter()
+
+    plans = {"A": ({"poison": [CO_POISON_STEP, 0]}, {}),
+             "A0": ({}, {}),
+             "B": ({"kill": [CO_KILL_STEP, 1]},
+                   {"max_launches": 3, "audit": audit}),
+             "C": ({"sigterm": [CO_SIGTERM_STEP, 1]}, {})}
+    done = {}
+
+    def run(arm, faults, kw):
+        try:
+            done[arm] = _co_fleet(root, arm, faults, **kw)
+        except BaseException as e:  # raised below, on the main thread
+            done[arm] = e
+
+    try:
+        threads = [threading.Thread(target=run, args=(arm, f, kw),
+                                    daemon=True)
+                   for arm, (f, kw) in plans.items()]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=1800)
+        for arm in plans:
+            check(arm in done, f"[coordinated] arm {arm} did not finish")
+            if isinstance(done[arm], BaseException):
+                raise done[arm]
+        walls = {arm: done[arm][3] for arm in plans}
+
+        # arm A: lockstep rollback, bit-equal across ranks and to A0
+        resA, _, outA, _ = done["A"]
+        resA0, _, outA0, _ = done["A0"]
+        check(resA.status == "completed" and resA0.status == "completed",
+              f"[coordinated] A {resA.status} A0 {resA0.status}:\n"
+              f"{_co_log(outA)}")
+        dA = [_co_doc(outA, 0, r) for r in (0, 1)]
+        for d in dA:
+            check(d["status"] == "completed" and d["final_step"] == CO_STEPS
+                  and d["stats"]["rollbacks_total"] == 1,
+                  f"[coordinated] arm A rank: {d['status']} at "
+                  f"{d['final_step']}, {d['stats']}")
+            check(d["backend"] == "gloo" and d["k3"] > 0
+                  and d["k3_sm90"] == d["k3"], f"[coordinated] arm A: K3 "
+                  f"{d['k3']} ({d['k3_sm90']} sm90) on {d['backend']}")
+        pA = [_co_params(outA, 0, r) for r in (0, 1)]
+        pA0 = _co_params(outA0, 0, 0)
+        check(all(torch.equal(a, b) for a, b in zip(pA[0], pA[1])),
+              "[coordinated] arm A: the ranks' params differ")
+        check(all(torch.equal(a, b) for a, b in zip(pA[0], pA0)),
+              "[coordinated] arm A: params differ from the no-fault fleet")
+        phase("coordinated", arm="A_lockstep_rollback",
+              rollbacks=[d["stats"]["rollbacks_total"] for d in dA],
+              bit_equal_ranks=True, bit_equal_control=True,
+              k3_launches=[d["k3"] for d in dA],
+              phases_rank0=json.dumps(dA[0]["phases"]),
+              wall_s=f"{walls['A']:.1f}",
+              control_wall_s=f"{walls['A0']:.1f}", card=card)
+
+        # arm B: the peer's death named, the relaunch restores and matches
+        resB, ckptB, outB, _ = done["B"]
+        check(resB.status == "completed" and resB.final_size == 1
+              and len(resB.launches) == 2,
+              f"[coordinated] arm B {resB}:\n{_co_log(outB)}")
+        first = resB.launches[0]
+        check(first.peer_lost_ranks == [0]
+              and first.workers[0].returncode == PEER_LOST_EXIT
+              and first.workers[1].returncode < 0,
+              f"[coordinated] arm B first launch {first.workers}")
+        d0 = _co_doc(outB, 0, 0)
+        check(d0["status"] == "peer_lost"
+              and d0["peer_loss"]["lost_ranks"] == [1]
+              and d0["peer_loss"]["detection_s"] <= CO_TIMEOUT_S + 5,
+              f"[coordinated] arm B survivor {d0['status']} "
+              f"{d0['peer_loss']}")
+        flights = [p for p in glob.glob(os.path.join(ckptB, "flight_*"))
+                   if json.load(open(p)).get("reason") == "peer_lost"]
+        check(flights, "[coordinated] arm B: no peer_lost flight record")
+        step = int(os.path.basename(state["latest"]).split("_")[1])
+        check(step == (CO_KILL_STEP // CO_CKPT_EVERY) * CO_CKPT_EVERY,
+              f"[coordinated] arm B: newest checkpoint {state['latest']}")
+        d1 = _co_doc(outB, 1, 0)
+        low = low_water_mark(state["meta"]["datapipe"])
+        check(d1["status"] == "completed" and d1["size"] == 1
+              and d1["resumed_from"] == os.path.basename(state["latest"])
+              and any(e[0] == "reshard" for e in d1["events"])
+              and d1["seen"] == list(range(low, CO_RECORDS))
+              and d1["final_step"] == CO_STEPS,
+              f"[coordinated] arm B relaunch {d1['status']} "
+              f"{d1['resumed_from']} seen {d1['seen'][:4]}.. low {low}")
+        control = restore_multi_layer_network(state["latest"])
+        seen = []
+        pipe = co_pipeline(co_corpus(), 1, 0, seen)
+        pipe.load_state_dict(remap_for(pipe, state["meta"]["datapipe"]))
+        for ds in pipe.stream(1):
+            control.fit_batch(ds)
+        torch.cuda.synchronize()
+        check(seen == d1["seen"], "[coordinated] arm B: the control read "
+              "other records")
+        check(all(torch.equal(a, b.detach().cpu()) for a, b in zip(
+            _co_params(outB, 1, 0), _leaf_list(control.params))),
+            "[coordinated] arm B: the survivor's params differ from the "
+            "one-process control's")
+        del control
+        phase("coordinated", arm="B_peer_loss_relaunch",
+              lost_ranks=d0["peer_loss"]["lost_ranks"],
+              detection_s=f"{d0['peer_loss']['detection_s']:.3f}",
+              collective_timeout_s=CO_TIMEOUT_S,
+              exit_codes=[w.returncode for w in first.workers],
+              newest_checkpoint=os.path.basename(state["latest"]),
+              low_water=low, relaunch_size=resB.final_size,
+              bit_equal_control=True,
+              k3_launches=[d0["k3"], d1["k3"]],
+              phases_relaunch=json.dumps(d1["phases"]),
+              wall_s=f"{walls['B']:.1f}", card=card)
+
+        # arm C: SIGTERM on rank 1 stops both at one step
+        resC, ckptC, outC, _ = done["C"]
+        check(resC.status == "completed", f"[coordinated] arm C {resC}:\n"
+              f"{_co_log(outC)}")
+        dC = [_co_doc(outC, 0, r) for r in (0, 1)]
+        check(all(d["status"] == "preempted" for d in dC)
+              and dC[0]["final_step"] == dC[1]["final_step"] < CO_STEPS,
+              f"[coordinated] arm C {[(d['status'], d['final_step']) for d in dC]}")
+        latest = find_latest_checkpoint(ckptC)
+        check(latest.endswith(f"step_{dC[0]['final_step']}")
+              and os.path.exists(os.path.join(ckptC, "run_report.json"))
+              and os.path.exists(os.path.join(ckptC, "run_report.r1.json")),
+              f"[coordinated] arm C: {latest}, {os.listdir(ckptC)}")
+        pC = [_co_params(outC, 0, r) for r in (0, 1)]
+        check(all(torch.equal(a, b) for a, b in zip(pC[0], pC[1])),
+              "[coordinated] arm C: the ranks' params differ")
+        phase("coordinated", arm="C_sigterm_broadcast",
+              final_steps=[d["final_step"] for d in dC],
+              checkpoint=os.path.basename(latest),
+              run_reports=["run_report.json", "run_report.r1.json"],
+              k3_launches=[d["k3"] for d in dC],
+              wall_s=f"{walls['C']:.1f}",
+              phase_s=f"{time.perf_counter() - t_phase:.1f}", card=card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -9414,6 +10267,8 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
         return 2
+    if "--coord-worker" in sys.argv[1:]:
+        return co_worker(sys.argv[sys.argv.index("--coord-worker") + 1])
     # f32 matrix products in full f32 (PyTorch's default, stated); the F32
     # convolutions turn cuDNN's TF32 off themselves (ops/convolution.py)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -9477,7 +10332,10 @@ def main() -> int:
             return 0
     for flag, only in (("--front-door", phase_front_door),
                        ("--cold-start", phase_cold_start),
-                       ("--dashboard", phase_dashboard)):
+                       ("--dashboard", phase_dashboard),
+                       ("--meshed-bn", phase_meshed_bn),
+                       ("--routes", phase_routes),
+                       ("--coordinated", phase_coordinated)):
         if flag in sys.argv[1:]:
             only(phase_device())
             print(ok_line, flush=True)
@@ -9527,6 +10385,9 @@ def main() -> int:
     phase_dashboard(card)
     phase_analysis(card)
     phase_data_parallel(card)
+    phase_meshed_bn(card)
+    phase_routes(card)
+    phase_coordinated(card)
     phase_stream_split()
     profiler_probe("after_all", profiles=5, names=names)
     phase("profiler", pause_s=PROFILE_PAUSE_S, **PROFILES)

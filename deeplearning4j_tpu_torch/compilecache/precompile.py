@@ -45,7 +45,7 @@ def precompile_serving(net, *, cache_dir: str, max_batch: int = 1024,
     ladder (and ``decode_engine``'s ladders) and return the manifest
     ``serving`` entry. Raises ValueError when the row shapes cannot be
     inferred and ``input_shapes`` was not given; ``mesh`` is refused as
-    the server refuses it (mesh serving, ROADMAP.md A.5's open half)."""
+    the server refuses it (mesh serving, ROADMAP.md A.5 part 2)."""
     from deeplearning4j_tpu_torch.serving.batcher import bucket_ladder
     from deeplearning4j_tpu_torch.serving.server import NOT_PORTED, \
         ModelServer

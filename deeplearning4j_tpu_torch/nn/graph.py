@@ -98,7 +98,7 @@ class ComputationGraph:
         ``make_mesh``): parameters replicated over ``data_axis``, each rank
         steps on its local batch, one gradient all-reduce a step (on NCCL
         inside the captured step). ``model_axis``/``tp_rules`` (tensor
-        parallelism) wait for ROADMAP.md A.5's open half and raise."""
+        parallelism) wait for ROADMAP.md A.5 part 2 and raise."""
         from deeplearning4j_tpu_torch.parallel.data_parallel import \
             use_mesh
         return use_mesh(self, mesh, data_axis, model_axis, tp_rules)

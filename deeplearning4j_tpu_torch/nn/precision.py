@@ -26,6 +26,8 @@ The score a step returns is the TRUE (unscaled) loss.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from deeplearning4j_tpu_torch.nn.updater import (_fill, _leaves,
@@ -101,19 +103,26 @@ def build_step_fn(loss_fn, layers, gc, lr_scale, reduce=None):
     ``it`` is the iteration (an int, or the net's int32 device twin).
     A leaf that does not require grad (a frozen layer's, see
     nn/multistep.py's ``step_leaves``) gets no gradient and no update.
-    ``reduce(grads, loss, labels, lmask) -> (grads, loss)``, when given,
-    runs between the (unscaled) gradients and the update: a meshed
-    step's all-reduce (parallel/data_parallel.py)."""
+    ``reduce``, when given, is a meshed step's collectives
+    (parallel/data_parallel.py ``GradAllReduce``): ``reduce.share(labels,
+    lmask)`` before the forward, ``reduce.batch_stats(share)`` around the
+    forward and backward, and ``reduce(grads, loss, share) -> (grads,
+    loss)`` between the (unscaled) gradients and the update."""
     policy = gc.dtype
     mode = policy.loss_scale_mode()
     master = getattr(torch, policy.param_dtype)
 
     if mode is None:
         def step(params, state, opt_state, it, *data):
-            loss, new_state = loss_fn(params, state, *data)
-            grads = tree_grads(loss, params)
-            if reduce is not None:
-                grads, loss = reduce(grads, loss, data[1], data[3])
+            if reduce is None:
+                loss, new_state = loss_fn(params, state, *data)
+                grads = tree_grads(loss, params)
+            else:
+                share = reduce.share(data[1], data[3])
+                with reduce.batch_stats(share):
+                    loss, new_state = loss_fn(params, state, *data)
+                    grads = tree_grads(loss, params)
+                grads, loss = reduce(grads, loss, share)
             apply_layer_updates(layers, gc, params, grads, opt_state, it,
                                 lr_scale)
             return new_state, loss.detach()
@@ -123,13 +132,16 @@ def build_step_fn(loss_fn, layers, gc, lr_scale, reduce=None):
     def step(params, state, opt_state, it, *data):
         ls = opt_state[LOSS_SCALE_KEY]
         scale = ls["scale"]
-        loss, new_state = loss_fn(params, state, *data)
-        grads = tree_grads(loss * scale.to(loss.dtype), params)
+        share = None if reduce is None else reduce.share(data[1], data[3])
+        with (contextlib.nullcontext() if reduce is None
+              else reduce.batch_stats(share)):
+            loss, new_state = loss_fn(params, state, *data)
+            grads = tree_grads(loss * scale.to(loss.dtype), params)
         inv = (1.0 / scale).to(master)
         grads = _fill(grads, iter([None if g is None else g.to(master) * inv
                                    for g in _leaves(grads)]))
         if reduce is not None:
-            grads, loss = reduce(grads, loss, data[1], data[3])
+            grads, loss = reduce(grads, loss, share)
         finite = all_finite(grads)
         # the skip as a select on the card: no host read
         kept = list(_leaves(params)) + [

@@ -20,8 +20,12 @@ softmax run in f32 whatever the compute dtype; masked positions get
 - ``causal_mha``: dispatch by device (ops/registry.py). A CPU tensor runs
   ``causal_mha_exact``. A CUDA tensor runs ``csrc/flash_attn_fwd.cu`` (K3,
   op ``flash_attn_fwd``, replaces ``_flash_kernel``) for the case it
-  covers (q_start == 0, tq == tk, dh 64 or 128, bf16 or f32) and raises
-  ``NotImplementedError`` for anything else; with grad on it goes through
+  covers (q_start == 0, tq == tk, dh 64 or 128, bf16 or f32); what the
+  JAX package sends to XLA and K3 does not cover takes the composed
+  route (``attention_route``: ``causal_mha_exact`` on the card's
+  tensors, counted under ``flash_attn:composed[<reason>]``), and a head
+  size the JAX kernel takes but K3 does not raises
+  ``NotImplementedError``; with grad on K3 goes through
   ``FlashAttentionFn``, whose backward recomputes through
   ``causal_mha_dot`` by autograd, as ``_flash_vjp_bwd`` does. The dtype
   picks the kernel (``flash_route``): bf16 runs the Hopper kernel (TMA
@@ -126,6 +130,15 @@ def causal_mha(q, k, v, *, q_start=0):
 
 @registry.register("causal_mha", "cuda")
 def _causal_mha_cuda(q, k, v, *, q_start=0):
+    """K3 where ``attention_route`` says "kernel"; the composed route,
+    ``causal_mha_exact`` on the card's tensors (what the CPU runs, and
+    the JAX package's XLA route), counted under
+    ``flash_attn:composed[<reason>]``."""
+    b, tq, tk, h, dh = check_attention_inputs(q, k, v)
+    route, reason = _attention_route(q.dtype, tq, tk, dh, q_start)
+    if route == "composed":
+        registry.count_route("flash_attn", reason)
+        return causal_mha_exact(q, k, v, q_start=q_start)
     check_flash_inputs(q, k, v, q_start)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return FlashAttentionFn.apply(q, k, v)
@@ -193,6 +206,84 @@ def extend_cache(k_cache, v_cache, k_new, v_new, pos):
 
 
 # ----------------------------------------------------------------- cuda
+# the JAX flash kernel's tiles and the VMEM budget its predicate holds a
+# configuration to (``attention_supported``)
+_JAX_BQ = _JAX_BK = 128
+_JAX_VMEM_BUDGET = 12 * 1024 * 1024
+
+
+def _jax_flash_takes(dtype, tq, tk, dh) -> bool:
+    """The JAX package's ``attention_supported`` as it answers on a TPU
+    for q_start 0 and a bf16/f32 dtype: tq == tk, dh a multiple of 128,
+    T a multiple of its 128-row tiles, and its VMEM footprint in
+    budget."""
+    if tq != tk or dh % 128 or tq % _JAX_BQ or tk % _JAX_BK:
+        return False
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    foot = (3 * 2 * _JAX_BQ * dh * itemsize + _JAX_BQ * dh * (itemsize + 4)
+            + 2 * _JAX_BQ * 128 * 4 + 2 * _JAX_BQ * _JAX_BK * 4)
+    return foot <= _JAX_VMEM_BUDGET
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def _attention_route(dtype, tq, tk, dh, q_start=0):
+    """(route, reason): see ``attention_route``."""
+    if not (isinstance(q_start, int) and q_start == 0):
+        return "composed", "q_start"
+    if dtype not in _DTYPE_CODES:
+        return "composed", f"dtype={_dtype_name(dtype)}"
+    if tq != tk:
+        return "composed", "tq!=tk"
+    if dh in KERNEL_HEAD_DIMS:
+        return "kernel", None
+    if not _jax_flash_takes(dtype, tq, tk, dh):
+        return "composed", f"dh={dh}"
+    raise NotImplementedError(
+        f"flash_attn_fwd covers head size dh in {KERNEL_HEAD_DIMS}; the "
+        f"JAX package's Pallas kernel takes dh={dh} at T={tq} "
+        f"(dh % 128 == 0, T % 128 == 0), so there is no composed route "
+        f"for it")
+
+
+def attention_route(dtype, tq, tk, dh, q_start=0) -> str:
+    """Where causal MHA on CUDA tensors runs: "kernel" (K3) wherever K3
+    covers the call (q_start 0, tq == tk, dh 64 or 128, bf16 or f32; the
+    JAX package sends dh 64 to XLA, the port keeps K3 there);
+    "composed" (``causal_mha_exact`` on the card's tensors) exactly where
+    the JAX package's ``attention_supported`` sends the call to XLA and
+    K3 does not cover it: q_start != 0 (or a per-row q_start), tq != tk,
+    a dtype other than bf16 and f32, or another head size the JAX kernel
+    would not take either (dh % 128 != 0, T % 128 != 0). A head size the
+    JAX kernel takes and K3 does not (dh 256 at T % 128 == 0) raises
+    ``NotImplementedError``."""
+    return _attention_route(dtype, tq, tk, dh, q_start)[0]
+
+
+def check_attention_inputs(q, k, v):
+    """``ValueError`` for malformed q, k, v [b, t, h, dh] whatever route
+    the call takes: k and v of one shape, the batch, heads and head size
+    of q, the same dtype and device. Returns (b, tq, tk, h, dh)."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be [b, t, h, dh]")
+    b, tq, h, dh = q.shape
+    tk = k.shape[1]
+    want = (b, tk, h, dh)
+    for name, x in (("k", k), ("v", v)):
+        if tuple(x.shape) != want:
+            raise ValueError(f"{name} must be {want}, got "
+                             f"{tuple(x.shape)}")
+        if x.dtype != q.dtype:
+            raise ValueError(f"{name} is {x.dtype}, q is {q.dtype}")
+        if x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+    if b < 1 or tq < 1 or tk < 1 or h < 1:
+        raise ValueError(f"empty attention input {tuple(q.shape)}")
+    return b, tq, tk, h, dh
+
+
 def check_flash_inputs(q, k, v, q_start=0):
     """Raise ``NotImplementedError``, naming the reason, for a call that K3
     does not cover: q_start != 0 (incremental decode), tq != tk, a head

@@ -27,7 +27,12 @@ their ``*_sm90`` counter (``SM90_COUNTER``: ``fused_block_stats_sm90``,
 ``fused_block_apply_sm90``, ``fused_block_bwd_stats_sm90``,
 ``fused_block_bwd_apply_sm90``); any other call takes the first
 mainloops. The choice is by dtype, shape and alignment only: a failure
-raises.
+raises. A dtype other than bf16 and f32 (f16, f64), which the JAX
+package's ``pallas_supported`` sends to XLA, takes the composed route
+(``fused_route``): the plain passes on the card's tensors, counted under
+``fused_tail:composed[dtype=<dtype>]``. In a meshed step of more than one
+rank, K4's sums and K6's are all-reduced over the data axis before K5
+and K7 read them (ops/normalization.py ``synced_batch_stats``).
 ``conv1x1_bn_add_relu`` is the op the block-fusion pass calls
 (nn/fusion.py); ``FusedTailFn`` is its ``torch.autograd.Function``.
 
@@ -44,6 +49,9 @@ import ctypes
 import torch
 
 from deeplearning4j_tpu_torch.ops import registry
+from deeplearning4j_tpu_torch.ops.normalization import (all_reduce_sums,
+                                                        batch_sync,
+                                                        weighted_sums)
 
 KERNEL = "fused_block"
 STATS, APPLY, BWD_STATS, BWD_APPLY = (
@@ -124,15 +132,19 @@ def fused_bwd_apply_torch(x2, W, mean, inv, scale, ca, cb, dy2, y2, relu):
 
 
 # ---------------------------------------------------------------- cuda
+def fused_route(dtype) -> str:
+    """Where a fused tail on CUDA tensors runs: "kernel" (K4-K7) for bf16
+    and f32, which they cover at every K and N; "composed" (the plain
+    passes on the card's tensors) for any other dtype, which the JAX
+    package's ``pallas_supported`` sends to XLA."""
+    return "kernel" if dtype in _DTYPE_CODES else "composed"
+
+
 def check_fused_inputs(x, W, shortcut=None):
-    """Raise ``NotImplementedError``, naming the reason, for a call that
-    K4-K7 do not cover: a dtype other than f32 and bf16, or a W that is
-    not a 1x1 kernel ([K, N] or [1, 1, K, N]); and ``ValueError`` for
-    malformed inputs. Returns (M, K, N)."""
-    if x.dtype not in _DTYPE_CODES:
-        raise NotImplementedError(
-            f"conv1x1_bn_add_relu takes float32 or bfloat16 activations, "
-            f"got {x.dtype}")
+    """Raise ``NotImplementedError`` for a W that is not a 1x1 kernel
+    ([K, N] or [1, 1, K, N]), the op's own shape, and ``ValueError`` for
+    malformed inputs. Returns (M, K, N). The dtype picks the route
+    (``fused_route``)."""
     if not (W.dim() == 2 or (W.dim() == 4 and tuple(W.shape[:2]) == (1, 1))):
         raise NotImplementedError(
             f"conv1x1_bn_add_relu takes a 1x1 kernel, [K, N] or "
@@ -397,12 +409,19 @@ registry.register(BWD_APPLY, "cpu")(fused_bwd_apply_torch)
 
 
 # ------------------------------------------------------------ autograd
-def fused_forward(x2, W, gamma, beta, sc2, shift, eps, relu):
+def fused_forward(x2, W, gamma, beta, sc2, shift, eps, relu, sync=None,
+                  impl=None):
     """``_fwd_impl``: K4, the statistics in f32, K5. Returns (y, mean,
-    var, inv, scale)."""
-    dev = x2.device
+    var, inv, scale). Under a meshed step's ``sync``
+    (ops/normalization.py ``synced_batch_stats``) K4's sums and the row
+    count are all-reduced over the data axis before K5 reads them.
+    ``impl`` names the passes' registry device ("cpu": the plain ones),
+    by default the tensors' own."""
+    dev = impl or x2.device
     M = x2.shape[0]
     s1, s2 = registry.get(STATS, dev)(x2, W, shift)
+    if sync is not None:
+        (s1, s2), M = all_reduce_sums(sync, s1, s2, rows=M)
     k = shift.float()
     m1 = s1 / M
     mean = m1 + k
@@ -414,14 +433,22 @@ def fused_forward(x2, W, gamma, beta, sc2, shift, eps, relu):
     return y, mean, var, inv, scale
 
 
-def fused_backward(x2, W, mean, inv, scale, dy2, y2, relu):
+def fused_backward(x2, W, mean, inv, scale, dy2, y2, relu, sync=None,
+                   impl=None):
     """``_bwd_impl``: K6, then K7. Returns (dx, dW f32, dgamma, dbeta,
-    dshortcut)."""
-    dev = x2.device
+    dshortcut). Under a meshed step's ``sync`` K6's sums, weighted by
+    the rank's loss share, and the row count are all-reduced before K7
+    reads them (``weighted_sums``); dgamma and dbeta stay the rank's."""
+    dev = impl or x2.device
     M = x2.shape[0]
     a, b = registry.get(BWD_STATS, dev)(x2, W, mean, inv, dy2, y2, relu)
+    if sync is None:
+        ca, cb = a / M, b / M
+    else:
+        A, B, m = weighted_sums(sync, a, b, M)
+        ca, cb = A / m, B / m
     dx, dW, dsc = registry.get(BWD_APPLY, dev)(
-        x2, W, mean, inv, scale, a / M, b / M, dy2, y2, relu)
+        x2, W, mean, inv, scale, ca, cb, dy2, y2, relu)
     return dx, dW, b, a, dsc
 
 
@@ -431,10 +458,12 @@ class FusedTailFn(torch.autograd.Function):
     only the running-statistics update and get no cotangent."""
 
     @staticmethod
-    def forward(ctx, x2, W, gamma, beta, sc2, shift, eps, relu):
+    def forward(ctx, x2, W, gamma, beta, sc2, shift, eps, relu, impl):
+        ctx.sync = batch_sync()
+        ctx.impl = impl
         with torch.no_grad():
-            y, mean, var, inv, scale = fused_forward(x2, W, gamma, beta, sc2,
-                                                     shift, eps, relu)
+            y, mean, var, inv, scale = fused_forward(
+                x2, W, gamma, beta, sc2, shift, eps, relu, ctx.sync, impl)
         ctx.save_for_backward(x2, W, gamma, mean, inv, scale, y)
         ctx.relu = relu
         ctx.mark_non_differentiable(mean, var)
@@ -446,9 +475,9 @@ class FusedTailFn(torch.autograd.Function):
         with torch.no_grad():
             dx, dW, dgamma, dbeta, dsc = fused_backward(
                 x2, W, mean, inv, scale, dy.to(x2.dtype).contiguous(), y,
-                ctx.relu)
+                ctx.relu, ctx.sync, ctx.impl)
         return (dx, dW.to(W.dtype), dgamma.to(gamma.dtype),
-                dbeta.to(gamma.dtype), dsc, None, None, None)
+                dbeta.to(gamma.dtype), dsc, None, None, None, None)
 
 
 def conv1x1_bn_add_relu(x, W, gamma, beta, shortcut, *, shift, eps,
@@ -457,15 +486,22 @@ def conv1x1_bn_add_relu(x, W, gamma, beta, shortcut, *, shift, eps,
     norm of z with the running mean ``shift`` as the variance shift;
     returns (relu(zn + shortcut), mean, var). A broadcast shortcut is
     expanded explicitly (its gradient is summed back by autograd). On CPU
-    tensors the passes run their plain versions, on CUDA tensors K4-K7."""
+    tensors the passes run their plain versions, on CUDA tensors K4-K7,
+    or, for a dtype ``fused_route`` sends to the composed route, the
+    plain passes on the card's tensors, counted under
+    ``fused_tail:composed[dtype=<dtype>]``."""
     M, K, N = check_fused_inputs(x, W, shortcut)
+    composed = x.device.type == "cuda" and fused_route(x.dtype) != "kernel"
+    if composed:
+        registry.count_route(
+            "fused_tail", f"dtype={str(x.dtype).replace('torch.', '')}")
     out_shape = tuple(x.shape[:-1]) + (N,)
     x2 = x.reshape(M, K).contiguous()
     W2 = W.reshape(K, N).to(x.dtype).contiguous()
     sc2 = shortcut.to(x.dtype).expand(out_shape).reshape(M, N).contiguous()
     y, mean, var = FusedTailFn.apply(
         x2, W2, gamma.float(), beta.float(), sc2, shift.detach().float(),
-        float(eps), bool(relu))
+        float(eps), bool(relu), "cpu" if composed else x2.device.type)
     return y.reshape(out_shape), mean, var
 
 

@@ -29,6 +29,12 @@ thread-block cluster of n / 32 blocks, h and dh exchanged through
 distributed shared memory, the per-step products and dWh on wgmma; each
 call counted once more under ``FWD_SM90`` / ``BWD_SM90``), everything
 else the persistent-grid kernels. A failure raises; nothing falls back.
+What the JAX package sends to XLA and the kernels do not cover (another
+activation pair, a dtype other than f32 and bf16, an n past the grid
+kernels' limits that its Pallas kernel would not take either) takes the
+composed route, decided by ``lstm_route`` before any launch: the plain
+loops on the card's tensors, counted under
+``lstm_sequence:composed[<reason>]`` (ops/registry.py).
 Each source note says what bounds the kernel and what its design does
 about it; ``lstm_sequence_cluster_emulation`` and
 ``lstm_sequence_bwd_cluster_emulation`` write the cluster route's
@@ -80,7 +86,8 @@ def lstm_sequence(xz_t, h0, c0, Wh, p, mask_t=None, *, gate_act="sigmoid",
     p [3, n] peepholes; mask_t [T, b] or None. Differentiable: with grad
     on, sigmoid/tanh goes through ``LstmSequenceFn`` (the kernels on the
     card); another activation pair is differentiated through the plain
-    loop by autograd on the CPU and refused by the CUDA wrapper."""
+    loop by autograd, on the card through the composed route
+    (``lstm_route``)."""
     if (not save_residuals and (gate_act, cell_act) == ("sigmoid", "tanh")
             and torch.is_grad_enabled()
             and any(x.requires_grad for x in (xz_t, h0, c0, Wh, p))):
@@ -480,19 +487,85 @@ def _check_like(cd, device, want: dict):
             raise ValueError(f"{name} must be contiguous")
 
 
+# the card's limits the grid kernels are held to (H100 SXM): shared
+# memory a block may have, shared memory and 256-thread blocks a
+# multiprocessor holds, and its multiprocessors; registers aside, so a
+# call these admit may still fail to launch (and raises)
+MAX_BLOCK_SMEM = 232448
+SM_SMEM = 233472
+SM_BLOCKS = 8
+SMS = 132
+GRID_UNITS = 8       # hidden units a grid block owns (K1's and K2's kUnits)
+
+
+def grid_fits(backward: bool, dtype, n) -> bool:
+    """Whether K1's (``backward`` False) or K2's grid kernel can hold
+    hidden size ``n`` in ``dtype`` on the card: a block's Wh slice and
+    staging in its shared memory (K1 64 n, K2 32 n elements), and every
+    block of the cooperative grid resident at once."""
+    elem = 2 if dtype == torch.bfloat16 else 4
+    smem = (32 if backward else 64) * n * elem
+    if smem > MAX_BLOCK_SMEM:
+        return False
+    per_sm = min(SM_BLOCKS, SM_SMEM // smem)
+    return SMS * per_sm >= -(-n // GRID_UNITS)
+
+
+def _jax_pallas_takes(dtype, b, n) -> bool:
+    """The JAX package's ``_pallas_supported`` as it answers on a TPU
+    (sigmoid/tanh aside): bf16 or f32, n % 128 == 0 and b a multiple of
+    the sublane (16 for bf16, 8 for f32)."""
+    if dtype not in _DTYPE_CODES:
+        return False
+    sublane = 16 if dtype == torch.bfloat16 else 8
+    return n % 128 == 0 and b % sublane == 0
+
+
+def _lstm_route(dtype, b, n, gate_act, cell_act, backward):
+    """(route, reason): see ``lstm_route``."""
+    if gate_act != "sigmoid":
+        return "composed", f"gate_act={gate_act}"
+    if cell_act != "tanh":
+        return "composed", f"cell_act={cell_act}"
+    if dtype not in _DTYPE_CODES:
+        return "composed", f"dtype={str(dtype).replace('torch.', '')}"
+    if takes_cluster(dtype, n) or grid_fits(backward, dtype, n):
+        return "kernel", None
+    if not _jax_pallas_takes(dtype, b, n):
+        return "composed", f"n={n}"
+    which = "K2 (backward)" if backward else "K1 (forward)"
+    raise NotImplementedError(
+        f"the CUDA LSTM {which} grid kernel holds n up to its shared "
+        f"memory and residency limits on the card ({MAX_BLOCK_SMEM} B a "
+        f"block, {SMS} multiprocessors): n={n} in {dtype} is past them, "
+        f"and the JAX package's Pallas kernel takes it (n % 128 == 0, b "
+        f"a sublane multiple), so there is no composed route for it")
+
+
+def lstm_route(dtype, b, n, gate_act="sigmoid", cell_act="tanh",
+               backward=False) -> str:
+    """Where a call on CUDA tensors runs: "kernel" (K1, or K2 for
+    ``backward``) wherever the kernel covers it; "composed" (the plain
+    loop on the card's tensors) exactly where the JAX package's
+    predicate sends the call to XLA and the kernel does not cover it:
+    another activation pair than sigmoid/tanh, a dtype other than bf16
+    and f32, or an n past the grid kernels' limits (``grid_fits``) that
+    the JAX package's Pallas kernel would not take either. An n past
+    those limits that the Pallas kernel takes raises
+    ``NotImplementedError``, naming the limit."""
+    return _lstm_route(dtype, b, n, gate_act, cell_act, backward)[0]
+
+
 def _check_dtype(cd):
     if cd not in _DTYPE_CODES:
         raise NotImplementedError(
             f"the CUDA LSTM kernels take float32 or bfloat16, got {cd}")
 
 
-def _check_cuda_inputs(xz_t, h0, c0, Wh, p, mask_t, gate_act, cell_act):
-    if gate_act != "sigmoid" or cell_act != "tanh":
-        raise NotImplementedError(
-            f"the CUDA LSTM kernel computes sigmoid gates and a tanh cell; "
-            f"gate_act={gate_act!r}, cell_act={cell_act!r} has no kernel yet")
+def _check_shapes(xz_t, h0, c0, Wh, p, mask_t):
+    """``ValueError`` for malformed inputs, whatever route the call
+    takes; returns (T, b, n)."""
     cd = xz_t.dtype
-    _check_dtype(cd)
     if xz_t.dim() != 3 or xz_t.shape[2] % 4:
         raise ValueError(f"xz_t must be [T, b, 4n], got {tuple(xz_t.shape)}")
     T, b, n4 = xz_t.shape
@@ -502,6 +575,20 @@ def _check_cuda_inputs(xz_t, h0, c0, Wh, p, mask_t, gate_act, cell_act):
     _check_like(cd, xz_t.device, {
         "xz_t": (xz_t, (T, b, n4)), "h0": (h0, (b, n)), "c0": (c0, (b, n)),
         "Wh": (Wh, (n, n4)), "p": (p, (3, n)), "mask_t": (mask_t, (T, b))})
+    return T, b, n
+
+
+def _check_cuda_inputs(xz_t, h0, c0, Wh, p, mask_t, gate_act, cell_act):
+    """The kernel route's checks: malformed inputs raise ``ValueError``;
+    what K1 does not compute, and a call recording a graph, raise
+    ``NotImplementedError``. Returns (T, b, n)."""
+    if gate_act != "sigmoid" or cell_act != "tanh":
+        raise NotImplementedError(
+            f"the CUDA LSTM kernel computes sigmoid gates and a tanh cell; "
+            f"gate_act={gate_act!r}, cell_act={cell_act!r} take the "
+            f"composed route (lstm_route)")
+    _check_dtype(xz_t.dtype)
+    T, b, n = _check_shapes(xz_t, h0, c0, Wh, p, mask_t)
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in (xz_t, h0, c0, Wh, p)):
         raise NotImplementedError(
@@ -518,11 +605,20 @@ def lstm_sequence_cuda(xz_t, h0, c0, Wh, p, mask_t=None, *,
     """Launch csrc/lstm_fwd.cu on the current stream, on the cluster route
     where ``takes_cluster`` holds (counted once more under ``FWD_SM90``),
     else on the grid route. Raises on what the kernel does not take; never
-    falls back to the plain version."""
+    falls back to the plain version. A call ``lstm_route`` sends to the
+    composed route runs ``lstm_sequence_torch`` on the card's tensors
+    (autograd differentiates it), counted under ``count_route``."""
     _check_on_cuda(xz_t, "the CUDA LSTM kernel")
     cd = xz_t.dtype
     if mask_t is None:
         mask_t = torch.ones(xz_t.shape[:2], dtype=cd, device=xz_t.device)
+    T, b, n = _check_shapes(xz_t, h0, c0, Wh, p, mask_t)
+    route, reason = _lstm_route(cd, b, n, gate_act, cell_act, False)
+    if route == "composed":
+        registry.count_route("lstm_sequence", reason)
+        return lstm_sequence_torch(xz_t, h0, c0, Wh, p, mask_t,
+                                   gate_act=gate_act, cell_act=cell_act,
+                                   save_residuals=save_residuals)
     T, b, n = _check_cuda_inputs(xz_t, h0, c0, Wh, p, mask_t, gate_act,
                                  cell_act)
     cluster = takes_cluster(cd, n)
@@ -568,9 +664,10 @@ def lstm_fwd_launch(cluster, xz_t, h0, c0, Wh, p, mask_t, save_residuals):
 
 
 def _check_cuda_bwd_inputs(residuals, mask_t, Wh, p, dy, dhT, dcT):
+    """``ValueError`` for malformed inputs, whatever route the call
+    takes; returns (T, b, n)."""
     G, hprev, cprev = residuals
     cd = G.dtype
-    _check_dtype(cd)
     if G.dim() != 3 or G.shape[2] % 4:
         raise ValueError(f"G must be [T, b, 4n], got {tuple(G.shape)}")
     T, b, n4 = G.shape
@@ -590,10 +687,17 @@ def lstm_sequence_bwd_cuda(residuals, mask_t, Wh, p, dy, dhT, dcT):
     """Launch csrc/lstm_bwd.cu (the reverse chain, then dWh) on the current
     stream, on the cluster route where ``takes_cluster`` holds (counted
     once more under ``BWD_SM90``), else on the grid route. Raises on what
-    the kernel does not take; never falls back to the plain version."""
+    the kernel does not take; never falls back to the plain version. A
+    call ``lstm_route(backward=True)`` sends to the composed route runs
+    ``lstm_sequence_bwd_torch`` on the card's tensors."""
     _check_on_cuda(residuals[0], "the CUDA LSTM backward kernel")
     T, b, n = _check_cuda_bwd_inputs(residuals, mask_t, Wh, p, dy, dhT, dcT)
     cd = residuals[0].dtype
+    route, reason = _lstm_route(cd, b, n, "sigmoid", "tanh", True)
+    if route == "composed":
+        registry.count_route("lstm_sequence_bwd", reason)
+        return lstm_sequence_bwd_torch(residuals, mask_t, Wh, p, dy, dhT,
+                                       dcT)
     cluster = takes_cluster(cd, n)
     out = lstm_bwd_launch(cluster, residuals, mask_t, Wh, p, dy, dhT, dcT)
     registry.count_launch(BWD_KERNEL, bwd_launches_per_call(cd, n))

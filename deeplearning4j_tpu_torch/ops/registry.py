@@ -23,6 +23,17 @@ it launched (``count_flops``), counted as FlopCounterMode counts the
 kernel's plain version, for ``step_cost_analysis``: FlopCounterMode sees
 PyTorch's operators but not a kernel launched through ``ctypes``.
 
+A call on a CUDA tensor that the JAX package's own predicates send to
+XLA, and that the op's kernel does not cover (another activation pair,
+a dtype other than f32 and bf16, a decode-shaped attention call), takes
+the op's composed route: its plain PyTorch version on the card's
+tensors, what the JAX package's XLA route is. Each wrapper decides that
+by a pure route function of shapes, dtypes and activations before any
+launch, never after a failure, and counts the call under
+``<op>:composed[<reason>]`` (``count_route``; ``routes()`` lists them),
+logged once per (op, reason); the kernel's own counters do not move.
+There is no knob: the kernel runs wherever it covers the call.
+
 For the same reason each kernel wrapper reports its call to the fx lint's
 recorder (``note_kernel``, analysis/fx_lint.py): a ``TorchDispatchMode``
 sees the ``empty`` that allocates a kernel's output but not the kernel,
@@ -33,9 +44,12 @@ counters and the dtypes of what it returns.
 from __future__ import annotations
 
 import contextlib
+import logging
 import threading
 
 import torch
+
+logger = logging.getLogger("deeplearning4j_tpu_torch")
 
 _IMPLS: dict[str, dict[str, callable]] = {}
 _LAUNCH_LOCK = threading.Lock()
@@ -44,6 +58,9 @@ _LAUNCHES: dict[str, int] = {}
 _RECORDINGS: list[dict[str, int]] = []
 _FLOP_COUNTS: list[dict[str, float]] = []
 _KERNEL_SINKS: list = []
+# route counters already logged once
+_ROUTES_LOGGED: set = set()
+COMPOSED = ":composed["
 
 
 def register(name: str, device_type: str):
@@ -88,6 +105,26 @@ def recording():
     finally:
         with _LAUNCH_LOCK:
             _RECORDINGS.remove(rec)
+
+
+def count_route(op: str, reason: str):
+    """Counts one call of ``op`` on its composed route for ``reason``
+    (e.g. ``lstm_sequence:composed[gate_act=hardsigmoid]``), beside the
+    launch counters so a captured step counts it per replay; the first
+    such call of each (op, reason) in a process is logged."""
+    name = f"{op}{COMPOSED}{reason}]"
+    count_launch(name)
+    with _LAUNCH_LOCK:
+        first = name not in _ROUTES_LOGGED
+        _ROUTES_LOGGED.add(name)
+    if first:
+        logger.info("%s runs its composed route (the plain version on the "
+                    "card): %s", op, reason)
+
+
+def routes() -> dict[str, int]:
+    """The composed-route counters among ``launches()``."""
+    return {k: n for k, n in launches().items() if COMPOSED in k}
 
 
 def add_launches(counts: dict[str, int], times: int = 1):

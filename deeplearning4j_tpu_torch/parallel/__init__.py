@@ -9,8 +9,10 @@ parameter server and no driver. The reference's ParameterAveraging
 *semantics* (average every k local steps) is ``ParallelWrapper`` (one
 process) and ``distributed.MultiProcessLocalSGD`` (across processes).
 
-Tensor, pipeline, sequence and expert parallelism and mesh serving wait
-for ROADMAP.md A.5's open half.
+Tensor parallelism and mesh serving wait for ROADMAP.md A.5 part 2,
+pipeline, sequence and expert parallelism for its part 3; the
+supervisor's cross-process coordination over ``distributed`` is ported
+(resilience/).
 """
 
 from deeplearning4j_tpu_torch.parallel.mesh import make_mesh

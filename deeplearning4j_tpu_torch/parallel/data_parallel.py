@@ -19,9 +19,14 @@ denominator (the count of unmasked label entries, or of label rows)
 before the sum. With one rank the share is exactly 1.0, so a meshed step
 on a group of one is bit for bit the unmeshed step.
 
-Layer state (batch norm's running statistics) stays each rank's own, as
-under DistributedDataParallel without SyncBatchNorm: the JAX package's
-sharded step reduces batch statistics over the global batch.
+Batch norm takes the GLOBAL batch's statistics, as the JAX package's
+sharded step does over the whole sharded batch: over a data axis of
+more than one rank the step all-reduces BN's f32 column sums and row
+count, forward and backward, in one collective a site
+(ops/normalization.py, ops/fused_block.py), so the running statistics,
+and with them every rank's layer ``state``, stay equal. Zero rows that
+``_pad_batch`` adds enter those statistics (BN takes no mask), as in the
+JAX package. A group of one takes none of these collectives.
 
 ``ParallelWrapper`` reproduces the reference's *semantics* (k local
 steps between parameter averages) on one process, for the fixed-seed
@@ -31,10 +36,13 @@ the sharded step.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.distributed as dist
 
 from deeplearning4j_tpu_torch.nn.updater import _fill, _leaves, _map
+from deeplearning4j_tpu_torch.ops.normalization import synced_batch_stats
 from deeplearning4j_tpu_torch.parallel.mesh import axis_group, axis_size
 
 __all__ = ["apply_mesh", "shard_batch", "shard_step", "shard_step_multi",
@@ -54,12 +62,15 @@ def replicate(mesh, tree, data_axis: str = "data"):
 
 
 def apply_mesh(net, mesh, data_axis: str = "data"):
-    """Replicate the net's params, state and optimizer state over the
-    mesh's data axis and give its train step the gradient all-reduce."""
+    """Replicate the net's params, state (the shift batch norm takes is
+    the running mean, so it must agree) and optimizer state over the
+    mesh's data axis from its first rank, and give its train step the
+    meshed collectives (``GradAllReduce``)."""
     for tree in (net.params, net.state, net.opt_state):
         if tree:
             replicate(mesh, tree, data_axis)
     net._grad_reduce = GradAllReduce(axis_group(mesh, data_axis))
+    net._mesh = (mesh, data_axis)   # what a checkpoint's layout records
     return net
 
 
@@ -116,19 +127,33 @@ def _loss_denominator(labels, lmask) -> torch.Tensor:
 
 
 class GradAllReduce:
-    """The meshed step's gradient average, called between the backward
-    and the update (nn/precision.py ``build_step_fn(reduce=)``): one
-    small all-reduce of the loss denominators, then ONE all-reduce of
-    every gradient and the score, each scaled by this rank's share."""
+    """The meshed step's collectives (nn/precision.py ``build_step_fn(
+    reduce=)``): ``share`` before the forward, one small all-reduce of
+    the loss denominators giving this rank's share of the loss;
+    ``batch_stats(share)`` around the forward and backward, global batch
+    statistics for batch norm over a group of more than one rank
+    (ops/normalization.py ``synced_batch_stats``); and the call, between
+    the backward and the update, ONE all-reduce of every gradient and
+    the score, each scaled by this rank's share."""
 
     def __init__(self, group):
         self.group = group
+        self.size = dist.get_world_size(group)
 
-    def __call__(self, grads, loss, labels, lmask):
+    def share(self, labels, lmask):
         mine = _loss_denominator(labels, lmask)
         total = mine.clone()
         dist.all_reduce(total, group=self.group)
-        share = mine / total
+        return mine / total
+
+    def batch_stats(self, share):
+        """Global batch statistics while open; a group of one takes no
+        collective and keeps the unmeshed arithmetic."""
+        if self.size == 1:
+            return contextlib.nullcontext()
+        return synced_batch_stats(self.group, share)
+
+    def __call__(self, grads, loss, share):
         leaves = list(_leaves(grads))
         live = [g for g in leaves if g is not None]
         by_dtype: dict = {}
@@ -320,7 +345,9 @@ def use_mesh(net, mesh, data_axis: str = "data", model_axis=None,
     if model_axis is not None or tp_rules is not None:
         raise NotImplementedError(
             "use_mesh(model_axis=/tp_rules=): tensor parallelism "
-            "(parallel/tensor.py) waits for ROADMAP.md A.5's open half")
+            "(parallel/tensor.py) waits for ROADMAP.md A.5 part 2; data "
+            "parallelism (use_mesh over a data axis) and the supervisor's "
+            "cross-process coordination are ported")
     net._require_init()
     net._multi_steps = {}
     return apply_mesh(net, mesh, data_axis)

@@ -20,7 +20,16 @@ the process group's key-value store with a deadline
 (``collective_timeout_s``, ``DL4J_TPU_COLLECTIVE_TIMEOUT_S``): a dead peer
 raises :class:`PeerLostError` naming it instead of hanging forever. Keys
 are scoped by ``DL4J_TPU_INCARNATION`` and a per-name round counter, so
-every process derives the same round without talking.
+every process derives the same round without talking. The store is
+hosted by rank 0's process: when it is gone, a round fails at once and
+names rank 0.
+
+**Collectives with a dead peer.** The group is created with the
+collective timeout as its own (``initialize``), so a gloo or NCCL
+collective whose peer died raises within the deadline rather than after
+gloo's 30 minutes; ``check_peers`` turns such an error into
+:class:`PeerLostError` by asking every peer for a consensus round.
+``shutdown`` lets rank 0, the store's host, leave last.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ logger = logging.getLogger("deeplearning4j_tpu_torch")
 __all__ = [
     "initialize", "shutdown", "process_info", "is_multiprocess",
     "sync_check", "device", "agree_decision", "any_process", "barrier",
+    "check_peers",
     "collective_timeout_s", "consensus_available",
     "CollectiveTimeoutError", "PeerLostError", "MultiProcessLocalSGD",
     "DEFAULT_COLLECTIVE_TIMEOUT_S",
@@ -97,8 +107,9 @@ def initialize(coordinator_address: str | None = None,
     ``device`` is this rank's device: default the card
     ``cuda:<rank % cards>``; "cpu" on request. ``backend`` defaults to
     NCCL on a card and gloo on the CPU; NCCL with more ranks than cards
-    raises (name ``backend="gloo"`` for ranks sharing a card). Returns
-    :func:`process_info`. Idempotent: a second call warns once and
+    raises (name ``backend="gloo"`` for ranks sharing a card).
+    ``timeout_s`` is the group's collective timeout, by default
+    ``collective_timeout_s()``. Returns :func:`process_info`. Idempotent: a second call warns once and
     returns the running group's info."""
     global _DEVICE, _ALREADY_UP_WARNED
     if dist.is_initialized():
@@ -134,20 +145,39 @@ def initialize(coordinator_address: str | None = None,
                 f"backend='gloo'")
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    kwargs = {}
-    if timeout_s is not None:
-        kwargs["timeout"] = datetime.timedelta(seconds=timeout_s)
-    dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}",
-                            world_size=world, rank=rank, **kwargs)
+    # the group's own timeout is the collective timeout: a collective
+    # with a dead peer raises within the deadline, not gloo's 30 minutes
+    if timeout_s is None:
+        timeout_s = collective_timeout_s()
+    dist.init_process_group(
+        backend, init_method=f"tcp://{coordinator_address}",
+        world_size=world, rank=rank,
+        timeout=datetime.timedelta(seconds=timeout_s))
     _DEVICE = dev
     _reset_rounds()
     return process_info()
 
 
 def shutdown() -> None:
-    """Leave the process group (no-op when none is up)."""
+    """Leave the process group (no-op when none is up). Rank 0 hosts the
+    store, so it leaves last: every other rank marks its exit in the
+    store and rank 0 waits for the marks (at most the collective
+    timeout; a dead peer's missing mark only costs the wait)."""
     global _DEVICE
     if dist.is_initialized():
+        if is_multiprocess():
+            base = f"dl4j/{_key_prefix()}/exit"
+            rank, count = dist.get_rank(), dist.get_world_size()
+            try:
+                store = _store()
+                if rank != 0:
+                    store.set(f"{base}/{rank}", "1")
+                else:
+                    store.wait([f"{base}/{p}" for p in range(1, count)],
+                               datetime.timedelta(
+                                   seconds=collective_timeout_s()))
+            except Exception as e:
+                logger.warning("shutdown: exit marks incomplete (%s)", e)
         dist.destroy_process_group()
     _DEVICE = None
 
@@ -235,7 +265,37 @@ def _store():
 
 
 def _lost(store, keys) -> list:
-    return [i for i, k in enumerate(keys) if not store.check([k])]
+    """The ranks whose key is missing; [0] when the store itself cannot
+    be reached (its host, rank 0, is gone)."""
+    try:
+        return [i for i, k in enumerate(keys) if not store.check([k])]
+    except Exception:
+        return [0]
+
+
+def _rendezvous(base: str, value: str, timeout_s: float, what: str,
+                name: str):
+    """Publish ``value`` under ``base/<rank>`` and wait for every rank's
+    key. Raises :class:`PeerLostError` naming the ranks not heard from
+    within ``timeout_s`` (rank 0 when the store is unreachable). Returns
+    (store, keys)."""
+    count, rank = dist.get_world_size(), dist.get_rank()
+    keys = [f"{base}/{p}" for p in range(count)]
+    t0 = time.monotonic()
+    store = None
+    try:
+        store = _store()
+        store.set(f"{base}/{rank}", value)
+        store.wait(keys, datetime.timedelta(seconds=timeout_s))
+    except Exception as e:
+        lost = [0] if store is None else _lost(store, keys)
+        elapsed = time.monotonic() - t0
+        raise PeerLostError(
+            f"{what} did not complete within {timeout_s:.1f}s (waited "
+            f"{elapsed:.1f}s, {type(e).__name__}) — process(es) {lost} "
+            f"presumed lost", lost_ranks=lost, elapsed_s=elapsed,
+            round_name=name) from None
+    return store, keys
 
 
 def agree_decision(code: int, *, name: str = "decision",
@@ -250,24 +310,19 @@ def agree_decision(code: int, *, name: str = "decision",
         return [code]
     if timeout_s is None:
         timeout_s = collective_timeout_s()
-    count, rank = dist.get_world_size(), dist.get_rank()
+    rank = dist.get_rank()
     rnd = _next_round(name)
     base = f"dl4j/agree/{_key_prefix()}/{name}/{rnd}"
-    store = _store()
-    store.set(f"{base}/{rank}", str(code))
-    keys = [f"{base}/{p}" for p in range(count)]
-    t0 = time.monotonic()
+    store, keys = _rendezvous(base, str(code), timeout_s,
+                              f"consensus round {name!r}#{rnd}", name)
     try:
-        store.wait(keys, datetime.timedelta(seconds=timeout_s))
-    except Exception:
-        lost = _lost(store, keys)
-        elapsed = time.monotonic() - t0
+        codes = [int(store.get(k)) for k in keys]
+    except Exception as e:
         raise PeerLostError(
-            f"no decision from process(es) {lost} for consensus round "
-            f"{name!r}#{rnd} within {timeout_s:.1f}s (waited "
-            f"{elapsed:.1f}s) — peer(s) presumed lost",
-            lost_ranks=lost, elapsed_s=elapsed, round_name=name) from None
-    codes = [int(store.get(k)) for k in keys]
+            f"consensus round {name!r}#{rnd}: the store went away while "
+            f"its codes were read ({type(e).__name__}) — process(es) [0] "
+            f"presumed lost", lost_ranks=[0], elapsed_s=0.0,
+            round_name=name) from None
     if rnd >= 2:
         # every peer reaching round rnd has read round rnd-1, hence rnd-2
         try:
@@ -297,20 +352,24 @@ def barrier(name: str, *, timeout_s: float | None = None) -> None:
         timeout_s = collective_timeout_s()
     rnd = _next_round(f"barrier/{name}")
     base = f"dl4j/{_key_prefix()}/barrier/{name}/{rnd}"
-    store = _store()
-    store.set(f"{base}/{dist.get_rank()}", "1")
-    keys = [f"{base}/{p}" for p in range(dist.get_world_size())]
-    t0 = time.monotonic()
+    _rendezvous(base, "1", timeout_s, f"barrier {name!r}#{rnd}", name)
+
+
+def check_peers(exc: BaseException, *, name: str = "collective",
+                timeout_s: float | None = None) -> None:
+    """After a collective raised ``exc`` (a dead peer closes gloo's
+    connections, or the group's timeout expires): one consensus round
+    asks every process whether it is still there. A peer that does not
+    answer raises :class:`PeerLostError` naming it, chained from
+    ``exc``; when every peer answers this returns, and the caller raises
+    ``exc`` itself. Every rank that saw the error takes the same round.
+    Single process: returns."""
+    if not is_multiprocess():
+        return
     try:
-        store.wait(keys, datetime.timedelta(seconds=timeout_s))
-    except Exception as e:
-        lost = _lost(store, keys)
-        elapsed = time.monotonic() - t0
-        raise PeerLostError(
-            f"barrier {name!r}#{rnd} did not complete within "
-            f"{timeout_s:.1f}s ({type(e).__name__}) — process(es) {lost} "
-            f"presumed lost", lost_ranks=lost, elapsed_s=elapsed,
-            round_name=name) from None
+        agree_decision(1, name=f"alive/{name}", timeout_s=timeout_s)
+    except PeerLostError as lost:
+        raise lost from exc
 
 
 # ------------------------------------------------------------- local SGD

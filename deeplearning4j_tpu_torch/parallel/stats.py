@@ -6,8 +6,10 @@ times every phase of a distributed training round (broadcast / fit /
 aggregate / processParams) as ``EventStats`` (start time + duration +
 worker id) and exports them as an HTML timeline (StatsUtils
 exportStatsAsHtml). Here the phases are the round structure (local
-``fit`` window, cross-process ``average``, ``checkpoint_barrier``),
-recorded by the trainers in parallel/distributed.py, gathered across
+``fit`` window, cross-process ``average``, ``checkpoint_barrier``, and
+the supervisor's ``restore``, ``rollback``, ``checkpoint_snapshot``,
+``checkpoint_write`` and ``score_sync``), recorded by the trainers in
+parallel/distributed.py and resilience/supervisor.py, gathered across
 processes through ``torch.distributed``, and rendered through the
 ui/components.py ChartTimeline.
 """
@@ -68,15 +70,21 @@ class TrainingStatsCollector:
             yield
         finally:
             t1 = time.perf_counter()
-            ev = EventStats(self.worker_id, phase, t0 - self._epoch,
-                            (t1 - t0) * 1000.0)
-            with self._lock:
-                self.events.append(ev)
+            self.record(phase, t0, t1)
             # phases land in the unified span timeline too, so a Spark-
             # tier `average` shows up against fit-loop/checkpoint spans
             from deeplearning4j_tpu_torch.observability.trace import get_tracer
             get_tracer().record(phase, t0, t1,
                                 {"worker": self.worker_id})
+
+    def record(self, phase: str, t0: float, t1: float) -> None:
+        """One phase from ``time.perf_counter()`` stamps, with no span of
+        its own: how the supervisor files the phases it already traces
+        (``restore``, ``rollback``, ``checkpoint_*``, ``score_sync``)."""
+        ev = EventStats(self.worker_id, phase, t0 - self._epoch,
+                        (t1 - t0) * 1000.0)
+        with self._lock:
+            self.events.append(ev)
 
     def _snapshot(self) -> List[EventStats]:
         """Copy under the lock: the async checkpoint writer may still be

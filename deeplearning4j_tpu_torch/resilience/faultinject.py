@@ -24,10 +24,10 @@ tests through this harness rather than hoped for:
   member.
 
 Every planner accepts ``rank=`` (default None = every process): the
-fault fires only on the process whose index matches. This package runs
-one process, index 0, as the JAX package's single process is, so a
-fault planned for rank 0 or None fires and one for another rank does
-not.
+fault fires only on the process whose rank in the process group matches
+(parallel/distributed.py; rank 0 when no group is up), so one plan,
+built the same way on every rank, expresses "kill rank 1 at step 5"
+without per-process branching.
 
 Faults are keyed by absolute step / save index, so a plan replays
 identically across process restarts: a chaos run (chip_smoke.py's
@@ -43,8 +43,11 @@ from contextlib import contextmanager
 
 def _on_this_rank(rank) -> bool:
     """True when a fault planned for ``rank`` should fire here (None =
-    everywhere); this process is rank 0."""
-    return rank is None or int(rank) == 0
+    everywhere): this process's rank in the group, 0 without one."""
+    if rank is None:
+        return True
+    from deeplearning4j_tpu_torch.parallel import distributed
+    return distributed.process_info()["process_index"] == int(rank)
 
 
 class InjectedCrash(BaseException):

@@ -44,14 +44,33 @@ written as ``run_report.json`` in the checkpoint directory. Spans:
 ``restore``, ``rollback``, ``checkpoint_snapshot``, ``checkpoint_write``
 (on the writer thread when asynchronous) and ``checkpoint_barrier``.
 
-Not ported yet, refused by name (``NotImplementedError``): the
-supervisor's cross-process coordination (``coordinate=True``,
-``collective_timeout_s``) and its statistics collector (ROADMAP.md A.5's
-open half; parallel/ has the consensus layer and the collector;
-``coordinate="auto"`` resolves to single-process, as the JAX package's
-does in one process).
+- **Cross-process coordination** (``coordinate``: on by default when
+  more than one process is in the group): every recovery decision goes
+  through the consensus layer in parallel/distributed.py
+  (``agree_decision`` over tiny codes with the deadline
+  ``collective_timeout_s``, else ``DL4J_TPU_COLLECTIVE_TIMEOUT_S``). A
+  NaN on any rank rolls every rank back to the same checkpoint in
+  lockstep; a transient on any rank backs every rank off on the same
+  schedule; a SIGTERM anywhere stops every rank at the same step
+  boundary with one barriered checkpoint; the first shard to run dry
+  ends the epoch everywhere. Checkpoints are synchronous and barriered
+  (utils/checkpoint.py: rank 0 writes, ``meta.json`` lands after every
+  rank's barrier), the pointer and retention GC are rank 0's, a restore
+  ends at a barrier, and a clean run ends at an exit barrier. A
+  consensus round that times out, or a collective whose peer died,
+  names the dead peer (``PeerLostError``): the supervisor flushes a
+  ``peer_lost`` flight record, writes NO further checkpoint and returns
+  status ``peer_lost`` with ``SupervisorResult.peer_loss``, so the fleet
+  launcher (resilience/launcher.py) relaunches, possibly smaller; the
+  restore then re-cuts the datapipe's shard cursor (a ``reshard``
+  event).
+
 ``compile_cache_dir`` points the run's kernel builds at a build cache
-(compilecache/cache.py).
+(compilecache/cache.py). ``stats_collector`` (a
+``parallel.stats.TrainingStatsCollector``) records the run's phases:
+``restore``, ``rollback``, ``checkpoint_snapshot``, ``checkpoint_write``,
+``checkpoint_barrier`` (each save, through ``save_checkpoint(stats=)``,
+and each drain) and ``score_sync``.
 """
 
 from __future__ import annotations
@@ -64,6 +83,7 @@ import signal
 import sys
 import threading
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional
 
@@ -85,7 +105,8 @@ class TrainingDivergedError(RuntimeError):
 @dataclass(frozen=True)
 class RecoveryEvent:
     """One supervisor action: kind is ``resume`` | ``checkpoint`` |
-    ``retry`` | ``rollback`` | ``preempt`` | ``gc`` | ``reshard``."""
+    ``retry`` | ``rollback`` | ``preempt`` | ``gc`` | ``reshard`` |
+    ``peer_lost``."""
     kind: str
     step: int
     detail: str = ""
@@ -96,8 +117,7 @@ class RecoveryEvent:
 
 class ResilienceStats:
     """Thread-safe recovery counters; ``snapshot()`` is the dict a
-    dashboard polls, with the JAX package's keys (``peer_losses_total``
-    stays 0 in one process), and ``attach_to_registry`` renders them as
+    dashboard polls, with the JAX package's keys, and ``attach_to_registry`` renders them as
     ``dl4j_resilience_*`` families at scrape time."""
 
     def __init__(self):
@@ -233,42 +253,33 @@ class SupervisorConfig:
     #: the kernel build cache the run builds into and loads from
     #: (compilecache.configure; None: ``$DL4J_TPU_COMPILE_CACHE``, if set)
     compile_cache_dir: Optional[str] = None
-    #: the supervisor's cross-process consensus (over parallel/
-    #: distributed.py) waits for ROADMAP.md A.5's open half: "auto" and
-    #: False run single-process, True raises
+    #: route recovery decisions through the cross-process consensus
+    #: layer (parallel/distributed.py): "auto" turns it on exactly when
+    #: more than one process is in the group; True/False force it (False
+    #: runs a multi-process fleet with process-LOCAL recovery, safe only
+    #: when no fault ever fires)
     coordinate: object = "auto"
-    #: the supervisor's consensus deadline waits with it; a value raises
+    #: the run's consensus and barrier deadline (None: the
+    #: DL4J_TPU_COLLECTIVE_TIMEOUT_S env var, else its default); a round
+    #: past it names a lost peer and ends the run
     collective_timeout_s: Optional[float] = None
     #: injectable for tests (real runs sleep through backoff)
     sleep_fn: Callable[[float], None] = time.sleep
 
-    def __post_init__(self):
-        if self.coordinate is True:
-            raise NotImplementedError(
-                "SupervisorConfig(coordinate=True): the supervisor's "
-                "cross-process consensus waits for ROADMAP.md A.5's open "
-                "half (parallel/distributed.py has the consensus layer)")
-        if self.collective_timeout_s is not None:
-            raise NotImplementedError(
-                "SupervisorConfig(collective_timeout_s=...): the "
-                "supervisor's consensus deadline waits for ROADMAP.md "
-                "A.5's open half (parallel.distributed.collective_timeout_s"
-                " and DL4J_TPU_COLLECTIVE_TIMEOUT_S are ported)")
-
 
 @dataclass
 class SupervisorResult:
-    status: str                    # "completed" | "preempted"
+    status: str                    # "completed" | "preempted" | "peer_lost"
     final_step: int
     resumed_from: Optional[str]
     events: List[RecoveryEvent]
     stats: dict
     #: goodput.RunReport for the whole supervised run (None when the
-    #: goodput engine is disabled); also saved as run_report.json in the
-    #: checkpoint dir
+    #: goodput engine is disabled); also saved as run_report.json
+    #: (``run_report.r<k>.json`` off rank 0) in the checkpoint dir
     report: Optional[object] = None
-    #: a lost peer is a multi-process outcome of the supervisor's
-    #: coordination (ROADMAP.md A.5's open half): always None
+    #: status == "peer_lost": {"lost_ranks": [...], "detection_s": float,
+    #: "round": str} from the round (or collective) that named the peer
     peer_loss: Optional[dict] = None
 
 
@@ -282,15 +293,16 @@ class TrainingSupervisor:
 
     def __init__(self, net, config: SupervisorConfig, *, injector=None,
                  stats_collector=None):
-        if stats_collector is not None:
-            raise NotImplementedError(
-                "TrainingSupervisor(stats_collector=...): feeding the "
-                "supervisor's phases to a TrainingStatsCollector "
-                "(parallel/stats.py) waits for ROADMAP.md A.5's open half")
         self.net = net
         self.config = config
         self.injector = injector
+        self.stats_collector = stats_collector  # TrainingStatsCollector
         self.stats = ResilienceStats()
+        #: cross-process consensus routing (set per run by
+        #: _setup_coordination; False for single-process runs)
+        self._coordinated = False
+        #: filled when a consensus round named a dead peer
+        self.peer_loss: Optional[dict] = None
         self.events: List[RecoveryEvent] = []
         self._preempt_requested = False
         self._last_good: Optional[str] = None
@@ -329,11 +341,72 @@ class TrainingSupervisor:
         except Exception:
             return None
 
+    @contextmanager
+    def _phase(self, name: str, **attrs):
+        """A span of the run, filed with the statistics collector too."""
+        t0 = time.perf_counter()
+        try:
+            with _get_tracer().span(name, **attrs):
+                yield
+        finally:
+            if self.stats_collector is not None:
+                self.stats_collector.record(name, t0, time.perf_counter())
+
+    # --------------------------------------------------- cross-process glue
+    def _setup_coordination(self) -> bool:
+        """Decide (per run) whether recovery decisions go through the
+        consensus layer. Coordinated runs checkpoint synchronously: the
+        save's barriers are cross-process and must run on the thread that
+        makes the consensus calls, in the same order on every rank."""
+        from deeplearning4j_tpu_torch.parallel import distributed as _dist
+        cfg = self.config
+        if isinstance(cfg.coordinate, bool):
+            self._coordinated = cfg.coordinate
+        else:
+            self._coordinated = _dist.consensus_available()
+        if self._coordinated and cfg.async_checkpoints:
+            logger.info(
+                "multi-process run: checkpoints forced synchronous (the "
+                "save's barriers are cross-process and stay on the "
+                "consensus thread)")
+        return self._coordinated
+
+    def _agree(self, code: int, name: str) -> List[int]:
+        from deeplearning4j_tpu_torch.parallel import distributed as _dist
+        return _dist.agree_decision(
+            code, name=name, timeout_s=self.config.collective_timeout_s)
+
+    def _any_process(self, flag: bool, name: str) -> bool:
+        return any(self._agree(1 if flag else 0, name))
+
+    def _on_peer_lost(self, exc) -> None:
+        """A consensus round (or a collective) named a dead peer: record
+        it, flush the black box, and write NOTHING further. The last
+        barriered checkpoint is the newest restorable state, and a save
+        now would only wait on the dead peer."""
+        self.peer_loss = {
+            "lost_ranks": list(getattr(exc, "lost_ranks", [])),
+            "detection_s": getattr(exc, "elapsed_s", None),
+            "round": getattr(exc, "round_name", ""),
+        }
+        self._emit("peer_lost", self.net.iteration, f"{exc}",
+                   counter="peer_losses")
+        self._flight_flush("peer_lost", exc=exc)
+
+    def _exit_barrier(self):
+        """A clean coordinated run's last collective: no rank leaves (and
+        rank 0, the store's host, goes away) while a peer is still in the
+        run's consensus."""
+        if self._coordinated:
+            from deeplearning4j_tpu_torch.parallel import distributed as _dist
+            _dist.barrier("dl4j_run_exit",
+                          timeout_s=self.config.collective_timeout_s)
+
     def _preempt_exit(self, detail: str):
         """After the preemption's save: its event and the black box, timed
         with the save's barrier (the flush writes the flight file, which
         the ledger would otherwise leave untracked)."""
-        with _get_tracer().span("checkpoint_barrier"):
+        with self._phase("checkpoint_barrier"):
             self._emit("preempt", self.net.iteration, detail,
                        counter="preemptions")
             self._flight_flush("preemption")
@@ -363,7 +436,11 @@ class TrainingSupervisor:
 
     def _write_latest_pointer(self, path: str):
         # the rename is the commit point: the pointer never names a
-        # half-written checkpoint
+        # half-written checkpoint. Multi-process: rank 0's, since the
+        # ranks share the directory
+        from deeplearning4j_tpu_torch.parallel import distributed as _dist
+        if _dist.process_info()["process_index"] != 0:
+            return
         tmp = os.path.join(self.config.checkpoint_dir,
                            "." + _LATEST_POINTER + ".tmp")
         with open(tmp, "w") as f:
@@ -382,18 +459,18 @@ class TrainingSupervisor:
         would in place."""
         from deeplearning4j_tpu_torch.utils.checkpoint import (
             save_checkpoint, snapshot_for_checkpoint)
-        tracer = _get_tracer()
         self._drain_checkpoint()
         path = self._step_dir(step)
-        if not self.config.async_checkpoints:
-            with tracer.span("checkpoint_write", step=step, reason=reason):
-                save_checkpoint(self.net, path, extra_meta=self._extra_meta())
+        if not self.config.async_checkpoints or self._coordinated:
+            with self._phase("checkpoint_write", step=step, reason=reason):
+                save_checkpoint(self.net, path, stats=self.stats_collector,
+                                extra_meta=self._extra_meta())
                 self._write_latest_pointer(path)
                 self._commit_checkpoint(step, reason, path)
             return path
         pending = {"step": step, "reason": reason, "path": path,
                    "error": None}
-        with tracer.span("checkpoint_snapshot", step=step):
+        with self._phase("checkpoint_snapshot", step=step):
             # the data half of the snapshot: the pipeline's state is taken
             # here on the main thread, at the step boundary of the
             # device-side copy, so the writer gets plain data
@@ -404,9 +481,11 @@ class TrainingSupervisor:
                 # runs on dl4j-ckpt-writer: its span lands in that
                 # thread's trace lane, beside the main loop's steps
                 try:
-                    with tracer.span("checkpoint_write", step=step,
+                    with self._phase("checkpoint_write", step=step,
                                      reason=reason):
-                        save_checkpoint(snap, path, extra_meta=extra)
+                        save_checkpoint(snap, path,
+                                        stats=self.stats_collector,
+                                        extra_meta=extra)
                         self._write_latest_pointer(path)
                 except BaseException as e:  # kept for the drain barrier
                     pending["error"] = e
@@ -448,7 +527,7 @@ class TrainingSupervisor:
             return
         timeout_s = float(os.environ.get(
             "DL4J_TPU_CKPT_JOIN_TIMEOUT_S", "600"))
-        with _get_tracer().span("checkpoint_barrier"):
+        with self._phase("checkpoint_barrier"):
             t.join(timeout=timeout_s)
             self._ckpt_thread = None
             self._ckpt_pending = None
@@ -475,9 +554,13 @@ class TrainingSupervisor:
     def _gc(self, current_step: int):
         """Retention: keep the newest ``keep_checkpoints`` valid steps, and
         sweep partial saves older than the newest valid one (they can never
-        be resumed from)."""
+        be resumed from). Multi-process: rank 0's; the save's second
+        barrier means no peer still reads a directory it sweeps."""
+        from deeplearning4j_tpu_torch.parallel import distributed as _dist
         from deeplearning4j_tpu_torch.utils.checkpoint import (
             _STEP_DIR, is_valid_checkpoint)
+        if _dist.process_info()["process_index"] != 0:
+            return
         root = self.config.checkpoint_dir
         entries = []
         for name in os.listdir(root):
@@ -512,9 +595,17 @@ class TrainingSupervisor:
         shard cursor saved for another ``(n, i)`` than the live
         pipeline's is re-cut at the coverage rule's low-water mark
         (datapipe/reshard.py), emitted as a ``reshard`` event and stamped
-        onto the RunReport."""
+        onto the RunReport. A checkpoint saved by another number of
+        processes than the live group's is a reshard too (each process
+        holds a whole replica, so the trees load as they are).
+
+        A coordinated restore ends at a barrier: no process races into
+        training (or a rank-0 GC sweep) while a peer still reads the
+        checkpoint."""
+        from deeplearning4j_tpu_torch.parallel import distributed as _dist
         from deeplearning4j_tpu_torch.utils.checkpoint import (
-            _checked_meta, _net_kind, read_checkpoint_trees)
+            _checked_meta, _net_kind, read_checkpoint_layout,
+            read_checkpoint_trees)
         net = self.net
         meta = _checked_meta(os.path.abspath(path), _net_kind(net))
         trees = read_checkpoint_trees(path, net, net.device)
@@ -524,33 +615,55 @@ class TrainingSupervisor:
         net.iteration = int(meta["iteration"])
         net.epoch = int(meta["epoch"])
         self._last_good = path
-        if self._pipeline is None:
-            return
+        layout = read_checkpoint_layout(path) or {}
+        old_n = int(layout.get("process_count", 1))
+        new_n = int(_dist.process_info()["process_count"])
+        detail = None
+        if layout and old_n != new_n:
+            detail = {"from_process_count": old_n, "to_process_count": new_n,
+                      "from_mesh": layout.get("mesh")}
+        if self._pipeline is not None:
+            detail = self._load_pipeline(path, meta, detail)
+        if detail is not None:
+            self._emit("reshard", net.iteration,
+                       f"re-laid onto {new_n} process(es) from a "
+                       f"{old_n}-process checkpoint at {path}"
+                       + (f"; datapipe shard cursor {detail['datapipe']}"
+                          if "datapipe" in detail else ""),
+                       counter="reshards")
+            if self._ledger is not None:
+                self._ledger.annotate(reshard=detail)
+        if self._coordinated:
+            _dist.barrier("dl4j_restore_done",
+                          timeout_s=self.config.collective_timeout_s)
+
+    def _load_pipeline(self, path, meta, detail):
+        """The supervised pipeline's state from ``meta``; a shard cursor
+        saved for another ``(n, i)`` is re-cut at the coverage rule's
+        low-water mark. Returns the reshard detail (``detail`` with the
+        datapipe's remap added), or ``detail`` as it was."""
         if "datapipe" not in meta:
             logger.warning(
                 "checkpoint %s carries no datapipe state; the pipeline "
                 "keeps its current position", path)
-            return
+            return detail
         from deeplearning4j_tpu_torch.datapipe.reshard import (
             remap_for, shard_position)
         dp_state = meta["datapipe"]
         old_pos = shard_position(dp_state)
         try:
             self._pipeline.load_state_dict(dp_state)
-            return
+            return detail
         except ValueError:
             # a shard cursor baked for another fleet size: re-cut the
             # stream at the coverage rule's low-water mark
             remapped = remap_for(self._pipeline, dp_state)
         self._pipeline.load_state_dict(remapped)
         new_pos = shard_position(remapped)
-        detail = {"datapipe": {"from": old_pos and dict(zip("nik", old_pos)),
-                               "to": new_pos and dict(zip("nik", new_pos))}}
-        self._emit("reshard", net.iteration,
-                   f"datapipe shard cursor {old_pos} re-cut to {new_pos} "
-                   f"from {path}", counter="reshards")
-        if self._ledger is not None:
-            self._ledger.annotate(reshard=detail)
+        detail = dict(detail or {})
+        detail["datapipe"] = {"from": old_pos and dict(zip("nik", old_pos)),
+                              "to": new_pos and dict(zip("nik", new_pos))}
+        return detail
 
     # ------------------------------------------------------------- stepping
     def request_preemption(self):
@@ -570,24 +683,60 @@ class TrainingSupervisor:
     def _attempt_step(self, ds, step: int):
         """One fit_batch with transient-failure retry and exponential
         backoff. The injector's before_step hook runs inside the retried
-        region, so injected transients exercise this exact path."""
+        region, so injected transients exercise this exact path.
+
+        Coordinated runs add a consensus round per attempt before the
+        step: no process enters the step (whose gradient all-reduce is a
+        collective) unless every process is ready, and a transient on any
+        rank backs the whole fleet off on the same schedule. A failure
+        inside the collective step cannot be retried in lockstep (peers
+        are mid-collective) and propagates; a collective that failed
+        because a peer died is named by ``check_peers`` as a lost
+        peer."""
         cfg = self.config
         delay = cfg.backoff_initial_s
         attempt = 0
         while True:
+            err = None
             try:
                 if self.injector is not None:
                     self.injector.before_step(self, self.net, step)
-                return self.net.fit_batch(ds)
             except cfg.retry_on as e:
                 err = e
+            if self._coordinated:
+                failed = any(self._agree(0 if err is None else 1, "step"))
+            else:
+                failed = err is not None
+            if not failed:
+                try:
+                    return self.net.fit_batch(ds)
+                except cfg.retry_on as e:
+                    if self._coordinated:
+                        raise
+                    err = e
+                except RuntimeError as e:
+                    if self._coordinated:
+                        from deeplearning4j_tpu_torch.parallel import (
+                            distributed as _dist)
+                        _dist.check_peers(
+                            e, name="step",
+                            timeout_s=cfg.collective_timeout_s)
+                    raise
             attempt += 1
             if attempt > cfg.max_step_retries:
-                raise err
+                if err is not None:
+                    raise err
+                from deeplearning4j_tpu_torch.resilience.faultinject import (
+                    TransientStepError)
+                raise TransientStepError(
+                    f"a peer process kept failing step {step} past "
+                    f"{cfg.max_step_retries} coordinated retries")
+            cause = (f"{type(err).__name__}: {err}" if err is not None
+                     else "peer transient failure")
             self._emit(
                 "retry", step,
                 f"attempt {attempt}/{cfg.max_step_retries} after "
-                f"{type(err).__name__}: {err}; backoff {delay:.3f}s",
+                f"{cause}; backoff {delay:.3f}s",
                 counter="retries")
             cfg.sleep_fn(delay)
             delay = min(delay * cfg.backoff_factor, cfg.backoff_max_s)
@@ -602,7 +751,7 @@ class TrainingSupervisor:
         pending, self._pending_scores = self._pending_scores, []
         bad = None
         now = self.net.iteration
-        with _get_tracer().span("score_sync", steps=len(pending)):
+        with self._phase("score_sync", steps=len(pending)):
             for step, score in pending:
                 self.stats.note_nan_check_lag(now - (step + 1))
                 if bad is None and not math.isfinite(float(score)):
@@ -610,8 +759,23 @@ class TrainingSupervisor:
         return bad
 
     def _agreed_bad(self):
-        """The NaN decision: in one process, the local flush."""
-        return self._flush_nan_checks()
+        """The fleet-wide NaN decision. Single-process: the local flush.
+        Coordinated: every process publishes its verdict (0 = clean,
+        step + 1 = its first bad step) and the outcome is the SMALLEST
+        bad step any rank saw, so one poisoned rank rolls every rank back
+        to the same checkpoint in lockstep. The call sites follow the
+        same schedule on every rank, so the rounds line up."""
+        bad = self._flush_nan_checks()
+        if not self._coordinated:
+            return bad
+        code = (bad[0] + 1) if bad is not None else 0
+        hits = [c - 1 for c in self._agree(code, "nan") if c]
+        if not hits:
+            return None
+        step = min(hits)
+        score = bad[1] if bad is not None and bad[0] == step else \
+            float("nan")
+        return (step, score)
 
     def _rollback(self, step: int, score: float, rollbacks: int):
         cfg = self.config
@@ -630,7 +794,7 @@ class TrainingSupervisor:
                 f"loss is non-finite ({score}) at step {step} and no good "
                 "checkpoint exists to roll back to")
         new_scale = getattr(self.net, "_lr_scale", 1.0) * cfg.nan_lr_backoff
-        with _get_tracer().span("rollback", step=step):
+        with self._phase("rollback", step=step):
             self._load_into(self._last_good)
         if hasattr(self.net, "set_lr_scale"):
             self.net.set_lr_scale(new_scale)
@@ -653,6 +817,7 @@ class TrainingSupervisor:
         _obs_metrics.install_runtime_metrics()
         from deeplearning4j_tpu_torch.compilecache import configure
         configure(cfg.compile_cache_dir)  # falls back to the env var
+        self._setup_coordination()
         self.stats.attach_to_registry(
             labels={"job": os.path.basename(
                 os.path.normpath(cfg.checkpoint_dir))})
@@ -665,7 +830,10 @@ class TrainingSupervisor:
             latest = find_latest_checkpoint(cfg.checkpoint_dir)
             if latest is not None:
                 self._load_into(latest)
-                _get_tracer().record("restore", t0, time.perf_counter())
+                t1 = time.perf_counter()
+                _get_tracer().record("restore", t0, t1)
+                if self.stats_collector is not None:
+                    self.stats_collector.record("restore", t0, t1)
                 return ledger, latest
         return ledger, None
 
@@ -675,7 +843,8 @@ class TrainingSupervisor:
         return SupervisorResult(
             status=status, final_step=self.net.iteration,
             resumed_from=self._resumed_from, events=list(self.events),
-            stats=self.stats.snapshot(), report=report)
+            stats=self.stats.snapshot(), report=report,
+            peer_loss=self.peer_loss)
 
     def _on_exit(self, ledger):
         """The exit barrier of a run's ``finally``: with an exception
@@ -701,74 +870,92 @@ class TrainingSupervisor:
         ``batch_fn(step)`` at each step. Resumable: relaunching with the
         same arguments continues from the newest valid checkpoint to the
         same final step."""
+        from deeplearning4j_tpu_torch.parallel import distributed as _dist
         cfg = self.config
         net = self.net
-        ledger, self._resumed_from = self._open_run()
-        if self._resumed_from is not None:
-            self._emit("resume", net.iteration,
-                       f"restored {self._resumed_from}", counter="resumes")
-
         old_handler = self._signal_handler()
         rollbacks = 0
         status = "completed"
         try:
-            if self._last_good is None and net.iteration < target_step:
-                # baseline save: the NaN sentinel needs a rollback target
-                # from the first step, and a crash before the first
-                # periodic save must not lose the initialization
-                self._checkpoint(net.iteration, "baseline")
+            try:
+                _, self._resumed_from = self._open_run()
+                if self._resumed_from is not None:
+                    self._emit("resume", net.iteration,
+                               f"restored {self._resumed_from}",
+                               counter="resumes")
+                if self._last_good is None and net.iteration < target_step:
+                    # baseline save: the NaN sentinel needs a rollback
+                    # target from the first step, and a crash before the
+                    # first periodic save must not lose the
+                    # initialization
+                    self._checkpoint(net.iteration, "baseline")
 
-            while True:
-                if self._preempt_requested:
-                    status = "preempted"
-                    break
-                if net.iteration >= target_step:
-                    # tail flush: the last chunk of unread scores may hold
-                    # poison; a rollback rewinds the iteration and
-                    # re-enters
+                while True:
+                    if self._coordinated and self._any_process(
+                            self._preempt_requested, "preempt"):
+                        # one round a pass: a SIGTERM on ANY rank stops
+                        # every rank at this same step boundary
+                        self._preempt_requested = True
+                    if self._preempt_requested:
+                        status = "preempted"
+                        break
+                    if net.iteration >= target_step:
+                        # tail flush: the last chunk of unread scores may
+                        # hold poison; a rollback rewinds the iteration
+                        # and re-enters
+                        bad = self._agreed_bad()
+                        if bad is not None:
+                            rollbacks += 1
+                            self._rollback(bad[0], bad[1], rollbacks)
+                            continue
+                        break
+                    step = net.iteration
+                    score = self._attempt_step(batch_fn(step), step)
+                    if cfg.nan_check_every > 0:
+                        self._pending_scores.append((step, score))
+                    due_check = (cfg.nan_check_every > 0
+                                 and net.iteration % cfg.nan_check_every
+                                 == 0)
+                    due_ckpt = (net.iteration % cfg.checkpoint_every_steps
+                                == 0 and net.iteration < target_step)
+                    if (due_check or due_ckpt) and self._pending_scores:
+                        # every score up to here is read and finite
+                        # BEFORE a snapshot is taken: poison is never
+                        # checkpointed
+                        bad = self._agreed_bad()
+                        if bad is not None:
+                            rollbacks += 1
+                            self._rollback(bad[0], bad[1], rollbacks)
+                            continue
+                    if due_ckpt:
+                        self._checkpoint(net.iteration, "periodic")
+
+                if status == "preempted":
                     bad = self._agreed_bad()
                     if bad is not None:
+                        # never checkpoint poison, even on the way out
                         rollbacks += 1
                         self._rollback(bad[0], bad[1], rollbacks)
-                        continue
-                    break
-                step = net.iteration
-                score = self._attempt_step(batch_fn(step), step)
-                if cfg.nan_check_every > 0:
-                    self._pending_scores.append((step, score))
-                due_check = (cfg.nan_check_every > 0
-                             and net.iteration % cfg.nan_check_every == 0)
-                due_ckpt = (net.iteration % cfg.checkpoint_every_steps == 0
-                            and net.iteration < target_step)
-                if (due_check or due_ckpt) and self._pending_scores:
-                    # every score up to here is read and finite BEFORE a
-                    # snapshot is taken: poison is never checkpointed
-                    bad = self._agreed_bad()
-                    if bad is not None:
-                        rollbacks += 1
-                        self._rollback(bad[0], bad[1], rollbacks)
-                        continue
-                if due_ckpt:
-                    self._checkpoint(net.iteration, "periodic")
-
-            if status == "preempted":
-                bad = self._agreed_bad()
-                if bad is not None:
-                    # never checkpoint poison, even on the way out
-                    rollbacks += 1
-                    self._rollback(bad[0], bad[1], rollbacks)
-                self._checkpoint(net.iteration, "preemption", wait=True)
-                self._preempt_exit(f"clean exit at step {net.iteration} of "
-                                   f"{target_step}")
-            else:
-                self._drain_checkpoint()  # settle _last_good first
-                if self._last_good != self._step_dir(net.iteration):
-                    self._checkpoint(net.iteration, "final", wait=True)
+                    self._checkpoint(net.iteration, "preemption", wait=True)
+                    self._preempt_exit(f"clean exit at step {net.iteration}"
+                                       f" of {target_step}")
+                else:
+                    self._drain_checkpoint()  # settle _last_good first
+                    if self._last_good != self._step_dir(net.iteration):
+                        self._checkpoint(net.iteration, "final", wait=True)
+                self._exit_barrier()
+            except _dist.PeerLostError as e:
+                # a peer died: the post-mortem, and NO further checkpoint
+                # (a save's barrier would wait on the dead peer; the
+                # meta.json rule keeps half-saves unrestorable); a status
+                # of its own for the launcher
+                status = "peer_lost"
+                self._on_peer_lost(e)
         finally:
             if old_handler is not None:
                 signal.signal(signal.SIGTERM, old_handler[0])
-            self._on_exit(ledger)
-        return self._close_run(ledger, status)
+            self._on_exit(self._ledger)
+        return self._close_run(self._ledger, status)
 
     def _report_path(self) -> str:
         """``run_report.json`` in the checkpoint dir (rank-suffixed off
@@ -795,15 +982,10 @@ class TrainingSupervisor:
         prefetch worker stopped), so no batch taken from the old stream
         is trained on after it; the batches the worker had buffered are
         in the checkpoint's state and come back from there."""
+        from deeplearning4j_tpu_torch.parallel import distributed as _dist
         cfg = self.config
         net = self.net
         self._pipeline = pipeline
-        ledger, self._resumed_from = self._open_run()
-        if self._resumed_from is not None:
-            self._emit("resume", net.iteration,
-                       f"restored {self._resumed_from} (datapipe epoch "
-                       f"{pipeline.epoch})", counter="resumes")
-
         old_handler = self._signal_handler()
         stream = None
 
@@ -819,63 +1001,89 @@ class TrainingSupervisor:
         rollbacks = 0
         status = "completed"
         try:
-            if self._last_good is None:
-                # baseline save: a rollback target from the first step,
-                # with the pipeline's start-of-run state
-                self._checkpoint(net.iteration, "baseline")
+            try:
+                _, self._resumed_from = self._open_run()
+                if self._resumed_from is not None:
+                    self._emit("resume", net.iteration,
+                               f"restored {self._resumed_from} (datapipe "
+                               f"epoch {pipeline.epoch})", counter="resumes")
+                if self._last_good is None:
+                    # baseline save: a rollback target from the first
+                    # step, with the pipeline's start-of-run state
+                    self._checkpoint(net.iteration, "baseline")
 
-            while True:
-                if self._preempt_requested:
-                    status = "preempted"
-                    break
-                if stream is None:
-                    stream = pipeline.stream(epochs)
-                ds = next(stream, None)
-                if ds is None:
-                    # stream exhausted, but the unread scores may hold
-                    # poison; a rollback rewinds the data position too
-                    # and re-enters with a new stream
+                while True:
+                    if self._coordinated and self._any_process(
+                            self._preempt_requested, "preempt"):
+                        # BEFORE a batch is pulled: the final
+                        # checkpoint's data cursor must not have taken a
+                        # record nobody trained on
+                        self._preempt_requested = True
+                    if self._preempt_requested:
+                        status = "preempted"
+                        break
+                    if stream is None:
+                        stream = pipeline.stream(epochs)
+                    ds = next(stream, None)
+                    if self._coordinated:
+                        # the epoch's end is a fleet decision: the first
+                        # shard to run dry ends it everywhere (a lone
+                        # finisher at the exit barrier while its peers
+                        # train would deadlock)
+                        exhausted = self._any_process(ds is None, "data")
+                    else:
+                        exhausted = ds is None
+                    if exhausted:
+                        # stream exhausted, but the unread scores may
+                        # hold poison; a rollback rewinds the data
+                        # position too and re-enters with a new stream
+                        bad = self._agreed_bad()
+                        if bad is not None:
+                            rollbacks += 1
+                            invalidate_stream()
+                            self._rollback(bad[0], bad[1], rollbacks)
+                            continue
+                        break
+                    step = net.iteration
+                    score = self._attempt_step(ds, step)
+                    if cfg.nan_check_every > 0:
+                        self._pending_scores.append((step, score))
+                    due_check = (cfg.nan_check_every > 0
+                                 and net.iteration % cfg.nan_check_every
+                                 == 0)
+                    due_ckpt = (net.iteration % cfg.checkpoint_every_steps
+                                == 0)
+                    if (due_check or due_ckpt) and self._pending_scores:
+                        bad = self._agreed_bad()
+                        if bad is not None:
+                            rollbacks += 1
+                            invalidate_stream()
+                            self._rollback(bad[0], bad[1], rollbacks)
+                            continue
+                    if due_ckpt:
+                        self._checkpoint(net.iteration, "periodic")
+
+                if status == "preempted":
                     bad = self._agreed_bad()
                     if bad is not None:
                         rollbacks += 1
                         invalidate_stream()
                         self._rollback(bad[0], bad[1], rollbacks)
-                        continue
-                    break
-                step = net.iteration
-                score = self._attempt_step(ds, step)
-                if cfg.nan_check_every > 0:
-                    self._pending_scores.append((step, score))
-                due_check = (cfg.nan_check_every > 0
-                             and net.iteration % cfg.nan_check_every == 0)
-                due_ckpt = net.iteration % cfg.checkpoint_every_steps == 0
-                if (due_check or due_ckpt) and self._pending_scores:
-                    bad = self._agreed_bad()
-                    if bad is not None:
-                        rollbacks += 1
-                        invalidate_stream()
-                        self._rollback(bad[0], bad[1], rollbacks)
-                        continue
-                if due_ckpt:
-                    self._checkpoint(net.iteration, "periodic")
-
-            if status == "preempted":
-                bad = self._agreed_bad()
-                if bad is not None:
-                    rollbacks += 1
+                    # park the prefetch worker so the saved pipeline state
+                    # is the final word on the data position
                     invalidate_stream()
-                    self._rollback(bad[0], bad[1], rollbacks)
-                # park the prefetch worker so the saved pipeline state is
-                # the final word on the data position
-                invalidate_stream()
-                self._checkpoint(net.iteration, "preemption", wait=True)
-                self._preempt_exit(f"clean exit at step {net.iteration} "
-                                   f"(datapipe epoch {pipeline.epoch} of "
-                                   f"{epochs})")
-            else:
-                self._drain_checkpoint()  # settle _last_good first
-                if self._last_good != self._step_dir(net.iteration):
-                    self._checkpoint(net.iteration, "final", wait=True)
+                    self._checkpoint(net.iteration, "preemption", wait=True)
+                    self._preempt_exit(f"clean exit at step {net.iteration}"
+                                       f" (datapipe epoch {pipeline.epoch} "
+                                       f"of {epochs})")
+                else:
+                    self._drain_checkpoint()  # settle _last_good first
+                    if self._last_good != self._step_dir(net.iteration):
+                        self._checkpoint(net.iteration, "final", wait=True)
+                self._exit_barrier()
+            except _dist.PeerLostError as e:
+                status = "peer_lost"
+                self._on_peer_lost(e)
         finally:
             if old_handler is not None:
                 signal.signal(signal.SIGTERM, old_handler[0])
@@ -883,8 +1091,8 @@ class TrainingSupervisor:
             # the pipeline reports only while consumed: back-to-back runs
             # over fresh pipelines must not pile stale families up
             pipeline.stats.detach_from_registry()
-            self._on_exit(ledger)
-        return self._close_run(ledger, status)
+            self._on_exit(self._ledger)
+        return self._close_run(self._ledger, status)
 
     # ----------------------------------------------------------- fit facade
     def fit(self, data, labels=None, *, epochs: int = 1,

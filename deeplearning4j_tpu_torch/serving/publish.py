@@ -37,7 +37,7 @@ Store layout (``root/``)::
 ``load_net`` restores a publication on the card unless a ``device`` is
 given; its cost is reading the trees (a structure-only net, no random
 draws, no kernel build). Restoring onto a mesh (``mesh=``) for mesh
-serving waits for ROADMAP.md A.5's open half and raises
+serving waits for ROADMAP.md A.5 part 2 and raises
 ``NotImplementedError``.
 """
 
@@ -61,8 +61,9 @@ _LATEST = "LATEST"
 PUBLICATION_META = "publication.json"
 
 MESH_NOT_PORTED = ("load_net(mesh=...): restoring a publication onto a "
-                   "serving mesh waits for ROADMAP.md A.5's open half "
-                   "(parallel/inference.py)")
+                   "serving mesh waits for ROADMAP.md A.5 part 2 "
+                   "(parallel/inference.py); data-parallel training and "
+                   "the supervisor's coordination are ported")
 
 
 class Publication:

@@ -65,8 +65,9 @@ lacks at first use (the same ``nvcc`` and the same kernels). A
 ``batch_window_ms``.
 
 Not ported, refused by name when given: ``mesh`` (mesh-parallel
-serving, ROADMAP.md A.5's open half; data-parallel training over a mesh
-is ported, parallel/).
+serving, ROADMAP.md A.5 part 2; data-parallel training over a mesh and
+the supervisor's cross-process coordination are ported, parallel/ and
+resilience/).
 """
 
 from __future__ import annotations
@@ -90,16 +91,24 @@ from deeplearning4j_tpu_torch.observability import slo as _slo
 from deeplearning4j_tpu_torch.observability import trace as _obs_trace
 from deeplearning4j_tpu_torch.scheduling import core as _sched
 from deeplearning4j_tpu_torch.serving.batcher import (BatcherDeadError,
-                                                      QueueFullError)
+                                                      MicroBatcher,
+                                                      QueueFullError,
+                                                      next_bucket)
 from deeplearning4j_tpu_torch.serving.fleet import ReplicaSet
 from deeplearning4j_tpu_torch.serving.metrics import (ServingStats,
                                                       decode_metric_families)
 
+_ = MicroBatcher  # re-exported (seed name); replicas are built by ReplicaSet
+
+_next_bucket = next_bucket  # back-compat alias (seed name)
+
 #: what each refused parameter waits for
 NOT_PORTED = {
     "mesh": "mesh-parallel serving (parallel/inference.py, tp_rules) "
-            "waits for ROADMAP.md A.5's open half; data-parallel training "
-            "(parallel/data_parallel.py, net.use_mesh) is ported",
+            "waits for ROADMAP.md A.5 part 2 (tensor parallelism); "
+            "data-parallel training (parallel/data_parallel.py, "
+            "net.use_mesh) and the supervisor's cross-process "
+            "coordination (resilience/launcher.py) are ported",
 }
 
 
@@ -260,7 +269,7 @@ class ModelServer:
         fingerprint must equal the serving net's (the same parameter
         structure). Refused with a decode engine (its sessions hold KV
         state of the old weights: drain the host instead); a server on a
-        mesh is refused when it is built (ROADMAP.md A.5's open half).
+        mesh is refused when it is built (ROADMAP.md A.5 part 2).
         Returns ``{version, fingerprint,
         replicas_swapped, swap_s, fresh_compiles}``: ``fresh_compiles``
         is the kernel builds during the swap, 0 on a warmed server."""

@@ -9,9 +9,9 @@ either a complete checkpoint or one that restore and discovery refuse:
   keyed by the JAX tree path (``['layer_0']['W']``), and ``dtypes.json``
   naming each leaf's dtype. The directory is written as ``.tree.tmp`` and
   renamed into place, so the tree commit is atomic.
-- ``layout.json`` next (renamed in): format 2's manifest. This package
-  runs one process on one device, so ``mesh`` is null, the process count
-  1 and every leaf's partition spec null.
+- ``layout.json`` next (renamed in): format 2's manifest: the mesh of a
+  meshed net (one device a rank), the process count and index, and every
+  leaf's partition spec, null (every leaf is replicated).
 - ``meta.json`` last (renamed in): ``kind``, ``config``, ``iteration``,
   ``epoch``, ``format_version`` and any ``extra_meta``. Its presence
   certifies the checkpoint (``is_valid_checkpoint``).
@@ -36,8 +36,12 @@ Use::
     save_checkpoint(net, "/ckpt/step_1000")
     net = restore_multi_layer_network("/ckpt/step_1000")
 
+A multi-process group saves with every rank calling ``save_checkpoint``:
+rank 0 writes, the others wait at the two barriers around the meta
+commit (see ``save_checkpoint``).
+
 Restoring onto a mesh (``mesh=``, ``model_axis=``, ``tp_rules=``: the
-sharded restore) waits for ROADMAP.md A.5's open half and raises
+sharded restore) waits for ROADMAP.md A.5 part 2 and raises
 ``NotImplementedError``; a data-parallel net restores unmeshed and then
 takes ``use_mesh(make_mesh())`` (parallel/).
 """
@@ -177,18 +181,35 @@ def _datapipe_shard_positions(extra_meta) -> list:
     return out
 
 
+def _mesh_json(net):
+    """The meshed net's mesh as the layout records it, or None."""
+    meshed = getattr(net, "_mesh", None)
+    if meshed is None:
+        return None
+    mesh, data_axis = meshed
+    names = [str(a) for a in (mesh.mesh_dim_names or ())]
+    return {"axis_names": names,
+            "shape": [int(d) for d in mesh.mesh.shape],
+            "device_count": int(mesh.mesh.numel()),
+            "data_axis": data_axis, "model_axis": None}
+
+
 def _layout_manifest(net, extra_meta) -> dict:
-    """Format 2's manifest for a single-process, one-device save: no mesh,
-    every leaf's partition spec null."""
+    """Format 2's manifest: the mesh a meshed net was saved on (one
+    device a rank), the process count and index, and every leaf's
+    partition spec, null (replicated: this package shards no leaf)."""
+    from deeplearning4j_tpu_torch.parallel import distributed
+
     def specs(tree):
         return {_keystr(path): None for path, _ in
                 sorted(_flatten(tree or {}), key=lambda kv: kv[0])}
 
+    info = distributed.process_info()
     return {
         "format_version": FORMAT_VERSION,
-        "mesh": None,
-        "process_count": 1,
-        "process_index": 0,
+        "mesh": _mesh_json(net),
+        "process_count": int(info["process_count"]),
+        "process_index": int(info["process_index"]),
         "param_specs": specs(net.params),
         "opt_specs": specs(net.opt_state),
         "datapipe_shards": _datapipe_shard_positions(extra_meta),
@@ -210,50 +231,73 @@ def save_checkpoint(net, path: str, stats=None, extra_meta=None) -> str:
     complete checkpoint or one without ``meta.json``. Write each periodic
     save to a fresh step directory (``.../step_1000``).
 
+    In a multi-process group every process calls this. Every leaf is
+    replicated, so rank 0 writes the trees; a barrier
+    (parallel/distributed.py, with the collective deadline) follows the
+    tree commit, ``meta.json`` lands by rename after it, and a second
+    barrier ends the save, so ``save_checkpoint`` returns once the
+    checkpoint is complete for every rank, and a peer that dies mid-save
+    raises ``PeerLostError`` before ``meta.json`` exists: the newest
+    restorable checkpoint is always the last one complete on every rank.
+
     ``extra_meta``: a JSON-serializable dict merged into ``meta.json``; it
-    may not override the reserved keys. ``stats`` (the checkpoint's
-    ``checkpoint_barrier`` phase in a training-statistics collector)
-    waits with the supervisor's coordination for ROADMAP.md A.5's open
-    half and raises."""
+    may not override the reserved keys (rank 0's is written). ``stats``:
+    a ``parallel.stats.TrainingStatsCollector``, which records the whole
+    save, barriers included, as a ``checkpoint_barrier`` phase."""
     if stats is not None:
-        raise NotImplementedError(
-            "save_checkpoint(stats=...): timing the save into a "
-            "TrainingStatsCollector (parallel/stats.py) waits with the "
-            "supervisor's coordination for ROADMAP.md A.5's open half")
+        with stats.time_phase("checkpoint_barrier"):
+            return _save_checkpoint_inner(net, path, extra_meta)
+    return _save_checkpoint_inner(net, path, extra_meta)
+
+
+def _save_checkpoint_inner(net, path: str, extra_meta=None) -> str:
+    from deeplearning4j_tpu_torch.parallel import distributed
     path = os.path.abspath(path)
-    os.makedirs(path, exist_ok=True)
-    arrays, dtypes = _host_trees(net)
-    tmp = os.path.join(path, ".tree.tmp")
-    shutil.rmtree(tmp, ignore_errors=True)
-    os.makedirs(tmp)
-    for name in _TREES:
-        with open(os.path.join(tmp, f"{name}.npz"), "wb") as f:
-            np.savez(f, **arrays[name])
-    _write_json(tmp, "dtypes.json", dtypes)
-    tree = os.path.join(path, "tree")
-    if os.path.exists(tree):
-        shutil.rmtree(tree)
-    os.replace(tmp, tree)
+    multi = distributed.is_multiprocess()
+    writer = distributed.process_info()["process_index"] == 0
+    if writer:
+        os.makedirs(path, exist_ok=True)
+        arrays, dtypes = _host_trees(net)
+        tmp = os.path.join(path, ".tree.tmp")
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        for name in _TREES:
+            with open(os.path.join(tmp, f"{name}.npz"), "wb") as f:
+                np.savez(f, **arrays[name])
+        _write_json(tmp, "dtypes.json", dtypes)
+        tree = os.path.join(path, "tree")
+        if os.path.exists(tree):
+            shutil.rmtree(tree)
+        os.replace(tmp, tree)
     if _POST_COMMIT_HOOK is not None:
         _POST_COMMIT_HOOK(path)
-    # layout.json lands before the meta.json rename, so meta's presence
-    # still certifies the whole checkpoint
-    _write_json(path, "layout.json", _layout_manifest(net, extra_meta),
-                indent=1)
-    meta = {
-        "kind": _net_kind(net),
-        "config": net.conf.to_json(),
-        "iteration": int(net.iteration),
-        "epoch": int(net.epoch),
-        "format_version": FORMAT_VERSION,
-    }
-    if extra_meta:
-        clash = set(extra_meta) & set(meta)
-        if clash:
-            raise ValueError(f"extra_meta may not override reserved "
-                             f"meta.json keys: {sorted(clash)}")
-        meta.update(extra_meta)
-    _write_json(path, "meta.json", meta)
+    if multi:
+        # meta.json is the validity commit: it may land only once the
+        # tree is durable, and a peer dying here leaves no meta
+        distributed.barrier("dl4j_ckpt_tree_committed")
+    if writer:
+        # layout.json lands before the meta.json rename, so meta's
+        # presence still certifies the whole checkpoint
+        _write_json(path, "layout.json", _layout_manifest(net, extra_meta),
+                    indent=1)
+        meta = {
+            "kind": _net_kind(net),
+            "config": net.conf.to_json(),
+            "iteration": int(net.iteration),
+            "epoch": int(net.epoch),
+            "format_version": FORMAT_VERSION,
+        }
+        if extra_meta:
+            clash = set(extra_meta) & set(meta)
+            if clash:
+                raise ValueError(f"extra_meta may not override reserved "
+                                 f"meta.json keys: {sorted(clash)}")
+            meta.update(extra_meta)
+        _write_json(path, "meta.json", meta)
+    if multi:
+        # no rank returns (nor resumes, nor lets rank 0 collect) before
+        # the rename landed: the save is complete everywhere
+        distributed.barrier("dl4j_ckpt_save_done")
     return path
 
 
@@ -364,8 +408,9 @@ def _refuse_mesh(mesh, model_axis, tp_rules):
     if mesh is not None or model_axis is not None or tp_rules:
         raise NotImplementedError(
             "restoring a checkpoint onto a mesh (mesh=, model_axis=, "
-            "tp_rules=) waits for ROADMAP.md A.5's open half; restore "
-            "unmeshed, then net.use_mesh(parallel.make_mesh())")
+            "tp_rules=) waits for ROADMAP.md A.5 part 2; restore "
+            "unmeshed, then net.use_mesh(parallel.make_mesh()) (data "
+            "parallelism and multi-process saves are ported)")
 
 
 def _restore(path, expect_kind, device, mesh, data_axis, model_axis,

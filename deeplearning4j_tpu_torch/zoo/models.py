@@ -31,6 +31,10 @@ from deeplearning4j_tpu_torch.nn.updater import Adam, Nesterovs
 
 BF16 = DtypePolicy(param_dtype="float32", compute_dtype="bfloat16")
 F32 = DtypePolicy(param_dtype="float32", compute_dtype="float32")
+# f16 compute implies dynamic loss scaling (the policy's loss_scale="auto"
+# resolves to dynamic for float16, nn/precision.py); on the card its LSTM,
+# attention and fused tails take their composed routes (ops/registry.py)
+F16 = DtypePolicy(param_dtype="float32", compute_dtype="float16")
 
 
 def mnist_mlp(seed: int = 42, dtype: Optional[DtypePolicy] = None,

@@ -204,6 +204,10 @@ def test_cuda_gate_refuses_by_name(over, match):
     k = torch.zeros(b, tk, h, dh, dtype=dt)
     with pytest.raises(NotImplementedError, match=match):
         tatt.check_flash_inputs(q, k, k, over.get("q_start", 0))
+    # K3's gate refuses them; the JAX package sends each to XLA, so on
+    # the card each takes the composed route
+    assert tatt.attention_route(dt, t, tk, dh,
+                                over.get("q_start", 0)) == "composed"
 
 
 @pytest.mark.parametrize("dh", tatt.KERNEL_HEAD_DIMS)
@@ -230,6 +234,9 @@ def test_cuda_gate_refuses_bf16_calls_the_sm90_route_does_not_cover(over,
     k = torch.zeros(b, tk, h, dh, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match=match):
         tatt.check_flash_inputs(q, k, k, over.get("q_start", 0))
+    # at T = 16 the JAX kernel's 128-row tiles do not fit either: composed
+    assert tatt.attention_route(torch.bfloat16, t, tk, dh,
+                                over.get("q_start", 0)) == "composed"
 
 
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "sm90"),

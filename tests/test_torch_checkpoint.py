@@ -286,11 +286,20 @@ def test_kind_mismatch_and_mesh_restore_are_refused(tmp_path):
         tck.restore_multi_layer_network(gpath, device="cpu")
     for kw in ({"mesh": object()}, {"model_axis": "model"},
                {"tp_rules": {"['layer_0']['W']": None}}):
-        with pytest.raises(NotImplementedError, match="A.5"):
+        with pytest.raises(NotImplementedError, match="A.5 part 2"):
             tck.restore_multi_layer_network(mpath, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="A.5"):
-        tck.save_checkpoint(_mln(POLICIES["f32"]),
-                            str(tmp_path / "s" / "step_0"), stats=object())
+    # save_checkpoint(stats=) is ported: the save is one checkpoint_barrier
+    # phase of the collector, as in the JAX package
+    from deeplearning4j_tpu_torch.parallel.stats import (
+        TrainingStatsCollector)
+    st = TrainingStatsCollector(worker_id="worker_0")
+    spath = tck.save_checkpoint(_mln(POLICIES["f32"]),
+                                str(tmp_path / "s" / "step_0"), stats=st)
+    assert tck.is_valid_checkpoint(spath)
+    assert [e.phase for e in st.events] == ["checkpoint_barrier"]
+    assert st.events[0].duration_ms > 0
+    layout = tck.read_checkpoint_layout(spath)
+    assert (layout["process_count"], layout["process_index"]) == (1, 0)
 
 
 def test_extra_meta_may_not_override_reserved_keys(tmp_path):

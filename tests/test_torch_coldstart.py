@@ -217,7 +217,10 @@ def test_build_into_the_cache_counts_and_leaves_no_temp(tmp_path,
     succeed, the library is there, no temp file is left; a failing
     build raises with nvcc's output and leaves no temp file either."""
     monkeypatch.setattr(_build, "_RELEASE", ["release test"])
-    monkeypatch.setattr(_build, "nvcc_path", lambda: _fake_nvcc(tmp_path))
+    # the stand-in is written once: rewritten by each thread's lookup, one
+    # thread could run it while another writes it (ETXTBSY)
+    nvcc = _fake_nvcc(tmp_path)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: nvcc)
     cache = tmp_path / "cache"
     ccache.configure(str(cache))
     before = obs.compile_snapshot()
@@ -417,7 +420,7 @@ def test_precompile_serving_matches_the_jax_entry(tmp_path, jax_and_port):
         assert got[k] == want[k], k
     assert got["libraries"] == [] and got["decode"] is False
     assert ccache.cache_dir() == str(tmp_path / "port")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.5 part 2"):
         pre.precompile_serving(net, cache_dir=str(tmp_path), mesh=object())
 
 

@@ -227,8 +227,10 @@ def test_broadcast_shortcut_and_nhwc(interpret_mode):
 
 
 @pytest.mark.parametrize("case,exc,match", [
-    ("f16", NotImplementedError, "float32 or bfloat16"),
-    ("f64", NotImplementedError, "float32 or bfloat16"),
+    # f16 and f64: the composed route on the card (the JAX package's
+    # pallas_supported sends them to XLA), the plain passes on the CPU
+    ("f16", None, "composed"),
+    ("f64", None, "composed"),
     ("3x3", NotImplementedError, "1x1 kernel"),
     ("3d_w", NotImplementedError, "1x1 kernel"),
     ("k_mismatch", ValueError, "does not end in K"),
@@ -250,6 +252,14 @@ def test_gate_refuses_by_name(case, exc, match):
         x = torch.zeros(8, 32)
     elif case == "bad_shortcut":
         sc = torch.zeros(8, 64)
+    if exc is None:
+        assert tfb.fused_route(x.dtype) == match
+        assert tfb.check_fused_inputs(x, W, sc) == (8, 64, 128)
+        y, _, _ = tfb.conv1x1_bn_add_relu(
+            x, W.to(x.dtype), torch.ones(128), torch.zeros(128),
+            sc.to(x.dtype), shift=torch.zeros(128), eps=EPS)
+        assert y.dtype == x.dtype and y.shape == (8, 128)
+        return
     with pytest.raises(exc, match=match):
         tfb.check_fused_inputs(x, W, sc)
     with pytest.raises(exc, match=match):

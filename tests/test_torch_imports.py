@@ -346,6 +346,63 @@ def test_analysis_and_parallel_public_names_match_the_jax_package():
         assert all(hasattr(jm, n) for n in names), m
 
 
+COORDINATION_MODULES = [
+    "deeplearning4j_tpu_torch.resilience.launcher",
+    "deeplearning4j_tpu_torch.resilience.supervisor",
+    "deeplearning4j_tpu_torch.parallel.distributed",
+]
+
+
+@pytest.mark.parametrize("module", COORDINATION_MODULES)
+def test_coordination_modules_are_checked(module):
+    """Each module of the coordination slice is among the sources the
+    import tests check."""
+    assert module in {_module_name(p) for p in SOURCES}
+
+
+def test_coordination_and_public_names_match_the_jax_package():
+    """The launcher, zoo.F16 and the server's re-exported seed names
+    (MicroBatcher, next_bucket, _next_bucket) import in a fresh
+    interpreter with jax and the JAX package blocked, and the JAX
+    package has every one of them."""
+    mods = {"resilience.launcher": ["PEER_LOST_EXIT", "WorkerRecord",
+                                    "LaunchRecord", "FleetResult",
+                                    "FleetLauncher", "free_port", "main"],
+            "resilience": ["PEER_LOST_EXIT", "FleetLauncher", "FleetResult",
+                           "LaunchRecord", "WorkerRecord"],
+            "zoo.models": ["F16"],
+            "serving.server": ["MicroBatcher", "next_bucket",
+                               "_next_bucket"]}
+    code = ("import sys, importlib, json\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['deeplearning4j_tpu'] = None\n"
+            f"sys.path.insert(0, {str(ROOT)!r})\n"
+            f"mods = {mods!r}\n"
+            "missing = {m: [n for n in names if not hasattr(importlib."
+            "import_module('deeplearning4j_tpu_torch.' + m), n)]\n"
+            "           for m, names in mods.items()}\n"
+            "print(json.dumps({m: v for m, v in missing.items() if v}))\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, cwd=str(ROOT))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "{}"
+    import importlib
+    for m, names in mods.items():
+        jm = importlib.import_module("deeplearning4j_tpu." + m)
+        assert all(hasattr(jm, n) for n in names), m
+    from deeplearning4j_tpu.zoo import models as jzoo
+    from deeplearning4j_tpu_torch import zoo as tzoo
+    assert (tzoo.F16.param_dtype, tzoo.F16.compute_dtype) == \
+        (jzoo.F16.param_dtype, jzoo.F16.compute_dtype) == \
+        ("float32", "float16")
+    from deeplearning4j_tpu_torch.serving import batcher, server
+    assert server.MicroBatcher is batcher.MicroBatcher
+    assert server.next_bucket is server._next_bucket is batcher.next_bucket
+    from deeplearning4j_tpu.resilience import launcher as jl
+    from deeplearning4j_tpu_torch.resilience import launcher as tl
+    assert tl.PEER_LOST_EXIT == jl.PEER_LOST_EXIT
+
+
 def test_traffic_engine_imports_with_jax_blocked():
     """The traffic-engine modules import in a fresh interpreter with jax
     and the JAX package blocked, and their names match the JAX

@@ -353,7 +353,7 @@ def test_collective_timeout_reads_the_env(monkeypatch):
 
 def test_use_mesh_refuses_tensor_parallelism(tmp_path):
     _, _, _, tnet = _pw_nets(tmp_path, JSgd(0.1), n=16)
-    with pytest.raises(NotImplementedError, match="A.5"):
+    with pytest.raises(NotImplementedError, match="A.5 part 2"):
         tnet.use_mesh(None, model_axis="model")
 
 

@@ -604,13 +604,38 @@ def test_restore_into_live_net_rebinds_a_captured_step(tmp_path):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kw,item", [
-    ({"coordinate": True}, "A.5"),
-    ({"collective_timeout_s": 5.0}, "A.5"),
+    ({"coordinate": True}, "coordinated"),
+    ({"collective_timeout_s": 5.0}, "coordinated"),
     ({"flight_recorder": True}, None),
     ({"compile_cache_dir": "cache"}, None),
 ], ids=["coordinate", "collective_timeout_s", "flight_recorder",
         "compile_cache_dir"])
 def test_unported_config_options_refused_by_name(tmp_path, kw, item):
+    if item == "coordinated":
+        # ported: in one process every consensus round is the process's
+        # own code, so a coordinated run (synchronous checkpoints) lands
+        # bit for bit on the uncoordinated one's parameters and events
+        cfg = SupervisorConfig(checkpoint_dir=str(tmp_path / "c"), **kw)
+        for name, value in kw.items():
+            assert getattr(cfg, name) == value
+        inj = FaultInjector()
+        inj.poison_step(2)
+        with inj.installed():
+            res = resilient_fit(_mln(), _data(), epochs=4, injector=inj,
+                                checkpoint_dir=str(tmp_path / "c"),
+                                checkpoint_every_steps=2, **kw)
+        inj0 = FaultInjector()
+        inj0.poison_step(2)
+        ref = _mln()
+        with inj0.installed():
+            res0 = resilient_fit(ref, _data(), epochs=4, injector=inj0,
+                                 checkpoint_dir=str(tmp_path / "u"),
+                                 checkpoint_every_steps=2)
+        assert res.status == res0.status == "completed"
+        assert res.stats["rollbacks_total"] == 1
+        assert [e.kind for e in res.events] == [e.kind for e in res0.events]
+        assert res.peer_loss is None
+        return
     if "compile_cache_dir" in kw:
         # ported (the kernel build cache): accepted, and the run
         # configures the cache at the directory given
@@ -650,12 +675,29 @@ def test_unported_config_options_refused_by_name(tmp_path, kw, item):
 
 
 def test_stats_collector_and_fit_pipeline_refused_by_name(tmp_path):
-    """The statistics collector is still refused (A.5); fit_pipeline is
-    ported (it trains on the pipeline's batches, epoch after epoch), and
-    the flight recorder is on by default, as in the JAX package."""
+    """The statistics collector is ported: it records the supervisor's
+    phases (the saves' checkpoint_barrier through save_checkpoint(stats=),
+    the snapshot, the write, the score reads, the restore). fit_pipeline
+    is ported (it trains on the pipeline's batches, epoch after epoch),
+    and the flight recorder is on by default, as in the JAX package."""
+    from deeplearning4j_tpu_torch.parallel.stats import (
+        TrainingStatsCollector)
+    cfg = SupervisorConfig(checkpoint_dir=str(tmp_path / "st"),
+                           checkpoint_every_steps=2)
+    st = TrainingStatsCollector(worker_id="worker_0")
+    inj = FaultInjector()
+    inj.preempt_at_step(3)
+    with inj.installed():
+        res = TrainingSupervisor(_mln(), cfg, injector=inj,
+                                 stats_collector=st).fit(_data(), epochs=4)
+    assert res.status == "preempted"
+    TrainingSupervisor(_mln(), cfg, stats_collector=st).fit(_data(),
+                                                           epochs=4)
+    phases = {e.phase for e in st.events}
+    assert {"checkpoint_snapshot", "checkpoint_write", "checkpoint_barrier",
+            "score_sync", "restore"} <= phases, phases
+    assert all(e.duration_ms >= 0 for e in st.events)
     cfg = SupervisorConfig(checkpoint_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="A.5"):
-        TrainingSupervisor(_mln(), cfg, stats_collector=object())
     ds = _data()
 
     def pipe():
