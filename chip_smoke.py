@@ -229,7 +229,25 @@ step, ParallelWrapper(4 workers, averaging every 2) bit-equal to the
 explicit average on the card and within Adam's bound of the CPU path,
 and two host processes on the one card over a named gloo group (NCCL
 refuses two ranks on one card): ranks bit-equal, within Adam's bound of
-one process on the whole batch, their timeline written.
+one process on the whole batch, their timeline written, and
+
+    python3 chip_smoke.py --wide-kernels
+
+runs only [wide_kernels]: K1/K2 on their wide route (past the grid
+kernels' limits) and K3 on its wide kernel (head sizes 256 to the JAX
+kernel's budget), each against its plain version with its time, bound
+and SDPA's time, and a char-RNN at hidden 1,152 and a dh = 256 gpt_mini
+trained 2 steps on those routes, and
+
+    python3 chip_smoke.py --tensor-parallel
+
+runs only K3 against its plain version and [tensor_parallel]: gpt_mini
+at full width over a model axis (zoo.gpt_mini_tp_rules), (a) a 1-rank
+NCCL mesh captured bit-equal to the unmeshed step, (b) two host
+processes on the one card over gloo at {"model": 2} against one process
+(ranks bit-equal, K3 on each rank's 2 heads, the collectives counted and
+timed, peak memory), (c) the checkpoint restored unmeshed and onto the
+mesh, its next step's score matching.
 
 K1 and K2 (bf16 at n a multiple of 64 up to 512: thread-block clusters
 with Wh resident, DSMEM exchange, wgmma), K3 (bf16) and K4-K7 (bf16,
@@ -837,7 +855,7 @@ def phase_kernel_vs_plain():
                 if mask is None:
                     mask = torch.ones((T, b), dtype=dtype, device="cuda")
                 with torch.inference_mode():
-                    grid = lstm_ops.lstm_fwd_launch(False, *args[:5], mask,
+                    grid = lstm_ops.lstm_fwd_launch("grid", *args[:5], mask,
                                                     save)
                     torch.cuda.synchronize()
                 fields["grid_max_abs_err"] = short(
@@ -990,8 +1008,8 @@ def phase_bwd_vs_plain():
             fields = {}
             if cluster:
                 with torch.inference_mode():
-                    grid = lstm_ops.lstm_bwd_launch(False, *args)
-                    grid2 = lstm_ops.lstm_bwd_launch(False, *args)
+                    grid = lstm_ops.lstm_bwd_launch("grid", *args)
+                    grid2 = lstm_ops.lstm_bwd_launch("grid", *args)
                     torch.cuda.synchronize()
                 fields["grid_max_abs_err"] = short(bwd_errors(
                     grid, grid2, want, dtype, what + " grid route")[0])
@@ -1986,8 +2004,8 @@ def sweep_fields(sweep, per_step, fixed, T):
                 chain_ms=f"{T * per_step:.4f}")
 
 
-def fwd_on(cluster):
-    """K1 through the route ``cluster`` names, uncounted (the grid route's
+def fwd_on(route):
+    """K1 through ``route`` ("grid" or "cluster"), uncounted (the grid route's
     bf16 instantiation is not the wrapper's for bf16 at n = 512)."""
     import torch
     from deeplearning4j_tpu_torch.ops import lstm as lstm_ops
@@ -1995,14 +2013,14 @@ def fwd_on(cluster):
     def run(xz, h0, c0, Wh, p, mask, save=False):
         if mask is None:
             mask = torch.ones(xz.shape[:2], dtype=xz.dtype, device=xz.device)
-        return lstm_ops.lstm_fwd_launch(cluster, xz, h0, c0, Wh, p, mask,
+        return lstm_ops.lstm_fwd_launch(route, xz, h0, c0, Wh, p, mask,
                                         save)
     return run
 
 
-def bwd_on(cluster):
+def bwd_on(route):
     from deeplearning4j_tpu_torch.ops import lstm as lstm_ops
-    return lambda *a: lstm_ops.lstm_bwd_launch(cluster, *a)
+    return lambda *a: lstm_ops.lstm_bwd_launch(route, *a)
 
 
 def bwd_split(args):
@@ -2013,7 +2031,7 @@ def bwd_split(args):
     names = {"lstm_bwd_cluster_kernel": "chain", "lstm_bwd_dp_sum": "dp_sum",
              "DwhEpi": "dwh"}
     with torch.inference_mode():
-        events = device_events(lambda: bwd_on(True)(*args), reps=20)
+        events = device_events(lambda: bwd_on("cluster")(*args), reps=20)
     split, kept = {}, []
     for e in events:
         for key, name in names.items():
@@ -2057,11 +2075,11 @@ def lstm_times(card, tag="times"):
         plain_ms = cuda_ms(lambda: lstm_ops.lstm_sequence_torch(*args),
                            reps=5)
         # as the train path runs it: residuals written for K2
-        res_ms = cuda_ms(lambda: fwd_on(True)(*args, True), reps=50)
-    for cluster in (False, True, True, False):
+        res_ms = cuda_ms(lambda: fwd_on("cluster")(*args, True), reps=50)
+    for route in ("grid", "cluster", "cluster", "grid"):
+        cluster = route == "cluster"
         sweep, per_step, fixed = sweep_ms(
-            lambda steps: lstm_inputs(steps, b, n, dtype), fwd_on(cluster), T)
-        route = "cluster" if cluster else "grid"
+            lambda steps: lstm_inputs(steps, b, n, dtype), fwd_on(route), T)
         out.setdefault(("fwd", route), []).append(sweep[T])
         phase(tag, kernel="lstm_fwd", route=route, T=T, b=b, n=n,
               dtype="bfloat16", card=json.dumps(card),
@@ -2089,11 +2107,11 @@ def lstm_times(card, tag="times"):
     with torch.inference_mode():
         bplain_ms = cuda_ms(lambda: lstm_ops.lstm_sequence_bwd_torch(*bargs),
                             reps=5)
-    for cluster in (False, True, True, False):
+    for route in ("grid", "cluster", "cluster", "grid"):
+        cluster = route == "cluster"
         sweep, per_step, fixed = sweep_ms(
-            lambda steps: bwd_inputs(steps, b, n, dtype)[0], bwd_on(cluster),
+            lambda steps: bwd_inputs(steps, b, n, dtype)[0], bwd_on(route),
             T)
-        route = "cluster" if cluster else "grid"
         out.setdefault(("bwd", route), []).append(sweep[T])
         extra = {}
         if cluster:
@@ -2194,10 +2212,10 @@ def phase_lstm_parts():
         try:
             if name == "lstm_fwd":
                 args = lstm_inputs(T, b, n, torch.bfloat16)
-                fn = lambda: fwd_on(True)(*args)  # noqa: E731
+                fn = lambda: fwd_on("cluster")(*args)  # noqa: E731
             else:
                 bargs, _ = bwd_inputs(T, b, n, torch.bfloat16)
-                fn = lambda: bwd_on(True)(*bargs)  # noqa: E731
+                fn = lambda: bwd_on("cluster")(*bargs)  # noqa: E731
             with torch.inference_mode():
                 ms = cuda_ms(fn, 20)
                 fn()
@@ -10255,6 +10273,663 @@ def phase_coordinated(card=None):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------------------------- slice 22
+# [wide_kernels]: K1/K2 and K3 at the widths past their first kernels'
+# limits that the JAX package's Pallas kernels take (ROADMAP C.6). K1/K2:
+# b = 32, T = 64, f32 n = 1024 (K1 past its grid kernel, K2's still
+# holds it), 1152 (the char-RNN below: both past their grid kernels) and
+# 2048, bf16 n = 2048; each held against its plain version under
+# [kernel_vs_plain]'s limits. K3: b = 4, h = 2 at T = 256 for dh 256,
+# 512 and 1024, and at T = 128 for the largest head size the JAX
+# kernel's VMEM budget takes (2,944 f32, 5,248 bf16); plus the wide-head
+# gpt_mini's own shape (b = 8, T = 256, h = 2, dh = 256, F32).
+WIDE_T, WIDE_B = 64, 32
+WIDE_LSTM = [("float32", 1024), ("float32", 1152), ("float32", 2048),
+             ("bfloat16", 2048)]
+WIDE_RNN_N = 1152
+WIDE_ATT_B, WIDE_ATT_H = 4, 2
+WIDE_DH_BUDGET = {"float32": 2944, "bfloat16": 5248}
+WIDE_GPT = dict(width=512, n_layers=2, n_heads=2, b=8)   # dh = 256
+
+
+def lstm_bytes(T, b, n, elem, backward):
+    """Bytes K1 (K2) must move: each input read once, each output written
+    once (no residuals for K1)."""
+    if not backward:   # xz, Wh, p, h0, c0, mask in; y, hT, cT out
+        return elem * (T * b * 4 * n + 4 * n * n + 3 * n + 4 * b * n
+                       + T * b + T * b * n)
+    # G, h_prev, c_prev, mask, Wh, p, dy, dhT, dcT in; dxz, dh0, dc0,
+    # dWh, dp out
+    return elem * (2 * T * b * 4 * n + 3 * T * b * n + T * b
+                   + 2 * 4 * n * n + 2 * 3 * n + 4 * b * n)
+
+
+def wide_lstm_case(dtype, n):
+    """K1 and K2 on the wide route at (T, b) = (WIDE_T, WIDE_B), called
+    directly (uncounted), held against their plain versions; where the
+    wrapper's route is wide too, the wrapper's call (counted) equals the
+    direct one bit for bit. Returns the two kernels' fields."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import lstm as lstm_ops
+    td = getattr(torch, dtype)
+    T, b = WIDE_T, WIDE_B
+    xz, h0, c0, Wh, p, _ = lstm_inputs(T, b, n, td)
+    mask = torch.ones((T, b), dtype=td, device="cuda")
+    fwd = (xz, h0, c0, Wh, p, mask)
+    what = f"T={T} b={b} n={n} {dtype} wide route"
+    out = {}
+    with torch.inference_mode():
+        got = lstm_ops.lstm_fwd_launch("wide", *fwd, True)
+        torch.cuda.synchronize()
+        want = lstm_ops.lstm_sequence_torch(*fwd, save_residuals=True)
+        errs = fwd_errors(got, want, TOL[dtype], what)
+        routes = {"fwd": lstm_ops.kernel_route(td, n),
+                  "bwd": lstm_ops.kernel_route(td, n, backward=True)}
+        if routes["fwd"] == "wide":
+            via = lstm_ops.lstm_sequence_cuda(*fwd, save_residuals=True)
+            check(all(torch.equal(a, c) for a, c in zip(via, got)),
+                  f"lstm_fwd {what}: the wrapper's call differs from the "
+                  f"wide launch")
+        ms = device_ms_per_call(
+            lambda: lstm_ops.lstm_fwd_launch("wide", *fwd, False), reps=5)[0]
+        plain_ms = cuda_ms(lambda: lstm_ops.lstm_sequence_torch(*fwd),
+                           reps=3)
+        elem = 2 if dtype == "bfloat16" else 4
+        bound_ms, bound_by = bound(lstm_ops.fwd_flops(T, b, n),
+                                   lstm_bytes(T, b, n, elem, False), dtype)
+        out["lstm_fwd_wide"] = dict(max_abs_err=max(errs.values()), ms=ms,
+                                    plain_ms=plain_ms, bound_ms=bound_ms,
+                                    bound_by=bound_by)
+        phase("wide_kernels", kernel="lstm_fwd", route="wide",
+              wrapper_route=routes["fwd"], dtype=dtype, T=T, b=b, n=n,
+              tol=TOL[dtype], max_abs_err=short(errs), ms=f"{ms:.4f}",
+              plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound_ms:.5f}",
+              bound_by=bound_by, library_ms=None)
+
+        rng = np.random.default_rng(SEED + 2200 + n)
+        f = lambda a: torch.from_numpy(a.astype(np.float32)).to(  # noqa
+            "cuda", td)
+        bwd = ((got.G, got.h_prev, got.c_prev), mask, Wh, p,
+               f(rng.normal(0.0, 1.0, (T, b, n))),
+               f(rng.normal(0.0, 1.0, (b, n))),
+               f(rng.normal(0.0, 1.0, (b, n))))
+        g1 = lstm_ops.lstm_bwd_launch("wide", *bwd)
+        g2 = lstm_ops.lstm_bwd_launch("wide", *bwd)
+        torch.cuda.synchronize()
+        gwant = lstm_ops.lstm_sequence_bwd_torch(*bwd)
+        berrs, btols = bwd_errors(g1, g2, gwant, td, what)
+        if routes["bwd"] == "wide":
+            via = lstm_ops.lstm_sequence_bwd_cuda(*bwd)
+            check(all(torch.equal(a, c) for a, c in zip(via, g1)),
+                  f"lstm_bwd {what}: the wrapper's call differs from the "
+                  f"wide launch")
+        ms = device_ms_per_call(
+            lambda: lstm_ops.lstm_bwd_launch("wide", *bwd), reps=5)[0]
+        plain_ms = cuda_ms(lambda: lstm_ops.lstm_sequence_bwd_torch(*bwd),
+                           reps=3)
+        bound_ms, bound_by = bound(lstm_ops.bwd_flops(T, b, n),
+                                   lstm_bytes(T, b, n, elem, True), dtype)
+        out["lstm_bwd_wide"] = dict(max_abs_err=max(berrs.values()), ms=ms,
+                                    plain_ms=plain_ms, bound_ms=bound_ms,
+                                    bound_by=bound_by)
+        phase("wide_kernels", kernel="lstm_bwd", route="wide",
+              wrapper_route=routes["bwd"], dtype=dtype, T=T, b=b, n=n,
+              deterministic=True, max_abs_err=short(berrs), tol=short(btols),
+              ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+              bound_ms=f"{bound_ms:.5f}", bound_by=bound_by, library_ms=None)
+    return out
+
+
+def wide_attention_case(dtype, b, T, h, dh, grads=False):
+    """K3 on the wide route through the port's wrapper (counted), twice,
+    bit-equal, held against causal_mha_exact under K3's limits (f32
+    FLASH_F32_TOL; bf16 FLASH_BF16_ULPS at max|v|), beside the plain
+    version (causal_mha_dot) and SDPA (is_causal=True) at the same shape.
+    The wide counter must move by the calls made before the timing."""
+    import torch
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.ops import attention as att
+    from deeplearning4j_tpu_torch.ops import registry
+    td = getattr(torch, dtype)
+    base = registry.launches().get(att.KERNEL_WIDE, 0)
+    q, k, v = flash_inputs(b, T, h, dh, td, seed=dh)
+    what = f"flash_attn_fwd (wide) ({b},{T},{h},{dh}) {dtype}"
+    check(att.attention_route(td, T, T, dh) == "kernel"
+          and att.flash_route(td, dh) == "wide", f"{what}: not the wide "
+          f"route")
+    with torch.inference_mode():
+        got = att.flash_attn_fwd_cuda(q, k, v)
+        again = att.flash_attn_fwd_cuda(q, k, v)
+        torch.cuda.synchronize()
+        exact = att.causal_mha_exact(q, k, v)
+        dot = att.flash_attn_fwd_torch(q, k, v)
+    check(torch.isfinite(got.float()).all().item(), f"{what}: not finite")
+    check(torch.equal(got, again), f"{what}: two calls differ")
+    d = (got.float() - exact.float()).abs()
+    err = d.max().item()
+    dot_err = float((got.float() - dot.float()).abs().max())
+    if dtype == "float32":
+        tol = f"{FLASH_F32_TOL}+{FLASH_F32_TOL}*|want|"
+        ok = not (d > FLASH_F32_TOL * (1 + exact.float().abs())).any()
+    else:
+        vmax = float(v.float().abs().max())
+        lim = FLASH_BF16_ULPS * 2.0 ** (math.floor(math.log2(vmax)) - 7)
+        tol, ok = f"{lim:.3e}", err <= lim
+    check(bool(ok), f"{what} disagrees with causal_mha_exact: max abs err "
+          f"{err:.3e} > {tol}")
+    calls = 2
+    fields = {}
+    if grads:
+        fields["grad_err_of_tol"] = f"{flash_grads_vs_exact(q, k, v):.2e}"
+        calls += 1
+    counted = registry.launches().get(att.KERNEL_WIDE, 0) - base
+    check(counted == calls, f"{what}: flash_attn_fwd_wide moved by "
+          f"{counted} in {calls} calls")
+    with torch.inference_mode():
+        ms = device_ms_per_call(lambda: att.flash_attn_fwd_cuda(q, k, v),
+                                reps=10)[0]
+        plain_ms = cuda_ms(lambda: att.flash_attn_fwd_torch(q, k, v),
+                           reps=5)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        lib_ms = device_ms_per_call(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=True),
+            reps=10)[0]
+    elem = 2 if dtype == "bfloat16" else 4
+    # the causal work: T (T + 1) / 2 score and weight pairs a head
+    flops = 4 * b * h * dh * T * (T + 1) // 2
+    bound_ms, bound_by = bound(flops, 4 * b * T * h * dh * elem, dtype)
+    phase("wide_kernels", kernel="flash_attn_fwd", route="wide",
+          dtype=dtype, b=b, T=T, h=h, dh=dh, max_abs_err=f"{err:.3e}",
+          vs_plain_dot=f"{dot_err:.3e}", tol=tol, deterministic=True,
+          ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+          library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound_ms:.5f}",
+          bound_by=bound_by, roofline_share=f"{bound_ms / ms:.4f}",
+          **fields)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+
+
+def wide_train(make, batches, counters, what):
+    """Two fit_batch steps of ``make()`` on one batch, the launch counters
+    set to 0 just before and read just after: (counts, scores)."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import registry
+    net = make()
+    ds = on_card(batches)[0]
+    torch.cuda.synchronize()
+    registry.reset_launches()
+    scores = [float(net.fit_batch(ds)) for _ in range(2)]
+    torch.cuda.synchronize()
+    launches = registry.launches()
+    counts = {c: launches.get(c, 0) for c in counters}
+    check(scores[1] < scores[0] and all(map(math.isfinite, scores)),
+          f"{what}: the score did not fall over 2 steps: {scores}")
+    check(not registry.routes(), f"{what}: composed calls "
+          f"{registry.routes()}")
+    return counts, scores
+
+
+def phase_wide_kernels(card=None):
+    """[wide_kernels] (ROADMAP C.6): the wide K1/K2 and K3 routes at the
+    widths WIDE_LSTM and the head sizes above, each against its plain
+    version, its time beside its bound (and SDPA's beside K3); a
+    GravesLSTM char-RNN (n = WIDE_RNN_N, F32) and a wide-head gpt_mini
+    (dh = 256, F32) take 2 fit_batch steps each with the wide kernels
+    launched and counted. Nothing falls back: a failed build or launch
+    fails the phase. Returns the kernels JSON entries."""
+    import torch
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.ops import attention as att
+    from deeplearning4j_tpu_torch.ops import lstm as lstm_ops
+    from deeplearning4j_tpu_torch.ops import registry
+    t_phase = time.perf_counter()
+    lstm_main = {}
+    for dtype, n in WIDE_LSTM:
+        fields = wide_lstm_case(dtype, n)
+        if (dtype, n) == ("float32", WIDE_RNN_N):
+            lstm_main = fields
+    att_main = None
+    for dtype in ("float32", "bfloat16"):
+        shapes = [(WIDE_ATT_B, 256, WIDE_ATT_H, dh) for dh in (256, 512,
+                                                               1024)]
+        shapes.append((WIDE_ATT_B, 128, WIDE_ATT_H, WIDE_DH_BUDGET[dtype]))
+        if dtype == "float32":
+            shapes.append((WIDE_GPT["b"], 256, WIDE_GPT["n_heads"],
+                           WIDE_GPT["width"] // WIDE_GPT["n_heads"]))
+        for b, T, h, dh in shapes:
+            fields = wide_attention_case(
+                dtype, b, T, h, dh, grads=(dtype, T, dh) == ("float32",
+                                                             256, 256))
+            if (b, dtype) == (WIDE_GPT["b"], "float32"):
+                att_main = fields
+
+    # the training paths, counted from 0
+    rnn_counts, rnn_scores = wide_train(
+        lambda: zoo.char_rnn(hidden=WIDE_RNN_N, dtype=zoo.F32,
+                             device="cuda"),
+        markov_batches(1, WIDE_B, WIDE_T, 80, SEED + 2210),
+        (lstm_ops.KERNEL, lstm_ops.FWD_WIDE, lstm_ops.BWD_KERNEL,
+         lstm_ops.BWD_WIDE), "char-RNN n=1152")
+    check(rnn_counts[lstm_ops.FWD_WIDE] == rnn_counts[lstm_ops.KERNEL] == 4
+          and rnn_counts[lstm_ops.BWD_WIDE] == 4
+          and rnn_counts[lstm_ops.BWD_KERNEL] == 8,
+          f"char-RNN n={WIDE_RNN_N}: launches {rnn_counts} in 2 steps of 2 "
+          f"layers (K1 4 wide calls, K2 4 wide calls of 2 launches)")
+    phase("wide_kernels", path="train_char_rnn", n=WIDE_RNN_N, layers=2,
+          policy="F32", b=WIDE_B, T=WIDE_T, steps=2,
+          scores=json.dumps([round(x, 6) for x in rnn_scores]),
+          launches=json.dumps(rnn_counts))
+    gpt_counts, gpt_scores = wide_train(
+        lambda: zoo.gpt_mini(width=WIDE_GPT["width"],
+                             n_layers=WIDE_GPT["n_layers"],
+                             n_heads=WIDE_GPT["n_heads"], max_len=256,
+                             vocab_size=80, dtype=zoo.F32, device="cuda"),
+        markov_batches(1, WIDE_GPT["b"], 256, 80, SEED + 2211),
+        (att.KERNEL, att.KERNEL_WIDE), "gpt_mini dh=256")
+    want = 2 * WIDE_GPT["n_layers"]
+    check(gpt_counts[att.KERNEL_WIDE] == gpt_counts[att.KERNEL] == want,
+          f"gpt_mini dh=256: K3 launches {gpt_counts} in 2 steps, want "
+          f"{want} on the wide route")
+    phase("wide_kernels", path="train_gpt_mini_dh256",
+          width=WIDE_GPT["width"], heads=WIDE_GPT["n_heads"], dh=256,
+          blocks=WIDE_GPT["n_layers"], policy="F32", b=WIDE_GPT["b"], T=256,
+          steps=2, scores=json.dumps([round(x, 6) for x in gpt_scores]),
+          launches=json.dumps(gpt_counts),
+          phase_s=f"{time.perf_counter() - t_phase:.1f}", card=card)
+    entries = []
+    for name, launches, src, rep in (
+            ("lstm_fwd_wide", rnn_counts[lstm_ops.FWD_WIDE], "lstm_fwd.cu",
+             "deeplearning4j_tpu/ops/lstm.py:239"),
+            ("lstm_bwd_wide", rnn_counts[lstm_ops.BWD_WIDE], "lstm_bwd.cu",
+             "deeplearning4j_tpu/ops/lstm.py:289")):
+        f = lstm_main[name]
+        entries.append({"name": name, "route": "cuda",
+                        "source": f"deeplearning4j_tpu_torch/ops/csrc/{src}",
+                        "replaces": rep, "launches": launches,
+                        "max_abs_err": f["max_abs_err"], "ms": f["ms"],
+                        "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
+                        "bound_by": f["bound_by"], "library_ms": None})
+    entries.append({"name": "flash_attn_fwd_wide", "route": "cuda",
+                    "source": "deeplearning4j_tpu_torch/ops/csrc/"
+                              "flash_attn_fwd.cu",
+                    "replaces": "deeplearning4j_tpu/ops/attention.py:252",
+                    "launches": gpt_counts[att.KERNEL_WIDE], **att_main})
+    return entries
+
+
+# [tensor_parallel]: gpt_mini at full width (width 256, 4 blocks of 4
+# heads, T = 256) over a model axis (parallel/tensor.py,
+# zoo.gpt_mini_tp_rules). (a) a 1-rank NCCL mesh {"data": 1, "model": 1},
+# BF16, b = 32, captured; (b) two gloo ranks sharing the card on
+# {"model": 2}, F32, b = 8, TP_STEPS eager Adam steps against one process;
+# (c) (b)'s checkpoint restored unmeshed and onto {"model": 2} again.
+TP_A_B, TP_B, TP_STEPS = 32, 8, 3
+# (b)'s bounds: every step's score, and the next step's after them,
+# within 1e-4 relative of one process's (the same forward summed in
+# another order over the model axis; from step 2 on it reads the
+# updates, so it holds the TP backward); the first step's Adam first
+# moment (0.1 g: the gradient with its scale and sign, which Adam's
+# update itself hides) within 1e-4 of one process's, relative to the L2
+# norm of its layer's moments (F32 sums reordered over the model axis
+# are ~1e-6 apart; a wrong scale or sign of a leaf is its share of the
+# layer's norm, ~1e-2 or more; a leaf's own norm will not do, since a
+# key bias's gradient is 0 but for rounding: softmax ignores it); and,
+# as a looser second check, the gathered parameters within Adam's 2 lr a
+# step of one process's (a sign flip of a near-0 gradient moves a leaf
+# by 2 lr, as in [data_parallel]). (c) the next step's score after a restore within
+# 1e-5 relative of the continued run's (tests/test_parallel.py:181-199).
+TP_SCORE_RTOL, TP_GRAD_RTOL, TP_NEXT_RTOL = 1e-4, 1e-4, 1e-5
+
+
+def adam_m(net):
+    """A copy of the net's Adam first moments, {layer: {param: m}}."""
+    return {k: {p: v.detach().clone() for p, v in sub["m"].items()}
+            for k, sub in (net.opt_state or {}).items()
+            if isinstance(sub, dict) and "m" in sub}
+
+
+def tp_rank(port, rank, out_path, ck_dir):
+    """One rank of [tensor_parallel] (b) and (c): gpt_mini F32 over
+    {"model": 2} on a gloo group shared with the other rank on the one
+    card, TP_STEPS fit_batch steps on the whole batch (the model group's
+    rows), K3's head count spied, the step's collectives counted and an
+    activation-sized all-reduce and gather timed alone; then the
+    checkpoint, the next step, and the restore onto the mesh with its next
+    step. Writes its whole parameters (.pt) and its numbers (.json)."""
+    import torch
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.ops import attention  # noqa: F401 (K3)
+    from deeplearning4j_tpu_torch.ops import registry
+    from deeplearning4j_tpu_torch.parallel import distributed as D
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+    from deeplearning4j_tpu_torch.utils import checkpoint as tck
+    D.initialize(f"127.0.0.1:{port}", 2, rank, backend="gloo",
+                 timeout_s=300)
+    try:
+        heads = []
+        k3 = registry.get("flash_attn_fwd", "cuda")
+
+        def spy(q, k, v):
+            heads.append(int(q.shape[2]))
+            return k3(q, k, v)
+        registry.register("flash_attn_fwd", "cuda")(spy)
+        rules = zoo.gpt_mini_tp_rules()
+        mesh = make_mesh({"model": 2})
+        base = torch.cuda.memory_allocated()
+        net = dec_net("F32", seed=SEED + 2230)
+        net.use_mesh(mesh, model_axis="model", tp_rules=rules)
+        tp = net._tp
+        rendered = {l.name: l.tp.rendered for l in net.layers
+                    if l.tp is not None}
+        data = on_card(markov_batches(TP_STEPS + 1, TP_B, DEC_C, DEC_V,
+                                      SEED + 2231))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        registry.reset_launches()
+        calls0, bytes0, secs0 = tp.mg.calls, tp.mg.bytes, tp.mg.seconds
+        step_ms, scores = [], []
+        for ds in data[:TP_STEPS]:
+            t0 = time.perf_counter()
+            scores.append(float(net.fit_batch(ds)))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if len(scores) == 1:
+                m1 = adam_m(net)    # this rank's shards, gathered below
+        launches = registry.launches()
+        peak = torch.cuda.max_memory_allocated() - base
+        calls = (tp.mg.calls - calls0) / TP_STEPS
+        sent = (tp.mg.bytes - bytes0) / TP_STEPS
+        coll_ms = (tp.mg.seconds - secs0) * 1e3 / TP_STEPS
+        whole = tp.gathered(net.params, tp.specs)
+        o_specs = tp.opt_specs(net.opt_state)
+        m1 = tp.gathered(m1, {k: o_specs[k]["m"] for k in m1})
+        local = {f"{k}/{p}": v.detach().cpu() for k, sub in net.params.items()
+                 for p, v in sub.items()}
+        act = torch.ones(TP_B, DEC_C, DEC_W, device=D.device())
+        half = act[..., :DEC_W // 2].contiguous()
+        ar_ms, ag_ms = [], []
+        for _ in range(6):
+            for fn, sink in ((lambda: tp.mg.all_reduce(act.clone()), ar_ms),
+                             (lambda: tp.mg.all_gather(half, -1), ag_ms)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                sink.append((time.perf_counter() - t0) * 1e3)
+        # (c) the checkpoint (whole arrays), the next step, the restore
+        tck.save_checkpoint(net, ck_dir)
+        cont = float(net.fit_batch(data[TP_STEPS]))
+        back = tck.restore_multi_layer_network(
+            ck_dir, mesh=mesh, model_axis="model", tp_rules=rules,
+            device=D.device())
+        restored_shard = tuple(back.params["layer_1"]["Wq"].shape)
+        rest = float(back.fit_batch(data[TP_STEPS]))
+        # gloo's all_gather_into_tensor on CUDA tensors, which the port's
+        # gather runs (parallel/tensor.py), on a flat tensor alone
+        try:
+            out = torch.empty(2 * half.numel(), device=D.device())
+            dist.all_gather_into_tensor(out, half.reshape(-1),
+                                        group=tp.mg.group)
+            torch.cuda.synchronize()
+            probe = "ok"
+        except Exception as e:  # recorded: the steps above ran it already
+            probe = f"{type(e).__name__}: {str(e)[:160]}"
+        torch.save({"whole": {f"{k}/{p}": v.detach().cpu()
+                              for k, sub in whole.items()
+                              for p, v in sub.items()},
+                    "local": local,
+                    "m1": {f"{k}/{p}": v.detach().cpu()
+                           for k, sub in m1.items()
+                           for p, v in sub.items()}}, out_path + ".pt")
+        with open(out_path + ".json", "w") as f:
+            json.dump({"scores": scores, "step_ms": step_ms,
+                       "launches": launches, "heads": sorted(set(heads)),
+                       "k3_calls": len(heads), "peak_bytes": peak,
+                       "collectives_per_step": calls,
+                       "bytes_per_step": sent, "rendered": rendered,
+                       "collective_ms_per_step": coll_ms,
+                       "allreduce_ms": ar_ms[1:], "gather_ms": ag_ms[1:],
+                       "cont": cont, "rest": rest,
+                       "restored_shard": restored_shard, "probe": probe,
+                       "info": D.process_info()}, f)
+    finally:
+        D.shutdown()
+
+
+def phase_tensor_parallel(card=None):
+    """[tensor_parallel] (ROADMAP A.5 part 2, training): gpt_mini at full
+    width over a model axis, arms (a)-(c) above. K3 runs on each rank's
+    local heads: 4 launches a step, h = 2 in (b)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.nn import multistep
+    from deeplearning4j_tpu_torch.ops import registry
+    from deeplearning4j_tpu_torch.parallel import distributed, make_mesh
+    from deeplearning4j_tpu_torch.utils import checkpoint as tck
+
+    t_phase = time.perf_counter()
+    # (a) a 1-rank NCCL mesh with a model axis of one: the captured step
+    # is the unmeshed one bit for bit (a model group of one runs no
+    # model-axis collective; the data axis's all-reduce is in the graph)
+    info = distributed.initialize(f"127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        check(info["backend"] == "nccl", f"group {info}")
+        batches = on_card(markov_batches(MESH_STEPS, TP_A_B, DEC_C, DEC_V,
+                                         SEED + 2220))
+        arms = {}
+        for name in ("unmeshed", "meshed", "meshed_again", "unmeshed_again"):
+            net = dec_net("BF16", seed=SEED + 2221)
+            if name.startswith("meshed"):
+                net.use_mesh(make_mesh({"data": 1, "model": 1}),
+                             model_axis="model",
+                             tp_rules=zoo.gpt_mini_tp_rules())
+                check(net._mesh_detail["model_axis"] == "model",
+                      f"mesh_detail {net._mesh_detail}")
+            step_batches = [net._step_batch(ds) for ds in batches]
+            torch.cuda.synchronize()
+            registry.reset_launches()
+            scores, ms, captures = captured_steps(net, step_batches)
+            launches = registry.launches()
+            check(captures == 1, f"{name}: {captures} captures")
+            for kern in ("flash_attn_fwd", "flash_attn_fwd_sm90"):
+                check(launches.get(kern, 0) == DEC_L * MESH_STEPS,
+                      f"{name}: {kern} launched {launches.get(kern, 0)} "
+                      f"times in {MESH_STEPS} steps")
+            arms[name] = (net, scores, ms)
+        ref_net, ref_scores, _ = arms["unmeshed"]
+        for name in ("meshed", "meshed_again", "unmeshed_again"):
+            net, scores, _ = arms[name]
+            check(scores == ref_scores, f"{name} scores {scores} != "
+                  f"{ref_scores}")
+            for tree in ("params", "opt_state"):
+                check(_bits_equal(getattr(net, tree), getattr(ref_net, tree)),
+                      f"{name}: {tree} differ from the unmeshed captured "
+                      f"step's")
+        replay = {n: statistics.median(arms[n][2][multistep.WARMUP_STEPS
+                                                  + 1:]) for n in arms}
+        del arms, ref_net, net
+    finally:
+        distributed.shutdown()
+    phase("tensor_parallel", arm="a_mesh_1rank_nccl",
+          mesh=json.dumps({"data": 1, "model": 1}),
+          model=f"gpt_mini(vocab={DEC_V},width={DEC_W},blocks={DEC_L},"
+          f"heads={DEC_H},T={DEC_C},BF16,Adam(3e-4))",
+          rules="gpt_mini_tp_rules", b=TP_A_B, steps=MESH_STEPS,
+          bit_equal=True, captures=1,
+          step_ms_meshed=f"{statistics.mean([replay['meshed'], replay['meshed_again']]):.4f}",
+          step_ms_unmeshed=f"{statistics.mean([replay['unmeshed'], replay['unmeshed_again']]):.4f}",
+          step_ms_by_arm=json.dumps({k: round(v, 4)
+                                     for k, v in replay.items()}),
+          k3_launches_per_step=DEC_L, k3_route="sm90", card=card)
+
+    # (b) two ranks on the one card over gloo, {"model": 2}, eager
+    root = tempfile.mkdtemp(prefix="tensor_parallel_")
+    ck_dir = os.path.join(root, "ck", "step_3")
+    procs = []
+    try:
+        port = _free_port()
+        here = os.path.dirname(os.path.abspath(__file__))
+        for r in range(2):
+            out = os.path.join(root, f"rank{r}")
+            err = open(out + ".err", "w")
+            code = (f"import chip_smoke as c; c.tp_rank({port}, {r}, "
+                    f"{out!r}, {ck_dir!r})")
+            procs.append((subprocess.Popen(
+                [sys.executable, "-c", code], stderr=err,
+                stdout=subprocess.DEVNULL, cwd=here), out, err))
+        gc.collect()     # arm (a)'s nets and their graphs' pools
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        one = dec_net("F32", seed=SEED + 2230)
+        data = on_card(markov_batches(TP_STEPS + 1, TP_B, DEC_C, DEC_V,
+                                      SEED + 2231))
+        torch.cuda.synchronize()
+        registry.reset_launches()
+        one_ms, one_scores = [], []
+        for ds in data[:TP_STEPS]:
+            t0 = time.perf_counter()
+            one_scores.append(float(one.fit_batch(ds)))
+            torch.cuda.synchronize()
+            one_ms.append((time.perf_counter() - t0) * 1e3)
+            if len(one_scores) == 1:
+                one_m1 = {f"{k}/{p}": v.cpu()
+                          for k, sub in adam_m(one).items()
+                          for p, v in sub.items()}
+        one_peak = torch.cuda.max_memory_allocated() - base
+        one_launches = registry.launches()
+        ref = {f"{k}/{p}": v.detach().cpu().clone()
+               for k, sub in one.params.items() for p, v in sub.items()}
+        one_cont = float(one.fit_batch(data[TP_STEPS]))
+        res = []
+        for proc, out, err in procs:
+            try:
+                rc = proc.wait(timeout=600)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=60)
+                rc = "timeout"
+            err.close()
+            if rc != 0:
+                with open(err.name) as f:
+                    check(False, f"[tensor_parallel] rank exited {rc}: "
+                          f"{f.read()[-3000:]}")
+            with open(out + ".json") as f:
+                res.append(json.load(f))
+        p0 = torch.load(procs[0][1] + ".pt")
+        p1 = torch.load(procs[1][1] + ".pt")
+        check(all(torch.equal(p0["whole"][k], p1["whole"][k])
+                  for k in p0["whole"]), "the ranks' gathered parameters "
+              "differ")
+        replicated = [k for k in p0["local"]
+                      if p0["local"][k].shape == p0["whole"][k].shape]
+        check(all(torch.equal(p0["local"][k], p1["local"][k])
+                  for k in replicated), "a replicated leaf differs between "
+              "the ranks")
+        check(res[0]["scores"] == res[1]["scores"], "the ranks' scores "
+              "differ")
+        tp_max = max(float((p0["whole"][k].double() - ref[k].double()).abs()
+                           .max()) for k in ref)
+        bound = 2 * ADAM_LR * TP_STEPS
+        check(tp_max <= bound, f"two TP ranks vs one process: {tp_max:.3e} "
+              f"> {bound:.1e}")
+        s_err = max(abs(a - b) / abs(b)
+                    for a, b in zip(res[0]["scores"], one_scores))
+        check(len(res[0]["scores"]) == len(one_scores) == TP_STEPS
+              and s_err <= TP_SCORE_RTOL, f"scores {res[0]['scores']} vs "
+              f"one process {one_scores}: {s_err:.2e}")
+        check(set(p0["m1"]) == set(one_m1), f"Adam moments' leaves "
+              f"{sorted(set(p0['m1']) ^ set(one_m1))}")
+        layer_norm = {}
+        for k, want in one_m1.items():
+            ln = k.split("/")[0]
+            layer_norm[ln] = layer_norm.get(ln, 0.0) + float(
+                want.double().square().sum())
+        m_err = {k: float((p0["m1"][k].double() - want.double()).norm())
+                 / max(layer_norm[k.split("/")[0]] ** 0.5, 1e-30)
+                 for k, want in one_m1.items()}
+        m_worst = max(m_err, key=m_err.get)
+        check(m_err[m_worst] <= TP_GRAD_RTOL, f"first step's Adam first "
+              f"moment (the gradient) vs one process: {m_worst} "
+              f"{m_err[m_worst]:.2e}")
+        for r in res:
+            # the spy also sees the FLOP count's uncounted forward
+            check(r["launches"].get("flash_attn_fwd", 0) == DEC_L * TP_STEPS
+                  and r["heads"] == [DEC_H // 2], f"a rank's K3: launches "
+                  f"{r['launches']}, heads {r['heads']}")
+            check(all(r["rendered"].values()), f"layers on the gather "
+                  f"route: {r['rendered']}")
+            check(not {k: v for k, v in r["launches"].items()
+                       if registry.COMPOSED in k}, f"composed calls "
+                  f"{r['launches']}")
+        check(one_launches.get("flash_attn_fwd", 0) == DEC_L * TP_STEPS,
+              f"one process launched K3 {one_launches}")
+        # (c) the checkpoint restored unmeshed in this process
+        back = tck.restore_multi_layer_network(ck_dir)
+        check(tuple(back.params["layer_1"]["Wq"].shape) == (DEC_W, DEC_W),
+              "the checkpoint does not hold whole arrays")
+        unmeshed = float(back.fit_batch(data[TP_STEPS]))
+        layout = tck.read_checkpoint_layout(ck_dir)
+        check(layout["mesh_detail"]["model_axis"] == "model",
+              f"layout {layout['mesh_detail']}")
+        nxt = {"continued": res[0]["cont"], "restored_mesh": res[0]["rest"],
+               "restored_unmeshed": unmeshed}
+        check(all(abs(v - res[0]["cont"]) <= TP_NEXT_RTOL
+                  * abs(res[0]["cont"]) for v in nxt.values()),
+              f"(c) next step's score {nxt}")
+        nxt["one_process"] = one_cont
+        cont_err = abs(res[0]["cont"] - one_cont) / abs(one_cont)
+        check(cont_err <= TP_SCORE_RTOL, f"the next step's score "
+              f"{res[0]['cont']} vs one process {one_cont}: {cont_err:.2e}")
+        check(tuple(res[0]["restored_shard"]) == (DEC_W, DEC_W // 2),
+              f"restored onto the mesh: Wq shard {res[0]['restored_shard']}")
+    finally:
+        for proc, _, err in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+            err.close()
+        shutil.rmtree(root, ignore_errors=True)
+    med = lambda xs: statistics.median(xs)  # noqa: E731
+    phase("tensor_parallel", arm="b_two_ranks_gloo", backend="gloo",
+          mesh=json.dumps({"model": 2}), rules="gpt_mini_tp_rules",
+          policy="F32", b=TP_B, steps=TP_STEPS, replicated_bit_equal=True,
+          scores=json.dumps([round(x, 6) for x in res[0]["scores"]]),
+          one_process_scores=json.dumps([round(x, 6) for x in one_scores]),
+          vs_one_process_max_abs=f"{tp_max:.3e}", bound=f"{bound:.1e}",
+          score_rel_err=f"{s_err:.2e}", score_rtol=TP_SCORE_RTOL,
+          step1_grad_rel_err=f"{m_err[m_worst]:.2e}",
+          step1_grad_worst_leaf=m_worst, grad_rtol=TP_GRAD_RTOL,
+          k3_launches_per_step=DEC_L, k3_heads=DEC_H // 2, k3_route="fma",
+          collectives_per_step=res[0]["collectives_per_step"],
+          collective_mb_per_step=f"{res[0]['bytes_per_step'] / 1e6:.2f}",
+          collective_ms_per_step=json.dumps(
+              [round(r["collective_ms_per_step"], 2) for r in res]),
+          allreduce_ms=f"{med(res[0]['allreduce_ms']):.3f}",
+          gather_ms=f"{med(res[0]['gather_ms']):.3f}",
+          activation_mb=f"{TP_B * DEC_C * DEC_W * 4 / 1e6:.2f}",
+          step_ms_ranks=json.dumps([[round(x, 2) for x in r["step_ms"]]
+                                    for r in res]),
+          step_ms_one_process=json.dumps([round(x, 2) for x in one_ms]),
+          peak_mb_ranks=json.dumps([round(r["peak_bytes"] / 2**20, 1)
+                                    for r in res]),
+          peak_mb_one_process=f"{one_peak / 2**20:.1f}",
+          gloo_all_gather_into_tensor_cuda=json.dumps(res[0]["probe"]),
+          card=card)
+    phase("tensor_parallel", arm="c_checkpoint", saved_at="model=2",
+          next_scores=json.dumps({k: round(v, 7) for k, v in nxt.items()}),
+          rtol=TP_NEXT_RTOL, whole_arrays=True,
+          next_vs_one_process_rel_err=f"{cont_err:.2e}",
+          restored_wq_shard=json.dumps(res[0]["restored_shard"]),
+          phase_s=f"{time.perf_counter() - t_phase:.1f}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -10330,6 +11005,17 @@ def main() -> int:
             only(card)
             print(ok_line, flush=True)
             return 0
+    if "--wide-kernels" in sys.argv[1:]:
+        kernels = phase_wide_kernels(phase_device())
+        print(json.dumps({"kernels": kernels}), flush=True)
+        print(ok_line, flush=True)
+        return 0
+    if "--tensor-parallel" in sys.argv[1:]:
+        card = phase_device()
+        phase_flash_vs_plain()      # K3, the kernel the phase's path runs
+        phase_tensor_parallel(card)
+        print(ok_line, flush=True)
+        return 0
     for flag, only in (("--front-door", phase_front_door),
                        ("--cold-start", phase_cold_start),
                        ("--dashboard", phase_dashboard),
@@ -10388,6 +11074,8 @@ def main() -> int:
     phase_meshed_bn(card)
     phase_routes(card)
     phase_coordinated(card)
+    kernels += phase_wide_kernels(card)
+    phase_tensor_parallel(card)
     phase_stream_split()
     profiler_probe("after_all", profiles=5, names=names)
     phase("profiler", pause_s=PROFILE_PAUSE_S, **PROFILES)

@@ -179,10 +179,20 @@ class DevicePrefetchIterator(DataSetIterator):
     event before it reads a batch, and each tensor is marked as used on
     that stream (``record_stream``) for the caching allocator. Yielded
     DataSets hold tensors on ``device``; on the CPU they are the host
-    arrays as tensors (no copy to hide)."""
+    arrays as tensors (no copy to hide).
 
-    def __init__(self, base, device=None):
+    ``sharding`` (optional): a meshed net's batch placement
+    (parallel/data_parallel.py ``BatchSharding(mesh)``, the counterpart
+    of the JAX package's data ``Sharding``): every leaf of a global batch
+    is cut to this rank's rows on the data axis (the same rows on every
+    rank of a model group) before the copy, onto the sharding's device
+    unless ``device`` names one."""
+
+    def __init__(self, base, device=None, sharding=None):
         self.base = base
+        self.sharding = sharding
+        if device is None and sharding is not None:
+            device = sharding.device
         self.device = torch.device(device if device is not None else
                                    "cuda")
         self._stream = None
@@ -192,6 +202,8 @@ class DevicePrefetchIterator(DataSetIterator):
             return None
         t = arr if isinstance(arr, torch.Tensor) else torch.as_tensor(
             np.asarray(arr))
+        if self.sharding is not None:
+            t = self.sharding.rows(t)
         if self.device.type != "cuda" or t.device == self.device:
             return t.to(self.device)
         if not t.is_pinned():

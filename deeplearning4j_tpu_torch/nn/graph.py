@@ -97,8 +97,19 @@ class ComputationGraph:
         """Data-parallel training over a mesh (parallel/mesh.py
         ``make_mesh``): parameters replicated over ``data_axis``, each rank
         steps on its local batch, one gradient all-reduce a step (on NCCL
-        inside the captured step). ``model_axis``/``tp_rules`` (tensor
-        parallelism) wait for ROADMAP.md A.5 part 2 and raise."""
+        inside the captured step). ``model_axis`` (tensor parallelism of a
+        graph: conv channel shards, K4-K7 on column shards, batch norm
+        over channel shards) waits for ROADMAP.md A.5 part 2
+        (ComputationGraph tensor parallelism) and raises; a
+        MultiLayerNetwork takes it."""
+        if model_axis is not None:
+            raise NotImplementedError(
+                "ComputationGraph.use_mesh(model_axis=): tensor parallelism "
+                "of a graph (conv channel shards, K4-K7 on column shards, "
+                "batch norm over channel shards) waits for ROADMAP.md A.5 "
+                "part 2 (ComputationGraph tensor parallelism); a "
+                "MultiLayerNetwork takes model_axis=, and a graph trains "
+                "data-parallel over a data axis")
         from deeplearning4j_tpu_torch.parallel.data_parallel import \
             use_mesh
         return use_mesh(self, mesh, data_axis, model_axis, tp_rules)

@@ -25,7 +25,18 @@ Two arithmetic paths, as in the JAX package:
 
 Rounding order follows the JAX package exactly: LayerNorm in f32, then a
 cast to the compute dtype; residual adds in the compute dtype; GELU on
-the compute-dtype GEMM output. Parameter names and layouts are the JAX
+the compute-dtype GEMM output.
+
+On a mesh's model axis (``use_mesh(model_axis=)``, parallel/tensor.py;
+training and ``output``, not streaming) a layer whose leaves the
+renderings cover computes on its shards: column-parallel Wq/Wk/Wv give
+this rank's n_heads / m heads (head-major columns) and K3 runs on them;
+Wo and W2 row-parallel are followed by the all-reduce (*g*), the bias
+added after it; W1 column-parallel takes GELU locally; any other
+placement of Wo, W1 or W2 goes through ``LayerTP.linear``; the
+embedding's column-sharded Wtok and Wpos give this rank's columns, then
+the gather. LayerNorm and the residual stream stay whole on every
+rank. Parameter names and layouts are the JAX
 ones (``Wq``..``bo``, ``ln1_g``..``b2``, ``Wtok``, ``Wpos``), so the
 zip's ``coefficients.npz`` keys match.
 """
@@ -119,6 +130,9 @@ class GptEmbeddingLayer(Layer):
         positions = torch.clamp(positions, 0, int(self.conf.max_len) - 1)
         pos_emb = params["Wpos"][positions.to(torch.int64)]   # [b, t, d]
         y = tok.to(torch.float32) + pos_emb.to(torch.float32)
+        if self.tp is not None and self.tp.rendered and not self.streaming:
+            # this rank's columns of both tables, then the whole width
+            return self.tp.gather(y.to(self.compute_dtype)), state
         new_state = dict(state)
         if self.streaming:
             lengths = _mask_lengths(mask)
@@ -193,6 +207,9 @@ class _AttentionCore(Layer):
                                 params["bo"])
             return proj, {"k": kc, "v": vc, "pos": new_pos}
         cd = h.dtype
+        tp = self.tp if self.tp is not None and self.tp.rendered else None
+        if tp is not None:
+            return self._attn_tp(tp, params, h, cd), None
         q = _dense_gemm(h, params["Wq"], params["bq"], cd)
         k = _dense_gemm(h, params["Wk"], params["bk"], cd)
         v = _dense_gemm(h, params["Wv"], params["bv"], cd)
@@ -202,6 +219,24 @@ class _AttentionCore(Layer):
         proj = _dense_gemm(out.reshape(b, t, d), params["Wo"], params["bo"],
                            cd)
         return proj, None
+
+    def _attn_tp(self, tp, params, h, cd):
+        """The training/output MHA on this rank's heads: column-parallel
+        q, k, v (this rank's n_heads / m heads), K3 over them, then Wo
+        as its placement says (row-parallel: *g*, then the bias). The
+        projected output, whole."""
+        from deeplearning4j_tpu_torch.parallel.tensor import copy_to_model
+        b, t = h.shape[0], h.shape[1]
+        heads = self.n_heads // tp.mg.size
+        dh = self.head_dim
+        hc = copy_to_model(h, tp.mg)   # one *f* for the three products
+        q, k, v = (tp.linear(hc, False, params[w], params["b" + w[1]], cd,
+                             w, "b" + w[1], copied=True)[0]
+                   .reshape(b, t, heads, dh) for w in ("Wq", "Wk", "Wv"))
+        out = att.causal_mha(q, k, v).reshape(b, t, heads * dh)
+        z, sharded = tp.linear(out, True, params["Wo"], params["bo"], cd,
+                               "Wo", "bo")
+        return tp.gather(z) if sharded else z
 
 
 class SelfAttentionLayer(_AttentionCore):
@@ -282,10 +317,22 @@ class TransformerBlockLayer(_AttentionCore):
         proj, _ = self._attn(params, state, h1.to(cd), mask)
         a = xc + proj
         h2 = _layer_norm(a, params["ln2_g"], params["ln2_b"], eps)
+        if self.tp is not None and self.tp.rendered:
+            return a + self._mlp_tp(self.tp, params, h2.to(cd), cd), state
         m = self.activation_fn(
             _dense_gemm(h2.to(cd), params["W1"], params["b1"], cd))
         y = a + _dense_gemm(m, params["W2"], params["b2"], cd)
         return y, state
+
+    def _mlp_tp(self, tp, params, h2, cd):
+        """The MLP on this rank's shards: W1 (column-parallel: GELU on
+        this rank's hidden units), then W2 (row-parallel: *g*, then the
+        bias); whole."""
+        m, sharded = tp.linear(h2, False, params["W1"], params["b1"], cd,
+                               "W1", "b1")
+        z, sharded = tp.linear(self.activation_fn(m), sharded, params["W2"],
+                               params["b2"], cd, "W2", "b2")
+        return tp.gather(z) if sharded else z
 
 
 class GptOutputLayer(RnnOutputLayerImpl):

@@ -18,6 +18,10 @@ from deeplearning4j_tpu_torch.ops import activations as activations_mod
 
 
 class Layer:
+    #: the layer's placement on a mesh's model axis (parallel/tensor.py
+    #: ``LayerTP``), set by ``use_mesh(model_axis=)``; None unmeshed
+    tp = None
+
     def __init__(self, conf, input_type, global_conf, policy):
         self.conf = conf
         self.input_type = input_type
@@ -82,23 +86,39 @@ class Layer:
 
     def regularization(self, params) -> torch.Tensor:
         """L1/L2 penalty of this layer's params (0.5*l2*||W||^2 +
-        l1*sum|W|; biases take l1_bias/l2_bias), in the param dtype."""
+        l1*sum|W|; biases take l1_bias/l2_bias), in the param dtype. On a
+        model axis a sharded leaf's terms are this rank's part: they are
+        summed apart and all-reduced over the model group
+        (``LayerTP.sum_sharded``)."""
         leaves = list(_named_leaves(params))
         device = leaves[0][1].device if leaves else "cpu"
         total = torch.zeros((), dtype=self.param_dtype, device=device)
+        part = torch.zeros((), dtype=self.param_dtype, device=device)
+        sharded = (self.tp.sharded_flags(params, sort=False)
+                   if self.tp is not None else [False] * len(leaves))
         l1 = float(self.resolve("l1", 0.0) or 0.0)
         l2 = float(self.resolve("l2", 0.0) or 0.0)
         l1b = float(self.resolve("l1_bias", 0.0) or 0.0)
         l2b = float(self.resolve("l2_bias", 0.0) or 0.0)
-        for pname, w in leaves:
+        for (pname, w), shard in zip(leaves, sharded):
             is_bias = pname in ("b", "bias", "beta")
             a1, a2 = (l1b, l2b) if is_bias else (l1, l2)
+            term = None
             if a1:
                 # |w| with the JAX package's subgradient at 0 (+1, where
                 # torch.abs takes 0): zero-initialised biases move alike
-                total = total + a1 * torch.sum(torch.where(w >= 0, w, -w))
+                term = a1 * torch.sum(torch.where(w >= 0, w, -w))
             if a2:
-                total = total + 0.5 * a2 * torch.sum(w * w)
+                t2 = 0.5 * a2 * torch.sum(w * w)
+                term = t2 if term is None else term + t2
+            if term is None:
+                continue
+            if shard:
+                part = part + term
+            else:
+                total = total + term
+        if any(sharded):
+            total = total + self.tp.sum_sharded(part)
         return total
 
 

@@ -6,6 +6,12 @@
 The product runs in the layer's compute dtype (bf16 under the BF16
 policy, params stay f32); the output heads form their activation and
 their loss in the param dtype.
+
+On a mesh's model axis (``use_mesh(model_axis=)``, parallel/tensor.py)
+a layer whose W is column- or row-parallel computes its pre-activation
+on its shard (``LayerTP.dense``: a column-sharded result is gathered
+whole before the activation, which may mix features, and the loss); an
+embedding table sharded by columns looks up its columns and gathers.
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ class DenseLayer(Layer):
 
     def preout(self, params, x):
         cd = self.compute_dtype
+        if self.tp is not None and self.tp.rendered:
+            return self.tp.dense(x, params["W"], params.get("b"), cd)
         z = torch.matmul(x.to(cd), params["W"].to(cd))
         if "b" in params:
             z = z + params["b"].to(cd)
@@ -115,7 +123,11 @@ class EmbeddingLayerImpl(DenseLayer):
         return x.reshape(x.shape[0]).to(torch.int32)
 
     def apply(self, params, state, x, *, train=False, gen=None, mask=None):
+        tp = self.tp if self.tp is not None and self.tp.rendered else None
         emb = F.embedding(self.indices(x), params["W"])
         if "b" in params:
-            emb = emb + params["b"]
+            emb = emb + (params["b"] if tp is None
+                         else tp.bias(params["b"], "b"))
+        if tp is not None:   # this rank's columns of the table
+            emb = tp.gather(emb)
         return self.activation_fn(emb), state

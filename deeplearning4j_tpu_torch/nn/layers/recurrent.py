@@ -140,6 +140,8 @@ class RnnOutputLayerImpl(Layer):
 
     def preout(self, params, x):
         cd = self.compute_dtype
+        if self.tp is not None and self.tp.rendered:
+            return self.tp.dense(x, params["W"], params.get("b"), cd)
         z = torch.matmul(x.to(cd), params["W"].to(cd))
         if "b" in params:
             z = z + params["b"].to(cd)

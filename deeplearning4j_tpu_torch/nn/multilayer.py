@@ -130,6 +130,7 @@ class MultiLayerNetwork:
         self._remat_warned = False
         self._multi_steps = {}     # batch signature -> multistep.StepGraph
         self._grad_reduce = None   # the meshed step's all-reduce
+        self._tp = None            # parallel/tensor.py, on a model axis
         self.last_run_report = None  # the last fit's goodput RunReport
         self.flops_per_step = None
         self._flops_key = None
@@ -216,11 +217,14 @@ class MultiLayerNetwork:
 
     def use_mesh(self, mesh, data_axis: str = "data",
                  model_axis: str | None = None, tp_rules=None):
-        """Data-parallel training over a mesh (parallel/mesh.py
-        ``make_mesh``): parameters replicated over ``data_axis``, each rank
-        steps on its local batch, one gradient all-reduce a step (on NCCL
-        inside the captured step). ``model_axis``/``tp_rules`` (tensor
-        parallelism) wait for ROADMAP.md A.5 part 2 and raise."""
+        """Training over a mesh (parallel/mesh.py ``make_mesh``): batches
+        split on ``data_axis`` (each rank steps on its local batch, one
+        gradient all-reduce a step over that axis, on NCCL inside the
+        captured step); params replicated (pure data parallelism) or,
+        with ``model_axis`` set, sharded over that axis by the default
+        rule and ``tp_rules`` (parallel/tensor.py: the layers compute on
+        their shards, the collectives over the model axis inside the
+        step)."""
         from deeplearning4j_tpu_torch.parallel.data_parallel import \
             use_mesh
         return use_mesh(self, mesh, data_axis, model_axis, tp_rules)
@@ -282,13 +286,37 @@ class MultiLayerNetwork:
         for layer, prep in zip(self.layers[lo:hi], self.preprocessors[lo:hi]):
             if prep is not None:
                 x = prep(x)
-            x, s_new = layer.apply(params.get(layer.name, {}),
+            x, s_new = layer.apply(self._layer_params(layer, params),
                                    state.get(layer.name, {}), x, train=train,
                                    gen=gen, mask=fmask)
             fmask = layer.feed_forward_mask(fmask)
             if s_new:
                 ns[layer.name] = s_new
         return x, fmask, ns
+
+    @staticmethod
+    def _layer_params(layer, params):
+        """``layer``'s params as its apply takes them: on a model axis, a
+        layer no rendering covers gets its sharded leaves gathered whole
+        (the counted gather route, parallel/tensor.py)."""
+        p = params.get(layer.name, {})
+        tp = layer.tp
+        if tp is None:
+            return p
+        if getattr(layer, "streaming", False):
+            raise NotImplementedError(
+                "streaming (rnn_time_step, decode) on a model axis is mesh "
+                "serving, which waits for ROADMAP.md A.5 part 2 (mesh "
+                "serving); tensor parallelism covers training and output")
+        if tp.rendered or not tp.any_sharded():
+            return p
+        from deeplearning4j_tpu_torch.ops import registry
+        from deeplearning4j_tpu_torch.parallel.tensor import GATHER_OP
+        reason = f"gather:{layer.conf.layer_type}"
+        if tp.reason:
+            reason += f":{tp.reason}"
+        registry.count_route(GATHER_OP, reason)
+        return tp.whole_params(p)
 
     def _remat_spans(self, n: int) -> dict:
         """start -> end of each maximal run of layers among the first n
@@ -322,7 +350,7 @@ class MultiLayerNetwork:
         # (conv -> Output) is applied here
         if self.preprocessors[-1] is not None:
             h = self.preprocessors[-1](h)
-        p_out = params.get(out_layer.name, {})
+        p_out = self._layer_params(out_layer, params)
         if getattr(out_layer, "loss_uses_state", False):
             # the center loss: its term reads the centers, which move by
             # their own rule outside the differentiated loss

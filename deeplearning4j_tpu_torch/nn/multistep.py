@@ -147,6 +147,9 @@ def train_step(net, batch, advance: bool = True) -> torch.Tensor:
     step, every window of a batch at the batch's iteration. The first
     step resolves the net's ``DL4J_TPU_REMAT`` (nn/remat.py)."""
     remat.resolve(net)
+    tp = getattr(net, "_tp", None)
+    if tp is not None:    # once: the model group's ranks hold one batch
+        tp.check_rows(batch)
     step = precision.build_step_fn(net._loss, net.layers,
                                    net.conf.global_conf, net._lr_scale,
                                    getattr(net, "_grad_reduce", None))
@@ -264,6 +267,13 @@ class StepGraph:
         self.spec = _flatten(batch, flat)
         self.static = [torch.empty_like(t) for t in flat]
         self.capture = net.device.type == "cuda"
+        if self.capture and gloo_meshed(net):
+            raise CaptureError(
+                f"{type(net).__name__}: the meshed step's collectives run "
+                f"over gloo (ranks sharing a card), which a CUDA graph "
+                f"cannot capture; step eagerly (fit_batch, "
+                f"fit(multi_step=1)), or give each rank a card of its own "
+                f"(NCCL)")
         self.warmups_left = WARMUP_STEPS if self.capture else 0
         self.graph = None
         self.launches: dict[str, int] = {}  # recorded at capture
@@ -413,8 +423,21 @@ def resolve_multi_step(net, multi_step) -> int:
         if getattr(l, "needs_per_iteration", True):
             return 1
     if multi_step == "auto":
-        return FIT_CHUNK_DEFAULT if net.device.type == "cuda" else 1
+        return (FIT_CHUNK_DEFAULT if net.device.type == "cuda"
+                and not gloo_meshed(net) else 1)
     return max(1, int(multi_step))
+
+
+def gloo_meshed(net) -> bool:
+    """Whether the net's meshed step runs collectives over gloo (ranks
+    that share a card). Gloo's collectives run on the host, through
+    copies the host waits on, so a CUDA graph cannot hold them: such a
+    step runs eagerly, and a capture of it raises ``CaptureError``."""
+    meshed = getattr(net, "_mesh", None)
+    if meshed is None or getattr(net, "_grad_reduce", None) is None:
+        return False
+    import torch.distributed as dist
+    return dist.is_initialized() and dist.get_backend() == "gloo"
 
 
 def resolve_device_prefetch(net, device_prefetch) -> bool:

@@ -28,6 +28,7 @@ which a captured step advances on the card.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from dataclasses import dataclass, field
 
 import torch
@@ -517,38 +518,58 @@ class MapSchedule(Schedule):
 # Gradient normalization (the reference's GradientNormalization modes)
 # ---------------------------------------------------------------------------
 
-def _l2(leaves):
-    return torch.sqrt(sum(torch.sum(g * g) for g in leaves))
+def _l2(leaves, sharded, tp):
+    """The L2 norm over ``leaves``. On a model axis (``tp``, a layer's
+    parallel/tensor.py ``LayerTP``) the squares of the ``sharded`` leaves
+    are this rank's part, summed apart and all-reduced over the model
+    group; with none sharded it is the plain norm."""
+    part = sum(torch.sum(g * g) for g, s in zip(leaves, sharded) if s)
+    rest = [torch.sum(g * g) for g, s in zip(leaves, sharded) if not s]
+    if not isinstance(part, torch.Tensor):
+        return torch.sqrt(sum(rest))
+    return torch.sqrt(sum(rest, tp.sum_sharded(part)))
 
 
-def normalize_gradients(grads, mode, threshold: float = 1.0):
+def normalize_gradients(grads, mode, threshold: float = 1.0, tp=None):
     """One layer's gradient dict under a GradientNormalization mode: None,
     "renormalize_l2_per_layer", "renormalize_l2_per_param_type",
     "clip_element_wise_absolute_value", "clip_l2_per_layer",
-    "clip_l2_per_param_type"."""
+    "clip_l2_per_param_type". ``tp``: the layer's placement on a model
+    axis; a norm over a sharded leaf is taken over the whole leaf (the
+    model group's all-reduced squares), so each rank scales its shard as
+    the unmeshed step scales the whole."""
     if mode in (None, "none"):
         return grads
     leaves = list(_leaves(grads))
     if not leaves:
         return grads
+    if tp is None:
+        sharded, flags = [False] * len(leaves), itertools.repeat(False)
+    else:
+        sharded = tp.sharded_flags(grads)
+        flags = iter(tp.sharded_flags(grads, sort=False))
+
+    def leaf_norm(g, s):
+        return (_l2([g], [s], tp) if s
+                else torch.linalg.vector_norm(g.reshape(-1)))
+
+    def per_leaf(fn):
+        return _map(lambda g: fn(g, leaf_norm(g, next(flags))), grads)
+
     if mode == "renormalize_l2_per_layer":
-        scale = 1.0 / torch.clamp(_l2(leaves), min=1e-12)
+        scale = 1.0 / torch.clamp(_l2(leaves, sharded, tp), min=1e-12)
         return _map(lambda g: g * scale, grads)
     if mode == "renormalize_l2_per_param_type":
-        return _map(lambda g: g / torch.clamp(
-            torch.linalg.vector_norm(g.reshape(-1)), min=1e-12), grads)
+        return per_leaf(lambda g, n: g / torch.clamp(n, min=1e-12))
     if mode == "clip_element_wise_absolute_value":
         return _map(lambda g: torch.clamp(g, -threshold, threshold), grads)
     if mode == "clip_l2_per_layer":
-        norm = _l2(leaves)
+        norm = _l2(leaves, sharded, tp)
         scale = torch.where(norm > threshold, threshold / (norm + 1e-12), 1.0)
         return _map(lambda g: g * scale, grads)
     if mode == "clip_l2_per_param_type":
-        def clip_one(g):
-            n = torch.linalg.vector_norm(g.reshape(-1))
-            return g * torch.where(n > threshold, threshold / (n + 1e-12),
-                                   1.0)
-        return _map(clip_one, grads)
+        return per_leaf(lambda g, n: g * torch.where(
+            n > threshold, threshold / (n + 1e-12), 1.0))
     raise ValueError(f"Unknown gradient normalization mode: {mode}")
 
 
@@ -598,7 +619,7 @@ def apply_layer_updates(layers, gc, params, grads, opt_state, it,
             if isinstance(upd, NoOp):
                 continue  # frozen: no gradient was computed, none applied
             g = _map(lambda gr, p: gr.to(p.dtype), grads[name], params[name])
-            g = normalize_gradients(g, mode, thr)
+            g = normalize_gradients(g, mode, thr, getattr(layer, "tp", None))
             first = next(_leaves(params[name]))
             key = (upd, base_lr, first.dtype, first.device)
             groups.setdefault(key, []).append((name, g))
@@ -633,7 +654,7 @@ def apply_layer_updates_plain(layers, gc, params, grads, opt_state, it,
         if isinstance(upd, NoOp):
             continue  # frozen: p - 0 is p
         g = _map(lambda gr, p: gr.to(p.dtype), grads[name], params[name])
-        g = normalize_gradients(g, mode, thr)
+        g = normalize_gradients(g, mode, thr, getattr(layer, "tp", None))
         lr = gc.lr_schedule(base_lr, it, dtype=master) * lr_scale
         deltas, opt_state[name] = upd.update(g, opt_state[name], lr)
         with torch.no_grad():

@@ -47,9 +47,12 @@ KERNELS = ("lstm_fwd", "lstm_bwd", "flash_attn_fwd", "fused_block",
 #: the library each launch counter's kernel lives in (ops/registry.py)
 COUNTER_LIBRARY = {
     "lstm_fwd": "lstm_fwd", "lstm_fwd_sm90": "lstm_fwd",
+    "lstm_fwd_wide": "lstm_fwd",
     "lstm_bwd": "lstm_bwd", "lstm_bwd_sm90": "lstm_bwd",
+    "lstm_bwd_wide": "lstm_bwd",
     "flash_attn_fwd": "flash_attn_fwd",
     "flash_attn_fwd_sm90": "flash_attn_fwd",
+    "flash_attn_fwd_wide": "flash_attn_fwd",
     "stream_dense": "stream_exact", "stream_mha": "stream_exact",
     "stream_rownorm": "stream_exact",
     **{f"fused_block_{k}{s}": "fused_block"

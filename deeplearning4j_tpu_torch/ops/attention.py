@@ -19,19 +19,21 @@ softmax run in f32 whatever the compute dtype; masked positions get
   recompute that K3's backward differentiates.
 - ``causal_mha``: dispatch by device (ops/registry.py). A CPU tensor runs
   ``causal_mha_exact``. A CUDA tensor runs ``csrc/flash_attn_fwd.cu`` (K3,
-  op ``flash_attn_fwd``, replaces ``_flash_kernel``) for the case it
-  covers (q_start == 0, tq == tk, dh 64 or 128, bf16 or f32); what the
+  op ``flash_attn_fwd``, replaces ``_flash_kernel``) for the cases it
+  covers (q_start == 0, tq == tk, bf16 or f32, dh 64 or any multiple of
+  128), which include every call the JAX flash kernel takes; what the
   JAX package sends to XLA and K3 does not cover takes the composed
   route (``attention_route``: ``causal_mha_exact`` on the card's
-  tensors, counted under ``flash_attn:composed[<reason>]``), and a head
-  size the JAX kernel takes but K3 does not raises
-  ``NotImplementedError``; with grad on K3 goes through
-  ``FlashAttentionFn``, whose backward recomputes through
-  ``causal_mha_dot`` by autograd, as ``_flash_vjp_bwd`` does. The dtype
-  picks the kernel (``flash_route``): bf16 runs the Hopper kernel (TMA
-  loads, wgmma products; each launch also counted under
-  ``flash_attn_fwd_sm90``), f32 the f32-FMA kernel (the tensor cores' f32
-  path, TF32, would round the inputs). A failure raises, naming the
+  tensors, counted under ``flash_attn:composed[<reason>]``); with grad
+  on K3 goes through ``FlashAttentionFn``, whose backward recomputes
+  through ``causal_mha_dot`` by autograd, as ``_flash_vjp_bwd`` does.
+  ``flash_route`` picks the kernel: at dh 64 and 128 bf16 runs the
+  Hopper kernel (TMA loads, wgmma products; each launch also counted
+  under ``flash_attn_fwd_sm90``), f32 the f32-FMA kernel (the tensor
+  cores' f32 path, TF32, would round the inputs); every other dh (256,
+  384, ...) runs the wide kernel in either dtype (the output's dh split
+  over blocks, each recomputing the row statistics; each launch also
+  counted under ``flash_attn_fwd_wide``). A failure raises, naming the
   route; nothing falls back.
 - ``extend_cache``: the streaming KV-cache write, with
   ``lax.dynamic_update_slice``'s clamp of the start.
@@ -54,8 +56,11 @@ from deeplearning4j_tpu_torch.ops import registry, stream_exact
 
 KERNEL = "flash_attn_fwd"
 KERNEL_SM90 = "flash_attn_fwd_sm90"  # launches on the bf16 (sm90) route
-# the head sizes K3 is compiled for
+KERNEL_WIDE = "flash_attn_fwd_wide"  # launches on the wide route
+# the head sizes K3's sm90 and FMA kernels are compiled for; the wide
+# kernel takes every other multiple of WIDE_DH_STEP
 KERNEL_HEAD_DIMS = (64, 128)
+WIDE_DH_STEP = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -237,28 +242,22 @@ def _attention_route(dtype, tq, tk, dh, q_start=0):
         return "composed", f"dtype={_dtype_name(dtype)}"
     if tq != tk:
         return "composed", "tq!=tk"
-    if dh in KERNEL_HEAD_DIMS:
+    if dh in KERNEL_HEAD_DIMS or _jax_flash_takes(dtype, tq, tk, dh):
         return "kernel", None
-    if not _jax_flash_takes(dtype, tq, tk, dh):
-        return "composed", f"dh={dh}"
-    raise NotImplementedError(
-        f"flash_attn_fwd covers head size dh in {KERNEL_HEAD_DIMS}; the "
-        f"JAX package's Pallas kernel takes dh={dh} at T={tq} "
-        f"(dh % 128 == 0, T % 128 == 0), so there is no composed route "
-        f"for it")
+    return "composed", f"dh={dh}"
 
 
 def attention_route(dtype, tq, tk, dh, q_start=0) -> str:
-    """Where causal MHA on CUDA tensors runs: "kernel" (K3) wherever K3
-    covers the call (q_start 0, tq == tk, dh 64 or 128, bf16 or f32; the
-    JAX package sends dh 64 to XLA, the port keeps K3 there);
-    "composed" (``causal_mha_exact`` on the card's tensors) exactly where
-    the JAX package's ``attention_supported`` sends the call to XLA and
-    K3 does not cover it: q_start != 0 (or a per-row q_start), tq != tk,
-    a dtype other than bf16 and f32, or another head size the JAX kernel
-    would not take either (dh % 128 != 0, T % 128 != 0). A head size the
-    JAX kernel takes and K3 does not (dh 256 at T % 128 == 0) raises
-    ``NotImplementedError``."""
+    """Where causal MHA on CUDA tensors runs: "kernel" (K3) for q_start
+    0, tq == tk, bf16 or f32 at dh 64 or 128 (the JAX package sends dh 64
+    to XLA, the port keeps K3 there) and at every head size the JAX flash
+    kernel takes (dh % 128 == 0, T % 128 == 0, within its VMEM budget:
+    the wide kernel, ``flash_route``); "composed" (``causal_mha_exact`` on
+    the card's tensors) exactly where the JAX package's
+    ``attention_supported`` sends the call to XLA and K3's routes do not
+    take it: q_start != 0 (or a per-row q_start), tq != tk, a dtype other
+    than bf16 and f32, or another head size (dh % 128 != 0, T % 128 != 0,
+    past the budget). Nothing raises."""
     return _attention_route(dtype, tq, tk, dh, q_start)[0]
 
 
@@ -287,8 +286,9 @@ def check_attention_inputs(q, k, v):
 def check_flash_inputs(q, k, v, q_start=0):
     """Raise ``NotImplementedError``, naming the reason, for a call that K3
     does not cover: q_start != 0 (incremental decode), tq != tk, a head
-    size other than 64 or 128, or a dtype other than f32 and bf16; and
-    ``ValueError`` for malformed inputs. Returns (b, T, h, dh)."""
+    size other than 64 and the multiples of 128, or a dtype other than
+    f32 and bf16; and ``ValueError`` for malformed inputs. Returns (b, T,
+    h, dh)."""
     if not (isinstance(q_start, int) and q_start == 0):
         raise NotImplementedError(
             "flash_attn_fwd covers q_start == 0 only; incremental decode "
@@ -300,10 +300,11 @@ def check_flash_inputs(q, k, v, q_start=0):
     if tq != tk:
         raise NotImplementedError(
             f"flash_attn_fwd covers tq == tk only, got tq={tq}, tk={tk}")
-    if dh not in KERNEL_HEAD_DIMS:
+    if dh not in KERNEL_HEAD_DIMS and (dh < WIDE_DH_STEP
+                                       or dh % WIDE_DH_STEP):
         raise NotImplementedError(
-            f"flash_attn_fwd covers head size dh in {KERNEL_HEAD_DIMS}, "
-            f"got dh={dh}")
+            f"flash_attn_fwd covers head size dh in {KERNEL_HEAD_DIMS} "
+            f"and every multiple of {WIDE_DH_STEP}, got dh={dh}")
     if q.dtype not in _DTYPE_CODES:
         raise NotImplementedError(
             f"flash_attn_fwd takes float32 or bfloat16, got {q.dtype}")
@@ -335,6 +336,11 @@ def _bind():
     lib.dl4j_flash_attn_fwd_sm90.restype = i32
     lib.dl4j_flash_attn_fwd_sm90_smem_bytes.argtypes = [i32]
     lib.dl4j_flash_attn_fwd_sm90_smem_bytes.restype = i32
+    lib.dl4j_flash_attn_fwd_wide.argtypes = [i32] + [ptr] * 4 + [i32] * 4 \
+        + [ptr]
+    lib.dl4j_flash_attn_fwd_wide.restype = i32
+    lib.dl4j_flash_attn_fwd_wide_smem_bytes.argtypes = []
+    lib.dl4j_flash_attn_fwd_wide_smem_bytes.restype = i32
     lib.dl4j_cuda_error_string.argtypes = [i32]
     lib.dl4j_cuda_error_string.restype = ctypes.c_char_p
     lib._dl4j_bound = True
@@ -348,24 +354,27 @@ def flash_flops(b, T, h, dh) -> int:
     return 4 * b * h * T * T * dh
 
 
-def flash_route(dtype):
-    """The kernel K3 runs for inputs of ``dtype``: "sm90" (bf16: TMA and
-    wgmma) or "fma" (f32: f32 FMA). Raises for any other dtype."""
-    if dtype == torch.bfloat16:
-        return "sm90"
-    if dtype == torch.float32:
-        return "fma"
-    raise NotImplementedError(
-        f"flash_attn_fwd takes float32 or bfloat16, got {dtype}")
+def flash_route(dtype, dh=64):
+    """The kernel K3 runs for inputs of ``dtype`` at head size ``dh``:
+    "wide" for a dh outside ``KERNEL_HEAD_DIMS`` (either dtype), else
+    "sm90" (bf16: TMA and wgmma) or "fma" (f32: f32 FMA). Raises for any
+    other dtype."""
+    if dtype not in _DTYPE_CODES:
+        raise NotImplementedError(
+            f"flash_attn_fwd takes float32 or bfloat16, got {dtype}")
+    if dh not in KERNEL_HEAD_DIMS:
+        return "wide"
+    return "sm90" if dtype == torch.bfloat16 else "fma"
 
 
 @registry.register("flash_attn_fwd", "cuda")
 def flash_attn_fwd_cuda(q, k, v):
     """Launch csrc/flash_attn_fwd.cu on the current stream: causal MHA
-    over contiguous q/k/v [b, T, h, dh], read in that layout; bf16 on the
-    sm90 kernel, f32 on the FMA kernel (``flash_route``). Raises on what
-    the kernel does not take; never falls back to the other kernel or to
-    the plain version."""
+    over contiguous q/k/v [b, T, h, dh], read in that layout; at dh 64 and
+    128 bf16 on the sm90 kernel and f32 on the FMA kernel, at any other
+    multiple of 128 the wide kernel (``flash_route``). Raises on what the
+    kernel does not take; never falls back to the other kernel or to the
+    plain version."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attn_fwd needs CUDA tensors, got "
                          f"{q.device}")
@@ -381,7 +390,7 @@ def flash_attn_fwd_cuda(q, k, v):
             "the flash_attn_fwd wrapper records no graph; call causal_mha, "
             "which differentiates through FlashAttentionFn, or run under "
             "torch.inference_mode()/torch.no_grad()")
-    route = flash_route(q.dtype)
+    route = flash_route(q.dtype, dh)
     lib = _bind()
     out = torch.empty_like(q)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
@@ -390,20 +399,25 @@ def flash_attn_fwd_cuda(q, k, v):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if route == "sm90":
             rc = lib.dl4j_flash_attn_fwd_sm90(*ptrs, b, T, h, dh, stream)
+        elif route == "wide":
+            rc = lib.dl4j_flash_attn_fwd_wide(code, *ptrs, b, T, h, dh,
+                                              stream)
         else:
             rc = lib.dl4j_flash_attn_fwd(code, *ptrs, b, T, h, dh, stream)
     if rc != 0:
         msg = lib.dl4j_cuda_error_string(rc).decode()
         smem = (lib.dl4j_flash_attn_fwd_sm90_smem_bytes(dh) if route == "sm90"
+                else lib.dl4j_flash_attn_fwd_wide_smem_bytes()
+                if route == "wide"
                 else lib.dl4j_flash_attn_fwd_smem_bytes(code, dh))
         raise RuntimeError(
             f"flash_attn_fwd kernel launch failed on the {route} route "
             f"(b={b}, T={T}, h={h}, dh={dh}, {q.dtype}, {smem} B shared "
             f"memory per block): cudaError {rc}: {msg}")
+    also = {"sm90": (KERNEL_SM90,), "wide": (KERNEL_WIDE,)}.get(route, ())
     registry.count_launch(KERNEL)
-    if route == "sm90":
-        registry.count_launch(KERNEL_SM90)
+    for name in also:
+        registry.count_launch(name)
     registry.count_flops(KERNEL, flash_flops(b, T, h, dh))
-    registry.note_kernel(KERNEL, out,
-                         (KERNEL_SM90,) if route == "sm90" else ())
+    registry.note_kernel(KERNEL, out, also)
     return out

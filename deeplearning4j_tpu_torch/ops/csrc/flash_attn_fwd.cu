@@ -20,7 +20,9 @@
 // bf16 tensor-core rate: bytes bound it. The [T, T] score matrix never
 // reaches device memory.
 //
-// Two kernels, chosen by dtype (the wrapper, ops/attention.py, decides):
+// Three kernels (the wrapper, ops/attention.py, decides): by dtype for dh
+// 64 and 128, and one for every other dh % 128 == 0 (see "wide head
+// sizes" below):
 //
 // bf16: flash_fwd_kernel_sm90 (dl4j_flash_attn_fwd_sm90), on the tensor
 // cores. A block owns 64 query rows of one (batch, head): one producer
@@ -321,6 +323,216 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+
+// ------------------------------------------------------- wide head sizes
+// Every dh % 128 == 0 other than 128 (the JAX flash kernel's rule; its
+// VMEM budget holds dh up to 2,944 in f32 and 5,248 in bf16), bf16 and
+// f32: flash_fwd_wide_kernel (dl4j_flash_attn_fwd_wide). The FMA kernel's
+// tiles are [64][dh + 4] f32, which past dh = 128 would need 200 KB and
+// more of shared memory, so this one keeps its shared memory fixed:
+// - the output's dh is split over grid axis z into slices of kWideDV =
+//   128 columns; a block owns 64 query rows of one (batch, head) and one
+//   such slice, and walks key tiles as the FMA kernel does;
+// - s = q . k over the whole dh is summed chunk by chunk: q and k columns
+//   [d0, d0 + 64) are staged, then 64 more, d ascending in one thread,
+//   the FMA kernel's order; so every block of a row recomputes the same
+//   s, m and l bit for bit, and its slice of acc / l is the slice the
+//   whole row would give;
+// - P V runs against the slice's 128 columns of v, p rounded to the
+//   compute dtype as in the other kernels.
+// Its cost: s is computed dh / 128 times, so it is bound by its FMAs
+// (2 T^2 dh (dh / 128 + 1) a head, causal half), not by bytes. Simple and
+// right; a tensor-core design is later work.
+constexpr int kWideDK = 64;    // s: q and k columns staged at a time
+constexpr int kWideDV = 128;   // output columns a block owns
+
+inline size_t wide_smem_bytes() {
+  return (2 * static_cast<size_t>(kBQ) * (kWideDK + 4) +
+          static_cast<size_t>(kBK) * (kWideDV + 4) +
+          static_cast<size_t>(kBQ) * kPadP) *
+         sizeof(float);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ out, int seq,
+                      int heads, int dh, float scale) {
+  constexpr int kPadK = kWideDK + 4;
+  constexpr int kPadV = kWideDV + 4;
+  constexpr int kGroups = kWideDV / 64;
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);
+  float* sK = sQ + kBQ * kPadK;
+  float* sV = sK + kBK * kPadK;
+  float* sP = sV + kBK * kPadV;
+
+  const int bh = blockIdx.x;
+  const int bi = bh / heads;
+  const int hi = bh % heads;
+  const int qi = gridDim.y - 1 - blockIdx.y;
+  const int dv0 = blockIdx.z * kWideDV;
+  const int row_stride = heads * dh;
+  const size_t slice = static_cast<size_t>(bi) * seq * row_stride +
+                       static_cast<size_t>(hi) * dh;
+  const T* qb = q + slice;
+  const T* kb = k + slice;
+  const T* vb = v + slice;
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int q0 = qi * kBQ;
+
+  float m[4], l[4], acc[4][4 * kGroups];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4 * kGroups; ++e) acc[i][e] = 0.f;
+  }
+
+  for (int ki = 0; ki <= qi; ++ki) {
+    const int k0 = ki * kBK;
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int d0 = 0; d0 < dh; d0 += kWideDK) {
+      __syncthreads();  // the previous chunk's (and tile's) reads are done
+      load_tile<T, kWideDK>(sQ, qb + d0, q0, seq, row_stride);
+      load_tile<T, kWideDK>(sK, kb + d0, k0, seq, row_stride);
+      __syncthreads();
+#pragma unroll 4
+      for (int d = 0; d < kWideDK; d += 4) {
+        float4 qv[4], kv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          qv[i] = load4(sQ + (4 * ty + i) * kPadK + d);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          kv[j] = load4(sK + (tx + 16 * j) * kPadK + d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float a = s[i][j];
+            a = fmaf(qv[i].x, kv[j].x, a);
+            a = fmaf(qv[i].y, kv[j].y, a);
+            a = fmaf(qv[i].z, kv[j].z, a);
+            a = fmaf(qv[i].w, kv[j].w, a);
+            s[i][j] = a;
+          }
+      }
+    }
+    // the slice's columns of v for this key tile (sV and sP were last
+    // read before the first chunk's barrier above)
+    load_tile<T, kWideDV>(sV, vb + dv0, k0, seq, row_stride);
+
+    float alpha[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + 4 * ty + i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k0 + tx + 16 * j;
+        float x = s[i][j] * scale;
+        if (col > row || col >= seq) x = kMask;
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      alpha[i] = expf(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        sum += p;
+        sP[(4 * ty + i) * kPadP + tx + 16 * j] = round_to(p, q);
+      }
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      l[i] = alpha[i] * l[i] + sum;
+      m[i] = m_new;
+    }
+    __syncthreads();
+
+    float pv[4][4 * kGroups];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 4 * kGroups; ++e) pv[i][e] = 0.f;
+#pragma unroll 2
+    for (int c = 0; c < kBK; c += 4) {
+      float4 pr[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pr[i] = load4(sP + (4 * ty + i) * kPadP + c);
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+#pragma unroll
+        for (int g = 0; g < kGroups; ++g) {
+          const float4 vv = load4(sV + (c + cc) * kPadV + 64 * g + 4 * tx);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float pc = cc == 0 ? pr[i].x
+                             : cc == 1 ? pr[i].y
+                             : cc == 2 ? pr[i].z
+                                       : pr[i].w;
+            pv[i][4 * g + 0] = fmaf(pc, vv.x, pv[i][4 * g + 0]);
+            pv[i][4 * g + 1] = fmaf(pc, vv.y, pv[i][4 * g + 1]);
+            pv[i][4 * g + 2] = fmaf(pc, vv.z, pv[i][4 * g + 2]);
+            pv[i][4 * g + 3] = fmaf(pc, vv.w, pv[i][4 * g + 3]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 4 * kGroups; ++e)
+        acc[i][e] = acc[i][e] * alpha[i] + pv[i][e];
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * ty + i;
+    if (row >= seq) continue;
+    T* orow = out + slice + static_cast<size_t>(row) * row_stride + dv0;
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      const float4 o = make_float4(
+          acc[i][4 * g + 0] / l[i], acc[i][4 * g + 1] / l[i],
+          acc[i][4 * g + 2] / l[i], acc[i][4 * g + 3] / l[i]);
+      store4(orow + 64 * g + 4 * tx, o);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_wide(const void* q, const void* k, const void* v,
+                        void* out, int b, int seq, int heads, int dh,
+                        cudaStream_t stream) {
+  auto kern = flash_fwd_wide_kernel<T>;
+  const size_t smem = wide_smem_bytes();
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const dim3 grid(static_cast<unsigned>(b) * heads, (seq + kBQ - 1) / kBQ,
+                  dh / kWideDV);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), seq, heads, dh,
+      static_cast<float>(1.0 / sqrt(static_cast<double>(dh))));
+  return cudaGetLastError();
+}
 
 // ------------------------------------------------------------- bf16, sm90
 namespace fa90 {
@@ -658,6 +870,26 @@ int dl4j_flash_attn_fwd_sm90(const void* q, const void* k, const void* v,
 int dl4j_flash_attn_fwd_sm90_smem_bytes(int dh) {
   return static_cast<int>(dh == 128 ? fa90::Smem<128>::kBytes
                                     : fa90::Smem<64>::kBytes);
+}
+
+// Every head size dh % 128 == 0 (flash_fwd_wide_kernel), bf16 or f32:
+// q, k, v and out are contiguous [b, T, h, dh], each 16-byte aligned.
+// Returns a cudaError_t (0 on success).
+int dl4j_flash_attn_fwd_wide(int dtype, const void* q, const void* k,
+                             const void* v, void* out, int b, int seq,
+                             int heads, int dh, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (b < 1 || seq < 1 || heads < 1 || dh < kWideDV || dh % kWideDV)
+    return cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_wide<float>(q, k, v, out, b, seq, heads, dh, s);
+  if (dtype == 1)
+    return launch_wide<__nv_bfloat16>(q, k, v, out, b, seq, heads, dh, s);
+  return cudaErrorInvalidValue;
+}
+
+int dl4j_flash_attn_fwd_wide_smem_bytes() {
+  return static_cast<int>(wide_smem_bytes());
 }
 
 const char* dl4j_cuda_error_string(int code) {

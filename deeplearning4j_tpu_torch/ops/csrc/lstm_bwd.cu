@@ -5,7 +5,10 @@
 //   partials, then dWh on sm90_gemm.cuh's TMA + wgmma mainloop: three
 //   launches;
 // - f32, and any other n: the first design, a persistent cooperative grid
-//   for the chain and an f32-FMA GEMM for dWh: two launches.
+//   for the chain and an f32-FMA GEMM for dWh: two launches;
+// - n past the grid chain's shared-memory and residency limits: the same
+//   chain with Wh read from global memory (the "wide route" below), then
+//   the same dWh GEMM: two launches.
 //
 // Replaces deeplearning4j_tpu/ops/lstm.py::_bwd_kernel (the Pallas TPU
 // kernel behind _bwd_call) and computes the same function with the same
@@ -370,6 +373,223 @@ int launch(const void* G, const void* cprev, const void* hprev,
                   &steps, &b, &n};
   e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(chain), blocks,
                                   kThreads, args, smem, stream);
+  if (e != cudaSuccess) return e;
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+
+  const dim3 grid((4 * n + kTile - 1) / kTile, (n + kTile - 1) / kTile);
+  lstm_bwd_dwh_kernel<T><<<grid, kGemmThreads, 0, stream>>>(
+      static_cast<const T*>(hprev), a_dxz, static_cast<T*>(dWh), steps * b,
+      n);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------- wide route
+// For hidden sizes past the grid chain's limits (ops/lstm.py::grid_fits:
+// its U rows of Wh, 32 n elements, no longer fit a block's shared memory,
+// or n / 8 blocks no longer fit the card at once): the grid chain's
+// design and arithmetic with three changes.
+// - Phase B reads the group's U rows of Wh from global memory (through
+//   L2 where Wh fits it) instead of shared memory.
+// - A block walks unit groups blockIdx.x, blockIdx.x + gridDim.x, ... and
+//   the grid is only as large as the card holds at once, so every block
+//   stays resident for the barrier whatever n is.
+// - The peephole sums cannot stay in registers across a block's groups:
+//   each (thread slot, unit) accumulates into f32 scratch dpp [3][32][n]
+//   that only it touches, in the grid chain's order (over t descending,
+//   then the rows it walks); the end sums the 32 slots in order, as the
+//   grid chain sums its threads.
+// dWh then runs lstm_bwd_dwh_kernel, which has no limit on n.
+constexpr int kSlots = kThreads / kUnits;   // phase A threads a unit
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+lstm_bwd_wide_chain_kernel(const T* __restrict__ G,
+                           const T* __restrict__ cprev,
+                           const T* __restrict__ mask,
+                           const T* __restrict__ Wh, const T* __restrict__ p,
+                           const T* __restrict__ dy,
+                           const T* __restrict__ dhT,
+                           const T* __restrict__ dcT, T* dxz,
+                           T* __restrict__ dh0, T* __restrict__ dc0,
+                           T* __restrict__ dp, float* dhbuf, float* dcbuf,
+                           float* dpp, int steps, int b, int n) {
+  cg::grid_group grid = cg::this_grid();
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int slot = tid / kUnits;
+  const int groups = (n + kUnits - 1) / kUnits;
+  const size_t n4 = 4 * static_cast<size_t>(n);
+  const size_t sn = static_cast<size_t>(kSlots) * n;
+
+  // The f32 carry starts from the cotangents of hT and cT; dp's slots
+  // from 0.
+  for (int gr = blockIdx.x; gr < groups; gr += gridDim.x) {
+    const int unit = gr * kUnits + tid % kUnits;
+    if (unit >= n) continue;
+    for (int idx = tid; idx < b * kUnits; idx += kThreads) {
+      const size_t ri = static_cast<size_t>(idx / kUnits) * n + unit;
+      dhbuf[ri] = to_f(dhT[ri]);
+      dcbuf[ri] = to_f(dcT[ri]);
+    }
+    for (int q = 0; q < 3; ++q)
+      dpp[q * sn + static_cast<size_t>(slot) * n + unit] = 0.0f;
+  }
+  __syncthreads();
+
+  for (int t = steps - 1; t >= 0; --t) {
+    const size_t tb = static_cast<size_t>(t) * b;
+    // Phase A: dz of each group's four gate columns, and dc_prev.
+    for (int gr = blockIdx.x; gr < groups; gr += gridDim.x) {
+      const int unit = gr * kUnits + tid % kUnits;
+      if (unit >= n) continue;
+      const float p_i = to_f(p[unit]);
+      const float p_f = to_f(p[n + unit]);
+      const float p_o = to_f(p[2 * n + unit]);
+      float* acc_p = dpp + static_cast<size_t>(slot) * n + unit;
+      float acc_pi = acc_p[0], acc_pf = acc_p[sn], acc_po = acc_p[2 * sn];
+      for (int idx = tid; idx < b * kUnits; idx += kThreads) {
+        const int r = idx / kUnits;
+        const size_t tr = tb + r;
+        const size_t gi = tr * n4 + unit;
+        const size_t oi = tr * n + unit;
+        const size_t ri = static_cast<size_t>(r) * n + unit;
+        const float ig = to_f(G[gi]);
+        const float fg = to_f(G[gi + n]);
+        const float og = to_f(G[gi + 2 * static_cast<size_t>(n)]);
+        const float gg = to_f(G[gi + 3 * static_cast<size_t>(n)]);
+        const float cp = to_f(cprev[oi]);
+        const float m = to_f(mask[tr]);
+        const float dh_next = dhbuf[ri];
+        const float dc_next = dcbuf[ri];
+
+        const float c = fg * cp + ig * gg;
+        const float tc = tanhf(c);
+        const float dh = m * (dh_next + to_f(dy[oi]));
+        const float dzo = dh * tc * og * (1.0f - og);
+        const float dc_in = m * dc_next + dh * og * (1.0f - tc * tc) +
+                            dzo * p_o;
+        const float dzi = dc_in * gg * ig * (1.0f - ig);
+        const float dzf = dc_in * cp * fg * (1.0f - fg);
+        const float dzg = dc_in * ig * (1.0f - gg * gg);
+
+        dxz[gi] = from_f<T>(dzi);
+        dxz[gi + n] = from_f<T>(dzf);
+        dxz[gi + 2 * static_cast<size_t>(n)] = from_f<T>(dzo);
+        dxz[gi + 3 * static_cast<size_t>(n)] = from_f<T>(dzg);
+        dcbuf[ri] = dc_in * fg + dzi * p_i + dzf * p_f + (1.0f - m) * dc_next;
+        acc_pi += dzi * cp;
+        acc_pf += dzf * cp;
+        acc_po += dzo * c;
+      }
+      acc_p[0] = acc_pi;
+      acc_p[sn] = acc_pf;
+      acc_p[2 * sn] = acc_po;
+    }
+    grid.sync();  // dxz[t] complete everywhere before any block reads it
+
+    // Phase B: dh_prev[r, u] = sum_j dz_cd[r, j] * Wh[u, j] + (1-m)*dh_next
+    // for each group's units, one warp per row, Wh from global memory.
+    for (int gr = blockIdx.x; gr < groups; gr += gridDim.x) {
+      const int u0 = gr * kUnits;
+      for (int r = warp; r < b; r += kWarps) {
+        const T* dzr = dxz + (tb + r) * n4;
+        float acc[kUnits];
+#pragma unroll
+        for (int q = 0; q < kUnits; ++q) acc[q] = 0.0f;
+#pragma unroll 4
+        for (int j = lane; j < static_cast<int>(n4); j += 32) {
+          const float d = load_cg(dzr + j);
+#pragma unroll
+          for (int q = 0; q < kUnits; ++q) {
+            const float w = u0 + q < n
+                ? to_f(Wh[static_cast<size_t>(u0 + q) * n4 + j]) : 0.0f;
+            acc[q] = fmaf(d, w, acc[q]);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kUnits; ++q) {
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            acc[q] += __shfl_xor_sync(0xffffffffu, acc[q], off);
+        }
+        float s = acc[0];
+#pragma unroll
+        for (int q = 1; q < kUnits; ++q)
+          if (lane == q) s = acc[q];
+        const int uu = u0 + lane;
+        if (lane < kUnits && uu < n) {
+          const float m = to_f(mask[tb + r]);
+          const size_t ri = static_cast<size_t>(r) * n + uu;
+          dhbuf[ri] = s + (1.0f - m) * dhbuf[ri];
+        }
+      }
+    }
+    __syncthreads();  // dh_prev of the block's units before phase A reads it
+  }
+
+  for (int gr = blockIdx.x; gr < groups; gr += gridDim.x) {
+    const int unit = gr * kUnits + tid % kUnits;
+    if (unit >= n) continue;
+    for (int idx = tid; idx < b * kUnits; idx += kThreads) {
+      const size_t ri = static_cast<size_t>(idx / kUnits) * n + unit;
+      dh0[ri] = from_f<T>(dhbuf[ri]);
+      dc0[ri] = from_f<T>(dcbuf[ri]);
+    }
+  }
+  __syncthreads();  // every slot's last dp partial is written
+  // dp: the slots' partial sums of a unit, in slot order.
+  for (int gr = blockIdx.x; gr < groups; gr += gridDim.x) {
+    const int unit = gr * kUnits + tid;
+    if (tid >= kUnits || unit >= n) continue;
+    for (int q = 0; q < 3; ++q) {
+      float s = 0.0f;
+      for (int k = 0; k < kSlots; ++k)
+        s += dpp[q * sn + static_cast<size_t>(k) * n + unit];
+      dp[static_cast<size_t>(q) * n + unit] = from_f<T>(s);
+    }
+  }
+}
+
+template <typename T>
+int launch_wide(const void* G, const void* cprev, const void* hprev,
+                const void* mask, const void* Wh, const void* p,
+                const void* dy, const void* dhT, const void* dcT, void* dxz,
+                void* dh0, void* dc0, void* dWh, void* dp, float* dhbuf,
+                float* dcbuf, float* dpp, int steps, int b, int n,
+                cudaStream_t stream) {
+  auto chain = lstm_bwd_wide_chain_kernel<T>;
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (!coop) return cudaErrorNotSupported;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chain, kThreads,
+                                                    0);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  const int groups = (n + kUnits - 1) / kUnits;
+  // as many blocks as the card holds at once, each walking its groups
+  const int blocks = groups < per_sm * sms ? groups : per_sm * sms;
+
+  const T* a_G = static_cast<const T*>(G);
+  const T* a_cprev = static_cast<const T*>(cprev);
+  const T* a_mask = static_cast<const T*>(mask);
+  const T* a_Wh = static_cast<const T*>(Wh);
+  const T* a_p = static_cast<const T*>(p);
+  const T* a_dy = static_cast<const T*>(dy);
+  const T* a_dhT = static_cast<const T*>(dhT);
+  const T* a_dcT = static_cast<const T*>(dcT);
+  T* a_dxz = static_cast<T*>(dxz);
+  T* a_dh0 = static_cast<T*>(dh0);
+  T* a_dc0 = static_cast<T*>(dc0);
+  T* a_dp = static_cast<T*>(dp);
+  void* args[] = {&a_G, &a_cprev, &a_mask, &a_Wh, &a_p, &a_dy, &a_dhT,
+                  &a_dcT, &a_dxz, &a_dh0, &a_dc0, &a_dp, &dhbuf, &dcbuf,
+                  &dpp, &steps, &b, &n};
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(chain), blocks,
+                                  kThreads, args, 0, stream);
   if (e != cudaSuccess) return e;
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
@@ -768,6 +988,31 @@ int dl4j_lstm_bwd(int dtype, const void* G, const void* cprev,
     return launch<__nv_bfloat16>(G, cprev, hprev, mask, Wh, p, dy, dhT, dcT,
                                  dxz, dh0, dc0, dWh, dp, hb, cb, steps, b, n,
                                  s);
+  return cudaErrorInvalidValue;
+}
+
+// The wide route (n past the grid chain's limits): dl4j_lstm_bwd's
+// arguments and outputs, and dpp, f32 scratch of [3, 32, n] for the
+// peephole sums. Two launches, as the grid route. Returns a cudaError_t.
+int dl4j_lstm_bwd_wide(int dtype, const void* G, const void* cprev,
+                       const void* hprev, const void* mask, const void* Wh,
+                       const void* p, const void* dy, const void* dhT,
+                       const void* dcT, void* dxz, void* dh0, void* dc0,
+                       void* dWh, void* dp, void* dhbuf, void* dcbuf,
+                       void* dpp, int steps, int b, int n, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto hb = static_cast<float*>(dhbuf);
+  auto cb = static_cast<float*>(dcbuf);
+  auto pp = static_cast<float*>(dpp);
+  if (steps < 1 || b < 1 || n < 1) return cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_wide<float>(G, cprev, hprev, mask, Wh, p, dy, dhT, dcT,
+                              dxz, dh0, dc0, dWh, dp, hb, cb, pp, steps, b,
+                              n, s);
+  if (dtype == 1)
+    return launch_wide<__nv_bfloat16>(G, cprev, hprev, mask, Wh, p, dy, dhT,
+                                      dcT, dxz, dh0, dc0, dWh, dp, hb, cb,
+                                      pp, steps, b, n, s);
   return cudaErrorInvalidValue;
 }
 

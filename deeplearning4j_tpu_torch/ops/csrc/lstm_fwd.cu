@@ -5,7 +5,10 @@
 //   thread-block cluster per 32 batch rows, Wh resident in the cluster's
 //   shared memory, h exchanged through DSMEM, the step's product on wgmma;
 // - f32, and any other n: lstm_fwd_kernel, the first design, a persistent
-//   cooperative grid.
+//   cooperative grid;
+// - n past that kernel's shared-memory and residency limits:
+//   lstm_fwd_wide_kernel, the same grid with Wh read from global memory
+//   (see "wide route" below).
 //
 // Replaces deeplearning4j_tpu/ops/lstm.py::_fwd_kernel (the Pallas TPU
 // kernel behind _fwd_call) and computes the same function with the same
@@ -282,6 +285,195 @@ int launch(const void* xz, const void* mask, const void* h0, const void* c0,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------- wide route
+// For hidden sizes past the grid kernel's limits (ops/lstm.py::grid_fits:
+// its Wh slice of 32 n elements and h staging of 32 n no longer fit a
+// block's shared memory, or n / 8 blocks no longer fit the card at once):
+// the same cooperative grid, f32 carry, exchange through hbuf and one grid
+// barrier a step, with two changes.
+// - Wh is read from global memory (through L2, which holds all of it up to
+//   ~50 MB: bf16 n = 1,808, f32 n = 1,280; past that each step streams
+//   Wh from device memory) instead of from a resident slice.
+// - h_prev is staged in chunks of kChunk columns, so a block's shared
+//   memory (32 x 256 elements) does not grow with n.
+// - A block walks unit groups blockIdx.x, blockIdx.x + gridDim.x, ... and
+//   the grid is only as large as the card holds at once, so every block
+//   stays resident for the barrier whatever n is.
+// Each output sums k = 0 .. n-1 in ascending order in one thread, the
+// grid kernel's order. Simple and right, not fast: a step is bound by
+// streaming 4 n^2 elements of Wh (bytes), where the grid route keeps its
+// slice in shared memory.
+constexpr int kChunk = 256;   // h_prev columns staged at a time
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+lstm_fwd_wide_kernel(const T* __restrict__ xz, const T* __restrict__ mask,
+                     const T* __restrict__ h0, const T* __restrict__ c0,
+                     const T* __restrict__ Wh, const T* __restrict__ p,
+                     T* __restrict__ y, T* __restrict__ hT,
+                     T* __restrict__ cT, T* __restrict__ G,
+                     T* __restrict__ hprev, T* __restrict__ cprev,
+                     float* hbuf, float* cbuf, int steps, int b, int n,
+                     int save) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ __align__(16) T h_s[kRows * kChunk];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int gate = lane / kUnits;
+  const int u = lane % kUnits;
+  const int groups = (n + kUnits - 1) / kUnits;
+  const size_t n4 = 4 * static_cast<size_t>(n);
+  const size_t bn = static_cast<size_t>(b) * n;
+
+  // The f32 carry starts from h0/c0; each block writes its groups' units.
+  for (int gr = blockIdx.x; gr < groups; gr += gridDim.x) {
+    for (int idx = tid; idx < b * kUnits; idx += kThreads) {
+      const int uu = gr * kUnits + idx % kUnits;
+      if (uu < n) {
+        const size_t i = static_cast<size_t>(idx / kUnits) * n + uu;
+        hbuf[i] = to_f(h0[i]);
+        cbuf[i] = to_f(c0[i]);
+      }
+    }
+  }
+  grid.sync();
+
+  for (int t = 0; t < steps; ++t) {
+    const float* hcur = hbuf + static_cast<size_t>(t & 1) * bn;
+    float* hnxt = hbuf + static_cast<size_t>((t + 1) & 1) * bn;
+    for (int gr = blockIdx.x; gr < groups; gr += gridDim.x) {
+      const int unit = gr * kUnits + u;
+      const bool unit_ok = unit < n;
+      const size_t col = static_cast<size_t>(gate) * n + unit;
+      float p_i = 0.0f, p_f = 0.0f, p_o = 0.0f;
+      if (unit_ok) {
+        p_i = to_f(p[unit]);
+        p_f = to_f(p[n + unit]);
+        p_o = to_f(p[2 * n + unit]);
+      }
+      for (int r0 = 0; r0 < b; r0 += kRows) {
+        float acc[kRowsPerWarp];
+#pragma unroll
+        for (int q = 0; q < kRowsPerWarp; ++q) acc[q] = 0.0f;
+        for (int k0 = 0; k0 < n; k0 += kChunk) {
+          const int kc = min(kChunk, n - k0);
+          // h_prev rows [r0, r0 + kRows), columns [k0, k0 + kc), rounded
+          // to the compute dtype; __ldcg: other SMs wrote these values.
+          for (int idx = tid; idx < kRows * kc; idx += kThreads) {
+            const int r = r0 + idx / kc;
+            h_s[idx] = r < b ? from_f<T>(__ldcg(
+                                   hcur + static_cast<size_t>(r) * n + k0 +
+                                   idx % kc))
+                             : from_f<T>(0.0f);
+          }
+          __syncthreads();
+          const T* hrow = h_s + warp * kRowsPerWarp * kc;
+          const T* wcol = Wh + static_cast<size_t>(k0) * n4 + col;
+          for (int k = 0; k < kc; ++k) {
+            const float w =
+                unit_ok ? to_f(wcol[static_cast<size_t>(k) * n4]) : 0.0f;
+#pragma unroll
+            for (int q = 0; q < kRowsPerWarp; ++q)
+              acc[q] = fmaf(to_f(hrow[q * kc + k]), w, acc[q]);
+          }
+          __syncthreads();  // h_s is restaged for the next chunk
+        }
+
+#pragma unroll
+        for (int q = 0; q < kRowsPerWarp; ++q) {
+          const int r = r0 + warp * kRowsPerWarp + q;
+          const bool row_ok = r < b;
+          const size_t tr = static_cast<size_t>(t) * b + r;
+          float z = 0.0f;
+          if (row_ok && unit_ok) z = to_f(xz[tr * n4 + col]) + acc[q];
+          // Lanes u, U+u, 2U+u, 3U+u hold the four gates of unit u.
+          const float zi = __shfl_sync(0xffffffffu, z, u);
+          const float zf = __shfl_sync(0xffffffffu, z, kUnits + u);
+          const float zo = __shfl_sync(0xffffffffu, z, 2 * kUnits + u);
+          const float zg = __shfl_sync(0xffffffffu, z, 3 * kUnits + u);
+          if (lane < kUnits && row_ok && unit_ok) {
+            const size_t ri = static_cast<size_t>(r) * n + unit;
+            const float c_prev = cbuf[ri];
+            const float h_prev = __ldcg(hcur + ri);
+            const float ig = sigmoid_f(zi + p_i * c_prev);
+            const float fg = sigmoid_f(zf + p_f * c_prev);
+            const float gg = tanhf(zg);
+            const float c = fg * c_prev + ig * gg;
+            const float og = sigmoid_f(zo + p_o * c);
+            const float h = og * tanhf(c);
+            const float m = to_f(mask[tr]);
+            const bool keep = m > 0.0f;
+            const float hk = keep ? h : h_prev;
+            const float ck = keep ? c : c_prev;
+            const size_t oi = tr * n + unit;
+            y[oi] = from_f<T>(h * m);
+            hnxt[ri] = hk;
+            cbuf[ri] = ck;
+            if (save) {
+              const size_t gi = tr * n4 + unit;
+              G[gi] = from_f<T>(ig);
+              G[gi + n] = from_f<T>(fg);
+              G[gi + 2 * static_cast<size_t>(n)] = from_f<T>(og);
+              G[gi + 3 * static_cast<size_t>(n)] = from_f<T>(gg);
+              hprev[oi] = from_f<T>(h_prev);
+              cprev[oi] = from_f<T>(c_prev);
+            }
+            if (t == steps - 1) {
+              hT[ri] = from_f<T>(hk);
+              cT[ri] = from_f<T>(ck);
+            }
+          }
+        }
+      }
+    }
+    grid.sync();  // h[t] complete everywhere before step t+1 reads it
+  }
+}
+
+template <typename T>
+int launch_wide(const void* xz, const void* mask, const void* h0,
+                const void* c0, const void* Wh, const void* p, void* y,
+                void* hT, void* cT, void* G, void* hprev, void* cprev,
+                float* hbuf, float* cbuf, int steps, int b, int n, int save,
+                cudaStream_t stream) {
+  auto kern = lstm_fwd_wide_kernel<T>;
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (!coop) return cudaErrorNotSupported;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
+                                                    0);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  const int groups = (n + kUnits - 1) / kUnits;
+  // as many blocks as the card holds at once, each walking its groups
+  const int blocks = groups < per_sm * sms ? groups : per_sm * sms;
+
+  const T* a_xz = static_cast<const T*>(xz);
+  const T* a_mask = static_cast<const T*>(mask);
+  const T* a_h0 = static_cast<const T*>(h0);
+  const T* a_c0 = static_cast<const T*>(c0);
+  const T* a_Wh = static_cast<const T*>(Wh);
+  const T* a_p = static_cast<const T*>(p);
+  T* a_y = static_cast<T*>(y);
+  T* a_hT = static_cast<T*>(hT);
+  T* a_cT = static_cast<T*>(cT);
+  T* a_G = static_cast<T*>(G);
+  T* a_hprev = static_cast<T*>(hprev);
+  T* a_cprev = static_cast<T*>(cprev);
+  void* args[] = {&a_xz, &a_mask, &a_h0, &a_c0, &a_Wh, &a_p,
+                  &a_y, &a_hT, &a_cT, &a_G, &a_hprev, &a_cprev,
+                  &hbuf, &cbuf, &steps, &b, &n, &save};
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kern), blocks,
+                                  kThreads, args, 0, stream);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
 // ------------------------------------------------------- cluster route
 namespace lc = lstm_cluster;
 using lc::bf16;
@@ -514,6 +706,27 @@ int dl4j_lstm_fwd(int dtype, const void* xz, const void* mask,
   if (dtype == 1)
     return launch<__nv_bfloat16>(xz, mask, h0, c0, Wh, p, y, hT, cT, G,
                                  hprev, cprev, hb, cb, steps, b, n, save, s);
+  return cudaErrorInvalidValue;
+}
+
+// The wide route (n past the grid kernel's limits): the same arguments
+// and outputs as dl4j_lstm_fwd. Returns a cudaError_t (0 on success).
+int dl4j_lstm_fwd_wide(int dtype, const void* xz, const void* mask,
+                       const void* h0, const void* c0, const void* Wh,
+                       const void* p, void* y, void* hT, void* cT, void* G,
+                       void* hprev, void* cprev, void* hbuf, void* cbuf,
+                       int steps, int b, int n, int save, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto hb = static_cast<float*>(hbuf);
+  auto cb = static_cast<float*>(cbuf);
+  if (steps < 1 || b < 1 || n < 1) return cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_wide<float>(xz, mask, h0, c0, Wh, p, y, hT, cT, G, hprev,
+                              cprev, hb, cb, steps, b, n, save, s);
+  if (dtype == 1)
+    return launch_wide<__nv_bfloat16>(xz, mask, h0, c0, Wh, p, y, hT, cT, G,
+                                      hprev, cprev, hb, cb, steps, b, n,
+                                      save, s);
   return cudaErrorInvalidValue;
 }
 

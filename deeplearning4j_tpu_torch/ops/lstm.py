@@ -23,17 +23,20 @@ Dispatch is by device (ops/registry.py): a CPU tensor runs the plain
 loops; a CUDA tensor launches ``csrc/lstm_fwd.cu`` (op ``lstm_sequence``,
 replaces ``_fwd_kernel``) or ``csrc/lstm_bwd.cu`` (op
 ``lstm_sequence_bwd``, replaces ``_bwd_kernel``), or raises. Each kernel
-has two routes, chosen by dtype and n only (``takes_cluster``): bf16 with
-n a multiple of 64 up to 512 takes the cluster kernels (Wh resident in a
-thread-block cluster of n / 32 blocks, h and dh exchanged through
+has three routes, chosen by dtype and n only (``kernel_route``): bf16
+with n a multiple of 64 up to 512 takes the cluster kernels (Wh resident
+in a thread-block cluster of n / 32 blocks, h and dh exchanged through
 distributed shared memory, the per-step products and dWh on wgmma; each
-call counted once more under ``FWD_SM90`` / ``BWD_SM90``), everything
-else the persistent-grid kernels. A failure raises; nothing falls back.
-What the JAX package sends to XLA and the kernels do not cover (another
-activation pair, a dtype other than f32 and bf16, an n past the grid
-kernels' limits that its Pallas kernel would not take either) takes the
-composed route, decided by ``lstm_route`` before any launch: the plain
-loops on the card's tensors, counted under
+call counted once more under ``FWD_SM90`` / ``BWD_SM90``); an n the
+persistent-grid kernels hold (``grid_fits``) takes them; a wider n that
+the JAX package's Pallas kernel takes runs the wide grid kernels (Wh read
+from global memory, each block walking several unit groups; counted once
+more under ``FWD_WIDE`` / ``BWD_WIDE``). A failure raises; nothing falls
+back. What the JAX package sends to XLA and the kernels do not cover
+(another activation pair, a dtype other than f32 and bf16, an n past the
+grid kernels' limits that its Pallas kernel would not take either) takes
+the composed route, decided by ``lstm_route`` before any launch: the
+plain loops on the card's tensors, counted under
 ``lstm_sequence:composed[<reason>]`` (ops/registry.py).
 Each source note says what bounds the kernel and what its design does
 about it; ``lstm_sequence_cluster_emulation`` and
@@ -62,6 +65,9 @@ BWD_KERNEL = "lstm_bwd"
 # calls on the cluster route (takes_cluster), counted beside the above
 FWD_SM90 = "lstm_fwd_sm90"
 BWD_SM90 = "lstm_bwd_sm90"
+# calls on the wide route (past the grid kernels' limits), counted beside
+FWD_WIDE = "lstm_fwd_wide"
+BWD_WIDE = "lstm_bwd_wide"
 CLUSTER_UNITS = 32   # hidden units a cluster block owns
 CLUSTER_ROWS = 32    # batch rows one cluster walks
 MAX_CLUSTER = 16     # the largest cluster Hopper schedules (non-portable)
@@ -393,14 +399,16 @@ def bwd_launches_per_call(dtype, n) -> int:
 
 # entry point -> (pointers, ints) before the stream
 _ENTRIES = {
-    KERNEL: {"dl4j_lstm_fwd": (14, 4), "dl4j_lstm_fwd_sm90": (12, 4)},
-    BWD_KERNEL: {"dl4j_lstm_bwd": (16, 3), "dl4j_lstm_bwd_sm90": (15, 3)},
+    KERNEL: {"dl4j_lstm_fwd": (14, 4), "dl4j_lstm_fwd_sm90": (12, 4),
+             "dl4j_lstm_fwd_wide": (14, 4)},
+    BWD_KERNEL: {"dl4j_lstm_bwd": (16, 3), "dl4j_lstm_bwd_sm90": (15, 3),
+                 "dl4j_lstm_bwd_wide": (17, 3)},
 }
 
 
 def _bind(kernel):
     """The loaded library of ``kernel`` with its C entry points typed (the
-    grid route's takes the dtype code first), their ``_smem_bytes`` and
+    grid and wide routes' take the dtype code first), their ``_smem_bytes`` and
     ``_sm90_clusters`` queries and ``dl4j_cuda_error_string``."""
     from deeplearning4j_tpu_torch.ops import _build
 
@@ -439,18 +447,20 @@ def _aligned(x):
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def _launch(lib, kernel, cluster, args, dev, what):
-    """Calls ``kernel``'s entry point on ``cluster``'s route (the grid
-    route's with the dtype code ``args[0]``) on the current stream of
-    ``dev``; raises, naming the kernel, the route and ``what``, on any
-    error, and when not one cluster fits on the card."""
-    name = f"dl4j_{kernel}_sm90" if cluster else f"dl4j_{kernel}"
+_ENTRY_SUFFIX = {"cluster": "_sm90", "grid": "", "wide": "_wide"}
+
+
+def _launch(lib, kernel, route, args, dev, what):
+    """Calls ``kernel``'s entry point on ``route`` ("cluster", "grid" or
+    "wide"; the latter two with the dtype code ``args[0]``) on the
+    current stream of ``dev``; raises, naming the kernel, the route and
+    ``what``, on any error, and when not one cluster fits on the card."""
+    name = f"dl4j_{kernel}{_ENTRY_SUFFIX[route]}"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, name)(*args, stream)
     if rc == 0:
         return
-    route = "cluster" if cluster else "grid"
     if rc == -1:
         raise RuntimeError(
             f"{kernel} ({route} route, {what}): not one cluster of "
@@ -496,6 +506,7 @@ SM_SMEM = 233472
 SM_BLOCKS = 8
 SMS = 132
 GRID_UNITS = 8       # hidden units a grid block owns (K1's and K2's kUnits)
+WIDE_DP_SLOTS = 32   # K2's wide chain: phase-A threads a unit (kSlots)
 
 
 def grid_fits(backward: bool, dtype, n) -> bool:
@@ -509,6 +520,28 @@ def grid_fits(backward: bool, dtype, n) -> bool:
         return False
     per_sm = min(SM_BLOCKS, SM_SMEM // smem)
     return SMS * per_sm >= -(-n // GRID_UNITS)
+
+
+#: device memory of the card (H100 SXM, 80 GB): the wide route takes an n
+#: whose Wh and its gradient, [n, 4n] each, fit in it
+CARD_BYTES = 80 * 10**9
+
+
+def wide_fits(dtype, n) -> bool:
+    """Whether the wide route can hold hidden size ``n`` in ``dtype``: Wh
+    and dWh ([n, 4n] each) within the card's memory. The wide kernels'
+    shared memory and grid do not grow with n."""
+    elem = 2 if dtype == torch.bfloat16 else 4
+    return 2 * 4 * n * n * elem <= CARD_BYTES
+
+
+def kernel_route(dtype, n, backward=False) -> str:
+    """Which of K1's (K2's, ``backward``) kernels a call on the kernel
+    route launches, by dtype and n only: "cluster" (``takes_cluster``),
+    "grid" (``grid_fits``) or "wide" (everything wider)."""
+    if takes_cluster(dtype, n):
+        return "cluster"
+    return "grid" if grid_fits(backward, dtype, n) else "wide"
 
 
 def _jax_pallas_takes(dtype, b, n) -> bool:
@@ -533,26 +566,28 @@ def _lstm_route(dtype, b, n, gate_act, cell_act, backward):
         return "kernel", None
     if not _jax_pallas_takes(dtype, b, n):
         return "composed", f"n={n}"
+    if wide_fits(dtype, n):
+        return "kernel", None
     which = "K2 (backward)" if backward else "K1 (forward)"
     raise NotImplementedError(
-        f"the CUDA LSTM {which} grid kernel holds n up to its shared "
-        f"memory and residency limits on the card ({MAX_BLOCK_SMEM} B a "
-        f"block, {SMS} multiprocessors): n={n} in {dtype} is past them, "
-        f"and the JAX package's Pallas kernel takes it (n % 128 == 0, b "
-        f"a sublane multiple), so there is no composed route for it")
+        f"the CUDA LSTM {which} wide kernel needs Wh and its gradient "
+        f"([n, 4n] each) in the card's memory ({CARD_BYTES} bytes): n={n} "
+        f"in {dtype} does not fit")
 
 
 def lstm_route(dtype, b, n, gate_act="sigmoid", cell_act="tanh",
                backward=False) -> str:
     """Where a call on CUDA tensors runs: "kernel" (K1, or K2 for
-    ``backward``) wherever the kernel covers it; "composed" (the plain
-    loop on the card's tensors) exactly where the JAX package's
-    predicate sends the call to XLA and the kernel does not cover it:
-    another activation pair than sigmoid/tanh, a dtype other than bf16
-    and f32, or an n past the grid kernels' limits (``grid_fits``) that
-    the JAX package's Pallas kernel would not take either. An n past
-    those limits that the Pallas kernel takes raises
-    ``NotImplementedError``, naming the limit."""
+    ``backward``; ``kernel_route`` says which of its kernels) wherever a
+    kernel covers it, which is every call the JAX package's Pallas kernel
+    takes; "composed" (the plain loop on the card's tensors) exactly
+    where the JAX package's predicate sends the call to XLA and the
+    kernels do not cover it: another activation pair than sigmoid/tanh,
+    a dtype other than bf16 and f32, or an n past the grid kernels'
+    limits (``grid_fits``) that the Pallas kernel would not take either
+    (n % 128 != 0 or b not a sublane multiple). Only an n whose Wh and
+    dWh do not fit in the card's memory (``wide_fits``) raises
+    ``NotImplementedError``."""
     return _lstm_route(dtype, b, n, gate_act, cell_act, backward)[0]
 
 
@@ -602,9 +637,10 @@ def _check_cuda_inputs(xz_t, h0, c0, Wh, p, mask_t, gate_act, cell_act):
 def lstm_sequence_cuda(xz_t, h0, c0, Wh, p, mask_t=None, *,
                        gate_act="sigmoid", cell_act="tanh",
                        save_residuals=False) -> LstmOut:
-    """Launch csrc/lstm_fwd.cu on the current stream, on the cluster route
-    where ``takes_cluster`` holds (counted once more under ``FWD_SM90``),
-    else on the grid route. Raises on what the kernel does not take; never
+    """Launch csrc/lstm_fwd.cu on the current stream, on the route
+    ``kernel_route`` names: the cluster route (counted once more under
+    ``FWD_SM90``), the grid route, or the wide route (counted once more
+    under ``FWD_WIDE``). Raises on what the kernel does not take; never
     falls back to the plain version. A call ``lstm_route`` sends to the
     composed route runs ``lstm_sequence_torch`` on the card's tensors
     (autograd differentiates it), counted under ``count_route``."""
@@ -621,21 +657,24 @@ def lstm_sequence_cuda(xz_t, h0, c0, Wh, p, mask_t=None, *,
                                    save_residuals=save_residuals)
     T, b, n = _check_cuda_inputs(xz_t, h0, c0, Wh, p, mask_t, gate_act,
                                  cell_act)
-    cluster = takes_cluster(cd, n)
-    out = lstm_fwd_launch(cluster, xz_t, h0, c0, Wh, p, mask_t,
+    route = kernel_route(cd, n)
+    out = lstm_fwd_launch(route, xz_t, h0, c0, Wh, p, mask_t,
                           save_residuals)
+    also = {"cluster": (FWD_SM90,), "wide": (FWD_WIDE,)}.get(route, ())
     registry.count_launch(KERNEL)
-    if cluster:
-        registry.count_launch(FWD_SM90)
+    for name in also:
+        registry.count_launch(name)
     registry.count_flops(KERNEL, fwd_flops(T, b, n))
-    registry.note_kernel(KERNEL, out, (FWD_SM90,) if cluster else ())
+    registry.note_kernel(KERNEL, out, also)
     return out
 
 
-def lstm_fwd_launch(cluster, xz_t, h0, c0, Wh, p, mask_t, save_residuals):
-    """One K1 launch on the route ``cluster`` names, on checked inputs,
-    not counted: the wrapper's, and chip_smoke.py's way to hold and time
-    the grid kernel's bf16 instantiation beside the cluster kernel."""
+def lstm_fwd_launch(route, xz_t, h0, c0, Wh, p, mask_t, save_residuals):
+    """One K1 launch on ``route`` ("cluster", "grid" or "wide"), on
+    checked inputs, not counted: the wrapper's, and chip_smoke.py's way to hold and time a
+    route the wrapper would not take for these inputs (the grid kernel's
+    bf16 instantiation beside the cluster kernel, the wide kernel at an n
+    the grid kernel holds)."""
     T, b, n4 = xz_t.shape
     n, cd, dev = n4 // 4, xz_t.dtype, xz_t.device
     lib = _bind(KERNEL)
@@ -647,7 +686,7 @@ def lstm_fwd_launch(cluster, xz_t, h0, c0, Wh, p, mask_t, save_residuals):
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     outs = [ptr(x) for x in (y, hT, cT, G, hprev, cprev)]
     ints = [T, b, n, int(save_residuals)]
-    if cluster:
+    if route == "cluster":
         ins = [ptr(_aligned(x)) for x in (xz_t, mask_t, h0, c0, Wh, p)]
         args = ins + outs + ints
     else:
@@ -659,7 +698,7 @@ def lstm_fwd_launch(cluster, xz_t, h0, c0, Wh, p, mask_t, save_residuals):
         ins = [ptr(x) for x in (xz_t, mask_t, h0, c0, Wh, p)]
         args = ([_DTYPE_CODES[cd]] + ins + outs + [ptr(hbuf), ptr(cbuf)]
                 + ints)
-    _launch(lib, KERNEL, cluster, args, dev, _Shape(T, b, n, cd))
+    _launch(lib, KERNEL, route, args, dev, _Shape(T, b, n, cd))
     return LstmOut(y, hT, cT, G, hprev, cprev)
 
 
@@ -685,9 +724,10 @@ def _check_cuda_bwd_inputs(residuals, mask_t, Wh, p, dy, dhT, dcT):
 @registry.register("lstm_sequence_bwd", "cuda")
 def lstm_sequence_bwd_cuda(residuals, mask_t, Wh, p, dy, dhT, dcT):
     """Launch csrc/lstm_bwd.cu (the reverse chain, then dWh) on the current
-    stream, on the cluster route where ``takes_cluster`` holds (counted
-    once more under ``BWD_SM90``), else on the grid route. Raises on what
-    the kernel does not take; never falls back to the plain version. A
+    stream, on the route ``kernel_route(backward=True)`` names: the
+    cluster route (counted once more under ``BWD_SM90``), the grid route,
+    or the wide route (counted once more under ``BWD_WIDE``). Raises on
+    what the kernel does not take; never falls back to the plain version. A
     call ``lstm_route(backward=True)`` sends to the composed route runs
     ``lstm_sequence_bwd_torch`` on the card's tensors."""
     _check_on_cuda(residuals[0], "the CUDA LSTM backward kernel")
@@ -698,41 +738,45 @@ def lstm_sequence_bwd_cuda(residuals, mask_t, Wh, p, dy, dhT, dcT):
         registry.count_route("lstm_sequence_bwd", reason)
         return lstm_sequence_bwd_torch(residuals, mask_t, Wh, p, dy, dhT,
                                        dcT)
-    cluster = takes_cluster(cd, n)
-    out = lstm_bwd_launch(cluster, residuals, mask_t, Wh, p, dy, dhT, dcT)
+    route = kernel_route(cd, n, backward=True)
+    out = lstm_bwd_launch(route, residuals, mask_t, Wh, p, dy, dhT, dcT)
+    also = {"cluster": (BWD_SM90,), "wide": (BWD_WIDE,)}.get(route, ())
     registry.count_launch(BWD_KERNEL, bwd_launches_per_call(cd, n))
-    if cluster:
-        registry.count_launch(BWD_SM90)
+    for name in also:
+        registry.count_launch(name)
     registry.count_flops(BWD_KERNEL, bwd_flops(T, b, n))
-    registry.note_kernel(BWD_KERNEL, out, (BWD_SM90,) if cluster else ())
+    registry.note_kernel(BWD_KERNEL, out, also)
     return out
 
 
-def lstm_bwd_launch(cluster, residuals, mask_t, Wh, p, dy, dhT, dcT):
-    """One K2 call on the route ``cluster`` names, on checked inputs, not
-    counted (as lstm_fwd_launch)."""
+def lstm_bwd_launch(route, residuals, mask_t, Wh, p, dy, dhT, dcT):
+    """One K2 call on ``route`` (as ``lstm_fwd_launch``), on checked
+    inputs, not counted."""
     G, hprev, cprev = residuals
     T, b, n4 = G.shape
     n, cd, dev = n4 // 4, G.dtype, G.device
     lib = _bind(BWD_KERNEL)
     empty = lambda *shape: torch.empty(shape, dtype=cd, device=dev)  # noqa: E731
+    f32 = lambda *shape: torch.empty(shape, dtype=torch.float32,  # noqa: E731
+                                     device=dev)
     dxz, dh0, dc0 = empty(T, b, 4 * n), empty(b, n), empty(b, n)
     dWh, dp = empty(n, 4 * n), empty(3, n)
     outs = [x.data_ptr() for x in (dxz, dh0, dc0, dWh, dp)]
-    if cluster:
+    if route == "cluster":
         # per-cluster f32 partials of dp, summed by the second launch
-        part = torch.empty((-(-b // CLUSTER_ROWS), 3, n), dtype=torch.float32,
-                           device=dev)
+        part = f32(-(-b // CLUSTER_ROWS), 3, n)
         ins = [x.data_ptr() for x in (G, cprev, _aligned(hprev), mask_t,
                                       _aligned(Wh), p, dy, dhT, dcT)]
         args = ins + outs + [part.data_ptr(), T, b, n]
     else:
-        # f32 (dh, dc) carry scratch, freed as for the forward
-        dhbuf = torch.empty((b, n), dtype=torch.float32, device=dev)
-        dcbuf = torch.empty((b, n), dtype=torch.float32, device=dev)
+        # the f32 (dh, dc) carry scratch, freed as for the forward, and on
+        # the wide route the peephole sums' slots
+        scratch = [f32(b, n), f32(b, n)]
+        if route == "wide":
+            scratch.append(f32(3, WIDE_DP_SLOTS, n))
         ins = [x.data_ptr() for x in (G, cprev, hprev, mask_t, Wh, p, dy,
                                       dhT, dcT)]
         args = ([_DTYPE_CODES[cd]] + ins + outs
-                + [dhbuf.data_ptr(), dcbuf.data_ptr(), T, b, n])
-    _launch(lib, BWD_KERNEL, cluster, args, dev, _Shape(T, b, n, cd))
+                + [x.data_ptr() for x in scratch] + [T, b, n])
+    _launch(lib, BWD_KERNEL, route, args, dev, _Shape(T, b, n, cd))
     return dxz, dh0, dc0, dWh, dp

@@ -46,7 +46,7 @@ from deeplearning4j_tpu_torch.ops.normalization import synced_batch_stats
 from deeplearning4j_tpu_torch.parallel.mesh import axis_group, axis_size
 
 __all__ = ["apply_mesh", "shard_batch", "shard_step", "shard_step_multi",
-           "use_mesh", "GradAllReduce", "ParallelWrapper"]
+           "use_mesh", "BatchSharding", "GradAllReduce", "ParallelWrapper"]
 
 
 def replicate(mesh, tree, data_axis: str = "data"):
@@ -61,17 +61,53 @@ def replicate(mesh, tree, data_axis: str = "data"):
     return tree
 
 
-def apply_mesh(net, mesh, data_axis: str = "data"):
+def apply_mesh(net, mesh, data_axis: str = "data", model_axis=None,
+               tp_rules=None, replicate_first: bool = True):
     """Replicate the net's params, state (the shift batch norm takes is
     the running mean, so it must agree) and optimizer state over the
-    mesh's data axis from its first rank, and give its train step the
-    meshed collectives (``GradAllReduce``)."""
-    for tree in (net.params, net.state, net.opt_state):
-        if tree:
-            replicate(mesh, tree, data_axis)
-    net._grad_reduce = GradAllReduce(axis_group(mesh, data_axis))
+    mesh's axes from their first rank, and give its train step the
+    meshed collectives: ``GradAllReduce`` over the data axis, or
+    ``NoDataAxis`` on a mesh without one. With ``model_axis`` the params
+    are then placed over that axis (parallel/tensor.py
+    ``apply_tensor_parallel``). A restore that read the same checkpoint
+    on every rank passes ``replicate_first=False``."""
+    if model_axis is not None:
+        from deeplearning4j_tpu_torch.parallel.tensor import check_rules
+        check_rules(tp_rules, net.params)
+    axes = mesh.mesh_dim_names or ()
+    if model_axis is None and data_axis not in axes:
+        raise ValueError(f"the mesh has no data axis {data_axis!r} "
+                         f"(its axes: {axes}) and no model axis was given")
+    if replicate_first:
+        for axis in (data_axis, model_axis):
+            if axis in axes:
+                for tree in (net.params, net.state, net.opt_state):
+                    if tree:
+                        replicate(mesh, tree, axis)
+    net._grad_reduce = (GradAllReduce(axis_group(mesh, data_axis))
+                        if data_axis in axes else NoDataAxis())
     net._mesh = (mesh, data_axis)   # what a checkpoint's layout records
+    net._mesh_detail = {"model_axis": model_axis, "tp_rules": tp_rules}
+    if model_axis is not None:
+        from deeplearning4j_tpu_torch.parallel.tensor import (
+            apply_tensor_parallel)
+        apply_tensor_parallel(net, mesh, data_axis, model_axis, tp_rules)
     return net
+
+
+class NoDataAxis:
+    """The step's collectives on a mesh without a data axis (e.g.
+    ``{"model": 2}``): every rank steps on the whole batch, so the
+    gradient and the score are its own and no collective runs."""
+
+    def share(self, labels, lmask):
+        return None
+
+    def batch_stats(self, share):
+        return contextlib.nullcontext()
+
+    def __call__(self, grads, loss, share):
+        return grads, loss
 
 
 def shard_batch(mesh, data_axis: str, x):
@@ -82,6 +118,36 @@ def shard_batch(mesh, data_axis: str, x):
     if x is None:
         return None
     return torch.as_tensor(x).to(distributed.device())
+
+
+class BatchSharding:
+    """Where a meshed net's batches go, for ``DevicePrefetchIterator(
+    sharding=)`` (the counterpart of the JAX package's data
+    ``NamedSharding``): this rank's share of a global batch's rows on the
+    data axis (rows [i k, (i + 1) k) for data index i of d, k = rows / d;
+    every rank of one model group takes the same rows), on this rank's
+    device."""
+
+    def __init__(self, mesh, data_axis: str = "data"):
+        from deeplearning4j_tpu_torch.parallel import distributed
+        self.device = distributed.device()
+        if data_axis in (mesh.mesh_dim_names or ()):
+            group = axis_group(mesh, data_axis)
+            self.parts, self.index = (dist.get_world_size(group),
+                                      dist.get_rank(group))
+        else:
+            self.parts, self.index = 1, 0
+
+    def rows(self, t):
+        """This rank's rows of the batch leaf ``t``."""
+        if self.parts == 1:
+            return t
+        if t.shape[0] % self.parts:
+            raise ValueError(
+                f"a global batch of {t.shape[0]} rows does not split over "
+                f"the data axis's {self.parts} ranks")
+        k = t.shape[0] // self.parts
+        return t[self.index * k:(self.index + 1) * k]
 
 
 def _pad0(a, pad):
@@ -341,13 +407,11 @@ def _average_into(tree, trees):
 def use_mesh(net, mesh, data_axis: str = "data", model_axis=None,
              tp_rules=None):
     """Both network kinds' ``use_mesh``: record the mesh, drop the
-    captured steps (a meshed step is another graph) and apply it."""
-    if model_axis is not None or tp_rules is not None:
-        raise NotImplementedError(
-            "use_mesh(model_axis=/tp_rules=): tensor parallelism "
-            "(parallel/tensor.py) waits for ROADMAP.md A.5 part 2; data "
-            "parallelism (use_mesh over a data axis) and the supervisor's "
-            "cross-process coordination are ported")
+    captured steps (a meshed step is another graph) and apply it: over a
+    data axis (``apply_mesh``), or with ``model_axis`` over the model axis
+    too (parallel/tensor.py ``apply_tensor_parallel``; a
+    MultiLayerNetwork's, the graph refuses it). ``tp_rules`` without a
+    model axis place nothing, as in the JAX package."""
     net._require_init()
     net._multi_steps = {}
-    return apply_mesh(net, mesh, data_axis)
+    return apply_mesh(net, mesh, data_axis, model_axis, tp_rules)

@@ -2,9 +2,11 @@
 
 A mesh here is a ``torch.distributed.device_mesh.DeviceMesh`` over the
 process group's ranks, one process (and one device) per rank: the axes are
-logical ('data', ...) and each axis carries the process group its
-collectives run in. The default is one 'data' axis over the world: pure
-data parallelism, the reference's only strategy.
+logical ('data', 'model', ...) and each axis carries the process group its
+collectives run in (``axis_group``): on ``{"data": 2, "model": 2}`` ranks
+0 and 1 form one model group and ranks 0 and 2 one data group. The
+default is one 'data' axis over the world: pure data parallelism, the
+reference's only strategy.
 """
 
 from __future__ import annotations

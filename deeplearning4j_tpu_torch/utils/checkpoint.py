@@ -10,8 +10,10 @@ either a complete checkpoint or one that restore and discovery refuse:
   naming each leaf's dtype. The directory is written as ``.tree.tmp`` and
   renamed into place, so the tree commit is atomic.
 - ``layout.json`` next (renamed in): format 2's manifest: the mesh of a
-  meshed net (one device a rank), the process count and index, and every
-  leaf's partition spec, null (every leaf is replicated).
+  meshed net (one device a rank) with its model axis, ``mesh_detail``
+  (the model axis and the tensor-parallel rules), the process count and
+  index, and every leaf's partition spec (null for an unmeshed or
+  data-parallel net, whose leaves are whole on every rank).
 - ``meta.json`` last (renamed in): ``kind``, ``config``, ``iteration``,
   ``epoch``, ``format_version`` and any ``extra_meta``. Its presence
   certifies the checkpoint (``is_valid_checkpoint``).
@@ -38,12 +40,18 @@ Use::
 
 A multi-process group saves with every rank calling ``save_checkpoint``:
 rank 0 writes, the others wait at the two barriers around the meta
-commit (see ``save_checkpoint``).
+commit (see ``save_checkpoint``). A tensor-parallel net's sharded leaves
+are gathered whole first (every rank takes part), so its checkpoint
+holds full arrays, as the JAX package's does, and restores unmeshed or
+onto any model-axis size.
 
-Restoring onto a mesh (``mesh=``, ``model_axis=``, ``tp_rules=``: the
-sharded restore) waits for ROADMAP.md A.5 part 2 and raises
-``NotImplementedError``; a data-parallel net restores unmeshed and then
-takes ``use_mesh(make_mesh())`` (parallel/).
+Restoring onto a mesh (``mesh=``, ``data_axis=``, ``model_axis=``,
+``tp_rules=``) places each leaf directly: the whole arrays are read on
+the host, each rank keeps its shard of every sharded leaf (the specs
+recomputed for the mesh restored onto, never read from the save's
+layout) and moves only that to its device; no replicate-then-
+``use_mesh`` hop. A ComputationGraph restores onto a data axis only
+(its tensor parallelism waits for ROADMAP.md A.5 part 2).
 """
 
 from __future__ import annotations
@@ -96,10 +104,10 @@ class CheckpointSnapshot:
     CPU), which a reader on another thread or stream waits on first."""
 
     __slots__ = ("kind", "conf", "params", "state", "opt_state",
-                 "iteration", "epoch", "ready")
+                 "iteration", "epoch", "ready", "_mesh", "_mesh_detail")
 
     def __init__(self, kind, conf, params, state, opt_state, iteration,
-                 epoch, ready=None):
+                 epoch, ready=None, mesh=None, mesh_detail=None):
         self.kind = kind
         self.conf = conf
         self.params = params
@@ -108,6 +116,8 @@ class CheckpointSnapshot:
         self.iteration = iteration
         self.epoch = epoch
         self.ready = ready
+        self._mesh = mesh                  # (mesh, data_axis) or None
+        self._mesh_detail = mesh_detail    # {model_axis, tp_rules} or None
 
 
 def snapshot_for_checkpoint(net) -> CheckpointSnapshot:
@@ -118,8 +128,8 @@ def snapshot_for_checkpoint(net) -> CheckpointSnapshot:
     def copy(tree):
         return _map(lambda t: t.detach().clone(), tree or {})
 
-    params, state, opt = copy(net.params), copy(net.state), copy(
-        net.opt_state)
+    params, opt = _whole_trees(net)
+    params, state, opt = copy(params), copy(net.state), copy(opt)
     ready = None
     if net.device.type == "cuda":
         ready = torch.cuda.Event()
@@ -127,7 +137,20 @@ def snapshot_for_checkpoint(net) -> CheckpointSnapshot:
     return CheckpointSnapshot(
         kind=_net_kind(net), conf=net.conf, params=params, state=state,
         opt_state=opt, iteration=int(net.iteration), epoch=int(net.epoch),
-        ready=ready)
+        ready=ready, mesh=getattr(net, "_mesh", None),
+        mesh_detail=getattr(net, "_mesh_detail", None))
+
+
+def _whole_trees(net):
+    """(params, opt_state) with every leaf whole: a tensor-parallel net's
+    sharded leaves gathered over its model axis (a collective: every rank
+    calls it), anything else as it is."""
+    tp = getattr(net, "_tp", None)
+    if tp is None or isinstance(net, CheckpointSnapshot):
+        return net.params, net.opt_state
+    return (tp.gathered(net.params, tp.specs),
+            tp.gathered(net.opt_state or {}, tp.opt_specs(net.opt_state
+                                                          or {})))
 
 
 def _host_trees(net):
@@ -188,32 +211,72 @@ def _mesh_json(net):
         return None
     mesh, data_axis = meshed
     names = [str(a) for a in (mesh.mesh_dim_names or ())]
+    detail = getattr(net, "_mesh_detail", None) or {}
     return {"axis_names": names,
             "shape": [int(d) for d in mesh.mesh.shape],
             "device_count": int(mesh.mesh.numel()),
-            "data_axis": data_axis, "model_axis": None}
+            "data_axis": data_axis, "model_axis": detail.get("model_axis")}
+
+
+def _spec_json(spec):
+    return None if spec is None else [
+        list(a) if isinstance(a, tuple) else a for a in spec]
+
+
+def _detail_json(net):
+    """``mesh_detail`` as JSON: the model axis and the rules (exact keys
+    to specs, or [pattern, spec] pairs), or None."""
+    detail = getattr(net, "_mesh_detail", None)
+    if detail is None:
+        return None
+    rules = detail.get("tp_rules")
+    if rules and hasattr(rules, "items"):
+        rules = {k: _spec_json(v) for k, v in rules.items()}
+    elif rules:
+        rules = [[pat, _spec_json(spec)] for pat, spec in rules]
+    return {"model_axis": detail.get("model_axis"), "tp_rules": rules}
 
 
 def _layout_manifest(net, extra_meta) -> dict:
     """Format 2's manifest: the mesh a meshed net was saved on (one
-    device a rank), the process count and index, and every leaf's
-    partition spec, null (replicated: this package shards no leaf)."""
+    device a rank) and, for a meshed net, its ``mesh_detail`` (the model
+    axis and the rules), the process count and index,
+    and every leaf's partition spec as it was placed (null where the net
+    places whole leaves: unmeshed or data-parallel)."""
     from deeplearning4j_tpu_torch.parallel import distributed
+    from deeplearning4j_tpu_torch.parallel.tensor import opt_state_specs
+    detail = getattr(net, "_mesh_detail", None) or {}
+    p_specs = o_specs = None
+    if detail.get("model_axis") is not None:
+        from deeplearning4j_tpu_torch.parallel.tensor import param_specs
+        mesh = net._mesh[0]
+        p_specs = param_specs(net.params, mesh, detail["model_axis"],
+                              detail.get("tp_rules"))
+        o_specs = opt_state_specs(net.opt_state or {}, p_specs)
 
-    def specs(tree):
-        return {_keystr(path): None for path, _ in
-                sorted(_flatten(tree or {}), key=lambda kv: kv[0])}
+    def specs(tree, spec_tree):
+        def at(path):
+            node = spec_tree
+            for k in path:
+                node = node[k]
+            return _spec_json(node)
+        return {_keystr(path): (None if spec_tree is None else at(path))
+                for path, _ in sorted(_flatten(tree or {}),
+                                      key=lambda kv: kv[0])}
 
     info = distributed.process_info()
-    return {
+    out = {
         "format_version": FORMAT_VERSION,
         "mesh": _mesh_json(net),
         "process_count": int(info["process_count"]),
         "process_index": int(info["process_index"]),
-        "param_specs": specs(net.params),
-        "opt_specs": specs(net.opt_state),
+        "param_specs": specs(net.params, p_specs),
+        "opt_specs": specs(net.opt_state, o_specs),
         "datapipe_shards": _datapipe_shard_positions(extra_meta),
     }
+    if out["mesh"] is not None:   # an unmeshed layout is the JAX one
+        out["mesh_detail"] = _detail_json(net)
+    return out
 
 
 def _write_json(path, name, obj, **kw):
@@ -252,6 +315,9 @@ def save_checkpoint(net, path: str, stats=None, extra_meta=None) -> str:
 
 def _save_checkpoint_inner(net, path: str, extra_meta=None) -> str:
     from deeplearning4j_tpu_torch.parallel import distributed
+    if getattr(net, "_tp", None) is not None:
+        # the sharded leaves gathered whole on every rank; rank 0 writes
+        net = snapshot_for_checkpoint(net)
     path = os.path.abspath(path)
     multi = distributed.is_multiprocess()
     writer = distributed.process_info()["process_index"] == 0
@@ -404,18 +470,16 @@ def read_checkpoint_trees(path: str, template, device) -> dict:
     return out
 
 
-def _refuse_mesh(mesh, model_axis, tp_rules):
-    if mesh is not None or model_axis is not None or tp_rules:
-        raise NotImplementedError(
-            "restoring a checkpoint onto a mesh (mesh=, model_axis=, "
-            "tp_rules=) waits for ROADMAP.md A.5 part 2; restore "
-            "unmeshed, then net.use_mesh(parallel.make_mesh()) (data "
-            "parallelism and multi-process saves are ported)")
-
-
 def _restore(path, expect_kind, device, mesh, data_axis, model_axis,
              tp_rules):
-    _refuse_mesh(mesh, model_axis, tp_rules)
+    if expect_kind == "graph" and model_axis is not None:
+        raise NotImplementedError(
+            "restoring a ComputationGraph onto a model axis: a graph's "
+            "tensor parallelism waits for ROADMAP.md A.5 part 2 "
+            "(ComputationGraph tensor parallelism); restore it onto a data "
+            "axis (mesh=, data_axis=) or unmeshed")
+    if model_axis is not None and mesh is None:
+        raise ValueError("model_axis= places leaves on a mesh: pass mesh=")
     path = os.path.abspath(path)
     meta = _checked_meta(path, expect_kind)
     if expect_kind == "graph":
@@ -430,13 +494,31 @@ def _restore(path, expect_kind, device, mesh, data_axis, model_axis,
         from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
         net = MultiLayerNetwork(MultiLayerConfiguration.from_json(
             meta["config"]), device=device).init(structure_only=True)
+    if tp_rules:
+        from deeplearning4j_tpu_torch.parallel.tensor import check_rules
+        check_rules(tp_rules, net.params, f" (checkpoint at {path})")
     # every leaf of the structure-only net is overwritten here, so the
-    # restore draws nothing: its cost is reading the trees
-    trees = read_checkpoint_trees(path, net, net.device)
+    # restore draws nothing: its cost is reading the trees. Onto a model
+    # axis the whole arrays stay on the host until each rank has cut its
+    # shards.
+    sharded = mesh is not None and model_axis is not None
+    trees = read_checkpoint_trees(path, net,
+                                  torch.device("cpu") if sharded
+                                  else net.device)
     net.params, net.state, net.opt_state = (
         trees["params"], trees["state"], trees["opt_state"])
     net.iteration = int(meta["iteration"])
     net.epoch = int(meta["epoch"])
+    if mesh is not None:
+        from deeplearning4j_tpu_torch.parallel.data_parallel import \
+            apply_mesh
+        net._multi_steps = {}
+        apply_mesh(net, mesh, data_axis, model_axis, tp_rules,
+                   replicate_first=False)
+    if sharded:
+        for name in ("params", "state", "opt_state"):
+            setattr(net, name, _map(lambda t: t.to(net.device),
+                                    getattr(net, name) or {}))
     return net
 
 

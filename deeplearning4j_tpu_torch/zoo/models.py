@@ -181,6 +181,24 @@ def gpt_mini_draft(vocab_size: int = 80, width: int = 128,
                     device=device)
 
 
+
+def gpt_mini_tp_rules():
+    """Tensor-parallel placement for ``gpt_mini`` (regex form,
+    parallel/tensor.py match semantics, first match wins), the JAX
+    package's rules: column-parallel QKV and the MLP's up-projection
+    (last axis on "model"), row-parallel output projection and the MLP's
+    down-projection (first axis on "model"); the embeddings shard by
+    columns; the head's W (default rule: columns), norms and biases
+    (replicated) take the default rule."""
+    from deeplearning4j_tpu_torch.parallel.tensor import P
+    return [
+        (r"\['W[qkv]'\]", P(None, "model")),
+        (r"\['W1'\]", P(None, "model")),
+        (r"\['Wo'\]", P("model", None)),
+        (r"\['W2'\]", P("model", None)),
+        (r"\['W(tok|pos)'\]", P(None, "model")),
+    ]
+
 def _conv_bn(g, name: str, n_out: int, kernel, stride, inputs: str,
              activation: str = "relu"):
     g.add_layer(f"{name}_conv",

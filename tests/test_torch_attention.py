@@ -222,7 +222,8 @@ def test_cuda_gate_accepts_what_the_kernel_covers(b, t, dtype, dh):
     ({"q_start": 3}, "q_start"),
     ({"tk": 8}, "tq == tk"),
     ({"dh": 32}, "head size"),
-    ({"dh": 256}, "head size"),
+    # dh 256 and every other multiple of 128 take the wide kernel
+    ({"dh": 192}, "head size"),
 ])
 def test_cuda_gate_refuses_bf16_calls_the_sm90_route_does_not_cover(over,
                                                                     match):
@@ -237,6 +238,15 @@ def test_cuda_gate_refuses_bf16_calls_the_sm90_route_does_not_cover(over,
     # at T = 16 the JAX kernel's 128-row tiles do not fit either: composed
     assert tatt.attention_route(torch.bfloat16, t, tk, dh,
                                 over.get("q_start", 0)) == "composed"
+
+
+@pytest.mark.parametrize("dh", [256, 384, 2944, 5248])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_gate_accepts_every_multiple_of_128_on_the_wide_route(dtype,
+                                                                   dh):
+    q = torch.zeros(1, 16, 1, dh, dtype=dtype)
+    assert tatt.check_flash_inputs(q, q, q, 0) == (1, 16, 1, dh)
+    assert tatt.flash_route(dtype, dh) == "wide"
 
 
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "sm90"),

@@ -284,10 +284,22 @@ def test_kind_mismatch_and_mesh_restore_are_refused(tmp_path):
         tck.restore_computation_graph(mpath, device="cpu")
     with pytest.raises(ValueError, match="graph net, not a multilayer"):
         tck.restore_multi_layer_network(gpath, device="cpu")
-    for kw in ({"mesh": object()}, {"model_axis": "model"},
-               {"tp_rules": {"['layer_0']['W']": None}}):
-        with pytest.raises(NotImplementedError, match="A.5 part 2"):
-            tck.restore_multi_layer_network(mpath, device="cpu", **kw)
+    # restoring onto a mesh is ported (the fleets of
+    # tests/test_torch_tensor_parallel.py); what it refuses, by name:
+    with pytest.raises(NotImplementedError,
+                       match="ComputationGraph tensor parallelism"):
+        tck.restore_computation_graph(gpath, device="cpu", mesh=object(),
+                                      model_axis="model")
+    with pytest.raises(ValueError, match="pass mesh="):
+        tck.restore_multi_layer_network(mpath, device="cpu",
+                                        model_axis="model")
+    with pytest.raises(ValueError, match="layer_7"):
+        tck.restore_multi_layer_network(
+            mpath, device="cpu", tp_rules={"['layer_7']['W']": None})
+    # rules without a mesh place nothing: the unmeshed restore
+    net = tck.restore_multi_layer_network(
+        mpath, device="cpu", tp_rules={"['layer_0']['W']": None})
+    assert_trees_bit_equal(net.params, _mln(POLICIES["f32"]).params)
     # save_checkpoint(stats=) is ported: the save is one checkpoint_barrier
     # phase of the collector, as in the JAX package
     from deeplearning4j_tpu_torch.parallel.stats import (

@@ -290,8 +290,9 @@ def test_every_launch_counter_maps_to_its_library():
     from deeplearning4j_tpu_torch.ops import attention, fused_block, lstm
     from deeplearning4j_tpu_torch.ops import stream_exact as se
     counters = {lstm.KERNEL, lstm.KERNEL + "_sm90", lstm.BWD_KERNEL,
-                lstm.BWD_KERNEL + "_sm90", attention.KERNEL,
-                attention.KERNEL_SM90, se.KERNEL_DENSE, se.KERNEL_MHA,
+                lstm.BWD_KERNEL + "_sm90", lstm.FWD_WIDE, lstm.BWD_WIDE,
+                attention.KERNEL, attention.KERNEL_SM90,
+                attention.KERNEL_WIDE, se.KERNEL_DENSE, se.KERNEL_MHA,
                 se.KERNEL_NORM, *fused_block.SM90_COUNTER,
                 *fused_block.SM90_COUNTER.values()}
     assert counters == set(_build.COUNTER_LIBRARY)

@@ -186,8 +186,8 @@ class _Recorder:
         monkeypatch.setattr(tlstm, "_bind", lambda kernel: self)
         monkeypatch.setattr(tlstm, "_launch", self._launch)
 
-    def _launch(self, lib, kernel, cluster, args, dev, what):
-        self.calls.append((kernel, cluster, args, what))
+    def _launch(self, lib, kernel, route, args, dev, what):
+        self.calls.append((kernel, route, args, what))
 
 
 def _zeros_fwd(T, b, n, dtype, masked=False):
@@ -221,8 +221,9 @@ def test_forward_route_depends_on_dtype_and_n_only(monkeypatch, dtype, n,
     with torch.no_grad():
         out = tlstm.lstm_sequence_cuda(*_zeros_fwd(T, b, n, dtype, masked),
                                        save_residuals=True)
-    (kernel, got_cluster, args, what), = rec.calls
-    assert (kernel, got_cluster) == (tlstm.KERNEL, cluster)
+    (kernel, route, args, what), = rec.calls
+    assert (kernel, route) == (tlstm.KERNEL,
+                               "cluster" if cluster else "grid")
     assert (what.T, what.b, what.n, what.dtype) == (T, b, n, dtype)
     # the cluster entry point takes no dtype code and no carry scratch
     assert len(args) == (16 if cluster else 19)
@@ -232,6 +233,24 @@ def test_forward_route_depends_on_dtype_and_n_only(monkeypatch, dtype, n,
     if cluster:
         want[tlstm.FWD_SM90] = 1
     assert registry.launches() == want
+
+
+@pytest.mark.parametrize("dtype,n", [(torch.float32, 1024),
+                                     (torch.bfloat16, 1152)])
+def test_forward_past_the_grid_limits_takes_the_wide_route(monkeypatch,
+                                                           dtype, n):
+    """Past grid_fits, a call the JAX kernel takes (n % 128 == 0, b a
+    sublane multiple) launches the wide entry point with the grid route's
+    arguments, counted once more under FWD_WIDE."""
+    rec = _Recorder(monkeypatch)
+    registry.reset_launches()
+    with torch.no_grad():
+        out = tlstm.lstm_sequence_cuda(*_zeros_fwd(2, 16, n, dtype, True),
+                                       save_residuals=True)
+    (kernel, route, args, what), = rec.calls
+    assert (kernel, route, len(args)) == (tlstm.KERNEL, "wide", 19)
+    assert args[-4:] == [2, 16, n, 1] and out.y.shape == (2, 16, n)
+    assert registry.launches() == {tlstm.KERNEL: 1, tlstm.FWD_WIDE: 1}
 
 
 def test_cluster_route_reads_wh_and_h0_aligned(monkeypatch):

@@ -283,8 +283,8 @@ class _Recorder:
         monkeypatch.setattr(tlstm, "_bind", lambda kernel: self)
         monkeypatch.setattr(tlstm, "_launch", self._launch)
 
-    def _launch(self, lib, kernel, cluster, args, dev, what):
-        self.calls.append((kernel, cluster, args, what))
+    def _launch(self, lib, kernel, route, args, dev, what):
+        self.calls.append((kernel, route, args, what))
 
 
 @pytest.mark.parametrize("b", [1, 3, 32, 33, 1024])
@@ -302,8 +302,9 @@ def test_backward_route_depends_on_dtype_and_n_only(monkeypatch, dtype, n,
         out = tlstm.lstm_sequence_bwd_cuda(
             (z(T, b, 4 * n), z(T, b, n), z(T, b, n)), z(T, b), z(n, 4 * n),
             z(3, n), z(T, b, n), z(b, n), z(b, n))
-    (kernel, got_cluster, args, what), = rec.calls
-    assert (kernel, got_cluster) == (tlstm.BWD_KERNEL, cluster)
+    (kernel, route, args, what), = rec.calls
+    assert (kernel, route) == (tlstm.BWD_KERNEL,
+                               "cluster" if cluster else "grid")
     assert (what.T, what.b, what.n) == (T, b, n)
     # the cluster entry point: 15 pointers (dp's partials last), no dtype
     # code; the grid one: the code, 16 pointers (two carry scratches)
@@ -317,6 +318,27 @@ def test_backward_route_depends_on_dtype_and_n_only(monkeypatch, dtype, n,
     if cluster:
         want[tlstm.BWD_SM90] = 1
     assert registry.launches() == want
+
+
+@pytest.mark.parametrize("dtype,n", [(torch.float32, 1152),
+                                     (torch.bfloat16, 1920)])
+def test_backward_past_the_grid_limits_takes_the_wide_route(monkeypatch,
+                                                            dtype, n):
+    """Past grid_fits(backward=True), K2 launches the wide entry point:
+    the grid route's arguments and the peephole sums' f32 slots, two
+    device launches, counted once more under BWD_WIDE."""
+    rec = _Recorder(monkeypatch)
+    registry.reset_launches()
+    T, b = 2, 16
+    z = lambda *s: torch.zeros(s, dtype=dtype)  # noqa: E731
+    with torch.no_grad():
+        out = tlstm.lstm_sequence_bwd_cuda(
+            (z(T, b, 4 * n), z(T, b, n), z(T, b, n)), z(T, b), z(n, 4 * n),
+            z(3, n), z(T, b, n), z(b, n), z(b, n))
+    (kernel, route, args, what), = rec.calls
+    assert (kernel, route, len(args)) == (tlstm.BWD_KERNEL, "wide", 21)
+    assert args[-3:] == [T, b, n] and out[3].shape == (n, 4 * n)
+    assert registry.launches() == {tlstm.BWD_KERNEL: 2, tlstm.BWD_WIDE: 1}
 
 
 @pytest.mark.parametrize("carry", [False, True])

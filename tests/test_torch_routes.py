@@ -8,14 +8,12 @@ answers as it does on a TPU, and set beside the port's route function:
 
 - "composed" exactly where the JAX package sends the call to XLA and the
   port's kernel does not cover it;
-- "kernel" wherever the port's kernel covers the call (it took it
-  before: the LSTM's sigmoid/tanh in bf16 or f32 within the grid
-  kernels' limits, K3's q_start 0, tq == tk, dh 64/128 in bf16 or f32,
-  K4-K7's bf16 and f32), even where the JAX package goes to XLA (e.g.
-  gpt_mini's dh = 64);
-- a named ``NotImplementedError`` for the remainder: what the JAX kernel
-  takes and the port's does not (the LSTM past K1/K2's limits at n %
-  128 == 0, attention at dh 256 with T % 128 == 0).
+- "kernel" wherever the JAX kernel takes the call (the LSTM past K1/K2's
+  grid limits at n % 128 == 0 and attention at dh 256 and wider run the
+  wide kernels), and wherever one of the port's kernels covers a call
+  the JAX package sends to XLA (e.g. gpt_mini's dh = 64);
+- nothing raises, but an LSTM whose Wh and its gradient do not fit in
+  the card's memory (``wide_fits``).
 
 The predicates read shapes and dtypes only, so the cases use
 ``jax.ShapeDtypeStruct`` stand-ins.
@@ -60,9 +58,7 @@ def _port(fn, *args):
 
 
 def _expected(jax_takes, kernel_covers):
-    if kernel_covers:
-        return "kernel"
-    return "raises" if jax_takes else "composed"
+    return "kernel" if kernel_covers or jax_takes else "composed"
 
 
 # ------------------------------------------------------------------ LSTM
@@ -71,8 +67,9 @@ LSTM_ACTS = [("sigmoid", "tanh"), ("hardsigmoid", "tanh"),
 
 
 def _lstm_kernel_covers(td, n, acts, backward):
-    """What K1/K2 took before this route existed: sigmoid/tanh in bf16 or
-    f32, on the cluster route or within the grid kernels' limits."""
+    """What K1/K2 took before the composed route existed: sigmoid/tanh in
+    bf16 or f32, on the cluster route or within the grid kernels'
+    limits (the wide route takes what the JAX kernel takes past them)."""
     return (acts == ("sigmoid", "tanh") and td in (torch.float32,
                                                    torch.bfloat16)
             and (tlstm.takes_cluster(td, n)
@@ -97,7 +94,7 @@ def test_lstm_route_beside_the_jax_predicate(dtype, acts):
     if acts != ("sigmoid", "tanh") or dtype in ("float16", "float64"):
         assert seen == {"composed"}
     else:
-        assert "kernel" in seen and "raises" in seen
+        assert seen == {"kernel", "composed"}
 
 
 def test_lstm_route_limits_and_reasons():
@@ -121,20 +118,32 @@ def test_lstm_route_limits_and_reasons():
                              False) == ("composed", "dtype=float16")
     assert tlstm._lstm_route(f32, 20, 1000, "sigmoid", "tanh", False) == (
         "composed", "n=1000")
-    with pytest.raises(NotImplementedError, match="n=2048"):
-        tlstm.lstm_route(f32, 32, 2048)
+    # past the grid kernels' limits, the wide kernels take what the JAX
+    # kernel takes; only an n whose Wh and dWh outgrow the card raises
+    assert tlstm.lstm_route(f32, 32, 2048) == "kernel"
+    assert tlstm.kernel_route(f32, 2048) == "wide"
+    assert tlstm.kernel_route(f32, 2048, backward=True) == "wide"
+    assert tlstm.kernel_route(f32, 1024) == "wide"
+    assert tlstm.kernel_route(f32, 1024, backward=True) == "grid"
+    assert tlstm.kernel_route(bf16, 512) == "cluster"
+    assert tlstm.kernel_route(bf16, 1024) == "grid"
+    assert tlstm.wide_fits(f32, 8192) and not tlstm.wide_fits(f32, 51200)
+    with pytest.raises(NotImplementedError, match="memory"):
+        tlstm.lstm_route(f32, 32, 51200)
 
 
 # ------------------------------------------------------------- attention
 def _attention_kernel_covers(td, tq, tk, dh, q_start):
-    """What K3 took before: ``check_flash_inputs``' gate."""
+    """What K3 took before the composed route existed:
+    ``check_flash_inputs``' gate at dh 64 and 128 (the wide kernel takes
+    what the JAX kernel takes)."""
     q = torch.zeros(1, tq, 1, dh, dtype=td)
     k = torch.zeros(1, tk, 1, dh, dtype=td)
     try:
         tatt.check_flash_inputs(q, k, k, q_start)
-        return True
     except NotImplementedError:
         return False
+    return dh in tatt.KERNEL_HEAD_DIMS
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -159,7 +168,7 @@ def test_attention_route_beside_the_jax_predicate(dtype, q_start):
     if q_start != 0 or dtype in ("float16", "float64"):
         assert seen == {"composed"}
     else:
-        assert seen == {"kernel", "composed", "raises"}
+        assert seen == {"kernel", "composed"}
 
 
 def test_attention_route_keeps_k3_where_the_jax_package_goes_to_xla():
@@ -177,8 +186,59 @@ def test_attention_route_keeps_k3_where_the_jax_package_goes_to_xla():
         "composed", "tq!=tk")
     assert tatt._attention_route(torch.float32, 8, 8, 64, 5) == (
         "composed", "q_start")
-    with pytest.raises(NotImplementedError, match="dh=256"):
-        tatt.attention_route(torch.bfloat16, 256, 256, 256)
+    # dh 256 at T % 128 == 0: the JAX kernel takes it, the wide kernel
+    # runs it in either dtype
+    for td in (torch.bfloat16, torch.float32):
+        assert tatt.attention_route(td, 256, 256, 256) == "kernel"
+        assert tatt.flash_route(td, 256) == "wide"
+    assert tatt.flash_route(torch.bfloat16, 64) == "sm90"
+    assert tatt.flash_route(torch.float32, 128) == "fma"
+    assert tatt._attention_route(torch.float32, 256, 256, 192) == (
+        "composed", "dh=192")
+
+
+# the JAX flash kernel's VMEM budget in head sizes (module docstring of
+# ops/attention.py: 4096 dh + 262144 bytes in f32, 2304 dh + 262144 in
+# bf16 against 12 MiB)
+DH_BUDGET = {"float32": 2944, "bfloat16": 5248}
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["K1", "K2"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lstm_kernel_route_wherever_the_jax_kernel_takes_the_call(
+        dtype, backward):
+    td, jd = DTYPES[dtype]
+    sub = 16 if dtype == "bfloat16" else 8
+    routes = set()
+    for n in range(128, 8192 + 1, 128):
+        for b in (sub, 2 * sub, 32):
+            assert jlstm._pallas_supported(_s((4, b, 4 * n), jd),
+                                           _s((b, n), jd), "sigmoid",
+                                           "tanh"), (b, n)
+            assert tlstm.lstm_route(td, b, n, backward=backward) == \
+                "kernel", (b, n)
+        routes.add(tlstm.kernel_route(td, n, backward))
+    assert "wide" in routes and "grid" in routes
+
+
+@pytest.mark.parametrize("T", [128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_kernel_route_at_every_head_size_in_budget(dtype, T):
+    td, jd = DTYPES[dtype]
+    budget = DH_BUDGET[dtype]
+    for dh in range(128, budget + 128 + 1, 128):
+        shape = _s((1, T, 2, dh), jd)
+        takes = jatt.attention_supported(shape, shape, shape, 0)
+        assert takes == (dh <= budget), dh
+        got = tatt.attention_route(td, T, T, dh)
+        assert got == ("kernel" if takes else "composed"), dh
+        if takes:
+            assert tatt.flash_route(td, dh) == ("fma" if dh == 128
+                                                and dtype == "float32"
+                                                else "sm90" if dh == 128
+                                                else "wide")
+        q = torch.zeros(1, T, 2, dh, dtype=td)
+        assert tatt.check_flash_inputs(q, q, q) == (1, T, 2, dh)
 
 
 def test_attention_inputs_malformed_raise_whatever_the_route():
