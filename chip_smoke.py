@@ -10930,6 +10930,784 @@ def phase_tensor_parallel(card=None):
           phase_s=f"{time.perf_counter() - t_phase:.1f}")
 
 
+# ------------------------------------------- graph tensor parallelism
+# [graph_tensor_parallel] (ROADMAP A.5 part 2, the graph half): ResNet-50
+# at full width (32 x 32, 10 classes, its 13 tails fused), as [meshed_bn]
+# builds it. (a) a 1-rank NCCL mesh {"data": 1, "model": 1}, BF16,
+# b = GTP_A_B, captured; (b) two gloo ranks sharing the card on
+# {"model": 2}, F32, b = GTP_B, GTP_STEPS eager steps; (c) the tails'
+# column-shard shapes (M, K, N/2) at (a)'s batch through K4-K7's sm90
+# path against their plain versions; (d) (b)'s checkpoint restored.
+GTP_A_B = 32
+GTP_B, GTP_STEPS = 8, 3
+# (b) against one process on the same batch, F32. Step 1's score within
+# GTP_SCORE_RTOL relative ([tensor_parallel]'s bound: the same weights).
+# Later scores, and step 1's gradient (the Nesterov velocity after step 1,
+# v = -lr g from zero, leaf by leaf in L2 over its layer's norm, the
+# worst leaf), within GTP_GRAD_RTOL or, where it is larger,
+# MBN_CHAOS_FACTOR times the larger distance of GTP_CHAOS_RUNS
+# one-process runs on the same rows permuted (which changes only the
+# order of their sums) plus MBN_CHAOS_FLOOR: at b = 8 the last stage's
+# BN normalises 8 values a channel and the gradient of the relu /
+# max-pool net is discontinuous, so any reordering (TP's all-reduced dx
+# is one) moves it: a permuted run lies 1.4-2.2% of a layer's norm off
+# at step 1 and 17% off in score at step 2 on the CPU, and on an H100 a
+# 1e-4 bound failed at step 3 with 3.84e-3 (PERF.md). A backward
+# that dropped a rank's half of dx lies O(1) away.
+GTP_SCORE_RTOL, GTP_GRAD_RTOL, GTP_NEXT_RTOL = 1e-4, 1e-4, 1e-5
+GTP_CHAOS_RUNS = 2
+
+
+def _gtp_spy(shapes):
+    """Wrap K4-K7's CUDA wrappers so each call's (kernel, M, K, N) is
+    appended to ``shapes``; the calls go through unchanged."""
+    from deeplearning4j_tpu_torch.ops import fused_block as fb
+    from deeplearning4j_tpu_torch.ops import registry
+    for kern in (fb.STATS, fb.APPLY, fb.BWD_STATS, fb.BWD_APPLY):
+        fn = registry.get(kern, "cuda")
+
+        def spy(x2, W, *rest, _fn=fn, _k=kern):
+            shapes.append((_k, int(x2.shape[0]), int(W.shape[0]),
+                           int(W.shape[1])))
+            return _fn(x2, W, *rest)
+        registry.register(kern, "cuda")(spy)
+
+
+def gtp_rank(port, rank, out_path, ck_dir):
+    """One rank of [graph_tensor_parallel]'s arm (b): a named gloo group
+    of two on the one card, ResNet-50 (F32, 13 fused tails) on
+    {"model": 2}, GTP_STEPS fit_batch steps on the whole batch, the
+    launch shapes of K4-K7, the collectives, the peak memory, then (d)
+    the checkpoint, the continued step and the restore onto the mesh."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import registry
+    from deeplearning4j_tpu_torch.parallel import distributed as D
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+    from deeplearning4j_tpu_torch.utils import checkpoint as tck
+    D.initialize(f"127.0.0.1:{port}", 2, rank, backend="gloo",
+                 timeout_s=300)
+    try:
+        shapes = []
+        _gtp_spy(shapes)
+        mesh = make_mesh({"model": 2})
+        base = torch.cuda.memory_allocated()
+        net = mbn_net("F32", SEED + 2301)
+        net.use_mesh(mesh, model_axis="model")
+        tp = net._tp
+        data = mbn_batches(GTP_STEPS + 1, GTP_B, SEED + 2302)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        registry.reset_launches()
+        calls0, bytes0, secs0 = tp.mg.calls, tp.mg.bytes, tp.mg.seconds
+        step_ms, scores = [], []
+        for ds in data[:GTP_STEPS]:
+            t0 = time.perf_counter()
+            scores.append(float(net.fit_batch(ds)))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if len(scores) == 1:
+                v1 = {k: {"v": dict(s["v"])} for k, s in
+                      net.opt_state.items() if "v" in s}
+                v1 = _map_clone(v1)
+        launches = registry.launches()
+        routes = registry.routes()
+        step_shapes = list(shapes)     # the GTP_STEPS steps' calls only
+        peak = torch.cuda.max_memory_allocated() - base
+        calls = (tp.mg.calls - calls0) / GTP_STEPS
+        sent = (tp.mg.bytes - bytes0) / GTP_STEPS
+        coll_ms = (tp.mg.seconds - secs0) * 1e3 / GTP_STEPS
+        o_specs = tp.opt_specs(net.opt_state)
+        v1 = tp.gathered(v1, {k: {"v": o_specs[k]["v"]} for k in v1})
+        whole = tp.gathered(net.params, tp.specs)
+        local = {f"{k}/{p}": v.detach().cpu() for k, sub in net.params.items()
+                 for p, v in sub.items()}
+        state = {f"{k}/{p}": v.detach().cpu() for k, sub in net.state.items()
+                 for p, v in sub.items()}
+        tck.save_checkpoint(net, ck_dir)
+        cont = float(net.fit_batch(data[GTP_STEPS]))
+        back = tck.restore_computation_graph(ck_dir, mesh=mesh,
+                                             model_axis="model",
+                                             device=D.device())
+        restored_shard = tuple(back.params["s1b0_c_conv"]["W"].shape)
+        rest = float(back.fit_batch(data[GTP_STEPS]))
+        torch.save({"whole": {f"{k}/{p}": v.detach().cpu()
+                              for k, sub in whole.items()
+                              for p, v in sub.items()},
+                    "local": local, "state": state,
+                    "v1": {f"{k}/{p}": v.detach().cpu()
+                           for k, sub in v1.items()
+                           for p, v in sub["v"].items()}}, out_path + ".pt")
+        with open(out_path + ".json", "w") as f:
+            json.dump({"scores": scores, "step_ms": step_ms,
+                       "launches": launches, "routes": routes,
+                       "shapes": step_shapes[:len(step_shapes)
+                                             // GTP_STEPS],
+                       "calls_total": len(step_shapes), "peak_bytes": peak,
+                       "collectives_per_step": calls,
+                       "bytes_per_step": sent,
+                       "collective_ms_per_step": coll_ms,
+                       "cont": cont, "rest": rest,
+                       "restored_shard": restored_shard}, f)
+    finally:
+        D.shutdown()
+
+
+def _map_clone(tree):
+    from deeplearning4j_tpu_torch.nn.updater import _map
+    return _map(lambda t: t.detach().clone(), tree)
+
+
+def gtp_velocity_err(got, one_v1):
+    """{leaf: L2 of (got - want) / L2 of the leaf's layer} over the
+    first-step velocities (``layer/param`` keys)."""
+    layer_norm = {}
+    for k, want in one_v1.items():
+        ln = k.split("/")[0]
+        layer_norm[ln] = layer_norm.get(ln, 0.0) + float(
+            want.double().square().sum())
+    return {k: float((got[k].double() - want.double()).norm())
+            / max(layer_norm[k.split("/")[0]] ** 0.5, 1e-30)
+            for k, want in one_v1.items()}
+
+
+def gtp_one_process(data, perm_seed=None):
+    """One process's F32 run of (b)'s steps: (net, scores, step ms, the
+    first step's velocities by ``layer/param``); ``perm_seed`` permutes
+    each batch's rows (the chaos yardstick)."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    net = mbn_net("F32", SEED + 2301)
+    scores, ms, v1 = [], [], None
+    for ds in data:
+        if perm_seed is not None:
+            idx = torch.randperm(GTP_B, generator=torch.Generator()
+                                 .manual_seed(perm_seed)).cuda()
+            ds = DataSet(ds.features[idx], ds.labels[idx])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores.append(float(net.fit_batch(ds)))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if v1 is None:
+            v1 = {f"{k}/{p}": v.detach().cpu().clone()
+                  for k, s in net.opt_state.items() if "v" in s
+                  for p, v in s["v"].items()}
+    return net, scores, ms, v1
+
+
+def phase_graph_tensor_parallel(card=None):
+    """[graph_tensor_parallel]: arms (a)-(d) above."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    from deeplearning4j_tpu_torch.nn import multistep
+    from deeplearning4j_tpu_torch.ops import fused_block as fb
+    from deeplearning4j_tpu_torch.ops import registry
+    from deeplearning4j_tpu_torch.parallel import distributed, make_mesh
+    from deeplearning4j_tpu_torch.utils import checkpoint as tck
+
+    t_phase = time.perf_counter()
+    kernels = (fb.STATS, fb.APPLY, fb.BWD_STATS, fb.BWD_APPLY)
+    # (a) a model axis of one on a 1-rank NCCL mesh: the captured step is
+    # the unmeshed one bit for bit
+    info = distributed.initialize(f"127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        check(info["backend"] == "nccl", f"group {info}")
+        batches = mbn_batches(MBN_STEPS, GTP_A_B, SEED + 2300)
+        arms = {}
+        for name in ("unmeshed", "meshed", "meshed_again",
+                     "unmeshed_again"):
+            net = mbn_net("BF16", SEED + 2301)
+            if name.startswith("meshed"):
+                net.use_mesh(make_mesh({"data": 1, "model": 1}),
+                             model_axis="model")
+            step_batches = [net._step_batch(ds) for ds in batches]
+            torch.cuda.synchronize()
+            registry.reset_launches()
+            scores, ms, captures = captured_steps(net, step_batches)
+            launches = registry.launches()
+            check(captures == 1, f"{name}: {captures} captures")
+            for kern in fb.SM90_COUNTER.values():
+                check(launches.get(kern, 0) == 13 * MBN_STEPS,
+                      f"{name}: {kern} {launches.get(kern, 0)} in "
+                      f"{MBN_STEPS} steps, expected {13 * MBN_STEPS}")
+            arms[name] = (net, scores, ms, launches)
+        ref, ref_scores, _, ref_launches = arms["unmeshed"]
+        for name in ("meshed", "meshed_again", "unmeshed_again"):
+            net, scores, _, launches = arms[name]
+            check(scores == ref_scores, f"{name} scores {scores} != "
+                  f"{ref_scores}")
+            check(launches == ref_launches, f"{name} launched {launches}, "
+                  f"the unmeshed step {ref_launches}")
+            for tree in ("params", "state", "opt_state"):
+                check(_bits_equal(getattr(net, tree), getattr(ref, tree)),
+                      f"{name}: {tree} differ from the unmeshed captured "
+                      f"step's")
+        replay = {n: statistics.median(arms[n][2][multistep.WARMUP_STEPS
+                                                  + 1:]) for n in arms}
+        del arms, ref, net
+    finally:
+        distributed.shutdown()
+    phase("graph_tensor_parallel", arm="a_mesh_1rank_nccl",
+          mesh=json.dumps({"data": 1, "model": 1}),
+          model=f"resnet50(classes={MBN_CLASSES},{MBN_IMG}x{MBN_IMG},BF16,"
+          f"Nesterovs({MBN_LR},0.9),DL4J_TPU_FUSE_BLOCKS=1)", b=GTP_A_B,
+          steps=MBN_STEPS, bit_equal=True, captures=1,
+          k4_k7_sm90_calls_per_step=13,
+          step_ms_meshed=f"{statistics.mean([replay['meshed'], replay['meshed_again']]):.4f}",
+          step_ms_unmeshed=f"{statistics.mean([replay['unmeshed'], replay['unmeshed_again']]):.4f}",
+          card=card)
+
+    # (b) two ranks on the one card over gloo, {"model": 2}, eager F32
+    root = tempfile.mkdtemp(prefix="graph_tp_")
+    ck_dir = os.path.join(root, "ck", f"step_{GTP_STEPS}")
+    procs = []
+    try:
+        port = _free_port()
+        here = os.path.dirname(os.path.abspath(__file__))
+        for r in range(2):
+            out = os.path.join(root, f"rank{r}")
+            err = open(out + ".err", "w")
+            code = (f"import chip_smoke as c; c.gtp_rank({port}, {r}, "
+                    f"{out!r}, {ck_dir!r})")
+            procs.append((subprocess.Popen(
+                [sys.executable, "-c", code], stderr=err,
+                stdout=subprocess.DEVNULL, cwd=here), out, err))
+        gc.collect()
+        data = mbn_batches(GTP_STEPS + 1, GTP_B, SEED + 2302)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        registry.reset_launches()
+        one, one_scores, one_ms, one_v1 = gtp_one_process(data[:GTP_STEPS])
+        one_peak = torch.cuda.max_memory_allocated() - base
+        one_launches = registry.launches()
+        ref = {f"{k}/{p}": v.detach().cpu().clone()
+               for k, sub in one.params.items() for p, v in sub.items()}
+        ref_state = {f"{k}/{p}": v.detach().cpu().clone()
+                     for k, sub in one.state.items() for p, v in sub.items()}
+        one_cont = float(one.fit_batch(data[GTP_STEPS]))
+        del one
+        chaos_v, chaos_s = 0.0, [0.0] * GTP_STEPS
+        for k in range(GTP_CHAOS_RUNS):
+            _, p_scores, _, p_v1 = gtp_one_process(
+                data[:GTP_STEPS], perm_seed=SEED + 2303 + k)
+            chaos_v = max(chaos_v, max(gtp_velocity_err(p_v1,
+                                                        one_v1).values()))
+            chaos_s = [max(c, abs(a - b) / abs(b)) for c, a, b in
+                       zip(chaos_s, p_scores, one_scores)]
+        res = []
+        for proc, out, err in procs:
+            try:
+                rc = proc.wait(timeout=600)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=60)
+                rc = "timeout"
+            err.close()
+            if rc != 0:
+                with open(err.name) as f:
+                    check(False, f"[graph_tensor_parallel] rank exited "
+                          f"{rc}: {f.read()[-3000:]}")
+            with open(out + ".json") as f:
+                res.append(json.load(f))
+        p0 = torch.load(procs[0][1] + ".pt")
+        p1 = torch.load(procs[1][1] + ".pt")
+        check(all(torch.equal(p0["whole"][k], p1["whole"][k])
+                  for k in p0["whole"]), "the ranks' gathered parameters "
+              "differ")
+        replicated = [k for k in p0["local"]
+                      if p0["local"][k].shape == p0["whole"][k].shape]
+        check(all(torch.equal(p0["local"][k], p1["local"][k])
+                  for k in replicated), "a replicated leaf differs between "
+              "the ranks")
+        check(all(torch.equal(p0["state"][k], p1["state"][k])
+                  for k in p0["state"]), "the ranks' BN state differs")
+        check(res[0]["scores"] == res[1]["scores"], "the ranks' scores "
+              "differ")
+        check(len(res[0]["scores"]) == len(one_scores) == GTP_STEPS,
+              f"scores {res[0]['scores']}")
+        s_err = [abs(a - b) / abs(b)
+                 for a, b in zip(res[0]["scores"], one_scores)]
+        s_bound = [GTP_SCORE_RTOL] + [
+            max(GTP_GRAD_RTOL, MBN_CHAOS_FACTOR * c + MBN_CHAOS_FLOOR)
+            for c in chaos_s[1:]]
+        check(all(e <= b for e, b in zip(s_err, s_bound)), f"scores "
+              f"{res[0]['scores']} vs one process {one_scores}: relative "
+              f"{s_err} > {s_bound} (permuted runs {chaos_s})")
+        v_err = gtp_velocity_err(p0["v1"], one_v1)
+        worst = max(v_err, key=v_err.get)
+        v_bound = max(GTP_GRAD_RTOL, MBN_CHAOS_FACTOR * chaos_v
+                      + MBN_CHAOS_FLOOR)
+        check(v_err[worst] <= v_bound, f"first step's gradient (Nesterov "
+              f"velocity) vs one process: {worst} {v_err[worst]:.3e} > "
+              f"{v_bound:.3e} (permuted runs {chaos_v:.3e})")
+        over_1e4 = sorted(k for k, e in v_err.items() if e > GTP_GRAD_RTOL)
+        params_max = max(float((p0["whole"][k].double() - ref[k].double())
+                               .abs().max()) for k in ref)
+        state_max = max(float((p0["state"][k].double()
+                                - ref_state[k].double()).abs().max())
+                        for k in ref_state)
+        tails = {(M, K, N) for _, M, K, N in res[0]["shapes"]}
+        for r in res:
+            check(r["routes"] == {}, f"a rank's gather routes {r['routes']}")
+            per_step = r["shapes"]
+            for kern in kernels:
+                got = [(M, K, N) for k, M, K, N in per_step if k == kern]
+                check(len(got) == 13, f"a rank called {kern} {len(got)} "
+                      f"times in a step, expected 13")
+            full = {(M, K, 2 * N) for _, M, K, N in per_step}
+            want = {(GTP_B * s * s, K, N) for s, K, N in
+                    ((4, 128, 512), (2, 256, 1024), (1, 512, 2048))}
+            check(full == want, f"K4-K7 launch shapes (M, K, 2 x N) {full},"
+                  f" expected the tails' N/2 shards of {want}")
+            check(r["calls_total"] == 13 * 4 * GTP_STEPS, f"K4-K7 calls "
+                  f"{r['calls_total']} in {GTP_STEPS} steps")
+            for kern in kernels:
+                check(r["launches"].get(kern, 0) > 0 and one_launches.get(
+                    kern, 0) > 0, f"{kern}: device launches "
+                      f"{r['launches'].get(kern)}, one process "
+                      f"{one_launches.get(kern)}")
+        # (d) the checkpoint restored unmeshed in this process
+        back = tck.restore_computation_graph(ck_dir)
+        check(tuple(back.params["s1b0_c_conv"]["W"].shape)
+              == (1, 1, 128, 512), "the checkpoint does not hold whole "
+              "arrays")
+        unmeshed = float(back.fit_batch(data[GTP_STEPS]))
+        del back
+        nxt = {"continued": res[0]["cont"], "restored_mesh": res[0]["rest"],
+               "restored_unmeshed": unmeshed}
+        check(all(abs(v - res[0]["cont"]) <= GTP_NEXT_RTOL
+                  * abs(res[0]["cont"]) for v in nxt.values()),
+              f"(d) next step's score {nxt}")
+        check(tuple(res[0]["restored_shard"]) == (1, 1, 128, 256),
+              f"restored onto the mesh: shard {res[0]['restored_shard']}")
+        nxt["one_process"] = one_cont
+    finally:
+        for proc, _, err in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+            err.close()
+        shutil.rmtree(root, ignore_errors=True)
+    phase("graph_tensor_parallel", arm="b_two_ranks_gloo", backend="gloo",
+          mesh=json.dumps({"model": 2}), policy="F32", b=GTP_B,
+          steps=GTP_STEPS, replicated_and_bn_state_bit_equal=True,
+          scores=json.dumps([round(x, 7) for x in res[0]["scores"]]),
+          one_process_scores=json.dumps([round(x, 7) for x in one_scores]),
+          score_rel_err=json.dumps([float(f"{e:.3e}") for e in s_err]),
+          score_bounds=json.dumps([float(f"{b:.3e}") for b in s_bound]),
+          permuted_score_rel=json.dumps([float(f"{c:.3e}")
+                                         for c in chaos_s]),
+          step1_grad_rel_err=f"{v_err[worst]:.2e}",
+          step1_grad_worst_leaf=worst, step1_grad_bound=f"{v_bound:.2e}",
+          step1_grad_permuted_max=f"{chaos_v:.2e}",
+          leaves_over_1e4=len(over_1e4), leaves=len(v_err),
+          params_vs_one_process_max_abs=f"{params_max:.3e}",
+          bn_state_vs_one_process_max_abs=f"{state_max:.3e}",
+          k4_k7_calls_per_step=13,
+          k4_k7_shapes_mkn=json.dumps(sorted(tails)),
+          collectives_per_step=res[0]["collectives_per_step"],
+          collective_mb_per_step=f"{res[0]['bytes_per_step'] / 1e6:.2f}",
+          collective_ms_per_step=json.dumps(
+              [round(r["collective_ms_per_step"], 2) for r in res]),
+          step_ms_ranks=json.dumps([[round(x, 2) for x in r["step_ms"]]
+                                    for r in res]),
+          step_ms_one_process=json.dumps([round(x, 2) for x in one_ms]),
+          peak_mb_ranks=json.dumps([round(r["peak_bytes"] / 2**20, 1)
+                                    for r in res]),
+          peak_mb_one_process=f"{one_peak / 2**20:.1f}", card=card)
+    phase("graph_tensor_parallel", arm="d_checkpoint", saved_at="model=2",
+          next_scores=json.dumps({k: round(v, 7) for k, v in nxt.items()}),
+          rtol=GTP_NEXT_RTOL, whole_arrays=True,
+          restored_shard=json.dumps(res[0]["restored_shard"]))
+    gtp_column_shards(card)
+    phase("graph_tensor_parallel", arm="done",
+          phase_s=f"{time.perf_counter() - t_phase:.1f}")
+
+
+def gtp_column_shards(card):
+    """(c): each tail's (M, K, N/2) at (a)'s batch, bf16, through K4-K7's
+    sm90 path against their plain versions under [fused_vs_plain]'s
+    limits, with the time, the plain version's time and the bound."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import fused_block as fb
+    from deeplearning4j_tpu_torch.ops import registry
+    counts = {}
+    for s, K, N, tails in ((4, 128, 512, 4), (2, 256, 1024, 6),
+                           (1, 512, 2048, 3)):
+        counts[(GTP_A_B * s * s, K, N // 2)] = tails
+    registry.reset_launches()
+    for (M, K, N), tails in counts.items():
+        t = tail_inputs(M, K, N, torch.bfloat16, seed=2)
+        p = tail_plain(t, True)
+        limits = sum_limits(t, p, True)
+        args = fused_args(t, p, True)
+        names = {fb.STATS: ("s1", "s2"), fb.APPLY: ("y",),
+                 fb.BWD_STATS: ("a", "b"),
+                 fb.BWD_APPLY: ("dx", "dW", "dshortcut")}
+        row = {}
+        with torch.no_grad():
+            for kern, a in args.items():
+                check(kernel_path(kern, a) == "sm90", f"{kern} at "
+                      f"({M},{K},{N}) takes {kernel_path(kern, a)}")
+                cuda_fn = registry.get(kern, "cuda")
+                got = cuda_fn(*a)
+                want = registry.get(kern, "cpu")(*a)
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                worst = 0.0
+                for nm, g, w in zip(names[kern], got, want):
+                    err = float((g.float() - w.float()).abs().max())
+                    lim = (limits[nm][0] if nm in limits
+                           else bf16_tol(w.float()))
+                    check(err <= lim, f"{kern} {nm} at ({M},{K},{N}) bf16: "
+                          f"{err:.3e} > {lim:.3e}")
+                    worst = max(worst, err / lim) if lim else worst
+                ms = cuda_ms_per_launch(lambda: cuda_fn(*a), reps=5)
+                plain_fn = registry.get(kern, "cpu")
+                plain_ms = cuda_ms_per_launch(lambda: plain_fn(*a), reps=3,
+                                              inner=5)
+                flops, nbytes = fused_bound(kern, M, K, N)
+                bound_ms, bound_by = bound(flops, nbytes, "bfloat16")
+                row[kern] = {"ms": round(ms, 5),
+                             "plain_ms": round(plain_ms, 5),
+                             "bound_ms": round(bound_ms, 6),
+                             "bound_by": bound_by,
+                             "worst_err_over_limit": round(worst, 4)}
+        phase("graph_tensor_parallel", arm="c_column_shards", M=M, K=K,
+              N_shard=N, N_whole=2 * N, tails=tails, dtype="bfloat16",
+              path="sm90", rows=json.dumps(row), card=json.dumps(card))
+        del t, p, args
+    launched = registry.launches()
+    for kern in (fb.STATS, fb.APPLY, fb.BWD_STATS, fb.BWD_APPLY):
+        check(launched.get(fb.SM90_COUNTER[kern], 0) > 0,
+              f"(c): {kern} never counted on its sm90 path")
+
+
+# ------------------------------------------------------- mesh serving
+# [mesh_serving] (ROADMAP A.5 part 2, the serving half): two gloo ranks
+# sharing the card on {"model": 2}; rank 0 serves HTTP, driven from this
+# process. zoo.mnist_mlp at its zoo widths (the JAX test's bucket slices)
+# and zoo.vgg16 at 224 x 224 x 3, 1000 classes (buckets of 1 and 4 rows),
+# F32. Each reply is held bit for bit against the unmeshed net.output of
+# the same padded bucket on the card (what an unmeshed server replies),
+# unless the probe below finds that the card's library computes a
+# served layer's column shard in other bits than the whole product's
+# columns: that model's rows are then held to MS_PROBE_RTOL relative and
+# the shapes recorded (ROADMAP C).
+MS_MLP_SLICES = ((0, 1), (1, 4), (4, 11), (11, 40))
+MS_VGG_ROWS = (1, 4)
+MS_REPS = 5
+MS_PROBE_RTOL = 1e-6
+MS_TIMEOUT_S = 120.0
+
+
+def ms_nets(which):
+    from deeplearning4j_tpu_torch import zoo
+    if which == "mlp":
+        return zoo.mnist_mlp(seed=SEED + 2310, dtype=zoo.F32)
+    return zoo.vgg16(seed=SEED + 2311, n_classes=1000, image_size=224,
+                     dtype=zoo.F32)
+
+
+def ms_rank(port, rank, root):
+    """One rank of [mesh_serving]: the meshed server over mnist_mlp, then
+    VGG-16 (the leader writes its url and waits for this process's done
+    file, the follower waits in its loop), the refusals, and a leader
+    that dies with its follower in the loop."""
+    import torch
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.parallel import distributed as D
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+    from deeplearning4j_tpu_torch.serving.server import ModelServer
+    os.environ["DL4J_TPU_COLLECTIVE_TIMEOUT_S"] = str(MS_TIMEOUT_S)
+    D.initialize(f"127.0.0.1:{port}", 2, rank, backend="gloo")
+    mesh = make_mesh({"model": 2})
+    res = {}
+    try:
+        for which in ("mlp", "vgg"):
+            net = ms_nets(which)
+            server = ModelServer(net, port=0, max_batch=32, mesh=mesh,
+                                 warmup=which == "mlp")
+            grp = server._group
+            fwd, mg = grp.forward, grp.forward.model_group
+            log = []
+
+            def logged(feats, _fwd=fwd, _mg=mg, _log=log):
+                s0, t0 = _mg.seconds, time.perf_counter()
+                out = _fwd(feats)
+                torch.cuda.synchronize()
+                _log.append((int(np.shape(feats[0])[0]),
+                             time.perf_counter() - t0, _mg.seconds - s0))
+                return out
+            grp.forward = logged
+            server.start()
+            if server.is_follower:
+                stopped = server.wait(timeout=MS_TIMEOUT_S * 4)
+                res[which] = {"stopped": stopped, "log": log}
+            else:
+                with open(os.path.join(root, f"url_{which}"), "w") as f:
+                    f.write(server.url)
+                done = os.path.join(root, f"done_{which}")
+                t_end = time.monotonic() + 900
+                while not os.path.exists(done):
+                    check(time.monotonic() < t_end, f"no {done}")
+                    time.sleep(0.05)
+                res[which] = {"log": log, "gathers": mg.calls,
+                              "specs": {k: {p: list(s) for p, s in v.items()}
+                                        for k, v in
+                                        fwd.specs.items()}}
+                server.stop()
+            if which == "mlp":
+                res["refusals"] = ms_refusals(server, net, mesh)
+            del net, server, grp, fwd
+            torch.cuda.empty_cache()
+        # the leader dies with its follower in the loop
+        net = ms_nets("mlp")
+        server = ModelServer(net, port=0, max_batch=8, mesh=mesh).start()
+        if not server.is_follower:
+            server.predict(np.zeros((1, 784), np.float32))
+            with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+                json.dump(res, f)
+            os._exit(0)
+        t0 = time.monotonic()
+        try:
+            server.wait(timeout=MS_TIMEOUT_S * 2)
+            res["lost"] = ["none", time.monotonic() - t0, ""]
+        except Exception as e:  # what the follower raised, by type
+            res["lost"] = [type(e).__name__, time.monotonic() - t0,
+                           f"{getattr(e, 'lost_ranks', None)} {e}"[:400]]
+    finally:
+        if rank != 0:
+            with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+                json.dump(res, f)
+    os._exit(0)
+
+
+def ms_refusals(server, net, mesh):
+    """The JAX package's refusals on the card: a graph, compute_dtype=,
+    hot_swap on a meshed server; (type, message) of each."""
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.serving.server import ModelServer
+    out = {}
+    graph = zoo.resnet18(seed=SEED, dtype=zoo.F32)
+    for name, fn in (
+            ("graph", lambda: ModelServer(graph, port=0, mesh=mesh)),
+            ("compute_dtype", lambda: ModelServer(
+                net, port=0, mesh=mesh, compute_dtype="bfloat16")),
+            ("hot_swap", lambda: server.hot_swap(net=net))):
+        try:
+            fn()
+            out[name] = None
+        except Exception as e:
+            out[name] = [type(e).__name__, str(e)[:200]]
+    return out
+
+
+def ms_probe(net, rows_list):
+    """For each served layer with a column-sharded weight, at each bucket
+    size: the largest difference between this rank's shard's product and
+    the whole product's columns on the card (cuBLAS for dense, cuDNN for
+    convolutions), on seeded inputs of the layer's input shape."""
+    import torch
+    from deeplearning4j_tpu_torch.parallel.inference import (
+        serving_param_specs)
+    specs = serving_param_specs(net.params, {"model": 2}, "model",
+                                layers=net.layers)
+    rng = np.random.default_rng(SEED + 2312)
+    out = []
+    for layer in net.layers:
+        ps = net.params.get(layer.name, {})
+        sharded = specs.get(layer.name, {}).get("W", ())
+        if "W" not in ps or not sharded or sharded[-1] != "model":
+            continue
+        W = ps["W"]
+        it = layer.input_type
+        x_shape = ((W.shape[0],) if W.dim() == 2
+                   else (it.height, it.width, it.channels))
+        n = W.shape[-1] // 2
+        for rows in rows_list:
+            x = torch.from_numpy(rng.normal(size=(rows,) + x_shape)
+                                 .astype(np.float32)).cuda()
+            with torch.inference_mode():
+                whole = layer.apply({"W": W}, {}, x)[0]
+                halves = [layer.apply({"W": W[..., h * n:(h + 1) * n]
+                                       .contiguous()}, {}, x)[0]
+                          for h in range(2)]
+            torch.cuda.synchronize()
+            diff = max(float((halves[h] - whole[..., h * n:(h + 1) * n])
+                             .abs().max()) for h in range(2))
+            out.append({"layer": layer.name, "type": layer.conf.layer_type,
+                        "W": list(W.shape), "rows": rows,
+                        "max_abs_diff": diff})
+    return out
+
+
+def _ms_post(url, rows):
+    import urllib.request
+    body = json.dumps({"features": rows.tolist()}).encode()
+    req = urllib.request.Request(url + "/predict", data=body,
+                                 headers={"Content-Type":
+                                          "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=300) as r:
+        out = np.asarray(json.loads(r.read())["predictions"], np.float32)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_mesh_serving(card=None):
+    """[mesh_serving]: the two models through the meshed server, each
+    bucket's replies against the unmeshed output on the card, the probe,
+    the refusals and the lost leader."""
+    import shutil
+    import tempfile
+
+    import torch
+    from deeplearning4j_tpu_torch.serving.batcher import next_bucket
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="mesh_serving_")
+    procs = []
+    try:
+        port = _free_port()
+        here = os.path.dirname(os.path.abspath(__file__))
+        for r in range(2):
+            err = open(os.path.join(root, f"rank{r}.err"), "w")
+            code = f"import chip_smoke as c; c.ms_rank({port}, {r}, {root!r})"
+            procs.append((subprocess.Popen(
+                [sys.executable, "-c", code], stderr=err,
+                stdout=subprocess.DEVNULL, cwd=here), err))
+        rng = np.random.default_rng(SEED + 2313)
+        inputs = {"mlp": rng.normal(size=(40, 784)).astype(np.float32),
+                  "vgg": rng.normal(0.0, 50.0, size=(4, 224, 224, 3))
+                  .astype(np.float32)}
+        slices = {"mlp": MS_MLP_SLICES,
+                  "vgg": tuple((0, n) for n in MS_VGG_ROWS)}
+        report = {}
+        for which in ("mlp", "vgg"):
+            net = ms_nets(which)
+            x = inputs[which]
+            buckets = sorted({next_bucket(hi - lo, 32, 2)
+                              for lo, hi in slices[which]})
+            probe = ms_probe(net, buckets)
+            differs = [p for p in probe if p["max_abs_diff"] > 0]
+            whole40 = net.output(torch.from_numpy(x).cuda()).float().cpu() \
+                .numpy()
+            url_file = os.path.join(root, f"url_{which}")
+            t_end = time.monotonic() + 600
+            while not os.path.exists(url_file):
+                check(time.monotonic() < t_end and all(
+                    p.poll() is None for p, _ in procs),
+                    f"[mesh_serving] no leader url for {which}")
+                time.sleep(0.05)
+            url = open(url_file).read()
+            rows = []
+            for lo, hi in slices[which]:
+                n = hi - lo
+                b = next_bucket(n, 32, 2)
+                pad = np.zeros((b,) + x.shape[1:], np.float32)
+                pad[:n] = x[lo:hi]
+                want = net.output(torch.from_numpy(pad).cuda()).float() \
+                    .cpu().numpy()[:n]
+                times, got = [], None
+                for _ in range(MS_REPS):
+                    got, ms = _ms_post(url, x[lo:hi])
+                    times.append(ms)
+                bits = bool(np.array_equal(got, want))
+                rel = float(np.abs(got - want).max()
+                            / max(float(np.abs(want).max()), 1e-30))
+                if differs:
+                    check(rel <= MS_PROBE_RTOL, f"{which} rows {lo}:{hi}: "
+                          f"{rel:.3e} > {MS_PROBE_RTOL} (probe: {differs})")
+                else:
+                    check(bits, f"{which} rows {lo}:{hi} differ from the "
+                          f"unmeshed output ({rel:.3e} relative) though the "
+                          f"probe found every shard's product bit-equal")
+                p50 = statistics.median(times)
+                rows.append({"rows": n, "bucket": b, "bit_equal": bits,
+                             "rel_err": rel, "p50_ms": round(p50, 3),
+                             "rows_per_s": round(n / p50 * 1e3, 2),
+                             "equal_to_whole_batch_output": bool(
+                                 np.array_equal(got, whole40[lo:hi]))})
+            open(os.path.join(root, f"done_{which}"), "w").write("1")
+            report[which] = {"rows": rows, "probe": probe,
+                             "probe_differs": differs}
+            del net
+            torch.cuda.empty_cache()
+        res = []
+        for r, (proc, err) in enumerate(procs):
+            try:
+                rc = proc.wait(timeout=900)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=60)
+                rc = "timeout"
+            err.close()
+            if rc != 0:
+                with open(err.name) as f:
+                    check(False, f"[mesh_serving] rank exited {rc}: "
+                          f"{f.read()[-3000:]}")
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+    finally:
+        for proc, err in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+            err.close()
+        shutil.rmtree(root, ignore_errors=True)
+    lead, follow = res
+    for which in ("mlp", "vgg"):
+        check(follow[which]["stopped"], f"{which}: the follower did not "
+              f"end on the leader's stop")
+        check([e[0] for e in lead[which]["log"]]
+              == [e[0] for e in follow[which]["log"]],
+              f"{which}: the ranks ran other buckets")
+        gather_ms = {}
+        for n_rows, fwd_s, gather_s in lead[which]["log"]:
+            gather_ms.setdefault(n_rows, []).append(
+                (fwd_s * 1e3, gather_s * 1e3))
+        for row in report[which]["rows"]:
+            g = gather_ms.get(row["bucket"], [])
+            row["forward_ms_p50"] = round(statistics.median(
+                [a for a, _ in g]), 3) if g else None
+            row["gather_ms_p50"] = round(statistics.median(
+                [b for _, b in g]), 3) if g else None
+        phase("mesh_serving", model=which, backend="gloo",
+              mesh=json.dumps({"model": 2}), policy="F32",
+              buckets=json.dumps(report[which]["rows"]),
+              probe_max_abs_diff=json.dumps(
+                  {f"{p['layer']}@{p['rows']}": p["max_abs_diff"]
+                   for p in report[which]["probe"]}),
+              probe_bit_equal=not report[which]["probe_differs"],
+              rows_held_to=("bits" if not report[which]["probe_differs"]
+                            else f"{MS_PROBE_RTOL} relative"),
+              sharded_layers=json.dumps(sorted(
+                  k for k, v in lead[which]["specs"].items()
+                  if any(s and s[-1] == "model" for s in v.values()))),
+              card=card)
+    ref = lead["refusals"]
+    for name, text in (("graph", "serve ComputationGraph models "
+                        "replicated"), ("compute_dtype", "bit-identity"),
+                       ("hot_swap", "mesh serving shards params")):
+        got = ref.get(name)
+        check(got is not None and got[0] == "ValueError" and text in got[1],
+              f"refusal {name}: {got}")
+    kind, waited, msg = follow["lost"]
+    check(kind in ("CollectiveTimeoutError", "PeerLostError"),
+          f"a follower whose leader died: {follow['lost']}")
+    check(waited <= MS_TIMEOUT_S, f"the follower raised after {waited:.1f} "
+          f"s, past its timeout {MS_TIMEOUT_S}")
+    phase("mesh_serving", arm="refusals_and_lost_leader",
+          refusals=json.dumps({k: v[0] for k, v in ref.items()}),
+          follower_error=kind, follower_raised_after_s=f"{waited:.3f}",
+          timeout_s=MS_TIMEOUT_S, follower_message=json.dumps(msg[:160]),
+          phase_s=f"{time.perf_counter() - t_phase:.1f}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -11016,6 +11794,16 @@ def main() -> int:
         phase_tensor_parallel(card)
         print(ok_line, flush=True)
         return 0
+    if "--graph-tensor-parallel" in sys.argv[1:]:
+        card = phase_device()
+        phase_fused_vs_plain()      # K4-K7, the kernels the phase's path runs
+        phase_graph_tensor_parallel(card)
+        print(ok_line, flush=True)
+        return 0
+    if "--mesh-serving" in sys.argv[1:]:
+        phase_mesh_serving(phase_device())
+        print(ok_line, flush=True)
+        return 0
     for flag, only in (("--front-door", phase_front_door),
                        ("--cold-start", phase_cold_start),
                        ("--dashboard", phase_dashboard),
@@ -11076,6 +11864,8 @@ def main() -> int:
     phase_coordinated(card)
     kernels += phase_wide_kernels(card)
     phase_tensor_parallel(card)
+    phase_graph_tensor_parallel(card)
+    phase_mesh_serving(card)
     phase_stream_split()
     profiler_probe("after_all", profiles=5, names=names)
     phase("profiler", pause_s=PROFILE_PAUSE_S, **PROFILES)

@@ -71,9 +71,11 @@ def model_fingerprint(net) -> str:
 
 
 def _mesh_axes(mesh) -> Optional[dict]:
+    """{axis: size} of a DeviceMesh (parallel/mesh.py), or None."""
     if mesh is None:
         return None
-    return {str(k): int(v) for k, v in dict(mesh.shape).items()}
+    return {str(k): int(v) for k, v in zip(mesh.mesh_dim_names,
+                                           mesh.mesh.shape)}
 
 
 def toolchain(device) -> dict:

@@ -44,22 +44,21 @@ def precompile_serving(net, *, cache_dir: str, max_batch: int = 1024,
     """Build the serving libraries into *cache_dir*, warm the bucket
     ladder (and ``decode_engine``'s ladders) and return the manifest
     ``serving`` entry. Raises ValueError when the row shapes cannot be
-    inferred and ``input_shapes`` was not given; ``mesh`` is refused as
-    the server refuses it (mesh serving, ROADMAP.md A.5 part 2)."""
+    inferred and ``input_shapes`` was not given. With ``mesh`` every rank
+    of the mesh calls it: each builds its libraries, the leader warms the
+    meshed ladder while the followers run its buckets (serving/server.py),
+    and the entry records ``mesh_axes``."""
     from deeplearning4j_tpu_torch.serving.batcher import bucket_ladder
-    from deeplearning4j_tpu_torch.serving.server import NOT_PORTED, \
-        ModelServer
+    from deeplearning4j_tpu_torch.serving.server import ModelServer
 
-    if mesh is not None or data_axis is not None or tp_rules is not None:
-        raise NotImplementedError(
-            f"precompile_serving(mesh=...): {NOT_PORTED['mesh']}")
     _cache.configure(cache_dir)
     libs = _build.libraries_for(net, decode=decode_engine is not None)
     _build_on_card(net, libs)
     server = ModelServer(net, port=0, max_batch=max_batch, warmup=False,
                          input_shapes=input_shapes,
                          compute_dtype=compute_dtype, replicas=replicas,
-                         model_axis=model_axis)
+                         mesh=mesh, model_axis=model_axis,
+                         data_axis=data_axis, tp_rules=tp_rules)
     try:
         shapes = server._infer_row_shapes()
         if shapes is None:
@@ -67,7 +66,10 @@ def precompile_serving(net, *, cache_dir: str, max_batch: int = 1024,
                 "cannot infer serving row shapes from the model "
                 "configuration — pass input_shapes explicitly")
         mb = server._batcher
-        server._fleet.warm(shapes)
+        if server.is_follower:
+            server._group.follow()
+        else:
+            server._fleet.warm(shapes)
         if decode_engine is not None:
             decode_engine.warm()
         return {
@@ -76,12 +78,14 @@ def precompile_serving(net, *, cache_dir: str, max_batch: int = 1024,
             "max_batch": int(mb.max_batch),
             "min_batch": int(mb.min_batch),
             "compute_dtype": server.serving_compute_dtype,
-            "mesh_axes": None,
+            "mesh_axes": _manifest._mesh_axes(mesh),
             "decode": decode_engine is not None,
             "libraries": _manifest.library_files(libs),
         }
     finally:
         server._fleet.stop()
+        if server._group is not None and not server.is_follower:
+            server._group.stop()
 
 
 def precompile_fit(net, *, cache_dir: str, batch: int = 32,

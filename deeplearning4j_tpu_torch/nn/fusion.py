@@ -19,6 +19,14 @@ default: ``DL4J_TPU_FUSE_BLOCKS=1``, read when the graph is initialised,
 turns it on. A matched tail runs ops/fused_block.py's
 ``conv1x1_bn_add_relu``: the plain passes for CPU tensors, K4-K7 for CUDA
 tensors, never a composed fallback.
+
+On a mesh's model axis (parallel/tensor.py) a tail whose conv W is
+sharded on its output channels runs K4-K7 on this rank's N/m columns:
+x whole, gamma, beta, the shift and the shortcut cut to the same
+columns. K4's and K6's column sums are then exact on the rank's own
+channels; K5's output and the batch statistics are gathered on the
+channel axis; K7's dx, a partial sum over the columns, is all-reduced
+over the model group, and dW is the rank's own.
 """
 
 from __future__ import annotations
@@ -26,6 +34,8 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass
 from typing import Dict
+
+import torch
 
 from deeplearning4j_tpu_torch.nn.conf.layers import ActivationLayer
 from deeplearning4j_tpu_torch.nn.conf.layers_conv import (BatchNorm,
@@ -163,10 +173,27 @@ def execute_fused_tail(fb: FusedBlockTail, graph, params, state, acts):
     gamma, beta = bn_layer.gamma_beta(params.get(fb.bn, {}), W.shape[-1],
                                       x.device)
     bn_state = state[fb.bn]
+    shift = bn_state["mean"]
+    tp = conv_layer.tp if (conv_layer.tp is not None
+                           and conv_layer.tp.rendered) else None
+    if tp is not None:
+        # K4-K7 on this rank's N/m columns of W: the whole x (its partial
+        # dx all-reduced), the columns of gamma, beta, the shift and the
+        # shortcut (their gradients gathered whole)
+        bn_tp = bn_layer.tp
+        x = tp.copy(x)
+        gamma = bn_tp.columns(gamma, "gamma", 0)
+        beta = bn_tp.columns(beta, "beta", 0)
+        shift = tp.mg.slice(shift, 0)
+        sc = tp.columns(sc.expand(tuple(x.shape[:-1]) + (sc.shape[-1],)))
 
     y, mean, var = registry.get("conv1x1_bn_add_relu", x.device)(
-        x.to(cd), W, gamma, beta, sc, shift=bn_state["mean"],
-        eps=bn_conf.eps)
+        x.to(cd), W, gamma, beta, sc, shift=shift, eps=bn_conf.eps)
+    if tp is not None:
+        # K5's channels gathered; the batch statistics too, so every
+        # rank's running statistics stay whole and equal
+        y = tp.gather(y)
+        mean, var = tp.mg.all_gather(torch.stack([mean, var]), 1).unbind(0)
 
     d = bn_conf.decay
     sd = bn_layer.param_dtype

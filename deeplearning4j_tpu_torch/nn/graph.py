@@ -30,8 +30,12 @@ after the batch. ``rnn_time_step`` streams the same carry from call to
 call. The LSTM vertices run K1 (forward) and K2 (backward) on the card.
 
 ``resilient_fit`` supervises training (resilience/), and ``pretrain``
-trains the pretrainable layer vertices. Not ported (ROADMAP.md): mesh
-placement.
+trains the pretrainable layer vertices. ``use_mesh`` trains over a
+mesh's data axis and, with ``model_axis=``, its model axis
+(parallel/tensor.py): the walk hands each layer vertex its params
+through nn/multilayer.py's ``layer_params``, so a vertex no rendering
+covers takes the counted gather route, and the fused tails run on
+column shards (nn/fusion.py).
 """
 
 from __future__ import annotations
@@ -61,6 +65,7 @@ from deeplearning4j_tpu_torch.observability import distributed as _obs_dist
 from deeplearning4j_tpu_torch.observability import goodput as _goodput
 from deeplearning4j_tpu_torch.observability import metrics as _obs_metrics
 from deeplearning4j_tpu_torch.observability.trace import get_tracer
+from deeplearning4j_tpu_torch.parallel.tensor import gather_route
 
 
 class ComputationGraph:
@@ -88,28 +93,21 @@ class ComputationGraph:
         self._fusion_interior = frozenset()
         self._multi_steps = {}     # batch signature -> multistep.StepGraph
         self._grad_reduce = None   # the meshed step's all-reduce
+        self._tp = None            # parallel/tensor.py, on a model axis
         self.last_run_report = None  # the last fit's goodput RunReport
         self.flops_per_step = None
         self._flops_key = None
 
     def use_mesh(self, mesh, data_axis: str = "data",
                  model_axis: str | None = None, tp_rules=None):
-        """Data-parallel training over a mesh (parallel/mesh.py
-        ``make_mesh``): parameters replicated over ``data_axis``, each rank
-        steps on its local batch, one gradient all-reduce a step (on NCCL
-        inside the captured step). ``model_axis`` (tensor parallelism of a
-        graph: conv channel shards, K4-K7 on column shards, batch norm
-        over channel shards) waits for ROADMAP.md A.5 part 2
-        (ComputationGraph tensor parallelism) and raises; a
-        MultiLayerNetwork takes it."""
-        if model_axis is not None:
-            raise NotImplementedError(
-                "ComputationGraph.use_mesh(model_axis=): tensor parallelism "
-                "of a graph (conv channel shards, K4-K7 on column shards, "
-                "batch norm over channel shards) waits for ROADMAP.md A.5 "
-                "part 2 (ComputationGraph tensor parallelism); a "
-                "MultiLayerNetwork takes model_axis=, and a graph trains "
-                "data-parallel over a data axis")
+        """Training over a mesh (parallel/mesh.py ``make_mesh``):
+        parameters replicated over ``data_axis``, each rank steps on its
+        local batch, one gradient all-reduce a step (on NCCL inside the
+        captured step). With ``model_axis`` the params are also placed
+        over that axis (parallel/tensor.py): a conv's W on its output
+        channels, a fused tail's K4-K7 on this rank's column shards, batch
+        norm and the element-wise, pooling and merge vertices on whole
+        activations; ``tp_rules`` override the placement."""
         from deeplearning4j_tpu_torch.parallel.data_parallel import \
             use_mesh
         return use_mesh(self, mesh, data_axis, model_axis, tp_rules)
@@ -288,7 +286,7 @@ class ComputationGraph:
                 saved_inputs[name] = (xs, in_masks)
             if self.vertex_kind[name] == "layer":
                 layer = self._layer_by_name[name]
-                y, s_new = layer.apply(params.get(name, {}),
+                y, s_new = layer.apply(_mln.layer_params(layer, params),
                                        state.get(name, {}), xs[0],
                                        train=train, gen=gen,
                                        mask=in_masks[0])
@@ -352,8 +350,10 @@ class ComputationGraph:
             for v in span:
                 xs = [local[src] for src in self.conf.vertex_inputs[v]]
                 if self.vertex_kind[v] == "layer":
-                    y, s_new = self._layer_by_name[v].apply(
-                        params.get(v, {}), state.get(v, {}), xs[0],
+                    layer = self._layer_by_name[v]
+                    y, s_new = layer.apply(
+                        _mln.layer_params(layer, params), state.get(v, {}),
+                        xs[0],
                         train=True, gen=gen, mask=None)
                     if s_new:
                         ns[v] = s_new
@@ -403,16 +403,17 @@ class ComputationGraph:
                     f"(Output/RnnOutput/LossLayer)")
             xs, _ = saved[name]
             lm = None if lmasks is None else lmasks[i]
+            lp = _mln.layer_params(layer, params)
             if getattr(layer, "loss_uses_state", False):
                 s_out = state.get(name, {})
-                l = layer.loss(params.get(name, {}), xs[0], labels[i],
-                               train=train, gen=gen, mask=lm, state=s_out)
+                l = layer.loss(lp, xs[0], labels[i], train=train, gen=gen,
+                               mask=lm, state=s_out)
                 if train:
                     new_state[name] = layer.update_centers(
                         s_out, xs[0].detach(), labels[i], mask=lm)
             else:
-                l = layer.loss(params.get(name, {}), xs[0], labels[i],
-                               train=train, gen=gen, mask=lm)
+                l = layer.loss(lp, xs[0], labels[i], train=train, gen=gen,
+                               mask=lm)
             total = l if total is None else total + l
         for layer in self.layers:
             if layer.name in params:
@@ -713,7 +714,7 @@ class ComputationGraph:
                     else self.state)
         set_streaming(self.layers, True)
         try:
-            with torch.inference_mode():
+            with torch.inference_mode(), gather_route(self):
                 acts, _, _, new_state = self._walk(
                     self.params, state_in, inputs, train=False,
                     gen=self._gen, fmasks=fmasks)

@@ -89,7 +89,8 @@ class Layer:
         l1*sum|W|; biases take l1_bias/l2_bias), in the param dtype. On a
         model axis a sharded leaf's terms are this rank's part: they are
         summed apart and all-reduced over the model group
-        (``LayerTP.sum_sharded``)."""
+        (``LayerTP.sum_sharded``), only where a sharded leaf has a term
+        (the coefficients, and so the choice, are every rank's)."""
         leaves = list(_named_leaves(params))
         device = leaves[0][1].device if leaves else "cpu"
         total = torch.zeros((), dtype=self.param_dtype, device=device)
@@ -100,6 +101,7 @@ class Layer:
         l2 = float(self.resolve("l2", 0.0) or 0.0)
         l1b = float(self.resolve("l1_bias", 0.0) or 0.0)
         l2b = float(self.resolve("l2_bias", 0.0) or 0.0)
+        shard_terms = False    # one rule for every rank of the group
         for (pname, w), shard in zip(leaves, sharded):
             is_bias = pname in ("b", "bias", "beta")
             a1, a2 = (l1b, l2b) if is_bias else (l1, l2)
@@ -115,9 +117,10 @@ class Layer:
                 continue
             if shard:
                 part = part + term
+                shard_terms = True
             else:
                 total = total + term
-        if any(sharded):
+        if shard_terms:
             total = total + self.tp.sum_sharded(part)
         return total
 

@@ -10,6 +10,12 @@ under its gates and flags, both off by default: space-to-depth for an
 odd kxk/s2 conv (k >= 5) on at most 8 channels (``DL4J_TPU_S2D_STEM=1``),
 and an unpadded strided 1x1 as slice + 1x1 (``DL4J_TPU_SLICE_1X1=1``).
 The flags are read at each call, as there.
+
+On a mesh's model axis (parallel/tensor.py) a convolution whose W is
+sharded on its output channels computes this rank's channels from the
+whole input (its gradient all-reduced), adds its slice of the bias,
+applies the activation to its channels (after the gather where it mixes
+channels, as softmax does) and gathers the channel axis.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch
 from deeplearning4j_tpu_torch.nn.layers.base import Layer
 from deeplearning4j_tpu_torch.ops import convolution as conv_ops
 from deeplearning4j_tpu_torch.ops import initializers as init_mod
+from deeplearning4j_tpu_torch.ops.activations import mixes_features
 from deeplearning4j_tpu_torch.ops.convolution import pair as _pair
 from deeplearning4j_tpu_torch.ops.convolution import spatial_padding
 
@@ -55,7 +62,11 @@ class ConvolutionLayer(Layer):
             (x.shape[1], x.shape[2]), (kh, kw), (sh, sw),
             _pair(self.conf.padding), self.conf.mode, (dh, dw))
         cd = self.compute_dtype
+        # on a model axis: this rank's output channels from the whole x
+        tp = self.tp if self.tp is not None and self.tp.rendered else None
         xc, wc = x.to(cd), params["W"].to(cd)
+        if tp is not None:
+            xc = tp.copy(xc)
         if (kh == kw == 1 and (sh > 1 or sw > 1) and (dh, dw) == (1, 1)
                 and all(p == (0, 0) for p in pads) and _slice_1x1_enabled()):
             z = conv_ops.conv2d_strided_1x1_as_slice(xc, wc,
@@ -67,9 +78,7 @@ class ConvolutionLayer(Layer):
         else:
             z = conv_ops.conv2d(xc, wc, strides=(sh, sw), padding=pads,
                                 dilation=(dh, dw))
-        if "b" in params:
-            z = z + params["b"].to(cd)
-        return self.activation_fn(z), state
+        return _channels_out(self, tp, z, params, cd), state
 
 
 class Convolution1DLayerImpl(Layer):
@@ -96,11 +105,26 @@ class Convolution1DLayerImpl(Layer):
         pads = spatial_padding((x.shape[1],), (c.kernel,), (c.stride,),
                                (c.padding,), c.mode, (c.dilation,))
         cd = self.compute_dtype
-        z = conv_ops.conv1d(x.to(cd), params["W"].to(cd), stride=c.stride,
+        tp = self.tp if self.tp is not None and self.tp.rendered else None
+        xc = x.to(cd) if tp is None else tp.copy(x.to(cd))
+        z = conv_ops.conv1d(xc, params["W"].to(cd), stride=c.stride,
                             padding=pads, dilation=c.dilation)
-        if "b" in params:
-            z = z + params["b"].to(cd)
-        return self.activation_fn(z), state
+        return _channels_out(self, tp, z, params, cd), state
+
+
+def _channels_out(layer, tp, z, params, cd):
+    """A convolution's output from its product ``z``: the bias and the
+    activation, and on a model axis (``tp``: z is this rank's output
+    channels) the bias's slice, the activation on those channels and the
+    gather of the channel axis (parallel/tensor.py)."""
+    if "b" in params:
+        b = params["b"] if tp is None else tp.bias(params["b"], "b")
+        z = z + b.to(cd)
+    if tp is None:
+        return layer.activation_fn(z)
+    if mixes_features(layer):    # softmax over channels: on them all
+        return layer.activation_fn(tp.gather(z))
+    return tp.gather(layer.activation_fn(z))
 
 
 def _pool2d(x, *, kernel, strides, padding, pooling, pnorm):

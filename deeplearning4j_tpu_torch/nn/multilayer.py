@@ -48,6 +48,7 @@ from deeplearning4j_tpu_torch.observability import distributed as _obs_dist
 from deeplearning4j_tpu_torch.observability import goodput as _goodput
 from deeplearning4j_tpu_torch.observability import metrics as _obs_metrics
 from deeplearning4j_tpu_torch.observability.trace import get_tracer
+from deeplearning4j_tpu_torch.parallel.tensor import gather_route
 
 
 def _auto_preprocessor(input_type: InputType, conf):
@@ -106,6 +107,26 @@ def init_state(layers, device):
         if s:
             state[layer.name] = s
     return state
+
+
+def layer_params(layer, params):
+    """``layer``'s params as its apply takes them, for either network
+    kind. On a model axis a layer no rendering covers, or a streaming
+    one (``rnn_time_step``, truncated BPTT), gets its sharded leaves
+    gathered whole: the counted gather route (parallel/tensor.py)."""
+    p = params.get(layer.name, {})
+    tp = layer.tp
+    if tp is None or not tp.any_sharded():
+        return p
+    if tp.rendered and not getattr(layer, "streaming", False):
+        return p
+    from deeplearning4j_tpu_torch.ops import registry
+    from deeplearning4j_tpu_torch.parallel.tensor import GATHER_OP
+    reason = f"gather:{layer.conf.layer_type}"
+    if tp.reason:
+        reason += f":{tp.reason}"
+    registry.count_route(GATHER_OP, reason)
+    return tp.whole_params(p)
 
 
 class MultiLayerNetwork:
@@ -286,37 +307,13 @@ class MultiLayerNetwork:
         for layer, prep in zip(self.layers[lo:hi], self.preprocessors[lo:hi]):
             if prep is not None:
                 x = prep(x)
-            x, s_new = layer.apply(self._layer_params(layer, params),
+            x, s_new = layer.apply(layer_params(layer, params),
                                    state.get(layer.name, {}), x, train=train,
                                    gen=gen, mask=fmask)
             fmask = layer.feed_forward_mask(fmask)
             if s_new:
                 ns[layer.name] = s_new
         return x, fmask, ns
-
-    @staticmethod
-    def _layer_params(layer, params):
-        """``layer``'s params as its apply takes them: on a model axis, a
-        layer no rendering covers gets its sharded leaves gathered whole
-        (the counted gather route, parallel/tensor.py)."""
-        p = params.get(layer.name, {})
-        tp = layer.tp
-        if tp is None:
-            return p
-        if getattr(layer, "streaming", False):
-            raise NotImplementedError(
-                "streaming (rnn_time_step, decode) on a model axis is mesh "
-                "serving, which waits for ROADMAP.md A.5 part 2 (mesh "
-                "serving); tensor parallelism covers training and output")
-        if tp.rendered or not tp.any_sharded():
-            return p
-        from deeplearning4j_tpu_torch.ops import registry
-        from deeplearning4j_tpu_torch.parallel.tensor import GATHER_OP
-        reason = f"gather:{layer.conf.layer_type}"
-        if tp.reason:
-            reason += f":{tp.reason}"
-        registry.count_route(GATHER_OP, reason)
-        return tp.whole_params(p)
 
     def _remat_spans(self, n: int) -> dict:
         """start -> end of each maximal run of layers among the first n
@@ -350,7 +347,7 @@ class MultiLayerNetwork:
         # (conv -> Output) is applied here
         if self.preprocessors[-1] is not None:
             h = self.preprocessors[-1](h)
-        p_out = self._layer_params(out_layer, params)
+        p_out = layer_params(out_layer, params)
         if getattr(out_layer, "loss_uses_state", False):
             # the center loss: its term reads the centers, which move by
             # their own rule outside the differentiated loss
@@ -675,7 +672,7 @@ class MultiLayerNetwork:
         try:
             state_in = (self._rnn_state if self._rnn_state is not None
                         else self.state)
-            with torch.inference_mode():
+            with torch.inference_mode(), gather_route(self):
                 out, new_state = self._forward(
                     self.params, state_in, x, fmask=self._as_tensor(mask))
             self._rnn_state = new_state

@@ -37,6 +37,18 @@ def names():
     return sorted(_REGISTRY)
 
 
+#: activations that normalize across the feature axis: a layer computed
+#: on a slice of its features applies them only after the gather
+CROSS_FEATURE = frozenset({"softmax", "logsoftmax"})
+
+
+def mixes_features(layer) -> bool:
+    """Whether ``layer``'s activation mixes its features (softmax)."""
+    name = getattr(getattr(layer, "activation_fn", None), "activation_name",
+                   None)
+    return name in CROSS_FEATURE
+
+
 @register("identity")
 def identity(x):
     return x

@@ -1,5 +1,5 @@
-"""Tensor (model) parallelism over a mesh's model axis (counterpart of
-deeplearning4j_tpu/parallel/tensor.py).
+"""Tensor (model) parallelism over a mesh's model axis, for either network
+kind (counterpart of deeplearning4j_tpu/parallel/tensor.py).
 
 The JAX package places each parameter with a ``NamedSharding`` and lets
 XLA's SPMD partitioner split every product and insert the collectives.
@@ -54,13 +54,33 @@ column-parallel Wq/Wk/Wv give this rank's n_heads / m heads (head-major
 columns), and K3 runs on them; row-parallel Wo and W2 are followed by
 *g*; W1 column-parallel with the activation applied locally; a
 column-sharded Dense, output head or embedding table is followed by the
-gather. Every other layer kind (conv, LSTM, batch norm, the pretrain
-layers), and an attention layer whose heads do not divide m, takes the
-gather route: its sharded leaves are gathered whole, it computes as
-unmeshed, and each call is counted under
-``tensor_parallel:composed[gather:<layer type>]`` (ops/registry.py). A
-GravesLSTM there runs K1/K2 on the whole Wh, as the JAX package does: its
-Pallas kernel does not partition under GSPMD either.
+gather. A convolution (nn/layers/convolution.py) whose HWIO W is sharded
+on its output channels takes the whole input through *f*, computes this
+rank's channels, adds its bias's slice, applies the activation and
+gathers the channel axis. Every other layer kind (LSTM, batch norm's
+sharded leaves, LRN, the pretrain layers), an attention layer whose
+heads do not divide m, and any layer in streaming inference
+(``rnn_time_step``, ``gather_route``) takes the gather route: its
+sharded leaves are gathered whole, it computes as unmeshed, and each
+call is counted under ``tensor_parallel:composed[gather:<layer type>]``
+(ops/registry.py). A GravesLSTM there runs K1/K2 on the whole Wh, as the
+JAX package does: its Pallas kernel does not partition under GSPMD
+either.
+
+**A graph** (nn/graph.py) takes the same renderings vertex by vertex.
+Batch norm after a sharded convolution runs on the gathered, whole
+activation: its gamma and beta replicate under the default rule, so
+every rank computes the same statistics and the same state with no
+collective of its own (over a data axis, its one all-reduce a site runs
+on the data group, ops/normalization.py). A fused bottleneck tail
+(nn/fusion.py) runs K4-K7 on this rank's N/m columns of its 1x1 conv,
+with gamma, beta, the shift and the shortcut cut to them: K4's and K6's
+column sums are then exact on the rank's own channels, K5's output and
+the batch statistics are gathered, and K7's partial dx all-reduced. The
+pooling, padding, element-wise and merge vertices hold no params and
+see whole activations. Remat spans recompute the same renderings, and
+their collectives, in the backward (every rank runs the same backward in
+the same order).
 
 **What sums over the model axis**: a sharded leaf's share of a norm
 (``nn/updater.py::normalize_gradients``) and of the regularization term
@@ -72,6 +92,7 @@ the step runs over the data axis only (parallel/data_parallel.py).
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import re
 import time
@@ -83,7 +104,8 @@ import torch.distributed as dist
 __all__ = ["P", "default_rule", "match_partition_rules", "unmatched_rules",
            "param_specs", "opt_state_specs", "apply_tensor_parallel",
            "copy_to_model", "reduce_from_model", "gather_from_model",
-           "scatter_to_model", "ModelGroup", "LayerTP", "TensorParallel"]
+           "scatter_to_model", "gather_route", "ModelGroup", "LayerTP",
+           "TensorParallel"]
 
 #: the launch-counter op the gather route counts under
 GATHER_OP = "tensor_parallel"
@@ -363,16 +385,19 @@ _COL, _ROW, _REP = "column", "row", "replicated"
 
 
 def _kind(spec, model_axis):
-    """"column", "row" or "replicated" for a 2-D weight's spec; None for
-    another placement."""
+    """"column" for a weight sharded on its last axis only (a dense W
+    [in, out], a conv's HWIO W on its output channels), "row" for a 2-D
+    weight sharded on its first, "replicated"; None for another
+    placement."""
     d = sharded_dim(spec, model_axis)
     if d is None:
         return _REP if not any(a is not None for a in (spec or ())) \
             else None
-    if len(spec) != 2 or any(a is not None for i, a in enumerate(spec)
-                             if i != d):
+    if any(a is not None for i, a in enumerate(spec) if i != d):
         return None
-    return _COL if d == 1 else _ROW
+    if len(spec) >= 2 and d == len(spec) - 1:
+        return _COL
+    return _ROW if len(spec) == 2 and d == 0 else None
 
 
 class LayerTP:
@@ -432,6 +457,7 @@ class LayerTP:
 
     def _renders(self) -> bool:
         from deeplearning4j_tpu_torch.nn.layers import attention as att_l
+        from deeplearning4j_tpu_torch.nn.layers import convolution as conv_l
         from deeplearning4j_tpu_torch.nn.layers import feedforward as ff_l
         from deeplearning4j_tpu_torch.nn.layers.recurrent import (
             RnnOutputLayerImpl)
@@ -458,19 +484,35 @@ class LayerTP:
             return self.kind("W") == _COL and self._bias_ok(_COL, "b")
         if isinstance(layer, (ff_l.DenseLayer, RnnOutputLayerImpl)):
             return self._dense_ok()
+        if isinstance(layer, (conv_l.ConvolutionLayer,
+                              conv_l.Convolution1DLayerImpl)):
+            return self.kind("W") == _COL and self._bias_ok(_COL, "b")
         return False
 
     # -- the renderings' pieces
     def gather(self, x, dim=-1):
         return gather_from_model(x, self.mg, dim)
 
+    def copy(self, x):
+        """*f* on the whole input of a column-parallel product: its
+        gradient, a partial sum on each rank, is all-reduced."""
+        return copy_to_model(x, self.mg)
+
+    def columns(self, t, name=None, dim=-1):
+        """This rank's columns of ``t``, a whole tensor beside a
+        column-parallel product (a replicated bias, gamma or beta, or an
+        activation such as a shortcut): scattered, so its gradient is
+        gathered whole again. A leaf ``name`` this layer shards is its
+        shard already and comes back as it is."""
+        if name is not None and self.is_sharded(name):
+            return t
+        return scatter_to_model(t, self.mg, dim)
+
     def bias(self, b, name):
         """The bias ``name`` as this rank uses it beside a column-parallel
         weight: its slice (scattered, so its gradient is gathered whole
         again) or its own shard."""
-        if self.is_sharded(name):
-            return b
-        return scatter_to_model(b, self.mg, 0)
+        return self.columns(b, name, 0)
 
     def linear(self, x, x_sharded, W, b, cd, wname="W", bname="b",
                copied=False):
@@ -519,6 +561,20 @@ class LayerTP:
             d = sharded_dim(spec, self.model_axis)
             return t if d is None else gather_from_model(t, self.mg, d)
         return _map_names(whole, params)
+
+
+def _tensors(obj):
+    """The tensors of a batch's features and labels: a MultiLayerNetwork's
+    tensors, a graph's dict of inputs and list of labels (dicts by sorted
+    key)."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, dict):
+        for k in sorted(obj):
+            yield from _tensors(obj[k])
+    elif isinstance(obj, (list, tuple)):
+        for o in obj:
+            yield from _tensors(o)
 
 
 def _paths(tree, sort, path=()):
@@ -600,10 +656,9 @@ class TensorParallel:
         if self.rows_checked or self.mg.size == 1:
             return
         h = hashlib.sha256()
-        for t in batch[:2]:
-            if isinstance(t, torch.Tensor):
-                h.update(t.detach().cpu().contiguous().view(-1).view(
-                    torch.uint8).numpy().tobytes())
+        for t in _tensors(batch[:2]):
+            h.update(t.detach().cpu().contiguous().view(-1).view(
+                torch.uint8).numpy().tobytes())
         mine = h.hexdigest()
         seen = [None] * self.mg.size
         dist.all_gather_object(seen, mine, group=self.mg.group)
@@ -618,6 +673,27 @@ class TensorParallel:
 
     def detail(self):
         return {"model_axis": self.model_axis, "tp_rules": self.rules}
+
+
+@contextlib.contextmanager
+def gather_route(net):
+    """While open, every layer of a tensor-parallel ``net`` takes the
+    counted gather route (its sharded leaves gathered whole, the layer
+    computed as unmeshed): streaming inference (``rnn_time_step``), whose
+    every rank then runs the unmeshed arithmetic. A net off a model axis
+    is left as it is."""
+    tp = getattr(net, "_tp", None)
+    if tp is None:
+        yield
+        return
+    rendered = {name: lt.rendered for name, lt in tp.layers.items()}
+    for lt in tp.layers.values():
+        lt.rendered = False
+    try:
+        yield
+    finally:
+        for name, flag in rendered.items():
+            tp.layers[name].rendered = flag
 
 
 def check_rules(rules, params, where: str = ""):

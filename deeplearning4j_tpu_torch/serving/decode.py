@@ -150,6 +150,13 @@ class StreamingKVForward:
     it."""
 
     def __init__(self, net):
+        if getattr(net, "_tp", None) is not None:
+            raise NotImplementedError(
+                "decode on a model axis: the decode engine streams its own "
+                "copy of the layers over the net's params, which a "
+                "tensor-parallel net holds as shards; it waits for "
+                "ROADMAP.md A.5 part 4 (decode on a model axis). "
+                "rnn_time_step streams on a model axis (the gather route)")
         self.net = net
         self.device = net.device
         self._stream_net = copy.copy(net)

@@ -36,9 +36,9 @@ Store layout (``root/``)::
 
 ``load_net`` restores a publication on the card unless a ``device`` is
 given; its cost is reading the trees (a structure-only net, no random
-draws, no kernel build). Restoring onto a mesh (``mesh=``) for mesh
-serving waits for ROADMAP.md A.5 part 2 and raises
-``NotImplementedError``.
+draws, no kernel build). With ``mesh=`` (mesh serving) every rank of the
+mesh restores the whole net on its own device: the serving placement,
+whose shards ``ModelServer(mesh=)`` cuts from it (parallel/inference.py).
 """
 
 from __future__ import annotations
@@ -59,12 +59,6 @@ __all__ = ["WeightStore", "Publication", "load_net"]
 _VER_DIR = re.compile(r"^v_(\d{6})$")
 _LATEST = "LATEST"
 PUBLICATION_META = "publication.json"
-
-MESH_NOT_PORTED = ("load_net(mesh=...): restoring a publication onto a "
-                   "serving mesh waits for ROADMAP.md A.5 part 2 "
-                   "(parallel/inference.py); data-parallel training and "
-                   "the supervisor's coordination are ported")
-
 
 class Publication:
     """One published version: a complete checkpoint directory and its
@@ -112,11 +106,15 @@ def _net_class(kind):
 
 def load_net(path: str, mesh=None, *, device=None):
     """The net a publication (or any checkpoint directory) holds, by the
-    checkpoint's own ``kind``, on ``device`` (default: the card)."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
+    checkpoint's own ``kind``, on ``device`` (default: the card). With
+    ``mesh`` (every rank of a serving mesh calls it) on this rank's
+    device (parallel/distributed.py ``initialize``) unless ``device`` is
+    given, whole: ``ModelServer(mesh=)`` cuts its shards."""
     from deeplearning4j_tpu_torch.utils.checkpoint import (
         restore_computation_graph, restore_multi_layer_network)
+    if mesh is not None and device is None:
+        from deeplearning4j_tpu_torch.parallel import distributed
+        device = distributed.device()
     kind = read_checkpoint_meta(path)["kind"]
     fn = (restore_computation_graph if kind == "graph"
           else restore_multi_layer_network)

@@ -64,10 +64,21 @@ lacks at first use (the same ``nvcc`` and the same kernels). A
 ``tuning_report`` (compilecache/autotune.py) sets ``max_batch`` and
 ``batch_window_ms``.
 
-Not ported, refused by name when given: ``mesh`` (mesh-parallel
-serving, ROADMAP.md A.5 part 2; data-parallel training over a mesh and
-the supervisor's cross-process coordination are ported, parallel/ and
-resilience/).
+Mesh-parallel serving (``mesh=``, ``model_axis=``, ``data_axis=``,
+``tp_rules=``; parallel/inference.py): every rank of the mesh builds the
+server over the same weights. The mesh's first rank runs the HTTP front,
+the batcher and the fleet; for each coalesced bucket it broadcasts a
+header and the bucket, every rank runs the tensor-parallel serving walk
+(column shards, arithmetic-free gathers), and it replies. The other
+ranks (followers) run the broadcast buckets on a daemon thread from
+``start()`` until the leader's ``stop()``; ``wait(timeout)`` joins it
+and raises what it raised (``CollectiveTimeoutError`` when the leader is
+gone). F32 rows are held bit for bit against the unmeshed ``net.output``
+(chip_smoke.py ``--mesh-serving`` probes the card's libraries). As in
+the JAX package, a ComputationGraph, ``compute_dtype=`` and ``hot_swap``
+on a meshed server raise ``ValueError``; ``min_batch`` is twice the
+data axis's size, so each rank's share of a bucket keeps the unmeshed
+floor of two rows.
 """
 
 from __future__ import annotations
@@ -102,16 +113,6 @@ _ = MicroBatcher  # re-exported (seed name); replicas are built by ReplicaSet
 
 _next_bucket = next_bucket  # back-compat alias (seed name)
 
-#: what each refused parameter waits for
-NOT_PORTED = {
-    "mesh": "mesh-parallel serving (parallel/inference.py, tp_rules) "
-            "waits for ROADMAP.md A.5 part 2 (tensor parallelism); "
-            "data-parallel training (parallel/data_parallel.py, "
-            "net.use_mesh) and the supervisor's cross-process "
-            "coordination (resilience/launcher.py) are ported",
-}
-
-
 class DeadlineExceededError(RuntimeError):
     """The per-request deadline expired before the result came (HTTP 504)."""
 
@@ -141,9 +142,18 @@ class ModelServer:
                  tuning_report=None, decode_engine=None,
                  push_url=None, push_interval_s: float = 2.0,
                  slos=None, scheduler=None):
-        if mesh is not None or data_axis is not None or tp_rules is not None:
-            raise NotImplementedError(f"ModelServer(mesh=...): "
-                                      f"{NOT_PORTED['mesh']}")
+        if mesh is None and (data_axis is not None
+                             or tp_rules is not None):
+            raise ValueError("data_axis= and tp_rules= place a mesh-served "
+                             "net: pass mesh=")
+        if mesh is not None and hasattr(net.conf, "network_inputs"):
+            raise ValueError(
+                "mesh-parallel serving supports sequential layer stacks; "
+                "serve ComputationGraph models replicated")
+        if mesh is not None and compute_dtype is not None:
+            raise ValueError(
+                "mesh serving is the f32 bit-identity path; combine with "
+                "compute_dtype via a bf16-policy net instead")
         from deeplearning4j_tpu_torch.compilecache import cache as _ccache
         self.compile_cache_dir = _ccache.configure(compile_cache_dir)
         self.aot_manifest = aot_manifest
@@ -175,6 +185,26 @@ class ModelServer:
                 != net.conf.global_conf.dtype.compute_dtype):
             self._serving_net = self._build_serving_net(compute_dtype)
         self.stats = ServingStats()
+        self.mesh = mesh
+        self._group = None        # parallel/inference.py, on a mesh
+        self._follower = None     # a follower rank's thread
+        self.follower_error = None
+        min_batch = 2
+        forward = self._device_forward
+        if mesh is not None:
+            from deeplearning4j_tpu_torch.parallel import inference
+            self._group = inference.ServingGroup(
+                inference.build_tp_output_fn(net, mesh, model_axis,
+                                             data_axis=data_axis,
+                                             rules=tp_rules), mesh)
+            forward = self._group.lead
+            if data_axis is not None:
+                # power-of-two buckets divide over the axis, each rank's
+                # share at least the unmeshed floor of 2 rows (a one-row
+                # product can take another GEMM path, and other bits)
+                from deeplearning4j_tpu_torch.parallel.mesh import \
+                    axis_size
+                min_batch = max(min_batch, 2 * axis_size(mesh, data_axis))
         if scheduler is False:
             self.scheduler = None
         elif scheduler is None:
@@ -182,9 +212,9 @@ class ModelServer:
         else:
             self.scheduler = scheduler
         self._fleet = ReplicaSet(
-            self._device_forward, int(replicas), max_batch=max_batch,
+            forward, int(replicas), max_batch=max_batch,
             batch_window_ms=batch_window_ms, max_queue=max_queue,
-            min_batch=2, stats=self.stats, scheduler=self.scheduler)
+            min_batch=min_batch, stats=self.stats, scheduler=self.scheduler)
         self.shapes_seen = self._fleet.shapes_seen
         self.decode_engine = decode_engine
         if slos is None:
@@ -268,11 +298,16 @@ class ModelServer:
         (``load_net``) unless a restored ``net`` is passed. Its
         fingerprint must equal the serving net's (the same parameter
         structure). Refused with a decode engine (its sessions hold KV
-        state of the old weights: drain the host instead); a server on a
-        mesh is refused when it is built (ROADMAP.md A.5 part 2).
+        state of the old weights: drain the host instead) and on a mesh
+        (its shards are cut when the server is built: boot a replacement).
         Returns ``{version, fingerprint,
         replicas_swapped, swap_s, fresh_compiles}``: ``fresh_compiles``
         is the kernel builds during the swap, 0 on a warmed server."""
+        if self.mesh is not None:
+            raise ValueError(
+                "hot_swap is the single-host replica path; mesh serving "
+                "shards params at build time: drain this host and boot "
+                "a replacement off the shared compile cache instead")
         if self.decode_engine is not None:
             raise ValueError(
                 "hot_swap cannot re-weight live decode sessions (their KV "
@@ -600,7 +635,7 @@ class ModelServer:
                 man, self.net, row_shapes=row_shapes or (),
                 ladder=bucket_ladder(mb.min_batch, mb.max_batch),
                 max_batch=mb.max_batch, min_batch=mb.min_batch,
-                compute_dtype=self.serving_compute_dtype)
+                compute_dtype=self.serving_compute_dtype, mesh=self.mesh)
         except Exception as e:
             mismatches = [f"unreadable manifest: {type(e).__name__}: {e}"]
         self.aot_manifest_ok = not mismatches
@@ -623,13 +658,44 @@ class ModelServer:
             self.net, decode=self.decode_engine is not None))
         self.build_s = time.perf_counter() - t0
 
+    @property
+    def is_follower(self) -> bool:
+        """A mesh rank that runs the leader's buckets and serves no HTTP."""
+        return self._group is not None and not self._group.is_leader
+
+    def _follow(self):
+        try:
+            self._group.follow()
+        except BaseException as e:  # noqa: BLE001  re-raised by wait()
+            self.follower_error = e
+
+    def wait(self, timeout=None) -> bool:
+        """A follower: wait up to ``timeout`` seconds for its loop to end
+        on the leader's stop; raises what the loop raised
+        (``CollectiveTimeoutError`` when the leader is gone). True when
+        it has ended."""
+        t = self._follower
+        if t is not None:
+            t.join(timeout)
+            if t.is_alive():
+                return False
+        if self.follower_error is not None:
+            raise self.follower_error
+        return True
+
     def start(self):
         """Build the kernels and warm the bucket ladder (errors propagate:
         a kernel that cannot build or run must stop the boot, not surface
         on the first request), then start the device threads and the HTTP
-        listener."""
+        listener. A mesh follower starts its loop instead (a daemon
+        thread) and returns: the leader's warm-up drives it."""
         compile0 = _obs_metrics.compile_snapshot()
         self._build_kernels()
+        if self.is_follower:
+            self._follower = threading.Thread(
+                target=self._follow, daemon=True, name="mesh-follower")
+            self._follower.start()
+            return self
         if self.warmup:
             shapes = self._infer_row_shapes()
             self._validate_aot_manifest(shapes)
@@ -749,6 +815,8 @@ class ModelServer:
         self._thread = threading.Thread(target=self._httpd.serve_forever,
                                         daemon=True, name="model-server-http")
         self._thread.start()
+        if self._group is not None:
+            self._group.start_heartbeat()
         if self.push_url:
             # request-scoped spans ride the heartbeat pushes, so the
             # router's TraceStore can stitch this host into waterfalls
@@ -766,7 +834,12 @@ class ModelServer:
     def stop(self):
         """Stop accepting, then drain: every accepted ticket completes
         before the device threads exit. Closes the serving goodput ledger
-        (``run_report``, its ``slo`` the SLO engine's final report)."""
+        (``run_report``, its ``slo`` the SLO engine's final report). On a
+        mesh the leader then sends its followers the stop header; a
+        follower waits for its loop (at most the collective timeout)."""
+        if self.is_follower:
+            self.wait(self._group.timeout_s)
+            return
         if self._pusher is not None:
             self._pusher.stop()
             self._pusher = None
@@ -783,6 +856,8 @@ class ModelServer:
         if self.decode_engine is not None:
             self.decode_engine.stop()
         self._fleet.stop()
+        if self._group is not None:
+            self._group.stop()
         self._detach_collectors()
         ledger = self._ledger
         if ledger is not None and self.slo_engine is not None:

@@ -50,8 +50,7 @@ Restoring onto a mesh (``mesh=``, ``data_axis=``, ``model_axis=``,
 the host, each rank keeps its shard of every sharded leaf (the specs
 recomputed for the mesh restored onto, never read from the save's
 layout) and moves only that to its device; no replicate-then-
-``use_mesh`` hop. A ComputationGraph restores onto a data axis only
-(its tensor parallelism waits for ROADMAP.md A.5 part 2).
+``use_mesh`` hop. Both network kinds restore so.
 """
 
 from __future__ import annotations
@@ -472,12 +471,6 @@ def read_checkpoint_trees(path: str, template, device) -> dict:
 
 def _restore(path, expect_kind, device, mesh, data_axis, model_axis,
              tp_rules):
-    if expect_kind == "graph" and model_axis is not None:
-        raise NotImplementedError(
-            "restoring a ComputationGraph onto a model axis: a graph's "
-            "tensor parallelism waits for ROADMAP.md A.5 part 2 "
-            "(ComputationGraph tensor parallelism); restore it onto a data "
-            "axis (mesh=, data_axis=) or unmeshed")
     if model_axis is not None and mesh is None:
         raise ValueError("model_axis= places leaves on a mesh: pass mesh=")
     path = os.path.abspath(path)

@@ -284,12 +284,16 @@ def test_kind_mismatch_and_mesh_restore_are_refused(tmp_path):
         tck.restore_computation_graph(mpath, device="cpu")
     with pytest.raises(ValueError, match="graph net, not a multilayer"):
         tck.restore_multi_layer_network(gpath, device="cpu")
-    # restoring onto a mesh is ported (the fleets of
-    # tests/test_torch_tensor_parallel.py); what it refuses, by name:
-    with pytest.raises(NotImplementedError,
-                       match="ComputationGraph tensor parallelism"):
-        tck.restore_computation_graph(gpath, device="cpu", mesh=object(),
+    # restoring onto a mesh is ported for both kinds (the fleets of
+    # tests/test_torch_tensor_parallel.py and
+    # tests/test_torch_graph_tensor_parallel.py); what it refuses, by
+    # name, before any collective:
+    with pytest.raises(ValueError, match="pass mesh="):
+        tck.restore_computation_graph(gpath, device="cpu",
                                       model_axis="model")
+    with pytest.raises(ValueError, match="layer_7"):
+        tck.restore_computation_graph(
+            gpath, device="cpu", tp_rules={"['layer_7']['W']": None})
     with pytest.raises(ValueError, match="pass mesh="):
         tck.restore_multi_layer_network(mpath, device="cpu",
                                         model_axis="model")

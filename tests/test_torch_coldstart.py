@@ -421,8 +421,11 @@ def test_precompile_serving_matches_the_jax_entry(tmp_path, jax_and_port):
         assert got[k] == want[k], k
     assert got["libraries"] == [] and got["decode"] is False
     assert ccache.cache_dir() == str(tmp_path / "port")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.5 part 2"):
-        pre.precompile_serving(net, cache_dir=str(tmp_path), mesh=object())
+    # a meshed precompile (its fleets: tests/test_torch_mesh_serving.py)
+    # refuses what the meshed server refuses, before any collective
+    with pytest.raises(ValueError, match="bit-identity"):
+        pre.precompile_serving(net, cache_dir=str(tmp_path), mesh=object(),
+                               compute_dtype="bfloat16")
 
 
 def test_precompile_fit_leaves_every_tensor_bit_unchanged(tmp_path):

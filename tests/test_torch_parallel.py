@@ -352,18 +352,18 @@ def test_collective_timeout_reads_the_env(monkeypatch):
 
 
 def test_use_mesh_refuses_tensor_parallelism(tmp_path):
-    """A MultiLayerNetwork takes model_axis= (its fleets run in
-    tests/test_torch_tensor_parallel.py), checking its rules before any
-    collective; a ComputationGraph still refuses it, naming its queue
-    item."""
+    """Both network kinds take model_axis= (their fleets run in
+    tests/test_torch_tensor_parallel.py and
+    tests/test_torch_graph_tensor_parallel.py), and refuse rules that
+    place nothing before any collective."""
     from tests.test_torch_checkpoint import _bn_graph
     _, _, _, tnet = _pw_nets(tmp_path, JSgd(0.1), n=16)
     with pytest.raises(ValueError, match="layer_9"):
         tnet.use_mesh(None, model_axis="model",
                       tp_rules={"['layer_9']['W']": None})
-    with pytest.raises(NotImplementedError,
-                       match="ComputationGraph tensor parallelism"):
-        _bn_graph().use_mesh(None, model_axis="model")
+    with pytest.raises(ValueError, match="layer_9"):
+        _bn_graph().use_mesh(None, model_axis="model",
+                             tp_rules={"['layer_9']['W']": None})
 
 
 def test_stats_export_equals_the_jax_package(tmp_path):

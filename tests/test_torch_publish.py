@@ -36,7 +36,6 @@ from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.observability import metrics as obs
 from deeplearning4j_tpu_torch.serving import (ModelServer, Publication,
                                               WeightStore, load_net)
-from deeplearning4j_tpu_torch.serving.server import NOT_PORTED
 from deeplearning4j_tpu_torch.utils import serialization as tser
 from deeplearning4j_tpu_torch.utils.checkpoint import save_checkpoint
 
@@ -194,8 +193,11 @@ def test_publish_store_versions_fingerprint_rollback_retention(tmp_path):
     x = np.random.default_rng(0).normal(size=(4, 8)).astype(np.float32)
     assert np.array_equal(_out(load_net(p2.path, device="cpu"), x),
                           _out(netB, x))
-    with pytest.raises(NotImplementedError, match="A.5 part 2"):
-        load_net(p2.path, mesh=object())
+    # with mesh= (every rank of a serving mesh), whole on this rank's
+    # device: the CPU here, where no process group is up
+    on_mesh = load_net(p2.path, mesh=object())
+    assert on_mesh.device.type == "cpu"
+    assert np.array_equal(_out(on_mesh, x), _out(netB, x))
 
 
 def test_publish_rejects_incomplete_checkpoint(tmp_path):
@@ -330,11 +332,12 @@ def test_swap_families_render_after_a_swap():
 
 @pytest.mark.parametrize("name", ["push_url", "slos"])
 def test_remaining_refusals_name_their_roadmap_item(name):
-    """push_url and slos are ported (no longer refused); the refusals
-    that remain name their ROADMAP.md item."""
+    """push_url and slos are ported (no longer refused), and no refusal
+    of a server parameter remains: mesh serving is ported too
+    (tests/test_torch_mesh_serving.py)."""
     from deeplearning4j_tpu_torch.observability.slo import SLO
-    assert name not in NOT_PORTED and "hot_swap" not in NOT_PORTED
-    assert all("ROADMAP.md A." in why for why in NOT_PORTED.values())
+    from deeplearning4j_tpu_torch.serving import server as server_mod
+    assert not hasattr(server_mod, "NOT_PORTED")
     value = ("http://localhost:1" if name == "push_url" else
              [SLO("p99", metric="latency_p99_ms", objective=0.9, bound=1.0)])
     srv = ModelServer(_mlp(1), port=0, warmup=False, **{name: value})

@@ -254,15 +254,16 @@ def _ported_kw(name):
     {"aot_manifest": "m.json"}, {"tuning_report": "t.json"},
     {"scheduler": None}], ids=lambda kw: next(iter(kw)))
 def test_unported_parameters_are_refused_by_name(nets, kw, tmp_path):
-    """mesh (A.5 part 2) is refused by name; the compile cache's three, push_url,
-    slos and scheduler are ported and build a server that holds what was
-    given (nothing starts: no push is made)."""
-    from deeplearning4j_tpu_torch.serving.server import NOT_PORTED
+    """Every parameter is ported: mesh (mesh serving, whose fleets run in
+    tests/test_torch_mesh_serving.py) is held here to the JAX package's
+    refusal of compute_dtype= beside it, before any collective; the
+    compile cache's three, push_url, slos and scheduler build a server
+    that holds what was given (nothing starts: no push is made)."""
     (name, value), = kw.items()
-    if name in NOT_PORTED:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md A.5 part 2"):
-            ModelServer(nets[1], port=0, warmup=False, **kw)
+    if name == "mesh":
+        with pytest.raises(ValueError, match="bit-identity"):
+            ModelServer(nets[1], port=0, warmup=False,
+                        compute_dtype="bfloat16", **kw)
         return
     if name in ("compile_cache_dir", "aot_manifest", "tuning_report"):
         _held_cold_start_parameter(nets[1], name, tmp_path)
