@@ -247,7 +247,18 @@ NCCL mesh captured bit-equal to the unmeshed step, (b) two host
 processes on the one card over gloo at {"model": 2} against one process
 (ranks bit-equal, K3 on each rank's 2 heads, the collectives counted and
 timed, peak memory), (c) the checkpoint restored unmeshed and onto the
-mesh, its next step's score matching.
+mesh, its next step's score matching. The rest of the parallel tier
+runs on gloo ranks sharing the card, each phase alone by its flag:
+
+    python3 chip_smoke.py --sequence-parallel   # [sequence_parallel]
+    python3 chip_smoke.py --pipeline            # [pipeline]
+    python3 chip_smoke.py --experts             # [experts]
+    python3 chip_smoke.py --mesh-decode         # [mesh_decode]
+
+char-RNN's first GravesLSTM over {"seq": 2} (K1/K2 on each rank's time
+chunk), gpt_mini's four blocks as four pipeline stages (K3 on each),
+8 experts at gpt_mini's FFN widths over {"expert": 2}, and gpt_mini's
+decode engine on {"model": 2}, each held to one process.
 
 K1 and K2 (bf16 at n a multiple of 64 up to 512: thread-block clusters
 with Wh resident, DSMEM exchange, wgmma), K3 (bf16) and K4-K7 (bf16,
@@ -781,7 +792,8 @@ def phase_device():
 # K1's cases: (T, b, n, masked, nonzero carry, residuals). b = 33 and 70
 # leave the last 32-row cluster ragged; T = 1 is the streaming step.
 # (50, 32) is a [graph_tbptt] window after the first, (1, 4) a
-# [graph_stream] call.
+# [graph_stream] call, (512, 32) with a carry the second rank's chunk in
+# [sequence_parallel] at T = 1,024.
 FWD_CASES = [(64, 32, 512, False, False, True),
              (50, 32, 512, False, True, True),
              (1, 4, 512, False, True, False),
@@ -792,7 +804,8 @@ FWD_CASES = [(64, 32, 512, False, False, True),
              (7, 3, 512, True, True, False),
              (64, 33, 512, False, True, True),
              (64, 70, 512, True, False, True),
-             (1, 70, 512, False, True, True)]
+             (1, 70, 512, False, True, True),
+             (512, 32, 512, False, True, True)]
 
 
 def fwd_errors(got, want, tol, what):
@@ -947,12 +960,13 @@ def fn_vs_autograd(fwd_args):
 
 
 # K2's cases: (T, b, n, masked, nonzero carry); (50, 32) is a
-# [graph_tbptt] window after the first
+# [graph_tbptt] window after the first, (512, 32) with a carry a rank's
+# chunk in [sequence_parallel] at T = 1,024
 BWD_CASES = [(64, 32, 512, False, False), (64, 2, 512, False, True),
              (50, 32, 512, False, True),
              (7, 3, 512, True, False), (1, 1, 512, False, True),
              (64, 33, 512, False, True), (64, 70, 512, True, False),
-             (1, 70, 512, True, True)]
+             (1, 70, 512, True, True), (512, 32, 512, False, True)]
 
 
 def bwd_errors(got, again, want, dtype, what):
@@ -3627,10 +3641,17 @@ def f32_step_vs_f64(card_net, cpu_net, ref_net, grads_fn, xs, ys, what):
 
 
 def check_no_kernel_launched(what):
-    """No kernel of the port (K1-K7) runs on the conv nets' paths."""
+    """No kernel of the port (K1-K7) runs on the conv nets' paths. Their
+    dense and output layers' F32 inference products run S1 (ROADMAP C.7:
+    ``dense:route[stream]``), and nothing else launches S1 there: its
+    launches equal the route's count."""
     from deeplearning4j_tpu_torch.ops import registry
     launched = {k: v for k, v in registry.launches().items() if v}
-    check(not launched, f"{what} launched the port's kernels: {launched}")
+    s1 = launched.pop("stream_dense", 0)
+    routed = launched.pop("dense:route[stream]", 0)
+    check(not launched and s1 == routed, f"{what} launched the port's "
+          f"kernels: {launched}, S1 {s1} times on {routed} dense-route "
+          f"products")
 
 
 def conv_profile(net, data, step_ms, tag):
@@ -9122,6 +9143,64 @@ def _free_port():
         return s.getsockname()[1]
 
 
+# The phases of more than one rank run gloo ranks as child processes
+# sharing the card (NCCL takes one rank a card); a child writes its
+# numbers to <root>/rank<r>.json and its tensors to <root>/rank<r>.pt.
+def spawn_ranks(fn, world, root, *args):
+    """``world`` children running ``chip_smoke.<fn>(port, rank, root,
+    *args)``: [(process, stderr file)]."""
+    port = _free_port()
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    for r in range(world):
+        err = open(os.path.join(root, f"rank{r}.err"), "w")
+        call = ", ".join(repr(a) for a in (port, r, root) + args)
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke as c; c.{fn}({call})"],
+            stderr=err, stdout=subprocess.DEVNULL, cwd=here), err))
+    return procs
+
+
+def stop_ranks(procs):
+    """Kills every child still running and closes its stderr file."""
+    for proc, err in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        err.close()
+
+
+def collect_ranks(procs, root, what, timeout_s=600):
+    """Each child's JSON after it exited 0 (its stderr's tail otherwise);
+    every child is stopped, whatever happens."""
+    res = []
+    try:
+        deadline = time.monotonic() + timeout_s
+        for r, (proc, err) in enumerate(procs):
+            try:
+                rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+            err.flush()
+            if rc != 0:
+                with open(err.name) as f:
+                    check(False, f"[{what}] rank {r} exited {rc}: "
+                          f"{f.read()[-3000:]}")
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+    finally:
+        stop_ranks(procs)
+    return res
+
+
+def rank_out(root, rank, res, tensors=None):
+    if tensors is not None:
+        import torch
+        torch.save(tensors, os.path.join(root, f"rank{rank}.pt"))
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
 def _leaf_list(tree):
     from deeplearning4j_tpu_torch.nn.updater import _leaves
     return list(_leaves(tree))
@@ -9160,13 +9239,15 @@ def captured_steps(net, batches):
                                          for s, e in events], sg.captures)
 
 
-def dp_rank(port, rank, out_path, dtype="F32"):
+def dp_rank(port, rank, root, dtype="F32"):
     """One rank of [data_parallel]'s two host processes on the one card:
     a gloo group named explicitly (NCCL refuses two ranks on one card),
     gpt_mini at full width meshed, GLOO_STEPS fit_batch steps on this
     rank's half of each global batch, the timeline of its fit phases,
-    and the time of the step's all-reduce alone. Writes its parameters
-    and its numbers to ``out_path`` (.pt and .json)."""
+    and the time of the step's all-reduce alone. Writes its parameters,
+    its numbers and its timeline to <root>/rank<r> (.pt, .json and
+    .html)."""
+    out_path = os.path.join(root, f"rank{rank}")
     import torch
     import torch.distributed as dist
     from deeplearning4j_tpu_torch import DataSet
@@ -9340,17 +9421,8 @@ def phase_data_parallel(card=None):
 
     # (3) two host processes on the one card over a named gloo group
     root = tempfile.mkdtemp(prefix="data_parallel_")
-    procs = []
+    procs = spawn_ranks("dp_rank", 2, root)
     try:
-        port = _free_port()
-        here = os.path.dirname(os.path.abspath(__file__))
-        for r in range(2):
-            out = os.path.join(root, f"rank{r}")
-            err = open(out + ".err", "w")
-            code = f"import chip_smoke as c; c.dp_rank({port}, {r}, {out!r})"
-            procs.append((subprocess.Popen(
-                [sys.executable, "-c", code], stderr=err,
-                stdout=subprocess.DEVNULL, cwd=here), out, err))
         # one process on the whole batch, meanwhile
         one = dec_net("F32", seed=SEED + 720)
         whole = on_card(markov_batches(GLOO_STEPS, GLOO_B, DEC_C, DEC_V,
@@ -9364,23 +9436,9 @@ def phase_data_parallel(card=None):
             torch.cuda.synchronize()
             one_ms.append((time.perf_counter() - t0) * 1e3)
         one_launches = registry.launches()
-        res = []
-        for proc, out, err in procs:
-            try:
-                rc = proc.wait(timeout=600)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait(timeout=60)
-                rc = "timeout"
-            err.close()
-            if rc != 0:
-                with open(err.name) as f:
-                    check(False, f"[data_parallel] rank exited {rc}: "
-                          f"{f.read()[-3000:]}")
-            with open(out + ".json") as f:
-                res.append(json.load(f))
-        p0 = torch.load(procs[0][1] + ".pt")
-        p1 = torch.load(procs[1][1] + ".pt")
+        res = collect_ranks(procs, root, "data_parallel")
+        p0, p1 = (torch.load(os.path.join(root, f"rank{r}.pt"))
+                  for r in range(2))
         check(all(torch.equal(a, b) for a, b in zip(p0, p1)) and
               res[0]["sync"] and res[1]["sync"],
               "the two ranks' parameters differ")
@@ -9399,17 +9457,13 @@ def phase_data_parallel(card=None):
                   f"{r['workers']}")
         check(one_launches.get("flash_attn_fwd", 0) == DEC_L * GLOO_STEPS,
               f"one process launched K3 {one_launches}")
-        html = procs[0][1] + ".html"
+        html = os.path.join(root, "rank0.html")
         check(os.path.getsize(html) > 0, "no timeline written")
         os.makedirs(OUT_DIR, exist_ok=True)
         timeline = os.path.join(OUT_DIR, "data_parallel_timeline.html")
         shutil.copy(html, timeline)
     finally:
-        for proc, _, err in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait(timeout=60)
-            err.close()
+        stop_ranks(procs)
         shutil.rmtree(root, ignore_errors=True)
     phase("data_parallel", arm="two_processes_gloo", backend="gloo",
           ranks=2, global_b=GLOO_B, steps=GLOO_STEPS, policy="F32",
@@ -9469,13 +9523,14 @@ def mbn_batches(n, b, seed):
                                                       classes=MBN_CLASSES)]
 
 
-def mbn_rank(port, rank, out_path):
+def mbn_rank(port, rank, root):
     """One rank of [meshed_bn]'s arm (b): a named gloo group of two on the
     one card, ResNet-50 (F32, fused tails) meshed, MBN_GLOO_STEPS
     fit_batch steps on this rank's half of each global batch. The sizes
     of the BN collectives the steps made are recorded, and one step's
     worth of them timed alone afterwards. Writes its trees and numbers to
-    ``out_path`` (.pt and .json)."""
+    <root>/rank<r> (.pt and .json)."""
+    out_path = os.path.join(root, f"rank{rank}")
     import torch
     import torch.distributed as dist
     from deeplearning4j_tpu_torch.datasets import DataSet
@@ -9630,17 +9685,8 @@ def phase_meshed_bn(card=None):
           card=card)
 
     root = tempfile.mkdtemp(prefix="meshed_bn_")
-    procs = []
+    procs = spawn_ranks("mbn_rank", 2, root)
     try:
-        port = _free_port()
-        here = os.path.dirname(os.path.abspath(__file__))
-        for r in range(2):
-            out = os.path.join(root, f"rank{r}")
-            err = open(out + ".err", "w")
-            code = f"import chip_smoke as c; c.mbn_rank({port}, {r}, {out!r})"
-            procs.append((subprocess.Popen(
-                [sys.executable, "-c", code], stderr=err,
-                stdout=subprocess.DEVNULL, cwd=here), out, err))
         one = mbn_net("F32", SEED + 801)
         whole = mbn_batches(MBN_GLOO_STEPS, MBN_GLOBAL_B, SEED + 802)
         registry.reset_launches()
@@ -9663,22 +9709,8 @@ def phase_meshed_bn(card=None):
             for ds in whole:
                 perm.fit_batch(DataSet(ds.features[idx], ds.labels[idx]))
             permuted.append(perm)
-        res = []
-        for proc, out, err in procs:
-            try:
-                rc = proc.wait(timeout=600)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait(timeout=60)
-                rc = "timeout"
-            err.close()
-            if rc != 0:
-                with open(err.name) as f:
-                    check(False, f"[meshed_bn] rank exited {rc}: "
-                          f"{f.read()[-3000:]}")
-            with open(out + ".json") as f:
-                res.append(json.load(f))
-        t0_, t1_ = (torch.load(procs[r][1] + ".pt") for r in range(2))
+        res = collect_ranks(procs, root, "meshed_bn")
+        t0_, t1_ = (torch.load(os.path.join(root, f"rank{r}.pt")) for r in range(2))
         for tree in ("params", "state"):
             check(all(torch.equal(a, b) for a, b in zip(t0_[tree],
                                                         t1_[tree])),
@@ -9718,11 +9750,7 @@ def phase_meshed_bn(card=None):
                   f"+ {MBN_CHAOS_FLOOR})")
         del permuted
     finally:
-        for proc, _, err in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait(timeout=60)
-            err.close()
+        stop_ranks(procs)
         shutil.rmtree(root, ignore_errors=True)
     phase("meshed_bn", arm="two_processes_gloo", backend="gloo", ranks=2,
           global_b=MBN_GLOBAL_B, steps=MBN_GLOO_STEPS, policy="F32",
@@ -10589,14 +10617,16 @@ def adam_m(net):
             if isinstance(sub, dict) and "m" in sub}
 
 
-def tp_rank(port, rank, out_path, ck_dir):
+def tp_rank(port, rank, root, ck_dir):
     """One rank of [tensor_parallel] (b) and (c): gpt_mini F32 over
     {"model": 2} on a gloo group shared with the other rank on the one
     card, TP_STEPS fit_batch steps on the whole batch (the model group's
     rows), K3's head count spied, the step's collectives counted and an
     activation-sized all-reduce and gather timed alone; then the
     checkpoint, the next step, and the restore onto the mesh with its next
-    step. Writes its whole parameters (.pt) and its numbers (.json)."""
+    step. Writes its whole parameters and its numbers to <root>/rank<r>
+    (.pt and .json)."""
+    out_path = os.path.join(root, f"rank{rank}")
     import torch
     import torch.distributed as dist
     from deeplearning4j_tpu_torch import zoo
@@ -10771,18 +10801,8 @@ def phase_tensor_parallel(card=None):
     # (b) two ranks on the one card over gloo, {"model": 2}, eager
     root = tempfile.mkdtemp(prefix="tensor_parallel_")
     ck_dir = os.path.join(root, "ck", "step_3")
-    procs = []
+    procs = spawn_ranks("tp_rank", 2, root, ck_dir)
     try:
-        port = _free_port()
-        here = os.path.dirname(os.path.abspath(__file__))
-        for r in range(2):
-            out = os.path.join(root, f"rank{r}")
-            err = open(out + ".err", "w")
-            code = (f"import chip_smoke as c; c.tp_rank({port}, {r}, "
-                    f"{out!r}, {ck_dir!r})")
-            procs.append((subprocess.Popen(
-                [sys.executable, "-c", code], stderr=err,
-                stdout=subprocess.DEVNULL, cwd=here), out, err))
         gc.collect()     # arm (a)'s nets and their graphs' pools
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -10807,23 +10827,9 @@ def phase_tensor_parallel(card=None):
         ref = {f"{k}/{p}": v.detach().cpu().clone()
                for k, sub in one.params.items() for p, v in sub.items()}
         one_cont = float(one.fit_batch(data[TP_STEPS]))
-        res = []
-        for proc, out, err in procs:
-            try:
-                rc = proc.wait(timeout=600)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait(timeout=60)
-                rc = "timeout"
-            err.close()
-            if rc != 0:
-                with open(err.name) as f:
-                    check(False, f"[tensor_parallel] rank exited {rc}: "
-                          f"{f.read()[-3000:]}")
-            with open(out + ".json") as f:
-                res.append(json.load(f))
-        p0 = torch.load(procs[0][1] + ".pt")
-        p1 = torch.load(procs[1][1] + ".pt")
+        res = collect_ranks(procs, root, "tensor_parallel")
+        p0 = torch.load(os.path.join(root, "rank0.pt"))
+        p1 = torch.load(os.path.join(root, "rank1.pt"))
         check(all(torch.equal(p0["whole"][k], p1["whole"][k])
                   for k in p0["whole"]), "the ranks' gathered parameters "
               "differ")
@@ -10890,11 +10896,7 @@ def phase_tensor_parallel(card=None):
         check(tuple(res[0]["restored_shard"]) == (DEC_W, DEC_W // 2),
               f"restored onto the mesh: Wq shard {res[0]['restored_shard']}")
     finally:
-        for proc, _, err in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait(timeout=60)
-            err.close()
+        stop_ranks(procs)
         shutil.rmtree(root, ignore_errors=True)
     med = lambda xs: statistics.median(xs)  # noqa: E731
     phase("tensor_parallel", arm="b_two_ranks_gloo", backend="gloo",
@@ -10973,12 +10975,14 @@ def _gtp_spy(shapes):
         registry.register(kern, "cuda")(spy)
 
 
-def gtp_rank(port, rank, out_path, ck_dir):
+def gtp_rank(port, rank, root, ck_dir):
     """One rank of [graph_tensor_parallel]'s arm (b): a named gloo group
     of two on the one card, ResNet-50 (F32, 13 fused tails) on
     {"model": 2}, GTP_STEPS fit_batch steps on the whole batch, the
     launch shapes of K4-K7, the collectives, the peak memory, then (d)
-    the checkpoint, the continued step and the restore onto the mesh."""
+    the checkpoint, the continued step and the restore onto the mesh.
+    Writes to <root>/rank<r> (.pt and .json)."""
+    out_path = os.path.join(root, f"rank{rank}")
     import torch
     from deeplearning4j_tpu_torch.ops import registry
     from deeplearning4j_tpu_torch.parallel import distributed as D
@@ -11163,18 +11167,8 @@ def phase_graph_tensor_parallel(card=None):
     # (b) two ranks on the one card over gloo, {"model": 2}, eager F32
     root = tempfile.mkdtemp(prefix="graph_tp_")
     ck_dir = os.path.join(root, "ck", f"step_{GTP_STEPS}")
-    procs = []
+    procs = spawn_ranks("gtp_rank", 2, root, ck_dir)
     try:
-        port = _free_port()
-        here = os.path.dirname(os.path.abspath(__file__))
-        for r in range(2):
-            out = os.path.join(root, f"rank{r}")
-            err = open(out + ".err", "w")
-            code = (f"import chip_smoke as c; c.gtp_rank({port}, {r}, "
-                    f"{out!r}, {ck_dir!r})")
-            procs.append((subprocess.Popen(
-                [sys.executable, "-c", code], stderr=err,
-                stdout=subprocess.DEVNULL, cwd=here), out, err))
         gc.collect()
         data = mbn_batches(GTP_STEPS + 1, GTP_B, SEED + 2302)
         torch.cuda.synchronize()
@@ -11198,23 +11192,9 @@ def phase_graph_tensor_parallel(card=None):
                                                         one_v1).values()))
             chaos_s = [max(c, abs(a - b) / abs(b)) for c, a, b in
                        zip(chaos_s, p_scores, one_scores)]
-        res = []
-        for proc, out, err in procs:
-            try:
-                rc = proc.wait(timeout=600)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait(timeout=60)
-                rc = "timeout"
-            err.close()
-            if rc != 0:
-                with open(err.name) as f:
-                    check(False, f"[graph_tensor_parallel] rank exited "
-                          f"{rc}: {f.read()[-3000:]}")
-            with open(out + ".json") as f:
-                res.append(json.load(f))
-        p0 = torch.load(procs[0][1] + ".pt")
-        p1 = torch.load(procs[1][1] + ".pt")
+        res = collect_ranks(procs, root, "graph_tensor_parallel")
+        p0 = torch.load(os.path.join(root, "rank0.pt"))
+        p1 = torch.load(os.path.join(root, "rank1.pt"))
         check(all(torch.equal(p0["whole"][k], p1["whole"][k])
                   for k in p0["whole"]), "the ranks' gathered parameters "
               "differ")
@@ -11286,11 +11266,7 @@ def phase_graph_tensor_parallel(card=None):
               f"restored onto the mesh: shard {res[0]['restored_shard']}")
         nxt["one_process"] = one_cont
     finally:
-        for proc, _, err in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait(timeout=60)
-            err.close()
+        stop_ranks(procs)
         shutil.rmtree(root, ignore_errors=True)
     phase("graph_tensor_parallel", arm="b_two_ranks_gloo", backend="gloo",
           mesh=json.dumps({"model": 2}), policy="F32", b=GTP_B,
@@ -11393,16 +11369,21 @@ def gtp_column_shards(card):
 # process. zoo.mnist_mlp at its zoo widths (the JAX test's bucket slices)
 # and zoo.vgg16 at 224 x 224 x 3, 1000 classes (buckets of 1 and 4 rows),
 # F32. Each reply is held bit for bit against the unmeshed net.output of
-# the same padded bucket on the card (what an unmeshed server replies),
-# unless the probe below finds that the card's library computes a
-# served layer's column shard in other bits than the whole product's
-# columns: that model's rows are then held to MS_PROBE_RTOL relative and
-# the shapes recorded (ROADMAP C).
+# the same padded bucket on the card (what an unmeshed server replies).
+# Since ROADMAP C.7's repair a served dense layer's F32 inference product
+# runs on S1 (ops/stream_exact.py dense_route), whose sums over K run in
+# one order whatever the output width: the probe below runs each layer's
+# column shards through the layer's own route and must find 0
+# differences; ms_s1_columns holds S1's columns at every served shape.
 MS_MLP_SLICES = ((0, 1), (1, 4), (4, 11), (11, 40))
 MS_VGG_ROWS = (1, 4)
 MS_REPS = 5
-MS_PROBE_RTOL = 1e-6
 MS_TIMEOUT_S = 120.0
+# S1's column invariance at the served dense shapes: mnist_mlp's layers
+# at 1/3/7/29 rows, VGG-16's fc1-fc3 at 1-4 rows
+MS_S1_SHAPES = {"mnist_mlp": ((784, 256), (256, 128), (128, 10)),
+                "vgg16": ((25088, 4096), (4096, 4096), (4096, 1000))}
+MS_S1_ROWS = {"mnist_mlp": (1, 3, 7, 29), "vgg16": (1, 2, 3, 4)}
 
 
 def ms_nets(which):
@@ -11510,9 +11491,12 @@ def ms_refusals(server, net, mesh):
 def ms_probe(net, rows_list):
     """For each served layer with a column-sharded weight, at each bucket
     size: the largest difference between this rank's shard's product and
-    the whole product's columns on the card (cuBLAS for dense, cuDNN for
-    convolutions), on seeded inputs of the layer's input shape."""
+    the whole product's columns on the card, each through the layer's own
+    inference route (S1 for dense layers, cuDNN for convolutions), on
+    seeded inputs of the layer's input shape, and the dense route's
+    count (a dense product off S1 fails the phase)."""
     import torch
+    from deeplearning4j_tpu_torch.ops import registry
     from deeplearning4j_tpu_torch.parallel.inference import (
         serving_param_specs)
     specs = serving_param_specs(net.params, {"model": 2}, "model",
@@ -11532,18 +11516,159 @@ def ms_probe(net, rows_list):
         for rows in rows_list:
             x = torch.from_numpy(rng.normal(size=(rows,) + x_shape)
                                  .astype(np.float32)).cuda()
+            registry.reset_launches()
             with torch.inference_mode():
                 whole = layer.apply({"W": W}, {}, x)[0]
                 halves = [layer.apply({"W": W[..., h * n:(h + 1) * n]
                                        .contiguous()}, {}, x)[0]
                           for h in range(2)]
             torch.cuda.synchronize()
+            routed = registry.launches().get("dense:route[stream]", 0)
+            if W.dim() == 2:
+                check(routed == 3, f"[mesh_serving] {layer.name}: "
+                      f"{routed} of 3 dense products on S1's route")
             diff = max(float((halves[h] - whole[..., h * n:(h + 1) * n])
                              .abs().max()) for h in range(2))
             out.append({"layer": layer.name, "type": layer.conf.layer_type,
                         "W": list(W.shape), "rows": rows,
+                        "route": "stream" if W.dim() == 2 else "cudnn",
                         "max_abs_diff": diff})
     return out
+
+
+def ms_s1_columns(card):
+    """S1 at every served dense shape: stream_dense(x, W)[:, a:b] against
+    stream_dense(x, W[:, a:b]) bit for bit, for the two halves (the
+    shards) and a ragged slice; S1's time whole and on a half beside
+    addmm's (the library's product of the same function, the route S1
+    replaced), by CUDA events; the bound at the card's f32 peak and its
+    bytes. Returns the rows."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import stream_exact as se
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2314)
+    rows_out = []
+    for model, shapes in MS_S1_SHAPES.items():
+        for f, n in shapes:
+            W = torch.randn(f, n, generator=g, device="cuda") * f ** -0.5
+            b = torch.randn(n, generator=g, device="cuda") * 0.1
+            cuts = ((0, n // 2), (n // 2, n), (3, n - 5))
+            Wc = {c: W[:, c[0]:c[1]].contiguous() for c in cuts}
+            bc = {c: b[c[0]:c[1]].contiguous() for c in cuts}
+            for rows in MS_S1_ROWS[model]:
+                x = torch.randn(rows, f, generator=g, device="cuda")
+                with torch.inference_mode():
+                    whole = se.stream_dense(x, W, b)
+                    bits = all(torch.equal(se.stream_dense(x, Wc[c], bc[c]),
+                                           whole[:, c[0]:c[1]])
+                               for c in cuts)
+                    half = cuts[0]
+                    ms = device_ms_per_call(
+                        lambda: se.stream_dense(x, W, b), reps=20)[0]
+                    half_ms = device_ms_per_call(
+                        lambda: se.stream_dense(x, Wc[half], bc[half]),
+                        reps=20)[0]
+                    lib_ms = device_ms_per_call(
+                        lambda: torch.addmm(b, x, W), reps=20)[0]
+                    lib_half_ms = device_ms_per_call(
+                        lambda: torch.addmm(bc[half], x, Wc[half]),
+                        reps=20)[0]
+                check(bits, f"[mesh_serving] S1 at {model} [{rows}, {f}] x "
+                      f"[{f}, {n}]: a column slice's product differs from "
+                      f"the whole product's columns")
+                flops = se.dense_flops(rows, f, n)
+                nbytes = 4 * (rows * f + f * n + n + rows * n)
+                bound_ms, bound_by = bound(flops, nbytes, "float32")
+                rows_out.append({
+                    "model": model, "rows": rows, "f": f, "g": n,
+                    "columns_bit_equal": bits, "s1_ms": round(ms, 5),
+                    "s1_half_ms": round(half_ms, 5),
+                    "addmm_ms": round(lib_ms, 5),
+                    "addmm_half_ms": round(lib_half_ms, 5),
+                    "bound_ms": round(bound_ms, 6), "bound_by": bound_by})
+            del W, Wc
+    phase("mesh_serving", arm="s1_columns", device_method=DEVICE_METHOD,
+          shapes=json.dumps(rows_out), card=json.dumps(card))
+    return rows_out
+
+
+# S1's cost past the served buckets: F32 dense products at an evaluate's
+# and a training batch's row counts, and the unmeshed F32 net.output of
+# both served models with its dense layers on S1 (the route) and on
+# torch.matmul (the route forced back, as before ROADMAP C.7's repair)
+MS_COST_ROWS = (256, 4096)
+MS_COST_SHAPES = ((784, 256), (256, 128), (128, 10), (25088, 4096))
+MS_COST_OUTPUT_ROWS = {"mlp": (256, 4096), "vgg": (4, 32)}
+MS_COST_REPS = 5
+
+
+def ms_dense_cost(card):
+    """S1 against addmm at MS_COST_ROWS rows (device ms by CUDA events),
+    and net.output's host ms (the card synchronized) with the dense route
+    on S1 and forced onto torch.matmul, taken S1, matmul, matmul, S1; the
+    outputs of the two routes compared. Returns the rows."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import stream_exact as se
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2315)
+    products = []
+    for f, n in MS_COST_SHAPES:
+        W = torch.randn(f, n, generator=g, device="cuda") * f ** -0.5
+        b = torch.randn(n, generator=g, device="cuda") * 0.1
+        for rows in MS_COST_ROWS:
+            x = torch.randn(rows, f, generator=g, device="cuda")
+            reps = 3 if f * n * rows > 2 ** 34 else 20
+            with torch.inference_mode():
+                ms = device_ms_per_call(lambda: se.stream_dense(x, W, b),
+                                        reps=reps)[0]
+                lib_ms = device_ms_per_call(lambda: torch.addmm(b, x, W),
+                                            reps=reps)[0]
+            bound_ms, bound_by = bound(se.dense_flops(rows, f, n),
+                                       4 * (rows * f + f * n + n + rows * n),
+                                       "float32")
+            products.append({"rows": rows, "f": f, "g": n,
+                             "s1_ms": round(ms, 5),
+                             "addmm_ms": round(lib_ms, 5),
+                             "s1_over_addmm": round(ms / lib_ms, 3),
+                             "bound_ms": round(bound_ms, 6),
+                             "bound_by": bound_by})
+        del W
+    outputs = []
+    plain_route = se.dense_route
+    try:
+        for which, row_list in MS_COST_OUTPUT_ROWS.items():
+            net = ms_nets(which)
+            shape = (784,) if which == "mlp" else (224, 224, 3)
+            for rows in row_list:
+                x = torch.randn((rows,) + shape, generator=g, device="cuda")
+                times = {"stream": [], "matmul": []}
+                outs = {}
+                for route in ("stream", "matmul", "matmul", "stream"):
+                    se.dense_route = (plain_route if route == "stream"
+                                      else lambda *a: "matmul")
+                    outs[route] = net.output(x)
+                    for _ in range(MS_COST_REPS):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        net.output(x)
+                        torch.cuda.synchronize()
+                        times[route].append((time.perf_counter() - t0) * 1e3)
+                se.dense_route = plain_route
+                med = {k: statistics.median(v) for k, v in times.items()}
+                outputs.append({
+                    "model": which, "rows": rows,
+                    "output_ms_s1": round(med["stream"], 3),
+                    "output_ms_matmul": round(med["matmul"], 3),
+                    "s1_over_matmul": round(med["stream"] / med["matmul"],
+                                            3),
+                    "max_abs_s1_vs_matmul": float(
+                        (outs["stream"] - outs["matmul"]).abs().max())})
+            del net
+            torch.cuda.empty_cache()
+    finally:
+        se.dense_route = plain_route
+    phase("mesh_serving", arm="s1_cost", device_method=DEVICE_METHOD,
+          products=json.dumps(products), net_output=json.dumps(outputs),
+          card=json.dumps(card))
+    return products, outputs
 
 
 def _ms_post(url, rows):
@@ -11569,17 +11694,10 @@ def phase_mesh_serving(card=None):
     from deeplearning4j_tpu_torch.serving.batcher import next_bucket
 
     t_phase = time.perf_counter()
+    ms_dense_cost(card)     # before the ranks start: alone on the card
     root = tempfile.mkdtemp(prefix="mesh_serving_")
-    procs = []
+    procs = spawn_ranks("ms_rank", 2, root)
     try:
-        port = _free_port()
-        here = os.path.dirname(os.path.abspath(__file__))
-        for r in range(2):
-            err = open(os.path.join(root, f"rank{r}.err"), "w")
-            code = f"import chip_smoke as c; c.ms_rank({port}, {r}, {root!r})"
-            procs.append((subprocess.Popen(
-                [sys.executable, "-c", code], stderr=err,
-                stdout=subprocess.DEVNULL, cwd=here), err))
         rng = np.random.default_rng(SEED + 2313)
         inputs = {"mlp": rng.normal(size=(40, 784)).astype(np.float32),
                   "vgg": rng.normal(0.0, 50.0, size=(4, 224, 224, 3))
@@ -11587,6 +11705,7 @@ def phase_mesh_serving(card=None):
         slices = {"mlp": MS_MLP_SLICES,
                   "vgg": tuple((0, n) for n in MS_VGG_ROWS)}
         report = {}
+        ms_s1_columns(card)     # while the ranks start
         for which in ("mlp", "vgg"):
             net = ms_nets(which)
             x = inputs[which]
@@ -11594,6 +11713,9 @@ def phase_mesh_serving(card=None):
                               for lo, hi in slices[which]})
             probe = ms_probe(net, buckets)
             differs = [p for p in probe if p["max_abs_diff"] > 0]
+            check(not differs, f"[mesh_serving] {which}: a column shard's "
+                  f"product differs from the whole product's columns "
+                  f"through the layer's route: {differs}")
             whole40 = net.output(torch.from_numpy(x).cuda()).float().cpu() \
                 .numpy()
             url_file = os.path.join(root, f"url_{which}")
@@ -11619,13 +11741,8 @@ def phase_mesh_serving(card=None):
                 bits = bool(np.array_equal(got, want))
                 rel = float(np.abs(got - want).max()
                             / max(float(np.abs(want).max()), 1e-30))
-                if differs:
-                    check(rel <= MS_PROBE_RTOL, f"{which} rows {lo}:{hi}: "
-                          f"{rel:.3e} > {MS_PROBE_RTOL} (probe: {differs})")
-                else:
-                    check(bits, f"{which} rows {lo}:{hi} differ from the "
-                          f"unmeshed output ({rel:.3e} relative) though the "
-                          f"probe found every shard's product bit-equal")
+                check(bits, f"{which} rows {lo}:{hi} differ from the "
+                      f"unmeshed output ({rel:.3e} relative)")
                 p50 = statistics.median(times)
                 rows.append({"rows": n, "bucket": b, "bit_equal": bits,
                              "rel_err": rel, "p50_ms": round(p50, 3),
@@ -11637,27 +11754,9 @@ def phase_mesh_serving(card=None):
                              "probe_differs": differs}
             del net
             torch.cuda.empty_cache()
-        res = []
-        for r, (proc, err) in enumerate(procs):
-            try:
-                rc = proc.wait(timeout=900)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait(timeout=60)
-                rc = "timeout"
-            err.close()
-            if rc != 0:
-                with open(err.name) as f:
-                    check(False, f"[mesh_serving] rank exited {rc}: "
-                          f"{f.read()[-3000:]}")
-            with open(os.path.join(root, f"rank{r}.json")) as f:
-                res.append(json.load(f))
+        res = collect_ranks(procs, root, "mesh_serving", timeout_s=900)
     finally:
-        for proc, err in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait(timeout=60)
-            err.close()
+        stop_ranks(procs)
         shutil.rmtree(root, ignore_errors=True)
     lead, follow = res
     for which in ("mlp", "vgg"):
@@ -11683,8 +11782,8 @@ def phase_mesh_serving(card=None):
                   {f"{p['layer']}@{p['rows']}": p["max_abs_diff"]
                    for p in report[which]["probe"]}),
               probe_bit_equal=not report[which]["probe_differs"],
-              rows_held_to=("bits" if not report[which]["probe_differs"]
-                            else f"{MS_PROBE_RTOL} relative"),
+              probe_differing_pairs=len(report[which]["probe_differs"]),
+              rows_held_to="bits",
               sharded_layers=json.dumps(sorted(
                   k for k, v in lead[which]["specs"].items()
                   if any(s and s[-1] == "model" for s in v.values()))),
@@ -11706,6 +11805,794 @@ def phase_mesh_serving(card=None):
           follower_error=kind, follower_raised_after_s=f"{waited:.3f}",
           timeout_s=MS_TIMEOUT_S, follower_message=json.dumps(msg[:160]),
           phase_s=f"{time.perf_counter() - t_phase:.1f}")
+
+
+# ------------------------------------- A.5 parts 3-4: pipeline, sequence,
+# expert parallelism and decode on a model axis
+def timed_exchange():
+    """Wraps parallel/mesh.py's hop exchange to time each call on the host
+    clock (the card synchronized before and after): returns the list the
+    times (ms) go to."""
+    import torch
+    from deeplearning4j_tpu_torch.parallel import mesh as pmesh
+    inner, times = pmesh._exchange, []
+
+    def timed(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*a)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+    pmesh._exchange = timed
+    return times
+
+
+def peak_mb(fn):
+    """(fn(), MB the card's allocator peaked above its level at the
+    call)."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+# [sequence_parallel]: char-RNN's first GravesLSTM at full width (n_in 80,
+# n 512) over {"seq": 2} on two gloo ranks sharing the card, b = 32, one
+# step (forward and backward) at each T, BF16 on K1/K2's cluster route;
+# an F32 forward at T = 64 against one process's whole-T lstm_sequence
+SP_B, SP_N, SP_TS, SP_REPS = 32, 512, (64, 1024), 3
+# the BF16 arm against one process's whole-T forward: the carry (h, c)
+# crosses the ranks in bf16, as the JAX package's ppermute carries it,
+# where one process's K1 keeps c in f32 between steps; one rounding of c
+# (2**-9 relative) at the chunk boundary moves the later h by about as
+# much, a few bf16 ulps of |y| <= 1 after the roundings K1 makes anyway:
+# 4 ulps at 1, 2**-6
+SP_BF16_TOL = 2 ** -6
+# every leaf's gradient on a rank (its chunk's K2, the cotangents handed
+# back through the hops, the flat all-reduce of the replicated leaves)
+# against one process's whole-T gradient, relative L2: the bf16 carry
+# moves dWh 3.0-3.2e-3; a rank that lost the other rank's share of a
+# gradient, or the cotangent of a hop, is off by that share, which the
+# loss's terms on every step of both chunks keep of the order of 1
+SP_GRAD_RTOL = 2e-2
+
+
+def sp_rank(port, rank, root):
+    """One rank of [sequence_parallel]: the F32 forward arm, then for each
+    T the BF16 step on this rank's time chunk beside one process's
+    whole-T step (this process, after its ranks' step), K1/K2's launches
+    counted around the sharded step, each hop timed, peak memory read."""
+    import torch
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.ops import lstm as lstm_ops
+    from deeplearning4j_tpu_torch.ops import registry
+    from deeplearning4j_tpu_torch.parallel import distributed as D
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+    from deeplearning4j_tpu_torch.parallel.sequence import (
+        sequence_parallel_lstm, shard_sequence)
+    D.initialize(f"127.0.0.1:{port}", 2, rank, backend="gloo",
+                 timeout_s=300)
+    res = {}
+    try:
+        mesh = make_mesh({"seq": 2})
+        hops = timed_exchange()
+        net = zoo.char_rnn(seed=SEED + 2400, dtype=zoo.F32)
+        params = net.params["layer_0"]
+        rng = np.random.default_rng(SEED + 2401)
+
+        def chars(T):
+            return np.eye(DEC_V, dtype=np.float32)[
+                rng.integers(0, DEC_V, (SP_B, T))]
+
+        def whole(p, x, h0, c0):
+            xz = (torch.matmul(x, p["Wx"]) + p["b"]).transpose(0, 1) \
+                .contiguous()
+            out = lstm_ops.lstm_sequence(xz, h0, c0, p["Wh"], p["p"])
+            return out.y.transpose(0, 1), out.hT, out.cT
+
+        # F32: the sharded forward against one process's, on the chunk's
+        # own projection (the recurrence alone) and on the whole one
+        x = torch.from_numpy(chars(64)).cuda()
+        zeros = torch.zeros(SP_B, SP_N, device="cuda")
+        with torch.no_grad():
+            y, hT, cT = sequence_parallel_lstm(
+                mesh, "seq", params, shard_sequence(mesh, "seq", x),
+                zeros, zeros)
+            wy, whT, wcT = whole(params, x, zeros, zeros)
+            k = 64 // 2
+            # the chunks' own projections, the carry handed on in f32
+            h, c, ys = zeros, zeros, []
+            for s in range(2):
+                ys_s, h, c = whole(params, x[:, s * k:(s + 1) * k], h, c)
+                ys.append(ys_s)
+        torch.cuda.synchronize()
+        mine = slice(rank * k, (rank + 1) * k)
+        res["f32"] = {
+            "route": lstm_ops.kernel_route(torch.float32, SP_N),
+            "bits_chunk_projection": bool(torch.equal(y, ys[rank]))
+            and bool(torch.equal(hT, h)) and bool(torch.equal(cT, c)),
+            "bits_whole_projection": bool(torch.equal(y, wy[:, mine]))
+            and bool(torch.equal(hT, whT)),
+            "max_abs_whole_projection": max(
+                float((y - wy[:, mine]).abs().max()),
+                float((hT - whT).abs().max()))}
+
+        bf = {k: v.to(torch.bfloat16).detach() for k, v in params.items()}
+        for T in SP_TS:
+            x = torch.from_numpy(chars(T)).cuda().to(torch.bfloat16)
+            h0 = torch.zeros(SP_B, SP_N, device="cuda",
+                             dtype=torch.bfloat16)
+            w = torch.from_numpy(rng.normal(size=(SP_B, T, SP_N))
+                                 .astype(np.float32)).cuda()
+            xl = shard_sequence(mesh, "seq", x)
+            wl = shard_sequence(mesh, "seq", w)
+
+            def sharded():
+                p = {k: v.clone().requires_grad_() for k, v in bf.items()}
+                y, hT, cT = sequence_parallel_lstm(mesh, "seq", p, xl, h0,
+                                                   h0)
+                loss = (y.float() * wl).sum() + hT.float().sum()
+                loss.backward()
+                return y.detach(), hT.detach(), {k: v.grad
+                                                 for k, v in p.items()}
+
+            def one():
+                p = {k: v.clone().requires_grad_() for k, v in bf.items()}
+                y, hT, _ = whole(p, x, h0, h0)
+                loss = (y.float() * w).sum() + hT.float().sum()
+                loss.backward()
+                return y.detach(), hT.detach(), {k: v.grad
+                                                 for k, v in p.items()}
+
+            sharded()
+            one()
+            torch.cuda.synchronize()
+            registry.reset_launches()
+            del hops[:]
+            (y, hT, grads), mb = peak_mb(sharded)
+            launches = registry.launches()
+            hop_ms = list(hops)
+            ms = []
+            for _ in range(SP_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sharded()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            (wy, whT, wgrads), one_mb = peak_mb(one)
+            one_ms = []
+            for _ in range(SP_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                one()
+                torch.cuda.synchronize()
+                one_ms.append((time.perf_counter() - t0) * 1e3)
+            k = T // 2
+            mine = slice(rank * k, (rank + 1) * k)
+            res[f"bf16_T{T}"] = {
+                "launches": launches, "hop_ms": hop_ms,
+                "step_ms": ms, "one_process_ms": one_ms,
+                "peak_mb": mb, "one_process_peak_mb": one_mb,
+                "max_abs_y": float((y.float() - wy[:, mine].float())
+                                   .abs().max()),
+                "max_abs_hT": float((hT.float() - whT.float()).abs().max()),
+                "grad_rel_l2": {
+                    k: float((g.float() - wgrads[k].float()).norm()
+                             / wgrads[k].float().norm())
+                    for k, g in grads.items()}}
+    finally:
+        rank_out(root, rank, res)
+        D.shutdown()
+
+
+def phase_sequence_parallel(card=None):
+    """[sequence_parallel] (ROADMAP A.5 part 3): the rank children above,
+    then the checks: the F32 forward bit-equal to one process's on the
+    same projection (the chunks' K1 route is the whole run's: it depends
+    on dtype and n only); the BF16 chunks within SP_BF16_TOL of one
+    process's whole-T forward, every leaf's gradient within SP_GRAD_RTOL
+    of one process's; K1 once and K2 once a rank a step, both on the
+    cluster route."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="sequence_parallel_")
+    try:
+        res = collect_ranks(spawn_ranks("sp_rank", 2, root), root,
+                            "sequence_parallel")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    f32 = [r["f32"] for r in res]
+    check(all(f["bits_chunk_projection"] for f in f32),
+          f"[sequence_parallel] F32 chunks differ from one process's "
+          f"recurrence on the same projection: {f32}")
+    phase("sequence_parallel", arm="f32_forward", T=64, b=SP_B,
+          n_in=DEC_V, n=SP_N, mesh=json.dumps({"seq": 2}), backend="gloo",
+          k1_route=f32[0]["route"],
+          bit_equal_same_projection=True,
+          bit_equal_whole_projection=all(f["bits_whole_projection"]
+                                         for f in f32),
+          max_abs_whole_projection=json.dumps(
+              [f"{f['max_abs_whole_projection']:.3g}" for f in f32]),
+          card=card)
+    med = statistics.median
+    for T in SP_TS:
+        arms = [r[f"bf16_T{T}"] for r in res]
+        for r, a in enumerate(arms):
+            ln = a["launches"]
+            check(ln.get("lstm_fwd") == 1 and ln.get("lstm_fwd_sm90") == 1
+                  and ln.get("lstm_bwd_sm90") == 1
+                  and ln.get("lstm_bwd") == 3,
+                  f"[sequence_parallel] T={T} rank {r}: K1 and K2 once a "
+                  f"step on the cluster route expected, launched {ln}")
+            check(a["max_abs_y"] <= SP_BF16_TOL
+                  and a["max_abs_hT"] <= SP_BF16_TOL,
+                  f"[sequence_parallel] T={T} rank {r}: BF16 chunk vs one "
+                  f"process y {a['max_abs_y']:.3g}, hT "
+                  f"{a['max_abs_hT']:.3g} > {SP_BF16_TOL}")
+            g = a["grad_rel_l2"]
+            check(set(g) == {"Wx", "Wh", "b", "p"}
+                  and max(g.values()) <= SP_GRAD_RTOL,
+                  f"[sequence_parallel] T={T} rank {r}: gradients vs one "
+                  f"process (relative L2) {g}, bound {SP_GRAD_RTOL}")
+        phase("sequence_parallel", arm="bf16_step", T=T, b=SP_B,
+              n_in=DEC_V, n=SP_N, policy="BF16", route="cluster",
+              k1_launches_per_rank=1, k2_calls_per_rank=1,
+              k2_device_launches_per_rank=3,
+              max_abs_y=json.dumps([f"{a['max_abs_y']:.3g}" for a in arms]),
+              max_abs_hT=json.dumps([f"{a['max_abs_hT']:.3g}"
+                                     for a in arms]),
+              bound=f"{SP_BF16_TOL:.4g}",
+              grad_rel_l2_vs_one_process=json.dumps(
+                  [{k: f"{v:.3g}" for k, v in a["grad_rel_l2"].items()}
+                   for a in arms]),
+              grad_bound=SP_GRAD_RTOL,
+              step_ms_ranks=json.dumps([round(med(a["step_ms"]), 3)
+                                        for a in arms]),
+              step_ms_one_process=json.dumps(
+                  [round(med(a["one_process_ms"]), 3) for a in arms]),
+              hop_ms=json.dumps([[round(t, 3) for t in a["hop_ms"]]
+                                 for a in arms]),
+              hops_per_step_per_rank=len(arms[0]["hop_ms"]),
+              peak_mb_ranks=json.dumps([round(a["peak_mb"], 1)
+                                        for a in arms]),
+              peak_mb_one_process=json.dumps(
+                  [round(a["one_process_peak_mb"], 1) for a in arms]),
+              card=card)
+    phase("sequence_parallel", phase_s=f"{time.perf_counter() - t_phase:.1f}")
+
+
+# [pipeline]: gpt_mini's four TransformerBlocks at full width (256, 4
+# heads, T = 256) as four stages on {"pipe": 4} (four gloo ranks sharing
+# the card), b = 32 as 16 microbatches of 2, F32 and BF16; one SGD step
+PP_B, PP_MICRO, PP_LR = 32, 16, 0.1
+# the SGD step against the blocks applied in turn in one process: the
+# JAX test's bounds (tests/test_pipeline.py:83-84), params rtol and atol
+PP_STEP_TOL = 1e-5
+# the step's update (new - old params) against the update of the blocks
+# in turn, relative L2 over each leaf: a stage whose params did not move
+# reads 1 here, where PP_STEP_TOL alone may pass it when lr * grad is
+# below 1e-5 (the phase reports what an unmoved stage reads there too)
+PP_UPDATE_RTOL = 1e-3
+
+
+def pp_rank(port, rank, root):
+    """One rank (stage) of [pipeline]: for each policy the pipelined
+    forward (K3 launches counted, each stage call and each hop timed),
+    one SGD step, and on this process the blocks in turn over each
+    microbatch (rank 0: the forward; every rank: its stage's step)."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import registry
+    from deeplearning4j_tpu_torch.parallel import distributed as D
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+    from deeplearning4j_tpu_torch.parallel.pipeline import (
+        pipeline_forward, pipeline_train_step, shard_stages,
+        split_microbatches, stack_stage_params)
+    D.initialize(f"127.0.0.1:{port}", 4, rank, backend="gloo",
+                 timeout_s=300)
+    res = {}
+    try:
+        mesh = make_mesh({"pipe": 4})
+        hops = timed_exchange()
+        for policy in ("F32", "BF16"):
+            net = dec_net(policy, seed=SEED + 2410)
+            block = net.layers[1]
+            blocks = [net.params[f"layer_{i}"] for i in range(1, 5)]
+            cd = block.compute_dtype
+            rng = np.random.default_rng(SEED + 2411)
+            x = torch.from_numpy(rng.normal(size=(PP_B, DEC_C, DEC_W))
+                                 .astype(np.float32)).cuda().to(cd)
+            lab = torch.from_numpy(rng.normal(size=(PP_B, DEC_C, DEC_W))
+                                   .astype(np.float32)).cuda()
+            xm = split_microbatches(x, PP_MICRO)
+            lm = split_microbatches(lab, PP_MICRO)
+            stage_ms = []
+
+            def stage(p, h):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = block.apply(p, {}, h)[0]
+                torch.cuda.synchronize()
+                stage_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+
+            def mse(y, l):
+                return ((y.float() - l) ** 2).mean()
+
+            mine = shard_stages(mesh, "pipe", stack_stage_params(blocks))
+            # this rank's block alone, forward and backward on one
+            # microbatch, twice: what a first backward costs off the
+            # pipeline
+            alone = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                leaf = {k: v.detach().requires_grad_()
+                        for k, v in blocks[rank].items()}
+                mse(block.apply(leaf, {}, xm[0])[0], lm[0]).backward()
+                torch.cuda.synchronize()
+                alone.append((time.perf_counter() - t0) * 1e3)
+            with torch.no_grad():
+                pipeline_forward(mesh, "pipe", mine, xm, stage)   # warm
+                torch.cuda.synchronize()
+                registry.reset_launches()
+                del stage_ms[:], hops[:]
+                t0 = time.perf_counter()
+                y = pipeline_forward(mesh, "pipe", mine, xm, stage)
+                torch.cuda.synchronize()
+                fwd_ms = (time.perf_counter() - t0) * 1e3
+            launches = registry.launches()
+            out = {"launches": launches, "forward_ms": fwd_ms,
+                   "block_alone_ms": alone,
+                   "stage_ms": list(stage_ms), "hop_ms": list(hops),
+                   "ticks": PP_MICRO + 3}
+            if rank == 0:
+                with torch.no_grad():
+                    seq = []
+                    for mb in xm:
+                        h = mb
+                        for p in blocks:
+                            h = block.apply(p, {}, h)[0]
+                        seq.append(h)
+                    seq = torch.stack(seq)
+                torch.cuda.synchronize()
+                out["forward_bit_equal"] = bool(torch.equal(y, seq))
+                out["forward_max_abs"] = float((y.float() - seq.float())
+                                               .abs().max())
+            step = pipeline_train_step(mesh, "pipe", stage, mse, lr=PP_LR)
+            steps_ms = []
+            for _ in range(2):      # the same step twice: the second timed
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                new, loss = step(mine, xm, lm)
+                torch.cuda.synchronize()
+                steps_ms.append((time.perf_counter() - t0) * 1e3)
+            out["step_ms"] = steps_ms[1]
+            out["first_step_ms"] = steps_ms[0]
+            out["loss"] = float(loss)
+            leaves = [{k: v.detach().clone().requires_grad_()
+                       for k, v in p.items()} for p in blocks]
+            seq_loss = 0.0
+            for mb, lb in zip(xm, lm):
+                h = mb
+                for p in leaves:
+                    h = block.apply(p, {}, h)[0]
+                seq_loss = seq_loss + mse(h, lb) / PP_MICRO
+            seq_loss.backward()
+            err, upd, still, upd_sq = 0.0, 0.0, -math.inf, 0.0
+            for name, v in new.items():
+                ref = leaves[rank][name]
+                want = (ref - PP_LR * ref.grad.to(ref.dtype)).detach()
+                got = v[0]
+                err = max(err, float(((got - want).abs()
+                                      - PP_STEP_TOL * want.abs()).max()))
+                # what the same check reads of the stage's params unmoved
+                still = max(still, float(((blocks[rank][name] - want).abs()
+                                          - PP_STEP_TOL * want.abs()).max()))
+                d_ref = (want - blocks[rank][name]).float()
+                d_got = (got - blocks[rank][name]).float()
+                upd_sq += float(d_ref.norm()) ** 2
+                upd = max(upd, float((d_got - d_ref).norm()
+                                     / max(float(d_ref.norm()), 1e-30)))
+            out["step_excess_over_rtol"] = err
+            out["unmoved_excess_over_rtol"] = still
+            out["update_rel_l2"] = upd
+            out["update_l2"] = upd_sq ** 0.5
+            out["seq_loss"] = float(seq_loss)
+            res[policy] = out
+            del net, blocks, leaves, mine, new
+            torch.cuda.empty_cache()
+    finally:
+        rank_out(root, rank, res)
+        D.shutdown()
+
+
+def phase_pipeline(card=None):
+    """[pipeline] (ROADMAP A.5 part 3): the stage children above, then
+    the checks: the forward bit-equal to the blocks in turn on each
+    microbatch; K3 16 times a rank a forward (each stage its block's
+    attention on each of its 16 microbatches); the SGD step within the
+    JAX test's 1e-5 of the blocks in turn (params rtol and atol) and its
+    update within PP_UPDATE_RTOL of theirs."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="pipeline_")
+    try:
+        res = collect_ranks(spawn_ranks("pp_rank", 4, root), root,
+                            "pipeline")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    med = statistics.median
+    ticks = PP_MICRO + 3
+    for policy in ("F32", "BF16"):
+        arms = [r[policy] for r in res]
+        check(arms[0]["forward_bit_equal"], f"[pipeline] {policy}: the "
+              f"pipelined forward differs from the blocks in turn "
+              f"({arms[0]['forward_max_abs']:.3g})")
+        for r, a in enumerate(arms):
+            k3 = a["launches"].get("flash_attn_fwd", 0)
+            check(k3 == PP_MICRO, f"[pipeline] {policy} stage {r}: K3 "
+                  f"launched {k3} times in a forward, expected {PP_MICRO}")
+            if policy == "BF16":
+                check(a["launches"].get("flash_attn_fwd_sm90", 0)
+                      == PP_MICRO, f"[pipeline] stage {r}: K3 off its "
+                      f"sm90 route: {a['launches']}")
+            check(a["step_excess_over_rtol"] <= PP_STEP_TOL,
+                  f"[pipeline] {policy} stage {r}: the SGD step is "
+                  f"{a['step_excess_over_rtol']:.3g} past rtol "
+                  f"{PP_STEP_TOL} + atol {PP_STEP_TOL}")
+            check(a["update_rel_l2"] <= PP_UPDATE_RTOL and a["update_l2"] > 0,
+                  f"[pipeline] {policy} stage {r}: the step's update is "
+                  f"{a['update_rel_l2']:.3g} (relative L2) from the blocks "
+                  f"in turn's, bound {PP_UPDATE_RTOL}; its norm "
+                  f"{a['update_l2']:.3g}")
+            check(abs(a["loss"] - a["seq_loss"]) <= 1e-5 * abs(a["seq_loss"]),
+                  f"[pipeline] {policy} stage {r}: loss {a['loss']} vs the "
+                  f"blocks in turn {a['seq_loss']}")
+        busy = [sum(a["stage_ms"]) / a["forward_ms"] for a in arms]
+        phase("pipeline", policy=policy, stages=4, b=PP_B,
+              microbatches=PP_MICRO, mb=PP_B // PP_MICRO, T=DEC_C,
+              width=DEC_W, heads=DEC_H, mesh=json.dumps({"pipe": 4}),
+              backend="gloo", forward_bit_equal=True,
+              k3_launches_per_rank=PP_MICRO,
+              k3_route="sm90" if policy == "BF16" else "fma",
+              step_rtol=PP_STEP_TOL,
+              step_excess_over_rtol=json.dumps(
+                  [f"{a['step_excess_over_rtol']:.3g}" for a in arms]),
+              update_rel_l2=json.dumps([f"{a['update_rel_l2']:.3g}"
+                                        for a in arms]),
+              update_bound=PP_UPDATE_RTOL,
+              update_l2=json.dumps([f"{a['update_l2']:.4g}" for a in arms]),
+              unmoved_stage_excess_over_rtol=json.dumps(
+                  [f"{a['unmoved_excess_over_rtol']:.3g}" for a in arms]),
+              loss=f"{arms[0]['loss']:.7g}",
+              forward_ms=json.dumps([round(a["forward_ms"], 2)
+                                     for a in arms]),
+              tick_ms=f"{med([a['forward_ms'] for a in arms]) / ticks:.3f}",
+              stage_call_ms=json.dumps([round(med(a["stage_ms"]), 3)
+                                        for a in arms]),
+              bubble_share_schedule=f"{3 / ticks:.4f}",
+              idle_share_ranks=json.dumps([round(1 - b, 4) for b in busy]),
+              hop_ms_median=json.dumps([round(med(a["hop_ms"]), 3)
+                                        if a["hop_ms"] else None
+                                        for a in arms]),
+              hops_per_forward=json.dumps([len(a["hop_ms"]) for a in arms]),
+              step_ms=json.dumps([round(a["step_ms"], 2) for a in arms]),
+              first_step_ms=json.dumps([round(a["first_step_ms"], 2)
+                                        for a in arms]),
+              block_alone_fwd_bwd_ms=json.dumps(
+                  [[round(t, 2) for t in a["block_alone_ms"]]
+                   for a in arms]),
+              card=card)
+    phase("pipeline", phase_s=f"{time.perf_counter() - t_phase:.1f}")
+
+
+# [experts]: 8 experts at gpt_mini's FFN widths (256 -> 1,024 -> 256) over
+# 8,192 tokens, top-2, the default capacity (2 * 2 * 8192 / 8 = 4,096),
+# F32, on {"expert": 2}; 3 SGD steps on the sharded params
+EP_E, EP_TOKENS, EP_TOPK, EP_STEPS, EP_LR = 8, 8192, 2, 3, 0.1
+# one backward on the shard against one process's: every leaf's gradient
+# (a rank's slice of the experts') and x's, relative L2. The leaves'
+# come from the same products on the gathered cotangent's slice; x's
+# sums the two ranks' experts' shares in one all-reduce, where one
+# process accumulates them one expert at a time: f32 rounding only
+EP_GRAD_RTOL = 1e-6
+
+
+def ep_rank(port, rank, root):
+    """One rank of [experts]: its experts' shard against one process's
+    moe_ffn (this process) on the same tokens, timed and its peak memory
+    read; then EP_STEPS SGD steps on the shard; the router written."""
+    import torch
+    from deeplearning4j_tpu_torch.parallel import distributed as D
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+    from deeplearning4j_tpu_torch.parallel.experts import (
+        ExpertShard, init_moe_params, moe_ffn, shard_experts)
+    D.initialize(f"127.0.0.1:{port}", 2, rank, backend="gloo",
+                 timeout_s=300)
+    res = {}
+    try:
+        mesh = make_mesh({"expert": 2})
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 2420)
+        params = init_moe_params(gen, EP_E, DEC_W, 4 * DEC_W)
+        x = torch.randn(EP_TOKENS, DEC_W, generator=gen, device="cuda")
+        target = torch.tanh(x @ torch.randn(DEC_W, DEC_W, generator=gen,
+                                            device="cuda") * 0.1)
+        mine = shard_experts(mesh, "expert", params)
+
+        def run(p):
+            with torch.no_grad():
+                return moe_ffn(p, x, top_k=EP_TOPK)
+
+        run(mine)
+        run(params)
+        mine.mg.calls = mine.mg.bytes = 0
+        mine.mg.seconds = 0.0
+        (y, aux), mb = peak_mb(lambda: run(mine))
+        gather_mb = mine.mg.bytes / 1e6
+        gather_ms = mine.mg.seconds * 1e3
+        (y1, aux1), one_mb = peak_mb(lambda: run(params))
+        ms, one_ms = [], []
+        for p, sink in ((mine, ms), (params, one_ms)) * 3:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(p)
+            torch.cuda.synchronize()
+            sink.append((time.perf_counter() - t0) * 1e3)
+        res.update(
+            bit_equal_y=bool(torch.equal(y, y1)),
+            bit_equal_aux=bool(torch.equal(aux, aux1)),
+            max_abs_y=float((y - y1).abs().max()),
+            aux=float(aux), peak_mb=mb, one_process_peak_mb=one_mb,
+            gather_mb=gather_mb, gather_ms=gather_ms, ms=ms,
+            one_process_ms=one_ms,
+            shard=list(mine["W1"].shape))
+
+        def grads(p):
+            leaves = {k: v.clone().requires_grad_() for k, v in p.items()}
+            xg = x.clone().requires_grad_()
+            y, aux = moe_ffn(ExpertShard(leaves, p.mg) if p is mine
+                             else leaves, xg, top_k=EP_TOPK)
+            (((y - target) ** 2).mean() + 0.01 * aux).backward()
+            return {"x": xg.grad, **{k: v.grad for k, v in leaves.items()}}
+
+        g, g1 = grads(mine), grads(params)
+        part = EP_E // 2
+        for k in ("W1", "b1", "W2", "b2"):
+            g1[k] = g1[k][rank * part:(rank + 1) * part]
+        res["grad_rel_l2"] = {
+            k: float((g[k] - g1[k]).norm() / g1[k].norm()) for k in g}
+        res["grad_bit_equal"] = sorted(k for k in g
+                                       if torch.equal(g[k], g1[k]))
+        p = ExpertShard({k: v.clone().requires_grad_()
+                         for k, v in mine.items()}, mine.mg)
+        losses = []
+        for _ in range(EP_STEPS):
+            y, aux = moe_ffn(p, x, top_k=EP_TOPK)
+            loss = ((y - target) ** 2).mean() + 0.01 * aux
+            loss.backward()
+            with torch.no_grad():
+                for v in p.values():
+                    v -= EP_LR * v.grad
+                    v.grad = None
+            losses.append(float(loss))
+        res["losses"] = losses
+        rank_out(root, rank, res, {"router": p["router"].detach().cpu()})
+    finally:
+        if not os.path.exists(os.path.join(root, f"rank{rank}.json")):
+            rank_out(root, rank, res)
+        D.shutdown()
+
+
+def phase_experts(card=None):
+    """[experts] (ROADMAP A.5 part 3): the children above, then the
+    checks: each rank's output and aux loss bit-equal to one process's
+    (no partial sum crosses the ranks: each rank's experts run one
+    process's products, the combine runs whole after the gather); one
+    backward's gradients within EP_GRAD_RTOL of one process's; the router
+    leaves bit-equal on both ranks after EP_STEPS SGD steps."""
+    import shutil
+    import tempfile
+
+    import torch
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="experts_")
+    try:
+        res = collect_ranks(spawn_ranks("ep_rank", 2, root), root,
+                            "experts")
+        routers = [torch.load(os.path.join(root, f"rank{r}.pt"))["router"]
+                   for r in range(2)]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for r, a in enumerate(res):
+        check(a["bit_equal_y"] and a["bit_equal_aux"], f"[experts] rank "
+              f"{r}: the sharded output differs from one process's "
+              f"({a['max_abs_y']:.3g})")
+        check(a["shard"] == [EP_E // 2, DEC_W, 4 * DEC_W],
+              f"[experts] rank {r}: W1 shard {a['shard']}")
+        g = a["grad_rel_l2"]
+        check(set(g) == {"x", "router", "W1", "b1", "W2", "b2"}
+              and max(g.values()) <= EP_GRAD_RTOL,
+              f"[experts] rank {r}: gradients vs one process (relative "
+              f"L2) {g}, bound {EP_GRAD_RTOL}")
+    check(torch.equal(routers[0], routers[1]), "[experts] the router "
+          "leaves differ between the ranks after training")
+    check(res[0]["losses"] == res[1]["losses"] and all(
+        math.isfinite(v) for v in res[0]["losses"]),
+        f"[experts] the ranks' losses {res[0]['losses']}, "
+        f"{res[1]['losses']}")
+    med = statistics.median
+    phase("experts", experts=EP_E, f_in=DEC_W, f_hidden=4 * DEC_W,
+          tokens=EP_TOKENS, top_k=EP_TOPK,
+          capacity=max(2 * EP_TOPK * EP_TOKENS // EP_E, 4), policy="F32",
+          mesh=json.dumps({"expert": 2}), backend="gloo",
+          bit_equal_to_one_process=True, router_bit_equal_after=EP_STEPS,
+          grad_rel_l2_vs_one_process=json.dumps(
+              [{k: f"{v:.3g}" for k, v in a["grad_rel_l2"].items()}
+               for a in res]),
+          grad_bound=EP_GRAD_RTOL,
+          grad_bit_equal=json.dumps([a["grad_bit_equal"] for a in res]),
+          aux=f"{res[0]['aux']:.7g}",
+          losses=json.dumps([round(v, 6) for v in res[0]["losses"]]),
+          ms_ranks=json.dumps([round(med(a["ms"]), 2) for a in res]),
+          ms_one_process=json.dumps([round(med(a["one_process_ms"]), 2)
+                                     for a in res]),
+          gather_mb=f"{res[0]['gather_mb']:.2f}",
+          gather_ms=json.dumps([round(a["gather_ms"], 2) for a in res]),
+          peak_mb_ranks=json.dumps([round(a["peak_mb"], 1) for a in res]),
+          peak_mb_one_process=json.dumps(
+              [round(a["one_process_peak_mb"], 1) for a in res]),
+          phase_s=f"{time.perf_counter() - t_phase:.1f}", card=card)
+
+
+# [mesh_decode]: gpt_mini at full width (BF16 policy) on {"model": 2} with
+# gpt_mini_tp_rules, its DecodeEngine built on both ranks (the shards'
+# gather), 8 sessions of 32 greedy tokens on the leader
+MD_SESSIONS, MD_TOKENS = 8, 32
+
+
+def md_prompts():
+    return {f"m{i}": dec_ids(8 + 11 * i, SEED + 2430 + i)
+            for i in range(MD_SESSIONS)}
+
+
+def md_greedy(eng, prompts, n):
+    """{sid: (tokens, [logits rows])} of greedy decode, session by
+    session."""
+    out = {}
+    for sid, ids in prompts.items():
+        logits = np.asarray(eng.prefill(sid, ids))
+        toks, rows = [], []
+        for _ in range(n):
+            rows.append(logits)
+            toks.append(int(np.argmax(logits)))
+            logits = np.asarray(eng.step(sid, toks[-1]))
+        out[sid] = (toks, np.stack(rows))
+        eng.close_session(sid)
+    return out
+
+
+def md_rank(port, rank, root):
+    """One rank of [mesh_decode]: the tensor-parallel net, the engine
+    (the gather, a collective of both ranks), and on the leader the
+    sessions with the S kernels' launches and the forwards counted."""
+    import torch
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.ops import registry
+    from deeplearning4j_tpu_torch.parallel import distributed as D
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+    from deeplearning4j_tpu_torch.serving.decode import DecodeEngine
+    D.initialize(f"127.0.0.1:{port}", 2, rank, backend="gloo",
+                 timeout_s=300)
+    res, tensors = {}, {}
+    try:
+        net = dec_net(seed=SEED + 2431)
+        net.use_mesh(make_mesh({"model": 2}), model_axis="model",
+                     tp_rules=zoo.gpt_mini_tp_rules())
+        res["wq_shard"] = list(net.params["layer_1"]["Wq"].shape)
+        mg = net._tp.mg
+        c0, s0 = mg.calls, mg.seconds
+        t0 = time.perf_counter()
+        eng = DecodeEngine(net, replicas=1, batch_window_ms=1.0)
+        res.update(engine_s=time.perf_counter() - t0,
+                   gather_calls=mg.calls - c0,
+                   gather_ms=(mg.seconds - s0) * 1e3,
+                   wq_engine=list(eng.forward._params["layer_1"]["Wq"]
+                                  .shape))
+        try:
+            if rank == 0:
+                runs = [0]
+                inner = eng.forward._run
+
+                def counted(*a):
+                    runs[0] += 1
+                    return inner(*a)
+                eng.forward._run = counted
+                torch.cuda.synchronize()
+                registry.reset_launches()
+                t0 = time.perf_counter()
+                out = md_greedy(eng, md_prompts(), MD_TOKENS)
+                torch.cuda.synchronize()
+                res.update(decode_s=time.perf_counter() - t0,
+                           launches=registry.launches(), forwards=runs[0],
+                           tokens={s: t for s, (t, _) in out.items()})
+                tensors = {s: torch.from_numpy(r) for s, (_, r) in
+                           out.items()}
+        finally:
+            eng.stop()
+    finally:
+        rank_out(root, rank, res, tensors if rank == 0 else None)
+        D.shutdown()
+
+
+def phase_mesh_decode(card=None):
+    """[mesh_decode] (ROADMAP A.5 part 4): the rank children above and,
+    meanwhile in this process, the unmeshed engine over the same net;
+    then the checks: tokens and logits rows bit-equal, S1/S2/S3 25/4/8
+    launches a forward."""
+    import shutil
+    import tempfile
+
+    import torch
+    from deeplearning4j_tpu_torch.ops import stream_exact as se
+    from deeplearning4j_tpu_torch.serving.decode import DecodeEngine
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="mesh_decode_")
+    try:
+        procs = spawn_ranks("md_rank", 2, root)
+        try:
+            ref_net = dec_net(seed=SEED + 2431)
+            eng = DecodeEngine(ref_net, replicas=1, batch_window_ms=1.0)
+            try:
+                t0 = time.perf_counter()
+                ref = md_greedy(eng, md_prompts(), MD_TOKENS)
+                ref_s = time.perf_counter() - t0
+            finally:
+                eng.stop()
+            del ref_net, eng
+            torch.cuda.empty_cache()
+        finally:
+            res = collect_ranks(procs, root, "mesh_decode")
+        rows = torch.load(os.path.join(root, "rank0.pt"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    lead = res[0]
+    for sid, (toks, want) in ref.items():
+        check(lead["tokens"][sid] == toks, f"[mesh_decode] {sid}: tokens "
+              f"{lead['tokens'][sid]} != the unmeshed engine's {toks}")
+        check(np.array_equal(rows[sid].numpy(), want), f"[mesh_decode] "
+              f"{sid}: logits differ from the unmeshed engine's")
+    fw = lead["forwards"]
+    per = {se.KERNEL_DENSE: 6 * DEC_L + 1, se.KERNEL_MHA: DEC_L,
+           se.KERNEL_NORM: 2 * DEC_L}
+    got = {k: lead["launches"].get(k, 0) for k in per}
+    check(fw > 0 and got == {k: v * fw for k, v in per.items()},
+          f"[mesh_decode] S launches {got} in {fw} forwards, expected "
+          f"{per} a forward")
+    for r, a in enumerate(res):
+        check(a["wq_shard"] == [DEC_W, DEC_W // 2]
+              and a["wq_engine"] == [DEC_W, DEC_W],
+              f"[mesh_decode] rank {r}: shard {a['wq_shard']}, engine "
+              f"{a['wq_engine']}")
+    tokens = MD_SESSIONS * MD_TOKENS
+    phase("mesh_decode", mesh=json.dumps({"model": 2}), backend="gloo",
+          rules="gpt_mini_tp_rules", policy="BF16", sessions=MD_SESSIONS,
+          tokens_each=MD_TOKENS, bit_equal_to_unmeshed=True,
+          forwards=fw, s_launches_per_forward=json.dumps(per),
+          gather_calls=json.dumps([a["gather_calls"] for a in res]),
+          gather_ms=json.dumps([round(a["gather_ms"], 2) for a in res]),
+          engine_build_s=json.dumps([round(a["engine_s"], 3)
+                                     for a in res]),
+          tokens_per_s_meshed=f"{tokens / lead['decode_s']:.2f}",
+          tokens_per_s_unmeshed=f"{tokens / ref_s:.2f}",
+          phase_s=f"{time.perf_counter() - t_phase:.1f}", card=card)
 
 
 def main() -> int:
@@ -11804,6 +12691,23 @@ def main() -> int:
         phase_mesh_serving(phase_device())
         print(ok_line, flush=True)
         return 0
+    # A.5 parts 3-4: each phase after the kernels its path runs, against
+    # their plain versions, as in the full run
+    for flag, before, only in (
+            ("--sequence-parallel",
+             (phase_kernel_vs_plain, phase_bwd_vs_plain),
+             phase_sequence_parallel),
+            ("--pipeline", (phase_flash_vs_plain,), phase_pipeline),
+            ("--experts", (), phase_experts),
+            ("--mesh-decode", (phase_stream_exact_vs_plain,),
+             phase_mesh_decode)):
+        if flag in sys.argv[1:]:
+            card = phase_device()
+            for fn in before:
+                fn()
+            only(card)
+            print(ok_line, flush=True)
+            return 0
     for flag, only in (("--front-door", phase_front_door),
                        ("--cold-start", phase_cold_start),
                        ("--dashboard", phase_dashboard),
@@ -11866,6 +12770,10 @@ def main() -> int:
     phase_tensor_parallel(card)
     phase_graph_tensor_parallel(card)
     phase_mesh_serving(card)
+    phase_sequence_parallel(card)
+    phase_pipeline(card)
+    phase_experts(card)
+    phase_mesh_decode(card)
     phase_stream_split()
     profiler_probe("after_all", profiles=5, names=names)
     phase("profiler", pause_s=PROFILE_PAUSE_S, **PROFILES)

@@ -12,6 +12,11 @@ a layer whose W is column- or row-parallel computes its pre-activation
 on its shard (``LayerTP.dense``: a column-sharded result is gathered
 whole before the activation, which may mix features, and the loss); an
 embedding table sharded by columns looks up its columns and gathers.
+
+The F32 inference product on the card runs on S1 (``dense_product``),
+so a column shard's product is the whole product's columns bit for bit:
+``net.output`` and the mesh-serving walk (parallel/inference.py) give
+the same rows.
 """
 
 from __future__ import annotations
@@ -22,6 +27,27 @@ import torch.nn.functional as F
 from deeplearning4j_tpu_torch.nn.layers.base import Layer
 from deeplearning4j_tpu_torch.ops import initializers as init_mod
 from deeplearning4j_tpu_torch.ops import losses as losses_mod
+from deeplearning4j_tpu_torch.ops import registry, stream_exact
+
+
+def dense_product(x, W, b, cd):
+    """x @ W (+ b) in the compute dtype ``cd``: on S1 where
+    ``stream_exact.dense_route`` says "stream" (the F32 forward on the
+    card with no grad, as under ``net.output``'s inference mode; counted
+    as ``dense:route[stream]``), whose sums over the input width run in
+    one order whatever the rows and the output width; else one
+    ``torch.matmul`` with the bias added in ``cd`` (training, other
+    dtypes, the CPU)."""
+    if stream_exact.dense_route(cd, x.device,
+                                torch.is_grad_enabled()) == "stream":
+        registry.count_launch(stream_exact.DENSE_ROUTED)
+        return stream_exact.stream_dense(
+            x.to(cd).contiguous(), W.to(cd).contiguous(),
+            None if b is None else b.to(cd).contiguous())
+    z = torch.matmul(x.to(cd), W.to(cd))
+    if b is not None:
+        z = z + b.to(cd)
+    return z
 
 
 class DenseLayer(Layer):
@@ -40,10 +66,7 @@ class DenseLayer(Layer):
         cd = self.compute_dtype
         if self.tp is not None and self.tp.rendered:
             return self.tp.dense(x, params["W"], params.get("b"), cd)
-        z = torch.matmul(x.to(cd), params["W"].to(cd))
-        if "b" in params:
-            z = z + params["b"].to(cd)
-        return z
+        return dense_product(x, params["W"], params.get("b"), cd)
 
     def apply(self, params, state, x, *, train=False, gen=None, mask=None):
         x = self._input_dropout(x, train, gen)

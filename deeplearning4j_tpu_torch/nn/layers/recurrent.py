@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from deeplearning4j_tpu_torch.nn.layers.base import Layer
+from deeplearning4j_tpu_torch.nn.layers.feedforward import dense_product
 from deeplearning4j_tpu_torch.ops import initializers as init_mod
 from deeplearning4j_tpu_torch.ops import losses as losses_mod
 from deeplearning4j_tpu_torch.ops import lstm as lstm_ops
@@ -142,10 +143,7 @@ class RnnOutputLayerImpl(Layer):
         cd = self.compute_dtype
         if self.tp is not None and self.tp.rendered:
             return self.tp.dense(x, params["W"], params.get("b"), cd)
-        z = torch.matmul(x.to(cd), params["W"].to(cd))
-        if "b" in params:
-            z = z + params["b"].to(cd)
-        return z
+        return dense_product(x, params["W"], params.get("b"), cd)
 
     @property
     def loss_fn(self) -> losses_mod.Loss:

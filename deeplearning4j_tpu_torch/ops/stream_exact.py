@@ -163,6 +163,26 @@ def stream_rownorm_torch(x, gamma, beta, eps):
     return torch.add(y, beta.to(torch.float32))
 
 
+#: the counter of a dense layer's product that ``dense_route`` sent to S1
+DENSE_ROUTED = "dense:route[stream]"
+
+
+def dense_route(dtype, device, train) -> str:
+    """Where a dense layer's product x.W (+ b) runs (nn/layers/
+    feedforward.py ``dense_product``: Dense, Output, RnnOutput and the
+    layers built on them): "stream", S1, for an F32 inference product on
+    the card, whose every output then sums over f in one order whatever
+    the rows and the output width, so a column shard of W gives the whole
+    product's columns bit for bit (mesh serving, parallel/inference.py);
+    "matmul" for everything else: ``train`` (a product autograd records,
+    as the layers pass grad mode), other dtypes and the CPU, whose
+    product the JAX parity tests hold."""
+    if (dtype == torch.float32 and torch.device(device).type == "cuda"
+            and not train):
+        return "stream"
+    return "matmul"
+
+
 def stream_dense(x, W, b=None):
     """S1 through the registry: the plain version on the CPU, the kernel
     on the card."""

@@ -14,9 +14,16 @@ coordinating master process. The reference's ParameterAveraging
 *semantics* (average every k local steps) is ``ParallelWrapper`` (one
 process) and ``distributed.MultiProcessLocalSGD`` (across processes).
 
-Pipeline, sequence and expert parallelism wait for ROADMAP.md A.5 part
-3; the supervisor's cross-process coordination over ``distributed`` is
-ported (resilience/).
+A 'pipe' axis holds one stage of a stacked trunk a rank and streams
+microbatches through the ranks in a GPipe wavefront
+(parallel/pipeline.py); a 'seq' axis shards a recurrent sequence's time
+axis, the LSTM's carry handed down the ranks (parallel/sequence.py: K1
+and K2 on each rank's chunk); an 'expert' axis shards a mixture of
+experts' stacked FFNs (parallel/experts.py). Their hops between ranks
+are one autograd Function, ``mesh.ring_shift``, the JAX package's
+``ppermute``. A tensor-parallel net decodes through the decode engine
+over its shards gathered whole (serving/decode.py). The supervisor's
+cross-process coordination over ``distributed`` is in resilience/.
 """
 
 from deeplearning4j_tpu_torch.parallel.mesh import make_mesh

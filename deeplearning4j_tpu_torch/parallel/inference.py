@@ -16,10 +16,15 @@ walk does:
 - the rows may also split over a data axis, with a final row gather.
 
 The one remaining condition is that the local product's reduction order
-does not depend on the output width: a GEMM or convolution library picks
-its algorithm by shape, so a column shard can come out of another kernel
-than the full product's columns (``chip_smoke.py --mesh-serving`` probes
-each served shape on the card).
+does not depend on the output width. A GEMM library picks its kernel by
+shape, so a column shard could come out of another kernel than the whole
+product's columns (cuBLAS did, at mnist_mlp's and VGG-16's dense shapes).
+So a dense layer's F32 inference product on the card runs on S1
+(ops/stream_exact.py ``dense_route``: each output sums over K in one
+order whatever the rows and the width), on the unmeshed ``net.output``
+and this walk alike; cuDNN's F32 convolutions keep their shards' bits
+(``chip_smoke.py --mesh-serving`` probes every served shape through the
+layers' own routes).
 
 The port runs one process a device where JAX has one controller, so the
 walk runs on every rank of the mesh at once. ``ServingGroup`` is the

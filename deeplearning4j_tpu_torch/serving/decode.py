@@ -147,19 +147,18 @@ class StreamingKVForward:
     copy of the net's layers with streaming on, over the net's live
     parameters, under ``torch.inference_mode``, on the net's device; the
     net's own layers are never switched, so ``net.output`` may run beside
-    it."""
+    it. A tensor-parallel net's shards are gathered whole once, at
+    construction (``refresh_params``, a collective of its model group),
+    and the engine streams over that copy: the params as of then."""
 
     def __init__(self, net):
-        if getattr(net, "_tp", None) is not None:
-            raise NotImplementedError(
-                "decode on a model axis: the decode engine streams its own "
-                "copy of the layers over the net's params, which a "
-                "tensor-parallel net holds as shards; it waits for "
-                "ROADMAP.md A.5 part 4 (decode on a model axis). "
-                "rnn_time_step streams on a model axis (the gather route)")
         self.net = net
         self.device = net.device
+        self._params = None
+        if getattr(net, "_tp", None) is not None:
+            self.refresh_params()
         self._stream_net = copy.copy(net)
+        self._stream_net._tp = None
         self._stream_net._build_layers()
         set_streaming(self._stream_net.layers, True)
         self.vocab_size = int(net.layers[0].conf.n_in)
@@ -173,6 +172,29 @@ class StreamingKVForward:
         self.carry_np_dtypes = [_host_dtype(d) for d in self._carry_dtypes]
         #: per-row shapes of the decode ticket's leaves (for warm-up)
         self.carry_row_shapes = [tuple(t.shape[1:]) for t in probe[2]]
+
+    def refresh_params(self):
+        """A tensor-parallel net (on a model axis, parallel/tensor.py):
+        gather its shards whole, once, through the model group, as the
+        gather route does for ``rnn_time_step``; the engine then streams
+        on S1-S3 over that copy, bit for bit as over the unmeshed net's
+        params. So it serves the params as of its construction, or of
+        its last call here: a collective, which every rank of the model
+        group calls (after a step, to serve the new params). Raises
+        where the gather cannot run: a net on a model axis with no
+        process group up."""
+        tp = getattr(self.net, "_tp", None)
+        if tp is None:
+            return
+        import torch.distributed as dist
+        if not dist.is_initialized():
+            raise RuntimeError(
+                "decode on a model axis gathers the net's shards through "
+                "its model group, and no process group is up "
+                "(parallel.distributed.initialize); every rank of the "
+                "model group builds the engine")
+        with torch.no_grad():
+            self._params = tp.gathered(self.net.params, tp.specs)
 
     # ------------------------------------------------------------- internals
     def _state_with(self, leaves):
@@ -191,7 +213,9 @@ class StreamingKVForward:
         state = (self.net.state or {}) if leaves is None \
             else self._state_with(leaves)
         with torch.inference_mode():
-            out, ns = self._stream_net._forward(self.net.params, state, x,
+            params = self.net.params if self._params is None \
+                else self._params
+            out, ns = self._stream_net._forward(params, state, x,
                                                 train=False, fmask=mask)
             keys, new = [], []
             for ln in sorted(ns):
@@ -435,6 +459,14 @@ class DecodeEngine:
                 ran += self.fleet.warm([(t,), (t, v)] + carry, skip=())
             ran += self._draft.warm()
         return sorted(set(ran))
+
+    def refresh_params(self):
+        """Gather a tensor-parallel target's (and draft's) shards anew
+        (``StreamingKVForward.refresh_params``): a collective that every
+        rank of the model group calls; sessions keep their caches."""
+        self.forward.refresh_params()
+        if self._draft is not None:
+            self._draft.refresh_params()
 
     def _await(self, fut, sid: str, what: str):
         try:

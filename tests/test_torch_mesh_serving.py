@@ -16,7 +16,9 @@
   restore the MLP with ``load_net(mesh=)``, precompile the meshed ladder
   and boot from that manifest; run the JAX package's refusals; and, at
   ``{"model": 2}``, stream a char-RNN with ``rnn_time_step`` on the
-  model axis, held bit for bit against the unmeshed stream.
+  model axis and decode it through ``DecodeEngine`` (its shards gathered
+  at construction), held bit for bit against the unmeshed stream and
+  tokens.
 - A third fleet of 2 ranks kills its leader after the follower is up:
   the follower raises ``CollectiveTimeoutError`` within its timeout.
 """
@@ -208,7 +210,15 @@ try:
         res["rnn_bits"] = bool(same)
         res["rnn_routes"] = registry.routes()
         from deeplearning4j_tpu_torch.serving.decode import DecodeEngine
-        res["decode"] = refused(lambda: DecodeEngine(rnn))
+        # decode on the model axis: the engine gathers the shards whole
+        # once (both ranks build it), then decodes as the unmeshed one
+        engines = [DecodeEngine(n, batch_window_ms=1.0) for n in (rnn, ref)]
+        try:
+            prompt = [int(i) for i in ids[0]]
+            res["decode"] = [e.generate("s", prompt, 4) for e in engines]
+        finally:
+            for e in engines:
+                e.stop()
 finally:
     with open(f"{tmp}/w{world}r{rank}.json", "w") as fh:
         json.dump(res, fh)
@@ -402,8 +412,8 @@ def test_streaming_on_a_model_axis_is_the_unmeshed_stream(fleets):
         assert res["rnn_routes"] == {
             "tensor_parallel:composed[gather:graves_lstm]": 7,
             "tensor_parallel:composed[gather:rnn_output]": 7}
-        assert res["decode"][0] == "NotImplementedError"
-        assert "A.5 part 4" in res["decode"][1]
+        meshed, unmeshed = res["decode"]
+        assert len(meshed) == 4 and meshed == unmeshed
 
 
 def test_a_follower_whose_leader_dies_raises_within_its_timeout(fleets):
