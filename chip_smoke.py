@@ -260,6 +260,21 @@ chunk), gpt_mini's four blocks as four pipeline stages (K3 on each),
 8 experts at gpt_mini's FFN widths over {"expert": 2}, and gpt_mini's
 decode engine on {"model": 2}, each held to one process.
 
+    python3 chip_smoke.py --slice25
+
+runs K1, K2 and S1-S3 against their plain versions, then model import,
+clustering and the native loader: [keras_import] (a Keras 2 char-RNN at
+the zoo's width from JSON + seeded weights served over HTTP and trained
+3 steps on K1/K2, held to its CPU import; the same with Keras's
+hard-sigmoid gate on the counted composed route; keras.applications'
+VGG-16 as a ComputationGraph served in buckets of 1 and 4 rows, S1 3 a
+forward), [dl4j_import] (char_rnn and VGG-16 through the DL4J zip and
+back bit for bit, the golden fixture, the model guesser on three
+formats), [clustering] (k-means k = 1,000 on 100,000 x 300, each Lloyd
+step held to float64; Barnes-Hut t-SNE) and [native_io] (the g++-built
+loader feeding a LeNet epoch from MNIST-shaped IDX files); the full run
+calls the same phases before [stream_split].
+
 K1 and K2 (bf16 at n a multiple of 64 up to 512: thread-block clusters
 with Wh resident, DSMEM exchange, wgmma), K3 (bf16) and K4-K7 (bf16,
 where TMA can read their operands) run on Hopper kernels (TMA loads,
@@ -12595,6 +12610,828 @@ def phase_mesh_decode(card=None):
           phase_s=f"{time.perf_counter() - t_phase:.1f}", card=card)
 
 
+# ---------------------------------------------------------------- slice 25
+# Model import, clustering and the native loader (ROADMAP.md A.6.1, the
+# clustering of A.6.2, A.6.3), each phase through the entry points a user
+# calls, on the card. [keras_import] imports Keras models from JSON +
+# numpy-seeded weights (h5py is not on the card's machine; the HDF5
+# reader is held in tests/test_torch_keras_import.py on the CPU): a
+# Keras 2 Sequential char-RNN at the zoo's width (input (64, 80),
+# LSTM(512, return_sequences) x 2, TimeDistributed(Dense(80, softmax)))
+# and keras.applications.VGG16's functional graph (224 x 224 x 3, 1000
+# classes, 138,357,544 parameters).
+KI_T, KI_V, KI_H, KI_B = 64, 80, 512, 32
+KI_REQUESTS = 4
+KI_STEPS = 3
+# the imported F32 char-RNN's served probabilities, card vs the CPU
+# import: K1 (f32 grid route) and the plain loop sum each gate's 512
+# products in their own orders over 64 dependent steps (K1 holds to
+# TOL["float32"] = 1e-4 on y), and S1 and the CPU's matmul the head's;
+# a probability moves by at most its logits' error
+KI_PROB_TOL = 1e-4
+# the hard-sigmoid import: the composed route runs the plain loop on the
+# card's tensors (cuBLAS's products against the CPU's), the head on S1
+KI_HARD_TOL = 1e-5
+# the first train step's score, card vs the CPU import (F32)
+KI_SCORE_RTOL = 1e-4
+KI_VGG_ROWS = (1, 4)
+KI_VGG_REPS = 3
+KI_VGG_SIZE = 224
+KERAS_VGG_BLOCKS = ((2, 64), (2, 128), (3, 256), (3, 512), (3, 512))
+# [clustering]: word-vector-sized k-means (N points of D around K latent
+# centres), each Lloyd step held against a float64 evaluation of the same
+# step from the same centroids on the card. Assignments are held where
+# the two nearest centroids' f64 distances differ by more than
+# KM_GAP_RTOL relative (f32's expansion |x|^2 - 2 x.c + |c|^2 errs by
+# ~1e-6 relative there); centroids of clusters no near-tie moved within
+# KM_CENTROID_TOL (a mean of ~100 f32 rows); the cost (a sum of 1e5 f32
+# minima) within KM_COST_RTOL.
+KM_N, KM_D, KM_K, KM_ITERS = 100_000, 300, 1000, 10
+KM_GAP_RTOL = 1e-4
+KM_CENTROID_TOL = 1e-5
+KM_COST_RTOL = 1e-5
+# t-SNE: theta = 0 against the exact Tsne on the card; theta = 0.5 on
+# the host (the JAX package's float64 path, ~1.5 s an iteration at
+# n = 1,000 in Python), a few iterations to report its cost
+TSNE_EXACT_N, TSNE_EXACT_ITERS = 500, 100
+BH_N, BH_ITERS = 1000, 3
+# [native_io]: IDX files in MNIST's shape, one zoo.lenet epoch
+NI_N, NI_SIDE, NI_CLASSES, NI_B = 60_000, 28, 10, 64
+
+
+def keras_lstm_weights(rng, n_in, units):
+    """Keras's LSTM initializers: a glorot-uniform kernel, an orthogonal
+    recurrent kernel, a zero bias with the forget gate's at 1 (Keras's
+    (i, f, c, o) gate order)."""
+    lim = math.sqrt(6.0 / (n_in + 4 * units))
+    kernel = ((rng.random((n_in, 4 * units), dtype=np.float32) * 2 - 1)
+              * lim)
+    q, _ = np.linalg.qr(rng.standard_normal((4 * units, units)))
+    bias = np.zeros(4 * units, np.float32)
+    bias[units:2 * units] = 1.0
+    return [kernel, q.T.astype(np.float32), bias]
+
+
+def keras_char_rnn(gate="sigmoid", seed=SEED + 2500):
+    """(model JSON, weights) of a Keras 2 Sequential char-RNN at the
+    zoo's width; ``gate`` is the LSTMs' recurrent_activation."""
+    rng = np.random.default_rng(seed)
+
+    def lstm(name, first):
+        cfg = {"name": name, "units": KI_H, "activation": "tanh",
+               "recurrent_activation": gate, "return_sequences": True}
+        if first:
+            cfg["batch_input_shape"] = [None, KI_T, KI_V]
+        return {"class_name": "LSTM", "config": cfg}
+    config = {"class_name": "Sequential", "config": {
+        "name": "char_rnn", "layers": [
+            lstm("lstm", True), lstm("lstm_1", False),
+            {"class_name": "TimeDistributed", "config": {
+                "name": "time_distributed", "layer": {
+                    "class_name": "Dense", "config": {
+                        "name": "dense", "units": KI_V,
+                        "activation": "softmax"}}}}]}}
+    lim = math.sqrt(6.0 / (KI_H + KI_V))
+    weights = {"lstm": keras_lstm_weights(rng, KI_V, KI_H),
+               "lstm_1": keras_lstm_weights(rng, KI_H, KI_H),
+               "time_distributed": [
+                   (rng.random((KI_H, KI_V), dtype=np.float32) * 2 - 1)
+                   * lim, np.zeros(KI_V, np.float32)]}
+    return json.dumps(config), weights
+
+
+def keras_vgg16(seed=SEED + 2510):
+    """(model JSON, weights) of keras.applications.VGG16's functional
+    graph (its layer names and configs, the top included, 224 x 224 x 3,
+    1000 classes): glorot-uniform kernels, zero biases."""
+    rng = np.random.default_rng(seed)
+    side = KI_VGG_SIZE
+    layers = [{"class_name": "InputLayer", "name": "input_1",
+               "config": {"name": "input_1", "dtype": "float32",
+                          "batch_input_shape": [None, side, side, 3]},
+               "inbound_nodes": []}]
+    weights = {}
+    prev = ["input_1"]
+
+    def add(cls, name, cfg, fan=None):
+        layers.append({"class_name": cls, "name": name,
+                       "config": dict(cfg, name=name),
+                       "inbound_nodes": [[[prev[0], 0, 0, {}]]]})
+        prev[0] = name
+        if fan is not None:
+            shape, fan_in, fan_out = fan
+            lim = math.sqrt(6.0 / (fan_in + fan_out))
+            weights[name] = [
+                (rng.random(shape, dtype=np.float32) * 2 - 1) * lim,
+                np.zeros(shape[-1], np.float32)]
+    c_in = 3
+    for bi, (n, ch) in enumerate(KERAS_VGG_BLOCKS, 1):
+        for ci in range(1, n + 1):
+            add("Conv2D", f"block{bi}_conv{ci}",
+                {"filters": ch, "kernel_size": [3, 3], "strides": [1, 1],
+                 "padding": "same", "data_format": "channels_last",
+                 "activation": "relu", "use_bias": True},
+                ((3, 3, c_in, ch), 9 * c_in, 9 * ch))
+            c_in = ch
+        add("MaxPooling2D", f"block{bi}_pool",
+            {"pool_size": [2, 2], "strides": [2, 2], "padding": "valid",
+             "data_format": "channels_last"})
+    add("Flatten", "flatten", {"data_format": "channels_last"})
+    flat = (side // 32) ** 2 * 512
+    for name, f_in, f_out, act in (("fc1", flat, 4096, "relu"),
+                                   ("fc2", 4096, 4096, "relu"),
+                                   ("predictions", 4096, 1000, "softmax")):
+        add("Dense", name, {"units": f_out, "activation": act,
+                            "use_bias": True}, ((f_in, f_out), f_in, f_out))
+    config = {"class_name": "Functional", "config": {
+        "name": "vgg16", "layers": layers,
+        "input_layers": [["input_1", 0, 0]],
+        "output_layers": [["predictions", 0, 0]]}}
+    return json.dumps(config), weights
+
+
+def params_bit_equal(a, b):
+    """Every parameter of net ``a`` equals ``b``'s bit for bit (on
+    ``a``'s device)."""
+    import torch
+    return all(torch.equal(t, b.params[name][k].to(t.device))
+               for name, leaves in a.params.items()
+               for k, t in leaves.items())
+
+
+def ki_char_rnn_arm(card):
+    """[keras_import] arm=char_rnn: the sigmoid-gated import served and
+    trained on the card, held to the CPU import."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.modelimport import (
+        import_keras_sequential_model_and_weights as import_seq)
+    from deeplearning4j_tpu_torch.ops import lstm as lstm_ops
+    from deeplearning4j_tpu_torch.ops import registry
+    from deeplearning4j_tpu_torch.ops import stream_exact as se
+    from deeplearning4j_tpu_torch.serving import ModelServer
+    model_json, weights = keras_char_rnn()
+    t0 = time.perf_counter()
+    net = import_seq(model_json, weights)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    cpu = import_seq(model_json, weights, device="cpu")
+    check(net.device.type == "cuda" and params_bit_equal(cpu, net),
+          "[keras_import] char_rnn: the card's import differs from the "
+          "CPU's")
+    check(net.conf.layers[0].gate_activation == "sigmoid",
+          f"char_rnn gate {net.conf.layers[0].gate_activation}")
+    route = lstm_ops.lstm_route(torch.float32, KI_B, KI_H)
+    check(route == "kernel", f"[keras_import] lstm_route says {route}")
+    rng = np.random.default_rng(SEED + 2501)
+    eye = np.eye(KI_V, dtype=np.float32)
+    reqs = [eye[rng.integers(0, KI_V, (KI_B, KI_T))]
+            for _ in range(KI_REQUESTS)]
+    srv = ModelServer(net, port=0, max_batch=KI_B,
+                      input_shapes=[(KI_T, KI_V)]).start()
+    try:
+        torch.cuda.synchronize()
+        registry.reset_launches()
+        b0 = srv.metrics()["batches_total"]
+        t0 = time.perf_counter()
+        replies = []
+        for x in reqs:
+            status, body = post_json(srv.url + "/predict",
+                                     {"features": x.tolist()})
+            check(status == 200, f"/predict answered {status}")
+            replies.append(np.asarray(body["predictions"], np.float32))
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = registry.launches()
+        forwards = srv.metrics()["batches_total"] - b0
+    finally:
+        srv.stop()
+    check(forwards == KI_REQUESTS, f"[keras_import] {forwards} forwards "
+          f"for {KI_REQUESTS} requests of {KI_B} rows")
+    k1, s1 = counts.get(lstm_ops.KERNEL, 0), counts.get(se.KERNEL_DENSE, 0)
+    check(k1 == 2 * forwards and s1 == forwards,
+          f"[keras_import] K1 {k1} and S1 {s1} launches in {forwards} "
+          f"forwards: expected 2 and 1 a forward ({counts})")
+    err, bits = 0.0, True
+    for x, got in zip(reqs, replies):
+        check(got.shape == (KI_B, KI_T, KI_V) and np.isfinite(got).all(),
+              f"reply {got.shape}")
+        bits &= bool(np.array_equal(got, net.output(x).cpu().numpy()))
+        err = max(err, float(np.abs(got - cpu.output(x).numpy()).max()))
+    check(bits, "[keras_import] a reply differs from net.output of its "
+          "bucket")
+    check(err <= KI_PROB_TOL, f"[keras_import] served char_rnn vs the CPU "
+          f"import: {err:.3e} > {KI_PROB_TOL}")
+
+    # 3 train steps on the card; the first against the CPU import's
+    ds = DataSet(reqs[0], eye[rng.integers(0, KI_V, (KI_B, KI_T))])
+    cpu_score = float(cpu.fit_batch(ds))
+    before = {(n, k): t.clone() for n, leaves in net.params.items()
+              for k, t in leaves.items()}
+    torch.cuda.synchronize()
+    registry.reset_launches()
+    scores, step_ms = [], []
+    for _ in range(KI_STEPS):
+        t0 = time.perf_counter()
+        scores.append(float(net.fit_batch(ds)))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    counts = registry.launches()
+    per_call = lstm_ops.bwd_launches_per_call(torch.float32, KI_H)
+    k2_calls = counts.get(lstm_ops.BWD_KERNEL, 0) / per_call
+    check(k2_calls == 2 * KI_STEPS
+          and counts.get(lstm_ops.KERNEL, 0) == 2 * KI_STEPS,
+          f"[keras_import] {KI_STEPS} steps: {counts} (K2 {per_call} "
+          f"launches a call; expected 2 calls of K1 and K2 a step)")
+    rel = abs(scores[0] - cpu_score) / abs(cpu_score)
+    check(rel <= KI_SCORE_RTOL, f"[keras_import] first step's score "
+          f"{scores[0]:.6f} vs the CPU import's {cpu_score:.6f}: {rel:.3e} "
+          f"> {KI_SCORE_RTOL}")
+    still = [f"{n}/{k}" for (n, k), t in before.items()
+             if torch.equal(t, net.params[n][k])]
+    check(not still, f"[keras_import] params unmoved by {KI_STEPS} steps: "
+          f"{still}")
+    check(all(math.isfinite(s) for s in scores), f"scores {scores}")
+    phase("keras_import", arm="char_rnn",
+          model=f"keras Sequential LSTM({KI_H})x2+TimeDistributed(Dense("
+                f"{KI_V}))", policy="F32", params=net.num_params(),
+          import_s=f"{import_s:.3f}", lstm_route=route,
+          requests=KI_REQUESTS, rows=KI_REQUESTS * KI_B,
+          rows_per_s=f"{KI_REQUESTS * KI_B / wall:.1f}", forwards=forwards,
+          k1_per_forward=k1 // forwards, s1_per_forward=s1 // forwards,
+          replies_bit_equal_to_output=bits,
+          max_abs_err_vs_cpu=f"{err:.3e}", tol=KI_PROB_TOL,
+          k2_calls_per_step=k2_calls / KI_STEPS,
+          k1_per_step=counts.get(lstm_ops.KERNEL, 0) // KI_STEPS,
+          first_score=f"{scores[0]:.6f}", cpu_first_score=f"{cpu_score:.6f}",
+          score_rel_err=f"{rel:.3e}",
+          scores=json.dumps([round(s, 6) for s in scores]),
+          step_ms=json.dumps([round(m, 2) for m in step_ms]),
+          params_moved=True, card=card)
+    del net, cpu
+
+
+def ki_hard_sigmoid_arm(card):
+    """[keras_import] arm=hard_sigmoid: Keras 2's default gate takes the
+    counted composed route; K1 launches no time."""
+    import torch
+    from deeplearning4j_tpu_torch.modelimport import (
+        import_keras_sequential_model_and_weights as import_seq)
+    from deeplearning4j_tpu_torch.ops import lstm as lstm_ops
+    from deeplearning4j_tpu_torch.ops import registry
+    model_json, weights = keras_char_rnn(gate="hard_sigmoid",
+                                         seed=SEED + 2502)
+    net = import_seq(model_json, weights)
+    cpu = import_seq(model_json, weights, device="cpu")
+    check(net.conf.layers[0].gate_activation == "hardsigmoid",
+          f"gate {net.conf.layers[0].gate_activation}")
+    route = lstm_ops.lstm_route(torch.float32, KI_B, KI_H,
+                                gate_act="hardsigmoid")
+    x = np.eye(KI_V, dtype=np.float32)[np.random.default_rng(
+        SEED + 2503).integers(0, KI_V, (KI_B, KI_T))]
+    torch.cuda.synchronize()
+    registry.reset_launches()
+    got = net.output(x).cpu().numpy()
+    torch.cuda.synchronize()
+    counts, routes = registry.launches(), registry.routes()
+    name = "lstm_sequence:composed[gate_act=hardsigmoid]"
+    check(route == "composed" and routes.get(name) == 2
+          and counts.get(lstm_ops.KERNEL, 0) == 0,
+          f"[keras_import] hard_sigmoid: route {route}, composed "
+          f"{routes}, launches {counts}")
+    err = float(np.abs(got - cpu.output(x).numpy()).max())
+    check(np.isfinite(got).all() and err <= KI_HARD_TOL,
+          f"[keras_import] hard_sigmoid vs the CPU import: {err:.3e} > "
+          f"{KI_HARD_TOL}")
+    phase("keras_import", arm="hard_sigmoid", lstm_route=route,
+          composed_calls=routes.get(name), k1_launches=0,
+          max_abs_err_vs_cpu=f"{err:.3e}", tol=KI_HARD_TOL, card=card)
+
+
+def ki_vgg16_arm(card):
+    """[keras_import] arm=vgg16: the functional VGG-16 imported into a
+    ComputationGraph and served in buckets of 1 and 4 rows."""
+    import torch
+    from deeplearning4j_tpu_torch.modelimport import (
+        import_keras_model_and_weights)
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.ops import registry
+    from deeplearning4j_tpu_torch.ops import stream_exact as se
+    from deeplearning4j_tpu_torch.serving import ModelServer
+    from deeplearning4j_tpu_torch.serving.batcher import next_bucket
+    model_json, weights = keras_vgg16()
+    mb = sum(a.nbytes for arrays in weights.values() for a in arrays) / 1e6
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for arrays in weights.values():       # what the import's copies move
+        for a in arrays:
+            torch.from_numpy(a).to("cuda")
+    torch.cuda.synchronize()
+    h2d_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    net = import_keras_model_and_weights(model_json, weights)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    check(isinstance(net, ComputationGraph)
+          and net.num_params() == 138357544,
+          f"[keras_import] vgg16: {type(net).__name__} of "
+          f"{net.num_params()} params")
+    rng = np.random.default_rng(SEED + 2511)
+    x = rng.normal(0.0, 50.0, (max(KI_VGG_ROWS), KI_VGG_SIZE, KI_VGG_SIZE,
+                               3)).astype(np.float32)
+    srv = ModelServer(net, port=0, max_batch=max(KI_VGG_ROWS)).start()
+    rows = []
+    try:
+        torch.cuda.synchronize()
+        registry.reset_launches()
+        b0 = srv.metrics()["batches_total"]
+        for n in KI_VGG_ROWS:
+            times, got = [], None
+            for _ in range(KI_VGG_REPS):
+                t0 = time.perf_counter()
+                got = srv.predict(x[:n])
+                times.append(time.perf_counter() - t0)
+            b = next_bucket(n, max(KI_VGG_ROWS), 2)
+            pad = np.zeros((b,) + x.shape[1:], np.float32)
+            pad[:n] = x[:n]
+            want = net.output(pad).cpu().numpy()[:n]
+            p50 = statistics.median(times)
+            rows.append({"rows": n, "bucket": b,
+                         "bit_equal": bool(np.array_equal(got, want)),
+                         "p50_ms": round(p50 * 1e3, 2),
+                         "rows_per_s": round(n / p50, 2)})
+        torch.cuda.synchronize()
+        counts = registry.launches()
+        forwards = srv.metrics()["batches_total"] - b0
+    finally:
+        srv.stop()
+    check(all(r["bit_equal"] for r in rows), f"[keras_import] vgg16 "
+          f"served rows differ from net.output of the bucket: {rows}")
+    s1 = counts.get(se.KERNEL_DENSE, 0)
+    # the reference outputs above ran 2 forwards of their own
+    fwd_all = forwards + len(KI_VGG_ROWS)
+    check(s1 == 3 * fwd_all, f"[keras_import] vgg16: S1 {s1} launches in "
+          f"{fwd_all} forwards, expected 3 a forward ({counts})")
+    card_p = net.output(x).cpu()
+    del net
+    torch.cuda.empty_cache()
+    cpu = import_keras_model_and_weights(model_json, weights, device="cpu")
+    cpu_p = cpu.output(x)
+    row_err = float(((card_p - cpu_p).abs().amax(1)
+                     / cpu_p.amax(1)).max())
+    check(torch.isfinite(card_p).all().item()
+          and row_err <= VGG_ROW_PROB_TOL, f"[keras_import] vgg16 card vs "
+          f"the CPU import: {row_err:.3e} of a row's largest probability "
+          f"> {VGG_ROW_PROB_TOL}")
+    phase("keras_import", arm="vgg16",
+          model="keras.applications.VGG16 functional (224x224x3, 1000)",
+          policy="F32", params=138357544, weights_mb=f"{mb:.1f}",
+          import_s=f"{import_s:.3f}", host_to_card_ms=f"{h2d_ms:.1f}",
+          buckets=json.dumps(rows), forwards=fwd_all,
+          s1_per_forward=s1 // fwd_all,
+          prob_vs_cpu_over_row_max=f"{row_err:.3e}", tol=VGG_ROW_PROB_TOL,
+          row_max_prob=json.dumps([float(f"{v:.4e}")
+                                   for v in cpu_p.amax(1)]), card=card)
+
+
+def phase_keras_import(card=None):
+    """[keras_import]: the three arms (module docstring of slice 25)."""
+    t0 = time.perf_counter()
+    ki_char_rnn_arm(card)
+    ki_hard_sigmoid_arm(card)
+    ki_vgg16_arm(card)
+    return time.perf_counter() - t0
+
+
+def golden_numpy_forward(x):
+    """The hand-packed DL4J fixture's MLP (tests/fixtures/
+    build_dl4j_golden.py's FLAT) forward in float64 numpy."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "fixtures", "build_dl4j_golden.py")
+    spec = importlib.util.spec_from_file_location("build_dl4j_golden", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    flat = mod.FLAT.astype(np.float64)
+    h = np.tanh(x @ flat[:12].reshape(3, 4, order="F") + flat[12:16])
+    z = h @ flat[16:24].reshape(4, 2, order="F") + flat[24:26]
+    e = np.exp(z - z.max(axis=1, keepdims=True))
+    return e / e.sum(axis=1, keepdims=True)
+
+
+def phase_dl4j_import(card=None):
+    """[dl4j_import]: the port's char_rnn and VGG-16 (F32) through the
+    DL4J zip and back onto the card bit for bit; the golden fixture's
+    forward; the model guesser on three formats."""
+    import shutil
+    import tempfile
+
+    import torch
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.modelimport import dl4j
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.utils import checkpoint as ck
+    from deeplearning4j_tpu_torch.utils import model_guesser as guess
+    from deeplearning4j_tpu_torch.utils import serialization as ser
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 2520)
+    root = tempfile.mkdtemp(prefix="dl4j_import_")
+    try:
+        cases = (
+            ("char_rnn", lambda: zoo.char_rnn(seed=SEED + 2521,
+                                              dtype=zoo.F32),
+             np.eye(KI_V, dtype=np.float32)[rng.integers(0, KI_V,
+                                                         (4, KI_T))],
+             None),
+            ("vgg16", lambda: zoo.vgg16(seed=SEED + 2522, dtype=zoo.F32,
+                                        image_size=KI_VGG_SIZE),
+             rng.normal(0.0, 50.0, (2, KI_VGG_SIZE, KI_VGG_SIZE, 3))
+             .astype(np.float32),
+             InputType.convolutional(KI_VGG_SIZE, KI_VGG_SIZE, 3)))
+        zips, kept = {}, None
+        for name, make, x, input_type in cases:
+            net = make()
+            p = os.path.join(root, f"{name}_dl4j.zip")
+            t0 = time.perf_counter()
+            dl4j.write_dl4j_zip(net, p)
+            write_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = dl4j.restore_multi_layer_network_from_dl4j(
+                p, input_type=input_type, dtype=zoo.F32)
+            torch.cuda.synchronize()
+            read_s = time.perf_counter() - t0
+            check(back.device.type == "cuda" and params_bit_equal(net, back),
+                  f"[dl4j_import] {name}: the restored params differ")
+            out_bits = bool(torch.equal(net.output(x), back.output(x)))
+            check(out_bits, f"[dl4j_import] {name}: outputs differ")
+            zips[name] = p
+            phase("dl4j_import", model=name, policy="F32",
+                  params=net.num_params(),
+                  zip_mb=f"{os.path.getsize(p) / 1e6:.1f}",
+                  write_s=f"{write_s:.3f}", read_s=f"{read_s:.3f}",
+                  params_bit_equal=True, outputs_bit_equal=out_bits,
+                  card=card)
+            if name == "char_rnn":
+                kept = (net, x)
+            else:
+                del net, back
+                torch.cuda.empty_cache()
+
+        # the hand-packed golden fixture, on the card (F32 default policy)
+        golden = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "tests", "fixtures", "dl4j_mlp_golden.zip")
+        gnet = dl4j.restore_multi_layer_network_from_dl4j(golden)
+        xg = np.asarray([[0.3, -0.1, 0.8], [1.0, 0.5, -0.25]], np.float32)
+        g_err = float(np.abs(gnet.output(xg).cpu().numpy()
+                             - golden_numpy_forward(xg.astype(np.float64)))
+                      .max())
+        check(gnet.device.type == "cuda" and g_err <= 1e-6,
+              f"[dl4j_import] golden forward vs numpy: {g_err:.3e} > 1e-6")
+
+        # the guesser: each format through load_model and its own entry
+        net, x = kept
+        tz = os.path.join(root, "char_rnn.zip")
+        ser.write_model(net, tz)
+        ckdir = ck.save_checkpoint(net, os.path.join(root, "ck"))
+        formats = {}
+        for path, fmt, direct, kw in (
+                (tz, "tpu_zip", ser.restore_model, {}),
+                (zips["char_rnn"], "dl4j_zip",
+                 dl4j.restore_multi_layer_network_from_dl4j,
+                 {"dtype": zoo.F32}),
+                (ckdir, "orbax", ck.restore_multi_layer_network, {})):
+            got_fmt = guess.guess_format(path)
+            a = guess.load_model(path, **kw)
+            b = direct(path, **kw)
+            check(a.device.type == "cuda", f"[dl4j_import] load_model put "
+                  f"{fmt} on {a.device}")
+            same = (bool(torch.equal(a.output(x), b.output(x)))
+                    and bool(torch.equal(a.output(x), net.output(x))))
+            check(got_fmt == fmt and same, f"[dl4j_import] guesser: {path} "
+                  f"-> {got_fmt} (expected {fmt}), replies equal: {same}")
+            formats[fmt] = same
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    phase("dl4j_import", arm="golden_and_guesser",
+          golden_max_abs_err_vs_numpy=f"{g_err:.3e}", golden_tol=1e-6,
+          guesser_replies_equal=json.dumps(formats),
+          keras_h5="CPU tests only (h5py)",
+          phase_s=f"{time.perf_counter() - t_phase:.1f}", card=card)
+
+
+def word_vectors(seed):
+    """KM_N f32 points of KM_D around KM_K unit-normal centres (noise
+    0.5): clusters the size of a vocabulary's word vectors."""
+    rng = np.random.default_rng(seed)
+    centres = rng.standard_normal((KM_K, KM_D), dtype=np.float32)
+    idx = rng.integers(0, KM_K, KM_N)
+    return centres[idx] + np.float32(0.5) * rng.standard_normal(
+        (KM_N, KM_D), dtype=np.float32)
+
+
+def hold_lloyd_step(step, x64, c32, k, out):
+    """A card Lloyd step's (centroids, assignments, cost) against the
+    same step evaluated in float64 from the same centroids on the card."""
+    import torch
+    c64 = c32.double()
+    nc64, a64, cost64 = step(x64, c64, k)
+    nc32, a32, cost32 = out
+    d2 = ((x64 * x64).sum(1, keepdim=True) - 2.0 * x64 @ c64.T
+          + (c64 * c64).sum(1))
+    two = torch.topk(d2, 2, dim=1, largest=False).values
+    del d2
+    gap = (two[:, 1] - two[:, 0]) / two[:, 0].abs().clamp_min(1e-30)
+    flips = a32 != a64
+    clear = gap > KM_GAP_RTOL
+    bad = int((flips & clear).sum())
+    check(bad == 0, f"[clustering] {bad} assignments differ from f64 where "
+          f"the two nearest centroids differ by > {KM_GAP_RTOL} relative")
+    keep = torch.ones(k, dtype=torch.bool, device=a32.device)
+    keep[a32[flips]] = False
+    keep[a64[flips]] = False
+    c_err = float((nc32.double() - nc64).abs()[keep].max())
+    check(c_err <= KM_CENTROID_TOL, f"[clustering] centroids {c_err:.3e} "
+          f"from f64 > {KM_CENTROID_TOL}")
+    cost_rel = abs(float(cost32) - float(cost64)) / float(cost64)
+    check(cost_rel <= KM_COST_RTOL, f"[clustering] cost {cost_rel:.3e} "
+          f"relative from f64 > {KM_COST_RTOL}")
+    return {"flips": int(flips.sum()), "near_ties": int((~clear).sum()),
+            "centroid_err": c_err, "cost_rel": cost_rel,
+            "moved_clusters": int((~keep).sum())}
+
+
+def phase_clustering(card=None):
+    """[clustering]: k-means (k = 1,000) on 100,000 word-vector-sized
+    points, each Lloyd step held to float64 on the card; Barnes-Hut
+    t-SNE at theta 0 against the exact Tsne, and at theta 0.5."""
+    import torch
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering
+    from deeplearning4j_tpu_torch.clustering import kmeans as km_mod
+    from deeplearning4j_tpu_torch.plot import BarnesHutTsne, Tsne
+    t_phase = time.perf_counter()
+    x_host = word_vectors(SEED + 2530)
+    x = torch.from_numpy(x_host).cuda()
+    x64 = x.double()
+    km = KMeansClustering(k=KM_K, max_iterations=KM_ITERS, tol=0.0,
+                          seed=SEED + 2531)
+    seeding = {}
+    seed_indices = km._seed_indices
+
+    def timed_seeding(xs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx = seed_indices(xs)
+        seeding["s"] = time.perf_counter() - t0
+        seeding["distinct"] = len(set(idx))
+        return idx
+    km._seed_indices = timed_seeding
+    step, held = km_mod._lloyd_step, []
+
+    def held_step(xs, c, k):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(xs, c, k)
+        end.record()
+        end.synchronize()
+        held.append(dict(hold_lloyd_step(step, x64, c, k, out),
+                         ms=start.elapsed_time(end)))
+        return out
+    km_mod._lloyd_step = held_step
+    try:
+        t0 = time.perf_counter()
+        km.fit(x)
+        fit_s = time.perf_counter() - t0
+    finally:
+        km_mod._lloyd_step = step
+    check(len(held) == KM_ITERS and km.centroids.shape == (KM_K, KM_D)
+          and math.isfinite(km.cost), f"[clustering] {len(held)} steps, "
+          f"cost {km.cost}")
+    check(seeding["distinct"] == KM_K, f"seeding picked "
+          f"{seeding['distinct']} distinct points")
+    ms = [h["ms"] for h in held]
+    del x64
+    torch.cuda.empty_cache()
+    phase("clustering", arm="kmeans", n=KM_N, d=KM_D, k=KM_K,
+          iterations=KM_ITERS, seeding_s=f"{seeding['s']:.3f}",
+          step_ms=json.dumps([round(v, 3) for v in ms]),
+          step_ms_median=f"{statistics.median(ms):.3f}",
+          fit_s=f"{fit_s:.2f}", cost=f"{km.cost:.6e}",
+          flips_vs_f64=json.dumps([h["flips"] for h in held]),
+          near_ties=json.dumps([h["near_ties"] for h in held]),
+          max_centroid_err_vs_f64=f"{max(h['centroid_err'] for h in held):.3e}",
+          max_cost_rel_vs_f64=f"{max(h['cost_rel'] for h in held):.3e}",
+          tol=json.dumps({"gap_rtol": KM_GAP_RTOL,
+                          "centroids": KM_CENTROID_TOL,
+                          "cost_rtol": KM_COST_RTOL}), card=card)
+
+    xt = x_host[:TSNE_EXACT_N]
+    kw = dict(max_iter=TSNE_EXACT_ITERS, seed=SEED + 2532)
+    bh0 = BarnesHutTsne(theta=0.0, **kw)
+    ex = Tsne(**kw)
+    t0 = time.perf_counter()
+    y_bh0 = bh0.fit_transform(xt)
+    exact_s = time.perf_counter() - t0
+    same = bool(np.array_equal(y_bh0, ex.fit_transform(xt))
+                and bh0.kl == ex.kl)
+    check(same, "[clustering] BarnesHutTsne(theta=0) differs from Tsne")
+    bh = BarnesHutTsne(theta=0.5, max_iter=BH_ITERS, seed=SEED + 2533)
+    t0 = time.perf_counter()
+    y = bh.fit_transform(x_host[:BH_N])
+    bh_s = time.perf_counter() - t0
+    check(y.shape == (BH_N, 2) and np.isfinite(y).all()
+          and math.isfinite(bh.kl), f"[clustering] Barnes-Hut {y.shape}")
+    phase("clustering", arm="tsne", exact_n=TSNE_EXACT_N,
+          exact_iters=TSNE_EXACT_ITERS, theta0_bit_equal_to_tsne=same,
+          theta0_s=f"{exact_s:.3f}", theta0_kl=f"{bh0.kl:.6f}",
+          bh_n=BH_N, bh_theta=0.5, bh_iters=BH_ITERS, bh_s=f"{bh_s:.2f}",
+          bh_s_per_iter=f"{bh_s / BH_ITERS:.3f}", bh_kl=f"{bh.kl:.6f}",
+          bh_device="host (float64 numpy)",
+          phase_s=f"{time.perf_counter() - t_phase:.1f}", card=card)
+
+
+def write_idx_u8(path, arr):
+    """An IDX file of unsigned bytes (MNIST's format)."""
+    import struct
+    arr = np.ascontiguousarray(arr, np.uint8)
+    with open(path, "wb") as f:
+        f.write(struct.pack(">I", 0x00000800 | arr.ndim))
+        for d in arr.shape:
+            f.write(struct.pack(">I", d))
+        f.write(arr.tobytes())
+
+
+def mnist_shaped_idx(root, seed):
+    """IDX files in MNIST's shape: NI_N 28 x 28 u8 images and their u8
+    labels. Each image is noise with a bright 6 x 6 block at a place its
+    label picks, so an epoch has something to learn."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, NI_CLASSES, NI_N).astype(np.uint8)
+    img = rng.integers(0, 96, (NI_N, NI_SIDE, NI_SIDE), dtype=np.uint8)
+    for lab in range(NI_CLASSES):
+        r, c = 4 + 12 * (lab // 5), 1 + 5 * (lab % 5)
+        img[labels == lab, r:r + 6, c:c + 6] = 255
+    paths = (os.path.join(root, "train-images-idx3-ubyte"),
+             os.path.join(root, "train-labels-idx1-ubyte"))
+    write_idx_u8(paths[0], img)
+    write_idx_u8(paths[1], labels)
+    return paths
+
+
+def row_hashes(x):
+    import hashlib
+    flat = np.ascontiguousarray(x).reshape(x.shape[0], -1)
+    return [hashlib.blake2b(r.tobytes(), digest_size=8).digest()
+            for r in flat]
+
+
+def phase_native_io(card=None):
+    """[native_io]: the C++ loader built by g++ into the port's build
+    dir, MNIST-shaped IDX files read by it, and one zoo.lenet epoch on
+    the card fed by NativeDataSetIterator through fit's
+    DevicePrefetchIterator, its rows hashed as they pass; then, for the
+    time, an epoch from the same loader unhashed and one from the same
+    arrays in memory (ArrayDataSetIterator); and the batches/s of fit's
+    input stack without a step: the loader alone, under
+    AsyncDataSetIterator, under DevicePrefetchIterator over that, and the
+    in-memory iterator alone."""
+    import shutil
+    import tempfile
+
+    import torch
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.datasets import (ArrayDataSetIterator,
+                                                   DataSet, DataSetIterator)
+    from deeplearning4j_tpu_torch.datasets import native_io
+    from deeplearning4j_tpu_torch.datasets.iterator import (
+        AsyncDataSetIterator, DevicePrefetchIterator, NativeDataSetIterator)
+    from deeplearning4j_tpu_torch.ops import _build
+
+    class Recorded(DataSetIterator):
+        """The base iterator's batches, each row's hash recorded."""
+
+        def __init__(self, base):
+            self.base, self.hashes = base, []
+
+        def __iter__(self):
+            for ds in self.base:
+                self.hashes.extend(row_hashes(ds.features))
+                yield ds
+
+        def __len__(self):
+            return len(self.base)
+
+        def reset(self):
+            self.base.reset()
+
+        @property
+        def batch_size(self):
+            return self.base.batch_size
+
+    t_phase = time.perf_counter()
+    lib = _build.host_library_path(native_io.LIBRARY)
+    prebuilt = lib.exists()
+    t0 = time.perf_counter()
+    check(native_io.available(), "[native_io] the loader did not build")
+    build_s = time.perf_counter() - t0
+    check(lib.exists() and lib.parent == _build.build_dir(),
+          f"[native_io] the library is not in the port's build dir: {lib}")
+    root = tempfile.mkdtemp(prefix="native_io_")
+    its = []
+    try:
+        img_path, lab_path = mnist_shaped_idx(root, SEED + 2540)
+        t0 = time.perf_counter()
+        images = native_io.read_idx(img_path)
+        labels = native_io.read_idx(lab_path, normalize=False)
+        read_s = time.perf_counter() - t0
+        check(images.shape == (NI_N, NI_SIDE, NI_SIDE)
+              and labels.shape == (NI_N,), f"[native_io] read "
+              f"{images.shape} {labels.shape}")
+        x = images.reshape(NI_N, NI_SIDE, NI_SIDE, 1)
+        y = np.eye(NI_CLASSES, dtype=np.float32)[labels.astype(np.int64)]
+        file_rows = sorted(row_hashes(x))
+        kw = dict(batch_size=NI_B, shuffle=True, seed=SEED + 2541,
+                  drop_last=False)
+        alone = NativeDataSetIterator(x, y, **kw)
+        fed = NativeDataSetIterator(x, y, **kw)
+        its += [alone, fed]
+        t0 = time.perf_counter()
+        batches = [ds.features for ds in alone]
+        alone_s = time.perf_counter() - t0
+        n_alone = len(batches)
+        alone_rows = [h for b in batches for h in row_hashes(b)]
+        del batches
+        net = zoo.lenet(seed=SEED + 2542)
+        probe = DataSet(x[:1024], y[:1024])
+        s0 = net.score(probe)
+        rec = Recorded(fed)
+        t0 = time.perf_counter()
+        step_ms, wait, _ = traced_fit_ms(net, rec, epochs=1)
+        epoch_s = time.perf_counter() - t0
+        rep, steps = net.last_run_report, net.iteration
+        s1 = net.score(probe)
+        timed = {}
+        for src, it in (("native", fed), ("memory", ArrayDataSetIterator(
+                x, y, batch_size=NI_B, shuffle=True, seed=SEED + 2541))):
+            t0 = time.perf_counter()
+            ms, w, _ = traced_fit_ms(net, it, epochs=1)
+            timed[src] = {"epoch_s": round(time.perf_counter() - t0, 3),
+                          "step_ms": round(ms, 3), "data_wait_share": round(
+                              w / net.last_run_report.wall_s, 4)}
+        graphs = [(sg.captures, sg.replays)
+                  for sg in net._multi_steps.values()]
+        stack = {"native_alone": round(n_alone / alone_s, 1)}
+        for name, it in (
+                ("native_async", AsyncDataSetIterator(fed)),
+                ("native_async_device", DevicePrefetchIterator(
+                    AsyncDataSetIterator(fed), device=net.device)),
+                ("memory_alone", ArrayDataSetIterator(
+                    x, y, batch_size=NI_B, shuffle=True, seed=SEED + 2541))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = sum(1 for _ in it)
+            torch.cuda.synchronize()
+            stack[name] = round(n / (time.perf_counter() - t0), 1)
+    finally:
+        for it in its:
+            it.close()
+        shutil.rmtree(root, ignore_errors=True)
+    n_batches = -(-NI_N // NI_B)
+    check(sorted(rec.hashes) == file_rows, "[native_io] the fed epoch is "
+          "not a permutation of the file's rows")
+    check(rec.hashes == alone_rows, "[native_io] two iterators with one "
+          "seed gave different batches")
+    check(steps == n_batches, f"[native_io] {steps} steps, expected "
+          f"{n_batches}")
+    check(s1 < s0, f"[native_io] lenet's score did not fall: {s0:.4f} -> "
+          f"{s1:.4f}")
+    phase("native_io", library=lib.name, prebuilt=prebuilt,
+          build_s=f"{build_s:.2f}", images=json.dumps(list(images.shape)),
+          idx_mb=f"{(NI_N * NI_SIDE * NI_SIDE + NI_N) / 1e6:.1f}",
+          read_s=f"{read_s:.3f}", batch=NI_B, batches=n_batches,
+          batches_per_s_alone=f"{n_batches / alone_s:.1f}",
+          stack_batches_per_s=json.dumps(stack),
+          model="lenet(28x28x1,BF16)", epoch_s=f"{epoch_s:.2f}",
+          step_ms=f"{step_ms:.3f}",
+          data_wait_share=f"{wait / rep.wall_s:.4f}",
+          score_before=f"{s0:.4f}", score_after=f"{s1:.4f}",
+          permutation_of_file=True, iterators_bit_equal=True,
+          unhashed_epoch=json.dumps(timed["native"]),
+          memory_epoch=json.dumps(timed["memory"]),
+          captured_graphs=json.dumps(graphs),
+          phase_s=f"{time.perf_counter() - t_phase:.1f}", card=card)
+
+
+def phase_slice25(card=None):
+    """Slice 25's phases, in order; their seconds together."""
+    t0 = time.perf_counter()
+    phase_keras_import(card)
+    phase_dl4j_import(card)
+    phase_clustering(card)
+    phase_native_io(card)
+    phase("slice25", phases_s=f"{time.perf_counter() - t0:.1f}", card=card)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -12718,6 +13555,15 @@ def main() -> int:
             only(phase_device())
             print(ok_line, flush=True)
             return 0
+    if "--slice25" in sys.argv[1:]:
+        card = phase_device()
+        # the kernels the slice's paths run, against their plain versions
+        phase_kernel_vs_plain()
+        phase_bwd_vs_plain()
+        phase_stream_exact_vs_plain()
+        phase_slice25(card)
+        print(ok_line, flush=True)
+        return 0
     if "--slice15" in sys.argv[1:]:
         kernels = phase_slice15(phase_device())
         if "--stream-split" in sys.argv[1:]:
@@ -12774,6 +13620,7 @@ def main() -> int:
     phase_pipeline(card)
     phase_experts(card)
     phase_mesh_decode(card)
+    phase_slice25(card)
     phase_stream_split()
     profiler_probe("after_all", profiles=5, names=names)
     phase("profiler", pause_s=PROFILE_PAUSE_S, **PROFILES)

@@ -2,8 +2,9 @@
 (counterpart of deeplearning4j_tpu/datasets/iterator.py):
 ``AsyncDataSetIterator`` prepares batches on a background thread,
 ``DevicePrefetchIterator`` copies batch N+1 to the card while step N
-runs, ``ReconstructionDataSetIterator`` makes the features the labels.
-The native loader's iterator is not ported (ROADMAP.md A.6)."""
+runs, ``ReconstructionDataSetIterator`` makes the features the labels,
+``NativeDataSetIterator`` takes its batches from the C++ prefetch loader
+(datasets/native_io.py)."""
 
 from __future__ import annotations
 
@@ -293,6 +294,51 @@ class IteratorDataSetIterator(DataSetIterator):
 
     def __iter__(self):
         return iter(self._factory())
+
+
+class NativeDataSetIterator(DataSetIterator):
+    """DataSetIterator over the C++ prefetch loader
+    (datasets/native_io.py): shuffling, batch assembly and the depth-2
+    prefetch ring run in a native worker thread, and the batches are host
+    arrays (``fit``'s ``DevicePrefetchIterator`` copies them to the card).
+    There is no fallback: without ``g++`` or the library the constructor
+    raises ``native_io.NativeIOUnavailable``."""
+
+    def __init__(self, features, labels, batch_size: int,
+                 shuffle: bool = True, seed: int = 0, depth: int = 2,
+                 drop_last: bool = True):
+        from deeplearning4j_tpu_torch.datasets.native_io import \
+            NativeBatchLoader
+        self._loader = NativeBatchLoader(
+            features, labels, batch_size, shuffle=shuffle, seed=seed,
+            depth=depth, drop_last=drop_last)
+        self._batch_size = self._loader.batch_size
+
+    def __iter__(self):
+        for x, y in self._loader:
+            yield DataSet(x, y)
+
+    def __len__(self):
+        return self._loader.batches_per_epoch
+
+    def reset(self):
+        # restart the native stream (fresh epoch position + empty
+        # prefetch ring) — the DataSetIterator contract; a mid-epoch
+        # abandoned generator must not shift later epochs
+        self._loader.reset()
+
+    @property
+    def batch_size(self):
+        return self._batch_size
+
+    def close(self):
+        self._loader.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
 
 class SamplingDataSetIterator(DataSetIterator):

@@ -20,6 +20,12 @@ registry (observability/metrics.py), each library loaded as it was
 found on disk as a cache hit. ``libraries_for(net)`` names the libraries
 a net's forward, train step or decode path reaches.
 
+``load_host(name)`` builds and loads the host libraries the same way
+with ``g++`` instead of ``nvcc``: the native data loader
+(``native/dataloader.cpp``, datasets/native_io.py), compiled into the
+same build directory, never beside its source. A missing ``g++`` or
+source raises ``KernelBuildError`` naming it.
+
 Nothing here runs at import: the CPU tests import every module of the
 package on a machine without ``nvcc``.
 """
@@ -75,6 +81,12 @@ LAYER_LIBRARIES = {
                          "decode": ("stream_exact",)},
     "GptOutput": {"forward": (), "train": (), "decode": ("stream_exact",)},
 }
+#: host libraries built by ``g++`` from C++ sources outside csrc/
+HOST_SOURCES = {
+    "dl4jtpu_io": Path(__file__).resolve().parents[2] / "native"
+    / "dataloader.cpp"}
+GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-shared",
+             "-pthread")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas=-v", "-ldl")
@@ -84,6 +96,7 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 _BUILT: set = set()     # libraries nvcc built in this process
 _DIR = [BUILD_DIR]      # the build directory in use
 _RELEASE: list = []     # nvcc's release line, read once a process
+_GXX_RELEASE: list = []  # g++'s version line, read once a process
 
 
 class KernelBuildError(RuntimeError):
@@ -226,6 +239,64 @@ def load(name: str) -> ctypes.CDLL:
             elif name not in _BUILT:
                 _metrics.note_cache(hit=True)
             lib = ctypes.CDLL(str(path))
+            _LIBS[name] = lib
+        return lib
+
+
+def gxx_path() -> str:
+    found = shutil.which("g++")
+    if found is None:
+        raise KernelBuildError(
+            "g++ not found (put it on PATH); the native data loader "
+            "(native/dataloader.cpp) is built from source at first use")
+    return found
+
+
+def host_library_path(name: str) -> Path:
+    """Where host library ``name`` lives in the build directory: its
+    file name hashes the flags, the ``g++`` version and the source."""
+    source = HOST_SOURCES[name]
+    if not source.exists():
+        raise KernelBuildError(f"{source} not found: the source of the "
+                               f"host library {name}")
+    if not _GXX_RELEASE:
+        out = subprocess.run([gxx_path(), "--version"], capture_output=True,
+                             text=True, timeout=60).stdout
+        _GXX_RELEASE[:] = [out.splitlines()[0] if out else "g++"]
+    h = hashlib.sha256()
+    h.update(" ".join(GXX_FLAGS).encode())
+    h.update(_GXX_RELEASE[0].encode())
+    h.update(source.read_bytes())
+    return build_dir() / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library ``name`` (``HOST_SOURCES``), compiled by
+    ``g++`` into the build directory first if it is not there."""
+    if name not in _LIBS:
+        _configure_from_env()
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            out = host_library_path(name)
+            if out.exists():
+                _metrics.note_cache(hit=True)
+            else:
+                build_dir().mkdir(parents=True, exist_ok=True)
+                tmp = temp_path(out)
+                t0 = time.perf_counter()
+                proc = subprocess.run(
+                    [gxx_path(), *GXX_FLAGS, str(HOST_SOURCES[name]), "-o",
+                     str(tmp)], capture_output=True, text=True, timeout=600)
+                if proc.returncode != 0:
+                    tmp.unlink(missing_ok=True)
+                    raise KernelBuildError(
+                        f"{name}: g++ exited {proc.returncode}\n"
+                        f"{proc.stdout}{proc.stderr}")
+                os.replace(tmp, out)
+                _metrics.note_compile(time.perf_counter() - t0)
+                _metrics.note_cache(hit=False)
+            lib = ctypes.CDLL(str(out))
             _LIBS[name] = lib
         return lib
 

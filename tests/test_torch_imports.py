@@ -255,7 +255,24 @@ def test_cold_start_and_ui_public_names_match_the_jax_package():
                            "export_roc_charts_to_html_file",
                            "evaluation_components", "evaluation_html",
                            "export_evaluation_to_html_file"],
-            "plot": ["Tsne", "BarnesHutTsne"]}
+            "plot": ["Tsne", "BarnesHutTsne"],
+            "modelimport": ["KerasImportError", "import_keras_model",
+                            "import_keras_model_and_weights",
+                            "import_keras_sequential_model",
+                            "import_keras_sequential_model_and_weights"],
+            "modelimport.hdf5": ["Hdf5Archive"],
+            "modelimport.dl4j": ["read_nd4j_array", "write_nd4j_array",
+                                 "translate_layer",
+                                 "restore_multi_layer_network_from_dl4j",
+                                 "write_dl4j_zip"],
+            "utils.model_guesser": ["guess_format", "load_model"],
+            "clustering": ["KMeansClustering", "KDTree", "VPTree"],
+            "clustering.kmeans": ["KMeansClustering"],
+            "clustering.trees": ["KDTree", "VPTree"],
+            "clustering.sptree": ["SPTree", "QuadTree"],
+            "datasets.native_io": ["available", "read_idx",
+                                   "NativeBatchLoader"],
+            "datasets.iterator": ["NativeDataSetIterator"]}
     code = ("import sys, importlib, json\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['deeplearning4j_tpu'] = None\n"
@@ -273,6 +290,28 @@ def test_cold_start_and_ui_public_names_match_the_jax_package():
     for m, names in mods.items():
         jm = importlib.import_module("deeplearning4j_tpu." + m)
         assert all(hasattr(jm, n) for n in names), m
+
+
+# the modules of the model-import, clustering and native-loader slice
+IMPORT_CLUSTERING_MODULES = [
+    "deeplearning4j_tpu_torch.modelimport",
+    "deeplearning4j_tpu_torch.modelimport.hdf5",
+    "deeplearning4j_tpu_torch.modelimport.keras",
+    "deeplearning4j_tpu_torch.modelimport.dl4j",
+    "deeplearning4j_tpu_torch.utils.model_guesser",
+    "deeplearning4j_tpu_torch.clustering",
+    "deeplearning4j_tpu_torch.clustering.kmeans",
+    "deeplearning4j_tpu_torch.clustering.trees",
+    "deeplearning4j_tpu_torch.clustering.sptree",
+    "deeplearning4j_tpu_torch.datasets.native_io",
+]
+
+
+@pytest.mark.parametrize("module", IMPORT_CLUSTERING_MODULES)
+def test_import_and_clustering_modules_are_checked(module):
+    """Each module of the model-import, clustering and native-loader
+    slice is among the sources the import tests check."""
+    assert module in {_module_name(p) for p in SOURCES}
 
 
 # the modules of the analysis gate and data-parallel slice

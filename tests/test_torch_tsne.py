@@ -2,7 +2,9 @@
 CPU against the JAX package's: P (the perplexity search over the pairwise
 distances) within 1e-5, the KL gradient and the KL at a given Y within
 1e-5, 10 iterations from the same numpy-seeded init within 1e-4, the
-embedding the UI publishes, and BarnesHutTsne refused by name.
+embedding the UI publishes, and BarnesHutTsne: the exact Tsne at theta
+0, the JAX package's host path at theta > 0
+(tests/test_torch_clustering.py holds that path to the JAX package's).
 
 Why 10 iterations at learning rate 10: at the default 200 the early
 exaggeration (x12) grows a one-ulp difference between the two packages'
@@ -97,9 +99,19 @@ def test_published_embedding_runs_the_exact_tsne():
     assert np.array_equal(flat[:, 0], x[:, 0]) and not flat[:, 1].any()
 
 
-def test_barnes_hut_is_refused_by_name_and_the_card_is_the_default():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.6"):
-        BarnesHutTsne(theta=0.5)
+def test_barnes_hut_runs_and_the_card_is_the_default():
+    x = _x(30, 8, seed=3)
+    exact = BarnesHutTsne(theta=0.0, perplexity=8.0, max_iter=10,
+                          device="cpu")
+    assert np.array_equal(exact.fit_transform(x),
+                          Tsne(perplexity=8.0, max_iter=10,
+                               device="cpu").fit_transform(x))
+    bh = BarnesHutTsne(theta=0.5, perplexity=8.0, max_iter=10, device="cpu")
+    y = bh.fit_transform(x)
+    jb = jtsne.BarnesHutTsne(theta=0.5, perplexity=8.0, max_iter=10)
+    np.testing.assert_allclose(y, jb.fit_transform(x), rtol=1e-9, atol=1e-9)
+    assert y.shape == (30, 2) and np.isfinite(bh.kl)
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="device='cpu'"):
-            Tsne()
+        for cls in (Tsne, BarnesHutTsne):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                cls()
