@@ -273,7 +273,23 @@ back bit for bit, the golden fixture, the model guesser on three
 formats), [clustering] (k-means k = 1,000 on 100,000 x 300, each Lloyd
 step held to float64; Barnes-Hut t-SNE) and [native_io] (the g++-built
 loader feeding a LeNet epoch from MNIST-shaped IDX files); the full run
-calls the same phases before [stream_split].
+calls the same phases before [stream_split], and
+
+    python3 chip_smoke.py --slice26
+
+runs the NLP, graph-embedding and fetcher phases, which reach no kernel
+of the port (every launch counter stays 0): [nlp_steps] (the nine update
+steps at text8's widths, V = 71,290, D = 200, b = 1,024, each twice on
+the card, bit-equal, and against the CPU), [word2vec] (skipgram with
+hierarchical softmax and CBOW with negative sampling over 300,000 Zipf
+tokens with planted topics; the first 50 steps against the CPU, words/s,
+the device's busy share), [glove] (window 15, batches of 4,096),
+[paragraph_vectors] (PV-DBOW and PV-DM over 2,000 documents,
+infer_vector), [graph_embed] (DeepWalk and Node2Vec on a BlogCatalog-
+sized graph), [nlp_distributed] (two gloo ranks sharing the card,
+bit-identical) and [fetchers] (the five dataset iterators on the card
+against the CPU, LeNet 20 steps); the full run calls them after slice
+25's.
 
 K1 and K2 (bf16 at n a multiple of 64 up to 512: thread-block clusters
 with Wh resident, DSMEM exchange, wgmma), K3 (bf16) and K4-K7 (bf16,
@@ -8524,9 +8540,17 @@ def _cs_wait(root, name, spawned, timeout=600):
         return json.load(f)
 
 
-def _cs_arm(root, name, cache, zip_path, mode="serve", **kw):
-    return _cs_wait(root, name, _cs_spawn(root, name, cache, zip_path, mode,
-                                          **kw))
+def _cs_wait_all(root, running):
+    """{name: JSON} of every arm in ``running`` ({name: _cs_spawn(...)}),
+    waited in turn; whatever happens, no arm is left running."""
+    try:
+        return {name: _cs_wait(root, name, sp) for name, sp in running.items()}
+    finally:
+        for proc, _, err in running.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+            err.close()
 
 
 def cs_traffic(net, root):
@@ -8650,32 +8674,40 @@ def phase_cold_start(card=None):
         zip_path = os.path.join(root, "gpt_mini.zip")
         write_model(net, zip_path)
         dirs = {k: os.path.join(root, k) for k in ("cold", "aot", "shared")}
-        arms = {"cold": _cs_arm(root, "cold", dirs["cold"], zip_path)}
+        # the phase's depth cut: the arms run in two groups of four at
+        # once, each arm's times taken under the others' load; first the
+        # four that start from an empty directory (cold's, precompile's
+        # and the shared one), then, after the traffic, the four that
+        # read what those built
+        arms = _cs_wait_all(root, {
+            "cold": _cs_spawn(root, "cold", dirs["cold"], zip_path),
+            "precompile": _cs_spawn(root, "precompile", dirs["aot"],
+                                    zip_path, "precompile"),
+            "shared_a": _cs_spawn(root, "shared_a", dirs["shared"],
+                                  zip_path),
+            "shared_b": _cs_spawn(root, "shared_b", dirs["shared"],
+                                  zip_path)})
         cold = arms["cold"]
         _cs_expect(cold, "cold", None, libs, builds=len(libs))
-        running = {"precompile": _cs_spawn(root, "precompile", dirs["aot"],
-                                           zip_path, "precompile"),
-                   "shared_a": _cs_spawn(root, "shared_a", dirs["shared"],
-                                         zip_path),
-                   "shared_b": _cs_spawn(root, "shared_b", dirs["shared"],
-                                         zip_path)}
-        for name, sp in running.items():
-            arms[name] = _cs_wait(root, name, sp)
-        arms["warm"] = _cs_arm(root, "warm", dirs["cold"], zip_path)
+        pre = arms["precompile"]
+        tuning, tuned = cs_traffic(net, root)
+        arms.update(_cs_wait_all(root, {
+            "warm": _cs_spawn(root, "warm", dirs["cold"], zip_path),
+            "aot": _cs_spawn(root, "aot", dirs["aot"], zip_path,
+                             aot_manifest=True),
+            "aot_mismatch": _cs_spawn(root, "aot_mismatch", dirs["aot"],
+                                      zip_path,
+                                      aot_manifest=pre["manifest_small"]),
+            "tuned": _cs_spawn(root, "tuned", dirs["cold"], zip_path,
+                               tuning_report=tuning)}))
         _cs_expect(arms["warm"], "warm", cold, libs, builds=0)
         check(arms["warm"]["cache_hits"] == len(libs),
               f"warm: {arms['warm']['cache_hits']} hits")
-        pre = arms["precompile"]
-        arms["aot"] = _cs_arm(root, "aot", dirs["aot"], zip_path,
-                              aot_manifest=True)
         _cs_expect(arms["aot"], "aot", cold, libs, builds=0)
         check(arms["aot"]["aot_manifest_ok"] is True
               and not arms["aot"]["warnings"],
               f"aot: aot_manifest_ok {arms['aot']['aot_manifest_ok']}, "
               f"warnings {arms['aot']['warnings']}")
-        arms["aot_mismatch"] = _cs_arm(root, "aot_mismatch", dirs["aot"],
-                                       zip_path,
-                                       aot_manifest=pre["manifest_small"])
         mis = arms["aot_mismatch"]
         _cs_expect(mis, "aot_mismatch", cold, libs, builds=0)
         check(mis["aot_manifest_ok"] is False and any(
@@ -8694,9 +8726,6 @@ def phase_cold_start(card=None):
               and sorted(n[3:].rsplit("_", 1)[0] for n in so_files)
               == list(libs),
               f"shared dir holds {left} (tmp {tmp}, marker {meta})")
-        tuning, tuned = cs_traffic(net, root)
-        arms["tuned"] = _cs_arm(root, "tuned", dirs["cold"], zip_path,
-                                tuning_report=tuning)
         t = arms["tuned"]
         _cs_expect(t, "tuned", cold, libs, builds=0)
         check(t["max_batch"] == tuned["tuned"]["max_batch"]
@@ -8717,6 +8746,10 @@ def phase_cold_start(card=None):
                                    if "launches" in a}),
               shared_dir=json.dumps(left), autotune=json.dumps(tuned),
               times=json.dumps({k: _cs_times(a) for k, a in arms.items()}),
+              times_contended="four arms at once (cold, precompile, "
+              "shared_a, shared_b; then warm, aot, aot_mismatch, tuned): "
+              "each arm's times under three others' load, the cold arm's "
+              "not an uncontended cold start",
               phase_s=f"{time.perf_counter() - t_phase:.1f}")
         return arms
     finally:
@@ -13432,6 +13465,1015 @@ def phase_slice25(card=None):
     phase("slice25", phases_s=f"{time.perf_counter() - t0:.1f}", card=card)
 
 
+# ---------------------------------------------------------------- slice 26
+# The NLP, graph-embedding and fetcher phases. No kernel of the port is
+# on these paths: the device work is gathers, batched dot products and
+# row updates in tensor ops, as XLA's are in the JAX package, and
+# check_no_kernel_launched holds every counter at 0. Widths:
+# - text8's vocabulary at min count 5 (V = 71,290 words; text8 holds
+#   17,005,207 tokens, whose Zipf counts give the Huffman depth), batches
+#   of 1,024 pairs; word2vec's demo-word.sh (CBOW, size 200, window 8,
+#   negative 25, sample 1e-4) and DL4J's Word2VecRawTextExample
+#   (skipgram with hierarchical softmax, layer size 100, window 5);
+# - the GloVe paper's settings (window 15, x_max 100, alpha 0.75, D 200)
+#   and its batches of 4,096;
+# - DeepWalk's paper (d 128, window 10, walks of 40) on a graph of
+#   BlogCatalog's size (10,312 vertices, 333,983 edges, 39 groups), one
+#   walk a vertex (the paper's 80 cut: the walks are host Python);
+# - DL4J's ParagraphVectorsTextExample's layer size 100 and window 5 over
+#   2,000 documents, trained PV_EPOCHS epochs at PV_LR (the example's one
+#   epoch of 5 iterations at 0.025 leaves the planted topics unlearned:
+#   each step averages a document's updates into one, as the JAX
+#   package's does, and the port takes no iterations a sequence).
+NLP_V, TEXT8_TOKENS = 71_290, 17_005_207
+NLP_B, NLP_D, NLP_NEG, NLP_WINDOW, NLP_LR = 1024, 200, 25, 8, 0.025
+NLP_DOCS, GLOVE_B = 10_000, 4096
+# one step on the card against the same step on the CPU, same inputs:
+# f32 gathers, products and row sums in other orders
+NLP_STEP_TOL = 1e-6
+# the first NLP_PREFIX_BATCHES steps of a fit on the card against the
+# same steps replayed on the CPU from the same tables and batches
+NLP_PREFIX_BATCHES, NLP_PREFIX_TOL = 50, 1e-5
+GLOVE_PREFIX_BATCHES = 20
+W2V_TOKENS, W2V_SENT = 300_000, 50
+# the prefix a fit runs under torch.profiler for the card's busy share (a
+# whole fit's ~40,000 launches take the profiler ~90 s to list)
+W2V_PROFILE_TOKENS = 20_000
+W2V_TOPICS, W2V_TOPIC_WORDS, W2V_TOPIC_SHARE = 10, 20, 0.3
+PV_DOCS, PV_DOC_LEN, PV_V, PV_EPOCHS, PV_LR = 2000, 50, 5000, 3, 0.15
+PV_INFER_ITERS = 50
+# the GloVe paper's 50 iterations cut to 5 (the phase's time)
+GLOVE_TOKENS, GLOVE_EPOCHS = 100_000, 5
+BC_N, BC_E, BC_GROUPS, BC_IN_SHARE = 10_312, 333_983, 39, 0.8
+# demo-word.sh's 15 iterations cut to 3: CBOW's vectors learn nothing of
+# the topics in one epoch here (the steps average a hot row's updates
+# over a batch into one, as the JAX package's do)
+CBOW_EPOCHS, CBOW_LR = 3, 0.05
+# [nlp_distributed]: [word2vec]'s whole corpus (its vocabulary whole) for
+# its skipgram arm's one epoch, a strided half a rank. The in-topic less
+# the cross-topic similarity the averaged tables must exceed, and the
+# untrained ones must not: the untrained table reads -0.0040 (its seeded
+# draws); an earlier run on the corpus's first half, two epochs, read
+# 0.0143 trained (PERF.md, PR 26)
+NLPD_EPOCHS, NLPD_GAP_MIN = 1, 0.005
+FETCH_B, FETCH_CIFAR_ROWS = 64, 10_000
+
+
+def zipf_p(n):
+    p = 1.0 / np.arange(1, n + 1)
+    return p / p.sum()
+
+
+def zipf_vocab():
+    """text8's vocabulary size with Zipf counts summing to text8's token
+    count (each at least 5, the min count), Huffman-coded."""
+    from deeplearning4j_tpu_torch.nlp.vocab import VocabCache, build_huffman
+    counts = np.maximum(5, (TEXT8_TOKENS * zipf_p(NLP_V)).astype(np.int64))
+    cache = VocabCache()
+    for i, c in enumerate(counts.tolist()):
+        cache.add(f"w{i}", c)
+    cache.finalize_indices()
+    build_huffman(cache)
+    return cache
+
+
+def huffman_arrays(cache):
+    """(points int64, codes f32, mask f32), [V, L], L the deepest code."""
+    L = max(len(w.code) for w in cache.vocab_words)
+    V = len(cache)
+    points = np.zeros((V, L), np.int64)
+    codes = np.zeros((V, L), np.float32)
+    mask = np.zeros((V, L), np.float32)
+    for w in cache.vocab_words:
+        n = len(w.code)
+        points[w.index, :n] = w.points
+        codes[w.index, :n] = w.code
+        mask[w.index, :n] = 1.0
+    return points, codes, mask
+
+
+NLP_HS = ["points", "codes", "code_mask"]
+NLP_NS = ["targets", "labels"]
+NLP_CTX = ["context", "ctx_mask"]
+GLOVE_TABLES = ["w", "wc", "b", "bc", "hw", "hwc", "hb", "hbc"]
+# step -> (arguments, tables it returns, tables it leaves bit-unchanged,
+#          the index whose rows take the most updates)
+NLP_STEPS = {
+    "skipgram_hs_step": (["syn0", "syn1", "centers"] + NLP_HS,
+                         ["syn0", "syn1"], [], "points"),
+    "skipgram_ns_step": (["syn0", "syn1neg", "centers"] + NLP_NS,
+                         ["syn0", "syn1neg"], [], "targets"),
+    "cbow_hs_step": (["syn0", "syn1"] + NLP_CTX + NLP_HS, ["syn0", "syn1"],
+                     [], "points"),
+    "cbow_ns_step": (["syn0", "syn1neg"] + NLP_CTX + NLP_NS,
+                     ["syn0", "syn1neg"], [], "targets"),
+    "dm_hs_step": (["syn0", "syn1", "doc_vecs", "docs"] + NLP_CTX + NLP_HS,
+                   ["syn0", "syn1", "doc_vecs"], [], "points"),
+    "dbow_hs_step": (["syn1", "doc_vecs", "docs"] + NLP_HS,
+                     ["syn1", "doc_vecs"], [], "points"),
+    "dbow_hs_step_frozen": (["syn1", "doc_vecs", "docs"] + NLP_HS,
+                            ["doc_vecs"], ["syn1"], "points"),
+    "dm_hs_step_frozen": (["syn0", "syn1", "doc_vecs", "docs"] + NLP_CTX
+                          + NLP_HS, ["doc_vecs"], ["syn0", "syn1"],
+                          "points"),
+    "_glove_step": (GLOVE_TABLES + ["rows", "cols", "logx", "fx"],
+                    GLOVE_TABLES, [], "rows"),
+}
+
+
+def nlp_step_fn(name):
+    from deeplearning4j_tpu_torch.nlp import elements, glove
+    return getattr(glove if name == "_glove_step" else elements, name)
+
+
+def nlp_step_inputs(cache, seed):
+    """Host tensors for every step at text8's widths: word2vec's init for
+    syn0 and the doc vectors, small random syn1/syn1neg (not word2vec's
+    zeros, so that every product is nonzero), Zipf-drawn batches. Every
+    batch row holds the Huffman root; row 0 of syn1neg (the most
+    frequent word, as the unigram table draws it) is in every NS row and
+    in every fourth of GloVe's 4,096 rows; one document a step, as
+    ParagraphVectors trains."""
+    import torch
+    from deeplearning4j_tpu_torch.nlp.vocab import make_negative_table
+    rng = np.random.default_rng(seed)
+    V, D, B, W = NLP_V, NLP_D, NLP_B, 2 * NLP_WINDOW
+    p = zipf_p(V)
+    f32 = np.float32
+
+    def table(n, lo=-0.5):
+        return ((rng.random((n, D)) + lo) / D).astype(f32)
+    points, codes, mask = huffman_arrays(cache)
+    tgt = rng.choice(V, B, p=p)
+    neg = make_negative_table(cache, 1_000_000)[
+        rng.integers(0, 1_000_000, (B, NLP_NEG))].astype(np.int64)
+    neg[:, 0] = 0
+    labels = np.zeros((B, 1 + NLP_NEG), f32)
+    labels[:, 0] = 1.0
+    ctx_len = rng.integers(1, W + 1, B)
+    rows = rng.choice(V, GLOVE_B, p=p)
+    rows[::4] = 0
+    host = {
+        "syn0": table(V), "syn1": table(V), "syn1neg": table(V),
+        "doc_vecs": table(NLP_DOCS),
+        "centers": rng.choice(V, B, p=p), "points": points[tgt],
+        "codes": codes[tgt], "code_mask": mask[tgt],
+        "targets": np.concatenate([tgt[:, None], neg], 1),
+        "labels": labels, "context": rng.choice(V, (B, W), p=p),
+        "ctx_mask": (np.arange(W)[None, :] < ctx_len[:, None]).astype(f32),
+        "docs": np.zeros(B, np.int64),
+        "w": table(V), "wc": table(V),
+        "b": np.zeros(V, f32), "bc": np.zeros(V, f32),
+        "hw": (1.0 + rng.random((V, D))).astype(f32),
+        "hwc": (1.0 + rng.random((V, D))).astype(f32),
+        "hb": (1.0 + rng.random(V)).astype(f32),
+        "hbc": (1.0 + rng.random(V)).astype(f32),
+        "rows": rows, "cols": rng.choice(V, GLOVE_B, p=p),
+        "logx": np.log(rng.uniform(1.0, 200.0, GLOVE_B)).astype(f32),
+        "fx": rng.uniform(0.05, 1.0, GLOVE_B).astype(f32),
+    }
+    return {k: torch.from_numpy(np.ascontiguousarray(
+        v.astype(np.int64) if v.dtype.kind == "i" else v))
+        for k, v in host.items()}
+
+
+def run_nlp_step(name, base, lr):
+    """The step on copies of ``base``'s tensors (on their device):
+    {argument: tensor after the call}."""
+    args = NLP_STEPS[name][0]
+    ts = {a: base[a].clone() for a in args}
+    nlp_step_fn(name)(*[ts[a] for a in args], lr)
+    return ts
+
+
+def max_rel(got, want):
+    """max |got - want| over max |want|, on the host in float64."""
+    g = got.detach().cpu().double()
+    w = want.detach().cpu().double()
+    return float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+
+
+def phase_nlp_steps(card=None):
+    """[nlp_steps]: each of the nine update steps at text8's widths, on
+    the card twice from the same inputs (bit-equal: the row adds keep one
+    order, with no global deterministic switch) and on the CPU from the
+    same inputs (NLP_STEP_TOL of the table's largest entry); the frozen
+    steps leave the word tables bit-unchanged; ms a step by CUDA events
+    (median of 20 after 3 warm-ups)."""
+    import torch
+    t_phase = time.perf_counter()
+    check(not torch.are_deterministic_algorithms_enabled(),
+          "[nlp_steps] a global deterministic switch is on")
+    cache = zipf_vocab()
+    host = nlp_step_inputs(cache, SEED + 2600)
+    L = host["points"].shape[1]
+    card_base = {k: v.cuda() for k, v in host.items()}
+    rows = []
+    for name, (args, outs, frozen, hot) in NLP_STEPS.items():
+        lr = 0.05 if name == "_glove_step" else NLP_LR
+        a = run_nlp_step(name, card_base, lr)
+        b = run_nlp_step(name, card_base, lr)
+        cpu = run_nlp_step(name, host, lr)
+        bits = all(torch_equal_bits(a[t], b[t]) for t in outs)
+        errs = {t: max_rel(a[t], cpu[t]) for t in outs}
+        moved = all(not torch_equal_bits(a[t], card_base[t]) for t in outs)
+        kept = all(torch_equal_bits(a[t], card_base[t]) for t in frozen)
+        idx = host[hot]
+        if hot == "points":
+            idx = idx[host["code_mask"] > 0]
+        hottest = int(torch.bincount(idx.reshape(-1)).max())
+        check(bits, f"[nlp_steps] {name}: two card runs differ")
+        check(max(errs.values()) <= NLP_STEP_TOL, f"[nlp_steps] {name}: "
+              f"card vs CPU {errs} > {NLP_STEP_TOL} of the largest entry")
+        check(moved and kept, f"[nlp_steps] {name}: tables moved {moved}, "
+              f"frozen tables kept {kept}")
+        check(hottest >= NLP_B, f"[nlp_steps] {name}: the hottest row takes "
+              f"{hottest} updates, fewer than {NLP_B}")
+        ts = {t: card_base[t].clone() for t in args}
+        fn = nlp_step_fn(name)
+        call = lambda: fn(*[ts[t] for t in args], lr)  # noqa: E731
+        call()
+        call()
+        ms = cuda_ms(call, 20)
+        rows.append({"step": name, "ms": round(ms, 4),
+                     "card_vs_cpu": {t: float(f"{e:.3e}")
+                                     for t, e in errs.items()},
+                     "hottest_row_updates": hottest})
+        del a, b, cpu, ts
+    torch.cuda.empty_cache()
+    phase("nlp_steps", vocab=NLP_V, huffman_depth=L, d=NLP_D, batch=NLP_B,
+          negatives=NLP_NEG, glove_batch=GLOVE_B,
+          table_mb=f"{NLP_V * NLP_D * 4 / 1e6:.1f}",
+          steps=json.dumps(rows), tol=NLP_STEP_TOL,
+          two_card_runs_bit_equal=True, frozen_tables_bit_unchanged=True,
+          deterministic_switch=False,
+          phase_s=f"{time.perf_counter() - t_phase:.1f}", card=card)
+
+
+def nlp_corpus(seed, n_tokens=None):
+    """(sentences of W2V_SENT tokens, topics): n_tokens Zipf draws over
+    NLP_V words, W2V_TOPIC_SHARE of each sentence's tokens replaced by
+    words of the sentence's topic (W2V_TOPICS topics of W2V_TOPIC_WORDS
+    words, ranks 200 on), then every word never drawn written over a
+    background token (of a word drawn twice or more), so that the
+    vocabulary is all NLP_V words. ``topics`` holds the topics' word
+    strings."""
+    rng = np.random.default_rng(seed)
+    V, n_tokens = NLP_V, n_tokens or W2V_TOKENS
+    ids = rng.choice(V, n_tokens, p=zipf_p(V))
+    n_sent = n_tokens // W2V_SENT
+    topic_words = 200 + np.arange(W2V_TOPICS * W2V_TOPIC_WORDS).reshape(
+        W2V_TOPICS, W2V_TOPIC_WORDS)
+    sent_topic = np.repeat(rng.integers(0, W2V_TOPICS, n_sent), W2V_SENT)
+    planted = rng.random(n_tokens) < W2V_TOPIC_SHARE
+    ids = np.where(planted, topic_words[
+        sent_topic, rng.integers(0, W2V_TOPIC_WORDS, n_tokens)], ids)
+    used = planted.copy()
+    while True:
+        counts = np.bincount(ids, minlength=V)
+        unseen = np.flatnonzero(counts == 0)
+        if not len(unseen):
+            break
+        free = np.flatnonzero(~used & (counts[ids] > 1))
+        spots = rng.choice(free, len(unseen), replace=False)
+        ids[spots] = unseen
+        used[spots] = True
+    names = [f"w{i}" for i in range(V)]
+    sentences = [[names[j] for j in ids[s:s + W2V_SENT].tolist()]
+                 for s in range(0, n_sent * W2V_SENT, W2V_SENT)]
+    return sentences, [[names[j] for j in t] for t in topic_words.tolist()]
+
+
+def topic_gap(table, cache, topics):
+    """(mean cosine similarity of two words of one topic, of two words of
+    different topics) over the topics' words of ``table`` (rows by
+    ``cache``), on its device, each vector taken less the topics' words'
+    mean: negative sampling gives every vector one common direction (raw
+    cosines near 1 for both), which the mean removes."""
+    import torch
+    idx = torch.tensor([cache.index_of(w) for t in topics for w in t],
+                       device=table.device)
+    v = table[idx].double()
+    v = torch.nn.functional.normalize(v - v.mean(0), dim=1)
+    sims = v @ v.T
+    k = len(topics[0])
+    same = torch.block_diag(*[torch.ones(k, k, dtype=torch.bool,
+                                         device=v.device)] * len(topics))
+    eye = torch.eye(len(idx), dtype=torch.bool, device=v.device)
+    return float(sims[same & ~eye].mean()), float(sims[~same].mean())
+
+
+class StepSpy:
+    """Wraps a module's step function for one fit: counts the calls and
+    the host's time issuing them, keeps (on the card, no host sync) the
+    tables before the first call, the first ``held`` calls' other
+    arguments and the tables after the held-th call, and references to
+    the tables themselves (updated in place)."""
+
+    def __init__(self, mod, name, n_tables, held):
+        self.mod, self.name, self.fn = mod, name, getattr(mod, name)
+        self.n_tables, self.held = n_tables, held
+        self.calls, self.issue_s = 0, 0.0
+        self.before = self.after = self.tables = None
+        self.batches = []
+
+    def __call__(self, *args):
+        t0 = time.perf_counter()
+        tables = args[:self.n_tables]
+        if self.calls == 0:
+            self.tables = tables
+            self.before = [t.clone() for t in tables]
+        if self.calls < self.held:
+            self.batches.append([a.clone() if hasattr(a, "clone") else a
+                                 for a in args[self.n_tables:]])
+        out = self.fn(*args)
+        self.calls += 1
+        if self.calls == self.held:
+            self.after = [t.clone() for t in tables]
+        self.issue_s += time.perf_counter() - t0
+        return out
+
+    def __enter__(self):
+        setattr(self.mod, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.fn)
+
+    def replay_on_cpu(self):
+        """The held calls replayed on the CPU from the held tables:
+        max_rel of the card's tables after them against the CPU's."""
+        check(self.after is not None, f"{self.name}: {self.calls} calls, "
+              f"fewer than the {self.held} held")
+        tables = [t.cpu() for t in self.before]
+        for batch in self.batches:
+            self.fn(*tables, *[a.cpu() if hasattr(a, "cpu") else a
+                               for a in batch])
+        return max(max_rel(a, c) for a, c in zip(self.after, tables))
+
+
+def w2v_arm(arm, step_name, kw, sentences, topics, card):
+    """One Word2Vec fit on the card over ``sentences``: the first
+    NLP_PREFIX_BATCHES steps held against the CPU, the topic gap,
+    words/s, the host's time against the steps'; then a fit of the first
+    W2V_PROFILE_TOKENS tokens under torch.profiler for the device's busy
+    share."""
+    import torch
+    from deeplearning4j_tpu_torch.nlp import Word2Vec, elements
+    n_words = sum(len(s) for s in sentences)
+    m = Word2Vec(**kw)
+    t0 = time.perf_counter()
+    m.build_vocab(sentences)
+    torch.cuda.synchronize()
+    vocab_s = time.perf_counter() - t0
+    with StepSpy(elements, step_name, 2, NLP_PREFIX_BATCHES) as spy:
+        t0 = time.perf_counter()
+        m.fit(sentences)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    err = spy.replay_on_cpu()
+    check(err <= NLP_PREFIX_TOL, f"[word2vec] {arm}: the first "
+          f"{NLP_PREFIX_BATCHES} card steps {err:.3e} of the largest "
+          f"entry from the CPU's > {NLP_PREFIX_TOL}")
+    same, cross = topic_gap(m.lookup.syn0, m.lookup.cache, topics)
+    check(same > cross, f"[word2vec] {arm}: in-topic similarity "
+          f"{same:.4f} not above cross-topic {cross:.4f}")
+    check(len(m.vocab) == NLP_V, f"[word2vec] vocab {len(m.vocab)}")
+    prefix = sentences[:W2V_PROFILE_TOKENS // W2V_SENT]
+    with StepSpy(elements, step_name, 2, 0) as prof_spy:
+        _, kernels, wall_ms = profiled(lambda: m.fit(prefix))
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    phase("word2vec", arm=arm, vocab=len(m.vocab), d=kw["vector_size"],
+          window=kw["window"], negative=kw.get("negative", 0),
+          sample=kw.get("sample", 0.0), epochs=kw["epochs"],
+          lr=kw["learning_rate"], tokens=n_words, steps=spy.calls,
+          vocab_s=f"{vocab_s:.2f}", fit_s=f"{fit_s:.3f}",
+          words_per_s=f"{n_words * kw['epochs'] / fit_s:.0f}",
+          host_outside_steps_s=f"{fit_s - spy.issue_s:.3f}",
+          host_issuing_steps_s=f"{spy.issue_s:.3f}",
+          prefix_steps=NLP_PREFIX_BATCHES,
+          prefix_card_vs_cpu=f"{err:.3e}", tol=NLP_PREFIX_TOL,
+          in_topic=f"{same:.4f}", cross_topic=f"{cross:.4f}",
+          profiled_steps=prof_spy.calls,
+          profiled_device_ms_per_step=f"{device_ms / prof_spy.calls:.4f}",
+          profiled_busy=f"{device_ms / wall_ms:.4f}", card=card)
+    return m
+
+
+def phase_word2vec(card=None):
+    """[word2vec]: skipgram with hierarchical softmax (D 100, window 5,
+    one epoch at 0.025) and CBOW with negative sampling (D 200, window 8,
+    negative 25, sample 1e-4, CBOW_EPOCHS epochs at word2vec's CBOW rate
+    0.05) over W2V_TOKENS synthetic Zipf tokens with planted topics."""
+    import torch
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    sentences, topics = nlp_corpus(SEED + 2610)
+    corpus_s = time.perf_counter() - t0
+    base = dict(min_word_frequency=1, epochs=1, batch_size=NLP_B,
+                learning_rate=NLP_LR)
+    w2v_arm("skipgram_hs", "skipgram_hs_step",
+            dict(base, vector_size=100, window=5, negative=0,
+                 seed=SEED + 2611), sentences, topics, card)
+    w2v_arm("cbow_ns", "cbow_ns_step",
+            dict(base, vector_size=NLP_D, window=NLP_WINDOW,
+                 negative=NLP_NEG, sample=1e-4, algorithm="cbow",
+                 epochs=CBOW_EPOCHS, learning_rate=CBOW_LR,
+                 seed=SEED + 2612), sentences, topics, card)
+    torch.cuda.empty_cache()
+    phase("word2vec", corpus_s=f"{corpus_s:.2f}",
+          phase_s=f"{time.perf_counter() - t_phase:.1f}", card=card)
+    return sentences
+
+
+def pv_documents(seed, n=None):
+    """``n`` (PV_DOCS) (label, text) documents of PV_DOC_LEN tokens,
+    document i of topic i % W2V_TOPICS (label doc_<topic>_<i>):
+    W2V_TOPIC_SHARE of the tokens from the topic's W2V_TOPIC_WORDS
+    words, the rest Zipf background over PV_V words."""
+    n = n or PV_DOCS
+    rng = np.random.default_rng(seed)
+    bg = rng.choice(PV_V, (n, PV_DOC_LEN), p=zipf_p(PV_V))
+    pick = rng.integers(0, W2V_TOPIC_WORDS, (n, PV_DOC_LEN))
+    planted = rng.random((n, PV_DOC_LEN)) < W2V_TOPIC_SHARE
+    docs = []
+    for i in range(n):
+        t = i % W2V_TOPICS
+        words = [f"t{t}_{k}" if pl else f"w{j}" for j, k, pl in zip(
+            bg[i].tolist(), pick[i].tolist(), planted[i].tolist())]
+        docs.append((f"doc_{t}_{i}", " ".join(words)))
+    return docs
+
+
+def phase_paragraph_vectors(card=None):
+    """[paragraph_vectors]: PV-DBOW and PV-DM (D 100, window 5, PV_LR,
+    PV_EPOCHS epochs) over PV_DOCS synthetic documents of W2V_TOPICS
+    topics on the card: doc vectors of one topic closer than of two;
+    a held-out document of each topic, inferred (PV_INFER_ITERS
+    iterations at PV_LR) against the frozen word tables (bit-unchanged),
+    lands nearest its own topic's centroid of the doc vectors (its 10
+    nearest documents reported)."""
+    import torch
+    from deeplearning4j_tpu_torch.nlp import ParagraphVectors, elements
+    t_phase = time.perf_counter()
+    docs = pv_documents(SEED + 2620)
+    rng = np.random.default_rng(SEED + 2621)
+    labels = np.asarray([int(l.split("_")[1]) for l, _ in docs])
+    a, b = rng.integers(0, PV_DOCS, (2, 4000))
+    same_pairs = labels[a] == labels[b]
+    for algo, step in (("dbow", "dbow_hs_step"), ("dm", "dm_hs_step")):
+        pv = ParagraphVectors(vector_size=100, window=5, learning_rate=PV_LR,
+                              epochs=PV_EPOCHS, seed=SEED + 2622,
+                              sequence_algorithm=algo)
+        with StepSpy(elements, step, 0, 0) as spy:
+            t0 = time.perf_counter()
+            pv.fit_documents(docs)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+        dv = torch.nn.functional.normalize(pv.doc_vecs.double(), dim=1)
+        sims = (dv[torch.as_tensor(a, device=dv.device)]
+                * dv[torch.as_tensor(b, device=dv.device)]).sum(1).cpu()
+        s_same = float(sims[torch.as_tensor(same_pairs & (a != b))].mean())
+        s_cross = float(sims[torch.as_tensor(~same_pairs)].mean())
+        check(s_same > s_cross, f"[paragraph_vectors] {algo}: same-topic "
+              f"docs {s_same:.4f} not above cross-topic {s_cross:.4f}")
+        centroids = torch.nn.functional.normalize(torch.stack([
+            dv[torch.as_tensor(labels == t, device=dv.device)].mean(0)
+            for t in range(W2V_TOPICS)]), dim=1)
+        syn0, syn1 = pv.lookup.syn0.clone(), pv.lookup.syn1.clone()
+        nearest, near10, infer_ms = [], [], []
+        held_out = pv_documents(SEED + 2623, W2V_TOPICS)
+        for t, (_, text) in enumerate(held_out):
+            t0 = time.perf_counter()
+            vec = pv.infer_vector(text, iterations=PV_INFER_ITERS, lr=PV_LR)
+            infer_ms.append(round((time.perf_counter() - t0) * 1e3, 2))
+            v = torch.as_tensor(vec, device=dv.device).double()
+            nearest.append(int((centroids @ v).argmax()))
+            near10.append(sum(l.startswith(f"doc_{t}_") for l, _ in
+                              pv.nearest_labels(vec, top_n=10)))
+        kept = (torch_equal_bits(pv.lookup.syn0, syn0)
+                and torch_equal_bits(pv.lookup.syn1, syn1))
+        check(kept, f"[paragraph_vectors] {algo}: infer_vector moved the "
+              f"word tables")
+        check(nearest == list(range(W2V_TOPICS)), f"[paragraph_vectors] "
+              f"{algo}: held-out documents of topics 0-{W2V_TOPICS - 1} "
+              f"land nearest topics {nearest}")
+        phase("paragraph_vectors", algo=algo, docs=PV_DOCS,
+              vocab=len(pv.vocab), d=100, window=5, lr=PV_LR,
+              epochs=PV_EPOCHS, steps=spy.calls, fit_s=f"{fit_s:.3f}",
+              ms_per_step=f"{fit_s * 1e3 / max(spy.calls, 1):.3f}",
+              host_issuing_steps_s=f"{spy.issue_s:.3f}",
+              same_topic=f"{s_same:.4f}", cross_topic=f"{s_cross:.4f}",
+              infer_nearest_topic=json.dumps(nearest),
+              infer_own_topic_of_10_nearest=json.dumps(near10),
+              infer_ms_median=f"{statistics.median(infer_ms):.2f}",
+              frozen_bit_unchanged=kept,
+              card=card)
+    phase("paragraph_vectors",
+          phase_s=f"{time.perf_counter() - t_phase:.1f}", card=card)
+
+
+def glove_loss(tables, rows, cols, logx, fx):
+    """GloVe's objective, the mean over the co-occurrences of
+    f(X)(w_i.w~_j + b_i + b~_j - log X)^2, in float64 on the card."""
+    w, wc, b, bc = tables[:4]
+    total = 0.0
+    for s in range(0, len(rows), 1 << 18):
+        r, c = rows[s:s + (1 << 18)], cols[s:s + (1 << 18)]
+        d = ((w[r].double() * wc[c].double()).sum(1) + b[r].double()
+             + bc[c].double() - logx[s:s + (1 << 18)].double())
+        total += float((fx[s:s + (1 << 18)].double() * d * d).sum())
+    return total / len(rows)
+
+
+def phase_glove(sentences, card=None):
+    """[glove]: the corpus's first GLOVE_TOKENS tokens at the GloVe
+    paper's settings (window 15, x_max 100, alpha 0.75, D 200, batches of
+    4,096, GLOVE_EPOCHS epochs); the first GLOVE_PREFIX_BATCHES steps
+    held against the CPU; the objective falls."""
+    import torch
+    from deeplearning4j_tpu_torch.nlp import Glove, glove as glove_mod
+    t_phase = time.perf_counter()
+    seqs = sentences[:GLOVE_TOKENS // W2V_SENT]
+    count = glove_mod._cooccurrences
+    got = {}
+
+    def timed_count(*a):
+        t0 = time.perf_counter()
+        got["coo"] = count(*a)
+        got["s"] = time.perf_counter() - t0
+        return got["coo"]
+    g = Glove(vector_size=NLP_D, window=15, x_max=100.0, alpha=0.75,
+              batch_size=GLOVE_B, epochs=GLOVE_EPOCHS, learning_rate=0.05,
+              seed=SEED + 2630)
+    glove_mod._cooccurrences = timed_count
+    try:
+        with StepSpy(glove_mod, "_glove_step", 8, GLOVE_PREFIX_BATCHES) \
+                as spy:
+            t0 = time.perf_counter()
+            g.fit(seqs)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+    finally:
+        glove_mod._cooccurrences = count
+    err = spy.replay_on_cpu()
+    check(err <= NLP_PREFIX_TOL, f"[glove] the first {GLOVE_PREFIX_BATCHES} "
+          f"card steps {err:.3e} from the CPU's > {NLP_PREFIX_TOL}")
+    rows, cols, xs = got["coo"]
+    dev = g.lookup.syn0.device
+    r = torch.as_tensor(rows.astype(np.int64), device=dev)
+    c = torch.as_tensor(cols.astype(np.int64), device=dev)
+    logx = torch.as_tensor(np.log(xs), device=dev)
+    fx = torch.as_tensor(np.minimum((xs / 100.0) ** 0.75, 1.0)
+                         .astype(np.float32), device=dev)
+    j0 = glove_loss(spy.before, r, c, logx, fx)
+    j1 = glove_loss(spy.tables, r, c, logx, fx)
+    check(j1 < j0, f"[glove] the objective did not fall: {j0:.5f} -> "
+          f"{j1:.5f}")
+    args = [t.clone() for t in spy.tables] + [
+        r[:GLOVE_B], c[:GLOVE_B], logx[:GLOVE_B], fx[:GLOVE_B]]
+    step = glove_mod._glove_step
+    call = lambda: step(*args, 0.05)  # noqa: E731
+    call()
+    call()
+    step_ms = cuda_ms(call, 20)
+    phase("glove", tokens=sum(len(s) for s in seqs), vocab=len(g.vocab),
+          d=NLP_D, window=15, batch=GLOVE_B, epochs=GLOVE_EPOCHS,
+          cooccurrences=len(xs), counting_s=f"{got['s']:.2f}",
+          steps=spy.calls, fit_s=f"{fit_s:.2f}",
+          train_s=f"{fit_s - got['s']:.3f}",
+          step_ms_events=f"{step_ms:.4f}",
+          host_issuing_steps_s=f"{spy.issue_s:.3f}",
+          prefix_steps=GLOVE_PREFIX_BATCHES,
+          prefix_card_vs_cpu=f"{err:.3e}", tol=NLP_PREFIX_TOL,
+          loss_before=f"{j0:.5f}", loss_after=f"{j1:.5f}",
+          phase_s=f"{time.perf_counter() - t_phase:.1f}", card=card)
+
+
+def community_graph(seed):
+    """A graph of BlogCatalog's size: BC_N vertices in BC_GROUPS planted
+    groups, BC_E distinct undirected edges, BC_IN_SHARE of them inside a
+    group. Returns (Graph, group of each vertex)."""
+    from deeplearning4j_tpu_torch.graph import Graph
+    rng = np.random.default_rng(seed)
+    group = rng.integers(0, BC_GROUPS, BC_N)
+    order = np.argsort(group, kind="stable")
+    sizes = np.bincount(group, minlength=BC_GROUPS)
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    edges = {}
+    while len(edges) < BC_E:
+        k = int((BC_E - len(edges)) * 1.2) + 16
+        a = rng.integers(0, BC_N, k)
+        inside = rng.random(k) < BC_IN_SHARE
+        b_in = order[starts[group[a]]
+                     + (rng.random(k) * sizes[group[a]]).astype(np.int64)]
+        b = np.where(inside, b_in, rng.integers(0, BC_N, k))
+        for u, v in zip(np.minimum(a, b).tolist(), np.maximum(a, b).tolist()):
+            if u != v:
+                edges[(u, v)] = None
+                if len(edges) == BC_E:
+                    break
+    return Graph.from_edge_list(list(edges), num_vertices=BC_N), group
+
+
+def community_gap(table, cache, group):
+    """(mean cosine similarity over every pair of vertices in one group,
+    over every pair in two groups) of ``table``'s rows (by ``cache``),
+    exact, from each group's sum of unit vectors on its device."""
+    import torch
+    rows = [cache.index_of(str(v)) for v in range(BC_N)]
+    check(min(rows) >= 0, "[graph_embed] a vertex left out of the vocab")
+    u = torch.nn.functional.normalize(
+        table[torch.as_tensor(rows, device=table.device)].double(), dim=1)
+    g = torch.as_tensor(group, device=u.device)
+    sums = torch.nn.functional.one_hot(g, BC_GROUPS).double().T @ u
+    n = torch.bincount(g, minlength=BC_GROUPS).double()
+    same = float(((sums * sums).sum(1) - n).sum())
+    same_pairs = float((n * (n - 1)).sum())
+    total = u.sum(0)
+    every = float((total * total).sum()) - BC_N
+    return (same / same_pairs,
+            (every - same) / (BC_N * (BC_N - 1) - same_pairs))
+
+
+GRAPH_KW = dict(vector_size=128, window=10, walk_length=40,
+                walks_per_vertex=1, seed=SEED + 2641)
+N2V_PQ = 0.25
+# the in-group less the cross-group similarity a trained table must
+# exceed, and an untrained one must not: the untrained DeepWalk and
+# Node2Vec tables read 2.5e-5 and 3.2e-5 (their seeded draws), the trained
+# ones 4.5e-4 and 3.9e-4 on the card (PERF.md, PR 26)
+GRAPH_GAP_MIN = 2e-4
+
+
+def n2v_walk_rank(port, rank, root):
+    """[graph_embed]'s Node2Vec walks, generated in a child process (host
+    Python) while the parent trains DeepWalk on the card; written to
+    ``root``/walks.npy, one row a walk (-1 past a walk's end)."""
+    from deeplearning4j_tpu_torch.graph import Node2Vec
+    g, _ = community_graph(SEED + 2640)
+    t0 = time.perf_counter()
+    walks = list(Node2Vec(p=N2V_PQ, q=N2V_PQ, device="cpu",
+                          **GRAPH_KW)._default_walks(g))
+    walk_s = time.perf_counter() - t0
+    out = np.full((len(walks), GRAPH_KW["walk_length"]), -1, np.int32)
+    for i, w in enumerate(walks):
+        out[i, :len(w)] = w
+    np.save(os.path.join(root, "walks.npy"), out)
+    rank_out(root, rank, {"walk_s": walk_s, "walks": len(walks)})
+
+
+def phase_graph_embed(card=None):
+    """[graph_embed]: DeepWalk (d 128, window 10, walks of 40, one a
+    vertex) and Node2Vec (p = q = N2V_PQ) on a BlogCatalog-sized graph
+    with planted groups, on the card; in-group similarity above
+    cross-group; walk and train seconds. Node2Vec's walks are made in a
+    child process meanwhile (their first 100 held equal to the parent's
+    own)."""
+    import itertools
+    import shutil
+    import tempfile
+
+    import torch
+    from deeplearning4j_tpu_torch.graph import DeepWalk, Node2Vec
+    from deeplearning4j_tpu_torch.nlp import elements
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="graph_embed_")
+    child = []
+    try:
+        child = spawn_ranks("n2v_walk_rank", 1, root)
+        t0 = time.perf_counter()
+        g, group = community_graph(SEED + 2640)
+        graph_s = time.perf_counter() - t0
+        models = (("deepwalk", DeepWalk(**GRAPH_KW)),
+                  ("node2vec", Node2Vec(p=N2V_PQ, q=N2V_PQ, **GRAPH_KW)))
+        for name, model in models:
+            t0 = time.perf_counter()
+            if name == "deepwalk":
+                walks = list(model._default_walks(g))
+                walk_s = time.perf_counter() - t0
+            else:
+                made = collect_ranks(child, root, "graph_embed",
+                                     timeout_s=300)[0]
+                walk_s = made["walk_s"]
+                walks = [[int(v) for v in row if v >= 0] for row in
+                         np.load(os.path.join(root, "walks.npy")).tolist()]
+                mine = list(itertools.islice(model._default_walks(g), 100))
+                check(len(walks) == made["walks"] == BC_N
+                      and walks[:100] == mine, "[graph_embed] the child's "
+                      "Node2Vec walks differ from the parent's")
+            with StepSpy(elements, "skipgram_hs_step", 2, 0) as spy:
+                t0 = time.perf_counter()
+                model.fit(g, walk_iterator=walks)
+                torch.cuda.synchronize()
+                train_s = time.perf_counter() - t0
+            cache = model.vectors.lookup.cache
+            same0, cross0 = community_gap(spy.before[0], cache, group)
+            same, cross = community_gap(model.vectors.lookup.syn0, cache,
+                                        group)
+            check(same0 - cross0 < GRAPH_GAP_MIN < same - cross,
+                  f"[graph_embed] {name}: in-group less cross-group "
+                  f"similarity untrained {same0 - cross0:.3e}, trained "
+                  f"{same - cross:.3e}; the limit {GRAPH_GAP_MIN} must lie "
+                  f"between")
+            phase("graph_embed", model=name, vertices=BC_N, edges=BC_E,
+                  groups=BC_GROUPS, d=128, window=10, walk_length=40,
+                  walks_per_vertex=1, p_q=(f"{N2V_PQ}/{N2V_PQ}"
+                                           if name == "node2vec" else "1/1"),
+                  walks=len(walks), walk_s=f"{walk_s:.2f}",
+                  train_s=f"{train_s:.2f}", steps=spy.calls,
+                  host_issuing_steps_s=f"{spy.issue_s:.3f}",
+                  in_group=f"{same:.6f}", cross_group=f"{cross:.6f}",
+                  untrained_gap=f"{same0 - cross0:.3e}",
+                  trained_gap=f"{same - cross:.3e}", gap_min=GRAPH_GAP_MIN,
+                  card=card)
+    finally:
+        stop_ranks(child)
+        shutil.rmtree(root, ignore_errors=True)
+    phase("graph_embed", graph_s=f"{graph_s:.2f}",
+          cut="walks_per_vertex 80 -> 1 (host Python walks)",
+          phase_s=f"{time.perf_counter() - t_phase:.1f}", card=card)
+
+
+def nlpd_rank(port, rank, root, epochs):
+    """One rank of [nlp_distributed]: Word2Vec at [word2vec]'s skipgram
+    widths on its strided shard, averaged after each epoch over a gloo
+    group on the shared card."""
+    import torch
+    from deeplearning4j_tpu_torch.nlp import MultiProcessSequenceVectors, \
+        Word2Vec, elements
+    from deeplearning4j_tpu_torch.parallel import distributed as D
+    torch.set_num_threads(2)
+    D.initialize(f"127.0.0.1:{port}", 2, rank, backend="gloo")
+    try:
+        sentences, topics = nlp_corpus(SEED + 2610)
+        w2v = Word2Vec(vector_size=100, window=5, negative=0, epochs=epochs,
+                       batch_size=NLP_B, learning_rate=NLP_LR,
+                       seed=SEED + 2650)
+        trainer = MultiProcessSequenceVectors(w2v)
+        with StepSpy(elements, "skipgram_hs_step", 1, 0) as spy:
+            t0 = time.perf_counter()
+            trainer.fit(sentences)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+        lk = w2v.lookup
+        sync = D.sync_check({"syn0": lk.syn0, "syn1": lk.syn1})
+        same0, cross0 = topic_gap(spy.before[0], lk.cache, topics)
+        same, cross = topic_gap(lk.syn0, lk.cache, topics)
+        rank_out(root, rank, {
+            "sync": sync, "fit_s": fit_s, "device": str(lk.syn0.device),
+            "backend": D.process_info()["backend"],
+            "phases": [[e.phase, round(e.duration_ms, 3)]
+                       for e in trainer.stats.events],
+            "vocab": len(w2v.vocab),
+            "table_bytes": sum(t.numel() * 4 for t in (lk.syn0, lk.syn1)),
+            "tokens": sum(len(x) for x in sentences),
+            "in_topic": same, "cross_topic": cross,
+            "untrained_gap": same0 - cross0})
+    finally:
+        D.shutdown()
+
+
+def nlpd_spawn():
+    """[nlp_distributed]'s two ranks, started: (their root, the ranks)."""
+    import tempfile
+    root = tempfile.mkdtemp(prefix="nlp_distributed_")
+    return root, spawn_ranks("nlpd_rank", 2, root, NLPD_EPOCHS)
+
+
+def phase_nlp_distributed(card=None, started=None):
+    """[nlp_distributed]: two gloo ranks sharing the card, each training
+    its strided shard of [word2vec]'s corpus at its skipgram widths, the
+    tables averaged after each of NLPD_EPOCHS epochs: the ranks end
+    bit-identical, the in-topic less the cross-topic similarity above
+    NLPD_GAP_MIN, and the untrained tables' below it; the average's ms.
+    ``started`` (nlpd_spawn's) are ranks started earlier: slice 26 starts
+    them before [fetchers], which runs meanwhile."""
+    import shutil
+    t_phase = time.perf_counter()
+    root, procs = started or nlpd_spawn()
+    try:
+        res = collect_ranks(procs, root, "nlp_distributed", timeout_s=600)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for r, x in enumerate(res):
+        check(x["sync"] and x["backend"] == "gloo"
+              and x["device"].startswith("cuda"), f"[nlp_distributed] rank "
+              f"{r}: sync {x['sync']}, {x['backend']} on {x['device']}")
+        gap = x["in_topic"] - x["cross_topic"]
+        check(x["untrained_gap"] < NLPD_GAP_MIN < gap, f"[nlp_distributed] "
+              f"rank {r}: in-topic less cross-topic similarity untrained "
+              f"{x['untrained_gap']:.4f}, trained {gap:.4f}; the limit "
+              f"{NLPD_GAP_MIN} must lie between")
+        kinds = [p for p, _ in x["phases"]]
+        check(kinds == ["vocab"] + ["fit", "average"] * NLPD_EPOCHS,
+              f"[nlp_distributed] rank {r}: phases {kinds}")
+    avg = [[ms for p, ms in x["phases"] if p == "average"] for x in res]
+    phase("nlp_distributed", ranks=2, backend="gloo", epochs=NLPD_EPOCHS,
+          tokens=res[0]["tokens"], vocab=res[0]["vocab"], sync_check=True,
+          table_mb_per_rank=f"{res[0]['table_bytes'] / 1e6:.1f}",
+          average_ms=json.dumps(avg),
+          fit_s=json.dumps([round(x["fit_s"], 2) for x in res]),
+          in_topic=f"{res[0]['in_topic']:.4f}",
+          cross_topic=f"{res[0]['cross_topic']:.4f}",
+          untrained_gap=f"{res[0]['untrained_gap']:.4f}",
+          gap_min=NLPD_GAP_MIN, alongside_fetchers=started is not None,
+          phase_s=f"{time.perf_counter() - t_phase:.1f}", card=card)
+
+
+def cifar_batches(root, seed):
+    """CIFAR-10's five binary training batches (FETCH_CIFAR_ROWS rows of
+    a label byte and 3,072 pixel bytes: 30,730,000 bytes each) in
+    ``root``."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    for i in range(1, 6):
+        rows = np.concatenate(
+            [rng.integers(0, 10, (FETCH_CIFAR_ROWS, 1), dtype=np.uint8),
+             rng.integers(0, 256, (FETCH_CIFAR_ROWS, 3072),
+                          dtype=np.uint8)], 1)
+        rows.tofile(os.path.join(root, f"data_batch_{i}.bin"))
+
+
+def iris_data(path, seed):
+    """A 150-line iris.data: four measurements and a class name."""
+    rng = np.random.default_rng(seed)
+    names = ("Iris-setosa", "Iris-versicolor", "Iris-virginica")
+    with open(path, "w") as f:
+        for i in range(150):
+            f.write(",".join(f"{v:.1f}" for v in rng.uniform(0.1, 8.0, 4))
+                    + f",{names[i % 3]}\n")
+
+
+def phase_fetchers(card=None, alongside=None):
+    """[fetchers]: the five iterators from files of the published formats
+    (MNIST IDX 60,000 x 28 x 28, CIFAR-10's five binary batches,
+    iris.data) written to a temp dir, and from the synthetic sets (HOME
+    and DL4J_TPU_DATA_DIR pointed at the temp dir), each on the card
+    against the same iterator on the CPU, batch for batch; then LeNet 20
+    steps from MnistDataSetIterator on the card. LFW's image path needs
+    PIL, which the card's host lacks: its synthetic set runs here.
+    ``alongside`` names what runs meanwhile (its times are then taken
+    under that load)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.datasets import (
+        CifarDataSetIterator, CurvesDataSetIterator, DataSet,
+        IrisDataSetIterator, LFWDataSetIterator, MnistDataSetIterator)
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="fetchers_")
+    env = {k: os.environ.get(k) for k in ("HOME", "DL4J_TPU_DATA_DIR")}
+    os.environ["HOME"] = root
+    os.environ["DL4J_TPU_DATA_DIR"] = os.path.join(root, "data")
+    try:
+        mnist_dir = os.path.join(root, "mnist")
+        os.makedirs(mnist_dir)
+        mnist_shaped_idx(mnist_dir, SEED + 2660)
+        cifar_dir = os.path.join(root, "cifar")
+        cifar_batches(cifar_dir, SEED + 2661)
+        iris = os.path.join(root, "iris.data")
+        iris_data(iris, SEED + 2662)
+        cases = {
+            "mnist_idx": lambda d: MnistDataSetIterator(
+                FETCH_B, path=mnist_dir, seed=SEED + 2663, device=d),
+            "cifar_bin": lambda d: CifarDataSetIterator(
+                FETCH_B, path=cifar_dir, seed=SEED + 2664, device=d),
+            "iris_data": lambda d: IrisDataSetIterator(
+                150, path=iris, device=d),
+            "mnist_synthetic": lambda d: MnistDataSetIterator(
+                FETCH_B, seed=SEED + 2665, device=d),
+            "cifar_synthetic": lambda d: CifarDataSetIterator(
+                FETCH_B, seed=SEED + 2666, device=d),
+            "iris_synthetic": lambda d: IrisDataSetIterator(device=d),
+            "curves_synthetic": lambda d: CurvesDataSetIterator(
+                FETCH_B, seed=SEED + 2667, device=d),
+            "lfw_synthetic": lambda d: LFWDataSetIterator(
+                FETCH_B, path=os.path.join(root, "no_lfw"),
+                seed=SEED + 2668, device=d),
+        }
+        rows = {}
+        for name, make in cases.items():
+            t0 = time.perf_counter()
+            card_it = make(None)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            cpu_it = make("cpu")
+            n, same = 0, True
+            for a, b in zip(card_it, cpu_it):
+                same = same and a.features.is_cuda and (
+                    torch_equal_bits(a.features.cpu(), b.features)
+                    and torch_equal_bits(a.labels.cpu(), b.labels))
+                n += 1
+            check(same and n == len(cpu_it) > 0, f"[fetchers] {name}: the "
+                  f"card's {n} batches differ from the CPU read")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in card_it:
+                pass
+            torch.cuda.synchronize()
+            rows[name] = {
+                "examples": card_it.descriptor.num_examples,
+                "synthetic": card_it.descriptor.synthetic,
+                "shape": list(card_it.features.shape[1:]), "batches": n,
+                "load_s": round(load_s, 3),
+                "batches_per_s": round(n / (time.perf_counter() - t0), 1)}
+            check(card_it.descriptor.synthetic == name.endswith(
+                "synthetic"), f"[fetchers] {name}: {card_it.descriptor}")
+            del card_it, cpu_it
+        check(rows["mnist_idx"]["examples"] == NI_N
+              and rows["cifar_bin"]["examples"] == 5 * FETCH_CIFAR_ROWS
+              and rows["iris_data"]["examples"] == 150,
+              f"[fetchers] sizes {rows}")
+        it = MnistDataSetIterator(FETCH_B, path=mnist_dir, seed=SEED + 2669)
+        net = zoo.lenet(seed=SEED + 2670)
+        probe = next(iter(it))
+        it.reset()
+        s0 = net.score(DataSet(probe.features, probe.labels))
+        t0 = time.perf_counter()
+        steps = 0
+        for ds in it:
+            net.fit_batch(ds)
+            steps += 1
+            if steps == 20:
+                break
+        torch.cuda.synchronize()
+        lenet_s = time.perf_counter() - t0
+        s1 = net.score(DataSet(probe.features, probe.labels))
+        check(s1 < s0, f"[fetchers] LeNet's score did not fall: {s0:.4f} "
+              f"-> {s1:.4f}")
+    finally:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+    phase("fetchers", iterators=json.dumps(rows), card_equals_cpu=True,
+          lenet_steps=steps, lenet_s=f"{lenet_s:.3f}",
+          score_before=f"{s0:.4f}", score_after=f"{s1:.4f}",
+          lfw_images="not on the card (its host has no PIL); synthetic set",
+          alongside=alongside or "nothing",
+          phase_s=f"{time.perf_counter() - t_phase:.1f}", card=card)
+
+
+def phase_slice26(card=None):
+    """Slice 26's phases, in order; their seconds together. No kernel of
+    the port runs on them."""
+    import shutil
+
+    from deeplearning4j_tpu_torch.ops import registry
+    t0 = time.perf_counter()
+    registry.reset_launches()
+    phase_nlp_steps(card)
+    sentences = phase_word2vec(card)
+    phase_glove(sentences, card)
+    del sentences
+    phase_paragraph_vectors(card)
+    phase_graph_embed(card)
+    # the two [nlp_distributed] ranks boot and train while [fetchers], a
+    # host-bound phase, runs; no timed phase before it shares the card
+    started = nlpd_spawn()
+    try:
+        phase_fetchers(card, alongside="[nlp_distributed]'s two ranks")
+        phase_nlp_distributed(card, started)
+    finally:
+        stop_ranks(started[1])
+        shutil.rmtree(started[0], ignore_errors=True)
+    check_no_kernel_launched("[slice26]")
+    phase("slice26", phases_s=f"{time.perf_counter() - t0:.1f}", card=card)
+
+
+# the full run's seconds by top-level phase (time_phases)
+PHASE_SECONDS = {}
+
+
+def time_phases():
+    """Wraps every phase_* function of this module so that each call
+    made outside another phase adds its seconds to PHASE_SECONDS under
+    the phase's name (the full run's [phase_seconds] line). Children
+    started by spawn_ranks import the module afresh, unwrapped."""
+    depth = [0]
+
+    def wrap(name, fn):
+        def timed(*args, **kw):
+            depth[0] += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                depth[0] -= 1
+                if depth[0] == 0:
+                    PHASE_SECONDS[name] = (PHASE_SECONDS.get(name, 0.0)
+                                           + time.perf_counter() - t0)
+        return timed
+    g = globals()
+    for name in [n for n in g if n.startswith("phase_") and callable(g[n])]:
+        g[name] = wrap(name[len("phase_"):], g[name])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -13564,6 +14606,10 @@ def main() -> int:
         phase_slice25(card)
         print(ok_line, flush=True)
         return 0
+    if "--slice26" in sys.argv[1:]:
+        phase_slice26(phase_device())
+        print(ok_line, flush=True)
+        return 0
     if "--slice15" in sys.argv[1:]:
         kernels = phase_slice15(phase_device())
         if "--stream-split" in sys.argv[1:]:
@@ -13572,6 +14618,7 @@ def main() -> int:
         print(ok_line, flush=True)
         return 0
 
+    time_phases()
     card = phase_device()
     # C.3.2: the profiler's probe first in the process, and again after
     # every other phase (PERF.md section 6)
@@ -13621,9 +14668,13 @@ def main() -> int:
     phase_experts(card)
     phase_mesh_decode(card)
     phase_slice25(card)
+    phase_slice26(card)
     phase_stream_split()
     profiler_probe("after_all", profiles=5, names=names)
     phase("profiler", pause_s=PROFILE_PAUSE_S, **PROFILES)
+    phase("phase_seconds", **{k: f"{v:.1f}" for k, v in sorted(
+        PHASE_SECONDS.items(), key=lambda kv: -kv[1])},
+          total=f"{time.perf_counter() - PROCESS_T0:.1f}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(ok_line, flush=True)
     return 0

@@ -7,14 +7,19 @@ from deeplearning4j_tpu_torch.datasets.iterator import (
     DevicePrefetchIterator, IteratorDataSetIterator, ListDataSetIterator,
     MultipleEpochsIterator, ReconstructionDataSetIterator,
     SamplingDataSetIterator)
+from deeplearning4j_tpu_torch.datasets.fetchers import (
+    CifarDataSetIterator, CurvesDataSetIterator, IrisDataSetIterator,
+    LFWDataSetIterator, MnistDataSetIterator)
 from deeplearning4j_tpu_torch.datasets.records import (
     CollectionRecordReader, CSVRecordReader, RecordReaderDataSetIterator,
     SequenceRecordReaderDataSetIterator)
 
 __all__ = ["ArrayDataSetIterator", "AsyncDataSetIterator",
-           "CollectionRecordReader", "CSVRecordReader", "DataSet",
+           "CifarDataSetIterator", "CollectionRecordReader",
+           "CSVRecordReader", "CurvesDataSetIterator", "DataSet",
            "DataSetIterator", "DevicePrefetchIterator",
-           "IteratorDataSetIterator", "ListDataSetIterator",
-           "MultiDataSet", "MultipleEpochsIterator",
+           "IrisDataSetIterator", "IteratorDataSetIterator",
+           "LFWDataSetIterator", "ListDataSetIterator",
+           "MnistDataSetIterator", "MultiDataSet", "MultipleEpochsIterator",
            "ReconstructionDataSetIterator", "RecordReaderDataSetIterator", "SamplingDataSetIterator",
            "SequenceRecordReaderDataSetIterator"]

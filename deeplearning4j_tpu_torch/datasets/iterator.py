@@ -73,7 +73,9 @@ class ArrayDataSetIterator(DataSetIterator):
         self._epoch = 0
         self._drop_last = drop_last
 
-    def __iter__(self):
+    def _selections(self):
+        """Each batch's example indices for one pass (the pass's epoch
+        counted when it starts)."""
         n = self.features.shape[0]
         idx = np.arange(n)
         if self._shuffle:
@@ -81,7 +83,10 @@ class ArrayDataSetIterator(DataSetIterator):
         self._epoch += 1
         stop = (n // self._batch) * self._batch if self._drop_last else n
         for start in range(0, stop, self._batch):
-            sel = idx[start:start + self._batch]
+            yield idx[start:start + self._batch]
+
+    def __iter__(self):
+        for sel in self._selections():
             yield DataSet(self.features[sel],
                           None if self.labels is None else self.labels[sel])
 

@@ -32,7 +32,9 @@ package on a machine without ``nvcc``.
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -307,12 +309,19 @@ def sass_counts(name: str, opcodes, function: str = "") -> dict:
     ``cuobjdump -sass``: which instructions the compiler emitted. Only the
     functions whose mangled name holds ``function`` count (all by
     default), so one template instantiation can be read alone."""
-    tool = Path(nvcc_path()).parent / "cuobjdump"
-    sass = subprocess.run([str(tool), "-sass", str(library_path(name))],
-                          check=True, capture_output=True, text=True).stdout
+    sass = _sass_text(str(library_path(name)))
     if function:  # each function's code follows "Function : <name>"
         sass = "\n".join(f for f in sass.split("Function : ")[1:]
                          if function in f.split(None, 1)[0])
-    words = [w.split(".")[0] for line in sass.splitlines()
-             for w in line.replace(";", " ").split()]
-    return {op: words.count(op) for op in opcodes}
+    words = collections.Counter(w.split(".")[0] for line in sass.splitlines()
+                                for w in line.replace(";", " ").split())
+    return {op: words[op] for op in opcodes}
+
+
+@functools.lru_cache(maxsize=None)
+def _sass_text(path: str) -> str:
+    """``cuobjdump -sass`` of the library at ``path`` (a built library's
+    path carries its source hash, so one dump serves every count)."""
+    tool = Path(nvcc_path()).parent / "cuobjdump"
+    return subprocess.run([str(tool), "-sass", path], check=True,
+                          capture_output=True, text=True).stdout

@@ -619,3 +619,138 @@ def test_load_net_raises_without_a_card(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         load_net(str(tmp_path / "c"))
     assert load_net(str(tmp_path / "c"), device="cpu").device.type == "cpu"
+
+
+# the modules of the NLP, graph-embedding and fetcher slice
+NLP_GRAPH_MODULES = [
+    "deeplearning4j_tpu_torch.nlp",
+    "deeplearning4j_tpu_torch.nlp.tokenization",
+    "deeplearning4j_tpu_torch.nlp.vocab",
+    "deeplearning4j_tpu_torch.nlp.elements",
+    "deeplearning4j_tpu_torch.nlp.lookup",
+    "deeplearning4j_tpu_torch.nlp.sequence_vectors",
+    "deeplearning4j_tpu_torch.nlp.word2vec",
+    "deeplearning4j_tpu_torch.nlp.paragraph_vectors",
+    "deeplearning4j_tpu_torch.nlp.glove",
+    "deeplearning4j_tpu_torch.nlp.serializers",
+    "deeplearning4j_tpu_torch.nlp.vectorizers",
+    "deeplearning4j_tpu_torch.nlp.distributed",
+    "deeplearning4j_tpu_torch.nlp.cjk",
+    "deeplearning4j_tpu_torch.graph",
+    "deeplearning4j_tpu_torch.graph.graph",
+    "deeplearning4j_tpu_torch.graph.walks",
+    "deeplearning4j_tpu_torch.graph.deepwalk",
+    "deeplearning4j_tpu_torch.graph.node2vec",
+    "deeplearning4j_tpu_torch.datasets.fetchers",
+]
+
+
+@pytest.mark.parametrize("module", NLP_GRAPH_MODULES)
+def test_nlp_graph_and_fetcher_modules_are_checked(module):
+    """Each module of the NLP, graph-embedding and fetcher slice is among
+    the sources the import tests check."""
+    assert module in {_module_name(p) for p in SOURCES}
+
+
+def _public(module):
+    """The public names a JAX module defines or re-exports from its own
+    package (imported modules and library names left out)."""
+    import types
+    return sorted(n for n, v in vars(module).items()
+                  if not n.startswith("_")
+                  and not isinstance(v, types.ModuleType)
+                  and getattr(v, "__module__", module.__name__)
+                  .startswith(module.__name__.split(".")[0]))
+
+
+def test_nlp_graph_and_fetcher_public_names_match_the_jax_package():
+    """The slice's modules import in a fresh interpreter with jax and the
+    JAX package blocked, and each carries every public name its JAX
+    module defines or re-exports from the package."""
+    import importlib
+    mods = {m[len("deeplearning4j_tpu_torch."):]: _public(
+        importlib.import_module(m.replace("_torch", "")))
+        for m in NLP_GRAPH_MODULES}
+    mods["datasets"] = ["CifarDataSetIterator", "CurvesDataSetIterator",
+                        "IrisDataSetIterator", "LFWDataSetIterator",
+                        "MnistDataSetIterator"]
+    assert mods["nlp"] and mods["graph"] and mods["nlp.elements"]
+    code = ("import sys, importlib, json\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['deeplearning4j_tpu'] = None\n"
+            f"sys.path.insert(0, {str(ROOT)!r})\n"
+            f"mods = {mods!r}\n"
+            "missing = {m: [n for n in names if not hasattr(importlib."
+            "import_module('deeplearning4j_tpu_torch.' + m), n)]\n"
+            "           for m, names in mods.items()}\n"
+            "print(json.dumps({m: v for m, v in missing.items() if v}))\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, cwd=str(ROOT))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "{}"
+
+
+NLP_GRAPH_ENTRY_POINTS = {
+    "Word2Vec": lambda d: __import__(
+        "deeplearning4j_tpu_torch.nlp", fromlist=["x"]).Word2Vec(device=d),
+    "SequenceVectors": lambda d: __import__(
+        "deeplearning4j_tpu_torch.nlp", fromlist=["x"]).SequenceVectors(
+            device=d),
+    "ParagraphVectors": lambda d: __import__(
+        "deeplearning4j_tpu_torch.nlp", fromlist=["x"]).ParagraphVectors(
+            device=d),
+    "Glove": lambda d: __import__(
+        "deeplearning4j_tpu_torch.nlp", fromlist=["x"]).Glove(device=d),
+    "InMemoryLookupTable": lambda d: __import__(
+        "deeplearning4j_tpu_torch.nlp.lookup", fromlist=["x"])
+    .InMemoryLookupTable(__import__(
+        "deeplearning4j_tpu_torch.nlp.vocab", fromlist=["x"])
+        .VocabConstructor().build([["a", "b", "a"]]), 4, device=d),
+    "DeepWalk": lambda d: __import__(
+        "deeplearning4j_tpu_torch.graph", fromlist=["x"]).DeepWalk(device=d),
+    "Node2Vec": lambda d: __import__(
+        "deeplearning4j_tpu_torch.graph", fromlist=["x"]).Node2Vec(device=d),
+    "MnistDataSetIterator": lambda d: __import__(
+        "deeplearning4j_tpu_torch.datasets", fromlist=["x"])
+    .MnistDataSetIterator(8, num_examples=16, device=d),
+    "IrisDataSetIterator": lambda d: __import__(
+        "deeplearning4j_tpu_torch.datasets", fromlist=["x"])
+    .IrisDataSetIterator(device=d),
+    "CifarDataSetIterator": lambda d: __import__(
+        "deeplearning4j_tpu_torch.datasets", fromlist=["x"])
+    .CifarDataSetIterator(8, num_examples=16, device=d),
+    "CurvesDataSetIterator": lambda d: __import__(
+        "deeplearning4j_tpu_torch.datasets", fromlist=["x"])
+    .CurvesDataSetIterator(8, num_examples=16, device=d),
+    "LFWDataSetIterator": lambda d: __import__(
+        "deeplearning4j_tpu_torch.datasets", fromlist=["x"])
+    .LFWDataSetIterator(8, num_examples=16, image_size=(8, 8),
+                        path="/nonexistent", device=d),
+}
+
+
+@pytest.mark.parametrize("name", list(NLP_GRAPH_ENTRY_POINTS))
+def test_nlp_graph_and_fetcher_entry_points_raise_without_a_card(
+        no_cuda, monkeypatch, tmp_path, name):
+    monkeypatch.setenv("HOME", str(tmp_path))
+    monkeypatch.delenv("DL4J_TPU_DATA_DIR", raising=False)
+    make = NLP_GRAPH_ENTRY_POINTS[name]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make(None)
+    assert make("cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("fmt", ["text", "binary"])
+def test_word_vector_readers_raise_without_a_card(no_cuda, tmp_path, fmt):
+    from deeplearning4j_tpu_torch.nlp import serializers as ser
+    from deeplearning4j_tpu_torch.nlp.lookup import InMemoryLookupTable
+    from deeplearning4j_tpu_torch.nlp.vocab import VocabConstructor
+    lk = InMemoryLookupTable(VocabConstructor().build([["a", "b", "a"]]), 4,
+                             device="cpu")
+    w, r = (("write_word_vectors", "read_word_vectors") if fmt == "text"
+            else ("write_word2vec_binary", "read_word2vec_binary"))
+    p = str(tmp_path / "v")
+    getattr(ser, w)(lk, p)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(ser, r)(p)
+    assert getattr(ser, r)(p, device="cpu").syn0.device.type == "cpu"
