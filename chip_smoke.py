@@ -308,6 +308,7 @@ import itertools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -781,12 +782,29 @@ def phase_device():
     build_s = time.perf_counter() - t0
     for name, info in built.items():
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if any(w in line for w in ("registers", "spill", "error",
+                                       "warning", "C7512", "C7515")) \
+                    and "C7519" not in line:
                 print(f"  nvcc {name}: {line.strip()}", flush=True)
     phase("device", kind=torch.cuda.get_device_name(0),
           count=torch.cuda.device_count(), torch=torch.__version__,
           cuda=torch.version.cuda, built=sorted(built),
           build_s=f"{build_s:.2f}")
+    # K3's wide bf16 kernel holds a 64 x 256 f32 accumulator a warpgroup
+    # beside S: a spill would be a local-memory round trip on every tile
+    # (its two-warpgroup instantiation reports the registers a thread has
+    # at entry; the consumers take 232 by setmaxnreg)
+    if "flash_attn_fwd" in built:
+        reps = ptxas_report(built["flash_attn_fwd"]["log"],
+                            "flash_fwd_wide_kernel_sm90")
+        for name, rep in sorted(reps.items()):
+            phase("ptxas", library="flash_attn_fwd", function=name, **rep)
+        check(len(reps) == 2 and all(
+            r.get("registers") and r.get("spill_stores") == 0
+            and r.get("spill_loads") == 0 for r in reps.values()),
+              f"flash_fwd_wide_kernel_sm90: ptxas reports {reps}: it spills "
+              f"or an instantiation is missing")
+    _build.disassemble(_build.KERNELS)  # every library's SASS at once
     # K3's bf16 route and K4-K7's bf16 paths run on wgmma fed by TMA: the
     # compiler must have emitted both into the libraries this run loads,
     # and into K4's and K5's instantiations of the mainloop, with K5's TMA
@@ -837,6 +855,32 @@ FWD_CASES = [(64, 32, 512, False, False, True),
              (64, 70, 512, True, False, True),
              (1, 70, 512, False, True, True),
              (512, 32, 512, False, True, True)]
+
+
+def ptxas_report(log, function):
+    """ptxas's -v lines (nvcc's build log) for each kernel whose mangled
+    name holds ``function``: {function<template arguments>: {registers,
+    stack_frame, spill_stores, spill_loads}}."""
+    out, current = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line or "Compiling entry" in line:
+            name = re.search(r"_Z\w+", line)
+            current = None
+            if name and function in name.group(0):
+                args = re.search(function + r"ILi(\d+)E", name.group(0))
+                current = function + (f"<{args.group(1)}>" if args else "")
+                out.setdefault(current, {})
+            continue
+        m = current and re.search(r"(\d+) bytes stack frame, (\d+) bytes "
+                                  r"spill stores, (\d+) bytes spill loads",
+                                  line)
+        if m:
+            out[current].update(zip(("stack_frame", "spill_stores",
+                                     "spill_loads"), map(int, m.groups())))
+        m = current and re.search(r"Used (\d+) registers", line)
+        if m:
+            out[current]["registers"] = int(m.group(1))
+    return out
 
 
 def fwd_errors(got, want, tol, what):
@@ -4113,8 +4157,9 @@ def phase_train_resnet18():
 # steps of each run (eager, eager again, captured): the captured run's first
 # multistep.WARMUP_STEPS are its eager warm-ups, the rest replays
 CAPTURED_STEPS = 8
-# replays (and eager steps) timed alone by CUDA events, and profiled
-CAPTURED_TIMED = 10
+# replays (and eager steps) timed alone by CUDA events, and profiled (5 a
+# reading, which leaves [wide_kernels]' GPT-J-width path its seconds)
+CAPTURED_TIMED = 5
 CAPTURED_PROFILED = 3
 
 
@@ -10366,6 +10411,36 @@ WIDE_RNN_N = 1152
 WIDE_ATT_B, WIDE_ATT_H = 4, 2
 WIDE_DH_BUDGET = {"float32": 2944, "bfloat16": 5248}
 WIDE_GPT = dict(width=512, n_layers=2, n_heads=2, b=8)   # dh = 256
+# bf16 K3 also at GPT-J-6B's attention shape: 16 heads of 256, T = 2,048,
+# b = 4 and 1 (flash_fwd_wide_kernel_sm90's main path, below)
+WIDE_GPTJ_SHAPES = [(4, 2048, 16, 256), (1, 2048, 16, 256)]
+# The GPT-J-width path: gpt_mini at EleutherAI's GPT-J-6B attention and
+# FFN widths and context (n_embd 4,096, n_head 16, FFN 4 x 4,096 = 16,384,
+# n_positions 2,048; the rotary dimensions aside, the repo's GPT-2-style
+# block takes only the widths), BF16, random weights from SEED. Cut: depth
+# 28 -> 2 blocks; the vocabulary stays the zoo's 80 characters (a one-hot
+# input over GPT-J's 50,400 tokens would make the embedding a [8,192 x
+# 50,400] dense product that says nothing of attention). Served in
+# requests of 1 and 4 rows (buckets 2 and 4: the batcher's floor is 2
+# rows), then 3 fit_batch steps at b = 4 with the zoo's Adam at 0.01 of its
+# 3e-4 (3e-6: GPT-J warmed its 1.2e-4 up over 3,000 steps; at 3e-4 these
+# random 4,096-wide weights' score climbs over 3 steps with either
+# attention, K3 or causal_mha_dot: --wide-faults).
+GPTJ = dict(width=4096, n_heads=16, max_len=2048, n_layers=2, vocab=80,
+            requests=(1, 4), fit_b=4, steps=3, lr_scale=0.01)
+# The GPT-J-width path against the same net with attention through
+# causal_mha_dot. Its output row by row: log p - log p_plain over a row's
+# vocabulary is the two logit vectors' difference less a constant, so its
+# spread (max - min) is that of the logit differences whatever the
+# probabilities' size (GPT_PROB_TOL alone, against 80-way probabilities of
+# mean 0.0125, would pass a fault of the long rows). GPT_PROB_TOL's
+# reasoning bounds a logit's move by ~0.1, so a row's spread by 0.2. The
+# steps' scores: both forwards differ only by K3's p rounding and
+# tiling, both backwards recompute through causal_mha_dot, and at 3e-6
+# Adam moves no weight by more than 2 lr a step, so each step's mean loss
+# over 8,192 tokens stays within TRAIN_SCORE_RTOL's 1e-3 relative.
+GPTJ_LOGIT_SPREAD = 0.2
+GPTJ_SCORE_RTOL = 1e-3
 
 
 def lstm_bytes(T, b, n, elem, backward):
@@ -10456,74 +10531,550 @@ def wide_lstm_case(dtype, n):
     return out
 
 
+def flash_wide_fma(q, k, v):
+    """The FMA wide kernel (dl4j_flash_attn_fwd_wide) on inputs of either
+    dtype, called through the library directly: the port's wrapper takes
+    flash_fwd_wide_kernel_sm90 for bf16, and this keeps the wide route's
+    first version (its bf16 instantiation) held and timed beside it. Not a
+    launch of the port's path, so not counted."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import attention as att
+    lib = att._bind()
+    b, T, h, dh = q.shape
+    out = torch.empty_like(q)
+    rc = lib.dl4j_flash_attn_fwd_wide(
+        1 if q.dtype == torch.bfloat16 else 0, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), out.data_ptr(), b, T, h, dh,
+        torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"the FMA wide flash kernel failed: cudaError {rc}")
+    return out
+
+
+def flash_within(got, want, v, dtype):
+    """(max abs err, limit text, ok, worst row's ulps) of ``got`` against
+    ``want`` under K3's limits: f32 FLASH_F32_TOL; bf16 FLASH_BF16_ULPS at
+    max|v| and, row by row, FLASH_BF16_ULPS at the row's own max|want|
+    (the worst row's error in ulps at its max is the fourth item; None
+    for f32). A row's output shrinks as its keys grow in number (with
+    N(0, 1) scores about (i + 1) / e keys carry row i's weight, so |out|
+    ~ 0.8 sqrt(e / (i + 1))), to ~1/100 of max|v| at T = 2,048: held at
+    max|v| alone, a fault of the long rows (a key tile dropped, a stale
+    l, a wrong rescale) would pass."""
+    d = (got.float() - want.float()).abs()
+    err = d.max().item()
+    if dtype == "float32":
+        return (err, f"{FLASH_F32_TOL}+{FLASH_F32_TOL}*|want|",
+                not (d > FLASH_F32_TOL * (1 + want.float().abs())).any(),
+                None)
+    vmax = float(v.float().abs().max())
+    lim = FLASH_BF16_ULPS * 2.0 ** (math.floor(math.log2(vmax)) - 7)
+    top = want.float().abs().amax(-1).clamp_min(1e-30)
+    row_ulps = float((d.amax(-1) / (top.log2().floor() - 7).exp2()).max())
+    return (err, f"{lim:.3e} and {FLASH_BF16_ULPS} ulps at each row's "
+            f"max", err <= lim and row_ulps <= FLASH_BF16_ULPS, row_ulps)
+
+
 def wide_attention_case(dtype, b, T, h, dh, grads=False):
     """K3 on the wide route through the port's wrapper (counted), twice,
     bit-equal, held against causal_mha_exact under K3's limits (f32
     FLASH_F32_TOL; bf16 FLASH_BF16_ULPS at max|v|), beside the plain
     version (causal_mha_dot) and SDPA (is_causal=True) at the same shape.
-    The wide counter must move by the calls made before the timing."""
+    bf16 runs flash_fwd_wide_kernel_sm90, held and timed beside the FMA
+    wide kernel's bf16 instantiation (its first version, flash_wide_fma)
+    under the same limits, in turns (new, first, first, new); its plan's
+    shared memory must be the C side's. The wide counters (and for bf16
+    the sm90 one) must move by the calls made before the timing."""
     import torch
     import torch.nn.functional as F
     from deeplearning4j_tpu_torch.ops import attention as att
     from deeplearning4j_tpu_torch.ops import registry
     td = getattr(torch, dtype)
-    base = registry.launches().get(att.KERNEL_WIDE, 0)
+    bf16 = dtype == "bfloat16"
+    names = (att.KERNEL_WIDE, att.KERNEL_WIDE_SM90)
+    base = {n: registry.launches().get(n, 0) for n in names}
     q, k, v = flash_inputs(b, T, h, dh, td, seed=dh)
     what = f"flash_attn_fwd (wide) ({b},{T},{h},{dh}) {dtype}"
     check(att.attention_route(td, T, T, dh) == "kernel"
           and att.flash_route(td, dh) == "wide", f"{what}: not the wide "
           f"route")
+    fields = {}
+    if bf16:
+        plan = att.wide_sm90_plan(dh)
+        smem = att._bind().dl4j_flash_attn_fwd_wide_sm90_smem_bytes(dh)
+        check(smem == plan.smem_bytes, f"{what}: wide_sm90_plan says "
+              f"{plan.smem_bytes} B of shared memory, the kernel {smem}")
+        fields.update(slices=len(plan.slices), q_rows=plan.q_rows,
+                      q_resident=plan.q_resident, smem_bytes=smem)
     with torch.inference_mode():
         got = att.flash_attn_fwd_cuda(q, k, v)
         again = att.flash_attn_fwd_cuda(q, k, v)
+        first = flash_wide_fma(q, k, v) if bf16 else None
         torch.cuda.synchronize()
         exact = att.causal_mha_exact(q, k, v)
         dot = att.flash_attn_fwd_torch(q, k, v)
     check(torch.isfinite(got.float()).all().item(), f"{what}: not finite")
     check(torch.equal(got, again), f"{what}: two calls differ")
-    d = (got.float() - exact.float()).abs()
-    err = d.max().item()
-    dot_err = float((got.float() - dot.float()).abs().max())
-    if dtype == "float32":
-        tol = f"{FLASH_F32_TOL}+{FLASH_F32_TOL}*|want|"
-        ok = not (d > FLASH_F32_TOL * (1 + exact.float().abs())).any()
-    else:
-        vmax = float(v.float().abs().max())
-        lim = FLASH_BF16_ULPS * 2.0 ** (math.floor(math.log2(vmax)) - 7)
-        tol, ok = f"{lim:.3e}", err <= lim
+    err, tol, ok, row_ulps = flash_within(got, exact, v, dtype)
     check(bool(ok), f"{what} disagrees with causal_mha_exact: max abs err "
-          f"{err:.3e} > {tol}")
+          f"{err:.3e}, worst row {row_ulps} ulps at its max; limits {tol}")
+    dot_err = float((got.float() - dot.float()).abs().max())
+    if bf16:
+        first_err, _, ok, first_rows = flash_within(first, exact, v, dtype)
+        check(bool(ok), f"{what}: the FMA wide kernel disagrees with "
+              f"causal_mha_exact: max abs err {first_err:.3e}, worst row "
+              f"{first_rows} ulps at its max; limits {tol}")
+        fields.update(first_max_abs_err=f"{first_err:.3e}",
+                      ulps_at_out_max=f"{ulps_off(got, exact.float()):.2f}",
+                      row_ulps=f"{row_ulps:.2f}",
+                      first_row_ulps=f"{first_rows:.2f}")
     calls = 2
-    fields = {}
     if grads:
         fields["grad_err_of_tol"] = f"{flash_grads_vs_exact(q, k, v):.2e}"
         calls += 1
-    counted = registry.launches().get(att.KERNEL_WIDE, 0) - base
-    check(counted == calls, f"{what}: flash_attn_fwd_wide moved by "
-          f"{counted} in {calls} calls")
+    counted = {n: registry.launches().get(n, 0) - base[n] for n in names}
+    want = {att.KERNEL_WIDE: calls, att.KERNEL_WIDE_SM90: calls if bf16 else 0}
+    check(counted == want, f"{what}: the wide counters moved by {counted} "
+          f"in {calls} calls, want {want}")
+    reps = 10 if T * dh <= 256 * 1024 else 5
     with torch.inference_mode():
-        ms = device_ms_per_call(lambda: att.flash_attn_fwd_cuda(q, k, v),
-                                reps=10)[0]
+        run = lambda: att.flash_attn_fwd_cuda(q, k, v)  # noqa: E731
+        ms = device_ms_per_call(run, reps=reps)[0]
+        if bf16:
+            fma = lambda: flash_wide_fma(q, k, v)  # noqa: E731
+            first_ms = [device_ms_per_call(fma, reps=reps)[0]
+                        for _ in range(2)]
+            ms_again = device_ms_per_call(run, reps=reps)[0]
+            fields.update(ms_again=f"{ms_again:.4f}",
+                          first_ms=json.dumps([round(x, 4)
+                                               for x in first_ms]),
+                          first_over_new=f"{min(first_ms) / ms:.2f}")
         plain_ms = cuda_ms(lambda: att.flash_attn_fwd_torch(q, k, v),
                            reps=5)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         lib_ms = device_ms_per_call(
             lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                    is_causal=True),
-            reps=10)[0]
-    elem = 2 if dtype == "bfloat16" else 4
+            reps=reps)[0]
+    elem = 2 if bf16 else 4
     # the causal work: T (T + 1) / 2 score and weight pairs a head
     flops = 4 * b * h * dh * T * (T + 1) // 2
     bound_ms, bound_by = bound(flops, 4 * b * T * h * dh * elem, dtype)
-    phase("wide_kernels", kernel="flash_attn_fwd", route="wide",
-          dtype=dtype, b=b, T=T, h=h, dh=dh, max_abs_err=f"{err:.3e}",
-          vs_plain_dot=f"{dot_err:.3e}", tol=tol, deterministic=True,
-          ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
-          library_ms=f"{lib_ms:.4f}", bound_ms=f"{bound_ms:.5f}",
+    phase("wide_kernels", kernel="flash_attn_fwd",
+          route="wide_sm90" if bf16 else "wide", dtype=dtype, b=b, T=T, h=h,
+          dh=dh, max_abs_err=f"{err:.3e}", vs_plain_dot=f"{dot_err:.3e}",
+          tol=tol, deterministic=True, ms=f"{ms:.4f}",
+          plain_ms=f"{plain_ms:.4f}", library_ms=f"{lib_ms:.4f}",
+          lib_over_new=f"{lib_ms / ms:.3f}", bound_ms=f"{bound_ms:.5f}",
           bound_by=bound_by, roofline_share=f"{bound_ms / ms:.4f}",
           **fields)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+    out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+    del q, k, v, got, again, first, exact, dot
+    torch.cuda.empty_cache()
+    return out
+
+
+def gptj_net(cfg=GPTJ):
+    """The GPT-J-width gpt_mini (``cfg``), BF16, on the card, its random
+    weights from SEED (the same weights at every call)."""
+    from deeplearning4j_tpu_torch import zoo
+    return zoo.gpt_mini(width=cfg["width"], n_heads=cfg["n_heads"],
+                        max_len=cfg["max_len"], n_layers=cfg["n_layers"],
+                        vocab_size=cfg["vocab"], dtype=zoo.BF16,
+                        device="cuda", seed=SEED + 2700)
+
+
+@contextlib.contextmanager
+def attention_through(op, fn):
+    """Registers ``fn`` as the card's ``op`` ("causal_mha" or
+    "flash_attn_fwd") while the block runs; the kernel's after."""
+    from deeplearning4j_tpu_torch.ops import registry
+    kernel_fn = registry.get(op, "cuda")
+    registry.register(op, "cuda")(fn)
+    try:
+        yield
+    finally:
+        registry.register(op, "cuda")(kernel_fn)
+
+
+def plain_attention():
+    """The card's causal_mha through K3's plain version (causal_mha_dot,
+    differentiated by autograd)."""
+    from deeplearning4j_tpu_torch.ops import attention as att
+    return attention_through(
+        "causal_mha", lambda q, k, v, *, q_start=0: att.causal_mha_dot(
+            q, k, v, q_start=q_start))
+
+
+def logit_spread(got, want):
+    """The largest spread (max - min over the vocabulary) of log got -
+    log want in a row of softmax probabilities: the spread of the two
+    rows' logit differences, whatever the probabilities' size."""
+    import torch
+    r = got.double().log() - want.double().log()
+    spread = (r.amax(-1) - r.amin(-1)).max()
+    return float(spread) if torch.isfinite(spread) else math.inf
+
+
+def gptj_train(net, ds, cfg, lr_scale):
+    """cfg["steps"] fit_batch steps of ``net`` on ``ds`` at ``lr_scale`` of
+    the zoo's rate, the launch counters set to 0 just before and read just
+    after: (scores, step ms, launches, peak GB)."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import registry
+    net.set_lr_scale(lr_scale)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    registry.reset_launches()
+    scores, step_ms = [], []
+    for _ in range(cfg["steps"]):
+        t1 = time.perf_counter()
+        scores.append(float(net.fit_batch(ds)))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    return (scores, step_ms, dict(registry.launches()),
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def gptj_path(card, cfg=GPTJ):
+    """[wide_kernels] path=gptj_width: the GPT-J-width gpt_mini (GPTJ)
+    served through ModelServer's /predict, K3's launches in the served
+    forwards exact (2 a forward, every one on flash_fwd_wide_kernel_sm90),
+    each reply bit-equal to net.output of its padded bucket (those
+    forwards counted apart); the output held against the same net with
+    attention through K3's plain version on the card (GPT_PROB_TOL, and
+    GPTJ_LOGIT_SPREAD row by row); then cfg["steps"] fit_batch steps, the
+    counters set to 0 just before and read just after: 2 K3 launches a
+    step (the forward through FlashAttentionFn; its backward recomputes
+    through causal_mha_dot), the score falls, no composed call, and each
+    step's score within GPTJ_SCORE_RTOL of the same steps with attention
+    through causal_mha_dot. Returns (the launches of the steps,
+    fields)."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import attention as att
+    from deeplearning4j_tpu_torch.ops import registry
+    from deeplearning4j_tpu_torch.serving import ModelServer
+    from deeplearning4j_tpu_torch.serving.batcher import next_bucket
+    T, V, L = cfg["max_len"], cfg["vocab"], cfg["n_layers"]
+    counters = (att.KERNEL, att.KERNEL_SM90, att.KERNEL_WIDE,
+                att.KERNEL_WIDE_SM90)
+
+    def k3_launches(what, forwards):
+        torch.cuda.synchronize()
+        got = {c: registry.launches().get(c, 0) for c in counters}
+        want = L * forwards   # one a block a forward
+        check(got[att.KERNEL] == got[att.KERNEL_WIDE]
+              == got[att.KERNEL_WIDE_SM90] == want
+              and got[att.KERNEL_SM90] == 0 and not registry.routes(),
+              f"gptj_width {what}: K3 launches {got} in {forwards} "
+              f"forwards, want {want} on {att.KERNEL_WIDE_SM90}; composed "
+              f"{registry.routes()}")
+        return got
+
+    t0 = time.perf_counter()
+    net = gptj_net(cfg)
+    build_s = time.perf_counter() - t0
+    blk = net.layers[1]
+    check((blk.n_heads, blk.head_dim) == (cfg["n_heads"],
+                                         cfg["width"] // cfg["n_heads"])
+          and att.launch_route(torch.bfloat16, blk.head_dim) == "wide_sm90",
+          f"gptj_width: blocks of {blk.n_heads} heads of {blk.head_dim}")
+    params = net.num_params()
+    rng = np.random.default_rng(SEED + 2701)
+    eye = np.eye(V, dtype=np.float32)
+    requests = [eye[rng.integers(0, V, (n, T))] for n in cfg["requests"]]
+    max_batch = max(cfg["requests"])
+    torch.cuda.synchronize()
+    registry.reset_launches()
+    srv = ModelServer(net, port=0, max_batch=max_batch,
+                      input_shapes=[(T, V)])
+    srv.start()
+    warm = len(srv.shapes_seen)
+    replies, times = [], []
+    try:
+        for x in requests:
+            t1 = time.perf_counter()
+            status, body = post_json(srv.url + "/predict",
+                                     {"features": x.tolist()}, timeout=600)
+            times.append(time.perf_counter() - t1)
+            check(status == 200, f"gptj_width /predict answered {status}")
+            replies.append(np.asarray(body["predictions"], np.float32))
+        status, metrics = get_json(srv.url + "/metrics")
+        check(status == 200, f"/metrics answered {status}")
+    finally:
+        srv.stop()
+    forwards = warm + metrics["batches_total"]
+    served = k3_launches("served", forwards)
+    # the reference forwards, counted apart
+    registry.reset_launches()
+    bit_equal, buckets = True, []
+    for x, y in zip(requests, replies):
+        n = x.shape[0]
+        b = next_bucket(n, max_batch, 2)
+        pad = np.zeros((b, T, V), np.float32)
+        pad[:n] = x
+        with torch.inference_mode():
+            want = net.output(pad).float().cpu().numpy()[:n]
+        check(y.shape == (n, T, V) and np.isfinite(y).all()
+              and np.allclose(y.sum(-1), 1.0, atol=1e-3),
+              f"gptj_width: a reply of {y.shape} is not rows of "
+              f"distributions")
+        bit_equal &= bool(np.array_equal(want, y))
+        buckets.append(b)
+    check(bit_equal, "gptj_width: a served reply differs from net.output "
+          "of its bucket")
+    k3_launches("reference", len(requests))
+    # the same net with attention through K3's plain version on the card
+    x1 = requests[0]
+    with torch.inference_mode():
+        got = net.output(x1).float()
+        with plain_attention():
+            plain = net.output(x1).float()
+    plain_err = float((got - plain).abs().max())
+    spread = logit_spread(got, plain)
+    check(plain_err <= GPT_PROB_TOL and spread <= GPTJ_LOGIT_SPREAD,
+          f"gptj_width: output vs attention through causal_mha_dot: "
+          f"{plain_err:.3e} (limit {GPT_PROB_TOL}), a row's logit spread "
+          f"{spread:.3e} (limit {GPTJ_LOGIT_SPREAD})")
+
+    ds = on_card(markov_batches(1, cfg["fit_b"], T, V, SEED + 2702))[0]
+    scores, step_ms, launches, peak_gb = gptj_train(net, ds, cfg,
+                                                   cfg["lr_scale"])
+    steps = {c: launches.get(c, 0) for c in counters}
+    want = L * cfg["steps"]
+    check(steps[att.KERNEL] == steps[att.KERNEL_WIDE]
+          == steps[att.KERNEL_WIDE_SM90] == want
+          and steps[att.KERNEL_SM90] == 0 and not registry.routes(),
+          f"gptj_width: K3 launches {steps} in {cfg['steps']} steps, want "
+          f"{want} on {att.KERNEL_WIDE_SM90}; composed {registry.routes()}")
+    check(all(map(math.isfinite, scores)) and scores[-1] < scores[0],
+          f"gptj_width: the score did not fall over {cfg['steps']} steps: "
+          f"{scores}")
+    del net
+    torch.cuda.empty_cache()
+    # the same steps from the same weights, attention through
+    # causal_mha_dot (forward and backward)
+    with plain_attention():
+        plain_scores = gptj_train(gptj_net(cfg), ds, cfg,
+                                  cfg["lr_scale"])[0]
+    score_err = max(abs(a - c) / abs(c) for a, c in zip(scores,
+                                                         plain_scores))
+    check(score_err <= GPTJ_SCORE_RTOL, f"gptj_width: the steps' scores "
+          f"{scores} vs {plain_scores} with attention through "
+          f"causal_mha_dot: {score_err:.3e} > {GPTJ_SCORE_RTOL} relative")
+    fields = dict(
+        model=f"gpt_mini(vocab={V},width={cfg['width']},blocks={L},"
+              f"heads={cfg['n_heads']},T={T},BF16)",
+        source="GPT-J-6B (EleutherAI): n_embd 4096, n_head 16, "
+               "n_positions 2048; depth 28 -> 2, vocab 50400 -> 80",
+        params=params, build_s=f"{build_s:.1f}",
+        requests=json.dumps([int(x.shape[0]) for x in requests]),
+        buckets=json.dumps(buckets), warm_forwards=warm,
+        served_forwards=forwards, served_launches=json.dumps(served),
+        request_ms=json.dumps([round(t * 1e3, 1) for t in times]),
+        replies_bit_equal=bit_equal, vs_plain_attention=f"{plain_err:.3e}",
+        tol=GPT_PROB_TOL, logit_spread=f"{spread:.3e}",
+        logit_spread_tol=GPTJ_LOGIT_SPREAD, fit_b=cfg["fit_b"],
+        lr=f"{3e-4 * cfg['lr_scale']:g}",
+        scores=json.dumps([round(x, 6) for x in scores]),
+        plain_attention_scores=json.dumps([round(x, 6)
+                                           for x in plain_scores]),
+        score_rel_err=f"{score_err:.3e}", score_rtol=GPTJ_SCORE_RTOL,
+        step_ms=json.dumps([round(t, 1) for t in step_ms]),
+        step_launches=json.dumps(steps), peak_gb=f"{peak_gb:.1f}", card=card)
+    del ds
+    torch.cuda.empty_cache()
+    return steps, fields
+
+
+# --wide-split: where flash_fwd_wide_kernel_sm90's time goes at GPT-J's
+# shape. Each variant is the kernel's source with a part taken out (text
+# edits of csrc/flash_attn_fwd.cu, built beside the library), timed in
+# turns with the whole kernel: the products alone (no softmax, no loads
+# after the first two key tiles), the rest alone (no products, no loads),
+# the kernel without its loads and without its softmax. Their outputs are
+# not held to anything: only their times are read.
+WIDE_SPLIT_EDITS = {
+    "no_softmax": [("    softmax_tile(sc, m, l, alpha, w, ki);\n",
+                    "    alpha[0] = alpha[1] = l[0] = l[1] = 1.f;\n"
+                    "#pragma unroll\n"
+                    "    for (int i = 0; i < 32; ++i) sc[i] = 0.25f;\n")],
+    "no_loads": [("      unsigned char* st = ring + s * kStageBytes;\n",
+                  "      unsigned char* st = ring + s * kStageBytes;\n"
+                  "      if (ki >= 2) {\n"
+                  "        sm90::mbar_arrive(&full[s]);\n"
+                  "        continue;\n"
+                  "      }\n")],
+    "no_products": [
+        ("      sm90::wgmma_m64n64k16<0, 0>(sc, dq + off, dk + off);",
+         "      (void)off;"),
+        ("      sm90::wgmma_m64n256k16_rs<1>(o, pa[kk], db);", "      (void)db;"),
+        ("      sm90::wgmma_m64n128k16_rs<1>(o, pa[kk], db);",
+         "      (void)db;")],
+}
+WIDE_SPLIT_VARIANTS = {
+    "whole": (), "without_loads": ("no_loads",),
+    "without_softmax": ("no_softmax",),
+    "products_only": ("no_softmax", "no_loads"),
+    "rest_only": ("no_products", "no_loads")}
+
+
+def build_wide_variants(variants, dirname):
+    """csrc/flash_attn_fwd.cu with each variant's text edits ``variants``
+    ({name: [(old, new), ...]}) applied, built by nvcc all at once under
+    the build directory's ``dirname``: {name: a library with
+    dl4j_flash_attn_fwd_wide_sm90 bound}."""
+    import ctypes
+    import shutil
+    from deeplearning4j_tpu_torch.ops import _build
+    src = (_build.CSRC / "flash_attn_fwd.cu").read_text()
+    root = _build.build_dir() / dirname
+    procs = {}
+    for name, edits in variants.items():
+        text = src
+        for old, new in edits:
+            check(old in text, f"[{dirname}] {name}: the source no longer "
+                  f"holds {old.strip()!r}")
+            text = text.replace(old, new)
+        d = root / name
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "flash_attn_fwd.cu").write_text(text)
+        shutil.copy(_build.CSRC / "sm90_gemm.cuh", d / "sm90_gemm.cuh")
+        procs[name] = subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+             str(d / "lib.so"), str(d / "flash_attn_fwd.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        check(proc.returncode == 0, f"[{dirname}] {name}: nvcc exited "
+              f"{proc.returncode}\n{log}")
+        lib = ctypes.CDLL(str(root / name / "lib.so"))
+        lib.dl4j_flash_attn_fwd_wide_sm90.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        libs[name] = lib
+    return libs
+
+
+def wide_sm90_call(lib):
+    """flash_fwd_wide_kernel_sm90 of the variant library ``lib`` as a K3
+    forward on contiguous q, k, v (uncounted)."""
+    import torch
+
+    def fwd(q, k, v):
+        out = torch.empty_like(q)
+        rc = lib.dl4j_flash_attn_fwd_wide_sm90(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            *q.shape, torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"a variant's launch failed: cudaError {rc}")
+        return out
+    return fwd
+
+
+def phase_wide_split(shape=WIDE_GPTJ_SHAPES[0]):
+    """[wide_split]: WIDE_SPLIT_VARIANTS built in parallel, each timed
+    (device_ms_per_call, CUDA events) in turns, first to last and back."""
+    import torch
+    libs = build_wide_variants(
+        {name: [e for part in parts for e in WIDE_SPLIT_EDITS[part]]
+         for name, parts in WIDE_SPLIT_VARIANTS.items()}, "wide_split")
+    q, k, v = flash_inputs(*shape, torch.bfloat16, seed=shape[-1])
+    calls = {name: wide_sm90_call(lib) for name, lib in libs.items()}
+    ms = {name: [] for name in libs}
+    for name in list(libs) + list(reversed(list(libs))):
+        ms[name].append(device_ms_per_call(lambda: calls[name](q, k, v),
+                                           reps=20)[0])
+    phase("wide_split", kernel="flash_fwd_wide_kernel_sm90",
+          shape=json.dumps(list(shape)), dtype="bfloat16",
+          method=DEVICE_METHOD,
+          ms=json.dumps({n: [round(x, 4) for x in t] for n, t in ms.items()}))
+    return ms
+
+
+# --wide-faults: what K3's limits and the GPT-J-width path's checks see of
+# a planted fault of flash_fwd_wide_kernel_sm90's long rows, and what 3
+# steps at the zoo's rate (3e-4) do to the GPT-J-width path's score with
+# either attention. Each fault is a text edit of csrc/flash_attn_fwd.cu
+# built beside the library, as --wide-split builds its variants, and hits
+# only the query rows 1,984-2,047 at key tile 16 (keys 1,024-1,087):
+# "drop_tile" gives that tile's p 0 (neither l nor O takes it), "stale_l"
+# leaves l as it was before the tile.
+WIDE_FAULT_HIT = "(w.q0 == 1984 && k0 == 1024)"
+WIDE_FAULT_EDITS = {
+    "drop_tile": [("      }\n      sc[i] = p;\n",
+                   f"      }}\n      sc[i] = {WIDE_FAULT_HIT} ? 0.f : p;\n")],
+    "stale_l": [("    l[h] = __fmaf_rn(alpha[h], l[h], sum);\n",
+                 f"    if (!{WIDE_FAULT_HIT})\n"
+                 "      l[h] = __fmaf_rn(alpha[h], l[h], sum);\n")],
+}
+
+
+def phase_wide_faults(card=None, shape=WIDE_GPTJ_SHAPES[0], cfg=GPTJ):
+    """[wide_faults]: the kernel and each WIDE_FAULT_EDITS variant at
+    GPT-J's shape against causal_mha_exact, read under both bf16 limits
+    (2 ulps at max|v|; 2 ulps at each row's max), then in the GPT-J-width
+    path's output against attention through causal_mha_dot (GPT_PROB_TOL,
+    GPTJ_LOGIT_SPREAD); then cfg["steps"] steps of that path at the zoo's
+    rate with the kernel and with causal_mha_dot. Fails unless the kernel
+    passes both limits and each fault fails the row limit."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import attention as att
+    calls = {"kernel": att.flash_attn_fwd_cuda}
+    calls.update((name, wide_sm90_call(lib)) for name, lib in
+                 build_wide_variants(WIDE_FAULT_EDITS, "wide_faults").items())
+    q, k, v = flash_inputs(*shape, torch.bfloat16, seed=shape[-1])
+    vmax = float(v.float().abs().max())
+    vmax_lim = FLASH_BF16_ULPS * 2.0 ** (math.floor(math.log2(vmax)) - 7)
+    with torch.inference_mode():
+        exact = att.causal_mha_exact(q, k, v)
+        for name, fwd in calls.items():
+            got = fwd(q, k, v)
+            torch.cuda.synchronize()
+            err, _, _, rows = flash_within(got, exact, v, "bfloat16")
+            row_ok = rows <= FLASH_BF16_ULPS
+            check(row_ok == (name == "kernel") and (err <= vmax_lim
+                                                    or name != "kernel"),
+                  f"[wide_faults] {name}: max abs err {err:.3e} (limit at "
+                  f"max|v| {vmax_lim:.3e}), worst row {rows:.2f} ulps")
+            phase("wide_faults", level="kernel", variant=name,
+                  shape=json.dumps(list(shape)), max_abs_err=f"{err:.3e}",
+                  vmax_limit=f"{vmax_lim:.3e}",
+                  within_vmax_limit=err <= vmax_lim,
+                  worst_row_ulps=f"{rows:.2f}", within_row_limit=row_ok)
+    del q, k, v, exact, got
+    torch.cuda.empty_cache()
+
+    net = gptj_net(cfg)
+    T, V = cfg["max_len"], cfg["vocab"]
+    rng = np.random.default_rng(SEED + 2701)   # gptj_path's first request
+    x1 = np.eye(V, dtype=np.float32)[rng.integers(0, V,
+                                                  (cfg["requests"][0], T))]
+    with torch.inference_mode():
+        with plain_attention():
+            plain = net.output(x1).float()
+        for name, fwd in calls.items():
+            with attention_through(
+                    "causal_mha", lambda q, k, v, *, q_start=0, f=fwd: f(
+                        q.contiguous(), k.contiguous(), v.contiguous())):
+                got = net.output(x1).float()
+            err = float((got - plain).abs().max())
+            spread = logit_spread(got, plain)
+            late = float((got - plain)[:, 1984:].abs().max())
+            phase("wide_faults", level="path", variant=name,
+                  vs_plain_attention=f"{err:.3e}", prob_tol=GPT_PROB_TOL,
+                  rows_1984_on=f"{late:.3e}", logit_spread=f"{spread:.3e}",
+                  logit_spread_tol=GPTJ_LOGIT_SPREAD)
+    ds = on_card(markov_batches(1, cfg["fit_b"], T, V, SEED + 2702))[0]
+    scores = gptj_train(net, ds, cfg, 1.0)[0]
+    del net
+    torch.cuda.empty_cache()
+    with plain_attention():
+        plain_scores = gptj_train(gptj_net(cfg), ds, cfg, 1.0)[0]
+    phase("wide_faults", level="train", lr=3e-4, fit_b=cfg["fit_b"],
+          kernel_scores=json.dumps([round(x, 6) for x in scores]),
+          plain_attention_scores=json.dumps([round(x, 6)
+                                             for x in plain_scores]),
+          card=card)
 
 
 def wide_train(make, batches, counters, what):
@@ -10548,12 +11099,15 @@ def wide_train(make, batches, counters, what):
 
 def phase_wide_kernels(card=None):
     """[wide_kernels] (ROADMAP C.6): the wide K1/K2 and K3 routes at the
-    widths WIDE_LSTM and the head sizes above, each against its plain
-    version, its time beside its bound (and SDPA's beside K3); a
-    GravesLSTM char-RNN (n = WIDE_RNN_N, F32) and a wide-head gpt_mini
-    (dh = 256, F32) take 2 fit_batch steps each with the wide kernels
-    launched and counted. Nothing falls back: a failed build or launch
-    fails the phase. Returns the kernels JSON entries."""
+    widths WIDE_LSTM and the head sizes above (bf16 K3 also at GPT-J's
+    shapes, on flash_fwd_wide_kernel_sm90 beside its first version), each
+    against its plain version, its time beside its bound (and SDPA's
+    beside K3); a GravesLSTM char-RNN (n = WIDE_RNN_N, F32) and a
+    wide-head gpt_mini (dh = 256, F32) take 2 fit_batch steps each with
+    the wide kernels launched and counted; then the GPT-J-width gpt_mini
+    (GPTJ, BF16) is served and trained (gptj_path). Nothing falls back: a
+    failed build or launch fails the phase. Returns the kernels JSON
+    entries."""
     import torch
     from deeplearning4j_tpu_torch import zoo
     from deeplearning4j_tpu_torch.ops import attention as att
@@ -10565,7 +11119,7 @@ def phase_wide_kernels(card=None):
         fields = wide_lstm_case(dtype, n)
         if (dtype, n) == ("float32", WIDE_RNN_N):
             lstm_main = fields
-    att_main = None
+    att_main = sm90_main = None
     for dtype in ("float32", "bfloat16"):
         shapes = [(WIDE_ATT_B, 256, WIDE_ATT_H, dh) for dh in (256, 512,
                                                                1024)]
@@ -10573,12 +11127,16 @@ def phase_wide_kernels(card=None):
         if dtype == "float32":
             shapes.append((WIDE_GPT["b"], 256, WIDE_GPT["n_heads"],
                            WIDE_GPT["width"] // WIDE_GPT["n_heads"]))
+        else:
+            shapes += WIDE_GPTJ_SHAPES
         for b, T, h, dh in shapes:
             fields = wide_attention_case(
                 dtype, b, T, h, dh, grads=(dtype, T, dh) == ("float32",
                                                              256, 256))
             if (b, dtype) == (WIDE_GPT["b"], "float32"):
                 att_main = fields
+            if (b, T, h, dh) == WIDE_GPTJ_SHAPES[0]:
+                sm90_main = fields
 
     # the training paths, counted from 0
     rnn_counts, rnn_scores = wide_train(
@@ -10611,8 +11169,10 @@ def phase_wide_kernels(card=None):
           width=WIDE_GPT["width"], heads=WIDE_GPT["n_heads"], dh=256,
           blocks=WIDE_GPT["n_layers"], policy="F32", b=WIDE_GPT["b"], T=256,
           steps=2, scores=json.dumps([round(x, 6) for x in gpt_scores]),
-          launches=json.dumps(gpt_counts),
-          phase_s=f"{time.perf_counter() - t_phase:.1f}", card=card)
+          launches=json.dumps(gpt_counts))
+    gptj_steps, gptj_fields = gptj_path(card)
+    phase("wide_kernels", path="gptj_width", **gptj_fields,
+          phase_s=f"{time.perf_counter() - t_phase:.1f}")
     entries = []
     for name, launches, src, rep in (
             ("lstm_fwd_wide", rnn_counts[lstm_ops.FWD_WIDE], "lstm_fwd.cu",
@@ -10631,6 +11191,12 @@ def phase_wide_kernels(card=None):
                               "flash_attn_fwd.cu",
                     "replaces": "deeplearning4j_tpu/ops/attention.py:252",
                     "launches": gpt_counts[att.KERNEL_WIDE], **att_main})
+    entries.append({"name": "flash_attn_fwd_wide_sm90", "route": "cuda",
+                    "source": "deeplearning4j_tpu_torch/ops/csrc/"
+                              "flash_attn_fwd.cu",
+                    "replaces": "deeplearning4j_tpu/ops/attention.py:252",
+                    "launches": gptj_steps[att.KERNEL_WIDE_SM90],
+                    **sm90_main})
     return entries
 
 
@@ -14446,6 +15012,54 @@ def phase_slice26(card=None):
     phase("slice26", phases_s=f"{time.perf_counter() - t0:.1f}", card=card)
 
 
+def slice26_start(card):
+    """Slice 26's phases in a child process (``--slice26-child``), which
+    the full run starts once its last timed kernel phase is done: they
+    are host-bound, launch no kernel of the port (their own process holds
+    their own counters) and run beside the parallel and import phases.
+    Returns what slice26_join reads."""
+    import tempfile
+    root = tempfile.mkdtemp(prefix="slice26_")
+    out = open(os.path.join(root, "out.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--slice26-child", card],
+        stdout=out, stderr=subprocess.STDOUT, start_new_session=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    return proc, out, root, time.perf_counter()
+
+
+def slice26_join(started, timeout_s=1200):
+    """Waits for slice26_start's child, prints its lines (all but its
+    last, the ok line) and fails unless it exited 0; the child's process
+    group (its own children too) is stopped whatever happens. Returns the
+    seconds waited here."""
+    import shutil
+    import signal
+    proc, out, root, t_start = started
+    t0 = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=max(1.0, timeout_s - (t0 - t_start)))
+    except subprocess.TimeoutExpired:
+        rc = "timeout"
+    finally:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait(timeout=60)
+        out.close()
+    try:
+        with open(out.name) as f:
+            lines = f.read().splitlines()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    ok = rc == 0 and lines and lines[-1].startswith('{"ok": true')
+    print("\n".join(lines[:-1] if ok else lines), flush=True)
+    check(ok, f"[slice26] the child exited {rc}")
+    waited = time.perf_counter() - t0
+    phase("slice26_child", wall_s=f"{time.perf_counter() - t_start:.1f}",
+          waited_s=f"{waited:.1f}")
+    return waited
+
+
 # the full run's seconds by top-level phase (time_phases)
 PHASE_SECONDS = {}
 
@@ -14549,6 +15163,15 @@ def main() -> int:
             only(card)
             print(ok_line, flush=True)
             return 0
+    if "--wide-split" in sys.argv[1:]:
+        phase_device()
+        phase_wide_split()
+        print(ok_line, flush=True)
+        return 0
+    if "--wide-faults" in sys.argv[1:]:
+        phase_wide_faults(phase_device())
+        print(ok_line, flush=True)
+        return 0
     if "--wide-kernels" in sys.argv[1:]:
         kernels = phase_wide_kernels(phase_device())
         print(json.dumps({"kernels": kernels}), flush=True)
@@ -14610,6 +15233,10 @@ def main() -> int:
         phase_slice26(phase_device())
         print(ok_line, flush=True)
         return 0
+    if "--slice26-child" in sys.argv[1:]:   # slice26_start's child
+        phase_slice26(sys.argv[sys.argv.index("--slice26-child") + 1])
+        print(ok_line, flush=True)
+        return 0
     if "--slice15" in sys.argv[1:]:
         kernels = phase_slice15(phase_device())
         if "--stream-split" in sys.argv[1:]:
@@ -14660,15 +15287,22 @@ def main() -> int:
     phase_routes(card)
     phase_coordinated(card)
     kernels += phase_wide_kernels(card)
-    phase_tensor_parallel(card)
-    phase_graph_tensor_parallel(card)
-    phase_mesh_serving(card)
-    phase_sequence_parallel(card)
-    phase_pipeline(card)
-    phase_experts(card)
-    phase_mesh_decode(card)
-    phase_slice25(card)
-    phase_slice26(card)
+    # no kernel is timed from here to [stream_split]: slice 26 runs beside
+    slice26 = slice26_start(card)
+    try:
+        phase_tensor_parallel(card)
+        phase_graph_tensor_parallel(card)
+        phase_mesh_serving(card)
+        phase_sequence_parallel(card)
+        phase_pipeline(card)
+        phase_experts(card)
+        phase_mesh_decode(card)
+        phase_slice25(card)
+    except BaseException:
+        with contextlib.suppress(BaseException):
+            slice26_join(slice26, timeout_s=0)   # stopped, not waited for
+        raise
+    PHASE_SECONDS["slice26_wait"] = slice26_join(slice26)
     phase_stream_split()
     profiler_probe("after_all", profiles=5, names=names)
     phase("profiler", pause_s=PROFILE_PAUSE_S, **PROFILES)

@@ -34,11 +34,11 @@ from __future__ import annotations
 
 import collections
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 import uuid
@@ -61,6 +61,7 @@ COUNTER_LIBRARY = {
     "flash_attn_fwd": "flash_attn_fwd",
     "flash_attn_fwd_sm90": "flash_attn_fwd",
     "flash_attn_fwd_wide": "flash_attn_fwd",
+    "flash_attn_fwd_wide_sm90": "flash_attn_fwd",
     "stream_dense": "stream_exact", "stream_mha": "stream_exact",
     "stream_rownorm": "stream_exact",
     **{f"fused_block_{k}{s}": "fused_block"
@@ -309,7 +310,8 @@ def sass_counts(name: str, opcodes, function: str = "") -> dict:
     ``cuobjdump -sass``: which instructions the compiler emitted. Only the
     functions whose mangled name holds ``function`` count (all by
     default), so one template instantiation can be read alone."""
-    sass = _sass_text(str(library_path(name)))
+    disassemble((name,))
+    sass = _SASS[str(library_path(name))]
     if function:  # each function's code follows "Function : <name>"
         sass = "\n".join(f for f in sass.split("Function : ")[1:]
                          if function in f.split(None, 1)[0])
@@ -318,10 +320,32 @@ def sass_counts(name: str, opcodes, function: str = "") -> dict:
     return {op: words[op] for op in opcodes}
 
 
-@functools.lru_cache(maxsize=None)
-def _sass_text(path: str) -> str:
-    """``cuobjdump -sass`` of the library at ``path`` (a built library's
-    path carries its source hash, so one dump serves every count)."""
-    tool = Path(nvcc_path()).parent / "cuobjdump"
-    return subprocess.run([str(tool), "-sass", path], check=True,
-                          capture_output=True, text=True).stdout
+#: ``cuobjdump -sass`` of each built library read so far, by path (a
+#: built library's path carries its source hash, so one dump serves
+#: every count)
+_SASS: dict = {}
+
+
+def disassemble(names) -> None:
+    """``cuobjdump -sass`` of the built libraries of ``names`` not read
+    yet, one process each, all at once, into the dumps ``sass_counts``
+    reads. Each writes into a file of its own (a pipe's buffer would hold
+    a multi-MB dump back until it is drained)."""
+    tool = str(Path(nvcc_path()).parent / "cuobjdump")
+    procs = {}
+    for name in names:
+        path = str(library_path(name))
+        if path not in _SASS and path not in procs:
+            out = tempfile.TemporaryFile("w+")
+            procs[path] = (out, subprocess.Popen(
+                [tool, "-sass", path], stdout=out, stderr=subprocess.STDOUT,
+                text=True))
+    for path, (out, proc) in procs.items():
+        with out:
+            proc.wait(timeout=600)
+            out.seek(0)
+            text = out.read()
+        if proc.returncode != 0:
+            raise KernelBuildError(f"cuobjdump -sass {path} exited "
+                                   f"{proc.returncode}\n{text}")
+        _SASS[path] = text

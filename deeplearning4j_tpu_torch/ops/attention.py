@@ -31,10 +31,13 @@ softmax run in f32 whatever the compute dtype; masked positions get
   Hopper kernel (TMA loads, wgmma products; each launch also counted
   under ``flash_attn_fwd_sm90``), f32 the f32-FMA kernel (the tensor
   cores' f32 path, TF32, would round the inputs); every other dh (256,
-  384, ...) runs the wide kernel in either dtype (the output's dh split
-  over blocks, each recomputing the row statistics; each launch also
-  counted under ``flash_attn_fwd_wide``). A failure raises, naming the
-  route; nothing falls back.
+  384, ...) takes the wide route (the output's dh split over blocks, each
+  recomputing the row statistics; each launch also counted under
+  ``flash_attn_fwd_wide``): bf16 on the wide Hopper kernel (TMA, wgmma,
+  slices of 256 columns; also counted under ``flash_attn_fwd_wide_sm90``;
+  ``wide_sm90_plan`` states its layout), f32 on the FMA wide kernel.
+  ``launch_route`` names a call's kernel, ``ROUTE_COUNTERS`` its
+  counters. A failure raises, naming the route; nothing falls back.
 - ``extend_cache``: the streaming KV-cache write, with
   ``lax.dynamic_update_slice``'s clamp of the start.
 - ``decode_mha``: incremental decode, the new tokens' queries against the
@@ -47,6 +50,7 @@ softmax run in f32 whatever the compute dtype; masked positions get
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 
@@ -57,6 +61,8 @@ from deeplearning4j_tpu_torch.ops import registry, stream_exact
 KERNEL = "flash_attn_fwd"
 KERNEL_SM90 = "flash_attn_fwd_sm90"  # launches on the bf16 (sm90) route
 KERNEL_WIDE = "flash_attn_fwd_wide"  # launches on the wide route
+# bf16 launches on the wide route, on flash_fwd_wide_kernel_sm90
+KERNEL_WIDE_SM90 = "flash_attn_fwd_wide_sm90"
 # the head sizes K3's sm90 and FMA kernels are compiled for; the wide
 # kernel takes every other multiple of WIDE_DH_STEP
 KERNEL_HEAD_DIMS = (64, 128)
@@ -341,6 +347,11 @@ def _bind():
     lib.dl4j_flash_attn_fwd_wide.restype = i32
     lib.dl4j_flash_attn_fwd_wide_smem_bytes.argtypes = []
     lib.dl4j_flash_attn_fwd_wide_smem_bytes.restype = i32
+    lib.dl4j_flash_attn_fwd_wide_sm90.argtypes = [ptr] * 4 + [i32] * 4 \
+        + [ptr]
+    lib.dl4j_flash_attn_fwd_wide_sm90.restype = i32
+    lib.dl4j_flash_attn_fwd_wide_sm90_smem_bytes.argtypes = [i32]
+    lib.dl4j_flash_attn_fwd_wide_sm90_smem_bytes.restype = i32
     lib.dl4j_cuda_error_string.argtypes = [i32]
     lib.dl4j_cuda_error_string.restype = ctypes.c_char_p
     lib._dl4j_bound = True
@@ -352,6 +363,69 @@ def flash_flops(b, T, h, dh) -> int:
     (``causal_mha_dot``): q kᵀ and p v over the whole T x T square (the
     causal mask is applied to the scores, not to the products)."""
     return 4 * b * h * T * T * dh
+
+
+# flash_fwd_wide_kernel_sm90's layout (csrc/flash_attn_fwd.cu, fw90):
+# output slices of 256 columns, a ring of 4 stages of 32 KB, 1 KB of
+# alignment and 9 barriers, 128 query rows a block (two warpgroups) where
+# that q tile fits beside them in bf16, else 64, and q resident where its
+# tile fits
+WIDE_SM90_SLICE = 256
+WIDE_SM90_STAGES = 4
+WIDE_SM90_STAGE_BYTES = 32 * 1024
+SMEM_PER_BLOCK = 232448          # the most shared memory an H100 block has
+
+
+#: the wide Hopper kernel at one head size: ``slices`` the (first column,
+#: width) of each block's output slice along dh, ``q_rows`` a block's
+#: query rows (64 a consumer warpgroup)
+WideSm90Plan = collections.namedtuple(
+    "WideSm90Plan", "slices q_resident stages smem_bytes q_rows")
+
+
+def wide_sm90_plan(dh) -> WideSm90Plan:
+    """The wide Hopper kernel's choices at head size ``dh`` (a multiple of
+    128 from 256 up; ``ValueError`` otherwise), as its C side makes them
+    (``dl4j_flash_attn_fwd_wide_sm90_smem_bytes`` gives the same bytes):
+    the output's dh in slices of 256 columns, the last 128 where dh % 256
+    == 128, each slice one block's accumulator (128 f32 a thread of a
+    warpgroup); 128 query rows a block (two warpgroups sharing each k and
+    v tile) where that q tile fits in shared memory beside the ring (dh
+    <= 384), else 64; q resident where its tile fits (dh <= 768), else
+    streamed through the ring with k."""
+    if dh < 2 * WIDE_DH_STEP or dh % WIDE_DH_STEP:
+        raise ValueError(f"the wide sm90 kernel takes multiples of "
+                         f"{WIDE_DH_STEP} from {2 * WIDE_DH_STEP}, got "
+                         f"dh={dh}")
+    slices = tuple((d0, min(WIDE_SM90_SLICE, dh - d0))
+                   for d0 in range(0, dh, WIDE_SM90_SLICE))
+    fixed = (1024 + WIDE_SM90_STAGES * WIDE_SM90_STAGE_BYTES
+             + (1 + 2 * WIDE_SM90_STAGES) * 8)
+    rows = 128 if fixed + 128 * dh * 2 <= SMEM_PER_BLOCK else 64
+    q_tile = rows * dh * 2
+    resident = fixed + q_tile <= SMEM_PER_BLOCK
+    return WideSm90Plan(slices, resident, WIDE_SM90_STAGES,
+                        fixed + (q_tile if resident else 0), rows)
+
+
+#: the launch counters one K3 call on the card adds 1 to, by its
+#: ``launch_route``
+ROUTE_COUNTERS = {
+    "sm90": (KERNEL, KERNEL_SM90),
+    "fma": (KERNEL,),
+    "wide": (KERNEL, KERNEL_WIDE),
+    "wide_sm90": (KERNEL, KERNEL_WIDE, KERNEL_WIDE_SM90),
+}
+
+
+def launch_route(dtype, dh=64) -> str:
+    """The kernel a K3 call on the card launches: ``flash_route``'s, with
+    the wide route's bf16 calls on the wide Hopper kernel ("wide_sm90")
+    and its f32 calls on the FMA wide kernel ("wide")."""
+    route = flash_route(dtype, dh)
+    if route == "wide" and dtype == torch.bfloat16:
+        return "wide_sm90"
+    return route
 
 
 def flash_route(dtype, dh=64):
@@ -372,13 +446,16 @@ def flash_attn_fwd_cuda(q, k, v):
     """Launch csrc/flash_attn_fwd.cu on the current stream: causal MHA
     over contiguous q/k/v [b, T, h, dh], read in that layout; at dh 64 and
     128 bf16 on the sm90 kernel and f32 on the FMA kernel, at any other
-    multiple of 128 the wide kernel (``flash_route``). Raises on what the
-    kernel does not take; never falls back to the other kernel or to the
-    plain version."""
+    multiple of 128 the wide route (``flash_route``): bf16 on the wide
+    sm90 kernel, f32 on the FMA wide kernel. Raises on what the kernel
+    does not take; never falls back to the other kernel or to the plain
+    version."""
+    b, T, h, dh = check_flash_inputs(q, k, v)
+    route = launch_route(q.dtype, dh)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attn_fwd needs CUDA tensors, got "
-                         f"{q.device}")
-    b, T, h, dh = check_flash_inputs(q, k, v)
+                         f"{q.device} (the {route} route's kernel runs on "
+                         f"the card only)")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous [b, T, h, dh]")
@@ -390,7 +467,6 @@ def flash_attn_fwd_cuda(q, k, v):
             "the flash_attn_fwd wrapper records no graph; call causal_mha, "
             "which differentiates through FlashAttentionFn, or run under "
             "torch.inference_mode()/torch.no_grad()")
-    route = flash_route(q.dtype, dh)
     lib = _bind()
     out = torch.empty_like(q)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
@@ -399,6 +475,9 @@ def flash_attn_fwd_cuda(q, k, v):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if route == "sm90":
             rc = lib.dl4j_flash_attn_fwd_sm90(*ptrs, b, T, h, dh, stream)
+        elif route == "wide_sm90":
+            rc = lib.dl4j_flash_attn_fwd_wide_sm90(*ptrs, b, T, h, dh,
+                                                   stream)
         elif route == "wide":
             rc = lib.dl4j_flash_attn_fwd_wide(code, *ptrs, b, T, h, dh,
                                               stream)
@@ -407,6 +486,8 @@ def flash_attn_fwd_cuda(q, k, v):
     if rc != 0:
         msg = lib.dl4j_cuda_error_string(rc).decode()
         smem = (lib.dl4j_flash_attn_fwd_sm90_smem_bytes(dh) if route == "sm90"
+                else lib.dl4j_flash_attn_fwd_wide_sm90_smem_bytes(dh)
+                if route == "wide_sm90"
                 else lib.dl4j_flash_attn_fwd_wide_smem_bytes()
                 if route == "wide"
                 else lib.dl4j_flash_attn_fwd_smem_bytes(code, dh))
@@ -414,10 +495,9 @@ def flash_attn_fwd_cuda(q, k, v):
             f"flash_attn_fwd kernel launch failed on the {route} route "
             f"(b={b}, T={T}, h={h}, dh={dh}, {q.dtype}, {smem} B shared "
             f"memory per block): cudaError {rc}: {msg}")
-    also = {"sm90": (KERNEL_SM90,), "wide": (KERNEL_WIDE,)}.get(route, ())
-    registry.count_launch(KERNEL)
-    for name in also:
+    counters = ROUTE_COUNTERS[route]
+    for name in counters:
         registry.count_launch(name)
     registry.count_flops(KERNEL, flash_flops(b, T, h, dh))
-    registry.note_kernel(KERNEL, out, also)
+    registry.note_kernel(KERNEL, out, counters[1:])
     return out

@@ -118,11 +118,18 @@ def pallas_interpret(monkeypatch):
     monkeypatch.setenv("DL4J_TPU_PALLAS_INTERPRET", "1")
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_plain_versions_match_jax_flash_interpret(pallas_interpret, dtype):
+@pytest.mark.parametrize(
+    "dtype,dh", [("float32", 128), ("bfloat16", 128), ("float32", 256),
+                 ("bfloat16", 256), ("float32", 384), ("bfloat16", 384)],
+    ids=["float32", "bfloat16", "float32-dh256", "bfloat16-dh256",
+         "float32-dh384", "bfloat16-dh384"])
+def test_plain_versions_match_jax_flash_interpret(pallas_interpret, dtype,
+                                                  dh):
     """At the JAX package's own flash-test shape, where ``_flash`` runs
-    its Pallas kernel in interpret mode."""
-    arrs = _qkv(2, 128, 2, 128, seed=4)
+    its Pallas kernel in interpret mode, and at the wide route's head
+    sizes 256 (one slice of the wide sm90 kernel) and 384 (a slice of 256
+    and one of 128)."""
+    arrs = _qkv(2, 128, 2, dh, seed=4)
     jq, jk, jv = _jax(arrs, dtype)
     assert jatt.attention_supported(jq, jk, jv)
     want = jatt._flash(jq, jk, jv)
@@ -161,6 +168,66 @@ def test_recompute_backward_in_bf16_keeps_the_compute_dtype():
     grads = torch.autograd.grad(out.float().sum(), leaves)
     assert all(g.dtype == torch.bfloat16 and g.shape == x.shape
                for g, x in zip(grads, leaves))
+
+
+# A BF16 gpt_mini whose heads take the wide route: width 512, 2 heads of
+# 256, 1 block, T = 128, b = 2. The JAX side's attention runs ``_flash``
+# in Pallas interpret mode; the port's CPU path runs causal_mha_exact.
+# Tolerances: tests/test_torch_transformer.py's BF16 bounds (probabilities
+# 5e-3 abs, score 2e-4 relative), which its reasons give for the same
+# model family at another width.
+GPT_DH256 = dict(vocab_size=80, width=512, n_layers=1, n_heads=2,
+                 max_len=128)
+BF16_PROB_TOL = 5e-3
+BF16_SCORE_RTOL = 2e-4
+
+
+@pytest.fixture(scope="module")
+def gpt_dh256(tmp_path_factory):
+    """One JAX run shared by the module's gpt_mini cases: the net's zip,
+    the batch, the JAX output and the JAX loss at the initial parameters
+    (value_and_grad under jit, as a train step takes it)."""
+    from deeplearning4j_tpu import zoo as jzoo
+    from deeplearning4j_tpu.utils import serialization as jser
+    rng = np.random.default_rng(13)
+    ids = rng.integers(0, 80, (2, 129))
+    eye = np.eye(80, dtype=np.float32)
+    x, y = eye[ids[:, :-1]], eye[ids[:, 1:]]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("DL4J_TPU_PALLAS_INTERPRET", "1")
+        jnet = jzoo.gpt_mini(seed=21, dtype=jzoo.models.BF16, **GPT_DH256)
+        probe = jnp.zeros((2, 128, 2, 256), jnp.bfloat16)
+        assert jatt.attention_supported(probe, probe, probe)
+        out = np.asarray(jnet.output(x))
+        loss, _ = jax.jit(jax.value_and_grad(lambda p: jnet._loss(
+            p, jnet.state, jnp.asarray(x), jnp.asarray(y), None, None,
+            None, train=True)[0]))(jnet.params)
+    path = tmp_path_factory.mktemp("gpt_dh256") / "model.zip"
+    jser.write_model(jnet, str(path))
+    return path, x, y, out, float(loss)
+
+
+def _port_gpt(path):
+    from deeplearning4j_tpu_torch.utils import serialization as tser
+    net = tser.restore_multi_layer_network(str(path), device="cpu")
+    blk = net.layers[1]
+    assert (blk.n_heads, blk.head_dim) == (2, 256)
+    assert tatt.flash_route(torch.bfloat16, blk.head_dim) == "wide"
+    return net
+
+
+def test_gpt_mini_dh256_output_matches_jax_flash(gpt_dh256):
+    path, x, _, want, _ = gpt_dh256
+    got = _port_gpt(path).output(x)
+    assert tuple(got.shape) == want.shape
+    assert np.abs(_np(got) - want).max() <= BF16_PROB_TOL
+
+
+def test_gpt_mini_dh256_first_fit_score_matches_jax_flash(gpt_dh256):
+    from deeplearning4j_tpu_torch.datasets import DataSet as TDS
+    path, x, y, _, want = gpt_dh256
+    score = float(_port_gpt(path).fit_batch(TDS(x, y)))
+    np.testing.assert_allclose(score, want, rtol=BF16_SCORE_RTOL)
 
 
 @pytest.mark.parametrize("pos,t", [([0, 3], 2), ([5, 1], 3), ([7, 9], 4),
@@ -257,6 +324,74 @@ def test_route_is_chosen_by_dtype_alone(dtype, route):
     assert tatt.flash_route(dtype) == route
 
 
+SMEM_PER_BLOCK = 232448     # an H100 block's most shared memory
+
+
+@pytest.mark.parametrize("dh", range(256, 5249, 128))
+def test_wide_sm90_plan_covers_dh_within_shared_memory(dh):
+    """The wide bf16 kernel's plan at every head size the JAX flash
+    kernel's bf16 budget takes past 128: slices of at most 256 columns that
+    cover dh exactly, in order, each a multiple of 128; shared memory
+    within a block's; 128 query rows (two warpgroups) exactly where that
+    bf16 q tile fits beside the ring (stages of 32 KB, 1 KB of alignment,
+    9 barriers), else 64; q resident exactly where its tile fits."""
+    slices, resident, stages, smem, rows = tatt.wide_sm90_plan(dh)
+    assert slices[0][0] == 0
+    assert all(a + w == b for (a, w), (b, _) in zip(slices, slices[1:]))
+    assert slices[-1][0] + slices[-1][1] == dh
+    assert all(0 < w <= 256 and w % 128 == 0 for _, w in slices)
+    assert all(w == 256 for _, w in slices[:-1])
+    ring = 1024 + stages * 32 * 1024 + (1 + 2 * stages) * 8
+    assert rows == (128 if ring + 128 * dh * 2 <= SMEM_PER_BLOCK else 64)
+    q_tile = rows * dh * 2
+    assert resident == (ring + q_tile <= SMEM_PER_BLOCK)
+    assert smem == ring + (q_tile if resident else 0) <= SMEM_PER_BLOCK
+    assert (rows, resident) == ((128, True) if dh <= 384 else
+                                (64, True) if dh <= 768 else (64, False))
+
+
+@pytest.mark.parametrize("dh", [64, 128, 192, 320])
+def test_wide_sm90_plan_refuses_other_head_sizes(dh):
+    with pytest.raises(ValueError, match="multiples of 128"):
+        tatt.wide_sm90_plan(dh)
+
+
+@pytest.mark.parametrize("dtype,dh,want", [
+    (torch.bfloat16, 256, ("flash_attn_fwd", "flash_attn_fwd_wide",
+                           "flash_attn_fwd_wide_sm90")),
+    (torch.bfloat16, 5248, ("flash_attn_fwd", "flash_attn_fwd_wide",
+                            "flash_attn_fwd_wide_sm90")),
+    (torch.float32, 256, ("flash_attn_fwd", "flash_attn_fwd_wide")),
+    (torch.float32, 2944, ("flash_attn_fwd", "flash_attn_fwd_wide")),
+    (torch.bfloat16, 64, ("flash_attn_fwd", "flash_attn_fwd_sm90")),
+    (torch.bfloat16, 128, ("flash_attn_fwd", "flash_attn_fwd_sm90")),
+    (torch.float32, 128, ("flash_attn_fwd",)),
+], ids=str)
+def test_launch_counters_by_route(dtype, dh, want):
+    """bf16 on the wide route counts under the wide kernel's counter and
+    the new sm90 one; f32's wide calls and the dh 64/128 routes count as
+    before."""
+    assert tatt.ROUTE_COUNTERS[tatt.launch_route(dtype, dh)] == want
+    assert tatt.KERNEL_WIDE_SM90 == "flash_attn_fwd_wide_sm90"
+
+
+def test_wide_sm90_counter_maps_to_k3s_library():
+    from deeplearning4j_tpu_torch.ops import _build
+    assert _build.COUNTER_LIBRARY[tatt.KERNEL_WIDE_SM90] == "flash_attn_fwd"
+
+
+@pytest.mark.parametrize("dh", [256, 384])
+def test_cuda_wrapper_refuses_cpu_tensors_on_the_wide_sm90_route(dh):
+    """bf16 CPU tensors at a wide head size are refused by the name of
+    the wide Hopper kernel's route, and nothing is counted."""
+    q = torch.zeros(1, 4, 2, dh, dtype=torch.bfloat16)
+    registry.reset_launches()
+    with pytest.raises(ValueError,
+                       match="CUDA tensors.*the wide_sm90 route"):
+        tatt.flash_attn_fwd_cuda(q, q, q)
+    assert registry.launches() == {}
+
+
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64,
                                    torch.int32])
 def test_route_refuses_other_dtypes_by_name(dtype):
@@ -316,6 +451,33 @@ def test_cuda_kernel_matches_plain(cuda_device, shape, dtype):
     assert torch.equal(got, again)
     vmax = float(arrs[2].float().abs().max())
     _assert_close(got.cpu(), want.cpu(), dtype, ulps=2, ulp_ref=vmax)
+
+
+@pytest.mark.parametrize("shape", [(2, 128, 2, 256), (1, 128, 1, 384)],
+                         ids=str)
+def test_cuda_wide_sm90_matches_plain(cuda_device, shape):
+    """bf16 at wide head sizes on flash_fwd_wide_kernel_sm90: two calls
+    bit-equal, within 2 bf16 ulps at max|v| of the plain version and, row
+    by row, within 2 ulps at the row's own max (a long row's output is far
+    below max|v|), one launch a call under each of its counters, and the
+    plan's shared memory the kernel's own."""
+    arrs = [t.to(cuda_device)
+            for t in _torch(_qkv(*shape, seed=11), "bfloat16")]
+    registry.reset_launches()
+    with torch.inference_mode():
+        got = tatt.flash_attn_fwd_cuda(*arrs)
+        again = tatt.flash_attn_fwd_cuda(*arrs)
+        want = tatt.flash_attn_fwd_torch(*arrs)
+    assert torch.equal(got, again)
+    vmax = float(arrs[2].float().abs().max())
+    _assert_close(got.cpu(), want.cpu(), "bfloat16", ulps=2, ulp_ref=vmax)
+    got, want = _np(got.cpu()), _np(want.cpu())
+    row_ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max(-1))) - 7)
+    assert (np.abs(got - want).max(-1) <= 2 * row_ulp).all()
+    assert registry.launches() == {
+        n: 2 for n in tatt.ROUTE_COUNTERS["wide_sm90"]}
+    smem = tatt._bind().dl4j_flash_attn_fwd_wide_sm90_smem_bytes(shape[-1])
+    assert smem == tatt.wide_sm90_plan(shape[-1]).smem_bytes
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -252,6 +252,37 @@ def test_build_into_the_cache_counts_and_leaves_no_temp(tmp_path,
     assert not [n for n in os.listdir(cache) if n.endswith(".tmp")]
 
 
+def test_sass_counts_read_each_library_once_all_at_once(tmp_path,
+                                                        monkeypatch):
+    """``disassemble`` runs the toolkit's cuobjdump once for each built
+    library, all at once, and ``sass_counts`` counts opcodes from those
+    dumps, by function; a failing cuobjdump raises with its output."""
+    monkeypatch.setattr(_build, "_RELEASE", ["release test"])
+    monkeypatch.setattr(_build, "_SASS", {})
+    monkeypatch.setattr(_build, "nvcc_path", lambda: _fake_nvcc(tmp_path))
+    log = tmp_path / "calls"
+    tool = tmp_path / "cuobjdump"
+    tool.write_text(
+        "#!/bin/bash\n"
+        f'echo "$2" >> {log}\n'
+        'printf "\\tFunction : _Z4wideIiEv\\n HGMMA.64x64x16 R0 ;\\n'
+        ' UTMALDG [R2] ;\\n HGMMA.64x256x16 R8 ;\\n'
+        '\\tFunction : _Z5otherv\\n HGMMA.64x64x16 R0 ;\\n"\n')
+    tool.chmod(tool.stat().st_mode | stat.S_IEXEC)
+    _build.disassemble(("flash_attn_fwd", "stream_exact", "flash_attn_fwd"))
+    assert sorted(log.read_text().split()) == sorted(
+        str(_build.library_path(n)) for n in ("flash_attn_fwd",
+                                              "stream_exact"))
+    assert _build.sass_counts("flash_attn_fwd", ("HGMMA", "UTMALDG")) == {
+        "HGMMA": 3, "UTMALDG": 1}
+    assert _build.sass_counts("stream_exact", ("HGMMA",), "wide") == {
+        "HGMMA": 2}
+    assert len(log.read_text().split()) == 2    # each library read once
+    tool.write_text('#!/bin/bash\necho "cuobjdump: planted" >&2; exit 2\n')
+    with pytest.raises(_build.KernelBuildError, match="planted"):
+        _build.disassemble(("lstm_fwd",))
+
+
 def test_load_takes_the_env_var_at_first_use(tmp_path, monkeypatch):
     """A kernel load configures the cache from the env var itself, so a
     process that loads before any server or fit still builds there."""
@@ -292,7 +323,8 @@ def test_every_launch_counter_maps_to_its_library():
     counters = {lstm.KERNEL, lstm.KERNEL + "_sm90", lstm.BWD_KERNEL,
                 lstm.BWD_KERNEL + "_sm90", lstm.FWD_WIDE, lstm.BWD_WIDE,
                 attention.KERNEL, attention.KERNEL_SM90,
-                attention.KERNEL_WIDE, se.KERNEL_DENSE, se.KERNEL_MHA,
+                attention.KERNEL_WIDE, attention.KERNEL_WIDE_SM90,
+                se.KERNEL_DENSE, se.KERNEL_MHA,
                 se.KERNEL_NORM, *fused_block.SM90_COUNTER,
                 *fused_block.SM90_COUNTER.values()}
     assert counters == set(_build.COUNTER_LIBRARY)
